@@ -1,0 +1,128 @@
+"""PyTorch port, the hand-written kernels on a CUDA card: decode attention
+(K1, CUDA C++) and RMSNorm forward (K2, Triton), each against its plain
+PyTorch version on the same inputs, and the decode path with the
+kernels on against the same path with them off.
+
+Every test is marked `cuda` and skips where there is no card. This file
+imports neither JAX nor the JAX package, so on a machine without JAX it
+runs with the test directory's conftest left out:
+
+    python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
+"""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from megatron_llm_tpu_torch.config import tiny_config
+from megatron_llm_tpu_torch.models import LlamaModel
+from megatron_llm_tpu_torch.ops import decode_attention as dec
+from megatron_llm_tpu_torch.ops import rmsnorm as rms
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the kernels have no CPU mode")
+    return torch.device("cuda")
+
+
+def _max_err(a, b):
+    return (a.float() - b.float()).abs().max().item()
+
+
+def _qkv(b, g, qpk, d, T, device, dtype, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return tuple(torch.randn(shape, generator=gen, device=device).to(dtype)
+                 for shape in ((b, 1, g, qpk, d), (b, g, T, d),
+                               (b, g, T, d)))
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-5)],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("g,qpk,d", [(32, 1, 128), (8, 8, 128), (2, 16, 64),
+                                     (3, 3, 256), (2, 5, 8)])
+def test_decode_kernel_matches_plain(cuda, g, qpk, d, dtype, tol):
+    """bf16 tolerance: the kernel rounds p to bf16 before normalising, the
+    plain version after."""
+    T = 320
+    q, k, v = _qkv(4, g, qpk, d, T, cuda, dtype, seed=qpk)
+    before = dec.decode_attention.launches
+    for length in (1, 63, 64, 65, T):
+        got = dec.decode_attention(q, k, v, length)
+        ref = dec._xla_decode(q, k, v, length)
+        torch.cuda.synchronize()
+        assert got.dtype == dtype and got.shape == q.shape
+        assert _max_err(got, ref) <= tol, f"length={length}"
+    assert dec.decode_attention.launches == before + 5
+
+
+def test_decode_kernel_reads_no_position_past_length(cuda):
+    """NaN past `length` must not reach the output."""
+    q, k, v = _qkv(2, 4, 2, 128, 64, cuda, torch.bfloat16)
+    k[:, :, 40:] = float("nan")
+    v[:, :, 40:] = float("nan")
+    got = dec.decode_attention(q, k, v, 40)
+    assert torch.isfinite(got.float()).all()
+    assert _max_err(got, dec._xla_decode(q, k[:, :, :40].contiguous(),
+                                         v[:, :, :40].contiguous(), 40)) \
+        <= 2e-2
+
+
+def test_decode_kernel_refuses_what_it_does_not_take(cuda):
+    q, k, v = _qkv(1, 1, 17, 128, 8, cuda, torch.float32)
+    with pytest.raises(ValueError, match="qpk"):
+        dec.decode_attention(q, k, v, 4)
+    q, k, v = _qkv(1, 1, 1, 12, 8, cuda, torch.float32)
+    with pytest.raises(ValueError, match="d % 8"):
+        dec.decode_attention(q, k, v, 4)
+    q, k, v = _qkv(1, 1, 1, 8, 8, cuda, torch.float16)
+    with pytest.raises(ValueError, match="float32 or bfloat16"):
+        dec.decode_attention(q, k, v, 4)
+    q, k, v = _qkv(1, 1, 1, 8, 8, cuda, torch.float32)
+    with pytest.raises(ValueError, match="length"):
+        dec.decode_attention(q, k, v, 9)
+
+
+@pytest.mark.parametrize("n,h", [(4, 4096), (256, 4096), (7, 4096), (3, 300)])
+def test_rmsnorm_kernel_matches_plain(cuda, n, h):
+    gen = torch.Generator(device=cuda).manual_seed(n)
+    for dtype, tol in ((torch.bfloat16, 2e-2), (torch.float32, 1e-5)):
+        x = torch.randn(n, h, generator=gen, device=cuda).to(dtype)
+        scale = (1 + 0.1 * torch.randn(h, generator=gen, device=cuda)) \
+            .to(dtype)
+        before = rms.fused_rms_norm.launches
+        got = rms.fused_rms_norm(x, scale, 1e-5)
+        torch.cuda.synchronize()
+        assert rms.fused_rms_norm.launches == before + 1
+        assert _max_err(got, rms.rms_norm(x, scale, 1e-5)) <= tol
+
+
+def test_decode_path_kernels_on_matches_off(cuda):
+    """Tiny GQA Llama in fp32 on the card: prefill then 8 single-token
+    steps with both kernels on, against the same steps with both off
+    (plain versions); logits within 1e-4."""
+    cfg = tiny_config(hidden_size=512, num_attention_heads=4,
+                      num_attention_heads_kv=2, kv_channels=128,
+                      ffn_hidden_size=256, compute_dtype=torch.float32,
+                      use_fused_rmsnorm=True, use_decode_attn=True)
+    on = LlamaModel(cfg)
+    off = LlamaModel(dataclasses.replace(cfg, use_fused_rmsnorm=False,
+                                         use_decode_attn=False))
+    params = on.init(seed=3)
+    toks = torch.from_numpy(
+        np.random.RandomState(0).randint(0, 256, (2, 14))).to(cuda)
+    dp = on.prepare_decode_params(params)
+    c_on, c_off = on.init_kv_caches(2, 64), off.init_kv_caches(2, 64)
+    k1 = dec.decode_attention.launches
+    with torch.inference_mode():
+        for lo, hi in [(0, 6)] + [(i, i + 1) for i in range(6, 14)]:
+            a, c_on = on.forward(dp, toks[:, lo:hi], kv_caches=c_on)
+            b, c_off = off.forward(dp, toks[:, lo:hi], kv_caches=c_off)
+            assert _max_err(a, b) <= 1e-4, (lo, hi)
+    assert dec.decode_attention.launches - k1 == 8 * cfg.num_layers
