@@ -7,26 +7,43 @@ Phases, one output line each (a failure raises and exits non-zero):
 
 1. device: the card's name and power limit from nvidia-smi;
 2. build: the hand-written kernels built from this checkout's sources
-   (nvcc for the CUDA C++ decode attention, Triton's compiler for the
-   RMSNorm), timed;
+   (one nvcc per CUDA C++ source, started together; Triton's compiler for
+   the RMSNorm), each timed;
 3. kernel checks: each kernel against its plain PyTorch version on the
-   card at the serving path's shapes (bf16, max-abs 2e-2: the decode
-   kernel rounds p to bf16 before normalising, the plain version after),
+   card at the serving paths' shapes (bf16, max-abs 2e-2: the attention
+   kernels round p to bf16 before normalising, the plain versions after),
    and each kernel's time beside its plain version's, one library call's
    and the least time the card could take;
-4. serving: Llama-2-7B at full width and depth, random bf16 weights from
-   a fixed seed on the card, behind the port's HTTP server
-   (`MegatronServer`, whole-batch route): a greedy batch of 4 prompts, a
-   sampled, a score-only and a beam request. The launch counters are set
-   to 0 before the requests and read after; the decode kernel must have
-   run 32 times per decode step;
-5. path check: the greedy output teacher-forced back through the same
+4. model: Llama-2-7B at full width and depth, random bf16 weights from a
+   fixed seed on the card, built once for both routes;
+5. serving (whole-batch route, `MegatronServer(engine=None)`): a greedy
+   batch of 4 prompts, a sampled, a score-only and a beam request. The
+   launch counters are set to 0 before the requests and read after; the
+   decode kernel must have run 32 times per decode step;
+6. path check: the greedy output teacher-forced back through the same
    cached decode path with the kernels off (plain RMSNorm, plain decode
    attention) on the card; log-probs within 5e-2 max-abs. Greedy tokens
    are not required to match (a random-init 7B has near-flat logits, so
    argmax flips on bf16 rounding): their match fraction is printed;
-6. throughput of the greedy batch: prefill ms, decode ms per step beside
-   the weight-streaming floor, tokens/s.
+7. throughput of the greedy batch: prefill ms, decode ms per step beside
+   the weight-streaming floor, tokens/s;
+8. serving_engine (the continuous-batching route, `MegatronServer(
+   engine=DecodeEngine(...))` at the launcher's defaults: 8 slots, page
+   64, max_context 2048, horizon 8, chunks of 256, prefix cache on): 16
+   requests from concurrent client threads, more than the slots, with
+   prompts of 20 to 1500 ids, two sharing a 700-token prefix, one
+   sampled and one streamed over SSE. The counters are set to 0 before
+   the traffic: the paged kernel must have run 32 times per paged
+   forward, the RMSNorm kernel too, the decode kernel not at all; the
+   prefix cache must show a hit and a copy-on-write copy, and every page
+   must be free or cached at the end;
+9. path_check_engine: the engine's greedy outputs that asked for
+   log-probs, re-scored teacher-forced with the kernels off on the card;
+   log-probs within 5e-2 max-abs, greedy-token match fraction printed;
+10. throughput_engine: wall time and generated tokens/s over the whole
+   traffic, ms per decode-token advance and per mixed round, TTFT p50,
+   the device ms of one 8-slot paged decode step beside the weight floor
+   and the idle share, peak memory.
 
 Then one JSON line of the kernels, the nvidia-smi line, and the last
 line `{"ok": true, "device": {...}}`. Without a CUDA card it exits 2 and
@@ -38,6 +55,7 @@ import dataclasses
 import json
 import subprocess
 import sys
+import threading
 import time
 from http.client import HTTPConnection
 
@@ -45,6 +63,7 @@ import numpy as np
 import torch
 
 from megatron_llm_tpu_torch.config import llama_config
+from megatron_llm_tpu_torch.inference.engine import DecodeEngine
 from megatron_llm_tpu_torch.inference.generation import (
     bucket_prefill_len,
     generate_tokens,
@@ -55,11 +74,13 @@ from megatron_llm_tpu_torch.inference.tokenization import tokenize_prompts
 from megatron_llm_tpu_torch.models import LlamaModel
 from megatron_llm_tpu_torch.ops import _build
 from megatron_llm_tpu_torch.ops import decode_attention as dec
+from megatron_llm_tpu_torch.ops import prefill_attention as pa
 from megatron_llm_tpu_torch.ops import rmsnorm as rms
 from megatron_llm_tpu_torch.tokenizer import build_tokenizer
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores
+BF16_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores
 BF16_TOL = 2e-2
 PATH_LP_TOL = 5e-2
 SEED = 0
@@ -149,18 +170,33 @@ def rotating(make, n):
 # ---------------------------------------------------------------------------
 
 
+CUDA_SOURCES = ("decode_attention.cu", "paged_attention.cu")
+
+
 def build_kernels():
+    """One nvcc per CUDA C++ source, all started together, while Triton
+    compiles the RMSNorm kernel; each build's seconds from the common
+    start to its end."""
     t0 = time.perf_counter()
-    proc, lib = _build.start_build("decode_attention.cu")  # nvcc, async
+    builds = {src: _build.start_build(src) for src in CUDA_SOURCES}
     x = torch.randn(4, 4096, device="cuda", dtype=torch.bfloat16)
     rms.fused_rms_norm(x, torch.ones(4096, device="cuda",
                                      dtype=torch.bfloat16))  # Triton JIT
     torch.cuda.synchronize()
-    t_triton = time.perf_counter() - t0
-    _build.finish_build(proc, lib)
+    seconds = {"rmsnorm_triton_s": round(time.perf_counter() - t0, 2)}
+    pending = dict(builds)
+    while pending:
+        for src, (proc, lib) in list(pending.items()):
+            if proc is None or proc.poll() is not None:
+                _build.finish_build(proc, lib)
+                key = src.replace(".", "_") + "_s"
+                seconds[key] = round(time.perf_counter() - t0, 2)
+                del pending[src]
+        time.sleep(0.05)
     dec._library()
-    say("build", decode_attention_cu_s=round(time.perf_counter() - t0, 2),
-        rmsnorm_triton_s=round(t_triton, 2), library=lib.name)
+    pa._library()
+    say("build", **seconds,
+        libraries=[lib.name for _, lib in builds.values()])
 
 
 def check_decode_kernel():
@@ -255,8 +291,168 @@ def check_rmsnorm_kernel():
     }
 
 
+# the engine's pool shape at the smoke's configuration: page 64, 32 pages
+# (2048 positions) a slot, 8 slots. (start, chunk_len) per slot.
+PAGE, SLOT_PAGES = 64, 32
+PAGED_BATCHES = {
+    # a decode round: caches ending on both sides of page boundaries,
+    # an idle slot, the longest slot
+    "decode": (1, [(0, 1), (62, 1), (63, 1), (64, 1), (699, 1),
+                   (2046, 1), (0, 0), (1499, 1)]),
+    # a mixed round: a first 256-token chunk, a 100-token chunk starting
+    # mid-page, six decode rows padded to the chunk width
+    "mixed": (256, [(0, 256), (700, 100), (1, 1), (64, 1), (130, 1),
+                    (1000, 1), (2046, 1), (511, 1)]),
+}
+
+
+def paged_inputs(batch, g, qpk, d, gen):
+    """bf16 inputs of one paged launch with the chunks' K/V already
+    scattered; table entries past each slot's reach are the null page."""
+    C, spans = PAGED_BATCHES[batch]
+    nc = len(spans)
+
+    def rnd(*shape):
+        return torch.randn(shape, generator=gen, device="cuda").to(
+            torch.bfloat16)
+
+    P = 1 + nc * SLOT_PAGES
+    k_pages, v_pages = rnd(P, PAGE, g, d), rnd(P, PAGE, g, d)
+    perm = torch.randperm(P - 1, generator=gen, device="cuda") + 1
+    pt = torch.zeros(nc, SLOT_PAGES, dtype=torch.int32, device="cuda")
+    for c, (start, ln) in enumerate(spans):
+        owned = -(-max(start + ln, 1) // PAGE)
+        pt[c, :owned] = perm[c * SLOT_PAGES:c * SLOT_PAGES + owned].int()
+    starts = torch.tensor([s for s, _ in spans], dtype=torch.int32,
+                          device="cuda")
+    lens = torch.tensor([n for _, n in spans], dtype=torch.int32,
+                        device="cuda")
+    q = rnd(nc, C, g, qpk, d)
+    pa.scatter_chunk_kv(rnd(nc, C, g, d), rnd(nc, C, g, d), k_pages,
+                        v_pages, pt, starts, lens)
+    return q, k_pages, v_pages, pt, starts, lens
+
+
+def plant_nans(batch, k_pages, v_pages, pt):
+    """NaN into the null page, every page no slot owns, and every owned
+    position at or past each chunk's end."""
+    owned = torch.zeros(k_pages.shape[0], dtype=torch.bool, device="cuda")
+    owned[pt.long().flatten()] = True
+    owned[0] = False
+    k_pages[~owned] = float("nan")
+    v_pages[~owned] = float("nan")
+    table = pt.cpu().numpy()
+    for c, (start, ln) in enumerate(PAGED_BATCHES[batch][1]):
+        end = start + ln
+        for j in range(end // PAGE, SLOT_PAGES):
+            pg = int(table[c, j])
+            if pg:
+                lo = end - j * PAGE if j == end // PAGE else 0
+                k_pages[pg, lo:] = float("nan")
+                v_pages[pg, lo:] = float("nan")
+
+
+def paged_bound_ms(batch, g, qpk, d):
+    """The least time for one launch: the larger of the bytes it must
+    move (each needed K/V position of each chunk, the valid q rows, the
+    whole output) over 3.35 TB/s and its operations (4 per q row, key
+    and head dimension over the causal span) over the bf16 peak."""
+    C, spans = PAGED_BATCHES[batch]
+    kv_pos = sum(start + ln for start, ln in spans if ln)
+    q_rows = sum(ln for _, ln in spans)
+    nbytes = 2 * (2 * kv_pos * g * d + q_rows * g * qpk * d
+                  + len(spans) * C * g * qpk * d)
+    flops = 4 * sum(start + t + 1 for start, ln in spans
+                    for t in range(ln)) * qpk * g * d
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def check_paged_kernel():
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
+    errs = {}
+    for label, (g, qpk, d) in (("llama2_7b", (32, 1, 128)),
+                               ("llama2_70b_attn", (8, 8, 128))):
+        for batch in PAGED_BATCHES:
+            q, kp, vp, pt, starts, lens = paged_inputs(batch, g, qpk, d, gen)
+            got = pa.paged_attention(q, kp, vp, pt, starts, lens)
+            ref = pa._xla_paged_reference(q, kp, vp, pt, starts, lens)
+            C = q.shape[1]
+            pad = torch.arange(C, device="cuda")[None, :] >= lens[:, None]
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs().max().item()
+            errs[f"{label}_{batch}"] = err
+            check(err <= BF16_TOL, f"K7 {label} {batch}: {err}")
+            check(bool((got[pad] == 0).all()), f"K7 {label} {batch} pad rows")
+            plant_nans(batch, kp, vp, pt)
+            dirty = pa.paged_attention(q, kp, vp, pt, starts, lens)
+            torch.cuda.synchronize()
+            check(bool(torch.isfinite(dirty.float()).all())
+                  and torch.equal(dirty, got),
+                  f"K7 {label} {batch}: NaN outside the chunks' reach "
+                  f"reached the output")
+    say("kernel_check_paged_attention", max_abs_err=errs, tol=BF16_TOL,
+        nan_guard="ok")
+
+    # time at the 7B shape, rotating over 4 input sets (the needed K/V
+    # of one decode set is 73 MB, above the 50 MB L2)
+    g, qpk, d = 32, 1, 128
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    times = {}
+    for batch in PAGED_BATCHES:
+        sets = [paged_inputs(batch, g, qpk, d, gen) for _ in range(4)]
+        pick = rotating(lambda i: sets[i], 4)
+        eager_ms = time_ms(lambda: pa.paged_attention(*pick()))
+        kernel_ms = device_ms(lambda: pa.paged_attention(*pick()))
+        plain_ms = device_ms(lambda: pa._xla_paged_reference(*pick()),
+                             per_graph=10, replays=5)
+        del sets
+
+        # library yardstick: SDPA on K/V already gathered to the dense
+        # (nc, g, T, d) view; the gather itself is left out of its time
+        def dense(i):
+            q, kp, vp, pt, starts, lens = paged_inputs(batch, g, qpk, d, gen)
+            nc, C, gq, hq, dq = q.shape
+            T = SLOT_PAGES * PAGE
+            k = kp[pt.long()].reshape(nc, T, gq, dq).transpose(1, 2)
+            v = vp[pt.long()].reshape(nc, T, gq, dq).transpose(1, 2)
+            rows = torch.arange(C, device="cuda")
+            mask = (torch.arange(T, device="cuda")[None, None, :]
+                    <= (starts[:, None] + rows[None, :])[:, :, None])
+            mask |= (rows[None, :, None] >= lens[:, None, None]) \
+                & (torch.arange(T, device="cuda") == 0)  # pad rows: col 0
+            return (q.reshape(nc, C, gq * hq, dq).transpose(1, 2),
+                    k.contiguous(), v.contiguous(), mask[:, None])
+        lib = rotating(dense, 4)
+        library_ms = device_ms(lambda: _sdpa(sdpa, lib()))
+        bound, bound_by = paged_bound_ms(batch, g, qpk, d)
+        times[batch] = {"ms": kernel_ms, "plain_ms": plain_ms,
+                        "bound_ms": bound, "bound_by": bound_by,
+                        "library_ms": library_ms,
+                        "eager_launch_ms": eager_ms}
+        del lib
+        torch.cuda.empty_cache()
+    say("kernel_time_paged_attention", **times)
+    return {
+        "name": "ragged_paged_attention", "route": "cuda",
+        "source": "megatron_llm_tpu_torch/csrc/paged_attention.cu",
+        "replaces": "megatron_llm_tpu/ops/prefill_attention.py:135",
+        "max_abs_err": max(errs.values()), **times["decode"],
+        "shape": "decode round: 8 slots C1 g32 qpk1 d128 page64 bf16 "
+                 "(attended lengths 1,63,64,65,700,2047,idle,1500)",
+        "mixed": dict(times["mixed"], shape="mixed round: C256, chunks "
+                      "256@0 and 100@700, 6 decode rows"),
+    }
+
+
+def _sdpa(sdpa, args):
+    q, k, v, mask = args
+    return sdpa(q, k, v, attn_mask=mask)
+
+
 # ---------------------------------------------------------------------------
-# phases 4-6: serving Llama-2-7B
+# phases 4-7: Llama-2-7B on the whole-batch route
 # ---------------------------------------------------------------------------
 
 
@@ -289,7 +485,9 @@ def put(port, payload):
     return body
 
 
-def serve_7b(kernels, init_std):
+def build_model(init_std):
+    """Llama-2-7B at full width and depth, bf16 weights drawn on the card
+    from SEED; built once and served by both routes."""
     t0 = time.perf_counter()
     cfg = llama_config(7, params_dtype=torch.bfloat16,
                        compute_dtype=torch.bfloat16, use_fused_rmsnorm=True,
@@ -303,7 +501,10 @@ def serve_7b(kernels, init_std):
         ffn=cfg.ffn_hidden_size, vocab=cfg.padded_vocab_size,
         init_std=init_std, weight_bytes=weight_bytes,
         init_s=round(time.perf_counter() - t0, 2))
+    return cfg, model, params, weight_bytes
 
+
+def serve_whole_batch(kernels, cfg, model, params, weight_bytes):
     tok = build_tokenizer("NullTokenizer", null_vocab_size=31999)
     server = MegatronServer(model, params, tok, engine=None)
     server.run("127.0.0.1", 0, block=False)
@@ -358,9 +559,9 @@ def serve_7b(kernels, init_std):
     finally:
         server.stop()
     kernels[0]["launches"] = launches["decode_attention"]
-    kernels[1]["launches"] = launches["rmsnorm_fwd"]
+    kernels[1]["launches_by_path"] = {"whole_batch": launches["rmsnorm_fwd"]}
 
-    # phase 5: the greedy output teacher-forced back through the same
+    # phase 6: the greedy output teacher-forced back through the same
     # cached decode path (same prefill bucket, same GEMM shapes) with both
     # kernels off, so that the kernels are the only difference
     model.forward = clock.inner
@@ -394,7 +595,7 @@ def serve_7b(kernels, init_std):
         full_forward_max_abs_logprob_err=float(full_err))
     check(err <= PATH_LP_TOL, f"re-scored logprobs {err}")
 
-    # phase 6: throughput of the greedy batch, run again outside the
+    # phase 7: throughput of the greedy batch, run again outside the
     # server with the kernels on, warm (cuBLAS and Triton have seen these
     # shapes): once on the wall clock, once with every forward timed
     t0 = time.perf_counter()
@@ -427,6 +628,240 @@ def serve_7b(kernels, init_std):
         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
+# ---------------------------------------------------------------------------
+# phases 8-10: Llama-2-7B on the continuous-batching route
+# ---------------------------------------------------------------------------
+
+
+class PagedForwards:
+    """Wraps model.forward and counts the paged forwards (the engine's
+    rounds run one per decode step or mixed round), without syncing."""
+
+    def __init__(self, model):
+        self.inner = model.forward
+        self.paged = 0
+        model.forward = self
+
+    def __call__(self, params, tokens, *args, **kw):
+        kv = kw.get("kv_caches")
+        if kv is not None and "k_pages_layers" in kv:
+            self.paged += 1
+        return self.inner(params, tokens, *args, **kw)
+
+
+def put_raw(port, payload):
+    conn = HTTPConnection("127.0.0.1", port, timeout=900)
+    conn.request("PUT", "/api", json.dumps(payload),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    data = resp.read().decode()
+    conn.close()
+    if payload.get("stream"):
+        return resp.status, [json.loads(line[6:]) for line in
+                             data.splitlines() if line.startswith("data: ")]
+    return resp.status, json.loads(data)
+
+
+def get_json(port, path):
+    conn = HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.request("GET", path)
+    resp = conn.getresponse()
+    body = json.loads(resp.read().decode())
+    conn.close()
+    check(resp.status == 200, f"GET {path} -> {resp.status}")
+    return body
+
+
+def engine_traffic():
+    """(name, prompt ids, payload) of the 16 engine requests: 12 greedy
+    with log-probs (prompts 20-1500 ids, 64-128 new tokens), two that
+    share a 700-token prefix (the second is sent once the first is
+    answered, so its pages are registered), one sampled, one streamed."""
+    rs = np.random.RandomState(SEED + 7)
+
+    def ids(n):
+        return [int(x) for x in rs.randint(0, 31999, n)]
+
+    def text(x):
+        return " ".join(map(str, x))
+
+    out = []
+    for i, (n, gen) in enumerate(zip(
+            (20, 1500, 300, 75, 900, 130, 1200, 450, 40, 640, 1000, 210),
+            (128, 64, 96, 80, 72, 112, 64, 100, 120, 88, 76, 104))):
+        p = ids(n)
+        out.append((f"greedy{i}", p, {"prompts": [text(p)], "top_k": 1,
+                                      "tokens_to_generate": gen,
+                                      "logprobs": True}))
+    prefix = ids(700)
+    for name, tail in (("shared_a", 40), ("shared_b", 20)):
+        p = prefix + ids(tail)
+        out.append((name, p, {"prompts": [text(p)], "top_k": 1,
+                              "tokens_to_generate": 64}))
+    p = ids(180)
+    out.append(("sampled", p, {"prompts": [text(p)], "top_p": 0.9,
+                               "random_seed": 1234,
+                               "tokens_to_generate": 64}))
+    p = ids(250)
+    out.append(("stream", p, {"prompts": [text(p)], "top_k": 1,
+                              "tokens_to_generate": 96, "stream": True}))
+    return out
+
+
+def serve_engine(kernels, cfg, model, params, weight_bytes):
+    tok = build_tokenizer("NullTokenizer", null_vocab_size=31999)
+    t0 = time.perf_counter()
+    eng = DecodeEngine(model, params, slots=8, page_size=64,
+                       max_context=2048, step_horizon=8,
+                       prefill_chunk_tokens=256, prefix_cache=True,
+                       termination_id=tok.eod, vocab_size=tok.vocab_size)
+    server = MegatronServer(model, params, tok, engine=eng)
+    server.run("127.0.0.1", 0, block=False)
+    port = server._httpd.server_address[1]
+    setup_s = time.perf_counter() - t0
+    traffic = engine_traffic()
+    results = {}
+
+    def client(name, payload, then=None):
+        results[name] = put_raw(port, payload)
+        if then is not None:
+            client(*then)
+
+    counter = PagedForwards(model)
+    try:
+        dec.decode_attention.launches = 0
+        rms.fused_rms_norm.launches = 0
+        pa.ragged_paged_attention.launches = 0
+        by_name = {name: payload for name, _, payload in traffic}
+        threads = [threading.Thread(target=client, args=(
+            name, payload,
+            ("shared_b", by_name["shared_b"]) if name == "shared_a"
+            else None)) for name, _, payload in traffic
+            if name != "shared_b"]
+        t_start = time.perf_counter()
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=900)
+        wall = time.perf_counter() - t_start
+        launches = {"ragged_paged_attention":
+                    pa.ragged_paged_attention.launches,
+                    "rmsnorm_fwd": rms.fused_rms_norm.launches,
+                    "decode_attention": dec.decode_attention.launches}
+        check(all(not th.is_alive() for th in threads), "engine clients hung")
+        metrics = get_json(port, "/metrics")
+    finally:
+        model.forward = counter.inner
+        server.stop()
+
+    generated = 0
+    greedy = []
+    for name, prompt, payload in traffic:
+        status, body = results[name]
+        check(status == 200, f"engine {name} -> {status} {body}")
+        gen = payload["tokens_to_generate"]
+        if payload.get("stream"):
+            toks = [e["token"] for e in body[:-1]]
+            final = body[-1]
+            check(final.get("done") and final["tokens"] == toks
+                  and final["text"] == " ".join(map(str, prompt + toks)),
+                  "SSE tokens equal the final text")
+            out = prompt + toks
+        else:
+            out = list(map(int, body["text"][0].split()))
+        check(out[:len(prompt)] == prompt, f"{name}: prompt echoed")
+        check(len(prompt) < len(out) <= len(prompt) + gen
+              and (len(out) == len(prompt) + gen or out[-1] == tok.eod),
+              f"{name}: length {len(out)}")
+        generated += len(out) - len(prompt)
+        if payload.get("logprobs"):
+            lp = body["logprobs"][0]
+            check(len(lp) == len(out) - 1 and np.isfinite(lp).all(),
+                  f"{name}: logprobs")
+            greedy.append((prompt, out, lp))
+    k7 = launches["ragged_paged_attention"]
+    check(k7 == cfg.num_layers * counter.paged,
+          f"K7 launches {k7} != {cfg.num_layers} x {counter.paged} paged "
+          f"forwards")
+    check(launches["rmsnorm_fwd"] > 0, "K2 did not run on the engine route")
+    check(launches["decode_attention"] == 0, "K1 ran on the engine route")
+    check(metrics["serve_prefix_hits"] >= 1
+          and metrics["serve_prefix_cow_copies"] >= 1,
+          f"prefix hit and COW copy: {metrics}")
+    check(metrics["serve_pages_free"] + metrics["serve_prefix_cached_pages"]
+          == eng.num_pages - 1, f"pages after the traffic: {metrics}")
+    rounds = list(eng._round_log)
+    kernels[1]["launches_by_path"]["engine"] = launches["rmsnorm_fwd"]
+    kernels[1]["launches"] = sum(kernels[1]["launches_by_path"].values())
+    kernels[2]["launches"] = k7
+    kernels[2]["launches_per_engine_round"] = k7 / len(rounds)
+    say("serving_engine", requests=len(traffic), slots=eng.slots,
+        paged_forwards=counter.paged, rounds=len(rounds),
+        mixed_rounds=sum(1 for r in rounds if r["prefill_tokens"]),
+        launches=launches, setup_s=round(setup_s, 2),
+        prefix_hits=metrics["serve_prefix_hits"],
+        prefix_hit_tokens=metrics["serve_prefix_hit_tokens"],
+        prefix_cow_copies=metrics["serve_prefix_cow_copies"],
+        pages_free=metrics["serve_pages_free"],
+        prefix_cached_pages=metrics["serve_prefix_cached_pages"],
+        num_pages=eng.num_pages)
+
+    # phase 9: the greedy outputs teacher-forced through the same weights
+    # on the no-cache forward with both kernels off (plain RMSNorm, plain
+    # attention)
+    plain = LlamaModel(dataclasses.replace(cfg, use_fused_rmsnorm=False,
+                                           use_decode_attn=False))
+    err, match, total = 0.0, 0, 0
+    with torch.inference_mode():
+        for prompt, out, lp in greedy:
+            seq = torch.tensor(out, device="cuda")[None]
+            logits, _ = plain.forward(params, seq[:, :-1])
+            lps = torch.log_softmax(logits[0].float(), -1)
+            forced = lps.gather(1, seq[0, 1:, None])[:, 0].cpu().numpy()
+            err = max(err, float(np.abs(forced - np.asarray(lp)).max()))
+            am = lps.argmax(-1).cpu().numpy()[len(prompt) - 1:]
+            match += int((am == np.asarray(out[len(prompt):])).sum())
+            total += len(out) - len(prompt)
+    say("path_check_engine", requests=len(greedy),
+        max_abs_logprob_err=err, tol=PATH_LP_TOL,
+        greedy_token_match_fraction=match / total)
+    check(err <= PATH_LP_TOL, f"engine re-scored logprobs {err}")
+
+    # phase 10: throughput of the traffic, and the card's own time for one
+    # 8-slot paged decode step (slots at length 1000), captured in a CUDA
+    # graph on the engine's pools (the engine is stopped)
+    dec_rounds = [r for r in rounds if not r["prefill_tokens"]]
+    mixed = [r for r in rounds if r["prefill_tokens"]]
+    ms_per_advance = (sum(r["ms"] for r in dec_rounds)
+                      / max(sum(r["decode_steps"] for r in dec_rounds), 1))
+    with torch.inference_mode():
+        pt = torch.zeros(eng.slots, eng.max_pages_per_slot,
+                         dtype=torch.int32, device="cuda")
+        for i in range(eng.slots):
+            pt[i, :16] = torch.arange(1 + 16 * i, 17 + 16 * i)
+        lens = torch.full((eng.slots,), 1000, dtype=torch.int32,
+                          device="cuda")
+        caches = {"k_pages_layers": eng._pools_k,
+                  "v_pages_layers": eng._pools_v, "page_table": pt,
+                  "lengths": lens, "chunk_lens": torch.ones_like(lens)}
+        tok1 = torch.zeros(eng.slots, 1, dtype=torch.long, device="cuda")
+        step_device_ms = device_ms(
+            lambda: model.forward(eng._dec_params, tok1, kv_caches=caches,
+                                  position_ids=lens.long()[:, None]),
+            per_graph=4, replays=5)
+    say("throughput_engine", wall_s=wall, generated_tokens=generated,
+        generated_tokens_per_s=generated / wall,
+        decode_rounds=len(dec_rounds), decode_ms_per_advance=ms_per_advance,
+        mixed_rounds=len(mixed),
+        mixed_round_ms=sum(r["ms"] for r in mixed) / max(len(mixed), 1),
+        ttft_p50_ms=metrics["serve_ttft_p50_ms"],
+        ttft_p95_ms=metrics["serve_ttft_p95_ms"],
+        decode_step_device_ms=step_device_ms,
+        weight_stream_floor_ms=weight_bytes / HBM_BYTES_PER_S * 1e3,
+        device_idle_share=1 - step_device_ms / ms_per_advance,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -449,8 +884,12 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     build_kernels()
-    kernels = [check_decode_kernel(), check_rmsnorm_kernel()]
-    serve_7b(kernels, args.init_std)
+    kernels = [check_decode_kernel(), check_rmsnorm_kernel(),
+               check_paged_kernel()]
+    torch.cuda.empty_cache()
+    model = build_model(args.init_std)
+    serve_whole_batch(kernels, *model)
+    serve_engine(kernels, *model)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,7 +1,8 @@
 """Model configuration (port of megatron_llm_tpu/config.py).
 
-Only the fields the whole-batch serving path reads are carried over; the
-presets keep the JAX package's values. Dtypes are torch dtypes.
+Only the fields the serving paths (whole-batch and the continuous-batching
+engine) read are carried over; the presets keep the JAX package's values.
+Dtypes are torch dtypes.
 
 Not carried over: dropout (serving is deterministic), `use_flash_attn`
 (the port has no flash kernel yet; the no-cache forward takes the grouped
@@ -57,8 +58,10 @@ class ModelConfig:
     # Hand-written RMSNorm forward (ops/rmsnorm.py). Off by default, as in
     # the JAX package.
     use_fused_rmsnorm: bool = False
-    # Hand-written decode-attention kernel (ops/decode_attention.py) on
-    # every single-token KV-cached step of a CUDA tensor.
+    # Hand-written attention kernels on CUDA tensors: decode attention
+    # (ops/decode_attention.py) on every single-token step of the dense
+    # KV cache, ragged paged attention (ops/prefill_attention.py) on every
+    # paged forward of the engine. Off, the plain versions run.
     use_decode_attn: bool = True
 
     def __post_init__(self):

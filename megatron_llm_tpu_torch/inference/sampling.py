@@ -13,9 +13,11 @@ def modify_logits_for_top_k(logits: torch.Tensor, top_k: int) -> torch.Tensor:
     return logits.masked_fill(logits < kth, NEG_INF)
 
 
-def modify_logits_for_top_p(logits: torch.Tensor, top_p: float) -> torch.Tensor:
+def modify_logits_for_top_p(logits: torch.Tensor, top_p) -> torch.Tensor:
     """Nucleus filtering with the reference's shift by one: the first
-    token whose cumulative probability crosses top_p is kept."""
+    token whose cumulative probability crosses top_p is kept. `top_p` is
+    a float, or a (rows, 1) tensor of per-row thresholds (the engine's
+    per-slot sampling)."""
     sorted_logits, sorted_indices = torch.sort(logits, dim=-1,
                                                descending=True)
     cum_probs = torch.softmax(sorted_logits, dim=-1).cumsum(dim=-1)

@@ -88,3 +88,35 @@ class GPTModel(nn.Module):
         return {"k_layers": tuple(zeros() for _ in range(cfg.num_layers)),
                 "v_layers": tuple(zeros() for _ in range(cfg.num_layers)),
                 "offset": 0}
+
+    def init_paged_kv_caches(self, slots: int, num_pages: int,
+                             page_size: int, max_pages_per_slot: int,
+                             kv_dtype=None) -> dict:
+        """Paged KV cache for the continuous-batching engine
+        (inference/engine.py), on `self.device`: per-layer page pools
+        (num_pages, page_size, g, d) shared by all slots, in the compute
+        dtype; one (slots, max_pages_per_slot) int32 page table mapping
+        each slot's logical pages to pool pages; per-slot int32 lengths.
+        Pool page 0 is the null page, never allocated: fresh and retired
+        slots point every table entry at it, so pad rows and idle slots
+        write only to a dead page. int8 pools (with their scale pools)
+        belong to the quantized-serving slice and raise."""
+        cfg = self.cfg
+        dt = cfg.compute_dtype if kv_dtype is None else kv_dtype
+        if dt == torch.int8:
+            raise NotImplementedError(
+                "int8 KV pools are not ported yet: they belong to the "
+                "quantized-serving slice of the engine (ROADMAP.md A2)")
+        shape = (num_pages, page_size, cfg.num_query_groups, cfg.head_dim)
+
+        def zeros(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+
+        return {
+            "k_pages_layers": tuple(zeros(shape, dt)
+                                    for _ in range(cfg.num_layers)),
+            "v_pages_layers": tuple(zeros(shape, dt)
+                                    for _ in range(cfg.num_layers)),
+            "page_table": zeros((slots, max_pages_per_slot), torch.int32),
+            "lengths": zeros((slots,), torch.int32),
+        }

@@ -136,9 +136,13 @@ def transformer_stack(layer_params, cfg, hidden: torch.Tensor,
                       kv_caches: Optional[dict] = None,
                       ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Run the layers in order. `layer_params` is the stacked tree or a
-    tuple of per-layer trees. `kv_caches` = {"k_layers": (b, g, T, d) per
-    layer, "v_layers": ..., "offset": int} (the decode layout,
-    `GPTModel.init_kv_caches`) or None."""
+    tuple of per-layer trees. `kv_caches` is None, the dense decode
+    layout {"k_layers": (b, g, T, d) per layer, "v_layers": ...,
+    "offset": int} (`GPTModel.init_kv_caches`), or the paged layout
+    {"k_pages_layers": (P, page_size, g, d) per layer, "v_pages_layers":
+    ..., "page_table", "lengths", optionally "chunk_lens"}
+    (`GPTModel.init_paged_kv_caches`): per-layer pools, one shared page
+    table, and the ragged chunk lengths through every layer."""
     if isinstance(layer_params, (list, tuple)):
         layers = layer_params
     else:
@@ -149,6 +153,25 @@ def transformer_stack(layer_params, cfg, hidden: torch.Tensor,
             hidden, _ = transformer_layer(p, cfg, hidden, rope_table, mask,
                                           position_ids)
         return hidden, None
+    if "k_pages_layers" in kv_caches:
+        pt, lens = kv_caches["page_table"], kv_caches["lengths"]
+        cl = kv_caches.get("chunk_lens")
+        ks, vs = kv_caches["k_pages_layers"], kv_caches["v_pages_layers"]
+        for i, p in enumerate(layers):
+            cache_l = {"k_pages": ks[i], "v_pages": vs[i],
+                       "page_table": pt, "lengths": lens}
+            if cl is not None:
+                cache_l["chunk_lens"] = cl
+            # the pools are written in place: ks[i] / vs[i] stay current
+            hidden, _ = transformer_layer(p, cfg, hidden, rope_table, mask,
+                                          position_ids, cache_l)
+        new_caches = {"k_pages_layers": ks, "v_pages_layers": vs,
+                      "page_table": pt,
+                      "lengths": lens + (cl if cl is not None
+                                         else hidden.shape[1])}
+        if cl is not None:
+            new_caches["chunk_lens"] = cl
+        return hidden, new_caches
     offset = int(kv_caches["offset"])
     ks, vs = kv_caches["k_layers"], kv_caches["v_layers"]
     for i, p in enumerate(layers):

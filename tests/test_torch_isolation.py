@@ -14,7 +14,9 @@ from pathlib import Path
 import pytest
 
 import megatron_llm_tpu_torch
+from megatron_llm_tpu_torch.config import tiny_config
 from megatron_llm_tpu_torch.convert.from_jax import params_from_jax
+from megatron_llm_tpu_torch.inference.engine import DecodeEngine
 from megatron_llm_tpu_torch.models import GPTModel, LlamaModel
 from megatron_llm_tpu_torch.models.language_model import (
     init_language_model_params,
@@ -85,3 +87,20 @@ def test_no_jax_import_in_source(path):
 def test_entry_points_default_to_cuda(fn, arg):
     fn = getattr(fn, "__wrapped__", fn)
     assert inspect.signature(fn).parameters[arg].default == "cuda"
+
+
+def test_engine_and_paged_caches_take_the_models_device():
+    """`DecodeEngine` and `init_paged_kv_caches` take no device of their
+    own: the engine serves on its model's device (cuda by default, as
+    above) and allocates every pool, table and carry there."""
+    for fn in (DecodeEngine.__init__, GPTModel.init_paged_kv_caches):
+        assert "device" not in inspect.signature(fn).parameters
+    model = LlamaModel(tiny_config(), device="cpu")
+    caches = model.init_paged_kv_caches(2, 5, 16, 2)
+    assert {x.device.type for x in (*caches["k_pages_layers"],
+                                    caches["page_table"],
+                                    caches["lengths"])} == {"cpu"}
+    eng = DecodeEngine(model, model.init(seed=0), slots=2, page_size=16,
+                       max_context=32)
+    assert eng.device == model.device
+    assert eng._last_logits.device == model.device

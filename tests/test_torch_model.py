@@ -168,3 +168,44 @@ def test_gpt_variant_forward():
     got, _ = tm.forward(tp, t(toks).long())
     ref, _ = jm.forward(jp, jnp.asarray(toks))
     close(got, ref, 1e-4)
+
+
+def test_paged_prefill_chunk_then_decode_steps():
+    """The paged layout of the engine: per-layer page pools, one page
+    table, ragged chunk lengths. One prefill chunk of width 20 (slot 0
+    20 tokens, slot 1 13), then 8 single-token paged steps, through
+    `LlamaModel.forward` on both sides (the JAX side runs its Pallas
+    paged kernel under the interpreter); logits within 1e-4 and the
+    pools equal to 1e-5, null page aside."""
+    jm, jp, tm, tp = tiny_pair(jax_kernel=True)
+    rs = np.random.RandomState(10)
+    slots, page, max_pages = 2, 16, 4
+    num_pages = 1 + slots * max_pages
+    pt = np.zeros((slots, max_pages), np.int32)
+    pt[:] = rs.permutation(np.arange(1, num_pages)).reshape(slots, -1)
+    jc = dict(jm.init_paged_kv_caches(slots, num_pages, page, max_pages),
+              page_table=jnp.asarray(pt))
+    tc = dict(tm.init_paged_kv_caches(slots, num_pages, page, max_pages),
+              page_table=t(pt))
+    jdp, tdp = jm.prepare_decode_params(jp), tm.prepare_decode_params(tp)
+    step = jax.jit(lambda p, x, c: jm.forward(p, x, kv_caches=c))
+    toks = rs.randint(0, 256, (slots, 20)).astype(np.int32)
+    lens = np.asarray([20, 13], np.int32)
+    ref, jc = step(jdp, jnp.asarray(toks),
+                   dict(jc, chunk_lens=jnp.asarray(lens)))
+    got, tc = tm.forward(tdp, t(toks).long(),
+                         kv_caches=dict(tc, chunk_lens=t(lens)))
+    valid = np.arange(20)[None, :] < lens[:, None]
+    close(got.numpy()[valid], np.asarray(ref)[valid], 1e-4, "prefill")
+    jc.pop("chunk_lens")
+    tc.pop("chunk_lens")
+    np.testing.assert_array_equal(tc["lengths"].numpy(), lens)
+    for i in range(8):
+        x = rs.randint(0, 256, (slots, 1)).astype(np.int32)
+        ref, jc = step(jdp, jnp.asarray(x), jc)
+        got, tc = tm.forward(tdp, t(x).long(), kv_caches=tc)
+        close(got, ref, 1e-4, f"decode step {i}")
+    np.testing.assert_array_equal(tc["lengths"].numpy(), lens + 8)
+    for name in ("k_pages_layers", "v_pages_layers"):
+        for a, b in zip(tc[name], jc[name]):
+            close(a.numpy()[1:], np.asarray(b)[1:], 1e-5, name)

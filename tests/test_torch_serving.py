@@ -2,7 +2,10 @@
 package's `MegatronServer(engine=None)`, both on the CPU over real HTTP
 on ephemeral ports and on the same weights, answer the same JSON —
 greedy, score-only, beam, the request-validation errors (the cases of
-tests/test_server.py) and the engine-only surfaces."""
+tests/test_server.py) and the engine-only surfaces. With a CPU
+`DecodeEngine` attached: engine PUTs answer the engine's own tokens, SSE
+streams equal the buffered answer, validation answers match the JAX
+server given an engine, and /metrics keys are the JAX engine's."""
 
 import json
 from http.client import HTTPConnection
@@ -10,11 +13,13 @@ from http.client import HTTPConnection
 import numpy as np
 import pytest
 
+from megatron_llm_tpu.inference.engine import DecodeEngine as JaxEngine
 from megatron_llm_tpu.inference.server import (
     MegatronGenerate as JaxGenerate,
     MegatronServer as JaxServer,
 )
 from megatron_llm_tpu.tokenizer.tokenizer import _NullTokenizer as JaxNull
+from megatron_llm_tpu_torch.inference.engine import DecodeEngine
 from megatron_llm_tpu_torch.inference.server import (
     MegatronGenerate,
     MegatronServer,
@@ -110,7 +115,9 @@ def test_unported_surfaces_name_their_slice(servers):
 
 
 def test_engine_is_refused():
-    with pytest.raises(ValueError, match="engine slice"):
+    """Only the port's DecodeEngine (or None) serves; an engine-shaped
+    object such as a replica router is refused by name."""
+    with pytest.raises(TypeError, match="fleet slice"):
         MegatronServer(None, None, None, engine=object())
 
 
@@ -125,3 +132,140 @@ def test_sampled_request_is_seed_stable(servers):
     assert [len(s.split()) for s in texts] == \
         [len(p.split()) + 6 for p in PROMPTS]
     assert np.all([t.startswith(p) for t, p in zip(texts, PROMPTS)])
+
+
+ENGINE_KW = dict(slots=2, page_size=16, max_context=64, max_queue=8,
+                 prefill_chunk_tokens=8, prefix_cache=True,
+                 termination_id=255, vocab_size=256)
+
+
+def _tok():
+    return build_tokenizer("NullTokenizer", null_vocab_size=255)
+
+
+@pytest.fixture(scope="module")
+def engine_server():
+    _, _, tm, tp = tiny_pair()
+    eng = DecodeEngine(tm, tp, **ENGINE_KW)
+    srv = MegatronServer(tm, tp, _tok(), engine=eng)
+    srv.run("127.0.0.1", 0, block=False)
+    yield srv
+    srv.stop()
+
+
+def _port_of(srv):
+    return srv._httpd.server_address[1]
+
+
+def test_engine_put_answers_the_engines_tokens(engine_server):
+    _, _, tm, tp = tiny_pair()
+    payload = {"prompts": PROMPTS, "tokens_to_generate": 6, "top_k": 1,
+               "logprobs": True}
+    status, body = _request(_port_of(engine_server), "PUT", "/api", payload)
+    assert status == 200
+    got = json.loads(body)
+    direct = DecodeEngine(tm, tp, **ENGINE_KW)
+    reqs = [direct.submit([int(x) for x in p.split()], 6, top_k=1,
+                          return_log_probs=True) for p in PROMPTS]
+    direct.drain()
+    for text, lp, r in zip(got["text"], got["logprobs"], reqs):
+        toks, ref_lp = r.result(timeout=5)
+        assert list(map(int, text.split())) == toks
+        close(lp, ref_lp, 1e-6)
+
+
+def _sse(port, payload):
+    conn = HTTPConnection("127.0.0.1", port, timeout=300)
+    conn.request("PUT", "/api", json.dumps(payload),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    assert resp.status == 200
+    assert resp.headers["Content-Type"] == "text/event-stream"
+    events, ids = [], []
+    for line in resp.read().decode().splitlines():
+        if line.startswith("data: "):
+            events.append(json.loads(line[6:]))
+        elif line.startswith("id: "):
+            ids.append(line[4:])
+    conn.close()
+    return events, ids
+
+
+def test_stream_equals_the_buffered_answer(engine_server):
+    port = _port_of(engine_server)
+    payload = {"prompts": PROMPTS[2:], "tokens_to_generate": 7, "top_k": 1}
+    events, ids = _sse(port, dict(payload, stream=True))
+    _, body = _request(port, "PUT", "/api", payload)
+    buffered = list(map(int, json.loads(body)["text"][0].split()))
+    prompt = list(map(int, PROMPTS[2].split()))
+    tokens = [e["token"] for e in events[:-1]]
+    assert prompt + tokens == buffered
+    final = events[-1]
+    assert final["done"] and final["tokens"] == tokens
+    assert final["text"] == " ".join(map(str, buffered))
+    assert len(set(ids)) == 1 and ids[0] == str(final["rid"])
+    assert len(ids) == len(events)
+
+
+def test_engine_surfaces(engine_server):
+    port = _port_of(engine_server)
+    status, body = _request(port, "GET", "/health")
+    assert status == 200 and json.loads(body)["engine"]["alive"]
+    status, body = _request(port, "GET", "/metrics")
+    assert status == 200
+    jm, jp, _, _ = tiny_pair()
+    jax_keys = set(JaxEngine(jm, jp, **ENGINE_KW).counters())
+    assert set(json.loads(body)) <= jax_keys
+    for method, path in (("GET", "/metrics?format=prometheus"),
+                         ("GET", "/flight_record"), ("POST", "/profile")):
+        status, body = _request(port, method, path, {} if method == "POST"
+                                else None)
+        assert 400 <= status < 500, path
+        assert "observability slice" in json.loads(body)["message"], path
+
+
+def test_engine_validation_matches_jax_server_with_engine():
+    jm, jp, tm, tp = tiny_pair()
+    jax_gen = JaxGenerate(_NoModel(), None, JaxNull(255),
+                          engine=JaxEngine(jm, jp, **ENGINE_KW))
+    port_gen = MegatronGenerate(_NoModel(), None, _tok(),
+                                engine=DecodeEngine(tm, tp, **ENGINE_KW))
+    for payload, message in VALIDATION_CASES:
+        assert port_gen.put(payload) == jax_gen.put(payload) \
+            == (message, 400)
+    never = []
+    for raw in ({"prompts": ["1", "2"], "tokens_to_generate": 2},
+                {"prompts": ["1"], "tokens_to_generate": 0,
+                 "logprobs": True},
+                {"prompts": ["1"], "tokens_to_generate": 2,
+                 "beam_width": 2},
+                {"prompts": ["1"], "tokens_to_generate": 2,
+                 "logprobs": True},
+                {"prompts": ["1"], "tokens_to_generate": 2,
+                 "top_p_decay": 0.5}):
+        got = port_gen.put_stream(raw, never.append, never.append)
+        ref = jax_gen.put_stream(raw, never.append, never.append)
+        assert got == ref and got[1] == 400, raw
+    assert never == []
+
+
+def test_queue_full_and_deadline_answers():
+    _, _, tm, tp = tiny_pair()
+    # an engine that is not serving: the second prompt finds the queue
+    # full and the PUT answers 503 at once
+    idle = DecodeEngine(tm, tp, **dict(ENGINE_KW, max_queue=1))
+    gen = MegatronGenerate(tm, tp, _tok(), engine=idle)
+    assert gen.put({"prompts": ["1 2", "3 4"], "tokens_to_generate": 2,
+                    "top_k": 1}) == ({"message": "generation queue is "
+                                                 "full"}, 503)
+    eng = DecodeEngine(tm, tp, **ENGINE_KW)
+    srv = MegatronServer(tm, tp, _tok(), engine=eng,
+                         request_deadline_s=1e-6)
+    srv.run("127.0.0.1", 0, block=False)
+    try:
+        status, body = _request(_port_of(srv), "PUT", "/api",
+                                {"prompts": ["1 2"], "tokens_to_generate": 4,
+                                 "top_k": 1})
+    finally:
+        srv.stop()
+    assert status == 504 and "deadline" in json.loads(body)["message"]
