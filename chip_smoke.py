@@ -10,16 +10,18 @@ Phases, one output line each (a failure raises and exits non-zero):
    (one nvcc per CUDA C++ source, started together; Triton's compiler for
    the RMSNorm), each timed;
 3. kernel checks: each kernel against its plain PyTorch version on the
-   card at the serving paths' shapes (bf16, max-abs 2e-2: the attention
-   kernels round p to bf16 before normalising, the plain versions after),
-   and each kernel's time beside its plain version's, one library call's
-   and the least time the card could take;
+   card at the shapes of the paths that run it (bf16, max-abs 2e-2: the
+   attention kernels round p to bf16 before normalising, the plain
+   versions after; flash gradients within 2e-2 of their reference's
+   max-abs), and each kernel's time beside its plain version's, one
+   library call's and the least time the card could take;
 4. model: Llama-2-7B at full width and depth, random bf16 weights from a
    fixed seed on the card, built once for both routes;
 5. serving (whole-batch route, `MegatronServer(engine=None)`): a greedy
    batch of 4 prompts, a sampled, a score-only and a beam request. The
    launch counters are set to 0 before the requests and read after; the
-   decode kernel must have run 32 times per decode step;
+   decode kernel must have run 32 times per decode step, the flash
+   forward 32 times (the score-only request's no-cache forward);
 6. path check: the greedy output teacher-forced back through the same
    cached decode path with the kernels off (plain RMSNorm, plain decode
    attention) on the card; log-probs within 5e-2 max-abs. Greedy tokens
@@ -43,7 +45,22 @@ Phases, one output line each (a failure raises and exits non-zero):
 10. throughput_engine: wall time and generated tokens/s over the whole
    traffic, ms per decode-token advance and per mixed round, TTFT p50,
    the device ms of one 8-slot paged decode step beside the weight floor
-   and the idle share, peak memory.
+   and the idle share, peak memory;
+11. train (the serving model and pools freed first): Llama-2-7B widths at
+   8 of its 32 layers, seq 4096, flash attention and the fused RMSNorm,
+   full recompute, bf16 compute on fp32 params and AdamW state, trained
+   for 8 steps of 4 microbatches through `Trainer.setup()` / `train()` on
+   one fixed batch of seeded tokens. The counters are set to 0 before
+   `train()`: K2-K6 must have run exactly the launches the code implies;
+   every loss finite, no step skipped, the last loss below the first;
+12. path_check_train (run between setup and training): one microbatch's
+   loss and gradients at the initial weights with the kernels on and off
+   (grouped attention, plain RMSNorm): loss within 2e-2, global gradient
+   norm within 5e-2 relative, every leaf's gradient cosine >= 0.98;
+13. throughput_train: median ms per step, tokens/s, model TFLOP/s (6 N
+   per token) and its share of 989, peak memory, and a torch.profiler
+   trace of one step: the top 10 CUDA kernels by device time and the
+   share of the step the card was busy.
 
 Then one JSON line of the kernels, the nvidia-smi line, and the last
 line `{"ok": true, "device": {...}}`. Without a CUDA card it exits 2 and
@@ -52,6 +69,7 @@ prints no result.
 
 import argparse
 import dataclasses
+import gc
 import json
 import subprocess
 import sys
@@ -62,7 +80,11 @@ from http.client import HTTPConnection
 import numpy as np
 import torch
 
-from megatron_llm_tpu_torch.config import llama_config
+from megatron_llm_tpu_torch.config import (
+    ParallelConfig,
+    TrainConfig,
+    llama_config,
+)
 from megatron_llm_tpu_torch.inference.engine import DecodeEngine
 from megatron_llm_tpu_torch.inference.generation import (
     bucket_prefill_len,
@@ -74,9 +96,12 @@ from megatron_llm_tpu_torch.inference.tokenization import tokenize_prompts
 from megatron_llm_tpu_torch.models import LlamaModel
 from megatron_llm_tpu_torch.ops import _build
 from megatron_llm_tpu_torch.ops import decode_attention as dec
+from megatron_llm_tpu_torch.ops import flash_attention as fa
 from megatron_llm_tpu_torch.ops import prefill_attention as pa
 from megatron_llm_tpu_torch.ops import rmsnorm as rms
+from megatron_llm_tpu_torch.optimizer.optimizer import tree_leaves
 from megatron_llm_tpu_torch.tokenizer import build_tokenizer
+from megatron_llm_tpu_torch.training.trainer import Trainer
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores
@@ -152,6 +177,28 @@ def device_ms(fn, per_graph=50, replays=10) -> float:
     return a.elapsed_time(b) / (replays * per_graph)
 
 
+def profiled_ms(fn, iters=20, warmup=3) -> float:
+    """Mean device ms per call: the CUDA kernels' time in a torch.profiler
+    trace of `iters` calls. For a call that launches several kernels
+    through autograd (a library backward), which a CUDA graph does not
+    capture here and which CUDA events around the calls would time at the
+    host's launch rate."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
+             if e.device_type == DeviceType.CUDA)
+    return us / iters / 1e3
+
+
 def rotating(make, n):
     """A call that cycles through n independent input sets, so repeated
     launches find the inputs out of L2 as the serving path does (each
@@ -170,7 +217,8 @@ def rotating(make, n):
 # ---------------------------------------------------------------------------
 
 
-CUDA_SOURCES = ("decode_attention.cu", "paged_attention.cu")
+CUDA_SOURCES = ("decode_attention.cu", "paged_attention.cu",
+                "flash_attention.cu")
 
 
 def build_kernels():
@@ -180,10 +228,15 @@ def build_kernels():
     t0 = time.perf_counter()
     builds = {src: _build.start_build(src) for src in CUDA_SOURCES}
     x = torch.randn(4, 4096, device="cuda", dtype=torch.bfloat16)
-    rms.fused_rms_norm(x, torch.ones(4096, device="cuda",
-                                     dtype=torch.bfloat16))  # Triton JIT
+    w = torch.ones(4096, device="cuda", dtype=torch.bfloat16)
+    rms.fused_rms_norm(x, w)  # Triton JIT of K2
     torch.cuda.synchronize()
     seconds = {"rmsnorm_triton_s": round(time.perf_counter() - t0, 2)}
+    t1 = time.perf_counter()
+    _, rstd = rms.rms_norm_fwd(x, w, 1e-5, with_rstd=True)
+    rms.rms_norm_bwd(x, w, rstd, x)  # K2 with rstd and K3, at first launch
+    torch.cuda.synchronize()
+    seconds["rmsnorm_bwd_triton_s"] = round(time.perf_counter() - t1, 2)
     pending = dict(builds)
     while pending:
         for src, (proc, lib) in list(pending.items()):
@@ -195,6 +248,7 @@ def build_kernels():
         time.sleep(0.05)
     dec._library()
     pa._library()
+    fa._library("fwd")
     say("build", **seconds,
         libraries=[lib.name for _, lib in builds.values()])
 
@@ -514,8 +568,7 @@ def serve_whole_batch(kernels, cfg, model, params, weight_bytes):
     lens = [20, 75, 130, 200]
     prompts = [" ".join(map(str, rs.randint(0, 31999, n))) for n in lens]
     try:
-        dec.decode_attention.launches = 0
-        rms.fused_rms_norm.launches = 0
+        zero_counts()
 
         # greedy batch
         clock.calls.clear()
@@ -551,8 +604,14 @@ def serve_whole_batch(kernels, cfg, model, params, weight_bytes):
               and all(lens[0] < len(t.split()) <= lens[0] + 16
                       for t in beam["text"]), "beam answer")
         launches = {"decode_attention": dec.decode_attention.launches,
-                    "rmsnorm_fwd": rms.fused_rms_norm.launches}
+                    "rmsnorm_fwd": rms.fused_rms_norm.launches,
+                    "flash_fwd": fa.flash_fwd.launches}
         check(all(v > 0 for v in launches.values()), f"launches {launches}")
+        # the score-only request's no-cache forward is the only one: one
+        # flash forward per layer, no backward
+        check(launches["flash_fwd"] == cfg.num_layers
+              and fa.flash_bwd_dq.launches == fa.flash_bwd_dkv.launches == 0,
+              f"flash launches {launches}")
         say("serving", requests=["greedy", "sampled", "score", "beam"],
             greedy_decode_steps=steps, decode_attention_launches_greedy=k1_greedy,
             launches=launches, greedy_request_s=round(t_req, 3))
@@ -560,13 +619,17 @@ def serve_whole_batch(kernels, cfg, model, params, weight_bytes):
         server.stop()
     kernels[0]["launches"] = launches["decode_attention"]
     kernels[1]["launches_by_path"] = {"whole_batch": launches["rmsnorm_fwd"]}
+    for row in kernels:
+        if row["name"] == "flash_fwd":
+            row["launches_by_path"] = {"whole_batch": launches["flash_fwd"]}
 
     # phase 6: the greedy output teacher-forced back through the same
     # cached decode path (same prefill bucket, same GEMM shapes) with both
     # kernels off, so that the kernels are the only difference
     model.forward = clock.inner
     plain = LlamaModel(dataclasses.replace(cfg, use_fused_rmsnorm=False,
-                                           use_decode_attn=False))
+                                           use_decode_attn=False,
+                                           use_flash_attn=False))
     n_out = [len(ids) for ids in out_ids]
     buf = np.full((4, lp.shape[1] + 1), tok.eod, np.int64)
     for i, ids in enumerate(out_ids):
@@ -729,9 +792,7 @@ def serve_engine(kernels, cfg, model, params, weight_bytes):
 
     counter = PagedForwards(model)
     try:
-        dec.decode_attention.launches = 0
-        rms.fused_rms_norm.launches = 0
-        pa.ragged_paged_attention.launches = 0
+        zero_counts()
         by_name = {name: payload for name, _, payload in traffic}
         threads = [threading.Thread(target=client, args=(
             name, payload,
@@ -747,7 +808,8 @@ def serve_engine(kernels, cfg, model, params, weight_bytes):
         launches = {"ragged_paged_attention":
                     pa.ragged_paged_attention.launches,
                     "rmsnorm_fwd": rms.fused_rms_norm.launches,
-                    "decode_attention": dec.decode_attention.launches}
+                    "decode_attention": dec.decode_attention.launches,
+                    "flash_fwd": fa.flash_fwd.launches}
         check(all(not th.is_alive() for th in threads), "engine clients hung")
         metrics = get_json(port, "/metrics")
     finally:
@@ -785,6 +847,7 @@ def serve_engine(kernels, cfg, model, params, weight_bytes):
           f"forwards")
     check(launches["rmsnorm_fwd"] > 0, "K2 did not run on the engine route")
     check(launches["decode_attention"] == 0, "K1 ran on the engine route")
+    check(launches["flash_fwd"] == 0, "K4 ran on the engine route")
     check(metrics["serve_prefix_hits"] >= 1
           and metrics["serve_prefix_cow_copies"] >= 1,
           f"prefix hit and COW copy: {metrics}")
@@ -810,7 +873,8 @@ def serve_engine(kernels, cfg, model, params, weight_bytes):
     # on the no-cache forward with both kernels off (plain RMSNorm, plain
     # attention)
     plain = LlamaModel(dataclasses.replace(cfg, use_fused_rmsnorm=False,
-                                           use_decode_attn=False))
+                                           use_decode_attn=False,
+                                           use_flash_attn=False))
     err, match, total = 0.0, 0, 0
     with torch.inference_mode():
         for prompt, out, lp in greedy:
@@ -861,6 +925,490 @@ def serve_engine(kernels, cfg, model, params, weight_bytes):
         device_idle_share=1 - step_device_ms / ms_per_advance,
         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
 
+# ---------------------------------------------------------------------------
+# phase 3 (training kernels): K2 with rstd, K3, and flash K4-K6
+# ---------------------------------------------------------------------------
+
+
+def max_err(a, b):
+    return (a.float() - b.float()).abs().max().item()
+
+
+def check_rmsnorm_bwd_kernel(k2_row):
+    """K2 writing rstd and K3 against `_plain_fwd` / `_plain_bwd` at a
+    training microbatch's rows (n = seq 4096, h 4096): bf16 activations
+    and gradients, the fp32 scale parameter. Adds the rstd variant's
+    numbers to K2's row and returns K3's row."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    n, h, eps = 4096, 4096, 1e-5
+    bf = torch.bfloat16
+
+    def make(i):
+        x = torch.randn(n, h, generator=gen, device="cuda").to(bf)
+        g = torch.randn(n, h, generator=gen, device="cuda").to(bf)
+        return x, g
+    scale = 1 + 0.1 * torch.randn(h, generator=gen, device="cuda")
+    x, g = make(0)
+    out, rstd = rms.rms_norm_fwd(x, scale, eps, with_rstd=True)
+    ref_out, ref_rstd = rms._plain_fwd(x, scale, eps)
+    dx, ds = rms.rms_norm_bwd(x, scale, rstd, g)
+    ref_dx, ref_ds = rms._plain_bwd(x, scale, ref_rstd, g)
+    torch.cuda.synchronize()
+    errs = {"out": max_err(out, ref_out), "rstd": max_err(rstd, ref_rstd),
+            "dx": max_err(dx, ref_dx), "dscale": max_err(ds, ref_ds)}
+    # against max(1, the reference's max-abs): normalised rows times the
+    # scale reach |out| ~ 5, where one bf16 ulp is 0.03
+    rel = {k: errs[k] / max(1.0, ref.abs().max().item())
+           for k, ref in (("out", ref_out), ("rstd", ref_rstd),
+                          ("dx", ref_dx), ("dscale", ref_ds))}
+    say("kernel_check_rmsnorm_bwd", max_abs_err=errs, rel_err=rel,
+        tol=BF16_TOL)
+    for k, v in rel.items():
+        check(v <= BF16_TOL, f"K2-rstd/K3 {k}: {v}")
+
+    # four input sets of 64 MB: out of the 50 MB L2
+    pick = rotating(make, 4)
+    lib = torch.nn.functional.rms_norm
+    scale_bf = scale.to(bf)
+    fwd = {
+        "ms": device_ms(lambda: rms.rms_norm_fwd(pick()[0], scale, eps,
+                                                 with_rstd=True)),
+        "plain_ms": device_ms(lambda: rms._plain_fwd(pick()[0], scale, eps),
+                              per_graph=10, replays=5),
+        "library_ms": device_ms(lambda: lib(pick()[0], (h,), scale_bf,
+                                            eps)),
+    }
+    sets = [(xi, gi, rms.rms_norm_fwd(xi, scale, eps, True)[1])
+            for xi, gi in (make(i) for i in range(4))]
+    bpick = rotating(lambda i: sets[i], 4)
+    bwd = {
+        "ms": device_ms(lambda: _k3(bpick, scale)),
+        "plain_ms": device_ms(lambda: _k3(bpick, scale, plain=True),
+                              per_graph=10, replays=5),
+    }
+    # library: F.rms_norm's backward alone, on a retained graph
+    xl = sets[0][0].clone().requires_grad_(True)
+    wl = scale_bf.clone().requires_grad_(True)
+    yl = lib(xl, (h,), wl, eps)
+    bwd["library_ms"] = profiled_ms(lambda: torch.autograd.grad(
+        yl, (xl, wl), sets[0][1], retain_graph=True))
+    del sets, xl, wl, yl
+    # bounds: each input read once, each output written once, at 3.35 TB/s;
+    # operations (~4 and ~10 a element) at the fp32 rate
+    for row, nbytes, flops in (
+            (fwd, 2 * n * h * 2 + 4 * h + 4 * n, 4 * n * h),
+            (bwd, 3 * n * h * 2 + 4 * n + 2 * 4 * h, 10 * n * h)):
+        tb, to = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+        row.update(bound_ms=max(tb, to),
+                   bound_by="bytes" if tb >= to else "operations")
+    k2_row["rstd_variant"] = dict(fwd, shape=f"n{n} h{h} bf16, fp32 scale",
+                                  max_abs_err=errs["out"])
+    return dict({
+        "name": "rmsnorm_bwd", "route": "triton",
+        "source": "megatron_llm_tpu_torch/ops/rmsnorm.py",
+        "replaces": "megatron_llm_tpu/ops/rmsnorm.py:59",
+        "max_abs_err": errs["dx"], "shape": f"n{n} h{h} bf16, fp32 scale",
+    }, **bwd)
+
+
+def _k3(pick, scale, plain=False):
+    x, g, rstd = pick()
+    if plain:
+        return rms._plain_bwd(x, scale, rstd, g)
+    return rms.rms_norm_bwd(x, scale, rstd, g)
+
+
+FLASH_CASES = (
+    # label, (b, s, t, g, qpk, d, causal)
+    ("llama2_7b_train", (1, 4096, 4096, 32, 1, 128, True)),
+    ("llama2_70b_attn", (1, 2048, 2048, 8, 8, 128, True)),
+    ("full_attention", (2, 1000, 1536, 8, 1, 128, False)),
+    ("ragged_s1000", (1, 1000, 1000, 32, 1, 128, True)),
+)
+
+
+def flash_inputs(shape, gen):
+    b, s, t, g, qpk, d, _ = shape
+
+    def rnd(*sh):
+        return torch.randn(sh, generator=gen, device="cuda").to(
+            torch.bfloat16)
+    return rnd(b, s, g, qpk, d), rnd(b, t, g, d), rnd(b, t, g, d), \
+        rnd(b, s, g, qpk, d)
+
+
+def flash_errors(q, k, v, do, causal, dlse=None):
+    """K4 (o, lse) against `_xla_reference_with_lse`; K5 and K6 against
+    `_plain_bwd` from the plain forward's o and lse: max-abs errors, the
+    gradients' relative to their reference's max-abs."""
+    b, s, g, qpk, _ = q.shape
+    o, lse = fa._fwd(q, k, v, causal)
+    o_ref, lse_ref = fa._xla_reference_with_lse(q, k, v, causal)
+    rows = fa._lse_bsgq_to_rows(lse_ref, b, s, g, qpk)
+    dl = None if dlse is None else fa._lse_bsgq_to_rows(dlse, b, s, g, qpk)
+    grads = fa._bwd(q, k, v, o, lse, do, causal, dl)
+    refs = fa._plain_bwd(q, k, v, o_ref, rows, do, causal, dl)
+    torch.cuda.synchronize()
+    errs = {"o": max_err(o, o_ref), "lse": max_err(lse, rows)}
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+        errs[name] = max_err(got, ref)
+        errs[name + "_rel"] = errs[name] / ref.float().abs().max().item()
+    return errs
+
+
+def causal_pairs(s, t, causal):
+    """(query position, key) pairs a head attends: sum of min(t, p + 1)."""
+    if not causal:
+        return s * t
+    full = min(s, t)
+    return full * (full + 1) // 2 + max(s - t, 0) * t
+
+
+def flash_bounds(shape):
+    """Least time of K4, K5 and K6 at `shape`: the larger of their bf16
+    tensor-core operations over 989 TFLOP/s (4, 6 and 8 flops a head, a
+    pair and a d column: QK^T + PV; QK^T + dO V^T + dS K; QK^T + V dO^T +
+    P^T dO + dS^T Q) and the bytes each must move over 3.35 TB/s."""
+    b, s, t, g, qpk, d, causal = shape
+    pairs = causal_pairs(s, t, causal) * b * g * qpk
+    qb = 2 * b * s * g * qpk * d
+    kvb = 2 * b * t * g * d
+    rowb = 4 * b * s * g * qpk
+    out = {}
+    for name, f, nbytes in (("fwd", 4, 2 * qb + 2 * kvb + rowb),
+                            ("dq", 6, 3 * qb + 2 * kvb + 2 * rowb),
+                            ("dkv", 8, 2 * qb + 4 * kvb + 2 * rowb)):
+        tb = nbytes / HBM_BYTES_PER_S * 1e3
+        to = f * pairs * d / BF16_FLOPS * 1e3
+        out[name] = (max(tb, to), "bytes" if tb >= to else "operations",
+                     f * pairs * d)
+    return out
+
+
+def check_flash_kernels():
+    """K4, K5 and K6 against their plain versions at the training shape
+    (Llama-2-7B heads, s 4096, causal), Llama-2-70B's attention (g 8,
+    qpk 8), full attention with t != s, a ragged s, and once with a
+    nonzero lse cotangent; two backward runs bitwise equal; times at the
+    training shape."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 4)
+    errs = {}
+    for label, shape in FLASH_CASES:
+        q, k, v, do = flash_inputs(shape, gen)
+        errs[label] = flash_errors(q, k, v, do, shape[-1])
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    shape = (2, 512, 512, 8, 4, 128, True)
+    q, k, v, do = flash_inputs(shape, gen)
+    dlse = torch.randn(2, 512, 8, 4, generator=gen, device="cuda")
+    errs["with_dlse"] = flash_errors(q, k, v, do, True, dlse)
+    for label, e in errs.items():
+        check(e["o"] <= BF16_TOL and e["lse"] <= 1e-3,
+              f"K4 {label}: {e}")
+        for name in ("dq", "dk", "dv"):
+            check(e[name + "_rel"] <= BF16_TOL, f"K5/K6 {label} {name}: {e}")
+
+    main = FLASH_CASES[0][1]
+    b, s, t, g, qpk, d, causal = main
+    q, k, v, do = flash_inputs(main, gen)
+    o, lse = fa._fwd(q, k, v, causal)
+    first = fa._bwd(q, k, v, o, lse, do, causal)
+    second = fa._bwd(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    check(all(torch.equal(x, y) for x, y in zip(first, second)),
+          "flash backward is not deterministic")
+    del first, second
+    say("kernel_check_flash", max_abs_err=errs, tol=BF16_TOL,
+        grad_tol="2e-2 of the reference's max-abs", deterministic=True)
+
+    # times at the training shape (one input set is 134 MB: out of L2)
+    qf, kf, vf, dof = fa._fold_q(q), fa._fold_kv(k), fa._fold_kv(v), \
+        fa._fold_q(do)
+    delta = fa._delta_rows(o, do).contiguous()
+    ms = {
+        "fwd": device_ms(lambda: fa.flash_fwd(qf, kf, vf, qpk, causal),
+                         per_graph=5, replays=4),
+        "dq": device_ms(lambda: fa.flash_bwd_dq(qf, kf, vf, dof, lse, delta,
+                                                qpk, causal),
+                        per_graph=5, replays=4),
+        "dkv": device_ms(lambda: fa.flash_bwd_dkv(qf, kf, vf, dof, lse,
+                                                  delta, qpk, causal),
+                         per_graph=5, replays=4),
+    }
+    # the wrappers' layout copies around the kernels: q, k, v folded (and
+    # o unfolded by the caller's reshape) in the forward; q, k, v, dO
+    # folded and delta in the backward
+    copies = {
+        "fwd": device_ms(lambda: (fa._fold_q(q), fa._fold_kv(k),
+                                  fa._fold_kv(v),
+                                  o.reshape(b, s, -1).contiguous()),
+                         per_graph=5, replays=4),
+        "bwd": device_ms(lambda: (fa._fold_q(q), fa._fold_kv(k),
+                                  fa._fold_kv(v), fa._fold_q(do),
+                                  fa._delta_rows(o, do).contiguous()),
+                         per_graph=5, replays=4),
+    }
+    plain = {
+        "fwd": device_ms(lambda: fa._xla_reference_with_lse(q, k, v, causal),
+                         per_graph=2, replays=3),
+        "bwd": device_ms(lambda: fa._plain_bwd(q, k, v, o, lse, do, causal),
+                         per_graph=1, replays=3),
+    }
+    torch.cuda.empty_cache()
+    # library yardstick: SDPA on (b, heads, s, d), forward, and the
+    # backward alone on a retained graph; our forward + backward through
+    # autograd on the same (profiler) clock
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qs = q.reshape(b, s, g * qpk, d).transpose(1, 2).detach() \
+        .requires_grad_(True)
+    ks = k.transpose(1, 2).detach().requires_grad_(True)
+    vs = v.transpose(1, 2).detach().requires_grad_(True)
+    dos = do.reshape(b, s, g * qpk, d).transpose(1, 2)
+    with torch.no_grad():
+        lib_fwd = device_ms(lambda: sdpa(qs, ks, vs, is_causal=causal,
+                                         enable_gqa=True),
+                            per_graph=5, replays=4)
+    ys = sdpa(qs, ks, vs, is_causal=causal, enable_gqa=True)
+    lib_bwd = profiled_ms(lambda: torch.autograd.grad(
+        ys, (qs, ks, vs), dos, retain_graph=True), iters=10)
+    lib_fwd_bwd = profiled_ms(lambda: torch.autograd.grad(
+        sdpa(qs, ks, vs, is_causal=causal, enable_gqa=True), (qs, ks, vs),
+        dos), iters=10)
+    qa, ka, va = (x.detach().requires_grad_(True) for x in (q, k, v))
+    ours_fwd_bwd = profiled_ms(lambda: torch.autograd.grad(
+        fa.flash_attention(qa, ka, va, causal), (qa, ka, va), do),
+        iters=10)
+    del ys, qs, ks, vs, qa, ka, va
+    torch.cuda.empty_cache()
+    bounds = flash_bounds(main)
+    tflops = {n: bounds[n][2] / (ms[n] * 1e-3) / 1e12 for n in ms}
+    label = f"b{b} s{s} g{g} qpk{qpk} d{d} causal bf16"
+    say("kernel_time_flash", ms=ms, plain_ms=plain, layout_copy_ms=copies,
+        library_fwd_ms=lib_fwd, library_bwd_ms=lib_bwd,
+        library_fwd_bwd_ms=lib_fwd_bwd, ours_fwd_bwd_ms=ours_fwd_bwd,
+        bound_ms={n: bounds[n][0] for n in bounds}, achieved_tflops=tflops,
+        shape=label)
+    rows = []
+    for name, which, line, err, plain_ms, lib in (
+            ("flash_fwd", "fwd", 262, max(e["o"] for e in errs.values()),
+             plain["fwd"], lib_fwd),
+            ("flash_bwd_dq", "dq", 388, max(e["dq"] for e in errs.values()),
+             plain["bwd"], lib_bwd),
+            ("flash_bwd_dkv", "dkv", 448,
+             max(max(e["dk"], e["dv"]) for e in errs.values()), plain["bwd"],
+             lib_bwd)):
+        row = {
+            "name": name, "route": "cuda",
+            "source": "megatron_llm_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"megatron_llm_tpu/ops/flash_attention.py:{line}",
+            "max_abs_err": err, "ms": ms[which], "plain_ms": plain_ms,
+            "bound_ms": bounds[which][0], "bound_by": bounds[which][1],
+            "library_ms": lib, "achieved_tflops": tflops[which],
+            "shape": label,
+        }
+        if which != "fwd":
+            row["plain_and_library_cover"] = "the whole backward (dq, dk, dv)"
+        rows.append(row)
+    rows[0].update(layout_copy_ms=copies["fwd"], fwd_bwd_ms=ours_fwd_bwd,
+                   library_fwd_bwd_ms=lib_fwd_bwd)
+    rows[1]["layout_copy_ms"] = copies["bwd"]
+    return rows
+
+
+# ---------------------------------------------------------------------------
+# phases 11-13: training at Llama-2-7B width
+# ---------------------------------------------------------------------------
+
+TRAIN_LAYERS, TRAIN_MICRO, TRAIN_STEPS = 8, 4, 8
+
+
+def train_config():
+    """Llama-2-7B widths at 8 of its 32 layers, seq 4096, the kernels on,
+    full recompute (examples/pretrain_gpt.sh passes
+    --recompute_granularity full), bf16 compute on fp32 params."""
+    return llama_config(7, num_layers=TRAIN_LAYERS,
+                        params_dtype=torch.float32,
+                        compute_dtype=torch.bfloat16,
+                        use_flash_attn=True, use_fused_rmsnorm=True,
+                        remat_policy="full")
+
+
+def kernel_counts():
+    return {"rmsnorm_fwd": rms.fused_rms_norm.launches,
+            "rmsnorm_bwd": rms.rms_norm_bwd.launches,
+            "flash_fwd": fa.flash_fwd.launches,
+            "flash_bwd_dq": fa.flash_bwd_dq.launches,
+            "flash_bwd_dkv": fa.flash_bwd_dkv.launches,
+            "decode_attention": dec.decode_attention.launches,
+            "ragged_paged_attention": pa.ragged_paged_attention.launches}
+
+
+def zero_counts():
+    for fn in (rms.fused_rms_norm, rms.rms_norm_bwd, fa.flash_fwd,
+               fa.flash_bwd_dq, fa.flash_bwd_dkv, dec.decode_attention,
+               pa.ragged_paged_attention):
+        fn.launches = 0
+
+
+def train_slice(kernels):
+    """8 steps of 4 microbatches through Trainer.setup()/train() on one
+    fixed global batch (memorisation): AdamW as in the Llama 2 paper
+    (beta2 0.95, eps 1e-5, weight decay 0.1, clip 1.0), lr 3e-4 held
+    constant over the short run."""
+    cfg = train_config()
+    model = LlamaModel(cfg)
+    tcfg = TrainConfig(micro_batch_size=1, global_batch_size=TRAIN_MICRO,
+                       train_iters=TRAIN_STEPS, lr=3e-4,
+                       lr_decay_style="constant", adam_beta2=0.95,
+                       adam_eps=1e-5, weight_decay=0.1, clip_grad=1.0,
+                       log_interval=1, eval_interval=0, seed=SEED)
+    text = np.random.RandomState(SEED + 11).randint(
+        0, cfg.padded_vocab_size,
+        (TRAIN_MICRO, 1, cfg.seq_length + 1)).astype(np.int32)
+    trainer = Trainer(model, tcfg,
+                      ParallelConfig(num_microbatches=TRAIN_MICRO),
+                      train_data_iterator=(text for _ in range(TRAIN_STEPS)))
+    t0 = time.perf_counter()
+    state = trainer.setup()
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    stats_log = []
+    inner = trainer.train_step
+
+    def step(st, txt, *a):
+        out = inner(st, txt, *a)
+        stats_log.append({k: out[k] for k in ("skipped", "grad_norm")})
+        return out
+    trainer.train_step = step
+    # phase 12 at the initial weights, where the gradients are large
+    path_check_train(cfg, model, state, text)
+    zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    state = trainer.train(state)
+    torch.cuda.synchronize()
+    train_s = time.perf_counter() - t0
+    launches = kernel_counts()
+    trainer.train_step = inner
+    L, M, S = TRAIN_LAYERS, TRAIN_MICRO, TRAIN_STEPS
+    # per step: the flash forward and every layer norm run twice per layer
+    # (forward and recompute), the final norm once; the backward kernels
+    # once per layer (the final norm's backward too)
+    expected = {"flash_fwd": 2 * L * M * S, "flash_bwd_dq": L * M * S,
+                "flash_bwd_dkv": L * M * S,
+                "rmsnorm_fwd": (2 * L + 1 + 2 * L) * M * S,
+                "rmsnorm_bwd": (2 * L + 1) * M * S,
+                "decode_attention": 0, "ragged_paged_attention": 0}
+    losses = [r["loss"] for r in trainer.step_log]
+    skipped = [int(x["skipped"]) for x in stats_log]
+    gnorms = [float(x["grad_norm"]) for x in stats_log]
+    say("train", config="llama2-7b widths", layers=L,
+        hidden=cfg.hidden_size, heads=cfg.num_attention_heads,
+        ffn=cfg.ffn_hidden_size, vocab=cfg.padded_vocab_size,
+        seq=cfg.seq_length, micro_batches=M, steps=S,
+        params=trainer._n_params, remat=cfg.resolved_remat_policy,
+        losses=losses, grad_norms=gnorms, skipped=skipped,
+        launches=launches, expected_launches=expected,
+        setup_s=round(setup_s, 2), train_s=round(train_s, 2),
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    check(state.iteration == S and len(losses) == S, "train steps")
+    check(all(np.isfinite(losses)), f"non-finite loss {losses}")
+    check(not any(skipped), f"skipped steps {skipped}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    check(launches == expected, f"launches {launches} != {expected}")
+    for row in kernels:
+        if row["name"] == "rmsnorm_fwd":
+            row["launches_by_path"]["train"] = launches["rmsnorm_fwd"]
+            row["launches"] = sum(row["launches_by_path"].values())
+        elif row["name"] in ("rmsnorm_bwd", "flash_fwd", "flash_bwd_dq",
+                             "flash_bwd_dkv"):
+            paths = row.setdefault("launches_by_path", {})
+            paths["train"] = launches[row["name"]]
+            row["launches"] = sum(paths.values())
+            row["launches_per_train_step"] = launches[row["name"]] / S
+    return cfg, model, trainer, state, text
+
+
+def path_check_train(cfg, model, state, text):
+    """One microbatch's loss and gradients at the same (initial) weights
+    with the kernels on and off (grouped attention and plain RMSNorm)."""
+    from megatron_llm_tpu_torch.training.trainer import get_batch
+
+    plain = LlamaModel(dataclasses.replace(cfg, use_flash_attn=False,
+                                           use_fused_rmsnorm=False))
+    micro = {k: v[0] for k, v in get_batch(text[:1],
+                                            device=model.device).items()}
+    leaves = tree_leaves(state.params)
+    out = []
+    for m in (model, plain):
+        loss = m.loss(state.params, **micro)
+        grads = torch.autograd.grad(loss, leaves)
+        out.append((loss.item(), grads))
+        del loss
+    (l_on, g_on), (l_off, g_off) = out
+    n_on = torch.sqrt(sum(g.double().square().sum() for g in g_on)).item()
+    n_off = torch.sqrt(sum(g.double().square().sum() for g in g_off)).item()
+    cos = [torch.nn.functional.cosine_similarity(
+        a.double().flatten(), b.double().flatten(), dim=0).item()
+        for a, b in zip(g_on, g_off)]
+    del out, g_on, g_off
+    torch.cuda.empty_cache()
+    say("path_check_train", loss_on=l_on, loss_off=l_off,
+        loss_abs_diff=abs(l_on - l_off), loss_tol=2e-2,
+        grad_norm_on=n_on, grad_norm_off=n_off,
+        grad_norm_rel_diff=abs(n_on - n_off) / n_off, grad_norm_tol=5e-2,
+        min_leaf_cosine=min(cos), cosine_tol=0.98, leaves=len(cos))
+    check(abs(l_on - l_off) <= 2e-2, f"train loss on/off {l_on} {l_off}")
+    check(abs(n_on - n_off) / n_off <= 5e-2,
+          f"grad norm on/off {n_on} {n_off}")
+    check(min(cos) >= 0.98, f"leaf gradient cosine {min(cos)}")
+
+
+def throughput_train(trainer, state, text):
+    """Step time over steps 2-8 (the first pays Triton's and cuBLAS's
+    first calls), tokens/s, model TFLOP/s (6 N a token, the trainer's own
+    formula) against 989, peak memory; then one more step under
+    torch.profiler for the kernels' device time and the busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    ms = [r["ms"] for r in trainer.step_log[1:]]
+    med = float(np.median(ms))
+    tokens = TRAIN_MICRO * trainer.cfg.seq_length
+    tok_s, tflops = trainer.throughput(TRAIN_MICRO, med / 1e3)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        stats = trainer.train_step(state, text)
+        float(stats["loss"])
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels, spans = {}, []
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            r = e.time_range
+            spans.append((r.start, r.end))
+            kernels[e.name] = kernels.get(e.name, 0.0) + (r.end - r.start)
+    spans.sort()
+    busy, end = 0.0, -1.0
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    device_us = sum(kernels.values())
+    say("throughput_train", steps_timed=len(ms), step_ms_median=med,
+        step_ms=ms, tokens_per_step=tokens, tokens_per_s=tok_s,
+        model_tflops=tflops, model_tflops_share_of_989=tflops / 989.0,
+        peak_memory_gb_train=peak,
+        profiled_step_wall_ms=wall_us / 1e3,
+        profiled_device_busy_ms=busy / 1e3 if spans else "not measured",
+        device_busy_share=busy / wall_us if spans else "not measured",
+        device_kernel_ms_total=device_us / 1e3,
+        top10_kernels_ms=[[n[:120], round(us / 1e3, 3)] for n, us in top])
+
 
 def _leaves(tree):
     for v in tree.values():
@@ -886,10 +1434,19 @@ def main() -> int:
     build_kernels()
     kernels = [check_decode_kernel(), check_rmsnorm_kernel(),
                check_paged_kernel()]
+    kernels.append(check_rmsnorm_bwd_kernel(kernels[1]))
+    kernels += check_flash_kernels()
     torch.cuda.empty_cache()
     model = build_model(args.init_std)
     serve_whole_batch(kernels, *model)
     serve_engine(kernels, *model)
+    # the 13.5 GB serving model and its engine's pools go before training
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    say("memory_before_train",
+        allocated_gb=torch.cuda.memory_allocated() / 1e9)
+    throughput_train(*train_slice(kernels)[2:])
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -1,16 +1,18 @@
-"""Model configuration (port of megatron_llm_tpu/config.py).
+"""Model, parallel and training configuration (port of
+megatron_llm_tpu/config.py).
 
-Only the fields the serving paths (whole-batch and the continuous-batching
-engine) read are carried over; the presets keep the JAX package's values.
-Dtypes are torch dtypes.
+Only the fields the ported paths read are carried over (serving, the
+continuous-batching engine, and single-card training through `Trainer`);
+the presets keep the JAX package's values. Dtypes are torch dtypes.
 
-Not carried over: dropout (serving is deterministic), `use_flash_attn`
-(the port has no flash kernel yet; the no-cache forward takes the grouped
-einsum path), `decode_attn_min_cache` (it gated the Pallas decode kernel
-off below a cache length because of TPU launch overhead) and
-`decode_attn_interpret` (it ran that kernel under the Pallas interpreter).
-Here the decode kernel runs on every CUDA single-token step and its plain
-version serves CPU tensors.
+`use_flash_attn` routes the no-cache forward through the flash kernels
+(ops/flash_attention.py), as `llama_config` sets it. Not carried over:
+`decode_attn_min_cache` (it gated the Pallas decode kernel off below a
+cache length because of TPU launch overhead) and `decode_attn_interpret`
+(it ran that kernel under the Pallas interpreter). Here the decode kernel
+runs on every CUDA single-token step and its plain version serves CPU
+tensors. Dropout rates are carried with the JAX defaults; training with a
+rate above 0 raises (the dropout slice, ROADMAP.md A3).
 """
 
 from __future__ import annotations
@@ -20,6 +22,14 @@ from dataclasses import dataclass
 from typing import Optional
 
 import torch
+
+# Activation-recompute policy names (JAX config.py:39); models/remat.py
+# says which ones this port runs.
+REMAT_POLICIES = ("full", "selective", "save_dots", "offload", "none")
+
+# the reference's --recompute_granularity surface
+_GRANULARITY_TO_POLICY = {None: "none", "selective": "selective",
+                          "full": "full"}
 
 
 @dataclass(frozen=True)
@@ -49,6 +59,10 @@ class ModelConfig:
 
     tie_embed_logits: bool = True
 
+    # Regularization (JAX defaults; training raises while a rate is > 0)
+    hidden_dropout: float = 0.1
+    attention_dropout: float = 0.1
+
     params_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
 
@@ -63,6 +77,16 @@ class ModelConfig:
     # KV cache, ragged paged attention (ops/prefill_attention.py) on every
     # paged forward of the engine. Off, the plain versions run.
     use_decode_attn: bool = True
+    # Flash attention forward/backward (ops/flash_attention.py, K4-K6) on
+    # the no-cache forward with a causal mask and no attention dropout.
+    use_flash_attn: bool = False
+
+    # Recompute (JAX config.py:110-119): give remat_policy or the
+    # reference's recompute_granularity; they must agree.
+    recompute_granularity: Optional[str] = None  # None | selective | full
+    remat_policy: Optional[str] = None  # None | one of REMAT_POLICIES
+    recompute_method: str = "uniform"  # uniform | block
+    recompute_num_layers: int = 1
 
     def __post_init__(self):
         if self.kv_channels is None:
@@ -74,6 +98,43 @@ class ModelConfig:
         if self.ffn_hidden_size is None:
             object.__setattr__(self, "ffn_hidden_size", 4 * self.hidden_size)
         assert self.num_attention_heads % self.num_attention_heads_kv == 0
+        # the JAX package's construction-time checks (config.py:161-210)
+        if self.recompute_granularity not in _GRANULARITY_TO_POLICY:
+            raise ValueError(
+                f"recompute_granularity={self.recompute_granularity!r}: "
+                f"expected 'selective', 'full' or None")
+        if self.remat_policy is not None \
+                and self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"remat_policy={self.remat_policy!r}: expected "
+                             f"one of {REMAT_POLICIES} or None")
+        if self.recompute_method not in ("uniform", "block"):
+            raise ValueError(f"recompute_method={self.recompute_method!r}: "
+                             f"expected 'uniform' or 'block'")
+        if (self.remat_policy is not None
+                and self.recompute_granularity is not None
+                and _GRANULARITY_TO_POLICY[self.recompute_granularity]
+                != self.remat_policy):
+            raise ValueError(
+                f"conflicting recompute flags: recompute_granularity="
+                f"{self.recompute_granularity!r} but remat_policy="
+                f"{self.remat_policy!r}")
+        if self.recompute_method == "block" \
+                and self.resolved_remat_policy == "none":
+            raise ValueError("recompute_method='block' does nothing without "
+                             "an active remat policy")
+        if self.recompute_num_layers != 1 \
+                and self.recompute_method != "block":
+            raise ValueError(f"recompute_num_layers="
+                             f"{self.recompute_num_layers} is only read by "
+                             f"recompute_method='block'")
+
+    @property
+    def resolved_remat_policy(self) -> str:
+        """The active policy name: `remat_policy` when given, else the
+        mapping of `recompute_granularity`."""
+        if self.remat_policy is not None:
+            return self.remat_policy
+        return _GRANULARITY_TO_POLICY[self.recompute_granularity]
 
     @property
     def head_dim(self) -> int:
@@ -129,7 +190,11 @@ def llama_config(size_b: int = 7, version: int = 2, seq_length: int = 4096,
         use_bias=False,
         tie_embed_logits=False,
         layernorm_epsilon=1e-6 if version == 1 else 1e-5,
+        hidden_dropout=0.0,
+        attention_dropout=0.0,
         init_method_std=0.02,
+        # trains through the flash kernels, as the JAX package does (:681)
+        use_flash_attn=True,
     )
     cfg.update(overrides)
     mc = ModelConfig(**cfg)
@@ -155,6 +220,120 @@ def tiny_config(**overrides) -> ModelConfig:
         use_rms_norm=True,
         use_bias=False,
         tie_embed_logits=False,
+        hidden_dropout=0.0,
+        attention_dropout=0.0,
     )
     cfg.update(overrides)
     return ModelConfig(**cfg)
+
+
+@dataclass(frozen=True)
+class ParallelConfig:
+    """Device layout (JAX: config.py ParallelConfig). This slice trains on
+    one card: data, tensor, pipeline and context parallel sizes are 1 and
+    anything else raises (the parallelism slice, ROADMAP.md A4).
+    `num_microbatches` is the gradient-accumulation count."""
+
+    data_parallel_size: int = 1
+    pipeline_parallel_size: int = 1
+    tensor_parallel_size: int = 1
+    context_parallel_size: int = 1
+    num_microbatches: int = 1
+
+    def __post_init__(self):
+        sizes = (self.data_parallel_size, self.pipeline_parallel_size,
+                 self.tensor_parallel_size, self.context_parallel_size)
+        if sizes != (1, 1, 1, 1):
+            raise ValueError(
+                f"dp/pp/tp/cp = {sizes}: the port trains on one card; "
+                f"data, pipeline, tensor and context parallelism belong "
+                f"to the parallelism slice (ROADMAP.md A4)")
+        if self.num_microbatches < 1:
+            raise ValueError(f"num_microbatches={self.num_microbatches}")
+
+    @property
+    def world_size(self) -> int:
+        return 1
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """Optimizer, schedule and run control (JAX: config.py TrainConfig),
+    limited to the fields the ported `Trainer` reads. The fields of later
+    slices are kept so that setting one raises in `Trainer` with the
+    slice's name instead of being ignored."""
+
+    micro_batch_size: int = 1
+    global_batch_size: int = 1
+    rampup_batch_size: Optional[tuple] = None  # (start, increment, samples)
+
+    train_iters: Optional[int] = None
+    train_samples: Optional[int] = None
+    exit_interval: Optional[int] = None
+    exit_duration_in_mins: Optional[float] = None
+
+    optimizer: str = "adam"  # adam | sgd
+    lr: float = 1e-4
+    min_lr: float = 0.0
+    lr_decay_style: str = "linear"  # constant|linear|cosine|inverse-square-root
+    lr_decay_iters: Optional[int] = None
+    lr_decay_samples: Optional[int] = None
+    lr_warmup_iters: int = 0
+    lr_warmup_samples: int = 0
+    lr_warmup_fraction: Optional[float] = None
+    use_checkpoint_opt_param_scheduler: bool = False
+    override_opt_param_scheduler: bool = False
+
+    weight_decay: float = 0.01
+    start_weight_decay: Optional[float] = None
+    end_weight_decay: Optional[float] = None
+    weight_decay_incr_style: str = "constant"  # constant|linear|cosine
+    clip_grad: float = 1.0
+    adam_beta1: float = 0.9
+    adam_beta2: float = 0.999
+    adam_eps: float = 1e-8
+    sgd_momentum: float = 0.9
+
+    # Mixed precision: bf16 compute with fp32 params and state. The fp16
+    # dynamic loss scaler raises (ROADMAP.md A3).
+    fp16: bool = False
+    bf16: bool = True
+
+    # Loss watchdog (training/watchdog.py)
+    loss_watchdog_ksigma: float = 0.0
+    loss_watchdog_window: int = 64
+    spike_rollback_patience: int = 0
+
+    log_interval: int = 100
+    eval_interval: int = 1000
+    eval_iters: int = 100
+    log_params_norm: bool = False
+    log_num_zeros_in_grad: bool = False
+
+    # Later slices: each raises in Trainer while set.
+    save: Optional[str] = None
+    load: Optional[str] = None
+    save_interval: Optional[int] = None
+    exit_signal_handler: bool = False
+    autoresume_file: Optional[str] = None
+    tensorboard_dir: Optional[str] = None
+    wandb_logger: bool = False
+    profile: bool = False
+    trace_dir: Optional[str] = None
+    device_cost_registry: bool = False
+    perf_sentinel_ksigma: float = 0.0
+
+    seed: int = 1234
+
+    def __post_init__(self):
+        assert not (self.fp16 and self.bf16)
+        if self.train_iters is not None and self.train_samples is not None:
+            raise ValueError("specify train_iters or train_samples, not both")
+        if self.train_samples is not None:
+            if self.lr_decay_iters is not None or self.lr_warmup_iters:
+                raise ValueError(
+                    "sample-based run (train_samples): use lr_decay_samples"
+                    "/lr_warmup_samples, not the *_iters variants")
+        elif self.lr_decay_samples is not None or self.lr_warmup_samples:
+            raise ValueError("lr_decay_samples/lr_warmup_samples require "
+                             "train_samples")

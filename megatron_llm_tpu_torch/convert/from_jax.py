@@ -19,6 +19,11 @@ the port keeps the JAX package's layouts, which are:
 
 The JAX package's reference-checkpoint converter states the same facts in
 its module docstring (megatron_llm_tpu/convert/megatron_torch.py:12-19).
+
+`optimizer_state_from_jax` carries the JAX optimizer state (step, m, v)
+across the same way, so a run can resume part-way on the port. The port
+trains on the stacked layer tree itself (`transformer_stack` unbinds it
+once per forward), so no stacked <-> per-layer converter is needed.
 """
 
 from __future__ import annotations
@@ -48,3 +53,23 @@ def params_from_jax(tree: dict, cfg, device="cuda") -> dict:
                 for k, v in t.items()}
 
     return conv(tree)
+
+
+def optimizer_state_from_jax(state, cfg, device="cuda"):
+    """The port's `OptimizerState` from the JAX package's (its `step`, `m`
+    and `v` as numpy arrays or trees of them, e.g. after
+    `jax.tree.map(np.asarray, opt_state)`): same leaf names and layouts
+    as the params, fp32; `v` is None for SGD. The fp16 scaler state is a
+    later slice and is not carried."""
+    from megatron_llm_tpu_torch.optimizer.optimizer import OptimizerState
+
+    def conv(t):
+        if t is None:
+            return None
+        if isinstance(t, dict):
+            return {k: conv(v) for k, v in t.items()}
+        return _to_tensor(t, device)
+
+    step = torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
+                        device=device)
+    return OptimizerState(step=step, m=conv(state.m), v=conv(state.v))

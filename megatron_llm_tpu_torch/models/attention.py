@@ -6,12 +6,14 @@ keeps the grouped layout [group g: q_g(0..qpk-1), k_g, v_g] along its
 output dim.
 
 Three branches of the JAX `attention_block` are ported: the no-cache
-branch on the grouped einsum path (training-style full forward and
-scoring); the per-layer "k_gtd" KV-cache branch of the unrolled decode
-path, where a single-token step runs decode kernel K1 and a prefill chunk
-the plain masked softmax; and the paged branch of the continuous-batching
-engine, where every phase (decode rows, mixed prefill+decode rounds) goes
-through the ragged paged attention of ops/prefill_attention.py (K7).
+branch (training and scoring), which takes the flash kernels K4-K6
+(ops/flash_attention.py) under the JAX package's condition and the
+grouped einsum path otherwise; the per-layer "k_gtd" KV-cache branch of
+the unrolled decode path, where a single-token step runs decode kernel K1
+and a prefill chunk the plain masked softmax; and the paged branch of the
+continuous-batching engine, where every phase (decode rows, mixed
+prefill+decode rounds) goes through the ragged paged attention of
+ops/prefill_attention.py (K7).
 """
 
 from __future__ import annotations
@@ -26,6 +28,7 @@ from megatron_llm_tpu_torch.ops.decode_attention import (
     _xla_decode,
     decode_attention,
 )
+from megatron_llm_tpu_torch.ops.flash_attention import flash_attention
 from megatron_llm_tpu_torch.ops.prefill_attention import (
     ragged_paged_attention,
 )
@@ -145,9 +148,22 @@ def attention_block(attn_params: dict, cfg, hidden: torch.Tensor,
         if rope_table is not None:
             q = apply_rope(q, rope_table, position_ids)
             k = apply_rope(k, rope_table, position_ids)
-        if mask is None:
-            mask = causal_mask(s, device=hidden.device)
-        ctx = grouped_attention(q, k, v, mask, cfg)
+        # packed documents arrive as {"doc_start": (b, s)}; on one card it
+        # expands to its dense form (JAX :513-518)
+        doc_start = None
+        if isinstance(mask, dict):
+            doc_start = mask["doc_start"]
+            rows = torch.arange(s, device=hidden.device)[None, :, None]
+            cols = torch.arange(s, device=hidden.device)[None, None, :]
+            mask = ((cols > rows) | (cols < doc_start[:, :, None]))[:, None]
+        # the attention-dropout path is not ported (a rate above 0 raises
+        # in transformer_stack), so the JAX condition's no_dropout holds
+        if cfg.use_flash_attn and mask is None and doc_start is None:
+            ctx = flash_attention(q, k, v, causal=True).reshape(b, s, -1)
+        else:
+            if mask is None:
+                mask = causal_mask(s, device=hidden.device)
+            ctx = grouped_attention(q, k, v, mask, cfg)
         new_cache = None
 
     out = qdot(ctx, attn_params["wo"], dt)

@@ -14,6 +14,7 @@ from torch import nn
 
 from megatron_llm_tpu_torch.config import ModelConfig
 from megatron_llm_tpu_torch.models.language_model import (
+    chunked_head_cross_entropy,
     init_language_model_params,
     language_model_forward,
 )
@@ -44,6 +45,24 @@ class GPTModel(nn.Module):
         """Returns (logits, new_kv_caches)."""
         return language_model_forward(params, self.cfg, tokens, position_ids,
                                       attention_mask, kv_caches)
+
+    def loss(self, params: dict, tokens: torch.Tensor, labels: torch.Tensor,
+             loss_mask: Optional[torch.Tensor] = None,
+             position_ids: Optional[torch.Tensor] = None,
+             attention_mask: Optional[torch.Tensor] = None,
+             dropout_rng=None, deterministic: bool = True) -> torch.Tensor:
+        """Mean masked CE, a 0-d fp32 tensor (JAX :52-76): the head and CE
+        run chunked over the sequence so the full (b, s, V) logits never
+        materialise. `dropout_rng` is accepted for the JAX signature; a
+        non-deterministic call with a dropout rate above 0 raises."""
+        hidden, _ = language_model_forward(
+            params, self.cfg, tokens, position_ids, attention_mask,
+            deterministic=deterministic, return_hidden=True)
+        losses = chunked_head_cross_entropy(params, self.cfg, hidden, labels)
+        if loss_mask is None:
+            return losses.mean()
+        loss_mask = loss_mask.float()
+        return (losses * loss_mask).sum() / loss_mask.sum().clamp(min=1.0)
 
     def prepare_decode_params(self, params: dict) -> dict:
         """Decode layout, built once before the token loop: the stacked

@@ -5,6 +5,7 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from megatron_llm_tpu_torch.models.norms import apply_norm
 from megatron_llm_tpu_torch.models.rope import precompute_rope
@@ -13,6 +14,9 @@ from megatron_llm_tpu_torch.models.transformer import (
     init_norm_params,
     normal,
     transformer_stack,
+)
+from megatron_llm_tpu_torch.parallel.cross_entropy import (
+    vocab_parallel_cross_entropy,
 )
 
 
@@ -53,6 +57,40 @@ def embed_tokens(params: dict, cfg, tokens: torch.Tensor,
     return hidden
 
 
+def chunked_head_cross_entropy(params: dict, cfg, hidden: torch.Tensor,
+                               labels: torch.Tensor,
+                               chunk_size: int = 1024) -> torch.Tensor:
+    """Per-token CE computed chunk by chunk over the sequence (JAX
+    :94-147): (b, s) fp32 losses, the values of
+    cross_entropy(lm_logits(...), labels). Each chunk's head matmul and CE
+    run under a non-reentrant checkpoint, so only (b, chunk, V) fp32
+    logits are live in the forward and in the backward. Sequences of at
+    most `chunk_size` take the direct path; a chunk size that does not
+    divide s halves toward the largest divisor >= 256 (JAX :126-131)."""
+    b, s, h = hidden.shape
+    if s > chunk_size:
+        while chunk_size >= 256 and s % chunk_size != 0:
+            chunk_size //= 2
+    if s % chunk_size != 0 or s <= chunk_size:
+        return vocab_parallel_cross_entropy(lm_logits(params, cfg, hidden),
+                                            labels)
+
+    def chunk_fn(hid_c, lbl_c):
+        return vocab_parallel_cross_entropy(lm_logits(params, cfg, hid_c),
+                                            lbl_c)
+
+    losses = []
+    for c in range(s // chunk_size):
+        sl = slice(c * chunk_size, (c + 1) * chunk_size)
+        if torch.is_grad_enabled():
+            losses.append(checkpoint(chunk_fn, hidden[:, sl], labels[:, sl],
+                                     use_reentrant=False,
+                                     preserve_rng_state=False))
+        else:
+            losses.append(chunk_fn(hidden[:, sl], labels[:, sl]))
+    return torch.cat(losses, dim=1)
+
+
 def lm_logits(params: dict, cfg, hidden: torch.Tensor) -> torch.Tensor:
     """Tied: x @ E^T; untied: x @ lm_head. In the compute dtype."""
     if cfg.tie_embed_logits:
@@ -65,8 +103,13 @@ def language_model_forward(params: dict, cfg, tokens: torch.Tensor,
                            position_ids: Optional[torch.Tensor] = None,
                            attention_mask: Optional[torch.Tensor] = None,
                            kv_caches: Optional[dict] = None,
+                           deterministic: bool = True,
+                           return_hidden: bool = False,
                            ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """Full forward to logits; returns (logits, new_kv_caches)."""
+    """Full forward to logits; returns (logits, new_kv_caches).
+    `return_hidden` stops after the final norm and returns the (b, s, h)
+    hidden states instead (the training loss projects to the vocabulary
+    chunk by chunk, see chunked_head_cross_entropy)."""
     rope_table = None
     if cfg.position_embedding_type == "rotary":
         rope_table = precompute_rope(cfg.head_dim,
@@ -76,6 +119,8 @@ def language_model_forward(params: dict, cfg, tokens: torch.Tensor,
     hidden = embed_tokens(params, cfg, tokens, position_ids)
     hidden, new_caches = transformer_stack(
         params["layers"], cfg, hidden, rope_table, attention_mask,
-        position_ids, kv_caches)
+        position_ids, kv_caches, deterministic)
     hidden = apply_norm(hidden, params["final_norm"], cfg)
+    if return_hidden:
+        return hidden, new_caches
     return lm_logits(params, cfg, hidden), new_caches

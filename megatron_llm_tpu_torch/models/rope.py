@@ -19,14 +19,17 @@ def precompute_rope(head_dim: int, max_len: int, theta: float = 10000.0,
                     scaling_factor: float = 1.0,
                     device: str = "cuda") -> torch.Tensor:
     """(max_len, head_dim // 2, 2) fp32 table of (cos, sin). Cached: the
-    table depends only on its arguments."""
-    inv_freq = 1.0 / (theta ** (
-        torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
-        / head_dim))
-    t = torch.arange(max_len, dtype=torch.float32, device=device) \
-        / scaling_factor
-    freqs = torch.outer(t, inv_freq)
-    return torch.stack([torch.cos(freqs), torch.sin(freqs)], dim=-1)
+    table depends only on its arguments. Built outside inference mode, so
+    a table first made by a serving call can still feed a training
+    forward (autograd refuses to save inference tensors)."""
+    with torch.inference_mode(False):
+        inv_freq = 1.0 / (theta ** (
+            torch.arange(0, head_dim, 2, dtype=torch.float32, device=device)
+            / head_dim))
+        t = torch.arange(max_len, dtype=torch.float32, device=device) \
+            / scaling_factor
+        freqs = torch.outer(t, inv_freq)
+        return torch.stack([torch.cos(freqs), torch.sin(freqs)], dim=-1)
 
 
 def apply_rope(x: torch.Tensor, rope: torch.Tensor,

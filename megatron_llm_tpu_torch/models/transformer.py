@@ -3,7 +3,13 @@
 Weights are stacked along a leading layer axis, as in the JAX package, so
 the parameter trees match leaf for leaf. The layer loop is a Python loop
 over per-layer views; the decode path passes a tuple of per-layer trees
-(`GPTModel.prepare_decode_params`) and per-layer caches.
+(`GPTModel.prepare_decode_params`) and per-layer caches. The training
+forward splits each stacked leaf once with `unbind` (its backward stacks
+the layers' gradients in one allocation; an index per layer would
+allocate a stacked-size zero gradient per layer) and wraps each layer in
+the recompute policy (models/remat.py) as `--recompute_method` says
+(JAX :278-293): "uniform" remats every layer, "block" the first
+`recompute_num_layers`.
 """
 
 from __future__ import annotations
@@ -19,6 +25,7 @@ from megatron_llm_tpu_torch.models.activations import (
 )
 from megatron_llm_tpu_torch.models.attention import attention_block
 from megatron_llm_tpu_torch.models.norms import apply_norm
+from megatron_llm_tpu_torch.models.remat import remat_wrap
 from megatron_llm_tpu_torch.ops.quantization import qdot
 
 
@@ -94,6 +101,22 @@ def layer_slice(stacked: dict, i: int) -> dict:
             for k, v in stacked.items()}
 
 
+def unstack_layers(stacked: dict) -> list:
+    """The stacked tree as a list of per-layer trees of views, each leaf
+    split once by `unbind`."""
+    def split(tree):
+        return {k: split(v) if isinstance(v, dict) else torch.unbind(v)
+                for k, v in tree.items()}
+
+    def pick(tree, i):
+        return {k: pick(v, i) if isinstance(v, dict) else v[i]
+                for k, v in tree.items()}
+
+    parts = split(stacked)
+    L = next(iter(stacked["attention"].values())).shape[0]
+    return [pick(parts, i) for i in range(L)]
+
+
 def mlp_block(mlp_params: dict, cfg, hidden: torch.Tensor) -> torch.Tensor:
     """h -> [2x]ffn -> act -> h. A GLU w1 of (h, 2, ffn) or its flat
     (h, 2 ffn) decode view is one matmul; gate and up come back on their
@@ -121,7 +144,8 @@ def transformer_layer(layer_params: dict, cfg, hidden: torch.Tensor,
                       rope_table, mask, position_ids,
                       kv_cache: Optional[dict] = None,
                       ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """One pre-LN decoder layer (no dropout: serving is deterministic)."""
+    """One pre-LN decoder layer (no dropout: a rate above 0 raises in
+    `transformer_stack` when training)."""
     normed = apply_norm(hidden, layer_params["input_norm"], cfg)
     attn_out, new_cache = attention_block(
         layer_params["attention"], cfg, normed, rope_table, mask,
@@ -134,6 +158,7 @@ def transformer_layer(layer_params: dict, cfg, hidden: torch.Tensor,
 def transformer_stack(layer_params, cfg, hidden: torch.Tensor,
                       rope_table=None, mask=None, position_ids=None,
                       kv_caches: Optional[dict] = None,
+                      deterministic: bool = True,
                       ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Run the layers in order. `layer_params` is the stacked tree or a
     tuple of per-layer trees. `kv_caches` is None, the dense decode
@@ -142,16 +167,33 @@ def transformer_stack(layer_params, cfg, hidden: torch.Tensor,
     {"k_pages_layers": (P, page_size, g, d) per layer, "v_pages_layers":
     ..., "page_table", "lengths", optionally "chunk_lens"}
     (`GPTModel.init_paged_kv_caches`): per-layer pools, one shared page
-    table, and the ragged chunk lengths through every layer."""
+    table, and the ragged chunk lengths through every layer.
+
+    `deterministic=False` (training with dropout) raises while a dropout
+    rate is above 0: dropout is a later slice."""
+    if not deterministic and (cfg.hidden_dropout > 0
+                              or cfg.attention_dropout > 0):
+        raise ValueError(
+            f"hidden_dropout={cfg.hidden_dropout}, attention_dropout="
+            f"{cfg.attention_dropout}: dropout is not ported yet (the "
+            f"dropout slice, ROADMAP.md A3); train with rates of 0")
     if isinstance(layer_params, (list, tuple)):
         layers = layer_params
     else:
-        L = next(iter(layer_params["attention"].values())).shape[0]
-        layers = [layer_slice(layer_params, i) for i in range(L)]
+        layers = unstack_layers(layer_params)
     if kv_caches is None:
-        for p in layers:
-            hidden, _ = transformer_layer(p, cfg, hidden, rope_table, mask,
-                                          position_ids)
+        policy = cfg.resolved_remat_policy
+        n_remat = 0 if policy == "none" else (
+            min(cfg.recompute_num_layers, len(layers))
+            if cfg.recompute_method == "block" else len(layers))
+
+        def body(p, x):
+            return transformer_layer(p, cfg, x, rope_table, mask,
+                                     position_ids)[0]
+
+        body_ck = remat_wrap(body, policy)
+        for i, p in enumerate(layers):
+            hidden = (body_ck if i < n_remat else body)(p, hidden)
         return hidden, None
     if "k_pages_layers" in kv_caches:
         pt, lens = kv_caches["page_table"], kv_caches["lengths"]

@@ -1,0 +1,168 @@
+"""Mixed-precision AdamW / SGD with clipping and the skip gate (port of
+optimizer/optimizer.py).
+
+fp32 params, fp32 m and v, fp32 grads in; the update is plain torch ops
+with the JAX package's semantics: the fp32 global grad norm, the clip
+coefficient min(clip / (norm + 1e-6), 1), the AdamW form
+p32 - lr * (u + wd * p32) with bias correction from the step count, 1-D
+params (norm scales, biases) never decayed, the SGD momentum branch, and a
+skipped step (non-finite grad norm or the caller's `found_inf`) that
+leaves params and state as they were. The skip is a `torch.where` on the
+card: nothing is read back on the host.
+
+Unlike the JAX package's pure function, `optimizer_step` updates params,
+m, v and step IN PLACE (the state is the size of the model three times
+over; a second copy would not fit next to it on one card) and returns
+them. The fp16 dynamic loss scaler is a later slice and raises.
+"""
+
+from __future__ import annotations
+
+from typing import Any, NamedTuple, Optional, Tuple
+
+import torch
+
+from megatron_llm_tpu_torch.config import TrainConfig
+
+
+def tree_leaves(tree) -> list:
+    """Leaves of nested dicts, lists and tuples (dict keys sorted, the
+    order jax.tree uses)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in tree_leaves(tree[k])]
+    if isinstance(tree, (list, tuple)):
+        return [x for t in tree for x in tree_leaves(t)]
+    return [tree]
+
+
+def tree_map(fn, tree, *rest):
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
+
+
+class OptimizerState(NamedTuple):
+    step: torch.Tensor  # int32 scalar on the params' device
+    m: Any  # first moment (adam) or momentum buffer (sgd); params-shaped
+    v: Optional[Any]  # second moment (adam) or None (sgd)
+    scaler: Optional[dict] = None  # fp16 loss scaler: not ported
+
+
+def global_grad_norm(grads) -> torch.Tensor:
+    """L2 norm over every leaf as an fp32 scalar (JAX :45-53). Per-leaf
+    norms first, so no squared copy of a leaf is made; they accumulate in
+    fp64, so that the sum does not depend on a device's reduction order
+    (XLA sums its fp32 squares pairwise; a straight fp32 sum over a
+    million-element leaf drifts by ~1e-5 relative)."""
+    norms = [torch.linalg.vector_norm(g, dtype=torch.float64)
+             for g in tree_leaves(grads)]
+    return torch.sqrt(sum(n * n for n in norms)).float()
+
+
+# elements per slice of the in-place update: bounds its fp32 temporaries
+# (a 7B-width w1 leaf of 8 layers is 721 M elements)
+_SLICE = 1 << 25
+
+
+def _slices(p):
+    """Views along the leading axis covering p in pieces of about _SLICE
+    elements (the update is elementwise, so the values do not change)."""
+    if p.dim() == 0:
+        return [slice(None)]
+    step = max(1, _SLICE // max(p[0].numel(), 1))
+    return [slice(i, i + step) for i in range(0, p.shape[0], step)]
+
+
+def count_zeros(grads) -> torch.Tensor:
+    """Zero entries over every leaf (JAX :56-59)."""
+    return sum((g == 0.0).sum() for g in tree_leaves(grads))
+
+
+def _check_tcfg(tcfg: TrainConfig):
+    if tcfg.fp16:
+        raise ValueError("fp16 with the dynamic loss scaler is not ported "
+                         "yet (the fp16 slice, ROADMAP.md A3); train in bf16")
+    if tcfg.optimizer not in ("adam", "sgd"):
+        raise ValueError(f"unknown optimizer {tcfg.optimizer}")
+
+
+def init_optimizer_state(params, tcfg: TrainConfig) -> OptimizerState:
+    _check_tcfg(tcfg)
+
+    def zeros(p):
+        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+
+    dev = tree_leaves(params)[0].device
+    step = torch.zeros((), dtype=torch.int32, device=dev)
+    if tcfg.optimizer == "adam":
+        return OptimizerState(step=step, m=tree_map(zeros, params),
+                              v=tree_map(zeros, params))
+    return OptimizerState(step=step, m=tree_map(zeros, params), v=None)
+
+
+@torch.no_grad()
+def optimizer_step(params, grads, state: OptimizerState, tcfg: TrainConfig,
+                   lr, weight_decay=None, found_inf=None
+                   ) -> Tuple[Any, OptimizerState, dict]:
+    """One update (JAX :100-210), in place; returns (params, state, stats)
+    with stats["grad_norm"] (fp32) and stats["skipped"] (int32) as 0-d
+    tensors on the card."""
+    _check_tcfg(tcfg)
+    wd = tcfg.weight_decay if weight_decay is None else weight_decay
+    lr = torch.as_tensor(lr, dtype=torch.float32)
+    wd = torch.as_tensor(wd, dtype=torch.float32)
+    p_leaves = tree_leaves(params)
+    g_leaves = [g.float() for g in tree_leaves(grads)]
+    dev = p_leaves[0].device
+    lr, wd = lr.to(dev), wd.to(dev)
+
+    grad_norm = global_grad_norm(g_leaves)
+    finite = torch.isfinite(grad_norm)
+    if found_inf is not None:
+        finite = finite & ~found_inf
+    coeff = torch.clamp(tcfg.clip_grad / (grad_norm + 1e-6), max=1.0) \
+        if tcfg.clip_grad > 0.0 else None
+    num_zeros = torch.zeros((), dtype=torch.int64, device=dev)
+
+    step = state.step + 1
+    m_leaves = tree_leaves(state.m)
+    v_leaves = tree_leaves(state.v) if state.v is not None \
+        else [None] * len(m_leaves)
+    if tcfg.optimizer == "adam":
+        b1, b2, eps = tcfg.adam_beta1, tcfg.adam_beta2, tcfg.adam_eps
+        stepf = step.float()
+        bc1 = 1.0 - torch.tensor(b1, dtype=torch.float32, device=dev) ** stepf
+        bc2 = 1.0 - torch.tensor(b2, dtype=torch.float32, device=dev) ** stepf
+    for p_full, g_full, m_full, v_full in zip(p_leaves, g_leaves, m_leaves,
+                                              v_leaves):
+        # 1-D params (norm scales, biases) are never decayed
+        wd_p = wd if p_full.dim() >= 2 else 0.0
+        for sl in _slices(p_full):
+            p, g, m = p_full[sl], g_full[sl], m_full[sl]
+            if coeff is not None:
+                g = g * coeff
+            if tcfg.log_num_zeros_in_grad:
+                num_zeros += count_zeros(g)
+            if tcfg.optimizer == "adam":
+                v = v_full[sl]
+                new_m = b1 * m + (1 - b1) * g
+                new_v = b2 * v + (1 - b2) * g.square()
+                u = (new_m / bc1) / (torch.sqrt(new_v / bc2) + eps)
+                p32 = p.float()
+                new_p = (p32 - lr * (u + wd_p * p32)).to(p.dtype)
+                v.copy_(torch.where(finite, new_v, v))
+            else:  # sgd with momentum
+                new_m = tcfg.sgd_momentum * m + g + wd_p * p.float()
+                new_p = (p.float() - lr * new_m).to(p.dtype)
+            p.copy_(torch.where(finite, new_p, p))
+            m.copy_(torch.where(finite, new_m, m))
+    state.step.copy_(torch.where(finite, step, state.step))
+
+    stats = {"grad_norm": grad_norm,
+             "skipped": (~finite).to(torch.int32)}
+    if tcfg.log_num_zeros_in_grad:
+        stats["num_zeros"] = num_zeros
+    if tcfg.log_params_norm:
+        stats["params_norm"] = global_grad_norm(p_leaves)
+    return params, state, stats

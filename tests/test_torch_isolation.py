@@ -23,6 +23,9 @@ from megatron_llm_tpu_torch.models.language_model import (
 )
 from megatron_llm_tpu_torch.models.rope import precompute_rope
 from megatron_llm_tpu_torch.models.transformer import init_layer_params
+from megatron_llm_tpu_torch.ops import flash_attention as fa
+from megatron_llm_tpu_torch.ops import rmsnorm as rms
+from megatron_llm_tpu_torch.training.trainer import Trainer, get_batch
 
 REPO = Path(__file__).resolve().parent.parent
 PKG = REPO / "megatron_llm_tpu_torch"
@@ -83,6 +86,7 @@ def test_no_jax_import_in_source(path):
     (init_layer_params, "device"),
     (precompute_rope, "device"),
     (params_from_jax, "device"),
+    (get_batch, "device"),
 ])
 def test_entry_points_default_to_cuda(fn, arg):
     fn = getattr(fn, "__wrapped__", fn)
@@ -104,3 +108,48 @@ def test_engine_and_paged_caches_take_the_models_device():
                        max_context=32)
     assert eng.device == model.device
     assert eng._last_logits.device == model.device
+
+
+def test_trainer_takes_the_models_device():
+    """`Trainer` has no device of its own: it trains on its model's
+    (cuda by default, as above) and builds its batches there."""
+    import numpy as np
+
+    from megatron_llm_tpu_torch.config import ParallelConfig, TrainConfig
+
+    assert "device" not in inspect.signature(Trainer.__init__).parameters
+    model = LlamaModel(tiny_config(), device="cpu")
+    tr = Trainer(model, TrainConfig(), ParallelConfig())
+    assert tr.device == model.device
+    state = tr.setup()
+    assert {p.device.type for p in (
+        state.params["lm_head"], state.opt_state.m["lm_head"],
+        state.opt_state.step)} == {"cpu"}
+    text = np.zeros((1, 1, 9), np.int32)
+    assert get_batch(text, device=tr.device)["tokens"].device.type == "cpu"
+
+
+@pytest.mark.parametrize("call", ["flash_fwd", "flash_bwd", "rmsnorm_fwd",
+                                  "rmsnorm_train"])
+def test_kernel_wrappers_do_not_fall_back_off_the_cpu(call):
+    """Only a CPU tensor takes a plain version: a tensor on any other
+    device goes to the kernel, which here (no nvcc, no triton) raises."""
+    import torch
+
+    def meta(*shape):
+        return torch.empty(shape, dtype=torch.bfloat16, device="meta")
+
+    q, k = meta(1, 8, 1, 1, 16), meta(1, 8, 1, 16)
+    calls = {
+        "flash_fwd": lambda: fa.flash_attention(q, k, k),
+        "flash_bwd": lambda: fa._bwd(q, k, k, q, meta(1, 8, 1).float(), q,
+                                     True),
+        "rmsnorm_fwd": lambda: rms.fused_rms_norm(meta(4, 16), meta(16)),
+        "rmsnorm_train": lambda: rms.fused_rms_norm(
+            meta(4, 16).requires_grad_(True), meta(16)),
+    }
+    # the kernel route (its device guard, the build, or triton's import)
+    # raises; the wrappers' own shape checks pass at these shapes
+    with pytest.raises((RuntimeError, ImportError, ValueError),
+                       match="(?i)cuda|nvcc|triton"):
+        calls[call]()

@@ -1,8 +1,9 @@
 """PyTorch port, the hand-written kernels on a CUDA card: decode attention
-(K1, CUDA C++), RMSNorm forward (K2, Triton) and ragged paged attention
-(K7, CUDA C++), each against its plain PyTorch version on the same
-inputs, and the decode and paged paths with the kernels on against the
-same paths with them off.
+(K1, CUDA C++), RMSNorm forward and backward (K2, K3, Triton), flash
+attention forward and backward (K4-K6, CUDA C++) and ragged paged
+attention (K7, CUDA C++), each against its plain PyTorch version on the
+same inputs, and the decode, paged and training paths with the kernels
+on against the same paths with them off.
 
 Every test is marked `cuda` and skips where there is no card. This file
 imports neither JAX nor the JAX package, so on a machine without JAX it
@@ -272,3 +273,205 @@ def test_paged_path_kernels_on_matches_off(cuda):
                 for m, c in zip((on, off), caches))
             assert _max_err(a, b) <= 1e-4, i
     assert pa.ragged_paged_attention.launches - k7 == 9 * cfg.num_layers
+
+
+# ---------------------------------------------------------------------------
+# K4-K6: flash attention forward and backward (bf16 only: fp32 raises)
+# ---------------------------------------------------------------------------
+
+FLASH_SHAPES = [
+    # (g, qpk, d, s, t, causal)
+    (2, 1, 128, 256, 256, True),     # Llama-2-7B heads, whole tiles
+    (2, 8, 128, 128, 128, True),     # Llama-2-70B GQA
+    (1, 3, 64, 100, 100, True),      # ragged s, odd qpk
+    (2, 2, 256, 130, 130, True),     # d 256: two output-column chunks
+    (3, 5, 40, 77, 77, True),        # d not a power of two
+    (2, 1, 8, 33, 33, True),         # smallest d
+    (2, 4, 128, 100, 70, False),     # full attention, t != s
+    (1, 2, 64, 64, 96, True),        # causal with t > s
+]
+
+
+def _flash_inputs(g, qpk, d, s, t, device, seed=0, b=2):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    bf = torch.bfloat16
+    q = torch.randn(b, s, g, qpk, d, generator=gen, device=device).to(bf)
+    k = torch.randn(b, t, g, d, generator=gen, device=device).to(bf)
+    v = torch.randn(b, t, g, d, generator=gen, device=device).to(bf)
+    do = torch.randn(b, s, g, qpk, d, generator=gen, device=device).to(bf)
+    return q, k, v, do
+
+
+def _rel_err(a, ref):
+    return _max_err(a, ref) / max(ref.float().abs().max().item(), 1e-30)
+
+
+@pytest.mark.parametrize("g,qpk,d,s,t,causal", FLASH_SHAPES)
+def test_flash_kernels_match_plain(cuda, g, qpk, d, s, t, causal):
+    """K4 (o and lse) against `_xla_reference_with_lse`, K5 and K6 against
+    `_plain_bwd` from the plain forward's o and lse: o within 2e-2
+    max-abs, lse within 1e-3, each gradient within 2e-2 of its
+    reference's max-abs (the kernels round p and ds to bf16 before their
+    products, the plain version rounds the same tensors but sums in
+    another order)."""
+    from megatron_llm_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = _flash_inputs(g, qpk, d, s, t, cuda, seed=d + s)
+    b = q.shape[0]
+    before = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+              fa.flash_bwd_dkv.launches)
+    o, lse = fa._fwd(q, k, v, causal)
+    o_ref, lse_ref = fa._xla_reference_with_lse(q, k, v, causal)
+    lse_ref = fa._lse_bsgq_to_rows(lse_ref, b, s, g, qpk)
+    torch.cuda.synchronize()
+    assert o.shape == q.shape and o.dtype == q.dtype
+    assert torch.isfinite(o.float()).all()
+    assert _max_err(o, o_ref) <= 2e-2
+    assert _max_err(lse, lse_ref) <= 1e-3
+    grads = fa._bwd(q, k, v, o, lse, do, causal)
+    refs = fa._plain_bwd(q, k, v, o_ref, lse_ref, do, causal)
+    torch.cuda.synchronize()
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+        assert got.shape == ref.shape and got.dtype == ref.dtype, name
+        assert _rel_err(got, ref) <= 2e-2, (name, _rel_err(got, ref))
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+            fa.flash_bwd_dkv.launches) == tuple(x + 1 for x in before)
+
+
+def test_flash_lse_cotangent_folds_into_delta(cuda):
+    """A nonzero dlse through `flash_attention_with_lse` on the card
+    against the plain backward with the same fold."""
+    from megatron_llm_tpu_torch.ops import flash_attention as fa
+
+    g, qpk, d, s = 2, 4, 128, 96
+    q, k, v, do = _flash_inputs(g, qpk, d, s, s, cuda, seed=11)
+    gen = torch.Generator(device=cuda).manual_seed(12)
+    dlse = torch.randn(2, s, g, qpk, generator=gen, device=cuda)
+    qr, kr, vr = (x.clone().requires_grad_(True) for x in (q, k, v))
+    o, lse = fa.flash_attention_with_lse(qr, kr, vr, True)
+    torch.autograd.backward((o, lse), (do, dlse))
+    o_ref, lse_ref = fa._xla_reference_with_lse(q, k, v, True)
+    rows = fa._lse_bsgq_to_rows(lse_ref, 2, s, g, qpk)
+    refs = fa._plain_bwd(q, k, v, o_ref, rows, do, True,
+                         fa._lse_bsgq_to_rows(dlse, 2, s, g, qpk))
+    for name, got, ref in zip("qkv", (qr.grad, kr.grad, vr.grad), refs):
+        assert _rel_err(got, ref) <= 2e-2, name
+
+
+def test_flash_backward_is_deterministic(cuda):
+    """No atomics: two backward runs agree bitwise."""
+    from megatron_llm_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = _flash_inputs(4, 2, 128, 384, 384, cuda, seed=5)
+    o, lse = fa._fwd(q, k, v, True)
+    a = fa._bwd(q, k, v, o, lse, do, True)
+    b = fa._bwd(q, k, v, o, lse, do, True)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+def test_flash_kernel_refuses_what_it_does_not_take(cuda):
+    from megatron_llm_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, _ = _flash_inputs(1, 1, 128, 16, 16, cuda)
+    with pytest.raises(ValueError, match="bfloat16"):
+        fa.flash_attention(q.float(), k.float(), v.float())
+    with pytest.raises(ValueError, match="bfloat16"):
+        fa.flash_attention(q.half(), k.half(), v.half())
+    q, k, v, _ = _flash_inputs(1, 1, 12, 16, 16, cuda)
+    with pytest.raises(ValueError, match="d % 8"):
+        fa.flash_attention(q, k, v)
+    q, k, v, _ = _flash_inputs(1, 1, 264, 16, 16, cuda)
+    with pytest.raises(ValueError, match="d <= 256"):
+        fa.flash_attention(q, k, v)
+
+
+# ---------------------------------------------------------------------------
+# K2 with rstd and K3: the RMSNorm the training path runs
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n,h", [(4096, 4096), (1000, 4096), (7, 4096),
+                                 (3, 300), (33, 128)])
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 1e-5)],
+                         ids=["bf16", "fp32"])
+def test_rmsnorm_rstd_and_backward_kernels_match_plain(cuda, n, h, dtype,
+                                                       tol):
+    """K2 writing rstd against `_plain_fwd`, K3 against `_plain_bwd`, with
+    the training path's fp32 scale parameter: out, dx and dscale within
+    tol of max(1, their reference's max-abs), rstd within 1e-5."""
+    gen = torch.Generator(device=cuda).manual_seed(n + h)
+    x = torch.randn(n, h, generator=gen, device=cuda).to(dtype)
+    g = torch.randn(n, h, generator=gen, device=cuda).to(dtype)
+    scale = 1 + 0.1 * torch.randn(h, generator=gen, device=cuda)
+    before = (rms.fused_rms_norm.launches, rms.rms_norm_bwd.launches)
+    out, rstd = rms.rms_norm_fwd(x, scale, 1e-5, with_rstd=True)
+    ref_out, ref_rstd = rms._plain_fwd(x, scale, 1e-5)
+    dx, ds = rms.rms_norm_bwd(x, scale, rstd, g)
+    ref_dx, ref_ds = rms._plain_bwd(x, scale, ref_rstd, g)
+    torch.cuda.synchronize()
+    assert (rms.fused_rms_norm.launches, rms.rms_norm_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert out.dtype == dtype and dx.dtype == dtype
+    assert ds.dtype == torch.float32 and rstd.shape == (n, 1)
+    # relative to the largest output: normalised rows times a scale reach
+    # |out| ~ 5, where one bf16 ulp is 0.03
+    for got, ref in ((out, ref_out), (dx, ref_dx), (ds, ref_ds)):
+        assert _max_err(got, ref) <= tol * max(1.0, ref.abs().max().item())
+    assert _max_err(rstd, ref_rstd) <= 1e-5 * ref_rstd.abs().max().item()
+
+
+def test_rmsnorm_autograd_launches_k2_and_k3(cuda):
+    x = torch.randn(64, 256, device=cuda, dtype=torch.bfloat16,
+                    requires_grad=True)
+    scale = torch.ones(256, device=cuda, requires_grad=True)
+    before = (rms.fused_rms_norm.launches, rms.rms_norm_bwd.launches)
+    rms.fused_rms_norm(x, scale, 1e-5).float().sum().backward()
+    assert (rms.fused_rms_norm.launches, rms.rms_norm_bwd.launches) == \
+        (before[0] + 1, before[1] + 1)
+    assert x.grad.dtype == torch.bfloat16 and scale.grad.dtype == torch.float32
+
+
+def test_train_path_kernels_on_matches_off(cuda):
+    """Tiny GQA Llama (d 128) in bf16 on the card: one microbatch's loss
+    and gradients with flash and the fused RMSNorm on, full recompute,
+    against the same with both off; per microbatch the kernels launch
+    as the training path implies."""
+    from megatron_llm_tpu_torch.ops import flash_attention as fa
+
+    cfg = tiny_config(hidden_size=512, num_attention_heads=4,
+                      num_attention_heads_kv=2, kv_channels=128,
+                      ffn_hidden_size=256, seq_length=256,
+                      max_position_embeddings=256, use_fused_rmsnorm=True,
+                      use_flash_attn=True, remat_policy="full")
+    on = LlamaModel(cfg)
+    off = LlamaModel(dataclasses.replace(cfg, use_fused_rmsnorm=False,
+                                         use_flash_attn=False))
+    params = on.init(seed=3)
+    leaves = [params["lm_head"], params["layers"]["attention"]["wqkv"],
+              params["layers"]["input_norm"]["scale"],
+              params["embedding"]["word_embeddings"]]
+    for p in leaves:
+        p.requires_grad_(True)
+    toks = torch.from_numpy(
+        np.random.RandomState(0).randint(0, 256, (2, 257))).to(cuda)
+    before = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+              fa.flash_bwd_dkv.launches, rms.fused_rms_norm.launches,
+              rms.rms_norm_bwd.launches)
+    results = []
+    for m in (on, off):
+        loss = m.loss(params, toks[:, :-1], toks[:, 1:])
+        results.append((loss.item(), torch.autograd.grad(loss, leaves)))
+    L = cfg.num_layers
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+            fa.flash_bwd_dkv.launches, rms.fused_rms_norm.launches,
+            rms.rms_norm_bwd.launches) == (
+        before[0] + 2 * L, before[1] + L, before[2] + L,
+        before[3] + 4 * L + 1, before[4] + 2 * L + 1)
+    (l_on, g_on), (l_off, g_off) = results
+    assert abs(l_on - l_off) <= 2e-2
+    for a, b in zip(g_on, g_off):
+        cos = torch.nn.functional.cosine_similarity(
+            a.double().flatten(), b.double().flatten(), dim=0).item()
+        assert cos >= 0.99

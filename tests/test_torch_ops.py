@@ -123,3 +123,73 @@ def test_rmsnorm_plain_bf16_cast_order():
         ref = np.asarray(ref, np.float32)
         ulp = np.spacing(np.abs(ref).astype(np.float32)) * 2 ** 16
         assert np.all(np.abs(got - ref) <= ulp)
+
+
+# ---------------------------------------------------------------------------
+# K2 with rstd and K3: RMSNorm through autograd
+# ---------------------------------------------------------------------------
+
+
+def _rms_vjp_port(x, scale, g, eps=1e-5):
+    xt = t(x).requires_grad_(True)
+    st = t(scale).requires_grad_(True)
+    out = rms.fused_rms_norm(xt, st, eps)
+    out.backward(t(g))
+    return out.detach().numpy(), xt.grad.numpy(), st.grad.numpy()
+
+
+@pytest.mark.parametrize("shape", [(16, 256), (2, 8, 384)],
+                         ids=["n16", "b2s8"])
+def test_rmsnorm_backward_matches_pallas_kernel(shape):
+    """fp32, 1e-5: `_FusedRMSNorm` on the CPU (plain forward with rstd,
+    the plain backward of the Pallas kernel's formulas) against
+    jax.vjp of the Pallas RMSNorm forward and backward under the
+    interpreter, and against autodiff of the JAX plain norm."""
+    import jax
+
+    rs = np.random.RandomState(len(shape))
+    x = rs.randn(*shape).astype(np.float32)
+    scale = (1.0 + 0.1 * rs.randn(shape[-1])).astype(np.float32)
+    g = rs.randn(*shape).astype(np.float32)
+    out, dx, ds = _rms_vjp_port(x, scale, g)
+    for fn in (lambda a, b: jax_fused_rms_norm(a, b, 1e-5, use_pallas=True,
+                                               interpret=True),
+               lambda a, b: jax_rms_norm(a, b, 1e-5)):
+        ref_out, vjp = jax.vjp(fn, jnp.asarray(x), jnp.asarray(scale))
+        ref_dx, ref_ds = vjp(jnp.asarray(g))
+        close(out, ref_out, 1e-5)
+        close(dx, ref_dx, 1e-5)
+        close(ds, ref_ds, 1e-5 * np.abs(np.asarray(ref_ds)).max())
+
+
+def test_rmsnorm_plain_backward_formulas():
+    """`_plain_bwd` from `_plain_fwd`'s rstd equals torch autodiff of the
+    plain `rms_norm` in fp32, and its rstd equals 1/sqrt(mean(x^2)+eps)."""
+    rs = np.random.RandomState(7)
+    x = rs.randn(5, 40).astype(np.float32)
+    scale = rs.randn(40).astype(np.float32)
+    g = rs.randn(5, 40).astype(np.float32)
+    out, rstd = rms._plain_fwd(t(x), t(scale), 1e-5)
+    close(rstd.numpy()[:, 0],
+          1 / np.sqrt((x.astype(np.float64) ** 2).mean(-1) + 1e-5), 1e-6)
+    dx, ds = rms._plain_bwd(t(x), t(scale), rstd, t(g))
+    xt = t(x).requires_grad_(True)
+    st = t(scale).requires_grad_(True)
+    rms.rms_norm(xt, st, 1e-5).backward(t(g))
+    close(out.numpy(), rms.rms_norm(t(x), t(scale), 1e-5).numpy(), 0)
+    close(dx.numpy(), xt.grad.numpy(), 1e-5)
+    close(ds.numpy(), st.grad.numpy(), 1e-5)
+
+
+def test_rmsnorm_autograd_path_only_where_autograd_records():
+    """Serving (no grad) takes the forward without rstd; a CPU tensor
+    launches neither kernel."""
+    x = t(np.random.RandomState(2).randn(3, 16).astype(np.float32))
+    s = torch.ones(16)
+    k2, k3 = rms.fused_rms_norm.launches, rms.rms_norm_bwd.launches
+    with torch.no_grad():
+        assert rms.fused_rms_norm(x, s.requires_grad_(True)).grad_fn is None
+    out = rms.fused_rms_norm(x.requires_grad_(True), s)
+    assert type(out.grad_fn).__name__ == "_FusedRMSNormBackward"
+    out.sum().backward()
+    assert (rms.fused_rms_norm.launches, rms.rms_norm_bwd.launches) == (k2, k3)
