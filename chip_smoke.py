@@ -14,9 +14,13 @@ Phases, one output line each (a failure raises and exits non-zero):
    attention kernels round p to bf16 before normalising, the plain
    versions after; flash gradients within 2e-2 of their reference's
    max-abs), and each kernel's time beside its plain version's, one
-   library call's and the least time the card could take;
+   library call's and the least time the card could take; K7 also with
+   int8 pools, a window of 1024 (binding, and covering: bitwise the fp
+   launch), both, and three packed documents over one slot's pages
+   (kernel_check_paged_variants, kernel_time_paged_variants), with NaN
+   below every chunk's floor kept out of the output;
 4. model: Llama-2-7B at full width and depth, random bf16 weights from a
-   fixed seed on the card, built once for both routes;
+   fixed seed on the card, built once for every route;
 5. serving (whole-batch route, `MegatronServer(engine=None)`): a greedy
    batch of 4 prompts, a sampled, a score-only and a beam request. The
    launch counters are set to 0 before the requests and read after; the
@@ -46,18 +50,39 @@ Phases, one output line each (a failure raises and exits non-zero):
    traffic, ms per decode-token advance and per mixed round, TTFT p50,
    the device ms of one 8-slot paged decode step beside the weight floor
    and the idle share, peak memory;
-11. train (the serving model and pools freed first): Llama-2-7B widths at
+11. serving_engine_int8: the same traffic through the same server with
+   int8 pools and int8 weights (`kv_dtype="int8"`,
+   `quantize_weights=True`); every K7 launch the int8 variant; the
+   outputs re-scored teacher-forced on a kernels-off int8 engine within
+   5e-2; printed: drift against the bf16 engine, pool bytes per token,
+   tokens/s, ms per decode advance, the device ms of a decode step;
+12. serving_engine_window: a model with `attention_window_size=1024`,
+   max_context 4096, 12 requests (8 reaching 1564-3128 positions) queued
+   and drained in a pool of 8 x 21 pages that their reach overflows: the
+   streams bitwise those of the mask-only engine, pages reclaimed, no
+   slot above 21 pages, every page back, a kernels-off windowed re-score
+   within 5e-2, every K7 launch the window variant;
+13. serving_engine_spec_whole_prompt: 8 requests (4 with repeating
+   prompts) over HTTP through the chunked engine, with `spec_decode_k=4`
+   and with whole-prompt admission: acceptance, tokens/s and TTFT of
+   each, and log-probs within 5e-2 of the chunked engine's over each
+   request's common prefix;
+14. packed_docs_prefill: three documents packed into one slot's pages,
+   prefilled by one paged `LlamaModel.forward` with "doc_starts" floors:
+   K7 once per layer, the doc variant each time; log-probs within 5e-2 of
+   the kernels-off forward and of each document's own forward;
+15. train (the serving model and pools freed first): Llama-2-7B widths at
    8 of its 32 layers, seq 4096, flash attention and the fused RMSNorm,
    full recompute, bf16 compute on fp32 params and AdamW state, trained
    for 8 steps of 4 microbatches through `Trainer.setup()` / `train()` on
    one fixed batch of seeded tokens. The counters are set to 0 before
    `train()`: K2-K6 must have run exactly the launches the code implies;
    every loss finite, no step skipped, the last loss below the first;
-12. path_check_train (run between setup and training): one microbatch's
+16. path_check_train (run between setup and training): one microbatch's
    loss and gradients at the initial weights with the kernels on and off
    (grouped attention, plain RMSNorm): loss within 2e-2, global gradient
    norm within 5e-2 relative, every leaf's gradient cosine >= 0.98;
-13. throughput_train: median ms per step, tokens/s, model TFLOP/s (6 N
+17. throughput_train: median ms per step, tokens/s, model TFLOP/s (6 N
    per token) and its share of 989, peak memory, and a torch.profiler
    trace of one step: the top 10 CUDA kernels by device time and the
    share of the step the card was busy.
@@ -99,6 +124,7 @@ from megatron_llm_tpu_torch.ops import decode_attention as dec
 from megatron_llm_tpu_torch.ops import flash_attention as fa
 from megatron_llm_tpu_torch.ops import prefill_attention as pa
 from megatron_llm_tpu_torch.ops import rmsnorm as rms
+from megatron_llm_tpu_torch.ops.quantization import quantize_rows
 from megatron_llm_tpu_torch.optimizer.optimizer import tree_leaves
 from megatron_llm_tpu_torch.tokenizer import build_tokenizer
 from megatron_llm_tpu_torch.training.trainer import Trainer
@@ -505,6 +531,223 @@ def _sdpa(sdpa, args):
     return sdpa(q, k, v, attn_mask=mask)
 
 
+# K7's variants beside fp pools: (int8 pools, window, document floors).
+# The window binds on the longer slots of both batches; "window_covering"
+# reaches past every slot and must launch bitwise the fp kernel.
+WINDOW = 1024
+K7_VARIANTS = {"int8": (True, None, False), "window": (False, WINDOW, False),
+               "window_covering": (False, 4096, False),
+               "int8_window": (True, WINDOW, False),
+               "doc": (False, None, True)}
+# three packed documents over slot 0's pages: [0, 700), [700, 1500),
+# [1500, 2048); per batch (chunk width, [(start, chunk_len, doc floor)])
+PACKED_DOCS = {
+    "decode": (1, [(699, 1, 0), (1499, 1, 700), (2047, 1, 1500)]),
+    "mixed": (256, [(444, 256, 0), (1244, 256, 700), (1500, 256, 1500)]),
+}
+
+
+def variant_inputs(batch, variant, g, qpk, d, gen):
+    """(args, kw) of one K7 launch of `variant` on `batch`: the fp inputs
+    of `paged_inputs` with their pools quantized for int8 (the chunks'
+    K/V scattered again through the quantizing scatter), or for "doc"
+    the three packed documents over one slot's pages."""
+    int8, window, doc = K7_VARIANTS[variant]
+    if doc:
+        C, spans = PACKED_DOCS[batch]
+        nc = len(spans)
+        P = 1 + nc * SLOT_PAGES  # room for `plant_nans_below` to unshare
+
+        def rnd(*shape):
+            return torch.randn(shape, generator=gen, device="cuda").to(
+                torch.bfloat16)
+        k_pages, v_pages = rnd(P, PAGE, g, d), rnd(P, PAGE, g, d)
+        pt = (torch.randperm(SLOT_PAGES, generator=gen, device="cuda")
+              + 1).int()[None].repeat(nc, 1).contiguous()
+        starts, lens, floors = (torch.tensor(
+            [x[i] for x in spans], dtype=torch.int32, device="cuda")
+            for i in range(3))
+        q = rnd(nc, C, g, qpk, d)
+        pa.scatter_chunk_kv(rnd(nc, C, g, d), rnd(nc, C, g, d), k_pages,
+                            v_pages, pt, starts, lens)
+        return (q, k_pages, v_pages, pt, starts, lens), dict(
+            k_scales=None, v_scales=None, window=window, doc_starts=floors)
+    q, kp, vp, pt, starts, lens = paged_inputs(batch, g, qpk, d, gen)
+    ks = vs = None
+    if int8:
+        (kp, ks), (vp, vs) = quantize_rows(kp), quantize_rows(vp)
+        C = q.shape[1]
+        pa.scatter_chunk_kv(*(torch.randn(len(starts), C, g, d,
+                                          generator=gen, device="cuda")
+                              .to(torch.bfloat16) for _ in range(2)),
+                            kp, vp, pt, starts, lens, ks, vs)
+    return (q, kp, vp, pt, starts, lens), dict(
+        k_scales=ks, v_scales=vs, window=window, doc_starts=None)
+
+
+def chunk_floors(args, kw):
+    """Each chunk's lowest attendable position (its first row's floor)."""
+    starts = args[4].tolist()
+    lo = [0] * len(starts)
+    if kw["window"]:
+        lo = [max(0, s - kw["window"] + 1) for s in starts]
+    if kw["doc_starts"] is not None:
+        lo = [max(a, b) for a, b in zip(lo, kw["doc_starts"].tolist())]
+    return lo
+
+
+def plant_nans_below(args, kw):
+    """NaN at every position below each chunk's floor (in the scale pools
+    of int8 pools), table entries of pages wholly below it reclaimed to
+    the null page, and NaN in the null page. Packed documents first get
+    private copies of their shared pages (same values, so the clean
+    output stands), since one document's floor lies above another's
+    positions."""
+    q, kp, vp, pt, starts, lens = args
+    targets = (kw["k_scales"], kw["v_scales"]) if kw["k_scales"] \
+        is not None else (kp, vp)
+    if kw["doc_starts"] is not None:
+        for c in range(1, pt.shape[0]):
+            own = torch.arange(1 + c * SLOT_PAGES, 1 + (c + 1) * SLOT_PAGES,
+                               dtype=torch.int32, device="cuda")
+            for x in (kp, vp):
+                x[own.long()] = x[pt[c].long()]
+            pt[c] = own
+    table = pt.cpu().numpy()
+    for c, lo in enumerate(chunk_floors(args, kw)):
+        for j in range(-(-lo // PAGE)):
+            pg = int(table[c, j])
+            for x in targets:
+                x[pg, :min(PAGE, lo - j * PAGE)] = float("nan")
+        pt[c, :lo // PAGE] = 0
+    for x in targets:
+        x[0] = float("nan")
+
+
+def variant_bound_ms(args, kw):
+    """Least time of one variant launch: the bytes of each chunk's needed
+    K/V positions ([floor, start + len), with the scales for int8: (d +
+    4) / (2 d) of the bf16 bytes), its valid q rows and the whole output
+    over 3.35 TB/s, or its operations over the bf16 peak, whichever is
+    larger."""
+    q, kp = args[0], args[1]
+    nc, C, g, qpk, d = q.shape
+    starts, lens = args[4].tolist(), args[5].tolist()
+    per_pos = 2 * g * ((d + 4) if kw["k_scales"] is not None else 2 * d)
+    nbytes, flops = 0, 0
+    for lo, s, n in zip(chunk_floors(args, kw), starts, lens):
+        if not n:
+            continue
+        nbytes += per_pos * (s + n - lo) + 2 * n * g * qpk * d
+        for t in range(n):
+            row_lo = lo if not kw["window"] else max(lo, s + t
+                                                     - kw["window"] + 1)
+            flops += 4 * (s + t + 1 - row_lo) * qpk * g * d
+    nbytes += 2 * nc * C * g * qpk * d
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / BF16_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
+
+
+def banded_sdpa_inputs(args, kw):
+    """The library yardstick of a variant with floors: SDPA on K/V
+    gathered to the dense (nc, g, T, d) view with the band (window or
+    document) mask; pad rows keep column 0 so no row is empty."""
+    q, kp, vp, pt, starts, lens = args
+    nc, C, g, qpk, d = q.shape
+    T = pt.shape[1] * PAGE
+    k = kp[pt.long()].reshape(nc, T, g, d).transpose(1, 2).contiguous()
+    v = vp[pt.long()].reshape(nc, T, g, d).transpose(1, 2).contiguous()
+    rows = torch.arange(C, device="cuda")
+    pos = (starts[:, None] + rows[None, :])[:, :, None]
+    cols = torch.arange(T, device="cuda")[None, None, :]
+    lo = torch.zeros_like(pos)
+    if kw["window"]:
+        lo = pos - kw["window"] + 1
+    if kw["doc_starts"] is not None:
+        lo = torch.maximum(lo, kw["doc_starts"][:, None, None])
+    mask = (cols <= pos) & (cols >= lo)
+    mask |= (rows[None, :, None] >= lens[:, None, None]) & (cols == 0)
+    return (q.reshape(nc, C, g * qpk, d).transpose(1, 2), k, v,
+            mask[:, None])
+
+
+def check_paged_variants(k7_row):
+    """K7's int8 epilogue and lower bounds at the engine's pool shape (8
+    slots, g 32, d 128, page 64, 2048 positions a slot), on a decode and a
+    mixed batch: int8 pools, a binding window of 1024, a covering window
+    (bitwise the fp launch), int8 with the window, and three packed
+    documents over one slot's pages, each against its plain version
+    (bf16 output, fp32 accumulation, max-abs 2e-2 as for K4); NaN below
+    each chunk's floor must not reach the output. Then each variant's
+    time beside its bound, plain version and library call."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    g, qpk, d = 32, 1, 128
+    errs = {}
+    for variant in K7_VARIANTS:
+        for batch in PAGED_BATCHES:
+            args, kw = variant_inputs(batch, variant, g, qpk, d, gen)
+            got = pa.paged_attention(*args, **kw)
+            ref = pa._xla_paged_reference(*args, **kw)
+            torch.cuda.synchronize()
+            check(got.dtype == torch.bfloat16, f"K7 {variant} output dtype")
+            err = (got.float() - ref.float()).abs().max().item()
+            errs[f"{variant}_{batch}"] = err
+            check(err <= BF16_TOL, f"K7 {variant} {batch}: {err}")
+            if variant == "window_covering":
+                plain_fp = pa.paged_attention(*args)
+                check(torch.equal(got, plain_fp),
+                      f"K7 covering window {batch} is not bitwise no window")
+            if kw["window"] or kw["doc_starts"] is not None:
+                plant_nans_below(args, kw)
+                dirty = pa.paged_attention(*args, **kw)
+                torch.cuda.synchronize()
+                check(bool(torch.isfinite(dirty.float()).all())
+                      and torch.equal(dirty, got),
+                      f"K7 {variant} {batch}: NaN below the floor reached "
+                      f"the output")
+    say("kernel_check_paged_variants", max_abs_err=errs, tol=BF16_TOL,
+        nan_below_floor="ok", covering_window_bitwise=True)
+
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = {}
+    for variant in ("int8", "window", "int8_window", "doc"):
+        times = {}
+        for batch in PAGED_BATCHES:
+            sets = [variant_inputs(batch, variant, g, qpk, d, gen)
+                    for _ in range(4)]
+            pick = rotating(lambda i: sets[i], 4)
+            kernel_ms = device_ms(lambda: _launch(pa.paged_attention, pick()))
+            plain_ms = device_ms(
+                lambda: _launch(pa._xla_paged_reference, pick()),
+                per_graph=10, replays=5)
+            library_ms = None  # int8: no one library call reads int8 K/V
+            if not K7_VARIANTS[variant][0]:
+                lib = rotating(lambda i: banded_sdpa_inputs(*sets[i]), 4)
+                library_ms = device_ms(lambda: _sdpa(sdpa, lib()))
+                del lib
+            bound, bound_by = variant_bound_ms(*sets[0])
+            times[batch] = {"ms": kernel_ms, "plain_ms": plain_ms,
+                            "bound_ms": bound, "bound_by": bound_by,
+                            "library_ms": library_ms}
+            del sets
+            torch.cuda.empty_cache()
+        rows[variant] = dict(
+            times["decode"], mixed=times["mixed"],
+            max_abs_err=max(errs[f"{variant}_{b}"] for b in PAGED_BATCHES))
+    say("kernel_time_paged_variants", **rows)
+    k7_row["variants"] = rows
+    k7_row["variant_shape"] = (
+        "as the K7 row; int8 pools with (P, 64, 32) fp32 scale pools; "
+        f"window {WINDOW}; doc: three packed documents over one slot's "
+        "pages, decode rows at 699/1499/2047 and 256-token chunks")
+
+
+def _launch(fn, inputs):
+    args, kw = inputs
+    return fn(*args, **kw)
+
+
 # ---------------------------------------------------------------------------
 # phases 4-7: Llama-2-7B on the whole-batch route
 # ---------------------------------------------------------------------------
@@ -761,6 +1004,7 @@ def engine_traffic():
         p = prefix + ids(tail)
         out.append((name, p, {"prompts": [text(p)], "top_k": 1,
                               "tokens_to_generate": 64}))
+    out[-2][2]["then"] = "shared_b"  # sent once shared_a is answered
     p = ids(180)
     out.append(("sampled", p, {"prompts": [text(p)], "top_p": 0.9,
                                "random_seed": 1234,
@@ -771,55 +1015,65 @@ def engine_traffic():
     return out
 
 
-def serve_engine(kernels, cfg, model, params, weight_bytes):
-    tok = build_tokenizer("NullTokenizer", null_vocab_size=31999)
-    t0 = time.perf_counter()
-    eng = DecodeEngine(model, params, slots=8, page_size=64,
-                       max_context=2048, step_horizon=8,
-                       prefill_chunk_tokens=256, prefix_cache=True,
-                       termination_id=tok.eod, vocab_size=tok.vocab_size)
+def engine_kwargs(tok, **over):
+    """The launcher's defaults: 8 slots, page 64, max_context 2048,
+    horizon 8, chunks of 256, prefix cache."""
+    kw = dict(slots=8, page_size=64, max_context=2048, step_horizon=8,
+              prefill_chunk_tokens=256, prefix_cache=True,
+              termination_id=tok.eod, vocab_size=tok.vocab_size)
+    kw.update(over)
+    return kw
+
+
+def drive_engine(eng, model, tok, params, traffic):
+    """The traffic from concurrent client threads through
+    `MegatronServer(engine=eng)` (a "then" request is sent once the one
+    before it is answered), with every launch count set to 0 just before
+    and read just after. Returns the run's record."""
     server = MegatronServer(model, params, tok, engine=eng)
     server.run("127.0.0.1", 0, block=False)
     port = server._httpd.server_address[1]
-    setup_s = time.perf_counter() - t0
-    traffic = engine_traffic()
     results = {}
+    then = {name: payload["then"] for name, _, payload in traffic
+            if "then" in payload}
+    by_name = {name: payload for name, _, payload in traffic}
 
-    def client(name, payload, then=None):
+    def client(name):
+        payload = {k: v for k, v in by_name[name].items() if k != "then"}
         results[name] = put_raw(port, payload)
-        if then is not None:
-            client(*then)
+        if name in then:
+            client(then[name])
 
     counter = PagedForwards(model)
     try:
         zero_counts()
-        by_name = {name: payload for name, _, payload in traffic}
-        threads = [threading.Thread(target=client, args=(
-            name, payload,
-            ("shared_b", by_name["shared_b"]) if name == "shared_a"
-            else None)) for name, _, payload in traffic
-            if name != "shared_b"]
+        threads = [threading.Thread(target=client, args=(name,))
+                   for name, _, _ in traffic if name not in then.values()]
         t_start = time.perf_counter()
         for th in threads:
             th.start()
         for th in threads:
             th.join(timeout=900)
         wall = time.perf_counter() - t_start
-        launches = {"ragged_paged_attention":
-                    pa.ragged_paged_attention.launches,
-                    "rmsnorm_fwd": rms.fused_rms_norm.launches,
-                    "decode_attention": dec.decode_attention.launches,
-                    "flash_fwd": fa.flash_fwd.launches}
+        launches = kernel_counts()
+        variants = dict(pa.ragged_paged_attention.variant_launches)
         check(all(not th.is_alive() for th in threads), "engine clients hung")
         metrics = get_json(port, "/metrics")
     finally:
         model.forward = counter.inner
         server.stop()
+    return {"results": results, "launches": launches, "variants": variants,
+            "metrics": metrics, "wall": wall, "paged": counter.paged,
+            "rounds": list(eng._round_log)}
 
-    generated = 0
-    greedy = []
+
+def check_outputs(traffic, run, tok):
+    """Every answer echoes its prompt and stops at its budget or eod;
+    returns (generated tokens, [(name, prompt, out, log-probs)] of the
+    requests that asked for log-probs)."""
+    generated, scored = 0, []
     for name, prompt, payload in traffic:
-        status, body = results[name]
+        status, body = run["results"][name]
         check(status == 200, f"engine {name} -> {status} {body}")
         gen = payload["tokens_to_generate"]
         if payload.get("stream"):
@@ -840,28 +1094,133 @@ def serve_engine(kernels, cfg, model, params, weight_bytes):
             lp = body["logprobs"][0]
             check(len(lp) == len(out) - 1 and np.isfinite(lp).all(),
                   f"{name}: logprobs")
-            greedy.append((prompt, out, lp))
-    k7 = launches["ragged_paged_attention"]
-    check(k7 == cfg.num_layers * counter.paged,
-          f"K7 launches {k7} != {cfg.num_layers} x {counter.paged} paged "
-          f"forwards")
-    check(launches["rmsnorm_fwd"] > 0, "K2 did not run on the engine route")
-    check(launches["decode_attention"] == 0, "K1 ran on the engine route")
-    check(launches["flash_fwd"] == 0, "K4 ran on the engine route")
+            scored.append((name, prompt, out, lp))
+    return generated, scored
+
+
+def check_paged_launches(cfg, run, label, variant=None):
+    """K7 ran once per layer per paged forward (under `variant` every
+    time, when given), K2 ran, K1 and K4 did not."""
+    k7 = run["launches"]["ragged_paged_attention"]
+    check(k7 == cfg.num_layers * run["paged"] and k7 > 0,
+          f"{label}: K7 launches {k7} != {cfg.num_layers} x {run['paged']} "
+          f"paged forwards")
+    if variant is not None:
+        check(run["variants"][variant] == k7,
+              f"{label}: K7 {variant} launches {run['variants']}")
+    check(run["launches"]["rmsnorm_fwd"] > 0, f"{label}: K2 did not run")
+    check(run["launches"]["decode_attention"] == 0, f"{label}: K1 ran")
+    check(run["launches"]["flash_fwd"] == 0, f"{label}: K4 ran")
+
+
+def note_launches(kernels, path, run):
+    """Add one engine path's launches to the K2 and K7 rows."""
+    for row in kernels:
+        if row["name"] == "rmsnorm_fwd":
+            row["launches_by_path"][path] = run["launches"]["rmsnorm_fwd"]
+            row["launches"] = sum(row["launches_by_path"].values())
+        if row["name"] == "ragged_paged_attention":
+            paths = row.setdefault("launches_by_path", {})
+            paths[path] = run["launches"]["ragged_paged_attention"]
+            row["launches"] = sum(paths.values())
+            row.setdefault("variant_launches_by_path", {})[path] = {
+                k: v for k, v in run["variants"].items() if v}
+
+
+def free_cuda():
+    """Return the memory of what the caller dropped (engines hold
+    reference cycles, so collect first)."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def rescore(eng, scored):
+    """Each (prompt, out) teacher-forced through `eng` as one prompt
+    (chunked prefill, one token generated): the log-probs of out[1:]."""
+    reqs = [eng.submit(out, 1, top_k=1, return_log_probs=True,
+                       use_eod_for_early_termination=False)
+            for _, _, out, _ in scored]
+    eng.drain()
+    return [r.result(60)[1][:len(out) - 1]
+            for r, (_, _, out, _) in zip(reqs, scored)]
+
+
+def compare_streams(ref, other):
+    """Greedy agreement of two runs of the same requests: the share of
+    generated positions with equal tokens, and the largest |log-prob
+    difference| over each pair's common prefix (where the contexts are
+    still equal)."""
+    agree, total, err = 0, 0, 0.0
+    for (_, prompt, a, la), (_, _, b, lb) in zip(ref, other):
+        n = min(len(a), len(b))
+        agree += sum(x == y for x, y in zip(a[len(prompt):n],
+                                            b[len(prompt):n]))
+        total += len(a) - len(prompt)
+        k = next((i for i in range(n) if a[i] != b[i]), n)
+        if k > 1:
+            err = max(err, float(np.abs(np.asarray(la[:k - 1])
+                                        - np.asarray(lb[:k - 1])).max()))
+    return agree / max(total, 1), err
+
+
+def decode_step_device_ms(model, eng):
+    """The card's own time for one 8-slot paged decode step (slots at
+    length 1000) on the engine's pools and decode tree, captured in a
+    CUDA graph (the engine is stopped)."""
+    with torch.inference_mode():
+        pt = torch.zeros(eng.slots, eng.max_pages_per_slot,
+                         dtype=torch.int32, device="cuda")
+        for i in range(eng.slots):
+            pt[i, :16] = torch.arange(1 + 16 * i, 17 + 16 * i)
+        lens = torch.full((eng.slots,), 1000, dtype=torch.int32,
+                          device="cuda")
+        pools_k, pools_v, pools_ks, pools_vs = eng._pools
+        caches = {"k_pages_layers": pools_k, "v_pages_layers": pools_v,
+                  "page_table": pt, "lengths": lens,
+                  "chunk_lens": torch.ones_like(lens)}
+        if pools_ks:
+            caches["k_scales_layers"] = pools_ks
+            caches["v_scales_layers"] = pools_vs
+        tok1 = torch.zeros(eng.slots, 1, dtype=torch.long, device="cuda")
+        return device_ms(
+            lambda: model.forward(eng._dec_params, tok1, kv_caches=caches,
+                                  position_ids=lens.long()[:, None]),
+            per_graph=4, replays=5)
+
+
+def ms_per_advance(rounds):
+    dec = [r for r in rounds if not r["prefill_tokens"]]
+    steps = sum(r["decode_steps"] for r in dec
+                if "spec_emitted" not in r)
+    spec = [r for r in dec if "spec_emitted" in r]
+    emitted = sum(r["spec_emitted"] / max(r["decode_slots"], 1)
+                  for r in spec)
+    return sum(r["ms"] for r in dec) / max(steps + emitted, 1)
+
+
+def serve_engine(kernels, cfg, model, params, weight_bytes):
+    tok = build_tokenizer("NullTokenizer", null_vocab_size=31999)
+    t0 = time.perf_counter()
+    eng = DecodeEngine(model, params, **engine_kwargs(tok))
+    setup_s = time.perf_counter() - t0
+    traffic = engine_traffic()
+    run = drive_engine(eng, model, tok, params, traffic)
+    generated, greedy = check_outputs(traffic, run, tok)
+    check_paged_launches(cfg, run, "engine", "fp")
+    metrics = run["metrics"]
     check(metrics["serve_prefix_hits"] >= 1
           and metrics["serve_prefix_cow_copies"] >= 1,
           f"prefix hit and COW copy: {metrics}")
     check(metrics["serve_pages_free"] + metrics["serve_prefix_cached_pages"]
           == eng.num_pages - 1, f"pages after the traffic: {metrics}")
-    rounds = list(eng._round_log)
-    kernels[1]["launches_by_path"]["engine"] = launches["rmsnorm_fwd"]
-    kernels[1]["launches"] = sum(kernels[1]["launches_by_path"].values())
-    kernels[2]["launches"] = k7
-    kernels[2]["launches_per_engine_round"] = k7 / len(rounds)
+    rounds = run["rounds"]
+    note_launches(kernels, "engine", run)
+    kernels[2]["launches_per_engine_round"] = \
+        run["launches"]["ragged_paged_attention"] / len(rounds)
     say("serving_engine", requests=len(traffic), slots=eng.slots,
-        paged_forwards=counter.paged, rounds=len(rounds),
+        paged_forwards=run["paged"], rounds=len(rounds),
         mixed_rounds=sum(1 for r in rounds if r["prefill_tokens"]),
-        launches=launches, setup_s=round(setup_s, 2),
+        launches=run["launches"], setup_s=round(setup_s, 2),
         prefix_hits=metrics["serve_prefix_hits"],
         prefix_hit_tokens=metrics["serve_prefix_hit_tokens"],
         prefix_cow_copies=metrics["serve_prefix_cow_copies"],
@@ -877,7 +1236,7 @@ def serve_engine(kernels, cfg, model, params, weight_bytes):
                                            use_flash_attn=False))
     err, match, total = 0.0, 0, 0
     with torch.inference_mode():
-        for prompt, out, lp in greedy:
+        for _, prompt, out, lp in greedy:
             seq = torch.tensor(out, device="cuda")[None]
             logits, _ = plain.forward(params, seq[:, :-1])
             lps = torch.log_softmax(logits[0].float(), -1)
@@ -892,38 +1251,335 @@ def serve_engine(kernels, cfg, model, params, weight_bytes):
     check(err <= PATH_LP_TOL, f"engine re-scored logprobs {err}")
 
     # phase 10: throughput of the traffic, and the card's own time for one
-    # 8-slot paged decode step (slots at length 1000), captured in a CUDA
-    # graph on the engine's pools (the engine is stopped)
+    # 8-slot paged decode step
     dec_rounds = [r for r in rounds if not r["prefill_tokens"]]
     mixed = [r for r in rounds if r["prefill_tokens"]]
-    ms_per_advance = (sum(r["ms"] for r in dec_rounds)
-                      / max(sum(r["decode_steps"] for r in dec_rounds), 1))
-    with torch.inference_mode():
-        pt = torch.zeros(eng.slots, eng.max_pages_per_slot,
-                         dtype=torch.int32, device="cuda")
-        for i in range(eng.slots):
-            pt[i, :16] = torch.arange(1 + 16 * i, 17 + 16 * i)
-        lens = torch.full((eng.slots,), 1000, dtype=torch.int32,
-                          device="cuda")
-        caches = {"k_pages_layers": eng._pools_k,
-                  "v_pages_layers": eng._pools_v, "page_table": pt,
-                  "lengths": lens, "chunk_lens": torch.ones_like(lens)}
-        tok1 = torch.zeros(eng.slots, 1, dtype=torch.long, device="cuda")
-        step_device_ms = device_ms(
-            lambda: model.forward(eng._dec_params, tok1, kv_caches=caches,
-                                  position_ids=lens.long()[:, None]),
-            per_graph=4, replays=5)
-    say("throughput_engine", wall_s=wall, generated_tokens=generated,
-        generated_tokens_per_s=generated / wall,
-        decode_rounds=len(dec_rounds), decode_ms_per_advance=ms_per_advance,
+    advance = ms_per_advance(rounds)
+    step_ms = decode_step_device_ms(model, eng)
+    say("throughput_engine", wall_s=run["wall"], generated_tokens=generated,
+        generated_tokens_per_s=generated / run["wall"],
+        decode_rounds=len(dec_rounds), decode_ms_per_advance=advance,
         mixed_rounds=len(mixed),
         mixed_round_ms=sum(r["ms"] for r in mixed) / max(len(mixed), 1),
         ttft_p50_ms=metrics["serve_ttft_p50_ms"],
         ttft_p95_ms=metrics["serve_ttft_p95_ms"],
-        decode_step_device_ms=step_device_ms,
+        decode_step_device_ms=step_ms,
         weight_stream_floor_ms=weight_bytes / HBM_BYTES_PER_S * 1e3,
-        device_idle_share=1 - step_device_ms / ms_per_advance,
+        device_idle_share=1 - step_ms / advance,
         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return {"greedy": greedy, "bytes_per_token": eng.kv_bytes_per_token(),
+            "tokens_per_s": generated / run["wall"],
+            "decode_ms_per_advance": advance, "decode_step_device_ms": step_ms}
+
+
+def serve_engine_int8(kernels, cfg, model, params, bf16):
+    """Llama-2-7B with int8 pools and int8 weights at the launcher's
+    defaults, the same 16 requests over HTTP. Path check: the served
+    outputs re-scored teacher-forced on a kernels-off int8 engine (plain
+    paged attention and RMSNorm, the same quantized tree) within 5e-2.
+    Printed, not gated: drift against the bf16 engine's prompt
+    log-probs and greedy tokens, pool bytes per token, tokens/s."""
+    tok = build_tokenizer("NullTokenizer", null_vocab_size=31999)
+    t0 = time.perf_counter()
+    eng = DecodeEngine(model, params, **engine_kwargs(
+        tok, kv_dtype="int8", quantize_weights=True))
+    setup_s = time.perf_counter() - t0
+    traffic = engine_traffic()
+    run = drive_engine(eng, model, tok, params, traffic)
+    generated, scored = check_outputs(traffic, run, tok)
+    check_paged_launches(cfg, run, "engine_int8", "int8")
+    metrics = run["metrics"]
+    check(metrics["serve_kv_dtype"] == "int8", f"kv dtype {metrics}")
+    check(metrics["serve_prefix_hits"] >= 1
+          and metrics["serve_prefix_cow_copies"] >= 1,
+          f"int8 prefix hit and COW copy: {metrics}")
+    check(metrics["serve_pages_free"] + metrics["serve_prefix_cached_pages"]
+          == eng.num_pages - 1, f"int8 pages after the traffic: {metrics}")
+    note_launches(kernels, "engine_int8", run)
+    advance = ms_per_advance(run["rounds"])
+    step_ms = decode_step_device_ms(model, eng)
+    bytes_per_token = eng.kv_bytes_per_token()
+    eng = None
+    free_cuda()
+
+    plain = LlamaModel(dataclasses.replace(cfg, use_fused_rmsnorm=False,
+                                           use_decode_attn=False))
+    off = DecodeEngine(plain, params, **engine_kwargs(
+        tok, kv_dtype="int8", quantize_weights=True, prefix_cache=False))
+    forced = rescore(off, scored)
+    off = None
+    free_cuda()
+    err = max(float(np.abs(np.asarray(f) - np.asarray(lp)).max())
+              for f, (_, _, _, lp) in zip(forced, scored))
+    prompt_drift = max(
+        float(np.abs(np.asarray(lp[:len(p) - 1])
+                     - np.asarray(ref[:len(p) - 1])).max())
+        for (_, p, _, lp), (_, _, _, ref) in zip(scored, bf16["greedy"]))
+    agree, common_err = compare_streams(bf16["greedy"], scored)
+    say("serving_engine_int8", requests=len(traffic),
+        paged_forwards=run["paged"], launches=run["launches"],
+        k7_variant_launches=run["variants"], setup_s=round(setup_s, 2),
+        path_check_max_abs_logprob_err=err, tol=PATH_LP_TOL,
+        drift_vs_bf16_prompt_logprob_max_abs=prompt_drift,
+        drift_vs_bf16_common_prefix_logprob_max_abs=common_err,
+        greedy_token_agreement_vs_bf16=agree,
+        kv_bytes_per_token=bytes_per_token,
+        kv_bytes_per_token_bf16=bf16["bytes_per_token"],
+        generated_tokens=generated, wall_s=run["wall"],
+        generated_tokens_per_s=generated / run["wall"],
+        generated_tokens_per_s_bf16=bf16["tokens_per_s"],
+        decode_ms_per_advance=advance,
+        decode_ms_per_advance_bf16=bf16["decode_ms_per_advance"],
+        decode_step_device_ms=step_ms,
+        decode_step_device_ms_bf16=bf16["decode_step_device_ms"],
+        ttft_p50_ms=run["metrics"]["serve_ttft_p50_ms"],
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    check(err <= PATH_LP_TOL, f"int8 re-scored logprobs {err}")
+
+
+WINDOW_SERVE = 1024
+
+
+def window_traffic():
+    """8 requests whose prompt and generation pass the window (prompts
+    1500-3000 ids, 64-128 new tokens) and 4 short ones, all greedy with
+    log-probs."""
+    rs = np.random.RandomState(SEED + 9)
+    out = []
+    for i, (n, gen) in enumerate(zip(
+            (1500, 3000, 2100, 1800, 2600, 1650, 2900, 2300, 40, 200, 90, 350),
+            (128, 64, 96, 112, 80, 128, 72, 100, 64, 48, 96, 32))):
+        out.append((f"w{i}", [int(x) for x in rs.randint(0, 31999, n)], gen))
+    return out
+
+
+def serve_engine_window(kernels, cfg, model, params):
+    """Llama-2-7B with a window of 1024, max_context 4096, page_budget 8 x
+    the window's slot bound (168 pages): the traffic is queued on the
+    engine and drained (a fixed schedule, so the two runs below compare
+    bitwise). Gates: reclamation ON gives the streams of the mask-only
+    OFF engine (full budget) bit for bit; pages were reclaimed; no slot
+    held more than the bound; every page is back at the end; a
+    teacher-forced re-score on a kernels-off windowed engine agrees
+    within 5e-2."""
+    tok = build_tokenizer("NullTokenizer", null_vocab_size=31999)
+    wcfg = dataclasses.replace(cfg, attention_window_size=WINDOW_SERVE)
+    wmodel = LlamaModel(wcfg)
+    bound = -(-(WINDOW_SERVE + 256) // 64) + 1
+    kw = engine_kwargs(tok, max_context=4096, prefix_cache=False)
+    traffic = window_traffic()
+    reach = sum(-(-(len(p) + g) // 64) for _, p, g in traffic)
+
+    def run(reclaim, budget):
+        eng = DecodeEngine(wmodel, params, window_reclaim=reclaim,
+                           page_budget=budget, **kw)
+        reqs = [eng.submit(p, g, top_k=1, return_log_probs=True)
+                for _, p, g in traffic]
+        peak = [0]
+        inner = eng._step_inner
+
+        def step():
+            did = inner()
+            peak[0] = max([peak[0]] + [s.mapped - s.reclaimed
+                                       for s in eng._slots])
+            return did
+        eng._step_inner = step
+        counter = PagedForwards(wmodel)
+        zero_counts()
+        t0 = time.perf_counter()
+        eng.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        wmodel.forward = counter.inner
+        outs = [r.result(60) for r in reqs]
+        rec = {"outs": [(list(t), list(lp)) for t, lp in outs],
+               "launches": kernel_counts(),
+               "variants": dict(pa.ragged_paged_attention.variant_launches),
+               "paged": counter.paged, "rounds": list(eng._round_log),
+               "wall": wall, "peak": peak[0], "counters": eng.counters(),
+               "bound": eng._window_slot_pages(), "num_pages": eng.num_pages}
+        return rec
+
+    on = run(True, 8 * bound * 64)
+    free_cuda()
+    off = run(False, None)
+    free_cuda()
+    check(on["bound"] == bound, f"window slot bound {on['bound']} != {bound}")
+    check(reach > on["num_pages"] - 1,
+          f"the traffic's reach ({reach} pages) fits the budget")
+    check(on["outs"] == off["outs"],
+          "window: reclamation ON is not bitwise the mask-only engine")
+    c = on["counters"]
+    check(c["serve_window_reclaimed_pages"] > 0, "no page was reclaimed")
+    check(on["peak"] <= bound, f"a slot held {on['peak']} > {bound} pages")
+    check(c["serve_pages_in_use"] == 0
+          and c["serve_pages_free"] == on["num_pages"] - 1,
+          f"window pages after the traffic: {c}")
+    check_paged_launches(cfg, on, "engine_window", "window")
+    note_launches(kernels, "engine_window", on)
+
+    plain = LlamaModel(dataclasses.replace(wcfg, use_fused_rmsnorm=False,
+                                           use_decode_attn=False))
+    eng = DecodeEngine(plain, params, page_budget=8 * bound * 64, **kw)
+    scored = [(name, p, list(t), lp) for (name, p, _), (t, lp) in
+              zip(traffic, on["outs"])]
+    forced = rescore(eng, scored)
+    eng = None
+    free_cuda()
+    err = max(float(np.abs(np.asarray(f) - np.asarray(lp)).max())
+              for f, (_, _, _, lp) in zip(forced, scored))
+    generated = sum(len(t) - len(p) for (_, p, _), (t, _) in
+                    zip(traffic, on["outs"]))
+    say("serving_engine_window", window=WINDOW_SERVE, requests=len(traffic),
+        max_context=4096, budget_pages=on["num_pages"] - 1,
+        slot_bound_pages=bound, traffic_reach_pages=reach,
+        peak_pages_per_slot=on["peak"],
+        reclaimed_pages=c["serve_window_reclaimed_pages"],
+        on_equals_off_bitwise=True, paged_forwards=on["paged"],
+        launches=on["launches"], k7_variant_launches=on["variants"],
+        path_check_max_abs_logprob_err=err, tol=PATH_LP_TOL,
+        generated_tokens=generated, wall_s_on=on["wall"],
+        wall_s_off=off["wall"],
+        generated_tokens_per_s_on=generated / on["wall"],
+        generated_tokens_per_s_off=generated / off["wall"],
+        decode_ms_per_advance_on=ms_per_advance(on["rounds"]),
+        decode_ms_per_advance_off=ms_per_advance(off["rounds"]),
+        ttft_p50_ms_on=c["serve_ttft_p50_ms"],
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    check(err <= PATH_LP_TOL, f"window re-scored logprobs {err}")
+
+
+def spec_traffic():
+    """8 greedy requests with log-probs: 4 whose prompts repeat a block
+    (the traffic prompt-lookup drafting is for) and 4 of random ids."""
+    rs = np.random.RandomState(SEED + 13)
+
+    def text(x):
+        return " ".join(map(str, x))
+
+    out = []
+    for i, (n, gen) in enumerate(zip((600, 900, 1200, 300, 150, 700, 1400,
+                                      400),
+                                     (128, 96, 64, 112, 128, 80, 64, 100))):
+        if i < 4:
+            block = [int(x) for x in rs.randint(0, 31999, 24 + 8 * i)]
+            p = (block * (n // len(block) + 1))[:n]
+        else:
+            p = [int(x) for x in rs.randint(0, 31999, n)]
+        out.append((f"s{i}", p, {"prompts": [text(p)], "top_k": 1,
+                                 "tokens_to_generate": gen,
+                                 "logprobs": True}))
+    return out
+
+
+def serve_engine_spec_and_whole_prompt(kernels, cfg, model, params):
+    """The same 8 requests over HTTP through the chunked engine without
+    speculation, with `spec_decode_k=4`, and with whole-prompt admission
+    (`prefill_chunk_tokens=0`): acceptance rate, tokens/s and TTFT of
+    each; greedy agreement with the chunked engine and log-probs within
+    5e-2 over each request's common prefix (other chunk widths are
+    other GEMM shapes, so the card does not promise bitwise equality)."""
+    tok = build_tokenizer("NullTokenizer", null_vocab_size=31999)
+    traffic = spec_traffic()
+    runs = {}
+    for mode, over in (("chunked", {}), ("spec", {"spec_decode_k": 4}),
+                       ("whole_prompt", {"prefill_chunk_tokens": 0,
+                                         "prefix_cache": False})):
+        eng = DecodeEngine(model, params, **engine_kwargs(tok, **over))
+        run = drive_engine(eng, model, tok, params, traffic)
+        run["generated"], run["scored"] = check_outputs(traffic, run, tok)
+        check(run["metrics"]["serve_pages_in_use"]
+              - run["metrics"].get("serve_prefix_cached_pages", 0) == 0,
+              f"{mode}: pages after the traffic {run['metrics']}")
+        if mode != "chunked":
+            check_paged_launches(cfg, run, f"engine_{mode}", "fp")
+            note_launches(kernels, f"engine_{mode}", run)
+        runs[mode] = run
+        eng = None
+        free_cuda()
+    spec = runs["spec"]["metrics"]
+    check(spec["serve_spec_rounds"] > 0, f"no spec round ran: {spec}")
+    report = {}
+    for mode in ("chunked", "spec", "whole_prompt"):
+        r = runs[mode]
+        agree, err = compare_streams(runs["chunked"]["scored"], r["scored"])
+        report[mode] = {
+            "generated_tokens_per_s": r["generated"] / r["wall"],
+            "wall_s": r["wall"], "ttft_p50_ms": r["metrics"]["serve_ttft_p50_ms"],
+            "ttft_p95_ms": r["metrics"]["serve_ttft_p95_ms"],
+            "decode_ms_per_advance": ms_per_advance(r["rounds"]),
+            "paged_forwards": r["paged"], "rounds": len(r["rounds"]),
+            "greedy_token_agreement_vs_chunked": agree,
+            "common_prefix_logprob_max_abs_vs_chunked": err}
+    report["spec"].update(
+        accept_rate=spec["serve_spec_accept_rate"],
+        spec_rounds=spec["serve_spec_rounds"],
+        proposed=spec["serve_spec_proposed"],
+        accepted=spec["serve_spec_accepted"])
+    say("serving_engine_spec_whole_prompt", requests=len(traffic),
+        tol=PATH_LP_TOL, **report)
+    for mode in ("spec", "whole_prompt"):
+        err = report[mode]["common_prefix_logprob_max_abs_vs_chunked"]
+        check(err <= PATH_LP_TOL, f"{mode} log-probs vs chunked {err}")
+
+
+def packed_docs_prefill(kernels, cfg, model, params):
+    """Three documents packed into one slot's pages and prefilled by one
+    paged `LlamaModel.forward` as three chunks with "doc_starts" floors
+    (the packed-document path of K7). Counts zeroed just before, read
+    just after: K7 once per layer, every launch the doc variant. Each
+    document's log-probs within 5e-2 of the kernels-off forward of the
+    same packed batch and of that document's own no-cache forward (no
+    attention crosses a document; RoPE scores depend on relative
+    positions only)."""
+    lens, C, page = (256, 200, 300), 300, 64
+    starts = (0, 256, 456)
+    pages = -(-sum(lens) // page)
+    rs = np.random.RandomState(SEED + 17)
+    docs = [rs.randint(0, 31999, n) for n in lens]
+    toks = np.zeros((3, C), np.int64)
+    for i, d in enumerate(docs):
+        toks[i, :len(d)] = d
+    toks = torch.from_numpy(toks).cuda()
+    dev = {k: torch.tensor(v, dtype=torch.int32, device="cuda")
+           for k, v in (("lengths", starts), ("chunk_lens", lens),
+                        ("doc_starts", starts))}
+    plain = LlamaModel(dataclasses.replace(cfg, use_fused_rmsnorm=False,
+                                           use_decode_attn=False,
+                                           use_flash_attn=False))
+    dp = model.prepare_decode_params(params)
+    outs = []
+    with torch.inference_mode():
+        for m in (model, plain):
+            caches = m.init_paged_kv_caches(3, 1 + pages, page, pages)
+            caches["page_table"] = torch.arange(
+                1, 1 + pages, dtype=torch.int32, device="cuda").repeat(3, 1)
+            zero_counts()
+            logits, _ = m.forward(dp, toks, kv_caches=dict(caches, **dev))
+            torch.cuda.synchronize()
+            if m is model:
+                launches = kernel_counts()
+                variants = dict(pa.ragged_paged_attention.variant_launches)
+            outs.append(torch.log_softmax(logits.float(), -1))
+        alone = [torch.log_softmax(plain.forward(params, torch.from_numpy(
+            d[None]).cuda())[0][0].float(), -1) for d in docs]
+    err_off = max((outs[0][i, :n] - outs[1][i, :n]).abs().max().item()
+                  for i, n in enumerate(lens))
+    err_alone = max((outs[0][i, :n] - alone[i]).abs().max().item()
+                    for i, n in enumerate(lens))
+    k7 = launches["ragged_paged_attention"]
+    say("packed_docs_prefill", documents=list(lens), launches=launches,
+        k7_variant_launches=variants,
+        max_abs_logprob_err_vs_kernels_off=err_off,
+        max_abs_logprob_err_vs_each_document_alone=err_alone,
+        tol=PATH_LP_TOL)
+    check(k7 == cfg.num_layers and variants["doc"] == k7,
+          f"packed docs: K7 launches {launches} {variants}")
+    check(err_off <= PATH_LP_TOL and err_alone <= PATH_LP_TOL,
+          f"packed docs log-probs {err_off} {err_alone}")
+    note_launches(kernels, "packed_docs_prefill",
+                  {"launches": launches, "variants": variants})
+
 
 # ---------------------------------------------------------------------------
 # phase 3 (training kernels): K2 with rstd, K3, and flash K4-K6
@@ -1248,6 +1904,8 @@ def zero_counts():
                fa.flash_bwd_dq, fa.flash_bwd_dkv, dec.decode_attention,
                pa.ragged_paged_attention):
         fn.launches = 0
+    pa.ragged_paged_attention.variant_launches = dict.fromkeys(
+        pa.ragged_paged_attention.variant_launches, 0)
 
 
 def train_slice(kernels):
@@ -1434,16 +2092,24 @@ def main() -> int:
     build_kernels()
     kernels = [check_decode_kernel(), check_rmsnorm_kernel(),
                check_paged_kernel()]
+    check_paged_variants(kernels[2])
     kernels.append(check_rmsnorm_bwd_kernel(kernels[1]))
     kernels += check_flash_kernels()
     torch.cuda.empty_cache()
     model = build_model(args.init_std)
     serve_whole_batch(kernels, *model)
-    serve_engine(kernels, *model)
-    # the 13.5 GB serving model and its engine's pools go before training
-    del model
-    gc.collect()
-    torch.cuda.empty_cache()
+    bf16 = serve_engine(kernels, *model)
+    free_cuda()
+    cfg, llama, params, _ = model
+    serve_engine_int8(kernels, cfg, llama, params, bf16)
+    free_cuda()
+    serve_engine_window(kernels, cfg, llama, params)
+    free_cuda()
+    serve_engine_spec_and_whole_prompt(kernels, cfg, llama, params)
+    packed_docs_prefill(kernels, cfg, llama, params)
+    # the 13.5 GB serving model and its engines' pools go before training
+    del model, llama, params
+    free_cuda()
     say("memory_before_train",
         allocated_gb=torch.cuda.memory_allocated() / 1e9)
     throughput_train(*train_slice(kernels)[2:])

@@ -80,6 +80,12 @@ class ModelConfig:
     # Flash attention forward/backward (ops/flash_attention.py, K4-K6) on
     # the no-cache forward with a causal mask and no attention dropout.
     use_flash_attn: bool = False
+    # Sliding-window attention on the paged serving path (JAX
+    # config.py:133-139): a token at position p attends [max(0, p - W +
+    # 1), p]; None is full causal, and W >= context is bitwise full
+    # causal. The engine reclaims pages wholly out of every live window.
+    # The no-cache and dense-cache paths ignore it, as in JAX.
+    attention_window_size: Optional[int] = None
 
     # Recompute (JAX config.py:110-119): give remat_policy or the
     # reference's recompute_granularity; they must agree.
@@ -98,6 +104,11 @@ class ModelConfig:
         if self.ffn_hidden_size is None:
             object.__setattr__(self, "ffn_hidden_size", 4 * self.hidden_size)
         assert self.num_attention_heads % self.num_attention_heads_kv == 0
+        if self.attention_window_size is not None \
+                and self.attention_window_size < 1:
+            raise ValueError(
+                "attention_window_size must be >= 1 (or None for full "
+                f"causal attention), got {self.attention_window_size}")
         # the JAX package's construction-time checks (config.py:161-210)
         if self.recompute_granularity not in _GRANULARITY_TO_POLICY:
             raise ValueError(

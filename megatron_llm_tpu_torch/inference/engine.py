@@ -1,6 +1,7 @@
 """Continuous-batching decode engine on a paged KV cache (port of
 inference/engine.py, the configuration the serving launcher runs by
-default).
+default, and its int8, sliding-window, speculative and whole-prompt
+modes).
 
 - The cache is a page pool per layer (num_pages, page_size, g, d) plus
   one (slots, max_pages) page table and per-slot lengths
@@ -8,12 +9,15 @@ default).
 - A fixed number of slots decode in lockstep. A decode round runs up to
   `step_horizon` single-token forwards with sampling on the device,
   clamped to the nearest slot completion and bucketed to a power of two.
-- Admission is chunked: while any slot is admitting, each round is one
-  MIXED forward in which the oldest admitting prompt contributes a chunk
-  of at most `prefill_chunk_tokens` tokens at its saved offset and every
-  other live slot one decode token. Every phase runs through the one
-  ragged paged attention (ops/prefill_attention.py, kernel K7 on the
-  card).
+- Admission is chunked by default: while any slot is admitting, each
+  round is one MIXED forward in which the oldest admitting prompt
+  contributes a chunk of at most `prefill_chunk_tokens` tokens at its
+  saved offset and every other live slot one decode token. Every phase
+  runs through the one ragged paged attention (ops/prefill_attention.py,
+  kernel K7 on the card). `prefill_chunk_tokens=0` admits whole
+  prompts: a dense causal forward over the prompt's bucket prefix
+  (`bucket_prefill_len`), its K/V scattered straight into the slot's
+  pages, the rest of the prompt teacher-forced by the decode rounds.
 - Finished slots return their pages to a free list (refcounted through
   the prefix cache when it is on) and queued requests are admitted into
   free slots mid-flight. Pages are reserved up front for a request's
@@ -21,6 +25,17 @@ default).
 - `prefix_cache=True` shares full prompt pages across requests, with a
   copy-on-write page copy where a match ends mid-page
   (inference/prefix_cache.py).
+- `spec_decode_k > 0`: a prompt-lookup n-gram drafter proposes up to k
+  tokens per greedy slot, verified in one width-(k+1) ragged chunk per
+  slot; every emitted token is the greedy pick the decode round would
+  have made, and a rejection rolls the host's length mirror back.
+- `kv_dtype="int8"`: the pools hold int8 K/V with per-(token, group)
+  fp32 scale pools beside them (quantized at write, dequantized in K7);
+  `quantize_weights=True` serves weight-only int8 decode GEMMs.
+- A model with `attention_window_size` W attends the last W positions;
+  windowed slots are priced and reserved at the window's page bound,
+  topped up lazily before each round, and pages wholly out of every
+  live window go back to the pool after each round (`window_reclaim`).
 - `submit(..., stream=True)` pushes every booked token to a per-request
   queue (the HTTP layer's SSE feed); `cancel()` retires a request
   mid-flight and reclaims its pages.
@@ -32,22 +47,23 @@ a prompt changes op shapes, not the answer.
 How the JAX engine maps here. A jitted step function is a plain Python
 function; the `lax.scan` over the horizon is a Python loop of `horizon`
 single-token forwards. The JAX steps donate the page pools; here the
-preallocated per-layer pools are written in place (`index_put_` in the
-scatter, `copy_` in the page copy) and are the only copy. The host syncs
-once per round, when it copies the chosen tokens back; log-probs are
-copied only when a live request asked for them. Page table, lengths and
-chunk lengths reach the forward as device int32 tensors, and nothing in
-a forward reads a device value on the host. Sampling draws come from a
-counter-based hash of (request seed, the request's own sampling step,
-vocab id), so a request's stream does not depend on its slot or its
-neighbours; they are not JAX's random bits.
+preallocated per-layer pools (and scale pools) are written in place
+(`index_put_` in the scatters, `copy_` in the page copy) and are the
+only copy. The host syncs once per round, when it copies the chosen
+tokens back; log-probs are copied only when a live request asked for
+them. Page table, lengths and chunk lengths reach the forward as device
+int32 tensors, and nothing in a forward reads a device value on the
+host. Sampling draws come from a counter-based hash of (request seed,
+the request's own sampling step, vocab id), so a request's stream does
+not depend on its slot or its neighbours; they are not JAX's random
+bits. K7 takes any page size, so the JAX engine's warning that int8
+pools want pages of a multiple of 32 (a TPU tiling rule) is dropped.
 
-Left out of this slice (the constructor raises ValueError naming the
-slice when one is set to a non-default value): whole-prompt admission
-(`prefill_chunk_tokens=0`), speculative decoding, int8 KV pools and
-int8 weights, sliding-window reclamation, tp serving and replicas, the
-KV export/import hand-off, the cost registry and perf sentinel, the
-flight recorder, span tracer and profiler hook, Prometheus histograms.
+Left out (the constructor raises ValueError naming the slice when one is
+set to a non-default value): tp serving and replicas, the KV
+export/import hand-off, CUDA-graph round capture, the cost registry and
+perf sentinel, the flight recorder, span tracer and profiler hook,
+Prometheus histograms.
 """
 
 from __future__ import annotations
@@ -63,20 +79,19 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from megatron_llm_tpu_torch.inference.generation import bucket_prefill_len
 from megatron_llm_tpu_torch.inference.prefix_cache import PrefixCache
 from megatron_llm_tpu_torch.inference.sampling import (
     NEG_INF,
     modify_logits_for_top_p,
 )
+from megatron_llm_tpu_torch.ops.quantization import scatter_quantized_rows
 
 _logger = logging.getLogger(__name__)
 
 # knob -> (default, the later slice that ports it)
 _LEFT_OUT = {
     "warmup_compile": (False, "CUDA-graph round capture"),
-    "spec_decode_k": (0, "speculative decoding"),
-    "window_reclaim": (True, "sliding-window serving"),
-    "quantize_weights": (False, "quantized serving"),
     "serving_tp": (1, "tp serving and replicas"),
     "devices": (None, "tp serving and replicas"),
     "replica_id": (None, "tp serving and replicas"),
@@ -193,13 +208,21 @@ def _decision(last_logits, all_greedy, greedy, temperature, top_k, top_p,
                             seeds, steps, vocab_size)
 
 
-def _paged_caches(pools_k, pools_v, page_table, lengths, chunk_lens):
-    return {"k_pages_layers": pools_k, "v_pages_layers": pools_v,
-            "page_table": page_table, "lengths": lengths,
-            "chunk_lens": chunk_lens}
+def _paged_caches(pools, page_table, lengths, chunk_lens):
+    """The paged cache dict of one forward. `pools` is (k pools, v pools,
+    k scale pools, v scale pools); the scale tuples are empty for fp
+    pools."""
+    pools_k, pools_v, pools_ks, pools_vs = pools
+    out = {"k_pages_layers": pools_k, "v_pages_layers": pools_v,
+           "page_table": page_table, "lengths": lengths,
+           "chunk_lens": chunk_lens}
+    if pools_ks:
+        out["k_scales_layers"] = pools_ks
+        out["v_scales_layers"] = pools_vs
+    return out
 
 
-def _decode_step(model, dec_params, pools_k, pools_v, page_table, lengths,
+def _decode_step(model, dec_params, pools, page_table, lengths,
                  last_logits, active, forced, use_forced, greedy,
                  temperature, top_k, top_p, seeds, sample_steps,
                  vocab_size, horizon, all_greedy):
@@ -222,8 +245,7 @@ def _decode_step(model, dec_params, pools_k, pools_v, page_table, lengths,
         chosen_h.append(chosen)
         logits, caches = model.forward(
             dec_params, chosen[:, None],
-            kv_caches=_paged_caches(pools_k, pools_v, page_table, lengths,
-                                    chunk_lens),
+            kv_caches=_paged_caches(pools, page_table, lengths, chunk_lens),
             position_ids=lengths.long()[:, None])
         lengths = caches["lengths"]
         steps = steps + (active & ~use_forced[:, t]).long()
@@ -231,7 +253,7 @@ def _decode_step(model, dec_params, pools_k, pools_v, page_table, lengths,
     return torch.stack(chosen_h, 1), torch.stack(lp_h, 1), last_logits
 
 
-def _mixed_step(model, dec_params, pools_k, pools_v, page_table, lengths,
+def _mixed_step(model, dec_params, pools, page_table, lengths,
                 last_logits, chunk_tokens, chunk_lens, is_prefill, chunk_idx,
                 greedy, temperature, top_k, top_p, seeds, sample_steps,
                 vocab_size, width, all_greedy, want_chunk_lps):
@@ -255,8 +277,7 @@ def _mixed_step(model, dec_params, pools_k, pools_v, page_table, lengths,
         + torch.arange(width, device=lengths.device)[None, :]
     logits, _ = model.forward(
         dec_params, toks,
-        kv_caches=_paged_caches(pools_k, pools_v, page_table, lengths,
-                                chunk_lens),
+        kv_caches=_paged_caches(pools, page_table, lengths, chunk_lens),
         position_ids=pos)
     chunk_lps = None
     if want_chunk_lps and width > 1:
@@ -269,12 +290,89 @@ def _mixed_step(model, dec_params, pools_k, pools_v, page_table, lengths,
     return first, first_lp, chunk_lps, new_last
 
 
-def _page_copy(pools_k, pools_v, src: int, dst: int) -> None:
+def _spec_step(model, dec_params, pools, page_table, lengths, last_logits,
+               chunk_tokens, chunk_lens, is_spec, greedy, temperature,
+               top_k, top_p, seeds, sample_steps, vocab_size, width,
+               all_greedy):
+    """The speculative verify round (JAX `_make_spec_step_fn`): every
+    live slot contributes one ragged chunk of width `width` = k + 1, a
+    spec slot [its next token, decided from the carried logits as a
+    decode row would, then its draft], any other a width-1 decode row.
+    The greedy target at chunk position j (`_greedy_pick`) is checked
+    against the draft at j + 1; the accepted count is the leading run of
+    matches (a cumulative product), and the carried logits come from the
+    accepted position, so a rejection simply does not advance past it.
+    Returns (first token, its log-prob, the per-position greedy targets
+    and their log-probs, the accepted counts, the new last logits,
+    preserved for idle slots)."""
+    active = chunk_lens > 0
+    lp_full = torch.log_softmax(last_logits, -1)
+    sampled = _decision(last_logits, all_greedy, greedy, temperature, top_k,
+                        top_p, seeds, sample_steps, vocab_size)
+    first = torch.where(active, sampled, torch.zeros_like(sampled))
+    first_lp = torch.gather(lp_full, 1, first[:, None])[:, 0]
+    toks = torch.cat([first[:, None], chunk_tokens[:, 1:]], 1)
+    pos = lengths.long()[:, None] \
+        + torch.arange(width, device=lengths.device)[None, :]
+    logits, _ = model.forward(
+        dec_params, toks,
+        kv_caches=_paged_caches(pools, page_table, lengths, chunk_lens),
+        position_ids=pos)
+    n, _, V = logits.shape
+    gt = _greedy_pick(logits.reshape(n * width, V), vocab_size) \
+        .reshape(n, width)
+    glp = torch.log_softmax(logits.float(), -1)
+    gt_lp = torch.gather(glp, 2, gt[..., None])[..., 0]
+    j = torch.arange(1, width, device=lengths.device)[None, :]
+    matches = (toks[:, 1:] == gt[:, :-1]) & (j < chunk_lens[:, None])
+    acc = torch.cumprod(matches.long(), 1).sum(1)
+    acc = torch.where(is_spec, acc, torch.zeros_like(acc))
+    last_idx = torch.where(is_spec, acc,
+                           (chunk_lens.long() - 1).clamp(0, width - 1))
+    rows = torch.arange(n, device=logits.device)
+    new_last = logits[rows, last_idx].float()
+    new_last = torch.where(active[:, None], new_last, last_logits)
+    return first, first_lp, gt, gt_lp, acc, new_last
+
+
+def _prefill(model, dec_params, pools, tokens, pt_row, page_size):
+    """Whole-prompt admission (JAX `_make_prefill_fn`): one causal
+    forward of the prompt's bucket prefix `tokens` (1, plen) through
+    per-layer dense caches, whose K/V rows are then scattered straight
+    into the slot's pages `pt_row` (quantized at write for int8 pools).
+    Returns (the next-token logits (V,), the prompt log-probs (plen -
+    1,))."""
+    plen = tokens.shape[1]
+    caches = model.init_kv_caches(1, plen)
+    logits, caches = model.forward(dec_params, tokens, kv_caches=caches)
+    lp = torch.log_softmax(logits[0].float(), -1)
+    prompt_lp = torch.gather(lp[:-1], 1, tokens[0, 1:, None])[:, 0]
+    pos = torch.arange(plen, device=tokens.device)
+    pages = pt_row.long()[pos // page_size]
+    offs = pos % page_size
+    pools_k, pools_v, pools_ks, pools_vs = pools
+    for i, (kl, vl) in enumerate(zip(caches["k_layers"],
+                                     caches["v_layers"])):
+        rows_k, rows_v = kl[0].transpose(0, 1), vl[0].transpose(0, 1)
+        if pools_ks:
+            scatter_quantized_rows(pools_k[i], pools_ks[i], pages, offs,
+                                   rows_k)
+            scatter_quantized_rows(pools_v[i], pools_vs[i], pages, offs,
+                                   rows_v)
+        else:
+            pools_k[i].index_put_((pages, offs), rows_k.to(pools_k[i].dtype))
+            pools_v[i].index_put_((pages, offs), rows_v.to(pools_v[i].dtype))
+    return logits[0, -1], prompt_lp
+
+
+def _page_copy(pools, src: int, dst: int) -> None:
     """The prefix cache's copy-on-write (JAX `_make_page_copy_fn`): pool
     page `dst` becomes a private replica of shared page `src` in every
-    layer's K and V pool, in place."""
-    for pool in (*pools_k, *pools_v):
-        pool[dst].copy_(pool[src])
+    layer's K and V pool and, for int8 pools, scale pool (a quantized
+    page is its data and its scales), in place."""
+    for group in pools:
+        for pool in group:
+            pool[dst].copy_(pool[src])
 
 
 @dataclass
@@ -333,9 +431,10 @@ class EngineRequest:
 @dataclass
 class _Slot:
     req: Optional[EngineRequest] = None
+    # physical pages of logical pages [reclaimed, mapped)
     pages: List[int] = field(default_factory=list)
-    # prompt tokens still owed as teacher-forced decode steps (empty under
-    # chunked admission, which prefills the whole prompt in chunks)
+    # prompt tokens still owed as teacher-forced decode steps (whole-
+    # prompt admission: the prompt past its prefill bucket)
     forced: collections.deque = field(default_factory=collections.deque)
     generated: int = 0
     sample_step: int = 0
@@ -344,6 +443,18 @@ class _Slot:
     # full prompt pages of this slot registered in (or mapped from) the
     # prefix cache
     registered: int = 0
+    # speculative drafting: bigram -> up to the 8 most recent start
+    # indices in req.tokens, kept incrementally; `bigram_next` is the
+    # next start to fold in (the final bigram stays unindexed, so a
+    # lookup never matches the occurrence it extends)
+    bigram: dict = field(default_factory=dict)
+    bigram_next: int = 0
+    # sliding window: logical pages [reclaimed, mapped) hold physical
+    # pages (windowed slots allocate lazily and top up before each round
+    # writes past the frontier); [0, reclaimed) fell out of every live
+    # window and went back (their table entries park on page 0)
+    mapped: int = 0
+    reclaimed: int = 0
 
     @property
     def prefilling(self) -> bool:
@@ -355,15 +466,22 @@ class DecodeEngine:
     """Fixed-slot continuous-batching decode engine over a paged pool.
 
     Knobs: `slots` (requests decoding per round), `page_size` (tokens per
-    KV page), `page_budget` (KV positions in the pool, default slots *
-    max_context; page 0 is added as the null page), `max_context`
-    (prompt + generation cap per slot; sets the page-table width),
-    `max_queue` (submit() past it raises QueueFull), `step_horizon`
-    (decode steps per round), `prefill_chunk_tokens` (the mixed round's
-    prompt-token budget), `prefix_cache`, `kv_dtype` ("bf16": pools in
-    the model's compute dtype). The device is the model's. Every knob of
-    the JAX engine that this slice leaves out raises ValueError when set
-    to a non-default value."""
+    KV page; K7 takes any size), `page_budget` (KV positions in the pool,
+    default slots * max_context; page 0 is added as the null page),
+    `max_context` (prompt + generation cap per slot; sets the page-table
+    width), `max_queue` (submit() past it raises QueueFull),
+    `step_horizon` (decode steps per round), `prefill_chunk_tokens` (the
+    mixed round's prompt-token budget; 0 admits whole prompts),
+    `prefix_cache` (needs chunked admission), `spec_decode_k` (draft
+    tokens per greedy slot and verify round; 0 off), `kv_dtype` ("bf16":
+    pools in the model's compute dtype; "int8": int8 pools with fp32
+    scale pools), `quantize_weights` (weight-only int8 decode GEMMs),
+    `window_reclaim` (with a model's `attention_window_size`: return
+    pages wholly out of every live window mid-flight; False keeps the
+    window mask and frees nothing, the control its bitwise equality is
+    held against). The device is the model's. Every knob of the JAX
+    engine that the port leaves out raises ValueError when set to a
+    non-default value."""
 
     def __init__(self, model, params, *, slots: int = 4,
                  page_size: int = 64, max_context: int = 1024,
@@ -371,7 +489,10 @@ class DecodeEngine:
                  step_horizon: int = 8,
                  prefill_chunk_tokens: int = 256,
                  prefix_cache: bool = False,
+                 spec_decode_k: int = 0,
+                 window_reclaim: bool = True,
                  kv_dtype: str = "bf16",
+                 quantize_weights: bool = False,
                  termination_id: Optional[int] = None,
                  vocab_size: Optional[int] = None,
                  **left_out):
@@ -382,16 +503,37 @@ class DecodeEngine:
             default, slice_name = _LEFT_OUT[name]
             if value != default:
                 raise _not_ported(f"{name}={value!r}", slice_name)
-        if kv_dtype != "bf16":
-            raise _not_ported(f"kv_dtype={kv_dtype!r}", "quantized serving")
-        if prefill_chunk_tokens <= 0:
-            raise _not_ported("whole-prompt admission "
-                              "(prefill_chunk_tokens=0)",
-                              "whole-prompt admission")
+        if kv_dtype not in ("bf16", "int8"):
+            raise ValueError(f"kv_dtype must be 'bf16' (the model compute "
+                             f"dtype) or 'int8' (quantized pages), got "
+                             f"{kv_dtype!r}")
         if max_context % page_size:
             raise ValueError("max_context must be a multiple of page_size")
+        if prefill_chunk_tokens < 0 or spec_decode_k < 0:
+            raise ValueError("prefill_chunk_tokens and spec_decode_k must "
+                             "be >= 0")
+        if prefix_cache and not prefill_chunk_tokens:
+            raise ValueError(
+                "prefix_cache requires chunked admission "
+                "(prefill_chunk_tokens > 0): a cache-hit suffix prefill "
+                "must attend to pooled prefix K/V, which the whole-prompt "
+                "dense prefill cannot")
         self.model = model
         self.cfg = model.cfg
+        # sliding window: static per model; windowed slots are priced and
+        # reserved at `_window_slot_pages`, topped up before each round
+        # (`_ensure_pages`) and give pages back after it
+        # (`_reclaim_window_pages`)
+        w = self.cfg.attention_window_size
+        self.window = int(w) if w else None
+        self.window_reclaim = bool(window_reclaim)
+        if self.window is not None and not prefill_chunk_tokens:
+            raise ValueError(
+                "attention_window_size requires chunked admission "
+                "(prefill_chunk_tokens > 0): whole-prompt admission "
+                "prefills through the dense path, which carries no "
+                "window mask, so its cache would disagree with every "
+                "windowed chunked and decode round")
         self.device = torch.device(model.device)
         self._cuda_index = None
         if self.device.type == "cuda":
@@ -411,15 +553,22 @@ class DecodeEngine:
         self.step_horizon = max(1, step_horizon)
         self.prefill_chunk_tokens = min(prefill_chunk_tokens, max_context)
         self._prefix = PrefixCache(page_size) if prefix_cache else None
+        self.spec_decode_k = spec_decode_k
         self.kv_dtype = kv_dtype
         self.termination_id = termination_id
         self.vocab_size = vocab_size
 
-        self._dec_params = model.prepare_decode_params(params)
+        # the int8 decode tree is built once and serves every round kind
+        self._dec_params = model.prepare_decode_params(
+            params, quantize_int8=quantize_weights)
         caches = model.init_paged_kv_caches(
-            slots, self.num_pages, page_size, self.max_pages_per_slot)
-        self._pools_k = caches["k_pages_layers"]
-        self._pools_v = caches["v_pages_layers"]
+            slots, self.num_pages, page_size, self.max_pages_per_slot,
+            kv_dtype=torch.int8 if kv_dtype == "int8" else None)
+        # (k pools, v pools, k scale pools, v scale pools): one tuple per
+        # layer each, the scale tuples empty for fp pools
+        self._pools = (caches["k_pages_layers"], caches["v_pages_layers"],
+                       caches.get("k_scales_layers", ()),
+                       caches.get("v_scales_layers", ()))
         self._last_logits = torch.zeros(
             (slots, self.cfg.padded_vocab_size), dtype=torch.float32,
             device=self.device)
@@ -444,6 +593,10 @@ class DecodeEngine:
         self._tokens_out = 0
         self._prefill_tokens = 0
         self._cancelled = 0
+        self._spec_rounds = 0
+        self._spec_proposed = 0
+        self._spec_accepted = 0
+        self._window_reclaimed = 0
         self._t0 = time.perf_counter()
         # recent-window latency gauges: submit -> first generated token,
         # and wall ms per decode-token advance per round (a mixed round
@@ -486,7 +639,12 @@ class DecodeEngine:
                 f"prompt ({len(prompt)}) + tokens_to_generate "
                 f"({tokens_to_generate}) exceeds the engine max_context "
                 f"({self.max_context})")
+        # it must also fit the pool; a windowed engine prices a request
+        # at the window's page bound, since out-of-window pages go back
+        # mid-flight
         need = -(-total // self.page_size)
+        if self.window is not None and self.window_reclaim:
+            need = min(need, self._window_slot_pages())
         if need > self.num_pages - 1:
             raise ValueError(
                 f"request needs {need} pages but the pool holds only "
@@ -543,18 +701,21 @@ class DecodeEngine:
         req.error = f"request {req.rid} cancelled"
         self._finish(req)
 
-    def _admit(self) -> None:
+    def _admit(self) -> int:
         """Move queued requests into free slots while pages allow, FIFO:
         a request that does not fit blocks the ones behind it. With the
         prefix cache, hit pages are mapped instead of allocated and a
         mid-page match starts as a copy-on-write replica; the prompt
-        suffix then prefills through the mixed rounds."""
+        suffix then prefills through the mixed rounds. Whole-prompt
+        admission prefills here. Returns the prompt tokens prefilled on
+        the device in this call (whole-prompt admission only)."""
+        prefilled = 0
         for si, slot in enumerate(self._slots):
             if slot.req is not None:
                 continue
             with self._lock:
                 if not self._queue:
-                    return
+                    return prefilled
                 req = self._queue[0]
                 need = -(-(len(req.prompt) + req.tokens_to_generate)
                          // self.page_size)
@@ -565,7 +726,18 @@ class DecodeEngine:
                     match = self._prefix.lookup(req.prompt)
                     if match.matched == 0:
                         match = None
-                need_new = need - (match.full_pages if match else 0)
+                matched_pages = match.full_pages if match else 0
+                # windowed engines reserve only the window bound up
+                # front; a prefix hit larger than it still maps whole
+                # (its out-of-window pages go back to the cache on the
+                # first reclaim), and a COW divergence gets its page
+                cap = need
+                if self.window is not None and self.window_reclaim:
+                    cap = max(min(need, self._window_slot_pages()),
+                              matched_pages
+                              + (1 if match is not None
+                                 and match.cow_src is not None else 0))
+                need_new = max(cap - matched_pages, 0)
                 if match is not None:
                     # pin the hit (and the COW source) before any eviction
                     self._prefix.acquire(match)
@@ -576,7 +748,7 @@ class DecodeEngine:
                 if len(self._free_pages) < need_new:
                     if match is not None:
                         self._prefix.unacquire(match)
-                    return
+                    return prefilled
                 self._queue.popleft()
                 # claim the slot inside the lock: stop(drain=True) polls
                 # "queue empty and no slot busy"
@@ -586,27 +758,47 @@ class DecodeEngine:
             self._pt[si] = 0
             self._pt[si, :len(pages)] = pages
             slot.pages = pages
+            slot.mapped = len(pages)
+            slot.reclaimed = 0
             slot.generated = 0
             slot.sample_step = 0
             slot.registered = match.full_pages if match is not None else 0
+            slot.bigram = {}
+            slot.bigram_next = 0
             slot.forced = collections.deque()
             req.tokens = list(req.prompt)
-            matched = 0
-            if match is not None:
-                matched = match.matched
-                if match.cow_src is not None:
-                    # the divergent page starts as a private replica of
-                    # the shared one; prefill resumes inside it
-                    _page_copy(self._pools_k, self._pools_v,
-                               match.cow_src, pages[match.full_pages])
-                    self._prefix.release_page(match.cow_src)
-                    self._prefix.cow_copies += 1
-            if self._prefix is not None:
-                self._prefix.note(len(req.prompt), matched)
-            slot.prefill_pos = matched
-            self._lengths[si] = matched
+            if self.prefill_chunk_tokens:
+                matched = 0
+                if match is not None:
+                    matched = match.matched
+                    if match.cow_src is not None:
+                        # the divergent page starts as a private replica
+                        # of the shared one; prefill resumes inside it
+                        _page_copy(self._pools, match.cow_src,
+                                   pages[match.full_pages])
+                        self._prefix.release_page(match.cow_src)
+                        self._prefix.cow_copies += 1
+                if self._prefix is not None:
+                    self._prefix.note(len(req.prompt), matched)
+                slot.prefill_pos = matched
+                self._lengths[si] = matched
+            else:
+                plen = bucket_prefill_len(len(req.prompt))
+                row_logits, plp = _prefill(
+                    self.model, self._dec_params, self._pools,
+                    self._dev([req.prompt[:plen]], np.int64),
+                    self._dev(self._pt[si]), self.page_size)
+                self._last_logits[si] = row_logits.float()
+                self._lengths[si] = plen
+                slot.prefill_pos = len(req.prompt)
+                slot.forced = collections.deque(req.prompt[plen:])
+                self._prefill_tokens += plen
+                prefilled += plen
+                if req.return_log_probs:
+                    req.log_probs = plp.cpu().tolist()
             req.t_admit = time.perf_counter()
             self._admitted += 1
+        return prefilled
 
     def _retire(self, si: int):
         slot = self._slots[si]
@@ -620,6 +812,8 @@ class DecodeEngine:
                     self._free_pages.append(pg)
         slot.pages = []
         slot.registered = 0
+        slot.mapped = 0
+        slot.reclaimed = 0
         self._pt[si] = 0
         self._lengths[si] = 0
         req = slot.req
@@ -627,6 +821,79 @@ class DecodeEngine:
         req.t_done = time.perf_counter()
         self._retired += 1
         self._finish(req)
+
+    # -- sliding-window pages ------------------------------------------------
+
+    def _window_slot_pages(self) -> int:
+        """Peak physical pages a windowed slot holds: the pages
+        overlapping [L - window + 1, L + width) at any length L, where
+        width is the widest span one round writes (decode horizon,
+        prefill chunk, verify chunk), plus a boundary page. The windowed
+        capacity unit: submit() prices requests with it and _admit
+        reserves it."""
+        width = max(self.step_horizon, self.prefill_chunk_tokens,
+                    self.spec_decode_k + 1)
+        return min(self.max_pages_per_slot,
+                   -(-(self.window + width) // self.page_size) + 1)
+
+    def _ensure_pages(self, si: int, upto: int) -> None:
+        """Top slot `si`'s page frontier up to cover positions [0, upto)
+        before a round writes them (windowed slots allocate lazily). A
+        no-op when the frontier already covers them, always for
+        engines without a window (admission mapped the full reach)."""
+        if self.window is None:
+            return
+        want = min(-(-int(upto) // self.page_size), self.max_pages_per_slot)
+        s = self._slots[si]
+        while s.mapped < want:
+            if not self._free_pages and self._prefix is not None:
+                self._free_pages.extend(self._prefix.evict(want - s.mapped))
+            if not self._free_pages:
+                # unreachable while submit() and _admit price the window
+                # bound: reclamation returns a page for every page the
+                # frontier takes past the window
+                raise RuntimeError(
+                    f"page pool exhausted topping slot {si} up to {want} "
+                    f"pages: window admission accounting fault")
+            pg = self._free_pages.pop()
+            self._pt[si, s.mapped] = pg
+            s.pages.append(pg)
+            s.mapped += 1
+
+    def _reclaim_window_pages(self) -> None:
+        """After each round, give back the pages wholly below every live
+        window. At length L the next query attends no position below
+        L - window + 1, and lengths only grow, so logical pages [0, (L +
+        1 - window) // page_size) are dead: K7 starts its walk above
+        them and its plain version zeroes their columns, so freeing and
+        reusing them cannot change a bit of the stream. Registered or
+        shared prefix pages go back to the cache (another slot may read
+        them inside its own window), private ones to the free list; the
+        table entries park on the null page and `registered` moves past
+        them, so a freed page is never registered."""
+        W = self.window
+        if W is None or not self.window_reclaim:
+            return
+        ps = self.page_size
+        for si, s in enumerate(self._slots):
+            if s.req is None:
+                continue
+            dead = min(max(0, int(self._lengths[si]) + 1 - W) // ps,
+                       s.mapped)
+            if dead <= s.reclaimed:
+                continue
+            for p in range(s.reclaimed, dead):
+                pg = int(self._pt[si, p])
+                self._pt[si, p] = 0
+                if s.pages and s.pages[0] == pg:
+                    s.pages.pop(0)
+                if pg == 0:
+                    continue
+                if self._prefix is None or not self._prefix.release(pg):
+                    self._free_pages.append(pg)
+                self._window_reclaimed += 1
+            s.reclaimed = dead
+            s.registered = max(s.registered, dead)
 
     # -- the rounds --------------------------------------------------------
 
@@ -706,15 +973,19 @@ class DecodeEngine:
     def step(self) -> bool:
         """One scheduler round, under `torch.inference_mode()`: reap
         deadlines and cancels, admit, then one mixed round while any slot
-        is admitting, else one decode round. Returns False when there was
-        nothing to do."""
+        is admitting, else a speculative round when a slot has a draft,
+        else one decode round; after a round, give back the pages out of
+        every live window. Returns False when there was nothing to do."""
         with torch.inference_mode():
-            return self._step_inner()
+            did = self._step_inner()
+        if did:
+            self._reclaim_window_pages()
+        return did
 
     def _step_inner(self) -> bool:
         t0 = time.perf_counter()
         self._expire_deadlines()
-        self._admit()
+        admit_prefilled = self._admit()
         if any(s.prefilling for s in self._slots):
             dec_slots, pf_tokens = self._mixed_round()
             dt_ms = (time.perf_counter() - t0) * 1e3
@@ -725,7 +996,12 @@ class DecodeEngine:
                 if dec_slots:
                     self._decode_ms.append(dt_ms)
             return True
-        return self._decode_round(t0)
+        if self.spec_decode_k:
+            drafts = self._collect_drafts()
+            if drafts:
+                self._spec_round(drafts, t0, admit_prefilled)
+                return True
+        return self._decode_round(t0, admit_prefilled)
 
     def _sampling_arrays(self, idx):
         """Per-slot knob arrays for the live slots `idx`, on the device."""
@@ -747,9 +1023,11 @@ class DecodeEngine:
         return tuple(self._dev(x) for x in (greedy, temperature, top_k,
                                              top_p, seeds, steps))
 
-    def _decode_round(self, t0: float) -> bool:
+    def _decode_round(self, t0: float, prefill_tokens: int = 0) -> bool:
         """Up to `step_horizon` decode steps over every live slot, clamped
-        to the nearest slot completion and bucketed to a power of two."""
+        to the nearest slot completion and bucketed to a power of two.
+        `prefill_tokens`: whole-prompt prefill that `_admit` ran inside
+        this round's wall time."""
         live = [i for i, s in enumerate(self._slots) if s.req is not None]
         if not live:
             return False
@@ -758,6 +1036,8 @@ class DecodeEngine:
             .tokens_to_generate - self._slots[i].generated for i in live)
         hor = min(self.step_horizon, max(remaining, 1))
         hor = 1 << (hor.bit_length() - 1)
+        for i in live:  # windowed slots: pages for the hor writes
+            self._ensure_pages(i, self._lengths[i] + hor)
 
         n = self.slots
         active = np.zeros(n, bool)
@@ -772,7 +1052,7 @@ class DecodeEngine:
                 use_forced[i, :nf] = True
         all_greedy = all(self._slots[i].req.greedy for i in live)
         chosen, chosen_lp, self._last_logits = _decode_step(
-            self.model, self._dec_params, self._pools_k, self._pools_v,
+            self.model, self._dec_params, self._pools,
             self._dev(self._pt), self._dev(self._lengths),
             self._last_logits, self._dev(active), self._dev(forced),
             self._dev(use_forced), *self._sampling_arrays(live),
@@ -799,7 +1079,7 @@ class DecodeEngine:
         dt_ms = (time.perf_counter() - t0) * 1e3
         with self._lock:
             self._round_log.append({
-                "prefill_tokens": 0, "decode_steps": hor,
+                "prefill_tokens": prefill_tokens, "decode_steps": hor,
                 "decode_slots": len(live), "ms": dt_ms})
             self._decode_ms.append(dt_ms / hor)
         return True
@@ -818,6 +1098,10 @@ class DecodeEngine:
         ln = min(remaining, width)
         dec = [i for i, s in enumerate(self._slots)
                if s.req is not None and not s.prefilling]
+        # windowed slots: pages for the chunk and the decode tokens
+        self._ensure_pages(ci, self._lengths[ci] + ln)
+        for i in dec:
+            self._ensure_pages(i, self._lengths[i] + 1)
 
         chunk_tokens = np.zeros((n, width), np.int64)
         chunk_lens = np.zeros((n,), np.int32)
@@ -830,7 +1114,7 @@ class DecodeEngine:
         all_greedy = all(self._slots[i].req.greedy for i in dec)
         want_chunk = s_c.req.return_log_probs
         first, first_lp, chunk_lps, self._last_logits = _mixed_step(
-            self.model, self._dec_params, self._pools_k, self._pools_v,
+            self.model, self._dec_params, self._pools,
             self._dev(self._pt), self._dev(self._lengths),
             self._last_logits, self._dev(chunk_tokens),
             self._dev(chunk_lens), self._dev(is_prefill), ci,
@@ -865,6 +1149,144 @@ class DecodeEngine:
                 r.log_probs.append(float(first_lp[i]))
             self._book_token(i, int(first[i]), now)
         return len(dec), ln
+
+    # -- speculative decoding ----------------------------------------------
+
+    def _draft(self, si: int) -> List[int]:
+        """Prompt-lookup (n-gram) drafter: the continuation of the most
+        recent earlier occurrence of the request's trailing bigram in its
+        own tokens. Greedy slots only. Capped so the verify chunk writes
+        no position past the request's prompt + tokens_to_generate, and,
+        with a window, so the chunk stays inside one window of its first
+        position."""
+        s = self._slots[si]
+        r = s.req
+        if not r.greedy:
+            return []
+        cap = min(self.spec_decode_k,
+                  r.tokens_to_generate - s.generated - 1)
+        if self.window is not None:
+            cap = min(cap, self.window - 1)
+        if cap <= 0:
+            return []
+        toks = r.tokens
+        if len(toks) < 3:
+            return []
+        # fold newly booked tokens into the bigram index; the trailing
+        # bigram at len - 2 stays out, or the lookup would match itself
+        while s.bigram_next <= len(toks) - 3:
+            j = s.bigram_next
+            occ = s.bigram.setdefault((toks[j], toks[j + 1]), [])
+            occ.append(j)
+            if len(occ) > 8:
+                del occ[0]
+            s.bigram_next += 1
+        # position len(toks) is decided inside the round from the carried
+        # logits, so drafts cover the positions after it. Prefer the
+        # newest occurrence whose continuation fills the cap, else the
+        # longest available
+        occ = s.bigram.get((toks[-2], toks[-1]))
+        if not occ:
+            return []
+        best_j, best_avail = None, 0
+        for j in reversed(occ):
+            avail = len(toks) - (j + 3)
+            if avail >= cap:
+                best_j, best_avail = j, avail
+                break
+            if avail > best_avail:
+                best_j, best_avail = j, avail
+        if best_j is None:
+            return []
+        return list(toks[best_j + 3: best_j + 3 + cap])
+
+    def _collect_drafts(self) -> dict:
+        """{slot: draft} for every live slot with one; empty means a plain
+        decode round. None while a slot still owes teacher-forced prompt
+        tokens: the verify round has no forcing."""
+        if any(s.req is not None and s.forced for s in self._slots):
+            return {}
+        drafts = {}
+        for i, s in enumerate(self._slots):
+            if s.req is not None:
+                d = self._draft(i)
+                if d:
+                    drafts[i] = d
+        return drafts
+
+    def _spec_round(self, drafts: dict, t0: float,
+                    prefill_tokens: int = 0) -> None:
+        """One speculative round: spec slots verify [next token + draft],
+        the other live slots ride as width-1 decode rows, in one width
+        k + 1 forward. The host books the first token and the accepted
+        run and advances the slot's length mirror by exactly the booked
+        count, which is the rollback of a rejection: the next round's
+        writes overwrite the stale K/V past it, which no query reads."""
+        width = self.spec_decode_k + 1
+        n = self.slots
+        live = [i for i, s in enumerate(self._slots) if s.req is not None]
+        for i in live:  # windowed slots: pages for the verify chunk
+            self._ensure_pages(
+                i, self._lengths[i] + 1 + len(drafts.get(i, [])))
+        chunk_tokens = np.zeros((n, width), np.int64)
+        chunk_lens = np.zeros((n,), np.int32)
+        is_spec = np.zeros((n,), bool)
+        for i in live:
+            d = drafts.get(i, [])
+            chunk_tokens[i, 1:1 + len(d)] = d
+            chunk_lens[i] = 1 + len(d)
+            is_spec[i] = bool(d)
+        all_greedy = all(self._slots[i].req.greedy for i in live)
+        first, first_lp, gt, gt_lp, acc, self._last_logits = _spec_step(
+            self.model, self._dec_params, self._pools,
+            self._dev(self._pt), self._dev(self._lengths),
+            self._last_logits, self._dev(chunk_tokens),
+            self._dev(chunk_lens), self._dev(is_spec),
+            *self._sampling_arrays(live), vocab_size=self.vocab_size,
+            width=width, all_greedy=all_greedy)
+        first = first.cpu().numpy()  # the round's wait for the card
+        gt = gt.cpu().numpy()
+        acc = acc.cpu().numpy()
+        want_lp = any(self._slots[i].req.return_log_probs for i in live)
+        first_lp = first_lp.cpu().numpy() if want_lp else None
+        gt_lp = gt_lp.cpu().numpy() if want_lp else None
+        self._steps += 1
+        self._spec_rounds += 1
+
+        now = time.perf_counter()
+        emitted_total = 0
+        for i in live:
+            s = self._slots[i]
+            r = s.req
+            d_n = int(chunk_lens[i]) - 1
+            a = int(acc[i]) if d_n else 0
+            self._spec_proposed += d_n
+            # the first token (a decode row's), then the accepted run:
+            # each accepted token is the greedy target at its position
+            emit = [(int(first[i]), float(first_lp[i]) if want_lp else 0.0)]
+            emit += [(int(gt[i, j]), float(gt_lp[i, j]) if want_lp else 0.0)
+                     for j in range(a)]
+            booked = 0
+            for tok, lp in emit:
+                self._lengths[i] += 1
+                if r.return_log_probs:
+                    r.log_probs.append(lp)
+                booked += 1
+                if self._book_token(i, tok, now):
+                    break  # eod or budget: the chunk's tail is not booked
+            emitted_total += booked
+            # acceptance counts only the draft tokens actually booked
+            self._spec_accepted += booked - 1
+
+        dt_ms = (time.perf_counter() - t0) * 1e3
+        with self._lock:  # counters() reads these windows concurrently
+            self._round_log.append({
+                "prefill_tokens": prefill_tokens, "decode_steps": 1,
+                "decode_slots": len(live), "ms": dt_ms,
+                "spec_emitted": emitted_total})
+            # per decode-token advance: emitted / live tokens a slot
+            self._decode_ms.append(dt_ms * len(live)
+                                   / max(emitted_total, 1))
 
     def _register_prefix(self, si: int) -> None:
         """Register every completed full prompt page of slot `si` in the
@@ -971,16 +1393,18 @@ class DecodeEngine:
 
     def kv_pool_dtype(self) -> str:
         """The pools' storage dtype as the JAX engine names it
-        ('bfloat16', 'float32')."""
-        return str(self._pools_k[0].dtype).replace("torch.", "")
+        ('bfloat16', 'float32', 'int8')."""
+        return str(self._pools[0][0].dtype).replace("torch.", "")
 
     def kv_pool_bytes(self) -> int:
-        """Device bytes the paged KV pools hold, summed over layers."""
+        """Device bytes the paged KV pools hold, data and (int8) scale
+        pools, summed over layers."""
         return sum(x.numel() * x.element_size()
-                   for x in (*self._pools_k, *self._pools_v))
+                   for group in self._pools for x in group)
 
     def kv_bytes_per_token(self) -> int:
-        """KV bytes one cached token costs across all layers."""
+        """KV bytes one cached token costs across all layers (K and V
+        data and any scales)."""
         return round(self.kv_pool_bytes()
                      / (self.num_pages * self.page_size))
 
@@ -1035,4 +1459,14 @@ class DecodeEngine:
         if self._prefix is not None:
             for k, v in self._prefix.stats().items():
                 out["serve_" + k] = v
+        if self.spec_decode_k:
+            out["serve_spec_rounds"] = self._spec_rounds
+            out["serve_spec_proposed"] = self._spec_proposed
+            out["serve_spec_accepted"] = self._spec_accepted
+            out["serve_spec_accept_rate"] = round(
+                self._spec_accepted / max(self._spec_proposed, 1), 4)
+        if self.window is not None:
+            # present only on windowed engines, as in JAX
+            out["serve_window_size"] = self.window
+            out["serve_window_reclaimed_pages"] = self._window_reclaimed
         return out

@@ -85,13 +85,15 @@ def attention_block(attn_params: dict, cfg, hidden: torch.Tensor,
       offset advanced;
     - paged {"k_pages": (P, page_size, g, d), "v_pages": ...,
       "page_table": (slots, max_pages) int32, "lengths": (slots,) int32,
-      optionally "chunk_lens": (slots,) int32}: the batch axis is slots;
+      optionally "chunk_lens": (slots,) int32, "doc_starts": (slots,)
+      int32 document floors, and for int8 pools "k_scales" /
+      "v_scales" (P, page_size, g) fp32}: the batch axis is slots;
       slot i contributes chunk_lens[i] tokens (<= s; 0 = idle) at cache
       positions lengths[i] + t, scattered into its pages in place and
-      attended in one ragged pass. Without "chunk_lens" every slot is a
-      width-1 decode row (s == 1). The returned dict has
-      lengths + chunk_lens. Nothing here reads a device value on the
-      host."""
+      attended in one ragged pass, within `cfg.attention_window_size`
+      when it is set. Without "chunk_lens" every slot is a width-1
+      decode row (s == 1). The returned dict has lengths + chunk_lens.
+      Nothing here reads a device value on the host."""
     b, s, _ = hidden.shape
     dt = cfg.compute_dtype
     mixed = qdot(hidden, attn_params["wqkv"], dt)
@@ -118,15 +120,27 @@ def attention_block(attn_params: dict, cfg, hidden: torch.Tensor,
             position_ids = position_ids.clamp(max=rope_table.shape[0] - 1)
             q = apply_rope(q, rope_table, position_ids)
             k = apply_rope(k, rope_table, position_ids)
-        ctx, kp, vp = ragged_paged_attention(
+        # int8 pools carry their scale pools; the window comes from the
+        # model config and "doc_starts" (packed-document floors) is a
+        # cache key like "chunk_lens", absent from the engine's rounds
+        doc_starts = kv_cache.get("doc_starts")
+        res = ragged_paged_attention(
             q, k, v, kv_cache["k_pages"], kv_cache["v_pages"],
             kv_cache["page_table"], lengths, chunk_lens,
-            use_kernel=cfg.use_decode_attn)
-        new_cache = {"k_pages": kp, "v_pages": vp,
+            use_kernel=cfg.use_decode_attn,
+            k_scales=kv_cache.get("k_scales"),
+            v_scales=kv_cache.get("v_scales"),
+            window_size=cfg.attention_window_size, doc_starts=doc_starts)
+        ctx = res[0]
+        new_cache = {"k_pages": res[1], "v_pages": res[2],
                      "page_table": kv_cache["page_table"],
                      "lengths": lengths + chunk_lens}
+        if len(res) == 5:
+            new_cache["k_scales"], new_cache["v_scales"] = res[3], res[4]
         if chunked:
             new_cache["chunk_lens"] = chunk_lens
+        if doc_starts is not None:
+            new_cache["doc_starts"] = doc_starts
         ctx = ctx.reshape(b, s, -1)
     elif kv_cache is not None:
         offset = int(kv_cache["offset"])

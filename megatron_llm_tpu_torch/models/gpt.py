@@ -19,6 +19,10 @@ from megatron_llm_tpu_torch.models.language_model import (
     language_model_forward,
 )
 from megatron_llm_tpu_torch.models.transformer import layer_slice
+from megatron_llm_tpu_torch.ops.quantization import (
+    is_quantized_weight,
+    quantize_decode_layers,
+)
 
 
 class GPTModel(nn.Module):
@@ -64,18 +68,27 @@ class GPTModel(nn.Module):
         loss_mask = loss_mask.float()
         return (losses * loss_mask).sum() / loss_mask.sum().clamp(min=1.0)
 
-    def prepare_decode_params(self, params: dict) -> dict:
+    def prepare_decode_params(self, params: dict,
+                              quantize_int8: bool = False) -> dict:
         """Decode layout, built once before the token loop: the stacked
         layer tree becomes a tuple of per-layer views, the GLU weight
         (h, 2, ffn) its flat (h, 2 ffn) view, and every floating weight is
         cast to the compute dtype here instead of at each matmul. The cast
         is deterministic, so every value is the same as the per-matmul
         cast's; where params_dtype already is the compute dtype it is a
-        no-op and nothing is copied."""
+        no-op and nothing is copied.
+
+        `quantize_int8=True` (the engine's `quantize_weights`): each
+        layer's wqkv, wo, flat w1 and w2 become weight-only int8 dicts
+        with per-output-channel fp32 scales (ops/quantization.py),
+        quantized from the tree as given, before any cast, as the JAX
+        package quantizes its un-cast tree; the other leaves are cast as
+        above."""
         dt = self.cfg.compute_dtype
 
         def cast(tree):
-            return {k: cast(v) if isinstance(v, dict)
+            return {k: v if is_quantized_weight(v)
+                    else cast(v) if isinstance(v, dict)
                     else (v.to(dt) if v.is_floating_point() else v)
                     for k, v in tree.items()}
 
@@ -83,14 +96,17 @@ class GPTModel(nn.Module):
         L = stacked["attention"]["wqkv"].shape[0]
 
         def one(i):
-            layer = cast(layer_slice(stacked, i))
+            layer = layer_slice(stacked, i)
             if self.cfg.glu_activation:
                 w1 = layer["mlp"]["w1"]
                 layer["mlp"]["w1"] = w1.reshape(w1.shape[0], -1)
             return layer
 
+        layers = tuple(one(i) for i in range(L))
+        if quantize_int8:
+            layers = quantize_decode_layers(layers)
         out = cast({k: v for k, v in params.items() if k != "layers"})
-        out["layers"] = tuple(one(i) for i in range(L))
+        out["layers"] = tuple(cast(layer) for layer in layers)
         return out
 
     def init_kv_caches(self, batch_size: int, max_len: int) -> dict:
@@ -114,28 +130,31 @@ class GPTModel(nn.Module):
         """Paged KV cache for the continuous-batching engine
         (inference/engine.py), on `self.device`: per-layer page pools
         (num_pages, page_size, g, d) shared by all slots, in the compute
-        dtype; one (slots, max_pages_per_slot) int32 page table mapping
-        each slot's logical pages to pool pages; per-slot int32 lengths.
-        Pool page 0 is the null page, never allocated: fresh and retired
-        slots point every table entry at it, so pad rows and idle slots
-        write only to a dead page. int8 pools (with their scale pools)
-        belong to the quantized-serving slice and raise."""
+        dtype or `kv_dtype`; one (slots, max_pages_per_slot) int32 page
+        table mapping each slot's logical pages to pool pages; per-slot
+        int32 lengths. Pool page 0 is the null page, never allocated:
+        fresh and retired slots point every table entry at it, so pad
+        rows and idle slots write only to a dead page. int8 pools also
+        get per-layer fp32 scale pools "k_scales_layers" /
+        "v_scales_layers" of (num_pages, page_size, g): one scale per
+        (token, group), written by the scatter that writes the data."""
         cfg = self.cfg
         dt = cfg.compute_dtype if kv_dtype is None else kv_dtype
-        if dt == torch.int8:
-            raise NotImplementedError(
-                "int8 KV pools are not ported yet: they belong to the "
-                "quantized-serving slice of the engine (ROADMAP.md A2)")
         shape = (num_pages, page_size, cfg.num_query_groups, cfg.head_dim)
 
         def zeros(shape, dtype):
             return torch.zeros(shape, dtype=dtype, device=self.device)
 
-        return {
-            "k_pages_layers": tuple(zeros(shape, dt)
-                                    for _ in range(cfg.num_layers)),
-            "v_pages_layers": tuple(zeros(shape, dt)
-                                    for _ in range(cfg.num_layers)),
+        def per_layer(shape, dtype):
+            return tuple(zeros(shape, dtype) for _ in range(cfg.num_layers))
+
+        caches = {
+            "k_pages_layers": per_layer(shape, dt),
+            "v_pages_layers": per_layer(shape, dt),
             "page_table": zeros((slots, max_pages_per_slot), torch.int32),
             "lengths": zeros((slots,), torch.int32),
         }
+        if dt == torch.int8:
+            caches["k_scales_layers"] = per_layer(shape[:-1], torch.float32)
+            caches["v_scales_layers"] = per_layer(shape[:-1], torch.float32)
+        return caches

@@ -26,7 +26,10 @@ from megatron_llm_tpu_torch.models.activations import (
 from megatron_llm_tpu_torch.models.attention import attention_block
 from megatron_llm_tpu_torch.models.norms import apply_norm
 from megatron_llm_tpu_torch.models.remat import remat_wrap
-from megatron_llm_tpu_torch.ops.quantization import qdot
+from megatron_llm_tpu_torch.ops.quantization import (
+    is_quantized_weight,
+    qdot,
+)
 
 
 def normal(shape, std, dtype, generator, device) -> torch.Tensor:
@@ -118,14 +121,16 @@ def unstack_layers(stacked: dict) -> list:
 
 
 def mlp_block(mlp_params: dict, cfg, hidden: torch.Tensor) -> torch.Tensor:
-    """h -> [2x]ffn -> act -> h. A GLU w1 of (h, 2, ffn) or its flat
-    (h, 2 ffn) decode view is one matmul; gate and up come back on their
-    own axis."""
+    """h -> [2x]ffn -> act -> h. A GLU w1 of (h, 2, ffn), its flat
+    (h, 2 ffn) decode view or that view quantized to int8 is one matmul;
+    gate and up come back on their own axis."""
     dt = cfg.compute_dtype
     w1 = mlp_params["w1"]
     if cfg.glu_activation:
         b, s, h = hidden.shape
-        x = qdot(hidden, w1.reshape(h, -1), dt).reshape(b, s, 2, -1)
+        if not is_quantized_weight(w1):  # int8 trees hold the flat view
+            w1 = w1.reshape(h, -1)
+        x = qdot(hidden, w1, dt).reshape(b, s, 2, -1)
         if "b1" in mlp_params:
             x = x + mlp_params["b1"].to(dt)
         x = GLU_ACTIVATIONS[cfg.glu_activation](x[..., 0, :], x[..., 1, :])
@@ -165,9 +170,11 @@ def transformer_stack(layer_params, cfg, hidden: torch.Tensor,
     layout {"k_layers": (b, g, T, d) per layer, "v_layers": ...,
     "offset": int} (`GPTModel.init_kv_caches`), or the paged layout
     {"k_pages_layers": (P, page_size, g, d) per layer, "v_pages_layers":
-    ..., "page_table", "lengths", optionally "chunk_lens"}
-    (`GPTModel.init_paged_kv_caches`): per-layer pools, one shared page
-    table, and the ragged chunk lengths through every layer.
+    ..., "page_table", "lengths", optionally "chunk_lens", "doc_starts",
+    and for int8 pools "k_scales_layers" / "v_scales_layers"}
+    (`GPTModel.init_paged_kv_caches`): per-layer pools (and scale pools),
+    one shared page table, and the ragged chunk lengths and document
+    floors through every layer.
 
     `deterministic=False` (training with dropout) raises while a dropout
     rate is above 0: dropout is a later slice."""
@@ -198,13 +205,21 @@ def transformer_stack(layer_params, cfg, hidden: torch.Tensor,
     if "k_pages_layers" in kv_caches:
         pt, lens = kv_caches["page_table"], kv_caches["lengths"]
         cl = kv_caches.get("chunk_lens")
+        dcs = kv_caches.get("doc_starts")
         ks, vs = kv_caches["k_pages_layers"], kv_caches["v_pages_layers"]
+        kss = kv_caches.get("k_scales_layers")
+        vss = kv_caches.get("v_scales_layers")
         for i, p in enumerate(layers):
             cache_l = {"k_pages": ks[i], "v_pages": vs[i],
                        "page_table": pt, "lengths": lens}
             if cl is not None:
                 cache_l["chunk_lens"] = cl
-            # the pools are written in place: ks[i] / vs[i] stay current
+            if dcs is not None:
+                cache_l["doc_starts"] = dcs
+            if kss is not None:
+                cache_l["k_scales"], cache_l["v_scales"] = kss[i], vss[i]
+            # the pools are written in place: ks[i] / vs[i] (and the
+            # scale pools) stay current
             hidden, _ = transformer_layer(p, cfg, hidden, rope_table, mask,
                                           position_ids, cache_l)
         new_caches = {"k_pages_layers": ks, "v_pages_layers": vs,
@@ -213,6 +228,11 @@ def transformer_stack(layer_params, cfg, hidden: torch.Tensor,
                                          else hidden.shape[1])}
         if cl is not None:
             new_caches["chunk_lens"] = cl
+        if dcs is not None:
+            new_caches["doc_starts"] = dcs
+        if kss is not None:
+            new_caches["k_scales_layers"] = kss
+            new_caches["v_scales_layers"] = vss
         return hidden, new_caches
     offset = int(kv_caches["offset"])
     ks, vs = kv_caches["k_layers"], kv_caches["v_layers"]

@@ -11,27 +11,38 @@ zeros. `ragged_paged_attention` first scatters the chunk's own K/V into
 its slot's pages (`scatter_chunk_kv`; pad rows land on the dead null
 page 0), then attends.
 
+Two parameterizations of the same function:
+- int8 pools (`k_scales`/`v_scales`, one fp32 scale per (page, row,
+  group) in (num_pages, page_size, g) scale pools): the scatter
+  quantizes at write (ops/quantization.py) and attention dequantizes;
+- lower bounds: `window_size` W limits token t to positions
+  [starts + t - W + 1, starts + t], and `doc_starts` (nc,) floors each
+  chunk at its packed document's first position (the caller keeps
+  doc_starts[c] <= starts[c]). Row r's first attendable position is
+  row_lo = max(pos - W + 1, doc_starts[c], 0). W <= 0 means no window.
+
 Kernel K7, CUDA C++ for sm_90a (`csrc/paged_attention.cu`), replaces the
 Pallas `_paged_kernel` (JAX ops/prefill_attention.py:135, launched by
-`_paged_pallas` at :369) for fp pools. The source note says what bounds
-it on the H100 and what its simple design leaves on the table.
-`_xla_paged_reference` is its plain version (gather the pages into the
-dense view, then the `_xla_attend` core); it serves CPU tensors, and
-CUDA tensors when the model's `use_decode_attn` switch is off.
+`_paged_pallas` at :369), fp and int8 pools, window and doc floors. The
+source note says what bounds it on the H100 and what its simple design
+leaves on the table. `_xla_paged_reference` is its plain version
+(gather the pages into the dense view, then the `_xla_attend` core); it
+serves CPU tensors, and CUDA tensors when the model's `use_decode_attn`
+switch is off.
+
+Output dtype with int8 pools: q's, in the kernel and in the plain
+version, as the Pallas kernel casts (`_paged_pallas` :382-383). The JAX
+XLA twin returns fp32 there (its probabilities take the dequantized v's
+dtype), so a bf16 model's JAX int8 fallback feeds `wo` in fp32; in fp32
+(the CPU parity tests) the two agree.
 
 Dropped TPU gate: the JAX dispatch `ragged_paged_block` (:100-127) sent a
 launch to the XLA twin unless d % 128 == 0, the page tiled the (16 or 32)
 sublanes, the slot's reach met `min_cache`, and a power-of-two q block
 divided the chunk width. Those rules exist for Mosaic's tiling and the
 TPU's launch overhead. K7 takes any page size, any chunk width >= 1 and
-d % 8 == 0 up to 256, so every CUDA launch with the switch on runs it.
-
-Parameters of the JAX entry point that raise NotImplementedError here:
-`k_scales`/`v_scales` (int8 pools and their dequantizing epilogue) and
-`window_size`/`doc_starts` (the sliding-window and packed-document
-clamps). They belong to the quantized-serving and windowed-serving
-slices of the engine, which are not ported yet; a silent fp or
-full-causal answer would be wrong.
+d % 8 == 0 up to 256 (d % 16 == 0 for int8 pools, for its 16-byte
+copies of int8 rows), so every CUDA launch with the switch on runs it.
 """
 
 from __future__ import annotations
@@ -42,23 +53,25 @@ from typing import Optional
 
 import torch
 
+from megatron_llm_tpu_torch.ops.quantization import scatter_quantized_rows
+
 LOG2E = 1.4426950408889634
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
-_LATER = ("{} is not ported yet: it belongs to the {} slice of the "
-          "engine (ROADMAP.md A2)")
 
 
 def _xla_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                 row_pos: torch.Tensor,
-                row_valid: Optional[torch.Tensor] = None) -> torch.Tensor:
+                row_valid: Optional[torch.Tensor] = None,
+                row_lo: Optional[torch.Tensor] = None) -> torch.Tensor:
     """q (b, s, g, qpk, d) against dense k/v (b, g, T, d). `row_pos` is
     the last attendable cache position of each folded (position, head)
     row, head fastest: (rows,) when shared by the batch (dense decode),
     (b, rows) when ragged per sequence (the paged version). `row_valid`
-    (b, rows), optional: rows where False are exact zeros. Scores in
-    fp32, masked with the fp32 minimum (not -inf), probabilities
-    normalised then cast to v's dtype before the PV product. Returns
-    (b, s, g, qpk, d) in v's dtype."""
+    (b, rows), optional: rows where False are exact zeros. `row_lo` (b,
+    rows), optional: the first attendable position of each row (the
+    window and document floors). Scores in fp32, masked with the fp32
+    minimum (not -inf), probabilities normalised then cast to v's dtype
+    before the PV product. Returns (b, s, g, qpk, d) in v's dtype."""
     b, s, g, qpk, d = q.shape
     T = k.shape[2]
     qb = q.permute(0, 2, 1, 3, 4).reshape(b, g, s * qpk, d)
@@ -69,6 +82,8 @@ def _xla_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         mask = cols[None, :] > row_pos[:, None]
     else:
         mask = (cols[None, None, :] > row_pos[:, :, None])[:, None]
+    if row_lo is not None:
+        mask = mask | (cols[None, None, :] < row_lo[:, :, None])[:, None]
     scores = scores.masked_fill(mask, torch.finfo(torch.float32).min)
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
     out = torch.matmul(probs, v)  # (b, g, rows, d)
@@ -77,42 +92,73 @@ def _xla_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out.reshape(b, g, s, qpk, d).permute(0, 2, 1, 3, 4)
 
 
+def _row_floors(starts, C, qpk, window, doc_starts):
+    """(nc, rows) first attendable position of each folded row, or None
+    when neither lower bound is set."""
+    if window is None and doc_starts is None:
+        return None
+    tok = torch.arange(C * qpk, device=starts.device) // qpk
+    row_lo = torch.zeros(starts.shape[0], C * qpk, dtype=torch.long,
+                         device=starts.device)
+    if window is not None:
+        row_lo = torch.maximum(row_lo, starts.long()[:, None] + tok[None, :]
+                               - (window - 1))
+    if doc_starts is not None:
+        row_lo = torch.maximum(row_lo, doc_starts.long()[:, None])
+    return row_lo
+
+
 def _xla_paged_reference(q, k_pages, v_pages, page_table, starts,
-                         chunk_lens):
+                         chunk_lens, k_scales=None, v_scales=None,
+                         window=None, doc_starts=None):
     """Plain version of K7: gather each chunk's pages into the dense
-    view, then the `_xla_attend` core with ragged per-chunk row
-    positions; pad rows (token >= chunk_lens) are exact zeros. Columns
-    at or past `starts + chunk_lens` (other slots' pages and the null
-    page, through the table's unowned entries) are zeroed after the
-    gather: they carry probability 0 anyway, and zeroing them keeps a
-    non-finite value there from reaching the output through 0 * NaN."""
+    view (dequantized to fp32 for int8 pools), then the `_xla_attend`
+    core with ragged per-chunk row positions and floors; pad rows (token
+    >= chunk_lens) are exact zeros; the output is in q's dtype. Columns
+    no row of a chunk may attend, at or past `starts + chunk_lens` or
+    below the chunk's lowest floor (other slots' pages, reclaimed
+    entries parked on the null page), are zeroed after the gather: they
+    carry probability 0 anyway, and zeroing them keeps a non-finite
+    value there from reaching the output through 0 * NaN."""
     nc, C, g, qpk, d = q.shape
     page_size = k_pages.shape[1]
     T = page_table.shape[1] * page_size
     pt = page_table.long()
-    k = k_pages[pt].reshape(nc, T, g, d).transpose(1, 2)
-    v = v_pages[pt].reshape(nc, T, g, d).transpose(1, 2)
-    dead = (torch.arange(T, device=q.device)[None, :]
-            >= (starts + chunk_lens)[:, None])[:, None, :, None]
+    k = k_pages[pt]
+    v = v_pages[pt]
+    if k_scales is not None:
+        k = k.float() * k_scales[pt][..., None]
+        v = v.float() * v_scales[pt][..., None]
+    k = k.reshape(nc, T, g, d).transpose(1, 2)
+    v = v.reshape(nc, T, g, d).transpose(1, 2)
+    row_lo = _row_floors(starts, C, qpk, window, doc_starts)
+    cols = torch.arange(T, device=q.device)[None, :]
+    dead = cols >= (starts + chunk_lens)[:, None]
+    if row_lo is not None:
+        dead = dead | (cols < row_lo[:, :1])  # row 0 has the lowest floor
+    dead = dead[:, None, :, None]
     k = k.masked_fill(dead, 0)
     v = v.masked_fill(dead, 0)
     tok = torch.arange(C * qpk, device=q.device) // qpk  # (rows,)
     row_pos = starts.long()[:, None] + tok[None, :]
     row_valid = tok[None, :] < chunk_lens[:, None]
-    return _xla_attend(q, k, v, row_pos, row_valid)
+    return _xla_attend(q, k, v, row_pos, row_valid, row_lo).to(q.dtype)
 
 
 def scatter_chunk_kv(k_new, v_new, k_pages, v_pages, page_table, starts,
-                     chunk_lens):
+                     chunk_lens, k_scales=None, v_scales=None):
     """Write a chunk's K/V rows into its slot's pages, IN PLACE: token t
     (valid when t < chunk_lens) lands in pool page page_table[c, (starts
     + t) // page_size] at offset (starts + t) % page_size. Pad rows are
     routed to page 0, the dead null page every table parks unowned
     entries on, so they can never touch a live slot's cache; several pad
     rows may hit one place, and the winner is unspecified, which no
-    valid row can observe. The JAX package returned updated pools (its
-    step functions donate them); here the preallocated pools are the
-    only copy and are returned as they are."""
+    valid row can observe. Int8 pools (with their scale pools) quantize
+    each (token, group) row over the head dim here and return (k_pages,
+    v_pages, k_scales, v_scales); fp pools return (k_pages, v_pages).
+    The JAX package returned updated pools (its step functions donate
+    them); here the preallocated pools are the only copy and are
+    returned as they are."""
     nc, C = k_new.shape[:2]
     page_size = k_pages.shape[1]
     max_pages = page_table.shape[1]
@@ -123,6 +169,12 @@ def scatter_chunk_kv(k_new, v_new, k_pages, v_pages, page_table, starts,
     pages = torch.where(valid, torch.gather(page_table.long(), 1, logical),
                         torch.zeros_like(logical))
     offs = pos % page_size
+    if k_pages.dtype == torch.int8:
+        if k_scales is None or v_scales is None:
+            raise ValueError("int8 KV pools need k_scales and v_scales")
+        scatter_quantized_rows(k_pages, k_scales, pages, offs, k_new)
+        scatter_quantized_rows(v_pages, v_scales, pages, offs, v_new)
+        return k_pages, v_pages, k_scales, v_scales
     k_pages.index_put_((pages, offs), k_new.to(k_pages.dtype))
     v_pages.index_put_((pages, offs), v_new.to(v_pages.dtype))
     return k_pages, v_pages
@@ -135,21 +187,28 @@ def _library():
     fn = lib.ragged_paged_attention_fwd
     if fn.argtypes is None:  # pointers must not pass as 32-bit ints
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
-                       + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+                       + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_void_p])
     return fn
 
 
-def _check(q, k_pages, v_pages, page_table, starts, chunk_lens):
+def _check(q, k_pages, v_pages, page_table, starts, chunk_lens, k_scales,
+           v_scales, doc_starts):
     nc, C, g, qpk, d = q.shape
-    if q.dtype not in _DTYPE_CODE or k_pages.dtype != q.dtype \
-            or v_pages.dtype != q.dtype:
+    int8 = k_pages.dtype == torch.int8
+    kv_ok = v_pages.dtype == k_pages.dtype and (int8
+                                                or k_pages.dtype == q.dtype)
+    if q.dtype not in _DTYPE_CODE or not kv_ok:
         raise ValueError(f"paged kernel takes float32 or bfloat16 q and "
-                         f"pools of q's dtype, got {q.dtype}/"
+                         f"pools of q's dtype or int8, got {q.dtype}/"
                          f"{k_pages.dtype}/{v_pages.dtype}")
     if d % 8 or d > 256:
         raise ValueError(f"paged kernel needs d % 8 == 0 and d <= 256, "
                          f"d={d}")
+    if int8 and d % 16:
+        raise ValueError(f"paged kernel copies int8 rows 16 bytes at a "
+                         f"time: int8 pools need d % 16 == 0, d={d}")
     if not 1 <= qpk <= 16:
         raise ValueError(f"paged kernel serves 1..16 query heads per KV "
                          f"group, qpk={qpk}")
@@ -159,51 +218,96 @@ def _check(q, k_pages, v_pages, page_table, starts, chunk_lens):
             or k_pages.shape[2:] != (g, d):
         raise ValueError(f"pools {tuple(k_pages.shape)} do not match q "
                          f"{tuple(q.shape)} as (P, page_size, g, d)")
+    if int8:
+        for name, x in (("k_scales", k_scales), ("v_scales", v_scales)):
+            if x is None or x.dtype != torch.float32 \
+                    or x.shape != k_pages.shape[:3] or not x.is_contiguous():
+                raise ValueError(f"int8 pools need a contiguous float32 "
+                                 f"{name} of shape "
+                                 f"{tuple(k_pages.shape[:3])}")
     if page_table.dim() != 2 or page_table.shape[0] != nc \
-            or starts.shape != (nc,) or chunk_lens.shape != (nc,):
+            or starts.shape != (nc,) or chunk_lens.shape != (nc,) \
+            or (doc_starts is not None and doc_starts.shape != (nc,)):
         raise ValueError("page_table must be (nc, max_pages) and starts / "
-                         "chunk_lens (nc,)")
+                         "chunk_lens / doc_starts (nc,)")
     for name, x in (("page_table", page_table), ("starts", starts),
-                    ("chunk_lens", chunk_lens)):
-        if x.dtype != torch.int32 or not x.is_contiguous():
+                    ("chunk_lens", chunk_lens), ("doc_starts", doc_starts)):
+        if x is not None and (x.dtype != torch.int32
+                              or not x.is_contiguous()):
             raise ValueError(f"{name} must be a contiguous int32 tensor")
     for name, x in (("k_pages", k_pages), ("v_pages", v_pages)):
         if not x.is_contiguous() or x.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous and 16-byte "
                              f"aligned")
     devs = {x.device for x in (q, k_pages, v_pages, page_table, starts,
-                               chunk_lens)}
+                               chunk_lens, k_scales, v_scales, doc_starts)
+            if x is not None}
     if len(devs) != 1:
         raise ValueError("all operands must be on one device")
 
 
-def paged_attention(q, k_pages, v_pages, page_table, starts, chunk_lens):
+def _check_doc_starts(doc_starts, starts):
+    """doc_starts[c] <= starts[c]: every valid row keeps its own diagonal
+    column. One host read, paid only by callers that pack documents (the
+    engine passes no doc_starts); not made while a CUDA graph is being
+    captured, where the card cannot be read and the values are the
+    replays' to set."""
+    if doc_starts is None or (doc_starts.is_cuda
+                              and torch.cuda.is_current_stream_capturing()):
+        return
+    if bool((doc_starts > starts).any()):
+        raise ValueError("doc_starts must not exceed starts: a chunk's "
+                         "document floor lies at or before its first "
+                         "position")
+
+
+def _ptr(x):
+    return None if x is None else x.data_ptr()
+
+
+def paged_attention(q, k_pages, v_pages, page_table, starts, chunk_lens,
+                    k_scales=None, v_scales=None, window=None,
+                    doc_starts=None):
     """Attention half of the entry point, on pools that already hold the
     chunk's own K/V. On a CUDA tensor it launches kernel K7 (or raises
     on what it does not take); on a CPU tensor it runs the plain
     `_xla_paged_reference`. The grid comes from host shapes only; the
-    pages each chunk needs are worked out on the card from `starts` and
-    `chunk_lens`, so nothing here waits for the card."""
+    pages each chunk needs are worked out on the card from `starts`,
+    `chunk_lens` and the floors, so nothing here waits for the card
+    (apart from the doc_starts check, when doc_starts is given). Each
+    launch adds one to `ragged_paged_attention.launches` and to its
+    variants in `ragged_paged_attention.variant_launches` ("fp" or
+    "int8", and "window" and "doc" when those bounds are on)."""
+    _check_doc_starts(doc_starts, starts)
     if q.device.type == "cpu":
-        return _xla_paged_reference(q, k_pages, v_pages, page_table,
-                                    starts, chunk_lens)
-    _check(q, k_pages, v_pages, page_table, starts, chunk_lens)
+        return _xla_paged_reference(q, k_pages, v_pages, page_table, starts,
+                                    chunk_lens, k_scales, v_scales, window,
+                                    doc_starts)
+    _check(q, k_pages, v_pages, page_table, starts, chunk_lens, k_scales,
+           v_scales, doc_starts)
     nc, C, g, qpk, d = q.shape
+    int8 = k_pages.dtype == torch.int8
     q = q.contiguous()
     out = torch.empty_like(q)
     with torch.cuda.device(q.device):
         err = _library()(
             q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            out.data_ptr(), page_table.data_ptr(), starts.data_ptr(),
-            chunk_lens.data_ptr(),
+            _ptr(k_scales), _ptr(v_scales), out.data_ptr(), page_table.data_ptr(), starts.data_ptr(),
+            chunk_lens.data_ptr(), _ptr(doc_starts),
             nc, C, g, qpk, d, k_pages.shape[1], page_table.shape[1],
-            (1.0 / math.sqrt(d)) * LOG2E, _DTYPE_CODE[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream,
+            window or 0, (1.0 / math.sqrt(d)) * LOG2E, _DTYPE_CODE[q.dtype],
+            int(int8), torch.cuda.current_stream(q.device).cuda_stream,
         )
     if err != 0:
         raise RuntimeError(f"ragged paged attention kernel launch failed: "
                            f"cudaError {err}")
+    counts = ragged_paged_attention.variant_launches
     ragged_paged_attention.launches += 1
+    counts["int8" if int8 else "fp"] += 1
+    if window:
+        counts["window"] += 1
+    if doc_starts is not None:
+        counts["doc"] += 1
     return out
 
 
@@ -211,43 +315,42 @@ def ragged_paged_attention(
     q: torch.Tensor,  # (nc, C, g, qpk, d): C = padded chunk width
     k_new: torch.Tensor,  # (nc, C, g, d): this chunk's K (RoPE applied)
     v_new: torch.Tensor,  # (nc, C, g, d)
-    k_pages: torch.Tensor,  # (num_pages, page_size, g, d)
+    k_pages: torch.Tensor,  # (num_pages, page_size, g, d); int8 OK
     v_pages: torch.Tensor,
     page_table: torch.Tensor,  # (nc, max_pages) int32 pool indices
     starts: torch.Tensor,  # (nc,) int32: chunk start in the slot
     chunk_lens: torch.Tensor,  # (nc,) int32 valid tokens (<= C; 0 = idle)
     use_kernel: bool = True,
-    k_scales: Optional[torch.Tensor] = None,
-    v_scales: Optional[torch.Tensor] = None,
-    window_size: Optional[int] = None,
-    doc_starts: Optional[torch.Tensor] = None,
+    k_scales: Optional[torch.Tensor] = None,  # (num_pages, page_size, g)
+    v_scales: Optional[torch.Tensor] = None,  # fp32; int8 pools only
+    window_size: Optional[int] = None,  # None or <= 0: full causal
+    doc_starts: Optional[torch.Tensor] = None,  # (nc,) int32 doc floors
 ):
     """The paged attention entry point, one pass for every phase:
-    scatter the chunk's own K/V into its slot's pages (in place), then
-    causal attention of chunk token t (position starts + t) over cache
-    positions 0..starts+t. Returns (out (nc, C, g, qpk, d), k_pages,
-    v_pages); pad rows are exact zeros. `use_kernel` (the model's
-    `use_decode_attn`) picks K7 on a CUDA tensor; off, or on a CPU
-    tensor, the plain version runs."""
-    if k_scales is not None or v_scales is not None \
-            or k_pages.dtype == torch.int8:
-        raise NotImplementedError(_LATER.format(
-            "int8 KV pools (k_scales/v_scales)", "quantized-serving"))
-    if window_size is not None and window_size > 0:
-        raise NotImplementedError(_LATER.format(
-            "window_size", "sliding-window serving"))
-    if doc_starts is not None:
-        raise NotImplementedError(_LATER.format(
-            "doc_starts", "sliding-window serving"))
-    scatter_chunk_kv(k_new, v_new, k_pages, v_pages, page_table, starts,
-                     chunk_lens)
+    scatter the chunk's own K/V into its slot's pages (in place,
+    quantized for int8 pools), then attention of chunk token t (position
+    starts + t) over cache positions max(starts + t - W + 1,
+    doc_starts, 0) .. starts + t. Returns (out (nc, C, g, qpk, d),
+    k_pages, v_pages), and k_scales, v_scales after them for int8 pools;
+    pad rows are exact zeros. W >= starts + chunk_lens is bitwise no
+    window. `use_kernel` (the model's `use_decode_attn`) picks K7 on a
+    CUDA tensor; off, or on a CPU tensor, the plain version runs."""
+    if window_size is not None and window_size <= 0:
+        window_size = None
+    res = scatter_chunk_kv(k_new, v_new, k_pages, v_pages, page_table,
+                           starts, chunk_lens, k_scales, v_scales)
     if use_kernel:
         out = paged_attention(q, k_pages, v_pages, page_table, starts,
-                              chunk_lens)
+                              chunk_lens, k_scales, v_scales, window_size,
+                              doc_starts)
     else:
+        _check_doc_starts(doc_starts, starts)
         out = _xla_paged_reference(q, k_pages, v_pages, page_table, starts,
-                                   chunk_lens)
-    return out, k_pages, v_pages
+                                   chunk_lens, k_scales, v_scales,
+                                   window_size, doc_starts)
+    return (out, *res)
 
 
 ragged_paged_attention.launches = 0
+ragged_paged_attention.variant_launches = {"fp": 0, "int8": 0, "window": 0,
+                                           "doc": 0}

@@ -249,11 +249,6 @@ def test_buckets_match_jax():
 
 
 @pytest.mark.parametrize("knob,value,slice_name", [
-    ("prefill_chunk_tokens", 0, "whole-prompt admission"),
-    ("spec_decode_k", 4, "speculative decoding"),
-    ("kv_dtype", "int8", "quantized serving"),
-    ("quantize_weights", True, "quantized serving"),
-    ("window_reclaim", False, "sliding-window"),
     ("serving_tp", 2, "tp serving"),
     ("cost_registry", True, "observability"),
     ("trace_dir", "/nowhere", "observability"),
@@ -261,6 +256,33 @@ def test_buckets_match_jax():
 def test_left_out_knobs_name_their_slice(knob, value, slice_name):
     with pytest.raises(ValueError, match=slice_name):
         _engine(**{knob: value})
+
+
+def test_whole_prompt_admission_equals_generate_tokens():
+    """prefill_chunk_tokens=0: the bucket prefix of each prompt prefilled
+    at admission into the slot's pages, the tail teacher-forced; every
+    stream equals JAX `generate_tokens` alone on its prompt, log-probs
+    within 1e-5, and every page comes back."""
+    prompts = _prompts(0)
+    eng = _engine(prefill_chunk_tokens=0)
+    outs = _run(eng, prompts, GENS, top_k=1, return_log_probs=True)
+    for i, (p, g, (toks, lps)) in enumerate(zip(prompts, GENS, outs)):
+        ref_toks, ref_lp, _ = _reference(tuple(p), g)
+        assert toks == ref_toks[:len(toks)], i
+        close(lps, ref_lp[:len(toks) - 1], 1e-5, f"request {i}")
+    c = eng.counters()
+    assert c["serve_prefill_tokens"] == sum(bucket_prefill_len(len(p))
+                                            for p in prompts)
+    assert sorted(eng._free_pages) == list(range(1, eng.num_pages))
+
+
+def test_refusals_of_the_ported_modes():
+    with pytest.raises(ValueError, match="kv_dtype"):
+        _engine(kv_dtype="fp8")
+    with pytest.raises(ValueError, match="chunked admission"):
+        _engine(prefill_chunk_tokens=0, prefix_cache=True)
+    with pytest.raises(ValueError, match=">= 0"):
+        _engine(spec_decode_k=-1)
 
 
 def test_serve_thread_and_health():

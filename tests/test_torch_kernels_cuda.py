@@ -1,9 +1,10 @@
 """PyTorch port, the hand-written kernels on a CUDA card: decode attention
 (K1, CUDA C++), RMSNorm forward and backward (K2, K3, Triton), flash
 attention forward and backward (K4-K6, CUDA C++) and ragged paged
-attention (K7, CUDA C++), each against its plain PyTorch version on the
-same inputs, and the decode, paged and training paths with the kernels
-on against the same paths with them off.
+attention (K7, CUDA C++; fp and int8 pools, window and document floors),
+each against its plain PyTorch version on the same inputs, and the
+decode, paged and training paths with the kernels on against the same
+paths with them off.
 
 Every test is marked `cuda` and skips where there is no card. This file
 imports neither JAX nor the JAX package, so on a machine without JAX it
@@ -23,6 +24,7 @@ from megatron_llm_tpu_torch.models import LlamaModel
 from megatron_llm_tpu_torch.ops import decode_attention as dec
 from megatron_llm_tpu_torch.ops import prefill_attention as pa
 from megatron_llm_tpu_torch.ops import rmsnorm as rms
+from megatron_llm_tpu_torch.ops.quantization import quantize_rows
 
 pytestmark = pytest.mark.cuda
 
@@ -255,6 +257,175 @@ def test_paged_path_kernels_on_matches_off(cuda):
     caches = []
     for m in (on, off):
         c = m.init_paged_kv_caches(2, 9, 16, 4)
+        c["page_table"] = pt
+        caches.append(c)
+    toks = torch.from_numpy(
+        np.random.RandomState(0).randint(0, 256, (2, 28))).to(cuda)
+    lens = torch.tensor([20, 13], dtype=torch.int32, device=cuda)
+    k7 = pa.ragged_paged_attention.launches
+    with torch.inference_mode():
+        outs = [m.forward(dp, toks[:, :20], kv_caches=dict(c, chunk_lens=lens))
+                for m, c in zip((on, off), caches)]
+        valid = torch.arange(20, device=cuda)[None, :] < lens[:, None]
+        assert _max_err(outs[0][0][valid], outs[1][0][valid]) <= 1e-4
+        caches = [dict(c, lengths=lens) for c in caches]
+        for i in range(20, 28):
+            (a, caches[0]), (b, caches[1]) = (
+                m.forward(dp, toks[:, i:i + 1], kv_caches=c)
+                for m, c in zip((on, off), caches))
+            assert _max_err(a, b) <= 1e-4, i
+    assert pa.ragged_paged_attention.launches - k7 == 9 * cfg.num_layers
+
+
+def int8_batch(name, g, qpk, d, dtype, device, seed=0):
+    """`paged_batch` with int8 pools: the random pools quantized, then
+    the chunks' K/V scattered through the quantizing scatter. Returns
+    (q, k_pages, v_pages, pt, starts, lens, k_scales, v_scales)."""
+    C, spans = PAGED_BATCHES[name]
+    q, kp, vp, pt, starts, lens = paged_batch(name, g, qpk, d, dtype,
+                                              device, seed=seed)
+    (kq, ks), (vq, vs) = quantize_rows(kp), quantize_rows(vp)
+    gen = torch.Generator(device=device).manual_seed(seed + 1)
+    new = [torch.randn(len(spans), C, g, d, generator=gen,
+                       device=device).to(dtype) for _ in range(2)]
+    pa.scatter_chunk_kv(*new, kq, vq, pt, starts, lens, ks, vs)
+    return q, kq, vq, pt, starts, lens, ks, vs
+
+
+# the variants of K7 beside fp pools: (int8 pools, window, doc_starts)
+K7_VARIANTS = {
+    "int8": (True, None, False),
+    "window": (False, 300, False),
+    "int8_window": (True, 300, False),
+    "doc": (False, None, True),
+    "int8_window_doc": (True, 300, True),
+}
+
+
+def _variant_args(batch, variant, g, qpk, d, dtype, device, seed=0):
+    int8, window, doc = K7_VARIANTS[variant]
+    if int8:
+        q, kp, vp, pt, st, ln, ks, vs = int8_batch(batch, g, qpk, d, dtype,
+                                                   device, seed)
+    else:
+        q, kp, vp, pt, st, ln = paged_batch(batch, g, qpk, d, dtype, device,
+                                            seed=seed)
+        ks = vs = None
+    # document floors somewhere at or below each start
+    doc_starts = (st - st // 3).contiguous() if doc else None
+    return (q, kp, vp, pt, st, ln), dict(k_scales=ks, v_scales=vs,
+                                         window=window,
+                                         doc_starts=doc_starts)
+
+
+@pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
+                                       (torch.float32, 2e-5)],
+                         ids=["bf16", "fp32"])
+@pytest.mark.parametrize("g,qpk,d", [(32, 1, 128), (8, 8, 128), (2, 5, 16)])
+@pytest.mark.parametrize("variant", sorted(K7_VARIANTS))
+@pytest.mark.parametrize("batch", sorted(PAGED_BATCHES))
+def test_paged_kernel_variants_match_plain(cuda, batch, variant, g, qpk, d,
+                                           dtype, tol):
+    """int8 pools, a binding window of 300 and document floors, alone
+    and together, against the plain version on the same inputs; output
+    in q's dtype, pad rows exact zeros, each launch counted under its
+    variants."""
+    args, kw = _variant_args(batch, variant, g, qpk, d, dtype, cuda,
+                             seed=qpk)
+    before = dict(pa.ragged_paged_attention.variant_launches)
+    got = pa.paged_attention(*args, **kw)
+    ref = pa._xla_paged_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == args[0].shape
+    assert _max_err(got, ref) <= tol
+    pad = torch.arange(args[0].shape[1], device=cuda)[None, :] \
+        >= args[5][:, None]
+    assert (got[pad] == 0).all()
+    after = pa.ragged_paged_attention.variant_launches
+    int8, window, doc = K7_VARIANTS[variant]
+    assert after["int8" if int8 else "fp"] == before[
+        "int8" if int8 else "fp"] + 1
+    assert after["window"] - before["window"] == int(window is not None)
+    assert after["doc"] - before["doc"] == int(doc)
+
+
+@pytest.mark.parametrize("batch", sorted(PAGED_BATCHES))
+def test_paged_kernel_covering_window_is_bitwise_no_window(cuda, batch):
+    """W at or past every chunk's reach launches bitwise the fp kernel
+    with no window, and so does doc_starts all 0."""
+    args = paged_batch(batch, 8, 8, 128, torch.bfloat16, cuda)
+    base = pa.paged_attention(*args)
+    zeros = torch.zeros_like(args[4])
+    for kw in ({"window": 2048}, {"window": 1 << 20},
+               {"doc_starts": zeros}):
+        assert torch.equal(pa.paged_attention(*args, **kw), base), kw
+
+
+@pytest.mark.parametrize("variant", ["window", "int8_window", "doc"])
+@pytest.mark.parametrize("batch", sorted(PAGED_BATCHES))
+def test_paged_kernel_reads_nothing_below_the_floor(cuda, batch, variant):
+    """Below each chunk's floor: table entries reclaimed to the null page
+    and NaN at every position (and in the null page); the output is
+    bitwise the clean one."""
+    args, kw = _variant_args(batch, variant, 8, 8, 128, torch.bfloat16,
+                             cuda)
+    clean = pa.paged_attention(*args, **kw)
+    q, kp, vp, pt, st, ln = args
+    targets = (kw["k_scales"], kw["v_scales"]) if kw["k_scales"] is not None \
+        else (kp, vp)
+    page = kp.shape[1]
+    for c in range(pt.shape[0]):
+        lo = int(st[c])
+        lo = max(lo - kw["window"] + 1, 0) if kw["window"] else 0
+        if kw["doc_starts"] is not None:
+            lo = max(lo, int(kw["doc_starts"][c]))
+        for pos in range(lo):
+            for x in targets:
+                x[int(pt[c, pos // page]), pos % page] = float("nan")
+        pt[c, :lo // page] = 0
+    for x in targets:
+        x[0] = float("nan")
+    dirty = pa.paged_attention(q, kp, vp, pt, st, ln, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(dirty.float()).all()
+    assert torch.equal(dirty, clean)
+
+
+def test_paged_kernel_refuses_int8_it_does_not_take(cuda):
+    q, kp, vp, pt, st, ln, ks, vs = int8_batch("decode", 2, 2, 16,
+                                               torch.bfloat16, cuda)
+    with pytest.raises(ValueError, match="d % 16"):
+        pa.paged_attention(q[..., :8].contiguous(), kp[..., :8].contiguous(),
+                           vp[..., :8].contiguous(), pt, st, ln, ks, vs)
+    with pytest.raises(ValueError, match="k_scales"):
+        pa.paged_attention(q, kp, vp, pt, st, ln)
+    with pytest.raises(ValueError, match="doc_starts"):
+        pa.paged_attention(q, kp, vp, pt, st, ln, ks, vs,
+                           doc_starts=st + 1)
+
+
+@pytest.mark.parametrize("mode", ["int8", "window", "int8_window"])
+def test_paged_path_variants_kernels_on_matches_off(cuda, mode):
+    """The tiny fp32 Llama through the paged layout with int8 pools, a
+    window of 12, or both: a ragged prefill chunk then 8 single-token
+    steps with K7 and K2 on, against the same steps with both off;
+    logits within 1e-4."""
+    cfg = tiny_config(hidden_size=512, num_attention_heads=4,
+                      num_attention_heads_kv=2, kv_channels=128,
+                      ffn_hidden_size=256, compute_dtype=torch.float32,
+                      use_fused_rmsnorm=True, use_decode_attn=True,
+                      attention_window_size=12 if "window" in mode
+                      else None)
+    on = LlamaModel(cfg)
+    off = LlamaModel(dataclasses.replace(cfg, use_fused_rmsnorm=False,
+                                         use_decode_attn=False))
+    params = on.init(seed=3)
+    dp = on.prepare_decode_params(params, quantize_int8="int8" in mode)
+    kv = torch.int8 if "int8" in mode else None
+    pt = (torch.arange(8, device=cuda, dtype=torch.int32) + 1).view(2, 4)
+    caches = []
+    for m in (on, off):
+        c = m.init_paged_kv_caches(2, 9, 16, 4, kv_dtype=kv)
         c["page_table"] = pt
         caches.append(c)
     toks = torch.from_numpy(

@@ -209,3 +209,68 @@ def test_paged_prefill_chunk_then_decode_steps():
     for name in ("k_pages_layers", "v_pages_layers"):
         for a, b in zip(tc[name], jc[name]):
             close(a.numpy()[1:], np.asarray(b)[1:], 1e-5, name)
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
+def test_paged_int8_pools_and_doc_starts(int8):
+    """The paged layout with int8 pools (scale pools threaded through
+    every layer) or with a "doc_starts" cache key (two packed documents
+    as two chunks over one slot's pages): a prefill chunk, then for int8
+    three decode steps, through `LlamaModel.forward` on both sides (the
+    JAX side runs its Pallas paged kernel under the interpreter; pages
+    of 32, the int8 kernel's tile); logits within 1e-4 and the int8
+    pools equal JAX's bit for bit, null page aside."""
+    jm, jp, tm, tp = tiny_pair(jax_kernel=True)
+    rs = np.random.RandomState(11)
+    slots, page, max_pages = 2, 32, 2
+    num_pages = 1 + slots * max_pages
+    pt = rs.permutation(np.arange(1, num_pages)).reshape(slots, -1) \
+        .astype(np.int32)
+    kv = dict(jax=jnp.int8, torch=torch.int8) if int8 else {}
+    jc = dict(jm.init_paged_kv_caches(slots, num_pages, page, max_pages,
+                                      kv_dtype=kv.get("jax")),
+              page_table=jnp.asarray(pt))
+    tc = dict(tm.init_paged_kv_caches(slots, num_pages, page, max_pages,
+                                      kv_dtype=kv.get("torch")),
+              page_table=t(pt))
+    jdp, tdp = jm.prepare_decode_params(jp), tm.prepare_decode_params(tp)
+    step = jax.jit(lambda p, x, c: jm.forward(p, x, kv_caches=c))
+    toks = rs.randint(0, 256, (slots, 12)).astype(np.int32)
+    lens = np.asarray([12, 9], np.int32)
+    extra = {}
+    if not int8:
+        # slot 1 repeats slot 0's pages: its 9 tokens start at 3 with a
+        # document floor there, so it sees none of slot 0's first 3
+        pt[1] = pt[0]
+        jc["page_table"], tc["page_table"] = jnp.asarray(pt), t(pt)
+        lens = np.asarray([3, 9], np.int32)
+        jc["lengths"] = jnp.asarray([0, 3], jnp.int32)
+        tc["lengths"] = t(np.asarray([0, 3], np.int32))
+        extra = dict(doc_starts=np.asarray([0, 3], np.int32))
+    ref, jc = step(jdp, jnp.asarray(toks),
+                   dict(jc, chunk_lens=jnp.asarray(lens),
+                        **{k: jnp.asarray(v) for k, v in extra.items()}))
+    got, tc = tm.forward(tdp, t(toks).long(),
+                         kv_caches=dict(tc, chunk_lens=t(lens),
+                                        **{k: t(v) for k, v in
+                                           extra.items()}))
+    valid = np.arange(12)[None, :] < lens[:, None]
+    close(got.numpy()[valid], np.asarray(ref)[valid], 1e-4, "prefill")
+    if not int8:
+        assert "doc_starts" in tc
+        return
+    assert tc["k_scales_layers"][0].dtype == torch.float32
+    jc.pop("chunk_lens")
+    tc.pop("chunk_lens")
+    # three steps: the fourth writes a V element whose scaled value sits
+    # within an fp32 ulp of a half step, which quantizes one level apart
+    # in the two frameworks and moves the logits by 1.5e-4
+    for i in range(3):
+        x = rs.randint(0, 256, (slots, 1)).astype(np.int32)
+        ref, jc = step(jdp, jnp.asarray(x), jc)
+        got, tc = tm.forward(tdp, t(x).long(), kv_caches=tc)
+        close(got, ref, 1e-4, f"decode step {i}")
+        for name in ("k_pages_layers", "v_pages_layers"):
+            for a, b in zip(tc[name], jc[name]):
+                np.testing.assert_array_equal(a.numpy()[1:],
+                                              np.asarray(b)[1:])

@@ -3,9 +3,12 @@ module of kernel K7) against the JAX package on the CPU in fp32: the
 port's plain version against JAX `ragged_paged_attention` run two ways,
 the real Pallas kernel under the interpreter and its XLA twin, on mixed
 batches of decode rows, prefill chunks, idle chunks, a chunk whose start
-is not page-aligned and one that crosses pages; `scatter_chunk_kv` on its
-own; the null-page contract; the parameters that raise."""
+is not page-aligned and one that crosses pages, with fp and int8 pools
+and with the window (off, binding, covering) and document floors;
+`scatter_chunk_kv` on its own (int8: bitwise); the null-page contract
+and the columns below each chunk's floor; the refusals."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -16,6 +19,7 @@ from megatron_llm_tpu.ops.prefill_attention import (
     ragged_paged_attention as jax_rpa,
     scatter_chunk_kv as jax_scatter,
 )
+from megatron_llm_tpu.ops.quantization import quantize_rows as jax_quantize
 from megatron_llm_tpu_torch.ops import prefill_attention as pa
 from torch_parity import close, t
 
@@ -34,41 +38,66 @@ BATCHES = {
 }
 
 
-def _case(name, qpk, seed):
+def _case(name, qpk, seed, int8=False):
+    """One launch's inputs. int8 pools use pages of 32 (the int8 Pallas
+    kernel's sublane tile, so the interpreter runs the kernel and not
+    the XLA twin) over the same 64 positions a slot."""
     C, spans = BATCHES[name]
+    page, max_pages = (2 * PAGE, MAX_PAGES // 2) if int8 \
+        else (PAGE, MAX_PAGES)
     nc = len(spans)
     rs = np.random.RandomState(seed)
-    P = 1 + nc * MAX_PAGES
-    k_pages = rs.randn(P, PAGE, G, D).astype(np.float32)
-    v_pages = rs.randn(P, PAGE, G, D).astype(np.float32)
+    P = 1 + nc * max_pages
+    k_pages = rs.randn(P, page, G, D).astype(np.float32)
+    v_pages = rs.randn(P, page, G, D).astype(np.float32)
     perm = rs.permutation(np.arange(1, P))
-    pt = np.zeros((nc, MAX_PAGES), np.int32)
+    pt = np.zeros((nc, max_pages), np.int32)
     for c, (start, ln) in enumerate(spans):
-        owned = -(-max(start + ln, 1) // PAGE)  # entries past the need: 0
-        pt[c, :owned] = perm[c * MAX_PAGES:c * MAX_PAGES + owned]
+        owned = -(-max(start + ln, 1) // page)  # entries past the need: 0
+        pt[c, :owned] = perm[c * max_pages:c * max_pages + owned]
     starts = np.asarray([s for s, _ in spans], np.int32)
     lens = np.asarray([n for _, n in spans], np.int32)
     q = rs.randn(nc, C, G, qpk, D).astype(np.float32)
     k_new = rs.randn(nc, C, G, D).astype(np.float32)
     v_new = rs.randn(nc, C, G, D).astype(np.float32)
-    return dict(q=q, k_new=k_new, v_new=v_new, k_pages=k_pages,
+    case = dict(q=q, k_new=k_new, v_new=v_new, k_pages=k_pages,
                 v_pages=v_pages, page_table=pt, starts=starts,
                 chunk_lens=lens)
+    if int8:
+        for name in ("k", "v"):
+            data, scale = jax_quantize(jnp.asarray(case[name + "_pages"]))
+            case[name + "_pages"] = np.asarray(data)
+            case[name + "_scales"] = np.asarray(scale)
+    return case
+
+
+_ARGS = ("q", "k_new", "v_new", "k_pages", "v_pages", "page_table",
+         "starts", "chunk_lens")
 
 
 def _port(case, **kw):
     a = {k: t(v.copy()) for k, v in case.items()}  # the scatter is in place
-    return pa.ragged_paged_attention(
-        a["q"], a["k_new"], a["v_new"], a["k_pages"], a["v_pages"],
-        a["page_table"], a["starts"], a["chunk_lens"], **kw)
+    for name in ("k_scales", "v_scales"):
+        if name in a:
+            kw[name] = a[name]
+    return pa.ragged_paged_attention(*(a[k] for k in _ARGS), **kw)
 
 
-def _jax(case, use_pallas):
+_JAX_RPA = jax.jit(jax_rpa, static_argnames=("use_pallas", "interpret",
+                                              "window_size"))
+
+
+def _jax(case, use_pallas, **kw):
+    """JAX `ragged_paged_attention` jitted, as its engine runs it (an
+    eager call quantizes with a division, one ulp off in a few scales)."""
     a = {k: jnp.asarray(v) for k, v in case.items()}
-    return jax_rpa(a["q"], a["k_new"], a["v_new"], a["k_pages"],
-                   a["v_pages"], a["page_table"], a["starts"],
-                   a["chunk_lens"], use_pallas=use_pallas,
-                   interpret=use_pallas)
+    for name in ("k_scales", "v_scales"):
+        if name in a:
+            kw[name] = a[name]
+    if "doc_starts" in kw:
+        kw["doc_starts"] = jnp.asarray(kw["doc_starts"])
+    return _JAX_RPA(*(a[k] for k in _ARGS), use_pallas=use_pallas,
+                    interpret=use_pallas, **kw)
 
 
 def _pad_rows(case):
@@ -144,15 +173,92 @@ def test_nan_outside_the_chunks_reach_never_reaches_the_output(batch):
     np.testing.assert_array_equal(out.numpy(), clean.numpy())
 
 
-@pytest.mark.parametrize("kw,what", [
-    ({"k_scales": torch.zeros(1), "v_scales": torch.zeros(1)}, "int8"),
-    ({"window_size": 8}, "window_size"),
-    ({"doc_starts": torch.zeros(5, dtype=torch.int32)}, "doc_starts"),
-])
-def test_later_slice_parameters_raise(kw, what):
+@pytest.mark.parametrize("qpk", [1, 4])
+@pytest.mark.parametrize("batch", sorted(BATCHES))
+@pytest.mark.parametrize("jax_path", ["pallas_interpret", "xla_twin"])
+def test_int8_pools_match_jax(batch, qpk, jax_path):
+    """int8 pools with their scale pools: the port's plain version (the
+    dequantized gathered view) within 1e-5 of the JAX kernel under the
+    interpreter and of its XLA twin; the pools and scale pools after
+    the quantizing scatter are bitwise JAX's, null page aside."""
+    case = _case(batch, qpk, seed=20 + qpk, int8=True)
+    out, kp, vp, ks, vs = _port(case)
+    ref, jkp, jvp, jks, jvs = _jax(case, jax_path == "pallas_interpret")
+    assert out.dtype == torch.float32
+    close(out, ref, 1e-5, f"{batch} qpk={qpk} vs {jax_path}")
+    assert (out.numpy()[_pad_rows(case)] == 0).all()
+    for got, want in ((kp, jkp), (vp, jvp), (ks, jks), (vs, jvs)):
+        np.testing.assert_array_equal(got.numpy()[1:], np.asarray(want)[1:])
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("batch", sorted(BATCHES))
+def test_window_off_binding_covering(batch, int8):
+    """The three window regimes against the JAX kernel under the
+    interpreter: W = 8 binds (and changes the output), W >= context is
+    bitwise W = None, W <= 0 is no window."""
+    case = _case(batch, 2, seed=30, int8=int8)
+    base = _port(case)[0]
+    for w in (0, -1, 4 * MAX_PAGES * PAGE):
+        np.testing.assert_array_equal(_port(case, window_size=w)[0].numpy(),
+                                      base.numpy())
+    got = _port(case, window_size=8)[0]
+    ref = _jax(case, True, window_size=8)[0]
+    close(got, ref, 1e-5, f"{batch} window 8")
+    assert not np.array_equal(got.numpy(), base.numpy()), "window never bound"
+    twin = _jax(case, False, window_size=8)[0]
+    close(got, twin, 1e-5, f"{batch} window 8 vs the XLA twin")
+
+
+DOC = np.asarray([0, 16, 5, 12, 33], np.int32)  # <= the mixed starts
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
+def test_doc_starts_match_jax(int8):
+    """Per-chunk document floors, alone and with a window, against the
+    JAX kernel under the interpreter."""
+    case = _case("mixed", 2, seed=31, int8=int8)
+    for kw in ({}, {"window_size": 12}):
+        got = _port(case, doc_starts=t(DOC), **kw)[0]
+        ref = _jax(case, True, doc_starts=DOC, **kw)[0]
+        close(got, ref, 1e-5, f"doc_starts {kw}")
+
+
+@pytest.mark.parametrize("int8", [False, True], ids=["fp", "int8"])
+@pytest.mark.parametrize("floor", ["window", "doc"])
+def test_nan_below_the_floor_never_reaches_the_output(floor, int8):
+    """NaN at every position below each chunk's floor (window 12, or the
+    document floors), pages wholly below it reclaimed (table entry on
+    the null page) and NaN in the null page: the output is bitwise the
+    clean one."""
+    case = _case("mixed", 2, seed=33, int8=int8)
+    kw = {"window_size": 12} if floor == "window" else {"doc_starts": t(DOC)}
+    clean = _port(case, **kw)[0]
+    dirty = {k: v.copy() for k, v in case.items()}
+    data = ("k_scales", "v_scales") if int8 else ("k_pages", "v_pages")
+    page = dirty["k_pages"].shape[1]
+    for c, (start, ln) in enumerate(BATCHES["mixed"][1]):
+        lo = max(start - 11, 0) if floor == "window" else int(DOC[c])
+        for pos in range(lo):
+            for name in data:
+                dirty[name][dirty["page_table"][c, pos // page],
+                            pos % page] = np.nan
+        dirty["page_table"][c, :lo // page] = 0  # reclaimed
+    for name in data:
+        dirty[name][0] = np.nan
+    out = _port(dirty, **kw)[0]
+    assert torch.isfinite(out).all()
+    np.testing.assert_array_equal(out.numpy(), clean.numpy())
+
+
+def test_refusals():
     case = _case("mixed", 1, seed=0)
-    with pytest.raises(NotImplementedError, match=what):
-        _port(case, **kw)
+    with pytest.raises(ValueError, match="doc_starts"):
+        _port(case, doc_starts=t(DOC + 1))  # chunk 0: floor 1 > start 0
+    int8 = _case("mixed", 1, seed=0, int8=True)
+    del int8["k_scales"], int8["v_scales"]
+    with pytest.raises(ValueError, match="k_scales"):
+        _port(int8)
 
 
 def test_use_kernel_off_is_the_plain_version():

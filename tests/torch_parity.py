@@ -34,12 +34,16 @@ def torch_cfg(**kw):
 
 
 @functools.lru_cache(maxsize=None)
-def tiny_pair(seed: int = 7, jax_kernel: bool = False):
+def tiny_pair(seed: int = 7, jax_kernel: bool = False, window=None,
+              max_pos: int = 64):
     """(jax_model, jax_params, torch_model, torch_params) on shared
-    weights; the torch side lives on the CPU."""
-    jm = JaxLlama(jax_cfg(**(JAX_KERNEL if jax_kernel else {})))
+    weights; the torch side lives on the CPU. `window` sets
+    attention_window_size, `max_pos` the rotary table's length."""
+    kw = dict(attention_window_size=window, seq_length=max_pos,
+              max_position_embeddings=max_pos)
+    jm = JaxLlama(jax_cfg(**(JAX_KERNEL if jax_kernel else {}), **kw))
     jp = jm.init(jax.random.key(seed))
-    tm = TorchLlama(torch_cfg(), device="cpu")
+    tm = TorchLlama(torch_cfg(**kw), device="cpu")
     tp = params_from_jax(jax.tree.map(np.asarray, jp), tm.cfg, device="cpu")
     return jm, jp, tm, tp
 
