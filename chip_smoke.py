@@ -8,7 +8,9 @@ Phases, one output line each (a failure raises and exits non-zero):
 1. device: the card's name and power limit from nvidia-smi;
 2. build: the hand-written kernels built from this checkout's sources
    (one nvcc per CUDA C++ source, started together; Triton's compiler for
-   the RMSNorm), each timed;
+   the RMSNorm), each timed; then ptxas's report of flash_attention.cu
+   (`-Xptxas -v`: registers, stack and spills of each kernel instance)
+   beside K4's and K6's dynamic shared memory (ptxas_flash);
 3. kernel checks: each kernel against its plain PyTorch version on the
    card at the shapes of the paths that run it (bf16, max-abs 2e-2: the
    attention kernels round p to bf16 before normalising, the plain
@@ -84,8 +86,9 @@ Phases, one output line each (a failure raises and exits non-zero):
    norm within 5e-2 relative, every leaf's gradient cosine >= 0.98;
 17. throughput_train: median ms per step, tokens/s, model TFLOP/s (6 N
    per token) and its share of 989, peak memory, and a torch.profiler
-   trace of one step: the top 10 CUDA kernels by device time and the
-   share of the step the card was busy.
+   trace of one step: the top 10 CUDA kernels by device time, the share
+   of the step the card was busy, and the device ms of K4, K5 and K6 in
+   the step with their share of it.
 
 Then one JSON line of the kernels, the nvidia-smi line, and the last
 line `{"ok": true, "device": {...}}`. Without a CUDA card it exits 2 and
@@ -96,6 +99,7 @@ import argparse
 import dataclasses
 import gc
 import json
+import re
 import subprocess
 import sys
 import threading
@@ -277,6 +281,53 @@ def build_kernels():
     fa._library("fwd")
     say("build", **seconds,
         libraries=[lib.name for _, lib in builds.values()])
+    say("ptxas_flash", **ptxas_flash())
+
+
+def ptxas_report(log):
+    """{kernel instance: its registers, stack, spills (and static shared
+    memory)} from `nvcc -Xptxas -v` output."""
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '([^']+)'", line)
+        if m:
+            k = re.search(r"(flash_[a-z_]+_kernel)I((?:Li\d+E)+)E", m.group(1))
+            args = re.findall(r"Li(\d+)E", k.group(2)) if k else ()
+            name = f"{k.group(1)}<{','.join(args)}>" if k else m.group(1)
+            out[name] = {}
+            continue
+        if name is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[name].update(stack_bytes=int(m.group(1)),
+                             spill_store_bytes=int(m.group(2)),
+                             spill_load_bytes=int(m.group(3)))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out[name]["registers"] = int(m.group(1))
+            m = re.search(r"(\d+) bytes smem", line)
+            out[name]["static_smem_bytes"] = int(m.group(1)) if m else 0
+    return out
+
+
+def ptxas_flash():
+    """ptxas's report of flash_attention.cu's kernels, K4's and K6's
+    dynamic shared memory by head size, and the spilled bytes of all
+    kernels together."""
+    log = _build.build_log("flash_attention.cu")
+    if log is None:
+        return {"report": "not built in this run (library cached)"}
+    report = ptxas_report(log)
+    smem = fa._library("smem")
+    dyn = {f"{label} d{d}": smem(kernel, d)
+           for kernel, label in ((0, "flash_fwd"), (1, "flash_bwd_dkv"))
+           for d in (64, 128, 256)}
+    spills = sum(r.get("spill_store_bytes", 0) + r.get("spill_load_bytes", 0)
+                 for r in report.values())
+    return {"kernels": report, "dynamic_smem_bytes": dyn,
+            "spill_bytes": spills}
 
 
 def check_decode_kernel():
@@ -1862,6 +1913,8 @@ def check_flash_kernels():
             "library_ms": lib, "achieved_tflops": tflops[which],
             "shape": label,
         }
+        if which != "dq":
+            row["design"] = "wgmma+tma"
         if which != "fwd":
             row["plain_and_library_cover"] = "the whole backward (dq, dk, dv)"
         rows.append(row)
@@ -2057,6 +2110,10 @@ def throughput_train(trainer, state, text):
             end = b
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
     device_us = sum(kernels.values())
+    flash = {k: sum(us for n, us in kernels.items()
+                    if f"flash_{k}_kernel" in n) / 1e3
+             for k in ("fwd", "bwd_dq", "bwd_dkv")}
+    flash_ms = sum(flash.values())
     say("throughput_train", steps_timed=len(ms), step_ms_median=med,
         step_ms=ms, tokens_per_step=tokens, tokens_per_s=tok_s,
         model_tflops=tflops, model_tflops_share_of_989=tflops / 989.0,
@@ -2065,6 +2122,10 @@ def throughput_train(trainer, state, text):
         profiled_device_busy_ms=busy / 1e3 if spans else "not measured",
         device_busy_share=busy / wall_us if spans else "not measured",
         device_kernel_ms_total=device_us / 1e3,
+        flash_kernels_ms=flash, flash_ms=flash_ms,
+        flash_share_of_step_wall=flash_ms * 1e3 / wall_us,
+        flash_share_of_device_ms=(flash_ms * 1e3 / device_us
+                                  if device_us else "not measured"),
         top10_kernels_ms=[[n[:120], round(us / 1e3, 3)] for n, us in top])
 
 

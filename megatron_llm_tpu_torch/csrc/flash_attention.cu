@@ -28,35 +28,56 @@
 // the caller, as the JAX package leaves it to XLA.
 //
 // What bounds them on the H100: operations. At the training shape (s 4096,
-// d 128) the causal forward does ~1000 flops per byte it must move, above
-// the card's ~295 flops/byte balance point, and the backward ~2.5x the
-// forward's flops. So every product runs on the tensor cores as
-// mma.sync.m16n8k16 (bf16 in, fp32 accumulate): QK^T and PV in K4; QK^T,
-// dO V^T and dS K in K5; K Q^T, V dO^T, P^T dO and dS^T Q in K6. Scores,
-// probabilities and gradient tiles stay in registers (the C fragment of
-// one product is re-packed as the A fragment of the next); K/V and Q/dO
-// tiles are staged in shared memory with rows padded by 16 bytes so that
-// fragment loads hit 32 distinct banks; the operand a product needs
-// transposed is transposed once per tile inside shared memory.
+// d 128, causal) K4 does 4 and K6 8 flops a (row, key, d column) on ~1000
+// flops per byte moved, far above the card's ~295 flops/byte balance
+// point: 0.139 and 0.278 ms at 989 TFLOP/s. So the design is about
+// keeping the tensor cores fed.
 //
-// Design against the TPU grid: the TPU walks (bg, q block, k block) in
-// order and carries the softmax state in VMEM scratch. Here one block of 4
-// warps owns 64 rows (K4, K5) or 64 keys (K6) and loops over the other
-// axis itself, each warp owning 16 rows (or keys) of every tile. A causal
-// block computes its own last key tile (K4, K5) or first row tile (K6),
-// which replaces the clamped index maps at :345-347 and :549-550. Every
-// gradient is written by exactly one block: no atomics, so two runs give
-// the same bits. Ragged edges (any R, any T) are zero-filled in shared
-// memory and masked; d may be any multiple of 8 up to 256 (tiles are
-// padded to 32, 64, 128 or 256 columns). Output columns are split into
-// chunks of at most 128 (a grid axis) to bound the accumulators' registers;
-// a block of a later chunk recomputes the scores of the first.
+// K4 and K6 (redesigned for Hopper) are warp-specialised: warpgroup 0 is
+// the producer, whose elected thread 0 issues every load as TMA
+// (`cp.async.bulk.tensor`, tensor maps built on the host) into
+// 128-byte-swizzled shared memory, completing on mbarriers; TMA's zero
+// fill past the edges replaces masking loads and pads d to 64, 128 or 256.
+// The other warpgroups are consumers (setmaxnreg moves registers from the
+// producer to them) and issue every product as `wgmma.mma_async`:
+//   K4: a block owns 128 folded rows, two consumer warpgroups of 64; key
+//       tiles of 128 (64 at d 256) stream through a 2-stage ring. S = Q K^T
+//       with both operands from shared memory, K-major; the online softmax
+//       runs on the accumulator in registers; O += P V with A = bf16(P)
+//       re-packed from the accumulator into registers and B = V from
+//       shared memory MN-major (the transpose bit of a 16-bit wgmma).
+//   K6: a block owns 128 keys (64 at d 256), one consumer warpgroup per 64,
+//       with K and V loaded once; row tiles of 64 (Q, dO, lse, delta)
+//       stream through a 2-stage ring. S^T = K Q^T and dP^T = V dO^T from
+//       shared memory, K-major; P^T and dS^T in registers; dV += P^T dO and
+//       dK += dS^T Q with A from registers and B = dO, Q MN-major. Each
+//       product is a commit group waited for only when its result is
+//       needed: P^T is computed while dP^T runs, dS^T while dV's runs.
+// A 3- or 4-stage ring, and ping-pong ordering of the two consumer
+// warpgroups' products with named barriers, measured no faster on the H100
+// (PERF.md): what bounds both kernels now is each warpgroup's serial
+// issue, wait, softmax (ex2 on the SFU), issue, wait per tile.
+// No operand is transposed in shared memory. Causal blocks never load the
+// tiles above the diagonal; a warp masks only tiles that straddle its
+// diagonal or the ragged edge (the TPU kernel's `split_diag`, JAX
+// :281-300), the rest run a maskless branch. Blocks are launched heaviest
+// first (K4: the last row blocks; K6: the first key blocks) so the causal
+// triangle leaves no tail of idle SMs. Output columns are split into
+// chunks of 128 (a grid axis) at d 256 to bound the accumulators.
 //
-// The kernels launch on the caller's stream and allocate nothing.
+// K5 keeps its first design: one block of 4 warps owns 64 rows, loops over
+// key tiles of 64 staged in shared memory (rows padded by 16 bytes),
+// mma.sync.m16n8k16 products, K transposed once per tile in shared memory.
+//
+// Every output element is written by exactly one block, from registers:
+// no atomics, so two runs give the same bits. The kernels launch on the
+// caller's stream and allocate nothing.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <stdint.h>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -156,125 +177,232 @@ __device__ __forceinline__ void store2(bf16* dst, int row, int rows, int col,
 }
 
 // ---------------------------------------------------------------------------
-// K4: forward. Grid (ceil(R / 64), BG, D chunks); warp w owns rows
-// m0 + 16 w .. m0 + 16 w + 15 of every tile.
+// Shared pieces of K4 and K6
 // ---------------------------------------------------------------------------
 
-template <int DP, int DC>
-__global__ void __launch_bounds__(NT)
-flash_fwd_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                 const bf16* __restrict__ v, bf16* __restrict__ o,
-                 float* __restrict__ lse, int R, int T, int D, int qpk,
-                 int causal, float scale_log2) {
-  constexpr int BM = 64, BN = 64, LDQ = DP + 8, LDT = BN + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);  // [BM][LDQ]
-  bf16* Ks = Qs + BM * LDQ;                  // [BN][LDQ]
-  bf16* Vs = Ks + BN * LDQ;                  // [BN][LDQ], DC columns used
-  bf16* Vt = Vs + BN * LDQ;                  // [DC][LDT]
+constexpr int ST = 2;  // stages of the TMA ring
 
-  const int m0 = blockIdx.x * BM, bg = blockIdx.y, c0 = blockIdx.z * DC;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tg = lane & 3;
-  const bf16* qb = q + (size_t)bg * R * D;
-  const bf16* kb = k + (size_t)bg * T * D;
-  const bf16* vb = v + (size_t)bg * T * D;
+// The dynamic shared memory rounded up to the 1024-byte boundary that the
+// 128-byte swizzle's atoms need.
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024u - (hopper::smem_u32(p) & 1023u)) & 1023u);
+}
 
-  load_tile(Qs, LDQ, qb, m0, BM, R, D, 0, DP);
+// D (64 x N) += A B^T, both from shared memory, K-major.
+template <int N>
+__device__ __forceinline__ void mma_ss(float* d, uint64_t da, uint64_t db) {
+  if constexpr (N == 64) hopper::wgmma_ss_n64(d, da, db);
+  else hopper::wgmma_ss_n128(d, da, db);
+}
+
+// D (64 x N) += A (registers) B (shared memory, MN-major, panels of 64
+// columns `panel_bytes` apart).
+template <int N>
+__device__ __forceinline__ void mma_rs(float* d, const uint32_t* a,
+                                       const bf16* b, uint32_t panel_bytes) {
+  const uint64_t db = hopper::desc_mn_major(b, panel_bytes);
+  if constexpr (N == 64) hopper::wgmma_rs_n64(d, a, db);
+  else hopper::wgmma_rs_n128(d, a, db);
+}
+
+// The 16-deep slice kk of a K-major operand whose rows start at `rows`
+// inside panels of `panel_rows` rows (64 columns each).
+__device__ __forceinline__ uint64_t k_slice(const bf16* rows, int panel_rows,
+                                            int kk) {
+  return hopper::desc_k_major(rows + (kk >> 2) * panel_rows * 64
+                              + (kk & 3) * 16);
+}
+
+// ---------------------------------------------------------------------------
+// K4: forward. Grid (row blocks * BG, D chunks), heaviest row blocks first;
+// 384 threads: the producer warpgroup, then two consumers of 64 rows each.
+// ---------------------------------------------------------------------------
+
+template <int DP_, int BN_, int DC_>
+struct FwdLayout {
+  static constexpr int DP = DP_, BN = BN_, DC = DC_, BM = 128;
+  static constexpr uint32_t Q_BYTES = BM * DP * 2;  // DP / 64 panels
+  static constexpr uint32_t K_BYTES = BN * DP * 2;
+  static constexpr uint32_t V_BYTES = BN * DC * 2;  // this block's columns
+  static constexpr uint32_t STAGE_BYTES = K_BYTES + V_BYTES;
+  static constexpr size_t SMEM = 1024 + Q_BYTES + ST * STAGE_BYTES
+                                 + 8 * (1 + 2 * ST);
+};
+
+template <int DP, int BN, int DC>
+__global__ void __launch_bounds__(384, 1)
+flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
+                 const __grid_constant__ CUtensorMap tk,
+                 const __grid_constant__ CUtensorMap tv,
+                 bf16* __restrict__ o, float* __restrict__ lse, int BG,
+                 int R, int T, int D, int qpk, int causal, float scale_log2) {
+  using L = FwdLayout<DP, BN, DC>;
+  constexpr int BM = L::BM;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  unsigned char* ring = smem + L::Q_BYTES;
+  uint64_t* q_bar = reinterpret_cast<uint64_t*>(ring + ST * L::STAGE_BYTES);
+  uint64_t* full = q_bar + 1;
+  uint64_t* empty = full + ST;
+
+  const int nm = (R + BM - 1) / BM;
+  const int mb = causal ? nm - 1 - (int)(blockIdx.x / BG) : blockIdx.x / BG;
+  const int bg = blockIdx.x % BG;
+  const int m0 = mb * BM, c0 = blockIdx.y * DC;
   const int last = min(m0 + BM, R) - 1;
   const int kend = causal ? min(T, last / qpk + 1) : T;
-  const int ra = m0 + warp * 16 + g, rb = ra + 8;
-  const int pa = ra / qpk, pb = rb / qpk;
+  const int ntiles = (kend + BN - 1) / BN;
 
-  float m_a = NEG_INF, m_b = NEG_INF, l_a = 0.f, l_b = 0.f;
-  float acc[DC / 8][4];
-#pragma unroll
-  for (int i = 0; i < DC / 8; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_bar, 1);
+    for (int s = 0; s < ST; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 256);  // every consumer thread
+    }
+    hopper::mbar_init_fence();
+  }
+  __syncthreads();
 
-  for (int n0 = 0; n0 < kend; n0 += BN) {
-    __syncthreads();  // the previous tile is consumed
-    load_tile(Ks, LDQ, kb, n0, BN, T, D, 0, DP);
-    load_tile(Vs, LDQ, vb, n0, BN, T, D, c0, DC);
-    __syncthreads();
-    transpose_tile(Vt, LDT, Vs, LDQ, BN, 0, DC);
-    __syncthreads();
-
-    float s[BN / 8][4];
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DP; kk += 16) {
-      uint32_t a[4];
-      load_a(a, Qs + warp * 16 * LDQ + kk, LDQ, g, tg);
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        uint32_t b[2];
-        load_b(b, Ks + j * 8 * LDQ + kk, LDQ, g, tg);
-        mma_bf16(s[j], a, b);
+  if (threadIdx.x < 128) {
+    // producer: thread 0 issues every load, the rest of the warpgroup
+    // hands its registers to the consumers and leaves
+    hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      hopper::mbar_expect_tx(q_bar, L::Q_BYTES);
+      for (int p = 0; p < DP / 64; ++p)
+        hopper::tma_load_3d(Qs + p * BM * 64, &tq, q_bar, 64 * p, m0, bg);
+      for (int i = 0; i < ntiles; ++i) {
+        const int s = i % ST, n = i / ST;
+        if (n > 0) hopper::mbar_wait(&empty[s], (n - 1) & 1);
+        bf16* Ks = reinterpret_cast<bf16*>(ring + s * L::STAGE_BYTES);
+        bf16* Vs = Ks + BN * DP;
+        hopper::mbar_expect_tx(&full[s], L::STAGE_BYTES);
+        for (int p = 0; p < DP / 64; ++p)
+          hopper::tma_load_3d(Ks + p * BN * 64, &tk, &full[s], 64 * p,
+                              i * BN, bg);
+        for (int p = 0; p < DC / 64; ++p)
+          hopper::tma_load_3d(Vs + p * BN * 64, &tv, &full[s], c0 + 64 * p,
+                              i * BN, bg);
       }
     }
+  } else {
+    hopper::setmaxnreg_inc<240>();
+    const int cw = threadIdx.x / 128 - 1, t = threadIdx.x & 127;
+    const int warp = t >> 5, lane = t & 31, g = lane >> 2, tg = lane & 3;
+    const int w0 = m0 + cw * 64;  // this warpgroup's first row
+    const int ra = w0 + warp * 16 + g, rb = ra + 8;
+    const int pa = ra / qpk, pb = rb / qpk;
+    // key tiles this warpgroup's rows reach (the block's other warpgroup
+    // may reach one more)
+    const int wtiles =
+        w0 >= R ? 0
+                : causal ? (min(T, min(w0 + 63, R - 1) / qpk + 1) + BN - 1) / BN
+                         : ntiles;
+    // keys below `clean` are visible to every row of this warp
+    const int clean = causal ? min(T, (w0 + warp * 16) / qpk + 1) : T;
+    const bf16* Qw = Qs + cw * 64 * 64;
 
-    float mx_a = NEG_INF, mx_b = NEG_INF;
+    float m_a = NEG_INF, m_b = NEG_INF, l_a = 0.f, l_b = 0.f;
+    float acc[DC / 2];
 #pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
+    for (int i = 0; i < DC / 2; ++i) acc[i] = 0.f;
+
+    hopper::mbar_wait(q_bar, 0);
+    for (int i = 0; i < ntiles; ++i) {
+      const int s = i % ST;
+      hopper::mbar_wait(&full[s], (i / ST) & 1);
+      if (i < wtiles) {
+        const bf16* Ks = reinterpret_cast<const bf16*>(ring + s * L::STAGE_BYTES);
+        const bf16* Vs = Ks + BN * DP;
+        // S = Q K^T
+        float sc[BN / 2];
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = n0 + j * 8 + 2 * tg + e;
-        const bool ok = col < T;
-        s[j][e] = (ok && (!causal || col <= pa)) ? s[j][e] * scale_log2 : NEG_INF;
-        s[j][2 + e] = (ok && (!causal || col <= pb)) ? s[j][2 + e] * scale_log2 : NEG_INF;
-        mx_a = fmaxf(mx_a, s[j][e]);
-        mx_b = fmaxf(mx_b, s[j][2 + e]);
+        for (int j = 0; j < BN / 2; ++j) sc[j] = 0.f;
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)
+          mma_ss<BN>(sc, k_slice(Qw, BM, kk), k_slice(Ks, BN, kk));
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs<BN / 2>(sc);
+
+        const int n0 = i * BN;
+        float mx_a = NEG_INF, mx_b = NEG_INF;
+        if (n0 + BN <= clean) {
+#pragma unroll
+          for (int j = 0; j < BN / 2; j += 4) {
+            sc[j] *= scale_log2; sc[j + 1] *= scale_log2;
+            sc[j + 2] *= scale_log2; sc[j + 3] *= scale_log2;
+            mx_a = fmaxf(mx_a, fmaxf(sc[j], sc[j + 1]));
+            mx_b = fmaxf(mx_b, fmaxf(sc[j + 2], sc[j + 3]));
+          }
+        } else {  // the diagonal or the ragged end of T
+#pragma unroll
+          for (int j = 0; j < BN / 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int col = n0 + j * 8 + 2 * tg + e;
+              const bool ok = col < T;
+              float& xa = sc[4 * j + e];
+              float& xb = sc[4 * j + 2 + e];
+              xa = (ok && (!causal || col <= pa)) ? xa * scale_log2 : NEG_INF;
+              xb = (ok && (!causal || col <= pb)) ? xb * scale_log2 : NEG_INF;
+              mx_a = fmaxf(mx_a, xa);
+              mx_b = fmaxf(mx_b, xb);
+            }
+          }
+        }
+        const float mn_a = fmaxf(m_a, quad_max(mx_a));
+        const float mn_b = fmaxf(m_b, quad_max(mx_b));
+        const float al_a = exp2f(m_a - mn_a), al_b = exp2f(m_b - mn_b);
+        float sum_a = 0.f, sum_b = 0.f;
+#pragma unroll
+        for (int j = 0; j < BN / 2; j += 4) {
+          sc[j] = exp2f(sc[j] - mn_a);
+          sc[j + 1] = exp2f(sc[j + 1] - mn_a);
+          sc[j + 2] = exp2f(sc[j + 2] - mn_b);
+          sc[j + 3] = exp2f(sc[j + 3] - mn_b);
+          sum_a += sc[j] + sc[j + 1];
+          sum_b += sc[j + 2] + sc[j + 3];
+        }
+        l_a = al_a * l_a + quad_sum(sum_a);
+        l_b = al_b * l_b + quad_sum(sum_b);
+        m_a = mn_a;
+        m_b = mn_b;
+#pragma unroll
+        for (int j = 0; j < DC / 2; j += 4) {
+          acc[j] *= al_a; acc[j + 1] *= al_a;
+          acc[j + 2] *= al_b; acc[j + 3] *= al_b;
+        }
+        // O += bf16(P) V
+        uint32_t pf[BN / 16][4];
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk)
+          c_to_a(pf[kk], sc + 8 * kk, sc + 8 * kk + 4);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < BN / 16; ++kk)
+          mma_rs<DC>(acc, pf[kk], Vs + kk * 16 * 64, BN * 128);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs<DC / 2>(acc);
       }
+      hopper::mbar_arrive(&empty[s]);
     }
-    const float mn_a = fmaxf(m_a, quad_max(mx_a));
-    const float mn_b = fmaxf(m_b, quad_max(mx_b));
-    const float al_a = exp2f(m_a - mn_a), al_b = exp2f(m_b - mn_b);
-    float sum_a = 0.f, sum_b = 0.f;
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      s[j][0] = exp2f(s[j][0] - mn_a);
-      s[j][1] = exp2f(s[j][1] - mn_a);
-      s[j][2] = exp2f(s[j][2] - mn_b);
-      s[j][3] = exp2f(s[j][3] - mn_b);
-      sum_a += s[j][0] + s[j][1];
-      sum_b += s[j][2] + s[j][3];
-    }
-    l_a = al_a * l_a + quad_sum(sum_a);
-    l_b = al_b * l_b + quad_sum(sum_b);
-    m_a = mn_a;
-    m_b = mn_b;
+
+    const float la = fmaxf(l_a, 1e-30f), lb = fmaxf(l_b, 1e-30f);
+    bf16* ob = o + (size_t)bg * R * D;
 #pragma unroll
     for (int i = 0; i < DC / 8; ++i) {
-      acc[i][0] *= al_a; acc[i][1] *= al_a;
-      acc[i][2] *= al_b; acc[i][3] *= al_b;
+      const int col = c0 + i * 8 + 2 * tg;
+      store2(ob, ra, R, col, D, acc[4 * i] / la, acc[4 * i + 1] / la);
+      store2(ob, rb, R, col, D, acc[4 * i + 2] / lb, acc[4 * i + 3] / lb);
     }
-    // O += bf16(P) V
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      uint32_t a[4];
-      c_to_a(a, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int i = 0; i < DC / 8; ++i) {
-        uint32_t b[2];
-        load_b(b, Vt + i * 8 * LDT + kk * 16, LDT, g, tg);
-        mma_bf16(acc[i], a, b);
-      }
+    if (blockIdx.y == 0 && tg == 0) {
+      if (ra < R) lse[(size_t)bg * R + ra] = m_a * LN2 + logf(la);
+      if (rb < R) lse[(size_t)bg * R + rb] = m_b * LN2 + logf(lb);
     }
-  }
-
-  const float la = fmaxf(l_a, 1e-30f), lb = fmaxf(l_b, 1e-30f);
-  bf16* ob = o + (size_t)bg * R * D;
-#pragma unroll
-  for (int i = 0; i < DC / 8; ++i) {
-    const int col = c0 + i * 8 + 2 * tg;
-    store2(ob, ra, R, col, D, acc[i][0] / la, acc[i][1] / la);
-    store2(ob, rb, R, col, D, acc[i][2] / lb, acc[i][3] / lb);
-  }
-  if (blockIdx.z == 0 && tg == 0) {
-    if (ra < R) lse[(size_t)bg * R + ra] = m_a * LN2 + logf(la);
-    if (rb < R) lse[(size_t)bg * R + rb] = m_b * LN2 + logf(lb);
   }
 }
 
@@ -386,132 +514,199 @@ flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// K6: dk and dv. Grid (ceil(T / 64), BG, D chunks); warp w owns keys
-// n0 + 16 w .. n0 + 16 w + 15; the block walks row tiles of 32.
+// K6: dk and dv. Grid (key blocks * BG, D chunks), the key blocks with the
+// most rows first; the producer warpgroup, then NWG consumers of 64 keys
+// each; the block walks row tiles of 64.
 // ---------------------------------------------------------------------------
 
-template <int DP, int DC>
-__global__ void __launch_bounds__(NT)
-flash_bwd_dkv_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                     const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                     const float* __restrict__ lse,
-                     const float* __restrict__ delta, bf16* __restrict__ dk,
-                     bf16* __restrict__ dv, int R, int T, int D, int qpk,
-                     int causal, float scale_log2, float sm_scale) {
-  constexpr int BN = 64, BM = 32, LDQ = DP + 8, LDB = BM + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Ks = reinterpret_cast<bf16*>(smem);  // [BN][LDQ]
-  bf16* Vs = Ks + BN * LDQ;                  // [BN][LDQ]
-  bf16* Qs = Vs + BN * LDQ;                  // [BM][LDQ]
-  bf16* dOs = Qs + BM * LDQ;                 // [BM][LDQ]
-  bf16* Qt = dOs + BM * LDQ;                 // [DC][LDB]
-  bf16* dOt = Qt + DC * LDB;                 // [DC][LDB]
-  float* lse_s = reinterpret_cast<float*>(dOt + DC * LDB);  // [BM]
-  float* dl_s = lse_s + BM;                                  // [BM]
+template <int DP_, int NWG_, int DC_>
+struct DkvLayout {
+  static constexpr int DP = DP_, NWG = NWG_, DC = DC_, BN = 64 * NWG, BM = 64;
+  static constexpr uint32_t KV_BYTES = BN * DP * 2;  // K, then V
+  static constexpr uint32_t ROW_BYTES = BM * DP * 2;  // Q, then dO
+  static constexpr uint32_t STAGE_BYTES = 2 * ROW_BYTES;
+  static constexpr uint32_t VEC_BYTES = 2 * BM * 4;  // lse, then delta
+  static constexpr size_t SMEM = 1024 + 2 * KV_BYTES + ST * STAGE_BYTES
+                                 + ST * VEC_BYTES + 8 * (1 + 2 * ST);
+};
 
-  const int n0 = blockIdx.x * BN, bg = blockIdx.y, c0 = blockIdx.z * DC;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tg = lane & 3;
-  const size_t qoff = (size_t)bg * R * D, koff = (size_t)bg * T * D;
+template <int DP, int NWG, int DC>
+__global__ void __launch_bounds__(128 * (NWG + 1), 1)
+flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
+                     const __grid_constant__ CUtensorMap tk,
+                     const __grid_constant__ CUtensorMap tv,
+                     const __grid_constant__ CUtensorMap tdo,
+                     const __grid_constant__ CUtensorMap tlse,
+                     const __grid_constant__ CUtensorMap tdelta,
+                     bf16* __restrict__ dk, bf16* __restrict__ dv, int BG,
+                     int R, int T, int D, int qpk, int causal,
+                     float scale_log2, float sm_scale) {
+  using L = DkvLayout<DP, NWG, DC>;
+  constexpr int BN = L::BN, BM = L::BM;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  bf16* Ks = reinterpret_cast<bf16*>(smem);
+  bf16* Vs = Ks + BN * DP;
+  unsigned char* ring = smem + 2 * L::KV_BYTES;
+  float* vecs = reinterpret_cast<float*>(ring + ST * L::STAGE_BYTES);
+  uint64_t* kv_bar = reinterpret_cast<uint64_t*>(vecs + ST * 2 * BM);
+  uint64_t* full = kv_bar + 1;
+  uint64_t* empty = full + ST;
 
-  load_tile(Ks, LDQ, k + koff, n0, BN, T, D, 0, DP);
-  load_tile(Vs, LDQ, v + koff, n0, BN, T, D, 0, DP);
-  const int ka = n0 + warp * 16 + g, kb = ka + 8;
-  // the first row that reaches this key tile (rows before it see no key
-  // of the tile under the causal mask)
-  const int rstart = causal ? ((size_t)n0 * qpk / BM) * BM : 0;
+  const int n0 = (blockIdx.x / BG) * BN, bg = blockIdx.x % BG;
+  const int c0 = blockIdx.y * DC;
+  // the first row tile that reaches this key block (rows before it see
+  // none of its keys under the causal mask)
+  const int rstart = causal ? (int)(((long long)n0 * qpk / BM) * BM) : 0;
+  const int ntiles = max(0, (R - rstart + BM - 1) / BM);
 
-  float dka[DC / 8][4], dva[DC / 8][4];
-#pragma unroll
-  for (int i = 0; i < DC / 8; ++i) {
-    dka[i][0] = dka[i][1] = dka[i][2] = dka[i][3] = 0.f;
-    dva[i][0] = dva[i][1] = dva[i][2] = dva[i][3] = 0.f;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(kv_bar, 1);
+    for (int s = 0; s < ST; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 128 * NWG);  // every consumer thread
+    }
+    hopper::mbar_init_fence();
   }
+  __syncthreads();
 
-  for (int r0 = rstart; r0 < R; r0 += BM) {
-    __syncthreads();
-    load_tile(Qs, LDQ, q + qoff, r0, BM, R, D, 0, DP);
-    load_tile(dOs, LDQ, dout + qoff, r0, BM, R, D, 0, DP);
-    for (int i = threadIdx.x; i < BM; i += NT) {
-      const bool ok = r0 + i < R;
-      lse_s[i] = ok ? lse[(size_t)bg * R + r0 + i] * LOG2E : 0.f;
-      dl_s[i] = ok ? delta[(size_t)bg * R + r0 + i] : 0.f;
-    }
-    __syncthreads();
-    transpose_tile(Qt, LDB, Qs, LDQ, BM, c0, DC);
-    transpose_tile(dOt, LDB, dOs, LDQ, BM, c0, DC);
-    __syncthreads();
-
-    // s^T = K Q^T and dp^T = V dO^T, 16 keys x 32 rows per warp
-    float s[BM / 8][4], dp[BM / 8][4];
-#pragma unroll
-    for (int j = 0; j < BM / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
-    }
-#pragma unroll
-    for (int kk = 0; kk < DP; kk += 16) {
-      uint32_t ak[4], av[4];
-      load_a(ak, Ks + warp * 16 * LDQ + kk, LDQ, g, tg);
-      load_a(av, Vs + warp * 16 * LDQ + kk, LDQ, g, tg);
-#pragma unroll
-      for (int j = 0; j < BM / 8; ++j) {
-        uint32_t b[2];
-        load_b(b, Qs + j * 8 * LDQ + kk, LDQ, g, tg);
-        mma_bf16(s[j], ak, b);
-        load_b(b, dOs + j * 8 * LDQ + kk, LDQ, g, tg);
-        mma_bf16(dp[j], av, b);
+  if (threadIdx.x < 128) {
+    // producer: thread 0 issues every load
+    if constexpr (NWG == 2) hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      hopper::mbar_expect_tx(kv_bar, 2 * L::KV_BYTES);
+      for (int p = 0; p < DP / 64; ++p) {
+        hopper::tma_load_3d(Ks + p * BN * 64, &tk, kv_bar, 64 * p, n0, bg);
+        hopper::tma_load_3d(Vs + p * BN * 64, &tv, kv_bar, 64 * p, n0, bg);
+      }
+      for (int i = 0; i < ntiles; ++i) {
+        const int s = i % ST, n = i / ST, r0 = rstart + i * BM;
+        if (n > 0) hopper::mbar_wait(&empty[s], (n - 1) & 1);
+        bf16* Qs = reinterpret_cast<bf16*>(ring + s * L::STAGE_BYTES);
+        bf16* dOs = Qs + BM * DP;
+        float* vec = vecs + s * 2 * BM;
+        hopper::mbar_expect_tx(&full[s], L::STAGE_BYTES + L::VEC_BYTES);
+        for (int p = 0; p < DP / 64; ++p) {
+          hopper::tma_load_3d(Qs + p * BM * 64, &tq, &full[s], 64 * p, r0, bg);
+          hopper::tma_load_3d(dOs + p * BM * 64, &tdo, &full[s], 64 * p, r0,
+                              bg);
+        }
+        hopper::tma_load_2d(vec, &tlse, &full[s], r0, bg);
+        hopper::tma_load_2d(vec + BM, &tdelta, &full[s], r0, bg);
       }
     }
-    // p^T and ds^T; p masked to 0 past R, past T and above the diagonal
-#pragma unroll
-    for (int j = 0; j < BM / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int ci = j * 8 + 2 * tg + (e & 1);
-        const int row = r0 + ci;
-        const int key = e < 2 ? ka : kb;
-        const bool ok = row < R && key < T && (!causal || key <= row / qpk);
-        const float p = ok ? exp2f(s[j][e] * scale_log2 - lse_s[ci]) : 0.f;
-        s[j][e] = p;
-        dp[j][e] = p * (dp[j][e] - dl_s[ci]);
-      }
-    }
-    // dv += bf16(p^T) dO, dk += bf16(ds^T) Q
-#pragma unroll
-    for (int kk = 0; kk < BM / 16; ++kk) {
-      uint32_t ap[4], as[4];
-      c_to_a(ap, s[2 * kk], s[2 * kk + 1]);
-      c_to_a(as, dp[2 * kk], dp[2 * kk + 1]);
-#pragma unroll
-      for (int i = 0; i < DC / 8; ++i) {
-        uint32_t b[2];
-        load_b(b, dOt + i * 8 * LDB + kk * 16, LDB, g, tg);
-        mma_bf16(dva[i], ap, b);
-        load_b(b, Qt + i * 8 * LDB + kk * 16, LDB, g, tg);
-        mma_bf16(dka[i], as, b);
-      }
-    }
-  }
+  } else {
+    if constexpr (NWG == 2) hopper::setmaxnreg_inc<240>();
+    const int cw = threadIdx.x / 128 - 1, t = threadIdx.x & 127;
+    const int warp = t >> 5, lane = t & 31, g = lane >> 2, tg = lane & 3;
+    const int kw0 = n0 + cw * 64;  // this warpgroup's first key
+    const int ka = kw0 + warp * 16 + g, kb = ka + 8;
+    const int kwarp_last = kw0 + warp * 16 + 15;
+    const bf16* Kw = Ks + cw * 64 * 64;
+    const bf16* Vw = Vs + cw * 64 * 64;
 
-  bf16* dkb = dk + koff;
-  bf16* dvb = dv + koff;
+    float dka[DC / 2], dva[DC / 2];
 #pragma unroll
-  for (int i = 0; i < DC / 8; ++i) {
-    const int col = c0 + i * 8 + 2 * tg;
-    store2(dkb, ka, T, col, D, dka[i][0] * sm_scale, dka[i][1] * sm_scale);
-    store2(dkb, kb, T, col, D, dka[i][2] * sm_scale, dka[i][3] * sm_scale);
-    store2(dvb, ka, T, col, D, dva[i][0], dva[i][1]);
-    store2(dvb, kb, T, col, D, dva[i][2], dva[i][3]);
+    for (int i = 0; i < DC / 2; ++i) dka[i] = dva[i] = 0.f;
+
+    hopper::mbar_wait(kv_bar, 0);
+    for (int i = 0; i < ntiles; ++i) {
+      const int s = i % ST, r0 = rstart + i * BM;
+      hopper::mbar_wait(&full[s], (i / ST) & 1);
+      // tiles whose rows see none of this warpgroup's keys are skipped
+      const bool live = kw0 < T
+          && (!causal || kw0 <= min(r0 + BM - 1, R - 1) / qpk);
+      if (live) {
+        const bf16* Qs = reinterpret_cast<const bf16*>(ring + s * L::STAGE_BYTES);
+        const bf16* dOs = Qs + BM * DP;
+        const float* lse_s = vecs + s * 2 * BM;
+        const float* dl_s = lse_s + BM;
+        // S^T = K Q^T and dP^T = V dO^T, 64 keys x 64 rows, in two groups,
+        // each waited for only when its result is needed: P^T is computed
+        // while dP^T runs, dS^T while dV's product runs
+        float st[32], dpt[32];
+#pragma unroll
+        for (int j = 0; j < 32; ++j) st[j] = dpt[j] = 0.f;
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)
+          mma_ss<64>(st, k_slice(Kw, BN, kk), k_slice(Qs, BM, kk));
+        hopper::wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)
+          mma_ss<64>(dpt, k_slice(Vw, BN, kk), k_slice(dOs, BM, kk));
+        hopper::wgmma_commit();
+        // P^T and dS^T are masked only where the tile straddles this
+        // warp's diagonal or the ragged end of R
+        const bool masked = r0 + BM > R || (causal && kwarp_last > r0 / qpk);
+        hopper::wgmma_wait<1>();
+        hopper::fence_regs<32>(st);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int ci = j * 8 + 2 * tg + (e & 1);
+            const int row = r0 + ci;
+            const int key = e < 2 ? ka : kb;
+            const bool ok = !masked
+                || (row < R && (!causal || key <= row / qpk));
+            st[4 * j + e] = ok
+                ? exp2f(st[4 * j + e] * scale_log2 - lse_s[ci] * LOG2E) : 0.f;
+          }
+        }
+        const bf16* dOc = dOs + (c0 / 64) * BM * 64;
+        const bf16* Qc = Qs + (c0 / 64) * BM * 64;
+        uint32_t ap[4][4], as[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          c_to_a(ap[kk], st + 8 * kk, st + 8 * kk + 4);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          mma_rs<DC>(dva, ap[kk], dOc + kk * 16 * 64, BM * 128);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();
+        hopper::fence_regs<32>(dpt);
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int ci = j * 8 + 2 * tg + (e & 1);
+            dpt[4 * j + e] = st[4 * j + e] * (dpt[4 * j + e] - dl_s[ci]);
+          }
+        }
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          c_to_a(as[kk], dpt + 8 * kk, dpt + 8 * kk + 4);
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          mma_rs<DC>(dka, as[kk], Qc + kk * 16 * 64, BM * 128);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs<DC / 2>(dva);
+        hopper::fence_regs<DC / 2>(dka);
+      }
+      hopper::mbar_arrive(&empty[s]);
+    }
+
+    const size_t koff = (size_t)bg * T * D;
+#pragma unroll
+    for (int i = 0; i < DC / 8; ++i) {
+      const int col = c0 + i * 8 + 2 * tg;
+      store2(dk + koff, ka, T, col, D, dka[4 * i] * sm_scale,
+             dka[4 * i + 1] * sm_scale);
+      store2(dk + koff, kb, T, col, D, dka[4 * i + 2] * sm_scale,
+             dka[4 * i + 3] * sm_scale);
+      store2(dv + koff, ka, T, col, D, dva[4 * i], dva[4 * i + 1]);
+      store2(dv + koff, kb, T, col, D, dva[4 * i + 2], dva[4 * i + 3]);
+    }
   }
 }
 
 // ---------------------------------------------------------------------------
 // Launchers
 // ---------------------------------------------------------------------------
-
-template <int DP>
-constexpr int chunk_cols() { return DP < 128 ? DP : 128; }
 
 // Opts a kernel in to `bytes` of dynamic shared memory (above 48 KB).
 template <typename K>
@@ -521,21 +716,35 @@ int set_smem(K kernel, size_t bytes) {
 }
 
 template <int DP>
+constexpr int chunk_cols() { return DP < 128 ? DP : 128; }
+
+// K4: key tiles of 128 (64 at d 256); K6: 128 keys a block (64 at d 256);
+// output columns in chunks of at most 128.
+template <int DP>
+using FwdL = FwdLayout<DP, DP == 256 ? 64 : 128, chunk_cols<DP>()>;
+template <int DP>
+using DkvL = DkvLayout<DP, DP == 256 ? 1 : 2, chunk_cols<DP>()>;
+
+template <int DP>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
                void* lse, int BG, int R, int T, int D, int qpk, int causal,
                float sm_scale, cudaStream_t s) {
-  constexpr int DC = chunk_cols<DP>();
-  const size_t smem = sizeof(bf16) * (3 * 64 * (DP + 8) + DC * (64 + 8));
-  auto kern = flash_fwd_kernel<DP, DC>;
+  using L = FwdL<DP>;
+  constexpr int BN = L::BN, DC = L::DC;
+  auto kern = flash_fwd_kernel<DP, BN, DC>;
   // once per instantiation: never inside a CUDA-graph capture after the
   // first (warm-up) launch
-  static const int err = set_smem(kern, smem);
+  static const int err = set_smem(kern, L::SMEM);
   if (err) return err;
-  dim3 grid((R + 63) / 64, BG, DP / DC);
-  kern<<<grid, NT, smem, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o),
-      static_cast<float*>(lse), R, T, D, qpk, causal, sm_scale * LOG2E);
+  CUtensorMap tq, tk, tv;
+  int e = hopper::map_bf16_3d(&tq, q, D, R, BG, L::BM);
+  if (!e) e = hopper::map_bf16_3d(&tk, k, D, T, BG, BN);
+  if (!e) e = hopper::map_bf16_3d(&tv, v, D, T, BG, BN);
+  if (e) return e;
+  dim3 grid((R + L::BM - 1) / L::BM * BG, DP / DC);
+  kern<<<grid, 384, L::SMEM, s>>>(tq, tk, tv, static_cast<bf16*>(o),
+                                  static_cast<float*>(lse), BG, R, T, D, qpk,
+                                  causal, sm_scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
@@ -566,45 +775,68 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int BG,
                int R, int T, int D, int qpk, int causal, float sm_scale,
                cudaStream_t s) {
-  constexpr int DC = chunk_cols<DP>();
-  const size_t smem = sizeof(bf16) * (2 * 64 * (DP + 8) + 2 * 32 * (DP + 8)
-                                      + 2 * DC * (32 + 8))
-                      + sizeof(float) * 2 * 32;
-  auto kern = flash_bwd_dkv_kernel<DP, DC>;
+  using L = DkvL<DP>;
+  constexpr int NWG = L::NWG, DC = L::DC;
+  auto kern = flash_bwd_dkv_kernel<DP, NWG, DC>;
   // once per instantiation: never inside a CUDA-graph capture after the
   // first (warm-up) launch
-  static const int err = set_smem(kern, smem);
+  static const int err = set_smem(kern, L::SMEM);
   if (err) return err;
-  dim3 grid((T + 63) / 64, BG, DP / DC);
-  kern<<<grid, NT, smem, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dk), static_cast<bf16*>(dv), R, T, D, qpk, causal,
-      sm_scale * LOG2E, sm_scale);
+  CUtensorMap tq, tk, tv, tdo, tlse, tdelta;
+  int e = hopper::map_bf16_3d(&tq, q, D, R, BG, L::BM);
+  if (!e) e = hopper::map_bf16_3d(&tdo, dout, D, R, BG, L::BM);
+  if (!e) e = hopper::map_bf16_3d(&tk, k, D, T, BG, L::BN);
+  if (!e) e = hopper::map_bf16_3d(&tv, v, D, T, BG, L::BN);
+  // lse and delta rows of each group start on 16-byte boundaries: the
+  // wrapper pads them to a multiple of 4 values
+  const int ld = (R + 3) / 4 * 4;
+  if (!e) e = hopper::map_f32_rows(&tlse, lse, R, BG, ld, L::BM);
+  if (!e) e = hopper::map_f32_rows(&tdelta, delta, R, BG, ld, L::BM);
+  if (e) return e;
+  dim3 grid((T + L::BN - 1) / L::BN * BG, DP / DC);
+  kern<<<grid, 128 * (NWG + 1), L::SMEM, s>>>(
+      tq, tk, tv, tdo, tlse, tdelta, static_cast<bf16*>(dk),
+      static_cast<bf16*>(dv), BG, R, T, D, qpk, causal, sm_scale * LOG2E,
+      sm_scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // q, o, dout, dq: (BG, R, D) bf16; k, v, dk, dv: (BG, T, D) bf16; lse,
-// delta: (BG, R) fp32; all contiguous and 16-byte aligned. R = s * qpk.
+// delta: (BG, R) fp32 (for K6 each group's row padded to a multiple of 4
+// values); all contiguous and 16-byte aligned. R = s * qpk.
 // The wrapper checks 8 <= D <= 256, D % 8 == 0, qpk >= 1. Each returns the
-// cudaError_t of its launch.
+// cudaError_t of its launch (or of building its tensor maps).
 
+// K4 and K6: d padded to a tile width of 64, 128 or 256
+#define HOPPER_DISPATCH(FN, ...)                         \
+  if (D <= 64) return FN<64>(__VA_ARGS__);               \
+  if (D <= 128) return FN<128>(__VA_ARGS__);             \
+  return FN<256>(__VA_ARGS__);
+
+// K5: d padded to 32, 64, 128 or 256
 #define FLASH_DISPATCH(FN, ...)                          \
   if (D <= 32) return FN<32>(__VA_ARGS__);               \
   if (D <= 64) return FN<64>(__VA_ARGS__);               \
   if (D <= 128) return FN<128>(__VA_ARGS__);             \
   return FN<256>(__VA_ARGS__);
 
+// The dynamic shared memory of K4 (kernel 0) or K6 (kernel 1) at head size
+// D, for the build report.
+extern "C" int flash_attention_smem(int kernel, int D) {
+  if (D <= 64) return kernel ? (int)DkvL<64>::SMEM : (int)FwdL<64>::SMEM;
+  if (D <= 128) return kernel ? (int)DkvL<128>::SMEM : (int)FwdL<128>::SMEM;
+  return kernel ? (int)DkvL<256>::SMEM : (int)FwdL<256>::SMEM;
+}
+
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, void* lse, int BG,
                                    int R, int T, int D, int qpk, int causal,
                                    float sm_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(launch_fwd, q, k, v, o, lse, BG, R, T, D, qpk, causal,
-                 sm_scale, s)
+  HOPPER_DISPATCH(launch_fwd, q, k, v, o, lse, BG, R, T, D, qpk, causal,
+                  sm_scale, s)
 }
 
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
@@ -625,6 +857,6 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        int T, int D, int qpk, int causal,
                                        float sm_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, dk, dv, BG, R, T, D,
-                 qpk, causal, sm_scale, s)
+  HOPPER_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, dk, dv, BG, R, T, D,
+                  qpk, causal, sm_scale, s)
 }

@@ -3,8 +3,12 @@
 Each source under `megatron_llm_tpu_torch/csrc/` is compiled by `nvcc`
 for sm_90a into a shared library with a plain C interface (no PyTorch
 headers, so a build takes seconds) under `build/` at the repository root.
-The library's file name carries a hash of its source, so an edited
-source is rebuilt and an unchanged one is loaded as it is.
+The library's file name carries a hash of its source, of every
+`csrc/*.cuh` header the source includes (directly or through another
+header) and of the nvcc flags, so an edited source or header is rebuilt
+and an unchanged one is loaded as it is. nvcc's output, with ptxas's
+registers, shared memory and spills for each kernel (`-Xptxas -v`), is
+kept beside the library as `<library>.log`.
 """
 
 from __future__ import annotations
@@ -12,6 +16,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import subprocess
 import threading
 from pathlib import Path
@@ -19,7 +24,8 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent.parent / "build"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+\.cuh)"', re.M)
 
 _loaded: dict = {}
 _lock = threading.Lock()
@@ -36,10 +42,33 @@ def nvcc_path() -> str:
     return str(Path(CUDA_HOME) / "bin" / "nvcc")
 
 
-def library_path(source: str) -> Path:
-    src = CSRC / source
-    digest = hashlib.sha256(src.read_bytes()).hexdigest()[:12]
-    return BUILD_DIR / f"lib{src.stem}-{digest}.so"
+def included_headers(src: Path, csrc: Path = CSRC) -> list:
+    """The `csrc/*.cuh` headers `src` includes, directly or through
+    another header, sorted."""
+    found, todo = set(), [src]
+    while todo:
+        for name in _INCLUDE.findall(todo.pop().read_text()):
+            header = csrc / name
+            if header.is_file() and header not in found:
+                found.add(header)
+                todo.append(header)
+    return sorted(found)
+
+
+def library_path(source: str, csrc: Path = CSRC) -> Path:
+    src = csrc / source
+    h = hashlib.sha256()
+    for f in (src, *included_headers(src, csrc)):
+        h.update(f.name.encode() + b"\0" + f.read_bytes())
+    h.update("\0".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:12]}.so"
+
+
+def build_log(source: str):
+    """nvcc's output of the library `source` loads, or None where it was
+    not built by this checkout."""
+    log = library_path(source).with_suffix(".log")
+    return log.read_text() if log.exists() else None
 
 
 def start_build(source: str):
@@ -64,6 +93,7 @@ def finish_build(proc, out: Path) -> Path:
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed ({proc.returncode}) building "
                            f"{out.name}:\n{log}")
+    out.with_suffix(".log").write_text(log)
     os.replace(proc.tmp_path, out)
     return out
 

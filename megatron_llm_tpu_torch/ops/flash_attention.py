@@ -6,7 +6,9 @@ Kernels K4 (forward), K5 (dq) and K6 (dk, dv), CUDA C++ for sm_90a
 ops/flash_attention.py:262, launched by `_flash_fwd_pallas` at :352),
 `_bwd_dq_kernel` (:388, launched at :566) and `_bwd_dkv_kernel` (:448,
 launched at :591). They are bound by their operations and run them on the
-tensor cores; the source note says how.
+tensor cores: K4 and K6 as warp-specialised wgmma kernels fed by TMA
+through an mbarrier ring (`csrc/hopper.cuh` holds the PTX), K5 on
+mma.sync tiles; the source note says how.
 
 Layout, as in the JAX package: q (b, s, g, qpk, d), k/v (b, t, g, d). The
 kernels take the TPU kernels' folded layout, q/o/dO as (b*g, s*qpk, d)
@@ -135,8 +137,14 @@ _FNS = {
 def _library(which: str):
     from megatron_llm_tpu_torch.ops._build import load_library
 
+    lib = load_library("flash_attention.cu")
+    if which == "smem":  # K4's / K6's dynamic shared memory, for reports
+        fn = lib.flash_attention_smem
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int, ctypes.c_int]
+        return fn
     name, n_ptr = _FNS[which]
-    fn = getattr(load_library("flash_attention.cu"), name)
+    fn = getattr(lib, name)
     if fn.argtypes is None:  # pointers must not pass as 32-bit ints
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6
@@ -185,6 +193,23 @@ def _stream(x):
     return torch.cuda.current_stream(x.device).cuda_stream
 
 
+def _check_aligned(*xs):
+    # TMA reads each row from its tensor's base address in 16-byte units
+    if any(x.data_ptr() % 16 for x in xs):
+        raise ValueError("flash kernels need 16-byte aligned tensors")
+
+
+def _rows4(x, bg, R):
+    """(bg, R, 1) fp32 rows as (bg, R4) with R4 = R rounded up to a
+    multiple of 4 (K6 loads each group's lse and delta by TMA, whose boxes
+    start on 16-byte boundaries); the same tensor when R % 4 == 0."""
+    if R % 4 == 0:
+        return x
+    out = x.new_zeros(bg, (R + 3) // 4 * 4)
+    out[:, :R] = x.reshape(bg, R)
+    return out
+
+
 def _raise_on(err, which):
     if err != 0:
         raise RuntimeError(f"flash attention {which} kernel launch failed: "
@@ -197,6 +222,7 @@ def flash_fwd(qf, kf, vf, qpk: int, causal: bool):
     bg, R, d = qf.shape
     of = torch.empty_like(qf)
     lse = torch.empty(bg, R, 1, dtype=torch.float32, device=qf.device)
+    _check_aligned(qf, kf, vf)
     with torch.cuda.device(qf.device):
         err = _library("fwd")(
             qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), of.data_ptr(),
@@ -211,6 +237,7 @@ def flash_bwd_dq(qf, kf, vf, dof, lse, delta, qpk: int, causal: bool):
     """Kernel K5 on the folded layout: dq (b*g, s*qpk, d)."""
     bg, R, d = qf.shape
     dq = torch.empty_like(qf)
+    _check_aligned(qf, kf, vf, dof, lse, delta)
     with torch.cuda.device(qf.device):
         err = _library("dq")(
             qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), dof.data_ptr(),
@@ -226,6 +253,8 @@ def flash_bwd_dkv(qf, kf, vf, dof, lse, delta, qpk: int, causal: bool):
     """Kernel K6 on the folded layout: (dk, dv), each (b*g, t, d)."""
     bg, R, d = qf.shape
     dk, dv = torch.empty_like(kf), torch.empty_like(vf)
+    lse, delta = _rows4(lse, bg, R), _rows4(delta, bg, R)
+    _check_aligned(qf, kf, vf, dof, lse, delta)
     with torch.cuda.device(qf.device):
         err = _library("dkv")(
             qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), dof.data_ptr(),

@@ -460,6 +460,10 @@ FLASH_SHAPES = [
     (2, 1, 8, 33, 33, True),         # smallest d
     (2, 4, 128, 100, 70, False),     # full attention, t != s
     (1, 2, 64, 64, 96, True),        # causal with t > s
+    (2, 1, 128, 1000, 1000, True),   # several 128-row blocks, ragged tail
+    (2, 3, 128, 300, 300, True),     # qpk 3: rows straddle 128-row blocks
+    (1, 8, 128, 512, 512, True),     # Llama-2-70B's qpk over several tiles
+    (1, 2, 256, 200, 320, True),     # d 256 with t > s
 ]
 
 
