@@ -9,18 +9,23 @@ Phases, one output line each (a failure raises and exits non-zero):
 2. build: the hand-written kernels built from this checkout's sources
    (one nvcc per CUDA C++ source, started together; Triton's compiler for
    the RMSNorm), each timed; then ptxas's report of flash_attention.cu
-   (`-Xptxas -v`: registers, stack and spills of each kernel instance)
-   beside K4's and K6's dynamic shared memory (ptxas_flash);
+   and paged_attention_tc.cu (`-Xptxas -v`: registers, stack and spills
+   of each kernel instance) beside K4's, K5's, K6's and K7-tc's dynamic
+   shared memory (ptxas_flash, ptxas_paged_tc);
 3. kernel checks: each kernel against its plain PyTorch version on the
    card at the shapes of the paths that run it (bf16, max-abs 2e-2: the
    attention kernels round p to bf16 before normalising, the plain
    versions after; flash gradients within 2e-2 of their reference's
    max-abs), and each kernel's time beside its plain version's, one
-   library call's and the least time the card could take; K7 also with
-   int8 pools, a window of 1024 (binding, and covering: bitwise the fp
-   launch), both, and three packed documents over one slot's pages
-   (kernel_check_paged_variants, kernel_time_paged_variants), with NaN
-   below every chunk's floor kept out of the output;
+   library call's and the least time the card could take; K7 in both of
+   its designs (tc, on the tensor cores, for bf16 pools, and present, for
+   fp32 and int8 pools) where each takes the shape, at Llama-2-7B's,
+   Llama-2-70B's and Falcon-7B's (qpk 71, tc only) attention shapes, both
+   designs' times in the same call; K7
+   also with int8 pools, a window of 1024 (binding, and covering: bitwise
+   the fp launch), both, and three packed documents over one slot's
+   pages (kernel_check_paged_variants, kernel_time_paged_variants), with
+   NaN below every chunk's floor kept out of the output;
 4. model: Llama-2-7B at full width and depth, random bf16 weights from a
    fixed seed on the card, built once for every route;
 5. serving (whole-batch route, `MegatronServer(engine=None)`): a greedy
@@ -42,7 +47,8 @@ Phases, one output line each (a failure raises and exits non-zero):
    prompts of 20 to 1500 ids, two sharing a 700-token prefix, one
    sampled and one streamed over SSE. The counters are set to 0 before
    the traffic: the paged kernel must have run 32 times per paged
-   forward, the RMSNorm kernel too, the decode kernel not at all; the
+   forward (every launch its tc design), the RMSNorm kernel too, the
+   decode kernel not at all; the
    prefix cache must show a hit and a copy-on-write copy, and every page
    must be free or cached at the end;
 9. path_check_engine: the engine's greedy outputs that asked for
@@ -51,7 +57,8 @@ Phases, one output line each (a failure raises and exits non-zero):
 10. throughput_engine: wall time and generated tokens/s over the whole
    traffic, ms per decode-token advance and per mixed round, TTFT p50,
    the device ms of one 8-slot paged decode step beside the weight floor
-   and the idle share, peak memory;
+   and the idle share, the device ms of one mixed round's paged forward
+   and K7's part of it (torch.profiler), peak memory;
 11. serving_engine_int8: the same traffic through the same server with
    int8 pools and int8 weights (`kv_dtype="int8"`,
    `quantize_weights=True`); every K7 launch the int8 variant; the
@@ -248,7 +255,7 @@ def rotating(make, n):
 
 
 CUDA_SOURCES = ("decode_attention.cu", "paged_attention.cu",
-                "flash_attention.cu")
+                "paged_attention_tc.cu", "flash_attention.cu")
 
 
 def build_kernels():
@@ -278,10 +285,12 @@ def build_kernels():
         time.sleep(0.05)
     dec._library()
     pa._library()
+    pa._library("tc")
     fa._library("fwd")
     say("build", **seconds,
         libraries=[lib.name for _, lib in builds.values()])
     say("ptxas_flash", **ptxas_flash())
+    say("ptxas_paged_tc", **ptxas_paged_tc())
 
 
 def ptxas_report(log):
@@ -291,7 +300,8 @@ def ptxas_report(log):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            k = re.search(r"(flash_[a-z_]+_kernel)I((?:Li\d+E)+)E", m.group(1))
+            k = re.search(r"((?:flash|paged)_[a-z_]+_kernel)I((?:Li\d+E)+)E",
+                          m.group(1))
             args = re.findall(r"Li(\d+)E", k.group(2)) if k else ()
             name = f"{k.group(1)}<{','.join(args)}>" if k else m.group(1)
             out[name] = {}
@@ -312,22 +322,35 @@ def ptxas_report(log):
     return out
 
 
-def ptxas_flash():
-    """ptxas's report of flash_attention.cu's kernels, K4's and K6's
-    dynamic shared memory by head size, and the spilled bytes of all
-    kernels together."""
-    log = _build.build_log("flash_attention.cu")
+def ptxas_of(source, dyn):
+    """ptxas's report of one source's kernels beside their dynamic shared
+    memory `dyn`, and the spilled bytes of all of them together."""
+    log = _build.build_log(source)
     if log is None:
         return {"report": "not built in this run (library cached)"}
     report = ptxas_report(log)
-    smem = fa._library("smem")
-    dyn = {f"{label} d{d}": smem(kernel, d)
-           for kernel, label in ((0, "flash_fwd"), (1, "flash_bwd_dkv"))
-           for d in (64, 128, 256)}
     spills = sum(r.get("spill_store_bytes", 0) + r.get("spill_load_bytes", 0)
                  for r in report.values())
     return {"kernels": report, "dynamic_smem_bytes": dyn,
             "spill_bytes": spills}
+
+
+def ptxas_flash():
+    """flash_attention.cu: K4's, K6's and K5's registers, spills and
+    dynamic shared memory by head size."""
+    smem = fa._library("smem")
+    return ptxas_of("flash_attention.cu", {
+        f"{label} d{d}": smem(kernel, d)
+        for kernel, label in ((0, "flash_fwd"), (1, "flash_bwd_dkv"),
+                              (2, "flash_bwd_dq"))
+        for d in (64, 128, 256)})
+
+
+def ptxas_paged_tc():
+    """paged_attention_tc.cu: K7's tensor-core design, by head size."""
+    smem = pa._library("smem")
+    return ptxas_of("paged_attention_tc.cu",
+                    {f"paged_attn_tc d{d}": smem(d) for d in (64, 128, 256)})
 
 
 def check_decode_kernel():
@@ -500,42 +523,70 @@ def paged_bound_ms(batch, g, qpk, d):
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
+# (g, qpk, d) of the attention shapes K7 is held to: Llama-2-7B, Llama-2-70B
+# (GQA, qpk 8) and Falcon-7B (multi-query, qpk 71: the tc design only)
+PAGED_SHAPES = (("llama2_7b", (32, 1, 128)), ("llama2_70b_attn", (8, 8, 128)),
+                ("falcon_7b_attn", (1, 71, 64)))
+
+
+def paged_designs(qpk):
+    return ("tc", "present") if qpk <= 16 else ("tc",)
+
+
 def check_paged_kernel():
+    """K7 in each design that takes the shape against its plain version
+    on a decode and a mixed round, pad rows zeros, NaN outside the
+    chunks' reach kept out; then both designs' times at the 7B shape in
+    one call, beside the plain version, SDPA and the bound. Returns the
+    rows of the present design and of the tc design."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 2)
     errs = {}
-    for label, (g, qpk, d) in (("llama2_7b", (32, 1, 128)),
-                               ("llama2_70b_attn", (8, 8, 128))):
+    for label, (g, qpk, d) in PAGED_SHAPES:
         for batch in PAGED_BATCHES:
             q, kp, vp, pt, starts, lens = paged_inputs(batch, g, qpk, d, gen)
-            got = pa.paged_attention(q, kp, vp, pt, starts, lens)
             ref = pa._xla_paged_reference(q, kp, vp, pt, starts, lens)
             C = q.shape[1]
             pad = torch.arange(C, device="cuda")[None, :] >= lens[:, None]
-            torch.cuda.synchronize()
-            err = (got.float() - ref.float()).abs().max().item()
-            errs[f"{label}_{batch}"] = err
-            check(err <= BF16_TOL, f"K7 {label} {batch}: {err}")
-            check(bool((got[pad] == 0).all()), f"K7 {label} {batch} pad rows")
+            got = {}
+            for design in paged_designs(qpk):
+                got[design] = pa.paged_attention(q, kp, vp, pt, starts, lens,
+                                                 design=design)
+                torch.cuda.synchronize()
+                err = (got[design].float() - ref.float()).abs().max().item()
+                errs[f"{label}_{batch}_{design}"] = err
+                check(err <= BF16_TOL, f"K7 {design} {label} {batch}: {err}")
+                check(bool((got[design][pad] == 0).all()),
+                      f"K7 {design} {label} {batch} pad rows")
+            del ref
             plant_nans(batch, kp, vp, pt)
-            dirty = pa.paged_attention(q, kp, vp, pt, starts, lens)
-            torch.cuda.synchronize()
-            check(bool(torch.isfinite(dirty.float()).all())
-                  and torch.equal(dirty, got),
-                  f"K7 {label} {batch}: NaN outside the chunks' reach "
-                  f"reached the output")
+            for design in got:
+                dirty = pa.paged_attention(q, kp, vp, pt, starts, lens,
+                                           design=design)
+                torch.cuda.synchronize()
+                check(bool(torch.isfinite(dirty.float()).all())
+                      and torch.equal(dirty, got[design]),
+                      f"K7 {design} {label} {batch}: NaN outside the "
+                      f"chunks' reach reached the output")
+            del q, kp, vp, got
+            torch.cuda.empty_cache()
     say("kernel_check_paged_attention", max_abs_err=errs, tol=BF16_TOL,
         nan_guard="ok")
 
     # time at the 7B shape, rotating over 4 input sets (the needed K/V
-    # of one decode set is 73 MB, above the 50 MB L2)
+    # of one decode set is 73 MB, above the 50 MB L2); both designs in
+    # this one call
     g, qpk, d = 32, 1, 128
     sdpa = torch.nn.functional.scaled_dot_product_attention
     times = {}
     for batch in PAGED_BATCHES:
         sets = [paged_inputs(batch, g, qpk, d, gen) for _ in range(4)]
         pick = rotating(lambda i: sets[i], 4)
+        design = pa.paged_design(torch.bfloat16, torch.bfloat16, PAGE)
         eager_ms = time_ms(lambda: pa.paged_attention(*pick()))
-        kernel_ms = device_ms(lambda: pa.paged_attention(*pick()))
+        by_design = {
+            f"{dn}_ms": device_ms(lambda: pa.paged_attention(*pick(),
+                                                             design=dn))
+            for dn in ("tc", "present")}
         plain_ms = device_ms(lambda: pa._xla_paged_reference(*pick()),
                              per_graph=10, replays=5)
         del sets
@@ -558,23 +609,37 @@ def check_paged_kernel():
         lib = rotating(dense, 4)
         library_ms = device_ms(lambda: _sdpa(sdpa, lib()))
         bound, bound_by = paged_bound_ms(batch, g, qpk, d)
-        times[batch] = {"ms": kernel_ms, "plain_ms": plain_ms,
+        times[batch] = {"design": design, "ms": by_design[f"{design}_ms"],
+                        **by_design, "plain_ms": plain_ms,
                         "bound_ms": bound, "bound_by": bound_by,
                         "library_ms": library_ms,
                         "eager_launch_ms": eager_ms}
         del lib
         torch.cuda.empty_cache()
     say("kernel_time_paged_attention", **times)
-    return {
-        "name": "ragged_paged_attention", "route": "cuda",
-        "source": "megatron_llm_tpu_torch/csrc/paged_attention.cu",
-        "replaces": "megatron_llm_tpu/ops/prefill_attention.py:135",
-        "max_abs_err": max(errs.values()), **times["decode"],
-        "shape": "decode round: 8 slots C1 g32 qpk1 d128 page64 bf16 "
-                 "(attended lengths 1,63,64,65,700,2047,idle,1500)",
-        "mixed": dict(times["mixed"], shape="mixed round: C256, chunks "
-                      "256@0 and 100@700, 6 decode rows"),
-    }
+    shapes = {"decode": "decode round: 8 slots C1 g32 qpk1 d128 page64 bf16 "
+                        "(attended lengths 1,63,64,65,700,2047,idle,1500)",
+              "mixed": "mixed round: C256, chunks 256@0 and 100@700, 6 "
+                       "decode rows"}
+    rows = []
+    for design, name, src, main, other in (
+            ("present", "ragged_paged_attention", "paged_attention.cu",
+             "decode", "mixed"),
+            ("tc", "ragged_paged_attention_tc", "paged_attention_tc.cu",
+             "mixed", "decode")):
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": f"megatron_llm_tpu_torch/csrc/{src}",
+            "replaces": "megatron_llm_tpu/ops/prefill_attention.py:135",
+            "max_abs_err": max(v for k, v in errs.items()
+                               if k.endswith(design)),
+            **times[main], "design": design,
+            "ms": times[main][f"{design}_ms"],
+            "shape": shapes[main],
+            other: dict(times[other], ms=times[other][f"{design}_ms"],
+                        shape=shapes[other]),
+            "launches_by_path": {}, "launches": 0})
+    return rows
 
 
 def _sdpa(sdpa, args):
@@ -729,9 +794,11 @@ def check_paged_variants(k7_row):
     mixed batch: int8 pools, a binding window of 1024, a covering window
     (bitwise the fp launch), int8 with the window, and three packed
     documents over one slot's pages, each against its plain version
-    (bf16 output, fp32 accumulation, max-abs 2e-2 as for K4); NaN below
-    each chunk's floor must not reach the output. Then each variant's
-    time beside its bound, plain version and library call."""
+    (bf16 output, fp32 accumulation, max-abs 2e-2 as for K4) in the
+    design `paged_design` picks (bf16 pools: tc for the mixed rounds);
+    NaN below each chunk's floor must not reach the output. Then each
+    variant's time beside its bound, plain version and library call, and
+    for bf16 pools both designs' times."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     g, qpk, d = 32, 1, 128
     errs = {}
@@ -769,6 +836,11 @@ def check_paged_variants(k7_row):
                     for _ in range(4)]
             pick = rotating(lambda i: sets[i], 4)
             kernel_ms = device_ms(lambda: _launch(pa.paged_attention, pick()))
+            by_design = {}
+            if not K7_VARIANTS[variant][0]:
+                by_design = {f"{dn}_ms": device_ms(lambda: _launch(
+                    pa.paged_attention, pick(), design=dn))
+                    for dn in ("tc", "present")}
             plain_ms = device_ms(
                 lambda: _launch(pa._xla_paged_reference, pick()),
                 per_graph=10, replays=5)
@@ -778,7 +850,11 @@ def check_paged_variants(k7_row):
                 library_ms = device_ms(lambda: _sdpa(sdpa, lib()))
                 del lib
             bound, bound_by = variant_bound_ms(*sets[0])
-            times[batch] = {"ms": kernel_ms, "plain_ms": plain_ms,
+            q0, kp0 = sets[0][0][:2]
+            times[batch] = {"ms": kernel_ms, **by_design,
+                            "design": pa.paged_design(q0.dtype, kp0.dtype,
+                                                      PAGE),
+                            "plain_ms": plain_ms,
                             "bound_ms": bound, "bound_by": bound_by,
                             "library_ms": library_ms}
             del sets
@@ -794,9 +870,9 @@ def check_paged_variants(k7_row):
         "pages, decode rows at 699/1499/2047 and 256-token chunks")
 
 
-def _launch(fn, inputs):
+def _launch(fn, inputs, **extra):
     args, kw = inputs
-    return fn(*args, **kw)
+    return fn(*args, **kw, **extra)
 
 
 # ---------------------------------------------------------------------------
@@ -1149,9 +1225,11 @@ def check_outputs(traffic, run, tok):
     return generated, scored
 
 
-def check_paged_launches(cfg, run, label, variant=None):
+def check_paged_launches(cfg, run, label, variant=None, tc=True):
     """K7 ran once per layer per paged forward (under `variant` every
-    time, when given), K2 ran, K1 and K4 did not."""
+    time, when given), every launch in the tc design when `tc` (bf16
+    pools of page 64) and in the present design otherwise (int8 pools);
+    K2 ran, K1 and K4 did not."""
     k7 = run["launches"]["ragged_paged_attention"]
     check(k7 == cfg.num_layers * run["paged"] and k7 > 0,
           f"{label}: K7 launches {k7} != {cfg.num_layers} x {run['paged']} "
@@ -1159,21 +1237,30 @@ def check_paged_launches(cfg, run, label, variant=None):
     if variant is not None:
         check(run["variants"][variant] == k7,
               f"{label}: K7 {variant} launches {run['variants']}")
+    v = run["variants"]
+    check(v["tc" if tc else "present"] == k7, f"{label}: K7 designs {v}")
     check(run["launches"]["rmsnorm_fwd"] > 0, f"{label}: K2 did not run")
     check(run["launches"]["decode_attention"] == 0, f"{label}: K1 ran")
     check(run["launches"]["flash_fwd"] == 0, f"{label}: K4 ran")
 
 
+K7_ROWS = {"ragged_paged_attention": "present",
+           "ragged_paged_attention_tc": "tc"}
+
+
 def note_launches(kernels, path, run):
-    """Add one engine path's launches to the K2 and K7 rows."""
+    """Add one engine path's launches to the K2 row and to K7's two rows,
+    each design's launches to its own row, and the path's launches by
+    variant and design to the present design's row."""
     for row in kernels:
         if row["name"] == "rmsnorm_fwd":
             row["launches_by_path"][path] = run["launches"]["rmsnorm_fwd"]
             row["launches"] = sum(row["launches_by_path"].values())
-        if row["name"] == "ragged_paged_attention":
-            paths = row.setdefault("launches_by_path", {})
-            paths[path] = run["launches"]["ragged_paged_attention"]
-            row["launches"] = sum(paths.values())
+        design = K7_ROWS.get(row["name"])
+        if design is not None:
+            row["launches_by_path"][path] = run["variants"][design]
+            row["launches"] = sum(row["launches_by_path"].values())
+        if design == "present":
             row.setdefault("variant_launches_by_path", {})[path] = {
                 k: v for k, v in run["variants"].items() if v}
 
@@ -1237,6 +1324,50 @@ def decode_step_device_ms(model, eng):
             lambda: model.forward(eng._dec_params, tok1, kv_caches=caches,
                                   position_ids=lens.long()[:, None]),
             per_graph=4, replays=5)
+
+
+def mixed_round_device_ms(model, eng, calls=3):
+    """The card's own time for one mixed round's paged forward on the
+    engine's pools and decode tree (the engine is stopped): the kernel
+    check's mixed batch (chunks 256@0 and 100@700, six decode rows, width
+    256), the CUDA kernels' time in a torch.profiler trace, in all and
+    K7's part, per forward."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    C, spans = PAGED_BATCHES["mixed"]
+    dev = eng._pools[0][0].device
+    n = eng.max_pages_per_slot
+    with torch.inference_mode():
+        pt = (1 + torch.arange(eng.slots * n, dtype=torch.int32,
+                               device=dev)).view(eng.slots, n)
+        lens = torch.tensor([s for s, _ in spans], dtype=torch.int32,
+                            device=dev)
+        clen = torch.tensor([k for _, k in spans], dtype=torch.int32,
+                            device=dev)
+        pools_k, pools_v, pools_ks, pools_vs = eng._pools
+        caches = {"k_pages_layers": pools_k, "v_pages_layers": pools_v,
+                  "page_table": pt, "lengths": lens, "chunk_lens": clen}
+        toks = torch.zeros(eng.slots, C, dtype=torch.long, device=dev)
+        pos = lens.long()[:, None] + torch.arange(C, device=dev)[None, :]
+
+        def forward():
+            model.forward(eng._dec_params, toks, kv_caches=dict(caches),
+                          position_ids=pos)
+        forward()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                forward()
+            torch.cuda.synchronize()
+    total = k7 = 0.0
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us = e.time_range.end - e.time_range.start
+            total += us
+            k7 += us if "paged_attn" in e.name else 0.0
+    return total / calls / 1e3, k7 / calls / 1e3
 
 
 def ms_per_advance(rounds):
@@ -1307,11 +1438,14 @@ def serve_engine(kernels, cfg, model, params, weight_bytes):
     mixed = [r for r in rounds if r["prefill_tokens"]]
     advance = ms_per_advance(rounds)
     step_ms = decode_step_device_ms(model, eng)
+    mixed_ms, mixed_k7_ms = mixed_round_device_ms(model, eng)
     say("throughput_engine", wall_s=run["wall"], generated_tokens=generated,
         generated_tokens_per_s=generated / run["wall"],
         decode_rounds=len(dec_rounds), decode_ms_per_advance=advance,
         mixed_rounds=len(mixed),
         mixed_round_ms=sum(r["ms"] for r in mixed) / max(len(mixed), 1),
+        mixed_forward_device_ms=mixed_ms or "not measured",
+        mixed_forward_k7_device_ms=mixed_k7_ms or "not measured",
         ttft_p50_ms=metrics["serve_ttft_p50_ms"],
         ttft_p95_ms=metrics["serve_ttft_p95_ms"],
         decode_step_device_ms=step_ms,
@@ -1338,7 +1472,7 @@ def serve_engine_int8(kernels, cfg, model, params, bf16):
     traffic = engine_traffic()
     run = drive_engine(eng, model, tok, params, traffic)
     generated, scored = check_outputs(traffic, run, tok)
-    check_paged_launches(cfg, run, "engine_int8", "int8")
+    check_paged_launches(cfg, run, "engine_int8", "int8", tc=False)
     metrics = run["metrics"]
     check(metrics["serve_kv_dtype"] == "int8", f"kv dtype {metrics}")
     check(metrics["serve_prefix_hits"] >= 1
@@ -1624,7 +1758,8 @@ def packed_docs_prefill(kernels, cfg, model, params):
         max_abs_logprob_err_vs_kernels_off=err_off,
         max_abs_logprob_err_vs_each_document_alone=err_alone,
         tol=PATH_LP_TOL)
-    check(k7 == cfg.num_layers and variants["doc"] == k7,
+    check(k7 == cfg.num_layers and variants["doc"] == k7
+          and variants["tc"] == k7,
           f"packed docs: K7 launches {launches} {variants}")
     check(err_off <= PATH_LP_TOL and err_alone <= PATH_LP_TOL,
           f"packed docs log-probs {err_off} {err_alone}")
@@ -1911,10 +2046,8 @@ def check_flash_kernels():
             "max_abs_err": err, "ms": ms[which], "plain_ms": plain_ms,
             "bound_ms": bounds[which][0], "bound_by": bounds[which][1],
             "library_ms": lib, "achieved_tflops": tflops[which],
-            "shape": label,
+            "shape": label, "design": "wgmma+tma",
         }
-        if which != "dq":
-            row["design"] = "wgmma+tma"
         if which != "fwd":
             row["plain_and_library_cover"] = "the whole backward (dq, dk, dv)"
         rows.append(row)
@@ -2152,7 +2285,7 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     build_kernels()
     kernels = [check_decode_kernel(), check_rmsnorm_kernel(),
-               check_paged_kernel()]
+               *check_paged_kernel()]
     check_paged_variants(kernels[2])
     kernels.append(check_rmsnorm_bwd_kernel(kernels[1]))
     kernels += check_flash_kernels()

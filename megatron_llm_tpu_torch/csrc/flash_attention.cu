@@ -33,7 +33,7 @@
 // point: 0.139 and 0.278 ms at 989 TFLOP/s. So the design is about
 // keeping the tensor cores fed.
 //
-// K4 and K6 (redesigned for Hopper) are warp-specialised: warpgroup 0 is
+// All three are warp-specialised: warpgroup 0 is
 // the producer, whose elected thread 0 issues every load as TMA
 // (`cp.async.bulk.tensor`, tensor maps built on the host) into
 // 128-byte-swizzled shared memory, completing on mbarriers; TMA's zero
@@ -46,6 +46,14 @@
 //       runs on the accumulator in registers; O += P V with A = bf16(P)
 //       re-packed from the accumulator into registers and B = V from
 //       shared memory MN-major (the transpose bit of a 16-bit wgmma).
+//   K5: a block owns 128 folded rows (64 at d 256), one consumer warpgroup
+//       per 64, with Q, dO, lse and delta loaded once; key tiles of 64 (K
+//       and V) stream through a 2-stage ring. S = Q K^T and dP = dO V^T
+//       from shared memory, K-major, in two commit groups: P is computed
+//       while dP's product runs; dS = P (dP - delta) is re-packed from the
+//       accumulator to bf16 registers and dQ += dS K reads K MN-major from
+//       the same stage (the transpose bit), so K lands in shared memory
+//       once and is never transposed there.
 //   K6: a block owns 128 keys (64 at d 256), one consumer warpgroup per 64,
 //       with K and V loaded once; row tiles of 64 (Q, dO, lse, delta)
 //       stream through a 2-stage ring. S^T = K Q^T and dP^T = V dO^T from
@@ -54,20 +62,19 @@
 //       product is a commit group waited for only when its result is
 //       needed: P^T is computed while dP^T runs, dS^T while dV's runs.
 // A 3- or 4-stage ring, and ping-pong ordering of the two consumer
-// warpgroups' products with named barriers, measured no faster on the H100
-// (PERF.md): what bounds both kernels now is each warpgroup's serial
-// issue, wait, softmax (ex2 on the SFU), issue, wait per tile.
+// warpgroups' products with named barriers, measured no faster for K4 and
+// K6 on the H100 (PERF.md): what bounds them now is each warpgroup's
+// serial issue, wait, softmax (ex2 on the SFU), issue, wait per tile. K5
+// has the same shape, with three products a tile where K6 has four: its
+// S and dP accumulators (32 registers each at 64 keys) and dQ's (64) fit
+// the 240 registers setmaxnreg gives a consumer; 128-key tiles would not.
 // No operand is transposed in shared memory. Causal blocks never load the
 // tiles above the diagonal; a warp masks only tiles that straddle its
 // diagonal or the ragged edge (the TPU kernel's `split_diag`, JAX
 // :281-300), the rest run a maskless branch. Blocks are launched heaviest
-// first (K4: the last row blocks; K6: the first key blocks) so the causal
-// triangle leaves no tail of idle SMs. Output columns are split into
-// chunks of 128 (a grid axis) at d 256 to bound the accumulators.
-//
-// K5 keeps its first design: one block of 4 warps owns 64 rows, loops over
-// key tiles of 64 staged in shared memory (rows padded by 16 bytes),
-// mma.sync.m16n8k16 products, K transposed once per tile in shared memory.
+// first (K4, K5: the last row blocks; K6: the first key blocks) so the
+// causal triangle leaves no tail of idle SMs. Output columns are split into chunks of 128 (a
+// grid axis) at d 256 to bound the accumulators.
 //
 // Every output element is written by exactly one block, from registers:
 // no atomics, so two runs give the same bits. The kernels launch on the
@@ -86,87 +93,15 @@ typedef __nv_bfloat16 bf16;
 constexpr float NEG_INF = -1e30f;  // the TPU kernels' finite mask value
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr float LN2 = 0.6931471805599453f;
-constexpr int NT = 128;  // threads per block: 4 warps
+constexpr int ST = 2;  // stages of the TMA ring
 
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         const uint32_t* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-__device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-// A operand: the 16x16 tile at p, row-major with leading dimension ld.
-__device__ __forceinline__ void load_a(uint32_t* a, const bf16* p, int ld,
-                                       int g, int tg) {
-  a[0] = ld32(p + g * ld + 2 * tg);
-  a[1] = ld32(p + (g + 8) * ld + 2 * tg);
-  a[2] = ld32(p + g * ld + 2 * tg + 8);
-  a[3] = ld32(p + (g + 8) * ld + 2 * tg + 8);
-}
-
-// B operand (16 deep, 8 wide): stored n-major, row n of the tile at p
-// holding its 16 k values contiguously.
-__device__ __forceinline__ void load_b(uint32_t* b, const bf16* p, int ld,
-                                       int g, int tg) {
-  b[0] = ld32(p + g * ld + 2 * tg);
-  b[1] = ld32(p + g * ld + 2 * tg + 8);
-}
-
-// The C fragments of two adjacent 8-wide tiles, rounded to bf16, as the A
-// operand of the next product (16 rows x 16 deep).
-__device__ __forceinline__ void c_to_a(uint32_t* a, const float* c0,
-                                       const float* c1) {
-  a[0] = pack(c0[0], c0[1]);
-  a[1] = pack(c0[2], c0[3]);
-  a[2] = pack(c1[0], c1[1]);
-  a[3] = pack(c1[2], c1[3]);
-}
-
-// Rows [r0, r0 + nrows) and columns [c0, c0 + ncols) of a (rows, D)
-// row-major matrix into dst (leading dimension ldd), zero past either edge.
-__device__ __forceinline__ void load_tile(bf16* dst, int ldd, const bf16* src,
-                                          int r0, int nrows, int rows, int D,
-                                          int c0, int ncols) {
-  const int cpr = ncols / 8;
-  for (int i = threadIdx.x; i < nrows * cpr; i += NT) {
-    const int r = i / cpr, c = (i % cpr) * 8;
-    uint4 v = make_uint4(0u, 0u, 0u, 0u);
-    if (r0 + r < rows && c0 + c < D)
-      v = *reinterpret_cast<const uint4*>(src + (size_t)(r0 + r) * D + c0 + c);
-    *reinterpret_cast<uint4*>(dst + r * ldd + c) = v;
-  }
-}
-
-// dst[c][r] = src[r][c0 + c] for r < nrows, c < ncols (shared to shared).
-__device__ __forceinline__ void transpose_tile(bf16* dst, int ldt,
-                                               const bf16* src, int lds,
-                                               int nrows, int c0, int ncols) {
-  for (int i = threadIdx.x; i < nrows * ncols; i += NT) {
-    const int r = i % nrows, c = i / nrows;
-    dst[c * ldt + r] = src[r * lds + c0 + c];
-  }
-}
-
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
+using hopper::align1024;
+using hopper::c_to_a;
+using hopper::k_slice;
+using hopper::mma_rs;
+using hopper::mma_ss;
+using hopper::quad_max;
+using hopper::quad_sum;
 
 // Stores two adjacent fp32 values of row `row` at column `col` (even) as bf16.
 __device__ __forceinline__ void store2(bf16* dst, int row, int rows, int col,
@@ -174,43 +109,6 @@ __device__ __forceinline__ void store2(bf16* dst, int row, int rows, int col,
   if (row < rows && col < D)
     *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)row * D + col) =
         __floats2bfloat162_rn(x, y);
-}
-
-// ---------------------------------------------------------------------------
-// Shared pieces of K4 and K6
-// ---------------------------------------------------------------------------
-
-constexpr int ST = 2;  // stages of the TMA ring
-
-// The dynamic shared memory rounded up to the 1024-byte boundary that the
-// 128-byte swizzle's atoms need.
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return p + ((1024u - (hopper::smem_u32(p) & 1023u)) & 1023u);
-}
-
-// D (64 x N) += A B^T, both from shared memory, K-major.
-template <int N>
-__device__ __forceinline__ void mma_ss(float* d, uint64_t da, uint64_t db) {
-  if constexpr (N == 64) hopper::wgmma_ss_n64(d, da, db);
-  else hopper::wgmma_ss_n128(d, da, db);
-}
-
-// D (64 x N) += A (registers) B (shared memory, MN-major, panels of 64
-// columns `panel_bytes` apart).
-template <int N>
-__device__ __forceinline__ void mma_rs(float* d, const uint32_t* a,
-                                       const bf16* b, uint32_t panel_bytes) {
-  const uint64_t db = hopper::desc_mn_major(b, panel_bytes);
-  if constexpr (N == 64) hopper::wgmma_rs_n64(d, a, db);
-  else hopper::wgmma_rs_n128(d, a, db);
-}
-
-// The 16-deep slice kk of a K-major operand whose rows start at `rows`
-// inside panels of `panel_rows` rows (64 columns each).
-__device__ __forceinline__ uint64_t k_slice(const bf16* rows, int panel_rows,
-                                            int kk) {
-  return hopper::desc_k_major(rows + (kk >> 2) * panel_rows * 64
-                              + (kk & 3) * 16);
 }
 
 // ---------------------------------------------------------------------------
@@ -407,109 +305,198 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
 }
 
 // ---------------------------------------------------------------------------
-// K5: dq. Grid (ceil(R / 64), BG, D chunks); warp w owns 16 rows.
+// K5: dq. Grid (row blocks * BG, D chunks), heaviest row blocks first; the
+// producer warpgroup, then NWG consumers of 64 rows each; the block walks
+// key tiles of 64.
 // ---------------------------------------------------------------------------
 
-template <int DP, int DC>
-__global__ void __launch_bounds__(NT)
-flash_bwd_dq_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
-                    const float* __restrict__ lse,
-                    const float* __restrict__ delta, bf16* __restrict__ dq,
-                    int R, int T, int D, int qpk, int causal,
-                    float scale_log2, float sm_scale) {
-  constexpr int BM = 64, BN = 64, LDQ = DP + 8, LDT = BN + 8;
-  extern __shared__ __align__(16) unsigned char smem[];
-  bf16* Qs = reinterpret_cast<bf16*>(smem);  // [BM][LDQ]
-  bf16* dOs = Qs + BM * LDQ;                 // [BM][LDQ]
-  bf16* Ks = dOs + BM * LDQ;                 // [BN][LDQ]
-  bf16* Vs = Ks + BN * LDQ;                  // [BN][LDQ]
-  bf16* Kt = Vs + BN * LDQ;                  // [DC][LDT]
+template <int DP_, int NWG_, int DC_>
+struct DqLayout {
+  static constexpr int DP = DP_, NWG = NWG_, DC = DC_, BM = 64 * NWG, BN = 64;
+  static constexpr uint32_t ROW_BYTES = BM * DP * 2;  // Q, then dO
+  static constexpr uint32_t TILE_BYTES = BN * DP * 2;  // K, then V
+  static constexpr uint32_t STAGE_BYTES = 2 * TILE_BYTES;
+  static constexpr uint32_t VEC_BYTES = 2 * BM * 4;  // lse, then delta
+  static constexpr size_t SMEM = 1024 + 2 * ROW_BYTES + ST * STAGE_BYTES
+                                 + VEC_BYTES + 8 * (1 + 2 * ST);
+};
 
-  const int m0 = blockIdx.x * BM, bg = blockIdx.y, c0 = blockIdx.z * DC;
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, tg = lane & 3;
-  const size_t qoff = (size_t)bg * R * D, koff = (size_t)bg * T * D;
+template <int DP, int NWG, int DC>
+__global__ void __launch_bounds__(128 * (NWG + 1), 1)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo,
+                    const __grid_constant__ CUtensorMap tlse,
+                    const __grid_constant__ CUtensorMap tdelta,
+                    bf16* __restrict__ dq, int BG, int R, int T, int D,
+                    int qpk, int causal, float scale_log2, float sm_scale) {
+  using L = DqLayout<DP, NWG, DC>;
+  constexpr int BM = L::BM, BN = L::BN;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  bf16* dOs = Qs + BM * DP;
+  unsigned char* ring = smem + 2 * L::ROW_BYTES;
+  float* vec = reinterpret_cast<float*>(ring + ST * L::STAGE_BYTES);
+  uint64_t* q_bar = reinterpret_cast<uint64_t*>(vec + 2 * BM);
+  uint64_t* full = q_bar + 1;
+  uint64_t* empty = full + ST;
 
-  load_tile(Qs, LDQ, q + qoff, m0, BM, R, D, 0, DP);
-  load_tile(dOs, LDQ, dout + qoff, m0, BM, R, D, 0, DP);
+  const int nm = (R + BM - 1) / BM;
+  const int mb = causal ? nm - 1 - (int)(blockIdx.x / BG) : blockIdx.x / BG;
+  const int bg = blockIdx.x % BG;
+  const int m0 = mb * BM, c0 = blockIdx.y * DC;
   const int last = min(m0 + BM, R) - 1;
   const int kend = causal ? min(T, last / qpk + 1) : T;
-  const int ra = m0 + warp * 16 + g, rb = ra + 8;
-  const int pa = ra / qpk, pb = rb / qpk;
-  const float lse_a = ra < R ? lse[(size_t)bg * R + ra] * LOG2E : 0.f;
-  const float lse_b = rb < R ? lse[(size_t)bg * R + rb] * LOG2E : 0.f;
-  const float dl_a = ra < R ? delta[(size_t)bg * R + ra] : 0.f;
-  const float dl_b = rb < R ? delta[(size_t)bg * R + rb] : 0.f;
+  const int ntiles = (kend + BN - 1) / BN;
 
-  float acc[DC / 8][4];
-#pragma unroll
-  for (int i = 0; i < DC / 8; ++i)
-    acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
-
-  for (int n0 = 0; n0 < kend; n0 += BN) {
-    __syncthreads();
-    load_tile(Ks, LDQ, k + koff, n0, BN, T, D, 0, DP);
-    load_tile(Vs, LDQ, v + koff, n0, BN, T, D, 0, DP);
-    __syncthreads();
-    transpose_tile(Kt, LDT, Ks, LDQ, BN, c0, DC);
-    __syncthreads();
-
-    float s[BN / 8][4], dp[BN / 8][4];
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-      s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
-      dp[j][0] = dp[j][1] = dp[j][2] = dp[j][3] = 0.f;
+  if (threadIdx.x == 0) {
+    hopper::mbar_init(q_bar, 1);
+    for (int s = 0; s < ST; ++s) {
+      hopper::mbar_init(&full[s], 1);
+      hopper::mbar_init(&empty[s], 128 * NWG);  // every consumer thread
     }
-#pragma unroll
-    for (int kk = 0; kk < DP; kk += 16) {
-      uint32_t aq[4], ad[4];
-      load_a(aq, Qs + warp * 16 * LDQ + kk, LDQ, g, tg);
-      load_a(ad, dOs + warp * 16 * LDQ + kk, LDQ, g, tg);
-#pragma unroll
-      for (int j = 0; j < BN / 8; ++j) {
-        uint32_t b[2];
-        load_b(b, Ks + j * 8 * LDQ + kk, LDQ, g, tg);
-        mma_bf16(s[j], aq, b);
-        load_b(b, Vs + j * 8 * LDQ + kk, LDQ, g, tg);
-        mma_bf16(dp[j], ad, b);
-      }
-    }
-    // ds = p * (dp - delta), p = exp2(s - lse * log2e); masked p = 0
-#pragma unroll
-    for (int j = 0; j < BN / 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        const int col = n0 + j * 8 + 2 * tg + e;
-        const bool ok = col < T;
-        const float p_a = (ok && (!causal || col <= pa))
-            ? exp2f(s[j][e] * scale_log2 - lse_a) : 0.f;
-        const float p_b = (ok && (!causal || col <= pb))
-            ? exp2f(s[j][2 + e] * scale_log2 - lse_b) : 0.f;
-        s[j][e] = p_a * (dp[j][e] - dl_a);
-        s[j][2 + e] = p_b * (dp[j][2 + e] - dl_b);
-      }
-    }
-    // dq += bf16(ds) K
-#pragma unroll
-    for (int kk = 0; kk < BN / 16; ++kk) {
-      uint32_t a[4];
-      c_to_a(a, s[2 * kk], s[2 * kk + 1]);
-#pragma unroll
-      for (int i = 0; i < DC / 8; ++i) {
-        uint32_t b[2];
-        load_b(b, Kt + i * 8 * LDT + kk * 16, LDT, g, tg);
-        mma_bf16(acc[i], a, b);
-      }
-    }
+    hopper::mbar_init_fence();
   }
+  __syncthreads();
 
-  bf16* dqb = dq + qoff;
+  if (threadIdx.x < 128) {
+    // producer: thread 0 issues every load
+    if constexpr (NWG == 2) hopper::setmaxnreg_dec<24>();
+    if (threadIdx.x == 0) {
+      hopper::mbar_expect_tx(q_bar, 2 * L::ROW_BYTES + L::VEC_BYTES);
+      for (int p = 0; p < DP / 64; ++p) {
+        hopper::tma_load_3d(Qs + p * BM * 64, &tq, q_bar, 64 * p, m0, bg);
+        hopper::tma_load_3d(dOs + p * BM * 64, &tdo, q_bar, 64 * p, m0, bg);
+      }
+      hopper::tma_load_2d(vec, &tlse, q_bar, m0, bg);
+      hopper::tma_load_2d(vec + BM, &tdelta, q_bar, m0, bg);
+      for (int i = 0; i < ntiles; ++i) {
+        const int s = i % ST, n = i / ST;
+        if (n > 0) hopper::mbar_wait(&empty[s], (n - 1) & 1);
+        bf16* Ks = reinterpret_cast<bf16*>(ring + s * L::STAGE_BYTES);
+        bf16* Vs = Ks + BN * DP;
+        hopper::mbar_expect_tx(&full[s], L::STAGE_BYTES);
+        for (int p = 0; p < DP / 64; ++p) {
+          hopper::tma_load_3d(Ks + p * BN * 64, &tk, &full[s], 64 * p,
+                              i * BN, bg);
+          hopper::tma_load_3d(Vs + p * BN * 64, &tv, &full[s], 64 * p,
+                              i * BN, bg);
+        }
+      }
+    }
+  } else {
+    if constexpr (NWG == 2) hopper::setmaxnreg_inc<240>();
+    const int cw = threadIdx.x / 128 - 1, t = threadIdx.x & 127;
+    const int warp = t >> 5, lane = t & 31, g = lane >> 2, tg = lane & 3;
+    const int w0 = m0 + cw * 64;  // this warpgroup's first row
+    const int ra = w0 + warp * 16 + g, rb = ra + 8;
+    const int pa = ra / qpk, pb = rb / qpk;
+    // key tiles this warpgroup's rows reach (the block's other warpgroup
+    // may reach more)
+    const int wtiles =
+        w0 >= R ? 0
+                : causal ? (min(T, min(w0 + 63, R - 1) / qpk + 1) + BN - 1) / BN
+                         : ntiles;
+    // keys below `clean` are visible to every row of this warp
+    const int clean = causal ? min(T, (w0 + warp * 16) / qpk + 1) : T;
+    const bf16* Qw = Qs + cw * 64 * 64;
+    const bf16* dOw = dOs + cw * 64 * 64;
+
+    float acc[DC / 2];
 #pragma unroll
-  for (int i = 0; i < DC / 8; ++i) {
-    const int col = c0 + i * 8 + 2 * tg;
-    store2(dqb, ra, R, col, D, acc[i][0] * sm_scale, acc[i][1] * sm_scale);
-    store2(dqb, rb, R, col, D, acc[i][2] * sm_scale, acc[i][3] * sm_scale);
+    for (int i = 0; i < DC / 2; ++i) acc[i] = 0.f;
+
+    hopper::mbar_wait(q_bar, 0);
+    // rows past R read TMA's zero fill; their dq is never stored
+    const float lse_a = vec[ra - m0] * LOG2E, lse_b = vec[rb - m0] * LOG2E;
+    const float dl_a = vec[BM + ra - m0], dl_b = vec[BM + rb - m0];
+    for (int i = 0; i < ntiles; ++i) {
+      const int s = i % ST;
+      hopper::mbar_wait(&full[s], (i / ST) & 1);
+      if (i < wtiles) {
+        const bf16* Ks = reinterpret_cast<const bf16*>(ring + s * L::STAGE_BYTES);
+        const bf16* Vs = Ks + BN * DP;
+        // S = Q K^T and dP = dO V^T, 64 rows x 64 keys, in two groups: P is
+        // computed while dP's product runs
+        float sc[32], dp[32];
+#pragma unroll
+        for (int j = 0; j < 32; ++j) sc[j] = dp[j] = 0.f;
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)
+          mma_ss<64>(sc, k_slice(Qw, BM, kk), k_slice(Ks, BN, kk));
+        hopper::wgmma_commit();
+#pragma unroll
+        for (int kk = 0; kk < DP / 16; ++kk)
+          mma_ss<64>(dp, k_slice(dOw, BM, kk), k_slice(Vs, BN, kk));
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<1>();
+        hopper::fence_regs<32>(sc);
+
+        // p = exp2(s - lse log2e); 0 above the diagonal and past T, which
+        // only tiles straddling this warp's diagonal or T can hold
+        const int n0 = i * BN;
+        if (n0 + BN <= clean) {
+#pragma unroll
+          for (int j = 0; j < 32; j += 4) {
+            sc[j] = exp2f(sc[j] * scale_log2 - lse_a);
+            sc[j + 1] = exp2f(sc[j + 1] * scale_log2 - lse_a);
+            sc[j + 2] = exp2f(sc[j + 2] * scale_log2 - lse_b);
+            sc[j + 3] = exp2f(sc[j + 3] * scale_log2 - lse_b);
+          }
+        } else {
+#pragma unroll
+          for (int j = 0; j < 8; ++j) {
+#pragma unroll
+            for (int e = 0; e < 2; ++e) {
+              const int col = n0 + j * 8 + 2 * tg + e;
+              const bool ok = col < T;
+              float& xa = sc[4 * j + e];
+              float& xb = sc[4 * j + 2 + e];
+              xa = (ok && (!causal || col <= pa))
+                  ? exp2f(xa * scale_log2 - lse_a) : 0.f;
+              xb = (ok && (!causal || col <= pb))
+                  ? exp2f(xb * scale_log2 - lse_b) : 0.f;
+            }
+          }
+        }
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs<32>(dp);
+        // dS = P (dP - delta), rounded to bf16 as the A of dQ += dS K
+#pragma unroll
+        for (int j = 0; j < 32; j += 4) {
+          dp[j] = sc[j] * (dp[j] - dl_a);
+          dp[j + 1] = sc[j + 1] * (dp[j + 1] - dl_a);
+          dp[j + 2] = sc[j + 2] * (dp[j + 2] - dl_b);
+          dp[j + 3] = sc[j + 3] * (dp[j + 3] - dl_b);
+        }
+        uint32_t as[4][4];
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          c_to_a(as[kk], dp + 8 * kk, dp + 8 * kk + 4);
+        const bf16* Kc = Ks + (c0 / 64) * BN * 64;  // this block's columns
+        hopper::wgmma_fence();
+#pragma unroll
+        for (int kk = 0; kk < 4; ++kk)
+          mma_rs<DC>(acc, as[kk], Kc + kk * 16 * 64, BN * 128);
+        hopper::wgmma_commit();
+        hopper::wgmma_wait<0>();
+        hopper::fence_regs<DC / 2>(acc);
+      }
+      hopper::mbar_arrive(&empty[s]);
+    }
+
+    bf16* dqb = dq + (size_t)bg * R * D;
+#pragma unroll
+    for (int i = 0; i < DC / 8; ++i) {
+      const int col = c0 + i * 8 + 2 * tg;
+      store2(dqb, ra, R, col, D, acc[4 * i] * sm_scale,
+             acc[4 * i + 1] * sm_scale);
+      store2(dqb, rb, R, col, D, acc[4 * i + 2] * sm_scale,
+             acc[4 * i + 3] * sm_scale);
+    }
   }
 }
 
@@ -718,10 +705,12 @@ int set_smem(K kernel, size_t bytes) {
 template <int DP>
 constexpr int chunk_cols() { return DP < 128 ? DP : 128; }
 
-// K4: key tiles of 128 (64 at d 256); K6: 128 keys a block (64 at d 256);
-// output columns in chunks of at most 128.
+// K4: key tiles of 128 (64 at d 256); K5: 128 rows a block, K6: 128 keys
+// a block (64 at d 256); output columns in chunks of at most 128.
 template <int DP>
 using FwdL = FwdLayout<DP, DP == 256 ? 64 : 128, chunk_cols<DP>()>;
+template <int DP>
+using DqL = DqLayout<DP, DP == 256 ? 1 : 2, chunk_cols<DP>()>;
 template <int DP>
 using DkvL = DkvLayout<DP, DP == 256 ? 1 : 2, chunk_cols<DP>()>;
 
@@ -753,20 +742,27 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int BG, int R,
               int T, int D, int qpk, int causal, float sm_scale,
               cudaStream_t s) {
-  constexpr int DC = chunk_cols<DP>();
-  const size_t smem = sizeof(bf16) * (4 * 64 * (DP + 8) + DC * (64 + 8));
-  auto kern = flash_bwd_dq_kernel<DP, DC>;
+  using L = DqL<DP>;
+  constexpr int NWG = L::NWG, DC = L::DC;
+  auto kern = flash_bwd_dq_kernel<DP, NWG, DC>;
   // once per instantiation: never inside a CUDA-graph capture after the
   // first (warm-up) launch
-  static const int err = set_smem(kern, smem);
+  static const int err = set_smem(kern, L::SMEM);
   if (err) return err;
-  dim3 grid((R + 63) / 64, BG, DP / DC);
-  kern<<<grid, NT, smem, s>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<const bf16*>(dout),
-      static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf16*>(dq), R, T, D, qpk, causal, sm_scale * LOG2E,
-      sm_scale);
+  CUtensorMap tq, tk, tv, tdo, tlse, tdelta;
+  int e = hopper::map_bf16_3d(&tq, q, D, R, BG, L::BM);
+  if (!e) e = hopper::map_bf16_3d(&tdo, dout, D, R, BG, L::BM);
+  if (!e) e = hopper::map_bf16_3d(&tk, k, D, T, BG, L::BN);
+  if (!e) e = hopper::map_bf16_3d(&tv, v, D, T, BG, L::BN);
+  // lse and delta rows padded to a multiple of 4 values by the wrapper
+  const int ld = (R + 3) / 4 * 4;
+  if (!e) e = hopper::map_f32_rows(&tlse, lse, R, BG, ld, L::BM);
+  if (!e) e = hopper::map_f32_rows(&tdelta, delta, R, BG, ld, L::BM);
+  if (e) return e;
+  dim3 grid((R + L::BM - 1) / L::BM * BG, DP / DC);
+  kern<<<grid, 128 * (NWG + 1), L::SMEM, s>>>(
+      tq, tk, tv, tdo, tlse, tdelta, static_cast<bf16*>(dq), BG, R, T, D,
+      qpk, causal, sm_scale * LOG2E, sm_scale);
   return (int)cudaGetLastError();
 }
 
@@ -804,30 +800,28 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
 }  // namespace
 
 // q, o, dout, dq: (BG, R, D) bf16; k, v, dk, dv: (BG, T, D) bf16; lse,
-// delta: (BG, R) fp32 (for K6 each group's row padded to a multiple of 4
-// values); all contiguous and 16-byte aligned. R = s * qpk.
+// delta: (BG, R) fp32 (for K5 and K6 each group's row padded to a multiple
+// of 4 values); all contiguous and 16-byte aligned. R = s * qpk.
 // The wrapper checks 8 <= D <= 256, D % 8 == 0, qpk >= 1. Each returns the
 // cudaError_t of its launch (or of building its tensor maps).
 
-// K4 and K6: d padded to a tile width of 64, 128 or 256
+// d padded to a tile width of 64, 128 or 256
 #define HOPPER_DISPATCH(FN, ...)                         \
   if (D <= 64) return FN<64>(__VA_ARGS__);               \
   if (D <= 128) return FN<128>(__VA_ARGS__);             \
   return FN<256>(__VA_ARGS__);
 
-// K5: d padded to 32, 64, 128 or 256
-#define FLASH_DISPATCH(FN, ...)                          \
-  if (D <= 32) return FN<32>(__VA_ARGS__);               \
-  if (D <= 64) return FN<64>(__VA_ARGS__);               \
-  if (D <= 128) return FN<128>(__VA_ARGS__);             \
-  return FN<256>(__VA_ARGS__);
+template <int DP>
+int smem_of(int kernel) {
+  if (kernel == 0) return (int)FwdL<DP>::SMEM;
+  if (kernel == 1) return (int)DkvL<DP>::SMEM;
+  return (int)DqL<DP>::SMEM;
+}
 
-// The dynamic shared memory of K4 (kernel 0) or K6 (kernel 1) at head size
-// D, for the build report.
+// The dynamic shared memory of K4 (kernel 0), K6 (kernel 1) or K5 (kernel
+// 2) at head size D, for the build report.
 extern "C" int flash_attention_smem(int kernel, int D) {
-  if (D <= 64) return kernel ? (int)DkvL<64>::SMEM : (int)FwdL<64>::SMEM;
-  if (D <= 128) return kernel ? (int)DkvL<128>::SMEM : (int)FwdL<128>::SMEM;
-  return kernel ? (int)DkvL<256>::SMEM : (int)FwdL<256>::SMEM;
+  HOPPER_DISPATCH(smem_of, kernel)
 }
 
 extern "C" int flash_attention_fwd(const void* q, const void* k,
@@ -846,8 +840,8 @@ extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       int qpk, int causal, float sm_scale,
                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  FLASH_DISPATCH(launch_dq, q, k, v, dout, lse, delta, dq, BG, R, T, D, qpk,
-                 causal, sm_scale, s)
+  HOPPER_DISPATCH(launch_dq, q, k, v, dout, lse, delta, dq, BG, R, T, D, qpk,
+                  causal, sm_scale, s)
 }
 
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,

@@ -1,8 +1,10 @@
 // Hopper (sm_90a) building blocks as inline PTX: shared-memory mbarriers,
 // TMA tile loads (cp.async.bulk.tensor), wgmma shared-memory descriptors
-// for 128-byte-swizzled tiles, the wgmma products the flash kernels issue,
-// and setmaxnreg. Host side: cuTensorMapEncodeTiled, looked up once through
-// the runtime's driver entry point so the library links without -lcuda.
+// for 128-byte-swizzled tiles, the wgmma products the flash and paged
+// attention kernels issue, the proxy fence and named barrier that hand
+// thread-written shared memory to wgmma, and setmaxnreg. Host side:
+// cuTensorMapEncodeTiled, looked up once through the runtime's driver
+// entry point so the library links without -lcuda.
 //
 // A tile that TMA loads with CU_TENSOR_MAP_SWIZZLE_128B is stored in
 // "panels" of 64 bf16 columns (128 bytes a row), each panel a run of rows
@@ -13,6 +15,7 @@
 #pragma once
 
 #include <cuda.h>
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -83,6 +86,21 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)),
          "r"(smem_u32(bar)), "r"(c0), "r"(c1)
       : "memory");
+}
+
+// --- shared memory written by threads, read by wgmma -------------------------
+
+// Makes this thread's generic-proxy shared-memory writes visible to the
+// async proxy (wgmma, TMA); the writers then meet at a barrier before any
+// of them issues the product that reads the data.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// Named barrier `id` (1..15; 0 is __syncthreads) over `n` threads, a
+// multiple of 32.
+__device__ __forceinline__ void named_bar_sync(int id, int n) {
+  asm volatile("bar.sync %0, %1;\n" :: "r"(id), "r"(n) : "memory");
 }
 
 // --- register hand-off between warpgroups -----------------------------------
@@ -251,6 +269,65 @@ __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint6
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+// --- operands and fragments of the attention kernels -------------------------
+
+// The dynamic shared memory rounded up to the 1024-byte boundary that the
+// 128-byte swizzle's atoms need.
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
+}
+
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// The C fragments of two adjacent 8-wide tiles, rounded to bf16, as the A
+// operand of the next product (16 rows x 16 deep).
+__device__ __forceinline__ void c_to_a(uint32_t* a, const float* c0,
+                                       const float* c1) {
+  a[0] = pack(c0[0], c0[1]);
+  a[1] = pack(c0[2], c0[3]);
+  a[2] = pack(c1[0], c1[1]);
+  a[3] = pack(c1[2], c1[3]);
+}
+
+// Max and sum over the 4 lanes that hold one accumulator row.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// The 16-deep slice kk of a K-major operand whose rows start at `rows`
+// inside panels of `panel_rows` rows (64 columns each).
+__device__ __forceinline__ uint64_t k_slice(const __nv_bfloat16* rows,
+                                            int panel_rows, int kk) {
+  return desc_k_major(rows + (kk >> 2) * panel_rows * 64 + (kk & 3) * 16);
+}
+
+// D (64 x N) += A B^T, both from shared memory, K-major.
+template <int N>
+__device__ __forceinline__ void mma_ss(float* d, uint64_t da, uint64_t db) {
+  if constexpr (N == 64) wgmma_ss_n64(d, da, db);
+  else wgmma_ss_n128(d, da, db);
+}
+
+// D (64 x N) += A (registers) B (shared memory, MN-major, panels of 64
+// columns `panel_bytes` apart).
+template <int N>
+__device__ __forceinline__ void mma_rs(float* d, const uint32_t* a,
+                                       const __nv_bfloat16* b,
+                                       uint32_t panel_bytes) {
+  const uint64_t db = desc_mn_major(b, panel_bytes);
+  if constexpr (N == 64) wgmma_rs_n64(d, a, db);
+  else wgmma_rs_n128(d, a, db);
+}
+
 // --- host: tensor maps ------------------------------------------------------
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
@@ -276,14 +353,16 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // A (n2, n1, n0) bf16 row-major tensor (n0 innermost, a multiple of 8) read
-// in boxes of 64 x `box1` elements, 128-byte swizzled, zero past every edge.
+// in boxes of 64 x `box1` x `box2` elements (box2 <= 256), 128-byte
+// swizzled, zero past every edge. A box lands as box1 * box2 rows of 128
+// bytes in the order (n2 outer, n1 inner).
 inline int map_bf16_3d(CUtensorMap* m, const void* ptr, int n0, int n1, int n2,
-                       int box1) {
+                       int box1, int box2 = 1) {
   const EncodeTiledFn enc = encode_tiled();
   if (!enc) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[3] = {(cuuint64_t)n0, (cuuint64_t)n1, (cuuint64_t)n2};
   const cuuint64_t strides[2] = {(cuuint64_t)n0 * 2, (cuuint64_t)n0 * n1 * 2};
-  const cuuint32_t box[3] = {64, (cuuint32_t)box1, 1};
+  const cuuint32_t box[3] = {64, (cuuint32_t)box1, (cuuint32_t)box2};
   const cuuint32_t step[3] = {1, 1, 1};
   return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
              dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,

@@ -1,9 +1,16 @@
 // Ragged paged attention for Hopper (sm_90a): the continuous-batching
-// engine's one attention, over per-layer page pools.
+// engine's one attention, over per-layer page pools; K7's "present"
+// design, on CUDA cores.
 //
 // Replaces the Pallas kernel `_paged_kernel` (megatron_llm_tpu/ops/
 // prefill_attention.py:135, launched by `_paged_pallas` at :369): fp and
 // int8 pools, and the sliding-window and packed-document lower bounds.
+// Since the tensor-core design (`paged_attention_tc.cu`) took bf16 q with
+// bf16 pools, this kernel serves what that design does not take: fp32
+// pools, int8 pools (its int8 epilogue), and bf16 pools whose page size
+// is not a multiple of 8; the wrapper's `paged_design` picks from dtypes
+// and page size alone. Every one of its instantiations stays reachable
+// (bf16 at other page sizes still needs each row count and head size).
 //
 // What it computes. Chunk c is chunk_lens[c] tokens of one slot at cache
 // positions starts[c] + t; its keys and values live in pool pages
@@ -40,7 +47,7 @@
 //     shape (qpk 8: ~1024). A chunk that starts deep in its slot reads
 //     its whole cache for few rows and stays bytes-bound.
 //
-// The simple design of this port:
+// The design:
 //   - one block per (q block of bq tokens, group, chunk); bq * qpk <= 16
 //     rows, so a block reads each K/V page once for all its rows and all
 //     qpk heads of the group (GQA folded). The grid comes from host
@@ -61,13 +68,15 @@
 //     of a mixed round (one valid row in a 16-row block) cost one row;
 //   - at the end the warps' (m, l, acc) states merge through shared
 //     memory in warp order (deterministic run to run).
-// What it leaves on the table: CUDA cores, not wgmma, for the two
-// products (prefill chunks run far below the operation bound); no
-// pipelining of the next tile's copy behind the current tile's math; no
-// split of a long cache over several blocks (a decode block walks all of
-// its slot's pages with 4 warps); each q block of a prefill chunk reads
-// the chunk's pages again (from L2 mostly); the int8 scales are read
-// one 4-byte word per key and group (a 32-byte sector each).
+// What it leaves on the table (the tensor-core design answers the first
+// four for bf16 pools): CUDA cores, not wgmma, for the two products
+// (prefill chunks run far below the operation bound); no pipelining of
+// the next tile's copy behind the current tile's math; blocks of at most
+// 16 folded rows, so qpk > 16 is refused; each q block of a prefill chunk
+// reads the chunk's pages again (from L2 mostly); no split of a long
+// cache over several blocks (a decode block walks all of its slot's pages
+// with 4 warps); the int8 scales are read one 4-byte word per key and
+// group (a 32-byte sector each).
 //
 // It launches on the caller's stream, allocates nothing, and returns the
 // cudaError_t of the launch.

@@ -6,9 +6,9 @@ Kernels K4 (forward), K5 (dq) and K6 (dk, dv), CUDA C++ for sm_90a
 ops/flash_attention.py:262, launched by `_flash_fwd_pallas` at :352),
 `_bwd_dq_kernel` (:388, launched at :566) and `_bwd_dkv_kernel` (:448,
 launched at :591). They are bound by their operations and run them on the
-tensor cores: K4 and K6 as warp-specialised wgmma kernels fed by TMA
-through an mbarrier ring (`csrc/hopper.cuh` holds the PTX), K5 on
-mma.sync tiles; the source note says how.
+tensor cores, all three as warp-specialised wgmma kernels fed by TMA
+through an mbarrier ring (`csrc/hopper.cuh` holds the PTX); the source
+note says how.
 
 Layout, as in the JAX package: q (b, s, g, qpk, d), k/v (b, t, g, d). The
 kernels take the TPU kernels' folded layout, q/o/dO as (b*g, s*qpk, d)
@@ -138,7 +138,7 @@ def _library(which: str):
     from megatron_llm_tpu_torch.ops._build import load_library
 
     lib = load_library("flash_attention.cu")
-    if which == "smem":  # K4's / K6's dynamic shared memory, for reports
+    if which == "smem":  # K4's / K6's / K5's dynamic shared memory
         fn = lib.flash_attention_smem
         fn.restype = ctypes.c_int
         fn.argtypes = [ctypes.c_int, ctypes.c_int]
@@ -201,8 +201,8 @@ def _check_aligned(*xs):
 
 def _rows4(x, bg, R):
     """(bg, R, 1) fp32 rows as (bg, R4) with R4 = R rounded up to a
-    multiple of 4 (K6 loads each group's lse and delta by TMA, whose boxes
-    start on 16-byte boundaries); the same tensor when R % 4 == 0."""
+    multiple of 4 (K5 and K6 load each group's lse and delta by TMA, whose
+    boxes start on 16-byte boundaries); the same tensor when R % 4 == 0."""
     if R % 4 == 0:
         return x
     out = x.new_zeros(bg, (R + 3) // 4 * 4)
@@ -233,10 +233,19 @@ def flash_fwd(qf, kf, vf, qpk: int, causal: bool):
     return of, lse
 
 
+def _check_rows4(bg, R, *rows):
+    if any(x.numel() != bg * ((R + 3) // 4 * 4) or not x.is_contiguous()
+           for x in rows):
+        raise ValueError("lse and delta must be contiguous fp32 rows padded "
+                         "to a multiple of 4 values (`_rows4`)")
+
+
 def flash_bwd_dq(qf, kf, vf, dof, lse, delta, qpk: int, causal: bool):
-    """Kernel K5 on the folded layout: dq (b*g, s*qpk, d)."""
+    """Kernel K5 on the folded layout: dq (b*g, s*qpk, d). lse and delta
+    are `_rows4` rows."""
     bg, R, d = qf.shape
     dq = torch.empty_like(qf)
+    _check_rows4(bg, R, lse, delta)
     _check_aligned(qf, kf, vf, dof, lse, delta)
     with torch.cuda.device(qf.device):
         err = _library("dq")(
@@ -250,10 +259,11 @@ def flash_bwd_dq(qf, kf, vf, dof, lse, delta, qpk: int, causal: bool):
 
 
 def flash_bwd_dkv(qf, kf, vf, dof, lse, delta, qpk: int, causal: bool):
-    """Kernel K6 on the folded layout: (dk, dv), each (b*g, t, d)."""
+    """Kernel K6 on the folded layout: (dk, dv), each (b*g, t, d). lse and
+    delta are `_rows4` rows."""
     bg, R, d = qf.shape
     dk, dv = torch.empty_like(kf), torch.empty_like(vf)
-    lse, delta = _rows4(lse, bg, R), _rows4(delta, bg, R)
+    _check_rows4(bg, R, lse, delta)
     _check_aligned(qf, kf, vf, dof, lse, delta)
     with torch.cuda.device(qf.device):
         err = _library("dkv")(
@@ -290,11 +300,12 @@ def _bwd(q, k, v, o, lse, do, causal, dlse_rows=None):
     _check(q, k, v)
     b, s, g, qpk, _ = q.shape
     # the layout copies (timed by chip_smoke.py): q, k, v and dO folded,
-    # delta in fp32 rows
-    delta = _delta_rows(o, do, dlse_rows).contiguous()
+    # delta in fp32 rows; lse and delta padded once for both kernels
+    bg, R = b * g, s * qpk
+    delta = _rows4(_delta_rows(o, do, dlse_rows).contiguous(), bg, R)
+    lse = _rows4(lse.contiguous(), bg, R)
     do = do.to(q.dtype)
     qf, kf, vf, dof = _fold_q(q), _fold_kv(k), _fold_kv(v), _fold_q(do)
-    lse = lse.contiguous()
     dq = flash_bwd_dq(qf, kf, vf, dof, lse, delta, qpk, causal)
     dk, dv = flash_bwd_dkv(qf, kf, vf, dof, lse, delta, qpk, causal)
     return (_unfold_q(dq, b, s, g, qpk), _unfold_kv(dk, b, g),

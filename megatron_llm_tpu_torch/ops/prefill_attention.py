@@ -21,14 +21,20 @@ Two parameterizations of the same function:
   doc_starts[c] <= starts[c]). Row r's first attendable position is
   row_lo = max(pos - W + 1, doc_starts[c], 0). W <= 0 means no window.
 
-Kernel K7, CUDA C++ for sm_90a (`csrc/paged_attention.cu`), replaces the
-Pallas `_paged_kernel` (JAX ops/prefill_attention.py:135, launched by
-`_paged_pallas` at :369), fp and int8 pools, window and doc floors. The
-source note says what bounds it on the H100 and what its simple design
-leaves on the table. `_xla_paged_reference` is its plain version
-(gather the pages into the dense view, then the `_xla_attend` core); it
-serves CPU tensors, and CUDA tensors when the model's `use_decode_attn`
-switch is off.
+Kernel K7, CUDA C++ for sm_90a, replaces the Pallas `_paged_kernel` (JAX
+ops/prefill_attention.py:135, launched by `_paged_pallas` at :369), fp
+and int8 pools, window and doc floors, in two designs that compute the
+same function:
+- "tc" (`csrc/paged_attention_tc.cu`): tiles of 64 folded rows on the
+  tensor cores, pages brought by TMA; bf16 q and pools whose page size is
+  a multiple of 8, any qpk, decode and mixed rounds;
+- "present" (`csrc/paged_attention.cu`): CUDA cores, at most 16 folded
+  rows a block; fp32 and int8 pools, and other page sizes.
+`paged_design` picks one from dtypes and shapes alone (never because a
+launch failed); each source note says what bounds its design on the H100.
+`_xla_paged_reference` is their plain version (gather the pages into the
+dense view, then the `_xla_attend` core); it serves CPU tensors, and
+CUDA tensors when the model's `use_decode_attn` switch is off.
 
 Output dtype with int8 pools: q's, in the kernel and in the plain
 version, as the Pallas kernel casts (`_paged_pallas` :382-383). The JAX
@@ -43,6 +49,8 @@ divided the chunk width. Those rules exist for Mosaic's tiling and the
 TPU's launch overhead. K7 takes any page size, any chunk width >= 1 and
 d % 8 == 0 up to 256 (d % 16 == 0 for int8 pools, for its 16-byte
 copies of int8 rows), so every CUDA launch with the switch on runs it.
+qpk > 16 needs the "tc" design (bf16 pools, page size a multiple of 8);
+the present design raises there.
 """
 
 from __future__ import annotations
@@ -180,12 +188,36 @@ def scatter_chunk_kv(k_new, v_new, k_pages, v_pages, page_table, starts,
     return k_pages, v_pages
 
 
-def _library():
+def paged_design(q_dtype, kv_dtype, page_size: int) -> str:
+    """The K7 design a launch runs, from dtypes and shapes alone: "tc" for
+    bf16 q and bf16 pools whose page size is a multiple of 8 (its TMA
+    segments fill whole 8-row swizzle atoms), at any qpk and chunk width;
+    "present" for fp32 or int8 pools and other page sizes."""
+    if (q_dtype == torch.bfloat16 and kv_dtype == torch.bfloat16
+            and page_size % 8 == 0):
+        return "tc"
+    return "present"
+
+
+def _library(design="present"):
     from megatron_llm_tpu_torch.ops._build import load_library
 
+    if design == "tc":
+        lib = load_library("paged_attention_tc.cu")
+        fn = lib.ragged_paged_attention_tc_fwd
+        if fn.argtypes is None:  # pointers must not pass as 32-bit ints
+            fn.restype = ctypes.c_int
+            fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+                           + [ctypes.c_float, ctypes.c_void_p])
+        return fn
+    if design == "smem":  # the "tc" kernel's dynamic shared memory
+        fn = load_library("paged_attention_tc.cu").paged_attention_tc_smem
+        fn.restype = ctypes.c_int
+        fn.argtypes = [ctypes.c_int]
+        return fn
     lib = load_library("paged_attention.cu")
     fn = lib.ragged_paged_attention_fwd
-    if fn.argtypes is None:  # pointers must not pass as 32-bit ints
+    if fn.argtypes is None:
         fn.restype = ctypes.c_int
         fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
@@ -194,7 +226,9 @@ def _library():
 
 
 def _check(q, k_pages, v_pages, page_table, starts, chunk_lens, k_scales,
-           v_scales, doc_starts):
+           v_scales, doc_starts, design):
+    """Raise on what `design`'s kernel does not take (shapes and dtypes
+    only: it reads no tensor)."""
     nc, C, g, qpk, d = q.shape
     int8 = k_pages.dtype == torch.int8
     kv_ok = v_pages.dtype == k_pages.dtype and (int8
@@ -209,9 +243,17 @@ def _check(q, k_pages, v_pages, page_table, starts, chunk_lens, k_scales,
     if int8 and d % 16:
         raise ValueError(f"paged kernel copies int8 rows 16 bytes at a "
                          f"time: int8 pools need d % 16 == 0, d={d}")
-    if not 1 <= qpk <= 16:
+    if qpk < 1 or (design == "present" and qpk > 16):
         raise ValueError(f"paged kernel serves 1..16 query heads per KV "
-                         f"group, qpk={qpk}")
+                         f"group with {k_pages.dtype} pools of page "
+                         f"{k_pages.shape[1]} (any qpk with bf16 q and "
+                         f"pools of a page that is a multiple of 8), "
+                         f"qpk={qpk}")
+    if design == "tc" and paged_design(q.dtype, k_pages.dtype,
+                                       k_pages.shape[1]) != "tc":
+        raise ValueError(f"the tc design takes bf16 q and pools and a page "
+                         f"size that is a multiple of 8, got {q.dtype}/"
+                         f"{k_pages.dtype}, page {k_pages.shape[1]}")
     if C < 1:
         raise ValueError(f"chunk width must be >= 1, C={C}")
     if k_pages.shape != v_pages.shape or k_pages.dim() != 4 \
@@ -267,42 +309,62 @@ def _ptr(x):
 
 def paged_attention(q, k_pages, v_pages, page_table, starts, chunk_lens,
                     k_scales=None, v_scales=None, window=None,
-                    doc_starts=None):
+                    doc_starts=None, design=None):
     """Attention half of the entry point, on pools that already hold the
-    chunk's own K/V. On a CUDA tensor it launches kernel K7 (or raises
-    on what it does not take); on a CPU tensor it runs the plain
-    `_xla_paged_reference`. The grid comes from host shapes only; the
-    pages each chunk needs are worked out on the card from `starts`,
-    `chunk_lens` and the floors, so nothing here waits for the card
-    (apart from the doc_starts check, when doc_starts is given). Each
-    launch adds one to `ragged_paged_attention.launches` and to its
-    variants in `ragged_paged_attention.variant_launches` ("fp" or
-    "int8", and "window" and "doc" when those bounds are on)."""
+    chunk's own K/V. On a CUDA tensor it launches kernel K7 in the design
+    `paged_design` picks (or raises on what it does not take); `design`
+    names one instead, to hold the two side by side on the same inputs.
+    On a CPU tensor it runs the plain `_xla_paged_reference`. The grid
+    comes from host shapes only; the pages each chunk needs are worked
+    out on the card from `starts`, `chunk_lens` and the floors, so
+    nothing here waits for the card (apart from the doc_starts check,
+    when doc_starts is given). Each launch adds one to
+    `ragged_paged_attention.launches` and to its variants in
+    `ragged_paged_attention.variant_launches` ("fp" or "int8", "window"
+    and "doc" when those bounds are on, and its design, "tc" or
+    "present")."""
     _check_doc_starts(doc_starts, starts)
     if q.device.type == "cpu":
         return _xla_paged_reference(q, k_pages, v_pages, page_table, starts,
                                     chunk_lens, k_scales, v_scales, window,
                                     doc_starts)
-    _check(q, k_pages, v_pages, page_table, starts, chunk_lens, k_scales,
-           v_scales, doc_starts)
     nc, C, g, qpk, d = q.shape
+    page_size = k_pages.shape[1]
+    if design is None:
+        design = paged_design(q.dtype, k_pages.dtype, page_size)
+    _check(q, k_pages, v_pages, page_table, starts, chunk_lens, k_scales,
+           v_scales, doc_starts, design)
     int8 = k_pages.dtype == torch.int8
     q = q.contiguous()
+    if design == "tc" and q.data_ptr() % 16:
+        raise ValueError("the tc design reads q 16 bytes at a time: q must "
+                         "be 16-byte aligned")
     out = torch.empty_like(q)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    scale_log2 = (1.0 / math.sqrt(d)) * LOG2E
     with torch.cuda.device(q.device):
-        err = _library()(
-            q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-            _ptr(k_scales), _ptr(v_scales), out.data_ptr(), page_table.data_ptr(), starts.data_ptr(),
-            chunk_lens.data_ptr(), _ptr(doc_starts),
-            nc, C, g, qpk, d, k_pages.shape[1], page_table.shape[1],
-            window or 0, (1.0 / math.sqrt(d)) * LOG2E, _DTYPE_CODE[q.dtype],
-            int(int8), torch.cuda.current_stream(q.device).cuda_stream,
-        )
+        if design == "tc":
+            err = _library("tc")(
+                q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                out.data_ptr(), page_table.data_ptr(), starts.data_ptr(),
+                chunk_lens.data_ptr(), _ptr(doc_starts), nc, C, g, qpk, d,
+                k_pages.shape[0], page_size, page_table.shape[1],
+                window or 0, scale_log2, stream)
+        else:
+            err = _library()(
+                q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                _ptr(k_scales), _ptr(v_scales), out.data_ptr(),
+                page_table.data_ptr(), starts.data_ptr(),
+                chunk_lens.data_ptr(), _ptr(doc_starts),
+                nc, C, g, qpk, d, page_size, page_table.shape[1],
+                window or 0, scale_log2, _DTYPE_CODE[q.dtype], int(int8),
+                stream)
     if err != 0:
-        raise RuntimeError(f"ragged paged attention kernel launch failed: "
-                           f"cudaError {err}")
+        raise RuntimeError(f"ragged paged attention kernel ({design}) "
+                           f"launch failed: cudaError {err}")
     counts = ragged_paged_attention.variant_launches
     ragged_paged_attention.launches += 1
+    counts[design] += 1
     counts["int8" if int8 else "fp"] += 1
     if window:
         counts["window"] += 1
@@ -353,4 +415,4 @@ def ragged_paged_attention(
 
 ragged_paged_attention.launches = 0
 ragged_paged_attention.variant_launches = {"fp": 0, "int8": 0, "window": 0,
-                                           "doc": 0}
+                                           "doc": 0, "tc": 0, "present": 0}

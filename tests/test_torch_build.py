@@ -71,3 +71,12 @@ def test_k6_rows_are_padded_to_whole_16_byte_units():
     assert fa._rows4(x, 2, 3).tolist() == [[0, 1, 2, 0], [3, 4, 5, 0]]
     whole = torch.ones(2, 4, 1)
     assert fa._rows4(whole, 2, 4) is whole
+
+
+def test_k5_and_k6_take_rows_padded_once():
+    """`_bwd` pads lse and delta once and hands the same rows to K5 and
+    K6; their wrappers refuse rows that were not padded."""
+    fa._check_rows4(2, 3, fa._rows4(torch.ones(2, 3, 1), 2, 3))
+    fa._check_rows4(2, 4, torch.ones(2, 4, 1))
+    with pytest.raises(ValueError, match="multiple of 4"):
+        fa._check_rows4(2, 3, torch.ones(2, 3, 1))

@@ -1,7 +1,8 @@
 """PyTorch port, the hand-written kernels on a CUDA card: decode attention
 (K1, CUDA C++), RMSNorm forward and backward (K2, K3, Triton), flash
 attention forward and backward (K4-K6, CUDA C++) and ragged paged
-attention (K7, CUDA C++; fp and int8 pools, window and document floors),
+attention (K7, CUDA C++; fp and int8 pools, window and document floors,
+in its two designs: "tc" on the tensor cores and "present"),
 each against its plain PyTorch version on the same inputs, and the
 decode, paged and training paths with the kernels on against the same
 paths with them off.
@@ -447,6 +448,161 @@ def test_paged_path_variants_kernels_on_matches_off(cuda, mode):
 
 
 # ---------------------------------------------------------------------------
+# K7's "tc" design: bf16 pools, tiles of 64 folded rows, pages by TMA
+# ---------------------------------------------------------------------------
+
+# (g, qpk, d, page): qpk 24 and 71 cut 64-row tiles across tokens; page 16
+# brings four pages a 64-position key tile, page 64 one, page 24 eight
+# segments of 8 positions, page 128 half a page
+TC_CASES = [(2, 1, 128, 64), (2, 8, 128, 16), (1, 24, 64, 16),
+            (2, 24, 128, 64), (1, 71, 64, 64), (1, 71, 128, 16),
+            (2, 8, 64, 24), (2, 1, 128, 128)]
+# floors that fall inside tiles: a window of 300 (mid-page at both page
+# sizes), document floors at two thirds of each start
+TC_FLOORS = {"none": {}, "window": {"window": 300}, "doc": {"doc": True}}
+
+
+def _tc_args(batch, g, qpk, d, page, floors, device, seed=0):
+    args = paged_batch(batch, g, qpk, d, torch.bfloat16, device, seed=seed,
+                       page=page, max_pages=-(-2048 // page))
+    st = args[4]
+    kw = {"window": floors.get("window"),
+          "doc_starts": (st - st // 3).contiguous() if floors.get("doc")
+          else None}
+    return args, kw
+
+
+@pytest.mark.parametrize("floors", sorted(TC_FLOORS))
+@pytest.mark.parametrize("g,qpk,d,page", TC_CASES)
+@pytest.mark.parametrize("batch", sorted(PAGED_BATCHES))
+def test_paged_tc_matches_plain(cuda, batch, g, qpk, d, page, floors):
+    """The tc design against the plain version on decode and mixed rounds
+    (bf16 tolerance as for the present design: both round p to bf16
+    before the PV product, the plain version after normalising); pad rows
+    exact zeros; the launch counted under "tc"."""
+    args, kw = _tc_args(batch, g, qpk, d, page, TC_FLOORS[floors], cuda,
+                        seed=qpk + page)
+    before = pa.ragged_paged_attention.variant_launches["tc"]
+    got = pa.paged_attention(*args, **kw, design="tc")
+    ref = pa._xla_paged_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert pa.ragged_paged_attention.variant_launches["tc"] == before + 1
+    assert got.dtype == torch.bfloat16 and got.shape == args[0].shape
+    assert torch.isfinite(got.float()).all()
+    assert _max_err(got, ref) <= 2e-2
+    pad = torch.arange(args[0].shape[1], device=cuda)[None, :] \
+        >= args[5][:, None]
+    assert (got[pad] == 0).all()
+
+
+@pytest.mark.parametrize("floors", ["window", "doc"])
+@pytest.mark.parametrize("page", [16, 64])
+@pytest.mark.parametrize("batch", sorted(PAGED_BATCHES))
+def test_paged_tc_reads_nothing_outside_each_chunks_reach(cuda, batch, page,
+                                                          floors):
+    """NaN at every position below each chunk's floor (table entries of
+    pages wholly below it reclaimed to the null page), at every owned
+    position at or past the chunk's end, in every page no chunk owns and
+    in the null page: the tc output is bitwise the clean one."""
+    args, kw = _tc_args(batch, 2, 24, 128, page, TC_FLOORS[floors], cuda)
+    clean = pa.paged_attention(*args, **kw, design="tc")
+    q, kp, vp, pt, st, ln = args
+    owned = torch.zeros(kp.shape[0], dtype=torch.bool, device=cuda)
+    owned[pt.long().flatten()] = True
+    owned[0] = False
+    kp[~owned] = float("nan")
+    vp[~owned] = float("nan")
+    for c in range(pt.shape[0]):
+        lo = max(int(st[c]) - kw["window"] + 1, 0) if kw["window"] else 0
+        if kw["doc_starts"] is not None:
+            lo = max(lo, int(kw["doc_starts"][c]))
+        end = int(st[c] + ln[c])
+        for pos in list(range(lo)) + list(range(end, pt.shape[1] * page)):
+            pg = int(pt[c, pos // page])
+            kp[pg, pos % page] = float("nan")
+            vp[pg, pos % page] = float("nan")
+        pt[c, :lo // page] = 0
+    kp[0] = float("nan")
+    vp[0] = float("nan")
+    dirty = pa.paged_attention(q, kp, vp, pt, st, ln, **kw, design="tc")
+    torch.cuda.synchronize()
+    assert torch.isfinite(dirty.float()).all()
+    assert torch.equal(dirty, clean)
+
+
+@pytest.mark.parametrize("batch", sorted(PAGED_BATCHES))
+def test_paged_tc_covering_window_is_bitwise_no_window(cuda, batch):
+    """On the tc design, W at or past every chunk's reach and doc_starts
+    all 0 launch bitwise the no-window kernel; two runs agree bitwise."""
+    args = paged_batch(batch, 2, 24, 128, torch.bfloat16, cuda)
+    base = pa.paged_attention(*args, design="tc")
+    assert torch.equal(pa.paged_attention(*args, design="tc"), base)
+    zeros = torch.zeros_like(args[4])
+    for kw in ({"window": 2048}, {"window": 1 << 20},
+               {"doc_starts": zeros}):
+        assert torch.equal(pa.paged_attention(*args, **kw, design="tc"),
+                           base), kw
+
+
+# (q dtype, pool dtype, batch, qpk, page) -> the design `paged_design` names
+DESIGN_RULES = [
+    (torch.bfloat16, torch.bfloat16, "mixed", 1, 64, "tc"),
+    (torch.bfloat16, torch.bfloat16, "mixed", 8, 16, "tc"),
+    (torch.bfloat16, torch.bfloat16, "decode", 1, 64, "tc"),
+    (torch.bfloat16, torch.bfloat16, "decode", 24, 128, "tc"),
+    (torch.bfloat16, torch.bfloat16, "mixed", 2, 24, "tc"),
+    (torch.bfloat16, torch.bfloat16, "mixed", 2, 12, "present"),
+    (torch.float32, torch.float32, "mixed", 2, 64, "present"),
+    (torch.bfloat16, torch.int8, "mixed", 2, 64, "present"),
+]
+
+
+@pytest.mark.parametrize("qd,kvd,batch,qpk,page,design", DESIGN_RULES)
+def test_paged_dispatch_runs_the_design_its_rule_names(cuda, qd, kvd, batch,
+                                                       qpk, page, design):
+    """Each launch runs, and is counted under, the design `paged_design`
+    names for its dtypes and shapes; the output holds the plain version."""
+    assert pa.paged_design(qd, kvd, page) == design
+    args = paged_batch(batch, 2, qpk, 64, qd, cuda, page=page,
+                       max_pages=-(-2048 // page))
+    kw = {}
+    if kvd == torch.int8:
+        q, kp, vp, pt, st, ln = args
+        (kp, ks), (vp, vs) = quantize_rows(kp), quantize_rows(vp)
+        args, kw = (q, kp, vp, pt, st, ln), dict(k_scales=ks, v_scales=vs)
+    before = dict(pa.ragged_paged_attention.variant_launches)
+    got = pa.paged_attention(*args, **kw)
+    ref = pa._xla_paged_reference(*args, **kw)
+    torch.cuda.synchronize()
+    after = pa.ragged_paged_attention.variant_launches
+    other = "present" if design == "tc" else "tc"
+    assert after[design] == before[design] + 1
+    assert after[other] == before[other]
+    assert _max_err(got, ref) <= (2e-2 if qd == torch.bfloat16 else 2e-5)
+
+
+def test_paged_kernel_takes_qpk_above_16_only_on_the_tc_design(cuda):
+    """bf16 pools at qpk 24 run; fp32 and int8 pools, bf16 pools of a
+    page the tc design does not take, and the present design named
+    outright, still raise above 16."""
+    args = paged_batch("decode", 1, 24, 64, torch.bfloat16, cuda)
+    pa.paged_attention(*args)
+    with pytest.raises(ValueError, match="qpk"):
+        pa.paged_attention(*args, design="present")
+    fp = paged_batch("decode", 1, 24, 64, torch.float32, cuda)
+    with pytest.raises(ValueError, match="qpk"):
+        pa.paged_attention(*fp)
+    odd = paged_batch("decode", 1, 24, 64, torch.bfloat16, cuda, page=12,
+                      max_pages=171)
+    with pytest.raises(ValueError, match="qpk"):
+        pa.paged_attention(*odd)
+    q, kp, vp, pt, st, ln = args
+    (kq, ks), (vq, vs) = quantize_rows(kp), quantize_rows(vp)
+    with pytest.raises(ValueError, match="qpk"):
+        pa.paged_attention(q, kq, vq, pt, st, ln, ks, vs)
+
+
+# ---------------------------------------------------------------------------
 # K4-K6: flash attention forward and backward (bf16 only: fp32 raises)
 # ---------------------------------------------------------------------------
 
@@ -541,6 +697,21 @@ def test_flash_backward_is_deterministic(cuda):
     o, lse = fa._fwd(q, k, v, True)
     a = fa._bwd(q, k, v, o, lse, do, True)
     b = fa._bwd(q, k, v, o, lse, do, True)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("g,qpk,d,s,t,causal", FLASH_SHAPES)
+def test_flash_backward_is_bitwise_repeatable_on_every_shape(
+        cuda, g, qpk, d, s, t, causal):
+    """K5 and K6 write each gradient row once, from registers: two
+    backward runs agree bitwise on every shape."""
+    from megatron_llm_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = _flash_inputs(g, qpk, d, s, t, cuda, seed=d + s + 1)
+    o, lse = fa._fwd(q, k, v, causal)
+    a = fa._bwd(q, k, v, o, lse, do, causal)
+    b = fa._bwd(q, k, v, o, lse, do, causal)
     for x, y in zip(a, b):
         assert torch.equal(x, y)
 

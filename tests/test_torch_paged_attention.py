@@ -4,9 +4,11 @@ port's plain version against JAX `ragged_paged_attention` run two ways,
 the real Pallas kernel under the interpreter and its XLA twin, on mixed
 batches of decode rows, prefill chunks, idle chunks, a chunk whose start
 is not page-aligned and one that crosses pages, with fp and int8 pools
-and with the window (off, binding, covering) and document floors;
-`scatter_chunk_kv` on its own (int8: bitwise); the null-page contract
-and the columns below each chunk's floor; the refusals."""
+and with the window (off, binding, covering) and document floors, and at
+qpk above 16 (24, and Falcon-7B's 71); `scatter_chunk_kv` on its own
+(int8: bitwise); the null-page contract and the columns below each
+chunk's floor; the refusals; the rule that picks K7's design from
+dtypes and page size, and the qpk limit that follows from it."""
 
 import jax
 import jax.numpy as jnp
@@ -281,3 +283,76 @@ def test_dense_core_keeps_the_shared_row_positions():
     jax_ref = jax_xla_attend(jnp.asarray(q), jnp.asarray(k),
                              jnp.asarray(v), jnp.asarray(pos))
     close(shared, jax_ref, 1e-5)
+
+
+@pytest.mark.parametrize("qpk", [24, 71])
+@pytest.mark.parametrize("batch", sorted(BATCHES))
+def test_matches_jax_above_16_heads_per_group(batch, qpk):
+    """Past the present design's 16 folded rows a token group (qpk 71 is
+    Falcon-7B's): the port's plain version within 1e-5 of the JAX kernel
+    under the interpreter, which folds up to 2048 rows a block."""
+    case = _case(batch, qpk, seed=40 + qpk)
+    out, _, _ = _port(case)
+    ref, _, _ = _jax(case, use_pallas=True)
+    close(out, ref, 1e-5, f"{batch} qpk={qpk}")
+    assert (out.numpy()[_pad_rows(case)] == 0).all()
+
+
+@pytest.mark.parametrize("q_dtype,kv_dtype,page,design", [
+    (torch.bfloat16, torch.bfloat16, 64, "tc"),
+    (torch.bfloat16, torch.bfloat16, 16, "tc"),
+    (torch.bfloat16, torch.bfloat16, 24, "tc"),
+    (torch.bfloat16, torch.bfloat16, 128, "tc"),
+    (torch.bfloat16, torch.bfloat16, 12, "present"),
+    (torch.bfloat16, torch.bfloat16, 1, "present"),
+    (torch.float32, torch.float32, 64, "present"),
+    (torch.bfloat16, torch.int8, 64, "present"),
+    (torch.float32, torch.int8, 16, "present"),
+])
+def test_design_choice_reads_dtypes_and_page_size(q_dtype, kv_dtype, page,
+                                                  design):
+    """K7's tensor-core design takes bf16 q with bf16 pools whose page is
+    a multiple of 8; everything else runs the present design."""
+    assert pa.paged_design(q_dtype, kv_dtype, page) == design
+
+
+_KINDS = {"bf16": (torch.bfloat16, torch.bfloat16, 16),
+          "fp32": (torch.float32, torch.float32, 16),
+          "int8": (torch.bfloat16, torch.int8, 16),
+          "bf16_page12": (torch.bfloat16, torch.bfloat16, 12)}
+
+
+def _check_args(kind, C, qpk):
+    """The operands `_check` inspects, on the CPU (it reads shapes and
+    dtypes only)."""
+    q_dtype, kv_dtype, page = _KINDS[kind]
+    nc, g, d = 2, 1, 16
+    q = torch.zeros(nc, C, g, qpk, d, dtype=q_dtype)
+    kp = torch.zeros(3, page, g, d, dtype=kv_dtype)
+    vp = torch.zeros(3, page, g, d, dtype=kv_dtype)
+    pt = torch.zeros(nc, 2, dtype=torch.int32)
+    st = torch.zeros(nc, dtype=torch.int32)
+    ln = torch.ones(nc, dtype=torch.int32)
+    ks = vs = torch.ones(3, page, g) if kv_dtype == torch.int8 else None
+    return (q, kp, vp, pt, st, ln, ks, vs, None)
+
+
+@pytest.mark.parametrize("C", [1, 8])
+@pytest.mark.parametrize("qpk", [1, 16, 17, 71])
+@pytest.mark.parametrize("kind", sorted(_KINDS))
+def test_qpk_limit_follows_the_design(kind, qpk, C):
+    """bf16 pools of a page the tc design takes serve any qpk at any
+    chunk width; fp32 and int8 pools and other pages (the present
+    design) raise above 16, and naming the tc design for them raises."""
+    q, kp = _check_args(kind, C, qpk)[:2]
+    design = pa.paged_design(q.dtype, kp.dtype, kp.shape[1])
+    assert design == ("tc" if kind == "bf16" else "present")
+    args = _check_args(kind, C, qpk)
+    if design == "present" and qpk > 16:
+        with pytest.raises(ValueError, match="qpk"):
+            pa._check(*args, design)
+    else:
+        pa._check(*args, design)
+    if design == "present":
+        with pytest.raises(ValueError, match="tc design"):
+            pa._check(*_check_args(kind, C, min(qpk, 16)), "tc")
