@@ -8,24 +8,35 @@ Phases, one output line each (a failure raises and exits non-zero):
 1. device: the card's name and power limit from nvidia-smi;
 2. build: the hand-written kernels built from this checkout's sources
    (one nvcc per CUDA C++ source, started together; Triton's compiler for
-   the RMSNorm), each timed; then ptxas's report of flash_attention.cu
-   and paged_attention_tc.cu (`-Xptxas -v`: registers, stack and spills
-   of each kernel instance) beside K4's, K5's, K6's and K7-tc's dynamic
-   shared memory (ptxas_flash, ptxas_paged_tc);
+   the RMSNorm), each timed; then ptxas's report of decode_attention.cu,
+   flash_attention.cu and paged_attention_tc.cu (`-Xptxas -v`:
+   registers, stack and spills of each kernel instance) beside K4's, K5's,
+   K6's and K7-tc's dynamic shared memory, the latter with bf16 and with
+   int8 pools (ptxas_decode, ptxas_flash, ptxas_paged_tc);
 3. kernel checks: each kernel against its plain PyTorch version on the
    card at the shapes of the paths that run it (bf16, max-abs 2e-2: the
    attention kernels round p to bf16 before normalising, the plain
    versions after; flash gradients within 2e-2 of their reference's
    max-abs), and each kernel's time beside its plain version's, one
-   library call's and the least time the card could take; K7 in both of
-   its designs (tc, on the tensor cores, for bf16 pools, and present, for
-   fp32 and int8 pools) where each takes the shape, at Llama-2-7B's,
+   library call's and the least time the card could take; K1 at four
+   shapes (Llama-2-7B's decode batch, one 4096-position request,
+   Llama-2-70B's and Falcon-7B's attention widths) in both cache layouts
+   and with a length on the card, both of its designs timed; K7 in both of
+   its designs (tc, on the tensor cores, for bf16 q with bf16 or int8
+   pools, and present, for fp32 pools) where each takes the shape, at
+   Llama-2-7B's,
    Llama-2-70B's and Falcon-7B's (qpk 71, tc only) attention shapes, both
    designs' times in the same call; K7
-   also with int8 pools, a window of 1024 (binding, and covering: bitwise
-   the fp launch), both, and three packed documents over one slot's
-   pages (kernel_check_paged_variants, kernel_time_paged_variants), with
-   NaN below every chunk's floor kept out of the output;
+   also with int8 pools (the tc design's output elements that round
+   otherwise than the exact float64 answer, summed over draws, held to
+   twice the present design's on the same inputs, and two controls with
+   a bf16 or hi/lo p * v_scale operand shown to fail that check), a
+   window of 1024 (binding, and covering:
+   bitwise the fp launch), both, and three packed documents over one
+   slot's pages (kernel_check_paged_variants, kernel_time_paged_variants,
+   both designs timed for every variant, and int8 pools at Llama-2-70B's
+   widths too), with NaN below every chunk's floor kept out of the
+   output;
 4. model: Llama-2-7B at full width and depth, random bf16 weights from a
    fixed seed on the card, built once for every route;
 5. serving (whole-batch route, `MegatronServer(engine=None)`): a greedy
@@ -61,10 +72,13 @@ Phases, one output line each (a failure raises and exits non-zero):
    and K7's part of it (torch.profiler), peak memory;
 11. serving_engine_int8: the same traffic through the same server with
    int8 pools and int8 weights (`kv_dtype="int8"`,
-   `quantize_weights=True`); every K7 launch the int8 variant; the
-   outputs re-scored teacher-forced on a kernels-off int8 engine within
-   5e-2; printed: drift against the bf16 engine, pool bytes per token,
-   tokens/s, ms per decode advance, the device ms of a decode step;
+   `quantize_weights=True`); every K7 launch the int8 variant on the tc
+   design; the outputs re-scored teacher-forced on a kernels-off int8
+   engine within 5e-2; printed: drift against the bf16 engine, pool bytes
+   per token, tokens/s, ms per decode advance, the device ms of a decode
+   step and of a mixed round's forward (and K7's part), with K7's tc
+   design and, in the same call, with every launch forced to the present
+   design;
 12. serving_engine_window: a model with `attention_window_size=1024`,
    max_context 4096, 12 requests (8 reaching 1564-3128 positions) queued
    and drained in a pool of 8 x 21 pages that their reach overflows: the
@@ -80,6 +94,10 @@ Phases, one output line each (a failure raises and exits non-zero):
    prefilled by one paged `LlamaModel.forward` with "doc_starts" floors:
    K7 once per layer, the doc variant each time; log-probs within 5e-2 of
    the kernels-off forward and of each document's own forward;
+14b. serving_engine_fp32: Llama-2-7B widths at 2 of 32 layers in fp32
+   (weights, compute, pools) behind the same server, 4 requests: every K7
+   launch the present design (fp32 pools); log-probs re-scored on a
+   kernels-off fp32 engine within 1e-3;
 15. train (the serving model and pools freed first): Llama-2-7B widths at
    8 of its 32 layers, seq 4096, flash attention and the fused RMSNorm,
    full recompute, bf16 compute on fp32 params and AdamW state, trained
@@ -103,6 +121,7 @@ prints no result.
 """
 
 import argparse
+import contextlib
 import dataclasses
 import gc
 import json
@@ -289,6 +308,7 @@ def build_kernels():
     fa._library("fwd")
     say("build", **seconds,
         libraries=[lib.name for _, lib in builds.values()])
+    say("ptxas_decode", **ptxas_of("decode_attention.cu", 0))
     say("ptxas_flash", **ptxas_flash())
     say("ptxas_paged_tc", **ptxas_paged_tc())
 
@@ -300,9 +320,12 @@ def ptxas_report(log):
     for line in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", line)
         if m:
-            k = re.search(r"((?:flash|paged)_[a-z_]+_kernel)I((?:Li\d+E)+)E",
-                          m.group(1))
-            args = re.findall(r"Li(\d+)E", k.group(2)) if k else ()
+            k = re.search(r"((?:flash|paged|decode)_[a-z_]+_kernel)I"
+                          r"((?:f|13__nv_bfloat16|L[ib]\d+E)+)E", m.group(1))
+            args = re.findall(r"(f|__nv_bfloat16|L[ib]\d+E)",
+                              k.group(2)) if k else ()
+            args = [{"f": "float", "__nv_bfloat16": "bf16"}.get(
+                a, a[2:-1]) for a in args]
             name = f"{k.group(1)}<{','.join(args)}>" if k else m.group(1)
             out[name] = {}
             continue
@@ -347,62 +370,150 @@ def ptxas_flash():
 
 
 def ptxas_paged_tc():
-    """paged_attention_tc.cu: K7's tensor-core design, by head size."""
+    """paged_attention_tc.cu: K7's tensor-core design, by head size, with
+    bf16 pools (<DP,0>) and int8 pools (<DP,1>)."""
     smem = pa._library("smem")
     return ptxas_of("paged_attention_tc.cu",
-                    {f"paged_attn_tc d{d}": smem(d) for d in (64, 128, 256)})
+                    {f"paged_attn_tc {pools} d{d}": smem(d, int8)
+                     for int8, pools in ((0, "bf16"), (1, "int8"))
+                     for d in (64, 128, 256)})
+
+
+# (label, (b, g, qpk, d, T)) of K1's shapes, each timed at length T:
+# Llama-2-7B's decode batch at the longest cache the greedy batch reaches
+# (the whole-batch route's shape), one long request, Llama-2-70B's and
+# Falcon-7B's attention widths (Falcon itself is not served: correctness
+# and time only)
+DECODE_DESIGNS = ("tensor_cores", "cuda_cores")
+DECODE_SHAPES = (("llama2_7b_b4", (4, 32, 1, 128, 320)),
+                 ("llama2_7b_b1_long", (1, 32, 1, 128, 4096)),
+                 ("llama2_70b_attn", (4, 8, 8, 128, 2048)),
+                 ("falcon_7b_attn", (4, 1, 71, 64, 2048)))
+
+
+def decode_bound_ms(b, g, qpk, d, length, elt=2):
+    """K1's least time: K/V of `length` positions, q and out, over 3.35
+    TB/s, or 4 flops per (head, position, element) over the peak of the
+    units the bf16 launch's design runs its products on (the bf16 tensor
+    cores for "tensor_cores", fp32 CUDA cores for "cuda_cores"), whichever
+    is larger."""
+    nbytes = (2 * b * g * length * d + 2 * b * g * qpk * d) * elt
+    flops = 4 * b * g * qpk * length * d
+    peak = (BF16_FLOPS if dec.decode_design(torch.bfloat16, qpk)
+            == "tensor_cores" else FP32_FLOPS)
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 def check_decode_kernel():
+    """K1 against its plain version at each shape, in both cache layouts
+    (tgd: one layer's slice of a stacked (2, b, T, g, d) cache, read in
+    place), at lengths around its split size, with a device-side length
+    too, NaN past the length kept out; then each shape's time in both
+    designs beside the plain version, SDPA and the bound, in this one
+    call."""
     bf = torch.bfloat16
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    errs = {}
-    for label, (b, g, qpk, d) in (("llama2_7b", (4, 32, 1, 128)),
-                                  ("llama2_70b_attn", (4, 8, 8, 128))):
-        T = 320
+    errs, plans = {}, {}
+    for label, (b, g, qpk, d, T) in DECODE_SHAPES:
+        plans[label] = {"design": dec.decode_design(bf, qpk)}
+        for design in DECODE_DESIGNS:
+            nsplit, S = dec.split_plan(b, g, qpk, d, T, bf, design)
+            plans[label][design] = {"nsplit": nsplit, "split": S}
         q = torch.randn(b, 1, g, qpk, d, generator=gen, device="cuda").to(bf)
-        k = torch.randn(b, g, T, d, generator=gen, device="cuda").to(bf)
-        v = torch.randn(b, g, T, d, generator=gen, device="cuda").to(bf)
-        for length in (1, 63, 64, 65, 320):
-            got = dec.decode_attention(q, k, v, length)
-            ref = dec._xla_decode(q, k, v, length)
+        stacked = [torch.randn(2, b, T, g, d, generator=gen,
+                               device="cuda").to(bf) for _ in range(2)]
+        caches = {"tgd": (stacked[0][1], stacked[1][1]),
+                  "gtd": (stacked[0][1].transpose(1, 2).contiguous(),
+                          stacked[1][1].transpose(1, 2).contiguous())}
+        lengths = {1, 63, 64, 65, T}
+        for design in DECODE_DESIGNS:
+            S = plans[label][design]["split"]
+            lengths |= {S - 1, S + 1}
+        lengths = sorted(lengths & set(range(1, T + 1)))
+        for layout, (k, v) in caches.items():
+            for length in lengths:
+                ref = dec._xla_decode(q, k, v, length, layout)
+                dev_len = torch.tensor(length, dtype=torch.int32,
+                                       device="cuda")
+                for design in DECODE_DESIGNS:
+                    kw = dict(layout=layout, design=design)
+                    got = dec.decode_attention(q, k, v, length, **kw)
+                    on_card = dec.decode_attention(q, k, v, dev_len, **kw)
+                    torch.cuda.synchronize()
+                    check(torch.isfinite(got.float()).all(),
+                          f"K1 {label} finite")
+                    check(torch.equal(got, on_card),
+                          f"K1 {label} {design} device length {length}")
+                    err = (got.float() - ref.float()).abs().max().item()
+                    key = f"{label}_{layout}_{design}"
+                    errs[key] = max(errs.get(key, 0.0), err)
+                    check(err <= BF16_TOL,
+                          f"K1 {label} {layout} {design} length {length}: "
+                          f"{err}")
+        k, v = caches["gtd"]
+        cut = max(1, T // 2 - 3)
+        clean = [dec.decode_attention(q, k, v, cut, design=dn)
+                 for dn in DECODE_DESIGNS]
+        k[:, :, cut:] = float("nan")
+        v[:, :, cut:] = float("nan")
+        for dn, c in zip(DECODE_DESIGNS, clean):
+            dirty = dec.decode_attention(q, k, v, cut, design=dn)
             torch.cuda.synchronize()
-            check(torch.isfinite(got.float()).all(), f"K1 {label} finite")
-            err = (got.float() - ref.float()).abs().max().item()
-            errs[f"{label}_len{length}"] = err
-            check(err <= BF16_TOL, f"K1 {label} length {length}: {err}")
-    say("kernel_check_decode_attention", max_abs_err=errs, tol=BF16_TOL)
+            check(torch.equal(c, dirty),
+                  f"K1 {label} {dn}: NaN past the length reached the output")
+        del q, stacked, caches, k, v
+    say("kernel_check_decode_attention", max_abs_err=errs, tol=BF16_TOL,
+        splits=plans, nan_past_length="ok")
 
-    # time at the 7B decode shape at the longest cache the greedy batch
-    # reaches, over 8 input sets (168 MB > the 50 MB L2)
-    b, g, qpk, d, T = 4, 32, 1, 128, 320
-
-    def make(i):
-        return tuple(torch.randn(shape, generator=gen, device="cuda").to(bf)
-                     for shape in ((b, 1, g, qpk, d), (b, g, T, d),
-                                   (b, g, T, d)))
-    pick = rotating(make, 8)
-    eager_ms = time_ms(lambda: dec.decode_attention(*pick(), T))
-    kernel_ms = device_ms(lambda: dec.decode_attention(*pick(), T))
-    plain_ms = device_ms(lambda: dec._xla_decode(*pick(), T))
     sdpa = torch.nn.functional.scaled_dot_product_attention
+    times = {}
+    for label, (b, g, qpk, d, T) in DECODE_SHAPES:
+        set_bytes = 2 * b * g * T * d * 2
+        n_sets = min(64, max(2, -(-100_000_000 // set_bytes)))  # > 2x L2
 
-    def library():
-        q, k, v = pick()
-        return sdpa(q.reshape(b, g * qpk, 1, d), k, v)
-    library_ms = device_ms(library)
-    nbytes = 2 * b * g * T * d * 2 + 2 * b * g * qpk * d * 2
-    flops = 4 * b * g * qpk * T * d
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
+        def make(i):
+            return tuple(torch.randn(shape, generator=gen,
+                                     device="cuda").to(bf)
+                         for shape in ((b, 1, g, qpk, d), (b, g, T, d),
+                                       (b, g, T, d)))
+        pick = rotating(make, n_sets)
+        row = {"shape": f"b{b} g{g} qpk{qpk} d{d} length{T} bf16",
+               "input_sets": n_sets, **plans[label]}
+        row["design"] = plans[label]["design"]
+        row["eager_launch_ms"] = time_ms(
+            lambda: dec.decode_attention(*pick(), T))
+        # both designs in turns
+        for design in DECODE_DESIGNS + DECODE_DESIGNS[::-1]:
+            row.setdefault(f"{design}_ms", []).append(device_ms(
+                lambda: dec.decode_attention(*pick(), T, design=design)))
+        row["ms"] = min(row[f"{row['design']}_ms"])
+        row["plain_ms"] = device_ms(lambda: dec._xla_decode(*pick(), T),
+                                    per_graph=10, replays=5)
+
+        def library():
+            q, k, v = pick()
+            # the group's qpk heads as qpk query rows over the group's
+            # cache: every head sees every position, no mask
+            return sdpa(q.reshape(b, g, qpk, d), k, v)
+        row["library_ms"] = device_ms(library)
+        row["bound_ms"], row["bound_by"] = decode_bound_ms(b, g, qpk, d, T)
+        times[label] = row
+        del pick
+        torch.cuda.empty_cache()
+    say("kernel_time_decode_attention", **times)
+    main = times["llama2_7b_b4"]
     return {
         "name": "decode_attention", "route": "cuda",
         "source": "megatron_llm_tpu_torch/csrc/decode_attention.cu",
         "replaces": "megatron_llm_tpu/ops/decode_attention.py:115",
-        "max_abs_err": max(errs.values()), "ms": kernel_ms,
-        "plain_ms": plain_ms, "bound_ms": max(t_bytes, t_ops),
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
-        "library_ms": library_ms, "eager_launch_ms": eager_ms,
-        "shape": f"b{b} g{g} qpk{qpk} d{d} length{T} bf16",
+        "design": "split-cache, merge in the last block; tensor_cores "
+                  "(mma.sync) from qpk 4 on, cuda_cores below",
+        "max_abs_err": max(errs.values()), "ms": main["ms"],
+        "plain_ms": main["plain_ms"], "bound_ms": main["bound_ms"],
+        "bound_by": main["bound_by"], "library_ms": main["library_ms"],
+        "eager_launch_ms": main["eager_launch_ms"], "shape": main["shape"],
+        "shapes": times,
     }
 
 
@@ -701,6 +812,78 @@ def variant_inputs(batch, variant, g, qpk, d, gen):
         k_scales=ks, v_scales=vs, window=window, doc_starts=None)
 
 
+def paged_exact(q, k_pages, v_pages, page_table, starts, chunk_lens,
+                k_scales=None, v_scales=None, window=None, doc_starts=None,
+                pv_terms=None):
+    """K7's function in float64 (pools dequantized exactly, the softmax
+    and both products in float64): the answer both designs and the plain
+    version round, to hold their errors against. With int8 pools and
+    `pv_terms`, the PV product instead takes p * v_scale (p before its
+    normalisation) as the sum of `pv_terms` bf16 terms, each the bf16
+    rounding of what the terms before it left, times the raw integer V,
+    as the tc design's wgmmas do: 3 terms keep fp32's 24 significant
+    bits, 1 is a single bf16 operand (the control that the error check
+    must catch)."""
+    nc, C, g, qpk, d = q.shape
+    P = k_pages.shape[1]
+    T = page_table.shape[1] * P
+    pt = page_table.long()
+    k, v = k_pages[pt].double(), v_pages[pt].double()
+    if k_scales is not None:
+        k = k * k_scales[pt].double()[..., None]
+        vs = v_scales[pt].double().reshape(nc, T, g).transpose(1, 2)
+        if pv_terms is None:
+            v = v * v_scales[pt].double()[..., None]
+    k = k.reshape(nc, T, g, d).transpose(1, 2)
+    v = v.reshape(nc, T, g, d).transpose(1, 2)
+    tok = torch.arange(C * qpk, device=q.device) // qpk
+    pos = starts.long()[:, None] + tok[None, :]
+    cols = torch.arange(T, device=q.device)[None, None, :]
+    mask = cols > pos[:, :, None]
+    lo = pa._row_floors(starts, C, qpk, window, doc_starts)
+    if lo is not None:
+        mask = mask | (cols < lo[:, :, None])
+    qb = q.double().permute(0, 2, 1, 3, 4).reshape(nc, g, C * qpk, d)
+    s = (qb @ k.transpose(-1, -2)) / d ** 0.5
+    s = s.masked_fill(mask[:, None], float("-inf"))
+    if pv_terms is None:
+        # rows that see nothing (pad rows) come out zero
+        out = torch.softmax(s, -1).nan_to_num(0.0) @ v
+    else:
+        p = (s - s.amax(-1, keepdim=True)).exp().nan_to_num(0.0)
+        left, pv = p * vs[:, :, None, :].nan_to_num(0.0), 0.0
+        for _ in range(pv_terms):
+            term = left.to(torch.bfloat16).double()
+            pv, left = pv + term, left - term
+        out = (pv @ v) / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    out = out.masked_fill(~(tok[None, :] < chunk_lens[:, None])[:, None, :,
+                                                                  None], 0)
+    return out.reshape(nc, g, C, qpk, d).permute(0, 2, 1, 3, 4)
+
+
+def nearest_bf16(x):
+    """float64 `x` rounded to the nearest bf16 (torch converts through
+    fp32, rounding twice): the better of the converted value and its two
+    bf16 neighbours."""
+    best = x.to(torch.bfloat16)
+    bits = best.view(torch.int16)
+    for step in (-1, 1):
+        c = (bits + step).view(torch.bfloat16)
+        closer = (torch.isfinite(c) & (x != 0)
+                  & ((c.double() - x).abs() < (best.double() - x).abs()))
+        best = torch.where(closer, c, best)
+    return best
+
+
+def misrounded(x, exact_bf16):
+    """Elements of a bf16 output that differ from the correctly rounded
+    exact answer: a count that falls to the few whose exact value lies
+    within the design's own error of a rounding boundary, so it grows
+    with any precision the design loses before the output's rounding
+    (a max-abs error is set by the largest output's rounding instead)."""
+    return int((x != exact_bf16).sum().item())
+
+
 def chunk_floors(args, kw):
     """Each chunk's lowest attendable position (its first row's floor)."""
     starts = args[4].tolist()
@@ -788,6 +971,45 @@ def banded_sdpa_inputs(args, kw):
             mask[:, None])
 
 
+# input draws whose misrounded elements an int8 row's check sums: a decode
+# round holds 32768 output elements, about ten of them misrounded by a
+# design that keeps p in fp32 (H100), too few for a ratio to mean much
+INT8_ERROR_DRAWS = {"decode": 8, "mixed": 1}
+
+
+def int8_errors(draws):
+    """The int8 tc design's error beside the present design's on the same
+    inputs, summed over `draws` ((args, kw, tc output, plain output) of
+    one int8 row): the elements each output rounds otherwise than the
+    exact (float64) answer correctly rounded (`misrounded`), for tc,
+    present, the plain version and two controls computed in float64 with
+    p * v_scale cut to one bf16 term (a bf16 p operand: the precision the
+    tc design must not lose) and to two (a hi/lo pair); and each design's
+    largest max-abs error against the plain version, which the output's
+    rounding at its largest elements sets."""
+    names = ("tc", "present", "plain", "control_bf16_p_vs", "control_hi_lo")
+    count = dict.fromkeys(names, 0)
+    vs_plain = {"tc": 0.0, "present": 0.0}
+    for args, kw, got, ref in draws:
+        exact = nearest_bf16(paged_exact(*args, **kw))
+        outs = {"tc": got, "plain": ref,
+                "present": pa.paged_attention(*args, **kw, design="present")}
+        for name, terms in (("control_bf16_p_vs", 1), ("control_hi_lo", 2)):
+            outs[name] = paged_exact(*args, **kw, pv_terms=terms).to(
+                torch.bfloat16)
+        for name, x in outs.items():
+            count[name] += misrounded(x, exact)
+        for name in vs_plain:
+            vs_plain[name] = max(vs_plain[name], (
+                outs[name].float() - ref.float()).abs().max().item())
+        del exact, outs
+    return {"draws": len(draws), "elements": sum(d[2].numel()
+                                                 for d in draws),
+            "misrounded": count, "max_abs_vs_plain": vs_plain,
+            "max_abs_within_twice_present": vs_plain["tc"]
+            <= 2 * vs_plain["present"]}
+
+
 def check_paged_variants(k7_row):
     """K7's int8 epilogue and lower bounds at the engine's pool shape (8
     slots, g 32, d 128, page 64, 2048 positions a slot), on a decode and a
@@ -796,12 +1018,14 @@ def check_paged_variants(k7_row):
     documents over one slot's pages, each against its plain version
     (bf16 output, fp32 accumulation, max-abs 2e-2 as for K4) in the
     design `paged_design` picks (bf16 pools: tc for the mixed rounds);
+    int8 rows also by `int8_errors`: tc's misrounded elements at most
+    twice the present design's, and each control's above that bar.
     NaN below each chunk's floor must not reach the output. Then each
     variant's time beside its bound, plain version and library call, and
     for bf16 pools both designs' times."""
     gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
     g, qpk, d = 32, 1, 128
-    errs = {}
+    errs, int8_errs = {}, {}
     for variant in K7_VARIANTS:
         for batch in PAGED_BATCHES:
             args, kw = variant_inputs(batch, variant, g, qpk, d, gen)
@@ -812,6 +1036,26 @@ def check_paged_variants(k7_row):
             err = (got.float() - ref.float()).abs().max().item()
             errs[f"{variant}_{batch}"] = err
             check(err <= BF16_TOL, f"K7 {variant} {batch}: {err}")
+            if K7_VARIANTS[variant][0]:
+                check(pa.paged_design(args[0].dtype, args[1].dtype, PAGE)
+                      == "tc", f"K7 {variant}: int8 pools not on tc")
+                draws = [(args, kw, got, ref)]
+                for _ in range(INT8_ERROR_DRAWS[batch] - 1):
+                    a, k = variant_inputs(batch, variant, g, qpk, d, gen)
+                    draws.append((a, k, pa.paged_attention(*a, **k),
+                                  pa._xla_paged_reference(*a, **k)))
+                e = int8_errors(draws)
+                del draws
+                int8_errs[f"{variant}_{batch}"] = e
+                n = e["misrounded"]
+                check(n["tc"] <= 2 * n["present"],
+                      f"K7 {variant} {batch}: tc misrounds {n['tc']} "
+                      f"elements, more than twice the present design's "
+                      f"{n['present']}")
+                for control in ("control_bf16_p_vs", "control_hi_lo"):
+                    check(n[control] > 2 * n["present"],
+                          f"K7 {variant} {batch}: the {control} control "
+                          f"passes the error check ({n}): it is blind")
             if variant == "window_covering":
                 plain_fp = pa.paged_attention(*args)
                 check(torch.equal(got, plain_fp),
@@ -825,22 +1069,29 @@ def check_paged_variants(k7_row):
                       f"K7 {variant} {batch}: NaN below the floor reached "
                       f"the output")
     say("kernel_check_paged_variants", max_abs_err=errs, tol=BF16_TOL,
-        nan_below_floor="ok", covering_window_bitwise=True)
+        int8_tc_vs_present=int8_errs, nan_below_floor="ok",
+        covering_window_bitwise=True)
 
     sdpa = torch.nn.functional.scaled_dot_product_attention
     rows = {}
-    for variant in ("int8", "window", "int8_window", "doc"):
+    # (row, variant, (g, qpk, d)): the engine's widths, and int8 pools at
+    # Llama-2-70B's attention widths (qpk 8)
+    timed = [(v, v, (g, qpk, d)) for v in ("int8", "window", "int8_window",
+                                           "doc")]
+    timed.append(("int8_llama2_70b_attn", "int8", (8, 8, 128)))
+    for row_name, variant, (tg, tq, td) in timed:
         times = {}
         for batch in PAGED_BATCHES:
-            sets = [variant_inputs(batch, variant, g, qpk, d, gen)
+            sets = [variant_inputs(batch, variant, tg, tq, td, gen)
                     for _ in range(4)]
             pick = rotating(lambda i: sets[i], 4)
             kernel_ms = device_ms(lambda: _launch(pa.paged_attention, pick()))
+            # both designs in turns: tc, present, present, tc
             by_design = {}
-            if not K7_VARIANTS[variant][0]:
-                by_design = {f"{dn}_ms": device_ms(lambda: _launch(
-                    pa.paged_attention, pick(), design=dn))
-                    for dn in ("tc", "present")}
+            for dn in ("tc", "present", "present", "tc"):
+                by_design.setdefault(f"{dn}_ms", []).append(device_ms(
+                    lambda: _launch(pa.paged_attention, pick(), design=dn)))
+            by_design = {k: min(v) for k, v in by_design.items()}
             plain_ms = device_ms(
                 lambda: _launch(pa._xla_paged_reference, pick()),
                 per_graph=10, replays=5)
@@ -859,8 +1110,9 @@ def check_paged_variants(k7_row):
                             "library_ms": library_ms}
             del sets
             torch.cuda.empty_cache()
-        rows[variant] = dict(
+        rows[row_name] = dict(
             times["decode"], mixed=times["mixed"],
+            shape=f"g{tg} qpk{tq} d{td}",
             max_abs_err=max(errs[f"{variant}_{b}"] for b in PAGED_BATCHES))
     say("kernel_time_paged_variants", **rows)
     k7_row["variants"] = rows
@@ -1225,11 +1477,24 @@ def check_outputs(traffic, run, tok):
     return generated, scored
 
 
+@contextlib.contextmanager
+def forced_paged_design(design):
+    """Every K7 launch inside runs `design`: a measurement of the other
+    design on the same path in the same call, made after the path's own
+    run and launch check, never in them."""
+    rule = pa.paged_design
+    pa.paged_design = lambda *shape: design
+    try:
+        yield
+    finally:
+        pa.paged_design = rule
+
+
 def check_paged_launches(cfg, run, label, variant=None, tc=True):
     """K7 ran once per layer per paged forward (under `variant` every
-    time, when given), every launch in the tc design when `tc` (bf16
-    pools of page 64) and in the present design otherwise (int8 pools);
-    K2 ran, K1 and K4 did not."""
+    time, when given), every launch in the tc design when `tc` (bf16 q
+    with bf16 or int8 pools of page 64) and in the present design
+    otherwise (fp32 pools); K2 ran, K1 and K4 did not."""
     k7 = run["launches"]["ragged_paged_attention"]
     check(k7 == cfg.num_layers * run["paged"] and k7 > 0,
           f"{label}: K7 launches {k7} != {cfg.num_layers} x {run['paged']} "
@@ -1348,6 +1613,9 @@ def mixed_round_device_ms(model, eng, calls=3):
         pools_k, pools_v, pools_ks, pools_vs = eng._pools
         caches = {"k_pages_layers": pools_k, "v_pages_layers": pools_v,
                   "page_table": pt, "lengths": lens, "chunk_lens": clen}
+        if pools_ks:
+            caches["k_scales_layers"] = pools_ks
+            caches["v_scales_layers"] = pools_vs
         toks = torch.zeros(eng.slots, C, dtype=torch.long, device=dev)
         pos = lens.long()[:, None] + torch.arange(C, device=dev)[None, :]
 
@@ -1472,7 +1740,7 @@ def serve_engine_int8(kernels, cfg, model, params, bf16):
     traffic = engine_traffic()
     run = drive_engine(eng, model, tok, params, traffic)
     generated, scored = check_outputs(traffic, run, tok)
-    check_paged_launches(cfg, run, "engine_int8", "int8", tc=False)
+    check_paged_launches(cfg, run, "engine_int8", "int8")
     metrics = run["metrics"]
     check(metrics["serve_kv_dtype"] == "int8", f"kv dtype {metrics}")
     check(metrics["serve_prefix_hits"] >= 1
@@ -1482,7 +1750,19 @@ def serve_engine_int8(kernels, cfg, model, params, bf16):
           == eng.num_pages - 1, f"int8 pages after the traffic: {metrics}")
     note_launches(kernels, "engine_int8", run)
     advance = ms_per_advance(run["rounds"])
-    step_ms = decode_step_device_ms(model, eng)
+    # device ms of a decode step and of a mixed round's forward with K7's
+    # tc design (the one the path ran), then, in this call, with every
+    # launch forced to the present design, then tc again
+    device = {}
+    for design in ("tc", "present", "tc"):
+        with forced_paged_design(design):
+            step = decode_step_device_ms(model, eng)
+            mixed, mixed_k7 = mixed_round_device_ms(model, eng)
+        for key, x in (("decode_step_device_ms", step),
+                       ("mixed_forward_device_ms", mixed),
+                       ("mixed_forward_k7_device_ms", mixed_k7)):
+            device.setdefault(design, {}).setdefault(key, []).append(x)
+    step_ms = min(device["tc"]["decode_step_device_ms"])
     bytes_per_token = eng.kv_bytes_per_token()
     eng = None
     free_cuda()
@@ -1517,6 +1797,8 @@ def serve_engine_int8(kernels, cfg, model, params, bf16):
         decode_ms_per_advance_bf16=bf16["decode_ms_per_advance"],
         decode_step_device_ms=step_ms,
         decode_step_device_ms_bf16=bf16["decode_step_device_ms"],
+        k7_design_device_ms=device,
+        present_design_decode_step_device_ms_earlier="29.8-30.0 (PERF.md)",
         ttft_p50_ms=run["metrics"]["serve_ttft_p50_ms"],
         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
     check(err <= PATH_LP_TOL, f"int8 re-scored logprobs {err}")
@@ -1765,6 +2047,54 @@ def packed_docs_prefill(kernels, cfg, model, params):
           f"packed docs log-probs {err_off} {err_alone}")
     note_launches(kernels, "packed_docs_prefill",
                   {"launches": launches, "variants": variants})
+
+
+FP32_LAYERS = 2
+FP32_REQUESTS = ("greedy0", "greedy2", "greedy3", "greedy5")
+FP32_LP_TOL = 1e-3
+
+
+def serve_engine_fp32(kernels, init_std):
+    """Llama-2-7B widths at 2 of its 32 layers with fp32 weights, compute
+    and pools (the pools of an fp32 model), served by the engine at the
+    launcher's defaults over HTTP: the fp32-pool path of K7, which runs
+    its present design. Counts zeroed before the traffic, read after: K7
+    once per layer per paged forward, every launch present. The outputs
+    re-scored teacher-forced on a kernels-off fp32 engine on the same
+    weights: log-probs within 1e-3."""
+    cfg = llama_config(7, num_layers=FP32_LAYERS, params_dtype=torch.float32,
+                       compute_dtype=torch.float32, use_fused_rmsnorm=True,
+                       init_method_std=init_std)
+    model = LlamaModel(cfg)
+    params = model.init(seed=SEED + 23)
+    tok = build_tokenizer("NullTokenizer", null_vocab_size=31999)
+    eng = DecodeEngine(model, params, **engine_kwargs(tok))
+    traffic = [x for x in engine_traffic() if x[0] in FP32_REQUESTS]
+    run = drive_engine(eng, model, tok, params, traffic)
+    generated, scored = check_outputs(traffic, run, tok)
+    check_paged_launches(cfg, run, "engine_fp32", "fp", tc=False)
+    metrics = run["metrics"]
+    check(metrics["serve_pages_free"] + metrics["serve_prefix_cached_pages"]
+          == eng.num_pages - 1, f"fp32 pages after the traffic: {metrics}")
+    note_launches(kernels, "engine_fp32", run)
+    eng = None
+    free_cuda()
+    plain = LlamaModel(dataclasses.replace(cfg, use_fused_rmsnorm=False,
+                                           use_decode_attn=False))
+    off = DecodeEngine(plain, params, **engine_kwargs(tok,
+                                                      prefix_cache=False))
+    forced = rescore(off, scored)
+    off = None
+    err = max(float(np.abs(np.asarray(f) - np.asarray(lp)).max())
+              for f, (_, _, _, lp) in zip(forced, scored))
+    say("serving_engine_fp32", layers=FP32_LAYERS, requests=len(traffic),
+        paged_forwards=run["paged"], launches=run["launches"],
+        k7_variant_launches=run["variants"], generated_tokens=generated,
+        wall_s=run["wall"], path_check_max_abs_logprob_err=err,
+        tol=FP32_LP_TOL)
+    check(err <= FP32_LP_TOL, f"fp32 re-scored logprobs {err}")
+    del model, plain, params
+    free_cuda()
 
 
 # ---------------------------------------------------------------------------
@@ -2301,6 +2631,7 @@ def main() -> int:
     free_cuda()
     serve_engine_spec_and_whole_prompt(kernels, cfg, llama, params)
     packed_docs_prefill(kernels, cfg, llama, params)
+    serve_engine_fp32(kernels, args.init_std)
     # the 13.5 GB serving model and its engines' pools go before training
     del model, llama, params
     free_cuda()

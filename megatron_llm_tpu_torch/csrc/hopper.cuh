@@ -1,5 +1,6 @@
 // Hopper (sm_90a) building blocks as inline PTX: shared-memory mbarriers,
-// TMA tile loads (cp.async.bulk.tensor), wgmma shared-memory descriptors
+// TMA tile loads (cp.async.bulk.tensor; bf16 tiles swizzled, int8 rows
+// plain), wgmma shared-memory descriptors
 // for 128-byte-swizzled tiles, the wgmma products the flash and paged
 // attention kernels issue, the proxy fence and named barrier that hand
 // thread-written shared memory to wgmma, and setmaxnreg. Host side:
@@ -367,6 +368,24 @@ inline int map_bf16_3d(CUtensorMap* m, const void* ptr, int n0, int n1, int n2,
   return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
              dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
              CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
+             ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// A (n2, n1, n0) int8 row-major tensor (n0 innermost, a multiple of 16 and
+// at most 256) read in boxes of n0 x 1 x `box2` bytes, unswizzled: a box
+// lands as box2 rows of n0 bytes, one after the other.
+inline int map_i8_3d(CUtensorMap* m, const void* ptr, int n0, int n1, int n2,
+                     int box2) {
+  const EncodeTiledFn enc = encode_tiled();
+  if (!enc) return (int)cudaErrorNotSupported;
+  const cuuint64_t dims[3] = {(cuuint64_t)n0, (cuuint64_t)n1, (cuuint64_t)n2};
+  const cuuint64_t strides[2] = {(cuuint64_t)n0, (cuuint64_t)n0 * n1};
+  const cuuint32_t box[3] = {(cuuint32_t)n0, 1, (cuuint32_t)box2};
+  const cuuint32_t step[3] = {1, 1, 1};
+  return enc(m, CU_TENSOR_MAP_DATA_TYPE_UINT8, 3, const_cast<void*>(ptr),
+             dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
+             CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
              ? 0 : (int)cudaErrorInvalidValue;
 }

@@ -6,11 +6,12 @@
 // prefill_attention.py:135, launched by `_paged_pallas` at :369): fp and
 // int8 pools, and the sliding-window and packed-document lower bounds.
 // Since the tensor-core design (`paged_attention_tc.cu`) took bf16 q with
-// bf16 pools, this kernel serves what that design does not take: fp32
-// pools, int8 pools (its int8 epilogue), and bf16 pools whose page size
-// is not a multiple of 8; the wrapper's `paged_design` picks from dtypes
-// and page size alone. Every one of its instantiations stays reachable
-// (bf16 at other page sizes still needs each row count and head size).
+// bf16 or int8 pools, this kernel serves what that design does not take:
+// fp32 pools (with fp32 q, or int8 pools under fp32 q), and bf16 or int8
+// pools whose page size is not a multiple of 8; the wrapper's
+// `paged_design` picks from dtypes and page size alone. Every one of its
+// instantiations stays reachable (bf16 and int8 pools at other page sizes
+// still need each row count and head size).
 //
 // What it computes. Chunk c is chunk_lens[c] tokens of one slot at cache
 // positions starts[c] + t; its keys and values live in pool pages

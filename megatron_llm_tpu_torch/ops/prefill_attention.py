@@ -26,10 +26,12 @@ ops/prefill_attention.py:135, launched by `_paged_pallas` at :369), fp
 and int8 pools, window and doc floors, in two designs that compute the
 same function:
 - "tc" (`csrc/paged_attention_tc.cu`): tiles of 64 folded rows on the
-  tensor cores, pages brought by TMA; bf16 q and pools whose page size is
-  a multiple of 8, any qpk, decode and mixed rounds;
+  tensor cores, pages brought by TMA; bf16 q with bf16 or int8 pools
+  whose page size is a multiple of 8, any qpk, decode and mixed rounds
+  (int8 rows converted to bf16 panels in shared memory, scales applied
+  around the products);
 - "present" (`csrc/paged_attention.cu`): CUDA cores, at most 16 folded
-  rows a block; fp32 and int8 pools, and other page sizes.
+  rows a block; fp32 pools, and bf16 or int8 pools of other page sizes.
 `paged_design` picks one from dtypes and shapes alone (never because a
 launch failed); each source note says what bounds its design on the H100.
 `_xla_paged_reference` is their plain version (gather the pages into the
@@ -49,8 +51,8 @@ divided the chunk width. Those rules exist for Mosaic's tiling and the
 TPU's launch overhead. K7 takes any page size, any chunk width >= 1 and
 d % 8 == 0 up to 256 (d % 16 == 0 for int8 pools, for its 16-byte
 copies of int8 rows), so every CUDA launch with the switch on runs it.
-qpk > 16 needs the "tc" design (bf16 pools, page size a multiple of 8);
-the present design raises there.
+qpk > 16 needs the "tc" design (bf16 q, bf16 or int8 pools, page size a
+multiple of 8); the present design raises there.
 """
 
 from __future__ import annotations
@@ -65,6 +67,46 @@ from megatron_llm_tpu_torch.ops.quantization import scatter_quantized_rows
 
 LOG2E = 1.4426950408889634
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# the tc design's split of long walks: at least 8 key tiles of 64
+# positions a split, at most 16 splits
+TC_TILES_PER_SPLIT, TC_MAX_SPLITS = 8, 16
+_counters: dict = {}
+_retired_counters: list = []
+
+
+def arrival_counters(device, n: int) -> torch.Tensor:
+    """Zeroed unsigned counters for a kernel whose last block to arrive
+    merges its splits (K1, K7's tc design), one buffer for each stream of
+    `device`: each launch that completes leaves the ones it used zero, and
+    two streams never share one. A buffer too small for `n` is replaced by
+    a larger one, and the old one is kept alive, never freed: a CUDA graph
+    that captured a launch keeps its address and replays against it. One
+    first made inside a capture is zeroed by that graph's replay."""
+    key = (device, torch.cuda.current_stream(device).cuda_stream)
+    buf = _counters.get(key)
+    if buf is None or buf.numel() < n:
+        if buf is not None:
+            _retired_counters.append(buf)
+        buf = _counters[key] = torch.zeros(max(n, 1024), dtype=torch.int32,
+                                           device=device)
+    return buf
+
+
+def tc_split(max_pages: int, page_size: int, rows: int, int8: bool):
+    """(nsplit, tiles a split) of the tc design, from dtypes and shapes
+    alone: a walk spans at most ceil(max_pages * page_size / 64) + 1 key
+    tiles of a `max_pages`-entry page table, cut into splits of
+    TC_TILES_PER_SPLIT tiles (more when that would exceed TC_MAX_SPLITS).
+    Only where it pays (measured on the H100): launches whose (chunk,
+    group) has at most 64 folded `rows` (decode rounds: one row tile,
+    whose longest walk sets the time), and int8 pools, whose tiles cost
+    more; a wider bf16 launch's row tiles fill the card already, and its
+    split blocks that find nothing to do cost more than they save."""
+    if rows > 64 and not int8:
+        return 1, 1 << 30
+    tiles = -(-max_pages * page_size // 64) + 1
+    tps = max(TC_TILES_PER_SPLIT, -(-tiles // TC_MAX_SPLITS))
+    return -(-tiles // tps), tps
 
 
 def _xla_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -190,10 +232,12 @@ def scatter_chunk_kv(k_new, v_new, k_pages, v_pages, page_table, starts,
 
 def paged_design(q_dtype, kv_dtype, page_size: int) -> str:
     """The K7 design a launch runs, from dtypes and shapes alone: "tc" for
-    bf16 q and bf16 pools whose page size is a multiple of 8 (its TMA
-    segments fill whole 8-row swizzle atoms), at any qpk and chunk width;
-    "present" for fp32 or int8 pools and other page sizes."""
-    if (q_dtype == torch.bfloat16 and kv_dtype == torch.bfloat16
+    bf16 q with bf16 or int8 pools whose page size is a multiple of 8 (its
+    bf16 TMA segments fill whole 8-row swizzle atoms; int8 pools keep the
+    same rule), at any qpk and chunk width; "present" for fp32 pools and
+    other page sizes."""
+    if (q_dtype == torch.bfloat16
+            and kv_dtype in (torch.bfloat16, torch.int8)
             and page_size % 8 == 0):
         return "tc"
     return "present"
@@ -207,13 +251,14 @@ def _library(design="present"):
         fn = lib.ragged_paged_attention_tc_fwd
         if fn.argtypes is None:  # pointers must not pass as 32-bit ints
             fn.restype = ctypes.c_int
-            fn.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
-                           + [ctypes.c_float, ctypes.c_void_p])
+            fn.argtypes = ([ctypes.c_void_p] * 12 + [ctypes.c_int] * 9
+                           + [ctypes.c_float, ctypes.c_int, ctypes.c_int,
+                              ctypes.c_void_p])
         return fn
     if design == "smem":  # the "tc" kernel's dynamic shared memory
         fn = load_library("paged_attention_tc.cu").paged_attention_tc_smem
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int]
+        fn.argtypes = [ctypes.c_int, ctypes.c_int]
         return fn
     lib = load_library("paged_attention.cu")
     fn = lib.ragged_paged_attention_fwd
@@ -247,12 +292,14 @@ def _check(q, k_pages, v_pages, page_table, starts, chunk_lens, k_scales,
         raise ValueError(f"paged kernel serves 1..16 query heads per KV "
                          f"group with {k_pages.dtype} pools of page "
                          f"{k_pages.shape[1]} (any qpk with bf16 q and "
-                         f"pools of a page that is a multiple of 8), "
+                         f"bf16 or int8 pools of a page that is a multiple "
+                         f"of 8), "
                          f"qpk={qpk}")
     if design == "tc" and paged_design(q.dtype, k_pages.dtype,
                                        k_pages.shape[1]) != "tc":
-        raise ValueError(f"the tc design takes bf16 q and pools and a page "
-                         f"size that is a multiple of 8, got {q.dtype}/"
+        raise ValueError(f"the tc design takes bf16 q with bf16 or int8 "
+                         f"pools and a page size that is a multiple of 8, "
+                         f"got {q.dtype}/"
                          f"{k_pages.dtype}, page {k_pages.shape[1]}")
     if C < 1:
         raise ValueError(f"chunk width must be >= 1, C={C}")
@@ -344,12 +391,22 @@ def paged_attention(q, k_pages, v_pages, page_table, starts, chunk_lens,
     scale_log2 = (1.0 / math.sqrt(d)) * LOG2E
     with torch.cuda.device(q.device):
         if design == "tc":
+            nsplit, tps = tc_split(page_table.shape[1], page_size, C * qpk,
+                                   int8)
+            ws = counters = None
+            if nsplit > 1:
+                ws = torch.empty(nc * g * C * qpk * nsplit * (2 + d),
+                                 dtype=torch.float32, device=q.device)
+                counters = arrival_counters(q.device,
+                                            nc * g * -(-C * qpk // 64))
             err = _library("tc")(
                 q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                _ptr(k_scales), _ptr(v_scales),
                 out.data_ptr(), page_table.data_ptr(), starts.data_ptr(),
-                chunk_lens.data_ptr(), _ptr(doc_starts), nc, C, g, qpk, d,
+                chunk_lens.data_ptr(), _ptr(doc_starts), _ptr(ws),
+                _ptr(counters), nc, C, g, qpk, d,
                 k_pages.shape[0], page_size, page_table.shape[1],
-                window or 0, scale_log2, stream)
+                window or 0, scale_log2, nsplit, tps, stream)
         else:
             err = _library()(
                 q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),

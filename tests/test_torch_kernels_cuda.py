@@ -48,40 +48,153 @@ def _qkv(b, g, qpk, d, T, device, dtype, seed=0):
                                (b, g, T, d)))
 
 
+def _to_layout(x, layout):
+    """A (b, g, T, d) cache in `layout`: as it is, or as (b, T, g, d)."""
+    return x if layout == "gtd" else x.transpose(1, 2).contiguous()
+
+
+@pytest.mark.parametrize("layout", ["gtd", "tgd"])
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
                                        (torch.float32, 1e-5)],
                          ids=["bf16", "fp32"])
 @pytest.mark.parametrize("g,qpk,d", [(32, 1, 128), (8, 8, 128), (2, 16, 64),
-                                     (3, 3, 256), (2, 5, 8)])
-def test_decode_kernel_matches_plain(cuda, g, qpk, d, dtype, tol):
+                                     (3, 3, 256), (2, 5, 8), (1, 71, 64),
+                                     (1, 128, 128)])
+def test_decode_kernel_matches_plain(cuda, g, qpk, d, dtype, tol, layout):
     """bf16 tolerance: the kernel rounds p to bf16 before normalising, the
     plain version after."""
     T = 320
     q, k, v = _qkv(4, g, qpk, d, T, cuda, dtype, seed=qpk)
+    k, v = _to_layout(k, layout), _to_layout(v, layout)
     before = dec.decode_attention.launches
     for length in (1, 63, 64, 65, T):
-        got = dec.decode_attention(q, k, v, length)
-        ref = dec._xla_decode(q, k, v, length)
+        got = dec.decode_attention(q, k, v, length, layout=layout)
+        ref = dec._xla_decode(q, k, v, length, layout)
         torch.cuda.synchronize()
         assert got.dtype == dtype and got.shape == q.shape
         assert _max_err(got, ref) <= tol, f"length={length}"
     assert dec.decode_attention.launches == before + 5
 
 
-def test_decode_kernel_reads_no_position_past_length(cuda):
-    """NaN past `length` must not reach the output."""
-    q, k, v = _qkv(2, 4, 2, 128, 64, cuda, torch.bfloat16)
-    k[:, :, 40:] = float("nan")
-    v[:, :, 40:] = float("nan")
-    got = dec.decode_attention(q, k, v, 40)
-    assert torch.isfinite(got.float()).all()
-    assert _max_err(got, dec._xla_decode(q, k[:, :, :40].contiguous(),
-                                         v[:, :, :40].contiguous(), 40)) \
-        <= 2e-2
+# (b, g, qpk, d, T): the shapes chip_smoke.py times: Llama-2-7B's decode
+# batch, one long request, Llama-2-70B's and Falcon-7B's attention widths
+DECODE_TIMED = [(4, 32, 1, 128, 320), (1, 32, 1, 128, 4096),
+                (4, 8, 8, 128, 2048), (4, 1, 71, 64, 2048)]
+
+
+def _split_lengths(shape, dtype, design=None):
+    """Lengths at which the split kernel changes regime: 1, either side of
+    64, the allocated T, and either side of the split size."""
+    b, g, qpk, d, T = shape
+    nsplit, S = dec.split_plan(b, g, qpk, d, T, dtype, design)
+    return sorted({1, 63, 64, 65, T, S - 1, S, S + 1} & set(range(1, T + 1)))
+
+
+# (dtype, tolerance, design): bf16 in both designs, fp32 on CUDA cores
+DECODE_DESIGNS = [(torch.bfloat16, 2e-2, "tensor_cores"),
+                  (torch.bfloat16, 2e-2, "cuda_cores"),
+                  (torch.float32, 1e-5, "cuda_cores")]
+
+
+@pytest.mark.parametrize("layout", ["gtd", "tgd"])
+@pytest.mark.parametrize("dtype,tol,design", DECODE_DESIGNS,
+                         ids=["bf16_tc", "bf16_cc", "fp32_cc"])
+@pytest.mark.parametrize("shape", DECODE_TIMED,
+                         ids=["7b_b4", "7b_b1_long", "70b", "falcon7b"])
+def test_decode_split_kernel_matches_plain_at_timed_shapes(
+        cuda, shape, dtype, tol, design, layout):
+    """The split kernel in each design against `_xla_decode` at every
+    shape chip_smoke.py times, in both layouts, at lengths
+    around the split size; the tgd cache is one layer's slice of a stacked
+    cache, read in place through its strides."""
+    b, g, qpk, d, T = shape
+    gen = torch.Generator(device=cuda).manual_seed(T + qpk)
+    q = torch.randn(b, 1, g, qpk, d, generator=gen, device=cuda).to(dtype)
+    if layout == "gtd":
+        k, v = (torch.randn(b, g, T, d, generator=gen, device=cuda).to(dtype)
+                for _ in range(2))
+    else:
+        k, v = (torch.randn(2, b, T, g, d, generator=gen,
+                            device=cuda).to(dtype)[1] for _ in range(2))
+    for length in _split_lengths(shape, dtype, design):
+        got = dec.decode_attention(q, k, v, length, layout=layout,
+                                   design=design)
+        ref = dec._xla_decode(q, k, v, length, layout)
+        torch.cuda.synchronize()
+        assert _max_err(got, ref) <= tol, f"length={length}"
+
+
+@pytest.mark.parametrize("layout", ["gtd", "tgd"])
+def test_decode_kernel_reads_no_position_past_length(cuda, layout):
+    """NaN past `length`, inside a split's last rows and in whole splits
+    past it, must not reach the output."""
+    for shape, length in (((2, 4, 2, 128, 64), 40),
+                          ((1, 32, 1, 128, 4096), 1000)):
+        b, g, qpk, d, T = shape
+        q, k, v = _qkv(b, g, qpk, d, T, cuda, torch.bfloat16)
+        k[:, :, length:] = float("nan")
+        v[:, :, length:] = float("nan")
+        got = dec.decode_attention(q, _to_layout(k, layout),
+                                   _to_layout(v, layout), length,
+                                   layout=layout)
+        assert torch.isfinite(got.float()).all()
+        assert _max_err(got, dec._xla_decode(
+            q, k[:, :, :length].contiguous(), v[:, :, :length].contiguous(),
+            length)) <= 2e-2
+
+
+@pytest.mark.parametrize("design", ["tensor_cores", "cuda_cores"])
+def test_decode_kernel_is_bitwise_repeatable(cuda, design):
+    """The splits merge in a fixed order: two runs give the same bits."""
+    q, k, v = _qkv(1, 32, 8, 128, 4096, cuda, torch.bfloat16, seed=4)
+    for length in (4096, 3001, 257):
+        a = dec.decode_attention(q, k, v, length, design=design)
+        b = dec.decode_attention(q, k, v, length, design=design)
+        assert torch.equal(a, b), length
+
+
+@pytest.mark.parametrize("design", ["tensor_cores", "cuda_cores"])
+def test_decode_kernel_graph_replays_at_device_lengths(cuda, design):
+    """One launch captured in a CUDA graph with the length in a 0-d int32
+    tensor on the card, replayed at three lengths, equals three eager
+    launches at those lengths."""
+    q, k, v = _qkv(4, 8, 8, 128, 2048, cuda, torch.bfloat16, seed=6)
+    n = torch.tensor(2048, dtype=torch.int32, device=cuda)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # warm-up, outside the capture
+        dec.decode_attention(q, k, v, n, design=design)
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = dec.decode_attention(q, k, v, n, design=design)
+    for length in (1, 700, 2048):
+        n.fill_(length)
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, dec.decode_attention(
+            q, k, v, length, design=design)), length
+
+
+def test_arrival_counters_are_per_stream_and_never_freed(cuda):
+    """The split kernels' arrival counters (K1, K7's tc design): a buffer
+    too small for a launch is replaced and the old one kept alive, since
+    a CUDA graph that captured a launch replays against its address; two
+    streams never share a buffer."""
+    small = pa.arrival_counters(cuda, 8)
+    big = pa.arrival_counters(cuda, small.numel() + 1)
+    assert big.numel() > small.numel()
+    assert any(x is small for x in pa._retired_counters)
+    assert pa.arrival_counters(cuda, 8) is big
+    side = torch.cuda.Stream()
+    with torch.cuda.stream(side):
+        other = pa.arrival_counters(cuda, 8)
+    assert other.data_ptr() != big.data_ptr()
+    assert not big.any() and not other.any()
 
 
 def test_decode_kernel_refuses_what_it_does_not_take(cuda):
-    q, k, v = _qkv(1, 1, 17, 128, 8, cuda, torch.float32)
+    q, k, v = _qkv(1, 1, 129, 128, 8, cuda, torch.float32)
     with pytest.raises(ValueError, match="qpk"):
         dec.decode_attention(q, k, v, 4)
     q, k, v = _qkv(1, 1, 1, 12, 8, cuda, torch.float32)
@@ -93,6 +206,13 @@ def test_decode_kernel_refuses_what_it_does_not_take(cuda):
     q, k, v = _qkv(1, 1, 1, 8, 8, cuda, torch.float32)
     with pytest.raises(ValueError, match="length"):
         dec.decode_attention(q, k, v, 9)
+    with pytest.raises(ValueError, match="layout"):
+        dec.decode_attention(q, k, v, 4, layout="tgd")  # as tgd: g would be 8
+    with pytest.raises(ValueError, match="design"):
+        dec.decode_attention(q, k, v, 4, design="tensor_cores")  # fp32
+    wide = torch.zeros(1, 1, 8, 16, device=cuda)
+    with pytest.raises(ValueError, match="16-byte"):
+        dec.decode_attention(q, wide[..., 2:10], wide[..., 2:10], 4)
 
 
 @pytest.mark.parametrize("n,h", [(4, 4096), (256, 4096), (7, 4096), (3, 300)])
@@ -278,13 +398,15 @@ def test_paged_path_kernels_on_matches_off(cuda):
     assert pa.ragged_paged_attention.launches - k7 == 9 * cfg.num_layers
 
 
-def int8_batch(name, g, qpk, d, dtype, device, seed=0):
+def int8_batch(name, g, qpk, d, dtype, device, seed=0, page=64,
+               max_pages=32):
     """`paged_batch` with int8 pools: the random pools quantized, then
     the chunks' K/V scattered through the quantizing scatter. Returns
     (q, k_pages, v_pages, pt, starts, lens, k_scales, v_scales)."""
     C, spans = PAGED_BATCHES[name]
     q, kp, vp, pt, starts, lens = paged_batch(name, g, qpk, d, dtype,
-                                              device, seed=seed)
+                                              device, seed=seed, page=page,
+                                              max_pages=max_pages)
     (kq, ks), (vq, vs) = quantize_rows(kp), quantize_rows(vp)
     gen = torch.Generator(device=device).manual_seed(seed + 1)
     new = [torch.randn(len(spans), C, g, d, generator=gen,
@@ -544,6 +666,28 @@ def test_paged_tc_covering_window_is_bitwise_no_window(cuda, batch):
                            base), kw
 
 
+@pytest.mark.parametrize("int8", [False, True], ids=["bf16", "int8"])
+def test_paged_tc_split_walks_replay_in_a_graph(cuda, int8):
+    """A decode round whose walks are split across blocks (merged by the
+    last split to arrive, which resets its counter), captured in a CUDA
+    graph and replayed twice, equals the eager launch bitwise."""
+    if int8:
+        q, kp, vp, pt, st, ln, ks, vs = int8_batch("decode", 2, 1, 128,
+                                                   torch.bfloat16, cuda)
+        args, kw = (q, kp, vp, pt, st, ln), dict(k_scales=ks, v_scales=vs)
+    else:
+        args, kw = paged_batch("decode", 2, 1, 128, torch.bfloat16, cuda), {}
+    assert pa.tc_split(args[3].shape[1], args[1].shape[1], 1, int8)[0] > 1
+    eager = pa.paged_attention(*args, **kw)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out = pa.paged_attention(*args, **kw)
+    for _ in range(2):
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, eager)
+
+
 # (q dtype, pool dtype, batch, qpk, page) -> the design `paged_design` names
 DESIGN_RULES = [
     (torch.bfloat16, torch.bfloat16, "mixed", 1, 64, "tc"),
@@ -553,7 +697,10 @@ DESIGN_RULES = [
     (torch.bfloat16, torch.bfloat16, "mixed", 2, 24, "tc"),
     (torch.bfloat16, torch.bfloat16, "mixed", 2, 12, "present"),
     (torch.float32, torch.float32, "mixed", 2, 64, "present"),
-    (torch.bfloat16, torch.int8, "mixed", 2, 64, "present"),
+    (torch.bfloat16, torch.int8, "mixed", 2, 64, "tc"),
+    (torch.bfloat16, torch.int8, "decode", 24, 16, "tc"),
+    (torch.bfloat16, torch.int8, "mixed", 2, 12, "present"),
+    (torch.float32, torch.int8, "mixed", 2, 64, "present"),
 ]
 
 
@@ -582,8 +729,8 @@ def test_paged_dispatch_runs_the_design_its_rule_names(cuda, qd, kvd, batch,
 
 
 def test_paged_kernel_takes_qpk_above_16_only_on_the_tc_design(cuda):
-    """bf16 pools at qpk 24 run; fp32 and int8 pools, bf16 pools of a
-    page the tc design does not take, and the present design named
+    """bf16 and int8 pools at qpk 24 run; fp32 pools, bf16 and int8 pools
+    of a page the tc design does not take, and the present design named
     outright, still raise above 16."""
     args = paged_batch("decode", 1, 24, 64, torch.bfloat16, cuda)
     pa.paged_attention(*args)
@@ -598,8 +745,188 @@ def test_paged_kernel_takes_qpk_above_16_only_on_the_tc_design(cuda):
         pa.paged_attention(*odd)
     q, kp, vp, pt, st, ln = args
     (kq, ks), (vq, vs) = quantize_rows(kp), quantize_rows(vp)
+    pa.paged_attention(q, kq, vq, pt, st, ln, ks, vs)
+    with pytest.raises(ValueError, match="qpk"):
+        pa.paged_attention(q, kq, vq, pt, st, ln, ks, vs, design="present")
+    q, kp, vp, pt, st, ln = odd
+    (kq, ks), (vq, vs) = quantize_rows(kp), quantize_rows(vp)
     with pytest.raises(ValueError, match="qpk"):
         pa.paged_attention(q, kq, vq, pt, st, ln, ks, vs)
+
+
+# K7's tc design with int8 pools: (g, qpk, d, page) at qpk 1, 8 and 71 and
+# pages 16 and 64
+INT8_TC_CASES = [(2, 1, 128, 64), (2, 1, 128, 16), (2, 8, 128, 64),
+                 (2, 8, 128, 16), (1, 71, 64, 64), (1, 71, 128, 16)]
+INT8_TC_FLOORS = {"none": {}, "window": {"window": 300},
+                  "doc": {"doc": True},
+                  "window_doc": {"window": 300, "doc": True}}
+# misrounded elements (see `_misrounded`) of the design an int8 tc case
+# is held against, summed over input draws until at least this many: one
+# small decode draw has about one, too few for a ratio to mean much
+INT8_MIN_MISROUNDS = 50
+INT8_MAX_DRAWS = 200
+
+
+def _paged_exact(q, k_pages, v_pages, page_table, starts, chunk_lens,
+                 k_scales, v_scales, window=None, doc_starts=None,
+                 pv_terms=None):
+    """K7 with int8 pools in float64 (exact dequantization, softmax and
+    products), pad rows zero. With `pv_terms`, p * v_scale (p before its
+    normalisation) enters the PV product as that many bf16 terms, each
+    the rounding of what the terms before it left, times the raw integer
+    V: the tc design keeps 3 (fp32's 24 bits); 1 is the bf16 operand it
+    must not fall to."""
+    nc, C, g, qpk, d = q.shape
+    T = page_table.shape[1] * k_pages.shape[1]
+    pt = page_table.long()
+    k = k_pages[pt].double() * k_scales[pt].double()[..., None]
+    k = k.reshape(nc, T, g, d).transpose(1, 2)
+    v = v_pages[pt].double().reshape(nc, T, g, d).transpose(1, 2)
+    vs = v_scales[pt].double().reshape(nc, T, g).transpose(1, 2)
+    tok = torch.arange(C * qpk, device=q.device) // qpk
+    cols = torch.arange(T, device=q.device)[None, None, :]
+    mask = cols > (starts.long()[:, None] + tok[None, :])[:, :, None]
+    lo = pa._row_floors(starts, C, qpk, window, doc_starts)
+    if lo is not None:
+        mask = mask | (cols < lo[:, :, None])
+    qb = q.double().permute(0, 2, 1, 3, 4).reshape(nc, g, C * qpk, d)
+    s = (qb @ k.transpose(-1, -2)) / d ** 0.5
+    s = s.masked_fill(mask[:, None], float("-inf"))
+    p = (s - s.amax(-1, keepdim=True)).exp().nan_to_num(0.0)
+    pv = p * vs[:, :, None, :]
+    if pv_terms is not None:
+        left, pv = pv, 0.0
+        for _ in range(pv_terms):
+            term = left.to(torch.bfloat16).double()
+            pv, left = pv + term, left - term
+    out = (pv @ v) / p.sum(-1, keepdim=True).clamp_min(1e-30)
+    out = out.masked_fill(~(tok[None, :] < chunk_lens[:, None])[:, None, :,
+                                                                  None], 0)
+    return out.reshape(nc, g, C, qpk, d).permute(0, 2, 1, 3, 4)
+
+
+def _nearest_bf16(x):
+    """float64 `x` correctly rounded to bf16 (torch's conversion rounds
+    twice, through fp32): the nearest of it and its two neighbours."""
+    best = x.to(torch.bfloat16)
+    bits = best.view(torch.int16)
+    for step in (-1, 1):
+        c = (bits + step).view(torch.bfloat16)
+        closer = (torch.isfinite(c) & (x != 0)
+                  & ((c.double() - x).abs() < (best.double() - x).abs()))
+        best = torch.where(closer, c, best)
+    return best
+
+
+def _misrounded(x, exact_bf16):
+    """Elements of a bf16 output that differ from the correctly rounded
+    exact answer: few for a design that keeps p in fp32 (those within its
+    fp32 error of a rounding boundary), many for one that loses precision
+    before the output's rounding, which a max-abs error, set by the
+    rounding of the largest outputs, does not show."""
+    return int((x != exact_bf16).sum().item())
+
+
+def _int8_tc_args(batch, g, qpk, d, page, floors, device, seed=0):
+    q, kp, vp, pt, st, ln, ks, vs = int8_batch(
+        batch, g, qpk, d, torch.bfloat16, device, seed=seed, page=page,
+        max_pages=-(-2048 // page))
+    kw = {"k_scales": ks, "v_scales": vs, "window": floors.get("window"),
+          "doc_starts": (st - st // 3).contiguous() if floors.get("doc")
+          else None}
+    return (q, kp, vp, pt, st, ln), kw
+
+
+@pytest.mark.parametrize("floors", sorted(INT8_TC_FLOORS))
+@pytest.mark.parametrize("g,qpk,d,page", INT8_TC_CASES)
+@pytest.mark.parametrize("batch", sorted(PAGED_BATCHES))
+def test_paged_int8_tc_matches_plain_within_twice_the_present_error(
+        cuda, batch, g, qpk, d, page, floors):
+    """Int8 pools on the tc design (the design `paged_design` names for
+    them): the elements it rounds otherwise than the exact answer
+    (`_misrounded`) at most twice the present design's on the same inputs
+    (qpk <= 16; the plain version's, which keeps p in fp32 too, at qpk
+    71), summed over input draws until the yardstick's count reaches
+    INT8_MIN_MISROUNDS; a control with p * v_scale as one bf16 term fails
+    that bar; the two designs apart on no more elements than the bar and
+    the yardstick's own misrounds; output bf16 within 2e-2 of the plain
+    version, pad rows exact zeros, the launch counted under "tc" and
+    "int8"."""
+    assert pa.paged_design(torch.bfloat16, torch.int8, page) == "tc"
+    yard = "present" if qpk <= 16 else "plain"
+    count = dict.fromkeys(("tc", yard, "control", "apart"), 0)
+    for draw in range(INT8_MAX_DRAWS):
+        args, kw = _int8_tc_args(batch, g, qpk, d, page,
+                                 INT8_TC_FLOORS[floors], cuda,
+                                 seed=qpk + page + 1000 * draw)
+        before = dict(pa.ragged_paged_attention.variant_launches)
+        got = pa.paged_attention(*args, **kw)
+        ref = pa._xla_paged_reference(*args, **kw)
+        torch.cuda.synchronize()
+        after = pa.ragged_paged_attention.variant_launches
+        assert after["tc"] == before["tc"] + 1
+        assert after["int8"] == before["int8"] + 1
+        assert got.dtype == torch.bfloat16 and got.shape == args[0].shape
+        assert torch.isfinite(got.float()).all()
+        assert _max_err(got, ref) <= 2e-2
+        pad = torch.arange(args[0].shape[1], device=cuda)[None, :] \
+            >= args[5][:, None]
+        assert (got[pad] == 0).all()
+        exact = _nearest_bf16(_paged_exact(*args, **kw))
+        other = ref if yard == "plain" else pa.paged_attention(
+            *args, **kw, design="present")
+        control = _paged_exact(*args, **kw, pv_terms=1).to(torch.bfloat16)
+        count["tc"] += _misrounded(got, exact)
+        count[yard] += _misrounded(other, exact)
+        count["control"] += _misrounded(control, exact)
+        count["apart"] += int((got != other).sum().item())
+        if count[yard] >= INT8_MIN_MISROUNDS:
+            break
+    assert count[yard] >= INT8_MIN_MISROUNDS, count
+    assert count["tc"] <= 2 * count[yard], count
+    assert count["control"] > 2 * count[yard], count
+    assert count["apart"] <= 3 * count[yard], count
+
+
+@pytest.mark.parametrize("floors", ["window", "doc"])
+@pytest.mark.parametrize("page", [16, 64])
+@pytest.mark.parametrize("batch", sorted(PAGED_BATCHES))
+def test_paged_int8_tc_reads_nothing_outside_each_chunks_reach(
+        cuda, batch, page, floors):
+    """Int8 pools on the tc design: NaN in the scale pools (and the
+    extreme int8 value in the pools) at every position below each chunk's
+    floor (table entries of pages wholly below it reclaimed to the null
+    page), at every owned position at or past the chunk's end, in every
+    page no chunk owns and in the null page: the output is bitwise the
+    clean one."""
+    args, kw = _int8_tc_args(batch, 2, 24, 128, page, INT8_TC_FLOORS[floors],
+                             cuda)
+    clean = pa.paged_attention(*args, **kw)
+    q, kp, vp, pt, st, ln = args
+    ks, vs = kw["k_scales"], kw["v_scales"]
+    owned = torch.zeros(kp.shape[0], dtype=torch.bool, device=cuda)
+    owned[pt.long().flatten()] = True
+    owned[0] = False
+    for x, fill in ((kp, -128), (vp, -128), (ks, float("nan")),
+                    (vs, float("nan"))):
+        x[~owned] = fill
+        x[0] = fill
+    for c in range(pt.shape[0]):
+        lo = max(int(st[c]) - kw["window"] + 1, 0) if kw["window"] else 0
+        if kw["doc_starts"] is not None:
+            lo = max(lo, int(kw["doc_starts"][c]))
+        end = int(st[c] + ln[c])
+        for pos in list(range(lo)) + list(range(end, pt.shape[1] * page)):
+            pg = int(pt[c, pos // page])
+            for x, fill in ((kp, -128), (vp, -128), (ks, float("nan")),
+                            (vs, float("nan"))):
+                x[pg, pos % page] = fill
+        pt[c, :lo // page] = 0
+    dirty = pa.paged_attention(q, kp, vp, pt, st, ln, **kw)
+    torch.cuda.synchronize()
+    assert torch.isfinite(dirty.float()).all()
+    assert torch.equal(dirty, clean)
 
 
 # ---------------------------------------------------------------------------

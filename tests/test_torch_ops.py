@@ -37,23 +37,130 @@ def _qkv(b, g, qpk, d, T, dtype=np.float32, seed=0):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("g,qpk", [(4, 1), (2, 2), (1, 8)],
-                         ids=["mha", "gqa", "mqa8"])
-def test_decode_plain_matches_pallas_kernel_and_xla(g, qpk):
+def _layout(x, layout):
+    """A (b, g, T, d) cache in `layout`: as it is, or as (b, T, g, d)."""
+    return x if layout == "gtd" else np.ascontiguousarray(x.swapaxes(1, 2))
+
+
+def _jax_refs(q, k, v, length, layout):
+    """JAX's Pallas decode kernel (interpreted, 32-wide blocks) and its XLA
+    twin on the same cache."""
+    args = (jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.int32(length))
+    return (jax_decode_attention(*args, layout=layout, use_pallas=True,
+                                 block_t=32, interpret=True),
+            jax_xla_decode(*args, layout))
+
+
+@pytest.mark.parametrize("layout", ["gtd", "tgd"])
+@pytest.mark.parametrize("g,qpk", [(4, 1), (2, 2), (1, 8), (1, 71), (1, 128)],
+                         ids=["mha", "gqa", "mqa8", "qpk71", "qpk128"])
+def test_decode_plain_matches_pallas_kernel_and_xla(g, qpk, layout):
     """fp32, 1e-5: the port's plain decode against the JAX Pallas kernel
     (interpreted) and its XLA twin, at lengths that start, straddle and
-    end the kernel's 32-wide cache blocks."""
+    end the kernel's 32-wide cache blocks, in both cache layouts, up to
+    the kernel's 128 folded rows."""
     T = 96
     q, k, v = _qkv(2, g, qpk, 128, T, seed=qpk)
+    k, v = _layout(k, layout), _layout(v, layout)
     for length in (1, 31, 33, 96):
-        got = dec.decode_attention(t(q), t(k), t(v), length).numpy()
-        ref_kernel = jax_decode_attention(
-            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.int32(length),
-            layout="gtd", use_pallas=True, block_t=32, interpret=True)
-        ref_xla = jax_xla_decode(jnp.asarray(q), jnp.asarray(k),
-                                 jnp.asarray(v), jnp.int32(length), "gtd")
+        got = dec.decode_attention(t(q), t(k), t(v), length,
+                                   layout=layout).numpy()
+        ref_kernel, ref_xla = _jax_refs(q, k, v, length, layout)
         close(got, ref_kernel, 1e-5, f"kernel length={length}")
         close(got, ref_xla, 1e-5, f"xla length={length}")
+
+
+@pytest.mark.parametrize("layout", ["gtd", "tgd"])
+@pytest.mark.parametrize("qpk", [1, 8, 71, 128])
+def test_decode_plain_takes_a_tensor_length(qpk, layout):
+    """`length` as a 0-d int32 tensor (the kernel reads it on the card, so
+    one captured launch replays at any length): the same answer as the
+    int, and as the JAX kernel (interpreted) and its XLA twin, 1e-5."""
+    T = 64
+    q, k, v = _qkv(2, 1, qpk, 128, T, seed=50 + qpk)
+    k, v = _layout(k, layout), _layout(v, layout)
+    for length in (1, 33, 64):
+        n = torch.tensor(length, dtype=torch.int32)
+        got = dec.decode_attention(t(q), t(k), t(v), n, layout=layout)
+        np.testing.assert_array_equal(
+            got.numpy(), dec.decode_attention(t(q), t(k), t(v), length,
+                                              layout=layout).numpy())
+        ref_kernel, ref_xla = _jax_refs(q, k, v, length, layout)
+        close(got.numpy(), ref_kernel, 1e-5, f"kernel length={length}")
+        close(got.numpy(), ref_xla, 1e-5, f"xla length={length}")
+
+
+def test_decode_tgd_reads_a_stacked_cache_slice_in_place():
+    """One layer's (b, T, g, d) slice of a stacked (L, b, T, g, d) cache,
+    taken as a view: the plain version reads it where it lies (no copy)
+    and equals the JAX kernel (interpreted) and its XLA twin on the same
+    slice, 1e-5."""
+    rs = np.random.RandomState(11)
+    L, b, T, g, qpk, d = 3, 2, 64, 2, 4, 128
+    ks = rs.randn(L, b, T, g, d).astype(np.float32)
+    vs = rs.randn(L, b, T, g, d).astype(np.float32)
+    q = rs.randn(b, 1, g, qpk, d).astype(np.float32)
+    kst, vst = t(ks), t(vs)
+    k1, v1 = kst[1], vst[1]
+    assert k1._base is kst and k1.data_ptr() == kst.data_ptr() \
+        + b * T * g * d * kst.element_size()
+    got = dec.decode_attention(t(q), k1, v1, 40, layout="tgd").numpy()
+    ref_kernel, ref_xla = _jax_refs(q, ks[1], vs[1], 40, "tgd")
+    close(got, ref_kernel, 1e-5, "kernel")
+    close(got, ref_xla, 1e-5, "xla")
+
+
+def test_decode_layout_is_checked():
+    q, k, v = _qkv(1, 1, 1, 8, 4)
+    with pytest.raises(ValueError, match="layout"):
+        dec.decode_attention(t(q), t(k), t(v), 3, layout="bgtd")
+
+
+@pytest.mark.parametrize("dtype,qpk,design", [
+    (torch.bfloat16, 1, "cuda_cores"), (torch.bfloat16, 2, "cuda_cores"),
+    (torch.bfloat16, 4, "tensor_cores"), (torch.bfloat16, 8, "tensor_cores"),
+    (torch.bfloat16, 71, "tensor_cores"), (torch.float32, 8, "cuda_cores"),
+    (torch.float32, 128, "cuda_cores")])
+def test_decode_design_reads_dtype_and_qpk(dtype, qpk, design):
+    """K1's tensor-core design takes bf16 at qpk >= 4; fp32 (every product
+    in fp32) and bf16 at fewer heads a group run on CUDA cores."""
+    assert dec.decode_design(dtype, qpk) == design
+
+
+def _check_args(qpk, layout="gtd", dtype=torch.float32, d=16):
+    """The operands `_check` inspects, on the CPU (it reads shapes, dtypes
+    and strides only)."""
+    q = torch.zeros(2, 1, 3, qpk, d, dtype=dtype)
+    k = torch.zeros(2, 3, 40, d, dtype=dtype)
+    if layout == "tgd":
+        k = torch.zeros(4, 2, 40, 3, d, dtype=dtype)[1]  # a stacked slice
+    return q, k, k.clone()
+
+
+@pytest.mark.parametrize("layout", ["gtd", "tgd"])
+@pytest.mark.parametrize("qpk", [1, 16, 17, 71, 128, 129])
+def test_decode_kernel_takes_qpk_up_to_128_in_both_layouts(qpk, layout):
+    """The kernel's checks: 1..128 heads a group (MAX_DECODE_ROWS), either
+    layout (a tgd cache as a strided slice of a stacked one), a host length
+    within the cache or a 0-d int32 tensor; the tensor-core design only
+    for bf16."""
+    q, k, v = _check_args(qpk, layout)
+    length = torch.tensor(7, dtype=torch.int32)
+    if qpk > 128:
+        with pytest.raises(ValueError, match="qpk"):
+            dec._check(q, k, v, 7, layout, "cuda_cores")
+        return
+    for n in (7, length):
+        dec._check(q, k, v, n, layout, "cuda_cores")
+    with pytest.raises(ValueError, match="length"):
+        dec._check(q, k, v, 41, layout, "cuda_cores")
+    with pytest.raises(ValueError, match="length"):
+        dec._check(q, k, v, length.long(), layout, "cuda_cores")
+    with pytest.raises(ValueError, match="design"):
+        dec._check(q, k, v, 7, layout, "tensor_cores")
+    other = "tgd" if layout == "gtd" else "gtd"
+    with pytest.raises(ValueError, match="layout"):
+        dec._check(q, k, v, 7, other, "cuda_cores")
 
 
 def test_decode_prefill_rows_are_causal():

@@ -8,7 +8,8 @@ and with the window (off, binding, covering) and document floors, and at
 qpk above 16 (24, and Falcon-7B's 71); `scatter_chunk_kv` on its own
 (int8: bitwise); the null-page contract and the columns below each
 chunk's floor; the refusals; the rule that picks K7's design from
-dtypes and page size, and the qpk limit that follows from it."""
+dtypes and page size (int8 pools at a page that is a multiple of 8 run
+the tensor-core design), and the qpk limit that follows from it."""
 
 import jax
 import jax.numpy as jnp
@@ -175,14 +176,16 @@ def test_nan_outside_the_chunks_reach_never_reaches_the_output(batch):
     np.testing.assert_array_equal(out.numpy(), clean.numpy())
 
 
-@pytest.mark.parametrize("qpk", [1, 4])
+@pytest.mark.parametrize("qpk", [1, 4, 16, 71])
 @pytest.mark.parametrize("batch", sorted(BATCHES))
 @pytest.mark.parametrize("jax_path", ["pallas_interpret", "xla_twin"])
 def test_int8_pools_match_jax(batch, qpk, jax_path):
     """int8 pools with their scale pools: the port's plain version (the
     dequantized gathered view) within 1e-5 of the JAX kernel under the
-    interpreter and of its XLA twin; the pools and scale pools after
-    the quantizing scatter are bitwise JAX's, null page aside."""
+    interpreter and of its XLA twin, up to and past 16 heads a group
+    (Falcon-7B's qpk 71, which the tc design serves with int8 pools); the
+    pools and scale pools after the quantizing scatter are bitwise JAX's,
+    null page aside."""
     case = _case(batch, qpk, seed=20 + qpk, int8=True)
     out, kp, vp, ks, vs = _port(case)
     ref, jkp, jvp, jks, jvs = _jax(case, jax_path == "pallas_interpret")
@@ -306,20 +309,26 @@ def test_matches_jax_above_16_heads_per_group(batch, qpk):
     (torch.bfloat16, torch.bfloat16, 12, "present"),
     (torch.bfloat16, torch.bfloat16, 1, "present"),
     (torch.float32, torch.float32, 64, "present"),
-    (torch.bfloat16, torch.int8, 64, "present"),
+    (torch.bfloat16, torch.int8, 64, "tc"),
+    (torch.bfloat16, torch.int8, 32, "tc"),
+    (torch.bfloat16, torch.int8, 8, "tc"),
+    (torch.bfloat16, torch.int8, 12, "present"),
+    (torch.bfloat16, torch.int8, 4, "present"),
     (torch.float32, torch.int8, 16, "present"),
 ])
 def test_design_choice_reads_dtypes_and_page_size(q_dtype, kv_dtype, page,
                                                   design):
-    """K7's tensor-core design takes bf16 q with bf16 pools whose page is
-    a multiple of 8; everything else runs the present design."""
+    """K7's tensor-core design takes bf16 q with bf16 or int8 pools whose
+    page is a multiple of 8; everything else runs the present design."""
     assert pa.paged_design(q_dtype, kv_dtype, page) == design
 
 
 _KINDS = {"bf16": (torch.bfloat16, torch.bfloat16, 16),
           "fp32": (torch.float32, torch.float32, 16),
           "int8": (torch.bfloat16, torch.int8, 16),
-          "bf16_page12": (torch.bfloat16, torch.bfloat16, 12)}
+          "bf16_page12": (torch.bfloat16, torch.bfloat16, 12),
+          "int8_page12": (torch.bfloat16, torch.int8, 12),
+          "int8_fp32_q": (torch.float32, torch.int8, 16)}
 
 
 def _check_args(kind, C, qpk):
@@ -341,12 +350,13 @@ def _check_args(kind, C, qpk):
 @pytest.mark.parametrize("qpk", [1, 16, 17, 71])
 @pytest.mark.parametrize("kind", sorted(_KINDS))
 def test_qpk_limit_follows_the_design(kind, qpk, C):
-    """bf16 pools of a page the tc design takes serve any qpk at any
-    chunk width; fp32 and int8 pools and other pages (the present
-    design) raise above 16, and naming the tc design for them raises."""
+    """bf16 q with bf16 or int8 pools of a page the tc design takes serve
+    any qpk at any chunk width; fp32 pools, fp32 q and other pages (the
+    present design) raise above 16, and naming the tc design for them
+    raises."""
     q, kp = _check_args(kind, C, qpk)[:2]
     design = pa.paged_design(q.dtype, kp.dtype, kp.shape[1])
-    assert design == ("tc" if kind == "bf16" else "present")
+    assert design == ("tc" if kind in ("bf16", "int8") else "present")
     args = _check_args(kind, C, qpk)
     if design == "present" and qpk > 16:
         with pytest.raises(ValueError, match="qpk"):
@@ -356,3 +366,18 @@ def test_qpk_limit_follows_the_design(kind, qpk, C):
     if design == "present":
         with pytest.raises(ValueError, match="tc design"):
             pa._check(*_check_args(kind, C, min(qpk, 16)), "tc")
+
+
+@pytest.mark.parametrize("max_pages,page,rows,int8,want", [
+    (32, 64, 1, False, (5, 8)),        # the engine's decode round
+    (32, 64, 256, False, (1, 1 << 30)),  # its mixed round: no split
+    (32, 64, 256, True, (5, 8)),       # int8 pools split at any width
+    (128, 16, 8, False, (5, 8)),       # the same reach in pages of 16
+    (512, 64, 1, False, (16, 33)),     # 32768 positions: 16 splits
+    (2, 64, 1, False, (1, 8)),         # a short table: one split
+])
+def test_tc_split_reads_shapes_alone(max_pages, page, rows, int8, want):
+    """The tc design cuts a walk into splits of 8 key tiles (at most 16
+    splits) for decode-width launches and int8 pools, from the page
+    table's width, the folded rows and the pool dtype alone."""
+    assert pa.tc_split(max_pages, page, rows, int8) == want
