@@ -40,26 +40,34 @@ Phases, one output line each (a failure raises and exits non-zero):
 4. model: Llama-2-7B at full width and depth, random bf16 weights from a
    fixed seed on the card, built once for every route;
 5. serving (whole-batch route, `MegatronServer(engine=None)`): a greedy
-   batch of 4 prompts, a sampled, a score-only and a beam request. The
-   launch counters are set to 0 before the requests and read after; the
-   decode kernel must have run 32 times per decode step, the flash
-   forward 32 times (the score-only request's no-cache forward);
+   batch of 4 prompts, a sampled, a score-only and a beam request; each
+   decode step of the first two replays one captured CUDA graph. The
+   launch counters (which replays move as launches do) are set to 0
+   before the requests and read after; the decode kernel must have run
+   32 times per replayed decode step, the flash forward 32 times (the
+   score-only request's no-cache forward);
 6. path check: the greedy output teacher-forced back through the same
    cached decode path with the kernels off (plain RMSNorm, plain decode
    attention) on the card; log-probs within 5e-2 max-abs. Greedy tokens
    are not required to match (a random-init 7B has near-flat logits, so
    argmax flips on bf16 rounding): their match fraction is printed;
-7. throughput of the greedy batch: prefill ms, decode ms per step beside
-   the weight-streaming floor, tokens/s;
+7. throughput of the greedy batch: prefill ms, the call's capture
+   seconds, decode ms per step, the card's ms per decode forward beside
+   the weight-streaming floor, tokens/s, and, from the same call run
+   again under torch.profiler (CUDA activity only), the card's busy ms
+   in that call and its idle share 1 - busy/wall;
 8. serving_engine (the continuous-batching route, `MegatronServer(
    engine=DecodeEngine(...))` at the launcher's defaults: 8 slots, page
    64, max_context 2048, horizon 8, chunks of 256, prefix cache on): 16
    requests from concurrent client threads, more than the slots, with
    prompts of 20 to 1500 ids, two sharing a 700-token prefix, one
-   sampled and one streamed over SSE. The counters are set to 0 before
-   the traffic: the paged kernel must have run 32 times per paged
-   forward (every launch its tc design), the RMSNorm kernel too, the
-   decode kernel not at all; the
+   sampled and one streamed over SSE. Every engine of phases 8-14b
+   captures each round bucket at `start()` (`warmup_compile=True`; the
+   window phase, drained without a serve thread, calls `warmup()`) and
+   replays a CUDA graph for every round. The counters are set to 0
+   before the traffic: the paged kernel must have run 32 times per paged
+   forward of the engine's round log (every launch its tc design), the
+   RMSNorm kernel too, the decode kernel not at all; the
    prefix cache must show a hit and a copy-on-write copy, and every page
    must be free or cached at the end;
 9. path_check_engine: the engine's greedy outputs that asked for
@@ -67,9 +75,24 @@ Phases, one output line each (a failure raises and exits non-zero):
    log-probs within 5e-2 max-abs, greedy-token match fraction printed;
 10. throughput_engine: wall time and generated tokens/s over the whole
    traffic, ms per decode-token advance and per mixed round, TTFT p50,
-   the device ms of one 8-slot paged decode step beside the weight floor
-   and the idle share, the device ms of one mixed round's paged forward
-   and K7's part of it (torch.profiler), peak memory;
+   the device ms of one 8-slot paged decode step beside the weight
+   floor, the device ms of one mixed round's paged forward and K7's part
+   of it (torch.profiler), peak memory;
+10b. graph_capture: 8 of the engine's greedy requests queued and drained
+   by the bf16 engine with every round called eagerly (the private
+   `_eager`) and with every round a replayed graph, and phase 5's greedy
+   batch decoded eagerly (`_eager=True`) and captured, in this one call:
+   captured streams equal to eager token for token, equal page and
+   prefix-cache accounting, ms per decode advance (and per mixed round)
+   of each, the card's busy ms over the drained window (torch.profiler,
+   CUDA activity only, the drain itself traced) and the idle share
+   1 - busy/wall of that window (the whole-batch call likewise), the
+   card's ms of one 8-slot decode round of 8 steps at 1000 positions
+   (eager: its kernels in a torch.profiler trace; captured: replays on
+   CUDA events) with its top kernels, the graphs, capture seconds and
+   the reserved memory warmup added; one captured round
+   replayed under `torch.cuda.set_sync_debug_mode("error")`; a captured
+   decode advance must be faster than an eager one on both routes;
 11. serving_engine_int8: the same traffic through the same server with
    int8 pools and int8 weights (`kv_dtype="int8"`,
    `quantize_weights=True`); every K7 launch the int8 variant on the tc
@@ -140,9 +163,14 @@ from megatron_llm_tpu_torch.config import (
     TrainConfig,
     llama_config,
 )
-from megatron_llm_tpu_torch.inference.engine import DecodeEngine
+from megatron_llm_tpu_torch.inference.engine import (
+    DecodeEngine,
+    horizon_buckets,
+    mixed_width_buckets,
+)
 from megatron_llm_tpu_torch.inference.generation import (
     bucket_prefill_len,
+    decode_log,
     generate_tokens,
     score_tokens,
 )
@@ -218,7 +246,8 @@ def device_ms(fn, per_graph=50, replays=10) -> float:
             fn()
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    # on the warm-up stream: its arrival counters are sized already
+    with torch.cuda.graph(graph, stream=side):
         for _ in range(per_graph):
             fn()
     graph.replay()
@@ -239,20 +268,36 @@ def profiled_ms(fn, iters=20, warmup=3) -> float:
     through autograd (a library backward), which a CUDA graph does not
     capture here and which CUDA events around the calls would time at the
     host's launch rate."""
+    for _ in range(warmup - 1):
+        fn()
+    return top_kernels(fn, calls=iters)[0] or 0.0
+
+
+def top_kernels(fn, calls=3, n=10):
+    """(device ms per call, [[kernel, ms per call]] of the n largest) in a
+    torch.profiler trace of `calls` calls after one warm-up; (None, [])
+    when the trace shows no device time (a graph replay whose kernels
+    the profiler does not see)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    for _ in range(warmup):
-        fn()
+    fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        for _ in range(iters):
+        for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.time_range.end - e.time_range.start for e in prof.events()
-             if e.device_type == DeviceType.CUDA)
-    return us / iters / 1e3
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            us = e.time_range.end - e.time_range.start
+            kernels[e.name] = kernels.get(e.name, 0.0) + us
+    if not kernels:
+        return None, []
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:n]
+    return (sum(kernels.values()) / calls / 1e3,
+            [[k[:100], round(us / calls / 1e3, 4)] for k, us in top])
 
 
 def rotating(make, n):
@@ -1132,22 +1177,90 @@ def _launch(fn, inputs, **extra):
 # ---------------------------------------------------------------------------
 
 
-class ForwardClock:
-    """Wraps model.forward: counts single-token forwards and times each
-    forward on the host clock between synchronisations."""
+def busy_window(fn):
+    """`fn()` under torch.profiler with CUDA activity only (the host's
+    launches pay no per-op recording): (its result, wall s, the card's
+    busy s in that window: the union of its kernels' and copies'
+    intervals; None when the trace shows no device activity)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
 
-    def __init__(self, model):
-        self.inner = model.forward
-        self.calls = []  # (s, start, end)
-        model.forward = self
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # the raw events: the parsed event list of a drained window's
+    # hundreds of thousands of kernels takes the host minutes
+    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
+                   for e in prof.profiler.kineto_results.events()
+                   if e.device_type() == DeviceType.CUDA)
+    busy, end = 0, 0
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return out, wall, (busy / 1e9 if spans else None)
 
-    def __call__(self, params, tokens, *args, **kw):
+
+def replay_ms(fn, n=20):
+    """Mean ms per call of `fn` (a graph replay) on CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return a.elapsed_time(b) / n
+
+
+def whole_batch_timing(model, params, toks, lens, kw, eager=False):
+    """A warm `generate_tokens` call (captured, or `_eager`), timed: wall
+    ms, the prefill forward's ms alone, the call's capture seconds (its
+    warm-up steps included; 0 eager), decode steps and ms per step (wall
+    less prefill and capture); then the same call again under
+    torch.profiler: its wall, the card's busy ms in it, the idle share
+    1 - busy/wall of that traced window and, beside it, over the timed
+    call's wall (the trace slows the host's side: the lower bound).
+    Returns (record, output)."""
+    def call():
+        return generate_tokens(model, params, toks, lens, _eager=eager,
+                               **kw)
+    call()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = call()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rec = decode_log[-1]
+    _, p_wall, busy = busy_window(call)
+    with torch.inference_mode():
+        dp = model.prepare_decode_params(params)
+        caches = model.init_kv_caches(*toks.shape)
+        prefix = torch.from_numpy(toks[:, :kw["prefill_len"]]).long().cuda()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        out = self.inner(params, tokens, *args, **kw)
+        model.forward(dp, prefix, kv_caches=caches)
         torch.cuda.synchronize()
-        self.calls.append((tokens.shape[1], t0, time.perf_counter()))
-        return out
+        prefill = time.perf_counter() - t0
+    capture = rec["capture_s"]
+    return {"wall_ms": wall * 1e3, "prefill_ms": prefill * 1e3,
+            "capture_ms": capture * 1e3,
+            "static_cache_bytes": rec["cache_bytes"],
+            "decode_steps": rec["steps"],
+            "decode_ms_per_step": (wall - prefill - capture)
+            / rec["steps"] * 1e3,
+            "profiled_wall_ms": p_wall * 1e3,
+            "device_busy_ms": busy * 1e3 if busy else "not measured",
+            "device_idle_share_traced": 1 - busy / p_wall if busy
+            else "not measured",
+            "device_idle_share_untraced_wall": 1 - busy / wall if busy
+            else "not measured",
+            "captured": rec["captured"]}, out
 
 
 def put(port, payload):
@@ -1185,23 +1298,28 @@ def serve_whole_batch(kernels, cfg, model, params, weight_bytes):
     server = MegatronServer(model, params, tok, engine=None)
     server.run("127.0.0.1", 0, block=False)
     port = server._httpd.server_address[1]
-    clock = ForwardClock(model)
     rs = np.random.RandomState(SEED)
     lens = [20, 75, 130, 200]
     prompts = [" ".join(map(str, rs.randint(0, 31999, n))) for n in lens]
     try:
         zero_counts()
 
-        # greedy batch
-        clock.calls.clear()
+        # greedy batch: each decode step one replay of a captured graph
+        decode_log.clear()
         t_req = time.perf_counter()
         greedy = put(port, {"prompts": prompts, "tokens_to_generate": 64,
                             "logprobs": True, "top_k": 1})
         t_req = time.perf_counter() - t_req
-        steps = sum(1 for s, _, _ in clock.calls if s == 1)
+        calls = list(decode_log)
+        steps = sum(r["steps"] for r in calls)
+        warm = sum(r["warmup_steps"] for r in calls)
         k1_greedy = dec.decode_attention.launches
-        check(k1_greedy == cfg.num_layers * steps,
-              f"K1 launches {k1_greedy} != {cfg.num_layers} x {steps} steps")
+        check(len(calls) == 1 and calls[0]["captured"] and steps > 0,
+              f"the whole-batch decode did not replay a captured step: "
+              f"{calls}")
+        check(k1_greedy == cfg.num_layers * (steps + warm),
+              f"K1 launches {k1_greedy} != {cfg.num_layers} x ({steps} "
+              f"replayed + {warm} warm-up steps)")
         out_ids = [list(map(int, t.split())) for t in greedy["text"]]
         for ids, n, p in zip(out_ids, lens, prompts):
             check(ids[:n] == list(map(int, p.split())), "prompt echoed")
@@ -1235,7 +1353,8 @@ def serve_whole_batch(kernels, cfg, model, params, weight_bytes):
               and fa.flash_bwd_dq.launches == fa.flash_bwd_dkv.launches == 0,
               f"flash launches {launches}")
         say("serving", requests=["greedy", "sampled", "score", "beam"],
-            greedy_decode_steps=steps, decode_attention_launches_greedy=k1_greedy,
+            greedy_decode_steps=steps, greedy_warmup_steps=warm,
+        decode_attention_launches_greedy=k1_greedy,
             launches=launches, greedy_request_s=round(t_req, 3))
     finally:
         server.stop()
@@ -1248,7 +1367,6 @@ def serve_whole_batch(kernels, cfg, model, params, weight_bytes):
     # phase 6: the greedy output teacher-forced back through the same
     # cached decode path (same prefill bucket, same GEMM shapes) with both
     # kernels off, so that the kernels are the only difference
-    model.forward = clock.inner
     plain = LlamaModel(dataclasses.replace(cfg, use_fused_rmsnorm=False,
                                            use_decode_attn=False,
                                            use_flash_attn=False))
@@ -1282,35 +1400,35 @@ def serve_whole_batch(kernels, cfg, model, params, weight_bytes):
 
     # phase 7: throughput of the greedy batch, run again outside the
     # server with the kernels on, warm (cuBLAS and Triton have seen these
-    # shapes): once on the wall clock, once with every forward timed
-    t0 = time.perf_counter()
-    generate_tokens(model, params, toks0, lens0, **kw)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    clock = ForwardClock(model)
-    generate_tokens(model, params, toks0, lens0, **kw)
-    model.forward = clock.inner
-    prefill = [e - s0 for s, s0, e in clock.calls if s > 1]
-    steps = [(s0, e) for s, s0, e in clock.calls if s == 1]
-    decode_s = steps[-1][1] - steps[0][0]
-    # the card's own time for one decode step: a single-token 7B forward
-    # (kernels on, cache length 300 of 320) captured in a CUDA graph
+    # shapes, the step is captured)
+    rec, _ = whole_batch_timing(model, params, toks0, lens0, kw)
+    # the card's own time for one decode forward alone: a single-token 7B
+    # forward (kernels on, cache length 300 of 320) captured in a graph
     with torch.inference_mode():
         dp = model.prepare_decode_params(params)
         caches = dict(model.init_kv_caches(4, toks0.shape[1]), offset=299)
         tok1 = torch.from_numpy(toks0[:, 299:300]).long().to(model.device)
-        step_device_ms = device_ms(
+        forward_device_ms = device_ms(
             lambda: model.forward(dp, tok1, kv_caches=caches),
             per_graph=4, replays=5)
+    wall = rec["wall_ms"] / 1e3
     say("throughput", batch=4, prefill_tokens=kw["prefill_len"],
-        decode_steps=len(steps), prefill_ms=prefill[0] * 1e3,
-        decode_ms_per_step=decode_s / len(steps) * 1e3,
-        decode_step_device_ms=step_device_ms,
-        device_idle_share=1 - step_device_ms / (decode_s / len(steps) * 1e3),
+        decode_steps=rec["decode_steps"], prefill_ms=rec["prefill_ms"],
+        capture_ms=rec["capture_ms"],
+        decode_ms_per_step=rec["decode_ms_per_step"],
+        decode_forward_device_ms=forward_device_ms,
+        profiled_call_wall_ms=rec["profiled_wall_ms"],
+        profiled_call_device_busy_ms=rec["device_busy_ms"],
+        profiled_call_device_idle_share=rec["device_idle_share_traced"],
+        device_idle_share_untraced_wall=rec[
+            "device_idle_share_untraced_wall"],
         weight_stream_floor_ms=weight_bytes / HBM_BYTES_PER_S * 1e3,
         generate_s=wall, requested_tokens_per_s=4 * 64 / wall,
-        decoded_tokens_per_s=4 * len(steps) / decode_s,
+        decoded_tokens_per_s=4 * rec["decode_steps"] / (
+            wall - rec["prefill_ms"] / 1e3 - rec["capture_ms"] / 1e3),
+        static_cache_bytes=rec["static_cache_bytes"],
         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    return toks0, lens0, kw
 
 
 # ---------------------------------------------------------------------------
@@ -1318,20 +1436,11 @@ def serve_whole_batch(kernels, cfg, model, params, weight_bytes):
 # ---------------------------------------------------------------------------
 
 
-class PagedForwards:
-    """Wraps model.forward and counts the paged forwards (the engine's
-    rounds run one per decode step or mixed round), without syncing."""
-
-    def __init__(self, model):
-        self.inner = model.forward
-        self.paged = 0
-        model.forward = self
-
-    def __call__(self, params, tokens, *args, **kw):
-        kv = kw.get("kv_caches")
-        if kv is not None and "k_pages_layers" in kv:
-            self.paged += 1
-        return self.inner(params, tokens, *args, **kw)
+def paged_forwards(rounds):
+    """The paged forwards an engine's rounds ran (a decode round one a
+    step of its horizon, a mixed or verify round one), from its round
+    log: replayed graphs call no Python forward to count."""
+    return sum(r["decode_steps"] for r in rounds)
 
 
 def put_raw(port, payload):
@@ -1396,10 +1505,12 @@ def engine_traffic():
 
 def engine_kwargs(tok, **over):
     """The launcher's defaults: 8 slots, page 64, max_context 2048,
-    horizon 8, chunks of 256, prefix cache."""
+    horizon 8, chunks of 256, prefix cache; every round bucket captured
+    at `start()` (`warmup_compile`)."""
     kw = dict(slots=8, page_size=64, max_context=2048, step_horizon=8,
               prefill_chunk_tokens=256, prefix_cache=True,
-              termination_id=tok.eod, vocab_size=tok.vocab_size)
+              termination_id=tok.eod, vocab_size=tok.vocab_size,
+              warmup_compile=True)
     kw.update(over)
     return kw
 
@@ -1423,7 +1534,6 @@ def drive_engine(eng, model, tok, params, traffic):
         if name in then:
             client(then[name])
 
-    counter = PagedForwards(model)
     try:
         zero_counts()
         threads = [threading.Thread(target=client, args=(name,))
@@ -1439,11 +1549,12 @@ def drive_engine(eng, model, tok, params, traffic):
         check(all(not th.is_alive() for th in threads), "engine clients hung")
         metrics = get_json(port, "/metrics")
     finally:
-        model.forward = counter.inner
         server.stop()
+    rounds = list(eng._round_log)
     return {"results": results, "launches": launches, "variants": variants,
-            "metrics": metrics, "wall": wall, "paged": counter.paged,
-            "rounds": list(eng._round_log)}
+            "metrics": metrics, "wall": wall,
+            "paged": paged_forwards(rounds), "rounds": rounds,
+            "graphs": eng.graph_stats()}
 
 
 def check_outputs(traffic, run, tok):
@@ -1718,11 +1829,187 @@ def serve_engine(kernels, cfg, model, params, weight_bytes):
         ttft_p95_ms=metrics["serve_ttft_p95_ms"],
         decode_step_device_ms=step_ms,
         weight_stream_floor_ms=weight_bytes / HBM_BYTES_PER_S * 1e3,
-        device_idle_share=1 - step_ms / advance,
         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
     return {"greedy": greedy, "bytes_per_token": eng.kv_bytes_per_token(),
             "tokens_per_s": generated / run["wall"],
             "decode_ms_per_advance": advance, "decode_step_device_ms": step_ms}
+
+
+# ---------------------------------------------------------------------------
+# phase 10b: the same traffic eagerly and captured, in one call
+# ---------------------------------------------------------------------------
+
+CAPTURE_REQUESTS = 8
+
+
+def _engine_device_ms(eng, horizon=8, length=1000):
+    """The card's ms for one decode round of `horizon` steps with every
+    slot live at `length` (pages 1.. of the drained engine's pool): on
+    an `_eager` engine the round's kernels in a torch.profiler trace;
+    else the captured round's replay on CUDA events, and its kernels'
+    profile. Returns (ms, top kernels, the round's host arrays, its
+    runner)."""
+    n, per = eng.slots, -(-(length + horizon) // eng.page_size)
+    pt = np.zeros_like(eng._pt)
+    for i in range(n):
+        pt[i, :per] = 1 + i * per + np.arange(per)
+    host = {**eng._null_scan_args(horizon), "page_table": pt,
+            "lengths": np.full(n, length, np.int32),
+            "active": np.ones(n, bool)}
+    with torch.inference_mode():
+        runner = eng._step_fn(horizon, True)
+        ms, top = top_kernels(lambda: runner(**host))
+        if runner.captured:
+            ms = replay_ms(lambda: runner(**host), n=10)
+        return ms, top, host, runner
+
+
+def _traced_drain(model, params, tok, traffic, eager):
+    """The same traffic again, on a fresh engine (warmed up unless
+    `eager`), drained under `busy_window`: (rounds, wall s, busy s)."""
+    eng = DecodeEngine(model, params, **engine_kwargs(
+        tok, warmup_compile=False))
+    eng._eager = eager
+    if not eager:
+        eng.warmup()
+    for p, g in traffic:
+        eng.submit(p, g, top_k=1, return_log_probs=True)
+    _, wall, busy = busy_window(eng.drain)
+    return len(eng._round_log), wall, busy
+
+
+def graph_capture_phase(kernels, cfg, model, params, whole_batch):
+    """Llama-2-7B at full width and depth: the first 8 greedy requests of
+    the engine traffic queued and drained (a fixed schedule) by the bf16
+    engine with every round called eagerly (the private `_eager`) and
+    with every round a replayed CUDA graph, and the whole-batch greedy
+    batch decoded eagerly and captured. Gates: the captured streams
+    equal the eager ones token for token (log-probs too), with equal
+    page and prefix-cache accounting; every paged forward's K7 launches
+    counted through replays; ms per decode advance lower captured than
+    eager on both routes; one captured decode round replays under
+    `torch.cuda.set_sync_debug_mode("error")` (its read-back left out).
+    The device's busy time comes from the same traffic drained again
+    under torch.profiler (the same rounds: their count is checked): idle
+    is 1 - busy/wall over that traced window, and, beside it, over the
+    untraced drain's wall (the trace slows the host's side of a round:
+    the untraced figure is the lower bound)."""
+    tok = build_tokenizer("NullTokenizer", null_vocab_size=31999)
+    traffic = [(p, pl["tokens_to_generate"]) for name, p, pl
+               in engine_traffic() if name.startswith("greedy")]
+    traffic = traffic[:CAPTURE_REQUESTS]
+    runs = {}
+    for mode in ("eager", "captured"):
+        eng = DecodeEngine(model, params, **engine_kwargs(
+            tok, warmup_compile=False))
+        eng._eager = mode == "eager"
+        free_cuda()
+        reserved = torch.cuda.memory_reserved()
+        t0 = time.perf_counter()
+        if mode == "captured":
+            eng.warmup()
+        warmup_s = time.perf_counter() - t0
+        graph_bytes = torch.cuda.memory_reserved() - reserved
+        reqs = [eng.submit(p, g, top_k=1, return_log_probs=True)
+                for p, g in traffic]
+        zero_counts()
+        t0 = time.perf_counter()
+        eng.drain()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        rounds = list(eng._round_log)
+        c = eng.counters()
+        mixed = [r["ms"] for r in rounds if r["prefill_tokens"]]
+        run = {"outs": [r.result(60) for r in reqs],
+               "launches": kernel_counts(),
+               "variants": dict(pa.ragged_paged_attention.variant_launches),
+               "paged": paged_forwards(rounds), "wall_s": wall,
+               "accounting": ({k: c[k] for k in c if k.startswith(
+                   ("serve_pages", "serve_prefix", "serve_steps",
+                    "serve_prefill", "serve_admitted", "serve_retired"))},
+                   sorted(eng._free_pages)),
+               "decode_ms_per_advance": ms_per_advance(rounds),
+               "mixed_round_ms": sum(mixed) / max(len(mixed), 1),
+               "rounds": len(rounds), "mixed_rounds": len(mixed)}
+        check_paged_launches(cfg, run, f"graph_capture_{mode}", "fp")
+        if mode == "captured":
+            stats = eng.graph_stats()
+            flags = (True, False)
+            check(set(eng._step_fns) == {(h, f) for f in flags for h in
+                                         horizon_buckets(eng.step_horizon)}
+                  and set(eng._mixed_fns) == {
+                      (w, f) for f in flags for w in
+                      mixed_width_buckets(eng.prefill_chunk_tokens)}
+                  and stats["graphs"] == len(eng._step_fns)
+                  + len(eng._mixed_fns), f"graphs {stats}")
+            run.update(graphs=stats["graphs"], warmup_s=warmup_s,
+                       capture_s=stats["capture_s"],
+                       graph_memory_reserved_bytes=graph_bytes)
+        (run["decode_round_device_ms"], run["decode_round_top_kernels_ms"],
+         host, runner) = _engine_device_ms(eng)
+        if run["decode_round_device_ms"] is None:  # no device time traced
+            run["decode_round_device_ms"] = "not measured"
+        if mode == "captured":
+            # the round's replay (its input copies included) under the
+            # sync check; the read-back after it is the one intended sync
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                with torch.inference_mode():
+                    chosen, _ = runner(**host)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            check(bool((chosen >= 0).all()), "sync-checked round output")
+            run["sync_debug_replay"] = "ok"
+        eng = runner = None
+        free_cuda()
+        n_rounds, t_wall, busy = _traced_drain(model, params, tok, traffic,
+                                               mode == "eager")
+        check(n_rounds == len(rounds),
+              f"traced drain: {n_rounds} rounds, untraced {len(rounds)}")
+        run.update(traced_wall_s=t_wall,
+                   device_busy_s=busy or "not measured",
+                   device_idle_share_traced=1 - busy / t_wall if busy
+                   else "not measured",
+                   device_idle_share_untraced_wall=1 - busy / wall if busy
+                   else "not measured")
+        runs[mode] = run
+        free_cuda()
+    e, g = runs["eager"], runs["captured"]
+    check([t for t, _ in g["outs"]] == [t for t, _ in e["outs"]],
+          "engine: captured greedy streams differ from eager")
+    lp_diff = max(float(np.abs(np.asarray(a) - np.asarray(b)).max())
+                  for (_, a), (_, b) in zip(g["outs"], e["outs"]))
+    check(g["accounting"] == e["accounting"],
+          f"engine accounting {g['accounting']} != {e['accounting']}")
+
+    toks, lens, kw = whole_batch
+    wb = {}
+    for mode in ("eager", "captured"):
+        wb[mode], out = whole_batch_timing(model, params, toks, lens, kw,
+                                           eager=mode == "eager")
+        wb[mode]["out"] = out
+    we, wg = wb["eager"]["out"], wb["captured"]["out"]
+    check(torch.equal(we.tokens, wg.tokens)
+          and torch.equal(we.lengths, wg.lengths),
+          "whole batch: captured tokens differ from eager")
+    for rec in wb.values():
+        del rec["out"]
+    summary = {m: {k: v for k, v in r.items()
+                   if k not in ("outs", "accounting")}
+               for m, r in runs.items()}
+    say("graph_capture", requests=len(traffic),
+        engine=summary, engine_streams_equal=True,
+        engine_accounting_equal=True,
+        engine_pages_free=e["accounting"][0]["serve_pages_free"],
+        engine_logprob_max_abs_diff=lp_diff,
+        whole_batch=wb, whole_batch_tokens_equal=True,
+        nvidia_smi=nvidia_smi())
+    check(g["decode_ms_per_advance"] < e["decode_ms_per_advance"],
+          "engine: a captured decode advance is not faster than eager")
+    check(wb["captured"]["decode_ms_per_step"]
+          < wb["eager"]["decode_ms_per_step"],
+          "whole batch: a captured step is not faster than eager")
 
 
 def serve_engine_int8(kernels, cfg, model, params, bf16):
@@ -1851,18 +2138,18 @@ def serve_engine_window(kernels, cfg, model, params):
                                        for s in eng._slots])
             return did
         eng._step_inner = step
-        counter = PagedForwards(wmodel)
+        eng.warmup()  # drained without start(): capture first
         zero_counts()
         t0 = time.perf_counter()
         eng.drain()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-        wmodel.forward = counter.inner
         outs = [r.result(60) for r in reqs]
         rec = {"outs": [(list(t), list(lp)) for t, lp in outs],
                "launches": kernel_counts(),
                "variants": dict(pa.ragged_paged_attention.variant_launches),
-               "paged": counter.paged, "rounds": list(eng._round_log),
+               "paged": paged_forwards(eng._round_log),
+               "rounds": list(eng._round_log),
                "wall": wall, "peak": peak[0], "counters": eng.counters(),
                "bound": eng._window_slot_pages(), "num_pages": eng.num_pages}
         return rec
@@ -2621,10 +2908,12 @@ def main() -> int:
     kernels += check_flash_kernels()
     torch.cuda.empty_cache()
     model = build_model(args.init_std)
-    serve_whole_batch(kernels, *model)
+    whole_batch = serve_whole_batch(kernels, *model)
     bf16 = serve_engine(kernels, *model)
     free_cuda()
     cfg, llama, params, _ = model
+    graph_capture_phase(kernels, cfg, llama, params, whole_batch)
+    free_cuda()
     serve_engine_int8(kernels, cfg, llama, params, bf16)
     free_cuda()
     serve_engine_window(kernels, cfg, llama, params)

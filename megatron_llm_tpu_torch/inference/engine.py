@@ -44,9 +44,12 @@ Greedy decode gives the tokens of `generate_tokens` run alone on the same
 prompt: every position's compute is row-independent, so the chunking of
 a prompt changes op shapes, not the answer.
 
-How the JAX engine maps here. A jitted step function is a plain Python
-function; the `lax.scan` over the horizon is a Python loop of `horizon`
-single-token forwards. The JAX steps donate the page pools; here the
+How the JAX engine maps here. A jitted step function is a Python
+function captured into a CUDA graph per bucket (inference/
+graph_capture.py), minted by `_step_fn` / `_mixed_fn` / `_spec_fn` as
+JAX mints its programs, and `warmup()` captures them all; the `lax.scan`
+over the horizon is a Python loop of `horizon` single-token forwards
+inside the captured function. The JAX steps donate the page pools; here the
 preallocated per-layer pools (and scale pools) are written in place
 (`index_put_` in the scatters, `copy_` in the page copy) and are the
 only copy. The host syncs once per round, when it copies the chosen
@@ -61,7 +64,7 @@ pools want pages of a multiple of 32 (a TPU tiling rule) is dropped.
 
 Left out (the constructor raises ValueError naming the slice when one is
 set to a non-default value): tp serving and replicas, the KV
-export/import hand-off, CUDA-graph round capture, the cost registry and
+export/import hand-off, the cost registry and
 perf sentinel, the flight recorder, span tracer and profiler hook,
 Prometheus histograms.
 """
@@ -69,6 +72,7 @@ Prometheus histograms.
 from __future__ import annotations
 
 import collections
+import functools
 import logging
 import queue as queue_mod
 import threading
@@ -80,6 +84,7 @@ import numpy as np
 import torch
 
 from megatron_llm_tpu_torch.inference.generation import bucket_prefill_len
+from megatron_llm_tpu_torch.inference.graph_capture import CapturedFn
 from megatron_llm_tpu_torch.inference.prefix_cache import PrefixCache
 from megatron_llm_tpu_torch.inference.sampling import (
     NEG_INF,
@@ -91,7 +96,6 @@ _logger = logging.getLogger(__name__)
 
 # knob -> (default, the later slice that ports it)
 _LEFT_OUT = {
-    "warmup_compile": (False, "CUDA-graph round capture"),
     "serving_tp": (1, "tp serving and replicas"),
     "devices": (None, "tp serving and replicas"),
     "replica_id": (None, "tp serving and replicas"),
@@ -222,22 +226,25 @@ def _paged_caches(pools, page_table, lengths, chunk_lens):
     return out
 
 
-def _decode_step(model, dec_params, pools, page_table, lengths,
-                 last_logits, active, forced, use_forced, greedy,
-                 temperature, top_k, top_p, seeds, sample_steps,
-                 vocab_size, horizon, all_greedy):
+def _decode_step(model, dec_params, pools, last_logits, *, page_table,
+                 lengths, active, forced, use_forced, greedy, temperature,
+                 top_k, top_p, seeds, sample_steps, vocab_size, horizon,
+                 all_greedy):
     """The decode round (JAX `_make_step_fn`): `horizon` single-token
     paged forwards. Each step decides one token per slot from the
     carried fp32 logits (teacher-forcing `forced` where `use_forced`),
     and runs it through the stack. Inactive slots ride as idle chunks
-    (chunk_lens 0: no page read, exact-zero attention). Returns
-    (chosen (slots, horizon), its log-probs, the new last logits)."""
+    (chunk_lens 0: no page read, exact-zero attention, writes only to
+    the null page) and keep their carried logits, so a round of idle
+    slots changes nothing a live slot reads. Updates `last_logits` in
+    place and returns (chosen (slots, horizon), its log-probs)."""
     chunk_lens = active.to(torch.int32)
     chosen_h, lp_h = [], []
     steps = sample_steps
+    carried = last_logits
     for t in range(horizon):
-        lp_full = torch.log_softmax(last_logits, -1)
-        sampled = _decision(last_logits, all_greedy, greedy, temperature,
+        lp_full = torch.log_softmax(carried, -1)
+        sampled = _decision(carried, all_greedy, greedy, temperature,
                             top_k, top_p, seeds, steps, vocab_size)
         chosen = torch.where(use_forced[:, t], forced[:, t], sampled)
         chosen = torch.where(active, chosen, torch.zeros_like(chosen))
@@ -249,22 +256,24 @@ def _decode_step(model, dec_params, pools, page_table, lengths,
             position_ids=lengths.long()[:, None])
         lengths = caches["lengths"]
         steps = steps + (active & ~use_forced[:, t]).long()
-        last_logits = logits[:, 0].float()
-    return torch.stack(chosen_h, 1), torch.stack(lp_h, 1), last_logits
+        carried = torch.where(active[:, None], logits[:, 0].float(), carried)
+    last_logits.copy_(carried)
+    return torch.stack(chosen_h, 1), torch.stack(lp_h, 1)
 
 
-def _mixed_step(model, dec_params, pools, page_table, lengths,
-                last_logits, chunk_tokens, chunk_lens, is_prefill, chunk_idx,
+def _mixed_step(model, dec_params, pools, last_logits, *, page_table,
+                lengths, chunk_tokens, chunk_lens, is_prefill, chunk_idx,
                 greedy, temperature, top_k, top_p, seeds, sample_steps,
-                vocab_size, width, all_greedy, want_chunk_lps):
+                vocab_size, width, all_greedy):
     """The mixed prefill+decode round (JAX `_make_mixed_step_fn`): every
     slot contributes one ragged span to one paged forward of width
-    `width`: the admitting slot `chunk_idx` a prompt chunk at its saved
-    offset, each decoding slot one token decided from the carried logits,
-    idle slots nothing. Returns per-slot (first token, its log-prob), the
-    chunk row's in-chunk log-probs (log-prob of chunk token p+1 under the
-    logits at p; computed when `want_chunk_lps`), and the new last
-    logits, preserved for idle slots."""
+    `width`: the admitting slot `chunk_idx` (a (1,) device index) a
+    prompt chunk at its saved offset, each decoding slot one token
+    decided from the carried logits, idle slots nothing. Updates
+    `last_logits` in place (idle slots keep theirs) and returns per-slot
+    (first token, its log-prob) and the chunk row's in-chunk log-probs
+    (log-prob of chunk token p+1 under the logits at p; (width - 1,),
+    computed at every width > 1, as JAX's program does)."""
     active = chunk_lens > 0
     lp_full = torch.log_softmax(last_logits, -1)
     sampled = _decision(last_logits, all_greedy, greedy, temperature, top_k,
@@ -279,21 +288,23 @@ def _mixed_step(model, dec_params, pools, page_table, lengths,
         dec_params, toks,
         kv_caches=_paged_caches(pools, page_table, lengths, chunk_lens),
         position_ids=pos)
-    chunk_lps = None
-    if want_chunk_lps and width > 1:
-        lp_in = torch.log_softmax(logits[chunk_idx, :-1].float(), -1)
-        chunk_lps = torch.gather(lp_in, 1, toks[chunk_idx, 1:, None])[:, 0]
+    chunk_lps = torch.zeros(0, device=logits.device)
+    if width > 1:
+        row = logits.index_select(0, chunk_idx)[0, :-1]
+        lp_in = torch.log_softmax(row.float(), -1)
+        chunk_lps = torch.gather(
+            lp_in, 1, toks.index_select(0, chunk_idx)[0, 1:, None])[:, 0]
     last_idx = (chunk_lens.long() - 1).clamp(0, width - 1)
     rows = torch.arange(logits.shape[0], device=logits.device)
     new_last = logits[rows, last_idx].float()
-    new_last = torch.where(active[:, None], new_last, last_logits)
-    return first, first_lp, chunk_lps, new_last
+    last_logits.copy_(torch.where(active[:, None], new_last, last_logits))
+    return first, first_lp, chunk_lps
 
 
-def _spec_step(model, dec_params, pools, page_table, lengths, last_logits,
-               chunk_tokens, chunk_lens, is_spec, greedy, temperature,
-               top_k, top_p, seeds, sample_steps, vocab_size, width,
-               all_greedy):
+def _spec_step(model, dec_params, pools, last_logits, *, page_table,
+               lengths, chunk_tokens, chunk_lens, is_spec, greedy,
+               temperature, top_k, top_p, seeds, sample_steps, vocab_size,
+               width, all_greedy):
     """The speculative verify round (JAX `_make_spec_step_fn`): every
     live slot contributes one ragged chunk of width `width` = k + 1, a
     spec slot [its next token, decided from the carried logits as a
@@ -302,9 +313,9 @@ def _spec_step(model, dec_params, pools, page_table, lengths, last_logits,
     against the draft at j + 1; the accepted count is the leading run of
     matches (a cumulative product), and the carried logits come from the
     accepted position, so a rejection simply does not advance past it.
-    Returns (first token, its log-prob, the per-position greedy targets
-    and their log-probs, the accepted counts, the new last logits,
-    preserved for idle slots)."""
+    Updates `last_logits` in place (idle slots keep theirs) and returns
+    (first token, its log-prob, the per-position greedy targets and their
+    log-probs, the accepted counts)."""
     active = chunk_lens > 0
     lp_full = torch.log_softmax(last_logits, -1)
     sampled = _decision(last_logits, all_greedy, greedy, temperature, top_k,
@@ -331,8 +342,8 @@ def _spec_step(model, dec_params, pools, page_table, lengths, last_logits,
                            (chunk_lens.long() - 1).clamp(0, width - 1))
     rows = torch.arange(n, device=logits.device)
     new_last = logits[rows, last_idx].float()
-    new_last = torch.where(active[:, None], new_last, last_logits)
-    return first, first_lp, gt, gt_lp, acc, new_last
+    last_logits.copy_(torch.where(active[:, None], new_last, last_logits))
+    return first, first_lp, gt, gt_lp, acc
 
 
 def _prefill(model, dec_params, pools, tokens, pt_row, page_size):
@@ -479,9 +490,22 @@ class DecodeEngine:
     `window_reclaim` (with a model's `attention_window_size`: return
     pages wholly out of every live window mid-flight; False keeps the
     window mask and frees nothing, the control its bitwise equality is
-    held against). The device is the model's. Every knob of the JAX
-    engine that the port leaves out raises ValueError when set to a
-    non-default value."""
+    held against), `warmup_compile` (`start()` captures every round
+    bucket first, `warmup()`; without it a bucket is captured at its
+    first use). The device is the model's. Every knob of the JAX engine
+    that the port leaves out raises ValueError when set to a non-default
+    value.
+
+    Rounds run as CUDA graphs on a CUDA device (inference/
+    graph_capture.py): each round kind and bucket, (horizon,
+    all_greedy), (width, all_greedy) or (k + 1, all_greedy), is captured
+    once into one memory pool on the engine's own stream and replayed
+    with the round's host arrays copied into its static buffers; the
+    carried logits are one buffer every round updates in place. On a CPU
+    device the same runners call the round eagerly on their buffers, as
+    they do on the card under the private `_eager = True`, set before the
+    first round (the same-call comparison of the card's smoke run); no
+    public knob selects it."""
 
     def __init__(self, model, params, *, slots: int = 4,
                  page_size: int = 64, max_context: int = 1024,
@@ -495,6 +519,7 @@ class DecodeEngine:
                  quantize_weights: bool = False,
                  termination_id: Optional[int] = None,
                  vocab_size: Optional[int] = None,
+                 warmup_compile: bool = False,
                  **left_out):
         for name, value in left_out.items():
             if name not in _LEFT_OUT:
@@ -557,6 +582,7 @@ class DecodeEngine:
         self.kv_dtype = kv_dtype
         self.termination_id = termination_id
         self.vocab_size = vocab_size
+        self.warmup_compile = bool(warmup_compile)
 
         # the int8 decode tree is built once and serves every round kind
         self._dec_params = model.prepare_decode_params(
@@ -576,6 +602,16 @@ class DecodeEngine:
         self._pt = np.zeros((slots, self.max_pages_per_slot), np.int32)
         self._lengths = np.zeros((slots,), np.int32)
         self._free_pages = list(range(self.num_pages - 1, 0, -1))
+        # captured rounds by (bucket, all_greedy), as the JAX mint caches
+        self._step_fns: dict = {}
+        self._mixed_fns: dict = {}
+        self._spec_fns: dict = {}
+        self._eager = False
+        self._graph_pool = self._graph_stream = None
+        if self._cuda_index is not None:
+            dev = torch.device("cuda", self._cuda_index)
+            self._graph_pool = torch.cuda.graph_pool_handle()
+            self._graph_stream = torch.cuda.Stream(dev)
 
         self._slots = [_Slot() for _ in range(slots)]
         self._queue: collections.deque = collections.deque()
@@ -1003,8 +1039,9 @@ class DecodeEngine:
                 return True
         return self._decode_round(t0, admit_prefilled)
 
-    def _sampling_arrays(self, idx):
-        """Per-slot knob arrays for the live slots `idx`, on the device."""
+    def _sampling_arrays(self, idx) -> dict:
+        """Per-slot knob arrays for the live slots `idx` (host arrays,
+        named as the round functions take them); other slots greedy."""
         n = self.slots
         greedy = np.ones(n, bool)
         temperature = np.ones(n, np.float32)
@@ -1020,8 +1057,113 @@ class DecodeEngine:
             top_p[i] = r.top_p
             seeds[i] = r.seed & 0xFFFFFFFF
             steps[i] = self._slots[i].sample_step
-        return tuple(self._dev(x) for x in (greedy, temperature, top_k,
-                                             top_p, seeds, steps))
+        return {"greedy": greedy, "temperature": temperature,
+                "top_k": top_k, "top_p": top_p, "seeds": seeds,
+                "sample_steps": steps}
+
+    # -- captured rounds (JAX: the mint caches and warmup) -------------------
+
+    def _capture(self, step, null_args: dict, **static) -> CapturedFn:
+        """The runner of one round kind and bucket: `step` bound to the
+        model, decode tree, pools and carried logits, captured on the
+        engine's stream into its pool with the idle round `null_args` as
+        the static buffers' first values (called uncaptured on them under
+        the private `_eager` switch)."""
+        fn = functools.partial(step, self.model, self._dec_params,
+                               self._pools, self._last_logits,
+                               vocab_size=self.vocab_size, **static)
+        return CapturedFn(fn, null_args, device=self.device,
+                          pool=self._graph_pool, stream=self._graph_stream,
+                          capture=not self._eager)
+
+    def _step_fn(self, horizon: int, all_greedy: bool) -> CapturedFn:
+        key = (horizon, all_greedy)
+        if key not in self._step_fns:
+            self._step_fns[key] = self._capture(
+                _decode_step, self._null_scan_args(horizon),
+                horizon=horizon, all_greedy=all_greedy)
+        return self._step_fns[key]
+
+    def _mixed_fn(self, width: int, all_greedy: bool) -> CapturedFn:
+        key = (width, all_greedy)
+        if key not in self._mixed_fns:
+            self._mixed_fns[key] = self._capture(
+                _mixed_step, self._null_mixed_args(width), width=width,
+                all_greedy=all_greedy)
+        return self._mixed_fns[key]
+
+    def _spec_fn(self, width: int, all_greedy: bool) -> CapturedFn:
+        key = (width, all_greedy)
+        if key not in self._spec_fns:
+            self._spec_fns[key] = self._capture(
+                _spec_step, self._null_spec_args(width), width=width,
+                all_greedy=all_greedy)
+        return self._spec_fns[key]
+
+    # Idle rounds (JAX :2975-3040): all-zero page-table rows and chunk
+    # lengths, so every K/V write lands on the dead null page 0 and every
+    # slot keeps its carried logits.
+
+    def _null_args(self) -> dict:
+        n = self.slots
+        return {"page_table": np.zeros_like(self._pt),
+                "lengths": np.zeros(n, np.int32),
+                **self._sampling_arrays(())}
+
+    def _null_scan_args(self, h: int) -> dict:
+        n = self.slots
+        return {**self._null_args(), "active": np.zeros(n, bool),
+                "forced": np.zeros((n, h), np.int64),
+                "use_forced": np.zeros((n, h), bool)}
+
+    def _null_mixed_args(self, w: int) -> dict:
+        n = self.slots
+        return {**self._null_args(),
+                "chunk_tokens": np.zeros((n, w), np.int64),
+                "chunk_lens": np.zeros(n, np.int32),
+                "is_prefill": np.zeros(n, bool),
+                "chunk_idx": np.zeros(1, np.int64)}
+
+    def _null_spec_args(self, w: int) -> dict:
+        n = self.slots
+        return {**self._null_args(),
+                "chunk_tokens": np.zeros((n, w), np.int64),
+                "chunk_lens": np.zeros(n, np.int32),
+                "is_spec": np.zeros(n, bool)}
+
+    def warmup(self):
+        """Capture every round the configured buckets can reach, greedy
+        and sampled: the decode horizons, the mixed widths (chunked
+        admission) and the verify width (spec mode), each replayed once
+        as an idle round, so no request waits for a capture. Idle rounds
+        write only to the dead null page and leave every slot's carried
+        logits, the host mirrors and the prefix cache as they were, so
+        warmup is invisible to traffic. `warmup_compile=True` runs it
+        inside `start()`."""
+        with torch.inference_mode():
+            self._warmup_scoped()
+
+    def _warmup_scoped(self):
+        # a bucket minted earlier holds its last round in its buffers:
+        # every replay here is given the idle round
+        for all_greedy in (True, False):
+            for h in horizon_buckets(self.step_horizon):
+                self._step_fn(h, all_greedy)(**self._null_scan_args(h))
+            for w in mixed_width_buckets(self.prefill_chunk_tokens):
+                self._mixed_fn(w, all_greedy)(**self._null_mixed_args(w))
+            if self.spec_decode_k:
+                w = self.spec_decode_k + 1
+                self._spec_fn(w, all_greedy)(**self._null_spec_args(w))
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def graph_stats(self) -> dict:
+        """The captured rounds: how many, and the seconds their captures
+        took (warm-up runs included)."""
+        runners = [*self._step_fns.values(), *self._mixed_fns.values(),
+                   *self._spec_fns.values()]
+        return {"graphs": sum(1 for r in runners if r.captured),
+                "capture_s": sum(r.capture_s for r in runners)}
 
     def _decode_round(self, t0: float, prefill_tokens: int = 0) -> bool:
         """Up to `step_horizon` decode steps over every live slot, clamped
@@ -1051,12 +1193,10 @@ class DecodeEngine:
                 forced[i, :nf] = [s.forced[t] for t in range(nf)]
                 use_forced[i, :nf] = True
         all_greedy = all(self._slots[i].req.greedy for i in live)
-        chosen, chosen_lp, self._last_logits = _decode_step(
-            self.model, self._dec_params, self._pools,
-            self._dev(self._pt), self._dev(self._lengths),
-            self._last_logits, self._dev(active), self._dev(forced),
-            self._dev(use_forced), *self._sampling_arrays(live),
-            vocab_size=self.vocab_size, horizon=hor, all_greedy=all_greedy)
+        chosen, chosen_lp = self._step_fn(hor, all_greedy)(
+            page_table=self._pt, lengths=self._lengths, active=active,
+            forced=forced, use_forced=use_forced,
+            **self._sampling_arrays(live))
         chosen = chosen.cpu().numpy()  # the round's one wait for the card
         want_lp = any(self._slots[i].req.return_log_probs for i in live)
         chosen_lp = chosen_lp.cpu().numpy() if want_lp else None
@@ -1113,19 +1253,16 @@ class DecodeEngine:
         chunk_lens[dec] = 1
         all_greedy = all(self._slots[i].req.greedy for i in dec)
         want_chunk = s_c.req.return_log_probs
-        first, first_lp, chunk_lps, self._last_logits = _mixed_step(
-            self.model, self._dec_params, self._pools,
-            self._dev(self._pt), self._dev(self._lengths),
-            self._last_logits, self._dev(chunk_tokens),
-            self._dev(chunk_lens), self._dev(is_prefill), ci,
-            *self._sampling_arrays(dec), vocab_size=self.vocab_size,
-            width=width, all_greedy=all_greedy, want_chunk_lps=want_chunk)
+        first, first_lp, chunk_lps = self._mixed_fn(width, all_greedy)(
+            page_table=self._pt, lengths=self._lengths,
+            chunk_tokens=chunk_tokens, chunk_lens=chunk_lens,
+            is_prefill=is_prefill, chunk_idx=np.asarray([ci], np.int64),
+            **self._sampling_arrays(dec))
         first = first.cpu().numpy()  # the round's one wait for the card
         want_lp = want_chunk or any(self._slots[i].req.return_log_probs
                                     for i in dec)
         first_lp = first_lp.cpu().numpy() if want_lp else None
-        chunk_lps = chunk_lps.cpu().numpy() if chunk_lps is not None \
-            else None
+        chunk_lps = chunk_lps.cpu().numpy() if want_chunk else None
         self._steps += 1
         self._prefill_tokens += ln
 
@@ -1237,13 +1374,10 @@ class DecodeEngine:
             chunk_lens[i] = 1 + len(d)
             is_spec[i] = bool(d)
         all_greedy = all(self._slots[i].req.greedy for i in live)
-        first, first_lp, gt, gt_lp, acc, self._last_logits = _spec_step(
-            self.model, self._dec_params, self._pools,
-            self._dev(self._pt), self._dev(self._lengths),
-            self._last_logits, self._dev(chunk_tokens),
-            self._dev(chunk_lens), self._dev(is_spec),
-            *self._sampling_arrays(live), vocab_size=self.vocab_size,
-            width=width, all_greedy=all_greedy)
+        first, first_lp, gt, gt_lp, acc = self._spec_fn(width, all_greedy)(
+            page_table=self._pt, lengths=self._lengths,
+            chunk_tokens=chunk_tokens, chunk_lens=chunk_lens,
+            is_spec=is_spec, **self._sampling_arrays(live))
         first = first.cpu().numpy()  # the round's wait for the card
         gt = gt.cpu().numpy()
         acc = acc.cpu().numpy()
@@ -1345,6 +1479,8 @@ class DecodeEngine:
         ones."""
         if self._thread is not None:
             raise RuntimeError("engine already started")
+        if self.warmup_compile:
+            self.warmup()
         self._running = True
 
         def loop():

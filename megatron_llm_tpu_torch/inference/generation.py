@@ -2,32 +2,68 @@
 of inference/generation.py).
 
 The JAX package runs the whole decode as one jitted program with a
-`lax.while_loop`; here the loop is eager Python. Each step selects the
-next token on the device, and the host checks "every row done" once per
-step. The KV cache is preallocated once per request
-(`GPTModel.init_kv_caches`) and each step writes its token's column in
-place. Single-token steps run decode-attention kernel K1 on the card
+`lax.while_loop`. Here one decode step (selection, the eod bookkeeping
+and one forward) is a function of static device buffers, captured once
+into a CUDA graph and replayed (inference/graph_capture.py): the step
+index `t`, the top-p threshold, the done mask, the tokens, log-probs and
+KV caches all live on the card, the step writes at the device `t` and
+K1 reads the cache to a device length, so one graph replays at every
+step. The host reads "every row done" every `DONE_CHECK_EVERY` steps
+only: a step replayed after every row is done, or past max_len, changes
+nothing, which is the while_loop's exit moved to the host at a coarser
+grain. Each call captures its own step and frees it, its caches and its
+graph's memory as it returns: no idle call holds a dense cache of
+(b, max_len) on the card. The captures are made on one stream per
+device, one call at a time, so the kernels' per-stream state (arrival
+counters, cuBLAS workspaces) is made once. `decode_log` keeps a record
+of the last calls (batch, max_len, steps, capture seconds, the static
+caches' bytes). The prefill stays one eager forward. On a CPU tensor
+the same step runs eagerly on the same buffers.
+Single-token steps run decode-attention kernel K1 on the card
 (models/attention.py).
 
 Semantics kept from the JAX package: prefill of the bucketed common
 prefix (`bucket_prefill_len`), teacher-forcing of rows whose prompt is
 still running, eod bookkeeping, log-probs in fp32, pad-vocab masking and
 top-p decay. Sampling draws from a `torch.Generator` seeded from the
-request; it does not reproduce JAX's random bits.
+request (a captured step draws from a generator registered with its
+graph, set to the request's state before the first replay, so a stream
+is a function of its seed alone); it does not reproduce JAX's random
+bits.
 """
 
 from __future__ import annotations
 
+import collections
+import functools
+import logging
+import threading
+import weakref
 from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
+from megatron_llm_tpu_torch.inference.graph_capture import (
+    WARMUP_RUNS,
+    CapturedFn,
+)
 from megatron_llm_tpu_torch.inference.sampling import (
     NEG_INF,
     modify_logits_for_top_k,
     modify_logits_for_top_p,
 )
+
+_logger = logging.getLogger(__name__)
+
+# steps between the host's reads of "every row done"
+DONE_CHECK_EVERY = 8
+# one record a call of the last whole-batch decodes, newest last
+decode_log: collections.deque = collections.deque(maxlen=256)
+# the whole-batch decodes' capture stream of each device, and the lock
+# that keeps them to one call at a time
+_streams: dict = {}
+_lock = threading.Lock()
 
 
 class GenerateOutput(NamedTuple):
@@ -57,11 +93,12 @@ def _categorical(logits: torch.Tensor, generator: torch.Generator):
 
 
 def select_next_token(logits: torch.Tensor, prev_token: torch.Tensor,
-                      generator: Optional[torch.Generator], cur_top_p: float,
+                      generator: Optional[torch.Generator], cur_top_p,
                       *, greedy: bool, top_k: int, top_p: float,
                       temperature: float, vocab_size: Optional[int] = None,
                       prevent_newline_after_colon_ids=None) -> torch.Tensor:
-    """One sampling decision for a (b, V) block of logits."""
+    """One sampling decision for a (b, V) block of logits. `cur_top_p`
+    is a float or a 0-d fp32 tensor (the decayed threshold)."""
     logits = logits.float()
     V = logits.shape[-1]
     cols = torch.arange(V, device=logits.device)
@@ -102,6 +139,144 @@ def score_tokens(model, params: dict, tokens) -> torch.Tensor:
     return _gather_lp(logits, tokens[:, 1:])
 
 
+class _DecodeLoop:
+    """The whole-batch decode of one call: its state in static device
+    buffers and its one step, captured (`CapturedFn`) unless `capture` is
+    False or the device is the CPU."""
+
+    def __init__(self, model, dec_params, b: int, max_len: int,
+                 settings: tuple, capture: bool):
+        dev = model.device
+        self.model = model
+        self.dec_params = dec_params
+        (self.greedy, self.top_k, self.top_p, self.top_p_decay,
+         self.top_p_bound, self.temperature, self.vocab_size,
+         self.termination_id, self.return_log_probs, self.early,
+         self.pnac_ids) = settings
+        self.max_len = max_len
+        self.tokens = torch.zeros((b, max_len), dtype=torch.long, device=dev)
+        self.lengths = torch.zeros((b,), dtype=torch.long, device=dev)
+        self.log_probs = torch.zeros((b, max_len - 1), dtype=torch.float32,
+                                     device=dev)
+        self.last_logits = torch.zeros((b, model.cfg.padded_vocab_size),
+                                       dtype=torch.float32, device=dev)
+        self.done = torch.zeros((b,), dtype=torch.bool, device=dev)
+        self.gen_lens = torch.full((b,), max_len, dtype=torch.long,
+                                   device=dev)
+        # t = max_len: the warm-up runs and the capture step past the end,
+        # which changes no output
+        self.t = torch.full((), max_len, dtype=torch.long, device=dev)
+        self.cur_top_p = torch.zeros((), dtype=torch.float32, device=dev)
+        self.caches = model.init_kv_caches(b, max_len)
+        self.cache_bytes = sum(x.numel() * x.element_size()
+                               for x in self.caches["k_layers"]
+                               + self.caches["v_layers"])
+        captured = capture and dev.type == "cuda"
+        self.generator = None
+        if captured and not self.greedy:
+            self.generator = torch.Generator(device=dev)
+        stream = None
+        if captured:
+            stream = _streams.get(dev)
+            if stream is None:
+                stream = _streams[dev] = torch.cuda.Stream(dev)
+        # the runner holds the loop weakly: no reference cycle keeps the
+        # caches and the graph's memory past the call
+        self.step = CapturedFn(
+            functools.partial(type(self)._step, weakref.proxy(self)), {},
+            device=dev, capture=captured, stream=stream,
+            generators=() if self.generator is None else (self.generator,))
+        if self.step.captured:
+            _logger.info(
+                "captured a whole-batch decode step: batch %d, max_len %d, "
+                "static caches %d bytes", b, max_len, self.cache_bytes)
+
+    def _step(self):
+        """One decode step at the device index t: a no-op once t reaches
+        max_len or (early termination) every row is done."""
+        t, L = self.t, self.max_len
+        live = t < L
+        if self.early:
+            live = live & ~self.done.all()
+        col = t.clamp(max=L - 1).view(1)
+        prev = self.tokens.index_select(1, (col - 1).clamp(min=0))[:, 0]
+        new_sample = select_next_token(
+            self.last_logits, prev, self.generator, self.cur_top_p,
+            greedy=self.greedy, top_k=self.top_k, top_p=self.top_p,
+            temperature=self.temperature, vocab_size=self.vocab_size,
+            prevent_newline_after_colon_ids=self.pnac_ids)
+        started = (self.lengths <= t) & live  # past this row's prompt?
+        chosen = torch.where(started, new_sample,
+                             self.tokens.index_select(1, col)[:, 0])
+        self.tokens.index_copy_(1, col, chosen[:, None])
+        if self.return_log_probs:
+            lp_col = (col - 1).clamp(min=0)
+            lp = torch.where(live, _gather_lp(self.last_logits, chosen),
+                             self.log_probs.index_select(1, lp_col)[:, 0])
+            self.log_probs.index_copy_(1, lp_col, lp[:, None])
+        if self.termination_id is not None:
+            done_token = (chosen == self.termination_id) & started
+            self.gen_lens.copy_(torch.where(done_token & ~self.done, t + 1,
+                                            self.gen_lens))
+            self.done.logical_or_(done_token)
+        if self.top_p > 0.0 and self.top_p_decay > 0.0:
+            # fp32, as the JAX loop carries it
+            decayed = (self.cur_top_p * float(np.float32(self.top_p_decay))
+                       ).clamp(min=float(np.float32(self.top_p_bound)))
+            self.cur_top_p.copy_(torch.where(live, decayed, self.cur_top_p))
+        logits, _ = self.model.forward(
+            self.dec_params, chosen[:, None],
+            kv_caches=dict(self.caches, offset=col[0]))
+        self.last_logits.copy_(torch.where(live, logits[:, -1].float(),
+                                           self.last_logits))
+        self.t.add_(live.long())
+
+    def run(self, tokens, lengths, prefill_len, generator):
+        self.tokens.copy_(tokens)
+        self.lengths.copy_(lengths)
+        logits, _ = self.model.forward(
+            self.dec_params, self.tokens[:, :prefill_len],
+            kv_caches=dict(self.caches, offset=0))
+        self.log_probs.zero_()
+        if self.return_log_probs:
+            self.log_probs[:, :prefill_len - 1] = _gather_lp(
+                logits[:, :-1], self.tokens[:, 1:prefill_len])
+        self.last_logits.copy_(logits[:, -1].float())
+        self.done.zero_()
+        self.gen_lens.fill_(self.max_len)
+        self.cur_top_p.fill_(float(np.float32(self.top_p)))
+        self.t.fill_(prefill_len)
+        # a captured sampled step draws from the loop's own generator,
+        # registered with its graph: it takes the request's state and
+        # hands it back (a greedy step draws nothing)
+        own = self.step.captured and self.generator is not None
+        if own:
+            self.generator.set_state(generator.get_state())
+        elif not self.step.captured:
+            self.generator = generator
+        n = self.max_len - prefill_len
+        steps = 0
+        while steps < n:
+            self.step()
+            steps += 1
+            if (self.early and steps % DONE_CHECK_EVERY == 0 and steps < n
+                    and bool(self.done.all())):
+                break
+        if own:
+            generator.set_state(self.generator.get_state())
+        decode_log.append({
+            "batch": self.tokens.shape[0], "max_len": self.max_len,
+            "prefill_len": prefill_len, "steps": steps,
+            "captured": self.step.captured,
+            "warmup_steps": WARMUP_RUNS if self.step.captured else 0,
+            "capture_s": self.step.capture_s,
+            "cache_bytes": self.cache_bytes})
+        return GenerateOutput(
+            tokens=self.tokens.clone(), lengths=self.gen_lens.clone(),
+            log_probs=self.log_probs.clone() if self.return_log_probs
+            else None)
+
+
 @torch.inference_mode()
 def generate_tokens(model, params: dict, tokens, lengths, prefill_len: int,
                     generator: Optional[torch.Generator] = None,
@@ -113,61 +288,28 @@ def generate_tokens(model, params: dict, tokens, lengths, prefill_len: int,
                     return_log_probs: bool = False,
                     use_eod_for_early_termination: bool = True,
                     prevent_newline_after_colon_ids: Optional[Tuple[int, int]] = None,
+                    _eager: bool = False,
                     ) -> GenerateOutput:
     """Decode `tokens` (b, max_len), prompts left-aligned and padded, with
     prompt `lengths` (b,). Greedy when top_k == 1 or no generator is
     given. Runs to max_len or until every row that has started
-    generating emitted `termination_id`."""
+    generating emitted `termination_id`. On the card the call captures
+    one decode step into a CUDA graph and replays it at every step; the
+    private `_eager=True` runs the same step uncaptured (the same-call
+    comparison of the smoke run). Calls run one at a time."""
     dev = model.device
     tokens = _ids(tokens, dev)
     lengths = _ids(lengths, dev)
     b, max_len = tokens.shape
     greedy = top_k == 1 or generator is None
-
-    params = model.prepare_decode_params(params)
-    caches = model.init_kv_caches(b, max_len)
-    log_probs = torch.zeros((b, max_len - 1), dtype=torch.float32,
-                            device=dev)
-
-    logits, caches = model.forward(params, tokens[:, :prefill_len],
-                                   kv_caches=caches)
-    if return_log_probs:
-        log_probs[:, :prefill_len - 1] = _gather_lp(
-            logits[:, :-1], tokens[:, 1:prefill_len])
-    last_logits = logits[:, -1]
-
-    done = torch.zeros((b,), dtype=torch.bool, device=dev)
-    gen_lens = torch.full((b,), max_len, dtype=torch.long, device=dev)
-    cur_top_p = np.float32(top_p)
     early = use_eod_for_early_termination and termination_id is not None
-    for t in range(prefill_len, max_len):
-        if early and t > prefill_len and bool(done.all()):
-            break
-        new_sample = select_next_token(
-            last_logits, tokens[:, t - 1], generator, float(cur_top_p),
-            greedy=greedy, top_k=top_k, top_p=top_p,
-            temperature=temperature, vocab_size=vocab_size,
-            prevent_newline_after_colon_ids=prevent_newline_after_colon_ids)
-        started = lengths <= t  # past this row's prompt?
-        chosen = torch.where(started, new_sample, tokens[:, t])
-        tokens[:, t] = chosen
-        if return_log_probs:
-            log_probs[:, t - 1] = _gather_lp(last_logits, chosen)
-        if termination_id is not None:
-            done_token = (chosen == termination_id) & started
-            gen_lens = torch.where(done_token & ~done,
-                                   torch.full_like(gen_lens, t + 1), gen_lens)
-            done |= done_token
-        if top_p > 0.0 and top_p_decay > 0.0:
-            # fp32, as the JAX loop carries it
-            cur_top_p = max(cur_top_p * np.float32(top_p_decay),
-                            np.float32(top_p_bound))
-        if t + 1 < max_len:  # the last position's logits are never read
-            logits, caches = model.forward(params, chosen[:, None],
-                                           kv_caches=caches)
-            last_logits = logits[:, -1]
-    return GenerateOutput(tokens=tokens, lengths=gen_lens,
-                          log_probs=log_probs if return_log_probs else None)
+    settings = (greedy, top_k, top_p, top_p_decay, top_p_bound, temperature,
+                vocab_size, termination_id, return_log_probs, early,
+                prevent_newline_after_colon_ids)
+    with _lock:
+        loop = _DecodeLoop(model, model.prepare_decode_params(params), b,
+                           max_len, settings, capture=not _eager)
+        return loop.run(tokens, lengths, prefill_len, generator)
 
 
 class BeamHypotheses:

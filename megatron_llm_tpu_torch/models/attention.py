@@ -78,8 +78,9 @@ def attention_block(attn_params: dict, cfg, hidden: torch.Tensor,
     """qkv projection -> RoPE -> (cached) attention -> output projection.
 
     `kv_cache`, when given, is this layer's cache in one of two forms:
-    - dense {"k_gtd": (b, g, T, d), "v_gtd": ..., "offset": int}: the
-      step's K/V columns are written into it in place (the preallocated
+    - dense {"k_gtd": (b, g, T, d), "v_gtd": ..., "offset": an int or
+      a 0-d integer tensor on the cache's device}: the step's K/V
+      columns are written into it in place (the preallocated
       cache is the only copy, where the JAX package returned an updated
       array), and the returned dict holds the same tensors with the
       offset advanced;
@@ -143,20 +144,29 @@ def attention_block(attn_params: dict, cfg, hidden: torch.Tensor,
             new_cache["doc_starts"] = doc_starts
         ctx = ctx.reshape(b, s, -1)
     elif kv_cache is not None:
-        offset = int(kv_cache["offset"])
+        # a host int, or a 0-d tensor on the card (a captured decode step
+        # replays at any offset): JAX's dynamic_update_slice at a traced
+        # offset becomes a column write at device positions
+        offset = kv_cache["offset"]
+        if not isinstance(offset, torch.Tensor):
+            offset = int(offset)
+        cols = offset + torch.arange(s, device=hidden.device)
         if position_ids is None:
-            position_ids = offset + torch.arange(s, device=hidden.device)[None]
+            position_ids = cols[None]
         if rope_table is not None:
             q = apply_rope(q, rope_table, position_ids)
             k = apply_rope(k, rope_table, position_ids)
         kc, vc = kv_cache["k_gtd"], kv_cache["v_gtd"]
-        kc[:, :, offset:offset + s].copy_(k.transpose(1, 2))
-        vc[:, :, offset:offset + s].copy_(v.transpose(1, 2))
+        kc.index_copy_(2, cols, k.transpose(1, 2).to(kc.dtype))
+        vc.index_copy_(2, cols, v.transpose(1, 2).to(vc.dtype))
         new_cache = {"k_gtd": kc, "v_gtd": vc, "offset": offset + s}
+        length = offset + s
+        if isinstance(length, torch.Tensor):
+            length = length.to(torch.int32)
         if s == 1 and cfg.use_decode_attn:
-            ctx = decode_attention(q, kc, vc, offset + s)
+            ctx = decode_attention(q, kc, vc, length)
         else:
-            ctx = _xla_decode(q, kc, vc, offset + s)
+            ctx = _xla_decode(q, kc, vc, length)
         ctx = ctx.reshape(b, s, -1)
     else:
         if rope_table is not None:

@@ -168,7 +168,8 @@ def transformer_stack(layer_params, cfg, hidden: torch.Tensor,
     """Run the layers in order. `layer_params` is the stacked tree or a
     tuple of per-layer trees. `kv_caches` is None, the dense decode
     layout {"k_layers": (b, g, T, d) per layer, "v_layers": ...,
-    "offset": int} (`GPTModel.init_kv_caches`), or the paged layout
+    "offset": int or 0-d tensor} (`GPTModel.init_kv_caches`), or the
+    paged layout
     {"k_pages_layers": (P, page_size, g, d) per layer, "v_pages_layers":
     ..., "page_table", "lengths", optionally "chunk_lens", "doc_starts",
     and for int8 pools "k_scales_layers" / "v_scales_layers"}
@@ -234,7 +235,9 @@ def transformer_stack(layer_params, cfg, hidden: torch.Tensor,
             new_caches["k_scales_layers"] = kss
             new_caches["v_scales_layers"] = vss
         return hidden, new_caches
-    offset = int(kv_caches["offset"])
+    offset = kv_caches["offset"]  # an int or a 0-d tensor on the card
+    if not isinstance(offset, torch.Tensor):
+        offset = int(offset)
     ks, vs = kv_caches["k_layers"], kv_caches["v_layers"]
     for i, p in enumerate(layers):
         cache_l = {"k_gtd": ks[i], "v_gtd": vs[i], "offset": offset}

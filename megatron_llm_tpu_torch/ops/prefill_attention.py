@@ -80,11 +80,25 @@ def arrival_counters(device, n: int) -> torch.Tensor:
     `device`: each launch that completes leaves the ones it used zero, and
     two streams never share one. A buffer too small for `n` is replaced by
     a larger one, and the old one is kept alive, never freed: a CUDA graph
-    that captured a launch keeps its address and replays against it. One
-    first made inside a capture is zeroed by that graph's replay."""
+    that captured a launch keeps its address and replays against it.
+
+    A buffer is only ever made outside a capture, where it is zeroed once
+    and for all: one made inside would be zeroed by that graph's replay
+    alone, and another graph of the stream replayed before it would read
+    garbage and never merge. So a launch being captured that needs more
+    counters than its stream has raises. The request depends on shapes
+    alone, so an eager warm-up launch on the capture stream, as
+    `inference/graph_capture.CapturedFn` makes before every capture,
+    sizes the buffer for it."""
     key = (device, torch.cuda.current_stream(device).cuda_stream)
     buf = _counters.get(key)
     if buf is None or buf.numel() < n:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError(
+                f"a captured launch needs {n} arrival counters but its "
+                f"stream has {0 if buf is None else buf.numel()}: size "
+                f"them with arrival_counters() on the capture stream "
+                f"before capturing")
         if buf is not None:
             _retired_counters.append(buf)
         buf = _counters[key] = torch.zeros(max(n, 1024), dtype=torch.int32,

@@ -166,7 +166,7 @@ def test_decode_kernel_graph_replays_at_device_lengths(cuda, design):
         dec.decode_attention(q, k, v, n, design=design)
     torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         out = dec.decode_attention(q, k, v, n, design=design)
     for length in (1, 700, 2048):
         n.fill_(length)
@@ -679,8 +679,13 @@ def test_paged_tc_split_walks_replay_in_a_graph(cuda, int8):
         args, kw = paged_batch("decode", 2, 1, 128, torch.bfloat16, cuda), {}
     assert pa.tc_split(args[3].shape[1], args[1].shape[1], 1, int8)[0] > 1
     eager = pa.paged_attention(*args, **kw)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):  # sizes the stream's arrival counters
+        pa.paged_attention(*args, **kw)
+    torch.cuda.current_stream().wait_stream(side)
     graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
+    with torch.cuda.graph(graph, stream=side):
         out = pa.paged_attention(*args, **kw)
     for _ in range(2):
         graph.replay()
@@ -1148,3 +1153,256 @@ def test_train_path_kernels_on_matches_off(cuda):
         cos = torch.nn.functional.cosine_similarity(
             a.double().flatten(), b.double().flatten(), dim=0).item()
         assert cos >= 0.99
+
+
+# -- round capture (inference/graph_capture.py) ------------------------------
+
+
+def _split_launches(cuda):
+    """A K1 launch with its length on the card and K7-tc launches of a
+    decode and a mixed round, all split across blocks: the kernels of
+    the captured serving rounds."""
+    q, k, v = _qkv(4, 8, 8, 128, 2048, cuda, torch.bfloat16, seed=7)
+    n = torch.tensor(2048, dtype=torch.int32, device=cuda)
+    decode = paged_batch("decode", 8, 1, 128, torch.bfloat16, cuda, seed=3)
+    mixed = paged_batch("mixed", 2, 8, 128, torch.bfloat16, cuda, seed=4)
+    assert dec.split_plan(4, 8, 8, 128, 2048, torch.bfloat16)[0] > 1
+    assert pa.tc_split(32, 64, 1, False)[0] > 1
+
+    def run():
+        return (dec.decode_attention(q, k, v, n),
+                pa.paged_attention(*decode), pa.paged_attention(*mixed))
+    return run, n, decode[4], mixed[4]
+
+
+def _capture_on(stream, fn):
+    """`fn` warmed up on `stream` (Triton, shared memory, counters), then
+    captured there."""
+    stream.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(stream):
+        fn()
+    torch.cuda.current_stream().wait_stream(stream)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        out = fn()
+    return graph, out
+
+
+def test_k1_and_k7_rounds_captured_in_one_graph_replay_at_three_lengths(cuda):
+    """K1 at a device-side length and K7-tc at a decode and a mixed round,
+    captured in one graph and replayed with the length and the chunks'
+    starts changed on the card three times: each replay equals the eager
+    launches at those lengths bitwise."""
+    run, n, dec_starts, mix_starts = _split_launches(cuda)
+    graph, outs = _capture_on(torch.cuda.Stream(), run)
+    d0, m0 = dec_starts.clone(), mix_starts.clone()
+    for length, frac in ((2048, 1.0), (700, 0.5), (1, 0.1)):
+        n.fill_(length)
+        dec_starts.copy_((d0.float() * frac).int())
+        mix_starts.copy_((m0.float() * frac).int())
+        graph.replay()
+        eager = run()
+        torch.cuda.synchronize()
+        for got, ref in zip(outs, eager):
+            assert torch.equal(got, ref), (length, frac)
+
+
+def test_two_graphs_on_one_stream_replay_in_either_order(cuda):
+    """Two graphs captured on one stream share its arrival counters,
+    made outside both captures: replayed in either order, first of all
+    the one captured second, every split merges."""
+    run, n, _, _ = _split_launches(cuda)
+    stream = torch.cuda.Stream()
+    g_k1, out_k1 = _capture_on(stream, lambda: run()[0])
+    g_k7, out_k7 = _capture_on(stream, lambda: run()[1:])
+    ref_k1, *ref_k7 = run()
+    for order in ((g_k7, g_k1), (g_k1, g_k7), (g_k7, g_k7, g_k1)):
+        for out in (out_k1, *out_k7):
+            out.zero_()
+        for graph in order:
+            graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out_k1, ref_k1)
+        assert all(torch.equal(a, b) for a, b in zip(out_k7, ref_k7))
+
+
+def test_captured_launch_needing_more_counters_raises(cuda):
+    """A stream's arrival counters are never made inside a capture: a
+    captured launch that needs more than its stream holds raises."""
+    run, _, _, _ = _split_launches(cuda)
+    run()  # loads the kernels outside any capture
+    for sized in (False, True):
+        stream = torch.cuda.Stream()
+        if sized:
+            with torch.cuda.stream(stream):
+                have = pa.arrival_counters(cuda, 1).numel()
+        graph = torch.cuda.CUDAGraph()
+        with pytest.raises(RuntimeError, match="arrival counters"):
+            with torch.cuda.graph(graph, stream=stream):
+                if sized:
+                    pa.arrival_counters(cuda, have + 1)
+                else:
+                    run()
+
+
+def test_launch_counts_through_replays_equal_the_eager_counts(cuda):
+    """A runner of K1, K2 and K7: its capture adds nothing to the launch
+    counts, and each replay adds what one eager call adds."""
+    from megatron_llm_tpu_torch.inference import graph_capture as gc
+
+    run, _, _, _ = _split_launches(cuda)
+    x = torch.randn(8, 512, device=cuda, dtype=torch.bfloat16)
+    scale = torch.ones(512, device=cuda, dtype=torch.bfloat16)
+
+    def fn():
+        return (*run(), rms.fused_rms_norm(x, scale, 1e-5))
+
+    before = gc.launch_counts()
+    fn()
+    per_call = {k: v - before[k] for k, v in gc.launch_counts().items()
+                if v != before[k]}
+    assert per_call["decode_attention"] == 1 and \
+        per_call["ragged_paged_attention"] == 2 and \
+        per_call["fused_rms_norm"] == 1
+    start = gc.launch_counts()
+    runner = gc.CapturedFn(lambda: fn(), {}, device=cuda)
+    after_capture = gc.launch_counts()
+    assert {k: after_capture[k] - start[k] for k in per_call} == \
+        {k: gc.WARMUP_RUNS * v for k, v in per_call.items()}
+    for _ in range(5):
+        runner()
+    torch.cuda.synchronize()
+    end = gc.launch_counts()
+    assert {k: end[k] - after_capture[k] for k in per_call} == \
+        {k: 5 * v for k, v in per_call.items()}
+
+
+def _tiny_bf16(**kw):
+    cfg = tiny_config(hidden_size=512, num_attention_heads=4,
+                      num_attention_heads_kv=2, kv_channels=128,
+                      ffn_hidden_size=256, compute_dtype=torch.bfloat16,
+                      params_dtype=torch.bfloat16, use_fused_rmsnorm=True,
+                      use_decode_attn=True, **kw)
+    model = LlamaModel(cfg)
+    return model, model.init(seed=5)
+
+
+@pytest.mark.parametrize("mode", ["chunked", "int8", "spec", "whole_prompt"])
+def test_captured_engine_equals_eager_engine(cuda, mode):
+    """A tiny bf16 engine whose rounds replay CUDA graphs (all captured by
+    `warmup_compile`) against the same engine calling each round
+    eagerly: equal greedy streams and log-probs, equal page accounting;
+    every round replayed a graph and the kernels' counts moved with the
+    replays."""
+    from megatron_llm_tpu_torch.inference.engine import DecodeEngine
+
+    model, params = _tiny_bf16()
+    over = {"chunked": {}, "int8": dict(kv_dtype="int8",
+                                        quantize_weights=True),
+            "spec": dict(spec_decode_k=4),
+            "whole_prompt": dict(prefill_chunk_tokens=0,
+                                 prefix_cache=False)}[mode]
+    kw = dict(dict(slots=2, page_size=16, max_context=128,
+                   prefill_chunk_tokens=16, prefix_cache=True,
+                   vocab_size=256, termination_id=None), **over)
+    rs = np.random.RandomState(1)
+    block = [int(x) for x in rs.randint(2, 256, 6)]
+    prompts = [block * 4, [int(x) for x in rs.randint(2, 256, 40)],
+               [int(x) for x in rs.randint(2, 256, 9)]]
+    outs, acct = [], []
+    for eager in (False, True):
+        eng = DecodeEngine(model, params, warmup_compile=not eager, **kw)
+        eng._eager = eager
+        eng.start()
+        k7 = pa.ragged_paged_attention.launches
+        try:
+            reqs = [eng.submit(p, 24, top_k=1, return_log_probs=True)
+                    for p in prompts]
+            outs.append([r.result(timeout=300) for r in reqs])
+        finally:
+            eng.stop()
+        c = eng.counters()
+        acct.append((c["serve_steps"], c["serve_pages_free"],
+                     c["serve_prefill_tokens"], sorted(eng._free_pages)))
+        paged = sum(r["decode_steps"] for r in eng._round_log)
+        assert pa.ragged_paged_attention.launches - k7 == \
+            model.cfg.num_layers * paged
+        if not eager:
+            assert eng.graph_stats()["graphs"] > 0
+    for (ta, la), (tb, lb) in zip(*outs):
+        assert ta == tb
+        assert la == lb
+    assert acct[0] == acct[1]
+
+
+def test_captured_whole_batch_decode_equals_eager(cuda):
+    """`generate_tokens` on a tiny bf16 model: each decode step replays
+    one captured graph (K1 at the device length); greedy tokens,
+    lengths and log-probs equal the uncaptured step's, with and without
+    an early eod, and with a generator given to a greedy (top_k 1) call;
+    a sampled stream repeats with its seed."""
+    from megatron_llm_tpu_torch.inference import generation as gen
+
+    model, params = _tiny_bf16()
+    toks = np.zeros((3, 48), np.int64)
+    lens = np.asarray([5, 9, 7])
+    rs = np.random.RandomState(2)
+    for i, n in enumerate(lens):
+        toks[i, :n] = rs.randint(2, 250, n)
+    for term in (None, 17):
+        kw = dict(prefill_len=4, top_k=1, vocab_size=250,
+                  termination_id=term, return_log_probs=True)
+        k1 = dec.decode_attention.launches
+        a = gen.generate_tokens(model, params, toks, lens, **kw)
+        assert dec.decode_attention.launches > k1
+        b = gen.generate_tokens(model, params, toks, lens, _eager=True, **kw)
+        assert torch.equal(a.tokens, b.tokens)
+        assert torch.equal(a.lengths, b.lengths)
+        assert torch.equal(a.log_probs, b.log_probs)
+        g = torch.Generator(device=cuda).manual_seed(9)
+        c = gen.generate_tokens(model, params, toks, lens, generator=g, **kw)
+        assert torch.equal(a.tokens, c.tokens)
+
+    def sampled(seed):
+        g = torch.Generator(device=cuda).manual_seed(seed)
+        return gen.generate_tokens(model, params, toks, lens, prefill_len=4,
+                                   generator=g, top_p=0.9,
+                                   vocab_size=250).tokens
+    x, y, z = sampled(3), sampled(4), sampled(3)
+    assert torch.equal(x, z) and not torch.equal(x, y)
+
+
+def test_whole_batch_decode_frees_its_memory_after_each_call(cuda):
+    """Captured `generate_tokens` calls at several (batch, max_len) in a
+    row, greedy and sampled: after each one the card's allocated memory
+    is back at its baseline (beside the arrival counters, which are kept
+    for good), so no call leaves a dense cache, a graph's memory or a
+    copy of the weights behind."""
+    from megatron_llm_tpu_torch.inference import generation as gen
+
+    model, params = _tiny_bf16()
+    rs = np.random.RandomState(3)
+
+    def held():
+        torch.cuda.synchronize()
+        counters = sum(b.numel() * b.element_size() for b in
+                       [*pa._counters.values(), *pa._retired_counters])
+        return torch.cuda.memory_allocated() - counters
+
+    def call(b, max_len, **kw):
+        toks = np.zeros((b, max_len), np.int64)
+        toks[:, :6] = rs.randint(2, 250, (b, 6))
+        out = gen.generate_tokens(model, params, toks, [6] * b,
+                                  prefill_len=6, vocab_size=250, **kw)
+        assert gen.decode_log[-1]["captured"]
+        assert out.tokens.shape == (b, max_len)
+
+    call(2, 32, top_k=1)  # Triton's and cuBLAS's first calls
+    base = held()
+    # max_len up to the tiny model's 64 positions
+    for b, max_len in ((1, 40), (4, 64), (3, 48), (2, 56)):
+        call(b, max_len, top_k=1, return_log_probs=True)
+        assert held() == base, (b, max_len)
+        call(b, max_len, top_p=0.9,
+             generator=torch.Generator(device=cuda).manual_seed(b))
+        assert held() == base, (b, max_len, "sampled")
