@@ -136,7 +136,28 @@ Phases, one output line each (a failure raises and exits non-zero):
    per token) and its share of 989, peak memory, and a torch.profiler
    trace of one step: the top 10 CUDA kernels by device time, the share
    of the step the card was busy, and the device ms of K4, K5 and K6 in
-   the step with their share of it.
+   the step with their share of it;
+18. finetune_data and finetune (the training entry path, after the
+   train phase's model is freed): two JSONL corpora of seeded token ids
+   (about 1.5 M tokens each, documents of 64-8192) through the port's
+   `preprocess_data` (NullTokenizer, 2 workers), then
+   `finetune.main(argv)` three times at Llama-2-7B widths with 4 of 32
+   layers, seq 4096, 4 microbatches, bf16 on fp32 AdamW, full
+   recompute, blend 0.7/0.3, eval every 3 steps: R trains 6 steps with
+   an async save at 3 and the final save at 6 (keep_latest_n 1); K is
+   R with --exit_signal_handler and a SIGTERM after step 3, so it makes
+   its emergency save at 3 and returns; C loads K and trains steps 4-6.
+   The counters are set to 0 before each run and read after it: K4, K5
+   and K6 run exactly the launches the code implies (eval forwards
+   included), K1, K2, K3 and K7 never. C resumes at iteration 3 with 12
+   samples consumed, its losses equal R's bit for bit and its final
+   checkpoint R's leaf by leaf; the g++ sample indices equal their
+   numpy version and the first batches are the samples the sampler
+   names. Printed with the card's name and power limit: ms per step
+   (median of R's steps 2-6) beside the train phase's, model TFLOP/s,
+   the loader's host ms a step, preprocess s, each save's blocked ms
+   and commit s, bytes on disk and the load's s. The checkpoints live
+   under build/finetune_smoke/ and are deleted after their checks.
 
 Then one JSON line of the kernels, the nvidia-smi line, and the last
 line `{"ok": true, "device": {...}}`. Without a CUDA card it exits 2 and
@@ -148,12 +169,16 @@ import contextlib
 import dataclasses
 import gc
 import json
+import os
 import re
+import shutil
+import signal
 import subprocess
 import sys
 import threading
 import time
 from http.client import HTTPConnection
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -2877,6 +2902,305 @@ def throughput_train(trainer, state, text):
         flash_share_of_device_ms=(flash_ms * 1e3 / device_us
                                   if device_us else "not measured"),
         top10_kernels_ms=[[n[:120], round(us / 1e3, 3)] for n, us in top])
+    return med
+
+
+FT_LAYERS, FT_SEQ, FT_STEPS, FT_MICRO, FT_EVAL_INTERVAL = 4, 4096, 6, 4, 3
+FT_CORPUS_TOKENS = 1_500_000
+FT_DIR = Path(__file__).resolve().parent / "build" / "finetune_smoke"
+
+
+def write_corpus(path, seed):
+    """JSONL documents of random token ids from `seed` (ids below 31999,
+    NullTokenizer's eod), lengths 64-8192, about FT_CORPUS_TOKENS in
+    all."""
+    rs = np.random.RandomState(seed)
+    n = 0
+    with open(path, "w") as f:
+        while n < FT_CORPUS_TOKENS:
+            ids = rs.randint(0, 31999, rs.randint(64, 8193))
+            f.write(json.dumps({"text": " ".join(map(str, ids))}) + "\n")
+            n += len(ids)
+    return n
+
+
+def finetune_argv(data, save, *extra):
+    """`python -m megatron_llm_tpu_torch.finetune`'s flags: Llama-2-7B
+    widths at FT_LAYERS of 32 layers, seq 4096, 4 microbatches of 1,
+    bf16 on fp32 AdamW as in the train phase (lr 3e-4 held constant),
+    full recompute; eval every 3 steps, an interval save every 3."""
+    flags = (f"--model_name llama2 --model_size 7 --num_layers {FT_LAYERS} "
+             f"--seq_length {FT_SEQ} --micro_batch_size 1 "
+             f"--global_batch_size {FT_MICRO} --bf16 "
+             f"--recompute_granularity full --lr 3e-4 "
+             f"--lr_decay_style constant --adam_beta2 0.95 --adam_eps 1e-5 "
+             f"--weight_decay 0.1 --clip_grad 1.0 --tokenizer_type "
+             f"NullTokenizer --null_vocab_size 31999 --split 98,2,0 "
+             f"--train_iters {FT_STEPS} --eval_interval {FT_EVAL_INTERVAL} "
+             f"--eval_iters 1 --log_interval 1 --seed {SEED} "
+             f"--save_interval 3 --keep_latest_n 1").split()
+    return flags + ["--data_path", "0.7", data[0], "0.3", data[1],
+                    "--save", save, *extra]
+
+
+@contextlib.contextmanager
+def patched(obj, name, make):
+    """`obj.name` replaced by make(original) inside the block."""
+    orig = getattr(obj, name)
+    setattr(obj, name, make(orig))
+    try:
+        yield
+    finally:
+        setattr(obj, name, orig)
+
+
+def finetune_run(argv, sigterm_after=None):
+    """One `finetune.main(argv)` with the launch counters set to 0 just
+    before it, and the host facts the checks need: per step its
+    iteration, loss, ms, loader ms and batch; the datasets; each save's
+    blocked ms and commit s; the load's s; the state setup resumed to."""
+    from megatron_llm_tpu_torch import data as ft_data
+    from megatron_llm_tpu_torch import finetune
+    from megatron_llm_tpu_torch.training import trainer as trainer_mod
+    from megatron_llm_tpu_torch.training.checkpointing import (
+        CheckpointManager,
+    )
+
+    rec = {"steps": [], "saves": [], "commits": [], "loads": []}
+
+    def train_step(inner):
+        def step(self, state, text, *a):
+            stats = inner(self, state, text, *a)
+            rec.setdefault("first_batch", (state.iteration, np.array(text)))
+            if sigterm_after is not None and state.iteration == \
+                    sigterm_after:
+                os.kill(os.getpid(), signal.SIGTERM)
+            return stats
+        return step
+
+    def train(inner):
+        def run(self, state):
+            out = inner(self, state)
+            rec["steps"] = [dict(r) for r in self.step_log]
+            rec["n_params"] = self._n_params
+            return out
+        return run
+
+    def setup(inner):
+        def run(self, *a):
+            state = inner(self, *a)
+            rec["resumed"] = (state.iteration, state.consumed_train_samples)
+            return state
+        return run
+
+    def save(inner):
+        def run(self, iteration, *a, **kw):
+            out = inner(self, iteration, *a, **kw)
+            rec["saves"].append((iteration, self.last_blocked_ms))
+            return out
+        return run
+
+    def commit(inner):
+        def run(self, path, iteration, *a):
+            inner(self, path, iteration, *a)
+            rec["commits"].append((iteration, self.last_commit_s))
+        return run
+
+    def load(inner):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = inner(*a, **kw)
+            rec["loads"].append(time.perf_counter() - t0)
+            return out
+        return run
+
+    def datasets(inner):
+        def run(*a, **kw):
+            rec["datasets"] = inner(*a, **kw)
+            return rec["datasets"]
+        return run
+
+    prev = signal.getsignal(signal.SIGTERM)
+    with contextlib.ExitStack() as stack:
+        for obj, name, make in (
+                (trainer_mod.Trainer, "train_step", train_step),
+                (trainer_mod.Trainer, "train", train),
+                (trainer_mod.Trainer, "setup", setup),
+                (trainer_mod, "load_checkpoint", load),
+                (CheckpointManager, "save", save),
+                (CheckpointManager, "_commit", commit),
+                (ft_data, "build_train_valid_test_datasets", datasets)):
+            stack.enter_context(patched(obj, name, make))
+        zero_counts()
+        t0 = time.perf_counter()
+        state = finetune.main(argv)
+        torch.cuda.synchronize()
+        rec["wall_s"] = time.perf_counter() - t0
+        rec["launches"] = kernel_counts()
+    signal.signal(signal.SIGTERM, prev)
+    rec["iteration"] = state.iteration
+    rec["consumed"] = state.consumed_train_samples
+    del state
+    free_cuda()
+    return rec
+
+
+def expected_finetune_launches(steps, evals):
+    """K4 runs twice a layer and microbatch (forward and the full
+    recompute) and once a layer for each eval batch; K5 and K6 once a
+    layer and microbatch; nothing else."""
+    L, M = FT_LAYERS, FT_MICRO
+    return {"flash_fwd": 2 * L * M * steps + L * evals,
+            "flash_bwd_dq": L * M * steps, "flash_bwd_dkv": L * M * steps,
+            "rmsnorm_fwd": 0, "rmsnorm_bwd": 0, "decode_attention": 0,
+            "ragged_paged_attention": 0}
+
+
+def checkpoint_leaves_equal(a_dir, b_dir):
+    """Leaf by leaf, bit for bit, the model and optim files of two
+    checkpoint directories (mmap'd, compared on the card)."""
+    n = 0
+    for name in ("model", "optim"):
+        a = torch.load(os.path.join(a_dir, name), mmap=True,
+                       weights_only=True)
+        b = torch.load(os.path.join(b_dir, name), mmap=True,
+                       weights_only=True)
+        check(set(a) == set(b), f"{name} leaves differ")
+        for k in a:
+            check(torch.equal(a[k].cuda(), b[k].cuda()),
+                  f"{name} leaf {k} differs between the runs")
+            n += 1
+    return n
+
+
+def dir_bytes(path):
+    return sum(os.path.getsize(os.path.join(path, f))
+               for f in os.listdir(path))
+
+
+def check_finetune_data(rec):
+    """The g++ helpers' sample indices against their numpy version, per
+    corpus; the first global batch against the samples the sampler
+    names (0-3 of the blend)."""
+    from megatron_llm_tpu_torch.data import helpers
+
+    train = rec["datasets"][0]
+    n = 0
+    for ds in train.datasets:
+        sizes = ds.indexed_dataset.sizes
+        tpe = int(np.sum(sizes[np.unique(ds.doc_idx)]))
+        epochs = len(ds.doc_idx) // len(np.unique(ds.doc_idx))
+        plain = helpers.build_sample_idx_np(sizes, ds.doc_idx, FT_SEQ,
+                                            epochs, tpe)
+        check(np.array_equal(plain, ds.sample_idx),
+              "g++ sample index != numpy")
+        n += len(plain)
+    step, first = rec["first_batch"]
+    want = np.stack([train[i]["text"] for i in range(FT_MICRO)])
+    check(step == 1 and np.array_equal(first.reshape(FT_MICRO, -1), want),
+          "first batch != the sampler's samples")
+    return n
+
+
+def finetune_phase(kernels, train_step_ms):
+    """The training entry path: two seeded JSONL corpora through
+    preprocess_data, then `finetune.main` three times: R uninterrupted
+    (interval save at 3, final at 6), K the same with SIGTERM after step
+    3 (emergency save at 3), C resuming K to 6. C's losses and final
+    checkpoint must equal R's bit for bit."""
+    from megatron_llm_tpu_torch.tools import preprocess_data
+
+    shutil.rmtree(FT_DIR, ignore_errors=True)
+    FT_DIR.mkdir(parents=True)
+    data, tokens, t_pre = [], 0, 0.0
+    for name, seed in (("A", SEED + 31), ("B", SEED + 37)):
+        jsonl = FT_DIR / f"{name}.jsonl"
+        tokens += write_corpus(jsonl, seed)
+        t0 = time.perf_counter()
+        preprocess_data.main([
+            "--input", str(jsonl), "--output_prefix", str(FT_DIR / name),
+            "--tokenizer_type", "NullTokenizer", "--null_vocab_size",
+            "31999", "--append_eod", "--workers", "2"])
+        t_pre += time.perf_counter() - t0
+        data.append(str(FT_DIR / f"{name}_text_document"))
+    free_gb = shutil.disk_usage(FT_DIR).free / 1e9
+    say("finetune_data", card=nvidia_smi(), corpus_tokens=tokens,
+        preprocess_s=t_pre,
+        disk_free_gb_before_saves=free_gb)
+
+    r_dir, k_dir = str(FT_DIR / "R"), str(FT_DIR / "K")
+    runs = {"R": finetune_run(finetune_argv(data, r_dir))}
+    runs["K"] = finetune_run(finetune_argv(data, k_dir,
+                                           "--exit_signal_handler"),
+                             sigterm_after=3)
+    runs["C"] = finetune_run(finetune_argv(data, k_dir, "--load", k_dir))
+    R, K, C = runs["R"], runs["K"], runs["C"]
+    for name, (steps, evals) in {"R": (6, 2), "K": (3, 1),
+                                 "C": (3, 1)}.items():
+        want = expected_finetune_launches(steps, evals)
+        check(runs[name]["launches"] == want,
+              f"run {name} launches {runs[name]['launches']} != {want}")
+    launches = {k: sum(r["launches"][k] for r in runs.values())
+                for k in R["launches"]}
+
+    r_losses = {s["step"]: s["loss"] for s in R["steps"]}
+    c_losses = {s["step"]: s["loss"] for s in C["steps"]}
+    check(sorted(r_losses) == list(range(1, 7)), f"R steps {r_losses}")
+    check(all(np.isfinite(list(r_losses.values()))), "R losses")
+    check([s["step"] for s in K["steps"]] == [1, 2, 3]
+          and K["iteration"] == 3, "K did not stop at iteration 3")
+    check(K["saves"][-1][0] == 3 and os.path.isfile(
+        os.path.join(k_dir, "iter_0000003", "COMPLETE")),
+        "K made no save at 3")
+    check(C["resumed"] == (3, 12), f"C resumed at {C['resumed']}")
+    check(sorted(c_losses) == [4, 5, 6], f"C steps {c_losses}")
+    check(all(c_losses[s] == r_losses[s] for s in (4, 5, 6)),
+          f"C losses {c_losses} != R's {r_losses}")
+    check(C["consumed"] == R["consumed"] == 24, "consumed samples")
+    step, first = C["first_batch"]
+    want = np.stack([R["datasets"][0][i]["text"] for i in range(12, 16)])
+    check(step == 4 and np.array_equal(first.reshape(FT_MICRO, -1), want),
+          "C's first batch is not samples 12-15")
+    samples = check_finetune_data(R)
+    r_final = os.path.join(r_dir, "iter_0000006")
+    c_final = os.path.join(k_dir, "iter_0000006")
+    ckpt_bytes = dir_bytes(r_final)
+    leaves = checkpoint_leaves_equal(r_final, c_final)
+    check(not os.path.exists(os.path.join(r_dir, "iter_0000003")),
+          "keep_latest_n 1 left iteration 3 in R")
+    shutil.rmtree(FT_DIR)
+
+    ms = [s["ms"] for s in R["steps"][1:]]
+    med = float(np.median(ms))
+    # the trainer's formula: 6 N FLOPs a token
+    tok_s = FT_MICRO * FT_SEQ / (med / 1e3)
+    tflops = tok_s * 6 * R["n_params"] / 1e12
+    say("finetune", card=nvidia_smi(),
+        config="llama2-7b widths via finetune.main",
+        layers=FT_LAYERS, seq=FT_SEQ, micro_batches=FT_MICRO,
+        params=R["n_params"], losses_R=[r_losses[s] for s in range(1, 7)],
+        losses_C=[c_losses[s] for s in (4, 5, 6)],
+        resumed_iteration=C["resumed"][0],
+        resumed_consumed_samples=C["resumed"][1],
+        step_ms_median_2_6=med, step_ms_R=[s["ms"] for s in R["steps"]],
+        train_phase_step_ms_median=train_step_ms,
+        tokens_per_s=tok_s, model_tflops=tflops,
+        loader_ms_per_step=[s["data_ms"] for s in R["steps"]],
+        loader_ms_median=float(np.median([s["data_ms"]
+                                          for s in R["steps"]])),
+        saves_blocked_ms={n: r["saves"] for n, r in runs.items()},
+        commits_s={n: r["commits"] for n, r in runs.items()},
+        load_s=C["loads"], checkpoint_bytes=ckpt_bytes,
+        checkpoint_leaves_equal=leaves, sample_idx_rows_checked=samples,
+        run_wall_s={n: r["wall_s"] for n, r in runs.items()},
+        launches=launches, expected_launches={
+            k: sum(expected_finetune_launches(*se)[k]
+                   for se in ((6, 2), (3, 1), (3, 1)))
+            for k in launches})
+    for row in kernels:
+        if row["name"] in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+            row["launches_by_path"]["finetune"] = launches[row["name"]]
+            row["launches"] = sum(row["launches_by_path"].values())
 
 
 def _leaves(tree):
@@ -2926,7 +3250,9 @@ def main() -> int:
     free_cuda()
     say("memory_before_train",
         allocated_gb=torch.cuda.memory_allocated() / 1e9)
-    throughput_train(*train_slice(kernels)[2:])
+    train_ms = throughput_train(*train_slice(kernels)[2:])
+    free_cuda()
+    finetune_phase(kernels, train_ms)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -215,6 +215,40 @@ def llama_config(size_b: int = 7, version: int = 2, seq_length: int = 4096,
     return mc
 
 
+def codellama_config(size_b: int = 7, seq_length: int = 16384,
+                     **overrides) -> ModelConfig:
+    """CodeLlama: Llama-2 with rope_theta 1e6, 16k positions and a 32016
+    vocabulary (JAX: config.py codellama_config)."""
+    overrides.setdefault("rope_theta", 1e6)
+    return llama_config(size_b, version=2, seq_length=seq_length,
+                        vocab_size=overrides.pop("vocab_size", 32016),
+                        **overrides)
+
+
+def gpt_config(num_layers: int = 12, hidden_size: int = 768,
+               num_attention_heads: int = 12, seq_length: int = 1024,
+               vocab_size: int = 50257, tp: int = 1,
+               **overrides) -> ModelConfig:
+    """GPT-2/3-style preset (JAX: config.py gpt_config): learned
+    positions, gelu, biases, LayerNorm, tied head."""
+    cfg = dict(
+        num_layers=num_layers,
+        hidden_size=hidden_size,
+        num_attention_heads=num_attention_heads,
+        seq_length=seq_length,
+        max_position_embeddings=seq_length,
+        position_embedding_type="absolute",
+        hidden_act="gelu",
+        tie_embed_logits=True,
+    )
+    cfg.update(overrides)
+    mc = ModelConfig(**cfg)
+    if mc.padded_vocab_size == 0:
+        mc = dataclasses.replace(
+            mc, padded_vocab_size=mc.pad_vocab_size(vocab_size, tp))
+    return mc
+
+
 def tiny_config(**overrides) -> ModelConfig:
     """Small config for tests (JAX: config.py tiny_config)."""
     cfg = dict(
@@ -282,6 +316,10 @@ class TrainConfig:
     train_samples: Optional[int] = None
     exit_interval: Optional[int] = None
     exit_duration_in_mins: Optional[float] = None
+    exit_signal_handler: bool = False
+    # sentinel-file termination hook (parallel/multihost.AutoResume)
+    autoresume_file: Optional[str] = None
+    autoresume_interval: int = 50
 
     optimizer: str = "adam"  # adam | sgd
     lr: float = 1e-4
@@ -310,7 +348,25 @@ class TrainConfig:
     fp16: bool = False
     bf16: bool = True
 
-    # Loss watchdog (training/watchdog.py)
+    # Checkpointing (training/checkpointing.py): `load` resumes from the
+    # newest complete checkpoint there; `finetune` takes its weights only
+    # and starts at iteration 0; interval saves are async unless
+    # `async_save` is off; `keep_latest_n` complete checkpoints are kept
+    # (None: all).
+    save: Optional[str] = None
+    load: Optional[str] = None
+    save_interval: Optional[int] = None
+    finetune: bool = False
+    no_save_optim: bool = False
+    no_load_optim: bool = False
+    no_load_rng: bool = False
+    async_save: bool = True
+    keep_latest_n: Optional[int] = None
+
+    # Loss watchdog (training/watchdog.py): a non-finite loss or one above
+    # median + ksigma * sigma of the window skips its step on the card;
+    # `spike_rollback_patience` bad steps in a row reload the last
+    # complete checkpoint (0: skip only).
     loss_watchdog_ksigma: float = 0.0
     loss_watchdog_window: int = 64
     spike_rollback_patience: int = 0
@@ -318,15 +374,14 @@ class TrainConfig:
     log_interval: int = 100
     eval_interval: int = 1000
     eval_iters: int = 100
+    timing_log_level: int = 0
+    timing_log_option: str = "minmax"
     log_params_norm: bool = False
     log_num_zeros_in_grad: bool = False
 
-    # Later slices: each raises in Trainer while set.
-    save: Optional[str] = None
-    load: Optional[str] = None
-    save_interval: Optional[int] = None
-    exit_signal_handler: bool = False
-    autoresume_file: Optional[str] = None
+    # The trainer's telemetry hooks (a later slice): each raises in
+    # Trainer while set.
+    flight_record_dir: Optional[str] = None
     tensorboard_dir: Optional[str] = None
     wandb_logger: bool = False
     profile: bool = False

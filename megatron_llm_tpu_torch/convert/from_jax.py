@@ -24,9 +24,14 @@ its module docstring (megatron_llm_tpu/convert/megatron_torch.py:12-19).
 across the same way, so a run can resume part-way on the port. The port
 trains on the stacked layer tree itself (`transformer_stack` unbinds it
 once per forward), so no stacked <-> per-layer converter is needed.
+`checkpoint_from_jax` writes a whole port checkpoint from a JAX
+checkpoint's restored leaves and its meta.json, which `--load` then
+resumes.
 """
 
 from __future__ import annotations
+
+from types import SimpleNamespace
 
 import numpy as np
 import torch
@@ -73,3 +78,27 @@ def optimizer_state_from_jax(state, cfg, device="cuda"):
     step = torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
                         device=device)
     return OptimizerState(step=step, m=conv(state.m), v=conv(state.v))
+
+
+def checkpoint_from_jax(params_np: dict, opt_np, meta: dict,
+                        save_dir: str) -> str:
+    """Write the port checkpoint of a JAX one: its params and optimizer
+    state as numpy leaves (`opt_np` may be None: a weights-only
+    checkpoint) and its meta.json dict, whose iteration, consumed samples,
+    scheduler state and config carry over. Returns the directory
+    written, which the tracker in `save_dir` names."""
+    from megatron_llm_tpu_torch.training.checkpointing import (
+        save_checkpoint,
+    )
+
+    c = meta["config"]
+    cfg = SimpleNamespace(qkv_projection_size=c["kv_channels"] * (
+        c["num_attention_heads"] + 2 * c["num_attention_heads_kv"]))
+    params = params_from_jax(params_np, cfg, device="cpu")
+    opt = optimizer_state_from_jax(opt_np, cfg, device="cpu") \
+        if opt_np is not None else None
+    return save_checkpoint(
+        save_dir, meta["iteration"], params, opt,
+        scheduler_state=meta.get("scheduler"),
+        consumed_train_samples=meta.get("consumed_train_samples", 0),
+        extra_meta={"config": c})

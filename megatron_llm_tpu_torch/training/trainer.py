@@ -1,37 +1,51 @@
-"""The training runtime: setup + train loop (port of training/trainer.py).
+"""The training runtime: setup, the train loop and `pretrain` (port of
+training/trainer.py).
 
-`Trainer.setup()` / `Trainer.train()` are the loop `pretrain()` drives
-(JAX :1244-1275), fed an iterator of (num_micro, mbs, seq+1) int token
-arrays. The trainer runs on its model's device (`cuda` unless the model
-was built for the CPU): params are fp32 leaves that require grad, the
-optimizer state is fp32, compute runs in the config's compute dtype.
+`pretrain()` is the one-call entry (`finetune.main` calls it): it builds
+the datasets, the `Trainer`, resumes from `load`, builds the loaders
+from the resumed sample and runs `Trainer.train()`, fed
+(num_micro, mbs, seq+1) int token arrays. The trainer runs on its model's
+device (`cuda` unless the model was built for the CPU): params are fp32
+leaves that require grad, the optimizer state is fp32, compute runs in
+the config's compute dtype.
 
-Ported: `TrainState`, `get_batch`, `Trainer` with `setup`, `train_step`,
-the `train` loop, `evaluate` on the plain path, and `_training_log` with
-tokens/s and model TFLOP/s. The loop reads one value back from the card
+Ported: `TrainState`, `get_batch`, `SignalHandler`, `Trainer` with
+`setup` (fresh or from a checkpoint), `train_step`, the `train` loop,
+`evaluate` on the plain path, `_training_log` with tokens/s and model
+TFLOP/s, the checkpoint paths (async interval saves, the blocking saves
+of the SIGTERM, duration and autoresume exits and of the end of
+`pretrain`, the loss watchdog's rollback to the last complete
+checkpoint), and `pretrain`. The loop reads one value back from the card
 per step, the loss, as the JAX loop does (:1044); the log reads the
 gradient norm and skip flag at its interval. Each step appends its host
-facts to `step_log` (step, loss, ms), the part of the JAX flight
-recorder's step trail this slice keeps.
+facts to `step_log` (step, loss, ms, the loader's ms), the part of the
+JAX flight recorder's step trail this slice keeps.
 
-Later slices, each raising ValueError while set: checkpointing (`save`,
-`load`, `save_interval`), the signal handler and autoresume, tensorboard
-and WandB, profiling and span traces, the device-cost registry and the
-perf sentinel. `setup(params=...)` takes an initial parameter tree (for
-example one bridged from the JAX package) until checkpoint loading is
-ported.
+A save of an iteration this trainer has already saved (the emergency
+save after an interval save of the same step, the final save after an
+emergency one) waits for that save instead of writing the same state
+again; the JAX package writes it twice.
+
+Later slices, each raising ValueError while set: tensorboard and WandB,
+profiling and span traces, the flight-record dumps, the device-cost
+registry and the perf sentinel (the trainer's telemetry hooks, A3.8).
 """
 
 from __future__ import annotations
 
+import signal as _signal
 import time
 from dataclasses import dataclass
-from typing import Any, Iterable, Optional
+from typing import Any, Callable, Iterable, Optional
 
 import numpy as np
 import torch
 
-from megatron_llm_tpu_torch.config import ModelConfig, ParallelConfig, TrainConfig
+from megatron_llm_tpu_torch.config import (
+    ModelConfig,
+    ParallelConfig,
+    TrainConfig,
+)
 from megatron_llm_tpu_torch.optimizer import (
     OptimizerParamScheduler,
     init_optimizer_state,
@@ -39,6 +53,15 @@ from megatron_llm_tpu_torch.optimizer import (
 from megatron_llm_tpu_torch.optimizer.optimizer import (
     OptimizerState,
     tree_leaves,
+)
+from megatron_llm_tpu_torch.parallel.multihost import (
+    AutoResume,
+    all_hosts_any,
+    host_barrier,
+)
+from megatron_llm_tpu_torch.training.checkpointing import (
+    CheckpointManager,
+    load_checkpoint,
 )
 from megatron_llm_tpu_torch.training.microbatches import (
     build_num_microbatches_calculator,
@@ -52,19 +75,28 @@ from megatron_llm_tpu_torch.training.watchdog import LossWatchdog
 from megatron_llm_tpu_torch.utils.masks import get_ltor_masks_and_position_ids
 
 # TrainConfig fields of later slices: (field, the slice that ports it)
-_LATER = (
-    ("save", "checkpointing"), ("load", "checkpointing"),
-    ("save_interval", "checkpointing"),
-    ("exit_signal_handler", "checkpointing (the SIGTERM emergency save)"),
-    ("autoresume_file", "checkpointing (autoresume)"),
-    ("tensorboard_dir", "the trainer's telemetry hooks"),
-    ("wandb_logger", "the trainer's telemetry hooks"),
-    ("profile", "the trainer's telemetry hooks"),
-    ("trace_dir", "the trainer's telemetry hooks"),
-    ("device_cost_registry", "the trainer's telemetry hooks"),
-    ("perf_sentinel_ksigma", "the trainer's telemetry hooks"),
-    ("spike_rollback_patience", "checkpointing (the watchdog's rollback)"),
-)
+_LATER = tuple(
+    (name, "the trainer's telemetry hooks, ROADMAP.md A3.8") for name in (
+        "tensorboard_dir", "wandb_logger", "profile", "trace_dir",
+        "flight_record_dir", "device_cost_registry", "perf_sentinel_ksigma"))
+
+
+class SignalHandler:
+    """Latches SIGTERM (installed from the main thread only); the loop
+    makes an emergency save and leaves when it sees the latch."""
+
+    def __init__(self, sig=_signal.SIGTERM):
+        self.triggered = False
+        try:
+            _signal.signal(sig, self._handle)
+        except ValueError:  # not the main thread: nothing is latched
+            pass
+
+    def _handle(self, signum, frame):
+        self.triggered = True
+
+    def signals_received(self) -> bool:
+        return self.triggered
 
 
 def get_batch(text, eod_token=None, reset_position_ids=False,
@@ -108,13 +140,13 @@ class Trainer:
         for name, slice_name in _LATER:
             if getattr(tcfg, name):
                 raise ValueError(f"TrainConfig.{name} is not ported yet "
-                                 f"({slice_name}, ROADMAP.md A3)")
+                                 f"({slice_name})")
         cfg: ModelConfig = model.cfg
         if cfg.hidden_dropout > 0 or cfg.attention_dropout > 0:
             raise ValueError(
                 f"hidden_dropout={cfg.hidden_dropout}, attention_dropout="
                 f"{cfg.attention_dropout}: dropout is not ported yet (the "
-                f"dropout slice, ROADMAP.md A3)")
+                f"dropout slice, ROADMAP.md A3.6)")
         self.model = model
         self.cfg = cfg
         self.device = model.device
@@ -127,10 +159,10 @@ class Trainer:
         self.reset_position_ids = reset_position_ids
         self.reset_attention_mask = reset_attention_mask
         self.eod_mask_loss = eod_mask_loss
-        self.timers = Timers()
+        self.timers = Timers(tcfg.timing_log_level, tcfg.timing_log_option)
         self._n_params = 0  # set in setup(); enables the TFLOP/s log field
         self._eval_step_fn = None
-        self.step_log: list = []  # per step: step, loss, ms
+        self.step_log: list = []  # per step: step, loss, ms, data_ms, bad
         self.num_microbatches_calc = build_num_microbatches_calculator(
             tcfg.global_batch_size, tcfg.micro_batch_size,
             pcfg.data_parallel_size, tcfg.rampup_batch_size)
@@ -162,21 +194,58 @@ class Trainer:
             k_sigma=tcfg.loss_watchdog_ksigma,
             window=max(tcfg.loss_watchdog_window, 4),
             patience=tcfg.spike_rollback_patience)
+        self.signal_handler = (SignalHandler() if tcfg.exit_signal_handler
+                               else None)
+        # the checkpoint writer is made at the first save
+        self._ckpt_manager: Optional[CheckpointManager] = None
+        self._loaded_ckpt_path: Optional[str] = None
+        self._saved_iteration: Optional[int] = None
+        self._autoresume = (AutoResume(tcfg.autoresume_file,
+                                       tcfg.autoresume_interval)
+                            if tcfg.autoresume_file else None)
         self._train_steps: dict = {}  # num_microbatches -> step function
 
     # ------------------------------------------------------------------
     def setup(self, params: Optional[dict] = None) -> TrainState:
         """fp32 params (drawn on the model's device from tcfg.seed unless
-        `params` is given) and fresh optimizer state."""
+        `params` is given) and fresh optimizer state; then, with
+        `tcfg.load`, the newest complete checkpoint there (JAX :293-366):
+        its params, optimizer state (unless --finetune or
+        --no_load_optim), iteration, consumed samples and scheduler."""
         self.timers("model-and-optimizer-setup").start()
         if params is None:
             params = self.model.init(seed=self.tcfg.seed)
-        for p in tree_leaves(params):
-            p.requires_grad_(True)
         opt_state = init_optimizer_state(params, self.tcfg)
         self.timers("model-and-optimizer-setup").stop()
         self._n_params = sum(p.numel() for p in tree_leaves(params))
-        return TrainState(params=params, opt_state=opt_state)
+        state = TrainState(params=params, opt_state=opt_state)
+        if self.tcfg.load:
+            loaded = load_checkpoint(
+                self.tcfg.load, params, opt_state, self.cfg,
+                finetune=self.tcfg.finetune,
+                no_load_optim=self.tcfg.no_load_optim,
+                no_load_rng=self.tcfg.no_load_rng)
+            if loaded is not None:
+                params, opt_state_l, meta, iteration = loaded
+                state = TrainState(
+                    params=params,
+                    opt_state=opt_state_l if opt_state_l is not None
+                    else opt_state,
+                    iteration=iteration,
+                    consumed_train_samples=0 if self.tcfg.finetune
+                    else meta.get("consumed_train_samples", 0))
+                if meta.get("scheduler") and not self.tcfg.finetune:
+                    self.scheduler.load_state_dict(meta["scheduler"])
+                # retention GC never deletes the checkpoint a resume read
+                self._loaded_ckpt_path = meta.get("loaded_path")
+                # a batch-size rampup resumes at the resumed sample
+                self.num_microbatches_calc.update(
+                    state.consumed_train_samples)
+                print(f"loaded checkpoint from {self.tcfg.load} at "
+                      f"iteration {state.iteration}", flush=True)
+        for p in tree_leaves(state.params):
+            p.requires_grad_(True)
+        return state
 
     def _get_step_fn(self, num_microbatches: int):
         if num_microbatches not in self._train_steps:
@@ -268,6 +337,84 @@ class Trainer:
         tok_s = batch_size * self.cfg.seq_length / max(elapsed, 1e-9)
         return tok_s, tok_s * 6 * self._n_params / 1e12
 
+    # ------------------------------------------------------------------
+    def _get_ckpt_manager(self) -> CheckpointManager:
+        if self._ckpt_manager is None:
+            self._ckpt_manager = CheckpointManager(
+                self.tcfg.save, keep_latest_n=self.tcfg.keep_latest_n,
+                async_save=self.tcfg.async_save)
+            self._ckpt_manager.protect(self._loaded_ckpt_path)
+        return self._ckpt_manager
+
+    def _save(self, state: TrainState, blocking: bool = False):
+        """Save to `tcfg.save` (JAX :879-912): async unless `blocking`
+        (the exit paths), which also waits for the commit. The loop's
+        stall is the `ckpt_blocked_ms` gauge."""
+        if not self.tcfg.save:
+            return
+        mgr = self._get_ckpt_manager()
+        if self._saved_iteration == state.iteration:
+            # this state is saved already, or its save is in flight
+            if blocking:
+                mgr.wait_until_finished()
+            return
+        self.timers("save-checkpoint").start()
+        mgr.save(state.iteration, state.params,
+                 None if self.tcfg.no_save_optim else state.opt_state,
+                 self.cfg, self.scheduler.state_dict(),
+                 state.consumed_train_samples)
+        self.timers("save-checkpoint").stop()
+        self._saved_iteration = state.iteration
+        self.timers.gauge("ckpt_blocked_ms", round(mgr.last_blocked_ms, 2))
+        if blocking:
+            mgr.wait_until_finished()
+        print(f"saved checkpoint at iteration {state.iteration} to "
+              f"{self.tcfg.save}{' (committed)' if blocking else ' (async)'}",
+              flush=True)
+
+    def _rollback(self, state: TrainState) -> bool:
+        """The loss watchdog's escalation (JAX :914-985): reload the last
+        complete checkpoint into `state` and keep the data iterator where
+        it is, so the batches since that checkpoint are consumed but
+        never trained on. `consumed_train_samples` is not rewound (it is
+        the data position a later resume restarts from). False, and
+        skip-only training, when there is nothing to roll back to."""
+        if not self.tcfg.save:
+            print("WARNING: loss watchdog wants a rollback but no --save "
+                  "dir is configured; continuing in skip-only mode",
+                  flush=True)
+            return False
+        # the save in flight is the newest: it must land first
+        self._get_ckpt_manager().wait_until_finished()
+        loaded = load_checkpoint(
+            self.tcfg.save, state.params,
+            # --no_save_optim checkpoints have no optim file
+            None if self.tcfg.no_save_optim else state.opt_state,
+            self.cfg,
+            no_load_optim=self.tcfg.no_save_optim or self.tcfg.no_load_optim)
+        if loaded is None:
+            print("WARNING: loss watchdog wants a rollback but no complete "
+                  "checkpoint exists yet; continuing in skip-only mode",
+                  flush=True)
+            return False
+        params, opt_state, meta, iteration = loaded
+        poison = state.iteration - iteration
+        for p in tree_leaves(params):
+            p.requires_grad_(True)
+        state.params = params
+        if opt_state is not None:
+            state.opt_state = opt_state
+        state.iteration = iteration
+        if meta.get("scheduler"):
+            self.scheduler.load_state_dict(meta["scheduler"])
+        self._get_ckpt_manager().protect(meta.get("loaded_path"))
+        self.watchdog.note_rollback()
+        print(f"LOSS WATCHDOG ROLLBACK: reloaded iteration {iteration} from "
+              f"{self.tcfg.save}; data iterator fast-forwarded past the "
+              f"{poison}-iteration poison window (rollback "
+              f"#{self.watchdog.rollbacks})", flush=True)
+        return True
+
     def train(self, state: TrainState) -> TrainState:
         """The loop (JAX :985-1199, the paths this slice ports)."""
         tcfg = self.tcfg
@@ -283,6 +430,7 @@ class Trainer:
 
         while keep_going():
             self.timers("batch-generator").start()
+            t_fetch = time.perf_counter()
             try:
                 text = next(data_iter)
             except StopIteration:
@@ -290,6 +438,7 @@ class Trainer:
                 break
             finally:
                 self.timers("batch-generator").stop()
+            data_ms = (time.perf_counter() - t_fetch) * 1e3
             t0 = time.time()
             self.timers("train-step").start()
             stats = self.train_step(state, text)
@@ -298,14 +447,18 @@ class Trainer:
             stats["loss"] = loss_val
             elapsed = time.time() - t0
             # a bad step (NaN/inf or a spike) was already skipped on the
-            # card by the threshold gate; the host counts the streak
+            # card by the threshold gate; the host counts the streak and
+            # rolls back after `spike_rollback_patience` in a row
             bad = self.watchdog.observe(loss_val)
             self.step_log.append({"step": state.iteration, "loss": loss_val,
-                                  "ms": elapsed * 1e3, "bad": bad})
+                                  "ms": elapsed * 1e3, "data_ms": data_ms,
+                                  "bad": bad})
             if bad:
                 print(f"loss watchdog: bad step at iteration "
                       f"{state.iteration} (loss {loss_val:.6E}, streak "
                       f"{self.watchdog.consecutive_bad})", flush=True)
+                if self.watchdog.should_rollback():
+                    self._rollback(state)
             if state.iteration % tcfg.log_interval == 0:
                 self._training_log(state, stats, elapsed)
             if (tcfg.eval_interval and self.valid_data_iterator is not None
@@ -314,12 +467,95 @@ class Trainer:
                 print(f"validation loss at iteration {state.iteration}: "
                       f"{val:.6E} | ppl: {float(np.exp(min(20.0, val))):.4f}",
                       flush=True)
-            if tcfg.exit_duration_in_mins is not None and (
-                    time.time() - start_time) / 60.0 \
-                    > tcfg.exit_duration_in_mins:
-                print("exiting on duration limit", flush=True)
+            if tcfg.save_interval and state.iteration % tcfg.save_interval \
+                    == 0:
+                self._save(state)
+            # the exits (JAX :1127-1186): signal, duration and autoresume
+            # each make a blocking save first
+            if self.signal_handler is not None and all_hosts_any(
+                    self.signal_handler.signals_received()):
+                print("exiting on termination signal - emergency save",
+                      flush=True)
+                self._save(state, blocking=True)
+                host_barrier("emergency-save-done")
                 break
-            if tcfg.exit_interval and state.iteration % tcfg.exit_interval == 0:
+            if tcfg.exit_duration_in_mins is not None and all_hosts_any(
+                    (time.time() - start_time) / 60.0
+                    > tcfg.exit_duration_in_mins):
+                print("exiting on duration limit", flush=True)
+                self._save(state, blocking=True)
+                host_barrier("duration-save-done")
+                break
+            if self._autoresume is not None and \
+                    self._autoresume.termination_requested(state.iteration):
+                print("exiting on autoresume termination request",
+                      flush=True)
+                self._save(state, blocking=True)
+                host_barrier("autoresume-save-done")
+                break
+            if tcfg.exit_interval and state.iteration % tcfg.exit_interval \
+                    == 0:
                 print(f"exiting at iteration {state.iteration}", flush=True)
                 break
+        # an interval save in flight lands before the loop returns
+        if self._ckpt_manager is not None:
+            self._ckpt_manager.wait_until_finished()
         return state
+
+
+def pretrain(model, tcfg: TrainConfig, pcfg: ParallelConfig,
+             train_valid_test_dataset_provider: Callable,
+             eod_token: Optional[int] = None,
+             reset_position_ids: bool = False,
+             reset_attention_mask: bool = False,
+             eod_mask_loss: bool = False,
+             dataloader_type: str = "single") -> TrainState:
+    """One-call training entry (JAX :1202-1275).
+
+    `train_valid_test_dataset_provider(train_val_test_num_samples)`
+    returns (train_ds, valid_ds, test_ds), each with __len__ and
+    __getitem__ -> {"text": ...} or None. The loaders start at the
+    resumed `consumed_train_samples`; the train loader asks the
+    trainer's microbatch calculator for its count at every step;
+    `dataloader_type` "cyclic" reshuffles every epoch (the JAX `pretrain`
+    always reads in order). With `tcfg.save` the end state is saved,
+    blocking."""
+    from megatron_llm_tpu_torch.data.data_samplers import (
+        build_pretraining_data_loader,
+    )
+
+    if tcfg.train_samples is not None:
+        from megatron_llm_tpu_torch.training.microbatches import (
+            iterations_for_samples,
+        )
+
+        train_iters = iterations_for_samples(
+            tcfg.train_samples, tcfg.global_batch_size,
+            tcfg.micro_batch_size, pcfg.data_parallel_size,
+            tcfg.rampup_batch_size)
+        train_budget = tcfg.train_samples
+    else:
+        train_iters = tcfg.train_iters or 0
+        train_budget = train_iters * tcfg.global_batch_size
+    eval_iters = (train_iters // max(tcfg.eval_interval, 1) + 1) \
+        * tcfg.eval_iters
+    num_samples = [train_budget, eval_iters * tcfg.global_batch_size,
+                   tcfg.eval_iters * tcfg.global_batch_size]
+    train_ds, valid_ds, _ = train_valid_test_dataset_provider(num_samples)
+
+    trainer = Trainer(model, tcfg, pcfg, eod_token=eod_token,
+                      reset_position_ids=reset_position_ids,
+                      reset_attention_mask=reset_attention_mask,
+                      eod_mask_loss=eod_mask_loss)
+    state = trainer.setup()
+    trainer.train_data_iterator = build_pretraining_data_loader(
+        train_ds, state.consumed_train_samples, tcfg.micro_batch_size,
+        pcfg.data_parallel_size, trainer.num_microbatches_calc.get,
+        dataloader_type=dataloader_type)
+    trainer.valid_data_iterator = build_pretraining_data_loader(
+        valid_ds, 0, tcfg.micro_batch_size, pcfg.data_parallel_size, 1,
+        dataloader_type=dataloader_type)
+    state = trainer.train(state)
+    if tcfg.save:
+        trainer._save(state, blocking=True)
+    return state

@@ -1,6 +1,6 @@
 """PyTorch port isolation: the port and chip_smoke.py never import JAX or
-the JAX package, and their model and kernel entry points default to the
-card."""
+the JAX package, and their model, kernel and training entry points
+default to the card."""
 
 import ast
 import inspect
@@ -14,6 +14,7 @@ from pathlib import Path
 import pytest
 
 import megatron_llm_tpu_torch
+from megatron_llm_tpu_torch import finetune
 from megatron_llm_tpu_torch.config import tiny_config
 from megatron_llm_tpu_torch.convert.from_jax import params_from_jax
 from megatron_llm_tpu_torch.inference.engine import DecodeEngine
@@ -87,10 +88,22 @@ def test_no_jax_import_in_source(path):
     (precompute_rope, "device"),
     (params_from_jax, "device"),
     (get_batch, "device"),
+    (finetune.main, "device"),
+    (finetune.model_provider, "device"),
 ])
 def test_entry_points_default_to_cuda(fn, arg):
     fn = getattr(fn, "__wrapped__", fn)
     assert inspect.signature(fn).parameters[arg].default == "cuda"
+
+
+def test_finetune_main_without_a_card_raises():
+    """`finetune.main` on its default device needs a card: here (no
+    CUDA) it raises before it parses or builds anything."""
+    import torch
+
+    assert not torch.cuda.is_available()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        finetune.main(["--model_name", "llama2", "--num_layers", "2"])
 
 
 def test_engine_and_paged_caches_take_the_models_device():

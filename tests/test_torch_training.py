@@ -338,8 +338,9 @@ def test_remat_policies_of_later_slices_raise():
         drop.loss(params, toks, toks, deterministic=False)
     with pytest.raises(ValueError, match="dropout"):
         Trainer(drop, TrainConfig(), ParallelConfig())
-    with pytest.raises(ValueError, match="checkpointing"):
-        Trainer(tm, TrainConfig(save="/nonexistent"), ParallelConfig())
+    with pytest.raises(ValueError, match="telemetry"):
+        Trainer(tm, TrainConfig(tensorboard_dir="/nonexistent"),
+                ParallelConfig())
     with pytest.raises(ValueError, match="parallelism"):
         ParallelConfig(data_parallel_size=2)
     with pytest.raises(ValueError, match="fp16"):
