@@ -121,6 +121,38 @@ Phases, one output line each (a failure raises and exits non-zero):
    (weights, compute, pools) behind the same server, 4 requests: every K7
    launch the present design (fp32 pools); log-probs re-scored on a
    kernels-off fp32 engine within 1e-3;
+14c. launcher_llama (the serving entry path, after the 7B of phase 4 is
+   written out and freed): its weights written as an HF Llama directory
+   (config.json, bf16 safetensors in 5 GB shards with an index) by the
+   port's converter and writer, converted by `python -m
+   megatron_llm_tpu_torch.tools.convert_weights --direction hf2native
+   --dtype bfloat16` into a release whose every leaf equals the smoke's
+   bit for bit; then the launcher's `main([--load <release>
+   --warmup_compile ...])` in a thread, at its engine defaults, serving
+   over HTTP from concurrent clients the first 8 greedy requests of
+   phase 8, the streamed one, and one after the other a beam-2 and a
+   score-only request. Counters set to 0 before the traffic: K7 32 times
+   per paged forward (tc), K1 32 times per beam decode step, K4 32 times
+   (the score request), K2 never; the greedy streams within 5e-2 of
+   phase 8's over each common prefix. Then two greedy requests, one at a
+   time, answered equally by the launcher started as a subprocess
+   (`python -m ...run_text_generation_server`). Printed: the seconds of
+   the HF write, the conversion, the load, the warmup capture and the
+   subprocess's start to its banner; bytes written, tokens/s, TTFT p50,
+   ms per decode advance (wall, device), GPU memory after the start;
+14d. launcher_falcon: Falcon-7B at full width and depth, random bf16
+   weights from a seed written as a release by `save_checkpoint(
+   release=True)`; native2hf then hf2native through the CLI at full
+   width and 2 layers, bit-exact; the launcher (`--model falcon`) in a
+   thread: 8 engine requests, a beam-2 and a score-only request, K7 (tc,
+   qpk 71) and K1 (tensor_cores, qpk 71) counted as in 14c, K4 never
+   (Falcon runs no flash); the greedy streams teacher-forced through the
+   kernels-off forward within 5e-2; tokens/s, TTFT p50, ms per decode
+   advance (wall, device) beside the weight floor, an eager decode
+   step's top kernels, and K7's and K1's device ms a launch at these
+   shapes (torch.profiler). The files live
+   under build/launcher_smoke/ (about 27 GB at the peak) and are deleted
+   after their checks;
 15. train (the serving model and pools freed first): Llama-2-7B widths at
    8 of its 32 layers, seq 4096, flash attention and the fused RMSNorm,
    full recompute, bf16 compute on fp32 params and AdamW state, trained
@@ -186,8 +218,11 @@ import torch
 from megatron_llm_tpu_torch.config import (
     ParallelConfig,
     TrainConfig,
+    falcon_config,
     llama_config,
 )
+from megatron_llm_tpu_torch.convert import hf as hf_conv
+from megatron_llm_tpu_torch.convert import safetensors_io
 from megatron_llm_tpu_torch.inference.engine import (
     DecodeEngine,
     horizon_buckets,
@@ -201,7 +236,7 @@ from megatron_llm_tpu_torch.inference.generation import (
 )
 from megatron_llm_tpu_torch.inference.server import MegatronServer
 from megatron_llm_tpu_torch.inference.tokenization import tokenize_prompts
-from megatron_llm_tpu_torch.models import LlamaModel
+from megatron_llm_tpu_torch.models import FalconModel, LlamaModel
 from megatron_llm_tpu_torch.ops import _build
 from megatron_llm_tpu_torch.ops import decode_attention as dec
 from megatron_llm_tpu_torch.ops import flash_attention as fa
@@ -210,6 +245,8 @@ from megatron_llm_tpu_torch.ops import rmsnorm as rms
 from megatron_llm_tpu_torch.ops.quantization import quantize_rows
 from megatron_llm_tpu_torch.optimizer.optimizer import tree_leaves
 from megatron_llm_tpu_torch.tokenizer import build_tokenizer
+from megatron_llm_tpu_torch.tools import run_text_generation_server as rtgs
+from megatron_llm_tpu_torch.training import checkpointing as ckpt
 from megatron_llm_tpu_torch.training.trainer import Trainer
 
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
@@ -2410,6 +2447,493 @@ def serve_engine_fp32(kernels, init_std):
 
 
 # ---------------------------------------------------------------------------
+# phases 14c-14d: the serving entry path (converter CLI -> release ->
+# launcher -> HTTP) for Llama-2-7B and Falcon-7B
+# ---------------------------------------------------------------------------
+
+REPO_DIR = Path(__file__).resolve().parent
+LAUNCH_DIR = REPO_DIR / "build" / "launcher_smoke"
+LLAMA_DISK_GB, FALCON_DISK_GB = 30, 20
+LAUNCHER_REQUESTS = 8  # the first greedy requests of engine_traffic()
+BEAM_GEN = 16
+LAUNCH_TIMEOUT_S = 900
+
+
+def need_disk(gb):
+    """Free GB where the phase writes; raises, with the numbers, unless
+    its files fit."""
+    LAUNCH_DIR.mkdir(parents=True, exist_ok=True)
+    free = shutil.disk_usage(LAUNCH_DIR).free / 1e9
+    check(free >= gb, f"{LAUNCH_DIR}: {free:.1f} GB free, the phase writes "
+                      f"about {gb} GB")
+    return free
+
+
+def convert(*argv):
+    """`python -m megatron_llm_tpu_torch.tools.convert_weights argv` from
+    the checkout's root, as a user runs it (a fresh process: no CUDA
+    context of this one reaches it); returns its seconds."""
+    t0 = time.perf_counter()
+    out = subprocess.run(
+        [sys.executable, "-m", "megatron_llm_tpu_torch.tools.convert_weights",
+         *map(str, argv)], cwd=REPO_DIR, capture_output=True, text=True,
+        timeout=LAUNCH_TIMEOUT_S)
+    check(out.returncode == 0, f"convert_weights {argv}: rc "
+                               f"{out.returncode}\n{out.stdout[-2000:]}\n"
+                               f"{out.stderr[-4000:]}")
+    return time.perf_counter() - t0
+
+
+def release_leaves_equal(ckpt_dir, params):
+    """Every leaf of the release in `ckpt_dir` equals `params`' (on the
+    card) bit for bit; returns the number of leaves."""
+    flat = torch.load(Path(ckpt_dir) / "release" / "model",
+                      map_location="cpu", mmap=True, weights_only=True)
+    ref = ckpt.flatten(params)
+    check(sorted(flat) == sorted(ref), f"release leaves {sorted(flat)}")
+    for k, v in ref.items():
+        check(flat[k].dtype == v.dtype and flat[k].shape == v.shape
+              and torch.equal(flat[k].to(v.device), v),
+              f"release leaf {k} differs from the smoke's weights")
+    return len(ref)
+
+
+def tree_bytes(tree):
+    """Bytes of a parameter tree (the decode tree's layers are a tuple)."""
+    if isinstance(tree, (list, tuple)):
+        return sum(tree_bytes(x) for x in tree)
+    if isinstance(tree, dict):
+        return sum(tree_bytes(x) for x in tree.values())
+    return tree.numel() * tree.element_size()
+
+
+class InThreadLauncher:
+    """The launcher's `main(argv)` on the card in a thread of this
+    process, started and stopped as a caller of `ready` does."""
+
+    def __init__(self, argv):
+        box, ready = {}, threading.Event()
+
+        def run():
+            try:
+                rtgs.main(argv, ready=lambda launch: (
+                    box.update(launch=launch), ready.set()))
+            except BaseException as e:  # noqa: BLE001 - raised below
+                box["error"] = e
+                ready.set()
+
+        self.box = box
+        self.thread = threading.Thread(target=run, daemon=True)
+        self.thread.start()
+        ready.wait(LAUNCH_TIMEOUT_S)
+        if "error" in box:
+            raise box["error"]
+        check("launch" in box, "the launcher did not start")
+        launch = box["launch"]
+        self.port, self.load_s, self.setup_s = (launch.port, launch.load_s,
+                                                launch.setup_s)
+        self.server = launch.server
+
+    def stop(self):
+        """main stops the engine, frees the model and returns."""
+        self.box.pop("launch").stop()
+        self.server = None
+        self.thread.join(timeout=300)
+        check(not self.thread.is_alive(), "the launcher did not return")
+        if "error" in self.box:
+            raise self.box["error"]
+        free_cuda()
+
+
+def launcher_traffic(stream=True):
+    """The first 8 greedy requests of the engine traffic (prompts 20-1500,
+    64-128 new tokens) and, with `stream`, the streamed one; and the
+    whole-batch pair, a beam-2 request and a score-only request."""
+    traffic = engine_traffic()
+    out = traffic[:LAUNCHER_REQUESTS]
+    if stream:
+        out += [x for x in traffic if x[0] == "stream"]
+    p, q = traffic[2][1][:200], traffic[4][1][:300]
+
+    def text(x):
+        return " ".join(map(str, x))
+
+    whole = [("beam", p, {"prompts": [text(p)], "beam_width": 2,
+                          "tokens_to_generate": BEAM_GEN}),
+             ("score", [p, q], {"prompts": [text(p), text(q)],
+                                "tokens_to_generate": 0, "logprobs": True})]
+    return out, whole
+
+
+def drive_launcher(port, eng, traffic, whole):
+    """The engine traffic from concurrent client threads and, from one
+    more, the beam and score requests one after the other (the
+    whole-batch route takes one request at a time); every launch count
+    set to 0 just before, read just after."""
+    results = {}
+
+    def client(name, payload):
+        results[name] = put_raw(port, payload)
+
+    def serial():
+        for name, _, payload in whole:
+            results[name] = put_raw(port, payload)
+
+    threads = [threading.Thread(target=client, args=(name, payload))
+               for name, _, payload in traffic]
+    threads.append(threading.Thread(target=serial))
+    n0 = len(eng._round_log)
+    zero_counts()
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=LAUNCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    launches = kernel_counts()
+    variants = dict(pa.ragged_paged_attention.variant_launches)
+    check(all(not th.is_alive() for th in threads), "launcher clients hung")
+    rounds = list(eng._round_log)[n0:]
+    return {"results": results, "launches": launches, "variants": variants,
+            "wall": wall, "rounds": rounds, "paged": paged_forwards(rounds)}
+
+
+def check_launcher_run(cfg, run, whole, flash):
+    """The beam answer (2 texts, finite scores) and the score-only answer
+    (the prompts echoed, finite log-probs); K7 ran once per layer per
+    paged forward, every launch tc; K1 once per layer per beam decode
+    step; K4 once per layer (the score request's no-cache forward) where
+    the config runs flash, else never; K2, K3, K5, K6 never. Returns the
+    beam's decode steps."""
+    (_, p, _), (_, pq, _) = whole
+    status, beam = run["results"]["beam"]
+    check(status == 200 and len(beam["text"]) == 2
+          and len(beam["scores"]) == 2 and np.isfinite(beam["scores"]).all()
+          and all(len(p) < len(t.split()) <= len(p) + BEAM_GEN
+                  for t in beam["text"]), f"beam answer {status} {beam}")
+    status, score = run["results"]["score"]
+    check(status == 200 and [len(t.split()) for t in score["text"]]
+          == [len(x) for x in pq], f"score answer {status}")
+    for lp, x in zip(score["logprobs"], pq):
+        check(np.isfinite(lp[:len(x) - 1]).all(), "score logprobs")
+    n, L = run["launches"], cfg.num_layers
+    k1, k7 = n["decode_attention"], n["ragged_paged_attention"]
+    steps = k1 // L
+    check(k1 == L * steps and 1 <= steps <= BEAM_GEN,
+          f"K1 launches {k1}: not {L} x the beam's decode steps")
+    check(k7 == L * run["paged"] and k7 > 0 and run["variants"]["tc"] == k7,
+          f"K7 launches {k7} (designs {run['variants']}) != {L} x "
+          f"{run['paged']} paged forwards, all tc")
+    check(n["flash_fwd"] == (L if flash else 0)
+          and n["flash_bwd_dq"] == n["flash_bwd_dkv"] == 0,
+          f"flash launches {n}")
+    check(n["rmsnorm_fwd"] == n["rmsnorm_bwd"] == 0, f"K2/K3 ran: {n}")
+    return steps
+
+
+def note_launcher_launches(kernels, path, run):
+    """The path's launches on the K1, K4 and K7 rows (and K2's, 0)."""
+    note_launches(kernels, path, run)
+    for row in kernels:
+        if row["name"] in ("decode_attention", "flash_fwd"):
+            if "launches_by_path" not in row:  # K1: the whole-batch count
+                row["launches_by_path"] = {"whole_batch": row["launches"]}
+            by = row["launches_by_path"]
+            by[path] = run["launches"][row["name"]]
+            row["launches"] = sum(by.values())
+
+
+def sequential_greedy(port, payloads):
+    """The payloads one at a time: each answer's token ids."""
+    out = []
+    for payload in payloads:
+        status, body = put_raw(port, payload)
+        check(status == 200, f"sequential greedy -> {status} {body}")
+        out.append(list(map(int, body["text"][0].split())))
+    return out
+
+
+def sequential_payloads():
+    rs = np.random.RandomState(SEED + 41)
+    return [{"prompts": [" ".join(map(str, rs.randint(0, 31999, n)))],
+             "tokens_to_generate": 32, "top_k": 1} for n in (300, 60)]
+
+
+def launcher_subprocess(argv, payloads):
+    """The launcher started as a user starts it, `python -m ...`: seconds
+    to its banner line, its answers to `payloads` sent one at a time, and
+    the banner. SIGINT stops it (main drains and returns); it is killed
+    if it does not exit."""
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(
+        [sys.executable, "-m",
+         "megatron_llm_tpu_torch.tools.run_text_generation_server", *argv],
+        cwd=REPO_DIR, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    lines, banner = [], threading.Event()
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith("serving "):
+                banner.set()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    try:
+        banner.wait(LAUNCH_TIMEOUT_S)
+        banner_s = time.perf_counter() - t0
+        check(banner.is_set(), "the launcher subprocess printed no "
+                               "banner:\n" + "".join(lines)[-3000:])
+        line = next(x for x in lines if x.startswith("serving "))
+        port = int(re.search(r"http://[^:/]+:(\d+)/api", line).group(1))
+        answers = sequential_greedy(port, payloads)
+    finally:
+        proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=120)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+    reader.join(timeout=10)
+    check(proc.returncode == 0, f"launcher subprocess rc {proc.returncode}:"
+                                "\n" + "".join(lines)[-3000:])
+    return banner_s, answers, line.strip()
+
+
+def convert_llama(cfg, params):
+    """The smoke's Llama-2-7B weights (phase 4) written as an HF Llama
+    directory (config.json, sharded bf16 safetensors with an index)
+    through the port's converter and writer, then converted by the CLI's
+    hf2native into a bf16 release, whose every leaf must equal the
+    smoke's bit for bit. Runs while the weights are on the card."""
+    free_gb = need_disk(LLAMA_DISK_GB)
+    hf_dir, rel_dir = LAUNCH_DIR / "hf_llama", LAUNCH_DIR / "llama"
+    for d in (hf_dir, rel_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    t0 = time.perf_counter()
+    sd = hf_conv.native_to_hf_llama(params, cfg, dtype=torch.bfloat16)
+    safetensors_io.write_hf_config(str(hf_dir), safetensors_io.llama_hf_config(
+        cfg, cfg.padded_vocab_size, torch.bfloat16))
+    hf_bytes = safetensors_io.save_sharded(sd, str(hf_dir))
+    del sd
+    free_cuda()
+    hf_write_s = time.perf_counter() - t0
+    shards = len(list(hf_dir.glob("*.safetensors")))
+    convert_s = convert("--model", "llama", "--direction", "hf2native",
+                        "--dtype", "bfloat16", "--input", hf_dir,
+                        "--output", rel_dir)
+    leaves = release_leaves_equal(rel_dir, params)
+    shutil.rmtree(hf_dir)
+    return {"disk_free_gb": free_gb, "hf_write_s": hf_write_s,
+            "hf_bytes": hf_bytes, "hf_shards": shards,
+            "convert_s": convert_s, "release_leaves_equal": leaves,
+            "release_bytes": dir_bytes(rel_dir / "release"),
+            "release": rel_dir}
+
+
+def launcher_llama(kernels, conv, engine_phase):
+    """Llama-2-7B from the converted release through the launcher, in a
+    thread (`--warmup_compile`, the engine defaults: 8 slots, page 64,
+    max_context 2048, chunks of 256, prefix cache), then as a
+    subprocess. The streams hold the in-process engine's (phase 8) within
+    5e-2 over each common prefix; the subprocess answers two greedy
+    requests, one at a time, as the in-thread launcher did."""
+    tok = build_tokenizer("NullTokenizer", null_vocab_size=31999)
+    argv = ["--load", str(conv.pop("release")), "--model", "llama",
+            "--tokenizer_type", "NullTokenizer", "--null_vocab_size",
+            "31999", "--host", "127.0.0.1", "--port", "0"]
+    torch.cuda.reset_peak_memory_stats()
+    srv = InThreadLauncher(argv + ["--warmup_compile"])
+    eng, model = srv.server.engine, srv.server.generator.model
+    cfg = model.cfg
+    mem = {"memory_after_start_gb": torch.cuda.memory_allocated() / 1e9,
+           "params_fp32_gb": tree_bytes(srv.server.generator.params) / 1e9,
+           "decode_copy_gb": tree_bytes(eng._dec_params) / 1e9,
+           "kv_pool_gb": eng.kv_pool_bytes() / 1e9}
+    decode_bytes = tree_bytes(eng._dec_params)
+    graphs = eng.graph_stats()
+    traffic, whole = launcher_traffic()
+    run = drive_launcher(srv.port, eng, traffic, whole)
+    generated, greedy = check_outputs(traffic, run, tok)
+    beam_steps = check_launcher_run(cfg, run, whole, flash=True)
+    agree, err = compare_streams(engine_phase[:LAUNCHER_REQUESTS], greedy)
+    check(err <= PATH_LP_TOL, f"launcher streams against the in-process "
+                              f"engine's: log-probs {err}")
+    seq = sequential_greedy(srv.port, sequential_payloads())
+    metrics = get_json(srv.port, "/metrics")
+    eng.stop()  # its serve thread: the card is timed alone
+    step_ms = decode_step_device_ms(model, eng)
+    note_launcher_launches(kernels, "launcher_llama", run)
+    del eng, model
+    srv.stop()
+    banner_s, sub, banner = launcher_subprocess(argv, sequential_payloads())
+    check(sub == seq, "the subprocess launcher's answers differ from the "
+                      "in-thread launcher's")
+    shutil.rmtree(argv[1])
+    say("launcher_llama", card=nvidia_smi(), config="llama2-7b",
+        layers=cfg.num_layers, **conv, load_s=srv.load_s,
+        engine_setup_s=srv.setup_s, warmup_capture_s=graphs["capture_s"],
+        graphs=graphs["graphs"], subprocess_banner_s=banner_s,
+        subprocess_banner=banner, subprocess_answers_equal=True,
+        requests=len(traffic) + len(whole), paged_forwards=run["paged"],
+        launches=run["launches"], k7_variant_launches=run["variants"],
+        beam_decode_steps=beam_steps, generated_tokens=generated,
+        wall_s=run["wall"], generated_tokens_per_s=generated / run["wall"],
+        ttft_p50_ms=metrics["serve_ttft_p50_ms"],
+        decode_ms_per_advance=ms_per_advance(run["rounds"]),
+        decode_step_device_ms=step_ms,
+        weight_stream_floor_ms=decode_bytes / HBM_BYTES_PER_S * 1e3,
+        greedy_token_agreement_with_engine_phase=agree,
+        max_abs_logprob_err_vs_engine_phase=err, tol=PATH_LP_TOL, **mem,
+        peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+
+
+def kernel_ms(top, names):
+    """Ms per call of the kernels in `top` (`top_kernels`' list) whose
+    names hold any of `names`."""
+    return sum(ms for name, ms in top if any(s in name for s in names))
+
+
+def falcon_kernel_ms(model, eng):
+    """On the launcher's decode tree and pools (the engine stopped), from
+    torch.profiler traces of eager calls: an 8-slot paged decode step at
+    1000 positions (its device ms, its top kernels and K7's ms a
+    launch), a mixed round's forward (K7's ms a launch), and a
+    beam-shaped dense decode step, 2 rows at 216 positions (K1's ms a
+    launch)."""
+    L = model.cfg.num_layers
+    with torch.inference_mode():
+        pt = torch.zeros(eng.slots, eng.max_pages_per_slot,
+                         dtype=torch.int32, device="cuda")
+        for i in range(eng.slots):
+            pt[i, :16] = torch.arange(1 + 16 * i, 17 + 16 * i)
+        lens = torch.full((eng.slots,), 1000, dtype=torch.int32,
+                          device="cuda")
+        pools_k, pools_v, _, _ = eng._pools
+        caches = {"k_pages_layers": pools_k, "v_pages_layers": pools_v,
+                  "page_table": pt, "lengths": lens,
+                  "chunk_lens": torch.ones_like(lens)}
+        tok1 = torch.zeros(eng.slots, 1, dtype=torch.long, device="cuda")
+        step_ms, top = top_kernels(lambda: model.forward(
+            eng._dec_params, tok1, kv_caches=caches,
+            position_ids=lens.long()[:, None]), n=100)
+        dense = dict(model.init_kv_caches(2, 256), offset=216)
+        beam_tok = torch.zeros(2, 1, dtype=torch.long, device="cuda")
+        _, beam_top = top_kernels(lambda: model.forward(
+            eng._dec_params, beam_tok, kv_caches=dense), n=100)
+    _, k7_mixed = mixed_round_device_ms(model, eng)
+    return {"eager_decode_step_device_ms": step_ms,
+            "eager_decode_step_top_kernels": top[:8],
+            "k7_tc_decode_ms_per_launch": kernel_ms(top, ("paged_attn",)) / L,
+            "k7_tc_mixed_ms_per_launch": k7_mixed / L,
+            "k1_tensor_cores_ms_per_launch": kernel_ms(
+                beam_top, ("decode_mma_kernel", "decode_split_kernel")) / L}
+
+
+def launcher_falcon(kernels, init_std):
+    """Falcon-7B at full width and depth (32 layers, hidden 4544, 71
+    query heads on 1 KV head, d 64, ffn 18176, vocab 65024), random bf16
+    weights from a seed written as a release by `save_checkpoint(
+    release=True)` (the layout hf2native writes); the converters checked
+    at full width and 2 layers (native2hf then hf2native through the
+    CLI, bit-exact); then the launcher (`--model falcon`) in a thread: 8
+    engine requests, a beam-2 and a score-only request. K7 (tc, qpk 71)
+    and K1 (tensor_cores, qpk 71) on the path; the greedy streams
+    teacher-forced through the kernels-off forward within 5e-2."""
+    free_gb = need_disk(FALCON_DISK_GB)
+    rel_dir, small, hf2, back = (LAUNCH_DIR / n for n in (
+        "falcon", "falcon_2l", "hf_falcon_2l", "falcon_2l_back"))
+    for d in (rel_dir, small, hf2, back):
+        shutil.rmtree(d, ignore_errors=True)
+    cfg = falcon_config(7, params_dtype=torch.bfloat16,
+                        compute_dtype=torch.bfloat16,
+                        init_method_std=init_std)
+    check(dec.decode_design(torch.bfloat16, cfg.q_per_kv) == "tensor_cores",
+          "K1's design at qpk 71")
+    model = FalconModel(cfg)
+    params = model.init(seed=SEED + 43)
+    t0 = time.perf_counter()
+    ckpt.save_checkpoint(str(rel_dir), 0, params, model_cfg=cfg, release=True)
+    release_write_s = time.perf_counter() - t0
+    release_bytes = dir_bytes(rel_dir / "release")
+
+    cfg2 = dataclasses.replace(cfg, num_layers=2)
+    params2 = dict(params, layers=ckpt.unflatten(
+        {k: v[:2] for k, v in ckpt.flatten(params["layers"]).items()}))
+    ckpt.save_checkpoint(str(small), 0, params2, model_cfg=cfg2,
+                         release=True)
+    trip_s = convert("--model", "falcon", "--direction", "native2hf",
+                     "--input", small, "--output", hf2)
+    trip_s += convert("--model", "falcon", "--direction", "hf2native",
+                      "--dtype", "bfloat16", "--input", hf2, "--output", back)
+    trip_leaves = release_leaves_equal(back, params2)
+    for d in (small, hf2, back):
+        shutil.rmtree(d)
+    del params2
+
+    tok = build_tokenizer("NullTokenizer", null_vocab_size=65023)
+    srv = InThreadLauncher([
+        "--load", str(rel_dir), "--model", "falcon", "--tokenizer_type",
+        "NullTokenizer", "--null_vocab_size", "65023", "--host",
+        "127.0.0.1", "--port", "0", "--warmup_compile"])
+    eng, served = srv.server.engine, srv.server.generator.model
+    mem_gb = torch.cuda.memory_allocated() / 1e9
+    decode_bytes = tree_bytes(eng._dec_params)
+    graphs = eng.graph_stats()
+    traffic, whole = launcher_traffic(stream=False)
+    run = drive_launcher(srv.port, eng, traffic, whole)
+    generated, greedy = check_outputs(traffic, run, tok)
+    beam_steps = check_launcher_run(served.cfg, run, whole, flash=False)
+    metrics = get_json(srv.port, "/metrics")
+    eng.stop()  # its serve thread: the card is timed alone
+    step_ms = decode_step_device_ms(served, eng)
+    kernel_times = falcon_kernel_ms(served, eng)
+    note_launcher_launches(kernels, "launcher_falcon", run)
+    del eng, served
+    srv.stop()
+
+    # the greedy outputs teacher-forced through the no-cache forward with
+    # the kernels off, on the smoke's own weights (the release's values)
+    plain = FalconModel(dataclasses.replace(cfg, use_decode_attn=False))
+    err, match, total = 0.0, 0, 0
+    with torch.inference_mode():
+        for _, prompt, out, lp in greedy:
+            seq = torch.tensor(out, device=plain.device)[None]
+            logits, _ = plain.forward(params, seq[:, :-1])
+            lps = torch.log_softmax(logits[0].float(), -1)
+            forced = lps.gather(1, seq[0, 1:, None])[:, 0].cpu().numpy()
+            err = max(err, float(np.abs(forced - np.asarray(lp)).max()))
+            am = lps.argmax(-1).cpu().numpy()[len(prompt) - 1:]
+            match += int((am == np.asarray(out[len(prompt):])).sum())
+            total += len(out) - len(prompt)
+    shutil.rmtree(rel_dir)
+    del model, plain, params
+    free_cuda()
+    say("launcher_falcon", card=nvidia_smi(), config="falcon-7b",
+        layers=cfg.num_layers, hidden=cfg.hidden_size,
+        heads=cfg.num_attention_heads, kv_heads=cfg.num_query_groups,
+        head_dim=cfg.head_dim, ffn=cfg.ffn_hidden_size,
+        vocab=cfg.padded_vocab_size, init_std=init_std,
+        disk_free_gb=free_gb, release_write_s=release_write_s,
+        release_bytes=release_bytes, two_layer_round_trip_s=trip_s,
+        two_layer_round_trip_leaves_equal=trip_leaves, load_s=srv.load_s,
+        engine_setup_s=srv.setup_s, warmup_capture_s=graphs["capture_s"],
+        graphs=graphs["graphs"], memory_after_start_gb=mem_gb,
+        requests=len(traffic) + len(whole), paged_forwards=run["paged"],
+        launches=run["launches"], k7_variant_launches=run["variants"],
+        beam_decode_steps=beam_steps, generated_tokens=generated,
+        wall_s=run["wall"], generated_tokens_per_s=generated / run["wall"],
+        ttft_p50_ms=metrics["serve_ttft_p50_ms"],
+        decode_ms_per_advance=ms_per_advance(run["rounds"]),
+        decode_step_device_ms=step_ms,
+        weight_stream_floor_ms=decode_bytes / HBM_BYTES_PER_S * 1e3,
+        **kernel_times, path_check_max_abs_logprob_err=err, tol=PATH_LP_TOL,
+        greedy_token_match_fraction=match / max(total, 1))
+    check(err <= PATH_LP_TOL, f"falcon re-scored logprobs {err}")
+
+
+# ---------------------------------------------------------------------------
 # phase 3 (training kernels): K2 with rstd, K3, and flash K4-K6
 # ---------------------------------------------------------------------------
 
@@ -3245,9 +3769,13 @@ def main() -> int:
     serve_engine_spec_and_whole_prompt(kernels, cfg, llama, params)
     packed_docs_prefill(kernels, cfg, llama, params)
     serve_engine_fp32(kernels, args.init_std)
-    # the 13.5 GB serving model and its engines' pools go before training
+    converted = convert_llama(cfg, params)
+    # the 13.5 GB serving model and its engines' pools go before the
+    # launchers and training
     del model, llama, params
     free_cuda()
+    launcher_llama(kernels, converted, bf16["greedy"])
+    launcher_falcon(kernels, args.init_std)
     say("memory_before_train",
         allocated_gb=torch.cuda.memory_allocated() / 1e9)
     train_ms = throughput_train(*train_slice(kernels)[2:])

@@ -12,8 +12,9 @@ raises ValueError naming its slice of ROADMAP.md, never silently
 ignored: tensor, pipeline, context and data parallelism and the
 distributed optimizer (A4), fp16 with its loss scaler (A3.5), dropout
 (A3.6), remat policies other than none and full and block recompute
-(A3.7), the telemetry flags (A3.8), and the Falcon, BERT and T5 families
-and their structural flags (A6).
+(A3.7), the telemetry flags (A3.8), and the BERT and T5 families and
+post-LN layers (A6). GPT, Llama, CodeLlama and Falcon (with its parallel
+attention and parallel layernorm) build.
 """
 
 from __future__ import annotations
@@ -28,6 +29,7 @@ from megatron_llm_tpu_torch.config import (
     ParallelConfig,
     TrainConfig,
     codellama_config,
+    falcon_config,
     gpt_config,
     llama_config,
 )
@@ -226,8 +228,7 @@ LATER_FLAGS = {
         "quantized_grad_reduce", "overlap_grad_reduce",
         "overlap_param_gather", "async_pipeline_dispatch",
         "pipeline_remat"), _A4),
-    **dict.fromkeys(("use_post_ln", "parallel_attn", "parallel_layernorm"),
-                    _A6),
+    "use_post_ln": _A6,
 }
 
 
@@ -483,7 +484,7 @@ def args_to_configs(args, padded_vocab_size: int):
             "attention_window_size", "hidden_dropout", "attention_dropout",
             "use_flash_attn", "recompute_granularity", "remat_policy",
             "recompute_method", "recompute_num_layers", "use_bias",
-            "use_rms_norm"):
+            "use_rms_norm", "parallel_attn", "parallel_layernorm"):
         v = getattr(args, name)
         if v is not None:
             overrides[name] = v
@@ -503,6 +504,9 @@ def args_to_configs(args, padded_vocab_size: int):
     elif name == "codellama":
         mcfg = codellama_config(args.model_size, seq_length=args.seq_length,
                                 **overrides)
+    elif name == "falcon":
+        mcfg = falcon_config(args.model_size, seq_length=args.seq_length,
+                             **overrides)
     elif name == "gpt":
         mcfg = gpt_config(
             num_layers=overrides.pop("num_layers", 12),

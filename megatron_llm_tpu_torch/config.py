@@ -57,6 +57,12 @@ class ModelConfig:
     rope_scaling_factor: float = 1.0
     rope_theta: float = 10000.0
 
+    # Falcon-style structure (JAX config.py:84-85): attention and MLP read
+    # the same normed input and their outputs join the residual once;
+    # parallel_layernorm gives the MLP a norm of its own (Falcon-40B)
+    parallel_attn: bool = False
+    parallel_layernorm: bool = False
+
     tie_embed_logits: bool = True
 
     # Regularization (JAX defaults; training raises while a rate is > 0)
@@ -215,6 +221,13 @@ def llama_config(size_b: int = 7, version: int = 2, seq_length: int = 4096,
     return mc
 
 
+_FALCON_SIZES = {
+    # size -> (layers, hidden, heads, n_kv, parallel_layernorm)
+    7: (32, 4544, 71, 1, False),
+    40: (60, 8192, 128, 8, True),
+}
+
+
 def codellama_config(size_b: int = 7, seq_length: int = 16384,
                      **overrides) -> ModelConfig:
     """CodeLlama: Llama-2 with rope_theta 1e6, 16k positions and a 32016
@@ -223,6 +236,40 @@ def codellama_config(size_b: int = 7, seq_length: int = 16384,
     return llama_config(size_b, version=2, seq_length=seq_length,
                         vocab_size=overrides.pop("vocab_size", 32016),
                         **overrides)
+
+
+def falcon_config(size_b: int = 7, seq_length: int = 2048,
+                  vocab_size: int = 65024, tp: int = 1,
+                  **overrides) -> ModelConfig:
+    """Falcon preset (JAX: config.py falcon_config): rotary, MQA/GQA,
+    parallel attention, LayerNorm, gelu, no linear biases, tied
+    embeddings; 40B adds the parallel layernorm."""
+    layers, hidden, heads, n_kv, pln = _FALCON_SIZES[size_b]
+    cfg = dict(
+        num_layers=layers,
+        hidden_size=hidden,
+        num_attention_heads=heads,
+        num_attention_heads_kv=n_kv,
+        ffn_hidden_size=4 * hidden,
+        seq_length=seq_length,
+        max_position_embeddings=seq_length,
+        position_embedding_type="rotary",
+        glu_activation=None,
+        hidden_act="gelu",
+        use_rms_norm=False,
+        use_bias=False,
+        parallel_attn=True,
+        parallel_layernorm=pln,
+        tie_embed_logits=True,
+        hidden_dropout=0.0,
+        attention_dropout=0.0,
+    )
+    cfg.update(overrides)
+    mc = ModelConfig(**cfg)
+    if mc.padded_vocab_size == 0:
+        mc = dataclasses.replace(
+            mc, padded_vocab_size=mc.pad_vocab_size(vocab_size, tp))
+    return mc
 
 
 def gpt_config(num_layers: int = 12, hidden_size: int = 768,

@@ -1,4 +1,5 @@
-"""Train or fine-tune GPT and Llama models (port of the root finetune.py).
+"""Train or fine-tune GPT, Llama and Falcon models (port of the root
+finetune.py).
 
     python -m megatron_llm_tpu_torch.finetune --model_name llama2 \\
         --model_size 7 --data_path corpus_text_document \\
@@ -8,7 +9,7 @@
 
 The same flags as the JAX package's entry point (`arguments.py`). It
 runs on the first CUDA card; `main(argv, device="cpu")` runs on the CPU
-(the tests do). Falcon, BERT and T5 raise, naming their slice.
+(the tests do). BERT and T5 raise, naming their slice.
 """
 
 from __future__ import annotations
@@ -16,7 +17,7 @@ from __future__ import annotations
 import torch
 
 from megatron_llm_tpu_torch.arguments import args_to_configs, build_base_parser
-from megatron_llm_tpu_torch.models import GPTModel, LlamaModel
+from megatron_llm_tpu_torch.models import FalconModel, GPTModel, LlamaModel
 from megatron_llm_tpu_torch.tokenizer import build_tokenizer
 from megatron_llm_tpu_torch.training.trainer import pretrain
 
@@ -25,6 +26,8 @@ def model_provider(args, mcfg, device="cuda"):
     """The model of `--model_name` on `device`."""
     if args.model_name in ("llama", "llama2", "codellama"):
         return LlamaModel(mcfg, device=device)
+    if args.model_name == "falcon":
+        return FalconModel(mcfg, device=device)
     if args.model_name == "gpt":
         return GPTModel(mcfg, device=device)
     raise ValueError(f"--model_name {args.model_name} is not ported yet "

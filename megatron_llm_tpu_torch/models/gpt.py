@@ -41,6 +41,12 @@ class GPTModel(nn.Module):
         gen = torch.Generator(device=self.device).manual_seed(seed)
         return init_language_model_params(self.cfg, gen, self.device)
 
+    def abstract_params(self) -> dict:
+        """The parameter tree's names, shapes and dtypes as meta tensors,
+        with no storage (the JAX package's `jax.eval_shape(model.init)`):
+        the template a checkpoint is restored against."""
+        return init_language_model_params(self.cfg, None, "meta")
+
     def forward(self, params: dict, tokens: torch.Tensor,
                 position_ids: Optional[torch.Tensor] = None,
                 attention_mask: Optional[torch.Tensor] = None,

@@ -15,3 +15,4 @@ class LlamaModel(GPTModel):
         assert cfg.use_rms_norm, "llama requires RMSNorm"
         assert not cfg.use_bias, "llama uses no bias"
         assert not cfg.tie_embed_logits, "llama has untied embeddings"
+        assert not cfg.parallel_attn, "llama is sequential"

@@ -1,4 +1,5 @@
-"""Pre-LN decoder layers (port of models/transformer.py).
+"""Pre-LN decoder layers, sequential or Falcon's parallel attention
+(port of models/transformer.py).
 
 Weights are stacked along a leading layer axis, as in the JAX package, so
 the parameter trees match leaf for leaf. The layer loop is a Python loop
@@ -35,6 +36,8 @@ from megatron_llm_tpu_torch.ops.quantization import (
 def normal(shape, std, dtype, generator, device) -> torch.Tensor:
     """N(0, std) drawn in fp32 from `generator`, cast to `dtype`."""
     out = torch.empty(shape, dtype=dtype, device=device)
+    if out.is_meta:  # a shape-only template (GPTModel.abstract_params)
+        return out
     flat = out.view(shape[0], -1)
     # blocks of leading rows bound the fp32 scratch at 2**26 elements
     step = max(1, (1 << 26) // flat.shape[1])
@@ -90,12 +93,18 @@ def init_layer_params(cfg, generator: torch.Generator,
         attn["bo"] = zeros((L, h))
         mlp["b1"] = zeros(b1_shape)
         mlp["b2"] = zeros((L, h))
-    return {
+    layers = {
         "input_norm": init_norm_params(cfg, (L,), device),
         "attention": attn,
         "mlp": mlp,
-        "post_attention_norm": init_norm_params(cfg, (L,), device),
     }
+    # parallel attention has no post-attention norm; the parallel
+    # layernorm gives the MLP its own (JAX :101-106)
+    if not cfg.parallel_attn:
+        layers["post_attention_norm"] = init_norm_params(cfg, (L,), device)
+    if cfg.parallel_layernorm:
+        layers["mlp_norm"] = init_norm_params(cfg, (L,), device)
+    return layers
 
 
 def layer_slice(stacked: dict, i: int) -> dict:
@@ -150,11 +159,19 @@ def transformer_layer(layer_params: dict, cfg, hidden: torch.Tensor,
                       kv_cache: Optional[dict] = None,
                       ) -> Tuple[torch.Tensor, Optional[dict]]:
     """One pre-LN decoder layer (no dropout: a rate above 0 raises in
-    `transformer_stack` when training)."""
+    `transformer_stack` when training). Under `parallel_attn` (Falcon,
+    JAX :205-211) the MLP reads the attention's normed input (or its own
+    `mlp_norm` of the layer input under `parallel_layernorm`) and both
+    outputs join the residual once."""
     normed = apply_norm(hidden, layer_params["input_norm"], cfg)
     attn_out, new_cache = attention_block(
         layer_params["attention"], cfg, normed, rope_table, mask,
         position_ids, kv_cache)
+    if cfg.parallel_attn:
+        if cfg.parallel_layernorm:
+            normed = apply_norm(hidden, layer_params["mlp_norm"], cfg)
+        mlp_out = mlp_block(layer_params["mlp"], cfg, normed)
+        return hidden + (attn_out + mlp_out), new_cache
     x = hidden + attn_out
     normed2 = apply_norm(x, layer_params["post_attention_norm"], cfg)
     return x + mlp_block(layer_params["mlp"], cfg, normed2), new_cache

@@ -8,6 +8,12 @@ protocol:
     <save>/iter_0000100/{model,optim,meta.json,COMPLETE}
     <save>/latest_checkpointed_iteration.txt
 
+A converter's output is the "release" layout (JAX :56-60, :216-238):
+`<save>/release/{model,meta.json,COMPLETE}` with the tracker naming
+"release", weights only. `load_checkpoint` reads it as `--finetune` does
+(no optimizer state, iteration 0), restoring each leaf in the
+template's dtype as orbax does in the JAX package.
+
 - `model` holds the params; `optim` the optimizer's "step" and its
   "m.<leaf>" and "v.<leaf>" moments (no file under `--no_save_optim`);
   `meta.json` has the JAX package's keys (`rng_key` is null: the port
@@ -23,7 +29,7 @@ protocol:
   runs the retention GC. One save is in flight at a time: a new save, and
   `wait_until_finished`, wait for it.
 - `keep_latest_n` retention never deletes the checkpoint being written
-  nor one a resume read (`protect`).
+  nor one a resume read (`protect`), nor `release`.
 """
 
 from __future__ import annotations
@@ -46,14 +52,15 @@ COMPLETE_FILENAME = "COMPLETE"
 _ITER_DIR_RE = re.compile(r"^iter_(\d{7})$")
 
 
-def checkpoint_dir(save_dir: str, iteration: int) -> str:
-    return os.path.join(save_dir, f"iter_{iteration:07d}")
+def checkpoint_dir(save_dir: str, iteration: int,
+                   release: bool = False) -> str:
+    name = "release" if release else f"iter_{iteration:07d}"
+    return os.path.join(save_dir, name)
 
 
 def read_tracker(load_dir: str) -> Tuple[Optional[int], bool]:
     """(iteration, release) the tracker names; (None, False) without
-    one. A "release" tracker (the JAX converters' layout) names no
-    iteration the port reads."""
+    one, (None, True) for the converters' "release" layout."""
     path = os.path.join(load_dir, TRACKER_FILENAME)
     if not os.path.isfile(path):
         return None, False
@@ -75,8 +82,10 @@ def _atomic_write(path: str, data: str) -> None:
     os.rename(tmp, path)
 
 
-def _write_tracker(save_dir: str, iteration: int) -> None:
-    _atomic_write(os.path.join(save_dir, TRACKER_FILENAME), str(iteration))
+def _write_tracker(save_dir: str, iteration: int,
+                   release: bool = False) -> None:
+    _atomic_write(os.path.join(save_dir, TRACKER_FILENAME),
+                  "release" if release else str(iteration))
 
 
 def _mark_complete(path: str) -> None:
@@ -106,7 +115,7 @@ def gc_checkpoints(save_dir: str, keep_latest_n: int,
                    protect: Iterable[str] = ()) -> List[str]:
     """Keep the newest `keep_latest_n` complete iteration checkpoints and
     delete every older iter_* directory, torn ones below that horizon
-    included. Never touches the tracker, a directory newer
+    included. Never touches `release`, the tracker, a directory newer
     than the horizon (a save in flight) or any path in `protect`.
     Returns the deleted paths."""
     if keep_latest_n is None or keep_latest_n < 1:
@@ -190,6 +199,19 @@ def flatten(tree: dict, prefix: str = "") -> dict:
     return out
 
 
+def unflatten(flat: dict) -> dict:
+    """{dotted leaf name: leaf} -> nested dicts (the inverse of
+    `flatten`)."""
+    out: dict = {}
+    for name, v in flat.items():
+        *path, leaf = name.split(".")
+        node = out
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = v
+    return out
+
+
 def unflatten_like(flat: dict, template: dict, prefix: str = "") -> dict:
     """The nested tree of `template`'s shape with `flat`'s leaves."""
     return {k: unflatten_like(flat, v, f"{prefix}{k}.")
@@ -205,15 +227,16 @@ def _optim_flat(opt_state: OptimizerState) -> dict:
     return flat
 
 
-def _host_copy(flat: dict, buffers: dict) -> dict:
+def _host_copy(flat: dict, buffers: dict, clone_cpu: bool = True) -> dict:
     """Copies of the leaves in host memory (reused pinned buffers for
     CUDA leaves), complete when this returns: the optimizer updates the
-    live leaves in place."""
+    live leaves in place. A blocking save passes `clone_cpu=False`: it
+    writes CPU leaves before anything can update them."""
     out, on_card = {}, False
     for k, t in flat.items():
         t = t.detach()
         if t.device.type == "cpu":
-            out[k] = t.clone()
+            out[k] = t.clone() if clone_cpu else t
             continue
         buf = buffers.get(k)
         if buf is None or buf.shape != t.shape or buf.dtype != t.dtype:
@@ -254,19 +277,23 @@ def save_checkpoint(save_dir: str, iteration: int, params: dict,
                     opt_state: Optional[OptimizerState] = None,
                     model_cfg=None, scheduler_state: Optional[dict] = None,
                     consumed_train_samples: int = 0, rng_key=None,
-                    extra_meta: Optional[dict] = None) -> str:
+                    extra_meta: Optional[dict] = None,
+                    release: bool = False) -> str:
     """Blocking save: returns once the checkpoint is complete and the
-    tracker names it."""
+    tracker names it. `release=True` writes the converters' layout:
+    `release/`, named by the tracker, with the params only."""
     save_dir = os.path.abspath(save_dir)
-    path = checkpoint_dir(save_dir, iteration)
+    if release and opt_state is not None:
+        raise ValueError("a release checkpoint holds weights only")
+    path = checkpoint_dir(save_dir, iteration, release=release)
     buffers: dict = {}
-    model = _host_copy(flatten(params), buffers)
-    optim = _host_copy(_optim_flat(opt_state), buffers) \
+    model = _host_copy(flatten(params), buffers, clone_cpu=False)
+    optim = _host_copy(_optim_flat(opt_state), buffers, clone_cpu=False) \
         if opt_state is not None else None
     _write(path, model, optim,
            _build_meta(iteration, model_cfg, scheduler_state,
                        consumed_train_samples, rng_key, extra_meta))
-    _write_tracker(save_dir, iteration)
+    _write_tracker(save_dir, iteration, release=release)
     return path
 
 
@@ -364,11 +391,12 @@ _CHECKPOINT_ARCH_FIELDS = (
 def load_model_config_from_checkpoint(load_dir: str, mcfg):
     """`mcfg` with the architecture fields of the checkpoint the tracker
     names (those the port's config has); unchanged without one."""
-    iteration, _ = read_tracker(load_dir)
-    if iteration is None:
+    iteration, release = read_tracker(load_dir)
+    if iteration is None and not release:
         return mcfg
-    meta_path = os.path.join(checkpoint_dir(load_dir, iteration),
-                             "meta.json")
+    meta_path = os.path.join(
+        checkpoint_dir(load_dir, iteration or 0, release=release),
+        "meta.json")
     if not os.path.exists(meta_path):
         return mcfg
     with open(meta_path) as f:
@@ -397,26 +425,31 @@ def _load_candidates(load_dir: str):
     resume). Ordered by iteration, not tracker first: a crash between
     COMPLETE and the tracker write leaves the tracker one save behind.
     Directories without COMPLETE are skipped, unless none has one (a
-    layout from before the sentinel)."""
-    tracker_iter, _ = read_tracker(load_dir)
+    layout from before the sentinel). A tracker naming "release" puts
+    the release directory first (JAX :452-457)."""
+    tracker_iter, release = read_tracker(load_dir)
     iters = list_iteration_checkpoints(load_dir)
     any_sentinel = any(is_checkpoint_complete(p) for _, p in iters)
-    out: List[Tuple[int, str]] = []
+    out: List[Tuple[Optional[int], str, bool]] = []
+    if release:
+        out.append((None, checkpoint_dir(load_dir, 0, release=True), True))
     for it, path in iters:
         if any_sentinel and not is_checkpoint_complete(path):
             print(f"WARNING: skipping incomplete checkpoint {path} (no "
                   f"{COMPLETE_FILENAME} sentinel - torn save)", flush=True)
             continue
-        out.append((it, path))
+        out.append((it, path, False))
     newest = iters[0][0] if iters else None
     intended = max((x for x in (tracker_iter, newest) if x is not None),
                    default=None)
     return out, intended
 
 
-def _restore_flat(path: str, template: dict, device) -> dict:
+def _restore_flat(path: str, template: dict, device,
+                  cast: bool = False) -> dict:
     """The leaves of the torch.save file `path`, checked against
-    `template`'s names, shapes and dtypes, on `device`."""
+    `template`'s names, shapes and dtypes, on `device`; with `cast` a
+    leaf of another dtype is converted to the template's."""
     flat = torch.load(path, map_location="cpu", mmap=True, weights_only=True)
     if set(flat) != set(template):
         missing = sorted(set(template) - set(flat))[:4]
@@ -424,17 +457,45 @@ def _restore_flat(path: str, template: dict, device) -> dict:
         raise ValueError(f"{path}: leaves differ from the template "
                          f"(missing {missing}, unexpected {extra})")
     for k, t in template.items():
-        if flat[k].shape != t.shape or flat[k].dtype != t.dtype:
+        if flat[k].shape != t.shape or (flat[k].dtype != t.dtype
+                                        and not cast):
             raise ValueError(f"{path}: {k} is {flat[k].dtype} "
                              f"{tuple(flat[k].shape)}, the template "
                              f"{t.dtype} {tuple(t.shape)}")
-    return {k: v.to(device) for k, v in flat.items()}
+    # one leaf at a time: an mmap-ed leaf is read, moved and cast alone
+    return {k: v.to(device).to(template[k].dtype) for k, v in flat.items()}
 
 
-def _restore_one(path, params_template, opt_state_template, model_cfg,
-                 finetune, no_load_optim, no_load_rng):
+def tracked_checkpoint(load_dir: str) -> Tuple[str, dict]:
+    """(directory, meta) of the checkpoint the tracker in `load_dir`
+    names, an iteration or a release, with no scan (the serving
+    launcher's and the converters' read, JAX
+    tools/run_text_generation_server.py:283-287)."""
+    iteration, release = read_tracker(load_dir)
+    if iteration is None and not release:
+        raise FileNotFoundError(f"no {TRACKER_FILENAME} in {load_dir}")
+    path = checkpoint_dir(os.path.abspath(load_dir), iteration or 0,
+                          release=release)
+    with open(os.path.join(path, "meta.json")) as f:
+        return path, json.load(f)
+
+
+def restore_params(path: str, params_template: dict, device) -> dict:
+    """The params of checkpoint directory `path` on `device`, each leaf
+    in the template's dtype; the template may be meta tensors
+    (`GPTModel.abstract_params`). No optimizer state."""
+    return unflatten_like(
+        _restore_flat(os.path.join(path, "model"),
+                      flatten(params_template), device, cast=True),
+        params_template)
+
+
+def _restore_one(path, release, params_template, opt_state_template,
+                 model_cfg, finetune, no_load_optim, no_load_rng):
     """Restore one directory; raises on torn or unreadable files, and
-    CheckpointArchMismatch past the caller's scan."""
+    CheckpointArchMismatch past the caller's scan. A release holds the
+    weights only, restored in the template's dtypes, and loads as
+    `finetune` does (JAX :501-524)."""
     with open(os.path.join(path, "meta.json")) as f:
         meta = json.load(f)
     if model_cfg is not None and meta.get("config"):
@@ -442,11 +503,12 @@ def _restore_one(path, params_template, opt_state_template, model_cfg,
     flat_p = flatten(params_template)
     device = next(iter(flat_p.values())).device
     params = unflatten_like(
-        _restore_flat(os.path.join(path, "model"), flat_p, device),
+        _restore_flat(os.path.join(path, "model"), flat_p, device,
+                      cast=release),
         params_template)
     opt_state = None
     if opt_state_template is not None and not finetune \
-            and not no_load_optim:
+            and not no_load_optim and not release:
         o = _restore_flat(os.path.join(path, "optim"),
                           _optim_flat(opt_state_template), device)
         opt_state = OptimizerState(
@@ -455,8 +517,8 @@ def _restore_one(path, params_template, opt_state_template, model_cfg,
             v=unflatten_like(o, opt_state_template.v, "v.")
             if opt_state_template.v is not None else None)
     # --finetune takes the weights only and starts at iteration 0
-    out_iteration = 0 if finetune else meta["iteration"]
-    if finetune or no_load_rng:
+    out_iteration = 0 if (finetune or release) else meta["iteration"]
+    if finetune or no_load_rng or release:
         meta = dict(meta)
         meta["rng_key"] = None
     return params, opt_state, meta, out_iteration
@@ -477,16 +539,16 @@ def load_checkpoint(load_dir: str, params_template: dict,
             no_load_optim, no_load_rng)
     if iteration is not None:
         path = checkpoint_dir(load_dir, iteration)
-        out = _restore_one(path, *args)
+        out = _restore_one(path, False, *args)
         out[2]["loaded_path"] = path
         return out
 
     candidates, intended = _load_candidates(load_dir)
     if not candidates:
         return None
-    for it, path in candidates:
+    for it, path, release in candidates:
         try:
-            out = _restore_one(path, *args)
+            out = _restore_one(path, release, *args)
         except CheckpointArchMismatch:
             raise
         except Exception as e:  # noqa: BLE001 - any torn artifact
@@ -494,7 +556,7 @@ def load_checkpoint(load_dir: str, params_template: dict,
                   f"({type(e).__name__}: {e}); falling back to the "
                   f"previous complete checkpoint", flush=True)
             continue
-        if intended is not None and it < intended:
+        if it is not None and intended is not None and it < intended:
             print(f"WARNING: resumed from OLDER checkpoint {path} - the "
                   f"newer one(s) were torn or corrupt (a preemption "
                   f"mid-save?); training replays from iteration "

@@ -175,7 +175,7 @@ def test_same_argv_same_configs(model_args, vocab):
     ("--trace_dir /tmp/tr", "A3.8"),
     ("--flight_record_dir /tmp/fr", "A3.8"),
     ("--perf_sentinel_ksigma 3", "A3.8"),
-    ("--parallel_attn", "A6"),
+    ("--use_post_ln", "A6"),
 ])
 def test_later_slice_flags_raise_by_name(flags, slice_name):
     argv = f"--model_name llama2 --num_layers 2 {flags}".split()
@@ -184,7 +184,7 @@ def test_later_slice_flags_raise_by_name(flags, slice_name):
         arguments.args_to_configs(args, 32000)
 
 
-@pytest.mark.parametrize("name", ["falcon", "bert", "t5"])
+@pytest.mark.parametrize("name", ["bert", "t5"])
 def test_model_families_of_later_slices_raise(name):
     args = arguments.build_base_parser().parse_args(
         ["--model_name", name, "--num_layers", "2"])

@@ -1,6 +1,8 @@
 """PyTorch port isolation: the port and chip_smoke.py never import JAX or
-the JAX package, and their model, kernel and training entry points
-default to the card."""
+the JAX package (nor, at module level, `safetensors`, `transformers` or
+`ml_dtypes`, which the card's machine lacks), their model, kernel,
+training and serving entry points default to the card, and the weight
+converters touch no device."""
 
 import ast
 import inspect
@@ -18,7 +20,7 @@ from megatron_llm_tpu_torch import finetune
 from megatron_llm_tpu_torch.config import tiny_config
 from megatron_llm_tpu_torch.convert.from_jax import params_from_jax
 from megatron_llm_tpu_torch.inference.engine import DecodeEngine
-from megatron_llm_tpu_torch.models import GPTModel, LlamaModel
+from megatron_llm_tpu_torch.models import FalconModel, GPTModel, LlamaModel
 from megatron_llm_tpu_torch.models.language_model import (
     init_language_model_params,
 )
@@ -26,6 +28,7 @@ from megatron_llm_tpu_torch.models.rope import precompute_rope
 from megatron_llm_tpu_torch.models.transformer import init_layer_params
 from megatron_llm_tpu_torch.ops import flash_attention as fa
 from megatron_llm_tpu_torch.ops import rmsnorm as rms
+from megatron_llm_tpu_torch.tools import run_text_generation_server
 from megatron_llm_tpu_torch.training.trainer import Trainer, get_batch
 
 REPO = Path(__file__).resolve().parent.parent
@@ -47,7 +50,8 @@ def test_every_module_imports_without_jax():
         if isinstance(n, (ast.Import, ast.ImportFrom))]
     script = textwrap.dedent(f"""
         import importlib, sys
-        for name in ("jax", "jaxlib", "megatron_llm_tpu"):
+        for name in ("jax", "jaxlib", "megatron_llm_tpu", "safetensors",
+                     "transformers", "ml_dtypes"):
             sys.modules[name] = None
         for m in {_modules()!r}:
             importlib.import_module(m)
@@ -78,6 +82,14 @@ def test_no_jax_import_in_source(path):
             assert name != "jax" and not name.startswith("jax."), (path, name)
             assert not name.startswith("megatron_llm_tpu.") \
                 and name != "megatron_llm_tpu", (path, name)
+    # the card's machine has none of these: never at module level
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, (ast.Import, ast.ImportFrom)):
+            names = [a.name for a in node.names] \
+                if isinstance(node, ast.Import) else [node.module or ""]
+            for name in names:
+                assert name.split(".")[0] not in (
+                    "safetensors", "transformers", "ml_dtypes"), (path, name)
 
 
 @pytest.mark.parametrize("fn,arg", [
@@ -90,6 +102,8 @@ def test_no_jax_import_in_source(path):
     (get_batch, "device"),
     (finetune.main, "device"),
     (finetune.model_provider, "device"),
+    (FalconModel.__init__, "device"),
+    (run_text_generation_server.main, "device"),
 ])
 def test_entry_points_default_to_cuda(fn, arg):
     fn = getattr(fn, "__wrapped__", fn)
@@ -166,3 +180,20 @@ def test_kernel_wrappers_do_not_fall_back_off_the_cpu(call):
     with pytest.raises((RuntimeError, ImportError, ValueError),
                        match="(?i)cuda|nvcc|triton"):
         calls[call]()
+
+
+CONVERTERS = [PKG / "convert" / "hf.py", PKG / "convert" / "megatron_torch.py",
+              PKG / "convert" / "safetensors_io.py",
+              PKG / "tools" / "convert_weights.py"]
+
+
+@pytest.mark.parametrize("path", CONVERTERS, ids=lambda p: p.name)
+def test_converters_touch_no_device(path):
+    """The weight converters compute on the host: no device argument, no
+    CUDA call, no `.to(<device>)` anywhere in their sources."""
+    src = path.read_text()
+    for word in ("cuda", "device="):
+        assert word not in src, (path.name, word)
+    for node in ast.walk(ast.parse(src)):
+        if isinstance(node, ast.arg):
+            assert node.arg != "device", path.name
