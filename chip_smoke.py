@@ -36,7 +36,12 @@ Phases, one output line each (a failure raises and exits non-zero):
    slot's pages (kernel_check_paged_variants, kernel_time_paged_variants,
    both designs timed for every variant, and int8 pools at Llama-2-70B's
    widths too), with NaN below every chunk's floor kept out of the
-   output;
+   output; K2 with rstd and K3 also in fp16 (within 5e-3 of max(1, the
+   reference's max-abs)); K4, K5 and K6 also in their fp16
+   instantiations at the training shape, Llama-2-70B's GQA and full
+   attention (within 5e-3, about 5 fp16 ulps at 1), timed beside the
+   plain fp16 versions, SDPA in fp16 and the bound
+   (kernel_check_flash_fp16, kernel_time_flash_fp16);
 4. model: Llama-2-7B at full width and depth, random bf16 weights from a
    fixed seed on the card, built once for every route;
 5. serving (whole-batch route, `MegatronServer(engine=None)`): a greedy
@@ -79,14 +84,16 @@ Phases, one output line each (a failure raises and exits non-zero):
    floor, the device ms of one mixed round's paged forward and K7's part
    of it (torch.profiler), peak memory;
 10b. graph_capture: 8 of the engine's greedy requests queued and drained
-   by the bf16 engine with every round called eagerly (the private
-   `_eager`) and with every round a replayed graph, and phase 5's greedy
-   batch decoded eagerly (`_eager=True`) and captured, in this one call:
-   captured streams equal to eager token for token, equal page and
-   prefix-cache accounting, ms per decode advance (and per mixed round)
-   of each, the card's busy ms over the drained window (torch.profiler,
-   CUDA activity only, the drain itself traced) and the idle share
-   1 - busy/wall of that window (the whole-batch call likewise), the
+   by the bf16 engine with every round a replayed graph, and the same
+   queue's first rounds (every mixed round and 4 decode rounds) with
+   every round called eagerly (the private `_eager`), and phase 5's
+   greedy batch decoded eagerly (`_eager=True`) and captured, in this one
+   call: after those rounds, captured streams equal to eager token for
+   token, equal page and prefix-cache accounting; ms per decode advance
+   (and per mixed round) of each, the card's busy ms over the run
+   window (torch.profiler, CUDA activity only, the rounds themselves
+   traced) and the idle share 1 - busy/wall of that window (the
+   whole-batch call likewise), the
    card's ms of one 8-slot decode round of 8 steps at 1000 positions
    (eager: its kernels in a torch.profiler trace; captured: replays on
    CUDA events) with its top kernels, the graphs, capture seconds and
@@ -189,11 +196,27 @@ Phases, one output line each (a failure raises and exits non-zero):
    (median of R's steps 2-6) beside the train phase's, model TFLOP/s,
    the loader's host ms a step, preprocess s, each save's blocked ms
    and commit s, bytes on disk and the load's s. The checkpoints live
-   under build/finetune_smoke/ and are deleted after their checks.
+   under build/finetune_smoke/ and are deleted after their checks;
+17b. train_remat (between 17 and 18): phase 15's trainer from its initial
+   weights and batch, 3 steps under each recompute policy ("full",
+   "selective", "save_dots", "offload", and "full" on the first 4 layers
+   by `recompute_method` block): ms a step, peak memory, GEMM and flash
+   device ms of a profiled step, launches a step checked against the
+   policy (K4 2 L M under full, L M under the named-save-point policies,
+   (L + 4) M under block), step 1's loss and gradient norm equal across
+   policies;
+19. finetune_modes (on phase 18's corpora, no --save): `finetune.main`
+   at 4 of 32 layers in (a) the fine-tuning recipe's training flags
+   (flash, selective recompute, bf16), (b) fp16 with the dynamic scaler
+   from 2^32 for 16 steps (the scale and skip sequence follows the
+   scaler's rule, at least 3 steps taken, K4-K6 in fp16 only), (c)
+   hidden, attention and LIMA dropout under full recompute (no flash
+   launch: the grouped path) beside one step without recompute at the
+   same seed (step 1's loss and gradient norm equal).
 
-Then one JSON line of the kernels, the nvidia-smi line, and the last
-line `{"ok": true, "device": {...}}`. Without a CUDA card it exits 2 and
-prints no result.
+Then a line of each phase's seconds, one JSON line of the kernels, the
+nvidia-smi line, and the last line `{"ok": true, "device": {...}}`.
+Without a CUDA card it exits 2 and prints no result.
 """
 
 import argparse
@@ -253,6 +276,9 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 FP32_FLOPS = 67e12  # H100 SXM, fp32 outside the tensor cores
 BF16_FLOPS = 989e12  # H100 SXM, dense bf16 tensor cores
 BF16_TOL = 2e-2
+# fp16 kernels against their plain fp16 versions: about 5 fp16 ulps at 1
+# (bf16's 2e-2 is about 2.5 of its ulps); both round at the same places
+FP16_TOL = 5e-3
 PATH_LP_TOL = 5e-2
 SEED = 0
 # Random weights at the config's init std (0.02) make a 7B whose log-probs
@@ -335,31 +361,57 @@ def profiled_ms(fn, iters=20, warmup=3) -> float:
     return top_kernels(fn, calls=iters)[0] or 0.0
 
 
+def cuda_trace(fn):
+    """`fn()` under torch.profiler with CUDA activity only: (its result,
+    wall s, [(name, start ns, end ns)] of the card's kernels and copies).
+    The raw events, not the parsed event list, which takes the host
+    seconds to minutes for a window of many thousand kernels."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    events = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+              for e in prof.profiler.kineto_results.events()
+              if e.device_type() == DeviceType.CUDA]
+    return out, wall, events
+
+
+def kernel_totals(events):
+    """{kernel name: device ms} summed over `events`."""
+    out = {}
+    for name, a, b in events:
+        out[name] = out.get(name, 0.0) + (b - a) / 1e6
+    return out
+
+
+def busy_ms(events):
+    """The union of the events' intervals, in ms: the card's busy time."""
+    busy, end = 0, 0
+    for a, b in sorted((a, b) for _, a, b in events):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / 1e6
+
+
 def top_kernels(fn, calls=3, n=10):
     """(device ms per call, [[kernel, ms per call]] of the n largest) in a
     torch.profiler trace of `calls` calls after one warm-up; (None, [])
     when the trace shows no device time (a graph replay whose kernels
     the profiler does not see)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
-    kernels = {}
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            us = e.time_range.end - e.time_range.start
-            kernels[e.name] = kernels.get(e.name, 0.0) + us
+    _, _, events = cuda_trace(lambda: [fn() for _ in range(calls)])
+    kernels = kernel_totals(events)
     if not kernels:
         return None, []
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:n]
-    return (sum(kernels.values()) / calls / 1e3,
-            [[k[:100], round(us / calls / 1e3, 4)] for k, us in top])
+    return (sum(kernels.values()) / calls,
+            [[k[:100], round(ms / calls, 4)] for k, ms in top])
 
 
 def rotating(make, n):
@@ -1244,26 +1296,8 @@ def busy_window(fn):
     launches pay no per-op recording): (its result, wall s, the card's
     busy s in that window: the union of its kernels' and copies'
     intervals; None when the trace shows no device activity)."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        out = fn()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    # the raw events: the parsed event list of a drained window's
-    # hundreds of thousands of kernels takes the host minutes
-    spans = sorted((e.start_ns(), e.start_ns() + e.duration_ns())
-                   for e in prof.profiler.kineto_results.events()
-                   if e.device_type() == DeviceType.CUDA)
-    busy, end = 0, 0
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    return out, wall, (busy / 1e9 if spans else None)
+    out, wall, events = cuda_trace(fn)
+    return out, wall, (busy_ms(events) / 1e3 if events else None)
 
 
 def replay_ms(fn, n=20):
@@ -1292,7 +1326,8 @@ def whole_batch_timing(model, params, toks, lens, kw, eager=False):
     def call():
         return generate_tokens(model, params, toks, lens, _eager=eager,
                                **kw)
-    call()
+    if not eager:  # an eager call has nothing to warm: phase 5 ran it
+        call()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = call()
@@ -1770,9 +1805,6 @@ def mixed_round_device_ms(model, eng, calls=3):
     check's mixed batch (chunks 256@0 and 100@700, six decode rows, width
     256), the CUDA kernels' time in a torch.profiler trace, in all and
     K7's part, per forward."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     C, spans = PAGED_BATCHES["mixed"]
     dev = eng._pools[0][0].device
     n = eng.max_pages_per_slot
@@ -1796,19 +1828,11 @@ def mixed_round_device_ms(model, eng, calls=3):
             model.forward(eng._dec_params, toks, kv_caches=dict(caches),
                           position_ids=pos)
         forward()
-        torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
-            for _ in range(calls):
-                forward()
-            torch.cuda.synchronize()
-    total = k7 = 0.0
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            us = e.time_range.end - e.time_range.start
-            total += us
-            k7 += us if "paged_attn" in e.name else 0.0
-    return total / calls / 1e3, k7 / calls / 1e3
+        _, _, events = cuda_trace(lambda: [forward() for _ in range(calls)])
+    kernels = kernel_totals(events)
+    total = sum(kernels.values())
+    k7 = sum(ms for name, ms in kernels.items() if "paged_attn" in name)
+    return total / calls, k7 / calls
 
 
 def ms_per_advance(rounds):
@@ -1926,9 +1950,23 @@ def _engine_device_ms(eng, horizon=8, length=1000):
         return ms, top, host, runner
 
 
-def _traced_drain(model, params, tok, traffic, eager):
+EAGER_DECODE_ROUNDS = 4
+
+
+def eager_prefix(eng):
+    """Step the engine until it has run EAGER_DECODE_ROUNDS decode rounds
+    (every prompt admitted by then): the eager side's share of the
+    traffic. Returns the rounds run."""
+    while sum(not r["prefill_tokens"] for r in eng._round_log) \
+            < EAGER_DECODE_ROUNDS:
+        check(eng.step(), "the engine drained before the eager prefix")
+    return len(eng._round_log)
+
+
+def _traced_drain(model, params, tok, traffic, eager, rounds=None):
     """The same traffic again, on a fresh engine (warmed up unless
-    `eager`), drained under `busy_window`: (rounds, wall s, busy s)."""
+    `eager`), drained (or stepped `rounds` rounds) under `busy_window`:
+    (rounds, wall s, busy s)."""
     eng = DecodeEngine(model, params, **engine_kwargs(
         tok, warmup_compile=False))
     eng._eager = eager
@@ -1936,31 +1974,36 @@ def _traced_drain(model, params, tok, traffic, eager):
         eng.warmup()
     for p, g in traffic:
         eng.submit(p, g, top_k=1, return_log_probs=True)
-    _, wall, busy = busy_window(eng.drain)
+    run = eng.drain if rounds is None else \
+        (lambda: [eng.step() for _ in range(rounds)])
+    _, wall, busy = busy_window(run)
     return len(eng._round_log), wall, busy
 
 
 def graph_capture_phase(kernels, cfg, model, params, whole_batch):
     """Llama-2-7B at full width and depth: the first 8 greedy requests of
     the engine traffic queued and drained (a fixed schedule) by the bf16
-    engine with every round called eagerly (the private `_eager`) and
-    with every round a replayed CUDA graph, and the whole-batch greedy
-    batch decoded eagerly and captured. Gates: the captured streams
-    equal the eager ones token for token (log-probs too), with equal
-    page and prefix-cache accounting; every paged forward's K7 launches
-    counted through replays; ms per decode advance lower captured than
-    eager on both routes; one captured decode round replays under
-    `torch.cuda.set_sync_debug_mode("error")` (its read-back left out).
-    The device's busy time comes from the same traffic drained again
-    under torch.profiler (the same rounds: their count is checked): idle
+    engine with every round a replayed CUDA graph, and the same queue's
+    first rounds (every mixed round and EAGER_DECODE_ROUNDS decode rounds:
+    the eager prefix) with every round called eagerly (the private
+    `_eager`); and the whole-batch greedy batch decoded eagerly and
+    captured. Gates: after the eager prefix's rounds the captured
+    engine's streams equal the eager ones token for token (log-probs
+    too), with equal page and prefix-cache accounting; every paged
+    forward's K7 launches counted through replays; ms per decode advance
+    lower captured than eager on both routes; one captured decode round
+    replays under `torch.cuda.set_sync_debug_mode("error")` (its
+    read-back left out). The device's busy time comes from the same
+    rounds run again under torch.profiler (their count is checked): idle
     is 1 - busy/wall over that traced window, and, beside it, over the
-    untraced drain's wall (the trace slows the host's side of a round:
-    the untraced figure is the lower bound)."""
+    untraced run's wall (the trace slows the host's side of a round: the
+    untraced figure is the lower bound)."""
     tok = build_tokenizer("NullTokenizer", null_vocab_size=31999)
     traffic = [(p, pl["tokens_to_generate"]) for name, p, pl
                in engine_traffic() if name.startswith("greedy")]
     traffic = traffic[:CAPTURE_REQUESTS]
     runs = {}
+    prefix = None  # the eager prefix's rounds
     for mode in ("eager", "captured"):
         eng = DecodeEngine(model, params, **engine_kwargs(
             tok, warmup_compile=False))
@@ -1976,23 +2019,35 @@ def graph_capture_phase(kernels, cfg, model, params, whole_batch):
                 for p, g in traffic]
         zero_counts()
         t0 = time.perf_counter()
-        eng.drain()
+        if mode == "eager":
+            prefix = eager_prefix(eng)
+        else:
+            for _ in range(prefix):
+                eng.step()
+        c = eng.counters()
+        # the streams and the accounting after the eager prefix's rounds
+        at_prefix = ([(list(r.tokens), list(r.log_probs or []))
+                      for r in reqs],
+                     ({k: c[k] for k in c if k.startswith(
+                         ("serve_pages", "serve_prefix", "serve_steps",
+                          "serve_prefill", "serve_admitted",
+                          "serve_retired"))}, sorted(eng._free_pages)))
+        if mode == "captured":
+            eng.drain()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
         rounds = list(eng._round_log)
-        c = eng.counters()
         mixed = [r["ms"] for r in rounds if r["prefill_tokens"]]
-        run = {"outs": [r.result(60) for r in reqs],
+        run = {"at_prefix": at_prefix,
                "launches": kernel_counts(),
                "variants": dict(pa.ragged_paged_attention.variant_launches),
                "paged": paged_forwards(rounds), "wall_s": wall,
-               "accounting": ({k: c[k] for k in c if k.startswith(
-                   ("serve_pages", "serve_prefix", "serve_steps",
-                    "serve_prefill", "serve_admitted", "serve_retired"))},
-                   sorted(eng._free_pages)),
                "decode_ms_per_advance": ms_per_advance(rounds),
                "mixed_round_ms": sum(mixed) / max(len(mixed), 1),
                "rounds": len(rounds), "mixed_rounds": len(mixed)}
+        if mode == "captured":
+            run["outs"] = [r.result(60) for r in reqs]
+            run["pages_free"] = eng.counters()["serve_pages_free"]
         check_paged_launches(cfg, run, f"graph_capture_{mode}", "fp")
         if mode == "captured":
             stats = eng.graph_stats()
@@ -2025,8 +2080,9 @@ def graph_capture_phase(kernels, cfg, model, params, whole_batch):
             run["sync_debug_replay"] = "ok"
         eng = runner = None
         free_cuda()
-        n_rounds, t_wall, busy = _traced_drain(model, params, tok, traffic,
-                                               mode == "eager")
+        n_rounds, t_wall, busy = _traced_drain(
+            model, params, tok, traffic, mode == "eager",
+            prefix if mode == "eager" else None)
         check(n_rounds == len(rounds),
               f"traced drain: {n_rounds} rounds, untraced {len(rounds)}")
         run.update(traced_wall_s=t_wall,
@@ -2038,12 +2094,12 @@ def graph_capture_phase(kernels, cfg, model, params, whole_batch):
         runs[mode] = run
         free_cuda()
     e, g = runs["eager"], runs["captured"]
-    check([t for t, _ in g["outs"]] == [t for t, _ in e["outs"]],
+    (e_out, e_acc), (g_out, g_acc) = e["at_prefix"], g["at_prefix"]
+    check([t for t, _ in g_out] == [t for t, _ in e_out],
           "engine: captured greedy streams differ from eager")
-    lp_diff = max(float(np.abs(np.asarray(a) - np.asarray(b)).max())
-                  for (_, a), (_, b) in zip(g["outs"], e["outs"]))
-    check(g["accounting"] == e["accounting"],
-          f"engine accounting {g['accounting']} != {e['accounting']}")
+    lp_diff = max((float(np.abs(np.asarray(a) - np.asarray(b)).max())
+                   for (_, a), (_, b) in zip(g_out, e_out) if a), default=0.0)
+    check(g_acc == e_acc, f"engine accounting {g_acc} != {e_acc}")
 
     toks, lens, kw = whole_batch
     wb = {}
@@ -2058,12 +2114,12 @@ def graph_capture_phase(kernels, cfg, model, params, whole_batch):
     for rec in wb.values():
         del rec["out"]
     summary = {m: {k: v for k, v in r.items()
-                   if k not in ("outs", "accounting")}
+                   if k not in ("outs", "at_prefix")}
                for m, r in runs.items()}
     say("graph_capture", requests=len(traffic),
-        engine=summary, engine_streams_equal=True,
+        engine=summary, engine_streams_equal_through_round=prefix,
         engine_accounting_equal=True,
-        engine_pages_free=e["accounting"][0]["serve_pages_free"],
+        engine_pages_free=g["pages_free"],
         engine_logprob_max_abs_diff=lp_diff,
         whole_batch=wb, whole_batch_tokens_equal=True,
         nvidia_smi=nvidia_smi())
@@ -2942,18 +2998,16 @@ def max_err(a, b):
     return (a.float() - b.float()).abs().max().item()
 
 
-def check_rmsnorm_bwd_kernel(k2_row):
+def _rmsnorm_train_numbers(dtype, tol, gen):
     """K2 writing rstd and K3 against `_plain_fwd` / `_plain_bwd` at a
-    training microbatch's rows (n = seq 4096, h 4096): bf16 activations
-    and gradients, the fp32 scale parameter. Adds the rstd variant's
-    numbers to K2's row and returns K3's row."""
-    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    training microbatch's rows (n = seq 4096, h 4096) in `dtype` with the
+    fp32 scale parameter: (errors, errors relative to max(1, the
+    reference's max-abs), the forward's and the backward's numbers)."""
     n, h, eps = 4096, 4096, 1e-5
-    bf = torch.bfloat16
 
     def make(i):
-        x = torch.randn(n, h, generator=gen, device="cuda").to(bf)
-        g = torch.randn(n, h, generator=gen, device="cuda").to(bf)
+        x = torch.randn(n, h, generator=gen, device="cuda").to(dtype)
+        g = torch.randn(n, h, generator=gen, device="cuda").to(dtype)
         return x, g
     scale = 1 + 0.1 * torch.randn(h, generator=gen, device="cuda")
     x, g = make(0)
@@ -2969,21 +3023,19 @@ def check_rmsnorm_bwd_kernel(k2_row):
     rel = {k: errs[k] / max(1.0, ref.abs().max().item())
            for k, ref in (("out", ref_out), ("rstd", ref_rstd),
                           ("dx", ref_dx), ("dscale", ref_ds))}
-    say("kernel_check_rmsnorm_bwd", max_abs_err=errs, rel_err=rel,
-        tol=BF16_TOL)
     for k, v in rel.items():
-        check(v <= BF16_TOL, f"K2-rstd/K3 {k}: {v}")
+        check(v <= tol, f"K2-rstd/K3 {dtype} {k}: {v}")
 
     # four input sets of 64 MB: out of the 50 MB L2
     pick = rotating(make, 4)
     lib = torch.nn.functional.rms_norm
-    scale_bf = scale.to(bf)
+    scale_lib = scale.to(dtype)
     fwd = {
         "ms": device_ms(lambda: rms.rms_norm_fwd(pick()[0], scale, eps,
                                                  with_rstd=True)),
         "plain_ms": device_ms(lambda: rms._plain_fwd(pick()[0], scale, eps),
                               per_graph=10, replays=5),
-        "library_ms": device_ms(lambda: lib(pick()[0], (h,), scale_bf,
+        "library_ms": device_ms(lambda: lib(pick()[0], (h,), scale_lib,
                                             eps)),
     }
     sets = [(xi, gi, rms.rms_norm_fwd(xi, scale, eps, True)[1])
@@ -2996,7 +3048,7 @@ def check_rmsnorm_bwd_kernel(k2_row):
     }
     # library: F.rms_norm's backward alone, on a retained graph
     xl = sets[0][0].clone().requires_grad_(True)
-    wl = scale_bf.clone().requires_grad_(True)
+    wl = scale_lib.clone().requires_grad_(True)
     yl = lib(xl, (h,), wl, eps)
     bwd["library_ms"] = profiled_ms(lambda: torch.autograd.grad(
         yl, (xl, wl), sets[0][1], retain_graph=True))
@@ -3009,13 +3061,36 @@ def check_rmsnorm_bwd_kernel(k2_row):
         tb, to = nbytes / HBM_BYTES_PER_S * 1e3, flops / FP32_FLOPS * 1e3
         row.update(bound_ms=max(tb, to),
                    bound_by="bytes" if tb >= to else "operations")
-    k2_row["rstd_variant"] = dict(fwd, shape=f"n{n} h{h} bf16, fp32 scale",
-                                  max_abs_err=errs["out"])
+    name = str(dtype).replace("torch.", "")
+    shape = f"n{n} h{h} {name}, fp32 scale"
+    return errs, rel, dict(fwd, shape=shape), dict(bwd, shape=shape)
+
+
+def check_rmsnorm_bwd_kernel(k2_row):
+    """K2 writing rstd and K3 at a training microbatch's rows, in bf16
+    (the training path's) and in fp16 (`--fp16`'s): errors within 2e-2
+    (bf16) and 5e-3 (fp16: about 5 of its ulps at 1) of max(1, the
+    reference's max-abs), times beside the plain versions, F.rms_norm and
+    the bound. Adds the rstd variant's and the fp16 numbers to K2's row
+    and returns K3's row."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    errs, rel, fwd, bwd = _rmsnorm_train_numbers(torch.bfloat16, BF16_TOL,
+                                                 gen)
+    errs16, rel16, fwd16, bwd16 = _rmsnorm_train_numbers(torch.float16,
+                                                         FP16_TOL, gen)
+    say("kernel_check_rmsnorm_bwd", max_abs_err=errs, rel_err=rel,
+        tol=BF16_TOL, fp16_max_abs_err=errs16, fp16_rel_err=rel16,
+        fp16_tol=FP16_TOL)
+    k2_row["rstd_variant"] = dict(fwd, max_abs_err=errs["out"])
+    k2_row["fp16_variant"] = dict(fwd16, max_abs_err=errs16["out"],
+                                  rel_err=rel16["out"])
     return dict({
         "name": "rmsnorm_bwd", "route": "triton",
         "source": "megatron_llm_tpu_torch/ops/rmsnorm.py",
         "replaces": "megatron_llm_tpu/ops/rmsnorm.py:59",
-        "max_abs_err": errs["dx"], "shape": f"n{n} h{h} bf16, fp32 scale",
+        "max_abs_err": errs["dx"],
+        "fp16_variant": dict(bwd16, max_abs_err=errs16["dx"],
+                             rel_err=rel16["dx"]),
     }, **bwd)
 
 
@@ -3035,12 +3110,11 @@ FLASH_CASES = (
 )
 
 
-def flash_inputs(shape, gen):
+def flash_inputs(shape, gen, dtype=torch.bfloat16):
     b, s, t, g, qpk, d, _ = shape
 
     def rnd(*sh):
-        return torch.randn(sh, generator=gen, device="cuda").to(
-            torch.bfloat16)
+        return torch.randn(sh, generator=gen, device="cuda").to(dtype)
     return rnd(b, s, g, qpk, d), rnd(b, t, g, d), rnd(b, t, g, d), \
         rnd(b, s, g, qpk, d)
 
@@ -3058,6 +3132,7 @@ def flash_errors(q, k, v, do, causal, dlse=None):
     refs = fa._plain_bwd(q, k, v, o_ref, rows, do, causal, dl)
     torch.cuda.synchronize()
     errs = {"o": max_err(o, o_ref), "lse": max_err(lse, rows)}
+    errs["o_rel"] = errs["o"] / max(1.0, o_ref.float().abs().max().item())
     for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
         errs[name] = max_err(got, ref)
         errs[name + "_rel"] = errs[name] / ref.float().abs().max().item()
@@ -3223,6 +3298,107 @@ def check_flash_kernels():
     return rows
 
 
+FLASH_FP16_CASES = (FLASH_CASES[0], FLASH_CASES[1], FLASH_CASES[2])
+
+
+def check_flash_fp16():
+    """The fp16 instantiations of K4, K5 and K6 (`--fp16` training)
+    against their plain versions in fp16: o within FP16_TOL of max(1, its
+    reference's max-abs), lse within 1e-3, each gradient within FP16_TOL
+    of its reference's max-abs, at the training shape, Llama-2-70B's GQA
+    and full attention; then the times at the training shape beside the
+    plain versions, SDPA in fp16 and the bound (the bf16 count of
+    operations: the tensor cores' fp16 rate is bf16's 989 TFLOP/s).
+    Returns the three rows."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    h = torch.float16
+    errs = {}
+    for label, shape in FLASH_FP16_CASES:
+        q, k, v, do = flash_inputs(shape, gen, h)
+        errs[label] = e = flash_errors(q, k, v, do, shape[-1])
+        check(e["o_rel"] <= FP16_TOL and e["lse"] <= 1e-3,
+              f"K4 fp16 {label}: {e}")
+        for name in ("dq", "dk", "dv"):
+            check(e[name + "_rel"] <= FP16_TOL,
+                  f"K5/K6 fp16 {label} {name}: {e}")
+        del q, k, v, do
+        torch.cuda.empty_cache()
+    say("kernel_check_flash_fp16", max_abs_err=errs, tol=FP16_TOL,
+        grad_tol=f"{FP16_TOL} of the reference's max-abs",
+        card=nvidia_smi())
+
+    main = FLASH_CASES[0][1]
+    b, s, t, g, qpk, d, causal = main
+    q, k, v, do = flash_inputs(main, gen, h)
+    o, lse = fa._fwd(q, k, v, causal)
+    b4 = fa._rows4(lse.contiguous(), b * g, s * qpk)
+    qf, kf, vf, dof = fa._fold_q(q), fa._fold_kv(k), fa._fold_kv(v), \
+        fa._fold_q(do)
+    delta = fa._rows4(fa._delta_rows(o, do).contiguous(), b * g, s * qpk)
+    ms = {
+        "fwd": device_ms(lambda: fa.flash_fwd(qf, kf, vf, qpk, causal),
+                         per_graph=5, replays=4),
+        "dq": device_ms(lambda: fa.flash_bwd_dq(qf, kf, vf, dof, b4, delta,
+                                                qpk, causal),
+                        per_graph=5, replays=4),
+        "dkv": device_ms(lambda: fa.flash_bwd_dkv(qf, kf, vf, dof, b4,
+                                                  delta, qpk, causal),
+                         per_graph=5, replays=4),
+    }
+    plain = {
+        "fwd": device_ms(lambda: fa._xla_reference_with_lse(q, k, v, causal),
+                         per_graph=2, replays=3),
+        "bwd": device_ms(lambda: fa._plain_bwd(q, k, v, o, lse, do, causal),
+                         per_graph=1, replays=3),
+    }
+    torch.cuda.empty_cache()
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qs = q.reshape(b, s, g * qpk, d).transpose(1, 2).detach() \
+        .requires_grad_(True)
+    ks = k.transpose(1, 2).detach().requires_grad_(True)
+    vs = v.transpose(1, 2).detach().requires_grad_(True)
+    dos = do.reshape(b, s, g * qpk, d).transpose(1, 2)
+    with torch.no_grad():
+        lib_fwd = device_ms(lambda: sdpa(qs, ks, vs, is_causal=causal,
+                                         enable_gqa=True),
+                            per_graph=5, replays=4)
+    ys = sdpa(qs, ks, vs, is_causal=causal, enable_gqa=True)
+    lib_bwd = profiled_ms(lambda: torch.autograd.grad(
+        ys, (qs, ks, vs), dos, retain_graph=True), iters=10)
+    del ys, qs, ks, vs
+    torch.cuda.empty_cache()
+    bounds = flash_bounds(main)
+    tflops = {n: bounds[n][2] / (ms[n] * 1e-3) / 1e12 for n in ms}
+    label = f"b{b} s{s} g{g} qpk{qpk} d{d} causal fp16"
+    say("kernel_time_flash_fp16", ms=ms, plain_ms=plain,
+        library_fwd_ms=lib_fwd, library_bwd_ms=lib_bwd,
+        bound_ms={n: bounds[n][0] for n in bounds}, achieved_tflops=tflops,
+        shape=label, card=nvidia_smi())
+    rows = []
+    for name, which, line, err, plain_ms, lib in (
+            ("flash_fwd_fp16", "fwd", 262,
+             max(e["o"] for e in errs.values()), plain["fwd"], lib_fwd),
+            ("flash_bwd_dq_fp16", "dq", 388,
+             max(e["dq"] for e in errs.values()), plain["bwd"], lib_bwd),
+            ("flash_bwd_dkv_fp16", "dkv", 448,
+             max(max(e["dk"], e["dv"]) for e in errs.values()),
+             plain["bwd"], lib_bwd)):
+        rows.append({
+            "name": name, "route": "cuda",
+            "source": "megatron_llm_tpu_torch/csrc/flash_attention.cu",
+            "replaces": f"megatron_llm_tpu/ops/flash_attention.py:{line}",
+            "max_abs_err": err, "ms": ms[which], "plain_ms": plain_ms,
+            "bound_ms": bounds[which][0], "bound_by": bounds[which][1],
+            "library_ms": lib, "achieved_tflops": tflops[which],
+            "shape": label, "design": "wgmma+tma, fp16 instantiation",
+            "launches": 0, "launches_by_path": {},
+        })
+        if which != "fwd":
+            rows[-1]["plain_and_library_cover"] = \
+                "the whole backward (dq, dk, dv)"
+    return rows
+
+
 # ---------------------------------------------------------------------------
 # phases 11-13: training at Llama-2-7B width
 # ---------------------------------------------------------------------------
@@ -3241,6 +3417,14 @@ def train_config():
                         remat_policy="full")
 
 
+def train_tcfg(steps, log_interval=1):
+    return TrainConfig(micro_batch_size=1, global_batch_size=TRAIN_MICRO,
+                       train_iters=steps, lr=3e-4, lr_decay_style="constant",
+                       adam_beta2=0.95, adam_eps=1e-5, weight_decay=0.1,
+                       clip_grad=1.0, log_interval=log_interval,
+                       eval_interval=0, seed=SEED)
+
+
 def kernel_counts():
     return {"rmsnorm_fwd": rms.fused_rms_norm.launches,
             "rmsnorm_bwd": rms.rms_norm_bwd.launches,
@@ -3251,11 +3435,23 @@ def kernel_counts():
             "ragged_paged_attention": pa.ragged_paged_attention.launches}
 
 
+FLASH_WRAPPERS = {"flash_fwd": fa.flash_fwd, "flash_bwd_dq": fa.flash_bwd_dq,
+                  "flash_bwd_dkv": fa.flash_bwd_dkv}
+
+
+def fp16_counts():
+    """The flash kernels' fp16 launches (part of kernel_counts())."""
+    return {name: fn.launches_by_dtype["float16"]
+            for name, fn in FLASH_WRAPPERS.items()}
+
+
 def zero_counts():
     for fn in (rms.fused_rms_norm, rms.rms_norm_bwd, fa.flash_fwd,
                fa.flash_bwd_dq, fa.flash_bwd_dkv, dec.decode_attention,
                pa.ragged_paged_attention):
         fn.launches = 0
+    for fn in FLASH_WRAPPERS.values():
+        fn.launches_by_dtype = dict.fromkeys(fn.launches_by_dtype, 0)
     pa.ragged_paged_attention.variant_launches = dict.fromkeys(
         pa.ragged_paged_attention.variant_launches, 0)
 
@@ -3267,11 +3463,7 @@ def train_slice(kernels):
     constant over the short run."""
     cfg = train_config()
     model = LlamaModel(cfg)
-    tcfg = TrainConfig(micro_batch_size=1, global_batch_size=TRAIN_MICRO,
-                       train_iters=TRAIN_STEPS, lr=3e-4,
-                       lr_decay_style="constant", adam_beta2=0.95,
-                       adam_eps=1e-5, weight_decay=0.1, clip_grad=1.0,
-                       log_interval=1, eval_interval=0, seed=SEED)
+    tcfg = train_tcfg(TRAIN_STEPS)
     text = np.random.RandomState(SEED + 11).randint(
         0, cfg.padded_vocab_size,
         (TRAIN_MICRO, 1, cfg.seq_length + 1)).astype(np.int32)
@@ -3374,59 +3566,214 @@ def path_check_train(cfg, model, state, text):
     check(min(cos) >= 0.98, f"leaf gradient cosine {min(cos)}")
 
 
+# cuBLAS's GEMM kernels by name on the H100 (cuBLAS 12: nvjet and
+# sm90_xmma kernels; CUTLASS-built ones)
+GEMM_NAMES = ("gemm", "nvjet", "xmma", "cutlass")
+
+
+def step_profile(trainer, state, text):
+    """One more training step under torch.profiler (CUDA activity only):
+    its wall ms, the card's busy ms, the kernels' ms in all, by flash
+    kernel and for cuBLAS's GEMMs, and the ten largest kernels."""
+    def step():
+        stats = trainer.train_step(state, text)
+        float(stats["loss"])
+    _, wall, events = cuda_trace(step)
+    kernels = kernel_totals(events)
+    flash = {k: sum(ms for n, ms in kernels.items()
+                    if f"flash_{k}_kernel" in n)
+             for k in ("fwd", "bwd_dq", "bwd_dkv")}
+    gemm = sum(ms for n, ms in kernels.items()
+               if any(g in n.lower() for g in GEMM_NAMES)
+               and "flash" not in n)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    return {"wall_ms": wall * 1e3,
+            "busy_ms": busy_ms(events) if events else "not measured",
+            "device_ms": sum(kernels.values()), "flash_ms": flash,
+            "gemm_ms": gemm,
+            "top10_kernels_ms": [[n[:120], round(ms, 3)] for n, ms in top]}
+
+
 def throughput_train(trainer, state, text):
     """Step time over steps 2-8 (the first pays Triton's and cuBLAS's
     first calls), tokens/s, model TFLOP/s (6 N a token, the trainer's own
     formula) against 989, peak memory; then one more step under
     torch.profiler for the kernels' device time and the busy share."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
     ms = [r["ms"] for r in trainer.step_log[1:]]
     med = float(np.median(ms))
     tokens = TRAIN_MICRO * trainer.cfg.seq_length
     tok_s, tflops = trainer.throughput(TRAIN_MICRO, med / 1e3)
     peak = torch.cuda.max_memory_allocated() / 1e9
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        stats = trainer.train_step(state, text)
-        float(stats["loss"])
-        torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    kernels, spans = {}, []
-    for e in prof.events():
-        if e.device_type == DeviceType.CUDA:
-            r = e.time_range
-            spans.append((r.start, r.end))
-            kernels[e.name] = kernels.get(e.name, 0.0) + (r.end - r.start)
-    spans.sort()
-    busy, end = 0.0, -1.0
-    for a, b in spans:
-        if b > end:
-            busy += b - max(a, end)
-            end = b
-    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
-    device_us = sum(kernels.values())
-    flash = {k: sum(us for n, us in kernels.items()
-                    if f"flash_{k}_kernel" in n) / 1e3
-             for k in ("fwd", "bwd_dq", "bwd_dkv")}
-    flash_ms = sum(flash.values())
+    prof = step_profile(trainer, state, text)
+    wall, busy, device = prof["wall_ms"], prof["busy_ms"], prof["device_ms"]
+    flash_ms = sum(prof["flash_ms"].values())
     say("throughput_train", steps_timed=len(ms), step_ms_median=med,
         step_ms=ms, tokens_per_step=tokens, tokens_per_s=tok_s,
         model_tflops=tflops, model_tflops_share_of_989=tflops / 989.0,
-        peak_memory_gb_train=peak,
-        profiled_step_wall_ms=wall_us / 1e3,
-        profiled_device_busy_ms=busy / 1e3 if spans else "not measured",
-        device_busy_share=busy / wall_us if spans else "not measured",
-        device_kernel_ms_total=device_us / 1e3,
-        flash_kernels_ms=flash, flash_ms=flash_ms,
-        flash_share_of_step_wall=flash_ms * 1e3 / wall_us,
-        flash_share_of_device_ms=(flash_ms * 1e3 / device_us
-                                  if device_us else "not measured"),
-        top10_kernels_ms=[[n[:120], round(us / 1e3, 3)] for n, us in top])
+        peak_memory_gb_train=peak, profiled_step_wall_ms=wall,
+        profiled_device_busy_ms=busy,
+        device_busy_share=(busy / wall if isinstance(busy, float)
+                           else "not measured"),
+        device_kernel_ms_total=device, gemm_ms=prof["gemm_ms"],
+        flash_kernels_ms=prof["flash_ms"], flash_ms=flash_ms,
+        flash_share_of_step_wall=flash_ms / wall,
+        flash_share_of_device_ms=(flash_ms / device if device
+                                  else "not measured"),
+        top10_kernels_ms=prof["top10_kernels_ms"], card=nvidia_smi())
     return med
+
+
+def add_launches(kernels, path, launches, fp16=None):
+    """Adds a path's launches to the kernels' rows: the flash kernels'
+    fp16 launches (`fp16`, by kernel) to their fp16 rows, the rest to
+    each kernel's row."""
+    fp16 = fp16 or {}
+    for row in kernels:
+        name = row["name"]
+        base = name[:-5] if name.endswith("_fp16") else name
+        n = fp16.get(base, 0) if name.endswith("_fp16") \
+            else launches.get(name, 0) - fp16.get(name, 0)
+        if base not in launches or not n:
+            continue
+        paths = row.setdefault("launches_by_path", {})
+        paths[path] = paths.get(path, 0) + n
+        row["launches"] = sum(paths.values())
+
+
+REMAT_STEPS = 3
+
+
+def activation_gb(model, params, text):
+    """One microbatch's memory above what is resident before it (params,
+    optimizer state and the gradients, already allocated), in GB: what
+    its forward leaves for the backward (the tensors the policy keeps,
+    the layers' inputs), the forward's peak, and the forward and
+    backward's peak (set at the backward's end, where every layer's fp32
+    weight gradient is live before the stacked leaves' gradients are
+    assembled, whatever the policy)."""
+    from megatron_llm_tpu_torch.training.trainer import get_batch
+
+    micro = {k: v[0] for k, v in get_batch(text[:1],
+                                            device=model.device).items()}
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.grad = torch.zeros_like(p)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    loss = model.loss(params, **micro)
+    torch.cuda.synchronize()
+    held = torch.cuda.memory_allocated() - base
+    fwd_peak = torch.cuda.max_memory_allocated() - base
+    loss.backward()
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    for p in leaves:
+        p.grad = None
+    return {"forward_held_gb": held / 1e9, "forward_peak_gb": fwd_peak / 1e9,
+            "forward_backward_peak_gb": peak / 1e9}
+
+
+# (label, policy, overrides): the trainer of phase 15 under each policy
+REMAT_RUNS = (
+    ("full", "full", {}),
+    ("selective", "selective", {}),
+    ("save_dots", "save_dots", {}),
+    ("offload", "offload", {}),
+    ("full_block4", "full", dict(recompute_method="block",
+                                 recompute_num_layers=4)),
+)
+
+
+def train_remat(kernels, cfg, text):
+    """Phase 15's trainer (Llama-2-7B widths, 8 layers, seq 4096, 4
+    microbatches, the same initial weights from the same seed and the
+    same batch) under each recompute policy for REMAT_STEPS steps:
+    ms a step (median of steps 2 on), the step's peak memory (the
+    optimizer's, the same for all) and one microbatch's activation memory
+    (`activation_gb`: what the forward leaves for the backward, the
+    forward's peak, the forward and backward's peak), and from one more
+    profiled step the GEMMs' and the flash kernels' device ms; the
+    launches of each kernel a step, checked against the policy: K4
+    twice a remat'd layer and microbatch under "full" and once under the
+    named-save-point policies (their kept o and lse answer the
+    recompute), K5 and K6 once, K2 twice a layer plus the final norm in
+    the forward and again in each recompute. Step 1's loss and gradient
+    norm must be equal across policies (bit for bit: the kept products
+    and the recomputed ones are the same kernels on the same inputs)."""
+    L, M, S = TRAIN_LAYERS, TRAIN_MICRO, REMAT_STEPS
+    pcfg = ParallelConfig(num_microbatches=M)
+    runs = {}
+    for label, policy, over in REMAT_RUNS:
+        rcfg = dataclasses.replace(cfg, remat_policy=policy, **over)
+        trainer = Trainer(LlamaModel(rcfg), train_tcfg(S, log_interval=S),
+                          pcfg, train_data_iterator=(text for _ in range(S)))
+        state = trainer.setup()
+        stats_log = []
+        inner = trainer.train_step
+
+        def step(st, txt, *a):
+            out = inner(st, txt, *a)
+            stats_log.append((float(out["loss"]), float(out["grad_norm"]),
+                              int(out["skipped"])))
+            return out
+        trainer.train_step = step
+        torch.cuda.synchronize()
+        zero_counts()
+        torch.cuda.reset_peak_memory_stats()
+        state = trainer.train(state)
+        torch.cuda.synchronize()
+        launches = kernel_counts()
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        trainer.train_step = inner
+        prof = step_profile(trainer, state, text)
+        act = activation_gb(trainer.model, state.params, text)
+        n_remat = L if rcfg.recompute_method == "uniform" \
+            else rcfg.recompute_num_layers
+        k4 = L + (n_remat if policy == "full" else 0)
+        expected = {"flash_fwd": k4 * M * S, "flash_bwd_dq": L * M * S,
+                    "flash_bwd_dkv": L * M * S,
+                    "rmsnorm_fwd": (2 * L + 1 + 2 * n_remat) * M * S,
+                    "rmsnorm_bwd": (2 * L + 1) * M * S,
+                    "decode_attention": 0, "ragged_paged_attention": 0}
+        check(launches == expected,
+              f"train_remat {label}: launches {launches} != {expected}")
+        check(not any(sk for _, _, sk in stats_log)
+              and all(np.isfinite([lo for lo, _, _ in stats_log])),
+              f"train_remat {label}: {stats_log}")
+        add_launches(kernels, "train_remat", launches)
+        runs[label] = {
+            "policy": policy, "recompute_method": rcfg.recompute_method,
+            "remat_layers": n_remat,
+            "step_ms": [r["ms"] for r in trainer.step_log],
+            "step_ms_median": float(np.median(
+                [r["ms"] for r in trainer.step_log[1:]])),
+            "peak_memory_gb": peak, **act,
+            "step1_loss": stats_log[0][0],
+            "step1_grad_norm": stats_log[0][1],
+            "losses": [lo for lo, _, _ in stats_log],
+            "launches_per_step": {k: v / S for k, v in launches.items()},
+            "gemm_ms": prof["gemm_ms"], "flash_ms": prof["flash_ms"],
+            "profiled_step": {k: prof[k] for k in ("wall_ms", "busy_ms",
+                                                   "device_ms")},
+            "top10_kernels_ms": prof["top10_kernels_ms"][:5]}
+        del trainer, state, inner, step
+        free_cuda()
+    first = runs["full"]
+    diffs = {label: {"loss": r["step1_loss"] - first["step1_loss"],
+                     "grad_norm": r["step1_grad_norm"]
+                     - first["step1_grad_norm"]}
+             for label, r in runs.items()}
+    say("train_remat", card=nvidia_smi(), config="llama2-7b widths",
+        layers=L, seq=cfg.seq_length, micro_batches=M, steps=S,
+        runs=runs, step1_diff_from_full=diffs,
+        step1_bitwise_equal=all(d == {"loss": 0.0, "grad_norm": 0.0}
+                                for d in diffs.values()))
+    check(all(d["loss"] == 0.0 for d in diffs.values()),
+          f"step-1 losses differ across policies: {diffs}")
+    check(all(abs(d["grad_norm"]) <= 1e-6 * first["step1_grad_norm"]
+              for d in diffs.values()),
+          f"step-1 gradient norms differ across policies: {diffs}")
 
 
 FT_LAYERS, FT_SEQ, FT_STEPS, FT_MICRO, FT_EVAL_INTERVAL = 4, 4096, 6, 4, 3
@@ -3490,11 +3837,18 @@ def finetune_run(argv, sigterm_after=None):
         CheckpointManager,
     )
 
-    rec = {"steps": [], "saves": [], "commits": [], "loads": []}
+    rec = {"steps": [], "saves": [], "commits": [], "loads": [],
+           "stats": []}
 
     def train_step(inner):
         def step(self, state, text, *a):
             stats = inner(self, state, text, *a)
+            rec["stats"].append({
+                "loss": float(stats["loss"]),
+                "grad_norm": float(stats["grad_norm"]),
+                "skipped": int(stats["skipped"]),
+                "loss_scale": float(stats["loss_scale"])
+                if "loss_scale" in stats else None})
             rec.setdefault("first_batch", (state.iteration, np.array(text)))
             if sigterm_after is not None and state.iteration == \
                     sigterm_after:
@@ -3561,6 +3915,7 @@ def finetune_run(argv, sigterm_after=None):
         torch.cuda.synchronize()
         rec["wall_s"] = time.perf_counter() - t0
         rec["launches"] = kernel_counts()
+        rec["fp16"] = fp16_counts()
     signal.signal(signal.SIGTERM, prev)
     rec["iteration"] = state.iteration
     rec["consumed"] = state.consumed_train_samples
@@ -3692,7 +4047,9 @@ def finetune_phase(kernels, train_step_ms):
     leaves = checkpoint_leaves_equal(r_final, c_final)
     check(not os.path.exists(os.path.join(r_dir, "iter_0000003")),
           "keep_latest_n 1 left iteration 3 in R")
-    shutil.rmtree(FT_DIR)
+    # the corpora stay for finetune_modes
+    shutil.rmtree(r_dir)
+    shutil.rmtree(k_dir)
 
     ms = [s["ms"] for s in R["steps"][1:]]
     med = float(np.median(ms))
@@ -3725,6 +4082,135 @@ def finetune_phase(kernels, train_step_ms):
         if row["name"] in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
             row["launches_by_path"]["finetune"] = launches[row["name"]]
             row["launches"] = sum(row["launches_by_path"].values())
+    return data
+
+
+def mode_argv(data, *extra):
+    """`finetune.main`'s flags for finetune_modes: Llama-2-7B widths at
+    FT_LAYERS of 32 layers, seq 4096, 4 microbatches of 1, the corpora of
+    finetune_data, no evaluation and no --save (a commit costs 16-27 s);
+    the mode's flags in `extra`."""
+    flags = (f"--model_name llama2 --model_size 7 --num_layers {FT_LAYERS} "
+             f"--seq_length {FT_SEQ} --micro_batch_size 1 "
+             f"--global_batch_size {FT_MICRO} --tokenizer_type "
+             f"NullTokenizer --null_vocab_size 31999 --split 98,2,0 "
+             f"--eval_interval 1000 --eval_iters 1 --log_interval 1 "
+             f"--seed {SEED}").split()
+    return flags + ["--data_path", "0.7", data[0], "0.3", data[1],
+                    *extra]
+
+
+# examples/finetune.sh's training flags, less what the port does not run
+# on one card
+RECIPE = ("--use_flash_attn --recompute_granularity selective --lr 3e-4 "
+          "--min_lr 1e-6 --lr_decay_style cosine --lr_warmup_iters 1 "
+          "--weight_decay 0.1 --clip_grad 1.0 --adam_beta1 0.9 "
+          "--adam_beta2 0.95 --adam_eps 1e-5 --hidden_dropout 0.0 "
+          "--attention_dropout 0.0 --position_embedding_type rotary "
+          "--rope_scaling_factor 1.0").split()
+RECIPE_LEFT_OUT = {
+    "--sequence_parallel": "parallelism, ROADMAP.md A4",
+    "--use_distributed_optimizer": "parallelism, ROADMAP.md A4",
+    "--tensor/pipeline/context_model_parallel_size": "1 on one card (A4)",
+    "--tensorboard_dir, --log_timers_to_tensorboard":
+        "the trainer's telemetry hooks, ROADMAP.md A3.8",
+    "--save, --load, --use_checkpoint_args, --save_interval":
+        "no saves here (phase 18 holds the checkpoints)",
+    "--eval_interval 50 --eval_iters 10": "no evaluation in a short run",
+    "--lr_warmup_iters 2000": "1: a warmup longer than the run is refused",
+}
+FP16_STEPS = 16
+
+
+def scaler_rule(skipped, initial=2.0 ** 32, hysteresis=2, min_scale=1.0,
+                window=1000):
+    """The scale each step uses under the dynamic scaler's rule (JAX
+    optimizer/grad_scaler.py:63-86), given which steps overflowed."""
+    out, scale, hyst, growth = [], initial, hysteresis, 0
+    for bad in skipped:
+        out.append(scale)
+        if bad:
+            hyst, growth = hyst - 1, 0
+            if hyst <= 0:
+                scale = max(scale / 2, min_scale)
+        else:
+            growth += 1
+            if growth == window:
+                scale, growth, hyst = scale * 2, 0, hysteresis
+    return out
+
+
+def finetune_modes(kernels, data):
+    """`finetune.main` at Llama-2-7B widths (4 of 32 layers, seq 4096) in
+    the single-card training modes, the counters set to 0 before each
+    run: (a) the fine-tuning recipe's training flags (flash, selective
+    recompute, bf16, its AdamW): K4 once a layer and microbatch; (b) the
+    same in fp16 with the default dynamic scaler from 2^32: the scale and
+    skip sequence follows the scaler's rule, the scale comes down and at
+    least three steps are taken, K4-K6 run their fp16 instantiations;
+    (c) hidden, attention and LIMA dropout under full recompute: no
+    flash launch (attention dropout takes the grouped path), and step
+    1's gradient norm equal to a run without recompute at the same seed
+    (the recompute draws the same masks). Printed with the card's name
+    and power limit: ms a step, losses, the sequences, launches."""
+    out = {}
+    a = finetune_run(mode_argv(data, *RECIPE, "--bf16", "--train_iters",
+                               "4"))
+    b = finetune_run(mode_argv(data, *RECIPE, "--fp16", "--train_iters",
+                               str(FP16_STEPS)))
+    drop = ["--hidden_dropout", "0.1", "--attention_dropout", "0.1",
+            "--lima_dropout", "--use_flash_attn", "--bf16", "--lr", "3e-4",
+            "--lr_decay_style", "constant", "--clip_grad", "1.0"]
+    c = finetune_run(mode_argv(data, *drop, "--recompute_granularity",
+                               "full", "--train_iters", "3"))
+    c_none = finetune_run(mode_argv(data, *drop, "--train_iters", "1"))
+    L, M = FT_LAYERS, FT_MICRO
+    for name, run, steps in (("a", a, 4), ("b", b, FP16_STEPS)):
+        want = {"flash_fwd": L * M * steps, "flash_bwd_dq": L * M * steps,
+                "flash_bwd_dkv": L * M * steps, "rmsnorm_fwd": 0,
+                "rmsnorm_bwd": 0, "decode_attention": 0,
+                "ragged_paged_attention": 0}
+        check(run["launches"] == want,
+              f"finetune_modes ({name}) launches {run['launches']} != {want}")
+    check(a["fp16"] == dict.fromkeys(FLASH_WRAPPERS, 0)
+          and b["fp16"] == {k: b["launches"][k] for k in FLASH_WRAPPERS},
+          "finetune_modes: the fp16 run must launch the fp16 kernels only")
+    for name, run in (("c", c), ("c_none", c_none)):
+        check(all(run["launches"][k] == 0 for k in FLASH_WRAPPERS),
+              f"finetune_modes ({name}): flash ran under attention dropout")
+    scales = [st["loss_scale"] for st in b["stats"]]
+    skipped = [st["skipped"] for st in b["stats"]]
+    check(scales == scaler_rule(skipped),
+          f"loss scale sequence {scales} does not follow the rule for "
+          f"skips {skipped}")
+    check(min(scales) < 2.0 ** 32 and skipped.count(0) >= 3,
+          f"fp16: scale {scales}, skips {skipped}")
+    check(all(st["skipped"] == 0 for st in a["stats"] + c["stats"]),
+          "finetune_modes: a bf16 step was skipped")
+    g_full, g_none = c["stats"][0]["grad_norm"], c_none["stats"][0][
+        "grad_norm"]
+    check(c["stats"][0]["loss"] == c_none["stats"][0]["loss"]
+          and abs(g_full - g_none) <= 1e-6 * g_none,
+          f"dropout: full {c['stats'][0]} != none {c_none['stats'][0]}")
+    for name, run in (("a_recipe", a), ("b_fp16", b), ("c_dropout_full", c),
+                      ("c_dropout_none", c_none)):
+        ms = [st["ms"] for st in run["steps"]]
+        out[name] = {
+            "step_ms": ms, "step_ms_median": float(np.median(ms[1:] or ms)),
+            "losses": [st["loss"] for st in run["stats"]],
+            "grad_norms": [st["grad_norm"] for st in run["stats"]],
+            "launches": run["launches"], "fp16_launches": run["fp16"],
+            "wall_s": run["wall_s"]}
+    out["b_fp16"].update(loss_scales=scales, skipped=skipped,
+                         clean_steps=skipped.count(0))
+    say("finetune_modes", card=nvidia_smi(), layers=FT_LAYERS, seq=FT_SEQ,
+        micro_batches=FT_MICRO, recipe_flags=" ".join(RECIPE),
+        recipe_left_out=RECIPE_LEFT_OUT, runs=out,
+        dropout_step1_grad_norm={"full": g_full, "none": g_none,
+                                 "bitwise_equal": g_full == g_none})
+    for path, run in (("finetune_modes", a), ("finetune_modes", b)):
+        add_launches(kernels, path, run["launches"], run["fp16"])
+    shutil.rmtree(FT_DIR)
 
 
 def _leaves(tree):
@@ -3743,44 +4229,70 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
+    seconds = {}
+
+    def timed(name, fn, *a):
+        t0 = time.perf_counter()
+        out = fn(*a)
+        seconds[name] = round(time.perf_counter() - t0, 1)
+        return out
+
     smi = nvidia_smi()
     say("device", nvidia_smi=smi, torch=torch.__version__,
         cuda=torch.version.cuda, name=torch.cuda.get_device_name(0))
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    build_kernels()
+    timed("build", build_kernels)
+    t0 = time.perf_counter()
     kernels = [check_decode_kernel(), check_rmsnorm_kernel(),
                *check_paged_kernel()]
     check_paged_variants(kernels[2])
     kernels.append(check_rmsnorm_bwd_kernel(kernels[1]))
     kernels += check_flash_kernels()
+    seconds["kernel_checks"] = round(time.perf_counter() - t0, 1)
+    kernels += timed("kernel_checks_fp16", check_flash_fp16)
     torch.cuda.empty_cache()
-    model = build_model(args.init_std)
-    whole_batch = serve_whole_batch(kernels, *model)
-    bf16 = serve_engine(kernels, *model)
+    model = timed("model", build_model, args.init_std)
+    whole_batch = timed("serving", serve_whole_batch, kernels, *model)
+    bf16 = timed("serving_engine", serve_engine, kernels, *model)
     free_cuda()
     cfg, llama, params, _ = model
-    graph_capture_phase(kernels, cfg, llama, params, whole_batch)
+    timed("graph_capture", graph_capture_phase, kernels, cfg, llama, params,
+          whole_batch)
     free_cuda()
-    serve_engine_int8(kernels, cfg, llama, params, bf16)
+    timed("serving_engine_int8", serve_engine_int8, kernels, cfg, llama,
+          params, bf16)
     free_cuda()
-    serve_engine_window(kernels, cfg, llama, params)
+    timed("serving_engine_window", serve_engine_window, kernels, cfg, llama,
+          params)
     free_cuda()
-    serve_engine_spec_and_whole_prompt(kernels, cfg, llama, params)
-    packed_docs_prefill(kernels, cfg, llama, params)
-    serve_engine_fp32(kernels, args.init_std)
-    converted = convert_llama(cfg, params)
+    timed("serving_engine_spec_whole_prompt",
+          serve_engine_spec_and_whole_prompt, kernels, cfg, llama, params)
+    timed("packed_docs_prefill", packed_docs_prefill, kernels, cfg, llama,
+          params)
+    timed("serving_engine_fp32", serve_engine_fp32, kernels, args.init_std)
+    converted = timed("convert_llama", convert_llama, cfg, params)
     # the 13.5 GB serving model and its engines' pools go before the
     # launchers and training
     del model, llama, params
     free_cuda()
-    launcher_llama(kernels, converted, bf16["greedy"])
-    launcher_falcon(kernels, args.init_std)
+    timed("launcher_llama", launcher_llama, kernels, converted,
+          bf16["greedy"])
+    timed("launcher_falcon", launcher_falcon, kernels, args.init_std)
     say("memory_before_train",
         allocated_gb=torch.cuda.memory_allocated() / 1e9)
-    train_ms = throughput_train(*train_slice(kernels)[2:])
+    train_cfg, _, trainer, state, text = timed("train", train_slice,
+                                               kernels)
+    train_ms = timed("throughput_train", throughput_train, trainer, state,
+                     text)
+    del trainer, state
     free_cuda()
-    finetune_phase(kernels, train_ms)
+    timed("train_remat", train_remat, kernels, train_cfg, text)
+    data = timed("finetune", finetune_phase, kernels, train_ms)
+    timed("finetune_modes", finetune_modes, kernels, data)
+    say("phase_seconds", card=smi, **seconds,
+        total_s=round(time.perf_counter() - t_start, 1))
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -10,11 +10,11 @@ the port's `ModelConfig` (torch dtypes), `ParallelConfig` and
 A flag that selects a part of the system the port does not run yet
 raises ValueError naming its slice of ROADMAP.md, never silently
 ignored: tensor, pipeline, context and data parallelism and the
-distributed optimizer (A4), fp16 with its loss scaler (A3.5), dropout
-(A3.6), remat policies other than none and full and block recompute
-(A3.7), the telemetry flags (A3.8), and the BERT and T5 families and
-post-LN layers (A6). GPT, Llama, CodeLlama and Falcon (with its parallel
-attention and parallel layernorm) build.
+distributed optimizer (A4), the telemetry flags (A3.8), and the BERT and
+T5 families and post-LN layers (A6). GPT, Llama, CodeLlama and Falcon
+(with its parallel attention and parallel layernorm) build, with every
+single-card training mode: the recompute policies and block recompute,
+fp16 with its loss scaler, and hidden, attention and LIMA dropout.
 """
 
 from __future__ import annotations
@@ -24,6 +24,8 @@ import dataclasses
 import sys
 from dataclasses import dataclass
 from typing import List, Optional
+
+import torch
 
 from megatron_llm_tpu_torch.config import (
     ParallelConfig,
@@ -115,7 +117,8 @@ SUBSUMED_FLAGS = {
     "--num_workers":
         "the loader reads mmap views on the host; no worker pool",
     "--no_save_rng":
-        "no RNG state is saved: the port trains without dropout",
+        "no generator state is saved: dropout masks derive from seed + 1 "
+        "and the iteration",
     "--log_batch_size_to_tensorboard":
         "batch size is logged with every training log line",
 }
@@ -197,8 +200,6 @@ ENTRY_SCRIPT_FLAGS = {
                                "tools/build_retrieval_index.py"),
 }
 
-_A3_5 = "the fp16 dynamic loss scaler (ROADMAP.md A3.5)"
-_A3_6 = "dropout (ROADMAP.md A3.6)"
 _A3_8 = "the trainer's telemetry hooks (ROADMAP.md A3.8)"
 _A4 = "parallelism (ROADMAP.md A4)"
 _A6 = "the remaining model families (ROADMAP.md A6)"
@@ -206,10 +207,6 @@ _A6 = "the remaining model families (ROADMAP.md A6)"
 # flags of later slices (parser dest -> the slice): a value other than
 # the parser's default raises
 LATER_FLAGS = {
-    **dict.fromkeys(("fp16", "loss_scale", "initial_loss_scale",
-                     "min_loss_scale", "loss_scale_window", "hysteresis"),
-                    _A3_5),
-    "lima_dropout": _A3_6,
     **dict.fromkeys((
         "tensorboard_dir", "tensorboard_log_interval",
         "tensorboard_queue_size", "log_timers_to_tensorboard",
@@ -482,7 +479,8 @@ def args_to_configs(args, padded_vocab_size: int):
             "layernorm_epsilon", "init_method_std", "glu_activation",
             "position_embedding_type", "rope_scaling_factor", "rope_theta",
             "attention_window_size", "hidden_dropout", "attention_dropout",
-            "use_flash_attn", "recompute_granularity", "remat_policy",
+            "lima_dropout", "use_flash_attn", "recompute_granularity",
+            "remat_policy",
             "recompute_method", "recompute_num_layers", "use_bias",
             "use_rms_norm", "parallel_attn", "parallel_layernorm"):
         v = getattr(args, name)
@@ -495,6 +493,9 @@ def args_to_configs(args, padded_vocab_size: int):
         args.make_vocab_size_divisible_by
     if args.no_tie_embed_logits:
         overrides["tie_embed_logits"] = False
+    if args.fp16:
+        overrides["params_dtype"] = torch.float32
+        overrides["compute_dtype"] = torch.float16
 
     name = args.model_name
     if name in ("llama", "llama2"):
@@ -518,18 +519,6 @@ def args_to_configs(args, padded_vocab_size: int):
     if padded_vocab_size:
         mcfg = dataclasses.replace(
             mcfg, padded_vocab_size=mcfg.pad_vocab_size(padded_vocab_size))
-    if mcfg.hidden_dropout > 0 or mcfg.attention_dropout > 0:
-        raise ValueError(
-            f"hidden_dropout {mcfg.hidden_dropout}, attention_dropout "
-            f"{mcfg.attention_dropout}: dropout is not ported yet ({_A3_6}); "
-            f"pass --hidden_dropout 0 --attention_dropout 0")
-    if mcfg.resolved_remat_policy not in ("none", "full") \
-            or mcfg.recompute_method == "block":
-        raise ValueError(
-            f"remat policy {mcfg.resolved_remat_policy!r} with recompute "
-            f"method {mcfg.recompute_method!r} is not ported yet (the remat "
-            f"policies, ROADMAP.md A3.7); the port runs none and uniform "
-            f"full")
 
     gbs = args.global_batch_size or args.micro_batch_size
     pcfg = ParallelConfig(num_microbatches=gbs // args.micro_batch_size)
@@ -566,6 +555,14 @@ def args_to_configs(args, padded_vocab_size: int):
         adam_beta2=args.adam_beta2,
         adam_eps=args.adam_eps,
         sgd_momentum=args.sgd_momentum,
+        fp16=args.fp16,
+        # --bf16 --fp16 together trip the exclusivity check
+        bf16=args.bf16 or not args.fp16,
+        loss_scale=args.loss_scale,
+        initial_loss_scale=args.initial_loss_scale,
+        min_loss_scale=args.min_loss_scale,
+        loss_scale_window=args.loss_scale_window,
+        hysteresis=args.hysteresis,
         save=args.save,
         load=args.load,
         save_interval=args.save_interval,

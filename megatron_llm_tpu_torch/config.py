@@ -11,8 +11,7 @@ the presets keep the JAX package's values. Dtypes are torch dtypes.
 cache length because of TPU launch overhead) and `decode_attn_interpret`
 (it ran that kernel under the Pallas interpreter). Here the decode kernel
 runs on every CUDA single-token step and its plain version serves CPU
-tensors. Dropout rates are carried with the JAX defaults; training with a
-rate above 0 raises (the dropout slice, ROADMAP.md A3).
+tensors. Dropout rates are carried with the JAX defaults.
 """
 
 from __future__ import annotations
@@ -23,8 +22,8 @@ from typing import Optional
 
 import torch
 
-# Activation-recompute policy names (JAX config.py:39); models/remat.py
-# says which ones this port runs.
+# Activation-recompute policy names (JAX config.py:39), each defined in
+# models/remat.py.
 REMAT_POLICIES = ("full", "selective", "save_dots", "offload", "none")
 
 # the reference's --recompute_granularity surface
@@ -65,9 +64,11 @@ class ModelConfig:
 
     tie_embed_logits: bool = True
 
-    # Regularization (JAX defaults; training raises while a rate is > 0)
+    # Regularization (JAX defaults). With `lima_dropout` layer i's hidden
+    # dropout is hidden_dropout * i / (num_layers - 1) (JAX :93).
     hidden_dropout: float = 0.1
     attention_dropout: float = 0.1
+    lima_dropout: bool = False
 
     params_dtype: torch.dtype = torch.float32
     compute_dtype: torch.dtype = torch.bfloat16
@@ -390,10 +391,16 @@ class TrainConfig:
     adam_eps: float = 1e-8
     sgd_momentum: float = 0.9
 
-    # Mixed precision: bf16 compute with fp32 params and state. The fp16
-    # dynamic loss scaler raises (ROADMAP.md A3).
+    # Mixed precision: fp32 params and state; bf16 compute, or fp16
+    # compute (ModelConfig.compute_dtype) with a loss scaler: constant at
+    # `loss_scale` when it is set, else dynamic (optimizer/grad_scaler.py)
     fp16: bool = False
     bf16: bool = True
+    loss_scale: Optional[float] = None
+    initial_loss_scale: float = 2.0 ** 32
+    min_loss_scale: float = 1.0
+    loss_scale_window: int = 1000
+    hysteresis: int = 2
 
     # Checkpointing (training/checkpointing.py): `load` resumes from the
     # newest complete checkpoint there; `finetune` takes its weights only

@@ -64,8 +64,9 @@ def optimizer_state_from_jax(state, cfg, device="cuda"):
     """The port's `OptimizerState` from the JAX package's (its `step`, `m`
     and `v` as numpy arrays or trees of them, e.g. after
     `jax.tree.map(np.asarray, opt_state)`): same leaf names and layouts
-    as the params, fp32; `v` is None for SGD. The fp16 scaler state is a
-    later slice and is not carried."""
+    as the params, fp32; `v` is None for SGD. The fp16 loss scaler's
+    state comes along with its keys and dtypes ({} for a constant scale,
+    None without fp16)."""
     from megatron_llm_tpu_torch.optimizer.optimizer import OptimizerState
 
     def conv(t):
@@ -77,7 +78,12 @@ def optimizer_state_from_jax(state, cfg, device="cuda"):
 
     step = torch.tensor(int(np.asarray(state.step)), dtype=torch.int32,
                         device=device)
-    return OptimizerState(step=step, m=conv(state.m), v=conv(state.v))
+    scaler = getattr(state, "scaler", None)
+    if scaler is not None:
+        scaler = {k: torch.from_numpy(np.array(v)).to(device)
+                  for k, v in scaler.items()}
+    return OptimizerState(step=step, m=conv(state.m), v=conv(state.v),
+                          scaler=scaler)
 
 
 def checkpoint_from_jax(params_np: dict, opt_np, meta: dict,

@@ -1,6 +1,6 @@
 // Flash attention for Hopper (sm_90a): the forward (K4) and the two
-// FlashAttention-2 backward kernels (K5: dq, K6: dk and dv), bf16 on the
-// tensor cores.
+// FlashAttention-2 backward kernels (K5: dq, K6: dk and dv), bf16 or fp16
+// on the tensor cores.
 //
 // Replaces the Pallas kernels of megatron_llm_tpu/ops/flash_attention.py:
 //   K4 `_fwd_kernel` (:262, launched by `_flash_fwd_pallas` at :352),
@@ -17,13 +17,19 @@
 //
 // What each computes, per row, in the TPU kernels' exp2 domain (scores
 // pre-scaled by sm_scale * log2(e)):
-//   K4: online softmax over key tiles, m and l in fp32, p rounded to bf16
-//       before the PV product, o = acc / max(l, 1e-30) and the natural-log
-//       lse = m * ln2 + log(max(l, 1e-30));
+//   K4: online softmax over key tiles, m and l in fp32, p rounded to the
+//       element type E before the PV product, o = acc / max(l, 1e-30) and
+//       the natural-log lse = m * ln2 + log(max(l, 1e-30));
 //   K5: p = exp2(s - lse * log2e), dp = dO . V^T, ds = p * (dp - delta),
-//       dq = sm_scale * sum_j bf16(ds_ij) k_j;
-//   K6: dv = sum_i bf16(p_ij) dO_i, dk = sm_scale * sum_i bf16(ds_ij) q_i
+//       dq = sm_scale * sum_j E(ds_ij) k_j;
+//   K6: dv = sum_i E(p_ij) dO_i, dk = sm_scale * sum_i E(ds_ij) q_i
 //       over every folded row (all qpk heads of the group).
+// E is q's type, bf16 or fp16, as the Pallas kernels take q's dtype: each
+// kernel is instantiated for both, the same code with the products'
+// operand type, the rounding of P and dS and the tensor maps' data type
+// following E (csrc/hopper.cuh). In fp16 a dS or an output past 65504
+// rounds to inf, as in the reference: the loss scaler sees it and skips
+// the step; nothing clamps.
 // delta = rowsum(dO * O) (with the lse cotangent folded in) is computed by
 // the caller, as the JAX package leaves it to XLA.
 //
@@ -82,6 +88,7 @@
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <stdint.h>
 
 #include "hopper.cuh"
@@ -103,12 +110,13 @@ using hopper::mma_ss;
 using hopper::quad_max;
 using hopper::quad_sum;
 
-// Stores two adjacent fp32 values of row `row` at column `col` (even) as bf16.
-__device__ __forceinline__ void store2(bf16* dst, int row, int rows, int col,
+// Stores two adjacent fp32 values of row `row` at column `col` (even) as E.
+template <typename E>
+__device__ __forceinline__ void store2(E* dst, int row, int rows, int col,
                                        int D, float x, float y) {
   if (row < rows && col < D)
-    *reinterpret_cast<__nv_bfloat162*>(dst + (size_t)row * D + col) =
-        __floats2bfloat162_rn(x, y);
+    *reinterpret_cast<uint32_t*>(dst + (size_t)row * D + col) =
+        hopper::pack<E>(x, y);
 }
 
 // ---------------------------------------------------------------------------
@@ -127,18 +135,18 @@ struct FwdLayout {
                                  + 8 * (1 + 2 * ST);
 };
 
-template <int DP, int BN, int DC>
+template <typename E, int DP, int BN, int DC>
 __global__ void __launch_bounds__(384, 1)
 flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                  const __grid_constant__ CUtensorMap tk,
                  const __grid_constant__ CUtensorMap tv,
-                 bf16* __restrict__ o, float* __restrict__ lse, int BG,
+                 E* __restrict__ o, float* __restrict__ lse, int BG,
                  int R, int T, int D, int qpk, int causal, float scale_log2) {
   using L = FwdLayout<DP, BN, DC>;
   constexpr int BM = L::BM;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
+  E* Qs = reinterpret_cast<E*>(smem);
   unsigned char* ring = smem + L::Q_BYTES;
   uint64_t* q_bar = reinterpret_cast<uint64_t*>(ring + ST * L::STAGE_BYTES);
   uint64_t* full = q_bar + 1;
@@ -173,8 +181,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
       for (int i = 0; i < ntiles; ++i) {
         const int s = i % ST, n = i / ST;
         if (n > 0) hopper::mbar_wait(&empty[s], (n - 1) & 1);
-        bf16* Ks = reinterpret_cast<bf16*>(ring + s * L::STAGE_BYTES);
-        bf16* Vs = Ks + BN * DP;
+        E* Ks = reinterpret_cast<E*>(ring + s * L::STAGE_BYTES);
+        E* Vs = Ks + BN * DP;
         hopper::mbar_expect_tx(&full[s], L::STAGE_BYTES);
         for (int p = 0; p < DP / 64; ++p)
           hopper::tma_load_3d(Ks + p * BN * 64, &tk, &full[s], 64 * p,
@@ -199,7 +207,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
                          : ntiles;
     // keys below `clean` are visible to every row of this warp
     const int clean = causal ? min(T, (w0 + warp * 16) / qpk + 1) : T;
-    const bf16* Qw = Qs + cw * 64 * 64;
+    const E* Qw = Qs + cw * 64 * 64;
 
     float m_a = NEG_INF, m_b = NEG_INF, l_a = 0.f, l_b = 0.f;
     float acc[DC / 2];
@@ -211,8 +219,8 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
       const int s = i % ST;
       hopper::mbar_wait(&full[s], (i / ST) & 1);
       if (i < wtiles) {
-        const bf16* Ks = reinterpret_cast<const bf16*>(ring + s * L::STAGE_BYTES);
-        const bf16* Vs = Ks + BN * DP;
+        const E* Ks = reinterpret_cast<const E*>(ring + s * L::STAGE_BYTES);
+        const E* Vs = Ks + BN * DP;
         // S = Q K^T
         float sc[BN / 2];
 #pragma unroll
@@ -220,7 +228,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
         hopper::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < DP / 16; ++kk)
-          mma_ss<BN>(sc, k_slice(Qw, BM, kk), k_slice(Ks, BN, kk));
+          mma_ss<BN, E>(sc, k_slice(Qw, BM, kk), k_slice(Ks, BN, kk));
         hopper::wgmma_commit();
         hopper::wgmma_wait<0>();
         hopper::fence_regs<BN / 2>(sc);
@@ -277,7 +285,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
         uint32_t pf[BN / 16][4];
 #pragma unroll
         for (int kk = 0; kk < BN / 16; ++kk)
-          c_to_a(pf[kk], sc + 8 * kk, sc + 8 * kk + 4);
+          c_to_a<E>(pf[kk], sc + 8 * kk, sc + 8 * kk + 4);
         hopper::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BN / 16; ++kk)
@@ -290,7 +298,7 @@ flash_fwd_kernel(const __grid_constant__ CUtensorMap tq,
     }
 
     const float la = fmaxf(l_a, 1e-30f), lb = fmaxf(l_b, 1e-30f);
-    bf16* ob = o + (size_t)bg * R * D;
+    E* ob = o + (size_t)bg * R * D;
 #pragma unroll
     for (int i = 0; i < DC / 8; ++i) {
       const int col = c0 + i * 8 + 2 * tg;
@@ -321,7 +329,7 @@ struct DqLayout {
                                  + VEC_BYTES + 8 * (1 + 2 * ST);
 };
 
-template <int DP, int NWG, int DC>
+template <typename E, int DP, int NWG, int DC>
 __global__ void __launch_bounds__(128 * (NWG + 1), 1)
 flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tk,
@@ -329,14 +337,14 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
                     const __grid_constant__ CUtensorMap tdo,
                     const __grid_constant__ CUtensorMap tlse,
                     const __grid_constant__ CUtensorMap tdelta,
-                    bf16* __restrict__ dq, int BG, int R, int T, int D,
+                    E* __restrict__ dq, int BG, int R, int T, int D,
                     int qpk, int causal, float scale_log2, float sm_scale) {
   using L = DqLayout<DP, NWG, DC>;
   constexpr int BM = L::BM, BN = L::BN;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
-  bf16* Qs = reinterpret_cast<bf16*>(smem);
-  bf16* dOs = Qs + BM * DP;
+  E* Qs = reinterpret_cast<E*>(smem);
+  E* dOs = Qs + BM * DP;
   unsigned char* ring = smem + 2 * L::ROW_BYTES;
   float* vec = reinterpret_cast<float*>(ring + ST * L::STAGE_BYTES);
   uint64_t* q_bar = reinterpret_cast<uint64_t*>(vec + 2 * BM);
@@ -375,8 +383,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
       for (int i = 0; i < ntiles; ++i) {
         const int s = i % ST, n = i / ST;
         if (n > 0) hopper::mbar_wait(&empty[s], (n - 1) & 1);
-        bf16* Ks = reinterpret_cast<bf16*>(ring + s * L::STAGE_BYTES);
-        bf16* Vs = Ks + BN * DP;
+        E* Ks = reinterpret_cast<E*>(ring + s * L::STAGE_BYTES);
+        E* Vs = Ks + BN * DP;
         hopper::mbar_expect_tx(&full[s], L::STAGE_BYTES);
         for (int p = 0; p < DP / 64; ++p) {
           hopper::tma_load_3d(Ks + p * BN * 64, &tk, &full[s], 64 * p,
@@ -401,8 +409,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
                          : ntiles;
     // keys below `clean` are visible to every row of this warp
     const int clean = causal ? min(T, (w0 + warp * 16) / qpk + 1) : T;
-    const bf16* Qw = Qs + cw * 64 * 64;
-    const bf16* dOw = dOs + cw * 64 * 64;
+    const E* Qw = Qs + cw * 64 * 64;
+    const E* dOw = dOs + cw * 64 * 64;
 
     float acc[DC / 2];
 #pragma unroll
@@ -416,8 +424,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
       const int s = i % ST;
       hopper::mbar_wait(&full[s], (i / ST) & 1);
       if (i < wtiles) {
-        const bf16* Ks = reinterpret_cast<const bf16*>(ring + s * L::STAGE_BYTES);
-        const bf16* Vs = Ks + BN * DP;
+        const E* Ks = reinterpret_cast<const E*>(ring + s * L::STAGE_BYTES);
+        const E* Vs = Ks + BN * DP;
         // S = Q K^T and dP = dO V^T, 64 rows x 64 keys, in two groups: P is
         // computed while dP's product runs
         float sc[32], dp[32];
@@ -426,11 +434,11 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
         hopper::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < DP / 16; ++kk)
-          mma_ss<64>(sc, k_slice(Qw, BM, kk), k_slice(Ks, BN, kk));
+          mma_ss<64, E>(sc, k_slice(Qw, BM, kk), k_slice(Ks, BN, kk));
         hopper::wgmma_commit();
 #pragma unroll
         for (int kk = 0; kk < DP / 16; ++kk)
-          mma_ss<64>(dp, k_slice(dOw, BM, kk), k_slice(Vs, BN, kk));
+          mma_ss<64, E>(dp, k_slice(dOw, BM, kk), k_slice(Vs, BN, kk));
         hopper::wgmma_commit();
         hopper::wgmma_wait<1>();
         hopper::fence_regs<32>(sc);
@@ -475,8 +483,8 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
         uint32_t as[4][4];
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          c_to_a(as[kk], dp + 8 * kk, dp + 8 * kk + 4);
-        const bf16* Kc = Ks + (c0 / 64) * BN * 64;  // this block's columns
+          c_to_a<E>(as[kk], dp + 8 * kk, dp + 8 * kk + 4);
+        const E* Kc = Ks + (c0 / 64) * BN * 64;  // this block's columns
         hopper::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
@@ -488,7 +496,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
       hopper::mbar_arrive(&empty[s]);
     }
 
-    bf16* dqb = dq + (size_t)bg * R * D;
+    E* dqb = dq + (size_t)bg * R * D;
 #pragma unroll
     for (int i = 0; i < DC / 8; ++i) {
       const int col = c0 + i * 8 + 2 * tg;
@@ -517,7 +525,7 @@ struct DkvLayout {
                                  + ST * VEC_BYTES + 8 * (1 + 2 * ST);
 };
 
-template <int DP, int NWG, int DC>
+template <typename E, int DP, int NWG, int DC>
 __global__ void __launch_bounds__(128 * (NWG + 1), 1)
 flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tk,
@@ -525,15 +533,15 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
                      const __grid_constant__ CUtensorMap tdo,
                      const __grid_constant__ CUtensorMap tlse,
                      const __grid_constant__ CUtensorMap tdelta,
-                     bf16* __restrict__ dk, bf16* __restrict__ dv, int BG,
+                     E* __restrict__ dk, E* __restrict__ dv, int BG,
                      int R, int T, int D, int qpk, int causal,
                      float scale_log2, float sm_scale) {
   using L = DkvLayout<DP, NWG, DC>;
   constexpr int BN = L::BN, BM = L::BM;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
-  bf16* Ks = reinterpret_cast<bf16*>(smem);
-  bf16* Vs = Ks + BN * DP;
+  E* Ks = reinterpret_cast<E*>(smem);
+  E* Vs = Ks + BN * DP;
   unsigned char* ring = smem + 2 * L::KV_BYTES;
   float* vecs = reinterpret_cast<float*>(ring + ST * L::STAGE_BYTES);
   uint64_t* kv_bar = reinterpret_cast<uint64_t*>(vecs + ST * 2 * BM);
@@ -569,8 +577,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
       for (int i = 0; i < ntiles; ++i) {
         const int s = i % ST, n = i / ST, r0 = rstart + i * BM;
         if (n > 0) hopper::mbar_wait(&empty[s], (n - 1) & 1);
-        bf16* Qs = reinterpret_cast<bf16*>(ring + s * L::STAGE_BYTES);
-        bf16* dOs = Qs + BM * DP;
+        E* Qs = reinterpret_cast<E*>(ring + s * L::STAGE_BYTES);
+        E* dOs = Qs + BM * DP;
         float* vec = vecs + s * 2 * BM;
         hopper::mbar_expect_tx(&full[s], L::STAGE_BYTES + L::VEC_BYTES);
         for (int p = 0; p < DP / 64; ++p) {
@@ -589,8 +597,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
     const int kw0 = n0 + cw * 64;  // this warpgroup's first key
     const int ka = kw0 + warp * 16 + g, kb = ka + 8;
     const int kwarp_last = kw0 + warp * 16 + 15;
-    const bf16* Kw = Ks + cw * 64 * 64;
-    const bf16* Vw = Vs + cw * 64 * 64;
+    const E* Kw = Ks + cw * 64 * 64;
+    const E* Vw = Vs + cw * 64 * 64;
 
     float dka[DC / 2], dva[DC / 2];
 #pragma unroll
@@ -604,8 +612,8 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
       const bool live = kw0 < T
           && (!causal || kw0 <= min(r0 + BM - 1, R - 1) / qpk);
       if (live) {
-        const bf16* Qs = reinterpret_cast<const bf16*>(ring + s * L::STAGE_BYTES);
-        const bf16* dOs = Qs + BM * DP;
+        const E* Qs = reinterpret_cast<const E*>(ring + s * L::STAGE_BYTES);
+        const E* dOs = Qs + BM * DP;
         const float* lse_s = vecs + s * 2 * BM;
         const float* dl_s = lse_s + BM;
         // S^T = K Q^T and dP^T = V dO^T, 64 keys x 64 rows, in two groups,
@@ -617,11 +625,11 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
         hopper::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < DP / 16; ++kk)
-          mma_ss<64>(st, k_slice(Kw, BN, kk), k_slice(Qs, BM, kk));
+          mma_ss<64, E>(st, k_slice(Kw, BN, kk), k_slice(Qs, BM, kk));
         hopper::wgmma_commit();
 #pragma unroll
         for (int kk = 0; kk < DP / 16; ++kk)
-          mma_ss<64>(dpt, k_slice(Vw, BN, kk), k_slice(dOs, BM, kk));
+          mma_ss<64, E>(dpt, k_slice(Vw, BN, kk), k_slice(dOs, BM, kk));
         hopper::wgmma_commit();
         // P^T and dS^T are masked only where the tile straddles this
         // warp's diagonal or the ragged end of R
@@ -641,12 +649,12 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
                 ? exp2f(st[4 * j + e] * scale_log2 - lse_s[ci] * LOG2E) : 0.f;
           }
         }
-        const bf16* dOc = dOs + (c0 / 64) * BM * 64;
-        const bf16* Qc = Qs + (c0 / 64) * BM * 64;
+        const E* dOc = dOs + (c0 / 64) * BM * 64;
+        const E* Qc = Qs + (c0 / 64) * BM * 64;
         uint32_t ap[4][4], as[4][4];
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          c_to_a(ap[kk], st + 8 * kk, st + 8 * kk + 4);
+          c_to_a<E>(ap[kk], st + 8 * kk, st + 8 * kk + 4);
         hopper::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
@@ -664,7 +672,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
         }
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
-          c_to_a(as[kk], dpt + 8 * kk, dpt + 8 * kk + 4);
+          c_to_a<E>(as[kk], dpt + 8 * kk, dpt + 8 * kk + 4);
         hopper::wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < 4; ++kk)
@@ -714,46 +722,46 @@ using DqL = DqLayout<DP, DP == 256 ? 1 : 2, chunk_cols<DP>()>;
 template <int DP>
 using DkvL = DkvLayout<DP, DP == 256 ? 1 : 2, chunk_cols<DP>()>;
 
-template <int DP>
+template <typename E, int DP>
 int launch_fwd(const void* q, const void* k, const void* v, void* o,
                void* lse, int BG, int R, int T, int D, int qpk, int causal,
                float sm_scale, cudaStream_t s) {
   using L = FwdL<DP>;
   constexpr int BN = L::BN, DC = L::DC;
-  auto kern = flash_fwd_kernel<DP, BN, DC>;
+  auto kern = flash_fwd_kernel<E, DP, BN, DC>;
   // once per instantiation: never inside a CUDA-graph capture after the
   // first (warm-up) launch
   static const int err = set_smem(kern, L::SMEM);
   if (err) return err;
   CUtensorMap tq, tk, tv;
-  int e = hopper::map_bf16_3d(&tq, q, D, R, BG, L::BM);
-  if (!e) e = hopper::map_bf16_3d(&tk, k, D, T, BG, BN);
-  if (!e) e = hopper::map_bf16_3d(&tv, v, D, T, BG, BN);
+  int e = hopper::map_3d<E>(&tq, q, D, R, BG, L::BM);
+  if (!e) e = hopper::map_3d<E>(&tk, k, D, T, BG, BN);
+  if (!e) e = hopper::map_3d<E>(&tv, v, D, T, BG, BN);
   if (e) return e;
   dim3 grid((R + L::BM - 1) / L::BM * BG, DP / DC);
-  kern<<<grid, 384, L::SMEM, s>>>(tq, tk, tv, static_cast<bf16*>(o),
+  kern<<<grid, 384, L::SMEM, s>>>(tq, tk, tv, static_cast<E*>(o),
                                   static_cast<float*>(lse), BG, R, T, D, qpk,
                                   causal, sm_scale * LOG2E);
   return (int)cudaGetLastError();
 }
 
-template <int DP>
+template <typename E, int DP>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout,
               const void* lse, const void* delta, void* dq, int BG, int R,
               int T, int D, int qpk, int causal, float sm_scale,
               cudaStream_t s) {
   using L = DqL<DP>;
   constexpr int NWG = L::NWG, DC = L::DC;
-  auto kern = flash_bwd_dq_kernel<DP, NWG, DC>;
+  auto kern = flash_bwd_dq_kernel<E, DP, NWG, DC>;
   // once per instantiation: never inside a CUDA-graph capture after the
   // first (warm-up) launch
   static const int err = set_smem(kern, L::SMEM);
   if (err) return err;
   CUtensorMap tq, tk, tv, tdo, tlse, tdelta;
-  int e = hopper::map_bf16_3d(&tq, q, D, R, BG, L::BM);
-  if (!e) e = hopper::map_bf16_3d(&tdo, dout, D, R, BG, L::BM);
-  if (!e) e = hopper::map_bf16_3d(&tk, k, D, T, BG, L::BN);
-  if (!e) e = hopper::map_bf16_3d(&tv, v, D, T, BG, L::BN);
+  int e = hopper::map_3d<E>(&tq, q, D, R, BG, L::BM);
+  if (!e) e = hopper::map_3d<E>(&tdo, dout, D, R, BG, L::BM);
+  if (!e) e = hopper::map_3d<E>(&tk, k, D, T, BG, L::BN);
+  if (!e) e = hopper::map_3d<E>(&tv, v, D, T, BG, L::BN);
   // lse and delta rows padded to a multiple of 4 values by the wrapper
   const int ld = (R + 3) / 4 * 4;
   if (!e) e = hopper::map_f32_rows(&tlse, lse, R, BG, ld, L::BM);
@@ -761,28 +769,28 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout,
   if (e) return e;
   dim3 grid((R + L::BM - 1) / L::BM * BG, DP / DC);
   kern<<<grid, 128 * (NWG + 1), L::SMEM, s>>>(
-      tq, tk, tv, tdo, tlse, tdelta, static_cast<bf16*>(dq), BG, R, T, D,
+      tq, tk, tv, tdo, tlse, tdelta, static_cast<E*>(dq), BG, R, T, D,
       qpk, causal, sm_scale * LOG2E, sm_scale);
   return (int)cudaGetLastError();
 }
 
-template <int DP>
+template <typename E, int DP>
 int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                const void* lse, const void* delta, void* dk, void* dv, int BG,
                int R, int T, int D, int qpk, int causal, float sm_scale,
                cudaStream_t s) {
   using L = DkvL<DP>;
   constexpr int NWG = L::NWG, DC = L::DC;
-  auto kern = flash_bwd_dkv_kernel<DP, NWG, DC>;
+  auto kern = flash_bwd_dkv_kernel<E, DP, NWG, DC>;
   // once per instantiation: never inside a CUDA-graph capture after the
   // first (warm-up) launch
   static const int err = set_smem(kern, L::SMEM);
   if (err) return err;
   CUtensorMap tq, tk, tv, tdo, tlse, tdelta;
-  int e = hopper::map_bf16_3d(&tq, q, D, R, BG, L::BM);
-  if (!e) e = hopper::map_bf16_3d(&tdo, dout, D, R, BG, L::BM);
-  if (!e) e = hopper::map_bf16_3d(&tk, k, D, T, BG, L::BN);
-  if (!e) e = hopper::map_bf16_3d(&tv, v, D, T, BG, L::BN);
+  int e = hopper::map_3d<E>(&tq, q, D, R, BG, L::BM);
+  if (!e) e = hopper::map_3d<E>(&tdo, dout, D, R, BG, L::BM);
+  if (!e) e = hopper::map_3d<E>(&tk, k, D, T, BG, L::BN);
+  if (!e) e = hopper::map_3d<E>(&tv, v, D, T, BG, L::BN);
   // lse and delta rows of each group start on 16-byte boundaries: the
   // wrapper pads them to a multiple of 4 values
   const int ld = (R + 3) / 4 * 4;
@@ -791,27 +799,36 @@ int launch_dkv(const void* q, const void* k, const void* v, const void* dout,
   if (e) return e;
   dim3 grid((T + L::BN - 1) / L::BN * BG, DP / DC);
   kern<<<grid, 128 * (NWG + 1), L::SMEM, s>>>(
-      tq, tk, tv, tdo, tlse, tdelta, static_cast<bf16*>(dk),
-      static_cast<bf16*>(dv), BG, R, T, D, qpk, causal, sm_scale * LOG2E,
+      tq, tk, tv, tdo, tlse, tdelta, static_cast<E*>(dk),
+      static_cast<E*>(dv), BG, R, T, D, qpk, causal, sm_scale * LOG2E,
       sm_scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// q, o, dout, dq: (BG, R, D) bf16; k, v, dk, dv: (BG, T, D) bf16; lse,
-// delta: (BG, R) fp32 (for K5 and K6 each group's row padded to a multiple
-// of 4 values); all contiguous and 16-byte aligned. R = s * qpk.
-// The wrapper checks 8 <= D <= 256, D % 8 == 0, qpk >= 1. Each returns the
-// cudaError_t of its launch (or of building its tensor maps).
+// q, o, dout, dq: (BG, R, D); k, v, dk, dv: (BG, T, D); all bf16, or all
+// fp16 where `fp16` is 1; lse, delta: (BG, R) fp32 (for K5 and K6 each
+// group's row padded to a multiple of 4 values); all contiguous and
+// 16-byte aligned. R = s * qpk. The wrapper checks 8 <= D <= 256,
+// D % 8 == 0, qpk >= 1. Each returns the cudaError_t of its launch (or of
+// building its tensor maps).
 
 // d padded to a tile width of 64, 128 or 256
-#define HOPPER_DISPATCH(FN, ...)                         \
-  if (D <= 64) return FN<64>(__VA_ARGS__);               \
-  if (D <= 128) return FN<128>(__VA_ARGS__);             \
-  return FN<256>(__VA_ARGS__);
+#define HOPPER_DISPATCH(FN, E, ...)                      \
+  if (D <= 64) return FN<E, 64>(__VA_ARGS__);            \
+  if (D <= 128) return FN<E, 128>(__VA_ARGS__);          \
+  return FN<E, 256>(__VA_ARGS__);
 
-template <int DP>
+// the instantiation for q's type
+#define FLASH_DISPATCH(FN, ...)                          \
+  if (fp16) {                                            \
+    HOPPER_DISPATCH(FN, __half, __VA_ARGS__)             \
+  }                                                      \
+  HOPPER_DISPATCH(FN, bf16, __VA_ARGS__)
+
+// (the layouts take the same bytes for either type)
+template <typename E, int DP>
 int smem_of(int kernel) {
   if (kernel == 0) return (int)FwdL<DP>::SMEM;
   if (kernel == 1) return (int)DkvL<DP>::SMEM;
@@ -821,27 +838,27 @@ int smem_of(int kernel) {
 // The dynamic shared memory of K4 (kernel 0), K6 (kernel 1) or K5 (kernel
 // 2) at head size D, for the build report.
 extern "C" int flash_attention_smem(int kernel, int D) {
-  HOPPER_DISPATCH(smem_of, kernel)
+  HOPPER_DISPATCH(smem_of, bf16, kernel)
 }
 
 extern "C" int flash_attention_fwd(const void* q, const void* k,
                                    const void* v, void* o, void* lse, int BG,
                                    int R, int T, int D, int qpk, int causal,
-                                   float sm_scale, void* stream) {
+                                   int fp16, float sm_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  HOPPER_DISPATCH(launch_fwd, q, k, v, o, lse, BG, R, T, D, qpk, causal,
-                  sm_scale, s)
+  FLASH_DISPATCH(launch_fwd, q, k, v, o, lse, BG, R, T, D, qpk, causal,
+                 sm_scale, s)
 }
 
 extern "C" int flash_attention_bwd_dq(const void* q, const void* k,
                                       const void* v, const void* dout,
                                       const void* lse, const void* delta,
                                       void* dq, int BG, int R, int T, int D,
-                                      int qpk, int causal, float sm_scale,
-                                      void* stream) {
+                                      int qpk, int causal, int fp16,
+                                      float sm_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  HOPPER_DISPATCH(launch_dq, q, k, v, dout, lse, delta, dq, BG, R, T, D, qpk,
-                  causal, sm_scale, s)
+  FLASH_DISPATCH(launch_dq, q, k, v, dout, lse, delta, dq, BG, R, T, D, qpk,
+                 causal, sm_scale, s)
 }
 
 extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
@@ -849,8 +866,9 @@ extern "C" int flash_attention_bwd_dkv(const void* q, const void* k,
                                        const void* lse, const void* delta,
                                        void* dk, void* dv, int BG, int R,
                                        int T, int D, int qpk, int causal,
-                                       float sm_scale, void* stream) {
+                                       int fp16, float sm_scale,
+                                       void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  HOPPER_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, dk, dv, BG, R, T, D,
-                  qpk, causal, sm_scale, s)
+  FLASH_DISPATCH(launch_dkv, q, k, v, dout, lse, delta, dk, dv, BG, R, T, D,
+                 qpk, causal, sm_scale, s)
 }

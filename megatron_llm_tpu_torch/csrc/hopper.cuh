@@ -1,5 +1,5 @@
 // Hopper (sm_90a) building blocks as inline PTX: shared-memory mbarriers,
-// TMA tile loads (cp.async.bulk.tensor; bf16 tiles swizzled, int8 rows
+// TMA tile loads (cp.async.bulk.tensor; 16-bit tiles swizzled, int8 rows
 // plain), wgmma shared-memory descriptors
 // for 128-byte-swizzled tiles, the wgmma products the flash and paged
 // attention kernels issue, the proxy fence and named barrier that hand
@@ -7,8 +7,12 @@
 // cuTensorMapEncodeTiled, looked up once through the runtime's driver
 // entry point so the library links without -lcuda.
 //
+// The 16-bit helpers take the element type E, bf16 (`__nv_bfloat16`, the
+// default) or fp16 (`__half`): the products' PTX type, the rounding of a
+// register fragment and the tensor map's data type follow it.
+//
 // A tile that TMA loads with CU_TENSOR_MAP_SWIZZLE_128B is stored in
-// "panels" of 64 bf16 columns (128 bytes a row), each panel a run of rows
+// "panels" of 64 16-bit columns (128 bytes a row), each panel a run of rows
 // of 128 bytes, 16-byte chunks XOR-swizzled by the row's index mod 8, so 8
 // rows (1024 bytes) form one swizzle atom. Every panel starts on a
 // 1024-byte boundary, which wgmma's descriptors (base offset 0) assume.
@@ -17,8 +21,11 @@
 
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace hopper {
 
@@ -167,107 +174,127 @@ __device__ __forceinline__ void fence_regs(float* d) {
 // fragment of each warp's 16 rows.
 
 // D (64 x 64, fp32) += A (64 x 16, shared, K-major) B^T (64 x 16, shared, K-major)
+#define HOPPER_WGMMA_SS_N64(TY) \
+  asm volatile( \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n" \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
+  "%0, %1, %2, %3, %4, %5, %6, %7," \
+  "%8, %9, %10, %11, %12, %13, %14, %15," \
+  "%16, %17, %18, %19, %20, %21, %22, %23," \
+  "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n" \
+  : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+  "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+  "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+  "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+  : "l"(da), "l"(db), "r"(1))
+
+template <typename E = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss_n64(float* d, uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31}, %32, %33, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "l"(da), "l"(db), "r"(1));
+  if constexpr (std::is_same<E, __half>::value) HOPPER_WGMMA_SS_N64("f16");
+  else HOPPER_WGMMA_SS_N64("bf16");
 }
 
 // D (64 x 128, fp32) += A (64 x 16, shared, K-major) B^T (128 x 16, shared, K-major)
+#define HOPPER_WGMMA_SS_N128(TY) \
+  asm volatile( \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n" \
+  "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {" \
+  "%0, %1, %2, %3, %4, %5, %6, %7," \
+  "%8, %9, %10, %11, %12, %13, %14, %15," \
+  "%16, %17, %18, %19, %20, %21, %22, %23," \
+  "%24, %25, %26, %27, %28, %29, %30, %31," \
+  "%32, %33, %34, %35, %36, %37, %38, %39," \
+  "%40, %41, %42, %43, %44, %45, %46, %47," \
+  "%48, %49, %50, %51, %52, %53, %54, %55," \
+  "%56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n" \
+  : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+  "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+  "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+  "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+  "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+  "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+  "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
+  "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+  "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
+  "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+  "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+  "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
+  : "l"(da), "l"(db), "r"(1))
+
+template <typename E = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_ss_n128(float* d, uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63}, %64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(1));
+  if constexpr (std::is_same<E, __half>::value) HOPPER_WGMMA_SS_N128("f16");
+  else HOPPER_WGMMA_SS_N128("bf16");
 }
 
-// D (64 x 64, fp32) += A (64 x 16, bf16 registers) B (16 x 64, shared, MN-major)
+// D (64 x 64, fp32) += A (64 x 16, 16-bit registers) B (16 x 64, shared, MN-major)
+#define HOPPER_WGMMA_RS_N64(TY) \
+  asm volatile( \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n" \
+  "wgmma.mma_async.sync.aligned.m64n64k16.f32." TY "." TY " {" \
+  "%0, %1, %2, %3, %4, %5, %6, %7," \
+  "%8, %9, %10, %11, %12, %13, %14, %15," \
+  "%16, %17, %18, %19, %20, %21, %22, %23," \
+  "%24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n" \
+  : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+  "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+  "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+  "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]) \
+  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
+template <typename E = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs_n64(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (std::is_same<E, __half>::value) HOPPER_WGMMA_RS_N64("f16");
+  else HOPPER_WGMMA_RS_N64("bf16");
 }
 
-// D (64 x 128, fp32) += A (64 x 16, bf16 registers) B (16 x 128, shared, MN-major)
+// D (64 x 128, fp32) += A (64 x 16, 16-bit registers) B (16 x 128, shared, MN-major)
+#define HOPPER_WGMMA_RS_N128(TY) \
+  asm volatile( \
+  "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n" \
+  "wgmma.mma_async.sync.aligned.m64n128k16.f32." TY "." TY " {" \
+  "%0, %1, %2, %3, %4, %5, %6, %7," \
+  "%8, %9, %10, %11, %12, %13, %14, %15," \
+  "%16, %17, %18, %19, %20, %21, %22, %23," \
+  "%24, %25, %26, %27, %28, %29, %30, %31," \
+  "%32, %33, %34, %35, %36, %37, %38, %39," \
+  "%40, %41, %42, %43, %44, %45, %46, %47," \
+  "%48, %49, %50, %51, %52, %53, %54, %55," \
+  "%56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n" \
+  : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), \
+  "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), \
+  "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), \
+  "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), \
+  "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+  "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), \
+  "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), \
+  "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]), \
+  "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), \
+  "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+  "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), \
+  "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), \
+  "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), \
+  "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]), \
+  "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+  "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]) \
+  : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1))
+
+template <typename E = __nv_bfloat16>
 __device__ __forceinline__ void wgmma_rs_n128(float* d, const uint32_t* a, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+  if constexpr (std::is_same<E, __half>::value) HOPPER_WGMMA_RS_N128("f16");
+  else HOPPER_WGMMA_RS_N128("bf16");
 }
 
 // --- operands and fragments of the attention kernels -------------------------
@@ -278,19 +305,28 @@ __device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
   return p + ((1024u - (smem_u32(p) & 1023u)) & 1023u);
 }
 
+// Two fp32 values rounded to E (to nearest even) in one 32-bit register,
+// `lo` in the low half.
+template <typename E = __nv_bfloat16>
 __device__ __forceinline__ uint32_t pack(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
+  if constexpr (std::is_same<E, __half>::value) {
+    __half2 v = __floats2half2_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  } else {
+    __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+    return *reinterpret_cast<uint32_t*>(&v);
+  }
 }
 
-// The C fragments of two adjacent 8-wide tiles, rounded to bf16, as the A
+// The C fragments of two adjacent 8-wide tiles, rounded to E, as the A
 // operand of the next product (16 rows x 16 deep).
+template <typename E = __nv_bfloat16>
 __device__ __forceinline__ void c_to_a(uint32_t* a, const float* c0,
                                        const float* c1) {
-  a[0] = pack(c0[0], c0[1]);
-  a[1] = pack(c0[2], c0[3]);
-  a[2] = pack(c1[0], c1[1]);
-  a[3] = pack(c1[2], c1[3]);
+  a[0] = pack<E>(c0[0], c0[1]);
+  a[1] = pack<E>(c0[2], c0[3]);
+  a[2] = pack<E>(c1[0], c1[1]);
+  a[3] = pack<E>(c1[2], c1[3]);
 }
 
 // Max and sum over the 4 lanes that hold one accumulator row.
@@ -306,27 +342,27 @@ __device__ __forceinline__ float quad_sum(float x) {
 
 // The 16-deep slice kk of a K-major operand whose rows start at `rows`
 // inside panels of `panel_rows` rows (64 columns each).
-__device__ __forceinline__ uint64_t k_slice(const __nv_bfloat16* rows,
-                                            int panel_rows, int kk) {
+template <typename E>
+__device__ __forceinline__ uint64_t k_slice(const E* rows, int panel_rows,
+                                            int kk) {
   return desc_k_major(rows + (kk >> 2) * panel_rows * 64 + (kk & 3) * 16);
 }
 
-// D (64 x N) += A B^T, both from shared memory, K-major.
-template <int N>
+// D (64 x N) += A B^T, both from shared memory, K-major, of type E.
+template <int N, typename E = __nv_bfloat16>
 __device__ __forceinline__ void mma_ss(float* d, uint64_t da, uint64_t db) {
-  if constexpr (N == 64) wgmma_ss_n64(d, da, db);
-  else wgmma_ss_n128(d, da, db);
+  if constexpr (N == 64) wgmma_ss_n64<E>(d, da, db);
+  else wgmma_ss_n128<E>(d, da, db);
 }
 
 // D (64 x N) += A (registers) B (shared memory, MN-major, panels of 64
 // columns `panel_bytes` apart).
-template <int N>
+template <int N, typename E>
 __device__ __forceinline__ void mma_rs(float* d, const uint32_t* a,
-                                       const __nv_bfloat16* b,
-                                       uint32_t panel_bytes) {
+                                       const E* b, uint32_t panel_bytes) {
   const uint64_t db = desc_mn_major(b, panel_bytes);
-  if constexpr (N == 64) wgmma_rs_n64(d, a, db);
-  else wgmma_rs_n128(d, a, db);
+  if constexpr (N == 64) wgmma_rs_n64<E>(d, a, db);
+  else wgmma_rs_n128<E>(d, a, db);
 }
 
 // --- host: tensor maps ------------------------------------------------------
@@ -353,23 +389,40 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A (n2, n1, n0) bf16 row-major tensor (n0 innermost, a multiple of 8) read
-// in boxes of 64 x `box1` x `box2` elements (box2 <= 256), 128-byte
-// swizzled, zero past every edge. A box lands as box1 * box2 rows of 128
-// bytes in the order (n2 outer, n1 inner).
-inline int map_bf16_3d(CUtensorMap* m, const void* ptr, int n0, int n1, int n2,
-                       int box1, int box2 = 1) {
+// A (n2, n1, n0) row-major tensor of 16-bit elements of type `type` (n0
+// innermost, a multiple of 8) read in boxes of 64 x `box1` x `box2`
+// elements (box2 <= 256), 128-byte swizzled, zero past every edge. A box
+// lands as box1 * box2 rows of 128 bytes in the order (n2 outer, n1
+// inner).
+inline int map_16bit_3d(CUtensorMap* m, CUtensorMapDataType type,
+                        const void* ptr, int n0, int n1, int n2, int box1,
+                        int box2 = 1) {
   const EncodeTiledFn enc = encode_tiled();
   if (!enc) return (int)cudaErrorNotSupported;
   const cuuint64_t dims[3] = {(cuuint64_t)n0, (cuuint64_t)n1, (cuuint64_t)n2};
   const cuuint64_t strides[2] = {(cuuint64_t)n0 * 2, (cuuint64_t)n0 * n1 * 2};
   const cuuint32_t box[3] = {64, (cuuint32_t)box1, (cuuint32_t)box2};
   const cuuint32_t step[3] = {1, 1, 1};
-  return enc(m, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(ptr),
-             dims, strides, box, step, CU_TENSOR_MAP_INTERLEAVE_NONE,
-             CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  return enc(m, type, 3, const_cast<void*>(ptr), dims, strides, box, step,
+             CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS
              ? 0 : (int)cudaErrorInvalidValue;
+}
+
+// map_16bit_3d for E = bf16 or fp16.
+template <typename E = __nv_bfloat16>
+inline int map_3d(CUtensorMap* m, const void* ptr, int n0, int n1, int n2,
+                  int box1, int box2 = 1) {
+  return map_16bit_3d(m, std::is_same<E, __half>::value
+                             ? CU_TENSOR_MAP_DATA_TYPE_FLOAT16
+                             : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
+                      ptr, n0, n1, n2, box1, box2);
+}
+
+inline int map_bf16_3d(CUtensorMap* m, const void* ptr, int n0, int n1, int n2,
+                       int box1, int box2 = 1) {
+  return map_3d<__nv_bfloat16>(m, ptr, n0, n1, n2, box1, box2);
 }
 
 // A (n2, n1, n0) int8 row-major tensor (n0 innermost, a multiple of 16 and

@@ -7,13 +7,19 @@ output dim.
 
 Three branches of the JAX `attention_block` are ported: the no-cache
 branch (training and scoring), which takes the flash kernels K4-K6
-(ops/flash_attention.py) under the JAX package's condition and the
-grouped einsum path otherwise; the per-layer "k_gtd" KV-cache branch of
-the unrolled decode path, where a single-token step runs decode kernel K1
-and a prefill chunk the plain masked softmax; and the paged branch of the
-continuous-batching engine, where every phase (decode rows, mixed
-prefill+decode rounds) goes through the ragged paged attention of
-ops/prefill_attention.py (K7).
+(ops/flash_attention.py) under the JAX package's condition (no mask, no
+live attention dropout: JAX :472-475, :519) and the grouped einsum path,
+with attention dropout on its probabilities, otherwise; the per-layer
+"k_gtd" KV-cache branch of the unrolled decode path, where a
+single-token step runs decode kernel K1 and a prefill chunk the plain
+masked softmax; and the paged branch of the continuous-batching engine,
+where every phase (decode rows, mixed prefill+decode rounds) goes
+through the ragged paged attention of ops/prefill_attention.py (K7).
+
+The save points of models/remat.py are the JAX package's: the fused
+QKV projection "qkv_proj", the attention context "attn_ctx" (the
+grouped path's PV product; the flash forward tags its o and lse itself)
+and the output projection "attn_dense".
 """
 
 from __future__ import annotations
@@ -23,6 +29,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from megatron_llm_tpu_torch.models.dropout import dropout
+from megatron_llm_tpu_torch.models.remat import tag
 from megatron_llm_tpu_torch.models.rope import apply_rope
 from megatron_llm_tpu_torch.ops.decode_attention import (
     _xla_decode,
@@ -53,10 +61,12 @@ def causal_mask(s: int, t: Optional[int] = None, offset: int = 0,
 
 
 def grouped_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                      mask: Optional[torch.Tensor], cfg) -> torch.Tensor:
+                      mask: Optional[torch.Tensor], cfg,
+                      dropout_seed=None) -> torch.Tensor:
     """q (b,s,g,qpk,d), k/v (b,t,g,d); mask (s, t) or (b, 1, s, t), True =
-    masked. Scores and softmax in fp32, probabilities cast to v's dtype
-    before the PV product. Returns (b, s, g*qpk*d)."""
+    masked. Scores and softmax in fp32; with a dropout stream the
+    probabilities take attention dropout (JAX :131-158); then they are
+    cast to v's dtype before the PV product. Returns (b, s, g*qpk*d)."""
     b, s, g, qpk, d = q.shape
     scores = torch.einsum("bsgqd,btgd->bgqst", q.float(), k.float()) \
         * (1.0 / math.sqrt(d))
@@ -64,8 +74,10 @@ def grouped_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         neg = torch.finfo(torch.float32).min
         m = mask[None, None, None] if mask.dim() == 2 else mask[:, :, None]
         scores = scores.masked_fill(m, neg)
-    probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    ctx = torch.einsum("bgqst,btgd->bsgqd", probs, v)
+    probs = torch.softmax(scores, dim=-1)
+    probs = dropout(probs, cfg.attention_dropout, dropout_seed).to(v.dtype)
+    with tag("attn_ctx"):
+        ctx = torch.einsum("bgqst,btgd->bsgqd", probs, v)
     return ctx.reshape(b, s, g * qpk * d)
 
 
@@ -74,8 +86,11 @@ def attention_block(attn_params: dict, cfg, hidden: torch.Tensor,
                     mask: Optional[torch.Tensor],
                     position_ids: Optional[torch.Tensor],
                     kv_cache: Optional[dict] = None,
+                    dropout_seed=None,
                     ) -> Tuple[torch.Tensor, Optional[dict]]:
     """qkv projection -> RoPE -> (cached) attention -> output projection.
+    `dropout_seed` (models/dropout.py; None when deterministic) drives
+    attention dropout on the no-cache branch.
 
     `kv_cache`, when given, is this layer's cache in one of two forms:
     - dense {"k_gtd": (b, g, T, d), "v_gtd": ..., "offset": an int or
@@ -97,7 +112,8 @@ def attention_block(attn_params: dict, cfg, hidden: torch.Tensor,
       Nothing here reads a device value on the host."""
     b, s, _ = hidden.shape
     dt = cfg.compute_dtype
-    mixed = qdot(hidden, attn_params["wqkv"], dt)
+    with tag("qkv_proj"):
+        mixed = qdot(hidden, attn_params["wqkv"], dt)
     if "bqkv" in attn_params:
         mixed = mixed + attn_params["bqkv"].to(dt)
     q, k, v = split_qkv(mixed, cfg)
@@ -180,17 +196,20 @@ def attention_block(attn_params: dict, cfg, hidden: torch.Tensor,
             rows = torch.arange(s, device=hidden.device)[None, :, None]
             cols = torch.arange(s, device=hidden.device)[None, None, :]
             mask = ((cols > rows) | (cols < doc_start[:, :, None]))[:, None]
-        # the attention-dropout path is not ported (a rate above 0 raises
-        # in transformer_stack), so the JAX condition's no_dropout holds
-        if cfg.use_flash_attn and mask is None and doc_start is None:
+        # the flash kernels have no dropout: live attention dropout takes
+        # the grouped path (JAX :472-475, :519)
+        no_dropout = dropout_seed is None or cfg.attention_dropout == 0.0
+        if cfg.use_flash_attn and mask is None and doc_start is None \
+                and no_dropout:
             ctx = flash_attention(q, k, v, causal=True).reshape(b, s, -1)
         else:
             if mask is None:
                 mask = causal_mask(s, device=hidden.device)
-            ctx = grouped_attention(q, k, v, mask, cfg)
+            ctx = grouped_attention(q, k, v, mask, cfg, dropout_seed)
         new_cache = None
 
-    out = qdot(ctx, attn_params["wo"], dt)
+    with tag("attn_dense"):
+        out = qdot(ctx, attn_params["wo"], dt)
     if "bo" in attn_params:
         out = out + attn_params["bo"].to(dt)
     return out, new_cache

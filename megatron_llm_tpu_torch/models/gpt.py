@@ -50,11 +50,14 @@ class GPTModel(nn.Module):
     def forward(self, params: dict, tokens: torch.Tensor,
                 position_ids: Optional[torch.Tensor] = None,
                 attention_mask: Optional[torch.Tensor] = None,
-                kv_caches: Optional[dict] = None,
+                kv_caches: Optional[dict] = None, dropout_rng=None,
+                deterministic: bool = True,
                 ) -> Tuple[torch.Tensor, Optional[dict]]:
-        """Returns (logits, new_kv_caches)."""
+        """Returns (logits, new_kv_caches). `dropout_rng` is a dropout
+        stream (models/dropout.py), read unless `deterministic`."""
         return language_model_forward(params, self.cfg, tokens, position_ids,
-                                      attention_mask, kv_caches)
+                                      attention_mask, kv_caches, dropout_rng,
+                                      deterministic)
 
     def loss(self, params: dict, tokens: torch.Tensor, labels: torch.Tensor,
              loss_mask: Optional[torch.Tensor] = None,
@@ -63,11 +66,12 @@ class GPTModel(nn.Module):
              dropout_rng=None, deterministic: bool = True) -> torch.Tensor:
         """Mean masked CE, a 0-d fp32 tensor (JAX :52-76): the head and CE
         run chunked over the sequence so the full (b, s, V) logits never
-        materialise. `dropout_rng` is accepted for the JAX signature; a
-        non-deterministic call with a dropout rate above 0 raises."""
+        materialise. `dropout_rng` is the dropout stream (an integer
+        seed, models/dropout.py), read unless `deterministic`."""
         hidden, _ = language_model_forward(
             params, self.cfg, tokens, position_ids, attention_mask,
-            deterministic=deterministic, return_hidden=True)
+            dropout_rng=dropout_rng, deterministic=deterministic,
+            return_hidden=True)
         losses = chunked_head_cross_entropy(params, self.cfg, hidden, labels)
         if loss_mask is None:
             return losses.mean()

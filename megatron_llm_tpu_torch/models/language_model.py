@@ -1,4 +1,8 @@
-"""Embedding + transformer + LM head (port of models/language_model.py)."""
+"""Embedding + transformer + LM head (port of models/language_model.py).
+
+Given a dropout stream, the forward splits it between the embedding's
+hidden dropout and the layer stack (JAX :188-192).
+"""
 
 from __future__ import annotations
 
@@ -7,6 +11,7 @@ from typing import Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from megatron_llm_tpu_torch.models.dropout import dropout, split
 from megatron_llm_tpu_torch.models.norms import apply_norm
 from megatron_llm_tpu_torch.models.rope import precompute_rope
 from megatron_llm_tpu_torch.models.transformer import (
@@ -44,8 +49,10 @@ def init_language_model_params(cfg, generator: torch.Generator,
 
 
 def embed_tokens(params: dict, cfg, tokens: torch.Tensor,
-                 position_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """(b, s) int -> (b, s, h) in the compute dtype."""
+                 position_ids: Optional[torch.Tensor] = None,
+                 dropout_seed=None) -> torch.Tensor:
+    """(b, s) int -> (b, s, h) in the compute dtype, with hidden dropout
+    under a dropout stream (JAX :69-88)."""
     emb = params["embedding"]["word_embeddings"]
     hidden = emb[tokens].to(cfg.compute_dtype)
     if cfg.position_embedding_type == "absolute":
@@ -54,7 +61,7 @@ def embed_tokens(params: dict, cfg, tokens: torch.Tensor,
                                         device=tokens.device)[None]
         pos = params["embedding"]["position_embeddings"]
         hidden = hidden + pos[position_ids].to(cfg.compute_dtype)
-    return hidden
+    return dropout(hidden, cfg.hidden_dropout, dropout_seed)
 
 
 def chunked_head_cross_entropy(params: dict, cfg, hidden: torch.Tensor,
@@ -103,23 +110,28 @@ def language_model_forward(params: dict, cfg, tokens: torch.Tensor,
                            position_ids: Optional[torch.Tensor] = None,
                            attention_mask: Optional[torch.Tensor] = None,
                            kv_caches: Optional[dict] = None,
-                           deterministic: bool = True,
+                           dropout_rng=None, deterministic: bool = True,
                            return_hidden: bool = False,
                            ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Full forward to logits; returns (logits, new_kv_caches).
-    `return_hidden` stops after the final norm and returns the (b, s, h)
-    hidden states instead (the training loss projects to the vocabulary
-    chunk by chunk, see chunked_head_cross_entropy)."""
+    `dropout_rng` is a dropout stream (models/dropout.py), read unless
+    `deterministic`. `return_hidden` stops after the final norm and
+    returns the (b, s, h) hidden states instead (the training loss
+    projects to the vocabulary chunk by chunk, see
+    chunked_head_cross_entropy)."""
     rope_table = None
     if cfg.position_embedding_type == "rotary":
         rope_table = precompute_rope(cfg.head_dim,
                                      cfg.max_position_embeddings,
                                      cfg.rope_theta, cfg.rope_scaling_factor,
                                      tokens.device)
-    hidden = embed_tokens(params, cfg, tokens, position_ids)
+    emb_s = stack_s = None
+    if dropout_rng is not None and not deterministic:
+        emb_s, stack_s = split(dropout_rng)
+    hidden = embed_tokens(params, cfg, tokens, position_ids, emb_s)
     hidden, new_caches = transformer_stack(
         params["layers"], cfg, hidden, rope_table, attention_mask,
-        position_ids, kv_caches, deterministic)
+        position_ids, kv_caches, stack_s)
     hidden = apply_norm(hidden, params["final_norm"], cfg)
     if return_hidden:
         return hidden, new_caches

@@ -11,6 +11,13 @@ allocate a stacked-size zero gradient per layer) and wraps each layer in
 the recompute policy (models/remat.py) as `--recompute_method` says
 (JAX :278-293): "uniform" remats every layer, "block" the first
 `recompute_num_layers`.
+
+Dropout (JAX :165-226, :252-274): given a dropout stream, layer i takes
+the stream folded with i and splits it three ways, for the attention
+probabilities, the attention (or, in a parallel layer, the joint)
+residual branch and the MLP's; its hidden rate is `hidden_dropout`, or
+under `lima_dropout` the ramp hidden_dropout * i / (num_layers - 1).
+The matmul outputs are the save points "mlp_pre_act" and "mlp_out".
 """
 
 from __future__ import annotations
@@ -25,8 +32,9 @@ from megatron_llm_tpu_torch.models.activations import (
     GLU_ACTIVATIONS,
 )
 from megatron_llm_tpu_torch.models.attention import attention_block
+from megatron_llm_tpu_torch.models.dropout import dropout, fold_in, split
 from megatron_llm_tpu_torch.models.norms import apply_norm
-from megatron_llm_tpu_torch.models.remat import remat_wrap
+from megatron_llm_tpu_torch.models.remat import remat_wrap, tag
 from megatron_llm_tpu_torch.ops.quantization import (
     is_quantized_weight,
     qdot,
@@ -139,16 +147,19 @@ def mlp_block(mlp_params: dict, cfg, hidden: torch.Tensor) -> torch.Tensor:
         b, s, h = hidden.shape
         if not is_quantized_weight(w1):  # int8 trees hold the flat view
             w1 = w1.reshape(h, -1)
-        x = qdot(hidden, w1, dt).reshape(b, s, 2, -1)
+        with tag("mlp_pre_act"):
+            x = qdot(hidden, w1, dt).reshape(b, s, 2, -1)
         if "b1" in mlp_params:
             x = x + mlp_params["b1"].to(dt)
         x = GLU_ACTIVATIONS[cfg.glu_activation](x[..., 0, :], x[..., 1, :])
     else:
-        x = qdot(hidden, w1, dt)
+        with tag("mlp_pre_act"):
+            x = qdot(hidden, w1, dt)
         if "b1" in mlp_params:
             x = x + mlp_params["b1"].to(dt)
         x = ACTIVATIONS[cfg.hidden_act](x)
-    x = qdot(x, mlp_params["w2"], dt)
+    with tag("mlp_out"):
+        x = qdot(x, mlp_params["w2"], dt)
     if "b2" in mlp_params:
         x = x + mlp_params["b2"].to(dt)
     return x
@@ -156,31 +167,38 @@ def mlp_block(mlp_params: dict, cfg, hidden: torch.Tensor) -> torch.Tensor:
 
 def transformer_layer(layer_params: dict, cfg, hidden: torch.Tensor,
                       rope_table, mask, position_ids,
-                      kv_cache: Optional[dict] = None,
+                      kv_cache: Optional[dict] = None, dropout_seed=None,
+                      hidden_dropout_rate: Optional[float] = None,
                       ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """One pre-LN decoder layer (no dropout: a rate above 0 raises in
-    `transformer_stack` when training). Under `parallel_attn` (Falcon,
-    JAX :205-211) the MLP reads the attention's normed input (or its own
+    """One pre-LN decoder layer. Under `parallel_attn` (Falcon, JAX
+    :205-211) the MLP reads the attention's normed input (or its own
     `mlp_norm` of the layer input under `parallel_layernorm`) and both
-    outputs join the residual once."""
+    outputs join the residual once. With a dropout stream (None when
+    deterministic) attention dropout and hidden dropout at
+    `hidden_dropout_rate` (default `cfg.hidden_dropout`) apply on each
+    residual branch (JAX :172-226)."""
+    rate = cfg.hidden_dropout if hidden_dropout_rate is None \
+        else hidden_dropout_rate
+    attn_s, h1_s, h2_s = split(dropout_seed, 3) \
+        if dropout_seed is not None else (None, None, None)
     normed = apply_norm(hidden, layer_params["input_norm"], cfg)
     attn_out, new_cache = attention_block(
         layer_params["attention"], cfg, normed, rope_table, mask,
-        position_ids, kv_cache)
+        position_ids, kv_cache, attn_s)
     if cfg.parallel_attn:
         if cfg.parallel_layernorm:
             normed = apply_norm(hidden, layer_params["mlp_norm"], cfg)
         mlp_out = mlp_block(layer_params["mlp"], cfg, normed)
-        return hidden + (attn_out + mlp_out), new_cache
-    x = hidden + attn_out
+        return hidden + dropout(attn_out + mlp_out, rate, h1_s), new_cache
+    x = hidden + dropout(attn_out, rate, h1_s)
     normed2 = apply_norm(x, layer_params["post_attention_norm"], cfg)
-    return x + mlp_block(layer_params["mlp"], cfg, normed2), new_cache
+    mlp_out = mlp_block(layer_params["mlp"], cfg, normed2)
+    return x + dropout(mlp_out, rate, h2_s), new_cache
 
 
 def transformer_stack(layer_params, cfg, hidden: torch.Tensor,
                       rope_table=None, mask=None, position_ids=None,
-                      kv_caches: Optional[dict] = None,
-                      deterministic: bool = True,
+                      kv_caches: Optional[dict] = None, dropout_seed=None,
                       ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Run the layers in order. `layer_params` is the stacked tree or a
     tuple of per-layer trees. `kv_caches` is None, the dense decode
@@ -194,14 +212,10 @@ def transformer_stack(layer_params, cfg, hidden: torch.Tensor,
     one shared page table, and the ragged chunk lengths and document
     floors through every layer.
 
-    `deterministic=False` (training with dropout) raises while a dropout
-    rate is above 0: dropout is a later slice."""
-    if not deterministic and (cfg.hidden_dropout > 0
-                              or cfg.attention_dropout > 0):
-        raise ValueError(
-            f"hidden_dropout={cfg.hidden_dropout}, attention_dropout="
-            f"{cfg.attention_dropout}: dropout is not ported yet (the "
-            f"dropout slice, ROADMAP.md A3); train with rates of 0")
+    `dropout_seed` (None when deterministic) is the stack's dropout
+    stream, read by the no-cache forward: layer i draws from
+    fold_in(dropout_seed, i). A recomputed layer derives the same seeds
+    and draws the same masks."""
     if isinstance(layer_params, (list, tuple)):
         layers = layer_params
     else:
@@ -212,13 +226,20 @@ def transformer_stack(layer_params, cfg, hidden: torch.Tensor,
             min(cfg.recompute_num_layers, len(layers))
             if cfg.recompute_method == "block" else len(layers))
 
-        def body(p, x):
+        L = cfg.num_layers
+
+        def body(p, x, i):
+            seed = None if dropout_seed is None else fold_in(dropout_seed, i)
+            # LIMA: a linear ramp from 0 to hidden_dropout over depth
+            rate = cfg.hidden_dropout * i / (L - 1) \
+                if cfg.lima_dropout and L > 1 else None
             return transformer_layer(p, cfg, x, rope_table, mask,
-                                     position_ids)[0]
+                                     position_ids, dropout_seed=seed,
+                                     hidden_dropout_rate=rate)[0]
 
         body_ck = remat_wrap(body, policy)
         for i, p in enumerate(layers):
-            hidden = (body_ck if i < n_remat else body)(p, hidden)
+            hidden = (body_ck if i < n_remat else body)(p, hidden, i)
         return hidden, None
     if "k_pages_layers" in kv_caches:
         pt, lens = kv_caches["page_table"], kv_caches["lengths"]

@@ -27,11 +27,17 @@ JAX package leaves them to XLA (:527-537).
 `_Flash` and `_FlashLse` are the autograd Functions (JAX `_flash` and
 `_flash_lse` custom VJPs): each saves q, k, v, o and lse. On a CUDA
 tensor the forward launches K4 and the backward K5 and K6, or raises; on
-a CPU tensor they run the plain versions. The TPU gates (`_pick_blocks`,
-`_choose_block`: d % 128, power-of-two blocks dividing s, MAX_ROWS /
-MAX_CELLS) served Mosaic's tiling and VMEM and are dropped: the kernels
-take any s, t and qpk and mask ragged edges themselves. They need bf16
-inputs, d % 8 == 0 and d <= 256.
+a CPU tensor they run the plain versions. The forward is the dispatcher
+op `megatron_llm_tpu_torch::flash_fwd` (`_flash_fwd_op`), computed under
+the "attn_ctx" and "flash_lse" save points (JAX :644-647): a recompute
+policy (models/remat.py) keeps its o and lse and answers the recomputed
+forward from them, so under "selective" K4 runs once a layer. The TPU
+gates (`_pick_blocks`, `_choose_block`: d % 128, power-of-two blocks
+dividing s, MAX_ROWS / MAX_CELLS) served Mosaic's tiling and VMEM and are
+dropped: the kernels take any s, t and qpk and mask ragged edges
+themselves. They take bf16 or fp16 inputs (the Pallas kernels take q's
+dtype), d % 8 == 0 and d <= 256; the plain versions compute in q's
+dtype with the kernels' casts.
 
 `triton` is not used here; the CUDA library is built and loaded at the
 first launch, never at import.
@@ -147,16 +153,16 @@ def _library(which: str):
     fn = getattr(lib, name)
     if fn.argtypes is None:  # pointers must not pass as 32-bit ints
         fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 6
+        fn.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 7
                        + [ctypes.c_float, ctypes.c_void_p])
     return fn
 
 
 def _check(q, k, v):
     b, s, g, qpk, d = q.shape
-    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"flash kernels take bfloat16 q/k/v, got "
-                         f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"flash kernels take bfloat16 or float16 q/k/v, "
+                         f"got {q.dtype}/{k.dtype}/{v.dtype}")
     if d % 8 or not 8 <= d <= 256:
         raise ValueError(f"flash kernels need d % 8 == 0 and 8 <= d <= 256, "
                          f"d={d}")
@@ -168,6 +174,10 @@ def _check(q, k, v):
         raise ValueError("q, k and v must be on one device")
     if min(s, k.shape[1]) < 1:
         raise ValueError("flash kernels need s >= 1 and t >= 1")
+
+
+# the element types the kernels are instantiated for, as the C ABI's code
+_DTYPES = {torch.bfloat16: 0, torch.float16: 1}
 
 
 def _fold_q(x):
@@ -227,9 +237,9 @@ def flash_fwd(qf, kf, vf, qpk: int, causal: bool):
         err = _library("fwd")(
             qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), of.data_ptr(),
             lse.data_ptr(), bg, R, kf.shape[1], d, qpk, int(causal),
-            1.0 / math.sqrt(d), _stream(qf))
+            _DTYPES[qf.dtype], 1.0 / math.sqrt(d), _stream(qf))
     _raise_on(err, "forward")
-    flash_fwd.launches += 1
+    _count(flash_fwd, qf.dtype)
     return of, lse
 
 
@@ -251,10 +261,10 @@ def flash_bwd_dq(qf, kf, vf, dof, lse, delta, qpk: int, causal: bool):
         err = _library("dq")(
             qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), dof.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bg, R,
-            kf.shape[1], d, qpk, int(causal), 1.0 / math.sqrt(d),
-            _stream(qf))
+            kf.shape[1], d, qpk, int(causal), _DTYPES[qf.dtype],
+            1.0 / math.sqrt(d), _stream(qf))
     _raise_on(err, "dq")
-    flash_bwd_dq.launches += 1
+    _count(flash_bwd_dq, qf.dtype)
     return dq
 
 
@@ -269,16 +279,26 @@ def flash_bwd_dkv(qf, kf, vf, dof, lse, delta, qpk: int, causal: bool):
         err = _library("dkv")(
             qf.data_ptr(), kf.data_ptr(), vf.data_ptr(), dof.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            bg, R, kf.shape[1], d, qpk, int(causal), 1.0 / math.sqrt(d),
-            _stream(qf))
+            bg, R, kf.shape[1], d, qpk, int(causal), _DTYPES[qf.dtype],
+            1.0 / math.sqrt(d), _stream(qf))
     _raise_on(err, "dk/dv")
-    flash_bwd_dkv.launches += 1
+    _count(flash_bwd_dkv, qf.dtype)
     return dk, dv
 
 
-flash_fwd.launches = 0
-flash_bwd_dq.launches = 0
-flash_bwd_dkv.launches = 0
+def _count(wrapper, dtype):
+    """One launch of `wrapper`'s kernel, in all and for its element type
+    (`launches_by_dtype`: the bf16 and fp16 instantiations)."""
+    wrapper.launches += 1
+    name = str(dtype).replace("torch.", "")
+    wrapper.launches_by_dtype[name] = wrapper.launches_by_dtype.get(name,
+                                                                    0) + 1
+
+
+for _w in (flash_fwd, flash_bwd_dq, flash_bwd_dkv):
+    _w.launches = 0
+    _w.launches_by_dtype = {"bfloat16": 0, "float16": 0}
+del _w
 
 
 def _fwd(q, k, v, causal):
@@ -291,6 +311,32 @@ def _fwd(q, k, v, causal):
     _check(q, k, v)
     of, lse = flash_fwd(_fold_q(q), _fold_kv(k), _fold_kv(v), qpk, causal)
     return _unfold_q(of, b, s, g, qpk), lse
+
+
+@torch.library.custom_op("megatron_llm_tpu_torch::flash_fwd", mutates_args=())
+def _flash_fwd_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """`_fwd` as a dispatcher op, so that a recompute policy can keep its
+    outputs (models/remat.py)."""
+    o, lse = _fwd(q, k, v, causal)
+    return o.contiguous(), lse
+
+
+@_flash_fwd_op.register_fake
+def _(q, k, v, causal):
+    raise ValueError("flash_fwd takes CUDA tensors (kernel K4) or CPU "
+                     "tensors (its plain version); meta and fake tensors "
+                     "have neither")
+
+
+def _tagged_fwd(q, k, v, causal):
+    """The forward under its save points: o is "attn_ctx", lse
+    "flash_lse" (JAX :644-647, :757-771)."""
+    # models/ imports this module: the save points come in at the call
+    from megatron_llm_tpu_torch.models.remat import tag
+
+    with tag("attn_ctx", "flash_lse"):
+        return _flash_fwd_op(q, k, v, causal)
 
 
 def _bwd(q, k, v, o, lse, do, causal, dlse_rows=None):
@@ -317,7 +363,7 @@ class _Flash(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal):
-        o, lse = _fwd(q, k, v, causal)
+        o, lse = _tagged_fwd(q, k, v, causal)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal = causal
         return o
@@ -336,7 +382,7 @@ class _FlashLse(torch.autograd.Function):
     @staticmethod
     def forward(ctx, q, k, v, causal):
         b, s, g, qpk, _ = q.shape
-        o, lse = _fwd(q, k, v, causal)
+        o, lse = _tagged_fwd(q, k, v, causal)
         ctx.save_for_backward(q, k, v, o, lse)
         ctx.causal = causal
         return o, _lse_rows_to_bsgq(lse, b, s, g, qpk)

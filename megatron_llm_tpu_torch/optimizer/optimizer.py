@@ -13,7 +13,9 @@ card: nothing is read back on the host.
 Unlike the JAX package's pure function, `optimizer_step` updates params,
 m, v and step IN PLACE (the state is the size of the model three times
 over; a second copy would not fit next to it on one card) and returns
-them. The fp16 dynamic loss scaler is a later slice and raises.
+them. Under fp16 a loss scaler (optimizer/grad_scaler.py) rides in the
+state: the gradients arrive unscaled, and the scaler reacts to their
+overflow only, never to the caller's skip gate (JAX :126-138).
 """
 
 from __future__ import annotations
@@ -46,7 +48,9 @@ class OptimizerState(NamedTuple):
     step: torch.Tensor  # int32 scalar on the params' device
     m: Any  # first moment (adam) or momentum buffer (sgd); params-shaped
     v: Optional[Any]  # second moment (adam) or None (sgd)
-    scaler: Optional[dict] = None  # fp16 loss scaler: not ported
+    # fp16 loss-scaler state ({} constant, scale and trackers dynamic);
+    # None without fp16
+    scaler: Optional[dict] = None
 
 
 def global_grad_norm(grads) -> torch.Tensor:
@@ -80,11 +84,26 @@ def count_zeros(grads) -> torch.Tensor:
 
 
 def _check_tcfg(tcfg: TrainConfig):
-    if tcfg.fp16:
-        raise ValueError("fp16 with the dynamic loss scaler is not ported "
-                         "yet (the fp16 slice, ROADMAP.md A3); train in bf16")
     if tcfg.optimizer not in ("adam", "sgd"):
         raise ValueError(f"unknown optimizer {tcfg.optimizer}")
+
+
+def get_grad_scaler(tcfg: TrainConfig):
+    """The fp16 loss scaler, None otherwise (JAX :62-80): constant when
+    `loss_scale` is set, else dynamic."""
+    if not tcfg.fp16:
+        return None
+    from megatron_llm_tpu_torch.optimizer.grad_scaler import (
+        ConstantGradScaler,
+        DynamicGradScaler,
+    )
+
+    if tcfg.loss_scale is not None:
+        return ConstantGradScaler(tcfg.loss_scale)
+    return DynamicGradScaler(initial_scale=tcfg.initial_loss_scale,
+                             min_scale=tcfg.min_loss_scale,
+                             growth_interval=tcfg.loss_scale_window,
+                             hysteresis=tcfg.hysteresis)
 
 
 def init_optimizer_state(params, tcfg: TrainConfig) -> OptimizerState:
@@ -95,19 +114,24 @@ def init_optimizer_state(params, tcfg: TrainConfig) -> OptimizerState:
 
     dev = tree_leaves(params)[0].device
     step = torch.zeros((), dtype=torch.int32, device=dev)
+    scaler = get_grad_scaler(tcfg)
+    scaler_state = scaler.init_state(dev) if scaler is not None else None
     if tcfg.optimizer == "adam":
         return OptimizerState(step=step, m=tree_map(zeros, params),
-                              v=tree_map(zeros, params))
-    return OptimizerState(step=step, m=tree_map(zeros, params), v=None)
+                              v=tree_map(zeros, params), scaler=scaler_state)
+    return OptimizerState(step=step, m=tree_map(zeros, params), v=None,
+                          scaler=scaler_state)
 
 
 @torch.no_grad()
 def optimizer_step(params, grads, state: OptimizerState, tcfg: TrainConfig,
-                   lr, weight_decay=None, found_inf=None
+                   lr, weight_decay=None, found_inf=None, scaler=None
                    ) -> Tuple[Any, OptimizerState, dict]:
     """One update (JAX :100-210), in place; returns (params, state, stats)
     with stats["grad_norm"] (fp32) and stats["skipped"] (int32) as 0-d
-    tensors on the card."""
+    tensors on the card. With `scaler` (fp16) the grads arrive unscaled;
+    a non-finite grad norm is the overflow that updates the scaler's
+    state, and stats["loss_scale"] is the scale this step used."""
     _check_tcfg(tcfg)
     wd = tcfg.weight_decay if weight_decay is None else weight_decay
     lr = torch.as_tensor(lr, dtype=torch.float32)
@@ -120,7 +144,13 @@ def optimizer_step(params, grads, state: OptimizerState, tcfg: TrainConfig,
     grad_norm = global_grad_norm(g_leaves)
     finite = torch.isfinite(grad_norm)
     if found_inf is not None:
+        # the caller's skip gate (the loss watchdog) skips the update
+        # only: a spike of finite gradients is no fp16 overflow
         finite = finite & ~found_inf
+    new_scaler_state = state.scaler
+    if scaler is not None:
+        new_scaler_state = scaler.update(state.scaler,
+                                         ~torch.isfinite(grad_norm))
     coeff = torch.clamp(tcfg.clip_grad / (grad_norm + 1e-6), max=1.0) \
         if tcfg.clip_grad > 0.0 else None
     num_zeros = torch.zeros((), dtype=torch.int64, device=dev)
@@ -161,6 +191,9 @@ def optimizer_step(params, grads, state: OptimizerState, tcfg: TrainConfig,
 
     stats = {"grad_norm": grad_norm,
              "skipped": (~finite).to(torch.int32)}
+    if scaler is not None:
+        stats["loss_scale"] = scaler.scale(state.scaler)
+        state = state._replace(scaler=new_scaler_state)
     if tcfg.log_num_zeros_in_grad:
         stats["num_zeros"] = num_zeros
     if tcfg.log_params_norm:

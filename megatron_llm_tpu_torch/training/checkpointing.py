@@ -14,10 +14,13 @@ A converter's output is the "release" layout (JAX :56-60, :216-238):
 (no optimizer state, iteration 0), restoring each leaf in the
 template's dtype as orbax does in the JAX package.
 
-- `model` holds the params; `optim` the optimizer's "step" and its
-  "m.<leaf>" and "v.<leaf>" moments (no file under `--no_save_optim`);
-  `meta.json` has the JAX package's keys (`rng_key` is null: the port
-  trains without dropout).
+- `model` holds the params; `optim` the optimizer's "step", its
+  "m.<leaf>" and "v.<leaf>" moments and, under fp16 with the dynamic
+  scaler, "scaler.scale", "scaler.growth_tracker" and
+  "scaler.hysteresis_tracker" (JAX :202-203; no file under
+  `--no_save_optim`); `meta.json` has the JAX package's keys, `rng_key`
+  the trainer's dropout base seed (an integer; null without dropout,
+  and null on a load under `--no_load_rng` or `--finetune`).
 - The tracker is written atomically (a temporary file in the same
   directory, fsync, rename), and `COMPLETE` is written last, after every
   other file is fsynced: a torn save is a directory without it.
@@ -224,6 +227,8 @@ def _optim_flat(opt_state: OptimizerState) -> dict:
     flat.update(flatten(opt_state.m, "m."))
     if opt_state.v is not None:
         flat.update(flatten(opt_state.v, "v."))
+    if opt_state.scaler:
+        flat.update(flatten(opt_state.scaler, "scaler."))
     return flat
 
 
@@ -515,7 +520,9 @@ def _restore_one(path, release, params_template, opt_state_template,
             step=o["step"],
             m=unflatten_like(o, opt_state_template.m, "m."),
             v=unflatten_like(o, opt_state_template.v, "v.")
-            if opt_state_template.v is not None else None)
+            if opt_state_template.v is not None else None,
+            scaler=unflatten_like(o, opt_state_template.scaler, "scaler.")
+            if opt_state_template.scaler else opt_state_template.scaler)
     # --finetune takes the weights only and starts at iteration 0
     out_iteration = 0 if (finetune or release) else meta["iteration"]
     if finetune or no_load_rng or release:

@@ -10,6 +10,13 @@ microbatch count, then `optimizer_step` in place. Nothing is read back
 on the host: the loss, the skip flag and the gradient norm stay 0-d
 tensors on the card for the caller to read when it logs.
 
+Under fp16 each microbatch's loss is multiplied by the loss scaler's
+scale before its backward; the accumulated gradients are divided by it
+after, and a non-finite gradient norm skips the step and feeds the
+scaler (JAX :191-316). Given a dropout stream `rng` (an integer seed,
+models/dropout.py) microbatch i draws from fold_in(rng, i), or from
+`rng` itself when there is one microbatch (JAX :253-281).
+
 ZeRO-1, overlap scheduling, tensor/pipeline/context parallelism and a
 `batch_builder` belong to later slices and raise.
 """
@@ -19,8 +26,10 @@ from __future__ import annotations
 import torch
 
 from megatron_llm_tpu_torch.config import ParallelConfig, TrainConfig
+from megatron_llm_tpu_torch.models.dropout import fold_in
 from megatron_llm_tpu_torch.optimizer.optimizer import (
     OptimizerState,
+    get_grad_scaler,
     optimizer_step,
     tree_leaves,
 )
@@ -45,6 +54,7 @@ def make_train_step(model, tcfg: TrainConfig, pcfg: ParallelConfig,
         raise ValueError("data/tensor/pipeline/context parallel training "
                          "is the parallelism slice (ROADMAP.md A4)")
     num_micro = pcfg.num_microbatches
+    scaler = get_grad_scaler(tcfg)
 
     def train_step(params, opt_state: OptimizerState, batch, lr, wd,
                    rng=None, spike_threshold=None):
@@ -55,13 +65,18 @@ def make_train_step(model, tcfg: TrainConfig, pcfg: ParallelConfig,
         if n != num_micro:
             raise ValueError(f"batch has {n} microbatches, the step was "
                              f"built for {num_micro}")
-        loss = torch.zeros((), dtype=torch.float32, device=leaves[0].device)
+        dev = leaves[0].device
+        loss = torch.zeros((), dtype=torch.float32, device=dev)
+        loss_scale = None if scaler is None else torch.as_tensor(
+            scaler.scale(opt_state.scaler), dtype=torch.float32, device=dev)
         with torch.enable_grad():
             for i in range(num_micro):
                 micro = {k: v[i] for k, v in batch.items()}
-                l_i = model.loss(params, dropout_rng=rng,
+                mrng = rng if rng is None or num_micro == 1 \
+                    else fold_in(rng, i)
+                l_i = model.loss(params, dropout_rng=mrng,
                                  deterministic=rng is None, **micro)
-                l_i.backward()
+                (l_i if loss_scale is None else l_i * loss_scale).backward()
                 loss = loss + l_i.detach()
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in leaves]
@@ -69,6 +84,10 @@ def make_train_step(model, tcfg: TrainConfig, pcfg: ParallelConfig,
             for g in grads:
                 g.div_(num_micro)
             loss = loss / num_micro
+        if loss_scale is not None:
+            inv = 1.0 / loss_scale
+            for g in grads:
+                g.mul_(inv)
         found_inf = None
         if spike_threshold is not None:
             # NaN/inf losses and watchdog spikes skip the update on the
@@ -77,7 +96,7 @@ def make_train_step(model, tcfg: TrainConfig, pcfg: ParallelConfig,
         # grads: a list in the order of tree_leaves(params)
         params, opt_state, stats = optimizer_step(
             params, grads, opt_state, tcfg, lr, weight_decay=wd,
-            found_inf=found_inf)
+            found_inf=found_inf, scaler=scaler)
         for p in leaves:
             p.grad = None
         stats["loss"] = loss

@@ -26,6 +26,12 @@ save after an interval save of the same step, the final save after an
 emergency one) waits for that save instead of writing the same state
 again; the JAX package writes it twice.
 
+With a dropout rate above 0 each step draws its masks from the base
+stream `seed + 1` folded with the iteration (JAX :991-997), so a resumed
+run draws the masks an uninterrupted one would; the base seed is saved
+in the checkpoint's meta and restored unless `--no_load_rng` or
+`--finetune`. Under fp16 the log line carries the loss scale.
+
 Later slices, each raising ValueError while set: tensorboard and WandB,
 profiling and span traces, the flight-record dumps, the device-cost
 registry and the perf sentinel (the trainer's telemetry hooks, A3.8).
@@ -46,6 +52,7 @@ from megatron_llm_tpu_torch.config import (
     ParallelConfig,
     TrainConfig,
 )
+from megatron_llm_tpu_torch.models.dropout import fold_in
 from megatron_llm_tpu_torch.optimizer import (
     OptimizerParamScheduler,
     init_optimizer_state,
@@ -142,11 +149,6 @@ class Trainer:
                 raise ValueError(f"TrainConfig.{name} is not ported yet "
                                  f"({slice_name})")
         cfg: ModelConfig = model.cfg
-        if cfg.hidden_dropout > 0 or cfg.attention_dropout > 0:
-            raise ValueError(
-                f"hidden_dropout={cfg.hidden_dropout}, attention_dropout="
-                f"{cfg.attention_dropout}: dropout is not ported yet (the "
-                f"dropout slice, ROADMAP.md A3.6)")
         self.model = model
         self.cfg = cfg
         self.device = model.device
@@ -204,6 +206,9 @@ class Trainer:
                                        tcfg.autoresume_interval)
                             if tcfg.autoresume_file else None)
         self._train_steps: dict = {}  # num_microbatches -> step function
+        # the dropout base stream (models/dropout.py), set by train() or
+        # restored from a checkpoint; None without dropout
+        self._dropout_seed: Optional[int] = None
 
     # ------------------------------------------------------------------
     def setup(self, params: Optional[dict] = None) -> TrainState:
@@ -236,6 +241,9 @@ class Trainer:
                     else meta.get("consumed_train_samples", 0))
                 if meta.get("scheduler") and not self.tcfg.finetune:
                     self.scheduler.load_state_dict(meta["scheduler"])
+                # null under --no_load_rng and --finetune
+                if meta.get("rng_key") is not None:
+                    self._dropout_seed = int(meta["rng_key"])
                 # retention GC never deletes the checkpoint a resume read
                 self._loaded_ckpt_path = meta.get("loaded_path")
                 # a batch-size rampup resumes at the resumed sample
@@ -314,7 +322,10 @@ class Trainer:
             f"elapsed time per iteration (ms): {elapsed * 1000:.1f} | "
             f"learning rate: {stats['lr']:.3E} | "
             f"global batch size: {stats['batch_size']:5d} | "
-            f"lm loss: {loss:.6E} | grad norm: {gnorm:.3f} | ")
+            f"lm loss: {loss:.6E} | ")
+        if "loss_scale" in stats:
+            line += f"loss scale: {float(stats['loss_scale']):.1f} | "
+        line += f"grad norm: {gnorm:.3f} | "
         if "num_zeros" in stats:
             line += f"num zeros: {int(stats['num_zeros'])} | "
         if "params_norm" in stats:
@@ -362,7 +373,7 @@ class Trainer:
         mgr.save(state.iteration, state.params,
                  None if self.tcfg.no_save_optim else state.opt_state,
                  self.cfg, self.scheduler.state_dict(),
-                 state.consumed_train_samples)
+                 state.consumed_train_samples, rng_key=self._dropout_seed)
         self.timers("save-checkpoint").stop()
         self._saved_iteration = state.iteration
         self.timers.gauge("ckpt_blocked_ms", round(mgr.last_blocked_ms, 2))
@@ -421,6 +432,9 @@ class Trainer:
         assert self.train_data_iterator is not None
         data_iter = iter(self.train_data_iterator)
         start_time = time.time()
+        if (self.cfg.hidden_dropout > 0 or self.cfg.attention_dropout > 0) \
+                and self._dropout_seed is None:
+            self._dropout_seed = tcfg.seed + 1
 
         def keep_going():
             if self._samples_mode:
@@ -439,9 +453,11 @@ class Trainer:
             finally:
                 self.timers("batch-generator").stop()
             data_ms = (time.perf_counter() - t_fetch) * 1e3
+            step_rng = None if self._dropout_seed is None \
+                else fold_in(self._dropout_seed, state.iteration)
             t0 = time.time()
             self.timers("train-step").start()
-            stats = self.train_step(state, text)
+            stats = self.train_step(state, text, step_rng)
             loss_val = float(stats["loss"])  # the loop's one host read
             self.timers("train-step").stop()
             stats["loss"] = loss_val

@@ -3,7 +3,9 @@
 - the two parsers carry the same options, destinations, defaults, nargs
   and choices, and the same audit buckets;
 - the same argv gives equal configs, field by field, for llama2,
-  codellama and gpt; flags of later slices raise, naming the slice;
+  codellama and gpt, and for each single-card training mode's flags
+  (fp16 and its loss scalers, dropout and LIMA, the recompute policies
+  and block recompute); flags of later slices raise, naming the slice;
 - entry parity: the JAX `finetune.main` trains a tiny Llama 0 -> 3 on a
   blend of two corpora and saves; that save, restored with the JAX
   loader and written through `checkpoint_from_jax`, resumes the port's
@@ -161,14 +163,6 @@ def test_same_argv_same_configs(model_args, vocab):
     ("--data_parallel_size 2", "A4"),
     ("--sequence_parallel", "A4"),
     ("--use_distributed_optimizer", "A4"),
-    ("--fp16", "A3.5"),
-    ("--loss_scale 1024", "A3.5"),
-    ("--hidden_dropout 0.1", "A3.6"),
-    ("--attention_dropout 0.05", "A3.6"),
-    ("--lima_dropout", "A3.6"),
-    ("--remat_policy selective", "A3.7"),
-    ("--recompute_activations", "A3.7"),
-    ("--recompute_granularity full --recompute_method block", "A3.7"),
     ("--tensorboard_dir /tmp/tb", "A3.8"),
     ("--wandb_logger", "A3.8"),
     ("--profile", "A3.8"),
@@ -182,6 +176,50 @@ def test_later_slice_flags_raise_by_name(flags, slice_name):
     args = arguments.build_base_parser().parse_args(argv)
     with pytest.raises(ValueError, match=slice_name.replace(".", r"\.")):
         arguments.args_to_configs(args, 32000)
+
+
+@pytest.mark.parametrize("flags", [
+    "--fp16",
+    "--loss_scale 1024",
+    "--hidden_dropout 0.1",
+    "--attention_dropout 0.05",
+    "--lima_dropout",
+    "--remat_policy selective",
+    "--recompute_activations",
+    "--recompute_granularity full --recompute_method block",
+    "--fp16 --loss_scale 4096 --hysteresis 3",
+    "--fp16 --initial_loss_scale 65536 --min_loss_scale 2 "
+    "--loss_scale_window 10 --hysteresis 1",
+    "--hidden_dropout 0.1 --attention_dropout 0.1 --lima_dropout",
+    "--remat_policy save_dots",
+    "--remat_policy offload --recompute_method block "
+    "--recompute_num_layers 1",
+    "--recompute_granularity selective --recompute_method block "
+    "--recompute_num_layers 2",
+])
+def test_training_mode_flags_build_the_jax_configs(flags):
+    """The flags of the single-card training modes, once refused by
+    name, build the configs the JAX parser builds, field by field:
+    fp16 (fp16 compute on fp32 params) and the loss scaler's fields,
+    the dropout rates and LIMA, the recompute policy, method and layer
+    count."""
+    argv = (f"--model_name llama2 --num_layers 2 {flags} "
+            "--data_parallel_size 1").split()
+    ja = jax_args.build_base_parser().parse_args(argv)
+    pa = arguments.build_base_parser().parse_args(argv)
+    jm, jp, jt, _ = jax_args.args_to_configs(ja, 32000)
+    pm, pp, pt, _ = arguments.args_to_configs(pa, 32000)
+    shared = _same_fields(pm, jm, ModelConfig, JaxModelConfig)
+    assert {"compute_dtype", "params_dtype", "hidden_dropout",
+            "attention_dropout", "lima_dropout", "recompute_granularity",
+            "remat_policy", "recompute_method",
+            "recompute_num_layers"} <= shared
+    assert pm.resolved_remat_policy == jm.resolved_remat_policy
+    train = _same_fields(pt, jt, TrainConfig, JaxTrainConfig)
+    assert {"fp16", "bf16", "loss_scale", "initial_loss_scale",
+            "min_loss_scale", "loss_scale_window", "hysteresis"} <= train
+    assert pm.compute_dtype == (torch.float16 if "--fp16" in flags
+                                else torch.bfloat16)
 
 
 @pytest.mark.parametrize("name", ["bert", "t5"])

@@ -935,7 +935,7 @@ def test_paged_int8_tc_reads_nothing_outside_each_chunks_reach(
 
 
 # ---------------------------------------------------------------------------
-# K4-K6: flash attention forward and backward (bf16 only: fp32 raises)
+# K4-K6: flash attention forward and backward (bf16 and fp16: fp32 raises)
 # ---------------------------------------------------------------------------
 
 FLASH_SHAPES = [
@@ -955,9 +955,10 @@ FLASH_SHAPES = [
 ]
 
 
-def _flash_inputs(g, qpk, d, s, t, device, seed=0, b=2):
+def _flash_inputs(g, qpk, d, s, t, device, seed=0, b=2,
+                  dtype=torch.bfloat16):
     gen = torch.Generator(device=device).manual_seed(seed)
-    bf = torch.bfloat16
+    bf = dtype
     q = torch.randn(b, s, g, qpk, d, generator=gen, device=device).to(bf)
     k = torch.randn(b, t, g, d, generator=gen, device=device).to(bf)
     v = torch.randn(b, t, g, d, generator=gen, device=device).to(bf)
@@ -1052,16 +1053,67 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
     from megatron_llm_tpu_torch.ops import flash_attention as fa
 
     q, k, v, _ = _flash_inputs(1, 1, 128, 16, 16, cuda)
-    with pytest.raises(ValueError, match="bfloat16"):
+    with pytest.raises(ValueError, match="bfloat16 or float16"):
         fa.flash_attention(q.float(), k.float(), v.float())
-    with pytest.raises(ValueError, match="bfloat16"):
-        fa.flash_attention(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="bfloat16 or float16"):
+        fa.flash_attention(q.half(), k, v)
     q, k, v, _ = _flash_inputs(1, 1, 12, 16, 16, cuda)
     with pytest.raises(ValueError, match="d % 8"):
         fa.flash_attention(q, k, v)
     q, k, v, _ = _flash_inputs(1, 1, 264, 16, 16, cuda)
     with pytest.raises(ValueError, match="d <= 256"):
         fa.flash_attention(q, k, v)
+
+
+# fp16's bar: o and each gradient within 5e-3 of max(1, o's max-abs) or of
+# the gradient's max-abs, about 5 fp16 ulps at 1 (bf16's 2e-2 is about 2.5
+# of its ulps); both sides round p and ds to fp16 at the same places
+FP16_TOL = 5e-3
+
+
+@pytest.mark.parametrize("g,qpk,d,s,t,causal", FLASH_SHAPES)
+def test_flash_kernels_match_plain_fp16(cuda, g, qpk, d, s, t, causal):
+    """The fp16 instantiations of K4, K5 and K6 against the plain versions
+    in fp16 at every shape of the bf16 test (edge tiles, GQA, d 8 to 256,
+    full attention): lse within 1e-3, o and the gradients within
+    FP16_TOL; the outputs fp16, finite, and the launches counted."""
+    from megatron_llm_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = _flash_inputs(g, qpk, d, s, t, cuda, seed=d + s + 7,
+                                dtype=torch.float16)
+    b = q.shape[0]
+    before = (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+              fa.flash_bwd_dkv.launches)
+    o, lse = fa._fwd(q, k, v, causal)
+    o_ref, lse_ref = fa._xla_reference_with_lse(q, k, v, causal)
+    lse_ref = fa._lse_bsgq_to_rows(lse_ref, b, s, g, qpk)
+    grads = fa._bwd(q, k, v, o, lse, do, causal)
+    refs = fa._plain_bwd(q, k, v, o_ref, lse_ref, do, causal)
+    torch.cuda.synchronize()
+    assert o.dtype == torch.float16 and torch.isfinite(o.float()).all()
+    assert _max_err(o, o_ref) <= FP16_TOL * max(1.0, o_ref.float().abs()
+                                                .max().item())
+    assert _max_err(lse, lse_ref) <= 1e-3
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, refs):
+        assert got.dtype == torch.float16, name
+        assert torch.isfinite(got.float()).all(), name
+        assert _rel_err(got, ref) <= FP16_TOL, (name, _rel_err(got, ref))
+    assert (fa.flash_fwd.launches, fa.flash_bwd_dq.launches,
+            fa.flash_bwd_dkv.launches) == tuple(x + 1 for x in before)
+
+
+def test_flash_fp16_backward_is_deterministic(cuda):
+    """No atomics in the fp16 instantiations either: two backward runs
+    agree bitwise."""
+    from megatron_llm_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = _flash_inputs(2, 2, 128, 256, 256, cuda, seed=21,
+                                dtype=torch.float16)
+    o, lse = fa._fwd(q, k, v, True)
+    a = fa._bwd(q, k, v, o, lse, do, True)
+    b = fa._bwd(q, k, v, o, lse, do, True)
+    for x, y in zip(a, b):
+        assert torch.equal(x, y)
 
 
 # ---------------------------------------------------------------------------
@@ -1072,8 +1124,9 @@ def test_flash_kernel_refuses_what_it_does_not_take(cuda):
 @pytest.mark.parametrize("n,h", [(4096, 4096), (1000, 4096), (7, 4096),
                                  (3, 300), (33, 128)])
 @pytest.mark.parametrize("dtype,tol", [(torch.bfloat16, 2e-2),
-                                       (torch.float32, 1e-5)],
-                         ids=["bf16", "fp32"])
+                                       (torch.float32, 1e-5),
+                                       (torch.float16, 5e-3)],
+                         ids=["bf16", "fp32", "fp16"])
 def test_rmsnorm_rstd_and_backward_kernels_match_plain(cuda, n, h, dtype,
                                                        tol):
     """K2 writing rstd against `_plain_fwd`, K3 against `_plain_bwd`, with
