@@ -147,7 +147,8 @@ Phases, one output line each (a failure raises and exits non-zero):
    the HF write, the conversion, the load, the warmup capture and the
    subprocess's start to its banner; bytes written, tokens/s, TTFT p50,
    ms per decode advance (wall, device), GPU memory after the start;
-14d. launcher_falcon: Falcon-7B at full width and depth, random bf16
+14d. launcher_falcon: Falcon-7B at full width, 16 of its 32 layers
+   (FALCON_LAYERS), random bf16
    weights from a seed written as a release by `save_checkpoint(
    release=True)`; native2hf then hf2native through the CLI at full
    width and 2 layers, bit-exact; the launcher (`--model falcon`) in a
@@ -180,10 +181,11 @@ Phases, one output line each (a failure raises and exits non-zero):
    train phase's model is freed): two JSONL corpora of seeded token ids
    (about 1.5 M tokens each, documents of 64-8192) through the port's
    `preprocess_data` (NullTokenizer, 2 workers), then
-   `finetune.main(argv)` three times at Llama-2-7B widths with 4 of 32
-   layers, seq 4096, 4 microbatches, bf16 on fp32 AdamW, full
-   recompute, blend 0.7/0.3, eval every 3 steps: R trains 6 steps with
-   an async save at 3 and the final save at 6 (keep_latest_n 1); K is
+   `finetune.main(argv)` three times at Llama-2-7B widths with 2 of 32
+   layers (FT_ENTRY_LAYERS), seq 4096, 4 microbatches, bf16 on fp32
+   AdamW, full recompute, blend 0.7/0.3, eval every 3 steps: R trains 6
+   steps with an async save at 3 and the final save at 6
+   (keep_latest_n 1); K is
    R with --exit_signal_handler and a SIGTERM after step 3, so it makes
    its emergency save at 3 and returns; C loads K and trains steps 4-6.
    The counters are set to 0 before each run and read after it: K4, K5
@@ -207,15 +209,44 @@ Phases, one output line each (a failure raises and exits non-zero):
    policies;
 19. finetune_modes (on phase 18's corpora, no --save): `finetune.main`
    at 4 of 32 layers in (a) the fine-tuning recipe's training flags
-   (flash, selective recompute, bf16), (b) fp16 with the dynamic scaler
+   (flash, selective recompute, bf16), and the same in a process of
+   its own with the recipe's parallel flags (`--tensor_model_parallel_size
+   1 --sequence_parallel --use_distributed_optimizer`) under `torchrun
+   --nproc_per_node 1`, an NCCL group of world size 1: launches equal,
+   losses and grad norms within 2e-2 / 5e-2 (bit for bit printed), ms a
+   step within 3%; (b) fp16 with the dynamic scaler
    from 2^32 for 16 steps (the scale and skip sequence follows the
    scaler's rule, at least 3 steps taken, K4-K6 in fp16 only), (c)
    hidden, attention and LIMA dropout under full recompute (no flash
    launch: the grouped path) beside one step without recompute at the
-   same seed (step 1's loss and gradient norm equal).
+   same seed (step 1's loss and gradient norm equal);
+20. finetune_parallel: `torchrun --nproc_per_node 4` runs `finetune.main`
+   in four ranks (this script's rank mode, `--finetune-rank`) at tp 2 x
+   dp 2 with sequence parallelism and ZeRO-1 over gloo, every rank on
+   cuda:0 and every collective staged through host memory, on the
+   recipe's flags and phase 18's corpora: 3 steps and a save, then the
+   same ranks resume it for step 4, and world size 1 resumes it too.
+   Losses and grad norms within 2e-2 / 5e-2 of (a)'s world-size-1 run
+   (the same weights and global batches); every rank reports the same;
+   K4-K6 8 launches a rank a step; the checkpoint cut into each rank's
+   pieces equal to what the rank held (a positional checksum of every
+   leaf's bits); step 4 after either resume within 2e-2 of (a)'s.
+   Printed: per-rank peak memory and their sum, the backend and the
+   staging, ms a step labelled as gloo through the host on one shared
+   card. Also, after the kernel checks, kernel_time_flash_tp2: K4-K6 at
+   a tp 2 rank's attention shape (g 16) beside SDPA and their plain
+   versions, within 2e-2.
 
-Then a line of each phase's seconds, one JSON line of the kernels, the
-nvidia-smi line, and the last line `{"ok": true, "device": {...}}`.
+Then a line of each phase's seconds, a line of the processes the run
+still had to stop, one JSON line of the kernels, the nvidia-smi line,
+and the last line `{"ok": true, "device": {...}}`.
+
+Every process the run starts ends with it: the script is its
+descendants' child subreaper, so a process orphaned by a parent that
+exited (torchrun starts each rank in a session of its own) comes back
+to it; before the result, and in `finally` when a phase fails, it stops
+the multiprocessing resource tracker that preprocess_data's pool
+started, then terminates, kills and reaps every descendant left.
 Without a CUDA card it exits 2 and prints no result.
 """
 
@@ -297,6 +328,82 @@ def check(cond, msg):
 
 def say(phase, **kw):
     print(f"{phase}: " + json.dumps(kw), flush=True)
+
+
+PR_SET_CHILD_SUBREAPER = 36  # prctl(2)
+
+
+def become_subreaper():
+    """Orphaned descendants are reparented to this process, not init."""
+    import ctypes
+
+    libc = ctypes.CDLL(None, use_errno=True)
+    check(libc.prctl(PR_SET_CHILD_SUBREAPER, 1, 0, 0, 0) == 0,
+          f"prctl(PR_SET_CHILD_SUBREAPER): errno {ctypes.get_errno()}")
+
+
+def descendants(root: int) -> list:
+    """[(pid, command line)] of every live process below `root`, from
+    /proc (zombies included: they still need reaping)."""
+    kids = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                stat = f.read()
+        except OSError:  # it exited while the table was read
+            continue
+        ppid = int(stat[stat.rindex(")") + 2:].split()[1])
+        kids.setdefault(ppid, []).append(int(entry))
+    out, todo = [], list(kids.get(root, []))
+    while todo:
+        pid = todo.pop()
+        try:
+            with open(f"/proc/{pid}/cmdline", "rb") as f:
+                cmd = f.read().replace(b"\0", b" ").decode(errors="replace")
+        except OSError:
+            cmd = ""
+        out.append((pid, cmd.strip()))
+        todo += kids.get(pid, [])
+    return out
+
+
+def stop_tree(root: int, grace_s: float = 5.0) -> list:
+    """SIGTERM every descendant of `root`, SIGKILL what is left after
+    `grace_s`, and reap those that are this process's children: the
+    command lines found."""
+    found = descendants(root)
+    for sig in (signal.SIGTERM, signal.SIGKILL):
+        for pid, _ in descendants(root):
+            with contextlib.suppress(ProcessLookupError):
+                os.kill(pid, sig)
+        deadline = time.monotonic() + grace_s
+        while time.monotonic() < deadline:
+            for pid, _ in descendants(os.getpid()):
+                with contextlib.suppress(ChildProcessError):
+                    os.waitpid(pid, os.WNOHANG)
+            if not descendants(root):
+                return [cmd for _, cmd in found]
+            time.sleep(0.05)
+    check(not descendants(root), f"processes left below {root}: "
+          f"{descendants(root)}")
+    return [cmd for _, cmd in found]
+
+
+def stop_children() -> list:
+    """The resource tracker stopped (it ignores SIGTERM and would
+    outlive this process until it reads EOF), then every other
+    descendant: the command lines found."""
+    import multiprocessing.resource_tracker as rt
+
+    tracker = rt._resource_tracker
+    stopped = []
+    if tracker._pid is not None:
+        stopped.append("multiprocessing resource tracker "
+                       f"(pid {tracker._pid})")
+        tracker._stop()
+    return stopped + stop_tree(os.getpid())
 
 
 def nvidia_smi() -> str:
@@ -2887,9 +2994,16 @@ def falcon_kernel_ms(model, eng):
                 beam_top, ("decode_mma_kernel", "decode_split_kernel")) / L}
 
 
+# Falcon-7B's launcher phase runs half its depth: the whole smoke must fit
+# its time limit beside the parallel phase, and a cut of depth
+# leaves every width, kernel shape and route as it was
+FALCON_LAYERS = 16
+
+
 def launcher_falcon(kernels, init_std):
-    """Falcon-7B at full width and depth (32 layers, hidden 4544, 71
-    query heads on 1 KV head, d 64, ffn 18176, vocab 65024), random bf16
+    """Falcon-7B at full width and FALCON_LAYERS of its 32 layers (hidden
+    4544, 71 query heads on 1 KV head, d 64, ffn 18176, vocab 65024),
+    random bf16
     weights from a seed written as a release by `save_checkpoint(
     release=True)` (the layout hf2native writes); the converters checked
     at full width and 2 layers (native2hf then hf2native through the
@@ -2902,7 +3016,8 @@ def launcher_falcon(kernels, init_std):
         "falcon", "falcon_2l", "hf_falcon_2l", "falcon_2l_back"))
     for d in (rel_dir, small, hf2, back):
         shutil.rmtree(d, ignore_errors=True)
-    cfg = falcon_config(7, params_dtype=torch.bfloat16,
+    cfg = falcon_config(7, num_layers=FALCON_LAYERS,
+                        params_dtype=torch.bfloat16,
                         compute_dtype=torch.bfloat16,
                         init_method_std=init_std)
     check(dec.decode_design(torch.bfloat16, cfg.q_per_kv) == "tensor_cores",
@@ -3777,6 +3892,9 @@ def train_remat(kernels, cfg, text):
 
 
 FT_LAYERS, FT_SEQ, FT_STEPS, FT_MICRO, FT_EVAL_INTERVAL = 4, 4096, 6, 4, 3
+# the entry path's save-and-resume runs (phase 18): four 8.0 GB commits
+# at 2 layers where 4 layers make them 12.86 GB each
+FT_ENTRY_LAYERS = 2
 FT_CORPUS_TOKENS = 1_500_000
 FT_DIR = Path(__file__).resolve().parent / "build" / "finetune_smoke"
 
@@ -3797,10 +3915,11 @@ def write_corpus(path, seed):
 
 def finetune_argv(data, save, *extra):
     """`python -m megatron_llm_tpu_torch.finetune`'s flags: Llama-2-7B
-    widths at FT_LAYERS of 32 layers, seq 4096, 4 microbatches of 1,
-    bf16 on fp32 AdamW as in the train phase (lr 3e-4 held constant),
+    widths at FT_ENTRY_LAYERS of 32 layers, seq 4096, 4 microbatches of
+    1, bf16 on fp32 AdamW as in the train phase (lr 3e-4 held constant),
     full recompute; eval every 3 steps, an interval save every 3."""
-    flags = (f"--model_name llama2 --model_size 7 --num_layers {FT_LAYERS} "
+    flags = (f"--model_name llama2 --model_size 7 --num_layers "
+             f"{FT_ENTRY_LAYERS} "
              f"--seq_length {FT_SEQ} --micro_batch_size 1 "
              f"--global_batch_size {FT_MICRO} --bf16 "
              f"--recompute_granularity full --lr 3e-4 "
@@ -3825,11 +3944,13 @@ def patched(obj, name, make):
         setattr(obj, name, orig)
 
 
-def finetune_run(argv, sigterm_after=None):
+def finetune_run(argv, sigterm_after=None, on_state=None):
     """One `finetune.main(argv)` with the launch counters set to 0 just
     before it, and the host facts the checks need: per step its
     iteration, loss, ms, loader ms and batch; the datasets; each save's
-    blocked ms and commit s; the load's s; the state setup resumed to."""
+    blocked ms and commit s; the load's s; the state setup resumed to;
+    the parallel context's backend and whether it staged collectives
+    through the host. `on_state(state)` sees the final state."""
     from megatron_llm_tpu_torch import data as ft_data
     from megatron_llm_tpu_torch import finetune
     from megatron_llm_tpu_torch.training import trainer as trainer_mod
@@ -3898,9 +4019,43 @@ def finetune_run(argv, sigterm_after=None):
             return rec["datasets"]
         return run
 
+    def layout(inner):
+        def run(*a, **kw):
+            ctx = inner(*a, **kw)
+            rec["parallel"] = {"backend": ctx.backend, "staged": ctx.staged,
+                               "world": ctx.world_size, "dp": ctx.dp,
+                               "tp": ctx.tp, "rank": ctx.rank,
+                               "sequence_parallel": ctx.sequence_parallel}
+            return ctx
+        return run
+
+    def clock(key):
+        def make(inner):
+            def run(*a, **kw):
+                t0 = time.perf_counter()
+                try:
+                    return inner(*a, **kw)
+                finally:
+                    rec["clock_s"][key] = rec["clock_s"].get(key, 0.0) + (
+                        time.perf_counter() - t0)
+            return run
+        return make
+
+    rec["clock_s"] = {}
     prev = signal.getsignal(signal.SIGTERM)
     with contextlib.ExitStack() as stack:
+        # where a run's seconds go: set-up, steps, saves and the wait
+        # for their commit
+        for obj, name, key in (
+                (ft_data, "build_train_valid_test_datasets", "datasets"),
+                (trainer_mod.Trainer, "setup", "setup"),
+                (trainer_mod.Trainer, "train", "train"),
+                (trainer_mod.Trainer, "train_step", "steps"),
+                (trainer_mod.Trainer, "_save", "saves"),
+                (trainer_mod.Trainer, "_wait_for_commit", "commit_wait")):
+            stack.enter_context(patched(obj, name, clock(key)))
         for obj, name, make in (
+                (finetune, "initialize_parallel", layout),
                 (trainer_mod.Trainer, "train_step", train_step),
                 (trainer_mod.Trainer, "train", train),
                 (trainer_mod.Trainer, "setup", setup),
@@ -3919,6 +4074,8 @@ def finetune_run(argv, sigterm_after=None):
     signal.signal(signal.SIGTERM, prev)
     rec["iteration"] = state.iteration
     rec["consumed"] = state.consumed_train_samples
+    if on_state is not None:
+        on_state(state)
     del state
     free_cuda()
     return rec
@@ -3928,7 +4085,7 @@ def expected_finetune_launches(steps, evals):
     """K4 runs twice a layer and microbatch (forward and the full
     recompute) and once a layer for each eval batch; K5 and K6 once a
     layer and microbatch; nothing else."""
-    L, M = FT_LAYERS, FT_MICRO
+    L, M = FT_ENTRY_LAYERS, FT_MICRO
     return {"flash_fwd": 2 * L * M * steps + L * evals,
             "flash_bwd_dq": L * M * steps, "flash_bwd_dkv": L * M * steps,
             "rmsnorm_fwd": 0, "rmsnorm_bwd": 0, "decode_attention": 0,
@@ -4058,7 +4215,7 @@ def finetune_phase(kernels, train_step_ms):
     tflops = tok_s * 6 * R["n_params"] / 1e12
     say("finetune", card=nvidia_smi(),
         config="llama2-7b widths via finetune.main",
-        layers=FT_LAYERS, seq=FT_SEQ, micro_batches=FT_MICRO,
+        layers=FT_ENTRY_LAYERS, seq=FT_SEQ, micro_batches=FT_MICRO,
         params=R["n_params"], losses_R=[r_losses[s] for s in range(1, 7)],
         losses_C=[c_losses[s] for s in (4, 5, 6)],
         resumed_iteration=C["resumed"][0],
@@ -4108,10 +4265,14 @@ RECIPE = ("--use_flash_attn --recompute_granularity selective --lr 3e-4 "
           "--adam_beta2 0.95 --adam_eps 1e-5 --hidden_dropout 0.0 "
           "--attention_dropout 0.0 --position_embedding_type rotary "
           "--rope_scaling_factor 1.0").split()
+# the recipe's parallel flags at one rank (examples/finetune.sh:12,57-62),
+# run (a) again under torchrun
+RECIPE_A4_FLAGS = ["--tensor_model_parallel_size", "1", "--sequence_parallel",
+                   "--use_distributed_optimizer"]
 RECIPE_LEFT_OUT = {
-    "--sequence_parallel": "parallelism, ROADMAP.md A4",
-    "--use_distributed_optimizer": "parallelism, ROADMAP.md A4",
-    "--tensor/pipeline/context_model_parallel_size": "1 on one card (A4)",
+    "--tensor_model_parallel_size 8": "1 on one card; tp 2 in "
+    "finetune_parallel",
+    "--pipeline/context_model_parallel_size": "the next A4 PR",
     "--tensorboard_dir, --log_timers_to_tensorboard":
         "the trainer's telemetry hooks, ROADMAP.md A3.8",
     "--save, --load, --use_checkpoint_args, --save_interval":
@@ -4144,7 +4305,10 @@ def finetune_modes(kernels, data):
     """`finetune.main` at Llama-2-7B widths (4 of 32 layers, seq 4096) in
     the single-card training modes, the counters set to 0 before each
     run: (a) the fine-tuning recipe's training flags (flash, selective
-    recompute, bf16, its AdamW): K4 once a layer and microbatch; (b) the
+    recompute, bf16, its AdamW): K4 once a layer and microbatch, and
+    again under torchrun with the recipe's parallel flags at world size
+    1 (its record is returned, for
+    finetune_parallel); (b) the
     same in fp16 with the default dynamic scaler from 2^32: the scale and
     skip sequence follows the scaler's rule, the scale comes down and at
     least three steps are taken, K4-K6 run their fp16 instantiations;
@@ -4154,8 +4318,12 @@ def finetune_modes(kernels, data):
     (the recompute draws the same masks). Printed with the card's name
     and power limit: ms a step, losses, the sequences, launches."""
     out = {}
-    a = finetune_run(mode_argv(data, *RECIPE, "--bf16", "--train_iters",
-                               "4"))
+    recipe = mode_argv(data, *RECIPE, "--bf16", "--train_iters", "4")
+    # (a), and again under torchrun with the recipe's parallel flags: an
+    # NCCL group of world size 1, where every mapping is the identity
+    # and ZeRO-1 at dp 1 the replicated AdamW
+    a = finetune_run(recipe)
+    a_a4 = run_ranks([recipe + RECIPE_A4_FLAGS], nproc=1)[0][0][0]
     b = finetune_run(mode_argv(data, *RECIPE, "--fp16", "--train_iters",
                                str(FP16_STEPS)))
     drop = ["--hidden_dropout", "0.1", "--attention_dropout", "0.1",
@@ -4165,7 +4333,8 @@ def finetune_modes(kernels, data):
                                "full", "--train_iters", "3"))
     c_none = finetune_run(mode_argv(data, *drop, "--train_iters", "1"))
     L, M = FT_LAYERS, FT_MICRO
-    for name, run, steps in (("a", a, 4), ("b", b, FP16_STEPS)):
+    for name, run, steps in (("a", a, 4), ("b", b, FP16_STEPS),
+                             ("a_a4", a_a4, 4)):
         want = {"flash_fwd": L * M * steps, "flash_bwd_dq": L * M * steps,
                 "flash_bwd_dkv": L * M * steps, "rmsnorm_fwd": 0,
                 "rmsnorm_bwd": 0, "decode_attention": 0,
@@ -4187,12 +4356,28 @@ def finetune_modes(kernels, data):
           f"fp16: scale {scales}, skips {skipped}")
     check(all(st["skipped"] == 0 for st in a["stats"] + c["stats"]),
           "finetune_modes: a bf16 step was skipped")
+    check(a_a4["launches"] == a["launches"],
+          f"finetune_modes (a) with the A4 flags launched "
+          f"{a_a4['launches']} != {a['launches']}")
+    check(a_a4["parallel"] == {"backend": "nccl", "staged": False,
+                               "world": 1, "dp": 1, "tp": 1, "rank": 0,
+                               "sequence_parallel": False},
+          f"finetune_modes (a) under torchrun: {a_a4.get('parallel')}")
+    a4_equal = [x["loss"] == y["loss"] and x["grad_norm"] == y["grad_norm"]
+                for x, y in zip(a["stats"], a_a4["stats"])]
+    check(all(abs(x["loss"] - y["loss"]) <= BF16_TOL
+              and abs(x["grad_norm"] - y["grad_norm"])
+              <= PATH_LP_TOL * y["grad_norm"]
+              for x, y in zip(a["stats"], a_a4["stats"])),
+          f"finetune_modes (a): the A4 flags moved the run: "
+          f"{a_a4['stats']} != {a['stats']}")
     g_full, g_none = c["stats"][0]["grad_norm"], c_none["stats"][0][
         "grad_norm"]
     check(c["stats"][0]["loss"] == c_none["stats"][0]["loss"]
           and abs(g_full - g_none) <= 1e-6 * g_none,
           f"dropout: full {c['stats'][0]} != none {c_none['stats'][0]}")
-    for name, run in (("a_recipe", a), ("b_fp16", b), ("c_dropout_full", c),
+    for name, run in (("a_recipe", a), ("a_recipe_a4_flags", a_a4),
+                      ("b_fp16", b), ("c_dropout_full", c),
                       ("c_dropout_none", c_none)):
         ms = [st["ms"] for st in run["steps"]]
         out[name] = {
@@ -4203,14 +4388,347 @@ def finetune_modes(kernels, data):
             "wall_s": run["wall_s"]}
     out["b_fp16"].update(loss_scales=scales, skipped=skipped,
                          clean_steps=skipped.count(0))
+    ms_ratio = out["a_recipe_a4_flags"]["step_ms_median"] \
+        / out["a_recipe"]["step_ms_median"]
+    out["a_recipe_a4_flags"].update(
+        argv_extra=" ".join(RECIPE_A4_FLAGS), launcher="torchrun "
+        "--nproc_per_node 1 (NCCL, world size 1)",
+        bitwise_equal_by_step=a4_equal,
+        step_ms_ratio_to_a_recipe=ms_ratio)
+    check(abs(ms_ratio - 1.0) <= 0.03,
+          f"finetune_modes (a): the A4 flags cost {ms_ratio:.4f}x a step")
     say("finetune_modes", card=nvidia_smi(), layers=FT_LAYERS, seq=FT_SEQ,
         micro_batches=FT_MICRO, recipe_flags=" ".join(RECIPE),
         recipe_left_out=RECIPE_LEFT_OUT, runs=out,
         dropout_step1_grad_norm={"full": g_full, "none": g_none,
                                  "bitwise_equal": g_full == g_none})
-    for path, run in (("finetune_modes", a), ("finetune_modes", b)):
+    for path, run in (("finetune_modes", a), ("finetune_modes", b),
+                      ("finetune_modes", a_a4)):
         add_launches(kernels, path, run["launches"], run["fp16"])
-    shutil.rmtree(FT_DIR)
+    return a
+
+
+# ---------------------------------------------------------------------------
+# ranks in processes of their own: finetune.main under torchrun
+# ---------------------------------------------------------------------------
+
+# tp 2 x dp 2 with the recipe's parallel flags, four ranks sharing the card
+# through gloo (NCCL cannot put two ranks on one device)
+PAR_FLAGS = ["--tensor_model_parallel_size", "2", "--sequence_parallel",
+             "--use_distributed_optimizer", "--distributed_backend", "gloo"]
+PAR_RANKS, PAR_TP, PAR_DP = 4, 2, 2
+RANK_TIMEOUT_S = 600
+# a positional checksum: any changed bit of a leaf changes it
+_FP_CHUNK, _FP_MOD = 1 << 24, 65521
+
+
+def fingerprint(x: torch.Tensor) -> int:
+    """sum(bits[i] * (i % 65521 + 1)) mod 2^64 over the leaf's raw bits,
+    in chunks on the card (the sum wraps, so its order does not
+    matter)."""
+    flat = x.detach().contiguous().view(-1)
+    bits = flat.view(torch.int32 if flat.element_size() == 4
+                     else torch.int16)
+    total = 0
+    for lo in range(0, bits.numel(), _FP_CHUNK):
+        chunk = bits[lo:lo + _FP_CHUNK].to("cuda", torch.int64)
+        w = (torch.arange(lo, lo + chunk.numel(), device="cuda")
+             % _FP_MOD) + 1
+        total += int((chunk * w).sum())
+    return total % (1 << 64)
+
+
+def state_fingerprints(state) -> dict:
+    """Leaf name (the checkpoint files' names) -> fingerprint of this
+    rank's piece."""
+    out = {k: fingerprint(v) for k, v in ckpt.flatten(state.params).items()}
+    for prefix, tree in (("m.", state.opt_state.m),
+                         ("v.", state.opt_state.v)):
+        out.update({prefix + k: fingerprint(v)
+                    for k, v in ckpt.flatten(tree).items()})
+    return out
+
+
+def finetune_rank(out_dir, argvs_file):
+    """Rank mode (`chip_smoke.py --finetune-rank OUT ARGVS`, one process
+    per rank under torchrun, or alone): `finetune.main` for each argv of
+    the JSON list in ARGVS, each with the counters set to 0 just before
+    it; writes OUT/rank<RANK>.json with each run's step stats, host
+    facts, launches, peak memory and the final state's fingerprints."""
+    argvs = json.loads(Path(argvs_file).read_text())
+    runs = []
+    for argv in argvs:
+        fps = {}
+        torch.cuda.reset_peak_memory_stats()
+        rec = finetune_run(argv, on_state=lambda st: fps.update(
+            state_fingerprints(st)))
+        keep = ("stats", "steps", "launches", "fp16", "wall_s", "saves",
+                "commits", "loads", "iteration", "consumed", "resumed",
+                "parallel", "n_params", "clock_s")
+        out = {k: rec[k] for k in keep if k in rec}
+        out.update(peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   fingerprints={k: str(v) for k, v in fps.items()})
+        runs.append(out)
+        print(f"rank {os.environ.get('RANK', '0')}: run {len(runs)} "
+              f"wall {rec['wall_s']:.1f} s, commits {rec['commits']}, "
+              f"loads {rec['loads']}, peak {out['peak_gb']:.2f} GB",
+              flush=True)
+    rank = int(os.environ.get("RANK", "0"))
+    (Path(out_dir) / f"rank{rank}.json").write_text(json.dumps(runs))
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        dist.destroy_process_group()
+    return 0
+
+
+def run_ranks(argvs, nproc=None, timeout_s=RANK_TIMEOUT_S):
+    """`finetune.main` for each argv in turn in `nproc` ranks under
+    torchrun (world size nproc), or in one plain process for None: the
+    rank records in rank order and rank 0's log. Past `timeout_s` every
+    process of the run is killed and the phase fails."""
+    out = FT_DIR / f"ranks-{time.monotonic_ns()}"
+    out.mkdir(parents=True)
+    (out / "argv.json").write_text(json.dumps(argvs))
+    mode = [str(Path(__file__).resolve()), "--finetune-rank", str(out),
+            str(out / "argv.json")]
+    cmd = [sys.executable, *mode] if nproc is None else [
+        sys.executable, "-m", "torch.distributed.run", "--standalone",
+        "--nproc_per_node", str(nproc), *mode]
+    log = out / "log.txt"
+    with open(log, "w") as f:
+        proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT,
+                                start_new_session=True)
+        try:
+            proc.wait(timeout=timeout_s)
+        except subprocess.TimeoutExpired:
+            pass
+        finally:
+            if proc.poll() is None:
+                # the ranks run in sessions of their own: stop them by
+                # the process tree, then torchrun
+                stop_tree(proc.pid)
+                proc.kill()
+                proc.wait()
+    text = log.read_text()
+    check(proc.returncode == 0, f"ranks exited {proc.returncode} "
+          f"({' '.join(cmd[:6])} ...):\n{text[-6000:]}")
+    recs = [json.loads((out / f"rank{r}.json").read_text())
+            for r in range(nproc or 1)]
+    shutil.rmtree(out)
+    return recs, text
+
+
+def parallel_expected_launches(steps):
+    """K4 once a layer and local microbatch under selective recompute
+    (the forward keeps its output), K5 and K6 once; no eval."""
+    n = FT_LAYERS * FT_MICRO // PAR_DP * steps
+    return {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n,
+            "rmsnorm_fwd": 0, "rmsnorm_bwd": 0, "decode_attention": 0,
+            "ragged_paged_attention": 0}
+
+
+def check_parallel_checkpoint(ck_dir, rank_fps, bucket_mb=4.0):
+    """Cut every leaf of the checkpoint the tracker names into each
+    rank's tp2 x dp2 piece, as a resume would, and hold its fingerprint
+    to the piece the rank saved: (leaves checked, iteration). Each leaf
+    is read once and cut on the card."""
+    from types import SimpleNamespace
+
+    from megatron_llm_tpu_torch.training.trainer import StateLayout
+
+    path, meta = ckpt.tracked_checkpoint(ck_dir)
+    model = torch.load(os.path.join(path, "model"), map_location="cpu",
+                       mmap=True, weights_only=True)
+    optim = torch.load(os.path.join(path, "optim"), map_location="cpu",
+                       mmap=True, weights_only=True)
+    tmpl = ckpt.unflatten({k: torch.empty(v.shape, dtype=v.dtype,
+                                          device="meta")
+                           for k, v in model.items()})
+    leaves = dict(model)
+    leaves.update({k: v for k, v in optim.items()
+                   if k.startswith(("m.", "v."))})
+    layouts = []
+    for r, fps in enumerate(rank_fps):
+        check(set(leaves) == set(fps), f"rank {r}: checkpoint leaves "
+              f"{sorted(set(leaves) ^ set(fps))[:4]} differ")
+        ctx = SimpleNamespace(tp=PAR_TP, dp=PAR_DP, tp_rank=r % PAR_TP,
+                              dp_rank=r // PAR_TP)
+        layouts.append(StateLayout(ctx, None, tmpl, zero1=True,
+                                   bucket_mb=bucket_mb))
+    checked = 0
+    for name, leaf in leaves.items():
+        whole = leaf.to("cuda")
+        for r, (lay, fps) in enumerate(zip(layouts, rank_fps)):
+            got = str(fingerprint(lay.shard(name, whole)))
+            check(got == fps[name], f"rank {r}: {name} in the checkpoint "
+                  f"is not the rank's saved piece")
+            checked += 1
+        del whole
+    del model, optim, leaves
+    return checked, meta["iteration"]
+
+
+def finetune_parallel(kernels, data, one):
+    """`torchrun --nproc_per_node 4 ... finetune.main` at tp 2 x dp 2
+    with sequence parallelism and ZeRO-1 over gloo, the four ranks on
+    cuda:0, on the recipe's flags at Llama-2-7B widths (4 of 32 layers,
+    seq 4096, selective recompute, bf16, global batch 4): 3 steps and a
+    save, then the same ranks resume it for step 4; world size 1 resumes
+    it too. Held to `one` (finetune_modes' run (a): world size 1, the
+    same weights and batches): losses within 2e-2, grad norms within
+    5e-2; the checkpoint cut back into each rank's pieces bit for bit;
+    K4-K6 launches per rank as the layout implies; per-rank peak
+    memory."""
+    ck = FT_DIR / "parallel_ck"
+    base = mode_argv(data, *RECIPE, "--bf16", "--train_iters", "4")
+    t0 = time.perf_counter()
+    ranks, log = run_ranks(
+        [base + PAR_FLAGS + ["--exit_interval", "3", "--save_interval", "3",
+                             "--save", str(ck)],
+         base + PAR_FLAGS + ["--load", str(ck)]], nproc=PAR_RANKS)
+    ranks_s = time.perf_counter() - t0
+    first = [r[0] for r in ranks]
+    resumed = [r[1] for r in ranks]
+    ref = one["stats"]
+    for r, run in enumerate(first):
+        check(run["parallel"] == {"backend": "gloo", "staged": True,
+                                  "world": 4, "dp": PAR_DP, "tp": PAR_TP,
+                                  "rank": r, "sequence_parallel": True},
+              f"rank {r}: layout {run.get('parallel')}")
+        check(run["stats"] == first[0]["stats"],
+              f"rank {r} reports another global loss or grad norm")
+        check(run["launches"] == parallel_expected_launches(3),
+              f"rank {r} launches {run['launches']} != "
+              f"{parallel_expected_launches(3)}")
+        check(resumed[r]["resumed"] == [3, 12] and resumed[r]["launches"]
+              == parallel_expected_launches(1),
+              f"rank {r} resumed {resumed[r].get('resumed')} with "
+              f"{resumed[r]['launches']}")
+    loss_err = [abs(x["loss"] - y["loss"]) for x, y in
+                zip(first[0]["stats"], ref)]
+    gnorm_err = [abs(x["grad_norm"] - y["grad_norm"]) / y["grad_norm"]
+                 for x, y in zip(first[0]["stats"], ref)]
+    check(len(loss_err) == 3 and max(loss_err) <= BF16_TOL
+          and max(gnorm_err) <= PATH_LP_TOL,
+          f"tp2 x dp2 against world size 1: loss err {loss_err}, grad "
+          f"norm rel err {gnorm_err}")
+    leaves, iteration = check_parallel_checkpoint(
+        ck, [run["fingerprints"] for run in first])
+    check(iteration == 3, f"the save is at iteration {iteration}")
+    t0 = time.perf_counter()
+    ws1 = finetune_run(base + ["--load", str(ck)])
+    ws1_s = time.perf_counter() - t0
+    step4 = {"tp2_dp2_resumed": resumed[0]["stats"][0]["loss"],
+             "world1_resumed": ws1["stats"][0]["loss"],
+             "world1_uninterrupted": ref[3]["loss"]}
+    check(ws1["resumed"] == (3, 12) and abs(
+        step4["world1_resumed"] - step4["tp2_dp2_resumed"]) <= BF16_TOL
+        and abs(step4["world1_resumed"] - step4["world1_uninterrupted"])
+        <= BF16_TOL, f"step 4 after the resume: {step4}")
+    ckpt_bytes = dir_bytes(os.path.join(ck, "iter_0000003"))
+    shutil.rmtree(ck)
+    ms = [s["ms"] for s in first[0]["steps"]]
+    peak = [run["peak_gb"] for run in first]
+    say("finetune_parallel", card=nvidia_smi(),
+        launcher=f"torchrun --nproc_per_node {PAR_RANKS} chip_smoke.py "
+        f"--finetune-rank (finetune.main in each rank)",
+        flags=" ".join(PAR_FLAGS), layout="tp 2 x dp 2, sequence parallel, "
+        "ZeRO-1, every rank on cuda:0", backend="gloo",
+        collectives_staged_through_host=first[0]["parallel"]["staged"],
+        layers=FT_LAYERS, seq=FT_SEQ, global_batch=FT_MICRO,
+        losses=[x["loss"] for x in first[0]["stats"]],
+        losses_world1=[y["loss"] for y in ref[:3]],
+        grad_norms=[x["grad_norm"] for x in first[0]["stats"]],
+        grad_norms_world1=[y["grad_norm"] for y in ref[:3]],
+        loss_abs_err=loss_err, grad_norm_rel_err=gnorm_err,
+        tol={"loss": BF16_TOL, "grad_norm_rel": PATH_LP_TOL},
+        step_ms=ms, step_ms_label="gloo through the host, one card shared "
+        "by 4 ranks (not comparable with a one-rank step)",
+        step_ms_world1=[s["ms"] for s in one["steps"]],
+        peak_gb_per_rank=peak, peak_gb_sum=sum(peak),
+        launches_per_rank=[run["launches"] for run in first],
+        expected_launches_per_rank=parallel_expected_launches(3),
+        checkpoint_leaves_checked=leaves, checkpoint_bytes=ckpt_bytes,
+        saves_blocked_ms=first[0]["saves"], commits_s=first[0]["commits"],
+        load_s_per_rank=[run["loads"] for run in resumed],
+        load_s_world1=ws1["loads"], step4_losses=step4,
+        ranks_wall_s=ranks_s, world1_resume_wall_s=ws1_s,
+        rank0_run_wall_s=[first[0]["wall_s"], resumed[0]["wall_s"]],
+        rank0_clock_s=[first[0]["clock_s"], resumed[0]["clock_s"]],
+        quantized_grad_reduce="not run on the card (CPU tests only)",
+        rank0_log_tail=log[-1500:])
+    for row in kernels:
+        name = row["name"]
+        if name in FLASH_WRAPPERS:
+            per = [run["launches"][name] + res["launches"][name]
+                   for run, res in zip(first, resumed)]
+            row["launches_by_path"]["finetune_parallel"] = sum(per)
+            row.setdefault("launches_per_rank", {})[
+                "finetune_parallel"] = per
+            row["launches"] = sum(row["launches_by_path"].values())
+
+
+def time_flash_tp2(kernels):
+    """K4, K5 and K6 at a tp 2 rank's attention shape (Llama-2-7B's 32
+    heads over 2 ranks: b 1, s 4096, g 16, qpk 1, d 128, causal), their
+    errors against the plain versions, beside SDPA's forward and
+    backward at the same shape."""
+    shape = (1, 4096, 4096, 16, 1, 128, True)
+    b, s, t, g, qpk, d, causal = shape
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 12)
+    q, k, v, do = flash_inputs(shape, gen)
+    errs = flash_errors(q, k, v, do, causal)
+    check(errs["o"] <= BF16_TOL and all(
+        errs[n + "_rel"] <= BF16_TOL for n in ("dq", "dk", "dv")),
+        f"K4-K6 at the tp2 shape: {errs}")
+    o, lse = fa._fwd(q, k, v, causal)
+    qf, kf, vf, dof = fa._fold_q(q), fa._fold_kv(k), fa._fold_kv(v), \
+        fa._fold_q(do)
+    delta = fa._delta_rows(o, do).contiguous()
+    ms = {
+        "fwd": device_ms(lambda: fa.flash_fwd(qf, kf, vf, qpk, causal),
+                         per_graph=5, replays=4),
+        "dq": device_ms(lambda: fa.flash_bwd_dq(qf, kf, vf, dof, lse, delta,
+                                                qpk, causal),
+                        per_graph=5, replays=4),
+        "dkv": device_ms(lambda: fa.flash_bwd_dkv(qf, kf, vf, dof, lse,
+                                                  delta, qpk, causal),
+                         per_graph=5, replays=4)}
+    plain = {
+        "fwd": device_ms(lambda: fa._xla_reference_with_lse(q, k, v, causal),
+                         per_graph=2, replays=3),
+        "bwd": device_ms(lambda: fa._plain_bwd(q, k, v, o, lse, do, causal),
+                         per_graph=1, replays=3)}
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    qs = q.reshape(b, s, g * qpk, d).transpose(1, 2).detach() \
+        .requires_grad_(True)
+    ks = k.transpose(1, 2).detach().requires_grad_(True)
+    vs = v.transpose(1, 2).detach().requires_grad_(True)
+    dos = do.reshape(b, s, g * qpk, d).transpose(1, 2)
+    with torch.no_grad():
+        lib_fwd = device_ms(lambda: sdpa(qs, ks, vs, is_causal=causal),
+                            per_graph=5, replays=4)
+    ys = sdpa(qs, ks, vs, is_causal=causal)
+    lib_bwd = profiled_ms(lambda: torch.autograd.grad(
+        ys, (qs, ks, vs), dos, retain_graph=True), iters=10)
+    del ys, qs, ks, vs
+    bounds = flash_bounds(shape)
+    label = f"b{b} s{s} g{g} qpk{qpk} d{d} causal bf16 (a tp 2 rank)"
+    say("kernel_time_flash_tp2", card=nvidia_smi(), shape=label, ms=ms,
+        plain_ms=plain, library_fwd_ms=lib_fwd, library_bwd_ms=lib_bwd,
+        bound_ms={n: bounds[n][0] for n in bounds}, max_abs_err=errs)
+    for row in kernels:
+        which = {"flash_fwd": "fwd", "flash_bwd_dq": "dq",
+                 "flash_bwd_dkv": "dkv"}.get(row["name"])
+        if which is not None:
+            row["tp2_rank_shape"] = {
+                "shape": label, "ms": ms[which],
+                "plain_ms": plain["fwd" if which == "fwd" else "bwd"],
+                "library_ms": lib_fwd if which == "fwd" else lib_bwd,
+                "bound_ms": bounds[which][0],
+                "bound_by": bounds[which][1]}
+    torch.cuda.empty_cache()
 
 
 def _leaves(tree):
@@ -4225,10 +4743,25 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--init-std", type=float, default=INIT_STD,
                     help="std of the random 7B weights (default %(default)s)")
+    ap.add_argument("--finetune-rank", nargs=2, metavar=("OUT", "ARGVS"),
+                    help="rank mode: finetune.main for each argv of the "
+                         "JSON list ARGVS, records to OUT (what the "
+                         "smoke's torchrun phases start)")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 2
+    if args.finetune_rank:
+        return finetune_rank(*args.finetune_rank)
+    become_subreaper()
+    try:
+        return smoke(args)
+    finally:
+        # a failed phase's processes (none left after a whole run)
+        stop_children()
+
+
+def smoke(args) -> int:
     t_start = time.perf_counter()
     seconds = {}
 
@@ -4252,6 +4785,7 @@ def main() -> int:
     kernels += check_flash_kernels()
     seconds["kernel_checks"] = round(time.perf_counter() - t0, 1)
     kernels += timed("kernel_checks_fp16", check_flash_fp16)
+    timed("kernel_time_flash_tp2", time_flash_tp2, kernels)
     torch.cuda.empty_cache()
     model = timed("model", build_model, args.init_std)
     whole_batch = timed("serving", serve_whole_batch, kernels, *model)
@@ -4290,9 +4824,12 @@ def main() -> int:
     free_cuda()
     timed("train_remat", train_remat, kernels, train_cfg, text)
     data = timed("finetune", finetune_phase, kernels, train_ms)
-    timed("finetune_modes", finetune_modes, kernels, data)
+    one = timed("finetune_modes", finetune_modes, kernels, data)
+    timed("finetune_parallel", finetune_parallel, kernels, data, one)
+    shutil.rmtree(FT_DIR)
     say("phase_seconds", card=smi, **seconds,
         total_s=round(time.perf_counter() - t_start, 1))
+    say("processes_stopped", left_running=stop_children())
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -9,12 +9,16 @@ the port's `ModelConfig` (torch dtypes), `ParallelConfig` and
 
 A flag that selects a part of the system the port does not run yet
 raises ValueError naming its slice of ROADMAP.md, never silently
-ignored: tensor, pipeline, context and data parallelism and the
-distributed optimizer (A4), the telemetry flags (A3.8), and the BERT and
-T5 families and post-LN layers (A6). GPT, Llama, CodeLlama and Falcon
+ignored: pipeline and context parallelism and the overlap schedulers
+(the next A4 PR), the telemetry flags (A3.8), and the BERT and T5
+families and post-LN layers (A6). GPT, Llama, CodeLlama and Falcon
 (with its parallel attention and parallel layernorm) build, with every
-single-card training mode: the recompute policies and block recompute,
-fp16 with its loss scaler, and hidden, attention and LIMA dropout.
+single-card training mode (the recompute policies and block recompute,
+fp16 with its loss scaler, hidden, attention and LIMA dropout) and
+tensor, sequence and data parallelism with the ZeRO-1 optimizer under
+torchrun. `--distributed_backend {nccl,gloo}` is the reference's flag,
+which the JAX package descopes (XLA has no backend choice): torch
+needs one, so the port takes it (ROADMAP.md C, accepted divergences).
 """
 
 from __future__ import annotations
@@ -90,8 +94,8 @@ SUBSUMED_FLAGS = {
     "--no_gradient_accumulation_fusion":
         "no fused wgrad-accumulation kernel exists to disable",
     "--no_async_tensor_model_parallel_allreduce":
-        "one card: there is no tensor-parallel all-reduce to make "
-        "synchronous",
+        "the tensor-parallel all-reduces are synchronous "
+        "(parallel/mappings.py)",
     "--no_contiguous_buffers_in_local_ddp":
         "one card: no DDP buffers",
     "--empty_unused_memory_level":
@@ -99,10 +103,9 @@ SUBSUMED_FLAGS = {
         "level 0)",
     "--use_ring_exchange_p2p":
         "one card: no pipeline stage transfers",
-    "--distributed_backend":
-        "one card: no collective backend to choose",
     "--local_rank":
-        "one process drives the card; no per-rank launcher plumbing",
+        "torchrun's LOCAL_RANK picks each rank's card "
+        "(parallel/mesh.py rank_device)",
     "--use_cpu_initialization":
         "params are drawn on the training device from a seeded generator",
     "--no_initialization":
@@ -111,7 +114,8 @@ SUBSUMED_FLAGS = {
         "query-key layer scaling is never applied (fp32 softmax makes the "
         "fp16-overflow workaround unnecessary)",
     "--distribute_saved_activations":
-        "one card: saved activations are not sharded",
+        "recompute checkpoints keep whole activations; under sequence "
+        "parallelism they are the rank's sequence shard",
     "--no_scatter_gather_tensors_in_pipeline":
         "one card: no pipeline boundary tensors",
     "--num_workers":
@@ -201,7 +205,7 @@ ENTRY_SCRIPT_FLAGS = {
 }
 
 _A3_8 = "the trainer's telemetry hooks (ROADMAP.md A3.8)"
-_A4 = "parallelism (ROADMAP.md A4)"
+_A4 = "the next A4 PR (ROADMAP.md A4)"
 _A6 = "the remaining model families (ROADMAP.md A6)"
 
 # flags of later slices (parser dest -> the slice): a value other than
@@ -219,12 +223,9 @@ LATER_FLAGS = {
         "perf_sentinel_ksigma", "perf_sentinel_window",
         "perf_sentinel_patience"), _A3_8),
     **dict.fromkeys((
-        "tensor_model_parallel_size", "pipeline_model_parallel_size",
-        "context_parallel_size", "sequence_parallel",
-        "use_distributed_optimizer", "grad_rs_bucket_mb",
-        "quantized_grad_reduce", "overlap_grad_reduce",
-        "overlap_param_gather", "async_pipeline_dispatch",
-        "pipeline_remat"), _A4),
+        "pipeline_model_parallel_size", "context_parallel_size",
+        "overlap_grad_reduce", "overlap_param_gather",
+        "async_pipeline_dispatch", "pipeline_remat"), _A4),
     "use_post_ln": _A6,
 }
 
@@ -367,6 +368,10 @@ def build_base_parser() -> argparse.ArgumentParser:
     g.add_argument("--pipeline_remat", default="tick",
                    choices=["tick", "full", "selective", "dots",
                             "save_dots", "offload", "none"])
+    g.add_argument("--distributed_backend", default=None,
+                   choices=["nccl", "gloo"],
+                   help="torch.distributed backend (default: nccl for "
+                        "CUDA, gloo for the CPU)")
 
     g = p.add_argument_group("validation")
     g.add_argument("--eval_iters", type=int, default=100)
@@ -447,15 +452,16 @@ def _check_later_flags(args) -> None:
     for dest, slice_name in LATER_FLAGS.items():
         if getattr(args, dest) != defaults.get_default(dest):
             raise ValueError(f"--{dest} is not ported yet ({slice_name})")
-    if args.data_parallel_size not in (None, 1):
-        raise ValueError(f"--data_parallel_size {args.data_parallel_size} "
-                         f"is not ported yet ({_A4})")
 
 
-def args_to_configs(args, padded_vocab_size: int):
+def args_to_configs(args, padded_vocab_size: int,
+                    world_size: Optional[int] = None):
     """(ModelConfig, ParallelConfig, TrainConfig, DataArgs) of the parsed
-    namespace, with the JAX package's derivations (padded vocabulary,
-    global batch, microbatch count, max positions from seq_length)."""
+    namespace, with the JAX package's derivations (padded vocabulary to
+    a multiple of make_vocab_size_divisible_by * tp, global batch,
+    microbatch count per rank, max positions from seq_length).
+    `--data_parallel_size` defaults to the ranks the layout leaves:
+    `world_size` (the process group's, 1 without one) over tp."""
     for flag, reason in DESCOPED_FLAGS.items():
         if getattr(args, "_descoped_" + flag.lstrip("-"), None) is not None:
             raise SystemExit(f"{flag}: unsupported - {reason}")
@@ -497,31 +503,46 @@ def args_to_configs(args, padded_vocab_size: int):
         overrides["params_dtype"] = torch.float32
         overrides["compute_dtype"] = torch.float16
 
+    tp = args.tensor_model_parallel_size
     name = args.model_name
     if name in ("llama", "llama2"):
         mcfg = llama_config(args.model_size,
                             version=1 if name == "llama" else 2,
-                            seq_length=args.seq_length, **overrides)
+                            seq_length=args.seq_length, tp=tp, **overrides)
     elif name == "codellama":
         mcfg = codellama_config(args.model_size, seq_length=args.seq_length,
                                 **overrides)
     elif name == "falcon":
         mcfg = falcon_config(args.model_size, seq_length=args.seq_length,
-                             **overrides)
+                             tp=tp, **overrides)
     elif name == "gpt":
         mcfg = gpt_config(
             num_layers=overrides.pop("num_layers", 12),
             hidden_size=overrides.pop("hidden_size", 768),
             num_attention_heads=overrides.pop("num_attention_heads", 12),
-            seq_length=args.seq_length, **overrides)
+            seq_length=args.seq_length, tp=tp, **overrides)
     else:
         raise ValueError(f"--model_name {name} is not ported yet ({_A6})")
     if padded_vocab_size:
         mcfg = dataclasses.replace(
-            mcfg, padded_vocab_size=mcfg.pad_vocab_size(padded_vocab_size))
+            mcfg, padded_vocab_size=mcfg.pad_vocab_size(padded_vocab_size,
+                                                        tp))
 
-    gbs = args.global_batch_size or args.micro_batch_size
-    pcfg = ParallelConfig(num_microbatches=gbs // args.micro_batch_size)
+    if world_size is None:
+        import torch.distributed as dist
+
+        world_size = dist.get_world_size() if dist.is_initialized() else 1
+    dp = args.data_parallel_size
+    if dp is None:
+        dp = max(1, world_size // tp)
+    gbs = args.global_batch_size or args.micro_batch_size * dp
+    pcfg = ParallelConfig(
+        data_parallel_size=dp, tensor_parallel_size=tp,
+        sequence_parallel=args.sequence_parallel,
+        use_distributed_optimizer=args.use_distributed_optimizer,
+        grad_rs_bucket_mb=args.grad_rs_bucket_mb,
+        quantized_grad_reduce=args.quantized_grad_reduce,
+        num_microbatches=gbs // (args.micro_batch_size * dp))
     tcfg = TrainConfig(
         micro_batch_size=args.micro_batch_size,
         global_batch_size=gbs,

@@ -322,31 +322,73 @@ def tiny_config(**overrides) -> ModelConfig:
 
 @dataclass(frozen=True)
 class ParallelConfig:
-    """Device layout (JAX: config.py ParallelConfig). This slice trains on
-    one card: data, tensor, pipeline and context parallel sizes are 1 and
-    anything else raises (the parallelism slice, ROADMAP.md A4).
-    `num_microbatches` is the gradient-accumulation count."""
+    """Device layout (JAX: config.py ParallelConfig): data and tensor
+    parallelism with sequence parallelism and the ZeRO-1 optimizer, with
+    the JAX package's validations (:346-420). Pipeline and context
+    parallelism and the overlap schedulers raise, naming the next A4 PR.
+    `num_microbatches` is each rank's gradient-accumulation count."""
 
     data_parallel_size: int = 1
     pipeline_parallel_size: int = 1
     tensor_parallel_size: int = 1
     context_parallel_size: int = 1
+    # Korthikanti sequence parallelism over the tp group; forced off at
+    # tp = 1 as the reference does
+    sequence_parallel: bool = False
+    # ZeRO-1 over the dp group (optimizer/zero1.py); at dp = 1 it is the
+    # replicated optimizer
+    use_distributed_optimizer: bool = False
+    # MB of fp32 gradient per reduce-scatter bucket
+    grad_rs_bucket_mb: float = 4.0
+    # int8 gradient reduction with per-chunk fp32 scales (pure dp only)
+    quantized_grad_reduce: bool = False
+    overlap_grad_reduce: bool = False
+    overlap_param_gather: bool = False
+    async_pipeline_dispatch: bool = False
     num_microbatches: int = 1
 
     def __post_init__(self):
-        sizes = (self.data_parallel_size, self.pipeline_parallel_size,
-                 self.tensor_parallel_size, self.context_parallel_size)
-        if sizes != (1, 1, 1, 1):
+        if self.tensor_parallel_size == 1 and self.sequence_parallel:
+            object.__setattr__(self, "sequence_parallel", False)
+        for name in ("pipeline_parallel_size", "context_parallel_size"):
+            if getattr(self, name) != 1:
+                raise ValueError(f"{name}={getattr(self, name)}: pipeline "
+                                 f"and context parallelism are not ported "
+                                 f"yet (the next A4 PR, ROADMAP.md A4)")
+        for name in ("overlap_grad_reduce", "overlap_param_gather",
+                     "async_pipeline_dispatch"):
+            if getattr(self, name):
+                raise ValueError(f"{name}: the overlap schedulers are not "
+                                 f"ported yet (the next A4 PR, ROADMAP.md "
+                                 f"A4)")
+        if min(self.data_parallel_size, self.tensor_parallel_size) < 1:
+            raise ValueError(f"dp={self.data_parallel_size} "
+                             f"tp={self.tensor_parallel_size}")
+        if self.grad_rs_bucket_mb <= 0:
             raise ValueError(
-                f"dp/pp/tp/cp = {sizes}: the port trains on one card; "
-                f"data, pipeline, tensor and context parallelism belong "
-                f"to the parallelism slice (ROADMAP.md A4)")
+                f"grad_rs_bucket_mb={self.grad_rs_bucket_mb}: the "
+                f"reduce-scatter bucket size target must be positive")
+        if self.quantized_grad_reduce:
+            if not self.use_distributed_optimizer:
+                raise ValueError(
+                    "quantized_grad_reduce requires "
+                    "use_distributed_optimizer: the int8 reduction is the "
+                    "wire format of the ZeRO-1 reduce-scatter")
+            if self.tensor_parallel_size > 1:
+                raise ValueError(
+                    "quantized_grad_reduce is only available on pure-dp "
+                    "layouts (tp=pp=cp=1), as in the JAX package")
+            if self.data_parallel_size <= 1:
+                raise ValueError(
+                    "quantized_grad_reduce with data_parallel_size=1: "
+                    "there is no dp gradient reduction to quantize")
         if self.num_microbatches < 1:
             raise ValueError(f"num_microbatches={self.num_microbatches}")
 
     @property
     def world_size(self) -> int:
-        return 1
+        return (self.data_parallel_size * self.pipeline_parallel_size
+                * self.tensor_parallel_size * self.context_parallel_size)
 
 
 @dataclass(frozen=True)

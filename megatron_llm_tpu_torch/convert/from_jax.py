@@ -26,7 +26,11 @@ trains on the stacked layer tree itself (`transformer_stack` unbinds it
 once per forward), so no stacked <-> per-layer converter is needed.
 `checkpoint_from_jax` writes a whole port checkpoint from a JAX
 checkpoint's restored leaves and its meta.json, which `--load` then
-resumes.
+resumes at any layout: the files hold whole tensors, and a rank cuts
+its slices at load. Across ranks, `rank_params_from_jax` gives a rank
+its tensor-parallel slices of the JAX tree (`params_from_jax`, then
+parallel/sharding.shard_params), the shards the JAX package's
+`param_specs` name for that rank's devices.
 """
 
 from __future__ import annotations
@@ -58,6 +62,15 @@ def params_from_jax(tree: dict, cfg, device="cuda") -> dict:
                 for k, v in t.items()}
 
     return conv(tree)
+
+
+def rank_params_from_jax(tree: dict, cfg, ctx, device="cuda") -> dict:
+    """This rank's slices (parallel/sharding.py) of the port's tree from
+    the JAX tree of numpy arrays; `ctx` is the parallel context (its tp
+    and tp_rank)."""
+    from megatron_llm_tpu_torch.parallel.sharding import shard_params
+
+    return shard_params(params_from_jax(tree, cfg, device), ctx, cfg)
 
 
 def optimizer_state_from_jax(state, cfg, device="cuda"):

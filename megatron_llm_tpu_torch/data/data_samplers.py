@@ -4,7 +4,10 @@ A sampler yields global microbatches of mbs * dp sample indices, in the
 reference's order of ranks, and resumes from `consumed_samples`. The
 loader stacks the samples' tokens into (num_microbatches, mbs * dp,
 seq + 1) int32 arrays, asking the microbatch calculator for the count at
-every step so that a batch-size rampup reaches it.
+every step so that a batch-size rampup reaches it. With a `row_range`
+[lo, hi) (parallel/multihost.process_row_range) it reads and stacks only
+those rows of every global microbatch: a dp rank loads its own rows and
+nothing else (JAX :115-143, :175-202).
 """
 
 from __future__ import annotations
@@ -94,10 +97,12 @@ class PretrainingDataLoader:
     rampup reaches the loader). A sample is a view of the mmap, so the
     loop reads on the host as it goes, with no worker processes."""
 
-    def __init__(self, dataset, sampler, num_microbatches=1):
+    def __init__(self, dataset, sampler, num_microbatches=1,
+                 row_range=None):
         self.dataset = dataset
         self.sampler = sampler
         self.num_microbatches = num_microbatches
+        self.row_range = row_range
 
     def __iter__(self):
         it = iter(self.sampler)
@@ -108,6 +113,8 @@ class PretrainingDataLoader:
             try:
                 for _ in range(n):
                     idxs = next(it)
+                    if self.row_range is not None:
+                        idxs = idxs[self.row_range[0]:self.row_range[1]]
                     micros.append(np.stack(
                         [self.dataset[i]["text"] for i in idxs]
                     ).astype(np.int32))
@@ -121,10 +128,11 @@ def build_pretraining_data_loader(dataset, consumed_samples: int,
                                   data_parallel_size: int,
                                   num_microbatches=1,
                                   dataloader_type: str = "single",
-                                  drop_last: bool = True):
+                                  drop_last: bool = True, row_range=None):
     """The loader over `dataset` from sample `consumed_samples`, or None
     for no dataset. `dataloader_type` "single" reads in order, "cyclic"
-    reshuffles every epoch."""
+    reshuffles every epoch; `row_range` keeps rows [lo, hi) of each
+    global microbatch."""
     if dataset is None:
         return None
     if dataloader_type == "single":
@@ -139,4 +147,5 @@ def build_pretraining_data_loader(dataset, consumed_samples: int,
             data_parallel_size=data_parallel_size)
     else:
         raise ValueError(f"unknown dataloader type {dataloader_type}")
-    return PretrainingDataLoader(dataset, sampler, num_microbatches)
+    return PretrainingDataLoader(dataset, sampler, num_microbatches,
+                                 row_range)

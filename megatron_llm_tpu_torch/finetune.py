@@ -10,14 +10,37 @@ finetune.py).
 The same flags as the JAX package's entry point (`arguments.py`). It
 runs on the first CUDA card; `main(argv, device="cpu")` runs on the CPU
 (the tests do). BERT and T5 raise, naming their slice.
+
+Under torchrun it trains with tensor, sequence and data parallelism and
+the ZeRO-1 optimizer (the fine-tuning recipe's flags), one process per
+rank, each on `cuda:{LOCAL_RANK % device_count}`:
+
+    torchrun --nproc_per_node 8 -m megatron_llm_tpu_torch.finetune \
+        --model_name llama2 --model_size 7 \
+        --tensor_model_parallel_size 8 --sequence_parallel \
+        --use_distributed_optimizer --bf16 ...
+
+`--data_parallel_size` defaults to the ranks over tp. NCCL is the
+backend on CUDA; it cannot put two ranks on one card, which
+`--distributed_backend gloo` can (its collectives staged through host
+memory). A process group made before `main` (utils/virtual_mesh.py's
+CPU ranks) is used as it is.
 """
 
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
 from megatron_llm_tpu_torch.arguments import args_to_configs, build_base_parser
 from megatron_llm_tpu_torch.models import FalconModel, GPTModel, LlamaModel
+from megatron_llm_tpu_torch.parallel.mesh import (
+    destroy_parallel,
+    initialize_parallel,
+    maybe_initialize_distributed,
+    rank_device,
+)
+from megatron_llm_tpu_torch.parallel.sharding import check_tp
 from megatron_llm_tpu_torch.tokenizer import build_tokenizer
 from megatron_llm_tpu_torch.training.trainer import pretrain
 
@@ -36,11 +59,22 @@ def model_provider(args, mcfg, device="cuda"):
 
 def main(argv=None, device="cuda"):
     """Parse `argv` (sys.argv when None), build the tokenizer, configs,
-    model and datasets, and train; returns the final `TrainState`."""
+    model and datasets, and train; returns the final `TrainState` (this
+    rank's, across ranks)."""
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("finetune: no CUDA device (call "
                            "main(argv, device='cpu') to train on the CPU)")
     args = build_base_parser().parse_args(argv)
+    # the default group stays for the process (a second call reuses it;
+    # the command line destroys it at exit), the context's groups go
+    maybe_initialize_distributed(args.distributed_backend, device)
+    try:
+        return _main(args, rank_device(device))
+    finally:
+        destroy_parallel()
+
+
+def _main(args, device):
     tokenizer = None
     vocab_size = 0
     if args.tokenizer_type:
@@ -60,8 +94,21 @@ def main(argv=None, device="cuda"):
         )
 
         mcfg = load_model_config_from_checkpoint(args.load, mcfg)
-    print(f"device: {device}; microbatches {pcfg.num_microbatches} of "
-          f"{tcfg.micro_batch_size}", flush=True)
+    check_tp(mcfg, pcfg.tensor_parallel_size)
+    ctx = None
+    if dist.is_initialized() or pcfg.world_size > 1:
+        ctx = initialize_parallel(
+            dp=pcfg.data_parallel_size, tp=pcfg.tensor_parallel_size,
+            sequence_parallel=pcfg.sequence_parallel,
+            backend=args.distributed_backend, device=device)
+    if ctx is None or ctx.rank == 0:
+        print(f"device: {device}; dp {pcfg.data_parallel_size} tp "
+              f"{pcfg.tensor_parallel_size} sp {pcfg.sequence_parallel} "
+              f"zero1 {pcfg.use_distributed_optimizer} backend "
+              f"{ctx.backend if ctx else None} staged "
+              f"{bool(ctx and ctx.staged)}; microbatches "
+              f"{pcfg.num_microbatches} of {tcfg.micro_batch_size} a rank",
+              flush=True)
     model = model_provider(args, mcfg, device=device)
 
     def dataset_provider(train_val_test_num_samples):
@@ -91,4 +138,8 @@ def main(argv=None, device="cuda"):
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

@@ -16,6 +16,14 @@ masked softmax; and the paged branch of the continuous-batching engine,
 where every phase (decode rows, mixed prefill+decode rounds) goes
 through the ragged paged attention of ops/prefill_attention.py (K7).
 
+Under tensor parallelism (parallel/mesh.py) wqkv is column-parallel in
+the grouped layout, so a rank holds g / tp whole groups and K4-K6 run at
+that group count, and wo is row-parallel: the block reads the full
+input (`tp_input`: a copy, or under sequence parallelism an all-gather
+of the sequence shards) and sums its output over the tp group
+(`tp_output`: an all-reduce, or a reduce-scatter into sequence shards)
+before the output bias. The cached branches (serving) run at tp = 1.
+
 The save points of models/remat.py are the JAX package's: the fused
 QKV projection "qkv_proj", the attention context "attn_ctx" (the
 grouped path's PV product; the flash forward tags its o and lse itself)
@@ -41,12 +49,16 @@ from megatron_llm_tpu_torch.ops.prefill_attention import (
     ragged_paged_attention,
 )
 from megatron_llm_tpu_torch.ops.quantization import qdot
+from megatron_llm_tpu_torch.parallel.mappings import tp_input, tp_output
+from megatron_llm_tpu_torch.parallel.mesh import NEXT_A4, get_context
 
 
 def split_qkv(mixed: torch.Tensor, cfg):
-    """(b, s, qkv_size) -> q (b,s,g,qpk,d), k (b,s,g,d), v (b,s,g,d)."""
-    b, s, _ = mixed.shape
-    g, qpk, d = cfg.num_query_groups, cfg.q_per_kv, cfg.head_dim
+    """(b, s, qkv_size) -> q (b,s,g,qpk,d), k (b,s,g,d), v (b,s,g,d), g
+    the groups `mixed` holds (a tp rank's g / tp)."""
+    b, s, width = mixed.shape
+    qpk, d = cfg.q_per_kv, cfg.head_dim
+    g = width // ((qpk + 2) * d)
     qkv = mixed.reshape(b, s, g, qpk + 2, d)
     return qkv[:, :, :, :qpk], qkv[:, :, :, qpk], qkv[:, :, :, qpk + 1]
 
@@ -110,6 +122,12 @@ def attention_block(attn_params: dict, cfg, hidden: torch.Tensor,
       when it is set. Without "chunk_lens" every slot is a width-1
       decode row (s == 1). The returned dict has lengths + chunk_lens.
       Nothing here reads a device value on the host."""
+    if kv_cache is not None:
+        ctx = get_context()
+        if ctx is not None and ctx.tp > 1:
+            raise ValueError(f"tensor-parallel serving is not ported yet "
+                             f"({NEXT_A4})")
+    hidden = tp_input(hidden)
     b, s, _ = hidden.shape
     dt = cfg.compute_dtype
     with tag("qkv_proj"):
@@ -210,6 +228,7 @@ def attention_block(attn_params: dict, cfg, hidden: torch.Tensor,
 
     with tag("attn_dense"):
         out = qdot(ctx, attn_params["wo"], dt)
+    out = tp_output(out)
     if "bo" in attn_params:
         out = out + attn_params["bo"].to(dt)
     return out, new_cache

@@ -78,6 +78,27 @@ class GPTModel(nn.Module):
         loss_mask = loss_mask.float()
         return (losses * loss_mask).sum() / loss_mask.sum().clamp(min=1.0)
 
+    def loss_terms(self, params: dict, tokens: torch.Tensor,
+                   labels: torch.Tensor,
+                   loss_mask: Optional[torch.Tensor] = None,
+                   position_ids: Optional[torch.Tensor] = None,
+                   attention_mask: Optional[torch.Tensor] = None,
+                   dropout_rng=None, deterministic: bool = True):
+        """`loss` as (numerator, denominator), both sums over rows (JAX
+        :78-124), so that a data-parallel rank holding some rows of the
+        batch rebuilds the global loss as sum(num) / max(sum(den), 1)
+        over the ranks."""
+        hidden, _ = language_model_forward(
+            params, self.cfg, tokens, position_ids, attention_mask,
+            dropout_rng=dropout_rng, deterministic=deterministic,
+            return_hidden=True)
+        losses = chunked_head_cross_entropy(params, self.cfg, hidden, labels)
+        if loss_mask is None:
+            return losses.sum(), torch.tensor(
+                float(losses.numel()), device=losses.device)
+        loss_mask = loss_mask.float()
+        return (losses * loss_mask).sum(), loss_mask.sum()
+
     def prepare_decode_params(self, params: dict,
                               quantize_int8: bool = False) -> dict:
         """Decode layout, built once before the token loop: the stacked

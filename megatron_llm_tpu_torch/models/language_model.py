@@ -2,6 +2,14 @@
 
 Given a dropout stream, the forward splits it between the embedding's
 hidden dropout and the layer stack (JAX :188-192).
+
+Under tensor parallelism (parallel/mesh.py) the word embeddings and an
+untied head hold this rank's vocabulary shard (parallel/sharding.py):
+the embedding looks up the tokens its shard owns, zeroes the rest and
+all-reduces, or under sequence parallelism reduce-scatters into the
+rank's sequence shard; the head reads the full hidden states
+(`tp_input`) and leaves its logits vocab-sharded for the vocab-parallel
+cross entropy.
 """
 
 from __future__ import annotations
@@ -23,6 +31,12 @@ from megatron_llm_tpu_torch.models.transformer import (
 from megatron_llm_tpu_torch.parallel.cross_entropy import (
     vocab_parallel_cross_entropy,
 )
+from megatron_llm_tpu_torch.parallel.mappings import (
+    sequence_shard,
+    tp_input,
+    tp_output,
+)
+from megatron_llm_tpu_torch.parallel.mesh import get_context
 
 
 def init_language_model_params(cfg, generator: torch.Generator,
@@ -52,15 +66,28 @@ def embed_tokens(params: dict, cfg, tokens: torch.Tensor,
                  position_ids: Optional[torch.Tensor] = None,
                  dropout_seed=None) -> torch.Tensor:
     """(b, s) int -> (b, s, h) in the compute dtype, with hidden dropout
-    under a dropout stream (JAX :69-88)."""
+    under a dropout stream (JAX :69-88); under sequence parallelism the
+    rank's (b, s / tp, h) shard."""
     emb = params["embedding"]["word_embeddings"]
-    hidden = emb[tokens].to(cfg.compute_dtype)
+    ctx = get_context()
+    if ctx is None or ctx.tp == 1:
+        hidden = emb[tokens].to(cfg.compute_dtype)
+    else:
+        # vocab-parallel: the rows this rank owns, zeros elsewhere, then
+        # the sum over the tp group (exact: one rank holds each token)
+        per = emb.shape[0]
+        local = tokens.long() - ctx.tp_rank * per
+        owned = (local >= 0) & (local < per)
+        hidden = torch.where(owned[..., None],
+                             emb[torch.where(owned, local, 0)], 0.0)
+        hidden = tp_output(hidden.to(cfg.compute_dtype))
     if cfg.position_embedding_type == "absolute":
         if position_ids is None:
             position_ids = torch.arange(tokens.shape[1],
                                         device=tokens.device)[None]
         pos = params["embedding"]["position_embeddings"]
-        hidden = hidden + pos[position_ids].to(cfg.compute_dtype)
+        hidden = hidden + pos[sequence_shard(position_ids)].to(
+            cfg.compute_dtype)
     return dropout(hidden, cfg.hidden_dropout, dropout_seed)
 
 
@@ -73,7 +100,10 @@ def chunked_head_cross_entropy(params: dict, cfg, hidden: torch.Tensor,
     run under a non-reentrant checkpoint, so only (b, chunk, V) fp32
     logits are live in the forward and in the backward. Sequences of at
     most `chunk_size` take the direct path; a chunk size that does not
-    divide s halves toward the largest divisor >= 256 (JAX :126-131)."""
+    divide s halves toward the largest divisor >= 256 (JAX :126-131).
+    Under tensor parallelism `hidden` is gathered first (`tp_input`) and
+    each chunk's logits are this rank's vocabulary shard."""
+    hidden = tp_input(hidden)
     b, s, h = hidden.shape
     if s > chunk_size:
         while chunk_size >= 256 and s % chunk_size != 0:
@@ -99,7 +129,9 @@ def chunked_head_cross_entropy(params: dict, cfg, hidden: torch.Tensor,
 
 
 def lm_logits(params: dict, cfg, hidden: torch.Tensor) -> torch.Tensor:
-    """Tied: x @ E^T; untied: x @ lm_head. In the compute dtype."""
+    """Tied: x @ E^T; untied: x @ lm_head. In the compute dtype; under
+    tensor parallelism `hidden` is whole and the logits this rank's
+    vocabulary shard."""
     if cfg.tie_embed_logits:
         w = params["embedding"]["word_embeddings"].to(cfg.compute_dtype)
         return hidden @ w.T
@@ -135,4 +167,4 @@ def language_model_forward(params: dict, cfg, tokens: torch.Tensor,
     hidden = apply_norm(hidden, params["final_norm"], cfg)
     if return_hidden:
         return hidden, new_caches
-    return lm_logits(params, cfg, hidden), new_caches
+    return lm_logits(params, cfg, tp_input(hidden)), new_caches

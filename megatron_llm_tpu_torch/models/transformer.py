@@ -18,6 +18,13 @@ probabilities, the attention (or, in a parallel layer, the joint)
 residual branch and the MLP's; its hidden rate is `hidden_dropout`, or
 under `lima_dropout` the ramp hidden_dropout * i / (num_layers - 1).
 The matmul outputs are the save points "mlp_pre_act" and "mlp_out".
+
+Under tensor parallelism the MLP's w1 is column-parallel (a GLU w1 on
+its ffn axis, the GLU axis whole) and w2 row-parallel, read and summed
+as the attention block's projections are (models/attention.py); under
+sequence parallelism the norms, residual adds and dropout run on the
+rank's sequence shard, and the replicated leaves' gradients are partial
+sums that the train step all-reduces over the tp group.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ from megatron_llm_tpu_torch.ops.quantization import (
     is_quantized_weight,
     qdot,
 )
+from megatron_llm_tpu_torch.parallel.mappings import tp_input, tp_output
 
 
 def normal(shape, std, dtype, generator, device) -> torch.Tensor:
@@ -142,6 +150,7 @@ def mlp_block(mlp_params: dict, cfg, hidden: torch.Tensor) -> torch.Tensor:
     (h, 2 ffn) decode view or that view quantized to int8 is one matmul;
     gate and up come back on their own axis."""
     dt = cfg.compute_dtype
+    hidden = tp_input(hidden)
     w1 = mlp_params["w1"]
     if cfg.glu_activation:
         b, s, h = hidden.shape
@@ -160,6 +169,7 @@ def mlp_block(mlp_params: dict, cfg, hidden: torch.Tensor) -> torch.Tensor:
         x = ACTIVATIONS[cfg.hidden_act](x)
     with tag("mlp_out"):
         x = qdot(x, mlp_params["w2"], dt)
+    x = tp_output(x)
     if "b2" in mlp_params:
         x = x + mlp_params["b2"].to(dt)
     return x

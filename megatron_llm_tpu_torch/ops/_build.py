@@ -9,11 +9,19 @@ header) and of the nvcc flags, so an edited source or header is rebuilt
 and an unchanged one is loaded as it is. nvcc's output, with ptxas's
 registers, shared memory and spills for each kernel (`-Xptxas -v`), is
 kept beside the library as `<library>.log`.
+
+Ranks that start together (torchrun, one process per rank) build each
+library once: the build runs under an `fcntl` lock on a file in the
+build directory, and a process that waited for it finds the library
+built and loads it. The kernel holds the lock, so a process that dies
+mid-build leaves no stale lock behind.
 """
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
+import fcntl
 import hashlib
 import os
 import re
@@ -55,13 +63,14 @@ def included_headers(src: Path, csrc: Path = CSRC) -> list:
     return sorted(found)
 
 
-def library_path(source: str, csrc: Path = CSRC) -> Path:
+def library_path(source: str, csrc: Path = CSRC,
+                 build_dir: Path = BUILD_DIR) -> Path:
     src = csrc / source
     h = hashlib.sha256()
     for f in (src, *included_headers(src, csrc)):
         h.update(f.name.encode() + b"\0" + f.read_bytes())
     h.update("\0".join(NVCC_FLAGS).encode())
-    return BUILD_DIR / f"lib{src.stem}-{h.hexdigest()[:12]}.so"
+    return build_dir / f"lib{src.stem}-{h.hexdigest()[:12]}.so"
 
 
 def build_log(source: str):
@@ -71,15 +80,17 @@ def build_log(source: str):
     return log.read_text() if log.exists() else None
 
 
-def start_build(source: str):
+def start_build(source: str, csrc: Path = CSRC, build_dir: Path = BUILD_DIR,
+                nvcc=None):
     """Start `nvcc` on one source; returns (Popen or None, library path).
     None means the library is already built."""
-    out = library_path(source)
+    out = library_path(source, csrc, build_dir)
     if out.exists():
         return None, out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    build_dir.mkdir(parents=True, exist_ok=True)
     tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / source)]
+    cmd = [nvcc or nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
+           str(csrc / source)]
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     proc.tmp_path = tmp
@@ -98,11 +109,31 @@ def finish_build(proc, out: Path) -> Path:
     return out
 
 
+@contextlib.contextmanager
+def build_lock(name: str, build_dir: Path = BUILD_DIR):
+    """Hold the build directory's lock for `name` across processes."""
+    build_dir.mkdir(parents=True, exist_ok=True)
+    with open(build_dir / f".{name}.lock", "a") as f:
+        fcntl.flock(f, fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
+def build_library(source: str, csrc: Path = CSRC,
+                  build_dir: Path = BUILD_DIR, nvcc=None) -> Path:
+    """The library of `csrc/<source>`, built by this process unless it is
+    built already or another process builds it first."""
+    with build_lock(Path(source).stem, build_dir):
+        return finish_build(*start_build(source, csrc, build_dir, nvcc))
+
+
 def load_library(source: str) -> ctypes.CDLL:
     """The loaded library of `csrc/<source>`, building it if needed."""
     with _lock:
         lib = _loaded.get(source)
         if lib is None:
-            lib = ctypes.CDLL(str(finish_build(*start_build(source))))
+            lib = ctypes.CDLL(str(build_library(source)))
             _loaded[source] = lib
         return lib

@@ -53,14 +53,18 @@ class OptimizerState(NamedTuple):
     scaler: Optional[dict] = None
 
 
-def global_grad_norm(grads) -> torch.Tensor:
+def global_grad_norm(grads, reduce_fn=None) -> torch.Tensor:
     """L2 norm over every leaf as an fp32 scalar (JAX :45-53). Per-leaf
     norms first, so no squared copy of a leaf is made; they accumulate in
     fp64, so that the sum does not depend on a device's reduction order
     (XLA sums its fp32 squares pairwise; a straight fp32 sum over a
-    million-element leaf drifts by ~1e-5 relative)."""
+    million-element leaf drifts by ~1e-5 relative). Over ranks that hold
+    shards, `reduce_fn` (optimizer/zero1.sum_over_layout) sums the
+    per-leaf squares of the whole model."""
     norms = [torch.linalg.vector_norm(g, dtype=torch.float64)
              for g in tree_leaves(grads)]
+    if reduce_fn is not None:
+        return torch.sqrt(reduce_fn([n * n for n in norms])).float()
     return torch.sqrt(sum(n * n for n in norms)).float()
 
 
@@ -106,13 +110,15 @@ def get_grad_scaler(tcfg: TrainConfig):
                              hysteresis=tcfg.hysteresis)
 
 
-def init_optimizer_state(params, tcfg: TrainConfig) -> OptimizerState:
+def init_optimizer_state(params, tcfg: TrainConfig,
+                         device=None) -> OptimizerState:
+    """Zero moments shaped as `params`, on their device (or `device`)."""
     _check_tcfg(tcfg)
 
     def zeros(p):
         return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
 
-    dev = tree_leaves(params)[0].device
+    dev = tree_leaves(params)[0].device if device is None else device
     step = torch.zeros((), dtype=torch.int32, device=dev)
     scaler = get_grad_scaler(tcfg)
     scaler_state = scaler.init_state(dev) if scaler is not None else None
@@ -125,13 +131,21 @@ def init_optimizer_state(params, tcfg: TrainConfig) -> OptimizerState:
 
 @torch.no_grad()
 def optimizer_step(params, grads, state: OptimizerState, tcfg: TrainConfig,
-                   lr, weight_decay=None, found_inf=None, scaler=None
+                   lr, weight_decay=None, found_inf=None, scaler=None,
+                   reduce_fn=None, any_rank=None
                    ) -> Tuple[Any, OptimizerState, dict]:
     """One update (JAX :100-210), in place; returns (params, state, stats)
     with stats["grad_norm"] (fp32) and stats["skipped"] (int32) as 0-d
     tensors on the card. With `scaler` (fp16) the grads arrive unscaled;
     a non-finite grad norm is the overflow that updates the scaler's
-    state, and stats["loss_scale"] is the scale this step used."""
+    state, and stats["loss_scale"] is the scale this step used.
+
+    Across ranks `params`, `grads` and the state's moments are this
+    rank's pieces (tensor-parallel slices, ZeRO-1 blocks), `reduce_fn`
+    sums per-leaf partials over the model (the gradient norm, the zero
+    count, the params norm) and `any_rank` ORs flags over the world, so
+    every rank skips the same steps and its scaler sees the same
+    overflow."""
     _check_tcfg(tcfg)
     wd = tcfg.weight_decay if weight_decay is None else weight_decay
     lr = torch.as_tensor(lr, dtype=torch.float32)
@@ -141,16 +155,23 @@ def optimizer_step(params, grads, state: OptimizerState, tcfg: TrainConfig,
     dev = p_leaves[0].device
     lr, wd = lr.to(dev), wd.to(dev)
 
-    grad_norm = global_grad_norm(g_leaves)
-    finite = torch.isfinite(grad_norm)
-    if found_inf is not None:
+    grad_norm = global_grad_norm(g_leaves, reduce_fn)
+    overflow = ~torch.isfinite(grad_norm)
+    gate = found_inf
+    if any_rank is not None:
+        flags = any_rank(torch.stack([
+            overflow, torch.zeros_like(overflow) if found_inf is None
+            else found_inf.reshape(())]))
+        overflow = flags[0]
+        gate = None if found_inf is None else flags[1]
+    finite = ~overflow
+    if gate is not None:
         # the caller's skip gate (the loss watchdog) skips the update
         # only: a spike of finite gradients is no fp16 overflow
-        finite = finite & ~found_inf
+        finite = finite & ~gate
     new_scaler_state = state.scaler
     if scaler is not None:
-        new_scaler_state = scaler.update(state.scaler,
-                                         ~torch.isfinite(grad_norm))
+        new_scaler_state = scaler.update(state.scaler, overflow)
     coeff = torch.clamp(tcfg.clip_grad / (grad_norm + 1e-6), max=1.0) \
         if tcfg.clip_grad > 0.0 else None
     num_zeros = torch.zeros((), dtype=torch.int64, device=dev)
@@ -195,7 +216,8 @@ def optimizer_step(params, grads, state: OptimizerState, tcfg: TrainConfig,
         stats["loss_scale"] = scaler.scale(state.scaler)
         state = state._replace(scaler=new_scaler_state)
     if tcfg.log_num_zeros_in_grad:
-        stats["num_zeros"] = num_zeros
+        stats["num_zeros"] = num_zeros if reduce_fn is None \
+            else reduce_fn([num_zeros]).to(torch.int64)
     if tcfg.log_params_norm:
-        stats["params_norm"] = global_grad_norm(p_leaves)
+        stats["params_norm"] = global_grad_norm(p_leaves, reduce_fn)
     return params, state, stats

@@ -1,1 +1,3 @@
-"""Parallel layers: the tp=1 forms this port runs on one card."""
+"""Parallelism on torch.distributed: process groups, the tensor- and
+sequence-parallel collectives, parameter sharding, the vocab-parallel
+cross entropy and the per-rank data rows."""

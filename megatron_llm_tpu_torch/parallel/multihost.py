@@ -1,46 +1,71 @@
-"""Exit consensus across processes and the autoresume hook (port of
-parallel/multihost.py, its single-process part).
+"""Per-rank batch rows and exit consensus (port of
+parallel/multihost.py).
 
-`all_hosts_any` and `host_barrier` are what the train loop calls around
-its signal, duration and autoresume exits so that every process leaves
-together. The port trains in one process: with `torch.distributed`
-uninitialised or at world size 1 they are the identity; at a larger
-world size they raise, for multi-process training is the parallelism
-slice (ROADMAP.md A4).
+`process_row_range` is the block of each global microbatch a dp rank
+loads: global microbatches are rank-chunks-contiguous, so dp index i
+owns rows [i * mbs, (i + 1) * mbs) (JAX :37-71; there a process loads
+the rows of the data coordinates its devices hold). `all_hosts_any` and
+`host_barrier` are what the train loop calls around its signal,
+duration and autoresume exits so that every rank leaves together: an
+all-reduce max and a barrier over the world, the identity in one
+process.
 """
 
 from __future__ import annotations
 
 import os
+from typing import Sequence, Tuple
+
+import torch
+import torch.distributed as dist
+
+from megatron_llm_tpu_torch.parallel.mesh import all_reduce, barrier, \
+    get_context
 
 
-def _world_size() -> int:
-    import torch.distributed as dist
+def data_axis_span(dp_indices: Sequence[int], rows: int, dp: int
+                   ) -> Tuple[int, int]:
+    """The contiguous [lo, hi) rows of a (rows = mbs * dp)-row global
+    microbatch that the data coordinates `dp_indices` own (JAX
+    :37-52)."""
+    if rows % dp:
+        raise ValueError(f"{rows} rows do not split over dp={dp}")
+    per = rows // dp
+    idx = sorted(set(dp_indices))
+    if not idx or idx != list(range(idx[0], idx[-1] + 1)):
+        raise ValueError(f"data coordinates {idx} are not contiguous")
+    return idx[0] * per, (idx[-1] + 1) * per
 
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_world_size()
-    return 1
+
+def process_row_range(ctx, rows: int) -> Tuple[int, int]:
+    """[lo, hi) rows of each global microbatch this rank loads."""
+    if ctx is None or ctx.dp == 1:
+        return 0, rows
+    return data_axis_span([ctx.dp_rank], rows, ctx.dp)
 
 
-def _single_process(what: str) -> None:
-    n = _world_size()
-    if n > 1:
-        raise NotImplementedError(
-            f"{what} across {n} processes is not ported yet (the "
-            f"parallelism slice, ROADMAP.md A4)")
+def _world():
+    ctx = get_context()
+    return ctx if ctx is not None and ctx.world_size > 1 else None
 
 
 def all_hosts_any(flag: bool) -> bool:
-    """True on every process iff any process passed True; in one process,
-    the flag itself."""
-    _single_process("all_hosts_any")
-    return bool(flag)
+    """True on every rank iff any rank passed True; in one process, the
+    flag itself."""
+    ctx = _world()
+    if ctx is None:
+        return bool(flag)
+    dev = "cpu" if ctx.staged or ctx.device.type == "cpu" else ctx.device
+    t = torch.tensor([1 if flag else 0], dtype=torch.int32, device=dev)
+    return bool(all_reduce(t, ctx.world_group, op=dist.ReduceOp.MAX,
+                           ctx=ctx).item())
 
 
 def host_barrier(tag: str = "barrier") -> None:
-    """Every process waits here for all of them; in one process, a
-    no-op. `tag` names the barrier in errors."""
-    _single_process(f"host_barrier({tag!r})")
+    """Every rank waits here for all of them; in one process, a no-op.
+    `tag` names the barrier in errors."""
+    del tag
+    barrier(_world())
 
 
 class AutoResume:

@@ -33,6 +33,11 @@ template's dtype as orbax does in the JAX package.
   `wait_until_finished`, wait for it.
 - `keep_latest_n` retention never deletes the checkpoint being written
   nor one a resume read (`protect`), nor `release`.
+- The files hold whole tensors whatever the layout that wrote them, as
+  the JAX package's orbax checkpoints do (tools/reshard_checkpoint.py
+  :4-8): across ranks the trainer gathers every leaf, rank 0 writes, and
+  a load gives each rank its slice (`shard`), so a tp2 x dp2 save
+  resumes at tp1 x dp1 and the reverse.
 """
 
 from __future__ import annotations
@@ -358,13 +363,17 @@ class CheckpointManager:
              opt_state: Optional[OptimizerState] = None, model_cfg=None,
              scheduler_state: Optional[dict] = None,
              consumed_train_samples: int = 0, rng_key=None,
-             extra_meta: Optional[dict] = None) -> str:
+             extra_meta: Optional[dict] = None, fresh: bool = False) -> str:
+        """`fresh`: the leaves are host tensors nothing else holds (a
+        gathered copy), written as they are."""
         t0 = time.perf_counter()
         self.wait_until_finished()
         os.makedirs(self.save_dir, exist_ok=True)
         path = checkpoint_dir(self.save_dir, iteration)
-        model = _host_copy(flatten(params), self._buffers)
-        optim = _host_copy(_optim_flat(opt_state), self._buffers) \
+        model = _host_copy(flatten(params), self._buffers,
+                           clone_cpu=not fresh)
+        optim = _host_copy(_optim_flat(opt_state), self._buffers,
+                           clone_cpu=not fresh) \
             if opt_state is not None else None
         meta = _build_meta(iteration, model_cfg, scheduler_state,
                            consumed_train_samples, rng_key, extra_meta)
@@ -451,10 +460,11 @@ def _load_candidates(load_dir: str):
 
 
 def _restore_flat(path: str, template: dict, device,
-                  cast: bool = False) -> dict:
+                  cast: bool = False, shard=None) -> dict:
     """The leaves of the torch.save file `path`, checked against
     `template`'s names, shapes and dtypes, on `device`; with `cast` a
-    leaf of another dtype is converted to the template's."""
+    leaf of another dtype is converted to the template's. `shard(name,
+    leaf)` cuts each whole leaf to this rank's slice before it moves."""
     flat = torch.load(path, map_location="cpu", mmap=True, weights_only=True)
     if set(flat) != set(template):
         missing = sorted(set(template) - set(flat))[:4]
@@ -467,6 +477,8 @@ def _restore_flat(path: str, template: dict, device,
             raise ValueError(f"{path}: {k} is {flat[k].dtype} "
                              f"{tuple(flat[k].shape)}, the template "
                              f"{t.dtype} {tuple(t.shape)}")
+    if shard is not None:
+        flat = {k: shard(k, v).contiguous() for k, v in flat.items()}
     # one leaf at a time: an mmap-ed leaf is read, moved and cast alone
     return {k: v.to(device).to(template[k].dtype) for k, v in flat.items()}
 
@@ -496,7 +508,8 @@ def restore_params(path: str, params_template: dict, device) -> dict:
 
 
 def _restore_one(path, release, params_template, opt_state_template,
-                 model_cfg, finetune, no_load_optim, no_load_rng):
+                 model_cfg, finetune, no_load_optim, no_load_rng,
+                 device=None, shard=None):
     """Restore one directory; raises on torn or unreadable files, and
     CheckpointArchMismatch past the caller's scan. A release holds the
     weights only, restored in the template's dtypes, and loads as
@@ -506,16 +519,18 @@ def _restore_one(path, release, params_template, opt_state_template,
     if model_cfg is not None and meta.get("config"):
         check_checkpoint_args(meta["config"], model_cfg)
     flat_p = flatten(params_template)
-    device = next(iter(flat_p.values())).device
+    if device is None:
+        device = next(iter(flat_p.values())).device
     params = unflatten_like(
         _restore_flat(os.path.join(path, "model"), flat_p, device,
-                      cast=release),
+                      cast=release, shard=shard),
         params_template)
     opt_state = None
     if opt_state_template is not None and not finetune \
             and not no_load_optim and not release:
         o = _restore_flat(os.path.join(path, "optim"),
-                          _optim_flat(opt_state_template), device)
+                          _optim_flat(opt_state_template), device,
+                          shard=shard)
         opt_state = OptimizerState(
             step=o["step"],
             m=unflatten_like(o, opt_state_template.m, "m."),
@@ -535,15 +550,20 @@ def load_checkpoint(load_dir: str, params_template: dict,
                     opt_state_template: Optional[OptimizerState] = None,
                     model_cfg=None, finetune: bool = False,
                     no_load_optim: bool = False, no_load_rng: bool = False,
-                    iteration: Optional[int] = None):
+                    iteration: Optional[int] = None, device=None,
+                    shard=None):
     """(params, opt_state or None, meta, iteration) of the newest complete
-    checkpoint in `load_dir`, on the templates' device (new tensors; the
-    templates are unchanged), `meta["loaded_path"]` naming the directory;
-    None where there is none. Torn or unreadable directories are skipped
-    with a warning; an explicit `iteration` is loaded or raises."""
+    checkpoint in `load_dir`, on `device` (by default the templates';
+    new tensors, the templates unchanged), `meta["loaded_path"]` naming
+    the directory; None where there is none. Torn or unreadable
+    directories are skipped with a warning; an explicit `iteration` is
+    loaded or raises. The templates have the files' whole shapes (meta
+    tensors will do); `shard(name, leaf)` gives a rank its slice of
+    each leaf (leaf names as in the files: "layers.attention.wqkv",
+    "m.<leaf>", "step")."""
     load_dir = os.path.abspath(load_dir)
     args = (params_template, opt_state_template, model_cfg, finetune,
-            no_load_optim, no_load_rng)
+            no_load_optim, no_load_rng, device, shard)
     if iteration is not None:
         path = checkpoint_dir(load_dir, iteration)
         out = _restore_one(path, False, *args)

@@ -2,13 +2,13 @@
 
 The JAX package jits one function: the microbatch loop as a `lax.scan`,
 fp32 gradient accumulation, the averaged loss, the loss watchdog's skip
-gate and the optimizer. Here it is eager PyTorch on one card: a Python
-loop over microbatches, each a forward and a backward whose gradients
-accumulate in the fp32 params' `.grad` (the first microbatch's gradient
-is the sum's first term, as JAX's zeros + g1), divided by the
-microbatch count, then `optimizer_step` in place. Nothing is read back
-on the host: the loss, the skip flag and the gradient norm stay 0-d
-tensors on the card for the caller to read when it logs.
+gate and the optimizer. Here it is eager PyTorch: a Python loop over
+microbatches, each a forward and a backward whose gradients accumulate
+in the fp32 params' `.grad` (the first microbatch's gradient is the
+sum's first term, as JAX's zeros + g1), divided by the microbatch count,
+then `optimizer_step` in place. Nothing is read back on the host: the
+loss, the skip flag and the gradient norm stay 0-d tensors on the card
+for the caller to read when it logs.
 
 Under fp16 each microbatch's loss is multiplied by the loss scaler's
 scale before its backward; the accumulated gradients are divided by it
@@ -17,7 +17,22 @@ scaler (JAX :191-316). Given a dropout stream `rng` (an integer seed,
 models/dropout.py) microbatch i draws from fold_in(rng, i), or from
 `rng` itself when there is one microbatch (JAX :253-281).
 
-ZeRO-1, overlap scheduling, tensor/pipeline/context parallelism and a
+Across ranks (a context from parallel/mesh.py) each rank holds its
+tensor-parallel slices and its rows of every global microbatch. A
+microbatch's loss is its rows' masked sum over the denominator summed
+over the dp group, so the dp ranks' gradients sum to the gradient of
+the global token-weighted mean (never a mean of per-rank means: their
+mask counts differ), and the reported loss is the global one. After the
+accumulation: under sequence parallelism the replicated leaves'
+gradients (norms, output biases), partial sums over sequence shards,
+are all-reduced over the tp group; then the dp reduction, an all-reduce
+or ZeRO-1's reduce-scatter with the update on the rank's block and an
+all-gather (optimizer/zero1.py); the gradient norm is the global
+gradient's and the skip flags agree on every rank. At world size 1
+nothing of this runs. Live dropout across ranks raises: its masks would
+not be the global mask's slices (the next A4 PR).
+
+Overlap scheduling, pipeline and context parallelism and a
 `batch_builder` belong to later slices and raise.
 """
 
@@ -27,12 +42,57 @@ import torch
 
 from megatron_llm_tpu_torch.config import ParallelConfig, TrainConfig
 from megatron_llm_tpu_torch.models.dropout import fold_in
+from megatron_llm_tpu_torch.optimizer import zero1
 from megatron_llm_tpu_torch.optimizer.optimizer import (
     OptimizerState,
     get_grad_scaler,
     optimizer_step,
     tree_leaves,
 )
+from megatron_llm_tpu_torch.parallel.mesh import (
+    NEXT_A4,
+    all_reduce,
+    get_context,
+)
+from megatron_llm_tpu_torch.parallel.sharding import (
+    model_axis,
+    param_specs,
+    spec_leaves,
+)
+
+
+def check_layout(model, pcfg: ParallelConfig):
+    """The installed context (parallel/mesh.py), checked against the
+    ParallelConfig and the model; None at world size 1 with no
+    context."""
+    ctx = get_context()
+    have = (1, 1) if ctx is None else (ctx.dp, ctx.tp)
+    want = (pcfg.data_parallel_size, pcfg.tensor_parallel_size)
+    if have != want:
+        raise ValueError(f"the ParallelConfig asks dp, tp = {want}; the "
+                         f"installed parallel context is {have}")
+    if ctx is not None and ctx.sequence_parallel != pcfg.sequence_parallel:
+        raise ValueError("sequence_parallel differs between the "
+                         "ParallelConfig and the parallel context")
+    cfg = model.cfg
+    if ctx is not None and ctx.world_size > 1 and (
+            cfg.hidden_dropout > 0 or cfg.attention_dropout > 0):
+        raise ValueError(f"dropout across {ctx.world_size} ranks is not "
+                         f"ported yet ({NEXT_A4}): a rank would not draw "
+                         f"its slice of the global mask")
+    return ctx if ctx is not None and ctx.world_size > 1 else None
+
+
+def sequence_parallel_grads(grads: list, tp_sharded: list, ctx) -> list:
+    """Under sequence parallelism, the replicated leaves' gradients
+    (norms, position embeddings, output biases: partial sums over the
+    rank's sequence shard) summed over the tp group in place, as the
+    reference's sequence-parallel gradient all-reduce does."""
+    if ctx is not None and ctx.sequence_parallel:
+        for g, sharded in zip(grads, tp_sharded):
+            if not sharded:
+                all_reduce(g, ctx.tp_group, ctx=ctx)
+    return grads
 
 
 def make_train_step(model, tcfg: TrainConfig, pcfg: ParallelConfig,
@@ -40,21 +100,52 @@ def make_train_step(model, tcfg: TrainConfig, pcfg: ParallelConfig,
     """Returns train_step(params, opt_state, batch, lr, wd, rng=None,
     spike_threshold=None) -> (params, opt_state, stats).
 
-    `params` is the fp32 parameter tree, its leaves requiring grad;
-    `batch` a dict of (num_microbatches, batch, seq) tensors: tokens,
-    labels, loss_mask, position_ids and optionally attention_mask.
-    `spike_threshold` (a float, the loss watchdog's median + k sigma):
-    a step whose mean loss is non-finite or above it is skipped on the
-    card, params and state untouched. Params and state are updated in
-    place and returned."""
+    `params` is the fp32 parameter tree (this rank's slices), its leaves
+    requiring grad; `batch` a dict of (num_microbatches, batch, seq)
+    tensors (this rank's rows): tokens, labels, loss_mask, position_ids
+    and optionally attention_mask. `spike_threshold` (a float, the loss
+    watchdog's median + k sigma): a step whose mean loss is non-finite
+    or above it is skipped on the card, params and state untouched.
+    Params and state are updated in place and returned. Under ZeRO-1
+    `opt_state`'s moments hold this rank's blocks (the trainer's
+    `StateLayout` makes them)."""
     if batch_builder is not None:
         raise ValueError("a batch_builder (BERT/T5 batches) is not ported "
                          "yet: those models are ROADMAP.md A6")
-    if pcfg.world_size != 1:
-        raise ValueError("data/tensor/pipeline/context parallel training "
-                         "is the parallelism slice (ROADMAP.md A4)")
+    ctx = check_layout(model, pcfg)
     num_micro = pcfg.num_microbatches
     scaler = get_grad_scaler(tcfg)
+    dp = 1 if ctx is None else ctx.dp
+    use_zero1 = pcfg.use_distributed_optimizer and dp > 1
+    layout = {}  # built at the first call, from this rank's params
+
+    def _layout(params):
+        if not layout:
+            specs = spec_leaves(param_specs(model.cfg, params))
+            tp_sh = [model_axis(s) is not None for s in specs]
+            plan = zero1.build_zero1_plan(
+                model.cfg, params, dp, pcfg.grad_rs_bucket_mb) \
+                if dp > 1 else None
+            dp_sh = [use_zero1 and plan.leaf_axes[i] is not None
+                     for i in range(len(specs))]
+            layout.update(plan=plan, tp_sharded=tp_sh,
+                          reduce_fn=zero1.sum_over_layout(tp_sh, dp_sh,
+                                                          ctx))
+        return layout
+
+    def reduce_grads(params, grads):
+        """The dp reduction; under ZeRO-1 also this rank's parameter
+        blocks, the tensors the update writes."""
+        lay = _layout(params)
+        sequence_parallel_grads(grads, lay["tp_sharded"], ctx)
+        if dp == 1:
+            return grads, tree_leaves(params)
+        grads = zero1.reduce_gradients(grads, lay["plan"], ctx, use_zero1,
+                                       pcfg.quantized_grad_reduce)
+        targets = tree_leaves(params)
+        if use_zero1:
+            targets = zero1.param_shards(targets, lay["plan"], ctx.dp_rank)
+        return grads, targets
 
     def train_step(params, opt_state: OptimizerState, batch, lr, wd,
                    rng=None, spike_threshold=None):
@@ -67,6 +158,7 @@ def make_train_step(model, tcfg: TrainConfig, pcfg: ParallelConfig,
                              f"built for {num_micro}")
         dev = leaves[0].device
         loss = torch.zeros((), dtype=torch.float32, device=dev)
+        nums, dens = [], []
         loss_scale = None if scaler is None else torch.as_tensor(
             scaler.scale(opt_state.scaler), dtype=torch.float32, device=dev)
         with torch.enable_grad():
@@ -74,12 +166,34 @@ def make_train_step(model, tcfg: TrainConfig, pcfg: ParallelConfig,
                 micro = {k: v[i] for k, v in batch.items()}
                 mrng = rng if rng is None or num_micro == 1 \
                     else fold_in(rng, i)
-                l_i = model.loss(params, dropout_rng=mrng,
-                                 deterministic=rng is None, **micro)
+                kw = dict(dropout_rng=mrng, deterministic=rng is None,
+                          **micro)
+                if dp == 1:
+                    l_i = model.loss(params, **kw)
+                    loss = loss + l_i.detach()
+                else:
+                    num, den = model.loss_terms(params, **kw)
+                    den = all_reduce(den.detach().clone(), ctx.dp_group,
+                                     ctx=ctx).clamp(min=1.0)
+                    l_i = num / den
+                    nums.append(num.detach())
+                    dens.append(den)
                 (l_i if loss_scale is None else l_i * loss_scale).backward()
-                loss = loss + l_i.detach()
+        if nums:
+            # the reported loss: the numerators summed over dp before the
+            # division, as the JAX package reduces them
+            nums = all_reduce(torch.stack(nums), ctx.dp_group, ctx=ctx)
+            for num, den in zip(nums, dens):
+                loss = loss + num / den
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in leaves]
+        targets, reduce_fn, any_rank = params, None, None
+        if ctx is not None:
+            grads, targets = reduce_grads(params, grads)
+            reduce_fn = _layout(params)["reduce_fn"]
+
+            def any_rank(flags):
+                return zero1.any_rank(flags, ctx)
         if num_micro > 1:
             for g in grads:
                 g.div_(num_micro)
@@ -94,9 +208,13 @@ def make_train_step(model, tcfg: TrainConfig, pcfg: ParallelConfig,
             # card, as an fp16 overflow would
             found_inf = ~torch.isfinite(loss) | (loss > spike_threshold)
         # grads: a list in the order of tree_leaves(params)
-        params, opt_state, stats = optimizer_step(
-            params, grads, opt_state, tcfg, lr, weight_decay=wd,
-            found_inf=found_inf, scaler=scaler)
+        targets, opt_state, stats = optimizer_step(
+            targets, grads, opt_state, tcfg, lr, weight_decay=wd,
+            found_inf=found_inf, scaler=scaler, reduce_fn=reduce_fn,
+            any_rank=any_rank)
+        if use_zero1:
+            zero1.gather_param_shards(leaves, targets,
+                                      _layout(params)["plan"], ctx)
         for p in leaves:
             p.grad = None
         stats["loss"] = loss
@@ -106,11 +224,18 @@ def make_train_step(model, tcfg: TrainConfig, pcfg: ParallelConfig,
 
 
 def make_eval_step(model):
-    """The eval step (JAX :344-357): the mean masked loss, no gradients."""
+    """The eval step (JAX :344-357): the mean masked loss, no gradients;
+    across dp ranks the global token-weighted mean of their rows."""
+    ctx = get_context()
 
     @torch.no_grad()
     def eval_step(params, batch):
-        return model.loss(params, batch["tokens"], batch["labels"],
-                          loss_mask=batch.get("loss_mask"))
+        if ctx is None or ctx.dp == 1:
+            return model.loss(params, batch["tokens"], batch["labels"],
+                              loss_mask=batch.get("loss_mask"))
+        num, den = model.loss_terms(params, batch["tokens"], batch["labels"],
+                                    loss_mask=batch.get("loss_mask"))
+        terms = all_reduce(torch.stack([num, den]), ctx.dp_group, ctx=ctx)
+        return terms[0] / terms[1].clamp(min=1.0)
 
     return eval_step

@@ -32,6 +32,16 @@ run draws the masks an uninterrupted one would; the base seed is saved
 in the checkpoint's meta and restored unless `--no_load_rng` or
 `--finetune`. Under fp16 the log line carries the loss scale.
 
+Across ranks (a parallel context, parallel/mesh.py) the trainer holds
+this rank's state: its tensor-parallel slices of the parameters and,
+under ZeRO-1, its blocks of the Adam moments; the loaders read the
+rank's rows of every global microbatch; the log line, printed by rank 0
+only, carries the global loss, gradient norm and tokens/s. A save
+gathers every leaf whole and rank 0 writes the checkpoint (the same
+files as one card's), the other ranks waiting for its commit; a load
+cuts each rank's slices from the whole leaves, so a checkpoint resumes
+at any layout. Rank 0 holds a host copy of the whole state meanwhile.
+
 Later slices, each raising ValueError while set: tensorboard and WandB,
 profiling and span traces, the flight-record dumps, the device-cost
 registry and the perf sentinel (the trainer's telemetry hooks, A3.8).
@@ -60,15 +70,31 @@ from megatron_llm_tpu_torch.optimizer import (
 from megatron_llm_tpu_torch.optimizer.optimizer import (
     OptimizerState,
     tree_leaves,
+    tree_map,
 )
+from megatron_llm_tpu_torch.optimizer.zero1 import (
+    build_zero1_plan,
+    map_indexed,
+)
+from megatron_llm_tpu_torch.parallel.mesh import gather_rows, get_context
 from megatron_llm_tpu_torch.parallel.multihost import (
     AutoResume,
     all_hosts_any,
     host_barrier,
+    process_row_range,
+)
+from megatron_llm_tpu_torch.parallel.sharding import (
+    model_axis,
+    param_specs,
+    shard_params,
+    slice_axis,
+    spec_leaves,
 )
 from megatron_llm_tpu_torch.training.checkpointing import (
     CheckpointManager,
+    flatten,
     load_checkpoint,
+    unflatten_like,
 )
 from megatron_llm_tpu_torch.training.microbatches import (
     build_num_microbatches_calculator,
@@ -124,6 +150,66 @@ def get_batch(text, eod_token=None, reset_position_ids=False,
     if attn_mask is not None:
         batch["attention_mask"] = attn_mask.reshape(n, b, 1, s, s)
     return batch
+
+
+class StateLayout:
+    """How a rank's state relates to the whole model: each leaf's
+    tensor-parallel axis and, under ZeRO-1, its moments' dp axis
+    (optimizer/zero1.py). `shard` cuts a whole leaf to this rank's
+    slice, `gather` makes a slice whole again on rank 0's host; leaf
+    names are the checkpoint files' ("layers.attention.wqkv",
+    "m.<leaf>", "v.<leaf>")."""
+
+    def __init__(self, ctx, cfg, full_template: dict, zero1: bool,
+                 bucket_mb: float):
+        self.ctx = ctx
+        specs = spec_leaves(param_specs(cfg, full_template))
+        self.tp_axes = [model_axis(sp) for sp in specs]
+        index, _ = map_indexed(lambda i, _: i, full_template)
+        self.index = flatten(index)
+        local = shard_params(tree_map(lambda t: torch.empty(
+            t.shape, dtype=t.dtype, device="meta"), full_template), ctx, cfg)
+        self.plan = build_zero1_plan(cfg, local, ctx.dp, bucket_mb) \
+            if zero1 and ctx.dp > 1 else None
+
+    def _leaf(self, name: str):
+        moment = name.startswith(("m.", "v."))
+        i = self.index.get(name[2:] if moment else name)
+        z1 = None if i is None or self.plan is None or not moment \
+            else self.plan.leaf_axes[i]
+        return i, z1
+
+    def shard(self, name: str, leaf: torch.Tensor) -> torch.Tensor:
+        i, z1 = self._leaf(name)
+        if i is None:  # "step", the scaler's state
+            return leaf
+        x = slice_axis(leaf, self.tp_axes[i], self.ctx.tp, self.ctx.tp_rank)
+        return slice_axis(x, z1, self.ctx.dp, self.ctx.dp_rank)
+
+    def gather(self, name: str, x: torch.Tensor):
+        """The whole leaf on rank 0 (a host tensor of its own), None on
+        the other ranks; a collective every rank enters. A ZeRO-1 block
+        goes to the dp group's first rank, then a tensor-parallel slice
+        to the tp group's first rank: only what rank 0 needs moves."""
+        i, z1 = self._leaf(name)
+        live = x = x.detach()
+        if z1 is not None:
+            x = gather_rows(x, self.ctx.dp_group, self.ctx, axis=z1)
+        k = None if i is None else self.tp_axes[i]
+        if k is not None and self.ctx.dp_rank == 0:
+            x = gather_rows(x, self.ctx.tp_group, self.ctx, axis=k)
+        if self.ctx.rank != 0:
+            return None
+        x = x.contiguous().cpu()
+        return x.clone() if x.data_ptr() == live.data_ptr() else x
+
+    def zero_moments(self, params: dict, device) -> dict:
+        """A zero moment tree of this rank's shapes."""
+        def zeros(i, p):
+            shape = p.shape if self.plan is None else self.plan.shard_shape(i)
+            return torch.zeros(shape, dtype=torch.float32, device=device)
+
+        return map_indexed(zeros, params)[0]
 
 
 @dataclass
@@ -206,6 +292,11 @@ class Trainer:
                                        tcfg.autoresume_interval)
                             if tcfg.autoresume_file else None)
         self._train_steps: dict = {}  # num_microbatches -> step function
+        ctx = get_context()
+        # the parallel context across ranks; None on one card
+        self.ctx = ctx if ctx is not None and ctx.world_size > 1 else None
+        self.layout: Optional[StateLayout] = None
+        self._rank0 = self.ctx is None or self.ctx.rank == 0
         # the dropout base stream (models/dropout.py), set by train() or
         # restored from a checkpoint; None without dropout
         self._dropout_seed: Optional[int] = None
@@ -216,20 +307,33 @@ class Trainer:
         `params` is given) and fresh optimizer state; then, with
         `tcfg.load`, the newest complete checkpoint there (JAX :293-366):
         its params, optimizer state (unless --finetune or
-        --no_load_optim), iteration, consumed samples and scheduler."""
+        --no_load_optim), iteration, consumed samples and scheduler.
+        Across ranks `params` is the whole tree and the state this
+        rank's slices of it."""
         self.timers("model-and-optimizer-setup").start()
         if params is None:
             params = self.model.init(seed=self.tcfg.seed)
-        opt_state = init_optimizer_state(params, self.tcfg)
-        self.timers("model-and-optimizer-setup").stop()
         self._n_params = sum(p.numel() for p in tree_leaves(params))
+        if self.ctx is None:
+            opt_state = init_optimizer_state(params, self.tcfg)
+        else:
+            self.layout = StateLayout(self.ctx, self.cfg, params,
+                                      self.pcfg.use_distributed_optimizer,
+                                      self.pcfg.grad_rs_bucket_mb)
+            params = shard_params(params, self.ctx, self.cfg)
+            opt_state = init_optimizer_state({}, self.tcfg,
+                                             device=self.device)
+            moments = self.layout.zero_moments(params, self.device)
+            opt_state = opt_state._replace(
+                m=moments, v=self.layout.zero_moments(params, self.device)
+                if self.tcfg.optimizer == "adam" else None)
+        self.timers("model-and-optimizer-setup").stop()
         state = TrainState(params=params, opt_state=opt_state)
         if self.tcfg.load:
-            loaded = load_checkpoint(
-                self.tcfg.load, params, opt_state, self.cfg,
-                finetune=self.tcfg.finetune,
-                no_load_optim=self.tcfg.no_load_optim,
-                no_load_rng=self.tcfg.no_load_rng)
+            loaded = self._load(self.tcfg.load, state,
+                                finetune=self.tcfg.finetune,
+                                no_load_optim=self.tcfg.no_load_optim,
+                                no_load_rng=self.tcfg.no_load_rng)
             if loaded is not None:
                 params, opt_state_l, meta, iteration = loaded
                 state = TrainState(
@@ -249,11 +353,33 @@ class Trainer:
                 # a batch-size rampup resumes at the resumed sample
                 self.num_microbatches_calc.update(
                     state.consumed_train_samples)
-                print(f"loaded checkpoint from {self.tcfg.load} at "
-                      f"iteration {state.iteration}", flush=True)
+                self._print(f"loaded checkpoint from {self.tcfg.load} at "
+                            f"iteration {state.iteration}")
         for p in tree_leaves(state.params):
             p.requires_grad_(True)
         return state
+
+    def _print(self, line: str) -> None:
+        if self._rank0:
+            print(line, flush=True)
+
+    def _load(self, load_dir: str, state: TrainState, **kw):
+        """`load_checkpoint` into this rank's layout: on one card with the
+        state as template; across ranks against whole-shape templates,
+        each leaf cut to the rank's slice."""
+        if self.layout is None:
+            return load_checkpoint(load_dir, state.params,
+                                   kw.pop("opt_template", state.opt_state),
+                                   self.cfg, **kw)
+        full = self.model.abstract_params()
+        moments = tree_map(lambda t: torch.empty(
+            t.shape, dtype=torch.float32, device="meta"), full)
+        tmpl = kw.pop("opt_template", state.opt_state)
+        opt_tmpl = None if tmpl is None else tmpl._replace(
+            m=moments, v=moments if tmpl.v is not None else None)
+        return load_checkpoint(load_dir, full, opt_tmpl, self.cfg,
+                               device=self.device, shard=self.layout.shard,
+                               **kw)
 
     def _get_step_fn(self, num_microbatches: int):
         if num_microbatches not in self._train_steps:
@@ -281,7 +407,7 @@ class Trainer:
             self.watchdog.threshold())
         state.params, state.opt_state = params, opt_state
         state.iteration += 1
-        mbs_dp = batch["tokens"].shape[1]
+        mbs_dp = batch["tokens"].shape[1] * self.pcfg.data_parallel_size
         self.scheduler.step(num_micro * mbs_dp if self._samples_mode else 1)
         state.consumed_train_samples += num_micro * mbs_dp
         self.num_microbatches_calc.update(state.consumed_train_samples)
@@ -338,9 +464,10 @@ class Trainer:
             tok_s, tflops = self.throughput(stats["batch_size"], elapsed)
             line += (f" | tokens/sec: {tok_s:.1f} | "
                      f"model TFLOP/s: {tflops:.2f}")
-        print(line, flush=True)
-        self.timers.log(["batch-generator", "train-step"],
-                        normalizer=self.tcfg.log_interval)
+        self._print(line)
+        if self._rank0:
+            self.timers.log(["batch-generator", "train-step"],
+                            normalizer=self.tcfg.log_interval)
 
     def throughput(self, batch_size: int, elapsed: float):
         """(tokens/s, model TFLOP/s) of one step: 6 N FLOPs per token, the
@@ -367,21 +494,60 @@ class Trainer:
         if self._saved_iteration == state.iteration:
             # this state is saved already, or its save is in flight
             if blocking:
-                mgr.wait_until_finished()
+                self._wait_for_commit()
             return
         self.timers("save-checkpoint").start()
-        mgr.save(state.iteration, state.params,
-                 None if self.tcfg.no_save_optim else state.opt_state,
-                 self.cfg, self.scheduler.state_dict(),
-                 state.consumed_train_samples, rng_key=self._dropout_seed)
+        if self.layout is None:
+            mgr.save(state.iteration, state.params,
+                     None if self.tcfg.no_save_optim else state.opt_state,
+                     self.cfg, self.scheduler.state_dict(),
+                     state.consumed_train_samples, rng_key=self._dropout_seed)
+        else:
+            params, opt = self._gather_state(state)
+            if self._rank0:
+                mgr.save(state.iteration, params, opt, self.cfg,
+                         self.scheduler.state_dict(),
+                         state.consumed_train_samples,
+                         rng_key=self._dropout_seed, fresh=True)
         self.timers("save-checkpoint").stop()
         self._saved_iteration = state.iteration
         self.timers.gauge("ckpt_blocked_ms", round(mgr.last_blocked_ms, 2))
         if blocking:
-            mgr.wait_until_finished()
-        print(f"saved checkpoint at iteration {state.iteration} to "
-              f"{self.tcfg.save}{' (committed)' if blocking else ' (async)'}",
-              flush=True)
+            self._wait_for_commit()
+        self._print(f"saved checkpoint at iteration {state.iteration} to "
+                    f"{self.tcfg.save}"
+                    f"{' (committed)' if blocking else ' (async)'}")
+
+    def _wait_for_commit(self) -> None:
+        """Wait for the save in flight (rank 0 writes it); every other
+        rank waits for rank 0."""
+        if self._ckpt_manager is not None:
+            self._ckpt_manager.wait_until_finished()
+        host_barrier("checkpoint-commit")
+
+    def _gather_state(self, state: TrainState):
+        """The whole params and optimizer state on rank 0's host (None,
+        None elsewhere): a collective, leaf by leaf."""
+        lay = self.layout
+        flat = {k: lay.gather(k, v) for k, v in flatten(state.params).items()}
+        params = unflatten_like(flat, state.params) if self._rank0 else None
+        if self.tcfg.no_save_optim:
+            return params, None
+        o = state.opt_state
+        out = {}
+        for prefix, tree in (("m.", o.m), ("v.", o.v)):
+            if tree is not None:
+                out[prefix] = unflatten_like(
+                    {k: lay.gather(prefix + k, v)
+                     for k, v in flatten(tree).items()}, tree)
+        if not self._rank0:
+            return None, None
+        opt = o._replace(
+            step=o.step.detach().cpu().clone(), m=out["m."],
+            v=out.get("v."),
+            scaler=None if o.scaler is None else {
+                k: v.detach().cpu().clone() for k, v in o.scaler.items()})
+        return params, opt
 
     def _rollback(self, state: TrainState) -> bool:
         """The loss watchdog's escalation (JAX :914-985): reload the last
@@ -391,22 +557,23 @@ class Trainer:
         the data position a later resume restarts from). False, and
         skip-only training, when there is nothing to roll back to."""
         if not self.tcfg.save:
-            print("WARNING: loss watchdog wants a rollback but no --save "
-                  "dir is configured; continuing in skip-only mode",
-                  flush=True)
+            self._print("WARNING: loss watchdog wants a rollback but no "
+                        "--save dir is configured; continuing in skip-only "
+                        "mode")
             return False
         # the save in flight is the newest: it must land first
-        self._get_ckpt_manager().wait_until_finished()
-        loaded = load_checkpoint(
-            self.tcfg.save, state.params,
+        self._get_ckpt_manager()
+        self._wait_for_commit()
+        loaded = self._load(
+            self.tcfg.save, state,
             # --no_save_optim checkpoints have no optim file
-            None if self.tcfg.no_save_optim else state.opt_state,
-            self.cfg,
+            opt_template=None if self.tcfg.no_save_optim
+            else state.opt_state,
             no_load_optim=self.tcfg.no_save_optim or self.tcfg.no_load_optim)
         if loaded is None:
-            print("WARNING: loss watchdog wants a rollback but no complete "
-                  "checkpoint exists yet; continuing in skip-only mode",
-                  flush=True)
+            self._print("WARNING: loss watchdog wants a rollback but no "
+                        "complete checkpoint exists yet; continuing in "
+                        "skip-only mode")
             return False
         params, opt_state, meta, iteration = loaded
         poison = state.iteration - iteration
@@ -420,10 +587,10 @@ class Trainer:
             self.scheduler.load_state_dict(meta["scheduler"])
         self._get_ckpt_manager().protect(meta.get("loaded_path"))
         self.watchdog.note_rollback()
-        print(f"LOSS WATCHDOG ROLLBACK: reloaded iteration {iteration} from "
-              f"{self.tcfg.save}; data iterator fast-forwarded past the "
-              f"{poison}-iteration poison window (rollback "
-              f"#{self.watchdog.rollbacks})", flush=True)
+        self._print(f"LOSS WATCHDOG ROLLBACK: reloaded iteration "
+                    f"{iteration} from {self.tcfg.save}; data iterator "
+                    f"fast-forwarded past the {poison}-iteration poison "
+                    f"window (rollback #{self.watchdog.rollbacks})")
         return True
 
     def train(self, state: TrainState) -> TrainState:
@@ -448,7 +615,7 @@ class Trainer:
             try:
                 text = next(data_iter)
             except StopIteration:
-                print("data iterator exhausted", flush=True)
+                self._print("data iterator exhausted")
                 break
             finally:
                 self.timers("batch-generator").stop()
@@ -470,9 +637,9 @@ class Trainer:
                                   "ms": elapsed * 1e3, "data_ms": data_ms,
                                   "bad": bad})
             if bad:
-                print(f"loss watchdog: bad step at iteration "
-                      f"{state.iteration} (loss {loss_val:.6E}, streak "
-                      f"{self.watchdog.consecutive_bad})", flush=True)
+                self._print(f"loss watchdog: bad step at iteration "
+                            f"{state.iteration} (loss {loss_val:.6E}, "
+                            f"streak {self.watchdog.consecutive_bad})")
                 if self.watchdog.should_rollback():
                     self._rollback(state)
             if state.iteration % tcfg.log_interval == 0:
@@ -480,9 +647,9 @@ class Trainer:
             if (tcfg.eval_interval and self.valid_data_iterator is not None
                     and state.iteration % tcfg.eval_interval == 0):
                 val = self.evaluate(state)
-                print(f"validation loss at iteration {state.iteration}: "
-                      f"{val:.6E} | ppl: {float(np.exp(min(20.0, val))):.4f}",
-                      flush=True)
+                self._print(f"validation loss at iteration "
+                            f"{state.iteration}: {val:.6E} | ppl: "
+                            f"{float(np.exp(min(20.0, val))):.4f}")
             if tcfg.save_interval and state.iteration % tcfg.save_interval \
                     == 0:
                 self._save(state)
@@ -490,32 +657,31 @@ class Trainer:
             # each make a blocking save first
             if self.signal_handler is not None and all_hosts_any(
                     self.signal_handler.signals_received()):
-                print("exiting on termination signal - emergency save",
-                      flush=True)
+                self._print("exiting on termination signal - emergency "
+                            "save")
                 self._save(state, blocking=True)
                 host_barrier("emergency-save-done")
                 break
             if tcfg.exit_duration_in_mins is not None and all_hosts_any(
                     (time.time() - start_time) / 60.0
                     > tcfg.exit_duration_in_mins):
-                print("exiting on duration limit", flush=True)
+                self._print("exiting on duration limit")
                 self._save(state, blocking=True)
                 host_barrier("duration-save-done")
                 break
             if self._autoresume is not None and \
                     self._autoresume.termination_requested(state.iteration):
-                print("exiting on autoresume termination request",
-                      flush=True)
+                self._print("exiting on autoresume termination request")
                 self._save(state, blocking=True)
                 host_barrier("autoresume-save-done")
                 break
             if tcfg.exit_interval and state.iteration % tcfg.exit_interval \
                     == 0:
-                print(f"exiting at iteration {state.iteration}", flush=True)
+                self._print(f"exiting at iteration {state.iteration}")
                 break
         # an interval save in flight lands before the loop returns
-        if self._ckpt_manager is not None:
-            self._ckpt_manager.wait_until_finished()
+        if self._ckpt_manager is not None or self.layout is not None:
+            self._wait_for_commit()
         return state
 
 
@@ -564,13 +730,16 @@ def pretrain(model, tcfg: TrainConfig, pcfg: ParallelConfig,
                       reset_attention_mask=reset_attention_mask,
                       eod_mask_loss=eod_mask_loss)
     state = trainer.setup()
+    # a dp rank loads its rows of each global microbatch (JAX :1245-1275)
+    rows = process_row_range(trainer.ctx, tcfg.micro_batch_size
+                             * pcfg.data_parallel_size)
     trainer.train_data_iterator = build_pretraining_data_loader(
         train_ds, state.consumed_train_samples, tcfg.micro_batch_size,
         pcfg.data_parallel_size, trainer.num_microbatches_calc.get,
-        dataloader_type=dataloader_type)
+        dataloader_type=dataloader_type, row_range=rows)
     trainer.valid_data_iterator = build_pretraining_data_loader(
         valid_ds, 0, tcfg.micro_batch_size, pcfg.data_parallel_size, 1,
-        dataloader_type=dataloader_type)
+        dataloader_type=dataloader_type, row_range=rows)
     state = trainer.train(state)
     if tcfg.save:
         trainer._save(state, blocking=True)

@@ -83,3 +83,53 @@ def test_k5_and_k6_take_rows_padded_once():
     fa._check_rows4(2, 4, torch.ones(2, 4, 1))
     with pytest.raises(ValueError, match="multiple of 4"):
         fa._check_rows4(2, 3, torch.ones(2, 3, 1))
+
+
+FAKE_NVCC = """#!{python}
+import os, sys, time
+with open({count!r}, "a") as f:
+    f.write("x")
+time.sleep(0.5)
+out = sys.argv[sys.argv.index("-o") + 1]
+with open(out, "w") as f:
+    f.write("built")
+"""
+
+RANK = """
+import sys
+from pathlib import Path
+from megatron_llm_tpu_torch.ops import _build
+print(_build.build_library("flash_attention.cu", Path(sys.argv[1]),
+                           Path(sys.argv[2]), nvcc=sys.argv[3]))
+"""
+
+
+def test_ranks_starting_together_build_each_library_once(csrc, tmp_path):
+    """Four processes that start together (torchrun's ranks) build the
+    library once, under the build directory's lock, and all name the
+    same file; the fake compiler counts its runs."""
+    import os
+    import subprocess
+    import sys
+
+    count = tmp_path / "count"
+    nvcc = tmp_path / "nvcc"
+    nvcc.write_text(FAKE_NVCC.format(python=sys.executable,
+                                     count=str(count)))
+    nvcc.chmod(0o755)
+    build = tmp_path / "build"
+    env = dict(os.environ, PYTHONPATH=str(_build.CSRC.parent.parent))
+    procs = [subprocess.Popen(
+        [sys.executable, "-c", RANK, str(csrc), str(build), str(nvcc)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        env=env) for _ in range(4)]
+    outs = []
+    for p in procs:
+        out, _ = p.communicate(timeout=120)
+        assert p.returncode == 0, out
+        outs.append(out.strip().splitlines()[-1])
+    assert count.read_text() == "x"
+    assert len(set(outs)) == 1
+    lib = build / os.path.basename(outs[0])
+    assert lib.read_text() == "built"
+    assert lib == _build.library_path("flash_attention.cu", csrc, build)

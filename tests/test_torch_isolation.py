@@ -18,7 +18,10 @@ import pytest
 import megatron_llm_tpu_torch
 from megatron_llm_tpu_torch import finetune
 from megatron_llm_tpu_torch.config import tiny_config
-from megatron_llm_tpu_torch.convert.from_jax import params_from_jax
+from megatron_llm_tpu_torch.convert.from_jax import (
+    params_from_jax,
+    rank_params_from_jax,
+)
 from megatron_llm_tpu_torch.inference.engine import DecodeEngine
 from megatron_llm_tpu_torch.models import FalconModel, GPTModel, LlamaModel
 from megatron_llm_tpu_torch.models.language_model import (
@@ -99,6 +102,7 @@ def test_no_jax_import_in_source(path):
     (init_layer_params, "device"),
     (precompute_rope, "device"),
     (params_from_jax, "device"),
+    (rank_params_from_jax, "device"),
     (get_batch, "device"),
     (finetune.main, "device"),
     (finetune.model_provider, "device"),
@@ -197,3 +201,45 @@ def test_converters_touch_no_device(path):
     for node in ast.walk(ast.parse(src)):
         if isinstance(node, ast.arg):
             assert node.arg != "device", path.name
+
+
+def test_spawned_cpu_ranks_import_no_jax():
+    """A rank that `spawn_cpu_group` starts imports every module of the
+    port and no JAX."""
+    import torch_ranks
+    from megatron_llm_tpu_torch.utils.virtual_mesh import spawn_cpu_group
+
+    out = spawn_cpu_group(2, torch_ranks.rank_modules, timeout_s=120)
+    assert out == [{"world": 2, "jax": []}] * 2
+
+
+TORCHRUN_RANK = """
+import sys
+import torch
+from megatron_llm_tpu_torch.parallel import mesh, multihost
+world = mesh.maybe_initialize_distributed(device="cpu")
+ctx = mesh.initialize_parallel(dp=2, device="cpu")
+anyone = multihost.all_hosts_any(ctx.rank == 1)
+multihost.host_barrier("done")
+jax = [k for k in sys.modules if k == "jax" or k.startswith("jax.")]
+with open(f"{sys.argv[1]}/rank{ctx.rank}", "w") as f:
+    f.write(f"RANK {ctx.rank} {world} {ctx.backend} {anyone} {jax}")
+mesh.destroy_parallel()
+torch.distributed.destroy_process_group()
+"""
+
+
+def test_torchrun_ranks_join_the_group_and_import_no_jax(tmp_path):
+    """Under torchrun (on the CPU, gloo) each rank joins the group
+    torchrun describes, agrees with the others and imports no JAX."""
+    script = tmp_path / "rank.py"
+    script.write_text(TORCHRUN_RANK)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    env["PYTHONPATH"] = str(REPO)
+    out = subprocess.run(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "2", str(script), str(tmp_path)], cwd=REPO,
+        env=env, capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+    lines = [(tmp_path / f"rank{r}").read_text() for r in range(2)]
+    assert lines == ["RANK 0 2 gloo True []", "RANK 1 2 gloo True []"]

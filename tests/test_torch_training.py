@@ -326,16 +326,23 @@ def test_training_after_serving_in_one_process():
 
 
 def test_remat_policies_of_later_slices_raise():
-    """What stays refused on one card: the trainer's telemetry hooks and
-    parallelism. Selective remat, dropout and fp16 train; their parity
-    with the JAX package is in tests/test_torch_{remat,dropout,
-    grad_scaler}.py."""
+    """What stays refused: the trainer's telemetry hooks, pipeline
+    parallelism, and a data-parallel layout with no ranks to run it.
+    Selective remat, dropout and fp16 train; their parity with the JAX
+    package is in tests/test_torch_{remat,dropout,grad_scaler}.py, and
+    data and tensor parallelism's in tests/test_torch_{zero1,
+    tensor_parallel,parallel_finetune}.py."""
     tm = LlamaModel(torch_cfg(remat_policy="selective"), device="cpu")
     with pytest.raises(ValueError, match="telemetry"):
         Trainer(tm, TrainConfig(tensorboard_dir="/nonexistent"),
                 ParallelConfig())
-    with pytest.raises(ValueError, match="parallelism"):
-        ParallelConfig(data_parallel_size=2)
+    with pytest.raises(ValueError, match="pipeline"):
+        ParallelConfig(pipeline_parallel_size=2)
+    from megatron_llm_tpu_torch.training.train_step import make_train_step
+
+    with pytest.raises(ValueError, match="parallel context"):
+        make_train_step(tm, TrainConfig(), ParallelConfig(
+            data_parallel_size=2))
 
 
 # ---------------------------------------------------------------------------
