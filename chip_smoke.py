@@ -129,8 +129,9 @@ Phases, one output line each (a failure raises and exits non-zero):
    launch the present design (fp32 pools); log-probs re-scored on a
    kernels-off fp32 engine within 1e-3;
 14c. launcher_llama (the serving entry path, after the 7B of phase 4 is
-   written out and freed): its weights written as an HF Llama directory
-   (config.json, bf16 safetensors in 5 GB shards with an index) by the
+   written out and freed): its first 8 of 32 layers
+   (LLAMA_LAUNCH_LAYERS) written as an HF Llama directory
+   (config.json, bf16 safetensors in 2 GB shards with an index) by the
    port's converter and writer, converted by `python -m
    megatron_llm_tpu_torch.tools.convert_weights --direction hf2native
    --dtype bfloat16` into a release whose every leaf equals the smoke's
@@ -138,10 +139,11 @@ Phases, one output line each (a failure raises and exits non-zero):
    --warmup_compile ...])` in a thread, at its engine defaults, serving
    over HTTP from concurrent clients the first 8 greedy requests of
    phase 8, the streamed one, and one after the other a beam-2 and a
-   score-only request. Counters set to 0 before the traffic: K7 32 times
-   per paged forward (tc), K1 32 times per beam decode step, K4 32 times
-   (the score request), K2 never; the greedy streams within 5e-2 of
-   phase 8's over each common prefix. Then two greedy requests, one at a
+   score-only request. Counters set to 0 before the traffic: K7 once a
+   layer per paged forward (tc), K1 once a layer per beam decode step, K4
+   once a layer (the score request), K2 never; the greedy streams
+   teacher-forced through the kernels-off forward within 5e-2. Then two
+   greedy requests, one at a
    time, answered equally by the launcher started as a subprocess
    (`python -m ...run_text_generation_server`). Printed: the seconds of
    the HF write, the conversion, the load, the warmup capture and the
@@ -235,7 +237,26 @@ Phases, one output line each (a failure raises and exits non-zero):
    staging, ms a step labelled as gloo through the host on one shared
    card. Also, after the kernel checks, kernel_time_flash_tp2: K4-K6 at
    a tp 2 rank's attention shape (g 16) beside SDPA and their plain
-   versions, within 2e-2.
+   versions, within 2e-2;
+21. pipeline: `torchrun --nproc_per_node 2` runs `finetune.main` at pp 2
+   (`--pipeline_model_parallel_size 2 --pipeline_remat tick`, the
+   recipe's flags, 4 of 32 layers, 2 a stage) over gloo, both stages on
+   cuda:0: 3 steps and a save with the optimizer state, then the same
+   ranks resume it (optimizer state included) for step 4 and serve it
+   through the API (a pipelined score, four greedy requests through the
+   stage ring), and world size 1 runs the same 4 steps, resumes the
+   save for step 4 and serves it whole-batch. Losses and grad norms
+   within 2e-2 / 5e-2 of world size 1, step 4 at pp 2 and pp 1 within
+   1e-4, every leaf of the checkpoint (Adam moments included) cut into
+   each stage's pieces equal to what the stage held, the scorer's
+   log-probs within 5e-2 of the whole-batch route's and the ring's over
+   each common prefix within 5e-2 of the one-rank route run on the
+   ring's row groups (the same GEMM rows; the drift of the 4-row route
+   from the 2-row one is printed beside it); per rank K4 16, K5 8, K6 8
+   a step, the scorer's K4 once a stage layer, the ring's K1 in "tgd"
+   once a stage layer a decode tick. Also, after the kernel checks,
+   kernel_time_decode_ring: K1 on one layer's "tgd" slice of the ring's
+   stacked cache against its plain version, beside SDPA and the bound.
 
 Then a line of each phase's seconds, a line of the processes the run
 still had to stop, one JSON line of the kernels, the nvidia-smi line,
@@ -2864,12 +2885,30 @@ def launcher_subprocess(argv, payloads):
     return banner_s, answers, line.strip()
 
 
+# the serving entry path's depth: Llama-2-7B's width at 8 of its 32
+# layers (the conversion's disk traffic is a quarter), to keep the whole
+# smoke within 950 s beside the pipeline phase's optimizer-state save
+LLAMA_LAUNCH_LAYERS = 8
+
+
+def first_layers(cfg, params, n):
+    """The config and weights of the first n layers (copies: the whole
+    model can be freed)."""
+    layers = ckpt.unflatten({k: v[:n].clone() for k, v in
+                             ckpt.flatten(params["layers"]).items()})
+    return dataclasses.replace(cfg, num_layers=n), dict(params,
+                                                        layers=layers)
+
+
 def convert_llama(cfg, params):
-    """The smoke's Llama-2-7B weights (phase 4) written as an HF Llama
-    directory (config.json, sharded bf16 safetensors with an index)
-    through the port's converter and writer, then converted by the CLI's
-    hf2native into a bf16 release, whose every leaf must equal the
-    smoke's bit for bit. Runs while the weights are on the card."""
+    """The smoke's Llama-2-7B weights (phase 4) at LLAMA_LAUNCH_LAYERS of
+    its 32 layers written as an HF Llama directory (config.json, sharded
+    bf16 safetensors with an index) through the port's converter and
+    writer, then converted by the CLI's hf2native into a bf16 release,
+    whose every leaf must equal the smoke's bit for bit. Runs while the
+    weights are on the card; returns the conversion's facts and the
+    weights it converted."""
+    cfg, params = first_layers(cfg, params, LLAMA_LAUNCH_LAYERS)
     free_gb = need_disk(LLAMA_DISK_GB)
     hf_dir, rel_dir = LAUNCH_DIR / "hf_llama", LAUNCH_DIR / "llama"
     for d in (hf_dir, rel_dir):
@@ -2878,7 +2917,9 @@ def convert_llama(cfg, params):
     sd = hf_conv.native_to_hf_llama(params, cfg, dtype=torch.bfloat16)
     safetensors_io.write_hf_config(str(hf_dir), safetensors_io.llama_hf_config(
         cfg, cfg.padded_vocab_size, torch.bfloat16))
-    hf_bytes = safetensors_io.save_sharded(sd, str(hf_dir))
+    # 2 GB shards: the 3.77 GB of 8 layers still take the sharded layout
+    hf_bytes = safetensors_io.save_sharded(sd, str(hf_dir),
+                                           max_shard_bytes=2 * 10**9)
     del sd
     free_cuda()
     hf_write_s = time.perf_counter() - t0
@@ -2892,16 +2933,35 @@ def convert_llama(cfg, params):
             "hf_bytes": hf_bytes, "hf_shards": shards,
             "convert_s": convert_s, "release_leaves_equal": leaves,
             "release_bytes": dir_bytes(rel_dir / "release"),
-            "release": rel_dir}
+            "release": rel_dir}, (cfg, params)
 
 
-def launcher_llama(kernels, conv, engine_phase):
-    """Llama-2-7B from the converted release through the launcher, in a
-    thread (`--warmup_compile`, the engine defaults: 8 slots, page 64,
-    max_context 2048, chunks of 256, prefix cache), then as a
-    subprocess. The streams hold the in-process engine's (phase 8) within
-    5e-2 over each common prefix; the subprocess answers two greedy
-    requests, one at a time, as the in-thread launcher did."""
+def teacher_forced(model, params, greedy):
+    """The greedy outputs teacher-forced through `model`'s no-cache
+    forward: the largest |log-prob difference| and the share of
+    generated positions where its argmax is the stream's token."""
+    err, match, total = 0.0, 0, 0
+    with torch.inference_mode():
+        for _, prompt, out, lp in greedy:
+            seq = torch.tensor(out, device=model.device)[None]
+            logits, _ = model.forward(params, seq[:, :-1])
+            lps = torch.log_softmax(logits[0].float(), -1)
+            forced = lps.gather(1, seq[0, 1:, None])[:, 0].cpu().numpy()
+            err = max(err, float(np.abs(forced - np.asarray(lp)).max()))
+            am = lps.argmax(-1).cpu().numpy()[len(prompt) - 1:]
+            match += int((am == np.asarray(out[len(prompt):])).sum())
+            total += len(out) - len(prompt)
+    return err, match / max(total, 1)
+
+
+def launcher_llama(kernels, conv, weights):
+    """Llama-2-7B widths at LLAMA_LAUNCH_LAYERS layers from the converted
+    release through the launcher, in a thread (`--warmup_compile`, the
+    engine defaults: 8 slots, page 64, max_context 2048, chunks of 256,
+    prefix cache), then as a subprocess. The greedy streams teacher-forced
+    through the kernels-off forward on the converted weights within
+    5e-2; the subprocess answers two greedy requests, one at a time, as
+    the in-thread launcher did."""
     tok = build_tokenizer("NullTokenizer", null_vocab_size=31999)
     argv = ["--load", str(conv.pop("release")), "--model", "llama",
             "--tokenizer_type", "NullTokenizer", "--null_vocab_size",
@@ -2920,9 +2980,6 @@ def launcher_llama(kernels, conv, engine_phase):
     run = drive_launcher(srv.port, eng, traffic, whole)
     generated, greedy = check_outputs(traffic, run, tok)
     beam_steps = check_launcher_run(cfg, run, whole, flash=True)
-    agree, err = compare_streams(engine_phase[:LAUNCHER_REQUESTS], greedy)
-    check(err <= PATH_LP_TOL, f"launcher streams against the in-process "
-                              f"engine's: log-probs {err}")
     seq = sequential_greedy(srv.port, sequential_payloads())
     metrics = get_json(srv.port, "/metrics")
     eng.stop()  # its serve thread: the card is timed alone
@@ -2934,6 +2991,15 @@ def launcher_llama(kernels, conv, engine_phase):
     check(sub == seq, "the subprocess launcher's answers differ from the "
                       "in-thread launcher's")
     shutil.rmtree(argv[1])
+    wcfg, wparams = weights
+    plain = LlamaModel(dataclasses.replace(
+        wcfg, use_decode_attn=False, use_flash_attn=False,
+        use_fused_rmsnorm=False))
+    err, agree = teacher_forced(plain, wparams, greedy)
+    del plain, wparams, weights
+    free_cuda()
+    check(err <= PATH_LP_TOL, f"launcher streams teacher-forced through "
+                              f"the kernels-off forward: log-probs {err}")
     say("launcher_llama", card=nvidia_smi(), config="llama2-7b",
         layers=cfg.num_layers, **conv, load_s=srv.load_s,
         engine_setup_s=srv.setup_s, warmup_capture_s=graphs["capture_s"],
@@ -2947,8 +3013,8 @@ def launcher_llama(kernels, conv, engine_phase):
         decode_ms_per_advance=ms_per_advance(run["rounds"]),
         decode_step_device_ms=step_ms,
         weight_stream_floor_ms=decode_bytes / HBM_BYTES_PER_S * 1e3,
-        greedy_token_agreement_with_engine_phase=agree,
-        max_abs_logprob_err_vs_engine_phase=err, tol=PATH_LP_TOL, **mem,
+        greedy_token_match_fraction_kernels_off=agree,
+        path_check_max_abs_logprob_err=err, tol=PATH_LP_TOL, **mem,
         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
 
 
@@ -3067,17 +3133,7 @@ def launcher_falcon(kernels, init_std):
     # the greedy outputs teacher-forced through the no-cache forward with
     # the kernels off, on the smoke's own weights (the release's values)
     plain = FalconModel(dataclasses.replace(cfg, use_decode_attn=False))
-    err, match, total = 0.0, 0, 0
-    with torch.inference_mode():
-        for _, prompt, out, lp in greedy:
-            seq = torch.tensor(out, device=plain.device)[None]
-            logits, _ = plain.forward(params, seq[:, :-1])
-            lps = torch.log_softmax(logits[0].float(), -1)
-            forced = lps.gather(1, seq[0, 1:, None])[:, 0].cpu().numpy()
-            err = max(err, float(np.abs(forced - np.asarray(lp)).max()))
-            am = lps.argmax(-1).cpu().numpy()[len(prompt) - 1:]
-            match += int((am == np.asarray(out[len(prompt):])).sum())
-            total += len(out) - len(prompt)
+    err, match_fraction = teacher_forced(plain, params, greedy)
     shutil.rmtree(rel_dir)
     del model, plain, params
     free_cuda()
@@ -3100,7 +3156,7 @@ def launcher_falcon(kernels, init_std):
         decode_step_device_ms=step_ms,
         weight_stream_floor_ms=decode_bytes / HBM_BYTES_PER_S * 1e3,
         **kernel_times, path_check_max_abs_logprob_err=err, tol=PATH_LP_TOL,
-        greedy_token_match_fraction=match / max(total, 1))
+        greedy_token_match_fraction=match_fraction)
     check(err <= PATH_LP_TOL, f"falcon re-scored logprobs {err}")
 
 
@@ -3565,6 +3621,8 @@ def zero_counts():
                fa.flash_bwd_dq, fa.flash_bwd_dkv, dec.decode_attention,
                pa.ragged_paged_attention):
         fn.launches = 0
+    dec.decode_attention.launches_by_layout = dict.fromkeys(
+        dec.decode_attention.launches_by_layout, 0)
     for fn in FLASH_WRAPPERS.values():
         fn.launches_by_dtype = dict.fromkeys(fn.launches_by_dtype, 0)
     pa.ragged_paged_attention.variant_launches = dict.fromkeys(
@@ -4024,7 +4082,7 @@ def finetune_run(argv, sigterm_after=None, on_state=None):
             ctx = inner(*a, **kw)
             rec["parallel"] = {"backend": ctx.backend, "staged": ctx.staged,
                                "world": ctx.world_size, "dp": ctx.dp,
-                               "tp": ctx.tp, "rank": ctx.rank,
+                               "pp": ctx.pp, "tp": ctx.tp, "rank": ctx.rank,
                                "sequence_parallel": ctx.sequence_parallel}
             return ctx
         return run
@@ -4244,9 +4302,9 @@ def finetune_phase(kernels, train_step_ms):
 
 def mode_argv(data, *extra):
     """`finetune.main`'s flags for finetune_modes: Llama-2-7B widths at
-    FT_LAYERS of 32 layers, seq 4096, 4 microbatches of 1, the corpora of
-    finetune_data, no evaluation and no --save (a commit costs 16-27 s);
-    the mode's flags in `extra`."""
+    FT_LAYERS of 32 layers, seq 4096, 4 microbatches of 1, the corpora
+    of finetune_data, no evaluation and no --save (a commit costs 16-27
+    s); the mode's flags in `extra`."""
     flags = (f"--model_name llama2 --model_size 7 --num_layers {FT_LAYERS} "
              f"--seq_length {FT_SEQ} --micro_batch_size 1 "
              f"--global_batch_size {FT_MICRO} --tokenizer_type "
@@ -4272,7 +4330,10 @@ RECIPE_A4_FLAGS = ["--tensor_model_parallel_size", "1", "--sequence_parallel",
 RECIPE_LEFT_OUT = {
     "--tensor_model_parallel_size 8": "1 on one card; tp 2 in "
     "finetune_parallel",
-    "--pipeline/context_model_parallel_size": "the next A4 PR",
+    "--pipeline_model_parallel_size": "1 in (a); 2 in the pipeline "
+    "phase",
+    "--context_parallel_size": "the next A4 PR (context parallelism, "
+    "ROADMAP.md A4 item 2)",
     "--tensorboard_dir, --log_timers_to_tensorboard":
         "the trainer's telemetry hooks, ROADMAP.md A3.8",
     "--save, --load, --use_checkpoint_args, --save_interval":
@@ -4360,8 +4421,8 @@ def finetune_modes(kernels, data):
           f"finetune_modes (a) with the A4 flags launched "
           f"{a_a4['launches']} != {a['launches']}")
     check(a_a4["parallel"] == {"backend": "nccl", "staged": False,
-                               "world": 1, "dp": 1, "tp": 1, "rank": 0,
-                               "sequence_parallel": False},
+                               "world": 1, "dp": 1, "pp": 1, "tp": 1,
+                               "rank": 0, "sequence_parallel": False},
           f"finetune_modes (a) under torchrun: {a_a4.get('parallel')}")
     a4_equal = [x["loss"] == y["loss"] and x["grad_norm"] == y["grad_norm"]
                 for x, y in zip(a["stats"], a_a4["stats"])]
@@ -4458,6 +4519,9 @@ def finetune_rank(out_dir, argvs_file):
     argvs = json.loads(Path(argvs_file).read_text())
     runs = []
     for argv in argvs:
+        if isinstance(argv, dict):  # the pipeline phase's serving entry
+            runs.append(pp_serve(**argv))
+            continue
         fps = {}
         torch.cuda.reset_peak_memory_stats()
         rec = finetune_run(argv, on_state=lambda st: fps.update(
@@ -4528,11 +4592,14 @@ def parallel_expected_launches(steps):
             "ragged_paged_attention": 0}
 
 
-def check_parallel_checkpoint(ck_dir, rank_fps, bucket_mb=4.0):
+def check_parallel_checkpoint(ck_dir, rank_fps, ctxs=None, zero1=True,
+                              bucket_mb=4.0):
     """Cut every leaf of the checkpoint the tracker names into each
-    rank's tp2 x dp2 piece, as a resume would, and hold its fingerprint
-    to the piece the rank saved: (leaves checked, iteration). Each leaf
-    is read once and cut on the card."""
+    rank's piece (by default of tp2 x dp2; else of the layouts `ctxs`,
+    one a rank), as a resume would, and hold its fingerprint to the piece
+    the rank saved: (leaves checked, iteration). A checkpoint without
+    optimizer state is held to the ranks' parameters. Each leaf is read
+    once and cut on the card."""
     from types import SimpleNamespace
 
     from megatron_llm_tpu_torch.training.trainer import StateLayout
@@ -4541,20 +4608,27 @@ def check_parallel_checkpoint(ck_dir, rank_fps, bucket_mb=4.0):
     model = torch.load(os.path.join(path, "model"), map_location="cpu",
                        mmap=True, weights_only=True)
     optim = torch.load(os.path.join(path, "optim"), map_location="cpu",
-                       mmap=True, weights_only=True)
+                       mmap=True, weights_only=True) \
+        if os.path.exists(os.path.join(path, "optim")) else {}
     tmpl = ckpt.unflatten({k: torch.empty(v.shape, dtype=v.dtype,
                                           device="meta")
                            for k, v in model.items()})
     leaves = dict(model)
     leaves.update({k: v for k, v in optim.items()
                    if k.startswith(("m.", "v."))})
+    if ctxs is None:
+        ctxs = [SimpleNamespace(tp=PAR_TP, dp=PAR_DP, tp_rank=r % PAR_TP,
+                                dp_rank=r // PAR_TP)
+                for r in range(len(rank_fps))]
     layouts = []
-    for r, fps in enumerate(rank_fps):
+    for r, (fps, ctx) in enumerate(zip(rank_fps, ctxs)):
+        if not optim:
+            fps = {k: v for k, v in fps.items()
+                   if not k.startswith(("m.", "v."))}
+            rank_fps[r] = fps
         check(set(leaves) == set(fps), f"rank {r}: checkpoint leaves "
               f"{sorted(set(leaves) ^ set(fps))[:4]} differ")
-        ctx = SimpleNamespace(tp=PAR_TP, dp=PAR_DP, tp_rank=r % PAR_TP,
-                              dp_rank=r // PAR_TP)
-        layouts.append(StateLayout(ctx, None, tmpl, zero1=True,
+        layouts.append(StateLayout(ctx, None, tmpl, zero1=zero1,
                                    bucket_mb=bucket_mb))
     checked = 0
     for name, leaf in leaves.items():
@@ -4593,8 +4667,9 @@ def finetune_parallel(kernels, data, one):
     ref = one["stats"]
     for r, run in enumerate(first):
         check(run["parallel"] == {"backend": "gloo", "staged": True,
-                                  "world": 4, "dp": PAR_DP, "tp": PAR_TP,
-                                  "rank": r, "sequence_parallel": True},
+                                  "world": 4, "dp": PAR_DP, "pp": 1,
+                                  "tp": PAR_TP, "rank": r,
+                                  "sequence_parallel": True},
               f"rank {r}: layout {run.get('parallel')}")
         check(run["stats"] == first[0]["stats"],
               f"rank {r} reports another global loss or grad norm")
@@ -4731,6 +4806,373 @@ def time_flash_tp2(kernels):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# pipeline parallelism: two stages sharing the card through gloo
+# ---------------------------------------------------------------------------
+
+# the recipe's pipeline flags at pp 2 (examples/finetune.sh:13,59) with
+# the JAX package's --pipeline_remat, two ranks on cuda:0 through gloo
+PP_FLAGS = ["--pipeline_model_parallel_size", "2", "--pipeline_remat",
+            "tick", "--distributed_backend", "gloo"]
+PP_RANKS = 2
+PP_GEN = 32  # tokens each served request generates
+PP_STEP4_TOL = 1e-4
+
+
+def pp_prompts():
+    """Four greedy requests (one ring group of two rows a stage)."""
+    rs = np.random.RandomState(SEED + 51)
+    return [" ".join(map(str, rs.randint(0, 31999, n)))
+            for n in (130, 96, 150, 110)]
+
+
+def pp_ring_plan(prompts, gen=PP_GEN):
+    """The ring's shape for these requests: (rows, groups, max_len,
+    prefill_len, decode steps)."""
+    tok = build_tokenizer("NullTokenizer", null_vocab_size=31999)
+    tokens, lengths = tokenize_prompts(tok, prompts, gen)
+    b, max_len = tokens.shape
+    prefill = bucket_prefill_len(int(lengths.min()))
+    nm = PP_RANKS
+    return {"rows": b // nm, "groups": nm, "max_len": max_len,
+            "prefill_len": prefill, "steps": max_len - prefill - 1}
+
+
+def pp_expected_launches(steps):
+    """Per rank (a stage of FT_LAYERS / 2 layers): under "tick" each
+    microbatch's stage runs forward once without a graph and again in
+    the backward, where the recipe's selective recompute keeps K4's
+    output: K4 twice a layer and microbatch, K5 and K6 once."""
+    n = FT_LAYERS // PP_RANKS * FT_MICRO * steps
+    return {"flash_fwd": 2 * n, "flash_bwd_dq": n, "flash_bwd_dkv": n,
+            "rmsnorm_fwd": 0, "rmsnorm_bwd": 0, "decode_attention": 0,
+            "ragged_paged_attention": 0}
+
+
+def pp_serving_model(argv, ck, ctx):
+    """`argv`'s model (finetune's flags) with the checkpoint's weights on
+    this rank's card: whole, or under `ctx` this stage's layers."""
+    from megatron_llm_tpu_torch import arguments, finetune
+    from megatron_llm_tpu_torch.optimizer.optimizer import tree_map
+    from megatron_llm_tpu_torch.parallel.mesh import rank_device
+    from megatron_llm_tpu_torch.parallel.sharding import shard_params
+
+    tok = build_tokenizer("NullTokenizer", null_vocab_size=31999)
+    args = arguments.build_base_parser().parse_args(argv)
+    mcfg = arguments.args_to_configs(
+        args, tok.vocab_size, world_size=1 if ctx is None else ctx.pp)[0]
+    dev = rank_device("cuda")
+    model = finetune.model_provider(args, mcfg, device=dev)
+    params = ckpt.load_checkpoint(str(ck), model.abstract_params(),
+                                  no_load_optim=True, device="cpu")[0]
+    if ctx is not None:
+        params = shard_params(params, ctx, mcfg)
+    return tok, model, tree_map(lambda x: x.to(dev), params)
+
+
+def pp_requests(model, params, tok, prompts, gen=PP_GEN):
+    """A score of `prompts`, then their greedy decode (no early stop),
+    through the API, the counters set to 0 before each: the log-probs,
+    tokens, launches and seconds."""
+    from megatron_llm_tpu_torch.inference import api
+
+    out = {}
+    for name, kw in (("score", {}), ("greedy", dict(
+            return_output_log_probs=True, top_k_sampling=1,
+            use_eod_token_for_early_termination=False))):
+        zero_counts()
+        t0 = time.perf_counter()
+        _, _, lp, toks = api.generate_and_post_process(
+            model, params, tok, prompts, 0 if name == "score" else gen, **kw)
+        torch.cuda.synchronize()
+        out[name] = {"s": time.perf_counter() - t0,
+                     "lp": np.asarray(lp, np.float64).tolist(),
+                     "tokens": np.asarray(toks).tolist(),
+                     "launches": kernel_counts(),
+                     "k1_by_layout": dict(
+                         dec.decode_attention.launches_by_layout)}
+    return out
+
+
+def pp_group_greedy(model, params, tok, prompts, gen=PP_GEN):
+    """The one-rank greedy request of `pp_requests` on each ring group's
+    prompts alone (b / PP_RANKS consecutive rows, the ring's GEMM rows;
+    the same max_len and prefill here): tokens and log-probs in the
+    batch's row order."""
+    from megatron_llm_tpu_torch.inference import api
+
+    n = len(prompts) // PP_RANKS
+    out = {"tokens": [], "lp": []}
+    for i in range(0, len(prompts), n):
+        _, _, lp, toks = api.generate_and_post_process(
+            model, params, tok, prompts[i:i + n], gen,
+            return_output_log_probs=True, top_k_sampling=1,
+            use_eod_token_for_early_termination=False)
+        out["tokens"] += np.asarray(toks).tolist()
+        out["lp"] += np.asarray(lp, np.float64).tolist()
+    return out
+
+
+def pp_serve(argv, ck, prompts):
+    """Rank mode's serving entry: the checkpoint `ck` served at pp 2, this
+    rank a stage, through the API (every rank the same requests)."""
+    from megatron_llm_tpu_torch.parallel.mesh import (
+        destroy_parallel,
+        initialize_parallel,
+    )
+
+    ctx = initialize_parallel(pp=PP_RANKS, backend="gloo", device="cuda")
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        tok, model, params = pp_serving_model(argv, ck, ctx)
+        out = pp_requests(model, params, tok, prompts)
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["stage"] = ctx.pp_rank
+        del model, params
+        free_cuda()
+        return out
+    finally:
+        destroy_parallel()
+
+
+def pp_stream_errs(prompts, ref, got, gen=PP_GEN):
+    """Greedy streams `got` against `ref`: the share of generated
+    positions with equal tokens, and the largest |log-prob difference|
+    over each row's common prefix."""
+    tok = build_tokenizer("NullTokenizer", null_vocab_size=31999)
+    _, lengths = tokenize_prompts(tok, prompts, gen)
+    agree, total, err = 0, 0, 0.0
+    for n, a, b, la, lb in zip(lengths, ref["tokens"], got["tokens"],
+                               ref["lp"], got["lp"]):
+        end = n + gen
+        agree += sum(x == y for x, y in zip(a[n:end], b[n:end]))
+        total += gen
+        k = next((i for i in range(end) if a[i] != b[i]), end)
+        err = max(err, float(np.abs(np.asarray(la[:k - 1])
+                                    - np.asarray(lb[:k - 1])).max()))
+    return agree / total, err
+
+
+def pipeline_phase(kernels, data, one):
+    """`torchrun --nproc_per_node 2 ... finetune.main` at pp 2 with the
+    recipe's flags and `--pipeline_remat tick` over gloo, both stages on
+    cuda:0, at Llama-2-7B widths (4 of 32 layers, 2 a stage, seq 4096,
+    global batch 4: 4 microbatches of 1): 3 steps and a save with the
+    optimizer state, then the same ranks resume it for step 4 and serve
+    it through the API (a pipelined score and greedy requests through
+    the stage ring), and world size 1 resumes it too and serves it
+    whole-batch. Held to `one` (finetune_modes' run (a): world size 1,
+    the same flags, weights and batches): losses within 2e-2, grad norms
+    within 5e-2; step 4 at pp 2 and at pp 1 within 1e-4; every leaf of
+    the checkpoint, Adam moments included, cut into each stage's pieces
+    equal to what the stage held; the scorer's log-probs within 5e-2 of
+    the whole-batch score; the ring's streams those of the one-rank
+    greedy route run on each ring group's rows alone (the ring's GEMM
+    rows) over each common prefix, log-probs within 5e-2, the 4-row
+    route's drift from both printed beside; K4-K6 per rank as the
+    schedule implies, K1 in "tgd" once a stage layer per ring decode
+    tick."""
+    from types import SimpleNamespace
+
+    ck = FT_DIR / "pipeline_ck"
+    base = mode_argv(data, *RECIPE, "--bf16", "--train_iters", "4")
+    pp = base + PP_FLAGS
+    prompts = pp_prompts()
+    t0 = time.perf_counter()
+    ranks, log = run_ranks(
+        [pp + ["--exit_interval", "3", "--save_interval", "3", "--save",
+               str(ck)],
+         pp + ["--load", str(ck)],
+         {"argv": pp, "ck": str(ck), "prompts": prompts}], nproc=PP_RANKS)
+    ranks_s = time.perf_counter() - t0
+    first, resumed, served = ([r[i] for r in ranks] for i in range(3))
+    ref = one["stats"]
+    for r, run in enumerate(first):
+        check(run["parallel"] == {"backend": "gloo", "staged": True,
+                                  "world": PP_RANKS, "dp": 1,
+                                  "pp": PP_RANKS, "tp": 1, "rank": r,
+                                  "sequence_parallel": False},
+              f"rank {r}: layout {run.get('parallel')}")
+        check(run["stats"] == first[0]["stats"]
+              and resumed[r]["stats"] == resumed[0]["stats"],
+              f"rank {r} reports another loss or grad norm")
+        check(run["launches"] == pp_expected_launches(3),
+              f"rank {r} launches {run['launches']} != "
+              f"{pp_expected_launches(3)}")
+        check(resumed[r]["resumed"] == [3, 12] and resumed[r]["launches"]
+              == pp_expected_launches(1),
+              f"rank {r} resumed {resumed[r].get('resumed')} with "
+              f"{resumed[r]['launches']}")
+    loss_err = [abs(x["loss"] - y["loss"]) for x, y in
+                zip(first[0]["stats"], ref)]
+    gnorm_err = [abs(x["grad_norm"] - y["grad_norm"]) / y["grad_norm"]
+                 for x, y in zip(first[0]["stats"], ref)]
+    check(len(loss_err) == 3 and max(loss_err) <= BF16_TOL
+          and max(gnorm_err) <= PATH_LP_TOL,
+          f"pp 2 against world size 1: loss err {loss_err}, grad norm "
+          f"rel err {gnorm_err}")
+    ctxs = [SimpleNamespace(tp=1, dp=1, pp=PP_RANKS, tp_rank=0, dp_rank=0,
+                            pp_rank=r) for r in range(PP_RANKS)]
+    leaves, iteration = check_parallel_checkpoint(
+        ck, [run["fingerprints"] for run in first], ctxs, zero1=False)
+    check(iteration == 3, f"the save is at iteration {iteration}")
+    t0 = time.perf_counter()
+    ws1 = finetune_run(base + ["--load", str(ck)])
+    ws1_s = time.perf_counter() - t0
+    step4 = {"pp2_resumed": resumed[0]["stats"][0]["loss"],
+             "pp1_resumed": ws1["stats"][0]["loss"],
+             "pp1_uninterrupted": ref[3]["loss"]}
+    check(ws1["resumed"] == (3, 12)
+          and abs(step4["pp2_resumed"] - step4["pp1_resumed"])
+          <= PP_STEP4_TOL
+          and abs(step4["pp1_resumed"] - step4["pp1_uninterrupted"])
+          <= BF16_TOL, f"step 4 after the resume: {step4}")
+    # the one-rank whole-batch answers of the same checkpoint
+    t0 = time.perf_counter()
+    tok, model, params = pp_serving_model(base, ck, None)
+    whole = pp_requests(model, params, tok, prompts)
+    grouped = pp_group_greedy(model, params, tok, prompts)
+    del model, params
+    free_cuda()
+    whole_s = time.perf_counter() - t0
+    plan = pp_ring_plan(prompts)
+    L = FT_LAYERS // PP_RANKS
+    ring_k1 = L * plan["steps"] * plan["groups"]
+    score_err = 0.0
+    _, lengths = tokenize_prompts(tok, prompts, 0)
+    for rank in served:
+        check(rank["greedy"]["tokens"] == served[0]["greedy"]["tokens"]
+              and rank["score"]["lp"] == served[0]["score"]["lp"],
+              "the stages returned different answers")
+        check(rank["greedy"]["k1_by_layout"] == {"gtd": 0, "tgd": ring_k1}
+              and rank["greedy"]["launches"]["decode_attention"] == ring_k1
+              and rank["greedy"]["launches"]["flash_fwd"] == 0,
+              f"ring launches {rank['greedy']['launches']} "
+              f"{rank['greedy']['k1_by_layout']}: K1 in tgd {ring_k1}")
+        check(rank["score"]["launches"]["flash_fwd"] == L,
+              f"scorer launches {rank['score']['launches']}")
+    for n, a, b in zip(lengths, whole["score"]["lp"],
+                       served[0]["score"]["lp"]):
+        score_err = max(score_err, float(np.abs(
+            np.asarray(a[:n - 1]) - np.asarray(b[:n - 1])).max()))
+    agree, ring_err = pp_stream_errs(prompts, grouped, served[0]["greedy"])
+    # bf16 noise from the GEMMs' row count: the 4-row route against the
+    # ring and against the same route on the ring's 2-row groups
+    drift = {name: dict(zip(("token_agreement", "max_abs_logprob_err"),
+                            pp_stream_errs(prompts, whole["greedy"], got)))
+             for name, got in (("ring", served[0]["greedy"]),
+                               ("route_on_ring_rows", grouped))}
+    ckpt_bytes = dir_bytes(os.path.join(ck, "iter_0000003"))
+    shutil.rmtree(ck)
+    ms = [st["ms"] for st in first[0]["steps"]]
+    peak = [run["peak_gb"] for run in first]
+    say("pipeline", card=nvidia_smi(),
+        launcher=f"torchrun --nproc_per_node {PP_RANKS} chip_smoke.py "
+        f"--finetune-rank (finetune.main, then the API, in each rank)",
+        flags=" ".join(PP_FLAGS), layout="pp 2 (2 layers a stage), every "
+        "rank on cuda:0", backend="gloo",
+        collectives_staged_through_host=first[0]["parallel"]["staged"],
+        layers=FT_LAYERS, seq=FT_SEQ, global_batch=FT_MICRO,
+        microbatches=FT_MICRO,
+        losses=[x["loss"] for x in first[0]["stats"]],
+        losses_world1=[y["loss"] for y in ref[:3]],
+        grad_norms=[x["grad_norm"] for x in first[0]["stats"]],
+        grad_norms_world1=[y["grad_norm"] for y in ref[:3]],
+        loss_abs_err=loss_err, grad_norm_rel_err=gnorm_err,
+        tol={"loss": BF16_TOL, "grad_norm_rel": PATH_LP_TOL,
+             "step4_pp2_vs_pp1": PP_STEP4_TOL, "serving": PATH_LP_TOL},
+        step_ms=ms, step_ms_label="gloo through the host, one card shared "
+        "by 2 stages (not comparable with a one-rank step)",
+        step_ms_world1=[st["ms"] for st in one["steps"]],
+        peak_gb_per_rank=peak, serve_peak_gb_per_rank=[
+            rank["peak_gb"] for rank in served],
+        launches_per_rank=[run["launches"] for run in first],
+        expected_launches_per_rank=pp_expected_launches(3),
+        checkpoint_leaves_checked=leaves, checkpoint_bytes=ckpt_bytes,
+        saves_blocked_ms=first[0]["saves"], commits_s=first[0]["commits"],
+        load_s_per_rank=[run["loads"] for run in resumed],
+        load_s_world1=ws1["loads"], step4_losses=step4,
+        ring=plan, ring_k1_tgd_launches_per_rank=ring_k1,
+        score_max_abs_err=score_err, ring_max_abs_logprob_err=ring_err,
+        ring_greedy_token_agreement=agree,
+        ring_reference="the one-rank greedy route on each ring group's "
+        f"{plan['rows']} rows alone", four_row_route_drift=drift,
+        serve_s_per_rank=[{k: rank[k]["s"] for k in ("score", "greedy")}
+                          for rank in served],
+        serve_s_world1={k: whole[k]["s"] for k in ("score", "greedy")},
+        ranks_wall_s=ranks_s, world1_resume_wall_s=ws1_s,
+        world1_serve_wall_s=whole_s,
+        rank0_run_wall_s=[first[0]["wall_s"], resumed[0]["wall_s"]],
+        rank0_clock_s=[first[0]["clock_s"], resumed[0]["clock_s"]],
+        rank0_log_tail=log[-1500:])
+    check(score_err <= PATH_LP_TOL and ring_err <= PATH_LP_TOL,
+          f"pp 2 serving against one rank: score {score_err}, ring "
+          f"{ring_err}")
+    for row in kernels:
+        name = row["name"]
+        if name in FLASH_WRAPPERS:
+            per = [run["launches"][name] + res["launches"][name]
+                   + sv["score"]["launches"][name] + sv["greedy"][
+                       "launches"][name]
+                   for run, res, sv in zip(first, resumed, served)]
+            row["launches_by_path"]["pipeline"] = sum(per)
+            row["launches_by_path"]["pipeline_world1"] = \
+                ws1["launches"][name] + whole["score"]["launches"][name]
+            row.setdefault("launches_per_rank", {})["pipeline"] = per
+            row["launches"] = sum(row["launches_by_path"].values())
+        if name == "decode_attention":
+            per = [sv["greedy"]["k1_by_layout"]["tgd"] for sv in served]
+            row["launches_by_path"]["pipeline_ring_tgd"] = sum(per)
+            row.setdefault("launches_per_rank", {})[
+                "pipeline_ring_tgd"] = per
+            row["launches"] = sum(row["launches_by_path"].values())
+
+
+def time_decode_ring(kernels):
+    """K1 at the pipeline ring's shape: one layer's "tgd" slice of a
+    stage's stacked cache (2 layers, 2 groups, 2 rows a group, max_len
+    positions) at Llama-2-7B widths, read in place at the ring's last
+    decode length; its error against the plain version, beside SDPA and
+    the bound."""
+    plan = pp_ring_plan(pp_prompts())
+    b, nm, T = plan["rows"], plan["groups"], plan["max_len"]
+    g, qpk, d = 32, 1, 128
+    length = plan["max_len"] - 1
+    bf = torch.bfloat16
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 52)
+    stacked = [torch.randn(FT_LAYERS // PP_RANKS, nm, b, T, g, d,
+                           generator=gen, device="cuda").to(bf)
+               for _ in range(2)]
+    k, v = stacked[0][1, 1], stacked[1][1, 1]
+    q = torch.randn(b, 1, g, qpk, d, generator=gen, device="cuda").to(bf)
+    ref = dec._xla_decode(q, k, v, length, "tgd")
+    got = dec.decode_attention(q, k, v, length, layout="tgd")
+    torch.cuda.synchronize()
+    err = (got.float() - ref.float()).abs().max().item()
+    check(err <= BF16_TOL, f"K1 at the ring's shape: {err}")
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    kt, vt = k[:, :length].transpose(1, 2), v[:, :length].transpose(1, 2)
+    bound, by = decode_bound_ms(b, g, qpk, d, length)
+    row = {"shape": f"b{b} g{g} qpk{qpk} d{d} length{length}, the tgd "
+                    f"slice of a stacked ({FT_LAYERS // PP_RANKS}, {nm}, "
+                    f"{b}, {T}, {g}, {d}) bf16 cache",
+           "ms": device_ms(lambda: dec.decode_attention(q, k, v, length,
+                                                        layout="tgd")),
+           "plain_ms": device_ms(lambda: dec._xla_decode(q, k, v, length,
+                                                         "tgd"),
+                                 per_graph=10, replays=5),
+           "library_ms": device_ms(lambda: sdpa(
+               q.reshape(b, g, qpk, d), kt, vt)),
+           "bound_ms": bound, "bound_by": by, "max_abs_err": err,
+           "design": dec.decode_design(bf, qpk)}
+    say("kernel_time_decode_ring", card=nvidia_smi(), **row)
+    for r in kernels:
+        if r["name"] == "decode_attention":
+            r["pipeline_ring_shape"] = row
+    del stacked, k, v, q
+    torch.cuda.empty_cache()
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -4786,6 +5228,7 @@ def smoke(args) -> int:
     seconds["kernel_checks"] = round(time.perf_counter() - t0, 1)
     kernels += timed("kernel_checks_fp16", check_flash_fp16)
     timed("kernel_time_flash_tp2", time_flash_tp2, kernels)
+    timed("kernel_time_decode_ring", time_decode_ring, kernels)
     torch.cuda.empty_cache()
     model = timed("model", build_model, args.init_std)
     whole_batch = timed("serving", serve_whole_batch, kernels, *model)
@@ -4806,13 +5249,13 @@ def smoke(args) -> int:
     timed("packed_docs_prefill", packed_docs_prefill, kernels, cfg, llama,
           params)
     timed("serving_engine_fp32", serve_engine_fp32, kernels, args.init_std)
-    converted = timed("convert_llama", convert_llama, cfg, params)
+    converted, weights = timed("convert_llama", convert_llama, cfg, params)
     # the 13.5 GB serving model and its engines' pools go before the
     # launchers and training
     del model, llama, params
     free_cuda()
-    timed("launcher_llama", launcher_llama, kernels, converted,
-          bf16["greedy"])
+    timed("launcher_llama", launcher_llama, kernels, converted, weights)
+    del weights
     timed("launcher_falcon", launcher_falcon, kernels, args.init_std)
     say("memory_before_train",
         allocated_gb=torch.cuda.memory_allocated() / 1e9)
@@ -4826,6 +5269,7 @@ def smoke(args) -> int:
     data = timed("finetune", finetune_phase, kernels, train_ms)
     one = timed("finetune_modes", finetune_modes, kernels, data)
     timed("finetune_parallel", finetune_parallel, kernels, data, one)
+    timed("pipeline", pipeline_phase, kernels, data, one)
     shutil.rmtree(FT_DIR)
     say("phase_seconds", card=smi, **seconds,
         total_s=round(time.perf_counter() - t_start, 1))

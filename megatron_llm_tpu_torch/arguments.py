@@ -9,16 +9,17 @@ the port's `ModelConfig` (torch dtypes), `ParallelConfig` and
 
 A flag that selects a part of the system the port does not run yet
 raises ValueError naming its slice of ROADMAP.md, never silently
-ignored: pipeline and context parallelism and the overlap schedulers
-(the next A4 PR), the telemetry flags (A3.8), and the BERT and T5
+ignored: context parallelism and the overlap schedulers (the next A4
+PR), the telemetry flags (A3.8), and the BERT and T5
 families and post-LN layers (A6). GPT, Llama, CodeLlama and Falcon
 (with its parallel attention and parallel layernorm) build, with every
 single-card training mode (the recompute policies and block recompute,
 fp16 with its loss scaler, hidden, attention and LIMA dropout) and
-tensor, sequence and data parallelism with the ZeRO-1 optimizer under
-torchrun. `--distributed_backend {nccl,gloo}` is the reference's flag,
-which the JAX package descopes (XLA has no backend choice): torch
-needs one, so the port takes it (ROADMAP.md C, accepted divergences).
+tensor, sequence, data and pipeline parallelism (with
+`--pipeline_remat`) with the ZeRO-1 optimizer under torchrun.
+`--distributed_backend {nccl,gloo}` is the reference's flag, which the
+JAX package descopes (XLA has no backend choice): torch needs one, so
+the port takes it (ROADMAP.md C, accepted divergences).
 """
 
 from __future__ import annotations
@@ -223,9 +224,8 @@ LATER_FLAGS = {
         "perf_sentinel_ksigma", "perf_sentinel_window",
         "perf_sentinel_patience"), _A3_8),
     **dict.fromkeys((
-        "pipeline_model_parallel_size", "context_parallel_size",
-        "overlap_grad_reduce", "overlap_param_gather",
-        "async_pipeline_dispatch", "pipeline_remat"), _A4),
+        "context_parallel_size", "overlap_grad_reduce",
+        "overlap_param_gather", "async_pipeline_dispatch"), _A4),
     "use_post_ln": _A6,
 }
 
@@ -461,7 +461,8 @@ def args_to_configs(args, padded_vocab_size: int,
     a multiple of make_vocab_size_divisible_by * tp, global batch,
     microbatch count per rank, max positions from seq_length).
     `--data_parallel_size` defaults to the ranks the layout leaves:
-    `world_size` (the process group's, 1 without one) over tp."""
+    `world_size` (the process group's, 1 without one) over tp x pp; a
+    pp that does not divide `--num_layers` is refused here."""
     for flag, reason in DESCOPED_FLAGS.items():
         if getattr(args, "_descoped_" + flag.lstrip("-"), None) is not None:
             raise SystemExit(f"{flag}: unsupported - {reason}")
@@ -504,6 +505,7 @@ def args_to_configs(args, padded_vocab_size: int,
         overrides["compute_dtype"] = torch.float16
 
     tp = args.tensor_model_parallel_size
+    pp = args.pipeline_model_parallel_size
     name = args.model_name
     if name in ("llama", "llama2"):
         mcfg = llama_config(args.model_size,
@@ -532,17 +534,23 @@ def args_to_configs(args, padded_vocab_size: int,
         import torch.distributed as dist
 
         world_size = dist.get_world_size() if dist.is_initialized() else 1
+    if pp > 1 and mcfg.num_layers % pp:
+        raise ValueError(f"--pipeline_model_parallel_size {pp} does not "
+                         f"divide --num_layers {mcfg.num_layers}: each "
+                         f"stage holds num_layers / pp layers")
     dp = args.data_parallel_size
     if dp is None:
-        dp = max(1, world_size // tp)
+        dp = max(1, world_size // (tp * pp))
     gbs = args.global_batch_size or args.micro_batch_size * dp
     pcfg = ParallelConfig(
-        data_parallel_size=dp, tensor_parallel_size=tp,
+        data_parallel_size=dp, pipeline_parallel_size=pp,
+        tensor_parallel_size=tp,
         sequence_parallel=args.sequence_parallel,
         use_distributed_optimizer=args.use_distributed_optimizer,
         grad_rs_bucket_mb=args.grad_rs_bucket_mb,
         quantized_grad_reduce=args.quantized_grad_reduce,
-        num_microbatches=gbs // (args.micro_batch_size * dp))
+        num_microbatches=gbs // (args.micro_batch_size * dp),
+        pipeline_remat=args.pipeline_remat)
     tcfg = TrainConfig(
         micro_batch_size=args.micro_batch_size,
         global_batch_size=gbs,

@@ -322,11 +322,13 @@ def tiny_config(**overrides) -> ModelConfig:
 
 @dataclass(frozen=True)
 class ParallelConfig:
-    """Device layout (JAX: config.py ParallelConfig): data and tensor
-    parallelism with sequence parallelism and the ZeRO-1 optimizer, with
-    the JAX package's validations (:346-420). Pipeline and context
-    parallelism and the overlap schedulers raise, naming the next A4 PR.
-    `num_microbatches` is each rank's gradient-accumulation count."""
+    """Device layout (JAX: config.py ParallelConfig): data, tensor and
+    pipeline parallelism with sequence parallelism and the ZeRO-1
+    optimizer, with the JAX package's validations (:346-435). Context
+    parallelism and the overlap schedulers raise, naming their ROADMAP.md
+    A4 items. `num_microbatches` is each rank's gradient-accumulation
+    count, at pp > 1 the microbatches the GPipe schedule streams
+    through the stages (parallel/pipeline.py)."""
 
     data_parallel_size: int = 1
     pipeline_parallel_size: int = 1
@@ -346,23 +348,33 @@ class ParallelConfig:
     overlap_param_gather: bool = False
     async_pipeline_dispatch: bool = False
     num_microbatches: int = 1
+    # what a pipeline tick keeps for the backward (JAX :328-352), the
+    # recompute policies' names plus the aliases "tick" (= "full": only
+    # the tick's input boundary) and "dots" (= "save_dots")
+    pipeline_remat: str = "tick"
 
     def __post_init__(self):
         if self.tensor_parallel_size == 1 and self.sequence_parallel:
             object.__setattr__(self, "sequence_parallel", False)
-        for name in ("pipeline_parallel_size", "context_parallel_size"):
-            if getattr(self, name) != 1:
-                raise ValueError(f"{name}={getattr(self, name)}: pipeline "
-                                 f"and context parallelism are not ported "
-                                 f"yet (the next A4 PR, ROADMAP.md A4)")
+        if self.pipeline_remat not in REMAT_POLICIES + ("tick", "dots"):
+            raise ValueError(
+                f"pipeline_remat={self.pipeline_remat!r}: expected one of "
+                f"{REMAT_POLICIES + ('tick', 'dots')}")
+        if self.context_parallel_size != 1:
+            raise ValueError(
+                f"context_parallel_size={self.context_parallel_size}: "
+                f"context parallelism is not ported yet (the next A4 PR "
+                f"(ROADMAP.md A4): context parallelism, item 2)")
         for name in ("overlap_grad_reduce", "overlap_param_gather",
                      "async_pipeline_dispatch"):
             if getattr(self, name):
                 raise ValueError(f"{name}: the overlap schedulers are not "
-                                 f"ported yet (the next A4 PR, ROADMAP.md "
-                                 f"A4)")
-        if min(self.data_parallel_size, self.tensor_parallel_size) < 1:
+                                 f"ported yet (the next A4 PR (ROADMAP.md "
+                                 f"A4): the overlap schedulers, item 4)")
+        if min(self.data_parallel_size, self.tensor_parallel_size,
+               self.pipeline_parallel_size) < 1:
             raise ValueError(f"dp={self.data_parallel_size} "
+                             f"pp={self.pipeline_parallel_size} "
                              f"tp={self.tensor_parallel_size}")
         if self.grad_rs_bucket_mb <= 0:
             raise ValueError(
@@ -374,7 +386,8 @@ class ParallelConfig:
                     "quantized_grad_reduce requires "
                     "use_distributed_optimizer: the int8 reduction is the "
                     "wire format of the ZeRO-1 reduce-scatter")
-            if self.tensor_parallel_size > 1:
+            if self.tensor_parallel_size > 1 \
+                    or self.pipeline_parallel_size > 1:
                 raise ValueError(
                     "quantized_grad_reduce is only available on pure-dp "
                     "layouts (tp=pp=cp=1), as in the JAX package")
@@ -384,6 +397,13 @@ class ParallelConfig:
                     "there is no dp gradient reduction to quantize")
         if self.num_microbatches < 1:
             raise ValueError(f"num_microbatches={self.num_microbatches}")
+
+    @property
+    def resolved_pipeline_remat(self) -> str:
+        """pipeline_remat with the aliases resolved to REMAT_POLICIES
+        (tick -> full, dots -> save_dots; JAX :429-435)."""
+        return {"tick": "full", "dots": "save_dots"}.get(
+            self.pipeline_remat, self.pipeline_remat)
 
     @property
     def world_size(self) -> int:

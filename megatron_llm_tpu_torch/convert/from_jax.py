@@ -67,7 +67,7 @@ def params_from_jax(tree: dict, cfg, device="cuda") -> dict:
 def rank_params_from_jax(tree: dict, cfg, ctx, device="cuda") -> dict:
     """This rank's slices (parallel/sharding.py) of the port's tree from
     the JAX tree of numpy arrays; `ctx` is the parallel context (its tp
-    and tp_rank)."""
+    and tp_rank, and at pp > 1 its pp and pp_rank: a stage's layers)."""
     from megatron_llm_tpu_torch.parallel.sharding import shard_params
 
     return shard_params(params_from_jax(tree, cfg, device), ctx, cfg)

@@ -61,11 +61,13 @@ def _counted():
 
 
 def launch_counts() -> Dict[str, int]:
-    """Every kernel wrapper's launch count, and K7's counts by variant
-    and design, as one flat dict."""
+    """Every kernel wrapper's launch count, K7's counts by variant and
+    design and K1's by cache layout, as one flat dict."""
     out = {fn.__name__: fn.launches for fn in _counted()}
     for k, v in _pa.ragged_paged_attention.variant_launches.items():
         out["ragged_paged_attention:" + k] = v
+    for k, v in _dec.decode_attention.launches_by_layout.items():
+        out["decode_attention:" + k] = v
     return out
 
 
@@ -73,9 +75,12 @@ def add_launch_counts(delta: Dict[str, int]) -> None:
     """Add `delta` (a `launch_counts()` difference) to the counters."""
     for fn in _counted():
         fn.launches += delta.get(fn.__name__, 0)
-    variants = _pa.ragged_paged_attention.variant_launches
-    for k in variants:
-        variants[k] += delta.get("ragged_paged_attention:" + k, 0)
+    for fn, counts in (
+            (_pa.ragged_paged_attention,
+             _pa.ragged_paged_attention.variant_launches),
+            (_dec.decode_attention, _dec.decode_attention.launches_by_layout)):
+        for k in counts:
+            counts[k] += delta.get(f"{fn.__name__}:{k}", 0)
 
 
 def _diff(after: dict, before: dict) -> dict:

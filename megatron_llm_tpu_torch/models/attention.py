@@ -12,7 +12,10 @@ live attention dropout: JAX :472-475, :519) and the grouped einsum path,
 with attention dropout on its probabilities, otherwise; the per-layer
 "k_gtd" KV-cache branch of the unrolled decode path, where a
 single-token step runs decode kernel K1 and a prefill chunk the plain
-masked softmax; and the paged branch of the continuous-batching engine,
+masked softmax; the stacked-cache branch of the pipeline's serving ring
+(JAX :412-452), the same with the layer's (b, T, g, d) slice of a
+stacked cache, which K1 reads in place in its "tgd" layout, with no
+transpose; and the paged branch of the continuous-batching engine,
 where every phase (decode rows, mixed prefill+decode rounds) goes
 through the ragged paged attention of ops/prefill_attention.py (K7).
 
@@ -50,7 +53,7 @@ from megatron_llm_tpu_torch.ops.prefill_attention import (
 )
 from megatron_llm_tpu_torch.ops.quantization import qdot
 from megatron_llm_tpu_torch.parallel.mappings import tp_input, tp_output
-from megatron_llm_tpu_torch.parallel.mesh import NEXT_A4, get_context
+from megatron_llm_tpu_torch.parallel.mesh import A4_TP_SERVING, get_context
 
 
 def split_qkv(mixed: torch.Tensor, cfg):
@@ -110,7 +113,8 @@ def attention_block(attn_params: dict, cfg, hidden: torch.Tensor,
       columns are written into it in place (the preallocated
       cache is the only copy, where the JAX package returned an updated
       array), and the returned dict holds the same tensors with the
-      offset advanced;
+      offset advanced; {"k_tgd": (b, T, g, d), ...} is the same in the
+      stacked layout, a layer's slice of the ring's stacked cache;
     - paged {"k_pages": (P, page_size, g, d), "v_pages": ...,
       "page_table": (slots, max_pages) int32, "lengths": (slots,) int32,
       optionally "chunk_lens": (slots,) int32, "doc_starts": (slots,)
@@ -126,7 +130,7 @@ def attention_block(attn_params: dict, cfg, hidden: torch.Tensor,
         ctx = get_context()
         if ctx is not None and ctx.tp > 1:
             raise ValueError(f"tensor-parallel serving is not ported yet "
-                             f"({NEXT_A4})")
+                             f"({A4_TP_SERVING})")
     hidden = tp_input(hidden)
     b, s, _ = hidden.shape
     dt = cfg.compute_dtype
@@ -190,17 +194,23 @@ def attention_block(attn_params: dict, cfg, hidden: torch.Tensor,
         if rope_table is not None:
             q = apply_rope(q, rope_table, position_ids)
             k = apply_rope(k, rope_table, position_ids)
-        kc, vc = kv_cache["k_gtd"], kv_cache["v_gtd"]
-        kc.index_copy_(2, cols, k.transpose(1, 2).to(kc.dtype))
-        vc.index_copy_(2, cols, v.transpose(1, 2).to(vc.dtype))
-        new_cache = {"k_gtd": kc, "v_gtd": vc, "offset": offset + s}
+        layout = "tgd" if "k_tgd" in kv_cache else "gtd"
+        kc, vc = kv_cache["k_" + layout], kv_cache["v_" + layout]
+        if layout == "tgd":
+            kc.index_copy_(1, cols, k.to(kc.dtype))
+            vc.index_copy_(1, cols, v.to(vc.dtype))
+        else:
+            kc.index_copy_(2, cols, k.transpose(1, 2).to(kc.dtype))
+            vc.index_copy_(2, cols, v.transpose(1, 2).to(vc.dtype))
+        new_cache = {"k_" + layout: kc, "v_" + layout: vc,
+                     "offset": offset + s}
         length = offset + s
         if isinstance(length, torch.Tensor):
             length = length.to(torch.int32)
         if s == 1 and cfg.use_decode_attn:
-            ctx = decode_attention(q, kc, vc, length)
+            ctx = decode_attention(q, kc, vc, length, layout=layout)
         else:
-            ctx = _xla_decode(q, kc, vc, length)
+            ctx = _xla_decode(q, kc, vc, length, layout=layout)
         ctx = ctx.reshape(b, s, -1)
     else:
         if rope_table is not None:

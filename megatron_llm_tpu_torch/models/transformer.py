@@ -209,6 +209,7 @@ def transformer_layer(layer_params: dict, cfg, hidden: torch.Tensor,
 def transformer_stack(layer_params, cfg, hidden: torch.Tensor,
                       rope_table=None, mask=None, position_ids=None,
                       kv_caches: Optional[dict] = None, dropout_seed=None,
+                      layer_offset: int = 0,
                       ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Run the layers in order. `layer_params` is the stacked tree or a
     tuple of per-layer trees. `kv_caches` is None, the dense decode
@@ -220,12 +221,18 @@ def transformer_stack(layer_params, cfg, hidden: torch.Tensor,
     and for int8 pools "k_scales_layers" / "v_scales_layers"}
     (`GPTModel.init_paged_kv_caches`): per-layer pools (and scale pools),
     one shared page table, and the ragged chunk lengths and document
-    floors through every layer.
+    floors through every layer, or the stacked layout of the pipeline's
+    serving ring {"k_stacked": (L, b, T, g, d), "v_stacked": ...,
+    "offset": int} (JAX :290-390's stacked caches), layer i reading and
+    writing its "tgd" slice in place.
 
     `dropout_seed` (None when deterministic) is the stack's dropout
     stream, read by the no-cache forward: layer i draws from
-    fold_in(dropout_seed, i). A recomputed layer derives the same seeds
-    and draws the same masks."""
+    fold_in(dropout_seed, layer_offset + i). A recomputed layer derives
+    the same seeds and draws the same masks. `layer_offset` is the
+    global index of the first layer: a pipeline stage runs layers
+    layer_offset .. layer_offset + L - 1 (JAX :251-253), and LIMA's
+    ramp reads the global index too."""
     if isinstance(layer_params, (list, tuple)):
         layers = layer_params
     else:
@@ -239,6 +246,7 @@ def transformer_stack(layer_params, cfg, hidden: torch.Tensor,
         L = cfg.num_layers
 
         def body(p, x, i):
+            i = layer_offset + i
             seed = None if dropout_seed is None else fold_in(dropout_seed, i)
             # LIMA: a linear ramp from 0 to hidden_dropout over depth
             rate = cfg.hidden_dropout * i / (L - 1) \
@@ -286,6 +294,14 @@ def transformer_stack(layer_params, cfg, hidden: torch.Tensor,
     offset = kv_caches["offset"]  # an int or a 0-d tensor on the card
     if not isinstance(offset, torch.Tensor):
         offset = int(offset)
+    if "k_stacked" in kv_caches:
+        ks, vs = kv_caches["k_stacked"], kv_caches["v_stacked"]
+        for i, p in enumerate(layers):
+            cache_l = {"k_tgd": ks[i], "v_tgd": vs[i], "offset": offset}
+            hidden, _ = transformer_layer(p, cfg, hidden, rope_table, mask,
+                                          position_ids, cache_l)
+        return hidden, {"k_stacked": ks, "v_stacked": vs,
+                        "offset": offset + hidden.shape[1]}
     ks, vs = kv_caches["k_layers"], kv_caches["v_layers"]
     for i, p in enumerate(layers):
         cache_l = {"k_gtd": ks[i], "v_gtd": vs[i], "offset": offset}

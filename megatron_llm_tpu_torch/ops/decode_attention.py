@@ -167,7 +167,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     an int or a 0-d int32 tensor. On a CUDA tensor it launches kernel K1
     (or raises on a shape it does not take) in the design `decode_design`
     picks; `design` names one instead, to time the two side by side. On a
-    CPU tensor it runs the plain `_xla_decode`."""
+    CPU tensor it runs the plain `_xla_decode`. Each launch counts in
+    `launches` and in `launches_by_layout[layout]`."""
     if q.device.type == "cpu":
         return _xla_decode(q, k, v, length if isinstance(length, torch.Tensor)
                            else int(length), layout)
@@ -202,7 +203,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"decode_attention kernel launch failed: "
                            f"cudaError {err}")
     decode_attention.launches += 1
+    decode_attention.launches_by_layout[layout] += 1
     return out
 
 
 decode_attention.launches = 0
+# the launches of each cache layout: "gtd" on the unrolled decode path,
+# "tgd" on the pipeline's serving ring (stacked-cache slices)
+decode_attention.launches_by_layout = {"gtd": 0, "tgd": 0}

@@ -20,7 +20,10 @@ optimizer/zero1.py, its eager schedule).
 
 The replicated optimizer at dp > 1 reduces the same bucket matrices with
 an all-reduce, whose sums are the reduce-scatter's element for element,
-so ZeRO-1 and the replicated AdamW update from the same gradients. The
+so ZeRO-1 and the replicated AdamW update from the same gradients. At
+pp > 1 each stage's moments are sharded over that stage's dp group,
+ZeRO-1's axis chosen past the stage's layer axis (the JAX package's
+GSPMD form, its `optimizer_state_specs` with the stage specs). The
 reduction runs once a step, after the microbatches' gradients have
 accumulated (the reference's DDP; the JAX package reduces every
 microbatch inside its scan). `OverlapPlan` and the overlap schedulers
@@ -43,7 +46,7 @@ from megatron_llm_tpu_torch.parallel.mesh import (
     reduce_scatter_rows,
 )
 from megatron_llm_tpu_torch.parallel.sharding import (
-    param_specs,
+    layout_specs,
     spec_leaves,
     zero1_axis,
 )
@@ -97,12 +100,13 @@ class Zero1Plan:
 
 
 def build_zero1_plan(cfg, params_tmpl, dp: int,
-                     bucket_mb: float = 4.0) -> Zero1Plan:
+                     bucket_mb: float = 4.0, pp: int = 1) -> Zero1Plan:
     """Greedy buckets in leaf order, a leaf above the target in a bucket
     of its own (JAX :152-196). `params_tmpl` is this rank's tree (a tp
-    rank's slices): the plan is per rank."""
+    rank's slices, a stage's layers): the plan is per rank. At pp > 1
+    the stage's layer axis is taken, as in the stage specs."""
     flat = tree_leaves(params_tmpl)
-    specs = spec_leaves(param_specs(cfg, params_tmpl))
+    specs = spec_leaves(layout_specs(cfg, params_tmpl, pp))
     target = max(int(bucket_mb * (1 << 20)), 1)
     leaf_axes: List[Optional[int]] = []
     buckets: List[List[int]] = []
@@ -242,21 +246,29 @@ def gather_param_shards(params: list, shards: list, plan: Zero1Plan,
             off += n
 
 
-def sum_over_layout(tp_sharded, dp_sharded, ctx):
+def sum_over_layout(tp_sharded, dp_sharded, ctx, pp_sharded=None):
     """A function of per-leaf partial sums (0-d tensors, leaf order) to
     their sum over the whole model: a tp-sharded leaf's partial summed
-    over the tp group, a ZeRO-1 block's over the dp group, a replicated
-    leaf's counted once. `tp_sharded` and `dp_sharded` are per-leaf
-    flags. The global gradient norm and zero count (JAX: the norm of
-    the global gradient tree)."""
+    over the tp group, a ZeRO-1 block's over the dp group, a stage's
+    layer slice over the pp group, a replicated leaf counted once.
+    `tp_sharded`, `dp_sharded` and `pp_sharded` are per-leaf flags. The
+    global gradient norm and zero count (JAX: the norm of the global
+    gradient tree)."""
+    pp_sharded = pp_sharded or [False] * len(tp_sharded)
+
     def reduce(vals: list) -> torch.Tensor:
-        parts = torch.zeros(4, dtype=torch.float64, device=vals[0].device)
-        for v, t, d in zip(vals, tp_sharded, dp_sharded):
-            parts[2 * int(d) + int(t)] += v.double()
-        both = all_reduce(parts[2:].clone(), ctx.dp_group, ctx=ctx)
-        tp_part = all_reduce(torch.stack([parts[1], both[1]]),
-                             ctx.tp_group, ctx=ctx)
-        return parts[0] + both[0] + tp_part[0] + tp_part[1]
+        # bin 4 p + 2 d + t holds the leaves sharded as (p, d, t) say
+        parts = torch.zeros(8, dtype=torch.float64, device=vals[0].device)
+        for v, t, d, p in zip(vals, tp_sharded, dp_sharded, pp_sharded):
+            parts[4 * int(p) + 2 * int(d) + int(t)] += v.double()
+        for bit, group in ((2, ctx.dp_group), (1, ctx.tp_group),
+                           (4, getattr(ctx, "pp_group", None))):
+            if group is not None:
+                bins = [i for i in range(8) if i & bit]
+                parts[bins] = all_reduce(parts[bins].clone(), group,
+                                         ctx=ctx)
+        # the single-stage sum's order: replicated, dp, tp, both
+        return sum(parts[i] for i in (0, 2, 1, 3, 4, 6, 5, 7))
 
     return reduce
 
@@ -278,4 +290,3 @@ def map_indexed(fn, tree, start: int = 0):
             out[k], start = map_indexed(fn, tree[k], start)
         return {k: out[k] for k in tree}, start
     return fn(start, tree), start + 1
-

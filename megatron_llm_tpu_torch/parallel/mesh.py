@@ -1,5 +1,5 @@
-"""Process groups for tensor, sequence and data parallelism (port of
-parallel/mesh.py).
+"""Process groups for tensor, sequence, data and pipeline parallelism
+(port of parallel/mesh.py).
 
 The JAX package builds one device mesh with named axes (data, stage,
 context, model) and lets GSPMD insert the collectives. The port runs one
@@ -12,17 +12,23 @@ rank order, a (dp, pp, cp, tp) grid with tp fastest (JAX :164-188):
   sequence-parallel collectives and the vocab-parallel cross entropy;
 - a dp group per (pp, cp, tp) coordinate: the gradient reduction and
   ZeRO-1's reduce-scatter and all-gather;
-- the model-parallel group (every rank of one dp index; the tp group
-  while pp = cp = 1) and the whole world, for the gradient norm and the
-  fp16 overflow flag.
+- a pp group per (dp, cp, tp) coordinate: the stages of one pipeline,
+  for the stage-replicated leaves' gradient sum, the last stage's loss
+  and the serving ring's broadcasts (parallel/pipeline.py);
+- the whole world, for the gradient norm and the fp16 overflow flag.
+
+The pipeline's boundaries travel point to point (`send_boundary`,
+`recv_boundary`) between the same (dp, cp, tp) coordinate of adjacent
+stages, in the compute dtype.
 
 `initialize_parallel(..., backend=None)` takes NCCL for CUDA and gloo
 for the CPU. Gloo moves CUDA tensors through host memory: with gloo and
 a CUDA device the context is `staged`, and every collective of the port
 copies its operands to the host, runs there and copies back. That path
 is chosen here, once, from the backend and the device; nothing falls
-back to it on an error. Pipeline and context parallelism (pp, cp > 1)
-raise, naming the next A4 PR.
+back to it on an error; under it each point-to-point direction keeps
+one pinned host buffer per peer and shape. Context parallelism (cp > 1)
+raises, naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -41,8 +47,13 @@ import torch.distributed as dist
 # name them
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
+STAGE_AXIS = "stage"
 
 NEXT_A4 = "the next A4 PR (ROADMAP.md A4)"
+# the items of the next A4 PR, by their ROADMAP.md numbers
+A4_CP = f"{NEXT_A4}: context parallelism, item 2"
+A4_TP_SERVING = f"{NEXT_A4}: tensor-parallel serving, item 3"
+A4_DROPOUT = f"{NEXT_A4}: dropout across ranks, item 5"
 BACKENDS = ("nccl", "gloo")
 # a hung collective fails after this long instead of hanging the run
 TIMEOUT = datetime.timedelta(minutes=10)
@@ -140,9 +151,13 @@ class ParallelContext:
     device: torch.device = field(default_factory=lambda: torch.device("cpu"))
     tp_group: object = None
     dp_group: object = None
-    mp_group: object = None
+    pp_group: object = None
     world_group: object = None
     groups: list = field(default_factory=list)
+    # global ranks of this rank's pipeline, stage order
+    pp_ranks: tuple = (0,)
+    # point-to-point state: pinned host buffers and sends in flight
+    p2p: dict = field(default_factory=dict)
 
     @property
     def world_size(self) -> int:
@@ -157,8 +172,20 @@ class ParallelContext:
         return self.coords[0]
 
     @property
+    def pp_rank(self) -> int:
+        return self.coords[1]
+
+    @property
     def tp_rank(self) -> int:
         return self.coords[3]
+
+    @property
+    def first_stage(self) -> bool:
+        return self.pp_rank == 0
+
+    @property
+    def last_stage(self) -> bool:
+        return self.pp_rank == self.pp - 1
 
     @property
     def staged(self) -> bool:
@@ -176,14 +203,11 @@ def initialize_parallel(dp: int = 1, pp: int = 1, tp: int = 1,
     torchrun, or `utils/virtual_mesh.spawn_cpu_group`) unless the layout
     is one rank. Every rank calls this with the same arguments."""
     global _CONTEXT
-    if pp > 1:
-        raise ValueError(f"pipeline parallelism (pp={pp}) is not ported "
-                         f"yet ({NEXT_A4})")
     if cp > 1:
         raise ValueError(f"context parallelism (cp={cp}) is not ported "
-                         f"yet ({NEXT_A4})")
-    if min(dp, tp) < 1:
-        raise ValueError(f"dp={dp} tp={tp}")
+                         f"yet ({A4_CP})")
+    if min(dp, tp, pp) < 1:
+        raise ValueError(f"dp={dp} pp={pp} tp={tp}")
     n = dp * pp * cp * tp
     device = rank_device(device)
     if n == 1 and not dist.is_initialized():
@@ -214,7 +238,7 @@ def initialize_parallel(dp: int = 1, pp: int = 1, tp: int = 1,
                 g = dist.new_group(mesh[d][p][c], timeout=TIMEOUT)
                 ctx.groups.append(g)
                 if (d, p, c) == (d0, p0, c0):
-                    ctx.tp_group = ctx.mp_group = g
+                    ctx.tp_group = g
     for p in range(pp):
         for c in range(cp):
             for t in range(tp):
@@ -223,6 +247,14 @@ def initialize_parallel(dp: int = 1, pp: int = 1, tp: int = 1,
                 ctx.groups.append(g)
                 if (p, c, t) == (p0, c0, t0):
                     ctx.dp_group = g
+    for d in range(dp):
+        for c in range(cp):
+            for t in range(tp):
+                ranks = [mesh[d][p][c][t] for p in range(pp)]
+                g = dist.new_group(ranks, timeout=TIMEOUT)
+                ctx.groups.append(g)
+                if (d, c, t) == (d0, c0, t0):
+                    ctx.pp_group, ctx.pp_ranks = g, tuple(ranks)
     _CONTEXT = ctx
     return ctx
 
@@ -236,6 +268,8 @@ def destroy_parallel() -> None:
     group stays with whoever made it."""
     global _CONTEXT
     ctx, _CONTEXT = _CONTEXT, None
+    if ctx is not None:
+        p2p_wait(ctx)
     if ctx is not None and dist.is_initialized():
         for g in ctx.groups:
             dist.destroy_process_group(g)
@@ -356,3 +390,77 @@ def barrier(ctx: Optional[ParallelContext] = None) -> None:
     flag = torch.zeros(1, device="cpu" if ctx.staged or
                        ctx.device.type == "cpu" else ctx.device)
     dist.all_reduce(flag, group=ctx.world_group)
+
+
+def broadcast(x: torch.Tensor, src: int, group,
+              ctx: Optional[ParallelContext] = None) -> torch.Tensor:
+    """`x` from global rank `src` to every rank of `group`, in place (and
+    returned); every rank passes a tensor of the same shape and dtype."""
+    ctx = ctx or get_context()
+    if group is None or _size(group) == 1:
+        return x
+    (h,) = _staged(ctx, x.contiguous())
+    dist.broadcast(h, src=src, group=group)
+    if h is not x:
+        x.copy_(h)
+    return x
+
+
+# ---------------------------------------------------------------------------
+# point to point, for the pipeline's stage boundaries
+# ---------------------------------------------------------------------------
+
+def _p2p_buffer(ctx, key, shape, dtype):
+    """The pinned host buffer of one direction, peer and shape (made at
+    first use)."""
+    bufs = ctx.p2p.setdefault("buffers", {})
+    k = (key, tuple(shape), dtype)
+    if k not in bufs:
+        bufs[k] = torch.empty(shape, dtype=dtype, device="cpu",
+                              pin_memory=True)
+    return bufs[k]
+
+
+def send_boundary(x: torch.Tensor, dst: int,
+                  ctx: Optional[ParallelContext] = None) -> None:
+    """Send `x` to global rank `dst` without waiting for the receiver.
+    Staged: through this peer's pinned host buffer, whose previous send
+    is waited for before it is overwritten. Otherwise the tensor is kept
+    alive until `p2p_wait`. The receiver calls `recv_boundary` with the
+    same shape and dtype, in the same order."""
+    ctx = ctx or get_context()
+    pending = ctx.p2p.setdefault("pending", {})
+    if ctx.staged:
+        buf = _p2p_buffer(ctx, ("send", dst), x.shape, x.dtype)
+        prev = pending.pop(id(buf), None)
+        if prev is not None:
+            prev[0].wait()
+        buf.copy_(x)
+        pending[id(buf)] = (dist.isend(buf, dst), buf)
+        return
+    x = x.detach().contiguous()
+    pending[id(x)] = (dist.isend(x, dst), x)
+
+
+def recv_boundary(shape, dtype, src: int,
+                  ctx: Optional[ParallelContext] = None) -> torch.Tensor:
+    """The next tensor global rank `src` sends this rank, a new tensor on
+    the context's device."""
+    ctx = ctx or get_context()
+    if ctx.staged:
+        buf = _p2p_buffer(ctx, ("recv", src), shape, dtype)
+        dist.recv(buf, src)
+        return buf.to(ctx.device)
+    out = torch.empty(shape, dtype=dtype, device=ctx.device)
+    dist.recv(out, src)
+    return out
+
+
+def p2p_wait(ctx: Optional[ParallelContext] = None) -> None:
+    """Wait for every send in flight (a transfer that failed raises)."""
+    ctx = ctx or get_context()
+    if ctx is None:
+        return
+    pending = ctx.p2p.pop("pending", {})
+    for work, _ in pending.values():
+        work.wait()

@@ -14,7 +14,10 @@ axis, and each rank holds its slice of the leaf in `shard_params`:
 - norms, position embeddings and the biases of row-parallel outputs:
   replicated.
 
-The layer axis that leads every stacked leaf is never split. ZeRO-1
+Under pipeline parallelism `pipeline_param_specs` puts "stage" on the
+layer axis that leads every stacked leaf (a stage holds num_layers / pp
+consecutive layers); the embedding, the final norm and the head stay
+whole on every stage (JAX parallel/pipeline.py:72-89). ZeRO-1
 (optimizer/zero1.py) shards a leaf's optimizer state over "data" on the
 axis `zero1_axis` picks: the one divisibility rule (JAX :113-140).
 `kv_pool_spec` and `decode_param_specs` wait for tp serving (the next
@@ -31,6 +34,7 @@ from megatron_llm_tpu_torch.optimizer.optimizer import tree_map
 from megatron_llm_tpu_torch.parallel.mesh import (
     DATA_AXIS,
     MODEL_AXIS,
+    STAGE_AXIS,
     all_gather_rows,
 )
 
@@ -72,6 +76,29 @@ def param_specs(cfg, params: dict) -> dict:
     return specs
 
 
+def pipeline_param_specs(cfg, params: dict) -> dict:
+    """`param_specs` with "stage" on the leading layer axis of every
+    stacked leaf (JAX parallel/pipeline.py:72-89)."""
+    specs = param_specs(cfg, params)
+
+    def add_stage(spec):
+        parts = list(spec) or [None]
+        if parts[0] is not None:
+            raise ValueError(f"the layer axis is already split: {spec}")
+        parts[0] = STAGE_AXIS
+        return tuple(parts)
+
+    if "layers" in specs:
+        specs["layers"] = tree_map(add_stage, specs["layers"])
+    return specs
+
+
+def layout_specs(cfg, params: dict, pp: int) -> dict:
+    """The spec tree of a layout: `pipeline_param_specs` at pp > 1."""
+    return pipeline_param_specs(cfg, params) if pp > 1 \
+        else param_specs(cfg, params)
+
+
 def spec_leaves(specs: dict) -> list:
     """A spec tree's specs in `tree_leaves` order (dict keys sorted; a
     spec tuple is a leaf)."""
@@ -83,6 +110,11 @@ def spec_leaves(specs: dict) -> list:
 def model_axis(spec: tuple) -> Optional[int]:
     """The axis a spec splits over "model", or None (replicated)."""
     return spec.index(MODEL_AXIS) if MODEL_AXIS in spec else None
+
+
+def stage_axis(spec: tuple) -> Optional[int]:
+    """The axis a spec splits over "stage" (the layer axis), or None."""
+    return spec.index(STAGE_AXIS) if STAGE_AXIS in spec else None
 
 
 def zero1_axis(spec: tuple, shape: tuple, dp: int,
@@ -151,29 +183,44 @@ def slice_axis(x: torch.Tensor, axis: Optional[int], n: int,
 
 
 def shard_params(params: dict, ctx, cfg=None) -> dict:
-    """This rank's slice of the full tree: each leaf's block tp_rank of
-    tp along its "model" axis, as a contiguous tensor of its own (the
-    full tree can be freed). `ctx` needs `tp` and `tp_rank`."""
-    if ctx is None or ctx.tp == 1:
+    """This rank's slice of the full tree: each leaf's block pp_rank of
+    pp along its "stage" axis, then tp_rank of tp along its "model"
+    axis, as a contiguous tensor of its own (the full tree can be
+    freed). Leaves split over neither are returned as they are. `ctx`
+    needs `tp`, `tp_rank` and, for pp > 1, `pp` and `pp_rank`."""
+    pp = getattr(ctx, "pp", 1) if ctx is not None else 1
+    if ctx is None or (ctx.tp == 1 and pp == 1):
         return params
-    specs = param_specs(cfg, params)
-    return tree_map(lambda x, s: slice_axis(x, model_axis(s), ctx.tp,
-                                        ctx.tp_rank).contiguous(),
-                params, specs)
+    specs = layout_specs(cfg, params, pp)
+
+    def cut(x, s):
+        k, m = stage_axis(s), model_axis(s)
+        if k is None and m is None:
+            return x
+        if k is not None:
+            x = slice_axis(x, k, pp, ctx.pp_rank)
+        return slice_axis(x, m, ctx.tp, ctx.tp_rank).contiguous()
+
+    return tree_map(cut, params, specs)
 
 
-def gather_params(shards: dict, ctx, cfg=None) -> dict:
-    """The full tree from every tp rank's slice: an all-gather over the
-    tp group, leaf by leaf (the inverse of `shard_params`)."""
-    if ctx is None or ctx.tp == 1:
+def gather_params(shards: dict, ctx, cfg=None, tp: bool = True) -> dict:
+    """The full tree from every rank's slice: an all-gather over the tp
+    group, then over the pp group for the stacked layers, leaf by leaf
+    (the inverse of `shard_params`). With `tp` False the tensor-parallel
+    slices stay as they are and only the layers are gathered."""
+    pp = getattr(ctx, "pp", 1) if ctx is not None else 1
+    if ctx is None or ((ctx.tp == 1 or not tp) and pp == 1):
         return shards
-    specs = param_specs(cfg, shards)
+    specs = layout_specs(cfg, shards, pp)
 
     def gather(x, s):
-        k = model_axis(s)
-        if k is None:
-            return x
-        rows = all_gather_rows(x.detach().movedim(k, 0), ctx.tp_group, ctx)
-        return rows.movedim(0, k).contiguous()
+        for k, group in ((model_axis(s) if tp else None, ctx.tp_group),
+                         (stage_axis(s), ctx.pp_group)):
+            if k is not None:
+                rows = all_gather_rows(x.detach().movedim(k, 0).contiguous(),
+                                       group, ctx)
+                x = rows.movedim(0, k).contiguous()
+        return x
 
     return tree_map(gather, shards, specs)

@@ -50,14 +50,15 @@ from megatron_llm_tpu_torch.optimizer.optimizer import (
     tree_leaves,
 )
 from megatron_llm_tpu_torch.parallel.mesh import (
-    NEXT_A4,
+    A4_DROPOUT,
     all_reduce,
     get_context,
 )
 from megatron_llm_tpu_torch.parallel.sharding import (
+    layout_specs,
     model_axis,
-    param_specs,
     spec_leaves,
+    stage_axis,
 )
 
 
@@ -66,11 +67,12 @@ def check_layout(model, pcfg: ParallelConfig):
     ParallelConfig and the model; None at world size 1 with no
     context."""
     ctx = get_context()
-    have = (1, 1) if ctx is None else (ctx.dp, ctx.tp)
-    want = (pcfg.data_parallel_size, pcfg.tensor_parallel_size)
+    have = (1, 1, 1) if ctx is None else (ctx.dp, ctx.pp, ctx.tp)
+    want = (pcfg.data_parallel_size, pcfg.pipeline_parallel_size,
+            pcfg.tensor_parallel_size)
     if have != want:
-        raise ValueError(f"the ParallelConfig asks dp, tp = {want}; the "
-                         f"installed parallel context is {have}")
+        raise ValueError(f"the ParallelConfig asks dp, pp, tp = {want}; "
+                         f"the installed parallel context is {have}")
     if ctx is not None and ctx.sequence_parallel != pcfg.sequence_parallel:
         raise ValueError("sequence_parallel differs between the "
                          "ParallelConfig and the parallel context")
@@ -78,8 +80,8 @@ def check_layout(model, pcfg: ParallelConfig):
     if ctx is not None and ctx.world_size > 1 and (
             cfg.hidden_dropout > 0 or cfg.attention_dropout > 0):
         raise ValueError(f"dropout across {ctx.world_size} ranks is not "
-                         f"ported yet ({NEXT_A4}): a rank would not draw "
-                         f"its slice of the global mask")
+                         f"ported yet ({A4_DROPOUT}): a rank would not "
+                         f"draw its slice of the global mask")
     return ctx if ctx is not None and ctx.world_size > 1 else None
 
 
@@ -116,28 +118,42 @@ def make_train_step(model, tcfg: TrainConfig, pcfg: ParallelConfig,
     num_micro = pcfg.num_microbatches
     scaler = get_grad_scaler(tcfg)
     dp = 1 if ctx is None else ctx.dp
+    pp = 1 if ctx is None else ctx.pp
     use_zero1 = pcfg.use_distributed_optimizer and dp > 1
     layout = {}  # built at the first call, from this rank's params
+    pipeline_loss = None
+    if pp > 1:
+        from megatron_llm_tpu_torch.parallel.pipeline import (
+            make_pipelined_loss_fn,
+        )
+
+        pipeline_loss = make_pipelined_loss_fn(model, pcfg, ctx)
 
     def _layout(params):
         if not layout:
-            specs = spec_leaves(param_specs(model.cfg, params))
+            specs = spec_leaves(layout_specs(model.cfg, params, pp))
             tp_sh = [model_axis(s) is not None for s in specs]
+            pp_sh = [stage_axis(s) is not None for s in specs]
             plan = zero1.build_zero1_plan(
-                model.cfg, params, dp, pcfg.grad_rs_bucket_mb) \
+                model.cfg, params, dp, pcfg.grad_rs_bucket_mb, pp=pp) \
                 if dp > 1 else None
             dp_sh = [use_zero1 and plan.leaf_axes[i] is not None
                      for i in range(len(specs))]
-            layout.update(plan=plan, tp_sharded=tp_sh,
-                          reduce_fn=zero1.sum_over_layout(tp_sh, dp_sh,
-                                                          ctx))
+            layout.update(plan=plan, tp_sharded=tp_sh, pp_sharded=pp_sh,
+                          reduce_fn=zero1.sum_over_layout(
+                              tp_sh, dp_sh, ctx, pp_sh))
         return layout
 
     def reduce_grads(params, grads):
-        """The dp reduction; under ZeRO-1 also this rank's parameter
-        blocks, the tensors the update writes."""
+        """The pp sum of the stage-replicated leaves and the dp
+        reduction; under ZeRO-1 also this rank's parameter blocks, the
+        tensors the update writes."""
         lay = _layout(params)
         sequence_parallel_grads(grads, lay["tp_sharded"], ctx)
+        if pp > 1:
+            for g, staged in zip(grads, lay["pp_sharded"]):
+                if not staged:
+                    all_reduce(g, ctx.pp_group, ctx=ctx)
         if dp == 1:
             return grads, tree_leaves(params)
         grads = zero1.reduce_gradients(grads, lay["plan"], ctx, use_zero1,
@@ -147,20 +163,12 @@ def make_train_step(model, tcfg: TrainConfig, pcfg: ParallelConfig,
             targets = zero1.param_shards(targets, lay["plan"], ctx.dp_rank)
         return grads, targets
 
-    def train_step(params, opt_state: OptimizerState, batch, lr, wd,
-                   rng=None, spike_threshold=None):
-        leaves = tree_leaves(params)
-        for p in leaves:
-            p.grad = None
-        n = next(iter(batch.values())).shape[0]
-        if n != num_micro:
-            raise ValueError(f"batch has {n} microbatches, the step was "
-                             f"built for {num_micro}")
-        dev = leaves[0].device
+    def accumulate(params, batch, rng, loss_scale, dev):
+        """The microbatch loop: each microbatch's forward and backward,
+        the gradients summed in the params' `.grad`; returns the mean of
+        the microbatch losses."""
         loss = torch.zeros((), dtype=torch.float32, device=dev)
         nums, dens = [], []
-        loss_scale = None if scaler is None else torch.as_tensor(
-            scaler.scale(opt_state.scaler), dtype=torch.float32, device=dev)
         with torch.enable_grad():
             for i in range(num_micro):
                 micro = {k: v[i] for k, v in batch.items()}
@@ -185,6 +193,25 @@ def make_train_step(model, tcfg: TrainConfig, pcfg: ParallelConfig,
             nums = all_reduce(torch.stack(nums), ctx.dp_group, ctx=ctx)
             for num, den in zip(nums, dens):
                 loss = loss + num / den
+        return loss / num_micro if num_micro > 1 else loss
+
+    def train_step(params, opt_state: OptimizerState, batch, lr, wd,
+                   rng=None, spike_threshold=None):
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.grad = None
+        n = next(iter(batch.values())).shape[0]
+        if n != num_micro:
+            raise ValueError(f"batch has {n} microbatches, the step was "
+                             f"built for {num_micro}")
+        dev = leaves[0].device
+        loss_scale = None if scaler is None else torch.as_tensor(
+            scaler.scale(opt_state.scaler), dtype=torch.float32, device=dev)
+        if pipeline_loss is not None:
+            loss = pipeline_loss(params, batch, rng, loss_scale,
+                                 backward=True)
+        else:
+            loss = accumulate(params, batch, rng, loss_scale, dev)
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in leaves]
         targets, reduce_fn, any_rank = params, None, None
@@ -197,7 +224,6 @@ def make_train_step(model, tcfg: TrainConfig, pcfg: ParallelConfig,
         if num_micro > 1:
             for g in grads:
                 g.div_(num_micro)
-            loss = loss / num_micro
         if loss_scale is not None:
             inv = 1.0 / loss_scale
             for g in grads:
@@ -225,8 +251,16 @@ def make_train_step(model, tcfg: TrainConfig, pcfg: ParallelConfig,
 
 def make_eval_step(model):
     """The eval step (JAX :344-357): the mean masked loss, no gradients;
-    across dp ranks the global token-weighted mean of their rows."""
+    across dp ranks the global token-weighted mean of their rows. At
+    pp > 1 the pipelined loss of (num_micro, rows, s) batches, forward
+    only (JAX training/trainer.py:607-690)."""
     ctx = get_context()
+    if ctx is not None and ctx.pp > 1:
+        from megatron_llm_tpu_torch.parallel.pipeline import (
+            make_pipelined_loss_fn,
+        )
+
+        return torch.no_grad()(make_pipelined_loss_fn(model, None, ctx))
 
     @torch.no_grad()
     def eval_step(params, batch):

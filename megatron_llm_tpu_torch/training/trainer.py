@@ -33,14 +33,18 @@ in the checkpoint's meta and restored unless `--no_load_rng` or
 `--finetune`. Under fp16 the log line carries the loss scale.
 
 Across ranks (a parallel context, parallel/mesh.py) the trainer holds
-this rank's state: its tensor-parallel slices of the parameters and,
-under ZeRO-1, its blocks of the Adam moments; the loaders read the
-rank's rows of every global microbatch; the log line, printed by rank 0
-only, carries the global loss, gradient norm and tokens/s. A save
-gathers every leaf whole and rank 0 writes the checkpoint (the same
-files as one card's), the other ranks waiting for its commit; a load
-cuts each rank's slices from the whole leaves, so a checkpoint resumes
-at any layout. Rank 0 holds a host copy of the whole state meanwhile.
+this rank's state: its stage's layers at pp > 1, its tensor-parallel
+slices of the parameters and, under ZeRO-1, its blocks of the Adam
+moments; the loaders read the rank's rows of every global microbatch
+(every stage of a dp index reads the same rows); the log line, printed
+by rank 0 only, carries the global loss (the last stage's, broadcast),
+gradient norm and tokens/s. A save gathers every leaf whole and rank 0
+writes the checkpoint (the same files as one card's), the other ranks
+waiting for its commit; a load cuts each rank's slices from the whole
+leaves, so a checkpoint resumes at any layout, pp included. Rank 0
+holds a host copy of the whole state meanwhile. At pp > 1 `evaluate`
+runs the pipelined loss forward (JAX :607-690), which refuses a batch
+with `--reset_attention_mask`'s masks (JAX :533-540).
 
 Later slices, each raising ValueError while set: tensorboard and WandB,
 profiling and span traces, the flight-record dumps, the device-cost
@@ -84,11 +88,12 @@ from megatron_llm_tpu_torch.parallel.multihost import (
     process_row_range,
 )
 from megatron_llm_tpu_torch.parallel.sharding import (
+    layout_specs,
     model_axis,
-    param_specs,
     shard_params,
     slice_axis,
     spec_leaves,
+    stage_axis,
 )
 from megatron_llm_tpu_torch.training.checkpointing import (
     CheckpointManager,
@@ -154,22 +159,25 @@ def get_batch(text, eod_token=None, reset_position_ids=False,
 
 class StateLayout:
     """How a rank's state relates to the whole model: each leaf's
-    tensor-parallel axis and, under ZeRO-1, its moments' dp axis
-    (optimizer/zero1.py). `shard` cuts a whole leaf to this rank's
-    slice, `gather` makes a slice whole again on rank 0's host; leaf
-    names are the checkpoint files' ("layers.attention.wqkv",
-    "m.<leaf>", "v.<leaf>")."""
+    pipeline-stage axis (the layer axis at pp > 1), its tensor-parallel
+    axis and, under ZeRO-1, its moments' dp axis (optimizer/zero1.py).
+    `shard` cuts a whole leaf to this rank's slice, `gather` makes a
+    slice whole again on rank 0's host; leaf names are the checkpoint
+    files' ("layers.attention.wqkv", "m.<leaf>", "v.<leaf>")."""
 
     def __init__(self, ctx, cfg, full_template: dict, zero1: bool,
                  bucket_mb: float):
         self.ctx = ctx
-        specs = spec_leaves(param_specs(cfg, full_template))
+        self.pp = getattr(ctx, "pp", 1)
+        specs = spec_leaves(layout_specs(cfg, full_template, self.pp))
         self.tp_axes = [model_axis(sp) for sp in specs]
+        self.pp_axes = [stage_axis(sp) for sp in specs]
         index, _ = map_indexed(lambda i, _: i, full_template)
         self.index = flatten(index)
         local = shard_params(tree_map(lambda t: torch.empty(
             t.shape, dtype=t.dtype, device="meta"), full_template), ctx, cfg)
-        self.plan = build_zero1_plan(cfg, local, ctx.dp, bucket_mb) \
+        self.plan = build_zero1_plan(cfg, local, ctx.dp, bucket_mb,
+                                     pp=self.pp) \
             if zero1 and ctx.dp > 1 else None
 
     def _leaf(self, name: str):
@@ -183,6 +191,9 @@ class StateLayout:
         i, z1 = self._leaf(name)
         if i is None:  # "step", the scaler's state
             return leaf
+        if self.pp > 1:
+            leaf = slice_axis(leaf, self.pp_axes[i], self.pp,
+                              self.ctx.pp_rank)
         x = slice_axis(leaf, self.tp_axes[i], self.ctx.tp, self.ctx.tp_rank)
         return slice_axis(x, z1, self.ctx.dp, self.ctx.dp_rank)
 
@@ -190,15 +201,20 @@ class StateLayout:
         """The whole leaf on rank 0 (a host tensor of its own), None on
         the other ranks; a collective every rank enters. A ZeRO-1 block
         goes to the dp group's first rank, then a tensor-parallel slice
-        to the tp group's first rank: only what rank 0 needs moves."""
+        to the tp group's first rank, then a stage's layers to the first
+        stage: only what rank 0 needs moves."""
         i, z1 = self._leaf(name)
+        ctx = self.ctx
         live = x = x.detach()
         if z1 is not None:
-            x = gather_rows(x, self.ctx.dp_group, self.ctx, axis=z1)
+            x = gather_rows(x, ctx.dp_group, ctx, axis=z1)
         k = None if i is None else self.tp_axes[i]
-        if k is not None and self.ctx.dp_rank == 0:
-            x = gather_rows(x, self.ctx.tp_group, self.ctx, axis=k)
-        if self.ctx.rank != 0:
+        if k is not None and ctx.dp_rank == 0:
+            x = gather_rows(x, ctx.tp_group, ctx, axis=k)
+        k = None if i is None or self.pp == 1 else self.pp_axes[i]
+        if k is not None and ctx.dp_rank == 0 and ctx.tp_rank == 0:
+            x = gather_rows(x, ctx.pp_group, ctx, axis=k)
+        if ctx.rank != 0:
             return None
         x = x.contiguous().cpu()
         return x.clone() if x.data_ptr() == live.data_ptr() else x
@@ -417,8 +433,9 @@ class Trainer:
 
     def evaluate(self, state: TrainState,
                  max_iters: Optional[int] = None) -> float:
-        """Mean eval loss over `eval_iters` batches (JAX :600-695, the
-        plain path)."""
+        """Mean eval loss over `eval_iters` batches (JAX :600-695): the
+        plain path, or at pp > 1 the pipelined loss of each (num_micro,
+        rows, seq) batch."""
         if self.valid_data_iterator is None:
             return float("nan")
         if self._eval_step_fn is None:
@@ -432,7 +449,8 @@ class Trainer:
             except StopIteration:
                 break
             raw = get_batch(text, self.eod_token, device=self.device)
-            batch = {k: v.reshape((-1,) + v.shape[2:]) for k, v in raw.items()}
+            batch = raw if self.pcfg.pipeline_parallel_size > 1 else {
+                k: v.reshape((-1,) + v.shape[2:]) for k, v in raw.items()}
             total += float(self._eval_step_fn(state.params, batch))
             count += 1
         return total / max(count, 1)

@@ -168,11 +168,11 @@ def test_same_argv_same_configs(model_args, vocab):
 
 @pytest.mark.parametrize("flags,slice_name", [
     ("--overlap_grad_reduce", "A4"),
-    ("--pipeline_model_parallel_size 2", "A4"),
+    ("--pipeline_model_parallel_size 2 --context_parallel_size 2", "A4"),
     ("--context_parallel_size 2", "A4"),
     ("--overlap_param_gather", "A4"),
     ("--async_pipeline_dispatch", "A4"),
-    ("--pipeline_remat full", "A4"),
+    ("--pipeline_model_parallel_size 2 --async_pipeline_dispatch", "A4"),
     ("--tensorboard_dir /tmp/tb", "A3.8"),
     ("--wandb_logger", "A3.8"),
     ("--profile", "A3.8"),

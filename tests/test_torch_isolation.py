@@ -31,7 +31,12 @@ from megatron_llm_tpu_torch.models.rope import precompute_rope
 from megatron_llm_tpu_torch.models.transformer import init_layer_params
 from megatron_llm_tpu_torch.ops import flash_attention as fa
 from megatron_llm_tpu_torch.ops import rmsnorm as rms
-from megatron_llm_tpu_torch.tools import run_text_generation_server
+from megatron_llm_tpu_torch.parallel import pipeline
+from megatron_llm_tpu_torch.parallel.mesh import initialize_parallel
+from megatron_llm_tpu_torch.tools import (
+    pipeline_memory_table,
+    run_text_generation_server,
+)
 from megatron_llm_tpu_torch.training.trainer import Trainer, get_batch
 
 REPO = Path(__file__).resolve().parent.parent
@@ -108,6 +113,7 @@ def test_no_jax_import_in_source(path):
     (finetune.model_provider, "device"),
     (FalconModel.__init__, "device"),
     (run_text_generation_server.main, "device"),
+    (initialize_parallel, "device"),
 ])
 def test_entry_points_default_to_cuda(fn, arg):
     fn = getattr(fn, "__wrapped__", fn)
@@ -122,6 +128,20 @@ def test_finetune_main_without_a_card_raises():
     assert not torch.cuda.is_available()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         finetune.main(["--model_name", "llama2", "--num_layers", "2"])
+
+
+def test_pipeline_functions_take_the_contexts_device():
+    """The pipelined loss, train step, scorer and ring have no device of
+    their own: they run on the parallel context's (cuda by default, as
+    above); the memory table tool needs a card unless asked for the
+    CPU."""
+    for fn in (pipeline.make_pipelined_loss_fn,
+               pipeline.make_pipelined_score_fn,
+               pipeline.make_pipelined_decode_fn,
+               pipeline.reshard_params_for_inference):
+        assert "device" not in inspect.signature(fn).parameters
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        pipeline_memory_table.main([])
 
 
 def test_engine_and_paged_caches_take_the_models_device():

@@ -178,12 +178,12 @@ def test_ranks_import_no_jax(runs):
 
 
 @pytest.mark.parametrize("flags", [
-    "--pipeline_model_parallel_size 2",
+    "--pipeline_model_parallel_size 2 --context_parallel_size 2",
     "--context_parallel_size 2",
     "--overlap_grad_reduce",
     "--overlap_param_gather",
     "--async_pipeline_dispatch",
-    "--pipeline_remat full",
+    "--pipeline_model_parallel_size 2 --async_pipeline_dispatch",
 ])
 def test_later_parallel_flags_raise_naming_the_next_a4_pr(flags):
     args = arguments.build_base_parser().parse_args(

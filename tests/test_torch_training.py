@@ -326,8 +326,10 @@ def test_training_after_serving_in_one_process():
 
 
 def test_remat_policies_of_later_slices_raise():
-    """What stays refused: the trainer's telemetry hooks, pipeline
-    parallelism, and a data-parallel layout with no ranks to run it.
+    """What stays refused: the trainer's telemetry hooks, the pipeline's
+    async dispatch (pipeline parallelism trains since, its parity in
+    tests/test_torch_pipeline.py), and a data-parallel layout with no
+    ranks to run it.
     Selective remat, dropout and fp16 train; their parity with the JAX
     package is in tests/test_torch_{remat,dropout,grad_scaler}.py, and
     data and tensor parallelism's in tests/test_torch_{zero1,
@@ -337,7 +339,7 @@ def test_remat_policies_of_later_slices_raise():
         Trainer(tm, TrainConfig(tensorboard_dir="/nonexistent"),
                 ParallelConfig())
     with pytest.raises(ValueError, match="pipeline"):
-        ParallelConfig(pipeline_parallel_size=2)
+        ParallelConfig(pipeline_parallel_size=2, async_pipeline_dispatch=True)
     from megatron_llm_tpu_torch.training.train_step import make_train_step
 
     with pytest.raises(ValueError, match="parallel context"):
