@@ -87,8 +87,8 @@ Phases, one output line each (a failure raises and exits non-zero):
    by the bf16 engine with every round a replayed graph, and the same
    queue's first rounds (every mixed round and 4 decode rounds) with
    every round called eagerly (the private `_eager`), and phase 5's
-   greedy batch decoded eagerly (`_eager=True`) and captured, in this one
-   call: after those rounds, captured streams equal to eager token for
+   greedy batch decoded eagerly (`_eager=True`) and captured for its
+   first 64 decode steps (GRAPH_WB_STEPS), in this one call: after those rounds, captured streams equal to eager token for
    token, equal page and prefix-cache accounting; ms per decode advance
    (and per mixed round) of each, the card's busy ms over the run
    window (torch.profiler, CUDA activity only, the rounds themselves
@@ -129,7 +129,7 @@ Phases, one output line each (a failure raises and exits non-zero):
    launch the present design (fp32 pools); log-probs re-scored on a
    kernels-off fp32 engine within 1e-3;
 14c. launcher_llama (the serving entry path, after the 7B of phase 4 is
-   written out and freed): its first 8 of 32 layers
+   written out and freed): its first 4 of 32 layers
    (LLAMA_LAUNCH_LAYERS) written as an HF Llama directory
    (config.json, bf16 safetensors in 2 GB shards with an index) by the
    port's converter and writer, converted by `python -m
@@ -210,7 +210,7 @@ Phases, one output line each (a failure raises and exits non-zero):
    (L + 4) M under block), step 1's loss and gradient norm equal across
    policies;
 19. finetune_modes (on phase 18's corpora, no --save): `finetune.main`
-   at 4 of 32 layers in (a) the fine-tuning recipe's training flags
+   at 2 of 32 layers (FT_LAYERS, the depth of phases 19-22) in (a) the fine-tuning recipe's training flags
    (flash, selective recompute, bf16), and the same in a process of
    its own with the recipe's parallel flags (`--tensor_model_parallel_size
    1 --sequence_parallel --use_distributed_optimizer`) under `torchrun
@@ -240,7 +240,7 @@ Phases, one output line each (a failure raises and exits non-zero):
    versions, within 2e-2;
 21. pipeline: `torchrun --nproc_per_node 2` runs `finetune.main` at pp 2
    (`--pipeline_model_parallel_size 2 --pipeline_remat tick`, the
-   recipe's flags, 4 of 32 layers, 2 a stage) over gloo, both stages on
+   recipe's flags, 2 of 32 layers, 1 a stage) over gloo, both stages on
    cuda:0: 3 steps and a save with the optimizer state, then the same
    ranks resume it (optimizer state included) for step 4 and serve it
    through the API (a pipelined score, four greedy requests through the
@@ -252,11 +252,31 @@ Phases, one output line each (a failure raises and exits non-zero):
    log-probs within 5e-2 of the whole-batch route's and the ring's over
    each common prefix within 5e-2 of the one-rank route run on the
    ring's row groups (the same GEMM rows; the drift of the 4-row route
-   from the 2-row one is printed beside it); per rank K4 16, K5 8, K6 8
+   from the 2-row one is printed beside it); per rank K4 8, K5 4, K6 4
    a step, the scorer's K4 once a stage layer, the ring's K1 in "tgd"
    once a stage layer a decode tick. Also, after the kernel checks,
    kernel_time_decode_ring: K1 on one layer's "tgd" slice of the ring's
-   stacked cache against its plain version, beside SDPA and the bound.
+   stacked cache against its plain version, beside SDPA and the bound;
+22. context_parallel: `torchrun --nproc_per_node 2` runs `finetune.main`
+   at cp 2 (`--context_parallel_size 2`, the recipe's flags, 2 of 32
+   layers, seq 4096: 2048 positions a rank; attention the ring of
+   parallel/ring_attention.py) over gloo, both ranks on cuda:0: 3 steps
+   and a save with the optimizer state, then the same ranks resume it
+   for step 4 and run ring attention at the recipe's CodeLlama-7B preset
+   (seq 16384, 8192 a rank, g 32, d 128) against the one-rank K4-K6 on
+   the whole sequence on the card (o within 5e-3, o, dq, dk, dv
+   cosines >= 0.98) and one layer under each recompute policy (K4 twice a visible
+   hop under full, once under the others), and world size 1 resumes
+   the save for step 4. Losses and grad
+   norms within 2e-2 / 5e-2 of world size 1 ((a)), step 4 at cp 2,
+   world size 1 and uninterrupted within 2e-2, every leaf of the
+   checkpoint equal to what each rank held; per rank K4, K5 and K6 by
+   mask: cp rank 0 8 causal a step, rank 1 8 causal and 8 full (its
+   diagonal block and rank 0's). Also, after the kernel checks,
+   kernel_time_flash_cp_hops: K4-K6 at the ring's hop shapes (s = t =
+   2048 and 8192, causal and full) beside SDPA and the bound, o, lse,
+   dq, dk and dv within 2e-2 of their plain versions (run a few KV
+   groups at a time) at each.
 
 Then a line of each phase's seconds, a line of the processes the run
 still had to stop, one JSON line of the kernels, the nvidia-smi line,
@@ -291,6 +311,7 @@ import numpy as np
 import torch
 
 from megatron_llm_tpu_torch.config import (
+    REMAT_POLICIES,
     ParallelConfig,
     TrainConfig,
     falcon_config,
@@ -2079,6 +2100,8 @@ def _engine_device_ms(eng, horizon=8, length=1000):
 
 
 EAGER_DECODE_ROUNDS = 4
+# decode steps of the whole-batch eager-against-captured comparison
+GRAPH_WB_STEPS = 64
 
 
 def eager_prefix(eng):
@@ -2230,6 +2253,10 @@ def graph_capture_phase(kernels, cfg, model, params, whole_batch):
     check(g_acc == e_acc, f"engine accounting {g_acc} != {e_acc}")
 
     toks, lens, kw = whole_batch
+    # the whole-batch comparison on GRAPH_WB_STEPS decode steps of the
+    # same 4 rows (a row whose prompt runs past them stays teacher-forced)
+    cut = kw["prefill_len"] + GRAPH_WB_STEPS + 1
+    toks, lens = toks[:, :cut], np.minimum(lens, cut)
     wb = {}
     for mode in ("eager", "captured"):
         wb[mode], out = whole_batch_timing(model, params, toks, lens, kw,
@@ -2885,10 +2912,10 @@ def launcher_subprocess(argv, payloads):
     return banner_s, answers, line.strip()
 
 
-# the serving entry path's depth: Llama-2-7B's width at 8 of its 32
-# layers (the conversion's disk traffic is a quarter), to keep the whole
-# smoke within 950 s beside the pipeline phase's optimizer-state save
-LLAMA_LAUNCH_LAYERS = 8
+# the serving entry path's depth: Llama-2-7B's width at 4 of its 32
+# layers (the HF write still takes two 2 GB shards), to keep the whole
+# smoke within 950 s beside the pipeline and context_parallel phases
+LLAMA_LAUNCH_LAYERS = 4
 
 
 def first_layers(cfg, params, n):
@@ -3310,6 +3337,38 @@ def flash_errors(q, k, v, do, causal, dlse=None):
     return errs
 
 
+def flash_errors_by_group(q, k, v, do, causal, groups=4):
+    """`flash_errors` for b 1 where the plain versions' fp32 (s, t)
+    tensors of every group at once do not fit (~35 GB at s = t = 8192):
+    K4-K6 run once on the whole input, the plain versions `groups` KV
+    groups at a time (groups are independent), each against its slice of
+    the kernels' results. o's error is also given relative to its
+    reference's max-abs (`o_rel`), without flash_errors' floor of 1."""
+    b, s, g, qpk, _ = q.shape
+    o, lse = fa._fwd(q, k, v, causal)
+    grads = fa._bwd(q, k, v, o, lse, do, causal)
+    lse = lse.reshape(b, g, s * qpk)
+    errs = {n: 0.0 for n in ("o", "lse", "dq", "dk", "dv")}
+    peak = {n: 0.0 for n in ("o", "dq", "dk", "dv")}
+    for g0 in range(0, g, groups):
+        sl = slice(g0, g0 + groups)
+        qg, kg, vg, dog = (x[:, :, sl] for x in (q, k, v, do))
+        o_ref, lse_ref = fa._xla_reference_with_lse(qg, kg, vg, causal)
+        rows = fa._lse_bsgq_to_rows(lse_ref, b, s, groups, qpk)
+        refs = fa._plain_bwd(qg, kg, vg, o_ref, rows, dog, causal)
+        errs["lse"] = max(errs["lse"], max_err(
+            lse[:, sl].reshape(rows.shape), rows))
+        for name, got, ref in zip(("o", "dq", "dk", "dv"),
+                                  (o,) + tuple(grads), (o_ref,) + refs):
+            errs[name] = max(errs[name], max_err(got[:, :, sl], ref))
+            peak[name] = max(peak[name], ref.float().abs().max().item())
+        del o_ref, lse_ref, rows, refs
+    torch.cuda.synchronize()
+    for name in peak:
+        errs[name + "_rel"] = errs[name] / peak[name]
+    return errs
+
+
 def causal_pairs(s, t, causal):
     """(query position, key) pairs a head attends: sum of min(t, p + 1)."""
     if not causal:
@@ -3623,8 +3682,7 @@ def zero_counts():
         fn.launches = 0
     dec.decode_attention.launches_by_layout = dict.fromkeys(
         dec.decode_attention.launches_by_layout, 0)
-    for fn in FLASH_WRAPPERS.values():
-        fn.launches_by_dtype = dict.fromkeys(fn.launches_by_dtype, 0)
+    fa.reset_counts()
     pa.ragged_paged_attention.variant_launches = dict.fromkeys(
         pa.ragged_paged_attention.variant_launches, 0)
 
@@ -3949,9 +4007,11 @@ def train_remat(kernels, cfg, text):
           f"step-1 gradient norms differ across policies: {diffs}")
 
 
-FT_LAYERS, FT_SEQ, FT_STEPS, FT_MICRO, FT_EVAL_INTERVAL = 4, 4096, 6, 4, 3
+# the depth of finetune_modes, finetune_parallel, pipeline (1 layer a
+# stage) and context_parallel, which are held to each other
+FT_LAYERS, FT_SEQ, FT_STEPS, FT_MICRO, FT_EVAL_INTERVAL = 2, 4096, 6, 4, 3
 # the entry path's save-and-resume runs (phase 18): four 8.0 GB commits
-# at 2 layers where 4 layers make them 12.86 GB each
+# at 2 layers where 4 layers would make them 12.86 GB each
 FT_ENTRY_LAYERS = 2
 FT_CORPUS_TOKENS = 1_500_000
 FT_DIR = Path(__file__).resolve().parent / "build" / "finetune_smoke"
@@ -4082,7 +4142,8 @@ def finetune_run(argv, sigterm_after=None, on_state=None):
             ctx = inner(*a, **kw)
             rec["parallel"] = {"backend": ctx.backend, "staged": ctx.staged,
                                "world": ctx.world_size, "dp": ctx.dp,
-                               "pp": ctx.pp, "tp": ctx.tp, "rank": ctx.rank,
+                               "pp": ctx.pp, "cp": ctx.cp, "tp": ctx.tp,
+                               "rank": ctx.rank,
                                "sequence_parallel": ctx.sequence_parallel}
             return ctx
         return run
@@ -4129,6 +4190,8 @@ def finetune_run(argv, sigterm_after=None, on_state=None):
         rec["wall_s"] = time.perf_counter() - t0
         rec["launches"] = kernel_counts()
         rec["fp16"] = fp16_counts()
+        rec["by_causal"] = {name: dict(fn.launches_by_causal)
+                            for name, fn in FLASH_WRAPPERS.items()}
     signal.signal(signal.SIGTERM, prev)
     rec["iteration"] = state.iteration
     rec["consumed"] = state.consumed_train_samples
@@ -4332,8 +4395,8 @@ RECIPE_LEFT_OUT = {
     "finetune_parallel",
     "--pipeline_model_parallel_size": "1 in (a); 2 in the pipeline "
     "phase",
-    "--context_parallel_size": "the next A4 PR (context parallelism, "
-    "ROADMAP.md A4 item 2)",
+    "--context_parallel_size": "1 in (a); 2 in the context_parallel "
+    "phase",
     "--tensorboard_dir, --log_timers_to_tensorboard":
         "the trainer's telemetry hooks, ROADMAP.md A3.8",
     "--save, --load, --use_checkpoint_args, --save_interval":
@@ -4363,7 +4426,7 @@ def scaler_rule(skipped, initial=2.0 ** 32, hysteresis=2, min_scale=1.0,
 
 
 def finetune_modes(kernels, data):
-    """`finetune.main` at Llama-2-7B widths (4 of 32 layers, seq 4096) in
+    """`finetune.main` at Llama-2-7B widths (FT_LAYERS of 32, seq 4096) in
     the single-card training modes, the counters set to 0 before each
     run: (a) the fine-tuning recipe's training flags (flash, selective
     recompute, bf16, its AdamW): K4 once a layer and microbatch, and
@@ -4421,8 +4484,9 @@ def finetune_modes(kernels, data):
           f"finetune_modes (a) with the A4 flags launched "
           f"{a_a4['launches']} != {a['launches']}")
     check(a_a4["parallel"] == {"backend": "nccl", "staged": False,
-                               "world": 1, "dp": 1, "pp": 1, "tp": 1,
-                               "rank": 0, "sequence_parallel": False},
+                               "world": 1, "dp": 1, "pp": 1, "cp": 1,
+                               "tp": 1, "rank": 0,
+                               "sequence_parallel": False},
           f"finetune_modes (a) under torchrun: {a_a4.get('parallel')}")
     a4_equal = [x["loss"] == y["loss"] and x["grad_norm"] == y["grad_norm"]
                 for x, y in zip(a["stats"], a_a4["stats"])]
@@ -4519,14 +4583,17 @@ def finetune_rank(out_dir, argvs_file):
     argvs = json.loads(Path(argvs_file).read_text())
     runs = []
     for argv in argvs:
-        if isinstance(argv, dict):  # the pipeline phase's serving entry
-            runs.append(pp_serve(**argv))
+        if isinstance(argv, dict):  # a phase's entry other than finetune
+            runs.append(cp_ring(**argv) if "ring_seq" in argv
+                        else cp_remat(**argv) if "policies" in argv
+                        else pp_serve(**argv))
             continue
         fps = {}
         torch.cuda.reset_peak_memory_stats()
         rec = finetune_run(argv, on_state=lambda st: fps.update(
             state_fingerprints(st)))
-        keep = ("stats", "steps", "launches", "fp16", "wall_s", "saves",
+        keep = ("stats", "steps", "launches", "fp16", "by_causal", "wall_s",
+                "saves",
                 "commits", "loads", "iteration", "consumed", "resumed",
                 "parallel", "n_params", "clock_s")
         out = {k: rec[k] for k in keep if k in rec}
@@ -4646,7 +4713,7 @@ def check_parallel_checkpoint(ck_dir, rank_fps, ctxs=None, zero1=True,
 def finetune_parallel(kernels, data, one):
     """`torchrun --nproc_per_node 4 ... finetune.main` at tp 2 x dp 2
     with sequence parallelism and ZeRO-1 over gloo, the four ranks on
-    cuda:0, on the recipe's flags at Llama-2-7B widths (4 of 32 layers,
+    cuda:0, on the recipe's flags at Llama-2-7B widths (FT_LAYERS of 32,
     seq 4096, selective recompute, bf16, global batch 4): 3 steps and a
     save, then the same ranks resume it for step 4; world size 1 resumes
     it too. Held to `one` (finetune_modes' run (a): world size 1, the
@@ -4668,7 +4735,7 @@ def finetune_parallel(kernels, data, one):
     for r, run in enumerate(first):
         check(run["parallel"] == {"backend": "gloo", "staged": True,
                                   "world": 4, "dp": PAR_DP, "pp": 1,
-                                  "tp": PAR_TP, "rank": r,
+                                  "cp": 1, "tp": PAR_TP, "rank": r,
                                   "sequence_parallel": True},
               f"rank {r}: layout {run.get('parallel')}")
         check(run["stats"] == first[0]["stats"],
@@ -4956,9 +5023,9 @@ def pp_stream_errs(prompts, ref, got, gen=PP_GEN):
 def pipeline_phase(kernels, data, one):
     """`torchrun --nproc_per_node 2 ... finetune.main` at pp 2 with the
     recipe's flags and `--pipeline_remat tick` over gloo, both stages on
-    cuda:0, at Llama-2-7B widths (4 of 32 layers, 2 a stage, seq 4096,
-    global batch 4: 4 microbatches of 1): 3 steps and a save with the
-    optimizer state, then the same ranks resume it for step 4 and serve
+    cuda:0, at Llama-2-7B widths (FT_LAYERS of 32 layers, half a stage,
+    seq 4096, global batch 4: 4 microbatches of 1): 3 steps and a save
+    with the optimizer state, then the same ranks resume it for step 4 and serve
     it through the API (a pipelined score and greedy requests through
     the stage ring), and world size 1 resumes it too and serves it
     whole-batch. Held to `one` (finetune_modes' run (a): world size 1,
@@ -4990,8 +5057,8 @@ def pipeline_phase(kernels, data, one):
     for r, run in enumerate(first):
         check(run["parallel"] == {"backend": "gloo", "staged": True,
                                   "world": PP_RANKS, "dp": 1,
-                                  "pp": PP_RANKS, "tp": 1, "rank": r,
-                                  "sequence_parallel": False},
+                                  "pp": PP_RANKS, "cp": 1, "tp": 1,
+                                  "rank": r, "sequence_parallel": False},
               f"rank {r}: layout {run.get('parallel')}")
         check(run["stats"] == first[0]["stats"]
               and resumed[r]["stats"] == resumed[0]["stats"],
@@ -5069,7 +5136,8 @@ def pipeline_phase(kernels, data, one):
     say("pipeline", card=nvidia_smi(),
         launcher=f"torchrun --nproc_per_node {PP_RANKS} chip_smoke.py "
         f"--finetune-rank (finetune.main, then the API, in each rank)",
-        flags=" ".join(PP_FLAGS), layout="pp 2 (2 layers a stage), every "
+        flags=" ".join(PP_FLAGS), layout=f"pp 2 ({FT_LAYERS // PP_RANKS} "
+        f"layer(s) a stage), every "
         "rank on cuda:0", backend="gloo",
         collectives_staged_through_host=first[0]["parallel"]["staged"],
         layers=FT_LAYERS, seq=FT_SEQ, global_batch=FT_MICRO,
@@ -5143,7 +5211,7 @@ def time_decode_ring(kernels):
     stacked = [torch.randn(FT_LAYERS // PP_RANKS, nm, b, T, g, d,
                            generator=gen, device="cuda").to(bf)
                for _ in range(2)]
-    k, v = stacked[0][1, 1], stacked[1][1, 1]
+    k, v = stacked[0][-1, 1], stacked[1][-1, 1]
     q = torch.randn(b, 1, g, qpk, d, generator=gen, device="cuda").to(bf)
     ref = dec._xla_decode(q, k, v, length, "tgd")
     got = dec.decode_attention(q, k, v, length, layout="tgd")
@@ -5171,6 +5239,424 @@ def time_decode_ring(kernels):
             r["pipeline_ring_shape"] = row
     del stacked, k, v, q
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------------------
+# context parallelism: two cp ranks sharing the card through gloo
+# ---------------------------------------------------------------------------
+
+# the recipe's context parallelism flag at cp 2 (examples/finetune.sh:14,
+# 60), two ranks on cuda:0 through gloo
+CP_FLAGS = ["--context_parallel_size", "2", "--distributed_backend", "gloo"]
+CP_RANKS = 2
+# the recipe's CodeLlama-7B preset (examples/finetune.sh:39-40): seq
+# 16384, 32 heads of 128, no GQA
+CP_RING_SEQ = 16384
+# a cp 2 rank's shard at the training phase's seq and at the preset's
+CP_HOP_SEQS = (FT_SEQ // CP_RANKS, CP_RING_SEQ // CP_RANKS)
+CP_RING_COS = 0.98
+# the 16k ring's o against the one-rank kernels', max-abs: ~10x what the
+# H100 measured (4.9e-4), a third of a typical |o| on cp rank 1's rows
+# (~sqrt(e / t) ~ 0.015 with t of 8k-16k random keys)
+CP_RING_O_TOL = 5e-3
+
+
+def cp_expected_launches(rank, steps):
+    """K4, K5 and K6 a cp rank launches in `steps` training steps
+    (FT_LAYERS layers, FT_MICRO microbatches of 1, FT_SEQ / 2 positions a
+    rank), by mask: the recipe's selective recompute keeps every hop's K4
+    output, so each hop runs K4 once in the forward and K5 and K6 once in
+    the backward; cp rank 0 runs its diagonal block only (causal), rank 1
+    its diagonal and rank 0's block (full)."""
+    n = FT_LAYERS * FT_MICRO * steps
+    return {name: {"causal": n, "full": n * rank} for name in FLASH_WRAPPERS}
+
+
+def cp_policy_launches(rank, policy):
+    """K4, K5 and K6 a cp rank launches by mask for one layer's forward
+    and backward at cp 2 under a recompute policy: K4 once a visible hop
+    in the forward, and again in the recompute under "full" only (the
+    named-save-point policies keep the hops' K4 outputs, "none" has no
+    recompute); K5 and K6 once a visible hop."""
+    fwd = 2 if policy == "full" else 1
+    return {"flash_fwd": {"causal": fwd, "full": fwd * rank},
+            "flash_bwd_dq": {"causal": 1, "full": rank},
+            "flash_bwd_dkv": {"causal": 1, "full": rank}}
+
+
+def cosine(a, b) -> float:
+    a, b = a.float().flatten(), b.float().flatten()
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+def cp_ring(ring_seq):
+    """Rank mode (an entry of the context_parallel phase's run): ring
+    attention at the CodeLlama-7B preset's shape (b 1, `ring_seq`
+    positions, g 32, qpk 1, d 128, bf16, causal), this rank holding
+    ring_seq / cp of them, forward and backward through the ring after a
+    warm-up, each rank's shard against the one-rank K4-K6 on the whole
+    sequence on the card: o's max-abs error, o, dq, dk and dv cosines; the
+    ring's ms beside the one-rank ms; the ring's launches by mask."""
+    from megatron_llm_tpu_torch.parallel import mesh
+    from megatron_llm_tpu_torch.parallel.ring_attention import (
+        ring_self_attention,
+    )
+
+    mesh.maybe_initialize_distributed("gloo", "cuda")
+    ctx = mesh.initialize_parallel(cp=CP_RANKS, backend="gloo",
+                                   device="cuda")
+    try:
+        shape = (1, ring_seq, ring_seq, 32, 1, 128, True)
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 61)
+        q, k, v, do = flash_inputs(shape, gen)
+        n = ring_seq // ctx.cp
+        sl = slice(ctx.cp_rank * n, (ctx.cp_rank + 1) * n)
+        ql, kl, vl = (x[:, sl].contiguous().requires_grad_(True)
+                      for x in (q, k, v))
+        dol = do[:, sl].contiguous()
+
+        def ring():
+            o = ring_self_attention(ql, kl, vl, causal=True, ctx=ctx)
+            return (o,) + torch.autograd.grad(o, (ql, kl, vl), dol)
+
+        ring()  # the kernels' first launches set their smem attribute
+        mesh.barrier(ctx)
+        torch.cuda.synchronize()
+        zero_counts()
+        t0 = time.perf_counter()
+        got = ring()
+        torch.cuda.synchronize()
+        ring_ms = (time.perf_counter() - t0) * 1e3
+        launches = {name: dict(fn.launches_by_causal)
+                    for name, fn in FLASH_WRAPPERS.items()}
+        mesh.barrier(ctx)
+        t0 = time.perf_counter()
+        o, lse = fa._fwd(q, k, v, True)
+        ref = (o,) + fa._bwd(q, k, v, o, lse, do, True)
+        torch.cuda.synchronize()
+        one_ms = (time.perf_counter() - t0) * 1e3
+        rec = {"o_max_abs_err": max_err(got[0], ref[0][:, sl]),
+               "cosine": {name: cosine(g, r[:, sl]) for name, g, r in zip(
+                   ("o", "dq", "dk", "dv"), got, (o,) + ref[1:])},
+               "finite": all(bool(torch.isfinite(x).all()) for x in got),
+               "ring_fwd_bwd_ms": ring_ms, "one_rank_fwd_bwd_ms": one_ms,
+               "launches_by_causal": launches,
+               "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+        del q, k, v, do, ql, kl, vl, dol, got, ref, o, lse
+        free_cuda()
+        return rec
+    finally:
+        mesh.destroy_parallel()
+
+
+def cp_remat(policies):
+    """Rank mode (an entry of the context_parallel phase's run): one
+    layer of Llama-2-7B widths (seq FT_SEQ, FT_SEQ / 2 a rank, bf16 on
+    fp32 params, the same weights on each rank) forward and backward
+    at cp 2 under each recompute policy, the loss formed as the train
+    step forms it (`loss_terms`, the denominator summed over cp), the
+    counters set to 0 before each: K4-K6 launches by mask, the loss, the
+    gradient norm and the wall ms of each."""
+    from megatron_llm_tpu_torch.optimizer.optimizer import tree_leaves
+    from megatron_llm_tpu_torch.parallel import mesh
+
+    mesh.maybe_initialize_distributed("gloo", "cuda")
+    ctx = mesh.initialize_parallel(cp=CP_RANKS, backend="gloo",
+                                   device="cuda")
+    try:
+        rs = np.random.RandomState(SEED + 63)
+        text = torch.from_numpy(rs.randint(0, 31999, (1, FT_SEQ + 1)))
+        n = FT_SEQ // CP_RANKS
+        sl = slice(ctx.cp_rank * n, (ctx.cp_rank + 1) * n)
+        tokens = text[:, :-1][:, sl].cuda()
+        labels = text[:, 1:][:, sl].cuda()
+        pos = torch.arange(sl.start, sl.stop, device="cuda")[None]
+        out = {}
+        params = None
+        for policy in policies:
+            model = LlamaModel(llama_config(
+                7, num_layers=1, params_dtype=torch.float32,
+                compute_dtype=torch.bfloat16, use_flash_attn=True,
+                remat_policy=policy))
+            if params is None:
+                params = model.init(seed=SEED + 64)
+                for p in tree_leaves(params):
+                    p.requires_grad_(True)
+            for p in tree_leaves(params):
+                p.grad = None
+            mesh.barrier(ctx)
+            zero_counts()
+            t0 = time.perf_counter()
+            num, den = model.loss_terms(params, tokens, labels,
+                                        position_ids=pos)
+            den = mesh.sum_over_tokens(den.detach().clone(), ctx)
+            loss = num / den
+            loss.backward()
+            loss = mesh.sum_over_tokens(loss.detach().clone(), ctx)
+            torch.cuda.synchronize()
+            ms = (time.perf_counter() - t0) * 1e3
+            gnorm = torch.sqrt(sum((p.grad.float() ** 2).sum()
+                                   for p in tree_leaves(params)))
+            out[policy] = {
+                "launches_by_causal": {
+                    name: dict(fn.launches_by_causal)
+                    for name, fn in FLASH_WRAPPERS.items()},
+                "loss": float(loss), "local_grad_norm": float(gnorm),
+                "ms": ms}
+        del params, model, loss
+        free_cuda()
+        return out
+    finally:
+        mesh.destroy_parallel()
+
+
+def context_parallel_phase(kernels, data, one):
+    """`torchrun --nproc_per_node 2 ... finetune.main` at cp 2 with the
+    recipe's flags over gloo, both ranks on cuda:0, at Llama-2-7B widths
+    (FT_LAYERS of 32 layers, seq 4096: 2048 positions a rank, global
+    batch 4: 4 microbatches of 1): 3 steps and a save with the optimizer
+    state, then the same ranks resume it for step 4, run ring attention
+    at the recipe's CodeLlama-7B preset (seq 16384, 8192 a rank) against
+    the one-rank K4-K6 on the whole sequence, and count K4-K6 launches
+    by mask for one layer under each recompute policy; world size 1
+    resumes the checkpoint too. Held to `one` (finetune_modes' run (a):
+    world size 1, the same flags, weights and batches): losses within
+    2e-2, grad norms within 5e-2; step 4 at cp 2, at world size 1 and
+    uninterrupted within 2e-2; every leaf of the checkpoint, Adam
+    moments included, equal to what each rank held, bit for bit; the
+    16k ring's o within 5e-3 and its o, dq, dk, dv cosines >= 0.98; K4-K6
+    launches a rank by mask as the ring's hops and each recompute policy
+    imply (`cp_policy_launches`), the policies' losses equal."""
+    from types import SimpleNamespace
+
+    ck = FT_DIR / "cp_ck"
+    base = mode_argv(data, *RECIPE, "--bf16", "--train_iters", "4")
+    cp = base + CP_FLAGS
+    t0 = time.perf_counter()
+    ranks, log = run_ranks(
+        [cp + ["--exit_interval", "3", "--save_interval", "3", "--save",
+               str(ck)],
+         cp + ["--load", str(ck)],
+         {"ring_seq": CP_RING_SEQ}, {"policies": list(REMAT_POLICIES)}],
+        nproc=CP_RANKS)
+    ranks_s = time.perf_counter() - t0
+    first, resumed, ring, remat = ([r[i] for r in ranks] for i in range(4))
+    ref = one["stats"]
+    others = ("rmsnorm_fwd", "rmsnorm_bwd", "decode_attention",
+              "ragged_paged_attention")
+    for r, run in enumerate(first):
+        check(run["parallel"] == {"backend": "gloo", "staged": True,
+                                  "world": CP_RANKS, "dp": 1, "pp": 1,
+                                  "cp": CP_RANKS, "tp": 1, "rank": r,
+                                  "sequence_parallel": False},
+              f"rank {r}: layout {run.get('parallel')}")
+        check(run["stats"] == first[0]["stats"]
+              and resumed[r]["stats"] == resumed[0]["stats"],
+              f"rank {r} reports another loss or grad norm")
+        for name, runs, steps in (("steps 1-3", run, 3),
+                                  ("step 4", resumed[r], 1)):
+            want = cp_expected_launches(r, steps)
+            check(runs["by_causal"] == want
+                  and all(runs["launches"][k] == 0 for k in others),
+                  f"rank {r} {name}: launches {runs['by_causal']} "
+                  f"{runs['launches']} != {want}")
+        check(resumed[r]["resumed"] == [3, 12],
+              f"rank {r} resumed {resumed[r].get('resumed')}")
+        want = {name: {"causal": 1, "full": r} for name in FLASH_WRAPPERS}
+        check(ring[r]["launches_by_causal"] == want,
+              f"rank {r} 16k ring launches {ring[r]['launches_by_causal']}"
+              f" != {want}")
+        check(ring[r]["finite"] and ring[r]["o_max_abs_err"] <= CP_RING_O_TOL
+              and min(ring[r]["cosine"].values()) >= CP_RING_COS,
+              f"rank {r} 16k ring against one rank: {ring[r]}")
+        for policy, rec in remat[r].items():
+            want = cp_policy_launches(r, policy)
+            check(rec["launches_by_causal"] == want,
+                  f"rank {r} under {policy}: launches "
+                  f"{rec['launches_by_causal']} != {want}")
+        check(len({rec["loss"] for rec in remat[r].values()}) == 1
+              and remat[r]["none"]["loss"] == remat[0]["none"]["loss"],
+              f"the policies' losses differ: {remat}")
+    loss_err = [abs(x["loss"] - y["loss"]) for x, y in
+                zip(first[0]["stats"], ref)]
+    gnorm_err = [abs(x["grad_norm"] - y["grad_norm"]) / y["grad_norm"]
+                 for x, y in zip(first[0]["stats"], ref)]
+    check(len(loss_err) == 3 and max(loss_err) <= BF16_TOL
+          and max(gnorm_err) <= PATH_LP_TOL,
+          f"cp 2 against world size 1: loss err {loss_err}, grad norm rel "
+          f"err {gnorm_err}")
+    ctxs = [SimpleNamespace(tp=1, dp=1, pp=1, cp=CP_RANKS, tp_rank=0,
+                            dp_rank=0, pp_rank=0, cp_rank=r)
+            for r in range(CP_RANKS)]
+    leaves, iteration = check_parallel_checkpoint(
+        ck, [run["fingerprints"] for run in first], ctxs, zero1=False)
+    check(iteration == 3 and any(k.startswith("m.") for k in
+                                 first[0]["fingerprints"]),
+          f"the save is at iteration {iteration}, with the moments")
+    t0 = time.perf_counter()
+    ws1 = finetune_run(base + ["--load", str(ck)])
+    ws1_s = time.perf_counter() - t0
+    step4 = {"cp2_resumed": resumed[0]["stats"][0]["loss"],
+             "world1_resumed": ws1["stats"][0]["loss"],
+             "world1_uninterrupted": ref[3]["loss"]}
+    check(ws1["resumed"] == (3, 12)
+          and abs(step4["cp2_resumed"] - step4["world1_resumed"])
+          <= BF16_TOL
+          and abs(step4["world1_resumed"] - step4["world1_uninterrupted"])
+          <= BF16_TOL, f"step 4 after the resume: {step4}")
+    ckpt_bytes = dir_bytes(os.path.join(ck, "iter_0000003"))
+    shutil.rmtree(ck)
+    ms = [st["ms"] for st in first[0]["steps"]]
+    peak = [run["peak_gb"] for run in first]
+    say("context_parallel", card=nvidia_smi(),
+        launcher=f"torchrun --nproc_per_node {CP_RANKS} chip_smoke.py "
+        f"--finetune-rank (finetune.main, then the 16k ring, in each rank)",
+        flags=" ".join(CP_FLAGS), layout=f"cp {CP_RANKS} ({FT_SEQ} "
+        f"positions, {FT_SEQ // CP_RANKS} a rank), every rank on cuda:0",
+        backend="gloo",
+        collectives_staged_through_host=first[0]["parallel"]["staged"],
+        layers=FT_LAYERS, seq=FT_SEQ, global_batch=FT_MICRO,
+        losses=[x["loss"] for x in first[0]["stats"]],
+        losses_world1=[y["loss"] for y in ref[:3]],
+        grad_norms=[x["grad_norm"] for x in first[0]["stats"]],
+        grad_norms_world1=[y["grad_norm"] for y in ref[:3]],
+        loss_abs_err=loss_err, grad_norm_rel_err=gnorm_err,
+        tol={"loss": BF16_TOL, "grad_norm_rel": PATH_LP_TOL,
+             "step4": BF16_TOL, "ring_o": CP_RING_O_TOL,
+             "ring_grad_cosine": CP_RING_COS},
+        step_ms=ms, step_ms_label="gloo through the host, one card shared "
+        "by 2 ranks (not comparable with a one-rank step)",
+        step_ms_world1=[st["ms"] for st in one["steps"]],
+        peak_gb_per_rank=peak,
+        launches_by_causal_per_rank=[run["by_causal"] for run in first],
+        expected_by_causal_per_rank=[cp_expected_launches(r, 3)
+                                     for r in range(CP_RANKS)],
+        checkpoint_leaves_checked=leaves, checkpoint_bytes=ckpt_bytes,
+        saves_blocked_ms=first[0]["saves"], commits_s=first[0]["commits"],
+        load_s_per_rank=[run["loads"] for run in resumed],
+        load_s_world1=ws1["loads"], step4_losses=step4,
+        ring_16k=ring, ring_16k_shape=f"b1 s{CP_RING_SEQ} g32 qpk1 d128 "
+        f"causal bf16 (CodeLlama-7B), {CP_RING_SEQ // CP_RANKS} a rank",
+        remat_policies_per_rank=remat,
+        remat_policies_expected=[{p: cp_policy_launches(r, p)
+                                  for p in REMAT_POLICIES}
+                                 for r in range(CP_RANKS)],
+        ranks_wall_s=ranks_s, world1_resume_wall_s=ws1_s,
+        rank0_run_wall_s=[first[0]["wall_s"], resumed[0]["wall_s"]],
+        rank0_clock_s=[first[0]["clock_s"], resumed[0]["clock_s"]],
+        rank0_log_tail=log[-1500:])
+    for row in kernels:
+        name = row["name"]
+        if name not in FLASH_WRAPPERS:
+            continue
+        per = [run["launches"][name] + res["launches"][name]
+               for run, res in zip(first, resumed)]
+        paths = row["launches_by_path"]
+        paths["context_parallel"] = sum(per)
+        paths["context_parallel_16k_ring"] = sum(
+            sum(rg["launches_by_causal"][name].values()) for rg in ring)
+        paths["context_parallel_world1"] = ws1["launches"][name]
+        paths["context_parallel_policies"] = sum(
+            sum(rec["launches_by_causal"][name].values())
+            for rr in remat for rec in rr.values())
+        row.setdefault("launches_per_rank", {})["context_parallel"] = per
+        # the non-causal launches: the ring's visible blocks
+        row["full_launches_by_path"] = {
+            "context_parallel": sum(run["by_causal"][name]["full"]
+                                    + res["by_causal"][name]["full"]
+                                    for run, res in zip(first, resumed)),
+            "context_parallel_16k_ring": sum(
+                rg["launches_by_causal"][name]["full"] for rg in ring),
+            "context_parallel_policies": sum(
+                rec["launches_by_causal"][name]["full"]
+                for rr in remat for rec in rr.values())}
+        row["launches"] = sum(paths.values())
+
+
+def time_flash_cp_hops(kernels):
+    """K4, K5 and K6 at ring attention's hop shapes: a cp 2 rank's shard
+    against a K/V block of the same size at Llama-2-7B's and CodeLlama-
+    7B's heads (b 1, g 32, qpk 1, d 128, bf16), s = t = 2048 (seq 4096,
+    the context_parallel phase) and 8192 (the preset's 16384), causal
+    (the diagonal hop) and full (a visible block); errors of o, lse, dq,
+    dk and dv against the plain versions at each, run 4 KV groups at a
+    time (`flash_errors_by_group`); bounds (a full hop has s t pairs, a
+    causal one s (s + 1) / 2), SDPA at the same shape and mask. The
+    plain versions are timed at 2048 only (all 32 groups' fp32 (s, t)
+    tensors take ~35 GB at 8192)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 62)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    rows = []
+    for s in CP_HOP_SEQS:
+        for causal in (True, False):
+            shape = (1, s, s, 32, 1, 128, causal)
+            q, k, v, do = flash_inputs(shape, gen)
+            errs = flash_errors_by_group(q, k, v, do, causal)
+            check(errs["lse"] <= BF16_TOL and all(
+                errs[n + "_rel"] <= BF16_TOL for n in ("o", "dq", "dk", "dv")),
+                f"K4-K6 at the hop shape s {s} causal {causal}: {errs}")
+            free_cuda()
+            o, lse = fa._fwd(q, k, v, causal)
+            qf, kf, vf, dof = (fa._fold_q(q), fa._fold_kv(k),
+                               fa._fold_kv(v), fa._fold_q(do))
+            delta = fa._delta_rows(o, do).contiguous()
+            ms = {
+                "fwd": device_ms(lambda: fa.flash_fwd(qf, kf, vf, 1, causal),
+                                 per_graph=5, replays=4),
+                "dq": device_ms(lambda: fa.flash_bwd_dq(
+                    qf, kf, vf, dof, lse, delta, 1, causal),
+                    per_graph=5, replays=4),
+                "dkv": device_ms(lambda: fa.flash_bwd_dkv(
+                    qf, kf, vf, dof, lse, delta, 1, causal),
+                    per_graph=5, replays=4)}
+            plain = {"fwd": "not measured", "bwd": "not measured"}
+            if s <= FT_SEQ // CP_RANKS:
+                plain = {
+                    "fwd": device_ms(lambda: fa._xla_reference_with_lse(
+                        q, k, v, causal), per_graph=2, replays=3),
+                    "bwd": device_ms(lambda: fa._plain_bwd(
+                        q, k, v, o, lse, do, causal), per_graph=1,
+                        replays=3)}
+            qs = q.reshape(1, s, 32, 128).transpose(1, 2).detach() \
+                .requires_grad_(True)
+            ks = k.transpose(1, 2).detach().requires_grad_(True)
+            vs = v.transpose(1, 2).detach().requires_grad_(True)
+            dos = do.reshape(1, s, 32, 128).transpose(1, 2)
+            with torch.no_grad():
+                lib_fwd = device_ms(lambda: sdpa(qs, ks, vs,
+                                                 is_causal=causal),
+                                    per_graph=5, replays=4)
+            ys = sdpa(qs, ks, vs, is_causal=causal)
+            lib_bwd = profiled_ms(lambda: torch.autograd.grad(
+                ys, (qs, ks, vs), dos, retain_graph=True), iters=5)
+            bounds = flash_bounds(shape)
+            label = (f"b1 s{s} t{s} g32 qpk1 d128 "
+                     f"{'causal' if causal else 'full'} bf16")
+            rows.append({"shape": label, "ms": ms, "plain_ms": plain,
+                         "library_fwd_ms": lib_fwd,
+                         "library_bwd_ms": lib_bwd,
+                         "bound_ms": {n: bounds[n][0] for n in bounds},
+                         "bound_by": {n: bounds[n][1] for n in bounds},
+                         "max_abs_err": errs})
+            del q, k, v, do, o, lse, qf, kf, vf, dof, delta, qs, ks, vs, \
+                dos, ys
+            torch.cuda.empty_cache()
+    say("kernel_time_flash_cp_hops", card=nvidia_smi(), hops=rows)
+    for row in kernels:
+        which = {"flash_fwd": "fwd", "flash_bwd_dq": "dq",
+                 "flash_bwd_dkv": "dkv"}.get(row["name"])
+        if which is None:
+            continue
+        row["cp_hop_shapes"] = [{
+            "shape": h["shape"], "ms": h["ms"][which],
+            "plain_ms": h["plain_ms"]["fwd" if which == "fwd" else "bwd"],
+            "library_ms": h["library_fwd_ms"] if which == "fwd"
+            else h["library_bwd_ms"],
+            "bound_ms": h["bound_ms"][which],
+            "bound_by": h["bound_by"][which],
+            "max_abs_err": {n: h["max_abs_err"][n] for n in {
+                "fwd": ("o", "lse"), "dq": ("dq",),
+                "dkv": ("dk", "dv")}[which]}} for h in rows]
 
 
 def _leaves(tree):
@@ -5229,6 +5715,7 @@ def smoke(args) -> int:
     kernels += timed("kernel_checks_fp16", check_flash_fp16)
     timed("kernel_time_flash_tp2", time_flash_tp2, kernels)
     timed("kernel_time_decode_ring", time_decode_ring, kernels)
+    timed("kernel_time_flash_cp_hops", time_flash_cp_hops, kernels)
     torch.cuda.empty_cache()
     model = timed("model", build_model, args.init_std)
     whole_batch = timed("serving", serve_whole_batch, kernels, *model)
@@ -5270,6 +5757,7 @@ def smoke(args) -> int:
     one = timed("finetune_modes", finetune_modes, kernels, data)
     timed("finetune_parallel", finetune_parallel, kernels, data, one)
     timed("pipeline", pipeline_phase, kernels, data, one)
+    timed("context_parallel", context_parallel_phase, kernels, data, one)
     shutil.rmtree(FT_DIR)
     say("phase_seconds", card=smi, **seconds,
         total_s=round(time.perf_counter() - t_start, 1))

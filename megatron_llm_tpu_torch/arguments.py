@@ -9,14 +9,14 @@ the port's `ModelConfig` (torch dtypes), `ParallelConfig` and
 
 A flag that selects a part of the system the port does not run yet
 raises ValueError naming its slice of ROADMAP.md, never silently
-ignored: context parallelism and the overlap schedulers (the next A4
-PR), the telemetry flags (A3.8), and the BERT and T5
-families and post-LN layers (A6). GPT, Llama, CodeLlama and Falcon
-(with its parallel attention and parallel layernorm) build, with every
-single-card training mode (the recompute policies and block recompute,
-fp16 with its loss scaler, hidden, attention and LIMA dropout) and
-tensor, sequence, data and pipeline parallelism (with
-`--pipeline_remat`) with the ZeRO-1 optimizer under torchrun.
+ignored: the overlap schedulers (the next A4 PR), the telemetry flags
+(A3.8), and the BERT and T5 families and post-LN layers (A6). GPT,
+Llama, CodeLlama and Falcon (with its parallel attention and parallel
+layernorm) build, with every single-card training mode (the recompute
+policies and block recompute, fp16 with its loss scaler, hidden,
+attention and LIMA dropout) and tensor, sequence, data, pipeline (with
+`--pipeline_remat`) and context parallelism with the ZeRO-1 optimizer
+under torchrun.
 `--distributed_backend {nccl,gloo}` is the reference's flag, which the
 JAX package descopes (XLA has no backend choice): torch needs one, so
 the port takes it (ROADMAP.md C, accepted divergences).
@@ -224,8 +224,8 @@ LATER_FLAGS = {
         "perf_sentinel_ksigma", "perf_sentinel_window",
         "perf_sentinel_patience"), _A3_8),
     **dict.fromkeys((
-        "context_parallel_size", "overlap_grad_reduce",
-        "overlap_param_gather", "async_pipeline_dispatch"), _A4),
+        "overlap_grad_reduce", "overlap_param_gather",
+        "async_pipeline_dispatch"), _A4),
     "use_post_ln": _A6,
 }
 
@@ -461,8 +461,10 @@ def args_to_configs(args, padded_vocab_size: int,
     a multiple of make_vocab_size_divisible_by * tp, global batch,
     microbatch count per rank, max positions from seq_length).
     `--data_parallel_size` defaults to the ranks the layout leaves:
-    `world_size` (the process group's, 1 without one) over tp x pp; a
-    pp that does not divide `--num_layers` is refused here."""
+    `world_size` (the process group's, 1 without one) over tp x pp x cp
+    (JAX :630-666); a pp that does not divide `--num_layers` is refused
+    here, and so is cp > 1 for the families whose masks are padding
+    masks (BERT, T5)."""
     for flag, reason in DESCOPED_FLAGS.items():
         if getattr(args, "_descoped_" + flag.lstrip("-"), None) is not None:
             raise SystemExit(f"{flag}: unsupported - {reason}")
@@ -506,7 +508,20 @@ def args_to_configs(args, padded_vocab_size: int,
 
     tp = args.tensor_model_parallel_size
     pp = args.pipeline_model_parallel_size
+    cp = args.context_parallel_size or 1
     name = args.model_name
+    if cp > 1 and name in ("bert", "t5"):
+        # JAX :632-649
+        raise SystemExit(
+            f"--context_parallel_size {cp} with --model_name {name}: "
+            "BERT/T5-style padding masks are dense attention masks, "
+            "which context parallelism cannot shard (ring attention has "
+            "no dense-mask path, and a gathered fallback would silently "
+            "lose the memory scaling cp exists for). Use "
+            "--context_parallel_size 1 for this model family, or move "
+            "the parallelism to --tensor_model_parallel_size / "
+            "--pipeline_model_parallel_size / data parallel "
+            "(docs/GUIDE.md, 'Masks').")
     if name in ("llama", "llama2"):
         mcfg = llama_config(args.model_size,
                             version=1 if name == "llama" else 2,
@@ -538,13 +553,17 @@ def args_to_configs(args, padded_vocab_size: int,
         raise ValueError(f"--pipeline_model_parallel_size {pp} does not "
                          f"divide --num_layers {mcfg.num_layers}: each "
                          f"stage holds num_layers / pp layers")
+    if args.seq_length % cp:
+        raise ValueError(f"--context_parallel_size {cp} does not divide "
+                         f"--seq_length {args.seq_length}: each cp rank "
+                         f"holds seq_length / cp positions")
     dp = args.data_parallel_size
     if dp is None:
-        dp = max(1, world_size // (tp * pp))
+        dp = max(1, world_size // (tp * pp * cp))
     gbs = args.global_batch_size or args.micro_batch_size * dp
     pcfg = ParallelConfig(
         data_parallel_size=dp, pipeline_parallel_size=pp,
-        tensor_parallel_size=tp,
+        tensor_parallel_size=tp, context_parallel_size=cp,
         sequence_parallel=args.sequence_parallel,
         use_distributed_optimizer=args.use_distributed_optimizer,
         grad_rs_bucket_mb=args.grad_rs_bucket_mb,

@@ -322,13 +322,13 @@ def tiny_config(**overrides) -> ModelConfig:
 
 @dataclass(frozen=True)
 class ParallelConfig:
-    """Device layout (JAX: config.py ParallelConfig): data, tensor and
-    pipeline parallelism with sequence parallelism and the ZeRO-1
-    optimizer, with the JAX package's validations (:346-435). Context
-    parallelism and the overlap schedulers raise, naming their ROADMAP.md
-    A4 items. `num_microbatches` is each rank's gradient-accumulation
-    count, at pp > 1 the microbatches the GPipe schedule streams
-    through the stages (parallel/pipeline.py)."""
+    """Device layout (JAX: config.py ParallelConfig): data, tensor,
+    pipeline and context parallelism with sequence parallelism and the
+    ZeRO-1 optimizer, with the JAX package's validations (:346-451). The
+    overlap schedulers raise, naming their ROADMAP.md A4 item.
+    `num_microbatches` is each rank's gradient-accumulation count, at
+    pp > 1 the microbatches the GPipe schedule streams through the
+    stages (parallel/pipeline.py)."""
 
     data_parallel_size: int = 1
     pipeline_parallel_size: int = 1
@@ -360,21 +360,16 @@ class ParallelConfig:
             raise ValueError(
                 f"pipeline_remat={self.pipeline_remat!r}: expected one of "
                 f"{REMAT_POLICIES + ('tick', 'dots')}")
-        if self.context_parallel_size != 1:
-            raise ValueError(
-                f"context_parallel_size={self.context_parallel_size}: "
-                f"context parallelism is not ported yet (the next A4 PR "
-                f"(ROADMAP.md A4): context parallelism, item 2)")
         for name in ("overlap_grad_reduce", "overlap_param_gather",
                      "async_pipeline_dispatch"):
             if getattr(self, name):
                 raise ValueError(f"{name}: the overlap schedulers are not "
                                  f"ported yet (the next A4 PR (ROADMAP.md "
-                                 f"A4): the overlap schedulers, item 4)")
-        if min(self.data_parallel_size, self.tensor_parallel_size,
-               self.pipeline_parallel_size) < 1:
+                                 f"A4): the overlap schedulers, item 2)")
+        if min(self.mesh_shape) < 1:
             raise ValueError(f"dp={self.data_parallel_size} "
                              f"pp={self.pipeline_parallel_size} "
+                             f"cp={self.context_parallel_size} "
                              f"tp={self.tensor_parallel_size}")
         if self.grad_rs_bucket_mb <= 0:
             raise ValueError(
@@ -386,8 +381,8 @@ class ParallelConfig:
                     "quantized_grad_reduce requires "
                     "use_distributed_optimizer: the int8 reduction is the "
                     "wire format of the ZeRO-1 reduce-scatter")
-            if self.tensor_parallel_size > 1 \
-                    or self.pipeline_parallel_size > 1:
+            if max(self.tensor_parallel_size, self.pipeline_parallel_size,
+                   self.context_parallel_size) > 1:
                 raise ValueError(
                     "quantized_grad_reduce is only available on pure-dp "
                     "layouts (tp=pp=cp=1), as in the JAX package")
@@ -409,6 +404,12 @@ class ParallelConfig:
     def world_size(self) -> int:
         return (self.data_parallel_size * self.pipeline_parallel_size
                 * self.tensor_parallel_size * self.context_parallel_size)
+
+    @property
+    def mesh_shape(self) -> tuple:
+        """(dp, pp, cp, tp), parallel/mesh.py `build_mesh`'s order."""
+        return (self.data_parallel_size, self.pipeline_parallel_size,
+                self.context_parallel_size, self.tensor_parallel_size)
 
 
 @dataclass(frozen=True)

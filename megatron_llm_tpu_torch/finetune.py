@@ -11,17 +11,17 @@ The same flags as the JAX package's entry point (`arguments.py`). It
 runs on the first CUDA card; `main(argv, device="cpu")` runs on the CPU
 (the tests do). BERT and T5 raise, naming their slice.
 
-Under torchrun it trains with tensor, sequence, data and pipeline
-parallelism and the ZeRO-1 optimizer (the fine-tuning recipe's flags),
-one process per rank, each on `cuda:{LOCAL_RANK % device_count}`:
+Under torchrun it trains with tensor, sequence, data, pipeline and
+context parallelism and the ZeRO-1 optimizer (the fine-tuning recipe's
+flags), one process per rank, each on `cuda:{LOCAL_RANK % device_count}`:
 
     torchrun --nproc_per_node 8 -m megatron_llm_tpu_torch.finetune \
         --model_name llama2 --model_size 7 \
         --tensor_model_parallel_size 4 --sequence_parallel \
         --pipeline_model_parallel_size 2 --pipeline_remat tick \
-        --use_distributed_optimizer --bf16 ...
+        --context_parallel_size 2 --use_distributed_optimizer --bf16 ...
 
-`--data_parallel_size` defaults to the ranks over tp x pp. NCCL is the
+`--data_parallel_size` defaults to the ranks over tp x pp x cp. NCCL is the
 backend on CUDA; it cannot put two ranks on one card, which
 `--distributed_backend gloo` can (its collectives staged through host
 memory). A process group made before `main` (utils/virtual_mesh.py's
@@ -100,13 +100,13 @@ def _main(args, device):
     if dist.is_initialized() or pcfg.world_size > 1:
         ctx = initialize_parallel(
             dp=pcfg.data_parallel_size, pp=pcfg.pipeline_parallel_size,
-            tp=pcfg.tensor_parallel_size,
+            tp=pcfg.tensor_parallel_size, cp=pcfg.context_parallel_size,
             sequence_parallel=pcfg.sequence_parallel,
             backend=args.distributed_backend, device=device)
     if ctx is None or ctx.rank == 0:
         print(f"device: {device}; dp {pcfg.data_parallel_size} pp "
               f"{pcfg.pipeline_parallel_size} (pipeline_remat "
-              f"{pcfg.pipeline_remat}) tp "
+              f"{pcfg.pipeline_remat}) cp {pcfg.context_parallel_size} tp "
               f"{pcfg.tensor_parallel_size} sp {pcfg.sequence_parallel} "
               f"zero1 {pcfg.use_distributed_optimizer} backend "
               f"{ctx.backend if ctx else None} staged "

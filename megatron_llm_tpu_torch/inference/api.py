@@ -2,6 +2,13 @@
 route, and on a pipeline-parallel layout (pp > 1) the JAX package's pp
 branches and request contract (JAX :63-88, :231-314, :439-467).
 
+On a context-parallel layout (cp > 1) every rank calls the API with the
+same request as well. Scoring pads the sequence to a multiple of cp
+(JAX :271) and runs the ring, each cp rank its shard, the log-probs
+gathered over the cp group; generation runs the one-rank cached route on
+every cp rank, whose parameters are whole (at pp > 1 after the reshard
+below: the stage ring needs cp == 1, JAX :292).
+
 On a stage-sharded layout every rank of the layout calls the API with
 the same request (SPMD; the JAX package's one controller drives the
 mesh) and every rank returns the last stage's result, broadcast:
@@ -34,6 +41,7 @@ import numpy as np
 import torch
 
 from megatron_llm_tpu_torch.inference.generation import (
+    _gather_lp,
     beam_search,
     bucket_prefill_len,
     generate_tokens,
@@ -44,7 +52,7 @@ from megatron_llm_tpu_torch.inference.tokenization import (
     tokenize_prompts,
 )
 from megatron_llm_tpu_torch.optimizer.optimizer import tree_leaves
-from megatron_llm_tpu_torch.parallel.mesh import get_context
+from megatron_llm_tpu_torch.parallel.mesh import all_gather_rows, get_context
 from megatron_llm_tpu_torch.parallel.pipeline import (
     make_pipelined_decode_fn,
     make_pipelined_score_fn,
@@ -84,11 +92,37 @@ def _params_nbytes(params, ctx) -> int:
     return total
 
 
+def _pad_to_cp(tokens: np.ndarray, cp: int) -> np.ndarray:
+    """(b, s) padded at the end to a multiple of cp (JAX :271); causal
+    attention keeps the pads out of every real position."""
+    pad = (-tokens.shape[1]) % cp
+    return np.pad(tokens, ((0, 0), (0, pad))) if pad else tokens
+
+
+@torch.inference_mode()
+def _cp_score_tokens(model, ctx, params, tokens) -> np.ndarray:
+    """`score_tokens` through the ring: (b, s - 1) target log-probs."""
+    tokens = np.asarray(tokens)
+    s = tokens.shape[1]
+    x = _pad_to_cp(tokens[:, :-1], ctx.cp)
+    t = _pad_to_cp(tokens[:, 1:], ctx.cp)
+    n = x.shape[1] // ctx.cp
+    sl = slice(ctx.cp_rank * n, (ctx.cp_rank + 1) * n)
+    dev = model.device
+    pos = torch.arange(sl.start, sl.stop, device=dev)[None].expand(
+        x.shape[0], n)
+    logits, _ = model.forward(params, torch.as_tensor(x[:, sl], device=dev),
+                              position_ids=pos)
+    lp = _gather_lp(logits, torch.as_tensor(t[:, sl], device=dev).long())
+    lp = all_gather_rows(lp.T.contiguous(), ctx.cp_group, ctx).T
+    return lp.cpu().numpy()[:, :s - 1]
+
+
 def _pp_score(model, ctx, params, tokens, lengths, tokenizer):
     tokens = np.asarray(tokens)
     s = tokens.shape[1]
     lp = make_pipelined_score_fn(model, None, ctx)(
-        params, torch.as_tensor(tokens[None]))[0]
+        params, torch.as_tensor(_pad_to_cp(tokens, ctx.cp)[None]))[0]
     texts, segments = detokenize_generations(tokenizer, tokens, lengths,
                                              return_segments=True)
     return texts, segments, lp.cpu().numpy()[:, :s - 1], tokens
@@ -159,8 +193,8 @@ def generate_and_post_process(
         if tokens_to_generate == 0:
             return _pp_score(model, ctx, params, tokens, lengths, tokenizer)
         nbytes = _params_nbytes(params, ctx)
-        ring = (top_k_sampling == 1 and not prevent_newline_after_colon
-                and top_p_decay == 0.0)
+        ring = (ctx.cp == 1 and top_k_sampling == 1
+                and not prevent_newline_after_colon and top_p_decay == 0.0)
         if ring and nbytes > PP_DECODE_RESHARD_LIMIT_BYTES:
             return _pp_ring(
                 model, ctx, params, tokenizer, tokens, lengths,
@@ -181,7 +215,11 @@ def generate_and_post_process(
         params = reshard_params_for_inference(params, ctx, model.cfg)
 
     if tokens_to_generate == 0:
-        lp = score_tokens(model, params, tokens).cpu().numpy()
+        cctx = get_context()
+        if cctx is not None and cctx.cp > 1:
+            lp = _cp_score_tokens(model, cctx, params, tokens)
+        else:
+            lp = score_tokens(model, params, tokens).cpu().numpy()
         texts, segments = detokenize_generations(tokenizer, tokens, lengths,
                                                  return_segments=True)
         return texts, segments, lp, tokens

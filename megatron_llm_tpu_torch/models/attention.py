@@ -9,7 +9,11 @@ Three branches of the JAX `attention_block` are ported: the no-cache
 branch (training and scoring), which takes the flash kernels K4-K6
 (ops/flash_attention.py) under the JAX package's condition (no mask, no
 live attention dropout: JAX :472-475, :519) and the grouped einsum path,
-with attention dropout on its probabilities, otherwise; the per-layer
+with attention dropout on its probabilities, otherwise, and under
+context parallelism (cp > 1) always the ring (parallel/ring_attention.py:
+K4-K6 hop by hop, or the plain masked hop for packed documents), which
+refuses a dense mask and live attention dropout as the JAX package does
+(:476-512); the per-layer
 "k_gtd" KV-cache branch of the unrolled decode path, where a
 single-token step runs decode kernel K1 and a prefill chunk the plain
 masked softmax; the stacked-cache branch of the pipeline's serving ring
@@ -26,6 +30,9 @@ input (`tp_input`: a copy, or under sequence parallelism an all-gather
 of the sequence shards) and sums its output over the tp group
 (`tp_output`: an all-reduce, or a reduce-scatter into sequence shards)
 before the output bias. The cached branches (serving) run at tp = 1.
+
+The cached branches never take the ring: generation at cp > 1 runs the
+one-rank route on every cp rank, whose parameters are whole.
 
 The save points of models/remat.py are the JAX package's: the fused
 QKV projection "qkv_proj", the attention context "attn_ctx" (the
@@ -54,6 +61,9 @@ from megatron_llm_tpu_torch.ops.prefill_attention import (
 from megatron_llm_tpu_torch.ops.quantization import qdot
 from megatron_llm_tpu_torch.parallel.mappings import tp_input, tp_output
 from megatron_llm_tpu_torch.parallel.mesh import A4_TP_SERVING, get_context
+from megatron_llm_tpu_torch.parallel.ring_attention import (
+    ring_self_attention,
+)
 
 
 def split_qkv(mixed: torch.Tensor, cfg):
@@ -221,14 +231,36 @@ def attention_block(attn_params: dict, cfg, hidden: torch.Tensor,
         doc_start = None
         if isinstance(mask, dict):
             doc_start = mask["doc_start"]
-            rows = torch.arange(s, device=hidden.device)[None, :, None]
-            cols = torch.arange(s, device=hidden.device)[None, None, :]
-            mask = ((cols > rows) | (cols < doc_start[:, :, None]))[:, None]
+            mask = None
         # the flash kernels have no dropout: live attention dropout takes
         # the grouped path (JAX :472-475, :519)
         no_dropout = dropout_seed is None or cfg.attention_dropout == 0.0
-        if cfg.use_flash_attn and mask is None and doc_start is None \
-                and no_dropout:
+        pctx = get_context()
+        ring = pctx is not None and pctx.cp > 1
+        if ring and mask is not None:
+            raise ValueError(
+                "cp>1 with a dense attention mask: pass packed-document "
+                "masks as {'doc_start': (b, s)} (utils/masks.py "
+                "get_document_starts) to keep the sequence sharded, or "
+                "disable context parallelism for this model. "
+                "BERT/T5-style PADDING masks have no doc_start "
+                "equivalent — those model families must run with cp=1 "
+                "(rejected at config construction on the CLI path; "
+                "docs/GUIDE.md 'Masks')")
+        if ring and not no_dropout:
+            raise ValueError(
+                "cp>1 attention requires attention_dropout == 0 (ring "
+                "attention has no dropout path)")
+        if doc_start is not None and not ring:
+            rows = torch.arange(s, device=hidden.device)[None, :, None]
+            cols = torch.arange(s, device=hidden.device)[None, None, :]
+            mask = ((cols > rows) | (cols < doc_start[:, :, None]))[:, None]
+        if ring:
+            # RoPE above rotated q and k by their global positions
+            ctx = ring_self_attention(q, k, v, causal=True,
+                                      doc_start=doc_start,
+                                      ctx=pctx).reshape(b, s, -1)
+        elif cfg.use_flash_attn and mask is None and no_dropout:
             ctx = flash_attention(q, k, v, causal=True).reshape(b, s, -1)
         else:
             if mask is None:

@@ -19,6 +19,7 @@ from megatron_llm_tpu_torch.models.language_model import (
     language_model_forward,
 )
 from megatron_llm_tpu_torch.models.transformer import layer_slice
+from megatron_llm_tpu_torch.parallel.mesh import get_context
 from megatron_llm_tpu_torch.ops.quantization import (
     is_quantized_weight,
     quantize_decode_layers,
@@ -67,7 +68,16 @@ class GPTModel(nn.Module):
         """Mean masked CE, a 0-d fp32 tensor (JAX :52-76): the head and CE
         run chunked over the sequence so the full (b, s, V) logits never
         materialise. `dropout_rng` is the dropout stream (an integer
-        seed, models/dropout.py), read unless `deterministic`."""
+        seed, models/dropout.py), read unless `deterministic`. Under
+        context parallelism a rank holds one sequence shard, whose mean
+        is not the loss: use `loss_terms` and sum them over the cp group
+        (parallel/mesh.sum_over_tokens), as the train step does."""
+        ctx = get_context()
+        if ctx is not None and ctx.cp > 1:
+            raise ValueError(
+                "GPTModel.loss at context_parallel_size > 1 would be this "
+                "rank's shard's mean: sum loss_terms over the cp group "
+                "(parallel.mesh.sum_over_tokens)")
         hidden, _ = language_model_forward(
             params, self.cfg, tokens, position_ids, attention_mask,
             dropout_rng=dropout_rng, deterministic=deterministic,
@@ -84,10 +94,10 @@ class GPTModel(nn.Module):
                    position_ids: Optional[torch.Tensor] = None,
                    attention_mask: Optional[torch.Tensor] = None,
                    dropout_rng=None, deterministic: bool = True):
-        """`loss` as (numerator, denominator), both sums over rows (JAX
-        :78-124), so that a data-parallel rank holding some rows of the
-        batch rebuilds the global loss as sum(num) / max(sum(den), 1)
-        over the ranks."""
+        """`loss` as (numerator, denominator), both sums over this rank's
+        tokens (JAX :78-124), so that a data- or context-parallel rank
+        holding some of the batch's tokens rebuilds the global loss as
+        sum(num) / max(sum(den), 1) over the ranks."""
         hidden, _ = language_model_forward(
             params, self.cfg, tokens, position_ids, attention_mask,
             dropout_rng=dropout_rng, deterministic=deterministic,

@@ -102,13 +102,17 @@ def chunked_head_cross_entropy(params: dict, cfg, hidden: torch.Tensor,
     most `chunk_size` take the direct path; a chunk size that does not
     divide s halves toward the largest divisor >= 256 (JAX :126-131).
     Under tensor parallelism `hidden` is gathered first (`tp_input`) and
-    each chunk's logits are this rank's vocabulary shard."""
+    each chunk's logits are this rank's vocabulary shard. Under context
+    parallelism the direct path runs on the rank's sequence shard (JAX
+    :126-134: its logits are already divided by cp)."""
     hidden = tp_input(hidden)
     b, s, h = hidden.shape
     if s > chunk_size:
         while chunk_size >= 256 and s % chunk_size != 0:
             chunk_size //= 2
-    if s % chunk_size != 0 or s <= chunk_size:
+    ctx = get_context()
+    if (ctx is not None and ctx.cp > 1) or s % chunk_size != 0 \
+            or s <= chunk_size:
         return vocab_parallel_cross_entropy(lm_logits(params, cfg, hidden),
                                             labels)
 
@@ -147,10 +151,18 @@ def language_model_forward(params: dict, cfg, tokens: torch.Tensor,
                            ) -> Tuple[torch.Tensor, Optional[dict]]:
     """Full forward to logits; returns (logits, new_kv_caches).
     `dropout_rng` is a dropout stream (models/dropout.py), read unless
-    `deterministic`. `return_hidden` stops after the final norm and
+    `deterministic`. Under context parallelism `tokens` is the rank's
+    sequence shard and `position_ids` its global positions, which the
+    caller passes. `return_hidden` stops after the final norm and
     returns the (b, s, h) hidden states instead (the training loss
     projects to the vocabulary chunk by chunk, see
     chunked_head_cross_entropy)."""
+    ctx = get_context()
+    if position_ids is None and kv_caches is None and ctx is not None \
+            and ctx.cp > 1:
+        raise ValueError(
+            "at context_parallel_size > 1 the tokens are one sequence "
+            "shard: pass its global position_ids")
     rope_table = None
     if cfg.position_embedding_type == "rotary":
         rope_table = precompute_rope(cfg.head_dim,

@@ -111,14 +111,25 @@ def _plain_bwd(q, k, v, o, lse_rows, do, causal: bool, dlse_rows=None):
     """Plain FlashAttention-2 backward, unblocked: p recomputed from the
     saved lse, ds = p * (dp - delta), with the kernels' cast points (ds to
     k's dtype for dq, p to dO's dtype for dv, ds to q's dtype for dk)."""
+    return _plain_bwd_rows(q, k, v, lse_rows, _delta_rows(o, do, dlse_rows),
+                           do, causal)
+
+
+def _plain_bwd_rows(q, k, v, lse_rows, delta_rows, do, causal: bool,
+                    mask=None):
+    """`_plain_bwd` given the lse and delta rows ((b*g, s*qpk, 1) fp32),
+    which need not be this (q, k, v)'s own: ring attention passes every
+    hop the merged rows (parallel/ring_attention.py). `mask` (b, s, t),
+    True = masked, is a packed-document hop's block mask."""
     b, s, g, qpk, d = q.shape
     scale = 1.0 / math.sqrt(d)
     sc = _scores(q, k, causal, NEG_INF)
+    if mask is not None:
+        sc = sc.masked_fill(mask[:, None, None], NEG_INF)
     lse = lse_rows.reshape(b, g, s, qpk).permute(0, 1, 3, 2)  # (b,g,qpk,s)
     p = torch.exp(sc - lse[..., None])
     dp = torch.einsum("bsgqd,btgd->bgqst", do.float(), v.float())
-    delta = _delta_rows(o, do, dlse_rows).reshape(b, g, s, qpk) \
-        .permute(0, 1, 3, 2)
+    delta = delta_rows.reshape(b, g, s, qpk).permute(0, 1, 3, 2)
     ds = p * (dp - delta[..., None])
     dq = torch.einsum("bgqst,btgd->bsgqd", ds.to(k.dtype).float(),
                       k.float()) * scale
@@ -239,7 +250,7 @@ def flash_fwd(qf, kf, vf, qpk: int, causal: bool):
             lse.data_ptr(), bg, R, kf.shape[1], d, qpk, int(causal),
             _DTYPES[qf.dtype], 1.0 / math.sqrt(d), _stream(qf))
     _raise_on(err, "forward")
-    _count(flash_fwd, qf.dtype)
+    _count(flash_fwd, qf.dtype, causal)
     return of, lse
 
 
@@ -264,7 +275,7 @@ def flash_bwd_dq(qf, kf, vf, dof, lse, delta, qpk: int, causal: bool):
             kf.shape[1], d, qpk, int(causal), _DTYPES[qf.dtype],
             1.0 / math.sqrt(d), _stream(qf))
     _raise_on(err, "dq")
-    _count(flash_bwd_dq, qf.dtype)
+    _count(flash_bwd_dq, qf.dtype, causal)
     return dq
 
 
@@ -282,23 +293,31 @@ def flash_bwd_dkv(qf, kf, vf, dof, lse, delta, qpk: int, causal: bool):
             bg, R, kf.shape[1], d, qpk, int(causal), _DTYPES[qf.dtype],
             1.0 / math.sqrt(d), _stream(qf))
     _raise_on(err, "dk/dv")
-    _count(flash_bwd_dkv, qf.dtype)
+    _count(flash_bwd_dkv, qf.dtype, causal)
     return dk, dv
 
 
-def _count(wrapper, dtype):
-    """One launch of `wrapper`'s kernel, in all and for its element type
-    (`launches_by_dtype`: the bf16 and fp16 instantiations)."""
+def _count(wrapper, dtype, causal: bool):
+    """One launch of `wrapper`'s kernel, in all, for its element type
+    (`launches_by_dtype`: the bf16 and fp16 instantiations) and for its
+    mask (`launches_by_causal`: "causal", or "full" for the visible
+    blocks of ring attention)."""
     wrapper.launches += 1
     name = str(dtype).replace("torch.", "")
     wrapper.launches_by_dtype[name] = wrapper.launches_by_dtype.get(name,
                                                                     0) + 1
+    wrapper.launches_by_causal["causal" if causal else "full"] += 1
 
 
-for _w in (flash_fwd, flash_bwd_dq, flash_bwd_dkv):
-    _w.launches = 0
-    _w.launches_by_dtype = {"bfloat16": 0, "float16": 0}
-del _w
+def reset_counts() -> None:
+    """Every count of K4, K5 and K6 back to 0."""
+    for w in (flash_fwd, flash_bwd_dq, flash_bwd_dkv):
+        w.launches = 0
+        w.launches_by_dtype = {"bfloat16": 0, "float16": 0}
+        w.launches_by_causal = {"causal": 0, "full": 0}
+
+
+reset_counts()
 
 
 def _fwd(q, k, v, causal):
@@ -343,12 +362,20 @@ def _bwd(q, k, v, o, lse, do, causal, dlse_rows=None):
     """(dq, dk, dv): K5 and K6 on CUDA tensors, `_plain_bwd` on CPU ones."""
     if q.device.type == "cpu":
         return _plain_bwd(q, k, v, o, lse, do, causal, dlse_rows)
+    return _bwd_rows(q, k, v, lse, _delta_rows(o, do, dlse_rows), do,
+                     causal)
+
+
+def _bwd_rows(q, k, v, lse, delta, do, causal):
+    """K5 and K6 given the lse and delta rows ((b*g, s*qpk, 1) fp32), which
+    ring attention passes merged over its hops: (dq, dk, dv). CUDA
+    tensors only."""
     _check(q, k, v)
     b, s, g, qpk, _ = q.shape
     # the layout copies (timed by chip_smoke.py): q, k, v and dO folded,
     # delta in fp32 rows; lse and delta padded once for both kernels
     bg, R = b * g, s * qpk
-    delta = _rows4(_delta_rows(o, do, dlse_rows).contiguous(), bg, R)
+    delta = _rows4(delta.contiguous(), bg, R)
     lse = _rows4(lse.contiguous(), bg, R)
     do = do.to(q.dtype)
     qf, kf, vf, dof = _fold_q(q), _fold_kv(k), _fold_kv(v), _fold_q(do)

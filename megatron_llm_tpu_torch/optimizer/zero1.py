@@ -23,8 +23,12 @@ an all-reduce, whose sums are the reduce-scatter's element for element,
 so ZeRO-1 and the replicated AdamW update from the same gradients. At
 pp > 1 each stage's moments are sharded over that stage's dp group,
 ZeRO-1's axis chosen past the stage's layer axis (the JAX package's
-GSPMD form, its `optimizer_state_specs` with the stage specs). The
-reduction runs once a step, after the microbatches' gradients have
+GSPMD form, its `optimizer_state_specs` with the stage specs). At
+cp > 1 the moments stay sharded over dp only: the cp ranks of a
+coordinate hold the same blocks and apply the same update to gradients
+already summed over the cp group (JAX zero1.py:457, sharding.py:175),
+and `sum_over_layout` counts each leaf once. The reduction runs once a
+step, after the microbatches' gradients have
 accumulated (the reference's DDP; the JAX package reduces every
 microbatch inside its scan). `OverlapPlan` and the overlap schedulers
 wait for the next A4 PR.

@@ -1,5 +1,5 @@
-"""Process groups for tensor, sequence, data and pipeline parallelism
-(port of parallel/mesh.py).
+"""Process groups for tensor, sequence, data, pipeline and context
+parallelism (port of parallel/mesh.py).
 
 The JAX package builds one device mesh with named axes (data, stage,
 context, model) and lets GSPMD insert the collectives. The port runs one
@@ -15,11 +15,16 @@ rank order, a (dp, pp, cp, tp) grid with tp fastest (JAX :164-188):
 - a pp group per (dp, cp, tp) coordinate: the stages of one pipeline,
   for the stage-replicated leaves' gradient sum, the last stage's loss
   and the serving ring's broadcasts (parallel/pipeline.py);
+- a cp group per (dp, pp, tp) coordinate: the ranks that hold one
+  sequence in contiguous shards, for ring attention's K/V rotation
+  (parallel/ring_attention.py), the loss's sums and the gradient sum;
 - the whole world, for the gradient norm and the fp16 overflow flag.
 
 The pipeline's boundaries travel point to point (`send_boundary`,
 `recv_boundary`) between the same (dp, cp, tp) coordinate of adjacent
-stages, in the compute dtype.
+stages, in the compute dtype. The ring's blocks travel point to point
+too (`ring_shift`): every cp rank sends to the next and receives from
+the previous in one batch, so the ring cannot deadlock.
 
 `initialize_parallel(..., backend=None)` takes NCCL for CUDA and gloo
 for the CPU. Gloo moves CUDA tensors through host memory: with gloo and
@@ -27,8 +32,11 @@ a CUDA device the context is `staged`, and every collective of the port
 copies its operands to the host, runs there and copies back. That path
 is chosen here, once, from the backend and the device; nothing falls
 back to it on an error; under it each point-to-point direction keeps
-one pinned host buffer per peer and shape. Context parallelism (cp > 1)
-raises, naming its ROADMAP item.
+one pinned host buffer per peer and shape.
+
+`destroy_parallel` releases the context's groups while the interpreter
+runs: a gloo group left for the interpreter's exit to destroy can abort
+the process there ("terminate called without an active exception").
 """
 
 from __future__ import annotations
@@ -51,9 +59,8 @@ STAGE_AXIS = "stage"
 
 NEXT_A4 = "the next A4 PR (ROADMAP.md A4)"
 # the items of the next A4 PR, by their ROADMAP.md numbers
-A4_CP = f"{NEXT_A4}: context parallelism, item 2"
-A4_TP_SERVING = f"{NEXT_A4}: tensor-parallel serving, item 3"
-A4_DROPOUT = f"{NEXT_A4}: dropout across ranks, item 5"
+A4_TP_SERVING = f"{NEXT_A4}: tensor-parallel serving, item 1"
+A4_DROPOUT = f"{NEXT_A4}: dropout across ranks, item 3"
 BACKENDS = ("nccl", "gloo")
 # a hung collective fails after this long instead of hanging the run
 TIMEOUT = datetime.timedelta(minutes=10)
@@ -152,10 +159,13 @@ class ParallelContext:
     tp_group: object = None
     dp_group: object = None
     pp_group: object = None
+    cp_group: object = None
     world_group: object = None
     groups: list = field(default_factory=list)
     # global ranks of this rank's pipeline, stage order
     pp_ranks: tuple = (0,)
+    # global ranks of this rank's sequence shards, cp order
+    cp_ranks: tuple = (0,)
     # point-to-point state: pinned host buffers and sends in flight
     p2p: dict = field(default_factory=dict)
 
@@ -174,6 +184,10 @@ class ParallelContext:
     @property
     def pp_rank(self) -> int:
         return self.coords[1]
+
+    @property
+    def cp_rank(self) -> int:
+        return self.coords[2]
 
     @property
     def tp_rank(self) -> int:
@@ -203,11 +217,8 @@ def initialize_parallel(dp: int = 1, pp: int = 1, tp: int = 1,
     torchrun, or `utils/virtual_mesh.spawn_cpu_group`) unless the layout
     is one rank. Every rank calls this with the same arguments."""
     global _CONTEXT
-    if cp > 1:
-        raise ValueError(f"context parallelism (cp={cp}) is not ported "
-                         f"yet ({A4_CP})")
-    if min(dp, tp, pp) < 1:
-        raise ValueError(f"dp={dp} pp={pp} tp={tp}")
+    if min(dp, tp, pp, cp) < 1:
+        raise ValueError(f"dp={dp} pp={pp} cp={cp} tp={tp}")
     n = dp * pp * cp * tp
     device = rank_device(device)
     if n == 1 and not dist.is_initialized():
@@ -255,6 +266,14 @@ def initialize_parallel(dp: int = 1, pp: int = 1, tp: int = 1,
                 ctx.groups.append(g)
                 if (d, c, t) == (d0, c0, t0):
                     ctx.pp_group, ctx.pp_ranks = g, tuple(ranks)
+    for d in range(dp):
+        for p in range(pp):
+            for t in range(tp):
+                ranks = [mesh[d][p][c][t] for c in range(cp)]
+                g = dist.new_group(ranks, timeout=TIMEOUT)
+                ctx.groups.append(g)
+                if (d, p, t) == (d0, p0, t0):
+                    ctx.cp_group, ctx.cp_ranks = g, tuple(ranks)
     _CONTEXT = ctx
     return ctx
 
@@ -268,11 +287,16 @@ def destroy_parallel() -> None:
     group stays with whoever made it."""
     global _CONTEXT
     ctx, _CONTEXT = _CONTEXT, None
-    if ctx is not None:
-        p2p_wait(ctx)
-    if ctx is not None and dist.is_initialized():
+    if ctx is None:
+        return
+    p2p_wait(ctx)
+    if dist.is_initialized():
         for g in ctx.groups:
             dist.destroy_process_group(g)
+    # the groups are freed now, not when the interpreter exits
+    ctx.groups.clear()
+    ctx.tp_group = ctx.dp_group = ctx.pp_group = ctx.cp_group = None
+    ctx.world_group = None
 
 
 @contextlib.contextmanager
@@ -383,6 +407,18 @@ def all_to_all_rows(x: torch.Tensor, group,
     return out.to(x.device)
 
 
+def sum_over_tokens(x: torch.Tensor,
+                    ctx: Optional[ParallelContext] = None) -> torch.Tensor:
+    """`x` summed, in place, over the ranks that hold other tokens of the
+    same model slice: the dp group (other rows) and the cp group (other
+    positions). A loss's numerators and denominators."""
+    ctx = ctx or get_context()
+    if ctx is None:
+        return x
+    all_reduce(x, ctx.dp_group, ctx=ctx)
+    return all_reduce(x, ctx.cp_group, ctx=ctx)
+
+
 def barrier(ctx: Optional[ParallelContext] = None) -> None:
     ctx = ctx or get_context()
     if ctx is None or ctx.world_size == 1:
@@ -464,3 +500,40 @@ def p2p_wait(ctx: Optional[ParallelContext] = None) -> None:
     pending = ctx.p2p.pop("pending", {})
     for work, _ in pending.values():
         work.wait()
+
+
+# ---------------------------------------------------------------------------
+# the cp ring, for ring attention
+# ---------------------------------------------------------------------------
+
+def ring_shift(xs: list, ctx: Optional[ParallelContext] = None) -> list:
+    """Each tensor of `xs` sent to the next rank of the cp group, and the
+    previous rank's tensors of the same shapes and dtypes received (new
+    tensors on the context's device), in one batch of point-to-point
+    operations that every rank of the cp group issues together, so the
+    ring cannot deadlock. Staged: through one pinned host buffer per
+    direction, position and shape."""
+    ctx = ctx or get_context()
+    if ctx.cp == 1:
+        return list(xs)
+    c = ctx.cp_rank
+    nxt = ctx.cp_ranks[(c + 1) % ctx.cp]
+    prev = ctx.cp_ranks[(c - 1) % ctx.cp]
+    ops, recvs = [], []
+    for i, x in enumerate(xs):
+        x = x.detach().contiguous()
+        if ctx.staged:
+            send = _p2p_buffer(ctx, ("ring_send", nxt, i), x.shape, x.dtype)
+            send.copy_(x)
+            recv = _p2p_buffer(ctx, ("ring_recv", prev, i), x.shape,
+                               x.dtype)
+        else:
+            send, recv = x, torch.empty_like(x)
+        ops += [dist.P2POp(dist.isend, send, nxt, ctx.cp_group),
+                dist.P2POp(dist.irecv, recv, prev, ctx.cp_group)]
+        recvs.append(recv)
+    for work in dist.batch_isend_irecv(ops):
+        work.wait()
+    if ctx.staged:
+        return [r.to(ctx.device) for r in recvs]
+    return recvs

@@ -35,20 +35,29 @@ inside it); "none" keeps every tick's autograd graph. All give the same
 gradients. As in the JAX package the schedule is GPipe: no 1F1B and no
 interleaving (its `config.py:276-280`).
 
+Under context parallelism (cp > 1) every stage holds its cp rank's
+sequence shard: the boundaries are (b, s / cp, h) between the same
+(dp, cp, tp) coordinate of adjacent stages, and in the stage body the
+ring (parallel/ring_attention.py) runs over the stage's cp group (JAX
+:185-196, :300-330).
+
 The loss is the reference's: the mean over microbatches of each
-microbatch's masked mean (JAX :158-161), each microbatch's denominator
-summed over the dp group first. It is the last stage's, broadcast to
-every stage. The stage-replicated leaves' gradients are summed over the
-pp group by the train step (training/train_step.py), the transpose of
-the JAX shard_map's replicated inputs and the reference's embedding-group
-all-reduce.
+microbatch's masked mean (JAX :158-161), each microbatch's numerator
+and denominator summed over the dp and cp groups first. It is the last
+stage's, broadcast to every stage. The stage-replicated leaves'
+gradients are summed over the pp group by the train step
+(training/train_step.py), the transpose of the JAX shard_map's
+replicated inputs and the reference's embedding-group all-reduce.
 
 Serving (JAX :436-631): `make_pipelined_score_fn` streams microbatches
 through the same forward ticks and the last stage banks each one's
-target log-probs; `make_pipelined_decode_fn` is the round-robin stage
-ring, each stage holding only its layers' stacked "tgd" KV cache, whose
-single-token ticks launch decode kernel K1 on each layer's cache slice in
-place (models/attention.py). `reshard_params_for_inference` gathers the
+target log-probs (under cp each rank its shard's, the targets shifted
+on the whole sequence so that a shard's last target is the next
+shard's first token, JAX :494-506, then gathered over the cp group);
+`make_pipelined_decode_fn` is the round-robin stage ring, each stage
+holding only its layers' stacked "tgd" KV cache, whose single-token
+ticks launch decode kernel K1 on each layer's cache slice in place
+(models/attention.py). `reshard_params_for_inference` gathers the
 layers over the pp group for the whole-batch routes. Every rank calls
 these with the same arguments and gets the last stage's result.
 """
@@ -78,12 +87,13 @@ from megatron_llm_tpu_torch.parallel.mappings import tp_input
 from megatron_llm_tpu_torch.parallel.mesh import (
     A4_DROPOUT,
     A4_TP_SERVING,
-    all_reduce,
+    all_gather_rows,
     broadcast,
     get_context,
     p2p_wait,
     recv_boundary,
     send_boundary,
+    sum_over_tokens,
 )
 from megatron_llm_tpu_torch.parallel.sharding import (
     gather_params,
@@ -125,8 +135,8 @@ class _Stage:
                                device)
 
     def boundary_shape(self, b: int, s: int) -> tuple:
-        """(b, s, h), the sequence this rank's shard under sequence
-        parallelism."""
+        """(b, s, h) of the rank's s positions (its cp shard), their
+        tp shard under sequence parallelism."""
         ctx = self.ctx
         if ctx.sequence_parallel:
             s //= ctx.tp
@@ -137,6 +147,11 @@ class _Stage:
 
     def send(self, x):
         send_boundary(x.to(self.dtype), self.next, self.ctx)
+
+    def positions(self, n: int, b: int, s: int, device) -> torch.Tensor:
+        """(n, b, s) global position ids of this rank's cp shard."""
+        start = self.ctx.cp_rank * s
+        return torch.arange(start, start + s, device=device).expand(n, b, s)
 
     def from_last(self, x: torch.Tensor) -> torch.Tensor:
         """`x` as the last stage holds it, on every stage (in place)."""
@@ -192,7 +207,8 @@ class _Pipeline(_Stage):
              backward: bool = False) -> torch.Tensor:
         """The mean over microbatches of each microbatch's masked mean
         loss, on every stage. `batch` holds (num_micro, b, s) tensors:
-        tokens, labels and optionally loss_mask and position_ids. With
+        tokens, labels and optionally loss_mask and position_ids (global
+        ones; under cp the rank's sequence shard of each). With
         `backward` the schedule's backward runs too: the gradient of the
         microbatches' summed losses (times `loss_scale`, under fp16)
         accumulates in the `.grad` of this stage's params, as the
@@ -214,7 +230,7 @@ class _Pipeline(_Stage):
             if lmask is None else lmask.float()
         pids = batch.get("position_ids")
         if pids is None:
-            pids = torch.arange(s, device=dev).expand(n, b, s)
+            pids = self.positions(n, b, s, dev)
         micro = [{"tokens": tokens[m], "labels": batch["labels"][m],
                   "loss_mask": lmask[m], "position_ids": pids[m]}
                  for m in range(n)]
@@ -222,8 +238,7 @@ class _Pipeline(_Stage):
         shape = self.boundary_shape(b, s)
         dens = None
         if self.last:
-            dens = all_reduce(lmask.sum(dim=(1, 2)), ctx.dp_group,
-                              ctx=ctx).clamp(min=1.0)
+            dens = sum_over_tokens(lmask.sum(dim=(1, 2)), ctx).clamp(min=1.0)
         keep = backward and self.policy != "full"
         tick = self.tick
         if keep and self.policy != "none":
@@ -253,7 +268,7 @@ class _Pipeline(_Stage):
         p2p_wait(ctx)
         total = torch.zeros((), dtype=torch.float32, device=dev)
         if self.last:
-            nums = all_reduce(torch.stack(nums), ctx.dp_group, ctx=ctx)
+            nums = sum_over_tokens(torch.stack(nums), ctx)
             total = (nums / dens).sum() / n
         return self.from_last(total)
 
@@ -304,17 +319,27 @@ def make_pipelined_score_fn(model, pcfg: Optional[ParallelConfig] = None,
     tokens[..., :i + 1]), on every stage (JAX :436-601): forward GPipe
     ticks, no gradient; the last stage's head computes each microbatch's
     log-probs as the negative vocab-parallel cross entropy (whole or over
-    tp shards)."""
+    tp shards). Every rank passes the whole tokens; under cp, s is a
+    multiple of cp and each rank runs its shard."""
     stage = _Stage(model, ctx)
     cfg = model.cfg
 
     @torch.no_grad()
     def score(params, tokens):
-        tokens = torch.as_tensor(tokens, device=stage.ctx.device).long()
-        n, b, s = tokens.shape
-        rope = stage.rope(tokens.device)
-        pids = torch.arange(s, device=tokens.device)[None].expand(b, s)
+        ctx = stage.ctx
+        tokens = torch.as_tensor(tokens, device=ctx.device).long()
+        # the targets of the whole sequence, then this rank's shard of
+        # both: a shard's last target is the next shard's first token
         targets = torch.roll(tokens, -1, dims=-1)
+        n, b, s = tokens.shape
+        if s % ctx.cp:
+            raise ValueError(f"cp={ctx.cp} does not divide the scored "
+                             f"length {s}")
+        s //= ctx.cp
+        sl = slice(ctx.cp_rank * s, (ctx.cp_rank + 1) * s)
+        tokens, targets = tokens[..., sl], targets[..., sl]
+        rope = stage.rope(tokens.device)
+        pids = stage.positions(1, b, s, tokens.device)[0]
         shape = stage.boundary_shape(b, s)
         banked = torch.zeros((n, b, s), dtype=torch.float32,
                              device=tokens.device)
@@ -332,8 +357,10 @@ def make_pipelined_score_fn(model, pcfg: Optional[ParallelConfig] = None,
             return out
 
         stage.forward_ticks(n, shape, run)
-        p2p_wait(stage.ctx)
-        return stage.from_last(banked)[:, :, :-1]
+        p2p_wait(ctx)
+        banked = all_gather_rows(banked.movedim(2, 0).contiguous(),
+                                 ctx.cp_group, ctx).movedim(0, 2)
+        return stage.from_last(banked.contiguous())[:, :, :-1]
 
     return score
 
@@ -371,9 +398,14 @@ def make_pipelined_decode_fn(model, pcfg: Optional[ParallelConfig] = None,
     stage every tick, the host reading the flag only under early
     termination. Sampling draws from `generator` in the ring's order,
     not the JAX ring's keys. Tensor-parallel decode raises (ROADMAP.md
-    A4 item 3)."""
+    A4), and so does cp > 1 (JAX :646: generation at cp > 1 takes the
+    whole-batch route, inference/api.py)."""
     stage = _Stage(model, ctx)
     sctx = stage.ctx
+    if sctx.cp > 1:
+        raise ValueError("pipelined decode: cp axis unsupported (the "
+                         "stage ring serves at cp = 1; generation at "
+                         "cp > 1 takes the whole-batch route)")
     if sctx.tp > 1:
         raise ValueError(f"pipelined decode at tp={sctx.tp}: "
                          f"tensor-parallel serving is not ported yet "

@@ -18,22 +18,27 @@ models/dropout.py) microbatch i draws from fold_in(rng, i), or from
 `rng` itself when there is one microbatch (JAX :253-281).
 
 Across ranks (a context from parallel/mesh.py) each rank holds its
-tensor-parallel slices and its rows of every global microbatch. A
-microbatch's loss is its rows' masked sum over the denominator summed
-over the dp group, so the dp ranks' gradients sum to the gradient of
-the global token-weighted mean (never a mean of per-rank means: their
-mask counts differ), and the reported loss is the global one. After the
+tensor-parallel slices and its rows of every global microbatch, under
+context parallelism its sequence shard of them. A microbatch's loss is
+its tokens' masked sum over the denominator summed over the dp and cp
+groups, so the ranks' gradients sum to the gradient of the global
+token-weighted mean (never a mean of per-rank means: their mask counts
+differ), and the reported loss is the global one. After the
 accumulation: under sequence parallelism the replicated leaves'
 gradients (norms, output biases), partial sums over sequence shards,
-are all-reduced over the tp group; then the dp reduction, an all-reduce
-or ZeRO-1's reduce-scatter with the update on the rank's block and an
-all-gather (optimizer/zero1.py); the gradient norm is the global
-gradient's and the skip flags agree on every rank. At world size 1
-nothing of this runs. Live dropout across ranks raises: its masks would
-not be the global mask's slices (the next A4 PR).
+are all-reduced over the tp group; every gradient is summed over the cp
+group (each cp rank holds every parameter whole, as the JAX package's
+GSPMD path does); then the dp reduction, an all-reduce or ZeRO-1's
+reduce-scatter with the update on the rank's block and an all-gather
+(optimizer/zero1.py; the moments stay sharded over dp only); the
+gradient norm is the global gradient's, each leaf counted once, and
+the skip flags agree on every rank. At world size 1 nothing of this
+runs. Live dropout across ranks raises: its masks would not be the
+global mask's slices (the next A4 PR). At pp > 1 the microbatches run
+through the pipeline's schedule (parallel/pipeline.py).
 
-Overlap scheduling, pipeline and context parallelism and a
-`batch_builder` belong to later slices and raise.
+The overlap schedulers and a `batch_builder` belong to later slices and
+raise.
 """
 
 from __future__ import annotations
@@ -53,6 +58,7 @@ from megatron_llm_tpu_torch.parallel.mesh import (
     A4_DROPOUT,
     all_reduce,
     get_context,
+    sum_over_tokens,
 )
 from megatron_llm_tpu_torch.parallel.sharding import (
     layout_specs,
@@ -67,11 +73,11 @@ def check_layout(model, pcfg: ParallelConfig):
     ParallelConfig and the model; None at world size 1 with no
     context."""
     ctx = get_context()
-    have = (1, 1, 1) if ctx is None else (ctx.dp, ctx.pp, ctx.tp)
-    want = (pcfg.data_parallel_size, pcfg.pipeline_parallel_size,
-            pcfg.tensor_parallel_size)
+    have = (1, 1, 1, 1) if ctx is None else (ctx.dp, ctx.pp, ctx.cp,
+                                               ctx.tp)
+    want = pcfg.mesh_shape
     if have != want:
-        raise ValueError(f"the ParallelConfig asks dp, pp, tp = {want}; "
+        raise ValueError(f"the ParallelConfig asks dp, pp, cp, tp = {want}; "
                          f"the installed parallel context is {have}")
     if ctx is not None and ctx.sequence_parallel != pcfg.sequence_parallel:
         raise ValueError("sequence_parallel differs between the "
@@ -119,6 +125,7 @@ def make_train_step(model, tcfg: TrainConfig, pcfg: ParallelConfig,
     scaler = get_grad_scaler(tcfg)
     dp = 1 if ctx is None else ctx.dp
     pp = 1 if ctx is None else ctx.pp
+    cp = 1 if ctx is None else ctx.cp
     use_zero1 = pcfg.use_distributed_optimizer and dp > 1
     layout = {}  # built at the first call, from this rank's params
     pipeline_loss = None
@@ -145,11 +152,14 @@ def make_train_step(model, tcfg: TrainConfig, pcfg: ParallelConfig,
         return layout
 
     def reduce_grads(params, grads):
-        """The pp sum of the stage-replicated leaves and the dp
-        reduction; under ZeRO-1 also this rank's parameter blocks, the
+        """The cp sum, the pp sum of the stage-replicated leaves and the
+        dp reduction; under ZeRO-1 also this rank's parameter blocks, the
         tensors the update writes."""
         lay = _layout(params)
         sequence_parallel_grads(grads, lay["tp_sharded"], ctx)
+        if cp > 1:
+            for g in grads:
+                all_reduce(g, ctx.cp_group, ctx=ctx)
         if pp > 1:
             for g, staged in zip(grads, lay["pp_sharded"]):
                 if not staged:
@@ -176,21 +186,21 @@ def make_train_step(model, tcfg: TrainConfig, pcfg: ParallelConfig,
                     else fold_in(rng, i)
                 kw = dict(dropout_rng=mrng, deterministic=rng is None,
                           **micro)
-                if dp == 1:
+                if dp == 1 and cp == 1:
                     l_i = model.loss(params, **kw)
                     loss = loss + l_i.detach()
                 else:
                     num, den = model.loss_terms(params, **kw)
-                    den = all_reduce(den.detach().clone(), ctx.dp_group,
-                                     ctx=ctx).clamp(min=1.0)
+                    den = sum_over_tokens(den.detach().clone(),
+                                          ctx).clamp(min=1.0)
                     l_i = num / den
                     nums.append(num.detach())
                     dens.append(den)
                 (l_i if loss_scale is None else l_i * loss_scale).backward()
         if nums:
-            # the reported loss: the numerators summed over dp before the
-            # division, as the JAX package reduces them
-            nums = all_reduce(torch.stack(nums), ctx.dp_group, ctx=ctx)
+            # the reported loss: the numerators summed over dp and cp
+            # before the division, as the JAX package reduces them
+            nums = sum_over_tokens(torch.stack(nums), ctx)
             for num, den in zip(nums, dens):
                 loss = loss + num / den
         return loss / num_micro if num_micro > 1 else loss
@@ -251,9 +261,9 @@ def make_train_step(model, tcfg: TrainConfig, pcfg: ParallelConfig,
 
 def make_eval_step(model):
     """The eval step (JAX :344-357): the mean masked loss, no gradients;
-    across dp ranks the global token-weighted mean of their rows. At
-    pp > 1 the pipelined loss of (num_micro, rows, s) batches, forward
-    only (JAX training/trainer.py:607-690)."""
+    across dp and cp ranks the global token-weighted mean of their rows'
+    shards. At pp > 1 the pipelined loss of (num_micro, rows, s)
+    batches, forward only (JAX training/trainer.py:607-690)."""
     ctx = get_context()
     if ctx is not None and ctx.pp > 1:
         from megatron_llm_tpu_torch.parallel.pipeline import (
@@ -264,12 +274,13 @@ def make_eval_step(model):
 
     @torch.no_grad()
     def eval_step(params, batch):
-        if ctx is None or ctx.dp == 1:
-            return model.loss(params, batch["tokens"], batch["labels"],
-                              loss_mask=batch.get("loss_mask"))
+        kw = {k: batch[k] for k in ("loss_mask", "position_ids",
+                                    "attention_mask") if k in batch}
+        if ctx is None or (ctx.dp == 1 and ctx.cp == 1):
+            return model.loss(params, batch["tokens"], batch["labels"], **kw)
         num, den = model.loss_terms(params, batch["tokens"], batch["labels"],
-                                    loss_mask=batch.get("loss_mask"))
-        terms = all_reduce(torch.stack([num, den]), ctx.dp_group, ctx=ctx)
+                                    **kw)
+        terms = sum_over_tokens(torch.stack([num, den]), ctx)
         return terms[0] / terms[1].clamp(min=1.0)
 
     return eval_step

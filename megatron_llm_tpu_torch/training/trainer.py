@@ -36,12 +36,18 @@ Across ranks (a parallel context, parallel/mesh.py) the trainer holds
 this rank's state: its stage's layers at pp > 1, its tensor-parallel
 slices of the parameters and, under ZeRO-1, its blocks of the Adam
 moments; the loaders read the rank's rows of every global microbatch
-(every stage of a dp index reads the same rows); the log line, printed
-by rank 0 only, carries the global loss (the last stage's, broadcast),
-gradient norm and tokens/s. A save gathers every leaf whole and rank 0
-writes the checkpoint (the same files as one card's), the other ranks
-waiting for its commit; a load cuts each rank's slices from the whole
-leaves, so a checkpoint resumes at any layout, pp included. Rank 0
+(every stage and cp rank of a dp index reads the same rows), and under
+context parallelism each step and eval batch is cut to the rank's
+contiguous sequence shard after `get_batch` ran on the whole sequence
+(`context_shard`: global position ids, labels shifted before the cut,
+--reset_attention_mask in its O(s) doc-start form); the log line,
+printed by rank 0 only, carries the global loss (the last stage's,
+broadcast), gradient norm and tokens/s. A save gathers every leaf whole
+and rank 0 writes the checkpoint (the same files as one card's), the
+other ranks waiting for its commit; cp cuts no leaf, so only cp rank 0
+of each coordinate takes part in the gather. A load cuts each rank's
+slices from the whole leaves, so a checkpoint resumes at any layout,
+pp and cp included. Rank 0
 holds a host copy of the whole state meanwhile. At pp > 1 `evaluate`
 runs the pipelined loss forward (JAX :607-690), which refuses a batch
 with `--reset_attention_mask`'s masks (JAX :533-540).
@@ -110,7 +116,10 @@ from megatron_llm_tpu_torch.training.train_step import (
     make_train_step,
 )
 from megatron_llm_tpu_torch.training.watchdog import LossWatchdog
-from megatron_llm_tpu_torch.utils.masks import get_ltor_masks_and_position_ids
+from megatron_llm_tpu_torch.utils.masks import (
+    get_document_starts,
+    get_ltor_masks_and_position_ids,
+)
 
 # TrainConfig fields of later slices: (field, the slice that ports it)
 _LATER = tuple(
@@ -139,22 +148,53 @@ class SignalHandler:
 
 def get_batch(text, eod_token=None, reset_position_ids=False,
               reset_attention_mask=False, eod_mask_loss=False,
-              device="cuda"):
+              packed_doc_starts=False, device="cuda"):
     """(num_micro, b, seq+1) 'text' -> model inputs on `device` (JAX
     :66-103): tokens, labels, loss_mask, position_ids, and the dense
-    (num_micro, b, 1, s, s) attention_mask when documents reset it."""
+    (num_micro, b, 1, s, s) attention_mask when documents reset it, or
+    with `packed_doc_starts` its O(s) form {"doc_start": (num_micro, b,
+    s)} (utils/masks.py `get_document_starts`), which context
+    parallelism cuts with the sequence."""
     text = torch.as_tensor(np.asarray(text), device=device).long()
     tokens, labels = text[:, :, :-1], text[:, :, 1:]
     n, b, s = tokens.shape
+    flat = tokens.reshape(n * b, s)
     attn_mask, loss_mask, position_ids = get_ltor_masks_and_position_ids(
-        tokens.reshape(n * b, s), eod_token, reset_position_ids,
-        reset_attention_mask, eod_mask_loss)
+        flat, eod_token, reset_position_ids,
+        reset_attention_mask and not packed_doc_starts, eod_mask_loss)
     batch = {"tokens": tokens, "labels": labels,
              "loss_mask": loss_mask.reshape(n, b, s),
              "position_ids": position_ids.reshape(n, b, s)}
-    if attn_mask is not None:
+    if reset_attention_mask and packed_doc_starts:
+        batch["attention_mask"] = {"doc_start": get_document_starts(
+            flat, eod_token).reshape(n, b, s)}
+    elif attn_mask is not None:
         batch["attention_mask"] = attn_mask.reshape(n, b, 1, s, s)
     return batch
+
+
+def context_shard(batch: dict, ctx) -> dict:
+    """This cp rank's contiguous sequence shard of a batch whose last
+    axis is the sequence: positions [c s / cp, (c + 1) s / cp) of
+    tokens, labels, loss_mask, position_ids (global, so RoPE rotates
+    each shard by its own angles) and a {"doc_start"} mask (global
+    indices). The labels were shifted on the whole sequence, so none
+    crosses a shard. The batch itself at cp = 1."""
+    if ctx is None or ctx.cp == 1:
+        return batch
+    s = batch["tokens"].shape[-1]
+    if s % ctx.cp:
+        raise ValueError(f"context parallelism cp={ctx.cp} does not divide "
+                         f"the sequence length {s}")
+    n = s // ctx.cp
+    sl = slice(ctx.cp_rank * n, (ctx.cp_rank + 1) * n)
+
+    def cut(x):
+        if isinstance(x, dict):
+            return {k: cut(v) for k, v in x.items()}
+        return x[..., sl]
+
+    return {k: cut(v) for k, v in batch.items()}
 
 
 class StateLayout:
@@ -199,12 +239,16 @@ class StateLayout:
 
     def gather(self, name: str, x: torch.Tensor):
         """The whole leaf on rank 0 (a host tensor of its own), None on
-        the other ranks; a collective every rank enters. A ZeRO-1 block
-        goes to the dp group's first rank, then a tensor-parallel slice
+        the other ranks; a collective the ranks of cp rank 0 enter (the
+        other cp ranks hold the same state). A ZeRO-1 block goes to the
+        dp group's first rank, then a tensor-parallel slice
         to the tp group's first rank, then a stage's layers to the first
         stage: only what rank 0 needs moves."""
         i, z1 = self._leaf(name)
         ctx = self.ctx
+        if ctx.cp_rank != 0:
+            # cp cuts no leaf: cp rank 0 of each coordinate gathers it
+            return None
         live = x = x.detach()
         if z1 is not None:
             x = gather_rows(x, ctx.dp_group, ctx, axis=z1)
@@ -411,9 +455,13 @@ class Trainer:
         """One optimizer step over a global batch 'text' (num_micro,
         mbs*dp, seq+1) (JAX :517-598). The stats stay on the card."""
         num_micro = text.shape[0]
+        cp = 1 if self.ctx is None else self.ctx.cp
+        # under cp the dense mask would need the whole sequence: the O(s)
+        # doc-start form rides the ring (JAX :529-531)
         batch = get_batch(text, self.eod_token, self.reset_position_ids,
                           self.reset_attention_mask, self.eod_mask_loss,
-                          device=self.device)
+                          packed_doc_starts=cp > 1, device=self.device)
+        batch = context_shard(batch, self.ctx)
         lr, wd = self.scheduler.get_lr(), self.scheduler.get_wd()
         step_fn = self._get_step_fn(num_micro)
         # the watchdog's in-step skip gate: +inf until its window has
@@ -435,7 +483,7 @@ class Trainer:
                  max_iters: Optional[int] = None) -> float:
         """Mean eval loss over `eval_iters` batches (JAX :600-695): the
         plain path, or at pp > 1 the pipelined loss of each (num_micro,
-        rows, seq) batch."""
+        rows, seq) batch; under cp each rank its sequence shard."""
         if self.valid_data_iterator is None:
             return float("nan")
         if self._eval_step_fn is None:
@@ -448,7 +496,8 @@ class Trainer:
                 text = next(it)
             except StopIteration:
                 break
-            raw = get_batch(text, self.eod_token, device=self.device)
+            raw = context_shard(get_batch(text, self.eod_token,
+                                          device=self.device), self.ctx)
             batch = raw if self.pcfg.pipeline_parallel_size > 1 else {
                 k: v.reshape((-1,) + v.shape[2:]) for k, v in raw.items()}
             total += float(self._eval_step_fn(state.params, batch))

@@ -182,6 +182,18 @@ def test_post_ln_still_raises():
         arguments.args_to_configs(args, 256)
 
 
+@pytest.fixture(autouse=True)
+def _no_jax_context_left():
+    """The JAX `finetune.main` installs its parallel context for the
+    process and leaves it there: drop it after each test, so that a later
+    test in the same worker (a JAX harness on other devices) does not
+    inherit a one-device mesh."""
+    yield
+    from megatron_llm_tpu.parallel.mesh import destroy_parallel
+
+    destroy_parallel()
+
+
 def _jax_finetune():
     spec = importlib.util.spec_from_file_location(
         "jax_finetune_entry", os.path.join(REPO, "finetune.py"))

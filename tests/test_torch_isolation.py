@@ -31,8 +31,11 @@ from megatron_llm_tpu_torch.models.rope import precompute_rope
 from megatron_llm_tpu_torch.models.transformer import init_layer_params
 from megatron_llm_tpu_torch.ops import flash_attention as fa
 from megatron_llm_tpu_torch.ops import rmsnorm as rms
-from megatron_llm_tpu_torch.parallel import pipeline
-from megatron_llm_tpu_torch.parallel.mesh import initialize_parallel
+from megatron_llm_tpu_torch.parallel import pipeline, ring_attention
+from megatron_llm_tpu_torch.parallel.mesh import (
+    ParallelContext,
+    initialize_parallel,
+)
 from megatron_llm_tpu_torch.tools import (
     pipeline_memory_table,
     run_text_generation_server,
@@ -181,7 +184,7 @@ def test_trainer_takes_the_models_device():
 
 
 @pytest.mark.parametrize("call", ["flash_fwd", "flash_bwd", "rmsnorm_fwd",
-                                  "rmsnorm_train"])
+                                  "rmsnorm_train", "ring"])
 def test_kernel_wrappers_do_not_fall_back_off_the_cpu(call):
     """Only a CPU tensor takes a plain version: a tensor on any other
     device goes to the kernel, which here (no nvcc, no triton) raises."""
@@ -193,6 +196,9 @@ def test_kernel_wrappers_do_not_fall_back_off_the_cpu(call):
     q, k = meta(1, 8, 1, 1, 16), meta(1, 8, 1, 16)
     calls = {
         "flash_fwd": lambda: fa.flash_attention(q, k, k),
+        # ring attention's hops are K4-K6 (a one-rank ring here)
+        "ring": lambda: ring_attention.ring_self_attention(
+            q, k, k, ctx=ParallelContext()),
         "flash_bwd": lambda: fa._bwd(q, k, k, q, meta(1, 8, 1).float(), q,
                                      True),
         "rmsnorm_fwd": lambda: rms.fused_rms_norm(meta(4, 16), meta(16)),

@@ -1049,6 +1049,91 @@ def test_flash_backward_is_bitwise_repeatable_on_every_shape(
         assert torch.equal(x, y)
 
 
+def _ring_in_threads(monkeypatch, q, k, v, do, cp, causal):
+    """The port's ring attention at cp ranks run as threads of this
+    process on the card: each thread calls the ring's autograd Function's
+    forward and backward directly (one process's autograd engine would
+    run both threads' backwards on one device thread) and the K/V
+    rotation is a barrier exchange between the threads. Returns the
+    ranks' (o, dq, dk, dv) shards joined along the sequence."""
+    import threading
+
+    from megatron_llm_tpu_torch.parallel import ring_attention as ra
+    from megatron_llm_tpu_torch.parallel.mesh import ParallelContext
+
+    barrier = threading.Barrier(cp)
+    slots = [None] * cp
+
+    def shift(xs, ctx):
+        slots[ctx.cp_rank] = [x.detach().clone() for x in xs]
+        barrier.wait()
+        got = [x.clone() for x in slots[(ctx.cp_rank - 1) % cp]]
+        barrier.wait()
+        return got
+
+    class Saved:
+        def save_for_backward(self, *t):
+            self.saved_tensors = t
+
+    monkeypatch.setattr(ra, "ring_shift", shift)
+    n = q.shape[1] // cp
+    out, errors = [None] * cp, []
+
+    def rank(r):
+        try:
+            ctx = ParallelContext(cp=cp, rank=r, device=q.device)
+            sl = slice(r * n, (r + 1) * n)
+            c = Saved()
+            o = ra._Ring.forward(c, q[:, sl], k[:, sl], v[:, sl], causal,
+                                 None, ctx)
+            out[r] = (o,) + ra._Ring.backward(c, do[:, sl])[:3]
+        except BaseException as e:  # noqa: BLE001 (re-raised below)
+            errors.append(e)
+            barrier.abort()
+
+    threads = [threading.Thread(target=rank, args=(r,)) for r in range(cp)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=120)
+    if errors:
+        raise errors[0]
+    return [torch.cat([out[r][i] for r in range(cp)], dim=1)
+            for i in range(4)]
+
+
+@pytest.mark.parametrize("cp", [2, 4])
+@pytest.mark.parametrize("causal", [True, False], ids=["causal", "full"])
+@pytest.mark.parametrize("g,qpk,d,s", [(2, 1, 128, 512), (2, 4, 64, 384)])
+def test_ring_attention_hops_on_the_kernels_match_one_rank(
+        monkeypatch, cuda, g, qpk, d, s, causal, cp):
+    """Ring attention's hops on K4-K6 (causal on the diagonal block,
+    `causal=False` on an earlier rank's, K5 and K6 on the merged lse and
+    delta) against the one-rank K4-K6 on the whole sequence: o within
+    2e-2, each gradient within 2e-2 of its reference's max-abs; the
+    non-causal launches counted."""
+    from megatron_llm_tpu_torch.ops import flash_attention as fa
+
+    q, k, v, do = _flash_inputs(g, qpk, d, s, s, cuda, seed=s + cp, b=1)
+    full = {n: w.launches_by_causal["full"] for n, w in (
+        ("fwd", fa.flash_fwd), ("dq", fa.flash_bwd_dq),
+        ("dkv", fa.flash_bwd_dkv))}
+    got = _ring_in_threads(monkeypatch, q, k, v, do, cp, causal)
+    o, lse = fa._fwd(q, k, v, causal)
+    ref = (o,) + fa._bwd(q, k, v, o, lse, do, causal)
+    torch.cuda.synchronize()
+    assert _max_err(got[0], ref[0]) <= 2e-2
+    for name, a, b in zip(("dq", "dk", "dv"), got[1:], ref[1:]):
+        assert _rel_err(a, b) <= 2e-2, (name, _rel_err(a, b))
+    # the full-attention launches: under the causal mask each block of
+    # an earlier rank, cp (cp - 1) / 2; without it every hop of every
+    # rank, cp^2, and the one-rank reference's
+    hops = cp * (cp - 1) // 2 if causal else cp * cp + 1
+    for n, w in (("fwd", fa.flash_fwd), ("dq", fa.flash_bwd_dq),
+                 ("dkv", fa.flash_bwd_dkv)):
+        assert w.launches_by_causal["full"] - full[n] == hops, n
+
+
 def test_flash_kernel_refuses_what_it_does_not_take(cuda):
     from megatron_llm_tpu_torch.ops import flash_attention as fa
 

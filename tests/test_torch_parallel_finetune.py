@@ -14,8 +14,7 @@ parallelism and ZeRO-1, the recipe's parallel flags, on a tiny Llama
   checkpoint at tp2 x dp2, each giving the uninterrupted run's next
   losses;
 - a rank imports no JAX;
-- pipeline and context parallelism and the overlap schedulers raise,
-  naming the next A4 PR.
+- the overlap schedulers raise, naming the next A4 PR.
 """
 
 import dataclasses
@@ -178,8 +177,6 @@ def test_ranks_import_no_jax(runs):
 
 
 @pytest.mark.parametrize("flags", [
-    "--pipeline_model_parallel_size 2 --context_parallel_size 2",
-    "--context_parallel_size 2",
     "--overlap_grad_reduce",
     "--overlap_param_gather",
     "--async_pipeline_dispatch",

@@ -18,7 +18,7 @@ and the JAX package's virtual CPU mesh at the same layouts:
   single-rank call; sampled and beam requests under the limit gather the
   layers and equal the single-rank call of the same seed, and above it
   raise; every rank returns the same answer;
-- ring decode at tp > 1 raises, naming ROADMAP.md A4 item 3.
+- ring decode at tp > 1 raises, naming ROADMAP.md A4 item 1.
 """
 
 import jax
@@ -205,7 +205,7 @@ def test_stage_ring_matches_the_jax_ring(results, i):
 def test_ring_decode_at_tp2_raises_naming_tp_serving(results):
     got = [r[1][0] for r in results["port4"]]
     assert all(isinstance(g, str) and "tensor-parallel serving" in g
-               and "item 3" in g for g in got)
+               and "item 1" in g for g in got)
 
 
 def _api(results, limit):
