@@ -149,8 +149,25 @@ Phases, one output line each (a failure raises and exits non-zero):
    the HF write, the conversion, the load, the warmup capture and the
    subprocess's start to its banner; bytes written, tokens/s, TTFT p50,
    ms per decode advance (wall, device), GPU memory after the start;
-14d. launcher_falcon: Falcon-7B at full width, 16 of its 32 layers
-   (FALCON_LAYERS), random bf16
+14d. serving_tp: 14c's release served by `torchrun --nproc_per_node 2
+   -m megatron_llm_tpu_torch.tools.run_text_generation_server
+   --serving_tp 2 --distributed_backend gloo`, two ranks on cuda:0, each
+   holding 16 of the 32 KV groups of every pool, tp rank 0 the HTTP
+   front: 14c's 8 greedy requests from concurrent clients, then a score
+   and a beam request (rank 0's whole tree). The greedy log-probs within
+   5e-2 of 14c's tp 1 streams over each common prefix, each rank's pool
+   bytes half of 14c's, K7 on each rank once a layer per paged forward
+   of the leader's round log (every launch tc; each rank prints its
+   counts as it stops), rank 0's K1 once a layer per beam step and K4
+   once a layer, rank 1's never; the rounds uncaptured (banner and
+   /metrics). Printed: each rank's memory after the start, ms per decode
+   advance and per mixed round (eager, gloo through the host), the
+   seconds to the banner. Also, after the kernel checks,
+   kernel_time_serving_tp2: K7 (tc, bf16 and int8 pools, decode and
+   mixed rounds) and K1 ("gtd" and the ring's "tgd") at a tp 2 rank's
+   16 groups against their plain versions, beside SDPA and the bound;
+14e. launcher_falcon: Falcon-7B at full width, 8 of its 32 layers
+   (FALCON_LAYERS; 16 before the serving_tp phase), random bf16
    weights from a seed written as a release by `save_checkpoint(
    release=True)`; native2hf then hf2native through the CLI at full
    width and 2 layers, bit-exact; the launcher (`--model falcon`) in a
@@ -3001,6 +3018,7 @@ def launcher_llama(kernels, conv, weights):
            "params_fp32_gb": tree_bytes(srv.server.generator.params) / 1e9,
            "decode_copy_gb": tree_bytes(eng._dec_params) / 1e9,
            "kv_pool_gb": eng.kv_pool_bytes() / 1e9}
+    pool_bytes = eng.kv_pool_bytes()
     decode_bytes = tree_bytes(eng._dec_params)
     graphs = eng.graph_stats()
     traffic, whole = launcher_traffic()
@@ -3017,7 +3035,6 @@ def launcher_llama(kernels, conv, weights):
     banner_s, sub, banner = launcher_subprocess(argv, sequential_payloads())
     check(sub == seq, "the subprocess launcher's answers differ from the "
                       "in-thread launcher's")
-    shutil.rmtree(argv[1])
     wcfg, wparams = weights
     plain = LlamaModel(dataclasses.replace(
         wcfg, use_decode_attn=False, use_flash_attn=False,
@@ -3043,6 +3060,293 @@ def launcher_llama(kernels, conv, weights):
         greedy_token_match_fraction_kernels_off=agree,
         path_check_max_abs_logprob_err=err, tol=PATH_LP_TOL, **mem,
         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
+    # the release and the tp 1 streams serve the serving_tp phase
+    return {"argv": argv, "greedy": greedy, "layers": cfg.num_layers,
+            "kv_pool_bytes": pool_bytes,
+            "decode_ms_per_advance": ms_per_advance(run["rounds"])}
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel serving: the launcher at --serving_tp 2, two gloo ranks
+# sharing the card
+# ---------------------------------------------------------------------------
+
+TP_SERVE = 2
+TP_GROUPS = 32 // TP_SERVE  # a tp 2 rank's share of Llama-2-7B's groups
+RANK_STARTED = re.compile(
+    r"tp rank (\d+) \(pid (\d+)\): kv pool (\d+) bytes, ([0-9.]+) GiB "
+    r"allocated, ([0-9.]+) GiB reserved")
+RANK_STOPPED = re.compile(r"tp rank (\d+) stopped: (\{.*\})$")
+
+
+def time_serving_tp2(kernels):
+    """K7 (tc design; bf16 and int8 pools, the engine's decode and mixed
+    rounds) and K1 ("gtd" at the whole-batch shape of 4 rows and 320
+    positions, "tgd" on the pp ring's stacked slice) at a tp 2 rank's 16
+    of Llama-2-7B's 32 groups: each against its plain version (2e-2),
+    beside SDPA (none reads int8 K/V) and the bound."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 61)
+    g, qpk, d, bf = TP_GROUPS, 1, 128, torch.bfloat16
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    k7 = {}
+    for pool in ("bf16", "int8"):
+        for batch in PAGED_BATCHES:
+            if pool == "int8":
+                sets = [variant_inputs(batch, "int8", g, qpk, d, gen)
+                        for _ in range(4)]
+            else:
+                sets = [(paged_inputs(batch, g, qpk, d, gen), dict(
+                    k_scales=None, v_scales=None, window=None,
+                    doc_starts=None)) for _ in range(4)]
+            q0, kp0 = sets[0][0][:2]
+            design = pa.paged_design(q0.dtype, kp0.dtype, PAGE)
+            check(design == "tc", f"K7 {pool} at the tp 2 shape: {design}")
+            got = _launch(pa.paged_attention, sets[0])
+            ref = _launch(pa._xla_paged_reference, sets[0])
+            torch.cuda.synchronize()
+            err = (got.float() - ref.float()).abs().max().item()
+            check(err <= BF16_TOL, f"K7 {pool} {batch} at the tp 2 shape: "
+                                   f"{err}")
+            del got, ref
+            pick = rotating(lambda i: sets[i], 4)
+            row = {"design": design, "max_abs_err": err,
+                   "ms": device_ms(lambda: _launch(pa.paged_attention,
+                                                   pick())),
+                   "plain_ms": device_ms(
+                       lambda: _launch(pa._xla_paged_reference, pick()),
+                       per_graph=10, replays=5),
+                   "library_ms": None}
+            if pool == "bf16":
+                lib = rotating(lambda i: banded_sdpa_inputs(*sets[i]), 4)
+                row["library_ms"] = device_ms(lambda: _sdpa(sdpa, lib()))
+                del lib
+            row["bound_ms"], row["bound_by"] = variant_bound_ms(*sets[0])
+            k7[f"{pool}_{batch}"] = row
+            del sets, pick
+            torch.cuda.empty_cache()
+    plan = pp_ring_plan(pp_prompts())
+    k1 = {}
+    for layout in ("gtd", "tgd"):
+        if layout == "gtd":
+            b, T = 4, 320
+            length = T
+            q = torch.randn(b, 1, g, qpk, d, generator=gen,
+                            device="cuda").to(bf)
+            k, v = (torch.randn(b, g, T, d, generator=gen,
+                                device="cuda").to(bf) for _ in range(2))
+            kt, vt = k, v
+            shape = f"b{b} g{g} qpk{qpk} d{d} length{T} bf16 gtd"
+        else:
+            b, nm, T = plan["rows"], plan["groups"], plan["max_len"]
+            length = T - 1
+            stacked = [torch.randn(FT_LAYERS // PP_RANKS, nm, b, T, g, d,
+                                   generator=gen, device="cuda").to(bf)
+                       for _ in range(2)]
+            k, v = stacked[0][-1, 1], stacked[1][-1, 1]
+            q = torch.randn(b, 1, g, qpk, d, generator=gen,
+                            device="cuda").to(bf)
+            kt = k[:, :length].transpose(1, 2)
+            vt = v[:, :length].transpose(1, 2)
+            shape = (f"b{b} g{g} qpk{qpk} d{d} length{length}, the tgd "
+                     f"slice of a stacked ({FT_LAYERS // PP_RANKS}, {nm}, "
+                     f"{b}, {T}, {g}, {d}) bf16 cache")
+        ref = dec._xla_decode(q, k, v, length, layout)
+        got = dec.decode_attention(q, k, v, length, layout=layout)
+        torch.cuda.synchronize()
+        err = (got.float() - ref.float()).abs().max().item()
+        check(err <= BF16_TOL, f"K1 {layout} at the tp 2 shape: {err}")
+        bound, by = decode_bound_ms(b, g, qpk, d, length)
+        k1[layout] = {
+            "shape": shape, "design": dec.decode_design(bf, qpk),
+            "max_abs_err": err,
+            "ms": device_ms(lambda: dec.decode_attention(
+                q, k, v, length, layout=layout)),
+            "plain_ms": device_ms(lambda: dec._xla_decode(
+                q, k, v, length, layout), per_graph=10, replays=5),
+            "library_ms": device_ms(lambda: sdpa(
+                q.reshape(b, g, qpk, d), kt, vt)),
+            "bound_ms": bound, "bound_by": by}
+        del q, k, v, kt, vt, ref, got
+        torch.cuda.empty_cache()
+    say("kernel_time_serving_tp2", card=nvidia_smi(),
+        shape=f"g{g} qpk{qpk} d{d} (a tp 2 rank of Llama-2-7B)", k7=k7,
+        k1=k1)
+    for row in kernels:
+        if row["name"] == "ragged_paged_attention_tc":
+            row["tp2_rank_shape"] = k7
+        elif row["name"] == "decode_attention":
+            row["tp2_rank_shape"] = k1
+
+
+def tp_launcher_requests(port, traffic, whole):
+    """The greedy requests from concurrent client threads, then the score
+    and the beam request one after the other (rank 0's whole tree)."""
+    results = {}
+
+    def client(name, payload):
+        results[name] = put_raw(port, payload)
+
+    threads = [threading.Thread(target=client, args=(name, payload))
+               for name, _, payload in traffic]
+    t0 = time.perf_counter()
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=LAUNCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    check(all(not th.is_alive() for th in threads), "tp clients hung")
+    for name, _, payload in sorted(whole, key=lambda x: x[0] != "score"):
+        results[name] = put_raw(port, payload)
+    return results, wall
+
+
+def serving_tp_phase(kernels, tp1):
+    """launcher_llama's release served by `torchrun --nproc_per_node 2 -m
+    ...run_text_generation_server --serving_tp 2 --distributed_backend
+    gloo`: two ranks on cuda:0, each its 16 groups of every pool, tp rank
+    0 the HTTP front. The LAUNCHER_REQUESTS greedy requests over HTTP,
+    then a score and a beam request (rank 0's whole tree). Held: the
+    greedy log-probs within 5e-2 of launcher_llama's tp 1 streams over
+    each common prefix; each rank's pool bytes exactly half of tp 1's; K7
+    a rank once a layer per paged forward of the leader's round log, all
+    tc; rank 0's K1 once a layer per beam step and K4 once a layer (the
+    score), rank 1's neither; /metrics says the rounds are uncaptured.
+    Printed: each rank's memory after the start, ms per decode advance
+    and per mixed round (eager rounds, gloo through the host), the
+    seconds to the banner."""
+    tok = build_tokenizer("NullTokenizer", null_vocab_size=31999)
+    L = tp1["layers"]
+    argv = tp1["argv"] + ["--serving_tp", str(TP_SERVE),
+                          "--distributed_backend", "gloo"]
+    cmd = [sys.executable, "-m", "torch.distributed.run", "--standalone",
+           "--nproc_per_node", str(TP_SERVE), "-m",
+           "megatron_llm_tpu_torch.tools.run_text_generation_server", *argv]
+    t0 = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=REPO_DIR, stdout=subprocess.PIPE,
+                            stderr=subprocess.STDOUT, text=True)
+    lines, banner = [], threading.Event()
+
+    def read():
+        for line in proc.stdout:
+            lines.append(line)
+            if line.startswith("serving "):
+                banner.set()
+
+    reader = threading.Thread(target=read, daemon=True)
+    reader.start()
+    started, pid0 = {}, None
+    try:
+        banner.wait(LAUNCH_TIMEOUT_S)
+        banner_s = time.perf_counter() - t0
+        check(banner.is_set(), "the tp launcher printed no banner:\n"
+              + "".join(lines)[-4000:])
+        deadline = time.monotonic() + 120
+        while len(started) < TP_SERVE and time.monotonic() < deadline:
+            for x in list(lines):
+                m = RANK_STARTED.search(x)
+                if m:
+                    started[int(m.group(1))] = {
+                        "pid": int(m.group(2)), "kv_pool_bytes":
+                        int(m.group(3)), "allocated_gib": float(m.group(4)),
+                        "reserved_gib": float(m.group(5))}
+            time.sleep(0.1)
+        check(sorted(started) == list(range(TP_SERVE)),
+              "the tp ranks' start lines:\n" + "".join(lines)[-4000:])
+        pid0 = started[0]["pid"]
+        line = next(x for x in lines if x.startswith("serving ")).strip()
+        port = int(re.search(r"http://[^:/]+:(\d+)/api", line).group(1))
+        traffic, whole = launcher_traffic(stream=False)
+        results, wall = tp_launcher_requests(port, traffic, whole)
+        metrics = get_json(port, "/metrics")
+        health = get_json(port, "/health")
+    finally:
+        # Ctrl-C reaches rank 0, which drains and releases rank 1
+        if pid0 is not None:
+            os.kill(pid0, signal.SIGINT)
+        else:
+            proc.send_signal(signal.SIGINT)
+        try:
+            proc.wait(timeout=180)
+        except subprocess.TimeoutExpired:
+            stop_tree(proc.pid)
+            proc.wait()
+    reader.join(timeout=10)
+    text = "".join(lines)
+    check(proc.returncode == 0, f"tp launcher rc {proc.returncode}:\n"
+                                + text[-4000:])
+    stopped = {int(m.group(1)): json.loads(m.group(2)) for m in
+               (RANK_STOPPED.search(x.strip()) for x in lines) if m}
+    check(sorted(stopped) == list(range(TP_SERVE)),
+          "the tp ranks' stop lines:\n" + text[-4000:])
+    run = {"results": results}
+    generated, greedy = check_outputs(traffic, run, tok)
+    agree, err = compare_streams(tp1["greedy"], greedy)
+    check(err <= PATH_LP_TOL, f"tp 2 streams against tp 1: log-probs {err}")
+    status, beam = results["beam"]
+    check(status == 200 and len(beam["text"]) == 2
+          and np.isfinite(beam["scores"]).all(), f"tp beam {status} {beam}")
+    status, score = results["score"]
+    check(status == 200 and all(np.isfinite(lp[:len(x) - 1]).all() for lp, x
+                                in zip(score["logprobs"], whole[1][1])),
+          f"tp score {status}")
+    rounds = stopped[0]["rounds"]
+    paged = rounds["paged_forwards"]
+    launches = {}
+    for r in range(TP_SERVE):
+        n = stopped[r]["launches"]
+        k7 = n["ragged_paged_attention"]
+        check(k7 == L * paged and k7 > 0
+              and n["ragged_paged_attention:tc"] == k7,
+              f"tp rank {r}: K7 {k7} launches, not {L} x {paged} paged "
+              f"forwards all tc ({n})")
+        check(n["fused_rms_norm"] == n["flash_bwd_dq"] == 0,
+              f"rank {r}: {n}")
+        if r == 0:
+            steps = n["decode_attention"] // L
+            check(n["decode_attention"] == L * steps
+                  and 1 <= steps <= BEAM_GEN
+                  and n["decode_attention:gtd"] == n["decode_attention"],
+                  f"tp rank 0 K1 {n}")
+            check(n["flash_fwd"] == L, f"tp rank 0 K4 {n}")
+        else:
+            check(n["decode_attention"] == n["flash_fwd"] == 0,
+                  f"tp rank {r} ran the whole-batch route: {n}")
+        launches[r] = {k: n[k] for k in (
+            "ragged_paged_attention", "ragged_paged_attention:tc",
+            "decode_attention", "flash_fwd")}
+        check(started[r]["kv_pool_bytes"] * TP_SERVE == tp1["kv_pool_bytes"],
+              f"tp rank {r} pool {started[r]['kv_pool_bytes']} bytes, tp 1 "
+              f"{tp1['kv_pool_bytes']}")
+    check(metrics["serve_captured"] is False
+          and metrics["serve_kv_pool_bytes"] == started[0]["kv_pool_bytes"],
+          f"tp metrics {metrics}")
+    check(health["status"] == "ok", f"tp health {health}")
+    check("tp2 mesh (gloo, rounds uncaptured)" in line, line)
+    shutil.rmtree(tp1["argv"][1])
+    for row in kernels:
+        name = {"ragged_paged_attention_tc": "ragged_paged_attention",
+                "decode_attention": "decode_attention",
+                "flash_fwd": "flash_fwd"}.get(row["name"])
+        if name is not None:
+            by = row.setdefault("launches_by_path", {})
+            by["serving_tp"] = sum(launches[r][name]
+                                   for r in range(TP_SERVE))
+            row["launches"] = sum(by.values())
+    say("serving_tp", card=nvidia_smi(), layers=L, ranks=TP_SERVE,
+        backend="gloo", banner=line, banner_s=banner_s,
+        rank_memory_after_start=started, kv_pool_bytes_tp1=tp1[
+            "kv_pool_bytes"], requests=len(traffic) + len(whole),
+        generated_tokens=generated, wall_s=wall,
+        generated_tokens_per_s=generated / wall,
+        greedy_token_match_fraction_tp1=agree,
+        max_abs_logprob_err_tp1=err, tol=PATH_LP_TOL,
+        paged_forwards=paged, launches_by_rank=launches,
+        decode_ms_per_advance=rounds["decode_ms_per_advance"],
+        decode_ms_per_advance_tp1_captured=tp1["decode_ms_per_advance"],
+        mixed_round_ms_p50=rounds["mixed_round_ms_p50"],
+        rounds=rounds, serve_captured=metrics["serve_captured"],
+        note="eager rounds, every collective staged through host memory "
+             "(gloo, two ranks on one card): the host's time, not NVLink")
 
 
 def kernel_ms(top, names):
@@ -3090,7 +3394,9 @@ def falcon_kernel_ms(model, eng):
 # Falcon-7B's launcher phase runs half its depth: the whole smoke must fit
 # its time limit beside the parallel phase, and a cut of depth
 # leaves every width, kernel shape and route as it was
-FALCON_LAYERS = 16
+# Falcon-7B's depth on the serving entry path: 8 of 32 layers since the
+# serving_tp phase (16 before), to keep the whole smoke within 950 s
+FALCON_LAYERS = 8
 
 
 def launcher_falcon(kernels, init_std):
@@ -5715,6 +6021,7 @@ def smoke(args) -> int:
     kernels += timed("kernel_checks_fp16", check_flash_fp16)
     timed("kernel_time_flash_tp2", time_flash_tp2, kernels)
     timed("kernel_time_decode_ring", time_decode_ring, kernels)
+    timed("kernel_time_serving_tp2", time_serving_tp2, kernels)
     timed("kernel_time_flash_cp_hops", time_flash_cp_hops, kernels)
     torch.cuda.empty_cache()
     model = timed("model", build_model, args.init_std)
@@ -5741,8 +6048,10 @@ def smoke(args) -> int:
     # launchers and training
     del model, llama, params
     free_cuda()
-    timed("launcher_llama", launcher_llama, kernels, converted, weights)
+    tp1 = timed("launcher_llama", launcher_llama, kernels, converted,
+                weights)
     del weights
+    timed("serving_tp", serving_tp_phase, kernels, tp1)
     timed("launcher_falcon", launcher_falcon, kernels, args.init_std)
     say("memory_before_train",
         allocated_gb=torch.cuda.memory_allocated() / 1e9)

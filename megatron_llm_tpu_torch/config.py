@@ -365,7 +365,7 @@ class ParallelConfig:
             if getattr(self, name):
                 raise ValueError(f"{name}: the overlap schedulers are not "
                                  f"ported yet (the next A4 PR (ROADMAP.md "
-                                 f"A4): the overlap schedulers, item 2)")
+                                 f"A4): the overlap schedulers, item 1)")
         if min(self.mesh_shape) < 1:
             raise ValueError(f"dp={self.data_parallel_size} "
                              f"pp={self.pipeline_parallel_size} "

@@ -2,8 +2,13 @@
 route, and on a pipeline-parallel layout (pp > 1) the JAX package's pp
 branches and request contract (JAX :63-88, :231-314, :439-467).
 
-On a context-parallel layout (cp > 1) every rank calls the API with the
-same request as well. Scoring pads the sequence to a multiple of cp
+On a tensor-parallel layout (tp > 1) every rank of the tp group calls
+the API with the same request (SPMD, as the JAX package's one
+controller runs it under its tp context): scoring, greedy, sampled and
+beam requests run the whole-batch route on each rank's tp slices, the
+caches on its g / tp groups, the logits gathered over tp, and every
+rank returns the same answer. On a context-parallel layout (cp > 1)
+every rank calls the API with the same request as well. Scoring pads the sequence to a multiple of cp
 (JAX :271) and runs the ring, each cp rank its shard, the log-probs
 gathered over the cp group; generation runs the one-rank cached route on
 every cp rank, whose parameters are whole (at pp > 1 after the reshard
@@ -52,7 +57,11 @@ from megatron_llm_tpu_torch.inference.tokenization import (
     tokenize_prompts,
 )
 from megatron_llm_tpu_torch.optimizer.optimizer import tree_leaves
-from megatron_llm_tpu_torch.parallel.mesh import all_gather_rows, get_context
+from megatron_llm_tpu_torch.parallel.mesh import (
+    all_gather_rows,
+    broadcast,
+    get_context,
+)
 from megatron_llm_tpu_torch.parallel.pipeline import (
     make_pipelined_decode_fn,
     make_pipelined_score_fn,
@@ -90,6 +99,18 @@ def _params_nbytes(params, ctx) -> int:
             n *= ctx.tp
         total += n
     return total
+
+
+def _shared_seed(seed: int) -> int:
+    """`seed` as global rank 0 drew it, on every rank of the installed
+    layout (an unseeded sampled request must draw the same stream on
+    each)."""
+    ctx = get_context()
+    if ctx is None or ctx.world_size == 1:
+        return seed
+    dev = "cpu" if ctx.staged else ctx.device
+    x = torch.tensor([seed], dtype=torch.int64, device=dev)
+    return int(broadcast(x, 0, ctx.world_group, ctx)[0])
 
 
 def _pad_to_cp(tokens: np.ndarray, cp: int) -> np.ndarray:
@@ -233,9 +254,10 @@ def generate_and_post_process(
 
     generator = None
     if top_k_sampling != 1:
-        # random_seed < 0 means unseeded: fresh OS entropy per request
+        # random_seed < 0 means unseeded: fresh OS entropy per request,
+        # rank 0's on a layout of several ranks (each must draw the same)
         seed = (random_seed if random_seed >= 0
-                else int.from_bytes(os.urandom(4), "little"))
+                else _shared_seed(int.from_bytes(os.urandom(4), "little")))
         generator = torch.Generator(device=model.device).manual_seed(seed)
 
     out = generate_tokens(

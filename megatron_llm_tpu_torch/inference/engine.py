@@ -62,16 +62,54 @@ not depend on its slot or its neighbours; they are not JAX's random
 bits. K7 takes any page size, so the JAX engine's warning that int8
 pools want pages of a multiple of 32 (a TPU tiling rule) is dropped.
 
+Tensor-parallel serving (`serving_tp` > 1; JAX :944-1008, where one
+controller runs every step under pjit on a tp mesh). Torch has no such
+controller, so one rank drives and the others follow:
+
+- every rank of the tp group (`parallel/mesh.serving_context`, ranks
+  0..tp-1 of the process group, launched with torchrun) builds the
+  engine with the same arguments. Each holds its slice of the decode
+  tree (`parallel/sharding.decode_param_specs`, the GLU kept (h, 2, f))
+  and of every page pool and int8 scale pool (`kv_pool_spec`: g / tp
+  groups), so the gauges `kv_pool_bytes` and `kv_bytes_per_token`
+  report a rank's bytes, 1 / tp of one card's;
+- tp rank 0, the leader, runs everything on the host: the queue,
+  admission, page allocation, the prefix cache, window reclaim, the
+  drafter and the booking of tokens. Every call that touches the device
+  goes through one choke point, `_dispatch(kind, key, host arrays)`:
+  the round runners, the whole-prompt prefill and the prefix cache's
+  page copy (and the warm-up). At tp > 1 it first broadcasts that
+  descriptor (`mesh.broadcast_object`), and the other ranks, the
+  followers, make the same call on their shard (`follow()`), holding no
+  scheduler state, until the stop descriptor that `stop()` (or the
+  serve loop's death) sends. An idle leader sends a no-op every
+  `HEARTBEAT_S`, so a follower never waits out a collective's timeout
+  and a dead follower fails the serve loop (GET /health answers 503);
+- the forward gathers the logits over tp to the whole padded
+  vocabulary (models/language_model.py), so every rank carries the same
+  bits in `_last_logits` and samples the same tokens from the same
+  per-slot draw state; each rank logs its chosen tokens a round
+  (`_round_tokens`), which the tests hold equal across ranks;
+- rounds at tp > 1 run uncaptured: gloo collectives cannot be captured
+  in a CUDA graph, and NCCL refuses two ranks on one card, so on one
+  H100 the ranks are gloo processes sharing it. `counters()` says so
+  (`serve_captured: False`), as does the start line.
+
+`devices` maps tp rank r to its device (`devices[0]` pins a tp = 1
+engine, whose rounds capture as on the model's device); `replica_id`
+tags the engine: the serve thread's name and `serve_replica_id` in
+`counters()`.
+
 Left out (the constructor raises ValueError naming the slice when one is
-set to a non-default value): tp serving and replicas, the KV
-export/import hand-off, the cost registry and
-perf sentinel, the flight recorder, span tracer and profiler hook,
-Prometheus histograms.
+set to a non-default value): the KV export/import hand-off, the cost
+registry and perf sentinel, the flight recorder, span tracer and
+profiler hook, Prometheus histograms.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import functools
 import logging
 import queue as queue_mod
@@ -82,6 +120,7 @@ from typing import List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from megatron_llm_tpu_torch.inference.generation import bucket_prefill_len
 from megatron_llm_tpu_torch.inference.graph_capture import CapturedFn
@@ -91,14 +130,18 @@ from megatron_llm_tpu_torch.inference.sampling import (
     modify_logits_for_top_p,
 )
 from megatron_llm_tpu_torch.ops.quantization import scatter_quantized_rows
+from megatron_llm_tpu_torch.parallel.mesh import (
+    broadcast_object,
+    release_context,
+    serving_context,
+    use_mesh,
+)
+from megatron_llm_tpu_torch.parallel.sharding import shard_decode_params
 
 _logger = logging.getLogger(__name__)
 
 # knob -> (default, the later slice that ports it)
 _LEFT_OUT = {
-    "serving_tp": (1, "tp serving and replicas"),
-    "devices": (None, "tp serving and replicas"),
-    "replica_id": (None, "tp serving and replicas"),
     "timers": (None, "observability"),
     "trace_dir": (None, "observability"),
     "record_dir": (None, "observability"),
@@ -114,6 +157,22 @@ _LEFT_OUT = {
 def _not_ported(what: str, slice_name: str) -> ValueError:
     return ValueError(f"{what} is not ported yet: it belongs to the "
                       f"{slice_name} slice of the engine (ROADMAP.md A2)")
+
+
+# seconds an idle tp leader waits before it sends the followers a no-op
+HEARTBEAT_S = 1.0
+# the device calls of `_dispatch`: the round kinds, whose first output is
+# the round's chosen tokens, and the rest
+_ROUNDS = ("step", "mixed", "spec")
+
+
+def _to_device(tree, device):
+    """A decode tree (dicts, tuples, tensors) on `device`."""
+    if isinstance(tree, dict):
+        return {k: _to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(_to_device(v, device) for v in tree)
+    return tree.to(device)
 
 
 def horizon_buckets(step_horizon: int) -> list:
@@ -492,9 +551,12 @@ class DecodeEngine:
     window mask and frees nothing, the control its bitwise equality is
     held against), `warmup_compile` (`start()` captures every round
     bucket first, `warmup()`; without it a bucket is captured at its
-    first use). The device is the model's. Every knob of the JAX engine
-    that the port leaves out raises ValueError when set to a non-default
-    value.
+    first use), `serving_tp` (tensor-parallel ranks; every rank of the
+    group builds the engine, tp rank 0 serves and the others call
+    `follow()`: the module doc), `devices` (tp rank r's device; default
+    the model's), `replica_id` (the engine's tag). Every knob of the JAX
+    engine that the port leaves out raises ValueError when set to a
+    non-default value.
 
     Rounds run as CUDA graphs on a CUDA device (inference/
     graph_capture.py): each round kind and bucket, (horizon,
@@ -520,6 +582,9 @@ class DecodeEngine:
                  termination_id: Optional[int] = None,
                  vocab_size: Optional[int] = None,
                  warmup_compile: bool = False,
+                 serving_tp: int = 1,
+                 devices=None,
+                 replica_id: Optional[int] = None,
                  **left_out):
         for name, value in left_out.items():
             if name not in _LEFT_OUT:
@@ -545,6 +610,44 @@ class DecodeEngine:
                 "dense prefill cannot")
         self.model = model
         self.cfg = model.cfg
+        # -- the tp group (JAX :967-1008) -----------------------------------
+        self.serving_tp = max(1, serving_tp)
+        self.replica_id = replica_id
+        if self.serving_tp > 1 or devices is not None:
+            if self.cfg.num_query_groups % self.serving_tp != 0:
+                raise ValueError(
+                    f"serving_tp={self.serving_tp} must divide the KV "
+                    f"group count ({self.cfg.num_query_groups}): the "
+                    f"page pools shard over the group axis "
+                    f"(parallel/sharding.kv_pool_spec) — use a tp that "
+                    f"divides num_query_groups, or replicate the "
+                    f"engine behind the router instead")
+            if quantize_weights and self.serving_tp > 1:
+                raise ValueError(
+                    "quantize_weights is single-chip-layout only (the "
+                    "weight-only int8 decode tree bakes the flattened "
+                    "(h, 2f) GLU view, whose gate|up concat crosses "
+                    "the tp shard boundary); serve the fp decode tree "
+                    "on a tp mesh, or quantize at tp=1")
+            if devices is not None and len(devices) != self.serving_tp:
+                raise ValueError(f"devices lists {len(devices)} devices "
+                                 f"for serving_tp={self.serving_tp}: one "
+                                 f"per tp rank")
+        if devices is None:
+            device = model.device
+        else:
+            device = devices[dist.get_rank() if self.serving_tp > 1
+                             and dist.is_initialized() else 0]
+        self._ctx = None if self.serving_tp == 1 \
+            else serving_context(self.serving_tp, device)
+        self.tp_rank = 0 if self._ctx is None else self._ctx.tp_rank
+        # the followers' stop descriptor went out (`_release`)
+        self._released = False
+        self._last_dispatch = time.monotonic()
+        # this rank's chosen tokens a round (tp > 1): the leader's and
+        # every follower's must agree
+        self._round_tokens: collections.deque = collections.deque(
+            maxlen=4096)
         # sliding window: static per model; windowed slots are priced and
         # reserved at `_window_slot_pages`, topped up before each round
         # (`_ensure_pages`) and give pages back after it
@@ -559,7 +662,11 @@ class DecodeEngine:
                 "prefills through the dense path, which carries no "
                 "window mask, so its cache would disagree with every "
                 "windowed chunked and decode round")
-        self.device = torch.device(model.device)
+        self.device = torch.device(device)
+        if self.device != torch.device(model.device):
+            # the model object holds its config and device only: the
+            # engine's twin on its own device allocates the caches there
+            self.model = model = type(model)(self.cfg, device=self.device)
         self._cuda_index = None
         if self.device.type == "cuda":
             self._cuda_index = (self.device.index
@@ -580,16 +687,24 @@ class DecodeEngine:
         self._prefix = PrefixCache(page_size) if prefix_cache else None
         self.spec_decode_k = spec_decode_k
         self.kv_dtype = kv_dtype
+        self.quantize_weights = bool(quantize_weights)
         self.termination_id = termination_id
         self.vocab_size = vocab_size
         self.warmup_compile = bool(warmup_compile)
 
-        # the int8 decode tree is built once and serves every round kind
-        self._dec_params = model.prepare_decode_params(
-            params, quantize_int8=quantize_weights)
+        # the int8 decode tree is built once and serves every round kind;
+        # a tp engine keeps the (h, 2, f) GLU and holds its rank's slice
+        dec = model.prepare_decode_params(
+            params, quantize_int8=quantize_weights,
+            flatten_glu=self.serving_tp == 1)
+        if self.serving_tp > 1:
+            dec = shard_decode_params(dec, self.cfg, self.serving_tp,
+                                      self.tp_rank)
+        self._dec_params = _to_device(dec, self.device)
         caches = model.init_paged_kv_caches(
             slots, self.num_pages, page_size, self.max_pages_per_slot,
-            kv_dtype=torch.int8 if kv_dtype == "int8" else None)
+            kv_dtype=torch.int8 if kv_dtype == "int8" else None,
+            tp=self.serving_tp)
         # (k pools, v pools, k scale pools, v scale pools): one tuple per
         # layer each, the scale tuples empty for fp pools
         self._pools = (caches["k_pages_layers"], caches["v_pages_layers"],
@@ -606,9 +721,11 @@ class DecodeEngine:
         self._step_fns: dict = {}
         self._mixed_fns: dict = {}
         self._spec_fns: dict = {}
-        self._eager = False
+        # gloo collectives cannot be captured: tp > 1 rounds run
+        # uncaptured (`serve_captured` in counters())
+        self._eager = self.serving_tp > 1
         self._graph_pool = self._graph_stream = None
-        if self._cuda_index is not None:
+        if self._cuda_index is not None and not self._eager:
             dev = torch.device("cuda", self._cuda_index)
             self._graph_pool = torch.cuda.graph_pool_handle()
             self._graph_stream = torch.cuda.Stream(dev)
@@ -810,8 +927,8 @@ class DecodeEngine:
                     if match.cow_src is not None:
                         # the divergent page starts as a private replica
                         # of the shared one; prefill resumes inside it
-                        _page_copy(self._pools, match.cow_src,
-                                   pages[match.full_pages])
+                        self._dispatch("copy", (match.cow_src,
+                                                pages[match.full_pages]))
                         self._prefix.release_page(match.cow_src)
                         self._prefix.cow_copies += 1
                 if self._prefix is not None:
@@ -820,18 +937,16 @@ class DecodeEngine:
                 self._lengths[si] = matched
             else:
                 plen = bucket_prefill_len(len(req.prompt))
-                row_logits, plp = _prefill(
-                    self.model, self._dec_params, self._pools,
-                    self._dev([req.prompt[:plen]], np.int64),
-                    self._dev(self._pt[si]), self.page_size)
-                self._last_logits[si] = row_logits.float()
+                plp = self._dispatch("prefill", (si,), {
+                    "tokens": np.asarray([req.prompt[:plen]], np.int64),
+                    "pt_row": self._pt[si].copy()})
                 self._lengths[si] = plen
                 slot.prefill_pos = len(req.prompt)
                 slot.forced = collections.deque(req.prompt[plen:])
                 self._prefill_tokens += plen
                 prefilled += plen
                 if req.return_log_probs:
-                    req.log_probs = plp.cpu().tolist()
+                    req.log_probs = plp
             req.t_admit = time.perf_counter()
             self._admitted += 1
         return prefilled
@@ -1139,9 +1254,9 @@ class DecodeEngine:
         write only to the dead null page and leave every slot's carried
         logits, the host mirrors and the prefix cache as they were, so
         warmup is invisible to traffic. `warmup_compile=True` runs it
-        inside `start()`."""
-        with torch.inference_mode():
-            self._warmup_scoped()
+        inside `start()`. At tp > 1 every rank runs the same idle rounds,
+        uncaptured."""
+        self._dispatch("warmup")
 
     def _warmup_scoped(self):
         # a bucket minted earlier holds its last round in its buffers:
@@ -1156,6 +1271,96 @@ class DecodeEngine:
                 self._spec_fn(w, all_greedy)(**self._null_spec_args(w))
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
+
+    # -- the choke point of every device call (tp serving) -------------------
+
+    def mesh_scope(self):
+        """This engine's tp context, installed for the calling thread
+        (JAX :1362-1382): the model's collectives read it. A null scope
+        at tp = 1."""
+        if self._ctx is None:
+            return contextlib.nullcontext()
+        return use_mesh(self._ctx)
+
+    def _dispatch(self, kind: str, key: tuple = (), args=None):
+        """Run one device call of the engine: a round runner ("step",
+        "mixed", "spec" with its bucket key), the whole-prompt "prefill",
+        the prefix cache's page "copy", the "warmup" or a "noop". At
+        tp > 1 the leader first sends the call's descriptor (kind, key
+        and host arrays) to the followers, which make the same call on
+        their shards."""
+        args = {} if args is None else args
+        if self._ctx is not None:
+            if self.tp_rank != 0:
+                raise RuntimeError("a tp follower runs what the leader "
+                                   "sends (follow()), nothing of its own")
+            if self._released:
+                raise RuntimeError(f"engine is stopped: its tp followers "
+                                   f"were released ({self._broken})")
+            broadcast_object((kind, key, args), self._ctx)
+            self._last_dispatch = time.monotonic()
+        return self._run(kind, key, args)
+
+    def _run(self, kind: str, key: tuple, args: dict):
+        with torch.inference_mode(), self.mesh_scope():
+            if kind in _ROUNDS:
+                runner = {"step": self._step_fn, "mixed": self._mixed_fn,
+                          "spec": self._spec_fn}[kind](*key)
+                out = runner(**args)
+                if self._ctx is not None:
+                    self._round_tokens.append(out[0].cpu().numpy().copy())
+                return out
+            if kind == "prefill":
+                (si,) = key
+                row_logits, plp = _prefill(
+                    self.model, self._dec_params, self._pools,
+                    self._dev(args["tokens"], np.int64),
+                    self._dev(args["pt_row"]), self.page_size)
+                self._last_logits[si] = row_logits.float()
+                return plp.cpu().tolist()
+            if kind == "copy":
+                _page_copy(self._pools, *key)
+            elif kind == "warmup":
+                self._warmup_scoped()
+            elif kind != "noop":
+                raise ValueError(f"unknown engine call {kind!r}")
+            return None
+
+    def follow(self):
+        """A follower's loop (tp rank > 0): receive each descriptor the
+        leader sends and make the same call on this rank's shards, until
+        the stop descriptor. A failing call raises here (and the leader's
+        next collective with this rank fails its serve loop)."""
+        if self._ctx is None or self.tp_rank == 0:
+            raise RuntimeError("follow() is a tp follower's loop (serving_tp "
+                               "> 1, tp rank > 0)")
+        if self._cuda_index is not None:
+            torch.cuda.set_device(self._cuda_index)
+        try:
+            while True:
+                kind, key, args = broadcast_object(None, self._ctx)
+                if kind == "stop":
+                    return
+                self._run(kind, key, args)
+        finally:
+            self._close()
+
+    def _release(self):
+        """The leader's stop descriptor to the followers, sent once; a
+        failure to send (a follower already gone) is logged, never
+        raised, so the serve loop's death always completes."""
+        if self._ctx is None or self.tp_rank != 0 or self._released:
+            return
+        self._released = True
+        try:
+            broadcast_object(("stop", (), {}), self._ctx)
+        except Exception:  # noqa: BLE001: a dead follower cannot be told
+            _logger.exception("could not send the tp followers their stop")
+        self._close()
+
+    def _close(self):
+        if self._ctx is not None and self._ctx.groups:
+            release_context(self._ctx)
 
     def graph_stats(self) -> dict:
         """The captured rounds: how many, and the seconds their captures
@@ -1193,10 +1398,10 @@ class DecodeEngine:
                 forced[i, :nf] = [s.forced[t] for t in range(nf)]
                 use_forced[i, :nf] = True
         all_greedy = all(self._slots[i].req.greedy for i in live)
-        chosen, chosen_lp = self._step_fn(hor, all_greedy)(
+        chosen, chosen_lp = self._dispatch("step", (hor, all_greedy), dict(
             page_table=self._pt, lengths=self._lengths, active=active,
             forced=forced, use_forced=use_forced,
-            **self._sampling_arrays(live))
+            **self._sampling_arrays(live)))
         chosen = chosen.cpu().numpy()  # the round's one wait for the card
         want_lp = any(self._slots[i].req.return_log_probs for i in live)
         chosen_lp = chosen_lp.cpu().numpy() if want_lp else None
@@ -1253,11 +1458,12 @@ class DecodeEngine:
         chunk_lens[dec] = 1
         all_greedy = all(self._slots[i].req.greedy for i in dec)
         want_chunk = s_c.req.return_log_probs
-        first, first_lp, chunk_lps = self._mixed_fn(width, all_greedy)(
-            page_table=self._pt, lengths=self._lengths,
-            chunk_tokens=chunk_tokens, chunk_lens=chunk_lens,
-            is_prefill=is_prefill, chunk_idx=np.asarray([ci], np.int64),
-            **self._sampling_arrays(dec))
+        first, first_lp, chunk_lps = self._dispatch(
+            "mixed", (width, all_greedy), dict(
+                page_table=self._pt, lengths=self._lengths,
+                chunk_tokens=chunk_tokens, chunk_lens=chunk_lens,
+                is_prefill=is_prefill, chunk_idx=np.asarray([ci], np.int64),
+                **self._sampling_arrays(dec)))
         first = first.cpu().numpy()  # the round's one wait for the card
         want_lp = want_chunk or any(self._slots[i].req.return_log_probs
                                     for i in dec)
@@ -1374,10 +1580,11 @@ class DecodeEngine:
             chunk_lens[i] = 1 + len(d)
             is_spec[i] = bool(d)
         all_greedy = all(self._slots[i].req.greedy for i in live)
-        first, first_lp, gt, gt_lp, acc = self._spec_fn(width, all_greedy)(
-            page_table=self._pt, lengths=self._lengths,
-            chunk_tokens=chunk_tokens, chunk_lens=chunk_lens,
-            is_spec=is_spec, **self._sampling_arrays(live))
+        first, first_lp, gt, gt_lp, acc = self._dispatch(
+            "spec", (width, all_greedy), dict(
+                page_table=self._pt, lengths=self._lengths,
+                chunk_tokens=chunk_tokens, chunk_lens=chunk_lens,
+                is_spec=is_spec, **self._sampling_arrays(live)))
         first = first.cpu().numpy()  # the round's wait for the card
         gt = gt.cpu().numpy()
         acc = acc.cpu().numpy()
@@ -1482,6 +1689,7 @@ class DecodeEngine:
         if self.warmup_compile:
             self.warmup()
         self._running = True
+        _logger.info("%s", self.describe())
 
         def loop():
             if self._cuda_index is not None:
@@ -1489,11 +1697,16 @@ class DecodeEngine:
             while self._running:
                 try:
                     did = self.step()
+                    if (not did and self._ctx is not None
+                            and time.monotonic() - self._last_dispatch
+                            > HEARTBEAT_S):
+                        self._dispatch("noop")
                 except Exception as e:  # noqa: BLE001: fail loudly, never hang
                     self._broken = f"engine step failed: {e!r}"
                     _logger.exception("serve loop died; failing all "
                                       "in-flight requests")
                     self._fail_all(self._broken)
+                    self._release()
                     self._running = False
                     return
                 if not did:
@@ -1501,13 +1714,17 @@ class DecodeEngine:
                         if self._running:
                             self._work.wait(timeout=0.05)
 
-        self._thread = threading.Thread(target=loop, daemon=True)
+        self._thread = threading.Thread(
+            target=loop, daemon=True, name=self._name("decode-engine"))
         self._thread.start()
 
     def stop(self, drain: bool = True):
         """Stop the serve thread; drain=True finishes every admitted and
-        queued request first, drain=False fails them."""
+        queued request first, drain=False fails them. A tp leader then
+        sends its followers the stop descriptor (also when it drained
+        without the serve thread)."""
         if self._thread is None:
+            self._release()
             return
         if drain:
             while self._thread.is_alive() and self._broken is None:
@@ -1524,6 +1741,7 @@ class DecodeEngine:
         self._thread = None
         if not drain:
             self._fail_all("engine stopped")
+        self._release()
 
     # -- observability -------------------------------------------------------
 
@@ -1532,9 +1750,37 @@ class DecodeEngine:
         ('bfloat16', 'float32', 'int8')."""
         return str(self._pools[0][0].dtype).replace("torch.", "")
 
+    def _name(self, base: str) -> str:
+        """`base` tagged with the replica id when one is set (JAX
+        :1354-1360)."""
+        if self.replica_id is None:
+            return base
+        return f"{base}-r{self.replica_id}"
+
+    def describe(self) -> str:
+        """The start line (JAX :3145-3165): slots, pool pages and the
+        pool's bytes on this rank (its g / tp groups at tp > 1), and at
+        tp > 1 that rounds run uncaptured."""
+        return (
+            "decode engine%s: %d slots, paged KV pool kv_dtype=%s%s — "
+            "%d pages x %d tokens = %d KV positions, %.1f MiB/chip pool "
+            "(%d bytes/token/chip)%s" % (
+                "" if self.replica_id is None
+                else f" [replica {self.replica_id}]",
+                self.slots, self.kv_pool_dtype(),
+                "" if self.serving_tp == 1
+                else f" tp={self.serving_tp} (group-sharded, "
+                     f"{self._ctx.backend}, rounds uncaptured)",
+                self.num_pages - 1, self.page_size,
+                (self.num_pages - 1) * self.page_size,
+                self.kv_pool_bytes() / 2**20, self.kv_bytes_per_token(),
+                ", weight-only int8 decode matmuls"
+                if self.quantize_weights else ""))
+
     def kv_pool_bytes(self) -> int:
-        """Device bytes the paged KV pools hold, data and (int8) scale
-        pools, summed over layers."""
+        """Device bytes the paged KV pools hold on this rank, data and
+        (int8) scale pools, summed over layers: at tp > 1 the rank's
+        g / tp groups, 1 / tp of one card's bytes (JAX :3267-3282)."""
         return sum(x.numel() * x.element_size()
                    for group in self._pools for x in group)
 
@@ -1543,6 +1789,24 @@ class DecodeEngine:
         data and any scales)."""
         return round(self.kv_pool_bytes()
                      / (self.num_pages * self.page_size))
+
+    def round_summary(self) -> dict:
+        """The logged rounds' wall times: ms per decode-token advance
+        over the decode rounds, and the median mixed round, with their
+        counts and the paged forwards they ran."""
+        with self._lock:
+            rounds = list(self._round_log)
+        dec = [r for r in rounds
+               if not r["prefill_tokens"] and "spec_emitted" not in r]
+        mixed = sorted(r["ms"] for r in rounds if r["prefill_tokens"])
+        return {
+            "rounds": len(rounds),
+            "paged_forwards": sum(r["decode_steps"] for r in rounds),
+            "decode_rounds": len(dec),
+            "decode_ms_per_advance": sum(r["ms"] for r in dec)
+            / max(sum(r["decode_steps"] for r in dec), 1),
+            "mixed_rounds": len(mixed),
+            "mixed_round_ms_p50": mixed[len(mixed) // 2] if mixed else 0.0}
 
     @staticmethod
     def _pct(window, p: float) -> float:
@@ -1572,7 +1836,11 @@ class DecodeEngine:
         with self._lock:
             ttft = list(self._ttft_ms)
             decode_ms = list(self._decode_ms)
-        out = {
+        out = {}
+        if self.replica_id is not None:
+            # first, and absent on untagged engines (JAX :3333-3338)
+            out["serve_replica_id"] = self.replica_id
+        out |= {
             "serve_kv_dtype": self.kv_pool_dtype(),
             "serve_kv_pool_bytes": self.kv_pool_bytes(),
             "serve_kv_bytes_per_token": self.kv_bytes_per_token(),
@@ -1605,4 +1873,8 @@ class DecodeEngine:
             # present only on windowed engines, as in JAX
             out["serve_window_size"] = self.window
             out["serve_window_reclaimed_pages"] = self._window_reclaimed
+        if self.serving_tp > 1:
+            # the port's: tp rounds are uncaptured (gloo collectives
+            # cannot be captured), never a silent switch
+            out["serve_captured"] = False
         return out

@@ -53,6 +53,7 @@ from megatron_llm_tpu_torch.inference.sampling import (
     modify_logits_for_top_k,
     modify_logits_for_top_p,
 )
+from megatron_llm_tpu_torch.parallel.mesh import get_context
 
 _logger = logging.getLogger(__name__)
 
@@ -296,7 +297,10 @@ def generate_tokens(model, params: dict, tokens, lengths, prefill_len: int,
     generating emitted `termination_id`. On the card the call captures
     one decode step into a CUDA graph and replays it at every step; the
     private `_eager=True` runs the same step uncaptured (the same-call
-    comparison of the smoke run). Calls run one at a time."""
+    comparison of the smoke run). Under a tensor-parallel context
+    (every rank of the tp group calls it with the same request) the
+    caches hold the rank's g / tp groups and the step runs uncaptured.
+    Calls run one at a time."""
     dev = model.device
     tokens = _ids(tokens, dev)
     lengths = _ids(lengths, dev)
@@ -306,9 +310,13 @@ def generate_tokens(model, params: dict, tokens, lengths, prefill_len: int,
     settings = (greedy, top_k, top_p, top_p_decay, top_p_bound, temperature,
                 vocab_size, termination_id, return_log_probs, early,
                 prevent_newline_after_colon_ids)
+    # a tensor-parallel step all-reduces and gathers: gloo collectives
+    # cannot be captured, so at tp > 1 the step runs uncaptured
+    ctx = get_context()
+    tp = ctx is not None and ctx.tp > 1
     with _lock:
         loop = _DecodeLoop(model, model.prepare_decode_params(params), b,
-                           max_len, settings, capture=not _eager)
+                           max_len, settings, capture=not (_eager or tp))
         return loop.run(tokens, lengths, prefill_len, generator)
 
 

@@ -18,7 +18,15 @@ closes. A client that disconnects mid-stream cancels its request (the
 slot retires and its pages come back).
 
 GET /health answers the engine's liveness (503 once its serve loop
-died); GET /metrics the engine's `counters()` as JSON. Engineless
+died); GET /metrics the engine's `counters()` as JSON.
+
+With a tensor-parallel engine (`serving_tp` > 1) the server runs on tp
+rank 0 only, the engine's leader: engine requests reach every rank
+through its rounds, and the requests the engine does not take run on
+this rank's whole tree, as the JAX server runs them on the launcher's
+`model, params` (JAX :255-257). A follower that dies fails the
+leader's next round with it (the leader sends an idle round every
+second), so GET /health answers 503 once any rank's loop died. Engineless
 servers answer as the JAX server does without an engine: 200 on
 /health, 404 on the engine-only surfaces, 400 on a streaming PUT.
 

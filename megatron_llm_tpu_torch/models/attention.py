@@ -29,7 +29,10 @@ that group count, and wo is row-parallel: the block reads the full
 input (`tp_input`: a copy, or under sequence parallelism an all-gather
 of the sequence shards) and sums its output over the tp group
 (`tp_output`: an all-reduce, or a reduce-scatter into sequence shards)
-before the output bias. The cached branches (serving) run at tp = 1.
+before the output bias. The cached branches (serving) run the same
+way at tp > 1 (JAX :412-452 under GSPMD): each rank's caches and page
+pools hold its g / tp groups, the groups its wqkv columns make, so K1
+and K7 run at a rank's group count and the output is summed over tp.
 
 The cached branches never take the ring: generation at cp > 1 runs the
 one-rank route on every cp rank, whose parameters are whole.
@@ -60,7 +63,7 @@ from megatron_llm_tpu_torch.ops.prefill_attention import (
 )
 from megatron_llm_tpu_torch.ops.quantization import qdot
 from megatron_llm_tpu_torch.parallel.mappings import tp_input, tp_output
-from megatron_llm_tpu_torch.parallel.mesh import A4_TP_SERVING, get_context
+from megatron_llm_tpu_torch.parallel.mesh import get_context
 from megatron_llm_tpu_torch.parallel.ring_attention import (
     ring_self_attention,
 )
@@ -136,11 +139,6 @@ def attention_block(attn_params: dict, cfg, hidden: torch.Tensor,
       when it is set. Without "chunk_lens" every slot is a width-1
       decode row (s == 1). The returned dict has lengths + chunk_lens.
       Nothing here reads a device value on the host."""
-    if kv_cache is not None:
-        ctx = get_context()
-        if ctx is not None and ctx.tp > 1:
-            raise ValueError(f"tensor-parallel serving is not ported yet "
-                             f"({A4_TP_SERVING})")
     hidden = tp_input(hidden)
     b, s, _ = hidden.shape
     dt = cfg.compute_dtype

@@ -20,6 +20,7 @@ from megatron_llm_tpu_torch.models.language_model import (
 )
 from megatron_llm_tpu_torch.models.transformer import layer_slice
 from megatron_llm_tpu_torch.parallel.mesh import get_context
+from megatron_llm_tpu_torch.parallel.sharding import kv_pool_shard_shape
 from megatron_llm_tpu_torch.ops.quantization import (
     is_quantized_weight,
     quantize_decode_layers,
@@ -110,7 +111,8 @@ class GPTModel(nn.Module):
         return (losses * loss_mask).sum(), loss_mask.sum()
 
     def prepare_decode_params(self, params: dict,
-                              quantize_int8: bool = False) -> dict:
+                              quantize_int8: bool = False,
+                              flatten_glu: bool = True) -> dict:
         """Decode layout, built once before the token loop: the stacked
         layer tree becomes a tuple of per-layer views, the GLU weight
         (h, 2, ffn) its flat (h, 2 ffn) view, and every floating weight is
@@ -124,7 +126,17 @@ class GPTModel(nn.Module):
         with per-output-channel fp32 scales (ops/quantization.py),
         quantized from the tree as given, before any cast, as the JAX
         package quantizes its un-cast tree; the other leaves are cast as
-        above."""
+        above.
+
+        `flatten_glu=False` (the tensor-parallel serving engine, JAX
+        :219-227) keeps the GLU weight (h, 2, ffn): the flat view joins
+        gate and up along the axis tp splits
+        (parallel/sharding.decode_param_specs)."""
+        if quantize_int8 and not flatten_glu:
+            raise ValueError(
+                "quantize_int8 requires the flattened GLU decode "
+                "layout (quantize_decode_layers quantizes the 2D "
+                "view); tp-sharded engines serve the fp decode tree")
         dt = self.cfg.compute_dtype
 
         def cast(tree):
@@ -138,7 +150,7 @@ class GPTModel(nn.Module):
 
         def one(i):
             layer = layer_slice(stacked, i)
-            if self.cfg.glu_activation:
+            if self.cfg.glu_activation and flatten_glu:
                 w1 = layer["mlp"]["w1"]
                 layer["mlp"]["w1"] = w1.reshape(w1.shape[0], -1)
             return layer
@@ -153,9 +165,13 @@ class GPTModel(nn.Module):
     def init_kv_caches(self, batch_size: int, max_len: int) -> dict:
         """Preallocated per-layer (b, g, T, d) caches in the compute dtype
         (the JAX package's layout="layers", the decode kernel's "gtd");
-        each step writes its columns in place."""
+        each step writes its columns in place. Under a tensor-parallel
+        context g is this rank's g / tp groups."""
         cfg = self.cfg
-        shape = (batch_size, cfg.num_query_groups, max_len, cfg.head_dim)
+        ctx = get_context()
+        tp = ctx.tp if ctx is not None else 1
+        shape = (batch_size, cfg.num_query_groups // tp, max_len,
+                 cfg.head_dim)
 
         def zeros():
             return torch.zeros(shape, dtype=cfg.compute_dtype,
@@ -167,7 +183,7 @@ class GPTModel(nn.Module):
 
     def init_paged_kv_caches(self, slots: int, num_pages: int,
                              page_size: int, max_pages_per_slot: int,
-                             kv_dtype=None) -> dict:
+                             kv_dtype=None, tp: int = 1) -> dict:
         """Paged KV cache for the continuous-batching engine
         (inference/engine.py), on `self.device`: per-layer page pools
         (num_pages, page_size, g, d) shared by all slots, in the compute
@@ -178,10 +194,15 @@ class GPTModel(nn.Module):
         rows and idle slots write only to a dead page. int8 pools also
         get per-layer fp32 scale pools "k_scales_layers" /
         "v_scales_layers" of (num_pages, page_size, g): one scale per
-        (token, group), written by the scatter that writes the data."""
+        (token, group), written by the scatter that writes the data.
+
+        At `tp` > 1 (the tensor-parallel engine, JAX `mesh_ctx`) every
+        pool holds this rank's slice, `kv_pool_shard_shape`: g / tp
+        groups, never the whole pool."""
         cfg = self.cfg
         dt = cfg.compute_dtype if kv_dtype is None else kv_dtype
-        shape = (num_pages, page_size, cfg.num_query_groups, cfg.head_dim)
+        shape = kv_pool_shard_shape(
+            (num_pages, page_size, cfg.num_query_groups, cfg.head_dim), tp)
 
         def zeros(shape, dtype):
             return torch.zeros(shape, dtype=dtype, device=self.device)

@@ -9,7 +9,11 @@ the embedding looks up the tokens its shard owns, zeroes the rest and
 all-reduces, or under sequence parallelism reduce-scatters into the
 rank's sequence shard; the head reads the full hidden states
 (`tp_input`) and leaves its logits vocab-sharded for the vocab-parallel
-cross entropy.
+cross entropy. The logits `language_model_forward` returns (scoring and
+every cached decode path: the whole-batch route, the engine's rounds)
+are gathered over the tp group to the whole padded vocabulary, as the
+JAX package's GSPMD forward returns them, so every rank samples from
+the same bits.
 """
 
 from __future__ import annotations
@@ -32,6 +36,7 @@ from megatron_llm_tpu_torch.parallel.cross_entropy import (
     vocab_parallel_cross_entropy,
 )
 from megatron_llm_tpu_torch.parallel.mappings import (
+    gather_from_tp_last,
     sequence_shard,
     tp_input,
     tp_output,
@@ -156,7 +161,8 @@ def language_model_forward(params: dict, cfg, tokens: torch.Tensor,
     caller passes. `return_hidden` stops after the final norm and
     returns the (b, s, h) hidden states instead (the training loss
     projects to the vocabulary chunk by chunk, see
-    chunked_head_cross_entropy)."""
+    chunked_head_cross_entropy). Under tensor parallelism the logits are
+    gathered to the whole padded vocabulary on every rank."""
     ctx = get_context()
     if position_ids is None and kv_caches is None and ctx is not None \
             and ctx.cp > 1:
@@ -179,4 +185,5 @@ def language_model_forward(params: dict, cfg, tokens: torch.Tensor,
     hidden = apply_norm(hidden, params["final_norm"], cfg)
     if return_hidden:
         return hidden, new_caches
-    return lm_logits(params, cfg, tp_input(hidden)), new_caches
+    logits = lm_logits(params, cfg, tp_input(hidden))
+    return gather_from_tp_last(logits), new_caches

@@ -10,6 +10,7 @@ JAX package gets the same collectives from GSPMD at its
 | `scatter_to_sequence` | this rank's sequence chunk | all-gather |
 | `gather_from_sequence` | all-gather along the sequence | reduce-scatter |
 | `reduce_scatter_to_sequence` | reduce-scatter along the sequence | all-gather |
+| `gather_from_tp_last` | all-gather along the last axis | this rank's slice |
 
 The sequence axis is axis 1 of (b, s, ...) activations. Every function
 is the identity, and issues no collective, without a context or at
@@ -111,6 +112,23 @@ class _ReduceScatter(torch.autograd.Function):
         return _gather_seq(g, c.ctx), None
 
 
+def _gather_last(x, ctx):
+    parts = all_gather_rows(x.contiguous()[None], ctx.tp_group, ctx)
+    return torch.cat(parts.unbind(0), dim=-1)
+
+
+class _GatherLast(torch.autograd.Function):
+    @staticmethod
+    def forward(c, x, ctx):
+        c.ctx = ctx
+        return _gather_last(x, ctx)
+
+    @staticmethod
+    def backward(c, g):
+        n = g.shape[-1] // c.ctx.tp
+        return g[..., c.ctx.tp_rank * n:(c.ctx.tp_rank + 1) * n], None
+
+
 def _mapping(fn):
     def apply(x):
         ctx = _tp()
@@ -124,6 +142,9 @@ reduce_from_tp = _mapping(_Reduce)
 scatter_to_sequence = _mapping(_Scatter)
 gather_from_sequence = _mapping(_Gather)
 reduce_scatter_to_sequence = _mapping(_ReduceScatter)
+# vocab-parallel logits -> the whole padded vocabulary, the same bits on
+# every rank of the tp group
+gather_from_tp_last = _mapping(_GatherLast)
 
 
 def sequence_parallel() -> bool:

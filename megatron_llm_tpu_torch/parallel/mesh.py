@@ -34,6 +34,15 @@ is chosen here, once, from the backend and the device; nothing falls
 back to it on an error; under it each point-to-point direction keeps
 one pinned host buffer per peer and shape.
 
+Tensor-parallel serving (inference/engine.py at serving_tp > 1) runs
+under a context of its own, `serving_context`: one tp group over ranks
+0..tp-1, installed per thread by `use_mesh` around the engine's rounds
+and never process-wide, so rank 0's whole-batch requests outside the
+engine run on one rank. Its tp rank 0 drives and sends each round's
+host arrays to the other ranks with `broadcast_object`, over a gloo
+group of the same ranks whatever the model's backend (the arrays are
+host data).
+
 `destroy_parallel` releases the context's groups while the interpreter
 runs: a gloo group left for the interpreter's exit to destroy can abort
 the process there ("terminate called without an active exception").
@@ -44,6 +53,7 @@ from __future__ import annotations
 import contextlib
 import datetime
 import os
+import pickle
 import threading
 from dataclasses import dataclass, field
 from typing import Optional
@@ -59,8 +69,7 @@ STAGE_AXIS = "stage"
 
 NEXT_A4 = "the next A4 PR (ROADMAP.md A4)"
 # the items of the next A4 PR, by their ROADMAP.md numbers
-A4_TP_SERVING = f"{NEXT_A4}: tensor-parallel serving, item 1"
-A4_DROPOUT = f"{NEXT_A4}: dropout across ranks, item 3"
+A4_DROPOUT = f"{NEXT_A4}: dropout across ranks, item 2"
 BACKENDS = ("nccl", "gloo")
 # a hung collective fails after this long instead of hanging the run
 TIMEOUT = datetime.timedelta(minutes=10)
@@ -168,6 +177,8 @@ class ParallelContext:
     cp_ranks: tuple = (0,)
     # point-to-point state: pinned host buffers and sends in flight
     p2p: dict = field(default_factory=dict)
+    # a serving context's gloo group for `broadcast_object`
+    object_group: object = None
 
     @property
     def world_size(self) -> int:
@@ -278,6 +289,73 @@ def initialize_parallel(dp: int = 1, pp: int = 1, tp: int = 1,
     return ctx
 
 
+def serving_context(tp: int, device="cuda",
+                    backend: Optional[str] = None) -> ParallelContext:
+    """The context of a tensor-parallel serving engine over the ranks
+    0..tp-1 of the default process group, which must hold exactly those
+    ranks (torchrun --nproc_per_node tp, or spawn_cpu_group), on this
+    rank's `device`. It is returned, not installed: the engine installs
+    it for its own rounds (`use_mesh`). Besides the tp group it holds
+    `object_group`, a gloo group of the same ranks for
+    `broadcast_object`. Every rank calls this at the same point."""
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if world != tp:
+        raise ValueError(f"serving_tp={tp}: tp serving runs one process a "
+                         f"tp rank, in a process group of exactly {tp} "
+                         f"(torchrun --nproc_per_node {tp}); this one has "
+                         f"{world}")
+    got = dist.get_backend()
+    if backend is not None and backend != got:
+        raise ValueError(f"backend {backend!r} asked, the process group "
+                         f"runs {got!r}")
+    device = torch.device(device)
+    check_backend(got, device)
+    ranks = list(range(tp))
+    tp_group = dist.new_group(ranks, timeout=TIMEOUT)
+    obj_group = dist.new_group(ranks, timeout=TIMEOUT, backend="gloo")
+    ctx = ParallelContext(tp=tp, rank=dist.get_rank(), backend=got,
+                          device=device, tp_group=tp_group,
+                          world_group=tp_group,
+                          groups=[tp_group, obj_group])
+    ctx.object_group = obj_group
+    return ctx
+
+
+def release_context(ctx: ParallelContext) -> None:
+    """Destroy a context's groups now, not when the interpreter exits
+    (every rank of them calls this)."""
+    if dist.is_initialized():
+        for g in ctx.groups:
+            dist.destroy_process_group(g)
+    ctx.groups.clear()
+    ctx.tp_group = ctx.dp_group = ctx.pp_group = ctx.cp_group = None
+    ctx.world_group = ctx.object_group = None
+
+
+def broadcast_object(obj, ctx: ParallelContext, src_rank: int = 0):
+    """`obj` (a picklable value: a round's kind and bucket and its small
+    host arrays) from tp rank `src_rank` to every rank of `ctx`'s tp
+    group: its pickled bytes' length, then the bytes, each one host
+    broadcast on the context's gloo object group. Returns the object on
+    every rank (the sender's own on the sender)."""
+    group = ctx.object_group
+    src = dist.get_global_rank(group, src_rank)
+    if dist.get_rank() == src:
+        data = pickle.dumps(obj, protocol=pickle.HIGHEST_PROTOCOL)
+        n = torch.tensor([len(data)], dtype=torch.int64)
+    else:
+        n = torch.zeros(1, dtype=torch.int64)
+    dist.broadcast(n, src=src, group=group)
+    if dist.get_rank() == src:
+        buf = torch.frombuffer(bytearray(data), dtype=torch.uint8)
+    else:
+        buf = torch.empty(int(n[0]), dtype=torch.uint8)
+    dist.broadcast(buf, src=src, group=group)
+    if dist.get_rank() == src:
+        return obj
+    return pickle.loads(buf.numpy().tobytes())
+
+
 def get_context() -> Optional[ParallelContext]:
     return getattr(_TLS, "ctx", None) or _CONTEXT
 
@@ -290,13 +368,7 @@ def destroy_parallel() -> None:
     if ctx is None:
         return
     p2p_wait(ctx)
-    if dist.is_initialized():
-        for g in ctx.groups:
-            dist.destroy_process_group(g)
-    # the groups are freed now, not when the interpreter exits
-    ctx.groups.clear()
-    ctx.tp_group = ctx.dp_group = ctx.pp_group = ctx.cp_group = None
-    ctx.world_group = None
+    release_context(ctx)
 
 
 @contextlib.contextmanager

@@ -83,10 +83,12 @@ from megatron_llm_tpu_torch.models.transformer import transformer_stack
 from megatron_llm_tpu_torch.parallel.cross_entropy import (
     vocab_parallel_cross_entropy,
 )
-from megatron_llm_tpu_torch.parallel.mappings import tp_input
+from megatron_llm_tpu_torch.parallel.mappings import (
+    gather_from_tp_last,
+    tp_input,
+)
 from megatron_llm_tpu_torch.parallel.mesh import (
     A4_DROPOUT,
-    A4_TP_SERVING,
     all_gather_rows,
     broadcast,
     get_context,
@@ -397,19 +399,19 @@ def make_pipelined_decode_fn(model, pcfg: Optional[ParallelConfig] = None,
     masked softmax. The token and the done flag cross from the last
     stage every tick, the host reading the flag only under early
     termination. Sampling draws from `generator` in the ring's order,
-    not the JAX ring's keys. Tensor-parallel decode raises (ROADMAP.md
-    A4), and so does cp > 1 (JAX :646: generation at cp > 1 takes the
-    whole-batch route, inference/api.py)."""
+    not the JAX ring's keys. At tp > 1 (the pp x tp ring the JAX
+    package serves through GSPMD) a stage's caches hold its tp rank's
+    g / tp groups, K1 reads them in place, and the head's logits are
+    gathered over the tp group before the pick, so the tp ranks of the
+    last stage choose the same token. cp > 1 raises (JAX :646:
+    generation at cp > 1 takes the whole-batch route,
+    inference/api.py)."""
     stage = _Stage(model, ctx)
     sctx = stage.ctx
     if sctx.cp > 1:
         raise ValueError("pipelined decode: cp axis unsupported (the "
                          "stage ring serves at cp = 1; generation at "
                          "cp > 1 takes the whole-batch route)")
-    if sctx.tp > 1:
-        raise ValueError(f"pipelined decode at tp={sctx.tp}: "
-                         f"tensor-parallel serving is not ported yet "
-                         f"({A4_TP_SERVING})")
     pp = sctx.pp
     nm = num_micro or pp
     if nm < pp:
@@ -423,7 +425,7 @@ def make_pipelined_decode_fn(model, pcfg: Optional[ParallelConfig] = None,
 
     def head(dec, hidden):
         h = apply_norm(hidden, dec["final_norm"], cfg)
-        return lm_logits(dec, cfg, h).float()
+        return gather_from_tp_last(lm_logits(dec, cfg, h)).float()
 
     def choose(logits, prev, generator):
         return select_next_token(
@@ -443,8 +445,8 @@ def make_pipelined_decode_fn(model, pcfg: Optional[ParallelConfig] = None,
         lens = lengths.reshape(nm, bm)
         dec = model.prepare_decode_params(params)
         rope = stage.rope(dev)
-        kshape = (stage.layers, nm, bm, max_len, cfg.num_query_groups,
-                  cfg.head_dim)
+        kshape = (stage.layers, nm, bm, max_len,
+                  cfg.num_query_groups // sctx.tp, cfg.head_dim)
         kc = torch.zeros(kshape, dtype=cfg.compute_dtype, device=dev)
         vc = torch.zeros(kshape, dtype=cfg.compute_dtype, device=dev)
         offset0 = stage.stage * stage.layers

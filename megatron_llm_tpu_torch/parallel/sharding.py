@@ -20,8 +20,13 @@ consecutive layers); the embedding, the final norm and the head stay
 whole on every stage (JAX parallel/pipeline.py:72-89). ZeRO-1
 (optimizer/zero1.py) shards a leaf's optimizer state over "data" on the
 axis `zero1_axis` picks: the one divisibility rule (JAX :113-140).
-`kv_pool_spec` and `decode_param_specs` wait for tp serving (the next
-A4 PR).
+
+Tensor-parallel serving (inference/engine.py at serving_tp > 1) cuts
+two more trees: a paged KV pool leaf on its group axis (`kv_pool_axis`,
+`kv_pool_spec`: rank r holds groups [r g / tp, (r + 1) g / tp), the
+order of the grouped qkv layout's columns), and the decode tree
+(`decode_param_specs`, `shard_decode_params`), whose per-layer leaves
+follow `param_specs` without the layer axis (JAX :200-306).
 """
 
 from __future__ import annotations
@@ -224,3 +229,115 @@ def gather_params(shards: dict, ctx, cfg=None, tp: bool = True) -> dict:
         return x
 
     return tree_map(gather, shards, specs)
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel serving: the page pools and the decode tree
+# ---------------------------------------------------------------------------
+
+def kv_pool_axis(shape: tuple, tp: int) -> Optional[int]:
+    """The axis a paged KV pool leaf splits over "model" at serving tp
+    (JAX :200-217): the group axis, index 2 of both the (num_pages,
+    page_size, g, d) data pools and the (num_pages, page_size, g) int8
+    scale pools, when tp divides it; else None (replicated). Pages and
+    page offsets stay whole, so every rank addresses the same page ids
+    and holds only its groups of each page."""
+    if tp <= 1:
+        return None
+    if len(shape) < 3 or shape[2] % tp != 0 or shape[2] < tp:
+        return None
+    return 2
+
+
+def kv_pool_spec(shape: tuple, tp: int) -> tuple:
+    """The spec of one pool leaf (JAX :220-229): "model" on
+    `kv_pool_axis`, every other axis whole; () when replicated."""
+    k = kv_pool_axis(shape, tp)
+    if k is None:
+        return ()
+    parts: list = [None] * len(shape)
+    parts[k] = MODEL_AXIS
+    return tuple(parts)
+
+
+def kv_pool_shard_shape(shape: tuple, tp: int) -> tuple:
+    """The shape of one rank's slice of a pool leaf."""
+    k = kv_pool_axis(shape, tp)
+    if k is None:
+        return tuple(shape)
+    out = list(shape)
+    out[k] //= tp
+    return tuple(out)
+
+
+def decode_param_specs(cfg, dec_params: dict) -> dict:
+    """The spec tree of the decode tree (`GPTModel.prepare_decode_params`:
+    the layers a tuple of per-layer dicts), the `param_specs` rules
+    without the layer axis (JAX :232-297): wqkv (and bqkv) and w1 (and
+    b1) column-parallel, wo and w2 row-parallel, the word embeddings and
+    an untied head on their vocabulary axis, the rest replicated. A GLU
+    w1 must keep its (h, 2, f) layout: the flat (h, 2f) view joins gate
+    and up along the axis tp splits, so a contiguous split would hand
+    rank 0 the gates and rank 1 the ups."""
+
+    def layer(tree: dict) -> dict:
+        specs = _replicated(tree)
+        attn = {"wqkv": (None, MODEL_AXIS), "wo": (MODEL_AXIS, None)}
+        if "bqkv" in tree["attention"]:
+            attn["bqkv"] = (MODEL_AXIS,)
+        specs["attention"].update(attn)
+        w1 = tree["mlp"]["w1"]
+        if cfg.glu_activation:
+            if getattr(w1, "ndim", 3) != 3:
+                raise AssertionError(
+                    "tp-sharded decode params need the UNFLATTENED (h, 2, "
+                    "f) GLU layout (prepare_decode_params(flatten_glu="
+                    "False)): the flat (h, 2f) layout concatenates gate|up "
+                    "along the axis tp would shard")
+            mlp = {"w1": (None, None, MODEL_AXIS), "w2": (MODEL_AXIS, None)}
+            if "b1" in tree["mlp"]:
+                mlp["b1"] = (None, MODEL_AXIS)
+        else:
+            mlp = {"w1": (None, MODEL_AXIS), "w2": (MODEL_AXIS, None)}
+            if "b1" in tree["mlp"]:
+                mlp["b1"] = (MODEL_AXIS,)
+        specs["mlp"].update(mlp)
+        return specs
+
+    specs: dict = {}
+    for key, val in dec_params.items():
+        if key == "layers":
+            specs[key] = tuple(layer(x) for x in val)
+        elif key == "embedding":
+            specs[key] = _replicated(val)
+            specs[key]["word_embeddings"] = (MODEL_AXIS, None)
+        elif key == "lm_head" and not isinstance(val, dict):
+            specs[key] = (None, MODEL_AXIS)
+        else:
+            specs[key] = _replicated(val) if isinstance(val, dict) else ()
+    return specs
+
+
+def shard_decode_params(dec_params: dict, cfg, tp: int, rank: int) -> dict:
+    """Tensor-parallel rank `rank`'s slice of the decode tree, cut by
+    `decode_param_specs` as `shard_params` cuts the training tree: each
+    split leaf a contiguous tensor of its own (the whole tree can be
+    freed), the replicated ones as they are."""
+    specs = decode_param_specs(cfg, dec_params)
+    if tp == 1:
+        return dec_params
+
+    def cut(x, s):
+        m = model_axis(s)
+        if m is None:
+            return x
+        return slice_axis(x, m, tp, rank).contiguous()
+
+    def walk(x, s):
+        if isinstance(x, dict):
+            return {k: walk(v, s[k]) for k, v in x.items()}
+        if isinstance(x, tuple):
+            return tuple(walk(v, t) for v, t in zip(x, s))
+        return cut(x, s)
+
+    return walk(dec_params, specs)

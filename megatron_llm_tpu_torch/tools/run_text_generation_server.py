@@ -16,8 +16,25 @@ are the JAX launcher's; the tokenizer takes `--tokenizer_model` and
 `build_tokenizer` reads (the JAX launcher passes `merge_file=`, which
 its `build_tokenizer` does not take). Flags of later slices raise
 `ValueError` naming their ROADMAP.md item when set away from their
-defaults: tp serving (A4), replica routing and the fleet (A5), the
-engine's telemetry (A5).
+defaults: replica routing and the fleet (A5), the engine's telemetry
+(A5).
+
+`--serving_tp N` serves one engine on N tensor-parallel ranks, one
+process each, under torchrun (JAX :154-162, :335-354):
+
+    torchrun --nproc_per_node 2 -m \
+        megatron_llm_tpu_torch.tools.run_text_generation_server \
+        --serving_tp 2 --distributed_backend gloo --load ... --port 5000
+
+N must equal the world size. Every rank restores the checkpoint and
+builds the engine on its slice (inference/engine.py, the module doc);
+tp rank 0 serves HTTP and keeps the whole tree for the requests the
+engine does not take (score, beam: JAX inference/server.py:255-257,
+on rank 0 alone), the other ranks free it and follow the engine's
+rounds until rank 0 stops (they ignore SIGINT: Ctrl-C reaches rank 0,
+which drains and releases them). `--distributed_backend gloo` lets
+ranks share one card (NCCL refuses two ranks on one device); the
+rounds then run uncaptured, which the banner says.
 """
 
 from __future__ import annotations
@@ -25,11 +42,16 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import gc
+import json
+import os
+import signal
+import sys
 import threading
 import time
 from typing import Callable, Optional
 
 import torch
+import torch.distributed as dist
 
 from megatron_llm_tpu_torch.config import (
     falcon_config,
@@ -37,22 +59,25 @@ from megatron_llm_tpu_torch.config import (
     llama_config,
 )
 from megatron_llm_tpu_torch.inference.engine import DecodeEngine
+from megatron_llm_tpu_torch.inference.graph_capture import launch_counts
 from megatron_llm_tpu_torch.inference.server import MegatronServer
 from megatron_llm_tpu_torch.models import FalconModel, GPTModel, LlamaModel
+from megatron_llm_tpu_torch.parallel.mesh import (
+    maybe_initialize_distributed,
+    rank_device,
+)
 from megatron_llm_tpu_torch.tokenizer import build_tokenizer
 from megatron_llm_tpu_torch.training.checkpointing import (
     restore_params,
     tracked_checkpoint,
 )
 
-_A4 = "tp serving (ROADMAP.md A4)"
 _A5 = "replica routing and the fleet (ROADMAP.md A5)"
 _A5_TELEMETRY = "the engine's telemetry (ROADMAP.md A5)"
 
 # flags of later slices (parser dest -> the item): a value other than
 # the parser's default raises
 LATER_FLAGS = {
-    "serving_tp": _A4,
     **dict.fromkeys((
         "router_replicas", "affinity_routing", "prefill_replicas",
         "ttft_slo_s", "chaos", "fleet_controller", "recover_requests",
@@ -119,6 +144,17 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--attention_window_size", type=int, default=None,
                    help="sliding-window attention for serving (needs "
                         "--prefill_chunk_tokens > 0)")
+    p.add_argument("--serving_tp", type=int, default=1,
+                   help="tensor-parallel ranks of the engine, one process "
+                        "each under torchrun --nproc_per_node N: the KV "
+                        "page pools (and int8 scale pools) shard over the "
+                        "group axis; must divide the model's "
+                        "num_query_groups and equal the world size")
+    p.add_argument("--distributed_backend", default=None,
+                   choices=["nccl", "gloo"],
+                   help="torch.distributed backend at --serving_tp > 1 "
+                        "(default: nccl for CUDA, gloo for the CPU); gloo "
+                        "lets ranks share one card")
     # flags of later slices: each raises away from its default
     p.add_argument("--trace_dir", type=str, default=None)
     p.add_argument("--record_dir", type=str, default=".")
@@ -129,7 +165,6 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--perf_sentinel_ksigma", type=float, default=0.0)
     p.add_argument("--perf_sentinel_window", type=int, default=64)
     p.add_argument("--perf_sentinel_patience", type=int, default=8)
-    p.add_argument("--serving_tp", type=int, default=1)
     p.add_argument("--router_replicas", type=int, default=1)
     p.add_argument("--affinity_routing",
                    action=argparse.BooleanOptionalAction, default=True)
@@ -152,6 +187,19 @@ def check_later_flags(args) -> None:
         if value != defaults.get_default(dest):
             raise ValueError(f"--{dest} {value!r} is not ported yet "
                              f"({item})")
+
+
+def check_serving_tp(args) -> int:
+    """The world size torchrun gives this process (1 without torchrun),
+    which `--serving_tp` must equal: one process a tp rank."""
+    world = int(os.environ.get("WORLD_SIZE", "1") or 1)
+    tp = max(args.serving_tp, 1)
+    if tp != world:
+        raise ValueError(
+            f"--serving_tp {args.serving_tp} needs exactly {tp} processes, "
+            f"one a tp rank (torchrun --nproc_per_node {tp}); this process "
+            f"is one of {world} (ROADMAP.md A4, tp serving's torch form)")
+    return world
 
 
 def build_model(model_name: str, saved: dict, args, device):
@@ -197,18 +245,23 @@ class Launch:
 
 
 def banner(args, path, port, engine) -> str:
-    """The JAX launcher's start line (JAX :464-490), for what the port
-    serves."""
+    """The JAX launcher's start line (JAX :462-490), for what the port
+    serves; at --serving_tp > 1 the pool's bytes are a rank's, and the
+    line says that the rounds run uncaptured."""
     head = f"serving {args.model} from {path} on http://{args.host}:{port}/api"
     if engine is None:
         return head + " (whole-batch, no engine)"
+    chip = "/chip" if engine.serving_tp > 1 else ""
     parts = [
         f"continuous batching: {args.serving_slots} slots",
         f"{engine.num_pages - 1} pages x {args.page_size}",
         f"kv_dtype={engine.kv_pool_dtype()} "
-        f"({engine.kv_pool_bytes() / 2**20:.0f} MiB pool, "
-        f"{engine.kv_bytes_per_token()} B/token)",
+        f"({engine.kv_pool_bytes() / 2**20:.0f} MiB{chip} pool, "
+        f"{engine.kv_bytes_per_token()} B/token{chip})",
     ]
+    if engine.serving_tp > 1:
+        parts[0] = (f"tp{engine.serving_tp} mesh ({engine._ctx.backend}, "
+                    f"rounds uncaptured), {parts[0]}")
     if args.quantize_weights:
         parts.append("int8 decode weights")
     parts.append(f"chunked prefill {engine.prefill_chunk_tokens} tok/round"
@@ -229,14 +282,56 @@ def main(argv=None, device="cuda",
     the tokenizer and the engine, and serve until stopped: Ctrl-C, or
     the `stop` of the `Launch` handed to `ready` (a caller that runs
     `main` in a thread). Returns once the engine is stopped and the
-    model and its caches are freed."""
+    model and its caches are freed. At --serving_tp > 1 every rank of
+    the torchrun group calls it: rank 0 serves as above, the others
+    follow the engine's rounds and return once rank 0 stops."""
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("run_text_generation_server: no CUDA device "
                            "(call main(argv, device='cpu') to serve on "
                            "the CPU)")
     args = build_parser().parse_args(argv)
     check_later_flags(args)
+    own_group = False
+    if check_serving_tp(args) > 1:
+        own_group = not dist.is_initialized()
+        maybe_initialize_distributed(args.distributed_backend, device)
+        device = rank_device(device)
+    try:
+        return _serve(args, device, ready)
+    finally:
+        if own_group:
+            dist.destroy_process_group()
 
+
+def _rank_started(engine, device) -> None:
+    """At --serving_tp > 1, one line a rank once it serves: its pid, its
+    pool's bytes and, on a card, its memory."""
+    line = (f"tp rank {engine.tp_rank} (pid {os.getpid()}): kv pool "
+            f"{engine.kv_pool_bytes()} bytes")
+    if torch.device(device).type == "cuda":
+        line += (f", {torch.cuda.memory_allocated(device) / 2**30:.3f} GiB "
+                 f"allocated, {torch.cuda.memory_reserved(device) / 2**30:.3f}"
+                 f" GiB reserved after the start")
+    _print_line(line)
+
+
+def _rank_stopped(engine) -> None:
+    """At --serving_tp > 1, each rank's last line: its kernels' launch
+    counts and, on tp rank 0, the wall times of the engine's rounds."""
+    report = {"launches": launch_counts()}
+    if engine.tp_rank == 0:
+        report["rounds"] = engine.round_summary()
+    _print_line(f"tp rank {engine.tp_rank} stopped: {json.dumps(report)}")
+
+
+def _print_line(line: str) -> None:
+    """One line in one write: the ranks of a torchrun group share its
+    standard output, and print's two writes (text, newline) interleave."""
+    sys.stdout.write(line + "\n")
+    sys.stdout.flush()
+
+
+def _serve(args, device, ready):
     t0 = time.perf_counter()
     path, meta = tracked_checkpoint(args.load)
     model = build_model(args.model, meta["config"], args, device)
@@ -266,7 +361,30 @@ def main(argv=None, device="cuda",
             warmup_compile=args.warmup_compile, prefix_cache=prefix_cache,
             spec_decode_k=args.spec_decode_k, kv_dtype=args.kv_dtype,
             quantize_weights=args.quantize_weights,
+            serving_tp=args.serving_tp,
             termination_id=tokenizer.eod, vocab_size=tokenizer.vocab_size)
+    elif args.serving_tp > 1:
+        raise ValueError("--serving_tp > 1 serves the engine: pass "
+                         "--serving_slots > 0")
+    if engine is not None and engine.tp_rank > 0:
+        # a follower: its decode and pool slices only; rank 0 stops it
+        del params, model
+        gc.collect()
+        _rank_started(engine, device)
+        main_thread = threading.current_thread() is threading.main_thread()
+        if main_thread:
+            previous = signal.signal(signal.SIGINT, signal.SIG_IGN)
+        try:
+            engine.follow()
+        finally:
+            if main_thread:
+                signal.signal(signal.SIGINT, previous)
+            _rank_stopped(engine)
+            del engine
+            gc.collect()
+            if torch.device(device).type == "cuda":
+                torch.cuda.empty_cache()
+        return
     server = MegatronServer(model, params, tokenizer, engine=engine,
                             request_deadline_s=args.request_deadline_s,
                             stream_enabled=args.stream)
@@ -276,6 +394,8 @@ def main(argv=None, device="cuda",
         httpd = server.run(args.host, args.port, block=False)
         setup_s = time.perf_counter() - t0
         port = httpd.server_address[1]
+        if engine is not None and engine.serving_tp > 1:
+            _rank_started(engine, device)
         print(banner(args, path, port, engine), flush=True)
         if ready is not None:
             ready(Launch(server, port, load_s, setup_s, stopped.set))
@@ -285,6 +405,8 @@ def main(argv=None, device="cuda",
             pass
     finally:
         server.stop()
+        if engine is not None and engine.serving_tp > 1:
+            _rank_stopped(engine)
         del server, engine, params, model
         gc.collect()  # engines hold reference cycles
         if torch.device(device).type == "cuda":

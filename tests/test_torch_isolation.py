@@ -35,6 +35,7 @@ from megatron_llm_tpu_torch.parallel import pipeline, ring_attention
 from megatron_llm_tpu_torch.parallel.mesh import (
     ParallelContext,
     initialize_parallel,
+    serving_context,
 )
 from megatron_llm_tpu_torch.tools import (
     pipeline_memory_table,
@@ -117,6 +118,7 @@ def test_no_jax_import_in_source(path):
     (FalconModel.__init__, "device"),
     (run_text_generation_server.main, "device"),
     (initialize_parallel, "device"),
+    (serving_context, "device"),
 ])
 def test_entry_points_default_to_cuda(fn, arg):
     fn = getattr(fn, "__wrapped__", fn)
@@ -227,6 +229,25 @@ def test_converters_touch_no_device(path):
     for node in ast.walk(ast.parse(src)):
         if isinstance(node, ast.arg):
             assert node.arg != "device", path.name
+
+
+RANK_PROGRAMS = sorted((REPO / "tests").glob("torch_*ranks.py"))
+
+
+@pytest.mark.parametrize("path", RANK_PROGRAMS, ids=lambda p: p.name)
+def test_rank_programs_import_no_jax(path):
+    """The tests' rank programs (what a spawned or torchrun rank imports)
+    name neither JAX nor the JAX package anywhere in their source."""
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in ("jax", "megatron_llm_tpu"), \
+                (path.name, name)
 
 
 def test_spawned_cpu_ranks_import_no_jax():

@@ -1544,3 +1544,63 @@ def test_whole_batch_decode_frees_its_memory_after_each_call(cuda):
         call(b, max_len, top_p=0.9,
              generator=torch.Generator(device=cuda).manual_seed(b))
         assert held() == base, (b, max_len, "sampled")
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel serving: K1 and K7 at a tp 2 rank's share of the groups
+# ---------------------------------------------------------------------------
+
+# a tp 2 rank's 16 of Llama-2-7B's 32 KV groups
+TP2_GROUPS = 16
+
+
+@pytest.mark.parametrize("layout", ["gtd", "tgd"])
+def test_decode_kernel_at_a_tp2_ranks_groups(cuda, layout):
+    """K1 on 16 groups against the plain version at the lengths around
+    its split: "gtd" as the whole-batch route's caches hold a rank's
+    groups, "tgd" one layer's slice of a stacked cache as the pp x tp
+    ring reads it."""
+    shape = (4, TP2_GROUPS, 1, 128, 320)
+    b, g, qpk, d, T = shape
+    gen = torch.Generator(device=cuda).manual_seed(61)
+    q = torch.randn(b, 1, g, qpk, d, generator=gen,
+                    device=cuda).to(torch.bfloat16)
+    if layout == "gtd":
+        k, v = (torch.randn(b, g, T, d, generator=gen, device=cuda)
+                .to(torch.bfloat16) for _ in range(2))
+    else:
+        k, v = (torch.randn(2, b, T, g, d, generator=gen, device=cuda)
+                .to(torch.bfloat16)[1] for _ in range(2))
+    before = dec.decode_attention.launches_by_layout[layout]
+    lengths = _split_lengths(shape, torch.bfloat16)
+    for length in lengths:
+        got = dec.decode_attention(q, k, v, length, layout=layout)
+        ref = dec._xla_decode(q, k, v, length, layout)
+        torch.cuda.synchronize()
+        assert _max_err(got, ref) <= 2e-2, f"length={length}"
+    assert dec.decode_attention.launches_by_layout[layout] \
+        == before + len(lengths)
+
+
+@pytest.mark.parametrize("variant", ["bf16", "int8"])
+@pytest.mark.parametrize("batch", sorted(PAGED_BATCHES))
+def test_paged_tc_at_a_tp2_ranks_groups(cuda, batch, variant):
+    """K7 on 16 groups in the design the engine's rounds take (tc: bf16
+    q, bf16 or int8 pools, page 64) against the plain version; pad rows
+    exact zeros."""
+    if variant == "int8":
+        args, kw = _variant_args(batch, "int8", TP2_GROUPS, 1, 128,
+                                 torch.bfloat16, cuda, seed=61)
+    else:
+        args, kw = paged_batch(batch, TP2_GROUPS, 1, 128, torch.bfloat16,
+                               cuda, seed=61), {}
+    q, kp = args[:2]
+    assert pa.paged_design(q.dtype, kp.dtype, kp.shape[1]) == "tc"
+    before = pa.ragged_paged_attention.variant_launches["tc"]
+    got = pa.paged_attention(*args, **kw)
+    ref = pa._xla_paged_reference(*args, **kw)
+    torch.cuda.synchronize()
+    assert pa.ragged_paged_attention.variant_launches["tc"] == before + 1
+    assert _max_err(got, ref) <= 2e-2
+    pad = torch.arange(q.shape[1], device=cuda)[None, :] >= args[5][:, None]
+    assert (got[pad] == 0).all()

@@ -407,10 +407,10 @@ def test_resumed_steps_match_the_uninterrupted_step(results, group, run):
 
 def test_refusals(results):
     got = results["port2"][0][3]
-    assert "dropout" in got["dropout"] and "item 3" in got["dropout"]
+    assert "dropout" in got["dropout"] and "item 2" in got["dropout"]
     assert "does not divide num_layers" in got["odd_layers"]
     assert "--reset_attention_mask" in got["reset_attention_mask"]
-    with pytest.raises(ValueError, match="overlap schedulers.*item 2"):
+    with pytest.raises(ValueError, match="overlap schedulers.*item 1"):
         ParallelConfig(pipeline_parallel_size=2,
                        async_pipeline_dispatch=True)
     # pp x cp is a layout now (tests/test_torch_context_parallel.py)
