@@ -166,8 +166,9 @@ Phases, one output line each (a failure raises and exits non-zero):
    kernel_time_serving_tp2: K7 (tc, bf16 and int8 pools, decode and
    mixed rounds) and K1 ("gtd" and the ring's "tgd") at a tp 2 rank's
    16 groups against their plain versions, beside SDPA and the bound;
-14e. launcher_falcon: Falcon-7B at full width, 8 of its 32 layers
-   (FALCON_LAYERS; 16 before the serving_tp phase), random bf16
+14e. launcher_falcon: Falcon-7B at full width, 4 of its 32 layers
+   (FALCON_LAYERS; 16 before the serving_tp phase, 8 before the
+   overlap_dropout phase), random bf16
    weights from a seed written as a release by `save_checkpoint(
    release=True)`; native2hf then hf2native through the CLI at full
    width and 2 layers, bit-exact; the launcher (`--model falcon`) in a
@@ -200,8 +201,9 @@ Phases, one output line each (a failure raises and exits non-zero):
    train phase's model is freed): two JSONL corpora of seeded token ids
    (about 1.5 M tokens each, documents of 64-8192) through the port's
    `preprocess_data` (NullTokenizer, 2 workers), then
-   `finetune.main(argv)` three times at Llama-2-7B widths with 2 of 32
-   layers (FT_ENTRY_LAYERS), seq 4096, 4 microbatches, bf16 on fp32
+   `finetune.main(argv)` three times at Llama-2-7B widths with 1 of 32
+   layers (FT_ENTRY_LAYERS; 2 before the overlap_dropout phase), seq
+   4096, 4 microbatches, bf16 on fp32
    AdamW, full recompute, blend 0.7/0.3, eval every 3 steps: R trains 6
    steps with an async save at 3 and the final save at 6
    (keep_latest_n 1); K is
@@ -247,17 +249,22 @@ Phases, one output line each (a failure raises and exits non-zero):
    same ranks resume it for step 4, and world size 1 resumes it too.
    Losses and grad norms within 2e-2 / 5e-2 of (a)'s world-size-1 run
    (the same weights and global batches); every rank reports the same;
-   K4-K6 8 launches a rank a step; the checkpoint cut into each rank's
-   pieces equal to what the rank held (a positional checksum of every
+   K4-K6 8 launches a rank a step; the save is per-rank files (each
+   rank its pieces, one writer a piece, a marker a rank, rank 0
+   committing), and each rank's slice of every leaf read back from the
+   pieces equals what the rank held (a positional checksum of every
    leaf's bits); step 4 after either resume within 2e-2 of (a)'s.
    Printed: per-rank peak memory and their sum, the backend and the
    staging, ms a step labelled as gloo through the host on one shared
-   card. Also, after the kernel checks, kernel_time_flash_tp2: K4-K6 at
-   a tp 2 rank's attention shape (g 16) beside SDPA and their plain
-   versions, within 2e-2;
+   card, each rank's save and commit seconds and rank 0's host RSS
+   before the save and its peak after the commit. Also, after the kernel
+   checks, kernel_time_flash_tp2: K4-K6 at a tp 2 rank's attention
+   shape (g 16) beside SDPA and their plain versions, within 2e-2;
 21. pipeline: `torchrun --nproc_per_node 2` runs `finetune.main` at pp 2
-   (`--pipeline_model_parallel_size 2 --pipeline_remat tick`, the
-   recipe's flags, 2 of 32 layers, 1 a stage) over gloo, both stages on
+   (`--pipeline_model_parallel_size 2 --pipeline_remat tick
+   --async_pipeline_dispatch`: each tick's next receive posted before
+   it computes, the recipe's flags, 2 of 32 layers, 1 a stage) over
+   gloo, both stages on
    cuda:0: 3 steps and a save with the optimizer state, then the same
    ranks resume it (optimizer state included) for step 4 and serve it
    through the API (a pipelined score, four greedy requests through the
@@ -274,6 +281,19 @@ Phases, one output line each (a failure raises and exits non-zero):
    once a stage layer a decode tick. Also, after the kernel checks,
    kernel_time_decode_ring: K1 on one layer's "tgd" slice of the ring's
    stacked cache against its plain version, beside SDPA and the bound;
+21b. overlap_dropout: the pipeline phase's two ranks (rank mode, run
+   last in the same torchrun) run `finetune.main` at dp 2 with ZeRO-1
+   under `--overlap_grad_reduce --overlap_param_gather` and
+   `--hidden_dropout 0.1` (the recipe's flags, flash on) over gloo,
+   both ranks on cuda:0, 3 steps, held to
+   world size 1 with the same flags but the overlap ones: losses within
+   2e-2, grad norms within 5e-2; K4-K6 per rank as the layout implies
+   (once a layer and local microbatch, 2 a step); the layer group's
+   reduce-scatter issued inside the backward; a (1, 4096, 4096)
+   hidden-dropout mask and a (1, 8, 1, 256, 4096) slice of an
+   attention-dropout mask drawn on the card equal to the CPU's bit for
+   bit, and the card's ms for the hidden mask and for a layer's whole
+   (1, 32, 1, 4096, 4096) attention mask;
 22. context_parallel: `torchrun --nproc_per_node 2` runs `finetune.main`
    at cp 2 (`--context_parallel_size 2`, the recipe's flags, 2 of 32
    layers, seq 4096: 2048 positions a rank; attention the ring of
@@ -323,6 +343,18 @@ import threading
 import time
 from http.client import HTTPConnection
 from pathlib import Path
+
+# the processes this script starts (torchrun ranks, launchers) import
+# what it imports: the bytecode goes under the checkout's build/ (set
+# before the imports below, inherited by every child), so that each
+# process loads it instead of compiling the same sources again (a rank's
+# first step otherwise compiles torch._dynamo's, which
+# torch.utils.checkpoint imports at its first call)
+os.environ.setdefault("PYTHONPYCACHEPREFIX", str(
+    Path(__file__).resolve().parent / "build" / "pycache"))
+os.environ.pop("PYTHONDONTWRITEBYTECODE", None)
+sys.pycache_prefix = os.environ["PYTHONPYCACHEPREFIX"]
+sys.dont_write_bytecode = False
 
 import numpy as np
 import torch
@@ -3396,7 +3428,7 @@ def falcon_kernel_ms(model, eng):
 # leaves every width, kernel shape and route as it was
 # Falcon-7B's depth on the serving entry path: 8 of 32 layers since the
 # serving_tp phase (16 before), to keep the whole smoke within 950 s
-FALCON_LAYERS = 8
+FALCON_LAYERS = 4
 
 
 def launcher_falcon(kernels, init_std):
@@ -4318,7 +4350,7 @@ def train_remat(kernels, cfg, text):
 FT_LAYERS, FT_SEQ, FT_STEPS, FT_MICRO, FT_EVAL_INTERVAL = 2, 4096, 6, 4, 3
 # the entry path's save-and-resume runs (phase 18): four 8.0 GB commits
 # at 2 layers where 4 layers would make them 12.86 GB each
-FT_ENTRY_LAYERS = 2
+FT_ENTRY_LAYERS = 1
 FT_CORPUS_TOKENS = 1_500_000
 FT_DIR = Path(__file__).resolve().parent / "build" / "finetune_smoke"
 
@@ -4357,6 +4389,16 @@ def finetune_argv(data, save, *extra):
                     "--save", save, *extra]
 
 
+def host_rss_gb():
+    """(this process's resident set now, its peak so far), GB."""
+    import resource
+
+    with open("/proc/self/statm") as f:
+        pages = int(f.read().split()[1])
+    now = pages * os.sysconf("SC_PAGE_SIZE") / 1e9
+    return now, resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1e6
+
+
 @contextlib.contextmanager
 def patched(obj, name, make):
     """`obj.name` replaced by make(original) inside the block."""
@@ -4383,7 +4425,7 @@ def finetune_run(argv, sigterm_after=None, on_state=None):
     )
 
     rec = {"steps": [], "saves": [], "commits": [], "loads": [],
-           "stats": []}
+           "stats": [], "save_rss": []}
 
     def train_step(inner):
         def step(self, state, text, *a):
@@ -4406,6 +4448,8 @@ def finetune_run(argv, sigterm_after=None, on_state=None):
             out = inner(self, state)
             rec["steps"] = [dict(r) for r in self.step_log]
             rec["n_params"] = self._n_params
+            rec["groups_in_backward"] = [
+                f.groups_in_backward() for f in self._train_steps.values()]
             return out
         return run
 
@@ -4418,8 +4462,12 @@ def finetune_run(argv, sigterm_after=None, on_state=None):
 
     def save(inner):
         def run(self, iteration, *a, **kw):
+            rss = host_rss_gb()
             out = inner(self, iteration, *a, **kw)
             rec["saves"].append((iteration, self.last_blocked_ms))
+            rec["save_rss"].append({"iteration": iteration,
+                                    "rss_gb_before": rss[0],
+                                    "peak_rss_gb_before": rss[1]})
             return out
         return run
 
@@ -4427,6 +4475,9 @@ def finetune_run(argv, sigterm_after=None, on_state=None):
         def run(self, path, iteration, *a):
             inner(self, path, iteration, *a)
             rec["commits"].append((iteration, self.last_commit_s))
+            for r in rec["save_rss"]:
+                if r["iteration"] == iteration:
+                    r["peak_rss_gb_after_commit"] = host_rss_gb()[1]
         return run
 
     def load(inner):
@@ -4487,6 +4538,8 @@ def finetune_run(argv, sigterm_after=None, on_state=None):
                 (trainer_mod, "load_checkpoint", load),
                 (CheckpointManager, "save", save),
                 (CheckpointManager, "_commit", commit),
+                (CheckpointManager, "save_pieces", save),
+                (CheckpointManager, "_commit_pieces", commit),
                 (ft_data, "build_train_valid_test_datasets", datasets)):
             stack.enter_context(patched(obj, name, make))
         zero_counts()
@@ -4537,8 +4590,9 @@ def checkpoint_leaves_equal(a_dir, b_dir):
 
 
 def dir_bytes(path):
-    return sum(os.path.getsize(os.path.join(path, f))
-               for f in os.listdir(path))
+    """The bytes of every file under `path` (per-rank pieces included)."""
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, files in os.walk(path) for f in files)
 
 
 def check_finetune_data(rec):
@@ -4899,7 +4953,7 @@ def finetune_rank(out_dir, argvs_file):
         rec = finetune_run(argv, on_state=lambda st: fps.update(
             state_fingerprints(st)))
         keep = ("stats", "steps", "launches", "fp16", "by_causal", "wall_s",
-                "saves",
+                "saves", "save_rss", "groups_in_backward",
                 "commits", "loads", "iteration", "consumed", "resumed",
                 "parallel", "n_params", "clock_s")
         out = {k: rec[k] for k in keep if k in rec}
@@ -4956,62 +5010,71 @@ def run_ranks(argvs, nproc=None, timeout_s=RANK_TIMEOUT_S):
     return recs, text
 
 
-def parallel_expected_launches(steps):
+def parallel_expected_launches(steps, dp=PAR_DP):
     """K4 once a layer and local microbatch under selective recompute
     (the forward keeps its output), K5 and K6 once; no eval."""
-    n = FT_LAYERS * FT_MICRO // PAR_DP * steps
+    n = FT_LAYERS * FT_MICRO // dp * steps
     return {"flash_fwd": n, "flash_bwd_dq": n, "flash_bwd_dkv": n,
             "rmsnorm_fwd": 0, "rmsnorm_bwd": 0, "decode_attention": 0,
             "ragged_paged_attention": 0}
 
 
 def check_parallel_checkpoint(ck_dir, rank_fps, ctxs=None, zero1=True,
-                              bucket_mb=4.0):
-    """Cut every leaf of the checkpoint the tracker names into each
-    rank's piece (by default of tp2 x dp2; else of the layouts `ctxs`,
-    one a rank), as a resume would, and hold its fingerprint to the piece
-    the rank saved: (leaves checked, iteration). A checkpoint without
-    optimizer state is held to the ranks' parameters. Each leaf is read
-    once and cut on the card."""
+                              bucket_mb=4.0, overlap_grads=False):
+    """Read each rank's slice of every leaf of the checkpoint the tracker
+    names from its per-rank pieces (by default the slices of tp2 x dp2;
+    else of the layouts `ctxs`, one a rank), as a resume reads them, and
+    hold its fingerprint to the piece the rank saved: (leaves checked,
+    iteration). The checkpoint must be the per-rank form with every
+    rank's marker. A checkpoint without optimizer state is held to the
+    ranks' parameters. Only the pieces that overlap a rank's slice are
+    read, memory mapped."""
     from types import SimpleNamespace
 
     from megatron_llm_tpu_torch.training.trainer import StateLayout
 
     path, meta = ckpt.tracked_checkpoint(ck_dir)
-    model = torch.load(os.path.join(path, "model"), map_location="cpu",
-                       mmap=True, weights_only=True)
-    optim = torch.load(os.path.join(path, "optim"), map_location="cpu",
-                       mmap=True, weights_only=True) \
-        if os.path.exists(os.path.join(path, "optim")) else {}
-    tmpl = ckpt.unflatten({k: torch.empty(v.shape, dtype=v.dtype,
+    check(os.path.isdir(os.path.join(path, "model")),
+          f"{path} is not the per-rank form")
+    check(len(os.listdir(os.path.join(path, ckpt.DONE_DIR)))
+          == len(rank_fps), f"{path}: not every rank's marker")
+    model = ckpt.Pieces(path, "model")
+    optim = ckpt.Pieces(path, "optim") \
+        if os.path.isdir(os.path.join(path, "optim")) else None
+    tmpl = ckpt.unflatten({k: torch.empty(model.shapes[k],
+                                          dtype=model.dtypes[k],
                                           device="meta")
-                           for k, v in model.items()})
-    leaves = dict(model)
-    leaves.update({k: v for k, v in optim.items()
-                   if k.startswith(("m.", "v."))})
+                           for k in model.names()})
+    leaves = {k: model for k in model.names()}
+    if optim is not None:
+        leaves.update({k: optim for k in optim.names()
+                       if k.startswith(("m.", "v."))})
     if ctxs is None:
         ctxs = [SimpleNamespace(tp=PAR_TP, dp=PAR_DP, tp_rank=r % PAR_TP,
                                 dp_rank=r // PAR_TP)
                 for r in range(len(rank_fps))]
     layouts = []
     for r, (fps, ctx) in enumerate(zip(rank_fps, ctxs)):
-        if not optim:
+        if optim is None:
             fps = {k: v for k, v in fps.items()
                    if not k.startswith(("m.", "v."))}
             rank_fps[r] = fps
         check(set(leaves) == set(fps), f"rank {r}: checkpoint leaves "
               f"{sorted(set(leaves) ^ set(fps))[:4]} differ")
         layouts.append(StateLayout(ctx, None, tmpl, zero1=zero1,
-                                   bucket_mb=bucket_mb))
+                                   bucket_mb=bucket_mb,
+                                   overlap_grads=overlap_grads))
     checked = 0
-    for name, leaf in leaves.items():
-        whole = leaf.to("cuda")
+    for name, pieces in leaves.items():
         for r, (lay, fps) in enumerate(zip(layouts, rank_fps)):
-            got = str(fingerprint(lay.shard(name, whole)))
-            check(got == fps[name], f"rank {r}: {name} in the checkpoint "
-                  f"is not the rank's saved piece")
+            # on the card first: the checksum's int64 widening runs there
+            piece = pieces.read(name, lay.region(
+                name, pieces.shapes[name])).to("cuda")
+            got = str(fingerprint(piece))
+            check(got == fps[name], f"rank {r}: {name} read from the "
+                  f"checkpoint's pieces is not the rank's saved piece")
             checked += 1
-        del whole
+            del piece
     del model, optim, leaves
     return checked, meta["iteration"]
 
@@ -5098,7 +5161,13 @@ def finetune_parallel(kernels, data, one):
         launches_per_rank=[run["launches"] for run in first],
         expected_launches_per_rank=parallel_expected_launches(3),
         checkpoint_leaves_checked=leaves, checkpoint_bytes=ckpt_bytes,
+        checkpoint_form="per-rank pieces (model/, optim/, done/ a rank)",
         saves_blocked_ms=first[0]["saves"], commits_s=first[0]["commits"],
+        saves_blocked_ms_per_rank=[run["saves"] for run in first],
+        commits_s_per_rank=[run["commits"] for run in first],
+        save_host_rss_gb_rank0=first[0]["save_rss"],
+        save_s_rank0=first[0]["clock_s"].get("saves"),
+        commit_wait_s_rank0=first[0]["clock_s"].get("commit_wait"),
         load_s_per_rank=[run["loads"] for run in resumed],
         load_s_world1=ws1["loads"], step4_losses=step4,
         ranks_wall_s=ranks_s, world1_resume_wall_s=ws1_s,
@@ -5114,6 +5183,151 @@ def finetune_parallel(kernels, data, one):
             row["launches_by_path"]["finetune_parallel"] = sum(per)
             row.setdefault("launches_per_rank", {})[
                 "finetune_parallel"] = per
+            row["launches"] = sum(row["launches_by_path"].values())
+
+
+# dp 2 with ZeRO-1 under both overlap schedulers, hidden dropout live,
+# two ranks sharing the card through gloo
+OVERLAP_FLAGS = ["--use_distributed_optimizer", "--overlap_grad_reduce",
+                 "--overlap_param_gather", "--distributed_backend", "gloo"]
+OVERLAP_RANKS = 2
+OVERLAP_STEPS = 3
+
+
+def overlap_recipe(data):
+    """The recipe's flags at FT_LAYERS of 32 layers, seq 4096, with
+    `--hidden_dropout 0.1` (attention dropout stays off: it would take
+    the grouped path and launch no kernel)."""
+    flags = list(RECIPE)
+    flags[flags.index("--hidden_dropout") + 1] = "0.1"
+    return mode_argv(data, *flags, "--bf16", "--train_iters",
+                     str(OVERLAP_STEPS))
+
+
+def overlap_argv(data):
+    return overlap_recipe(data) + OVERLAP_FLAGS
+
+
+def card_mask_check():
+    """One (b, s, h) hidden-dropout mask and one slice of a (b, g, qpk,
+    s, t) attention-probability mask (global offsets on every leading
+    axis) drawn on the card against the same masks drawn on the CPU, bit
+    for bit, and the draws' times on the card: the hidden mask and the
+    whole attention mask of a layer at Llama-2-7B widths."""
+    from megatron_llm_tpu_torch.models import dropout as dr
+
+    hidden = dr.at(dr.fold_in(SEED + 1, 7), 3, 1024)
+    attn = dr.at(dr.fold_in(SEED + 1, 9), 1, 8, 0, 2048, 0)
+    out = {}
+    for name, stream, shape, timed in (
+            ("hidden", hidden, (1, FT_SEQ, 4096), (1, FT_SEQ, 4096)),
+            ("attention", attn, (1, 8, 1, 256, FT_SEQ),
+             (1, 32, 1, FT_SEQ, FT_SEQ))):
+        cuda = dr.bernoulli(stream, 0.9, shape, "cuda")
+        t0 = time.perf_counter()
+        cpu = dr.bernoulli(stream, 0.9, shape, "cpu")
+        cpu_ms = (time.perf_counter() - t0) * 1e3
+        ms = time_ms(lambda: dr.bernoulli(stream, 0.9, timed, "cuda"),
+                     iters=10, warmup=2)
+        out[name] = {"shape": list(shape),
+                     "equal": bool(torch.equal(cuda.cpu(), cpu)),
+                     "keep": float(cpu.float().mean()), "cpu_ms": cpu_ms,
+                     "card_shape": list(timed), "card_ms": ms}
+        del cuda, cpu
+    torch.cuda.empty_cache()
+    out["equal"] = all(v["equal"] for v in out.values())
+    return out
+
+
+def overlap_dropout_phase(kernels, data, ranks=None):
+    """`torchrun --nproc_per_node 2 ... finetune.main` at dp 2 with
+    ZeRO-1 under `--overlap_grad_reduce --overlap_param_gather` and
+    hidden dropout 0.1, both ranks on cuda:0 over gloo, at Llama-2-7B
+    widths (FT_LAYERS of 32 layers, seq 4096, flash, selective
+    recompute, bf16, global batch 4: 2 microbatches of 1 a rank), 3
+    steps; held to world size 1 with the same flags but the overlap ones
+    (dp 1 refuses them), whose masks are the same bits (models/
+    dropout.py): losses within 2e-2, grad norms within 5e-2; K4-K6 per
+    rank as the layout implies; each layer group's reduce-scatter
+    issued inside the backward. Then a hidden-dropout mask and an
+    attention-mask slice drawn on the card against the CPU's, bit for
+    bit (`card_mask_check`). `ranks` (records, log):
+    the two ranks' records of the run, when the pipeline phase's
+    torchrun (the same two ranks) ran it last, which saves a start of
+    two processes; else this phase starts its own."""
+    base = overlap_recipe(data)
+    t0 = time.perf_counter()
+    ranks_s = "ran in the pipeline phase's ranks"
+    if ranks is None:
+        ranks = run_ranks([overlap_argv(data)], nproc=OVERLAP_RANKS)
+        ranks_s = time.perf_counter() - t0
+    recs, log = ranks
+    runs = [r[-1] for r in recs]
+    t0 = time.perf_counter()
+    ws1 = finetune_run(base)
+    ws1_s = time.perf_counter() - t0
+    want = parallel_expected_launches(OVERLAP_STEPS,
+                                      dp=OVERLAP_RANKS)
+    for r, run in enumerate(runs):
+        check(run["parallel"] == {"backend": "gloo", "staged": True,
+                                  "world": OVERLAP_RANKS,
+                                  "dp": OVERLAP_RANKS, "pp": 1, "cp": 1,
+                                  "tp": 1, "rank": r,
+                                  "sequence_parallel": False},
+              f"rank {r}: layout {run.get('parallel')}")
+        check(run["stats"] == runs[0]["stats"],
+              f"rank {r} reports another global loss or grad norm")
+        check(run["launches"] == want, f"rank {r} launches "
+              f"{run['launches']} != {want}")
+        check(run["groups_in_backward"] == [1], f"rank {r}: layer groups "
+              f"issued in the backward {run['groups_in_backward']}")
+    check(all(s["skipped"] == 0 for s in runs[0]["stats"] + ws1["stats"]),
+          "overlap_dropout: a step was skipped")
+    loss_err = [abs(x["loss"] - y["loss"]) for x, y in
+                zip(runs[0]["stats"], ws1["stats"])]
+    gnorm_err = [abs(x["grad_norm"] - y["grad_norm"]) / y["grad_norm"]
+                 for x, y in zip(runs[0]["stats"], ws1["stats"])]
+    check(len(loss_err) == OVERLAP_STEPS and max(loss_err) <= BF16_TOL
+          and max(gnorm_err) <= PATH_LP_TOL,
+          f"dp 2 overlap against world size 1: loss err {loss_err}, grad "
+          f"norm rel err {gnorm_err}")
+    masks = card_mask_check()
+    check(masks["equal"], f"a dropout mask drawn on the card differs from "
+          f"the CPU's: {masks}")
+    say("overlap_dropout", card=nvidia_smi(),
+        launcher=f"torchrun --nproc_per_node {OVERLAP_RANKS} chip_smoke.py "
+        f"--finetune-rank (finetune.main in each rank)",
+        flags=" ".join(OVERLAP_FLAGS) + " --hidden_dropout 0.1",
+        layout="dp 2, ZeRO-1, overlap_grad_reduce + overlap_param_gather, "
+        "every rank on cuda:0", backend="gloo",
+        collectives_staged_through_host=runs[0]["parallel"]["staged"],
+        layers=FT_LAYERS, seq=FT_SEQ, global_batch=FT_MICRO,
+        losses=[x["loss"] for x in runs[0]["stats"]],
+        losses_world1=[y["loss"] for y in ws1["stats"]],
+        grad_norms=[x["grad_norm"] for x in runs[0]["stats"]],
+        grad_norms_world1=[y["grad_norm"] for y in ws1["stats"]],
+        loss_abs_err=loss_err, grad_norm_rel_err=gnorm_err,
+        tol={"loss": BF16_TOL, "grad_norm_rel": PATH_LP_TOL},
+        step_ms=[st["ms"] for st in runs[0]["steps"]],
+        step_ms_label="gloo through the host, one card shared by 2 ranks",
+        step_ms_world1=[st["ms"] for st in ws1["steps"]],
+        peak_gb_per_rank=[run["peak_gb"] for run in runs],
+        launches_per_rank=[run["launches"] for run in runs],
+        expected_launches_per_rank=want,
+        layer_groups_issued_in_backward=runs[0]["groups_in_backward"],
+        ranks_wall_s=ranks_s, rank0_run_wall_s=runs[0]["wall_s"],
+        world1_wall_s=ws1_s, rank0_clock_s=runs[0]["clock_s"],
+        card_mask=masks,
+        rank0_log_tail=log[-1200:])
+    for row in kernels:
+        name = row["name"]
+        if name in FLASH_WRAPPERS:
+            per = [run["launches"][name] for run in runs]
+            row["launches_by_path"]["overlap_dropout"] = sum(per)
+            row["launches_by_path"]["overlap_dropout_world1"] = \
+                ws1["launches"][name]
+            row.setdefault("launches_per_rank", {})[
+                "overlap_dropout"] = per
             row["launches"] = sum(row["launches_by_path"].values())
 
 
@@ -5186,7 +5400,8 @@ def time_flash_tp2(kernels):
 # the recipe's pipeline flags at pp 2 (examples/finetune.sh:13,59) with
 # the JAX package's --pipeline_remat, two ranks on cuda:0 through gloo
 PP_FLAGS = ["--pipeline_model_parallel_size", "2", "--pipeline_remat",
-            "tick", "--distributed_backend", "gloo"]
+            "tick", "--async_pipeline_dispatch", "--distributed_backend",
+            "gloo"]
 PP_RANKS = 2
 PP_GEN = 32  # tokens each served request generates
 PP_STEP4_TOL = 1e-4
@@ -5344,7 +5559,9 @@ def pipeline_phase(kernels, data, one):
     rows) over each common prefix, log-probs within 5e-2, the 4-row
     route's drift from both printed beside; K4-K6 per rank as the
     schedule implies, K1 in "tgd" once a stage layer per ring decode
-    tick."""
+    tick. The two ranks then run the context_parallel phase's entries
+    and the overlap_dropout phase's dp 2 run; returned: (cp records,
+    overlap records), each with the ranks' log."""
     from types import SimpleNamespace
 
     ck = FT_DIR / "pipeline_ck"
@@ -5352,12 +5569,20 @@ def pipeline_phase(kernels, data, one):
     pp = base + PP_FLAGS
     prompts = pp_prompts()
     t0 = time.perf_counter()
+    # the context_parallel phase's runs and the overlap_dropout phase's
+    # dp 2 run ride these two ranks last (world size 2 too): one start of
+    # the two processes, and of their first step's lazy imports
+    later = cp_rank_argvs(data) + [overlap_argv(data)]
     ranks, log = run_ranks(
         [pp + ["--exit_interval", "3", "--save_interval", "3", "--save",
                str(ck)],
          pp + ["--load", str(ck)],
-         {"argv": pp, "ck": str(ck), "prompts": prompts}], nproc=PP_RANKS)
+         {"argv": pp, "ck": str(ck), "prompts": prompts}] + later,
+        nproc=PP_RANKS)
     ranks_s = time.perf_counter() - t0
+    n_cp = len(later) - 1
+    later_ranks = (([r[3:3 + n_cp] for r in ranks], log),
+                   ([r[3 + n_cp:] for r in ranks], log))
     first, resumed, served = ([r[i] for r in ranks] for i in range(3))
     ref = one["stats"]
     for r, run in enumerate(first):
@@ -5463,7 +5688,13 @@ def pipeline_phase(kernels, data, one):
         launches_per_rank=[run["launches"] for run in first],
         expected_launches_per_rank=pp_expected_launches(3),
         checkpoint_leaves_checked=leaves, checkpoint_bytes=ckpt_bytes,
+        checkpoint_form="per-rank pieces (model/, optim/, done/ a rank)",
         saves_blocked_ms=first[0]["saves"], commits_s=first[0]["commits"],
+        saves_blocked_ms_per_rank=[run["saves"] for run in first],
+        commits_s_per_rank=[run["commits"] for run in first],
+        save_host_rss_gb_rank0=first[0]["save_rss"],
+        save_s_rank0=first[0]["clock_s"].get("saves"),
+        commit_wait_s_rank0=first[0]["clock_s"].get("commit_wait"),
         load_s_per_rank=[run["loads"] for run in resumed],
         load_s_world1=ws1["loads"], step4_losses=step4,
         ring=plan, ring_k1_tgd_launches_per_rank=ring_k1,
@@ -5474,8 +5705,10 @@ def pipeline_phase(kernels, data, one):
         serve_s_per_rank=[{k: rank[k]["s"] for k in ("score", "greedy")}
                           for rank in served],
         serve_s_world1={k: whole[k]["s"] for k in ("score", "greedy")},
-        ranks_wall_s=ranks_s, world1_resume_wall_s=ws1_s,
-        world1_serve_wall_s=whole_s,
+        ranks_wall_s=ranks_s,
+        ranks_wall_includes="the context_parallel and overlap_dropout "
+        "phases' rank work",
+        world1_resume_wall_s=ws1_s, world1_serve_wall_s=whole_s,
         rank0_run_wall_s=[first[0]["wall_s"], resumed[0]["wall_s"]],
         rank0_clock_s=[first[0]["clock_s"], resumed[0]["clock_s"]],
         rank0_log_tail=log[-1500:])
@@ -5500,6 +5733,7 @@ def pipeline_phase(kernels, data, one):
             row.setdefault("launches_per_rank", {})[
                 "pipeline_ring_tgd"] = per
             row["launches"] = sum(row["launches_by_path"].values())
+    return later_ranks
 
 
 def time_decode_ring(kernels):
@@ -5716,7 +5950,19 @@ def cp_remat(policies):
         mesh.destroy_parallel()
 
 
-def context_parallel_phase(kernels, data, one):
+def cp_rank_argvs(data):
+    """The context_parallel phase's rank-mode entries: 3 steps and a
+    save at cp 2, the resume, the 16k ring, the recompute policies."""
+    ck = FT_DIR / "cp_ck"
+    cp = mode_argv(data, *RECIPE, "--bf16", "--train_iters", "4") \
+        + CP_FLAGS
+    return [cp + ["--exit_interval", "3", "--save_interval", "3", "--save",
+                  str(ck)],
+            cp + ["--load", str(ck)],
+            {"ring_seq": CP_RING_SEQ}, {"policies": list(REMAT_POLICIES)}]
+
+
+def context_parallel_phase(kernels, data, one, ranks=None):
     """`torchrun --nproc_per_node 2 ... finetune.main` at cp 2 with the
     recipe's flags over gloo, both ranks on cuda:0, at Llama-2-7B widths
     (FT_LAYERS of 32 layers, seq 4096: 2048 positions a rank, global
@@ -5732,20 +5978,20 @@ def context_parallel_phase(kernels, data, one):
     moments included, equal to what each rank held, bit for bit; the
     16k ring's o within 5e-3 and its o, dq, dk, dv cosines >= 0.98; K4-K6
     launches a rank by mask as the ring's hops and each recompute policy
-    imply (`cp_policy_launches`), the policies' losses equal."""
+    imply (`cp_policy_launches`), the policies' losses equal. `ranks`
+    (records, log): the records of `cp_rank_argvs`, when the pipeline
+    phase's torchrun (the same two ranks, world size 2) ran them, which
+    saves the start of two processes; else this phase starts its own."""
     from types import SimpleNamespace
 
     ck = FT_DIR / "cp_ck"
     base = mode_argv(data, *RECIPE, "--bf16", "--train_iters", "4")
-    cp = base + CP_FLAGS
     t0 = time.perf_counter()
-    ranks, log = run_ranks(
-        [cp + ["--exit_interval", "3", "--save_interval", "3", "--save",
-               str(ck)],
-         cp + ["--load", str(ck)],
-         {"ring_seq": CP_RING_SEQ}, {"policies": list(REMAT_POLICIES)}],
-        nproc=CP_RANKS)
-    ranks_s = time.perf_counter() - t0
+    ranks_s = "ran in the pipeline phase's ranks"
+    if ranks is None:
+        ranks = run_ranks(cp_rank_argvs(data), nproc=CP_RANKS)
+        ranks_s = time.perf_counter() - t0
+    ranks, log = ranks
     first, resumed, ring, remat = ([r[i] for r in ranks] for i in range(4))
     ref = one["stats"]
     others = ("rmsnorm_fwd", "rmsnorm_bwd", "decode_attention",
@@ -5838,7 +6084,13 @@ def context_parallel_phase(kernels, data, one):
         expected_by_causal_per_rank=[cp_expected_launches(r, 3)
                                      for r in range(CP_RANKS)],
         checkpoint_leaves_checked=leaves, checkpoint_bytes=ckpt_bytes,
+        checkpoint_form="per-rank pieces (model/, optim/, done/ a rank)",
         saves_blocked_ms=first[0]["saves"], commits_s=first[0]["commits"],
+        saves_blocked_ms_per_rank=[run["saves"] for run in first],
+        commits_s_per_rank=[run["commits"] for run in first],
+        save_host_rss_gb_rank0=first[0]["save_rss"],
+        save_s_rank0=first[0]["clock_s"].get("saves"),
+        commit_wait_s_rank0=first[0]["clock_s"].get("commit_wait"),
         load_s_per_rank=[run["loads"] for run in resumed],
         load_s_world1=ws1["loads"], step4_losses=step4,
         ring_16k=ring, ring_16k_shape=f"b1 s{CP_RING_SEQ} g32 qpk1 d128 "
@@ -6007,7 +6259,9 @@ def smoke(args) -> int:
 
     smi = nvidia_smi()
     say("device", nvidia_smi=smi, torch=torch.__version__,
-        cuda=torch.version.cuda, name=torch.cuda.get_device_name(0))
+        cuda=torch.version.cuda, name=torch.cuda.get_device_name(0),
+        bytecode_cache=None if sys.dont_write_bytecode
+        else sys.pycache_prefix)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     timed("build", build_kernels)
@@ -6065,8 +6319,14 @@ def smoke(args) -> int:
     data = timed("finetune", finetune_phase, kernels, train_ms)
     one = timed("finetune_modes", finetune_modes, kernels, data)
     timed("finetune_parallel", finetune_parallel, kernels, data, one)
-    timed("pipeline", pipeline_phase, kernels, data, one)
-    timed("context_parallel", context_parallel_phase, kernels, data, one)
+    # the pipeline phase's two ranks run the context_parallel phase's and
+    # the overlap_dropout phase's rank work last: pipeline's seconds
+    # include theirs, the later phases' only their checks
+    cp_ranks, overlap = timed("pipeline", pipeline_phase, kernels, data,
+                              one)
+    timed("context_parallel", context_parallel_phase, kernels, data, one,
+          cp_ranks)
+    timed("overlap_dropout", overlap_dropout_phase, kernels, data, overlap)
     shutil.rmtree(FT_DIR)
     say("phase_seconds", card=smi, **seconds,
         total_s=round(time.perf_counter() - t_start, 1))

@@ -9,14 +9,15 @@ the port's `ModelConfig` (torch dtypes), `ParallelConfig` and
 
 A flag that selects a part of the system the port does not run yet
 raises ValueError naming its slice of ROADMAP.md, never silently
-ignored: the overlap schedulers (the next A4 PR), the telemetry flags
-(A3.8), and the BERT and T5 families and post-LN layers (A6). GPT,
+ignored: the telemetry flags (A3.8), and the BERT and T5 families and
+post-LN layers (A6). GPT,
 Llama, CodeLlama and Falcon (with its parallel attention and parallel
 layernorm) build, with every single-card training mode (the recompute
 policies and block recompute, fp16 with its loss scaler, hidden,
 attention and LIMA dropout) and tensor, sequence, data, pipeline (with
-`--pipeline_remat`) and context parallelism with the ZeRO-1 optimizer
-under torchrun.
+`--pipeline_remat` and `--async_pipeline_dispatch`) and context
+parallelism with the ZeRO-1 optimizer and its overlap schedulers
+(`--overlap_grad_reduce`, `--overlap_param_gather`) under torchrun.
 `--distributed_backend {nccl,gloo}` is the reference's flag, which the
 JAX package descopes (XLA has no backend choice): torch needs one, so
 the port takes it (ROADMAP.md C, accepted divergences).
@@ -206,7 +207,6 @@ ENTRY_SCRIPT_FLAGS = {
 }
 
 _A3_8 = "the trainer's telemetry hooks (ROADMAP.md A3.8)"
-_A4 = "the next A4 PR (ROADMAP.md A4)"
 _A6 = "the remaining model families (ROADMAP.md A6)"
 
 # flags of later slices (parser dest -> the slice): a value other than
@@ -223,9 +223,6 @@ LATER_FLAGS = {
         "flight_recorder_size", "device_cost_registry", "chip_spec",
         "perf_sentinel_ksigma", "perf_sentinel_window",
         "perf_sentinel_patience"), _A3_8),
-    **dict.fromkeys((
-        "overlap_grad_reduce", "overlap_param_gather",
-        "async_pipeline_dispatch"), _A4),
     "use_post_ln": _A6,
 }
 
@@ -568,6 +565,9 @@ def args_to_configs(args, padded_vocab_size: int,
         use_distributed_optimizer=args.use_distributed_optimizer,
         grad_rs_bucket_mb=args.grad_rs_bucket_mb,
         quantized_grad_reduce=args.quantized_grad_reduce,
+        overlap_grad_reduce=args.overlap_grad_reduce,
+        overlap_param_gather=args.overlap_param_gather,
+        async_pipeline_dispatch=args.async_pipeline_dispatch,
         num_microbatches=gbs // (args.micro_batch_size * dp),
         pipeline_remat=args.pipeline_remat)
     tcfg = TrainConfig(

@@ -324,8 +324,8 @@ def tiny_config(**overrides) -> ModelConfig:
 class ParallelConfig:
     """Device layout (JAX: config.py ParallelConfig): data, tensor,
     pipeline and context parallelism with sequence parallelism and the
-    ZeRO-1 optimizer, with the JAX package's validations (:346-451). The
-    overlap schedulers raise, naming their ROADMAP.md A4 item.
+    ZeRO-1 optimizer and the overlap schedulers, with the JAX package's
+    validations (:346-451).
     `num_microbatches` is each rank's gradient-accumulation count, at
     pp > 1 the microbatches the GPipe schedule streams through the
     stages (parallel/pipeline.py)."""
@@ -360,12 +360,6 @@ class ParallelConfig:
             raise ValueError(
                 f"pipeline_remat={self.pipeline_remat!r}: expected one of "
                 f"{REMAT_POLICIES + ('tick', 'dots')}")
-        for name in ("overlap_grad_reduce", "overlap_param_gather",
-                     "async_pipeline_dispatch"):
-            if getattr(self, name):
-                raise ValueError(f"{name}: the overlap schedulers are not "
-                                 f"ported yet (the next A4 PR (ROADMAP.md "
-                                 f"A4): the overlap schedulers, item 1)")
         if min(self.mesh_shape) < 1:
             raise ValueError(f"dp={self.data_parallel_size} "
                              f"pp={self.pipeline_parallel_size} "
@@ -390,6 +384,31 @@ class ParallelConfig:
                 raise ValueError(
                     "quantized_grad_reduce with data_parallel_size=1: "
                     "there is no dp gradient reduction to quantize")
+        for flag in ("overlap_grad_reduce", "overlap_param_gather"):
+            if not getattr(self, flag):
+                continue
+            # the JAX gates (JAX :397-427): the overlap schedules reorder
+            # ZeRO-1's reduce-scatter and all-gather on a pure-dp layout
+            if not self.use_distributed_optimizer:
+                raise ValueError(
+                    f"{flag} requires use_distributed_optimizer: the "
+                    f"overlap scheduling reorders the ZeRO-1 "
+                    f"reduce-scatter/all-gather (optimizer/zero1.py); "
+                    f"without it there is nothing to schedule")
+            if max(self.tensor_parallel_size, self.pipeline_parallel_size,
+                   self.context_parallel_size) > 1:
+                raise ValueError(
+                    f"{flag} is only available on pure-dp layouts "
+                    f"(tp=pp=cp=1), as in the JAX package")
+            if self.data_parallel_size <= 1:
+                raise ValueError(
+                    f"{flag} with data_parallel_size=1: there is no dp "
+                    f"collective to overlap")
+        if self.async_pipeline_dispatch and self.pipeline_parallel_size <= 1:
+            raise ValueError(
+                "async_pipeline_dispatch requires pipeline_parallel_size "
+                "> 1: it reschedules the stage ring's transfers "
+                "(parallel/pipeline.py); there is no ring at pp=1")
         if self.num_microbatches < 1:
             raise ValueError(f"num_microbatches={self.num_microbatches}")
 

@@ -50,7 +50,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from megatron_llm_tpu_torch.models.dropout import dropout
+from megatron_llm_tpu_torch.models.dropout import attention_site, dropout
 from megatron_llm_tpu_torch.models.remat import tag
 from megatron_llm_tpu_torch.models.rope import apply_rope
 from megatron_llm_tpu_torch.ops.decode_attention import (
@@ -103,7 +103,8 @@ def grouped_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         m = mask[None, None, None] if mask.dim() == 2 else mask[:, :, None]
         scores = scores.masked_fill(m, neg)
     probs = torch.softmax(scores, dim=-1)
-    probs = dropout(probs, cfg.attention_dropout, dropout_seed).to(v.dtype)
+    probs = dropout(probs, cfg.attention_dropout,
+                    attention_site(dropout_seed, g)).to(v.dtype)
     with tag("attn_ctx"):
         ctx = torch.einsum("bgqst,btgd->bsgqd", probs, v)
     return ctx.reshape(b, s, g * qpk * d)

@@ -23,7 +23,7 @@ from typing import Optional, Tuple
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from megatron_llm_tpu_torch.models.dropout import dropout, split
+from megatron_llm_tpu_torch.models.dropout import dropout, hidden_site, split
 from megatron_llm_tpu_torch.models.norms import apply_norm
 from megatron_llm_tpu_torch.models.rope import precompute_rope
 from megatron_llm_tpu_torch.models.transformer import (
@@ -32,6 +32,7 @@ from megatron_llm_tpu_torch.models.transformer import (
     normal,
     transformer_stack,
 )
+from megatron_llm_tpu_torch.parallel import overlap
 from megatron_llm_tpu_torch.parallel.cross_entropy import (
     vocab_parallel_cross_entropy,
 )
@@ -93,7 +94,8 @@ def embed_tokens(params: dict, cfg, tokens: torch.Tensor,
         pos = params["embedding"]["position_embeddings"]
         hidden = hidden + pos[sequence_shard(position_ids)].to(
             cfg.compute_dtype)
-    return dropout(hidden, cfg.hidden_dropout, dropout_seed)
+    return dropout(hidden, cfg.hidden_dropout,
+                   hidden_site(dropout_seed, hidden.shape[1]))
 
 
 def chunked_head_cross_entropy(params: dict, cfg, hidden: torch.Tensor,
@@ -178,6 +180,7 @@ def language_model_forward(params: dict, cfg, tokens: torch.Tensor,
     emb_s = stack_s = None
     if dropout_rng is not None and not deterministic:
         emb_s, stack_s = split(dropout_rng)
+    overlap.before_embedding()
     hidden = embed_tokens(params, cfg, tokens, position_ids, emb_s)
     hidden, new_caches = transformer_stack(
         params["layers"], cfg, hidden, rope_table, attention_mask,

@@ -39,13 +39,19 @@ from megatron_llm_tpu_torch.models.activations import (
     GLU_ACTIVATIONS,
 )
 from megatron_llm_tpu_torch.models.attention import attention_block
-from megatron_llm_tpu_torch.models.dropout import dropout, fold_in, split
+from megatron_llm_tpu_torch.models.dropout import (
+    dropout,
+    fold_in,
+    hidden_site,
+    split,
+)
 from megatron_llm_tpu_torch.models.norms import apply_norm
 from megatron_llm_tpu_torch.models.remat import remat_wrap, tag
 from megatron_llm_tpu_torch.ops.quantization import (
     is_quantized_weight,
     qdot,
 )
+from megatron_llm_tpu_torch.parallel import overlap
 from megatron_llm_tpu_torch.parallel.mappings import tp_input, tp_output
 
 
@@ -141,6 +147,13 @@ def unstack_layers(stacked: dict) -> list:
                 for k, v in tree.items()}
 
     parts = split(stacked)
+    hook = overlap.current_grad_hook()
+    if hook is not None and torch.is_grad_enabled():
+        # --overlap_grad_reduce: each layer's gradient of leaf j (the
+        # layers subtree's leaf order) is reported once it is complete
+        # (a hook on an unbind output would fire only once every layer's
+        # gradient of the leaf is there)
+        parts = overlap.tap_layers(parts, hook)
     L = next(iter(stacked["attention"].values())).shape[0]
     return [pick(parts, i) for i in range(L)]
 
@@ -191,6 +204,9 @@ def transformer_layer(layer_params: dict, cfg, hidden: torch.Tensor,
         else hidden_dropout_rate
     attn_s, h1_s, h2_s = split(dropout_seed, 3) \
         if dropout_seed is not None else (None, None, None)
+    # the residual branches' masks, placed by the stream's offsets
+    h1_s = hidden_site(h1_s, hidden.shape[1])
+    h2_s = hidden_site(h2_s, hidden.shape[1])
     normed = apply_norm(hidden, layer_params["input_norm"], cfg)
     attn_out, new_cache = attention_block(
         layer_params["attention"], cfg, normed, rope_table, mask,
@@ -257,6 +273,9 @@ def transformer_stack(layer_params, cfg, hidden: torch.Tensor,
 
         body_ck = remat_wrap(body, policy)
         for i, p in enumerate(layers):
+            # a parameter all-gather in flight lands before the layer
+            # reads its leaves (--overlap_param_gather)
+            overlap.before_layer(layer_offset + i)
             hidden = (body_ck if i < n_remat else body)(p, hidden, i)
         return hidden, None
     if "k_pages_layers" in kv_caches:

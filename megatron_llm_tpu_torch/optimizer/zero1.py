@@ -11,7 +11,8 @@ optimizer/zero1.py, its eager schedule).
   the sum of row r; leaves with no such axis (norm scales) ride a plain
   all-reduce and keep whole optimizer state, as in the JAX package.
 - AdamW runs on the fp32 shard (optimizer/optimizer.py), then one
-  all-gather per bucket rebuilds every rank's parameters.
+  all-gather per bucket rebuilds every rank's parameters (`ParamGather`,
+  each waited for at once unless `--overlap_param_gather`).
 - `--quantized_grad_reduce` (pure dp only): each bucket row is
   chunk-quantized to int8 with one fp32 scale per QUANT_CHUNK elements
   (ops/quantization.quantize_rows), the rows are exchanged with
@@ -30,8 +31,25 @@ already summed over the cp group (JAX zero1.py:457, sharding.py:175),
 and `sum_over_layout` counts each leaf once. The reduction runs once a
 step, after the microbatches' gradients have
 accumulated (the reference's DDP; the JAX package reduces every
-microbatch inside its scan). `OverlapPlan` and the overlap schedulers
-wait for the next A4 PR.
+microbatch inside its scan).
+
+The overlap schedulers (pure dp, JAX :194-330, :464-, :592-, :722-):
+
+- `--overlap_grad_reduce`: `OverlapPlan` cuts the layer stack into
+  groups of at least 2 layers of about `grad_rs_bucket_mb` MB of fp32
+  gradient, each leaf sharded on a within-layer axis (`zero1_axis(...,
+  skip_leading=True)`), the other leaves on the eager plan (`aux`).
+  `GradOverlap` issues each group's reduce-scatter asynchronously
+  during the last microbatch's backward, as soon as every layer of the
+  group has its final gradient (hooks on the per-layer views,
+  parallel/overlap.py), and the aux buckets after the backward; the
+  train step waits for every handle before the overflow check,
+  clipping and AdamW. The moments follow the grads to the within-layer
+  axis (parallel/sharding.py `optimizer_state_specs`).
+- `--overlap_param_gather`: `ParamGather` issues the all-gathers of
+  the updated blocks asynchronously in forward order (the buckets
+  holding the embedding first, then the layer groups), and the forward
+  waits for each just before it first reads its leaves.
 """
 
 from __future__ import annotations
@@ -47,6 +65,7 @@ from megatron_llm_tpu_torch.parallel.mesh import (
     all_gather_rows,
     all_reduce,
     all_to_all_rows,
+    done,
     reduce_scatter_rows,
 )
 from megatron_llm_tpu_torch.parallel.sharding import (
@@ -140,6 +159,123 @@ def build_zero1_plan(cfg, params_tmpl, dp: int,
         shapes=tuple(tuple(x.shape) for x in flat))
 
 
+@dataclass(frozen=True)
+class OverlapPlan:
+    """The layout of `--overlap_grad_reduce` (JAX :194-291): the stacked
+    layer leaves cut into contiguous layer `groups` (forward order; the
+    backward issues them last to first), each layer leaf sharded on its
+    within-layer axis `layer_axes` (None: the residue, all-reduced
+    whole), and the other leaves' eager plan `aux`."""
+
+    dp: int
+    num_layers: int
+    groups: Tuple[Tuple[int, int], ...]
+    layer_axes: Tuple[Optional[int], ...]
+    layer_shapes: Tuple[Tuple[int, ...], ...]
+    aux: Zero1Plan
+
+    def layer_shard_shape(self, i: int) -> Tuple[int, ...]:
+        k = self.layer_axes[i]
+        if k is None:
+            return self.layer_shapes[i]
+        s = list(self.layer_shapes[i])
+        s[k] //= self.dp
+        return tuple(s)
+
+    def _group_elems(self, lo: int, hi: int) -> int:
+        return sum((hi - lo) * _numel(self.layer_shapes[i][1:])
+                   for i, k in enumerate(self.layer_axes) if k is not None)
+
+    def bucket_comm_bytes(self, quantized: bool) -> Tuple[int, ...]:
+        """Per issue point: each layer group (forward order), then the
+        aux buckets."""
+        groups = tuple(
+            _bucket_wire_bytes(self._group_elems(lo, hi), self.dp,
+                               quantized)
+            for lo, hi in self.groups)
+        return groups + self.aux.bucket_comm_bytes(quantized)
+
+    def comm_bytes_per_reduce(self, quantized: bool) -> int:
+        res = sum(_numel(self.layer_shapes[i])
+                  for i, k in enumerate(self.layer_axes) if k is None)
+        res += sum(_numel(self.aux.shapes[i]) for i in self.aux.residue)
+        return sum(self.bucket_comm_bytes(quantized)) + res * 4
+
+
+def split_aux_layers(params: dict):
+    """(the non-layer subtree, the stacked-layer subtree)."""
+    return {k: v for k, v in params.items() if k != "layers"}, \
+        params["layers"]
+
+
+def build_overlap_plan(cfg, params_tmpl, dp: int,
+                       bucket_mb: float = 4.0) -> OverlapPlan:
+    """Layer groups of about `bucket_mb` MB of fp32 gradient and at
+    least 2 layers (a trailing single layer joins the group before it),
+    and the aux subtree's eager plan (JAX :238-291; the same groups,
+    axes and shapes)."""
+    from megatron_llm_tpu_torch.parallel.sharding import param_specs
+
+    aux_tmpl, layers_tmpl = split_aux_layers(params_tmpl)
+    flat_l = tree_leaves(layers_tmpl)
+    lspecs = spec_leaves(param_specs(cfg, params_tmpl)["layers"])
+    L = int(flat_l[0].shape[0])
+    layer_axes: List[Optional[int]] = []
+    per_layer_bytes = 0
+    for leaf, spec in zip(flat_l, lspecs):
+        k = zero1_axis(spec, tuple(leaf.shape), dp, skip_leading=True)
+        layer_axes.append(k)
+        if k is not None:
+            per_layer_bytes += _numel(leaf.shape[1:]) * 4
+    target = max(int(bucket_mb * (1 << 20)), 1)
+    per_group = min(L, max(2, target // max(per_layer_bytes, 1))) \
+        if L > 1 else 1
+    groups = [[lo, min(lo + per_group, L)] for lo in range(0, L, per_group)]
+    if len(groups) > 1 and groups[-1][1] - groups[-1][0] < 2:
+        groups[-2][1] = groups[-1][1]
+        groups.pop()
+    return OverlapPlan(
+        dp=dp, num_layers=L, groups=tuple(tuple(g) for g in groups),
+        layer_axes=tuple(layer_axes),
+        layer_shapes=tuple(tuple(x.shape) for x in flat_l),
+        aux=build_zero1_plan(cfg, aux_tmpl, dp, bucket_mb=bucket_mb))
+
+
+def layer_leaf_indices(params: dict) -> Tuple[List[int], List[int]]:
+    """(the `tree_leaves` indices of the aux leaves, of the layer
+    leaves), each in its subtree's own leaf order."""
+    index, _ = map_indexed(lambda i, _: i, params)
+    aux, layers = split_aux_layers(index)
+    return tree_leaves(aux), tree_leaves(layers)
+
+
+def overlap_state_plan(plan: OverlapPlan, params: dict) -> Zero1Plan:
+    """The whole tree's per-leaf ZeRO-1 axes under the overlap layout,
+    as a `Zero1Plan` with no buckets: what the moments, the update's
+    blocks and the gradient norm's dp flags follow."""
+    aux_idx, layer_idx = layer_leaf_indices(params)
+    flat = tree_leaves(params)
+    axes: List[Optional[int]] = [None] * len(flat)
+    for j, i in enumerate(aux_idx):
+        axes[i] = plan.aux.leaf_axes[j]
+    for j, i in enumerate(layer_idx):
+        axes[i] = plan.layer_axes[j]
+    return Zero1Plan(
+        dp=plan.dp, leaf_axes=tuple(axes), buckets=(),
+        residue=tuple(i for i, k in enumerate(axes) if k is None),
+        shapes=tuple(tuple(x.shape) for x in flat))
+
+
+def build_state_plan(cfg, params_tmpl, dp: int, bucket_mb: float = 4.0,
+                     pp: int = 1, overlap_grads: bool = False) -> Zero1Plan:
+    """The per-leaf layout the moments are kept in: the eager plan, or
+    under `--overlap_grad_reduce` the overlap layout's."""
+    if overlap_grads:
+        return overlap_state_plan(
+            build_overlap_plan(cfg, params_tmpl, dp, bucket_mb), params_tmpl)
+    return build_zero1_plan(cfg, params_tmpl, dp, bucket_mb, pp=pp)
+
+
 def to_dp_matrix(g: torch.Tensor, k: int, dp: int) -> torch.Tensor:
     """The zero1 axis moved to the front, reshaped to (dp, n) fp32: row r
     is rank r's block of axis k."""
@@ -230,26 +366,6 @@ def param_shards(params: list, plan: Zero1Plan, r: int) -> list:
     return out
 
 
-@torch.no_grad()
-def gather_param_shards(params: list, shards: list, plan: Zero1Plan,
-                        ctx) -> None:
-    """Every rank's updated blocks back into every rank's parameters:
-    one all-gather per bucket."""
-    for bucket in plan.buckets:
-        rows = [shards[i].movedim(plan.leaf_axes[i], 0).reshape(-1)
-                for i in bucket]
-        sizes = [x.numel() for x in rows]
-        row = rows[0] if len(rows) == 1 else torch.cat(rows)
-        full = all_gather_rows(row.float().contiguous()[None],
-                               ctx.dp_group, ctx)
-        off = 0
-        for i, n in zip(bucket, sizes):
-            p = params[i]
-            p.copy_(from_dp_matrix(full[:, off:off + n], plan.shapes[i],
-                                   plan.leaf_axes[i]))
-            off += n
-
-
 def sum_over_layout(tp_sharded, dp_sharded, ctx, pp_sharded=None):
     """A function of per-leaf partial sums (0-d tensors, leaf order) to
     their sum over the whole model: a tp-sharded leaf's partial summed
@@ -294,3 +410,243 @@ def map_indexed(fn, tree, start: int = 0):
             out[k], start = map_indexed(fn, tree[k], start)
         return {k: out[k] for k in tree}, start
     return fn(start, tree), start + 1
+
+
+# ---------------------------------------------------------------------------
+# the overlap schedulers
+# ---------------------------------------------------------------------------
+
+class GradOverlap:
+    """`--overlap_grad_reduce` for one step (JAX :464-): the layer
+    groups' reduce-scatters issued during the last microbatch's
+    backward, the aux buckets after it. `hook(j, layer, grad)` receives
+    the gradient of layer `layer` of layer leaf j (the per-layer views'
+    taps, parallel/overlap.py); once every sharded layer leaf of a
+    group has its gradient, the group's rows (the earlier microbatches'
+    sum, set aside by `begin_last`, plus this one's) are packed as in
+    the eager path and issued. `reduce(grads)` issues what the
+    hooks did not (the aux buckets, a group a leaf had no gradient in),
+    waits for every handle in issue order and returns the gradients in
+    the state layout: this rank's blocks, the residue whole."""
+
+    def __init__(self, plan: OverlapPlan, params: dict, ctx,
+                 quantized: bool = False):
+        self.plan, self.ctx, self.quantized = plan, ctx, quantized
+        self.aux_idx, self.layer_idx = layer_leaf_indices(params)
+        self.leaves = []  # the step's parameter leaves (begin_last)
+        self.sharded = [j for j, k in enumerate(plan.layer_axes)
+                        if k is not None]
+        self.last_from_hooks = 0  # the last step's groups issued early
+        self.group_of = {}
+        for gi, (lo, hi) in enumerate(plan.groups):
+            for layer in range(lo, hi):
+                self.group_of[layer] = gi
+        self.reset()
+
+    def reset(self) -> None:
+        self.grads = {}
+        self.count = [0] * len(self.plan.groups)
+        self.pending = []  # (group index or None, handle, entries), order
+        self.prev = None
+        self.from_hooks = 0  # groups issued inside the backward
+
+    def begin_last(self, leaves: list) -> None:
+        """Before the last microbatch's backward of `leaves` (the
+        parameter leaves, leaf order): the gradients summed so far are
+        set aside (`.grad` to None), so that the backward's accumulation
+        cannot change them under a group being packed."""
+        self.leaves = leaves
+        self.prev = [p.grad for p in self.leaves]
+        for p in self.leaves:
+            p.grad = None
+
+    def end_last(self) -> None:
+        """After it: each `.grad` is the earlier sum plus this
+        microbatch's, the add the backward's accumulation makes."""
+        for p, prev in zip(self.leaves, self.prev or ()):
+            if prev is not None:
+                p.grad = prev if p.grad is None else prev.add_(p.grad)
+
+    def hook(self, j: int, layer: int, grad: torch.Tensor) -> None:
+        if self.plan.layer_axes[j] is None:
+            return
+        self.grads[(j, layer)] = grad
+        gi = self.group_of[layer]
+        self.count[gi] += 1
+        lo, hi = self.plan.groups[gi]
+        if self.count[gi] == (hi - lo) * len(self.sharded):
+            self._issue_group(gi)
+            self.from_hooks += 1
+
+    def _group_rows(self, j: int, lo: int, hi: int) -> torch.Tensor:
+        i = self.layer_idx[j]
+        parts = [self.grads.pop((j, layer), None) for layer in range(lo, hi)]
+        rows = torch.stack([torch.zeros_like(self.leaves[i][0]) if g is None
+                            else g for g in parts])
+        prev = None if self.prev is None else self.prev[i]
+        if prev is not None:  # the earlier microbatches' sum
+            rows = prev[lo:hi] + rows
+        return rows
+
+    def _issue(self, mats, entries, tag) -> None:
+        cat = mats[0].contiguous() if len(mats) == 1 \
+            else torch.cat(mats, dim=1)
+        if self.quantized:
+            handle = done(quantized_bucket_reduce_scatter(cat, self.ctx))
+        else:
+            handle = reduce_scatter_rows(cat.reshape(-1), self.ctx.dp_group,
+                                         self.ctx, async_op=True)
+        self.pending.append((tag, handle, entries))
+
+    def _issue_group(self, gi: int, grads: Optional[list] = None) -> None:
+        """Pack and issue group gi: from the hooks' per-layer gradients,
+        or with `grads` from the accumulated gradients (a group some
+        leaf's hooks did not complete)."""
+        lo, hi = self.plan.groups[gi]
+        self.count[gi] = -1  # issued
+        mats, entries = [], []
+        for j in self.sharded:
+            k = self.plan.layer_axes[j]
+            rows = self._group_rows(j, lo, hi) if grads is None \
+                else grads[self.layer_idx[j]][lo:hi]
+            m = to_dp_matrix(rows, k, self.plan.dp)
+            entries.append((j, k, m.shape[1]))
+            mats.append(m)
+        self._issue(mats, entries, gi)
+
+    def reduce(self, grads: list) -> list:
+        plan, dp = self.plan, self.plan.dp
+        # a group whose hooks did not all fire: issued now, last to first
+        for gi in reversed(range(len(plan.groups))):
+            if self.count[gi] >= 0 and self.sharded:
+                self._issue_group(gi, grads)
+        aux = plan.aux
+        for bucket in aux.buckets:
+            mats = [to_dp_matrix(grads[self.aux_idx[b]], aux.leaf_axes[b],
+                                 dp) for b in bucket]
+            self._issue(mats, [(b, aux.leaf_axes[b], m.shape[1])
+                               for b, m in zip(bucket, mats)], None)
+        out = list(grads)
+        for j, k in enumerate(plan.layer_axes):
+            if k is None:
+                i = self.layer_idx[j]
+                out[i] = all_reduce(grads[i].float().contiguous(),
+                                    self.ctx.dp_group, ctx=self.ctx)
+        for b in aux.residue:
+            i = self.aux_idx[b]
+            out[i] = all_reduce(grads[i].float().contiguous(),
+                                self.ctx.dp_group, ctx=self.ctx)
+        shards = {}
+        for tag, handle, entries in self.pending:
+            row = handle.wait()
+            off = 0
+            if tag is None:
+                for b, k, n in entries:
+                    out[self.aux_idx[b]] = from_shard_row(
+                        row[off:off + n], aux.shapes[b], k, dp)
+                    off += n
+                continue
+            lo, hi = plan.groups[tag]
+            for j, k, n in entries:
+                shape = (hi - lo,) + plan.layer_shapes[j][1:]
+                if j not in shards:
+                    shards[j] = torch.empty(
+                        plan.layer_shard_shape(j), dtype=torch.float32,
+                        device=row.device)
+                shards[j][lo:hi] = from_shard_row(row[off:off + n], shape,
+                                                  k, dp)
+                off += n
+        for j, x in shards.items():
+            out[self.layer_idx[j]] = x
+        self.last_from_hooks = self.from_hooks
+        self.reset()
+        return out
+
+    def drain(self) -> None:
+        """Wait for every handle in flight and drop the step's state (a
+        step that raised)."""
+        for _, handle, _ in self.pending:
+            handle.wait()
+        self.reset()
+
+
+class ParamGather:
+    """The all-gather of the updated blocks as units, each one
+    all-gather of its leaves' rows, in forward order (JAX :722-): the
+    eager plan's buckets, or under the overlap layout the aux buckets
+    and then the layer groups. `issue(params, shards)` starts them all
+    (asynchronously with `overlap`, else each waited at once);
+    `before_embedding()` and `before_layer(i)` wait for the units the
+    forward reads next (parallel/overlap.py installs them), `drain()`
+    for all."""
+
+    def __init__(self, plan, params: dict, ctx, overlap: bool):
+        self.ctx, self.overlap = ctx, overlap
+        self.units = []  # (first layer read or -1, [(leaf, rows, k, shape)])
+        if isinstance(plan, OverlapPlan):
+            aux_idx, layer_idx = layer_leaf_indices(params)
+            for bucket in plan.aux.buckets:
+                self.units.append((-1, [
+                    (aux_idx[b], slice(None), plan.aux.leaf_axes[b],
+                     plan.aux.shapes[b]) for b in bucket]))
+            for lo, hi in plan.groups:
+                unit = [(layer_idx[j], slice(lo, hi), k,
+                         (hi - lo,) + plan.layer_shapes[j][1:])
+                        for j, k in enumerate(plan.layer_axes)
+                        if k is not None]
+                if unit:
+                    self.units.append((lo, unit))
+        else:
+            aux_idx, _ = layer_leaf_indices(params)
+            aux = set(aux_idx)
+            for bucket in plan.buckets:
+                first = -1 if any(i in aux for i in bucket) else 0
+                self.units.append((first, [
+                    (i, slice(None), plan.leaf_axes[i], plan.shapes[i])
+                    for i in bucket]))
+        self.pending = []  # (first layer, handle, unit, leaves), in order
+
+    @torch.no_grad()
+    def issue(self, leaves: list, shards: list) -> None:
+        """Gather `shards` (this rank's updated blocks, leaf order) into
+        `leaves` (the parameter leaves, updated when each unit lands)."""
+        for first, unit in self.units:
+            rows = [shards[i][sl].movedim(k, 0).reshape(-1)
+                    for i, sl, k, _ in unit]
+            row = rows[0] if len(rows) == 1 else torch.cat(rows)
+            h = all_gather_rows(row.float().contiguous()[None],
+                                self.ctx.dp_group, self.ctx, async_op=True)
+            self.pending.append((first, h, unit, leaves))
+            if not self.overlap:
+                # one unit's gathered rows alive at a time
+                self._consume(1)
+
+    @torch.no_grad()
+    def _consume(self, n: int) -> None:
+        for _ in range(n):
+            _, h, unit, leaves = self.pending.pop(0)
+            full = h.wait()
+            off = 0
+            for i, sl, k, shape in unit:
+                m = _numel(shape) // full.shape[0]
+                # through .data: the layers before this unit already
+                # saved views of the same leaf for their backward, and
+                # these rows are not among what they read
+                leaves[i].data[sl].copy_(from_dp_matrix(
+                    full[:, off:off + m], shape, k))
+                off += m
+
+    def before_embedding(self) -> None:
+        # units are in forward order: everything up to the last one that
+        # holds a leaf the embedding's step reads
+        last = max((j for j, p in enumerate(self.pending) if p[0] < 0),
+                   default=-1)
+        self._consume(last + 1)
+
+    def before_layer(self, layer: int) -> None:
+        last = max((j for j, p in enumerate(self.pending)
+                    if p[0] <= layer), default=-1)
+        self._consume(last + 1)
+
+    def drain(self) -> None:
+        self._consume(len(self.pending))

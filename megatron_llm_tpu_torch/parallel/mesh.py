@@ -34,6 +34,18 @@ is chosen here, once, from the backend and the device; nothing falls
 back to it on an error; under it each point-to-point direction keeps
 one pinned host buffer per peer and shape.
 
+`all_reduce`, `reduce_scatter_rows` and `all_gather_rows` take
+`async_op=True` for the overlap schedulers (optimizer/zero1.py) and
+return a `Handle` whose `wait()` gives the result; a transfer that
+failed or timed out raises there. Staged, the operand's copy to pinned
+host memory runs on a side stream with no wait in the issuing thread,
+the gloo op is launched once that copy has landed (launches keep issue
+order, and a blocking collective launches every one queued before it),
+and the copy back to the device is made in `wait()`. `post_recv`
+(`--async_pipeline_dispatch`) posts a receive of the stage ring early,
+staged into the second of two pinned buffers a peer, so the next
+tick's boundary is in flight while this tick computes.
+
 Tensor-parallel serving (inference/engine.py at serving_tp > 1) runs
 under a context of its own, `serving_context`: one tp group over ranks
 0..tp-1, installed per thread by `use_mesh` around the engine's rounds
@@ -67,9 +79,6 @@ DATA_AXIS = "data"
 MODEL_AXIS = "model"
 STAGE_AXIS = "stage"
 
-NEXT_A4 = "the next A4 PR (ROADMAP.md A4)"
-# the items of the next A4 PR, by their ROADMAP.md numbers
-A4_DROPOUT = f"{NEXT_A4}: dropout across ranks, item 2"
 BACKENDS = ("nccl", "gloo")
 # a hung collective fails after this long instead of hanging the run
 TIMEOUT = datetime.timedelta(minutes=10)
@@ -392,16 +401,142 @@ def _size(group) -> int:
 
 def _staged(ctx, *tensors):
     if ctx is not None and ctx.staged:
+        launch_pending(ctx)
         return tuple(t.cpu() for t in tensors)
     return tensors
 
 
+class Handle:
+    """A collective in flight. `wait()` gives its result, once; a
+    transfer that failed or timed out raises there.
+
+    Staged (gloo with a CUDA device), the operand's copy to pinned host
+    memory runs on a side stream and the gloo op is launched only once
+    that copy has landed: at the next issue or wait that finds its event
+    done, or at its own `wait()`. Launches keep issue order, so every
+    rank runs a group's collectives in the same order; the host copy
+    back to the device is made in `wait()`."""
+
+    def __init__(self, ctx, launch, finish, ready=None, keep=()):
+        self.ctx = ctx
+        self._launch, self._finish = launch, finish
+        self._ready = ready  # the CUDA event the host operands wait for
+        self._keep = keep  # tensors to hold alive until the launch
+        self._work = None
+        self._launched = False
+        self._done = False
+        self._result = None
+
+    @classmethod
+    def running(cls, ctx, work, finish) -> "Handle":
+        """A handle of an op already launched (`work`, None for none)."""
+        h = cls(ctx, None, finish)
+        h._work, h._launched = work, True
+        return h
+
+    def _start(self) -> None:
+        if self._launched:
+            return
+        if self._ready is not None:
+            self._ready.synchronize()
+        self._work = self._launch()
+        self._launched = True
+        self._keep = ()
+
+    def wait(self):
+        if self._done:
+            return self._result
+        if not self._launched:
+            launch_pending(self.ctx, upto=self)
+        self._start()
+        if self._work is not None:
+            self._work.wait()
+        self._result = self._finish()
+        self._done = True
+        self._launch = self._finish = None
+        return self._result
+
+
+def done(value) -> Handle:
+    """A handle of a value already there (a group of one rank)."""
+    return Handle.running(None, None, lambda: value)
+
+
+def launch_pending(ctx, upto: Optional[Handle] = None) -> None:
+    """Launch the staged collectives issued but not launched yet, in
+    issue order: all of them (each waits for its host copy), or with
+    `upto` those issued before it and it. Every blocking collective of
+    a staged context calls this first, so that no op overtakes one
+    issued before it."""
+    if ctx is None:
+        return
+    queue = ctx.p2p.get("launch")
+    while queue:
+        h = queue.pop(0)
+        h._start()
+        if h is upto:
+            return
+
+
+def _pump(ctx) -> None:
+    """Launch, in order, the queued ops whose host copies have landed,
+    without waiting for any."""
+    queue = ctx.p2p.get("launch")
+    while queue and (queue[0]._ready is None or queue[0]._ready.query()):
+        queue.pop(0)._start()
+
+
+def _to_host_async(ctx, x: torch.Tensor):
+    """(pinned host copy of x, the event it lands at): the copy runs on
+    the context's side stream after the work queued so far on x's
+    stream; the issuing thread does not wait."""
+    side = ctx.p2p.get("stream")
+    if side is None:
+        side = ctx.p2p["stream"] = torch.cuda.Stream(device=x.device)
+    side.wait_stream(torch.cuda.current_stream(x.device))
+    host = torch.empty(x.shape, dtype=x.dtype, pin_memory=True)
+    with torch.cuda.stream(side):
+        host.copy_(x, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record(side)
+    x.record_stream(side)
+    return host, ev
+
+
+def _issue(ctx, x: torch.Tensor, run, finish) -> Handle:
+    """An async collective of `x`: `run(operand)` launches it (returns a
+    Work), `finish(operand)` makes its result on x's device. Staged, the
+    operand is x's pinned host copy and the launch waits for it."""
+    if ctx is not None and ctx.staged and x.device.type == "cuda":
+        host, ev = _to_host_async(ctx, x)
+        h = Handle(ctx, lambda: run(host), lambda: finish(host), ev,
+                   keep=(x,))
+        ctx.p2p.setdefault("launch", []).append(h)
+        _pump(ctx)
+        return h
+    if ctx is not None and ctx.staged:
+        launch_pending(ctx)
+    return Handle.running(ctx, run(x), lambda: finish(x))
+
+
 def all_reduce(x: torch.Tensor, group, op=dist.ReduceOp.SUM,
-               ctx: Optional[ParallelContext] = None) -> torch.Tensor:
-    """`x` reduced over `group` in place (and returned)."""
+               ctx: Optional[ParallelContext] = None,
+               async_op: bool = False):
+    """`x` reduced over `group` in place (and returned). With `async_op`
+    a `Handle` whose `wait()` gives `x` reduced."""
     ctx = ctx or get_context()
     if group is None or _size(group) == 1:
-        return x
+        return done(x) if async_op else x
+    if async_op:
+        x_c = x if x.is_contiguous() else x.contiguous()
+
+        def finish(h):
+            if h is not x:
+                x.copy_(h, non_blocking=h.is_pinned())
+            return x
+
+        return _issue(ctx, x_c, lambda h: dist.all_reduce(
+            h, op=op, group=group, async_op=True), finish)
     (h,) = _staged(ctx, x)
     if not h.is_contiguous():
         h = h.contiguous()
@@ -418,12 +553,25 @@ def _gather_fn():
 
 
 def all_gather_rows(x: torch.Tensor, group,
-                    ctx: Optional[ParallelContext] = None) -> torch.Tensor:
-    """(n, ...) on each of k ranks -> (k * n, ...), rank order."""
+                    ctx: Optional[ParallelContext] = None,
+                    async_op: bool = False):
+    """(n, ...) on each of k ranks -> (k * n, ...), rank order. With
+    `async_op` a `Handle` whose `wait()` gives it."""
     ctx = ctx or get_context()
     k = _size(group)
     if k == 1:
-        return x
+        return done(x) if async_op else x
+    if async_op:
+        box = {}
+
+        def run(h):
+            box["out"] = torch.empty((k * h.shape[0],) + tuple(h.shape[1:]),
+                                     dtype=h.dtype, device=h.device,
+                                     pin_memory=h.is_pinned())
+            return _gather_fn()(box["out"], h, group=group, async_op=True)
+
+        return _issue(ctx, x.contiguous(), run, lambda h: box.pop(
+            "out").to(x.device, non_blocking=True))
     (h,) = _staged(ctx, x.contiguous())
     out = torch.empty((k * h.shape[0],) + tuple(h.shape[1:]),
                       dtype=h.dtype, device=h.device)
@@ -451,14 +599,26 @@ def gather_rows(x: torch.Tensor, group,
 
 
 def reduce_scatter_rows(x: torch.Tensor, group,
-                        ctx: Optional[ParallelContext] = None
-                        ) -> torch.Tensor:
+                        ctx: Optional[ParallelContext] = None,
+                        async_op: bool = False):
     """(k * n, ...) on each of k ranks -> this rank's (n, ...) block of
-    the sum."""
+    the sum. With `async_op` a `Handle` whose `wait()` gives it."""
     ctx = ctx or get_context()
     k = _size(group)
     if k == 1:
-        return x
+        return done(x) if async_op else x
+    if async_op:
+        box = {}
+
+        def run(h):
+            box["out"] = torch.empty((h.shape[0] // k,) + tuple(h.shape[1:]),
+                                     dtype=h.dtype, device=h.device,
+                                     pin_memory=h.is_pinned())
+            return dist.reduce_scatter_tensor(box["out"], h, group=group,
+                                              async_op=True)
+
+        return _issue(ctx, x.contiguous(), run, lambda h: box.pop(
+            "out").to(x.device, non_blocking=True))
     (h,) = _staged(ctx, x.contiguous())
     out = torch.empty((h.shape[0] // k,) + tuple(h.shape[1:]),
                       dtype=h.dtype, device=h.device)
@@ -495,6 +655,7 @@ def barrier(ctx: Optional[ParallelContext] = None) -> None:
     ctx = ctx or get_context()
     if ctx is None or ctx.world_size == 1:
         return
+    launch_pending(ctx)
     flag = torch.zeros(1, device="cpu" if ctx.staged or
                        ctx.device.type == "cpu" else ctx.device)
     dist.all_reduce(flag, group=ctx.world_group)
@@ -562,6 +723,40 @@ def recv_boundary(shape, dtype, src: int,
     out = torch.empty(shape, dtype=dtype, device=ctx.device)
     dist.recv(out, src)
     return out
+
+
+def post_recv(shape, dtype, src: int,
+              ctx: Optional[ParallelContext] = None) -> Handle:
+    """A receive of the next tensor global rank `src` sends, posted now
+    and waited on later: a `Handle` whose `wait()` gives a new tensor on
+    the context's device. Staged, each peer and shape has two pinned
+    host buffers used in turn, so the next receive is in flight while
+    this one's tensor is read; a buffer is posted again only after its
+    copy to the device has landed. Receives from one peer complete in
+    the order they were posted, and pair with its sends in that
+    order."""
+    ctx = ctx or get_context()
+    if not ctx.staged:
+        out = torch.empty(shape, dtype=dtype, device=ctx.device)
+        return Handle.running(ctx, dist.irecv(out, src), lambda: out)
+    turns = ctx.p2p.setdefault("turn", {})
+    key = (src, tuple(shape), dtype)
+    slot = turns.get(key, 0)
+    turns[key] = slot + 1
+    buf = _p2p_buffer(ctx, ("recv", src, slot % 2), shape, dtype)
+    landed = ctx.p2p.setdefault("landed", {})
+    ev = landed.pop(id(buf), None)
+    if ev is not None:
+        ev.synchronize()
+
+    def finish():
+        out = buf.to(ctx.device, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record()
+        landed[id(buf)] = ev
+        return out
+
+    return Handle.running(ctx, dist.irecv(buf, src), finish)
 
 
 def p2p_wait(ctx: Optional[ParallelContext] = None) -> None:

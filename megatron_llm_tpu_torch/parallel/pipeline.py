@@ -23,7 +23,20 @@ and the schedule is written out:
 
 Sends never wait for their receiver, and every pair of stages sends and
 receives the same microbatches in the same order, so no tick can
-deadlock; a transfer that fails raises, nothing retries it.
+deadlock; a transfer that fails raises, nothing retries it. Under
+`--async_pipeline_dispatch` a stage posts the receive of the next
+tick's boundary (forward) or output gradient (backward) before this
+tick computes and waits on it only when it reads it (parallel/mesh.py
+`post_recv`, two pinned buffers a peer when staged). The JAX form
+delays each hop by one tick inside its scan, so its fill and drain take
+2 (pp - 1) ticks; the eager schedule needs no extra tick, and the
+per-microbatch math is lockstep's, bit for bit.
+
+Dropout: microbatch m draws from the step's stream at its rows' global
+offsets (models/dropout.py), split between the embedding and the stack
+as the whole model's forward splits it, so a stage draws the masks of
+its layers in world size 1's model, and a recomputed tick draws them
+again.
 
 What a tick keeps for the backward is `pipeline_remat` (JAX
 :1-47, :364-377): "tick" / "full" keeps only the tick's input boundary
@@ -71,6 +84,7 @@ import torch
 
 from megatron_llm_tpu_torch.config import ParallelConfig
 from megatron_llm_tpu_torch.inference.generation import select_next_token
+from megatron_llm_tpu_torch.models.dropout import at, split
 from megatron_llm_tpu_torch.models.language_model import (
     chunked_head_cross_entropy,
     embed_tokens,
@@ -88,11 +102,11 @@ from megatron_llm_tpu_torch.parallel.mappings import (
     tp_input,
 )
 from megatron_llm_tpu_torch.parallel.mesh import (
-    A4_DROPOUT,
     all_gather_rows,
     broadcast,
     get_context,
     p2p_wait,
+    post_recv,
     recv_boundary,
     send_boundary,
     sum_over_tokens,
@@ -111,7 +125,7 @@ class _Stage:
     """This rank's stage of the pipeline: its neighbours, its first
     layer's global index and the boundary's shape."""
 
-    def __init__(self, model, ctx):
+    def __init__(self, model, ctx, async_dispatch: bool = False):
         ctx = ctx or get_context()
         if ctx is None or ctx.pp == 1:
             raise ValueError("a pipelined function needs a parallel context "
@@ -127,6 +141,9 @@ class _Stage:
         self.prev = None if self.first else ctx.pp_ranks[self.stage - 1]
         self.next = None if self.last else ctx.pp_ranks[self.stage + 1]
         self.dtype = self.cfg.compute_dtype
+        # --async_pipeline_dispatch: post the next tick's receive before
+        # this tick's compute
+        self.async_dispatch = async_dispatch
 
     def rope(self, device):
         cfg = self.cfg
@@ -160,13 +177,31 @@ class _Stage:
         return broadcast(x, self.ctx.pp_ranks[-1], self.ctx.pp_group,
                          self.ctx)
 
+    def receives(self, n: int, shape: tuple, src):
+        """The `n` boundaries from global rank `src`, in order, as a
+        generator: under async dispatch the receive of boundary m + 1 is
+        posted before boundary m is handed out (so it is in flight while
+        the tick that reads m computes), and each is waited on only when
+        it is read; else each is received when it is asked for."""
+        if not self.async_dispatch:
+            for _ in range(n):
+                yield recv_boundary(shape, self.dtype, src, self.ctx)
+            return
+        nxt = post_recv(shape, self.dtype, src, self.ctx) if n else None
+        for m in range(n):
+            cur = nxt
+            nxt = post_recv(shape, self.dtype, src, self.ctx) \
+                if m + 1 < n else None
+            yield cur.wait()
+
     def forward_ticks(self, n: int, shape: tuple, run) -> None:
         """The GPipe forward ticks of `n` microbatches: at tick m + stage
         this stage runs `run(m, inp)`, `inp` the boundary received from
         the stage before (None on stage 0), and sends what it returns on
         to the next stage (the last stage keeps it)."""
+        inputs = None if self.first else self.receives(n, shape, self.prev)
         for m in range(n):
-            inp = None if self.first else self.recv(shape)
+            inp = None if inputs is None else next(inputs)
             out = run(m, inp)
             if not self.last:
                 self.send(out.detach())
@@ -176,7 +211,8 @@ class _Pipeline(_Stage):
     """The training and evaluation schedule of one stage."""
 
     def __init__(self, model, pcfg: Optional[ParallelConfig], ctx):
-        super().__init__(model, ctx)
+        super().__init__(model, ctx, pcfg is not None
+                         and pcfg.async_pipeline_dispatch)
         policy = "full" if pcfg is None else pcfg.resolved_pipeline_remat
         self.policy = policy
         cfg = self.cfg
@@ -190,14 +226,19 @@ class _Pipeline(_Stage):
 
     def tick(self, params, inp, micro: dict, rope, stage_cfg=None):
         """One stage pass of one microbatch: the boundary it sends on,
-        or on the last stage the microbatch's masked loss sum."""
+        or on the last stage the microbatch's masked loss sum. The
+        microbatch's dropout stream (None when deterministic) splits
+        between the embedding and the stack as the whole model's does."""
         cfg = self.cfg
+        emb_s, stack_s = (None, None) if micro.get("stream") is None \
+            else split(micro["stream"])
         if self.first:
             inp = embed_tokens(params, cfg, micro["tokens"],
-                               micro["position_ids"])
+                               micro["position_ids"], emb_s)
         hidden, _ = transformer_stack(
             params["layers"], stage_cfg or cfg, inp, rope, None,
-            micro["position_ids"], layer_offset=self.stage * self.layers)
+            micro["position_ids"], dropout_seed=stack_s,
+            layer_offset=self.stage * self.layers)
         if not self.last:
             return hidden.to(self.dtype)
         hidden = apply_norm(hidden, params["final_norm"], cfg)
@@ -215,9 +256,6 @@ class _Pipeline(_Stage):
         microbatches' summed losses (times `loss_scale`, under fp16)
         accumulates in the `.grad` of this stage's params, as the
         single-stage step's microbatch loop leaves it."""
-        if dropout_rng is not None:
-            raise ValueError(f"dropout across pipeline stages is not "
-                             f"ported yet ({A4_DROPOUT})")
         if "attention_mask" in batch:  # JAX training/trainer.py:533-540
             raise ValueError(
                 "pp>1 training does not support --reset_attention_mask "
@@ -233,8 +271,13 @@ class _Pipeline(_Stage):
         pids = batch.get("position_ids")
         if pids is None:
             pids = self.positions(n, b, s, dev)
+        # microbatch m's dropout stream at its rows' global offsets
+        # (models/dropout.py): sample (m dp + dp_rank) b, position cp_rank s
         micro = [{"tokens": tokens[m], "labels": batch["labels"][m],
-                  "loss_mask": lmask[m], "position_ids": pids[m]}
+                  "loss_mask": lmask[m], "position_ids": pids[m],
+                  "stream": None if dropout_rng is None else at(
+                      dropout_rng, (m * ctx.dp + ctx.dp_rank) * b,
+                      ctx.cp_rank * s)}
                  for m in range(n)]
         rope = self.rope(dev)
         shape = self.boundary_shape(b, s)
@@ -276,6 +319,8 @@ class _Pipeline(_Stage):
 
     def _backward(self, params, micro, rope, saved, dens, loss_scale,
                   shape):
+        grads = None if self.last else self.receives(len(micro), shape,
+                                                     self.next)
         for m in reversed(range(len(micro))):
             if self.policy == "full":
                 inp = saved[m]
@@ -293,12 +338,9 @@ class _Pipeline(_Stage):
                         loss = loss * loss_scale
                     loss.backward()
                 else:
-                    torch.autograd.backward(out, self.recv_grad(shape))
+                    torch.autograd.backward(out, next(grads))
             if not self.first:
                 send_boundary(inp.grad.to(self.dtype), self.prev, self.ctx)
-
-    def recv_grad(self, shape):
-        return recv_boundary(shape, self.dtype, self.next, self.ctx)
 
 
 def make_pipelined_loss_fn(model, pcfg: Optional[ParallelConfig] = None,

@@ -19,7 +19,9 @@ layer axis that leads every stacked leaf (a stage holds num_layers / pp
 consecutive layers); the embedding, the final norm and the head stay
 whole on every stage (JAX parallel/pipeline.py:72-89). ZeRO-1
 (optimizer/zero1.py) shards a leaf's optimizer state over "data" on the
-axis `zero1_axis` picks: the one divisibility rule (JAX :113-140).
+axis `zero1_axis` picks: the one divisibility rule (JAX :113-140); under
+`--overlap_grad_reduce` the stacked layer leaves skip the layer axis
+(`optimizer_state_specs(..., overlap_grads=True)`, JAX :180).
 
 Tensor-parallel serving (inference/engine.py at serving_tp > 1) cuts
 two more trees: a paged KV pool leaf on its group axis (`kv_pool_axis`,
@@ -148,13 +150,25 @@ def zero1_spec(spec: tuple, shape: tuple, dp: int,
 
 
 def optimizer_state_specs(cfg, params: dict, dp: int,
-                          distributed: bool) -> dict:
-    """The spec tree of one params-shaped moment (JAX :175-198)."""
+                          distributed: bool,
+                          overlap_grads: bool = False) -> dict:
+    """The spec tree of one params-shaped moment (JAX :113-198). Under
+    `--overlap_grad_reduce` (`overlap_grads`) the stacked layer leaves
+    skip their leading (layer) axis, so that the moments follow the
+    grads the per-group reduce-scatter delivers, each rank a block of a
+    within-layer axis (optimizer/zero1.py `OverlapPlan`)."""
     specs = param_specs(cfg, params)
     if not distributed or dp <= 1:
         return specs
-    return tree_map(lambda s, p: zero1_spec(s, tuple(p.shape), dp), specs,
-                params)
+
+    def walk(spec_tree, tree, stacked):
+        return {k: walk(spec_tree[k], v, stacked or k == "layers")
+                if isinstance(v, dict) else zero1_spec(
+                    spec_tree[k], tuple(v.shape), dp,
+                    skip_leading=overlap_grads and stacked)
+                for k, v in tree.items()}
+
+    return walk(specs, params, False)
 
 
 def batch_specs() -> tuple:

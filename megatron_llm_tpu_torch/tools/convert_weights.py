@@ -36,6 +36,7 @@ from megatron_llm_tpu_torch.convert import megatron_torch as mt
 from megatron_llm_tpu_torch.convert import safetensors_io as st
 from megatron_llm_tpu_torch.training.checkpointing import (
     load_model_config_from_checkpoint,
+    read_leaves,
     save_checkpoint,
     tracked_checkpoint,
     unflatten,
@@ -122,11 +123,11 @@ def hf2native(args) -> str:
 
 def _native_leaves(load_dir: str):
     """(nested params as saved, meta) of the checkpoint the tracker
-    names, the leaves memory-mapped in their saved dtype."""
+    names, in their saved dtype: a whole-tensor file memory mapped, or
+    per-rank pieces reassembled (training/checkpointing.py
+    `read_leaves`)."""
     path, meta = tracked_checkpoint(load_dir)
-    flat = torch.load(os.path.join(path, "model"), map_location="cpu",
-                      mmap=True, weights_only=True)
-    return unflatten(flat), meta
+    return unflatten(read_leaves(path, "model")), meta
 
 
 def native2hf(args) -> str:

@@ -1,12 +1,13 @@
 """Re-save a checkpoint, optionally as a weights-only release (port of
 tools/reshard_checkpoint.py).
 
-The port's checkpoints hold whole tensors whatever the layout that wrote
-them (training/checkpointing.py), so any layout resumes from any other
-and no split or merge is needed: this tool loads the newest (or a given)
-iteration's weights on the host and writes them to another directory,
-for example as the `release` layout the converters and the serving
-launcher read. It touches no device.
+Any layout resumes the port's checkpoints of any other: a save across
+ranks writes per-rank pieces that each load reads its slice from, and
+a world size 1 save whole tensors (training/checkpointing.py). This
+tool loads the newest (or a given) iteration's weights on the host, the
+pieces reassembled, and writes them as whole tensors to another
+directory, for example as the `release` layout the converters and the
+serving launcher read. It touches no device.
 
     python -m megatron_llm_tpu_torch.tools.reshard_checkpoint \\
         --load ckpts/run1 --save ckpts/out --model_name llama2 \\

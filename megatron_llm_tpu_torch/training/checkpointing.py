@@ -33,11 +33,23 @@ template's dtype as orbax does in the JAX package.
   `wait_until_finished`, wait for it.
 - `keep_latest_n` retention never deletes the checkpoint being written
   nor one a resume read (`protect`), nor `release`.
-- The files hold whole tensors whatever the layout that wrote them, as
-  the JAX package's orbax checkpoints do (tools/reshard_checkpoint.py
-  :4-8): across ranks the trainer gathers every leaf, rank 0 writes, and
-  a load gives each rank its slice (`shard`), so a tp2 x dp2 save
-  resumes at tp1 x dp1 and the reverse.
+- Across ranks each rank writes the pieces it owns, as the JAX
+  package's orbax checkpoints have each host write its shards
+  (JAX :1-12): `model/rank<r>.pt` and `optim/rank<r>.pt` hold its tp
+  and pp slices of the params and its ZeRO-1 blocks of the moments,
+  each with the leaf's whole shape and the piece's offsets; a piece
+  replicated over ranks has one writer (the rank at coordinate 0 of
+  every axis the leaf is not split over; cp ranks above 0 write
+  nothing), and "step" and the scaler's state are rank 0's. Each rank's
+  writer ends with its marker `done/rank<r>`; rank 0's waits for every
+  rank's marker (a file-based wait with the context's timeout, no
+  collective), then writes `meta.json`, `COMPLETE` and the tracker. A
+  save missing a marker has no `COMPLETE`. A load at any layout reads
+  only the pieces that overlap the rank's slice (`region`), memory
+  mapped, so no rank holds the whole state; `read_leaves` reassembles
+  whole leaves for the tools. A world size 1 save, the release layout
+  and the checkpoints of earlier versions hold whole tensors in one
+  `model` (and `optim`) file; every reader takes both forms.
 """
 
 from __future__ import annotations
@@ -54,9 +66,14 @@ from typing import Iterable, List, Optional, Tuple
 import torch
 
 from megatron_llm_tpu_torch.optimizer.optimizer import OptimizerState
+from megatron_llm_tpu_torch.parallel.mesh import TIMEOUT
 
 TRACKER_FILENAME = "latest_checkpointed_iteration.txt"
 COMPLETE_FILENAME = "COMPLETE"
+DONE_DIR = "done"
+# how long rank 0's writer waits for the other ranks' markers: the
+# parallel context's collective timeout
+MARKER_TIMEOUT_S = TIMEOUT.total_seconds()
 _ITER_DIR_RE = re.compile(r"^iter_(\d{7})$")
 
 
@@ -227,7 +244,7 @@ def unflatten_like(flat: dict, template: dict, prefix: str = "") -> dict:
             for k, v in template.items()}
 
 
-def _optim_flat(opt_state: OptimizerState) -> dict:
+def optim_flat(opt_state: OptimizerState) -> dict:
     flat = {"step": opt_state.step}
     flat.update(flatten(opt_state.m, "m."))
     if opt_state.v is not None:
@@ -298,13 +315,42 @@ def save_checkpoint(save_dir: str, iteration: int, params: dict,
     path = checkpoint_dir(save_dir, iteration, release=release)
     buffers: dict = {}
     model = _host_copy(flatten(params), buffers, clone_cpu=False)
-    optim = _host_copy(_optim_flat(opt_state), buffers, clone_cpu=False) \
+    optim = _host_copy(optim_flat(opt_state), buffers, clone_cpu=False) \
         if opt_state is not None else None
     _write(path, model, optim,
            _build_meta(iteration, model_cfg, scheduler_state,
                        consumed_train_samples, rng_key, extra_meta))
     _write_tracker(save_dir, iteration, release=release)
     return path
+
+
+def _wait_for_markers(path: str, world: int, timeout_s: float) -> None:
+    """Until every rank's marker is in `path`; raises past `timeout_s`
+    (a rank that died never writes its marker)."""
+    deadline = time.monotonic() + timeout_s
+    while True:
+        missing = [r for r in range(world)
+                   if not os.path.exists(marker_file(path, r))]
+        if not missing:
+            return
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"{path}: no marker from rank(s) "
+                               f"{missing[:8]} after {timeout_s:.0f} s; "
+                               f"the save stays without {COMPLETE_FILENAME}")
+        time.sleep(0.05)
+
+
+def _write_rank(path: str, rank: int, model: dict, optim: Optional[dict],
+                index: dict) -> None:
+    """One rank's pieces (no file for a kind it holds none of), then its
+    marker."""
+    for kind, flat in (("model", model), ("optim", optim)):
+        if not flat:
+            continue
+        os.makedirs(os.path.join(path, kind), exist_ok=True)
+        _save_file({"index": {k: index[k] for k in flat},
+                    "tensors": flat}, rank_file(path, kind, rank))
+    _atomic_write(marker_file(path, rank), "1")
 
 
 class CheckpointManager:
@@ -330,6 +376,7 @@ class CheckpointManager:
         self.last_blocked_ms: float = 0.0
         self.last_commit_s: float = 0.0
         self.saves: int = 0
+        self.marker_timeout_s = MARKER_TIMEOUT_S
 
     def protect(self, path: Optional[str]) -> None:
         if path:
@@ -353,11 +400,79 @@ class CheckpointManager:
                            protect=self._protected | {path})
         self.last_commit_s = time.perf_counter() - t0
 
-    def _commit_in_thread(self, *args) -> None:
+    def _commit_in_thread(self, commit, *args) -> None:
         try:
-            self._commit(*args)
+            commit(*args)
         except Exception as e:  # noqa: BLE001 - raised by the next wait
             self._error = e
+
+    def _start(self, commit, iteration, args) -> None:
+        if self.async_save:
+            self._writer = threading.Thread(
+                target=self._commit_in_thread, args=(commit,) + args,
+                name=f"ckpt-write-{iteration}")
+            self._writer.start()
+        else:
+            commit(*args)
+
+    def _commit_pieces(self, path, iteration, rank, world, model, optim,
+                       index, meta, t0) -> None:
+        _write_rank(path, rank, model, optim, index)
+        if rank == 0:
+            _wait_for_markers(path, world, self.marker_timeout_s)
+            _atomic_write(os.path.join(path, "meta.json"),
+                          json.dumps(meta, indent=1))
+            _mark_complete(path)
+            _write_tracker(self.save_dir, iteration)
+            if self.keep_latest_n:
+                gc_checkpoints(self.save_dir, self.keep_latest_n,
+                               protect=self._protected | {path})
+        self.last_commit_s = time.perf_counter() - t0
+
+    def save_pieces(self, iteration: int, model: dict,
+                    optim: Optional[dict], rank: int, world: int,
+                    barrier=None, model_cfg=None,
+                    scheduler_state: Optional[dict] = None,
+                    consumed_train_samples: int = 0, rng_key=None,
+                    extra_meta: Optional[dict] = None) -> str:
+        """This rank's pieces of a save across `world` ranks: `model` and
+        `optim` map leaf names to (tensor, offsets, whole shape), the
+        pieces this rank writes (module doc). Every rank calls this; the
+        directory's stale markers (and rank 0 its COMPLETE) go first,
+        then `barrier()` (a collective on the caller's thread, so no
+        rank's new marker can meet a stale one), then the host copies;
+        the writer thread writes the rank's files and its marker, and
+        rank 0's also meta.json, COMPLETE and the tracker once every
+        marker is there."""
+        t0 = time.perf_counter()
+        self.wait_until_finished()
+        path = checkpoint_dir(self.save_dir, iteration)
+        os.makedirs(os.path.join(path, DONE_DIR), exist_ok=True)
+        stale = [marker_file(path, rank)]
+        if rank == 0:
+            stale.append(os.path.join(path, COMPLETE_FILENAME))
+        for f in stale:
+            try:
+                os.remove(f)
+            except FileNotFoundError:
+                pass
+        if barrier is not None:
+            barrier()
+        index = {k: (tuple(int(n) for n in shape), tuple(offsets))
+                 for flat in (model, optim or {})
+                 for k, (_, offsets, shape) in flat.items()}
+        host_m = _host_copy({k: v[0] for k, v in model.items()},
+                            self._buffers)
+        host_o = None if optim is None else _host_copy(
+            {k: v[0] for k, v in optim.items()}, self._buffers)
+        meta = _build_meta(iteration, model_cfg, scheduler_state,
+                           consumed_train_samples, rng_key, extra_meta)
+        self._start(self._commit_pieces, iteration,
+                    (path, iteration, rank, world, host_m, host_o, index,
+                     meta, t0))
+        self.last_blocked_ms = (time.perf_counter() - t0) * 1e3
+        self.saves += 1
+        return path
 
     def save(self, iteration: int, params: dict,
              opt_state: Optional[OptimizerState] = None, model_cfg=None,
@@ -372,19 +487,13 @@ class CheckpointManager:
         path = checkpoint_dir(self.save_dir, iteration)
         model = _host_copy(flatten(params), self._buffers,
                            clone_cpu=not fresh)
-        optim = _host_copy(_optim_flat(opt_state), self._buffers,
+        optim = _host_copy(optim_flat(opt_state), self._buffers,
                            clone_cpu=not fresh) \
             if opt_state is not None else None
         meta = _build_meta(iteration, model_cfg, scheduler_state,
                            consumed_train_samples, rng_key, extra_meta)
-        args = (path, iteration, model, optim, meta, t0)
-        if self.async_save:
-            self._writer = threading.Thread(
-                target=self._commit_in_thread, args=args,
-                name=f"ckpt-write-{iteration}")
-            self._writer.start()
-        else:
-            self._commit(*args)
+        self._start(self._commit, iteration,
+                    (path, iteration, model, optim, meta, t0))
         self.last_blocked_ms = (time.perf_counter() - t0) * 1e3
         self.saves += 1
         return path
@@ -459,28 +568,135 @@ def _load_candidates(load_dir: str):
     return out, intended
 
 
+def rank_file(path: str, kind: str, rank: int) -> str:
+    return os.path.join(path, kind, f"rank{rank:05d}.pt")
+
+
+def marker_file(path: str, rank: int) -> str:
+    return os.path.join(path, DONE_DIR, f"rank{rank:05d}")
+
+
+def _rank_files(path: str, kind: str) -> List[str]:
+    d = os.path.join(path, kind)
+    return [os.path.join(d, n) for n in sorted(os.listdir(d))
+            if n.endswith(".pt")]
+
+
+class Pieces:
+    """The per-rank files of one kind ("model" or "optim") of a
+    checkpoint directory, memory mapped: per leaf its whole shape, dtype
+    and pieces (offsets, tensor)."""
+
+    def __init__(self, path: str, kind: str):
+        self.shapes, self.dtypes, self.pieces = {}, {}, {}
+        for f in _rank_files(path, kind):
+            blob = torch.load(f, map_location="cpu", mmap=True,
+                              weights_only=True)
+            for name, (shape, offsets) in blob["index"].items():
+                t = blob["tensors"][name]
+                shape = tuple(shape)
+                if self.shapes.setdefault(name, shape) != shape:
+                    raise ValueError(f"{f}: {name} is {shape} here, "
+                                     f"{self.shapes[name]} elsewhere")
+                self.dtypes[name] = t.dtype
+                self.pieces.setdefault(name, []).append((tuple(offsets), t))
+
+    def names(self):
+        return set(self.shapes)
+
+    def read(self, name: str, region=None) -> torch.Tensor:
+        """Leaf `name` whole, or its `region` (a tuple of slices of the
+        whole leaf): the overlapping parts of its pieces copied in."""
+        shape = self.shapes[name]
+        region = tuple(region or ()) + (slice(None),) * (
+            len(shape) - len(region or ()))
+        box = [sl.indices(n)[:2] for sl, n in zip(region, shape)]
+        out = torch.empty(tuple(b - a for a, b in box),
+                          dtype=self.dtypes[name])
+        covered = 0
+        for offsets, t in self.pieces[name]:
+            src, dst = [], []
+            for (a, b), o, n in zip(box, offsets, t.shape):
+                lo, hi = max(a, o), min(b, o + n)
+                if lo >= hi:
+                    break
+                src.append(slice(lo - o, hi - o))
+                dst.append(slice(lo - a, hi - a))
+            else:
+                part = t[tuple(src)]
+                out[tuple(dst)] = part
+                covered += part.numel()
+        if covered != out.numel():
+            raise ValueError(f"{name}: the pieces cover {covered} of the "
+                             f"{out.numel()} elements asked")
+        return out
+
+
+class _Whole:
+    """A whole-tensor `torch.save` file of one kind, memory mapped, with
+    `Pieces`' interface."""
+
+    def __init__(self, path: str, kind: str):
+        self.flat = torch.load(os.path.join(path, kind), map_location="cpu",
+                               mmap=True, weights_only=True)
+        self.shapes = {k: tuple(v.shape) for k, v in self.flat.items()}
+        self.dtypes = {k: v.dtype for k, v in self.flat.items()}
+
+    def names(self):
+        return set(self.flat)
+
+    def read(self, name: str, region=None) -> torch.Tensor:
+        x = self.flat[name]
+        return x if region is None else x[tuple(region)]
+
+
+def open_leaves(path: str, kind: str = "model"):
+    """One kind ("model" or "optim") of checkpoint directory `path`,
+    either form: the per-rank pieces or a whole-tensor file. Returns an
+    object with `names()`, `shapes`, `dtypes` (whole shapes) and
+    `read(name, region=None)`."""
+    if os.path.isdir(os.path.join(path, kind)):
+        return Pieces(path, kind)
+    return _Whole(path, kind)
+
+
+def read_leaves(path: str, kind: str = "model", region=None) -> dict:
+    """{leaf name: tensor} of one kind of checkpoint directory `path`,
+    either form, the pieces reassembled. `region(name, shape)` gives
+    the slices of each whole leaf to read (a rank's slice); None reads
+    whole leaves."""
+    leaves = open_leaves(path, kind)
+    return {n: leaves.read(n, None if region is None
+                           else region(n, leaves.shapes[n]))
+            for n in sorted(leaves.names())}
+
+
 def _restore_flat(path: str, template: dict, device,
-                  cast: bool = False, shard=None) -> dict:
-    """The leaves of the torch.save file `path`, checked against
-    `template`'s names, shapes and dtypes, on `device`; with `cast` a
-    leaf of another dtype is converted to the template's. `shard(name,
-    leaf)` cuts each whole leaf to this rank's slice before it moves."""
-    flat = torch.load(path, map_location="cpu", mmap=True, weights_only=True)
-    if set(flat) != set(template):
-        missing = sorted(set(template) - set(flat))[:4]
-        extra = sorted(set(flat) - set(template))[:4]
+                  cast: bool = False, region=None) -> dict:
+    """The leaves of checkpoint file (or per-rank directory) `path`,
+    checked against `template`'s names, whole shapes and dtypes, on
+    `device`; with `cast` a leaf of another dtype is converted to the
+    template's. `region(name, shape)` gives the slices of each whole
+    leaf this rank holds, and only those are read."""
+    leaves = open_leaves(*os.path.split(path))
+    names = leaves.names()
+    if names != set(template):
+        missing = sorted(set(template) - names)[:4]
+        extra = sorted(names - set(template))[:4]
         raise ValueError(f"{path}: leaves differ from the template "
                          f"(missing {missing}, unexpected {extra})")
     for k, t in template.items():
-        if flat[k].shape != t.shape or (flat[k].dtype != t.dtype
-                                        and not cast):
-            raise ValueError(f"{path}: {k} is {flat[k].dtype} "
-                             f"{tuple(flat[k].shape)}, the template "
-                             f"{t.dtype} {tuple(t.shape)}")
-    if shard is not None:
-        flat = {k: shard(k, v).contiguous() for k, v in flat.items()}
+        shape, dtype = leaves.shapes[k], leaves.dtypes[k]
+        if shape != tuple(t.shape) or (dtype != t.dtype and not cast):
+            raise ValueError(f"{path}: {k} is {dtype} {shape}, the "
+                             f"template {t.dtype} {tuple(t.shape)}")
+    out = {}
     # one leaf at a time: an mmap-ed leaf is read, moved and cast alone
-    return {k: v.to(device).to(template[k].dtype) for k, v in flat.items()}
+    for k in template:
+        x = leaves.read(k, None if region is None
+                        else region(k, leaves.shapes[k]))
+        out[k] = x.to(device).to(template[k].dtype)
+    return out
 
 
 def tracked_checkpoint(load_dir: str) -> Tuple[str, dict]:
@@ -509,7 +725,7 @@ def restore_params(path: str, params_template: dict, device) -> dict:
 
 def _restore_one(path, release, params_template, opt_state_template,
                  model_cfg, finetune, no_load_optim, no_load_rng,
-                 device=None, shard=None):
+                 device=None, region=None):
     """Restore one directory; raises on torn or unreadable files, and
     CheckpointArchMismatch past the caller's scan. A release holds the
     weights only, restored in the template's dtypes, and loads as
@@ -523,14 +739,14 @@ def _restore_one(path, release, params_template, opt_state_template,
         device = next(iter(flat_p.values())).device
     params = unflatten_like(
         _restore_flat(os.path.join(path, "model"), flat_p, device,
-                      cast=release, shard=shard),
+                      cast=release, region=region),
         params_template)
     opt_state = None
     if opt_state_template is not None and not finetune \
             and not no_load_optim and not release:
         o = _restore_flat(os.path.join(path, "optim"),
-                          _optim_flat(opt_state_template), device,
-                          shard=shard)
+                          optim_flat(opt_state_template), device,
+                          region=region)
         opt_state = OptimizerState(
             step=o["step"],
             m=unflatten_like(o, opt_state_template.m, "m."),
@@ -551,19 +767,20 @@ def load_checkpoint(load_dir: str, params_template: dict,
                     model_cfg=None, finetune: bool = False,
                     no_load_optim: bool = False, no_load_rng: bool = False,
                     iteration: Optional[int] = None, device=None,
-                    shard=None):
+                    region=None):
     """(params, opt_state or None, meta, iteration) of the newest complete
     checkpoint in `load_dir`, on `device` (by default the templates';
     new tensors, the templates unchanged), `meta["loaded_path"]` naming
     the directory; None where there is none. Torn or unreadable
     directories are skipped with a warning; an explicit `iteration` is
     loaded or raises. The templates have the files' whole shapes (meta
-    tensors will do); `shard(name, leaf)` gives a rank its slice of
-    each leaf (leaf names as in the files: "layers.attention.wqkv",
+    tensors will do); `region(name, shape)` gives the slices of each
+    whole leaf a rank holds, of which only the overlapping pieces are
+    read (leaf names as in the files: "layers.attention.wqkv",
     "m.<leaf>", "step")."""
     load_dir = os.path.abspath(load_dir)
     args = (params_template, opt_state_template, model_cfg, finetune,
-            no_load_optim, no_load_rng, device, shard)
+            no_load_optim, no_load_rng, device, region)
     if iteration is not None:
         path = checkpoint_dir(load_dir, iteration)
         out = _restore_one(path, False, *args)

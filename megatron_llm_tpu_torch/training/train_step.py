@@ -14,8 +14,12 @@ Under fp16 each microbatch's loss is multiplied by the loss scaler's
 scale before its backward; the accumulated gradients are divided by it
 after, and a non-finite gradient norm skips the step and feeds the
 scaler (JAX :191-316). Given a dropout stream `rng` (an integer seed,
-models/dropout.py) microbatch i draws from fold_in(rng, i), or from
-`rng` itself when there is one microbatch (JAX :253-281).
+models/dropout.py) every microbatch draws from `rng` with its rows'
+global offsets: the index in the step's global batch of its first row
+(microbatch i of b rows a dp rank: (i dp + dp_rank) b) and of its first
+position (cp_rank s), so that every layout draws its slice of world
+size 1's masks (the JAX package folds the microbatch, the dp rank and
+the cp rank into its keys instead).
 
 Across ranks (a context from parallel/mesh.py) each rank holds its
 tensor-parallel slices and its rows of every global microbatch, under
@@ -33,12 +37,21 @@ reduce-scatter with the update on the rank's block and an all-gather
 (optimizer/zero1.py; the moments stay sharded over dp only); the
 gradient norm is the global gradient's, each leaf counted once, and
 the skip flags agree on every rank. At world size 1 nothing of this
-runs. Live dropout across ranks raises: its masks would not be the
-global mask's slices (the next A4 PR). At pp > 1 the microbatches run
-through the pipeline's schedule (parallel/pipeline.py).
+runs. At pp > 1 the microbatches run through the pipeline's schedule
+(parallel/pipeline.py).
 
-The overlap schedulers and a `batch_builder` belong to later slices and
-raise.
+The overlap schedulers (pure dp with ZeRO-1, optimizer/zero1.py):
+under `--overlap_grad_reduce` the reduction still runs once a step, as
+the reference's DDP does, but each layer group's reduce-scatter is
+issued during the last microbatch's backward as soon as the group's
+gradients are final (after any recompute), the aux buckets after the
+backward, and every handle is waited for before the overflow check,
+clipping and AdamW. Under `--overlap_param_gather` the updated blocks'
+all-gathers are issued after AdamW in forward order and each is waited
+for just before the next forward first reads its leaves;
+`train_step.drain()` waits for all of them (the trainer calls it before
+an eval, a save and the end of training). A `batch_builder` belongs to
+a later slice and raises.
 """
 
 from __future__ import annotations
@@ -46,7 +59,7 @@ from __future__ import annotations
 import torch
 
 from megatron_llm_tpu_torch.config import ParallelConfig, TrainConfig
-from megatron_llm_tpu_torch.models.dropout import fold_in
+from megatron_llm_tpu_torch.models.dropout import at
 from megatron_llm_tpu_torch.optimizer import zero1
 from megatron_llm_tpu_torch.optimizer.optimizer import (
     OptimizerState,
@@ -54,8 +67,8 @@ from megatron_llm_tpu_torch.optimizer.optimizer import (
     optimizer_step,
     tree_leaves,
 )
+from megatron_llm_tpu_torch.parallel import overlap
 from megatron_llm_tpu_torch.parallel.mesh import (
-    A4_DROPOUT,
     all_reduce,
     get_context,
     sum_over_tokens,
@@ -82,12 +95,6 @@ def check_layout(model, pcfg: ParallelConfig):
     if ctx is not None and ctx.sequence_parallel != pcfg.sequence_parallel:
         raise ValueError("sequence_parallel differs between the "
                          "ParallelConfig and the parallel context")
-    cfg = model.cfg
-    if ctx is not None and ctx.world_size > 1 and (
-            cfg.hidden_dropout > 0 or cfg.attention_dropout > 0):
-        raise ValueError(f"dropout across {ctx.world_size} ranks is not "
-                         f"ported yet ({A4_DROPOUT}): a rank would not "
-                         f"draw its slice of the global mask")
     return ctx if ctx is not None and ctx.world_size > 1 else None
 
 
@@ -127,6 +134,8 @@ def make_train_step(model, tcfg: TrainConfig, pcfg: ParallelConfig,
     pp = 1 if ctx is None else ctx.pp
     cp = 1 if ctx is None else ctx.cp
     use_zero1 = pcfg.use_distributed_optimizer and dp > 1
+    overlap_grads = use_zero1 and pcfg.overlap_grad_reduce
+    overlap_gather = use_zero1 and pcfg.overlap_param_gather
     layout = {}  # built at the first call, from this rank's params
     pipeline_loss = None
     if pp > 1:
@@ -144,9 +153,20 @@ def make_train_step(model, tcfg: TrainConfig, pcfg: ParallelConfig,
             plan = zero1.build_zero1_plan(
                 model.cfg, params, dp, pcfg.grad_rs_bucket_mb, pp=pp) \
                 if dp > 1 else None
-            dp_sh = [use_zero1 and plan.leaf_axes[i] is not None
+            state_plan = plan
+            if overlap_grads:
+                plan = zero1.build_overlap_plan(model.cfg, params, dp,
+                                                pcfg.grad_rs_bucket_mb)
+                state_plan = zero1.overlap_state_plan(plan, params)
+                layout["grad_overlap"] = zero1.GradOverlap(
+                    plan, params, ctx, pcfg.quantized_grad_reduce)
+            if use_zero1:
+                layout["gather"] = zero1.ParamGather(plan, params, ctx,
+                                                     overlap_gather)
+            dp_sh = [use_zero1 and state_plan.leaf_axes[i] is not None
                      for i in range(len(specs))]
-            layout.update(plan=plan, tp_sharded=tp_sh, pp_sharded=pp_sh,
+            layout.update(plan=plan, state_plan=state_plan,
+                          tp_sharded=tp_sh, pp_sharded=pp_sh,
                           reduce_fn=zero1.sum_over_layout(
                               tp_sh, dp_sh, ctx, pp_sh))
         return layout
@@ -166,11 +186,16 @@ def make_train_step(model, tcfg: TrainConfig, pcfg: ParallelConfig,
                     all_reduce(g, ctx.pp_group, ctx=ctx)
         if dp == 1:
             return grads, tree_leaves(params)
-        grads = zero1.reduce_gradients(grads, lay["plan"], ctx, use_zero1,
-                                       pcfg.quantized_grad_reduce)
+        if overlap_grads:
+            grads = lay["grad_overlap"].reduce(grads)
+        else:
+            grads = zero1.reduce_gradients(grads, lay["plan"], ctx,
+                                           use_zero1,
+                                           pcfg.quantized_grad_reduce)
         targets = tree_leaves(params)
         if use_zero1:
-            targets = zero1.param_shards(targets, lay["plan"], ctx.dp_rank)
+            targets = zero1.param_shards(targets, lay["state_plan"],
+                                         ctx.dp_rank)
         return grads, targets
 
     def accumulate(params, batch, rng, loss_scale, dev):
@@ -179,24 +204,36 @@ def make_train_step(model, tcfg: TrainConfig, pcfg: ParallelConfig,
         the microbatch losses."""
         loss = torch.zeros((), dtype=torch.float32, device=dev)
         nums, dens = [], []
-        with torch.enable_grad():
+        hooks = layout["grad_overlap"].hook if overlap_grads else None
+        with torch.enable_grad(), overlap.param_gate(layout.get("gather")):
             for i in range(num_micro):
                 micro = {k: v[i] for k, v in batch.items()}
-                mrng = rng if rng is None or num_micro == 1 \
-                    else fold_in(rng, i)
+                b, s = micro["tokens"].shape[:2]
+                # the rows' global offsets: sample, position
+                mrng = None if rng is None else at(
+                    rng, (i * dp + (ctx.dp_rank if ctx else 0)) * b,
+                    (ctx.cp_rank if ctx else 0) * s)
                 kw = dict(dropout_rng=mrng, deterministic=rng is None,
                           **micro)
-                if dp == 1 and cp == 1:
-                    l_i = model.loss(params, **kw)
-                    loss = loss + l_i.detach()
-                else:
-                    num, den = model.loss_terms(params, **kw)
-                    den = sum_over_tokens(den.detach().clone(),
-                                          ctx).clamp(min=1.0)
-                    l_i = num / den
-                    nums.append(num.detach())
-                    dens.append(den)
-                (l_i if loss_scale is None else l_i * loss_scale).backward()
+                last = hooks if i == num_micro - 1 else None
+                with overlap.grad_hooks(last):
+                    if dp == 1 and cp == 1:
+                        l_i = model.loss(params, **kw)
+                        loss = loss + l_i.detach()
+                    else:
+                        num, den = model.loss_terms(params, **kw)
+                        den = sum_over_tokens(den.detach().clone(),
+                                              ctx).clamp(min=1.0)
+                        l_i = num / den
+                        nums.append(num.detach())
+                        dens.append(den)
+                    if last is not None:
+                        layout["grad_overlap"].begin_last(
+                            tree_leaves(params))
+                    (l_i if loss_scale is None
+                     else l_i * loss_scale).backward()
+                    if last is not None:
+                        layout["grad_overlap"].end_last()
         if nums:
             # the reported loss: the numerators summed over dp and cp
             # before the division, as the JAX package reduces them
@@ -221,7 +258,14 @@ def make_train_step(model, tcfg: TrainConfig, pcfg: ParallelConfig,
             loss = pipeline_loss(params, batch, rng, loss_scale,
                                  backward=True)
         else:
-            loss = accumulate(params, batch, rng, loss_scale, dev)
+            if ctx is not None:
+                _layout(params)
+            try:
+                loss = accumulate(params, batch, rng, loss_scale, dev)
+            except BaseException:
+                if "grad_overlap" in layout:  # no handle left in flight
+                    layout["grad_overlap"].drain()
+                raise
         grads = [torch.zeros_like(p) if p.grad is None else p.grad
                  for p in leaves]
         targets, reduce_fn, any_rank = params, None, None
@@ -249,13 +293,32 @@ def make_train_step(model, tcfg: TrainConfig, pcfg: ParallelConfig,
             found_inf=found_inf, scaler=scaler, reduce_fn=reduce_fn,
             any_rank=any_rank)
         if use_zero1:
-            zero1.gather_param_shards(leaves, targets,
-                                      _layout(params)["plan"], ctx)
+            layout["gather"].issue(leaves, targets)
         for p in leaves:
             p.grad = None
         stats["loss"] = loss
         return params, opt_state, stats
 
+    def drain():
+        """Wait for the parameter all-gathers in flight."""
+        if "gather" in layout:
+            layout["gather"].drain()
+
+    def groups_in_backward():
+        """How many layer groups the last step's backward issued before
+        it ended (--overlap_grad_reduce)."""
+        return layout["grad_overlap"].last_from_hooks \
+            if "grad_overlap" in layout else 0
+
+    def in_flight():
+        """(reduce-scatters, all-gathers) issued and not waited for."""
+        return (len(layout["grad_overlap"].pending)
+                if "grad_overlap" in layout else 0,
+                len(layout["gather"].pending) if "gather" in layout else 0)
+
+    train_step.drain = drain
+    train_step.in_flight = in_flight
+    train_step.groups_in_backward = groups_in_backward
     return train_step
 
 

@@ -42,13 +42,18 @@ contiguous sequence shard after `get_batch` ran on the whole sequence
 (`context_shard`: global position ids, labels shifted before the cut,
 --reset_attention_mask in its O(s) doc-start form); the log line,
 printed by rank 0 only, carries the global loss (the last stage's,
-broadcast), gradient norm and tokens/s. A save gathers every leaf whole
-and rank 0 writes the checkpoint (the same files as one card's), the
-other ranks waiting for its commit; cp cuts no leaf, so only cp rank 0
-of each coordinate takes part in the gather. A load cuts each rank's
-slices from the whole leaves, so a checkpoint resumes at any layout,
-pp and cp included. Rank 0
-holds a host copy of the whole state meanwhile. At pp > 1 `evaluate`
+broadcast), gradient norm and tokens/s. A save writes per-rank files:
+each rank its pieces of the state (StateLayout.pieces: its stage's and
+tp slices of the params, its ZeRO-1 blocks of the moments, one writer
+per distinct piece; cp cuts no leaf, so cp ranks above 0 write
+nothing), and rank 0 commits the checkpoint once every rank's marker is
+there (training/checkpointing.py); no rank gathers or holds the whole
+state. A load reads only the pieces that overlap the rank's slice
+(`StateLayout.region`), so a checkpoint resumes at any layout, pp and
+cp included, and one of an earlier version's whole-tensor files too.
+Under `--overlap_param_gather` the parameter all-gathers in flight are
+waited for before an eval, a save, a rollback and the loop's end. At
+pp > 1 `evaluate`
 runs the pipelined loss forward (JAX :607-690), which refuses a batch
 with `--reset_attention_mask`'s masks (JAX :533-540).
 
@@ -83,7 +88,7 @@ from megatron_llm_tpu_torch.optimizer.optimizer import (
     tree_map,
 )
 from megatron_llm_tpu_torch.optimizer.zero1 import (
-    build_zero1_plan,
+    build_state_plan,
     map_indexed,
 )
 from megatron_llm_tpu_torch.parallel.mesh import gather_rows, get_context
@@ -97,7 +102,6 @@ from megatron_llm_tpu_torch.parallel.sharding import (
     layout_specs,
     model_axis,
     shard_params,
-    slice_axis,
     spec_leaves,
     stage_axis,
 )
@@ -105,6 +109,7 @@ from megatron_llm_tpu_torch.training.checkpointing import (
     CheckpointManager,
     flatten,
     load_checkpoint,
+    optim_flat,
     unflatten_like,
 )
 from megatron_llm_tpu_torch.training.microbatches import (
@@ -201,12 +206,14 @@ class StateLayout:
     """How a rank's state relates to the whole model: each leaf's
     pipeline-stage axis (the layer axis at pp > 1), its tensor-parallel
     axis and, under ZeRO-1, its moments' dp axis (optimizer/zero1.py).
-    `shard` cuts a whole leaf to this rank's slice, `gather` makes a
-    slice whole again on rank 0's host; leaf names are the checkpoint
-    files' ("layers.attention.wqkv", "m.<leaf>", "v.<leaf>")."""
+    `region` names this rank's slice of a whole leaf (what it loads and
+    the offsets of what it saves); `gather` makes a slice whole again on
+    rank 0's host, for the tests' reference only. Leaf names are the
+    checkpoint files' ("layers.attention.wqkv", "m.<leaf>",
+    "v.<leaf>")."""
 
     def __init__(self, ctx, cfg, full_template: dict, zero1: bool,
-                 bucket_mb: float):
+                 bucket_mb: float, overlap_grads: bool = False):
         self.ctx = ctx
         self.pp = getattr(ctx, "pp", 1)
         specs = spec_leaves(layout_specs(cfg, full_template, self.pp))
@@ -216,8 +223,11 @@ class StateLayout:
         self.index = flatten(index)
         local = shard_params(tree_map(lambda t: torch.empty(
             t.shape, dtype=t.dtype, device="meta"), full_template), ctx, cfg)
-        self.plan = build_zero1_plan(cfg, local, ctx.dp, bucket_mb,
-                                     pp=self.pp) \
+        # under --overlap_grad_reduce the moments follow the grads to the
+        # within-layer axis
+        self.plan = build_state_plan(cfg, local, ctx.dp, bucket_mb,
+                                     pp=self.pp,
+                                     overlap_grads=overlap_grads) \
             if zero1 and ctx.dp > 1 else None
 
     def _leaf(self, name: str):
@@ -227,15 +237,54 @@ class StateLayout:
             else self.plan.leaf_axes[i]
         return i, z1
 
-    def shard(self, name: str, leaf: torch.Tensor) -> torch.Tensor:
+    def region(self, name: str, shape) -> tuple:
+        """The slices of the whole leaf `name` (of `shape`) that this
+        rank holds: its stage's layers, its tp slice and, for a moment
+        under ZeRO-1, its dp block; "step" and the scaler's state
+        whole."""
         i, z1 = self._leaf(name)
-        if i is None:  # "step", the scaler's state
-            return leaf
-        if self.pp > 1:
-            leaf = slice_axis(leaf, self.pp_axes[i], self.pp,
-                              self.ctx.pp_rank)
-        x = slice_axis(leaf, self.tp_axes[i], self.ctx.tp, self.ctx.tp_rank)
-        return slice_axis(x, z1, self.ctx.dp, self.ctx.dp_rank)
+        out = [slice(None)] * len(shape)
+        if i is None:
+            return tuple(out)
+        ctx, sizes = self.ctx, list(shape)
+        for k, n, r in ((self.pp_axes[i] if self.pp > 1 else None,
+                         self.pp, getattr(ctx, "pp_rank", 0)),
+                        (self.tp_axes[i], ctx.tp, ctx.tp_rank),
+                        (z1, ctx.dp, ctx.dp_rank)):
+            if k is None or n == 1:
+                continue
+            start = (out[k].start or 0) + r * (sizes[k] // n)
+            sizes[k] //= n
+            out[k] = slice(start, start + sizes[k])
+        return tuple(out)
+
+    def writes(self, name: str) -> bool:
+        """Whether this rank writes its piece of `name` in a save: the
+        one rank at coordinate 0 of every axis the leaf is not split
+        over (cp splits none); "step" and the scaler's state are rank
+        0's."""
+        i, z1 = self._leaf(name)
+        ctx = self.ctx
+        if i is None:
+            return ctx.rank == 0
+        split_pp = self.pp > 1 and self.pp_axes[i] is not None
+        return (getattr(ctx, "cp_rank", 0) == 0
+                and (ctx.dp_rank == 0 or z1 is not None)
+                and (ctx.tp_rank == 0 or self.tp_axes[i] is not None)
+                and (getattr(ctx, "pp_rank", 0) == 0 or split_pp))
+
+    def pieces(self, flat: dict, shapes: dict) -> dict:
+        """{name: (this rank's piece, its offsets, the whole shape)} of
+        the leaves of `flat` this rank writes; `shapes` gives each
+        name's whole shape."""
+        out = {}
+        for name, x in flat.items():
+            if not self.writes(name):
+                continue
+            shape = tuple(shapes.get(name, tuple(x.shape)))
+            offs = tuple(r.start or 0 for r in self.region(name, shape))
+            out[name] = (x.detach(), offs, shape)
+        return out
 
     def gather(self, name: str, x: torch.Tensor):
         """The whole leaf on rank 0 (a host tensor of its own), None on
@@ -243,7 +292,8 @@ class StateLayout:
         other cp ranks hold the same state). A ZeRO-1 block goes to the
         dp group's first rank, then a tensor-parallel slice
         to the tp group's first rank, then a stage's layers to the first
-        stage: only what rank 0 needs moves."""
+        stage: only what rank 0 needs moves. Saves write per-rank pieces
+        instead; this is the tests' whole-state reference."""
         i, z1 = self._leaf(name)
         ctx = self.ctx
         if ctx.cp_rank != 0:
@@ -379,7 +429,8 @@ class Trainer:
         else:
             self.layout = StateLayout(self.ctx, self.cfg, params,
                                       self.pcfg.use_distributed_optimizer,
-                                      self.pcfg.grad_rs_bucket_mb)
+                                      self.pcfg.grad_rs_bucket_mb,
+                                      self.pcfg.overlap_grad_reduce)
             params = shard_params(params, self.ctx, self.cfg)
             opt_state = init_optimizer_state({}, self.tcfg,
                                              device=self.device)
@@ -438,8 +489,8 @@ class Trainer:
         opt_tmpl = None if tmpl is None else tmpl._replace(
             m=moments, v=moments if tmpl.v is not None else None)
         return load_checkpoint(load_dir, full, opt_tmpl, self.cfg,
-                               device=self.device, shard=self.layout.shard,
-                               **kw)
+                               device=self.device,
+                               region=self.layout.region, **kw)
 
     def _get_step_fn(self, num_microbatches: int):
         if num_microbatches not in self._train_steps:
@@ -486,6 +537,7 @@ class Trainer:
         rows, seq) batch; under cp each rank its sequence shard."""
         if self.valid_data_iterator is None:
             return float("nan")
+        self.drain_param_gathers()
         if self._eval_step_fn is None:
             self._eval_step_fn = make_eval_step(self.model)
         total, count = 0.0, 0
@@ -564,18 +616,22 @@ class Trainer:
                 self._wait_for_commit()
             return
         self.timers("save-checkpoint").start()
+        self.drain_param_gathers()
         if self.layout is None:
             mgr.save(state.iteration, state.params,
                      None if self.tcfg.no_save_optim else state.opt_state,
                      self.cfg, self.scheduler.state_dict(),
                      state.consumed_train_samples, rng_key=self._dropout_seed)
         else:
-            params, opt = self._gather_state(state)
-            if self._rank0:
-                mgr.save(state.iteration, params, opt, self.cfg,
-                         self.scheduler.state_dict(),
-                         state.consumed_train_samples,
-                         rng_key=self._dropout_seed, fresh=True)
+            model, optim = self._state_pieces(state)
+            mgr.save_pieces(state.iteration, model, optim, self.ctx.rank,
+                            self.ctx.world_size,
+                            barrier=lambda: host_barrier("checkpoint-save"),
+                            model_cfg=self.cfg,
+                            scheduler_state=self.scheduler.state_dict(),
+                            consumed_train_samples=(
+                                state.consumed_train_samples),
+                            rng_key=self._dropout_seed)
         self.timers("save-checkpoint").stop()
         self._saved_iteration = state.iteration
         self.timers.gauge("ckpt_blocked_ms", round(mgr.last_blocked_ms, 2))
@@ -585,16 +641,39 @@ class Trainer:
                     f"{self.tcfg.save}"
                     f"{' (committed)' if blocking else ' (async)'}")
 
+    def drain_param_gathers(self) -> None:
+        """Wait for the parameter all-gathers in flight
+        (`--overlap_param_gather`): before an eval, a save, a rollback
+        and the end of training."""
+        for step in self._train_steps.values():
+            step.drain()
+
+    def _state_pieces(self, state: TrainState):
+        """This rank's pieces of the params and, unless --no_save_optim,
+        of the optimizer state (StateLayout.pieces): what its save
+        writes."""
+        lay = self.layout
+        full = flatten(self.model.abstract_params())
+        shapes = {k: tuple(v.shape) for k, v in full.items()}
+        shapes.update({p + k: v for k, v in list(shapes.items())
+                       for p in ("m.", "v.")})
+        model = lay.pieces(flatten(state.params), shapes)
+        if self.tcfg.no_save_optim:
+            return model, None
+        return model, lay.pieces(optim_flat(state.opt_state), shapes)
+
     def _wait_for_commit(self) -> None:
-        """Wait for the save in flight (rank 0 writes it); every other
-        rank waits for rank 0."""
+        """Wait for this rank's save in flight (rank 0's commits the
+        checkpoint once every rank's marker is there); then every rank
+        waits for every other."""
         if self._ckpt_manager is not None:
             self._ckpt_manager.wait_until_finished()
         host_barrier("checkpoint-commit")
 
     def _gather_state(self, state: TrainState):
         """The whole params and optimizer state on rank 0's host (None,
-        None elsewhere): a collective, leaf by leaf."""
+        None elsewhere): a collective, leaf by leaf; the tests' reference
+        for the per-rank files (no save gathers)."""
         lay = self.layout
         flat = {k: lay.gather(k, v) for k, v in flatten(state.params).items()}
         params = unflatten_like(flat, state.params) if self._rank0 else None
@@ -629,6 +708,7 @@ class Trainer:
                         "mode")
             return False
         # the save in flight is the newest: it must land first
+        self.drain_param_gathers()
         self._get_ckpt_manager()
         self._wait_for_commit()
         loaded = self._load(
@@ -746,7 +826,9 @@ class Trainer:
                     == 0:
                 self._print(f"exiting at iteration {state.iteration}")
                 break
-        # an interval save in flight lands before the loop returns
+        # the parameter gathers and an interval save in flight land
+        # before the loop returns
+        self.drain_param_gathers()
         if self._ckpt_manager is not None or self.layout is not None:
             self._wait_for_commit()
         return state

@@ -14,7 +14,7 @@ parallelism and ZeRO-1, the recipe's parallel flags, on a tiny Llama
   checkpoint at tp2 x dp2, each giving the uninterrupted run's next
   losses;
 - a rank imports no JAX;
-- the overlap schedulers raise, naming the next A4 PR.
+- the overlap schedulers' flags pass the JAX package's gates.
 """
 
 import dataclasses
@@ -113,6 +113,13 @@ def runs(tmp_path_factory):
         JaxTrainer.train_step = step
         JaxLlama.init = jinit
         jft.args_to_configs = inner
+        # the JAX `finetune.main` leaves its tp2 x dp2 parallel context
+        # installed for the process: a later JAX test in the same worker
+        # would run on that mesh (tests/test_msdp_orqa.py's embeddings
+        # then differ by a bf16 rounding)
+        from megatron_llm_tpu.parallel.mesh import destroy_parallel
+
+        destroy_parallel()
     return {"one": one, "ranks": ranks, "resumed": resumed, "jax": jax_log}
 
 
@@ -183,10 +190,29 @@ def test_ranks_import_no_jax(runs):
     "--pipeline_model_parallel_size 2 --async_pipeline_dispatch",
 ])
 def test_later_parallel_flags_raise_naming_the_next_a4_pr(flags):
-    args = arguments.build_base_parser().parse_args(
-        TINY + ["--use_distributed_optimizer"] + flags.split())
-    with pytest.raises(ValueError, match="next A4 PR"):
-        arguments.args_to_configs(args, 256)
+    """The overlap schedulers are ported: each flag is held to the JAX
+    package's gates (tests/test_torch_overlap.py), so the same argv
+    raises in both parsers, naming the same gate, or builds in both."""
+    # dp 2 (the JAX parser's world would be its 8 virtual devices)
+    argv = TINY + ["--use_distributed_optimizer", "--data_parallel_size",
+                   "2", "--global_batch_size", "8"] + flags.split()
+    from megatron_llm_tpu import arguments as jax_arguments
+
+    jargs = jax_arguments.build_base_parser().parse_args(argv)
+    args = arguments.build_base_parser().parse_args(argv)
+    try:
+        jp = jax_arguments.args_to_configs(jargs, 256)[1]
+    except ValueError as e:
+        gate = "data_parallel_size" if "data_parallel_size=1" in str(e) \
+            else "pipeline_parallel_size"
+        with pytest.raises(ValueError, match=gate):
+            arguments.args_to_configs(args, 256, world_size=2)
+        return
+    pp = arguments.args_to_configs(args, 256, world_size=2)[1]
+    assert pp.data_parallel_size == jp.data_parallel_size
+    for name in ("overlap_grad_reduce", "overlap_param_gather",
+                 "async_pipeline_dispatch"):
+        assert getattr(pp, name) == getattr(jp, name)
 
 
 def test_two_ranks_on_one_card_refuse_nccl(monkeypatch):

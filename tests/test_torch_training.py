@@ -339,7 +339,7 @@ def test_remat_policies_of_later_slices_raise():
         Trainer(tm, TrainConfig(tensorboard_dir="/nonexistent"),
                 ParallelConfig())
     with pytest.raises(ValueError, match="pipeline"):
-        ParallelConfig(pipeline_parallel_size=2, async_pipeline_dispatch=True)
+        ParallelConfig(async_pipeline_dispatch=True)
     from megatron_llm_tpu_torch.training.train_step import make_train_step
 
     with pytest.raises(ValueError, match="parallel context"):
