@@ -83,7 +83,8 @@ Phases, one output line each (a failure raises and exits non-zero):
    the device ms of one 8-slot paged decode step beside the weight
    floor, the device ms of one mixed round's paged forward and K7's part
    of it (torch.profiler), peak memory;
-10b. graph_capture: 8 of the engine's greedy requests queued and drained
+10b. graph_capture (at 16 of 32 layers, CAPTURE_LAYERS): 8 of the
+   engine's greedy requests queued and drained
    by the bf16 engine with every round a replayed graph, and the same
    queue's first rounds (every mixed round and 4 decode rounds) with
    every round called eagerly (the private `_eager`), and phase 5's
@@ -109,17 +110,18 @@ Phases, one output line each (a failure raises and exits non-zero):
    step and of a mixed round's forward (and K7's part), with K7's tc
    design and, in the same call, with every launch forced to the present
    design;
-12. serving_engine_window: a model with `attention_window_size=1024`,
-   max_context 4096, 12 requests (8 reaching 1564-3128 positions) queued
-   and drained in a pool of 8 x 21 pages that their reach overflows: the
-   streams bitwise those of the mask-only engine, pages reclaimed, no
-   slot above 21 pages, every page back, a kernels-off windowed re-score
-   within 5e-2, every K7 launch the window variant;
-13. serving_engine_spec_whole_prompt: 8 requests (4 with repeating
-   prompts) over HTTP through the chunked engine, with `spec_decode_k=4`
-   and with whole-prompt admission: acceptance, tokens/s and TTFT of
-   each, and log-probs within 5e-2 of the chunked engine's over each
-   request's common prefix;
+12. serving_engine_window: the 7B's first 8 of 32 layers (WINDOW_LAYERS)
+   with `attention_window_size=1024`, max_context 4096, 12 requests (8
+   reaching 1564-3128 positions) queued and drained in a pool of 8 x 21
+   pages that their reach overflows: the streams bitwise those of the
+   mask-only engine, pages reclaimed, no slot above 21 pages, every page
+   back, a kernels-off windowed re-score within 5e-2, every K7 launch
+   the window variant;
+13. serving_engine_spec_whole_prompt (at 16 of 32 layers, SPEC_LAYERS):
+   8 requests (4 with repeating prompts) over HTTP through the chunked
+   engine, with `spec_decode_k=4` and with whole-prompt admission:
+   acceptance, tokens/s and TTFT of each, and log-probs within 5e-2 of
+   the chunked engine's over each request's common prefix;
 14. packed_docs_prefill: three documents packed into one slot's pages,
    prefilled by one paged `LlamaModel.forward` with "doc_starts" floors:
    K7 once per layer, the doc variant each time; log-probs within 5e-2 of
@@ -149,6 +151,23 @@ Phases, one output line each (a failure raises and exits non-zero):
    the HF write, the conversion, the load, the warmup capture and the
    subprocess's start to its banner; bytes written, tokens/s, TTFT p50,
    ms per decode advance (wall, device), GPU memory after the start;
+14c'. launcher_fleet: 14c's release served by two engine replicas on
+   the card through the launcher's `--router_replicas 2`, in a thread.
+   (a) `--prefill_replicas 1 --cost_registry --perf_sentinel_ksigma 6
+   --trace_dir --record_dir`: 6 greedy prompts of 300-1100 ids take the
+   two-stage route (prefill on replica 0, KV pages exported and imported
+   into replica 1, every imported page bit for bit the donor's), 2 short
+   ones go direct; POST /profile traces 2 rounds whose kernels include
+   K7's; the Prometheus /metrics parses back with the requests' count;
+   the detected chip spec is the H100's. (b) `--recover_requests
+   --fleet_controller --chaos kill=0@3`: 8 greedy requests sharing a
+   512-id system prefix go by affinity to replica 0, which is killed
+   after its third submit; zero requests fail, one replacement, the
+   flight-record dump written, the condemned engine collected and the
+   card's reserved memory back. Both runs' streams held to 14c's single
+   engine on the same prompts (teacher-forced through the kernels-off
+   forward within 5e-2, token agreement printed); K7 once a layer per
+   paged forward on each replica (counts set to 0 before each run);
 14d. serving_tp: 14c's release served by `torchrun --nproc_per_node 2
    -m megatron_llm_tpu_torch.tools.run_text_generation_server
    --serving_tp 2 --distributed_backend gloo`, two ranks on cuda:0, each
@@ -245,15 +264,16 @@ Phases, one output line each (a failure raises and exits non-zero):
    in four ranks (this script's rank mode, `--finetune-rank`) at tp 2 x
    dp 2 with sequence parallelism and ZeRO-1 over gloo, every rank on
    cuda:0 and every collective staged through host memory, on the
-   recipe's flags and phase 18's corpora: 3 steps and a save, then the
-   same ranks resume it for step 4, and world size 1 resumes it too.
+   recipe's flags and phase 18's corpora: 2 steps (PAR_STEPS) and a
+   save, then the same ranks resume it for step 3, and world size 1
+   resumes it too.
    Losses and grad norms within 2e-2 / 5e-2 of (a)'s world-size-1 run
    (the same weights and global batches); every rank reports the same;
    K4-K6 8 launches a rank a step; the save is per-rank files (each
    rank its pieces, one writer a piece, a marker a rank, rank 0
    committing), and each rank's slice of every leaf read back from the
    pieces equals what the rank held (a positional checksum of every
-   leaf's bits); step 4 after either resume within 2e-2 of (a)'s.
+   leaf's bits); step 3 after either resume within 2e-2 of (a)'s.
    Printed: per-rank peak memory and their sum, the backend and the
    staging, ms a step labelled as gloo through the host on one shared
    card, each rank's save and commit seconds and rank 0's host RSS
@@ -285,7 +305,7 @@ Phases, one output line each (a failure raises and exits non-zero):
    last in the same torchrun) run `finetune.main` at dp 2 with ZeRO-1
    under `--overlap_grad_reduce --overlap_param_gather` and
    `--hidden_dropout 0.1` (the recipe's flags, flash on) over gloo,
-   both ranks on cuda:0, 3 steps, held to
+   both ranks on cuda:0, 2 steps (OVERLAP_STEPS), held to
    world size 1 with the same flags but the overlap ones: losses within
    2e-2, grad norms within 5e-2; K4-K6 per rank as the layout implies
    (once a layer and local microbatch, 2 a step); the layer group's
@@ -379,6 +399,7 @@ from megatron_llm_tpu_torch.inference.generation import (
     generate_tokens,
     score_tokens,
 )
+from megatron_llm_tpu_torch.inference import graph_capture as gcap
 from megatron_llm_tpu_torch.inference.server import MegatronServer
 from megatron_llm_tpu_torch.inference.tokenization import tokenize_prompts
 from megatron_llm_tpu_torch.models import FalconModel, LlamaModel
@@ -390,6 +411,7 @@ from megatron_llm_tpu_torch.ops import rmsnorm as rms
 from megatron_llm_tpu_torch.ops.quantization import quantize_rows
 from megatron_llm_tpu_torch.optimizer.optimizer import tree_leaves
 from megatron_llm_tpu_torch.tokenizer import build_tokenizer
+from megatron_llm_tpu_torch.telemetry import histograms_from_prometheus
 from megatron_llm_tpu_torch.tools import run_text_generation_server as rtgs
 from megatron_llm_tpu_torch.training import checkpointing as ckpt
 from megatron_llm_tpu_torch.training.trainer import Trainer
@@ -1751,6 +1773,26 @@ def put_raw(port, payload):
     return resp.status, json.loads(data)
 
 
+def get_text(port, path):
+    conn = HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.request("GET", path)
+    resp = conn.getresponse()
+    body = resp.read().decode()
+    conn.close()
+    check(resp.status == 200, f"GET {path} -> {resp.status}")
+    return body
+
+
+def post_json(port, path, payload):
+    conn = HTTPConnection("127.0.0.1", port, timeout=60)
+    conn.request("POST", path, json.dumps(payload),
+                 {"Content-Type": "application/json"})
+    resp = conn.getresponse()
+    body = json.loads(resp.read().decode())
+    conn.close()
+    return resp.status, body
+
+
 def get_json(port, path):
     conn = HTTPConnection("127.0.0.1", port, timeout=60)
     conn.request("GET", path)
@@ -2124,6 +2166,9 @@ def serve_engine(kernels, cfg, model, params, weight_bytes):
 # ---------------------------------------------------------------------------
 
 CAPTURE_REQUESTS = 8
+# the phase's depth: 16 of Llama-2-7B's 32 layers, which keeps the whole
+# smoke, fleet runs included, within its time on a slow host
+CAPTURE_LAYERS = 16
 
 
 def _engine_device_ms(eng, horizon=8, length=1000):
@@ -2181,7 +2226,8 @@ def _traced_drain(model, params, tok, traffic, eager, rounds=None):
 
 
 def graph_capture_phase(kernels, cfg, model, params, whole_batch):
-    """Llama-2-7B at full width and depth: the first 8 greedy requests of
+    """Llama-2-7B widths at CAPTURE_LAYERS of its 32 layers (a view of the
+    serving model's first layers): the first 8 greedy requests of
     the engine traffic queued and drained (a fixed schedule) by the bf16
     engine with every round a replayed CUDA graph, and the same queue's
     first rounds (every mixed round and EAGER_DECODE_ROUNDS decode rounds:
@@ -2199,6 +2245,8 @@ def graph_capture_phase(kernels, cfg, model, params, whole_batch):
     untraced run's wall (the trace slows the host's side of a round: the
     untraced figure is the lower bound)."""
     tok = build_tokenizer("NullTokenizer", null_vocab_size=31999)
+    cfg, params = first_layers(cfg, params, CAPTURE_LAYERS, copy=False)
+    model = LlamaModel(cfg)
     traffic = [(p, pl["tokens_to_generate"]) for name, p, pl
                in engine_traffic() if name.startswith("greedy")]
     traffic = traffic[:CAPTURE_REQUESTS]
@@ -2320,7 +2368,7 @@ def graph_capture_phase(kernels, cfg, model, params, whole_batch):
     summary = {m: {k: v for k, v in r.items()
                    if k not in ("outs", "at_prefix")}
                for m, r in runs.items()}
-    say("graph_capture", requests=len(traffic),
+    say("graph_capture", layers=CAPTURE_LAYERS, requests=len(traffic),
         engine=summary, engine_streams_equal_through_round=prefix,
         engine_accounting_equal=True,
         engine_pages_free=g["pages_free"],
@@ -2414,6 +2462,9 @@ def serve_engine_int8(kernels, cfg, model, params, bf16):
 
 
 WINDOW_SERVE = 1024
+# the window phase's depth: 8 of Llama-2-7B's 32 layers, which keeps the
+# whole smoke, fleet runs included, within its time
+WINDOW_LAYERS = 8
 
 
 def window_traffic():
@@ -2430,7 +2481,9 @@ def window_traffic():
 
 
 def serve_engine_window(kernels, cfg, model, params):
-    """Llama-2-7B with a window of 1024, max_context 4096, page_budget 8 x
+    """Llama-2-7B widths at WINDOW_LAYERS of its 32 layers (a view of the
+    serving model's first layers) with a window of 1024, max_context
+    4096, page_budget 8 x
     the window's slot bound (168 pages): the traffic is queued on the
     engine and drained (a fixed schedule, so the two runs below compare
     bitwise). Gates: reclamation ON gives the streams of the mask-only
@@ -2439,7 +2492,9 @@ def serve_engine_window(kernels, cfg, model, params):
     teacher-forced re-score on a kernels-off windowed engine agrees
     within 5e-2."""
     tok = build_tokenizer("NullTokenizer", null_vocab_size=31999)
-    wcfg = dataclasses.replace(cfg, attention_window_size=WINDOW_SERVE)
+    wcfg, params = first_layers(dataclasses.replace(
+        cfg, attention_window_size=WINDOW_SERVE), params, WINDOW_LAYERS,
+        copy=False)
     wmodel = LlamaModel(wcfg)
     bound = -(-(WINDOW_SERVE + 256) // 64) + 1
     kw = engine_kwargs(tok, max_context=4096, prefix_cache=False)
@@ -2491,7 +2546,7 @@ def serve_engine_window(kernels, cfg, model, params):
     check(c["serve_pages_in_use"] == 0
           and c["serve_pages_free"] == on["num_pages"] - 1,
           f"window pages after the traffic: {c}")
-    check_paged_launches(cfg, on, "engine_window", "window")
+    check_paged_launches(wcfg, on, "engine_window", "window")
     note_launches(kernels, "engine_window", on)
 
     plain = LlamaModel(dataclasses.replace(wcfg, use_fused_rmsnorm=False,
@@ -2506,7 +2561,8 @@ def serve_engine_window(kernels, cfg, model, params):
               for f, (_, _, _, lp) in zip(forced, scored))
     generated = sum(len(t) - len(p) for (_, p, _), (t, _) in
                     zip(traffic, on["outs"]))
-    say("serving_engine_window", window=WINDOW_SERVE, requests=len(traffic),
+    say("serving_engine_window", window=WINDOW_SERVE, layers=WINDOW_LAYERS,
+        requests=len(traffic),
         max_context=4096, budget_pages=on["num_pages"] - 1,
         slot_bound_pages=bound, traffic_reach_pages=reach,
         peak_pages_per_slot=on["peak"],
@@ -2548,14 +2604,23 @@ def spec_traffic():
     return out
 
 
+# the spec and whole-prompt phase's depth: 16 of Llama-2-7B's 32 layers,
+# which keeps the whole smoke, fleet runs included, within its time
+SPEC_LAYERS = 16
+
+
 def serve_engine_spec_and_whole_prompt(kernels, cfg, model, params):
-    """The same 8 requests over HTTP through the chunked engine without
+    """At SPEC_LAYERS of the 7B's 32 layers (a view of the serving
+    model's first layers), the same 8 requests over HTTP through the
+    chunked engine without
     speculation, with `spec_decode_k=4`, and with whole-prompt admission
     (`prefill_chunk_tokens=0`): acceptance rate, tokens/s and TTFT of
     each; greedy agreement with the chunked engine and log-probs within
     5e-2 over each request's common prefix (other chunk widths are
     other GEMM shapes, so the card does not promise bitwise equality)."""
     tok = build_tokenizer("NullTokenizer", null_vocab_size=31999)
+    cfg, params = first_layers(cfg, params, SPEC_LAYERS, copy=False)
+    model = LlamaModel(cfg)
     traffic = spec_traffic()
     runs = {}
     for mode, over in (("chunked", {}), ("spec", {"spec_decode_k": 4}),
@@ -2592,8 +2657,8 @@ def serve_engine_spec_and_whole_prompt(kernels, cfg, model, params):
         spec_rounds=spec["serve_spec_rounds"],
         proposed=spec["serve_spec_proposed"],
         accepted=spec["serve_spec_accepted"])
-    say("serving_engine_spec_whole_prompt", requests=len(traffic),
-        tol=PATH_LP_TOL, **report)
+    say("serving_engine_spec_whole_prompt", layers=SPEC_LAYERS,
+        requests=len(traffic), tol=PATH_LP_TOL, **report)
     for mode in ("spec", "whole_prompt"):
         err = report[mode]["common_prefix_logprob_max_abs_vs_chunked"]
         check(err <= PATH_LP_TOL, f"{mode} log-probs vs chunked {err}")
@@ -2967,11 +3032,12 @@ def launcher_subprocess(argv, payloads):
 LLAMA_LAUNCH_LAYERS = 4
 
 
-def first_layers(cfg, params, n):
-    """The config and weights of the first n layers (copies: the whole
-    model can be freed)."""
-    layers = ckpt.unflatten({k: v[:n].clone() for k, v in
-                             ckpt.flatten(params["layers"]).items()})
+def first_layers(cfg, params, n, copy=True):
+    """The config and weights of the first n layers: copies (the whole
+    model can be freed), or with `copy=False` views of the whole
+    model's."""
+    layers = ckpt.unflatten({k: v[:n].clone() if copy else v[:n] for k, v
+                             in ckpt.flatten(params["layers"]).items()})
     return dataclasses.replace(cfg, num_layers=n), dict(params,
                                                         layers=layers)
 
@@ -3058,6 +3124,9 @@ def launcher_llama(kernels, conv, weights):
     generated, greedy = check_outputs(traffic, run, tok)
     beam_steps = check_launcher_run(cfg, run, whole, flash=True)
     seq = sequential_greedy(srv.port, sequential_payloads())
+    # the single-engine streams the fleet runs are held to
+    fleet_ref = [sequential_scored(srv.port, prompts)
+                 for prompts in fleet_traffic()]
     metrics = get_json(srv.port, "/metrics")
     eng.stop()  # its serve thread: the card is timed alone
     step_ms = decode_step_device_ms(model, eng)
@@ -3067,12 +3136,9 @@ def launcher_llama(kernels, conv, weights):
     banner_s, sub, banner = launcher_subprocess(argv, sequential_payloads())
     check(sub == seq, "the subprocess launcher's answers differ from the "
                       "in-thread launcher's")
-    wcfg, wparams = weights
-    plain = LlamaModel(dataclasses.replace(
-        wcfg, use_decode_attn=False, use_flash_attn=False,
-        use_fused_rmsnorm=False))
+    plain, wparams = kernels_off(weights)
     err, agree = teacher_forced(plain, wparams, greedy)
-    del plain, wparams, weights
+    del plain, wparams
     free_cuda()
     check(err <= PATH_LP_TOL, f"launcher streams teacher-forced through "
                               f"the kernels-off forward: log-probs {err}")
@@ -3092,10 +3158,404 @@ def launcher_llama(kernels, conv, weights):
         greedy_token_match_fraction_kernels_off=agree,
         path_check_max_abs_logprob_err=err, tol=PATH_LP_TOL, **mem,
         peak_memory_gb=torch.cuda.max_memory_allocated() / 1e9)
-    # the release and the tp 1 streams serve the serving_tp phase
+    # the release and the tp 1 streams serve the serving_tp phase, the
+    # fleet's prompts' streams the launcher_fleet phase
     return {"argv": argv, "greedy": greedy, "layers": cfg.num_layers,
-            "kv_pool_bytes": pool_bytes,
+            "kv_pool_bytes": pool_bytes, "fleet_ref": fleet_ref,
             "decode_ms_per_advance": ms_per_advance(run["rounds"])}
+
+
+def kernels_off(weights):
+    """The plain (kernels-off) model of the converted weights, and the
+    weights: what the launchers' streams are teacher-forced through."""
+    wcfg, wparams = weights
+    return LlamaModel(dataclasses.replace(
+        wcfg, use_decode_attn=False, use_flash_attn=False,
+        use_fused_rmsnorm=False)), wparams
+
+
+# ---------------------------------------------------------------------------
+# the serving fleet: the launcher's --router_replicas on the release of
+# launcher_llama, two engine replicas sharing the card
+# ---------------------------------------------------------------------------
+
+FLEET_GEN = 32
+FLEET_SYSTEM = 512  # run (b)'s shared system prefix, in tokens
+FLEET_REPLICAS = 2
+
+
+def fleet_traffic():
+    """(a) 6 prompts of 300-1100 ids (2 or more full pages of 64: the
+    router's two-stage route) and 2 short ones (direct); (b) 8 prompts
+    sharing a FLEET_SYSTEM-token system prefix."""
+    rs = np.random.RandomState(SEED + 53)
+
+    def ids(n):
+        return [int(x) for x in rs.randint(0, 31999, n)]
+
+    disagg = [ids(n) for n in (300, 1100, 640, 820, 450, 980, 40, 90)]
+    system = ids(FLEET_SYSTEM)
+    return disagg, [system + ids(n) for n in (20, 35, 50, 28, 44, 60, 33,
+                                              25)]
+
+
+def fleet_payload(prompt, logprobs=False):
+    return {"prompts": [" ".join(map(str, prompt))],
+            "tokens_to_generate": FLEET_GEN, "top_k": 1,
+            "logprobs": logprobs}
+
+
+def sequential_scored(port, prompts):
+    """Each prompt alone, greedy with log-probs: [(tokens, log-probs)]."""
+    out = []
+    for prompt in prompts:
+        status, body = put_raw(port, fleet_payload(prompt, logprobs=True))
+        check(status == 200, f"single-engine fleet reference -> {status}")
+        out.append((list(map(int, body["text"][0].split())),
+                    body["logprobs"][0]))
+    return out
+
+
+def concurrent_greedy(port, prompts):
+    """The prompts from concurrent client threads: [(status, tokens or
+    the error body)] in prompt order."""
+    results = [None] * len(prompts)
+
+    def client(i):
+        status, body = put_raw(port, fleet_payload(prompts[i]))
+        results[i] = (status, list(map(int, body["text"][0].split()))
+                      if status == 200 else body)
+
+    threads = [threading.Thread(target=client, args=(i,))
+               for i in range(len(prompts))]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(timeout=LAUNCH_TIMEOUT_S)
+    check(all(not th.is_alive() for th in threads), "fleet clients hung")
+    return results
+
+
+def hold_streams(plain, params, prompts, streams, refs):
+    """The fleet's greedy streams held to the single-engine streams
+    `refs` [(tokens, log-probs)] on the same prompts: the share of
+    generated tokens that agree, the largest |log-prob| difference
+    between the fleet's tokens teacher-forced through the kernels-off
+    forward and the single engine's log-probs over the prefix where the
+    streams agree, and the largest gap between the kernels-off forward's
+    best log-prob and that of the fleet's token anywhere (each fleet
+    token is a greedy pick up to bf16 noise)."""
+    agree = total = 0
+    err = gap = 0.0
+    with torch.inference_mode():
+        for prompt, out, (ref, ref_lp) in zip(prompts, streams, refs):
+            seq = torch.tensor(out, device=plain.device)[None]
+            logits, _ = plain.forward(params, seq[:, :-1])
+            lps = torch.log_softmax(logits[0].float(), -1)
+            forced = lps.gather(1, seq[0, 1:, None])[:, 0].cpu().numpy()
+            best = lps.max(-1).values.cpu().numpy()
+            n = len(prompt) - 1
+            gap = max(gap, float((best[n:] - forced[n:]).max()))
+            same = 0
+            while (len(prompt) + same < min(len(out), len(ref))
+                   and out[len(prompt) + same] == ref[len(prompt) + same]):
+                same += 1
+            agree += same
+            total += len(out) - len(prompt)
+            if same:
+                err = max(err, float(np.abs(
+                    forced[n:n + same] - np.asarray(ref_lp)[n:n + same])
+                    .max()))
+    return agree / max(total, 1), err, gap
+
+
+def fleet_launches(kernels, path, engines, counts, variants, warm=0):
+    """K7 launched once a layer and paged forward of every replica's
+    rounds (plus `warm`, the launches a replacement's warm-up made),
+    every launch tc, on each replica; K1, K2 and K4 never. Notes the
+    path on the kernels line; returns K7 launches by replica."""
+    L = engines[0].cfg.num_layers
+    by = {}
+    for eng in engines:
+        rid = eng.replica_id
+        by[rid] = by.get(rid, 0) + L * paged_forwards(eng._round_log)
+    k7 = counts["ragged_paged_attention"]
+    check(k7 == sum(by.values()) + warm and variants["tc"] == k7,
+          f"{path}: K7 launches {k7} (designs {variants}) != {L} x the "
+          f"replicas' paged forwards {by} + {warm} warm-up")
+    check(all(v > 0 for v in by.values()) and len(by) == FLEET_REPLICAS,
+          f"{path}: K7 did not run on every replica: {by}")
+    check(counts["decode_attention"] == counts["flash_fwd"]
+          == counts["rmsnorm_fwd"] == 0, f"{path}: launches {counts}")
+    note_launcher_launches(kernels, path, {
+        "launches": counts, "variants": variants})
+    return by
+
+
+def warmup_launches(eng, warmups):
+    """K7 launches of `warmups` warm-ups of a captured engine: every
+    runner's paged forwards (its horizon, or 1) a layer, in the capture's
+    eager runs once and in each warm-up's idle replay."""
+    fw = (sum(h for h, _ in eng._step_fns) + len(eng._mixed_fns)
+          + len(eng._spec_fns))
+    return eng.cfg.num_layers * fw * (gcap.WARMUP_RUNS + warmups)
+
+
+def fleet_disagg(kernels, tp1, plain, wparams):
+    """Run (a): `--router_replicas 2 --prefill_replicas 1` with the cost
+    registry, the perf sentinel, span traces and flight records, in a
+    thread. Long prompts prefill on replica 0 and hand their pages to
+    replica 1; every imported page equals the donor's bit for bit; the
+    streams are held to launcher_llama's; POST /profile traces K7; the
+    Prometheus /metrics parses back."""
+    trace_dir, record_dir = LAUNCH_DIR / "fleet_traces", LAUNCH_DIR / "fleet_a"
+    for d in (trace_dir, record_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    srv = InThreadLauncher(tp1["argv"] + [
+        "--warmup_compile", "--router_replicas", str(FLEET_REPLICAS),
+        "--prefill_replicas", "1", "--cost_registry",
+        "--perf_sentinel_ksigma", "6", "--trace_dir", str(trace_dir),
+        "--record_dir", str(record_dir)])
+    router = srv.server.engine
+    pre, dec_rep = router.replicas
+    engines = [pre.engine, dec_rep.engine]
+    handoffs = {}  # id(payload) -> its hand-off (the payload kept alive)
+    export, imp = pre.export_prefix, dec_rep.import_prefix
+
+    def timed_export(prompt):
+        t0 = time.perf_counter()
+        payload = export(prompt)
+        if payload is not None:
+            handoffs[id(payload)] = {
+                "export_ms": (time.perf_counter() - t0) * 1e3,
+                "pages": payload["pages"], "payload": payload,
+                "bytes": sum(t.numel() * t.element_size()
+                             for k in ("k", "v", "ks", "vs")
+                             for t in payload[k])}
+        return payload
+
+    def timed_import(payload):
+        t0 = time.perf_counter()
+        res = imp(payload)
+        handoffs[id(payload)]["import_ms"] = (time.perf_counter() - t0) * 1e3
+        return res
+
+    def pages_equal(payload):
+        """The receiver's pages of the payload's chain, bit for bit the
+        donor's rows (registered full prompt pages are never written
+        again, so after the run is after the import)."""
+        eng = dec_rep.engine
+        pages = torch.as_tensor(eng._prefix.lookup(payload["tokens"] + [0])
+                                .pages[:payload["pages"]], device=eng.device)
+        return len(pages) == payload["pages"] and all(
+            torch.equal(pool.index_select(0, pages).cpu(), rows)
+            for group, k in zip(eng._pools, ("k", "v", "ks", "vs"))
+            for pool, rows in zip(group, payload[k]))
+
+    pre.export_prefix, dec_rep.import_prefix = timed_export, timed_import
+    prompts, _ = fleet_traffic()
+    backlog = {0: 0.0, 1: 0.0}
+    sampling = threading.Event()
+
+    def sample():
+        while not sampling.is_set():
+            for i, eng in enumerate(engines):
+                backlog[i] = max(backlog[i], eng.modeled_backlog_seconds())
+            time.sleep(0.005)
+
+    sampler = threading.Thread(target=sample, daemon=True)
+    zero_counts()
+    sampler.start()
+    t0 = time.perf_counter()
+    results = concurrent_greedy(srv.port, prompts)
+    wall = time.perf_counter() - t0
+    sampling.set()
+    sampler.join()
+    counts, variants = kernel_counts(), dict(
+        pa.ragged_paged_attention.variant_launches)
+    check(all(st == 200 for st, _ in results), f"fleet (a) answers "
+                                               f"{results}")
+    streams = [out for _, out in results]
+    pre.export_prefix, dec_rep.import_prefix = export, imp
+    handoffs = list(handoffs.values())
+    for h in handoffs:
+        h["pages_bit_equal"] = pages_equal(h.pop("payload"))
+    by = fleet_launches(kernels, "launcher_fleet_disagg", engines, counts,
+                        variants)
+    stats = router.router_stats()
+    paths = sorted(d["path"] for d in router.decision_log())
+    check(paths == ["direct"] * 2 + ["two_stage"] * 6
+          and stats["serve_prefill_replica"] == 6 and len(handoffs) == 6
+          and all(h["pages_bit_equal"] for h in handoffs)
+          and stats["serve_transfer_pages"] == sum(
+              h["pages"] for h in handoffs),
+          f"fleet (a) routing {paths}, stats {stats}, hand-offs "
+          f"{handoffs}")
+    agree, err, gap = hold_streams(plain, wparams, prompts, streams,
+                                   tp1["fleet_ref"][0])
+    check(err <= PATH_LP_TOL and gap <= PATH_LP_TOL,
+          f"fleet (a) streams against the single engine: log-probs "
+          f"{err}, greedy gap {gap}")
+    # POST /profile: 2 rounds of the prefill replica, then one long prompt
+    prof_dir = trace_dir / "profile"
+    status, _ = post_json(srv.port, "/profile",
+                          {"rounds": 2, "trace_dir": str(prof_dir)})
+    check(status == 200, f"POST /profile -> {status}")
+    check(put_raw(srv.port, fleet_payload(prompts[0]))[0] == 200,
+          "the profiled request")
+    deadline = time.monotonic() + 120
+    while not list(prof_dir.glob("profile_engine-r0_*.json")):
+        check(time.monotonic() < deadline, "no profiler trace written")
+        time.sleep(0.1)
+    (prof,) = prof_dir.glob("profile_engine-r0_*.json")
+    names = {e.get("name", "") for e in json.loads(prof.read_text())[
+        "traceEvents"]}
+    k7_names = sorted(n for n in names if "paged_attn_tc_kernel" in n)
+    check(k7_names, "the profiler trace names no K7 kernel")
+    text = get_text(srv.port, "/metrics?format=prometheus")
+    hists = {h.name: h for h in histograms_from_prometheus(text)}
+    admitted = sum(e.counters()["serve_admitted"] for e in engines)
+    check(hists["serve_ttft_ms"].count == admitted,
+          f"Prometheus TTFT count {hists['serve_ttft_ms'].count} != "
+          f"{admitted} admitted")
+    metrics = get_json(srv.port, "/metrics")
+    chip = engines[0].chip.label() if engines[0].chip else None
+    check(chip == "h100:detected", f"chip spec {chip}")
+    memory = get_json(srv.port, "/memory")
+    costs = [e.costs.snapshot()["records"] for e in engines]
+    sentinel = [e.counters().get("serve_perf_regressions") for e in engines]
+    srv.stop()
+    traces = sorted(p.name for p in trace_dir.glob("trace_engine-r*.json"))
+    check(len(traces) == FLEET_REPLICAS, f"span traces {traces}")
+    n_layers = engines[0].cfg.num_layers
+    say("launcher_fleet_disagg", card=nvidia_smi(), layers=n_layers,
+        replicas="1 prefill + 1 decode", requests=len(prompts),
+        routes=paths, wall_s=wall,
+        generated_tokens_per_s=sum(len(o) - len(p) for p, o in
+                                   zip(prompts, streams)) / wall,
+        k7_launches_by_replica=by, launches=counts,
+        router={k: v for k, v in stats.items() if k != "replicas"},
+        handoffs=handoffs,
+        handoff_bytes_per_page_layer=[
+            h["bytes"] / (h["pages"] * n_layers) for h in handoffs],
+        export_ms=[h["export_ms"] for h in handoffs],
+        import_ms=[h["import_ms"] for h in handoffs],
+        exported_pages_bit_equal=all(h["pages_bit_equal"]
+                                     for h in handoffs),
+        token_agreement_single_engine=agree,
+        path_check_max_abs_logprob_err=err, greedy_gap=gap,
+        tol=PATH_LP_TOL, chip_spec=chip,
+        modeled_backlog_s_peak_by_replica=backlog,
+        h100_peak_bf16_flops=BF16_FLOPS,
+        cost_records_by_replica=[len(c) for c in costs],
+        cost_records_replica0=costs[0],
+        perf_regressions=sentinel, profile_trace=prof.name,
+        profile_k7_kernel_names=k7_names[:2], span_traces=traces,
+        prometheus_ttft_count=hists["serve_ttft_ms"].count,
+        prometheus_histograms=sorted(hists),
+        metrics_serve_admitted=metrics.get("serve_admitted"),
+        memory_devices=memory["devices"])
+
+
+def fleet_recover(kernels, tp1, plain, wparams):
+    """Run (b): `--router_replicas 2 --recover_requests --fleet_controller
+    --chaos kill=0@3`, in a thread. 8 greedy requests sharing a system
+    prefix go by affinity to replica 0, which dies after its third
+    submit; its requests are resubmitted, the controller replaces it, and
+    every request answers (zero failed) with the single engine's streams
+    up to the kernels-off bar. The condemned replica's memory goes back:
+    its engine is collected and the card's reserved memory returns."""
+    import weakref
+
+    record_dir = LAUNCH_DIR / "fleet_b"
+    shutil.rmtree(record_dir, ignore_errors=True)
+    srv = InThreadLauncher(tp1["argv"] + [
+        "--warmup_compile", "--router_replicas", str(FLEET_REPLICAS),
+        "--recover_requests", "--fleet_controller", "--chaos", "kill=0@3",
+        "--record_dir", str(record_dir)])
+    router = srv.server.engine
+    engines = [rep.engine for rep in router.replicas]
+    doomed = weakref.ref(engines[0])
+    free_cuda()
+    reserved_before = torch.cuda.memory_reserved()
+    _, prompts = fleet_traffic()
+    zero_counts()
+    t0 = time.perf_counter()
+    # the first request alone registers the system prefix on replica 0,
+    # so the rest follow it there by affinity (and arm the kill)
+    results = concurrent_greedy(srv.port, prompts[:1])
+    results += concurrent_greedy(srv.port, prompts[1:])
+    wall = time.perf_counter() - t0
+    deadline = time.monotonic() + 300
+    while router.router_stats().get("serve_fleet_replaced", 0) < 1:
+        check(time.monotonic() < deadline, "no replacement")
+        time.sleep(0.05)
+    counts, variants = kernel_counts(), dict(
+        pa.ragged_paged_attention.variant_launches)
+    failed = [r for r in results if r[0] != 200]
+    check(not failed, f"fleet (b) failed requests: {failed}")
+    streams = [out for _, out in results]
+    new = router.replicas[0].engine
+    check(new is not engines[0] and new.replica_id == 0,
+          "replica 0 was not replaced")
+    by = fleet_launches(kernels, "launcher_fleet_recover",
+                        engines + [new], counts, variants,
+                        warm=warmup_launches(new, 2))
+    stats = router.router_stats()
+    record = router.flight_record()
+    replace = [e for e in record.get("fleet", []) if e["kind"] == "replace"]
+    dumps = sorted(p.name for p in record_dir.glob(
+        "flight_record_engine-poison-r0_*.json"))
+    check(stats["serve_fleet_replaced"] == 1 and len(replace) == 1
+          and dumps and stats["router_affinity_hits"] >= 1
+          and stats["serve_resubmitted"] >= 1,
+          f"fleet (b): stats {stats}, replace events {replace}, dumps "
+          f"{dumps}")
+    agree, err, gap = hold_streams(plain, wparams, prompts, streams,
+                                   tp1["fleet_ref"][1])
+    check(err <= PATH_LP_TOL and gap <= PATH_LP_TOL,
+          f"fleet (b) streams against the single engine: log-probs "
+          f"{err}, greedy gap {gap}")
+    del engines, new
+    free_cuda()
+    reserved_after = torch.cuda.memory_reserved()
+    collected = doomed() is None
+    check(collected and reserved_after <= reserved_before + 2**29,
+          f"the condemned replica's memory: collected {collected}, "
+          f"reserved {reserved_before} -> {reserved_after} bytes")
+    srv.stop()
+    say("launcher_fleet_recover", card=nvidia_smi(),
+        replicas=FLEET_REPLICAS, chaos="kill=0@3", requests=len(prompts),
+        system_prefix_tokens=FLEET_SYSTEM, wall_s=wall,
+        failed_requests=len(failed),
+        fleet_replaced=stats["serve_fleet_replaced"],
+        resubmitted=stats["serve_resubmitted"],
+        affinity_hits=stats["router_affinity_hits"],
+        replacement_s=replace[0].get("recovery_s"),
+        replace_event={k: v for k, v in replace[0].items() if k != "t"},
+        flight_record_dumps=dumps, k7_launches_by_replica=by,
+        launches=counts,
+        reserved_gb_before_kill=reserved_before / 1e9,
+        reserved_gb_after_replacement=reserved_after / 1e9,
+        condemned_engine_collected=collected,
+        token_agreement_no_chaos=agree,
+        path_check_max_abs_logprob_err=err, greedy_gap=gap,
+        tol=PATH_LP_TOL,
+        router={k: v for k, v in stats.items() if k != "replicas"})
+
+
+def launcher_fleet(kernels, tp1, weights):
+    """The fleet runs (a) and (b) on launcher_llama's release; their
+    streams are held to launcher_llama's through the kernels-off
+    forward on the converted weights."""
+    plain, wparams = kernels_off(weights)
+    t0 = time.perf_counter()
+    fleet_disagg(kernels, tp1, plain, wparams)
+    free_cuda()
+    a_s = time.perf_counter() - t0
+    fleet_recover(kernels, tp1, plain, wparams)
+    free_cuda()
+    return {"disagg_s": a_s, "recover_s": time.perf_counter() - t0 - a_s}
 
 
 # ---------------------------------------------------------------------------
@@ -4902,6 +5362,8 @@ def finetune_modes(kernels, data):
 PAR_FLAGS = ["--tensor_model_parallel_size", "2", "--sequence_parallel",
              "--use_distributed_optimizer", "--distributed_backend", "gloo"]
 PAR_RANKS, PAR_TP, PAR_DP = 4, 2, 2
+# steps before the save (a gloo step takes 10-23 s on the card)
+PAR_STEPS = 2
 RANK_TIMEOUT_S = 600
 # a positional checksum: any changed bit of a leaf changes it
 _FP_CHUNK, _FP_MOD = 1 << 24, 65521
@@ -5083,9 +5545,10 @@ def finetune_parallel(kernels, data, one):
     """`torchrun --nproc_per_node 4 ... finetune.main` at tp 2 x dp 2
     with sequence parallelism and ZeRO-1 over gloo, the four ranks on
     cuda:0, on the recipe's flags at Llama-2-7B widths (FT_LAYERS of 32,
-    seq 4096, selective recompute, bf16, global batch 4): 3 steps and a
-    save, then the same ranks resume it for step 4; world size 1 resumes
-    it too. Held to `one` (finetune_modes' run (a): world size 1, the
+    seq 4096, selective recompute, bf16, global batch 4): PAR_STEPS steps
+    and a save, then the same ranks resume it for one more step; world
+    size 1 resumes it too. Held to `one` (finetune_modes' run (a): world
+    size 1, the
     same weights and batches): losses within 2e-2, grad norms within
     5e-2; the checkpoint cut back into each rank's pieces bit for bit;
     K4-K6 launches per rank as the layout implies; per-rank peak
@@ -5093,10 +5556,11 @@ def finetune_parallel(kernels, data, one):
     ck = FT_DIR / "parallel_ck"
     base = mode_argv(data, *RECIPE, "--bf16", "--train_iters", "4")
     t0 = time.perf_counter()
+    n, after = str(PAR_STEPS), ["--exit_interval", str(PAR_STEPS + 1)]
     ranks, log = run_ranks(
-        [base + PAR_FLAGS + ["--exit_interval", "3", "--save_interval", "3",
+        [base + PAR_FLAGS + ["--exit_interval", n, "--save_interval", n,
                              "--save", str(ck)],
-         base + PAR_FLAGS + ["--load", str(ck)]], nproc=PAR_RANKS)
+         base + PAR_FLAGS + ["--load", str(ck)] + after], nproc=PAR_RANKS)
     ranks_s = time.perf_counter() - t0
     first = [r[0] for r in ranks]
     resumed = [r[1] for r in ranks]
@@ -5109,35 +5573,35 @@ def finetune_parallel(kernels, data, one):
               f"rank {r}: layout {run.get('parallel')}")
         check(run["stats"] == first[0]["stats"],
               f"rank {r} reports another global loss or grad norm")
-        check(run["launches"] == parallel_expected_launches(3),
+        check(run["launches"] == parallel_expected_launches(PAR_STEPS),
               f"rank {r} launches {run['launches']} != "
-              f"{parallel_expected_launches(3)}")
-        check(resumed[r]["resumed"] == [3, 12] and resumed[r]["launches"]
-              == parallel_expected_launches(1),
+              f"{parallel_expected_launches(PAR_STEPS)}")
+        check(resumed[r]["resumed"] == [PAR_STEPS, FT_MICRO * PAR_STEPS]
+              and resumed[r]["launches"] == parallel_expected_launches(1),
               f"rank {r} resumed {resumed[r].get('resumed')} with "
               f"{resumed[r]['launches']}")
     loss_err = [abs(x["loss"] - y["loss"]) for x, y in
                 zip(first[0]["stats"], ref)]
     gnorm_err = [abs(x["grad_norm"] - y["grad_norm"]) / y["grad_norm"]
                  for x, y in zip(first[0]["stats"], ref)]
-    check(len(loss_err) == 3 and max(loss_err) <= BF16_TOL
+    check(len(loss_err) == PAR_STEPS and max(loss_err) <= BF16_TOL
           and max(gnorm_err) <= PATH_LP_TOL,
           f"tp2 x dp2 against world size 1: loss err {loss_err}, grad "
           f"norm rel err {gnorm_err}")
     leaves, iteration = check_parallel_checkpoint(
         ck, [run["fingerprints"] for run in first])
-    check(iteration == 3, f"the save is at iteration {iteration}")
+    check(iteration == PAR_STEPS, f"the save is at iteration {iteration}")
     t0 = time.perf_counter()
-    ws1 = finetune_run(base + ["--load", str(ck)])
+    ws1 = finetune_run(base + ["--load", str(ck)] + after)
     ws1_s = time.perf_counter() - t0
     step4 = {"tp2_dp2_resumed": resumed[0]["stats"][0]["loss"],
              "world1_resumed": ws1["stats"][0]["loss"],
-             "world1_uninterrupted": ref[3]["loss"]}
-    check(ws1["resumed"] == (3, 12) and abs(
+             "world1_uninterrupted": ref[PAR_STEPS]["loss"]}
+    check(ws1["resumed"] == (PAR_STEPS, FT_MICRO * PAR_STEPS) and abs(
         step4["world1_resumed"] - step4["tp2_dp2_resumed"]) <= BF16_TOL
         and abs(step4["world1_resumed"] - step4["world1_uninterrupted"])
-        <= BF16_TOL, f"step 4 after the resume: {step4}")
-    ckpt_bytes = dir_bytes(os.path.join(ck, "iter_0000003"))
+        <= BF16_TOL, f"step {PAR_STEPS + 1} after the resume: {step4}")
+    ckpt_bytes = dir_bytes(os.path.join(ck, f"iter_{PAR_STEPS:07d}"))
     shutil.rmtree(ck)
     ms = [s["ms"] for s in first[0]["steps"]]
     peak = [run["peak_gb"] for run in first]
@@ -5149,9 +5613,9 @@ def finetune_parallel(kernels, data, one):
         collectives_staged_through_host=first[0]["parallel"]["staged"],
         layers=FT_LAYERS, seq=FT_SEQ, global_batch=FT_MICRO,
         losses=[x["loss"] for x in first[0]["stats"]],
-        losses_world1=[y["loss"] for y in ref[:3]],
+        losses_world1=[y["loss"] for y in ref[:PAR_STEPS]],
         grad_norms=[x["grad_norm"] for x in first[0]["stats"]],
-        grad_norms_world1=[y["grad_norm"] for y in ref[:3]],
+        grad_norms_world1=[y["grad_norm"] for y in ref[:PAR_STEPS]],
         loss_abs_err=loss_err, grad_norm_rel_err=gnorm_err,
         tol={"loss": BF16_TOL, "grad_norm_rel": PATH_LP_TOL},
         step_ms=ms, step_ms_label="gloo through the host, one card shared "
@@ -5159,7 +5623,8 @@ def finetune_parallel(kernels, data, one):
         step_ms_world1=[s["ms"] for s in one["steps"]],
         peak_gb_per_rank=peak, peak_gb_sum=sum(peak),
         launches_per_rank=[run["launches"] for run in first],
-        expected_launches_per_rank=parallel_expected_launches(3),
+        expected_launches_per_rank=parallel_expected_launches(PAR_STEPS),
+        steps_before_save=PAR_STEPS,
         checkpoint_leaves_checked=leaves, checkpoint_bytes=ckpt_bytes,
         checkpoint_form="per-rank pieces (model/, optim/, done/ a rank)",
         saves_blocked_ms=first[0]["saves"], commits_s=first[0]["commits"],
@@ -5169,7 +5634,7 @@ def finetune_parallel(kernels, data, one):
         save_s_rank0=first[0]["clock_s"].get("saves"),
         commit_wait_s_rank0=first[0]["clock_s"].get("commit_wait"),
         load_s_per_rank=[run["loads"] for run in resumed],
-        load_s_world1=ws1["loads"], step4_losses=step4,
+        load_s_world1=ws1["loads"], resumed_step_losses=step4,
         ranks_wall_s=ranks_s, world1_resume_wall_s=ws1_s,
         rank0_run_wall_s=[first[0]["wall_s"], resumed[0]["wall_s"]],
         rank0_clock_s=[first[0]["clock_s"], resumed[0]["clock_s"]],
@@ -5191,7 +5656,7 @@ def finetune_parallel(kernels, data, one):
 OVERLAP_FLAGS = ["--use_distributed_optimizer", "--overlap_grad_reduce",
                  "--overlap_param_gather", "--distributed_backend", "gloo"]
 OVERLAP_RANKS = 2
-OVERLAP_STEPS = 3
+OVERLAP_STEPS = 2
 
 
 def overlap_recipe(data):
@@ -6304,6 +6769,8 @@ def smoke(args) -> int:
     free_cuda()
     tp1 = timed("launcher_llama", launcher_llama, kernels, converted,
                 weights)
+    seconds |= {f"launcher_fleet_{k}": round(v, 1) for k, v in timed(
+        "launcher_fleet", launcher_fleet, kernels, tp1, weights).items()}
     del weights
     timed("serving_tp", serving_tp_phase, kernels, tp1)
     timed("launcher_falcon", launcher_falcon, kernels, args.init_std)

@@ -100,10 +100,31 @@ engine, whose rounds capture as on the model's device); `replica_id`
 tags the engine: the serve thread's name and `serve_replica_id` in
 `counters()`.
 
-Left out (the constructor raises ValueError naming the slice when one is
-set to a non-default value): the KV export/import hand-off, the cost
-registry and perf sentinel, the flight recorder, span tracer and
-profiler hook, Prometheus histograms.
+Telemetry (JAX :1141-1319, the telemetry package): a span tracer
+(`trace_dir`, exported as Chrome trace JSON at `stop()`), a flight
+recorder that is always on (its ring dumped into `record_dir` when the
+serve loop dies, served at GET /flight_record), the TTFT, decode-round
+and queue-wait histograms behind the Prometheus /metrics, an opt-in cost
+registry (`cost_registry`: FLOPs and bytes per round kind and bucket,
+counted once when the bucket is minted, telemetry/costs.py, and the
+modeled backlog the router places requests by) with the card's spec
+(`chip_spec`, telemetry/chipspec.py), the perf sentinel on the decode
+rounds' ms per advance (`perf_sentinel_*`), and `request_profile`, a
+`torch.profiler` trace of the next N rounds. A round's wall runs from
+its start to its tokens on the host (a replay returns before the card
+finishes, so nothing times a launch alone). All of it is host
+bookkeeping: a telemetry-on round runs the same kernels, and with every
+knob off `counters()` keeps the schema it had without telemetry.
+
+The KV hand-off (JAX :2664-2890): `export_prefix(prompt)` gathers the
+full prompt pages a prefix-cache hit maps into a host payload (CPU
+tensors, int8 data and scales together), `import_prefix(payload)` writes
+them into free pages of this engine's existing pools in place (the
+captured rounds read the pools by address) and registers the chain in
+its prefix cache. Both run on the serve thread between rounds (or
+inline without one), as plain torch gathers and scatters of whole pages
+(`index_select` / `index_copy_`; XLA ran them outside Pallas). At tp > 1
+they raise (ROADMAP.md A5).
 """
 
 from __future__ import annotations
@@ -112,6 +133,7 @@ import collections
 import contextlib
 import functools
 import logging
+import os
 import queue as queue_mod
 import threading
 import time
@@ -137,26 +159,15 @@ from megatron_llm_tpu_torch.parallel.mesh import (
     use_mesh,
 )
 from megatron_llm_tpu_torch.parallel.sharding import shard_decode_params
+from megatron_llm_tpu_torch.telemetry import (
+    NULL_TRACER,
+    FlightRecorder,
+    Histogram,
+    SpanTracer,
+    render_prometheus,
+)
 
 _logger = logging.getLogger(__name__)
-
-# knob -> (default, the later slice that ports it)
-_LEFT_OUT = {
-    "timers": (None, "observability"),
-    "trace_dir": (None, "observability"),
-    "record_dir": (None, "observability"),
-    "flight_recorder_size": (4096, "observability"),
-    "cost_registry": (False, "observability"),
-    "chip_spec": (None, "observability"),
-    "perf_sentinel_ksigma": (0.0, "observability"),
-    "perf_sentinel_window": (64, "observability"),
-    "perf_sentinel_patience": (8, "observability"),
-}
-
-
-def _not_ported(what: str, slice_name: str) -> ValueError:
-    return ValueError(f"{what} is not ported yet: it belongs to the "
-                      f"{slice_name} slice of the engine (ROADMAP.md A2)")
 
 
 # seconds an idle tp leader waits before it sends the followers a no-op
@@ -164,6 +175,15 @@ HEARTBEAT_S = 1.0
 # the device calls of `_dispatch`: the round kinds, whose first output is
 # the round's chosen tokens, and the rest
 _ROUNDS = ("step", "mixed", "spec")
+
+
+def _leaves(tree):
+    """The tensors of a decode tree (dicts, tuples, tensors)."""
+    if isinstance(tree, dict):
+        return [x for v in tree.values() for x in _leaves(v)]
+    if isinstance(tree, tuple):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
 
 
 def _to_device(tree, device):
@@ -445,6 +465,31 @@ def _page_copy(pools, src: int, dst: int) -> None:
             pool[dst].copy_(pool[src])
 
 
+def _page_export(pools, ids: torch.Tensor):
+    """The donor half of the KV hand-off (JAX `_make_page_export_fn`):
+    pages `ids` of every layer's K and V pool and, for int8 pools, scale
+    pool, gathered into (n, page_size, ...) blocks on the device; the
+    pools are only read."""
+    return tuple(tuple(pool.index_select(0, ids) for pool in group)
+                 for group in pools)
+
+
+def _page_import(pools, ids: torch.Tensor, rows) -> None:
+    """The receiver half (JAX `_make_page_import_fn`): the payload's
+    blocks written into pages `ids` of every pool in place, data and
+    scales together."""
+    for group, blocks in zip(pools, rows):
+        for pool, block in zip(group, blocks):
+            pool.index_copy_(0, ids, block)
+
+
+# the cost registry's names of the round kinds (the JAX engine's
+# compile-contract names)
+_COST_NAMES = {_decode_step: "engine.decode_scan",
+               _mixed_step: "engine.mixed_step",
+               _spec_step: "engine.spec_verify"}
+
+
 @dataclass
 class EngineRequest:
     """One queued or running generation. `tokens` grows to prompt +
@@ -454,6 +499,9 @@ class EngineRequest:
     rid: int
     prompt: List[int]
     tokens_to_generate: int
+    # the replica whose engine owns this request (None on an untagged
+    # engine): the router routes cancel() by it, the SSE `id:` carries it
+    replica_id: Optional[int] = None
     greedy: bool = True
     top_k: int = 0
     top_p: float = 0.0
@@ -519,6 +567,14 @@ class _Slot:
     # lookup never matches the occurrence it extends)
     bigram: dict = field(default_factory=dict)
     bigram_next: int = 0
+    # the retire event's cost record (cost registry on): the round the
+    # slot admitted at, the prompt offset its prefill started from (cache
+    # hits never compute), the prompt tokens prefilled on the device, and
+    # the draft tokens speculative rounds booked
+    admit_round: int = 0
+    prefill_start: int = 0
+    prefilled: int = 0
+    spec_accepted: int = 0
     # sliding window: logical pages [reclaimed, mapped) hold physical
     # pages (windowed slots allocate lazily and top up before each round
     # writes past the frontier); [0, reclaimed) fell out of every live
@@ -554,9 +610,14 @@ class DecodeEngine:
     first use), `serving_tp` (tensor-parallel ranks; every rank of the
     group builds the engine, tp rank 0 serves and the others call
     `follow()`: the module doc), `devices` (tp rank r's device; default
-    the model's), `replica_id` (the engine's tag). Every knob of the JAX
-    engine that the port leaves out raises ValueError when set to a
-    non-default value.
+    the model's), `replica_id` (the engine's tag: serve thread name,
+    `serve_replica_id`, the SSE id, every span and flight-record event);
+    the telemetry knobs `timers` (the gauges' sink, `export_gauges`),
+    `trace_dir`, `record_dir` (default trace_dir), `flight_recorder_size`,
+    `cost_registry`, `chip_spec` (a chipspec table key; default: detect
+    from the engine's card), `perf_sentinel_ksigma` (0 off),
+    `perf_sentinel_window`, `perf_sentinel_patience` (the module doc and
+    the JAX engine's knob list).
 
     Rounds run as CUDA graphs on a CUDA device (inference/
     graph_capture.py): each round kind and bucket, (horizon,
@@ -585,14 +646,15 @@ class DecodeEngine:
                  serving_tp: int = 1,
                  devices=None,
                  replica_id: Optional[int] = None,
-                 **left_out):
-        for name, value in left_out.items():
-            if name not in _LEFT_OUT:
-                raise TypeError(f"DecodeEngine got an unexpected keyword "
-                                f"argument {name!r}")
-            default, slice_name = _LEFT_OUT[name]
-            if value != default:
-                raise _not_ported(f"{name}={value!r}", slice_name)
+                 timers=None,
+                 trace_dir: Optional[str] = None,
+                 record_dir: Optional[str] = None,
+                 flight_recorder_size: int = 4096,
+                 cost_registry: bool = False,
+                 chip_spec: Optional[str] = None,
+                 perf_sentinel_ksigma: float = 0.0,
+                 perf_sentinel_window: int = 64,
+                 perf_sentinel_patience: int = 8):
         if kv_dtype not in ("bf16", "int8"):
             raise ValueError(f"kv_dtype must be 'bf16' (the model compute "
                              f"dtype) or 'int8' (quantized pages), got "
@@ -691,12 +753,15 @@ class DecodeEngine:
         self.termination_id = termination_id
         self.vocab_size = vocab_size
         self.warmup_compile = bool(warmup_compile)
+        self.timers = timers
 
         # the int8 decode tree is built once and serves every round kind;
         # a tp engine keeps the (h, 2, f) GLU and holds its rank's slice
         dec = model.prepare_decode_params(
             params, quantize_int8=quantize_weights,
             flatten_glu=self.serving_tp == 1)
+        # the whole tree's parameter count (the cost records' 2 N)
+        self._n_dec = sum(x.numel() for x in _leaves(dec))
         if self.serving_tp > 1:
             dec = shard_decode_params(dec, self.cfg, self.serving_tp,
                                       self.tp_rank)
@@ -760,6 +825,97 @@ class DecodeEngine:
         # per-round accounting: prefill/decode token split and wall ms
         self._round_log: collections.deque = collections.deque(maxlen=4096)
 
+        # -- the cost registry and the perf sentinel (JAX :1141-1188) -------
+        self.costs = None
+        self.chip = None
+        if cost_registry:
+            from megatron_llm_tpu_torch.telemetry.chipspec import detect_chip
+            from megatron_llm_tpu_torch.telemetry.costs import CostRegistry
+
+            self.chip = detect_chip(devices=[self.device],
+                                    override=chip_spec)
+            self.costs = CostRegistry(chip=self.chip)
+        # the per-request cost record's analytic decode FLOPs: 2 N a
+        # computed token over the whole decode tree and 4 L h a cached
+        # position (telemetry/chipspec.decode_flops_per_token)
+        self._cost_fpt_linear = 0.0
+        self._cost_attn_coeff = 0.0
+        if self.costs is not None:
+            self._cost_fpt_linear = 2.0 * self._n_dec
+            self._cost_attn_coeff = (4.0 * self.cfg.num_layers
+                                     * self.cfg.hidden_size)
+        self._modeled_device_ms = 0.0
+        self._measured_round_ms = 0.0
+        self._modeled_gflops = 0.0
+        self._page_rounds = 0
+        self._sentinel = None
+        if perf_sentinel_ksigma > 0:
+            from megatron_llm_tpu_torch.telemetry.sentinel import PerfSentinel
+
+            self._sentinel = PerfSentinel(
+                k_sigma=perf_sentinel_ksigma,
+                window=max(perf_sentinel_window, 4),
+                patience=max(perf_sentinel_patience, 1),
+                recorder=None, name="decode_round_ms")
+        # the KV hand-off's inbox: export and import run on the serve
+        # thread between rounds (the prefix cache and the pools are the
+        # serve thread's), or inline when no serve loop runs
+        self._xfers: collections.deque = collections.deque()
+        self._transfers_out = 0
+        self._transfer_pages_out = 0
+        self._transfers_in = 0
+        self._transfer_pages_in = 0
+
+        # -- telemetry (JAX :1260-1318) -------------------------------------
+        self.trace_dir = trace_dir
+        self.record_dir = record_dir if record_dir is not None else trace_dir
+        self.tracer = (SpanTracer(enabled=True) if trace_dir
+                       else NULL_TRACER)
+        if replica_id is not None:
+            self.tracer.set_context(replica=replica_id)
+        self.recorder = FlightRecorder(
+            flight_recorder_size,
+            base=None if replica_id is None else {"replica": replica_id})
+        if self._sentinel is not None:
+            self._sentinel.recorder = self.recorder
+        self._hists = {
+            "serve_ttft_ms": Histogram(
+                "serve_ttft_ms", help_text="submit -> first generated "
+                "token, per request"),
+            "serve_decode_round_ms": Histogram(
+                "serve_decode_round_ms", help_text="wall ms per decode-"
+                "token advance per round (mixed rounds included: the "
+                "chunked-prefill interference distribution)"),
+            "serve_queue_wait_ms": Histogram(
+                "serve_queue_wait_ms", help_text="submit -> slot "
+                "admission, per request"),
+        }
+        self._rounds = 0  # rounds that did work (the telemetry clock)
+        # the fault hook chaos installs (inference/chaos.py): called at
+        # the top of every round inside its timed window, so an injected
+        # stall rides the wall the sentinel measures and an injected
+        # raise kills the serve loop through its poison path
+        self._fault_hook = None
+        # the profiler hook (POST /profile): armed, started before the
+        # next round, stopped after N rounds that did work
+        self._profile_pending: Optional[tuple] = None
+        self._profile_active = False
+        self._profile_left = 0
+        self._profile_dir: Optional[str] = None
+        self._profiler = None
+        self._profile_path: Optional[str] = None
+        if self.costs is not None:
+            # the copy, export and import cost: counted once here, on
+            # the dead null page (JAX :1197-1212)
+            null = torch.zeros(1, dtype=torch.long, device=self.device)
+            with torch.inference_mode():
+                self._costed("engine.page_copy", (),
+                             lambda: _page_copy(self._pools, 0, 0))
+                rows = self._costed("engine.page_export", (),
+                                    lambda: _page_export(self._pools, null))
+                self._costed("engine.page_import", (),
+                             lambda: _page_import(self._pools, null, rows))
+
     def _dev(self, x, dtype=None) -> torch.Tensor:
         """Host operand -> a fresh device tensor (a copy, so the host
         mirrors can change under it; the copy does not wait for the
@@ -811,6 +967,7 @@ class DecodeEngine:
         req = EngineRequest(
             rid=-1, prompt=list(prompt),
             tokens_to_generate=tokens_to_generate,
+            replica_id=self.replica_id,
             greedy=(top_k == 1), top_k=top_k, top_p=top_p,
             temperature=temperature, seed=seed,
             return_log_probs=return_log_probs,
@@ -827,6 +984,11 @@ class DecodeEngine:
             self._next_rid += 1
             self._queue.append(req)
             self._work.notify()
+        # the request id is the correlation key of the SSE `id:`, the
+        # server's error logs, the spans and these events
+        self.recorder.record(
+            "submit", rid=req.rid, prompt_tokens=len(req.prompt),
+            tokens_to_generate=tokens_to_generate, stream=stream)
         return req
 
     @staticmethod
@@ -896,8 +1058,14 @@ class DecodeEngine:
                     self._prefix.acquire(match)
                 if len(self._free_pages) < need_new \
                         and self._prefix is not None:
-                    self._free_pages.extend(self._prefix.evict(
-                        need_new - len(self._free_pages)))
+                    evicted = self._prefix.evict(
+                        need_new - len(self._free_pages))
+                    if evicted:
+                        self.tracer.instant("prefix_evict", rid=req.rid,
+                                            pages=len(evicted))
+                        self.recorder.record("prefix_evict", rid=req.rid,
+                                             pages=len(evicted))
+                    self._free_pages.extend(evicted)
                 if len(self._free_pages) < need_new:
                     if match is not None:
                         self._prefix.unacquire(match)
@@ -919,6 +1087,10 @@ class DecodeEngine:
             slot.bigram = {}
             slot.bigram_next = 0
             slot.forced = collections.deque()
+            slot.admit_round = self._rounds
+            slot.prefill_start = 0
+            slot.prefilled = 0
+            slot.spec_accepted = 0
             req.tokens = list(req.prompt)
             if self.prefill_chunk_tokens:
                 matched = 0
@@ -927,32 +1099,85 @@ class DecodeEngine:
                     if match.cow_src is not None:
                         # the divergent page starts as a private replica
                         # of the shared one; prefill resumes inside it
-                        self._dispatch("copy", (match.cow_src,
-                                                pages[match.full_pages]))
+                        with self.tracer.span(
+                                "cow_copy", rid=req.rid, src=match.cow_src,
+                                dst=pages[match.full_pages]):
+                            self._dispatch("copy", (match.cow_src,
+                                                    pages[match.full_pages]))
                         self._prefix.release_page(match.cow_src)
                         self._prefix.cow_copies += 1
                 if self._prefix is not None:
                     self._prefix.note(len(req.prompt), matched)
                 slot.prefill_pos = matched
+                slot.prefill_start = matched
                 self._lengths[si] = matched
             else:
                 plen = bucket_prefill_len(len(req.prompt))
-                plp = self._dispatch("prefill", (si,), {
-                    "tokens": np.asarray([req.prompt[:plen]], np.int64),
-                    "pt_row": self._pt[si].copy()})
+                with self.tracer.span("prefill_bucket", rid=req.rid,
+                                      slot=si, tokens=plen):
+                    plp = self._dispatch("prefill", (si,), {
+                        "tokens": np.asarray([req.prompt[:plen]], np.int64),
+                        "pt_row": self._pt[si].copy()})
                 self._lengths[si] = plen
                 slot.prefill_pos = len(req.prompt)
                 slot.forced = collections.deque(req.prompt[plen:])
+                slot.prefilled = plen
                 self._prefill_tokens += plen
                 prefilled += plen
                 if req.return_log_probs:
                     req.log_probs = plp
             req.t_admit = time.perf_counter()
+            # queue wait: a span from the request's own stamps, and the
+            # histogram behind the Prometheus exposition
+            wait_ms = (req.t_admit - req.t_submit) * 1e3
+            self.tracer.complete("queue_wait", req.t_submit, req.t_admit,
+                                 rid=req.rid, slot=si)
+            self._hists["serve_queue_wait_ms"].observe(wait_ms)
+            self.recorder.record(
+                "admit", rid=req.rid, slot=si,
+                queue_wait_ms=round(wait_ms, 3),
+                prefill_start=slot.prefill_pos, pages=need)
             self._admitted += 1
         return prefilled
 
+    def _request_cost(self, si: int) -> Optional[dict]:
+        """The per-request cost record of the retire event (cost registry
+        on; JAX :1694-1728): host arithmetic over the slot's counters and
+        the length mirror. `modeled_mflops` is the analytic decode model
+        over every position computed past the cache hit, plus the
+        attention integral over the context's growth: a modeled number,
+        not a measurement."""
+        if self.costs is None:
+            return None
+        slot = self._slots[si]
+        req = slot.req
+        final_len = int(self._lengths[si])
+        start = slot.prefill_start
+        computed = max(final_len - start, 0)
+        rounds_held = self._rounds - slot.admit_round + 1
+        pages = len(slot.pages)
+        modeled = (self._cost_fpt_linear * computed
+                   + 0.5 * self._cost_attn_coeff
+                   * (final_len * final_len - start * start))
+        return {
+            "prompt_tokens": len(req.prompt),
+            "cached_tokens": start,
+            "prefill_tokens": slot.prefilled,
+            "decode_tokens": slot.generated,
+            "spec_accepted": slot.spec_accepted,
+            "rounds_held": rounds_held,
+            "pages": pages,
+            "page_rounds": pages * rounds_held,
+            "modeled_mflops": round(modeled / 1e6, 3),
+        }
+
     def _retire(self, si: int):
         slot = self._slots[si]
+        # the cost record first: it reads what this method resets
+        cost = self._request_cost(si)
+        if cost is not None:
+            self._modeled_gflops += cost["modeled_mflops"] / 1e3
+            self._page_rounds += cost["page_rounds"]
         if self._prefix is None:
             self._free_pages.extend(slot.pages)
         else:
@@ -971,6 +1196,13 @@ class DecodeEngine:
         slot.req = None
         req.t_done = time.perf_counter()
         self._retired += 1
+        self.tracer.instant("retire", rid=req.rid, slot=si,
+                            generated=slot.generated,
+                            error=req.error is not None)
+        self.recorder.record("retire", rid=req.rid, slot=si,
+                             generated=slot.generated, error=req.error,
+                             **({"cost": cost} if cost is not None
+                                else {}))
         self._finish(req)
 
     # -- sliding-window pages ------------------------------------------------
@@ -1043,8 +1275,11 @@ class DecodeEngine:
                 if self._prefix is None or not self._prefix.release(pg):
                     self._free_pages.append(pg)
                 self._window_reclaimed += 1
+            n = dead - s.reclaimed
             s.reclaimed = dead
             s.registered = max(s.registered, dead)
+            self.tracer.instant("window_reclaim", rid=s.req.rid, slot=si,
+                                pages=n)
 
     # -- the rounds --------------------------------------------------------
 
@@ -1070,8 +1305,12 @@ class DecodeEngine:
         self._tokens_out += 1
         if s.generated == 1:
             r.t_first = now if now is not None else time.perf_counter()
+            ttft = (r.t_first - r.t_submit) * 1e3
             with self._lock:  # counters() sorts this window concurrently
-                self._ttft_ms.append((r.t_first - r.t_submit) * 1e3)
+                self._ttft_ms.append(ttft)
+            self._hists["serve_ttft_ms"].observe(ttft)
+            self.tracer.instant("first_token", rid=r.rid,
+                                ttft_ms=round(ttft, 3))
         hit_eod = (r.use_eod_for_early_termination
                    and self.termination_id is not None
                    and tok == self.termination_id)
@@ -1097,6 +1336,8 @@ class DecodeEngine:
                        f"{r.deadline_s} while queued")
             r.timed_out = True
             self._timed_out += 1
+            self.recorder.record("timeout_queued", rid=r.rid,
+                                 deadline_s=r.deadline_s)
             self._finish(r)
         for i, s in enumerate(self._slots):
             r = s.req
@@ -1126,33 +1367,97 @@ class DecodeEngine:
         deadlines and cancels, admit, then one mixed round while any slot
         is admitting, else a speculative round when a slot has a draft,
         else one decode round; after a round, give back the pages out of
-        every live window. Returns False when there was nothing to do."""
+        every live window. Returns False when there was nothing to do.
+        It also keeps the telemetry clock (JAX :1977-2004): the profiler
+        hook starts before and stops after the requested rounds, and
+        every 256 rounds the flight recorder takes a counters()
+        snapshot."""
+        if self._profile_pending is not None:
+            self._start_profile()
         with torch.inference_mode():
             did = self._step_inner()
         if did:
             self._reclaim_window_pages()
+            self._rounds += 1
+            if self._rounds % 256 == 0:
+                self.recorder.note_counters(self.counters())
+        if self._profile_active:
+            self._tick_profile(did)
         return did
 
     def _step_inner(self) -> bool:
         t0 = time.perf_counter()
+        if self._fault_hook is not None:
+            self._fault_hook(self)
         self._expire_deadlines()
+        did_xfer = self._apply_transfers()
+        admitted_before = self._admitted
+        t_adm = time.perf_counter()
         admit_prefilled = self._admit()
+        if self._admitted != admitted_before:
+            self.tracer.complete(
+                "admit", t_adm, time.perf_counter(),
+                admitted=self._admitted - admitted_before,
+                prefilled_tokens=admit_prefilled)
         if any(s.prefilling for s in self._slots):
-            dec_slots, pf_tokens = self._mixed_round()
-            dt_ms = (time.perf_counter() - t0) * 1e3
+            dec_slots, pf_tokens, chunk_rid, mixed_key = self._mixed_round()
+            t1 = time.perf_counter()
+            dt_ms = (t1 - t0) * 1e3
             with self._lock:  # counters() reads these windows concurrently
                 self._round_log.append({
                     "prefill_tokens": pf_tokens, "decode_steps": 1,
                     "decode_slots": dec_slots, "ms": dt_ms})
                 if dec_slots:
                     self._decode_ms.append(dt_ms)
+            if dec_slots:
+                self._hists["serve_decode_round_ms"].observe(dt_ms)
+            # not fed to the sentinel: a mixed round's wall carries a
+            # prefill chunk, which is interference, not a regression
+            self._note_dispatch("engine.mixed_step", mixed_key, dt_ms)
+            self.tracer.complete(
+                "round.mixed", t0, t1, round=self._rounds, rid=chunk_rid,
+                prefill_tokens=pf_tokens, decode_slots=dec_slots)
+            self.recorder.record(
+                "round.mixed", round=self._rounds, rid=chunk_rid,
+                prefill_tokens=pf_tokens, decode_slots=dec_slots,
+                ms=round(dt_ms, 3))
             return True
         if self.spec_decode_k:
             drafts = self._collect_drafts()
             if drafts:
                 self._spec_round(drafts, t0, admit_prefilled)
                 return True
-        return self._decode_round(t0, admit_prefilled)
+        return self._decode_round(t0, admit_prefilled) or did_xfer
+
+    def _note_dispatch(self, name: str, key, dt_ms: float) -> None:
+        """The modeled-against-measured round accounting behind the
+        serve_dispatch_overhead_pct gauge (JAX :2136-2152): the cost
+        record's roofline device time of the round this call ran against
+        its measured wall. A dict lookup and float adds."""
+        if self.costs is None:
+            return
+        self._measured_round_ms += dt_ms
+        rec = self.costs.record(name, key)
+        if rec is None:
+            return
+        modeled = rec.modeled_seconds(self.chip, n_chips=self.serving_tp)
+        if modeled is not None:
+            self._modeled_device_ms += modeled * 1e3
+
+    def _sentinel_observe(self, ms_per_advance: float) -> None:
+        """Feed the perf sentinel one decode round's ms per advance, the
+        one homogeneous series (JAX :2154-2172); a trip dumps the flight
+        ring as the poison path does."""
+        if self._sentinel is None:
+            return
+        if self._sentinel.observe(ms_per_advance, step=self._rounds):
+            self.recorder.note_counters(self.counters())
+            self.recorder.dump(
+                self.record_dir, self._name("perf-regression"),
+                extra={"trip": self._sentinel.trips,
+                       "threshold_ms": round(
+                           self._sentinel.last_threshold, 3),
+                       "round": self._rounds})
 
     def _sampling_arrays(self, idx) -> dict:
         """Per-slot knob arrays for the live slots `idx` (host arrays,
@@ -1183,13 +1488,51 @@ class DecodeEngine:
         model, decode tree, pools and carried logits, captured on the
         engine's stream into its pool with the idle round `null_args` as
         the static buffers' first values (called uncaptured on them under
-        the private `_eager` switch)."""
+        the private `_eager` switch). With the cost registry on, the
+        runner's first eager run (the capture's first warm-up run, or an
+        uncaptured runner's first round) is counted under the JAX
+        engine's name and key of that program."""
+        cost = (_COST_NAMES[step], (static.get("horizon", static.get(
+            "width")), static["all_greedy"]))
         fn = functools.partial(step, self.model, self._dec_params,
                                self._pools, self._last_logits,
                                vocab_size=self.vocab_size, **static)
-        return CapturedFn(fn, null_args, device=self.device,
-                          pool=self._graph_pool, stream=self._graph_stream,
-                          capture=not self._eager)
+        probe = None
+        if self.costs is not None:
+            self.costs.note_mint(*cost)
+            args = sum(np.asarray(v).nbytes for v in null_args.values())
+            probe = functools.partial(self._costed, *cost,
+                                      arg_bytes=self._bound_bytes() + args)
+        runner = CapturedFn(fn, null_args, device=self.device,
+                            pool=self._graph_pool, stream=self._graph_stream,
+                            capture=not self._eager, probe=probe)
+        if probe is not None and runner.captured:
+            self.costs.note_temp(*cost, self._graph_pool_bytes())
+        return runner
+
+    def _costed(self, name: str, key, run, arg_bytes=None):
+        """`run()`, counted into the cost registry under (name, key) the
+        first time that key runs (JAX `_capture_cost`, :1336-1349); just
+        `run()` otherwise."""
+        if self.costs is None or self.costs.has(name, key):
+            return run()
+        return self.costs.capture(name, key, run, arg_bytes=arg_bytes)
+
+    def _bound_bytes(self) -> int:
+        """Bytes every round binds: the decode tree, the pools and the
+        carried logits."""
+        return sum(x.numel() * x.element_size() for x in (
+            *_leaves(self._dec_params), *(t for g in self._pools for t in g),
+            self._last_logits))
+
+    def _graph_pool_bytes(self) -> Optional[int]:
+        """The reserved bytes of this engine's graph pool (the cost
+        records' temp bytes): the allocator's segments of that pool."""
+        if self._graph_pool is None:
+            return None
+        pool = tuple(self._graph_pool)
+        return sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                   if tuple(seg.get("segment_pool_id", ())) == pool)
 
     def _step_fn(self, horizon: int, all_greedy: bool) -> CapturedFn:
         key = (horizon, all_greedy)
@@ -1270,7 +1613,9 @@ class DecodeEngine:
                 w = self.spec_decode_k + 1
                 self._spec_fn(w, all_greedy)(**self._null_spec_args(w))
         if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
+            # this thread's stream, not the device: another replica's
+            # serve thread may be capturing on the same card
+            torch.cuda.current_stream(self.device).synchronize()
 
     # -- the choke point of every device call (tp serving) -------------------
 
@@ -1285,7 +1630,8 @@ class DecodeEngine:
     def _dispatch(self, kind: str, key: tuple = (), args=None):
         """Run one device call of the engine: a round runner ("step",
         "mixed", "spec" with its bucket key), the whole-prompt "prefill",
-        the prefix cache's page "copy", the "warmup" or a "noop". At
+        the prefix cache's page "copy", the KV hand-off's page "export"
+        and "import" (tp = 1 only), the "warmup" or a "noop". At
         tp > 1 the leader first sends the call's descriptor (kind, key
         and host arrays) to the followers, which make the same call on
         their shards."""
@@ -1312,13 +1658,30 @@ class DecodeEngine:
                 return out
             if kind == "prefill":
                 (si,) = key
-                row_logits, plp = _prefill(
-                    self.model, self._dec_params, self._pools,
-                    self._dev(args["tokens"], np.int64),
-                    self._dev(args["pt_row"]), self.page_size)
+                tokens = self._dev(args["tokens"], np.int64)
+                pt_row = self._dev(args["pt_row"])
+                # a bucket's cost is counted at its first run
+                row_logits, plp = self._costed(
+                    "engine.prefill_bucket", tokens.shape[1],
+                    lambda: _prefill(self.model, self._dec_params,
+                                     self._pools, tokens, pt_row,
+                                     self.page_size))
                 self._last_logits[si] = row_logits.float()
                 return plp.cpu().tolist()
-            if kind == "copy":
+            if kind == "export":
+                ids = self._dev(args["ids"], np.int64)
+                return tuple(tuple(b.cpu() for b in group)
+                             for group in _page_export(self._pools, ids))
+            if kind == "import":
+                ids = self._dev(args["ids"], np.int64)
+                rows = tuple(tuple(b.to(self.device) for b in group)
+                             for group in args["rows"])
+                _page_import(self._pools, ids, rows)
+                if self.device.type == "cuda":
+                    # the pages are in place before the next round reads
+                    # them and before the caller hears of it
+                    torch.cuda.current_stream(self.device).synchronize()
+            elif kind == "copy":
                 _page_copy(self._pools, *key)
             elif kind == "warmup":
                 self._warmup_scoped()
@@ -1421,19 +1784,32 @@ class DecodeEngine:
                     s.forced.popleft()  # prompt token, already in tokens
                     continue
                 self._book_token(i, int(chosen[i, t]), now)
-        dt_ms = (time.perf_counter() - t0) * 1e3
+        t1 = time.perf_counter()
+        dt_ms = (t1 - t0) * 1e3
         with self._lock:
             self._round_log.append({
                 "prefill_tokens": prefill_tokens, "decode_steps": hor,
                 "decode_slots": len(live), "ms": dt_ms})
             self._decode_ms.append(dt_ms / hor)
+        self._hists["serve_decode_round_ms"].observe(dt_ms / hor)
+        self._note_dispatch("engine.decode_scan", (hor, all_greedy), dt_ms)
+        self._sentinel_observe(dt_ms / hor)
+        self.tracer.complete("round.decode_scan", t0, t1,
+                             round=self._rounds, horizon=hor,
+                             decode_slots=len(live),
+                             prefill_tokens=prefill_tokens)
+        self.recorder.record("round.decode_scan", round=self._rounds,
+                             horizon=hor, decode_slots=len(live),
+                             prefill_tokens=prefill_tokens,
+                             ms=round(dt_ms, 3))
         return True
 
     def _mixed_round(self):
         """One mixed round: the oldest admitting slot (by rid) contributes
         a prompt chunk at its saved offset, every fully prefilled live
         slot one decode token, other admitting slots sit idle. Returns
-        (decode slots advanced, prefill tokens consumed)."""
+        (decode slots advanced, prefill tokens consumed, the chunk
+        request's rid (the round's span key), the runner's key)."""
         n = self.slots
         pref = [i for i, s in enumerate(self._slots) if s.prefilling]
         ci = min(pref, key=lambda i: self._slots[i].req.rid)
@@ -1481,6 +1857,7 @@ class DecodeEngine:
             if ln > 1:
                 r.log_probs.extend(float(x) for x in chunk_lps[:ln - 1])
         s_c.prefill_pos += ln
+        s_c.prefilled += ln
         self._lengths[ci] += ln
         self._register_prefix(ci)
 
@@ -1491,7 +1868,7 @@ class DecodeEngine:
             if r.return_log_probs:
                 r.log_probs.append(float(first_lp[i]))
             self._book_token(i, int(first[i]), now)
-        return len(dec), ln
+        return len(dec), ln, s_c.req.rid, (width, all_greedy)
 
     # -- speculative decoding ----------------------------------------------
 
@@ -1608,10 +1985,13 @@ class DecodeEngine:
             emit += [(int(gt[i, j]), float(gt_lp[i, j]) if want_lp else 0.0)
                      for j in range(a)]
             booked = 0
-            for tok, lp in emit:
+            for j, (tok, lp) in enumerate(emit):
                 self._lengths[i] += 1
                 if r.return_log_probs:
                     r.log_probs.append(lp)
+                if j > 0:
+                    # before _book_token, which may retire the slot
+                    s.spec_accepted += 1
                 booked += 1
                 if self._book_token(i, tok, now):
                     break  # eod or budget: the chunk's tail is not booked
@@ -1619,15 +1999,27 @@ class DecodeEngine:
             # acceptance counts only the draft tokens actually booked
             self._spec_accepted += booked - 1
 
-        dt_ms = (time.perf_counter() - t0) * 1e3
+        t1 = time.perf_counter()
+        dt_ms = (t1 - t0) * 1e3
+        per_advance = dt_ms * len(live) / max(emitted_total, 1)
         with self._lock:  # counters() reads these windows concurrently
             self._round_log.append({
                 "prefill_tokens": prefill_tokens, "decode_steps": 1,
                 "decode_slots": len(live), "ms": dt_ms,
                 "spec_emitted": emitted_total})
             # per decode-token advance: emitted / live tokens a slot
-            self._decode_ms.append(dt_ms * len(live)
-                                   / max(emitted_total, 1))
+            self._decode_ms.append(per_advance)
+        self._hists["serve_decode_round_ms"].observe(per_advance)
+        self._note_dispatch("engine.spec_verify", (width, all_greedy),
+                            dt_ms)
+        # not fed to the sentinel: its ms per advance moves with the
+        # accept rate, which is not a regression of the card
+        self.tracer.complete("round.spec_verify", t0, t1,
+                             round=self._rounds, decode_slots=len(live),
+                             emitted=emitted_total, drafted=len(drafts))
+        self.recorder.record("round.spec_verify", round=self._rounds,
+                             decode_slots=len(live), emitted=emitted_total,
+                             drafted=len(drafts), ms=round(dt_ms, 3))
 
     def _register_prefix(self, si: int) -> None:
         """Register every completed full prompt page of slot `si` in the
@@ -1663,11 +2055,348 @@ class DecodeEngine:
         self._free_pages.extend(self._prefix.evict(self.num_pages))
         self._prefix = PrefixCache(self.page_size)
 
+    # -- the KV page hand-off between replicas (JAX :2664-2887) -------------
+    # A prefill replica exports the full-page prefix of a prompt it has
+    # prefilled as a host payload; a decode replica imports it into free
+    # pages and registers the chain in its prefix cache, so the next
+    # submit() of that prompt admits as a prefix hit and prefills nothing
+    # it received. Both run through the inbox `_xfers` on the serve thread
+    # (the prefix cache and the pools are the serve thread's), or inline
+    # when no serve thread runs.
+
+    def _check_handoff(self, what: str) -> None:
+        if self._prefix is None:
+            raise ValueError(
+                f"{what} needs prefix_cache=True: " + (
+                    "the transfer ships the cache's registered pages"
+                    if what == "export_prefix" else
+                    "transferred pages land as cache entries"))
+        if self.serving_tp > 1:
+            raise ValueError(
+                f"{what} at serving_tp={self.serving_tp} is not ported: "
+                f"the hand-off of group-sharded pools is queued "
+                f"(ROADMAP.md A5)")
+
+    def export_prefix(self, prompt: List[int]):
+        """The cached full-page prefix of `prompt` as a host payload dict
+        (JAX :2676-2691): its tokens, page count, page size, pool dtype
+        and per layer the (pages, page_size, g, d) K and V blocks and,
+        for int8 pools, the scale blocks, as CPU tensors. None when this
+        engine's prefix cache holds no full page of it. The donor's
+        pages stay registered and unreferenced (an export is a read)."""
+        self._check_handoff("export_prefix")
+        prompt = [int(t) for t in prompt]
+        if not prompt:
+            raise ValueError("export_prefix: empty prompt")
+        return self._run_transfer({"kind": "export", "prompt": prompt})
+
+    def import_prefix(self, payload):
+        """Write an exported payload into free pages of this engine's
+        pools (evicting idle cache entries if short) and register the
+        chain in its prefix cache (JAX :2693-2708). Returns {'pages':
+        shipped, 'registered': retained}, or False when the pool stays
+        short after eviction (the caller prefills locally). A payload of
+        another geometry or dtype raises ValueError."""
+        self._check_handoff("import_prefix")
+        self._check_payload(payload)
+        return self._run_transfer({"kind": "import", "payload": payload})
+
+    def _check_payload(self, payload) -> None:
+        """The receiver's compatibility gate, on the caller's thread, so
+        a bad payload fails fast instead of poisoning the serve loop
+        (JAX :2710-2751)."""
+        if not isinstance(payload, dict):
+            raise ValueError("import_prefix: payload must be the dict "
+                             "export_prefix produced")
+        n = int(payload.get("pages", 0))
+        ps = int(payload.get("page_size", 0))
+        toks = payload.get("tokens") or []
+        if n < 1 or n > self.max_pages_per_slot:
+            raise ValueError(
+                f"import_prefix: {n} pages outside [1, "
+                f"{self.max_pages_per_slot}] for this engine")
+        if ps != self.page_size:
+            raise ValueError(
+                f"import_prefix: payload page_size {ps} != engine "
+                f"page_size {self.page_size}")
+        if len(toks) != n * ps:
+            raise ValueError(
+                f"import_prefix: {len(toks)} prefix tokens for {n} "
+                f"pages of {ps}")
+        if str(payload.get("dtype")) != self.kv_pool_dtype():
+            raise ValueError(
+                f"import_prefix: payload kv dtype "
+                f"{payload.get('dtype')} != pool "
+                f"{self.kv_pool_dtype()} — a cross-dtype splice would "
+                f"decode garbage")
+        for name, pools in zip(("k", "v", "ks", "vs"), self._pools):
+            rows = payload.get(name) or []
+            if len(rows) != len(pools):
+                raise ValueError(
+                    f"import_prefix: {len(rows)} '{name}' layer blocks "
+                    f"vs {len(pools)} pools (int8 (data, scale) pairs "
+                    f"must travel together)")
+            for i, (r, pool) in enumerate(zip(rows, pools)):
+                if tuple(r.shape[1:]) != tuple(pool.shape[1:]):
+                    raise ValueError(
+                        f"import_prefix: '{name}' layer {i} page shape "
+                        f"{tuple(r.shape[1:])} != pool "
+                        f"{tuple(pool.shape[1:])}")
+
+    def _run_transfer(self, op: dict):
+        """Apply `op` on the serve thread (inbox, wake, wait) or inline
+        when no serve loop runs. The waiter watches the loop's liveness,
+        so a poisoned loop fails the hand-off instead of hanging it."""
+        op["done"] = threading.Event()
+        op["result"] = None
+        op["error"] = None
+        with self._lock:
+            alive = (self._thread is not None and self._running
+                     and self._broken is None)
+            if alive:
+                self._xfers.append(op)
+                self._work.notify()
+        if not alive:
+            with torch.inference_mode():
+                self._apply_transfer(op)
+        else:
+            while not op["done"].wait(timeout=0.05):
+                if self._broken is not None or self._thread is None \
+                        or not self._thread.is_alive():
+                    if not op["done"].is_set():
+                        state = (f"broken: {self._broken}" if self._broken
+                                 else "stopped")
+                        raise RuntimeError(
+                            f"page transfer failed: engine {state}")
+        if op["error"] is not None:
+            raise op["error"]
+        return op["result"]
+
+    def _apply_transfers(self) -> bool:
+        """The serve thread's inbox drain, at the top of every round."""
+        did = False
+        while True:
+            with self._lock:
+                if not self._xfers:
+                    return did
+                op = self._xfers.popleft()
+            self._apply_transfer(op)
+            did = True
+
+    def _fail_transfers(self, msg: str) -> None:
+        while True:
+            with self._lock:
+                if not self._xfers:
+                    return
+                op = self._xfers.popleft()
+            op["error"] = RuntimeError(msg)
+            op["done"].set()
+
+    def _apply_transfer(self, op: dict) -> None:
+        try:
+            if op["kind"] == "export":
+                op["result"] = self._do_export(op["prompt"])
+            else:
+                op["result"] = self._do_import(op["payload"])
+        except Exception as e:  # noqa: BLE001: the waiter re-raises; a
+            # failed transfer never poisons the serve loop
+            op["error"] = e
+        op["done"].set()
+
+    def _do_export(self, prompt: List[int]):
+        match = self._prefix.lookup(prompt)
+        n = match.full_pages
+        if n <= 0:
+            return None
+        # pinned against eviction across the gather
+        self._prefix.acquire(match)
+        try:
+            rows_k, rows_v, rows_ks, rows_vs = self._dispatch(
+                "export", (), {"ids": np.asarray(match.pages[:n],
+                                                 np.int64)})
+            payload = {
+                "tokens": list(prompt[: n * self.page_size]),
+                "pages": n,
+                "page_size": self.page_size,
+                "dtype": self.kv_pool_dtype(),
+                "k": list(rows_k), "v": list(rows_v),
+                "ks": list(rows_ks), "vs": list(rows_vs),
+            }
+        finally:
+            self._prefix.unacquire(match)
+        self._transfers_out += 1
+        self._transfer_pages_out += n
+        self.recorder.record("xfer.export", pages=n,
+                             tokens=len(payload["tokens"]))
+        return payload
+
+    def _do_import(self, payload):
+        n = int(payload["pages"])
+        if n > len(self._free_pages):
+            self._free_pages.extend(
+                self._prefix.evict(n - len(self._free_pages)))
+        if n > len(self._free_pages):
+            return False  # the pool is full of live pages: prefill locally
+        pages = [self._free_pages.pop() for _ in range(n)]
+        rows = tuple(tuple(r if isinstance(r, torch.Tensor)
+                           else torch.from_numpy(np.array(r))
+                           for r in payload[name])
+                     for name in ("k", "v", "ks", "vs"))
+        self._dispatch("import", (), {"ids": np.asarray(pages, np.int64),
+                                      "rows": rows})
+        rejected = self._prefix.insert_chain(
+            [int(t) for t in payload["tokens"]], pages)
+        self._free_pages.extend(rejected)
+        registered = n - len(rejected)
+        self._transfers_in += 1
+        self._transfer_pages_in += registered
+        self.recorder.record("xfer.import", pages=n, registered=registered)
+        return {"pages": n, "registered": registered}
+
+    # -- modeled backlog and admission (JAX :2889-2949) ----------------------
+
+    def modeled_request_flops(self, prompt_tokens: int,
+                              gen_tokens: int, start: int = 0):
+        """Modeled FLOPs to finish one request from cache length `start`:
+        the per-request cost record's integral. None when the cost
+        registry is off."""
+        if self.costs is None:
+            return None
+        final = prompt_tokens + gen_tokens
+        start = min(max(int(start), 0), final)
+        return (self._cost_fpt_linear * (final - start)
+                + 0.5 * self._cost_attn_coeff
+                * (float(final) ** 2 - float(start) ** 2))
+
+    def modeled_backlog_flops(self):
+        """Modeled FLOPs queued on this engine: each queued request from
+        zero, each live slot from its cache length. The router's
+        placement signal; None when the cost registry is off."""
+        if self.costs is None:
+            return None
+        total = 0.0
+        with self._lock:
+            work = [(len(r.prompt), r.tokens_to_generate, 0)
+                    for r in self._queue]
+            for i, s in enumerate(self._slots):
+                r = s.req
+                if r is not None:
+                    work.append((len(r.prompt), r.tokens_to_generate,
+                                 int(self._lengths[i])))
+        for plen, gen, start in work:
+            total += self.modeled_request_flops(plen, gen, start)
+        return total
+
+    def modeled_backlog_seconds(self):
+        """Modeled seconds to drain the backlog at the card's peak:
+        backlog FLOPs / (peak x serving_tp). None without a cost registry
+        and a chip spec."""
+        fl = self.modeled_backlog_flops()
+        if fl is None or self.chip is None:
+            return None
+        dtype = "int8" if self.quantize_weights else "bf16"
+        rate = self.chip.peak_flops_for(dtype) * max(self.serving_tp, 1)
+        return fl / max(rate, 1.0)
+
+    def retry_after_s(self) -> float:
+        """The Retry-After of a 503: the modeled drain time clamped to
+        [1, 60] s; 1 s without a cost registry."""
+        s = self.modeled_backlog_seconds()
+        if s is None:
+            return 1.0
+        return float(min(max(s, 1.0), 60.0))
+
+    # -- the profiler hook (POST /profile; JAX :2006-2071) -------------------
+
+    def request_profile(self, rounds: int,
+                        trace_dir: Optional[str] = None) -> dict:
+        """Arm a `torch.profiler` trace of the next `rounds` rounds that
+        do work: started before the next round the serve loop runs,
+        stopped once `rounds` have completed, written as a Chrome trace
+        (`profile_<tag>_<pid>.json`) into `trace_dir` (default the
+        engine's, else ./profile). On a CUDA engine the trace holds the
+        card's kernels and copies (CUDA activity), on the CPU the host's
+        ops. Failures to start or stop are logged no-ops recorded in the
+        flight ring; a second request while one is armed or running is
+        refused."""
+        if rounds < 1:
+            raise ValueError(f"rounds must be >= 1, got {rounds}")
+        d = trace_dir or self.trace_dir or "./profile"
+        with self._lock:
+            if self._profile_active or self._profile_pending is not None:
+                return {"ok": False,
+                        "error": "a profiler capture is already in "
+                                 "progress"}
+            self._profile_pending = (int(rounds), d)
+            self._work.notify()
+        self.recorder.record("profile_armed", rounds=int(rounds), dir=d)
+        return {"ok": True, "rounds": int(rounds), "trace_dir": d}
+
+    def _start_profile(self) -> None:
+        with self._lock:
+            pending, self._profile_pending = self._profile_pending, None
+            if pending is not None:
+                rounds, d = pending
+                self._profile_active = True
+                self._profile_left = rounds
+                self._profile_dir = d
+        if pending is None:
+            return
+        try:
+            from torch.profiler import ProfilerActivity, profile
+
+            act = (ProfilerActivity.CUDA if self.device.type == "cuda"
+                   else ProfilerActivity.CPU)
+            self._profiler = profile(activities=[act])
+            self._profiler.start()
+        except Exception as e:  # noqa: BLE001: a diagnostic, never a crash
+            self._profiler = None
+            with self._lock:
+                self._profile_active = False
+            _logger.warning("torch.profiler capture unavailable (%r): the "
+                            "/profile request is a no-op", e)
+            self.recorder.record("profile_unsupported", error=repr(e))
+            return
+        self.recorder.record("profile_start", rounds=rounds, dir=d)
+
+    def _tick_profile(self, did: bool) -> None:
+        if did:
+            self._profile_left -= 1
+        if self._profile_left <= 0:
+            self._stop_profile()
+
+    def _stop_profile(self) -> None:
+        if not self._profile_active:
+            return
+        path = None
+        try:
+            if self.device.type == "cuda":
+                torch.cuda.current_stream(self.device).synchronize()
+            self._profiler.stop()
+            os.makedirs(self._profile_dir, exist_ok=True)
+            path = os.path.join(
+                self._profile_dir,
+                f"profile_{self._name('engine')}_{os.getpid()}.json")
+            # the raw kineto events: the parsed event list of a window of
+            # many thousand kernels takes the host minutes
+            self._profiler.profiler.kineto_results.save(path)
+        except Exception as e:  # noqa: BLE001
+            _logger.warning("torch.profiler stop failed: %r", e)
+            path = None
+        self._profiler = None
+        self._profile_path = path
+        with self._lock:
+            self._profile_active = False
+        self.recorder.record("profile_done", dir=self._profile_dir,
+                             path=path)
+        _logger.info("profiler capture complete: %s", path)
+
     # -- serve thread --------------------------------------------------------
 
     def _fail_all(self, msg: str):
         """Fail every queued and in-flight request, so no waiter hangs on
         a dead engine."""
+        self._fail_transfers(msg)
         with self._lock:
             pending = list(self._queue)
             self._queue.clear()
@@ -1705,6 +2434,19 @@ class DecodeEngine:
                     self._broken = f"engine step failed: {e!r}"
                     _logger.exception("serve loop died; failing all "
                                       "in-flight requests")
+                    # the postmortem before _fail_all clears the slots:
+                    # what the engine was doing when it died, by rid
+                    self.recorder.record(
+                        "poison", error=repr(e), round=self._rounds,
+                        queue_depth=len(self._queue),
+                        live_rids=[s.req.rid for s in self._slots
+                                   if s.req is not None])
+                    self.recorder.note_counters(self.counters())
+                    self.recorder.dump(
+                        self.record_dir, self._name("engine-poison"),
+                        extra={"costs": self.costs.snapshot()}
+                        if self.costs is not None else None)
+                    self._stop_profile()
                     self._fail_all(self._broken)
                     self._release()
                     self._running = False
@@ -1713,6 +2455,8 @@ class DecodeEngine:
                     with self._work:
                         if self._running:
                             self._work.wait(timeout=0.05)
+            # a capture still running ends on the thread that started it
+            self._stop_profile()
 
         self._thread = threading.Thread(
             target=loop, daemon=True, name=self._name("decode-engine"))
@@ -1739,6 +2483,16 @@ class DecodeEngine:
             self._work.notify_all()
         self._thread.join()
         self._thread = None
+        # a transfer queued after the loop's last drain would hang its
+        # waiter: sweep the inbox now the loop is gone
+        self._fail_transfers("engine stopped")
+        if self.trace_dir:
+            path = self.tracer.export(os.path.join(
+                self.trace_dir,
+                f"trace_{self._name('engine')}_{os.getpid()}.json"))
+            if path:
+                _logger.info("engine span trace exported to %s "
+                             "(Perfetto / chrome://tracing)", path)
         if not drain:
             self._fail_all("engine stopped")
         self._release()
@@ -1873,8 +2627,62 @@ class DecodeEngine:
             # present only on windowed engines, as in JAX
             out["serve_window_size"] = self.window
             out["serve_window_reclaimed_pages"] = self._window_reclaimed
+        if self.costs is not None:
+            # present only with the registry on (the JAX schema's gate)
+            out["serve_modeled_gflops"] = round(self._modeled_gflops, 3)
+            out["serve_page_rounds"] = self._page_rounds
+            out["serve_cost_records"] = self.costs.captures
+            if self.chip is not None:
+                out["serve_chip_spec"] = self.chip.label()
+            if self._modeled_device_ms > 0 and self._measured_round_ms > 0:
+                out["serve_dispatch_overhead_pct"] = round(
+                    (self._measured_round_ms - self._modeled_device_ms)
+                    / self._measured_round_ms * 100, 2)
+        if self._sentinel is not None:
+            out["serve_perf_regressions"] = self._sentinel.trips
+            out["serve_perf_bad_rounds"] = self._sentinel.bad_total
+        if self._transfers_out or self._transfers_in:
+            # present once this engine has shipped or received pages
+            out["serve_transfers_out"] = self._transfers_out
+            out["serve_transfer_pages_out"] = self._transfer_pages_out
+            out["serve_transfers_in"] = self._transfers_in
+            out["serve_transfer_pages_in"] = self._transfer_pages_in
         if self.serving_tp > 1:
             # the port's: tp rounds are uncaptured (gloo collectives
             # cannot be captured), never a silent switch
             out["serve_captured"] = False
         return out
+
+    def export_gauges(self, timers=None):
+        """Every counter as a gauge of `timers` (default the engine's)."""
+        timers = timers if timers is not None else self.timers
+        if timers is None:
+            return
+        for name, value in self.counters().items():
+            timers.gauge(name, value)
+
+    def histograms(self):
+        """The latency histograms: TTFT, ms per decode advance a round,
+        queue wait."""
+        return list(self._hists.values())
+
+    def prometheus_metrics(self) -> str:
+        """The Prometheus text exposition of GET /metrics under content
+        negotiation: every numeric counter a gauge, string facts one info
+        metric, the histograms, and with the cost registry on its labeled
+        cost samples. The JSON path (counters()) is untouched."""
+        text = render_prometheus(self.counters(), self.histograms())
+        if self.costs is not None:
+            lines = self.costs.prometheus_lines()
+            if lines:
+                text += "\n".join(lines) + "\n"
+        return text
+
+    def flight_record(self) -> dict:
+        """The flight recorder's snapshot with live counters (GET
+        /flight_record), and the cost table with the registry on."""
+        self.recorder.note_counters(self.counters())
+        return self.recorder.snapshot(
+            reason="on-demand",
+            extra={"costs": self.costs.snapshot()}
+            if self.costs is not None else None)

@@ -96,13 +96,19 @@ class CapturedFn:
     warm-up runs and the capture see (the caller passes values that
     change nothing it keeps: the engine's idle rounds). `capture=False`,
     or a CPU `device`, runs `fn` eagerly on the static buffers at every
-    call instead. `generators` are registered with the graph."""
+    call instead. `generators` are registered with the graph. `probe`,
+    when given, wraps the first eager run (the first warm-up run before
+    the capture, or an uncaptured runner's first call): `probe(run)`
+    calls `run()` and returns its result (the engine's cost registry
+    counts that run)."""
 
     def __init__(self, fn: Callable, inputs: Dict[str, np.ndarray], *,
                  device, pool=None, stream: Optional[torch.cuda.Stream] = None,
                  capture: bool = True,
-                 generators: Sequence[torch.Generator] = ()):
+                 generators: Sequence[torch.Generator] = (),
+                 probe: Optional[Callable] = None):
         self.fn = fn
+        self._probe = probe
         self.device = torch.device(device)
         self.captured = capture and self.device.type == "cuda"
         self.inputs = {k: torch.from_numpy(np.array(v)).to(self.device)
@@ -126,7 +132,7 @@ class CapturedFn:
         stream.wait_stream(current)
         with torch.cuda.stream(stream):
             for _ in range(WARMUP_RUNS):
-                self.fn(**self.inputs)
+                self._run()
         current.wait_stream(stream)
         graph = torch.cuda.CUDAGraph()
         for gen in generators:
@@ -141,8 +147,18 @@ class CapturedFn:
         self.launch_delta = _diff(after, before)
         add_launch_counts({k: -v for k, v in self.launch_delta.items()})
         self.graph = graph
-        torch.cuda.synchronize(self.device)
+        # the capture stream, not the device: another engine's serve
+        # thread may be capturing or replaying on this card meanwhile
+        stream.synchronize()
         self.capture_s = time.perf_counter() - t0
+
+    def _run(self):
+        """One eager run of `fn` on the static buffers, the first through
+        the probe."""
+        probe, self._probe = self._probe, None
+        if probe is not None:
+            return probe(lambda: self.fn(**self.inputs))
+        return self.fn(**self.inputs)
 
     def __call__(self, **host):
         """Copy the given host arrays into their static buffers, then
@@ -157,7 +173,7 @@ class CapturedFn:
             else:
                 buf.copy_(torch.from_numpy(np.asarray(v)))
         if not self.captured:
-            return self.fn(**self.inputs)
+            return self._run()
         self.graph.replay()
         add_launch_counts(self.launch_delta)
         return self.outputs

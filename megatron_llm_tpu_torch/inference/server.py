@@ -18,7 +18,22 @@ closes. A client that disconnects mid-stream cancels its request (the
 slot retires and its pages come back).
 
 GET /health answers the engine's liveness (503 once its serve loop
-died); GET /metrics the engine's `counters()` as JSON.
+died); GET /metrics the engine's `counters()` as JSON, or, when the
+client prefers it (`?format=prometheus`, or a text/plain or openmetrics
+Accept ahead of JSON), its Prometheus text exposition with the latency
+histograms; GET /flight_record the flight recorder's snapshot; POST
+/profile {"rounds": N, "trace_dir": ...} arms a torch.profiler trace of
+the next N rounds (409 while one runs); GET /memory the allocator's
+statistics of every card the engine (or each replica of a router) uses,
+in the JAX schema's shape ({"devices": [{"device", "platform", ...}]},
+with the JAX key names); GET / and /index.html the generation page
+(inference/static_ui.py). A 503 or 504 carries a Retry-After of the
+engine's (or router's) `retry_after_s()`: the modeled drain time with
+the cost registry on, else 1 s.
+
+`engine=` takes a `DecodeEngine` or a `ReplicaRouter` (inference/
+router.py), which serves a fleet through the same handlers, as the JAX
+server takes its router; the SSE `id:` is then "replica-rid".
 
 With a tensor-parallel engine (`serving_tp` > 1) the server runs on tp
 rank 0 only, the engine's leader: engine requests reach every rank
@@ -29,10 +44,6 @@ leader's next round with it (the leader sends an idle round every
 second), so GET /health answers 503 once any rank's loop died. Engineless
 servers answer as the JAX server does without an engine: 200 on
 /health, 404 on the engine-only surfaces, 400 on a streaming PUT.
-
-Not ported yet (observability slice): the Prometheus form of /metrics,
-GET /flight_record and POST /profile answer a 4xx saying so, as do the
-static UI (GET /) and GET /memory.
 """
 
 from __future__ import annotations
@@ -46,25 +57,22 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from typing import Optional
 
 import numpy as np
+import torch
 
 from megatron_llm_tpu_torch.inference import api
 from megatron_llm_tpu_torch.inference.engine import DecodeEngine, QueueFull
+from megatron_llm_tpu_torch.inference.router import ReplicaRouter
+from megatron_llm_tpu_torch.inference.static_ui import INDEX_HTML
 from megatron_llm_tpu_torch.inference.tokenization import (
     detokenize_generations,
 )
+from megatron_llm_tpu_torch.telemetry import PROMETHEUS_CONTENT_TYPE
 
 _logger = logging.getLogger(__name__)
 
 LOCK = threading.Lock()
 BUSY_MSG = "server is busy processing another request"
 QUEUE_FULL_MSG = "generation queue is full"
-_OBSERVABILITY = "{} is not ported yet (observability slice)"
-_NOT_PORTED = {
-    "/": "the static generation UI is not ported yet (observability slice)",
-    "/index.html": "the static generation UI is not ported yet "
-                   "(observability slice)",
-    "/memory": _OBSERVABILITY.format("GET /memory"),
-}
 
 
 def _wants_prometheus(accept: str, query: str) -> bool:
@@ -81,6 +89,48 @@ def _wants_prometheus(accept: str, query: str) -> bool:
                      "text/*"):
             return True
     return False
+
+
+def _memory_devices(generator) -> list:
+    """The devices GET /memory reports: the engine's, each in-process
+    replica's of a router (in replica order, once each), or the model's
+    without an engine."""
+    eng = generator.engine
+    if eng is None:
+        engines = []
+        dev = getattr(generator.model, "device", None)
+        devices = [] if dev is None else [torch.device(dev)]
+    else:
+        engines = [r.engine for r in getattr(eng, "replicas", ())
+                   if hasattr(r, "engine")] or [eng]
+        devices = [e.device for e in engines]
+    out = []
+    for d in devices:
+        if d not in out:
+            out.append(d)
+    return out
+
+
+def _memory_stats(device) -> dict:
+    """One device's entry of GET /memory: the JAX keys (`bytes_in_use`,
+    `peak_bytes_in_use`, `bytes_reserved`, `bytes_limit`, `num_allocs`)
+    from `torch.cuda.memory_stats`; a CPU device has none ({} in JAX)."""
+    entry = {"device": str(device), "platform": device.type}
+    if device.type != "cuda":
+        return entry
+    try:
+        st = torch.cuda.memory_stats(device)
+        entry |= {
+            "bytes_in_use": int(st.get("allocated_bytes.all.current", 0)),
+            "peak_bytes_in_use": int(st.get("allocated_bytes.all.peak", 0)),
+            "bytes_reserved": int(st.get("reserved_bytes.all.current", 0)),
+            "bytes_limit": int(
+                torch.cuda.get_device_properties(device).total_memory),
+            "num_allocs": int(st.get("allocation.all.allocated", 0)),
+        }
+    except Exception:  # noqa: BLE001: stats are optional, as in JAX
+        pass
+    return entry
 
 
 class MegatronGenerate:
@@ -352,6 +402,13 @@ class MegatronGenerate:
         except Exception as e:  # the same JSON error contract as put()
             return {"message": repr(e)}, 500
 
+        def sse_id():
+            # rid alone on an untagged engine; "replica-rid" behind the
+            # router. Resolved per event: a two-stage hand-off proxy has
+            # no replica until the decode replica attaches
+            return (req.rid if getattr(req, "replica_id", None) is None
+                    else f"{req.replica_id}-{req.rid}")
+
         # incremental detokenization over a bounded tail window: decode
         # the pending tokens and emit the new suffix; a trailing U+FFFD
         # (an unfinished byte sequence) is held back until it completes
@@ -382,7 +439,7 @@ class MegatronGenerate:
                         win_emitted = tok.detokenize(pending)
                         while win_emitted.endswith("\ufffd"):
                             win_emitted = win_emitted[:-1]
-                write_event({"token": int(t), "text": delta}, rid=req.rid)
+                write_event({"token": int(t), "text": delta}, rid=sse_id())
         except queue_mod.Empty:
             _logger.error("stream rid=%d stalled waiting for the engine; "
                           "cancelling", req.rid)
@@ -390,7 +447,7 @@ class MegatronGenerate:
             try:
                 write_event({"done": True, "rid": req.rid,
                              "error": "timed out waiting for the engine; "
-                                      "request cancelled"}, rid=req.rid)
+                                      "request cancelled"}, rid=sse_id())
             except OSError:
                 pass
             return None
@@ -405,7 +462,7 @@ class MegatronGenerate:
         else:
             final = {"done": True, "rid": req.rid, "tokens": out_ids,
                      "text": tok.detokenize(ids + out_ids)}
-        write_event(final, rid=req.rid)
+        write_event(final, rid=sse_id())
         return None
 
 
@@ -415,6 +472,19 @@ class _Handler(BaseHTTPRequestHandler):
     def do_GET(self):
         path, _, query = self.path.partition("?")
         eng = self.generator.engine
+        if self.path in ("/", "/index.html"):
+            data = INDEX_HTML.encode()
+            self.send_response(200)
+            self.send_header("Content-Type", "text/html; charset=utf-8")
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+            return
+        if path.rstrip("/") == "/memory":
+            self._respond({"devices": [
+                _memory_stats(d) for d in _memory_devices(self.generator)]},
+                200)
+            return
         if path.rstrip("/") == "/health":
             if eng is None:
                 self._respond({"status": "ok", "engine": None}, 200)
@@ -423,29 +493,51 @@ class _Handler(BaseHTTPRequestHandler):
             healthy = h["broken"] is None and h["alive"]
             self._respond({"status": "ok" if healthy else "unhealthy",
                            "engine": h}, 200 if healthy else 503)
-        elif path in _NOT_PORTED:
-            self._respond({"message": _NOT_PORTED[path]}, 404)
         elif eng is None:  # /metrics, /flight_record: engine-only
             self.send_error(404)
         elif path.rstrip("/") == "/metrics":
             if _wants_prometheus(self.headers.get("Accept", ""), query):
-                self._respond({"message": _OBSERVABILITY.format(
-                    "the Prometheus form of GET /metrics")}, 406)
+                data = eng.prometheus_metrics().encode()
+                self.send_response(200)
+                self.send_header("Content-Type", PROMETHEUS_CONTENT_TYPE)
+                self.send_header("Content-Length", str(len(data)))
+                self.end_headers()
+                self.wfile.write(data)
                 return
             self._respond(eng.counters(), 200)
         elif path.rstrip("/") == "/flight_record":
-            self._respond({"message": _OBSERVABILITY.format(
-                "GET /flight_record")}, 404)
+            self._respond(eng.flight_record(), 200)
         else:
             self.send_error(404)
 
     def do_POST(self):
+        """POST /profile (JAX :670-705): arm a profiler trace of the next
+        N engine rounds; one at a time (409 while one is armed)."""
         if self.path.partition("?")[0].rstrip("/") != "/profile" \
                 or self.generator.engine is None:
             self.send_error(404)
             return
-        self._respond({"message": _OBSERVABILITY.format("POST /profile")},
-                      404)
+        try:
+            length = int(self.headers.get("Content-Length", 0))
+            raw = json.loads(self.rfile.read(length) or b"{}")
+        except (json.JSONDecodeError, ValueError):
+            self._respond("invalid json", 400)
+            return
+        if not isinstance(raw, dict):
+            self._respond({"message": "body must be a JSON object"}, 400)
+            return
+        rounds = raw.get("rounds", 16)
+        if not isinstance(rounds, int) or rounds < 1:
+            self._respond({"message": "rounds must be an integer >= 1"},
+                          400)
+            return
+        try:
+            res = self.generator.engine.request_profile(
+                rounds, trace_dir=raw.get("trace_dir"))
+        except Exception as e:  # noqa: BLE001: the JSON error contract
+            self._respond({"message": repr(e)}, 500)
+            return
+        self._respond(res, 200 if res.get("ok") else 409)
 
     def do_PUT(self):
         if self.path.rstrip("/") != "/api":
@@ -502,25 +594,38 @@ class _Handler(BaseHTTPRequestHandler):
         self.send_header("Content-Type", "application/json")
         self.send_header("Content-Length", str(len(data)))
         if status in (503, 504):
-            self.send_header("Retry-After", "1")
+            self.send_header("Retry-After", self._retry_after())
         self.end_headers()
         self.wfile.write(data)
+
+    def _retry_after(self) -> str:
+        """The engine's (or router's) modeled drain time in whole
+        seconds, at least 1; 1 when it has none or the model fails."""
+        try:
+            fn = getattr(self.generator.engine, "retry_after_s", None)
+            if fn is not None:
+                return str(max(int(round(float(fn()))), 1))
+        except Exception:  # noqa: BLE001: the header is advisory
+            pass
+        return "1"
 
     def log_message(self, fmt, *args):  # quiet by default
         pass
 
 
 class MegatronServer:
-    """HTTP front. Pass a `DecodeEngine` to serve generate requests
-    through the continuous-batching queue: `run` starts its serve thread
+    """HTTP front. Pass a `DecodeEngine` (or a `ReplicaRouter` over
+    replicas) to serve generate requests through the continuous-batching
+    queue: `run` starts its serve thread (the router: every replica's)
     and `stop` drains it."""
 
     def __init__(self, model, params, tokenizer, engine=None,
                  request_deadline_s=None, stream_enabled=True):
-        if engine is not None and not isinstance(engine, DecodeEngine):
-            raise TypeError(f"engine must be a DecodeEngine or None, got "
-                            f"{type(engine).__name__} (replica routers "
-                            f"belong to the fleet slice)")
+        if engine is not None and not isinstance(
+                engine, (DecodeEngine, ReplicaRouter)):
+            raise TypeError(f"engine must be a DecodeEngine, a "
+                            f"ReplicaRouter or None, got "
+                            f"{type(engine).__name__}")
         self.engine = engine
         self.generator = MegatronGenerate(
             model, params, tokenizer, engine=engine,

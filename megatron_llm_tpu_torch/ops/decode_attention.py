@@ -35,6 +35,7 @@ from megatron_llm_tpu_torch.ops.prefill_attention import (
     _xla_attend,
     arrival_counters,
 )
+from megatron_llm_tpu_torch.telemetry.costs import note_launch
 
 LOG2E = 1.4426950408889634
 MAX_DECODE_ROWS = 128
@@ -204,6 +205,11 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            f"cudaError {err}")
     decode_attention.launches += 1
     decode_attention.launches_by_layout[layout] += 1
+    # the cost registry's count (chip_smoke.decode_bound_ms's formula at
+    # the cache's whole length: the host does not read a card length)
+    note_launch(4.0 * b * g * qpk * T * d,
+                2 * b * g * T * d * k.element_size()
+                + 2 * q.numel() * q.element_size())
     return out
 
 

@@ -50,6 +50,8 @@ import math
 
 import torch
 
+from megatron_llm_tpu_torch.telemetry.costs import note_launch
+
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634
 
@@ -251,6 +253,7 @@ def flash_fwd(qf, kf, vf, qpk: int, causal: bool):
             _DTYPES[qf.dtype], 1.0 / math.sqrt(d), _stream(qf))
     _raise_on(err, "forward")
     _count(flash_fwd, qf.dtype, causal)
+    _note_cost(qf, kf, causal, 2, (qf, kf, vf, of, lse))
     return of, lse
 
 
@@ -276,6 +279,7 @@ def flash_bwd_dq(qf, kf, vf, dof, lse, delta, qpk: int, causal: bool):
             1.0 / math.sqrt(d), _stream(qf))
     _raise_on(err, "dq")
     _count(flash_bwd_dq, qf.dtype, causal)
+    _note_cost(qf, kf, causal, 3, (qf, kf, vf, dof, lse, delta, dq))
     return dq
 
 
@@ -294,7 +298,20 @@ def flash_bwd_dkv(qf, kf, vf, dof, lse, delta, qpk: int, causal: bool):
             1.0 / math.sqrt(d), _stream(qf))
     _raise_on(err, "dk/dv")
     _count(flash_bwd_dkv, qf.dtype, causal)
+    _note_cost(qf, kf, causal, 4, (qf, kf, vf, dof, lse, delta, dk, dv))
     return dk, dv
+
+
+def _note_cost(qf, kf, causal: bool, products: int, tensors) -> None:
+    """The launch's own FLOPs and bytes for the cost registry (a ctypes
+    launch no dispatcher mode sees): `products` (s x t x d) products a
+    row block (forward: S and PV; dq: S, dP and dS K; dk/dv: S, dP, dS^T
+    Q and P^T dO), 2 flops each, half of them under the causal mask;
+    each tensor read or written once."""
+    bg, R, d = qf.shape
+    flops = 2.0 * products * bg * R * kf.shape[1] * d
+    note_launch(flops * (0.5 if causal else 1.0),
+                sum(x.numel() * x.element_size() for x in tensors))
 
 
 def _count(wrapper, dtype, causal: bool):

@@ -64,6 +64,7 @@ from typing import Optional
 import torch
 
 from megatron_llm_tpu_torch.ops.quantization import scatter_quantized_rows
+from megatron_llm_tpu_torch.telemetry.costs import note_launch
 
 LOG2E = 1.4426950408889634
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -433,6 +434,15 @@ def paged_attention(q, k_pages, v_pages, page_table, starts, chunk_lens,
     if err != 0:
         raise RuntimeError(f"ragged paged attention kernel ({design}) "
                            f"launch failed: cudaError {err}")
+    # the cost registry's count (chip_smoke.paged_bound_ms's formula at
+    # each slot's whole page-table reach: the host does not read the
+    # lengths on the card): K/V (and int8 scales) read, q read, out
+    # written; 4 flops a (q row, key, head dim)
+    reach = nc * page_table.shape[1] * page_size
+    note_launch(4.0 * C * qpk * g * d * reach,
+                2 * reach * g * (d * k_pages.element_size()
+                                 + (4 if int8 else 0))
+                + 2 * q.numel() * q.element_size())
     counts = ragged_paged_attention.variant_launches
     ragged_paged_attention.launches += 1
     counts[design] += 1

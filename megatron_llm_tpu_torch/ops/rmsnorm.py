@@ -39,6 +39,8 @@ from __future__ import annotations
 
 import torch
 
+from megatron_llm_tpu_torch.telemetry.costs import note_launch
+
 tl = None  # triton.language, bound by _triton() before the first compile
 _KERNELS: dict = {}
 BWD_ROWS = 8  # rows per K3 program
@@ -161,6 +163,10 @@ def rms_norm_fwd(x2: torch.Tensor, scale: torch.Tensor, eps: float,
                 h, eps, BLOCK_H=1 << (h - 1).bit_length(),
                 WRITE_RSTD=with_rstd, num_warps=_num_warps(h))
         fused_rms_norm.launches += 1
+        # the cost registry's count: x read, out written, the scale
+        # (and rstd) once; 4 flops an element
+        note_launch(4.0 * n * h, (2 * n * h + h) * x2.element_size()
+                    + (4 * n if with_rstd else 0))
     return out, rstd
 
 
@@ -180,6 +186,10 @@ def rms_norm_bwd(x2, scale, rstd, g2):
                 h, ROWS=BWD_ROWS, BLOCK_H=1 << (h - 1).bit_length(),
                 num_warps=_num_warps(h))
         rms_norm_bwd.launches += 1
+        # x and the upstream gradient read, dx written, rstd and the
+        # per-block dscale partials; 6 flops an element
+        note_launch(6.0 * n * h, 3 * n * h * x2.element_size()
+                    + 4 * (n + progs * h))
     else:
         part.zero_()
     return dx, part.sum(0)

@@ -14,10 +14,20 @@ and the serving paths cast them once. It serves on the first CUDA card;
 are the JAX launcher's; the tokenizer takes `--tokenizer_model` and
 `--null_vocab_size` too, and gets the merges file under the name
 `build_tokenizer` reads (the JAX launcher passes `merge_file=`, which
-its `build_tokenizer` does not take). Flags of later slices raise
-`ValueError` naming their ROADMAP.md item when set away from their
-defaults: replica routing and the fleet (A5), the engine's telemetry
-(A5).
+its `build_tokenizer` does not take).
+
+`--router_replicas N` serves N engine replicas behind the prefix-affinity
+router (inference/router.py; JAX :335-440): replica i runs on
+`cuda:{i % device_count}` (on one card every replica shares it; the JAX
+launcher gives replica i the devices [i tp, (i + 1) tp) and refuses too
+few), `--prefill_replicas M` dedicates the first M to chunked prefill and
+hands their KV pages to the decode replicas, `--chaos` arms fault
+injection (inference/chaos.py), `--fleet_controller` replaces a dead or
+regressed replica (inference/fleet.py) and `--recover_requests` resubmits
+a dead replica's requests. The telemetry flags (`--trace_dir`,
+`--record_dir`, `--flight_recorder_size`, `--cost_registry`,
+`--chip_spec`, `--perf_sentinel_*`) reach every engine. Replicas at
+`--serving_tp` > 1 raise (ROADMAP.md A5).
 
 `--serving_tp N` serves one engine on N tensor-parallel ranks, one
 process each, under torchrun (JAX :154-162, :335-354):
@@ -58,8 +68,14 @@ from megatron_llm_tpu_torch.config import (
     gpt_config,
     llama_config,
 )
+from megatron_llm_tpu_torch.inference.chaos import ChaosPolicy
 from megatron_llm_tpu_torch.inference.engine import DecodeEngine
+from megatron_llm_tpu_torch.inference.fleet import FleetController
 from megatron_llm_tpu_torch.inference.graph_capture import launch_counts
+from megatron_llm_tpu_torch.inference.router import (
+    EngineReplica,
+    ReplicaRouter,
+)
 from megatron_llm_tpu_torch.inference.server import MegatronServer
 from megatron_llm_tpu_torch.models import FalconModel, GPTModel, LlamaModel
 from megatron_llm_tpu_torch.parallel.mesh import (
@@ -71,24 +87,6 @@ from megatron_llm_tpu_torch.training.checkpointing import (
     restore_params,
     tracked_checkpoint,
 )
-
-_A5 = "replica routing and the fleet (ROADMAP.md A5)"
-_A5_TELEMETRY = "the engine's telemetry (ROADMAP.md A5)"
-
-# flags of later slices (parser dest -> the item): a value other than
-# the parser's default raises
-LATER_FLAGS = {
-    **dict.fromkeys((
-        "router_replicas", "affinity_routing", "prefill_replicas",
-        "ttft_slo_s", "chaos", "fleet_controller", "recover_requests",
-        "scale_up_backlog_s", "scale_down_backlog_s", "scale_patience"),
-        _A5),
-    **dict.fromkeys((
-        "trace_dir", "record_dir", "flight_recorder_size", "cost_registry",
-        "chip_spec", "perf_sentinel_ksigma", "perf_sentinel_window",
-        "perf_sentinel_patience"), _A5_TELEMETRY),
-}
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
@@ -155,38 +153,72 @@ def build_parser() -> argparse.ArgumentParser:
                    help="torch.distributed backend at --serving_tp > 1 "
                         "(default: nccl for CUDA, gloo for the CPU); gloo "
                         "lets ranks share one card")
-    # flags of later slices: each raises away from its default
-    p.add_argument("--trace_dir", type=str, default=None)
-    p.add_argument("--record_dir", type=str, default=".")
-    p.add_argument("--flight_recorder_size", type=int, default=4096)
-    p.add_argument("--cost_registry", action="store_true")
+    # the engine's telemetry (inference/engine.py, telemetry/)
+    p.add_argument("--trace_dir", type=str, default=None,
+                   help="enable the engines' span tracer: Chrome trace "
+                        "JSON written here at shutdown; POST /profile "
+                        "traces default here")
+    p.add_argument("--record_dir", type=str, default=".",
+                   help="where the flight recorder dumps its ring when a "
+                        "serve loop dies or the perf sentinel trips")
+    p.add_argument("--flight_recorder_size", type=int, default=4096,
+                   help="events the flight recorder's ring keeps")
+    p.add_argument("--cost_registry", action="store_true",
+                   help="count each round kind's FLOPs and bytes once per "
+                        "bucket: per-request cost records, the modeled "
+                        "backlog the router places by, cost_* samples on "
+                        "the Prometheus /metrics")
     p.add_argument("--chip_spec", type=str, default=None,
-                   choices=["v5e", "v5p", "v4"])
-    p.add_argument("--perf_sentinel_ksigma", type=float, default=0.0)
-    p.add_argument("--perf_sentinel_window", type=int, default=64)
-    p.add_argument("--perf_sentinel_patience", type=int, default=8)
-    p.add_argument("--router_replicas", type=int, default=1)
+                   choices=["h100"],
+                   help="the card's spec for the roofline denominators "
+                        "(telemetry/chipspec.py; default: detect)")
+    p.add_argument("--perf_sentinel_ksigma", type=float, default=0.0,
+                   help="arm the decode-round perf sentinel: patience "
+                        "rounds above median + k * 1.4826 MAD trip it; 0 "
+                        "disables")
+    p.add_argument("--perf_sentinel_window", type=int, default=64,
+                   help="the sentinel's baseline window (good rounds)")
+    p.add_argument("--perf_sentinel_patience", type=int, default=8,
+                   help="consecutive bad rounds that trip the sentinel")
+    # the fleet (inference/{router,fleet,chaos}.py)
+    p.add_argument("--router_replicas", type=int, default=1,
+                   help="N engine replicas behind the prefix-affinity "
+                        "router (replica i on cuda:{i %% device_count}); "
+                        "1 = one engine, no router")
     p.add_argument("--affinity_routing",
-                   action=argparse.BooleanOptionalAction, default=True)
-    p.add_argument("--prefill_replicas", type=int, default=0)
-    p.add_argument("--ttft_slo_s", type=float, default=None)
-    p.add_argument("--chaos", type=str, default=None)
-    p.add_argument("--fleet_controller", action="store_true")
+                   action=argparse.BooleanOptionalAction, default=True,
+                   help="route by the page-aligned prefix index "
+                        "(--no-affinity_routing: least queue depth)")
+    p.add_argument("--prefill_replicas", type=int, default=0,
+                   help="disaggregated serving: the first N of "
+                        "--router_replicas prefill long prompts and hand "
+                        "their KV pages to the decode replicas; 0 = a "
+                        "symmetric fleet")
+    p.add_argument("--ttft_slo_s", type=float, default=None,
+                   help="refuse (503 with a modeled Retry-After) when every "
+                        "replica's modeled backlog exceeds this many "
+                        "seconds (needs --cost_registry)")
+    p.add_argument("--chaos", type=str, default=None,
+                   help="deterministic fault injection (inference/chaos.py"
+                        " grammar), e.g. 'kill=1@8'; a test knob")
+    p.add_argument("--fleet_controller", action="store_true",
+                   help="replace dead or regressed replicas (drain, stop, "
+                        "rebuild, warm, rotate in); needs "
+                        "--router_replicas > 1")
     p.add_argument("--recover_requests",
-                   action=argparse.BooleanOptionalAction, default=None)
-    p.add_argument("--scale_up_backlog_s", type=float, default=None)
-    p.add_argument("--scale_down_backlog_s", type=float, default=None)
-    p.add_argument("--scale_patience", type=int, default=3)
+                   action=argparse.BooleanOptionalAction, default=None,
+                   help="resubmit a dead replica's queued and unstreamed "
+                        "requests elsewhere (default: with "
+                        "--fleet_controller)")
+    p.add_argument("--scale_up_backlog_s", type=float, default=None,
+                   help="the controller grows the active set above this "
+                        "modeled backlog a replica")
+    p.add_argument("--scale_down_backlog_s", type=float, default=None,
+                   help="and shrinks it below this one")
+    p.add_argument("--scale_patience", type=int, default=3,
+                   help="identical scale verdicts before the controller "
+                        "acts")
     return p
-
-
-def check_later_flags(args) -> None:
-    defaults = build_parser()
-    for dest, item in LATER_FLAGS.items():
-        value = getattr(args, dest)
-        if value != defaults.get_default(dest):
-            raise ValueError(f"--{dest} {value!r} is not ported yet "
-                             f"({item})")
 
 
 def check_serving_tp(args) -> int:
@@ -200,6 +232,106 @@ def check_serving_tp(args) -> int:
             f"one a tp rank (torchrun --nproc_per_node {tp}); this process "
             f"is one of {world} (ROADMAP.md A4, tp serving's torch form)")
     return world
+
+
+def replica_device(device, i: int):
+    """Replica i's device: `cuda:{i % device_count}` for "cuda" (every
+    replica on cuda:0 on one card), the device itself otherwise."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return device
+    return torch.device("cuda", i % max(torch.cuda.device_count(), 1))
+
+
+def build_serving(args, model, params, tokenizer):
+    """What the server serves (JAX :364-440): one engine, or a
+    `ReplicaRouter` over `--router_replicas` engines (disaggregated with
+    `--prefill_replicas`), with its chaos policy and fleet controller;
+    None with `--serving_slots 0`."""
+    n_rep, tp = max(args.router_replicas, 1), max(args.serving_tp, 1)
+    if args.serving_slots <= 0:
+        if tp > 1:
+            raise ValueError("--serving_tp > 1 serves the engine: pass "
+                             "--serving_slots > 0")
+        if n_rep > 1:
+            raise ValueError("--router_replicas > 1 serves engines: pass "
+                             "--serving_slots > 0")
+        return None
+    if n_rep > 1 and tp > 1:
+        raise ValueError(
+            f"--router_replicas {n_rep} with --serving_tp {tp} is not "
+            f"ported: each replica needs a process group of its own under "
+            f"torchrun (ROADMAP.md A5)")
+    # the prefix cache's default (None) is on whenever chunked admission
+    # is; an explicit --prefix_cache without chunks reaches the engine's
+    # error
+    prefix_cache = (args.prefix_cache if args.prefix_cache is not None
+                    else args.prefill_chunk_tokens > 0)
+
+    def build_engine(replica_id=None):
+        devices = None
+        if replica_id is not None and model.device.type == "cuda":
+            devices = [replica_device(model.device, replica_id)]
+        return DecodeEngine(
+            model, params, slots=args.serving_slots,
+            page_size=args.page_size, max_context=args.max_context,
+            page_budget=args.page_budget, max_queue=args.max_queue,
+            step_horizon=args.step_horizon,
+            prefill_chunk_tokens=args.prefill_chunk_tokens,
+            warmup_compile=args.warmup_compile, prefix_cache=prefix_cache,
+            spec_decode_k=args.spec_decode_k, kv_dtype=args.kv_dtype,
+            quantize_weights=args.quantize_weights,
+            serving_tp=args.serving_tp, devices=devices,
+            replica_id=replica_id,
+            termination_id=tokenizer.eod, vocab_size=tokenizer.vocab_size,
+            trace_dir=args.trace_dir, record_dir=args.record_dir,
+            flight_recorder_size=args.flight_recorder_size,
+            cost_registry=args.cost_registry, chip_spec=args.chip_spec,
+            perf_sentinel_ksigma=args.perf_sentinel_ksigma,
+            perf_sentinel_window=args.perf_sentinel_window,
+            perf_sentinel_patience=args.perf_sentinel_patience)
+
+    if n_rep <= 1:
+        for flag, on in (("--chaos", args.chaos),
+                         ("--fleet_controller", args.fleet_controller),
+                         ("--prefill_replicas", args.prefill_replicas)):
+            if on:
+                raise ValueError(
+                    f"{flag} needs --router_replicas > 1 (faults, "
+                    f"replacements and the hand-off act on replicas)")
+        return build_engine()
+    chaos = ChaosPolicy.parse(args.chaos) if args.chaos else None
+    recover = (args.recover_requests if args.recover_requests is not None
+               else args.fleet_controller)
+    replicas = [EngineReplica(build_engine(replica_id=i), chaos=chaos)
+                for i in range(n_rep)]
+    n_pre = args.prefill_replicas
+    if n_pre:
+        if not 0 < n_pre < n_rep:
+            raise ValueError(
+                f"--prefill_replicas {n_pre} must leave at least one "
+                f"decode replica out of --router_replicas {n_rep}")
+        router = ReplicaRouter(
+            prefill_replicas=replicas[:n_pre],
+            decode_replicas=replicas[n_pre:],
+            affinity=args.affinity_routing, ttft_slo_s=args.ttft_slo_s)
+    else:
+        router = ReplicaRouter(replicas, affinity=args.affinity_routing,
+                               ttft_slo_s=args.ttft_slo_s,
+                               recover_requests=recover)
+    if args.fleet_controller:
+        # a replacement is rebuilt on the dead replica's device without
+        # the chaos policy: an injected kill must not fire again
+        def spawn_replica(old):
+            return EngineReplica(build_engine(replica_id=old.replica_id))
+
+        # it registers on the router (`router._controller`)
+        FleetController(
+            router, spawn_replica=spawn_replica,
+            scale_up_backlog_s=args.scale_up_backlog_s,
+            scale_down_backlog_s=args.scale_down_backlog_s,
+            scale_patience=args.scale_patience).start()
+    return router
 
 
 def build_model(model_name: str, saved: dict, args, device):
@@ -251,9 +383,24 @@ def banner(args, path, port, engine) -> str:
     head = f"serving {args.model} from {path} on http://{args.host}:{port}/api"
     if engine is None:
         return head + " (whole-batch, no engine)"
+    fleet = ""
+    if isinstance(engine, ReplicaRouter):
+        n = len(engine.replicas)
+        split = (f"{args.prefill_replicas} prefill + "
+                 f"{n - args.prefill_replicas} decode"
+                 if args.prefill_replicas else f"{n} replicas")
+        fleet = (f"{split} (prefix-affinity routing "
+                 f"{'ON' if args.affinity_routing else 'OFF'}"
+                 + (f", ttft_slo {args.ttft_slo_s}s"
+                    if args.ttft_slo_s is not None else "")
+                 + (", fleet controller" if args.fleet_controller else "")
+                 + (f", CHAOS[{args.chaos}]" if args.chaos else "")
+                 + "), ")
+        # per-engine facts from replica 0 (a homogeneous fleet)
+        engine = engine.replicas[0].engine
     chip = "/chip" if engine.serving_tp > 1 else ""
     parts = [
-        f"continuous batching: {args.serving_slots} slots",
+        f"{fleet}continuous batching: {args.serving_slots} slots",
         f"{engine.num_pages - 1} pages x {args.page_size}",
         f"kv_dtype={engine.kv_pool_dtype()} "
         f"({engine.kv_pool_bytes() / 2**20:.0f} MiB{chip} pool, "
@@ -272,7 +419,16 @@ def banner(args, path, port, engine) -> str:
         parts.append(f"spec decode k={engine.spec_decode_k}")
     if args.stream:
         parts.append("SSE streaming")
-    parts.append("counters at /metrics (JSON), health at /health")
+    if args.trace_dir:
+        parts.append(f"span tracing -> {args.trace_dir}")
+    if engine.costs is not None:
+        parts.append("cost registry" + (f" ({engine.chip.label()})"
+                                        if engine.chip else ""))
+    if args.perf_sentinel_ksigma > 0:
+        parts.append(f"perf sentinel k={args.perf_sentinel_ksigma}")
+    parts.append("counters at /metrics (JSON + Prometheus), health at "
+                 "/health, flight record at /flight_record, profiler at "
+                 "POST /profile")
     return f"{head} ({', '.join(parts)})"
 
 
@@ -290,7 +446,6 @@ def main(argv=None, device="cuda",
                            "(call main(argv, device='cpu') to serve on "
                            "the CPU)")
     args = build_parser().parse_args(argv)
-    check_later_flags(args)
     own_group = False
     if check_serving_tp(args) > 1:
         own_group = not dist.is_initialized()
@@ -345,28 +500,8 @@ def _serve(args, device, ready):
         merges_file=args.merge_file, tokenizer_model=args.tokenizer_model,
         null_vocab_size=args.null_vocab_size)
     t0 = time.perf_counter()
-    engine = None
-    if args.serving_slots > 0:
-        # the prefix cache's default (None) is on whenever chunked
-        # admission is; an explicit --prefix_cache without chunks reaches
-        # the engine's error
-        prefix_cache = (args.prefix_cache if args.prefix_cache is not None
-                        else args.prefill_chunk_tokens > 0)
-        engine = DecodeEngine(
-            model, params, slots=args.serving_slots,
-            page_size=args.page_size, max_context=args.max_context,
-            page_budget=args.page_budget, max_queue=args.max_queue,
-            step_horizon=args.step_horizon,
-            prefill_chunk_tokens=args.prefill_chunk_tokens,
-            warmup_compile=args.warmup_compile, prefix_cache=prefix_cache,
-            spec_decode_k=args.spec_decode_k, kv_dtype=args.kv_dtype,
-            quantize_weights=args.quantize_weights,
-            serving_tp=args.serving_tp,
-            termination_id=tokenizer.eod, vocab_size=tokenizer.vocab_size)
-    elif args.serving_tp > 1:
-        raise ValueError("--serving_tp > 1 serves the engine: pass "
-                         "--serving_slots > 0")
-    if engine is not None and engine.tp_rank > 0:
+    engine = build_serving(args, model, params, tokenizer)
+    if isinstance(engine, DecodeEngine) and engine.tp_rank > 0:
         # a follower: its decode and pool slices only; rank 0 stops it
         del params, model
         gc.collect()
@@ -394,7 +529,7 @@ def _serve(args, device, ready):
         httpd = server.run(args.host, args.port, block=False)
         setup_s = time.perf_counter() - t0
         port = httpd.server_address[1]
-        if engine is not None and engine.serving_tp > 1:
+        if isinstance(engine, DecodeEngine) and engine.serving_tp > 1:
             _rank_started(engine, device)
         print(banner(args, path, port, engine), flush=True)
         if ready is not None:
@@ -404,8 +539,11 @@ def _serve(args, device, ready):
         except KeyboardInterrupt:
             pass
     finally:
+        controller = getattr(engine, "_controller", None)
+        if controller is not None:
+            controller.stop()
         server.stop()
-        if engine is not None and engine.serving_tp > 1:
+        if isinstance(engine, DecodeEngine) and engine.serving_tp > 1:
             _rank_stopped(engine)
         del server, engine, params, model
         gc.collect()  # engines hold reference cycles

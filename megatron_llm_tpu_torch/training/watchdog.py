@@ -24,61 +24,18 @@ restart-and-skip around spikes). This module makes that loop automatic:
 Counters (`skipped`, `rollbacks`) are exported through the timers-gauge
 path (`loss_watchdog_skipped` / `loss_watchdog_rollbacks`).
 
-Port of training/watchdog.py, a host-only copy with its own copy of
-`RobustWindow`. The rollback itself needs checkpoints (a later slice);
-the ported trainer runs the skip gate and counts. The JAX copy's
+Port of training/watchdog.py, host only; its `RobustWindow` is the
+perf sentinel's (telemetry/sentinel.py), one definition for both. The
+rollback itself needs checkpoints (a later slice); the ported trainer
+runs the skip gate and counts. The JAX copy's
 flight-recorder events belong to the telemetry slice and are left out.
 """
 
 from __future__ import annotations
 
-import collections
 import math
-from typing import Deque
 
-
-class RobustWindow:
-    """Sliding window with a median+MAD threshold (a copy of the JAX
-    package's telemetry/sentinel.py:31, which the perf sentinel of the
-    telemetry slice will share)."""
-
-    def __init__(self, window: int = 64, min_history: int = 8):
-        assert window >= 4 and min_history >= 2
-        # a window smaller than min_history could never arm the
-        # threshold (the deque caps below it) — clamp so every accepted
-        # window size actually detects
-        self.min_history = min(min_history, window)
-        self._window: Deque[float] = collections.deque(maxlen=window)
-
-    def push(self, x: float) -> None:
-        self._window.append(x)
-
-    def clear(self) -> None:
-        self._window.clear()
-
-    def __len__(self) -> int:
-        return len(self._window)
-
-    def median_mad(self):
-        xs = sorted(self._window)
-        n = len(xs)
-        med = (xs[n // 2] if n % 2 else 0.5 * (xs[n // 2 - 1] + xs[n // 2]))
-        dev = sorted(abs(x - med) for x in xs)
-        mad = (dev[n // 2] if n % 2 else 0.5 * (dev[n // 2 - 1] + dev[n // 2]))
-        return med, mad
-
-    def threshold(self, k_sigma: float) -> float:
-        """Value above which an observation is an outlier; +inf while
-        disabled (k_sigma <= 0) or the window is too short to be
-        trusted. 1.4826 * MAD estimates sigma for a normal population;
-        the floor keeps a perfectly flat window (MAD 0) from flagging
-        every observation."""
-        if k_sigma <= 0 or len(self._window) < self.min_history:
-            return math.inf
-        med, mad = self.median_mad()
-        sigma = max(1.4826 * mad, 1e-3 * abs(med), 1e-8)
-        return med + k_sigma * sigma
-
+from megatron_llm_tpu_torch.telemetry.sentinel import RobustWindow
 
 
 class LossWatchdog:

@@ -7,6 +7,7 @@ cache with a copy-on-write page, the same traffic through the JAX
 sampling, the per-row top-p threshold and the knobs of later slices."""
 
 import functools
+import json
 
 import jax.numpy as jnp
 import numpy as np
@@ -250,12 +251,38 @@ def test_buckets_match_jax():
 
 @pytest.mark.parametrize("knob,value,slice_name", [
     ("serving_tp", 2, "tp serving"),
-    ("cost_registry", True, "observability"),
-    ("trace_dir", "/nowhere", "observability"),
 ])
 def test_left_out_knobs_name_their_slice(knob, value, slice_name):
     with pytest.raises(ValueError, match=slice_name):
         _engine(**{knob: value})
+
+
+@pytest.mark.parametrize("knob", ["cost_registry", "trace_dir"])
+def test_telemetry_knobs_keep_the_streams(tmp_path, knob):
+    """The observability knobs that raised before the telemetry slice:
+    with each on, the streams equal the plain engine's bit for bit and
+    the knob shows (cost records for every round kind that ran, or a
+    Chrome trace with the rounds' spans at stop)."""
+    prompts = _prompts(0)
+    value = {"cost_registry": True, "trace_dir": str(tmp_path)}[knob]
+    plain = _run(_engine(), prompts, GENS, top_k=1, return_log_probs=True)
+    eng = _engine(**{knob: value})
+    eng.start()
+    reqs = [eng.submit(p, g, top_k=1, return_log_probs=True)
+            for p, g in zip(prompts, GENS)]
+    outs = [r.result(timeout=60) for r in reqs]
+    eng.stop()
+    assert outs == plain
+    if knob == "cost_registry":
+        names = {r["contract"] for r in eng.costs.rows()}
+        assert {"engine.decode_scan", "engine.mixed_step",
+                "engine.page_copy"} <= names
+        assert eng.counters()["serve_modeled_gflops"] > 0
+    else:
+        (path,) = tmp_path.glob("trace_engine_*.json")
+        names = {e["name"] for e in json.loads(path.read_text())[
+            "traceEvents"]}
+        assert {"round.mixed", "round.decode_scan", "queue_wait"} <= names
 
 
 def test_whole_prompt_admission_equals_generate_tokens():

@@ -1473,6 +1473,54 @@ def test_captured_engine_equals_eager_engine(cuda, mode):
     assert acct[0] == acct[1]
 
 
+@pytest.mark.parametrize("kv_dtype", ["bf16", "int8"])
+def test_import_into_a_captured_engine_is_read_by_its_replays(cuda,
+                                                              kv_dtype):
+    """The KV hand-off into an engine whose rounds already replay CUDA
+    graphs (`warmup_compile`): the import writes the donor's pages into
+    the pools the graphs captured by address (the pools are never
+    rebound), the receiver's pages equal the payload bit for bit, and
+    the replayed rounds that follow read them: the receiver prefills
+    only the partial last page and decodes the donor's own stream."""
+    from megatron_llm_tpu_torch.inference.engine import DecodeEngine
+
+    model, params = _tiny_bf16()
+    kw = dict(slots=2, page_size=16, max_context=128,
+              prefill_chunk_tokens=16, prefix_cache=True, vocab_size=256,
+              termination_id=None, kv_dtype=kv_dtype)
+    prompt = [int(x) for x in np.random.RandomState(4).randint(2, 256, 40)]
+    donor = DecodeEngine(model, params, warmup_compile=True, **kw)
+    donor.start()
+    try:
+        want = donor.submit(prompt, 12, top_k=1).result(timeout=300)[0]
+        payload = donor.export_prefix(prompt)
+    finally:
+        donor.stop()
+    assert payload["pages"] == 2
+    receiver = DecodeEngine(model, params, warmup_compile=True, **kw)
+    pools_before = [t.data_ptr() for g in receiver._pools for t in g]
+    receiver.start()
+    try:
+        graphs = receiver.graph_stats()["graphs"]
+        assert graphs > 0
+        assert receiver.import_prefix(payload) == {"pages": 2,
+                                                   "registered": 2}
+        pages = torch.as_tensor(
+            receiver._prefix.lookup(prompt).pages[:2], device=cuda)
+        for name, group in zip(("k", "v", "ks", "vs"), receiver._pools):
+            for pool, rows in zip(group, payload[name]):
+                assert torch.equal(pool.index_select(0, pages).cpu(), rows)
+        before = receiver.counters()["serve_prefill_tokens"]
+        got = receiver.submit(prompt, 12, top_k=1).result(timeout=300)[0]
+    finally:
+        receiver.stop()
+    assert [t.data_ptr() for g in receiver._pools for t in g] \
+        == pools_before
+    assert receiver.graph_stats()["graphs"] == graphs  # replays only
+    assert receiver.counters()["serve_prefill_tokens"] - before == 40 - 32
+    assert got == want
+
+
 def test_captured_whole_batch_decode_equals_eager(cuda):
     """`generate_tokens` on a tiny bf16 model: each decode step replays
     one captured graph (K1 at the device length); greedy tokens,

@@ -12,8 +12,9 @@
   them (:296-361, :491-494) on the same weights (the JAX launcher itself
   cannot start: it passes `merge_file=` to a `build_tokenizer` that
   takes `merges_file`);
-- every flag of a later slice raises naming its item; `main()` on its
-  default device raises without a card;
+- every fleet and telemetry flag reaches the engines or the router the
+  launcher builds; `--serving_tp` without its ranks raises naming its
+  item; `main()` on its default device raises without a card;
 - the CLI, started as a subprocess, answers a request.
 """
 
@@ -39,7 +40,10 @@ from megatron_llm_tpu.models import LlamaModel as JaxLlama
 from megatron_llm_tpu.tokenizer import build_tokenizer as jax_tokenizer
 from megatron_llm_tpu.training import checkpointing as jax_ckpt
 from megatron_llm_tpu_torch.config import ParallelConfig, TrainConfig
+from megatron_llm_tpu_torch.inference.engine import DecodeEngine
+from megatron_llm_tpu_torch.inference.router import ReplicaRouter
 from megatron_llm_tpu_torch.optimizer.optimizer import init_optimizer_state
+from megatron_llm_tpu_torch.tokenizer import build_tokenizer
 from megatron_llm_tpu_torch.tools import run_text_generation_server as rtgs
 from megatron_llm_tpu_torch.training import checkpointing as ck
 from megatron_llm_tpu_torch.training.trainer import Trainer
@@ -314,29 +318,86 @@ def test_whole_batch_launcher_serves_a_finetune_checkpoint(tmp_path,
 
 @pytest.mark.parametrize("flags,item", [
     ("--serving_tp 2", "A4"),
-    ("--router_replicas 2", "A5"),
-    ("--no-affinity_routing", "A5"),
-    ("--prefill_replicas 1", "A5"),
-    ("--ttft_slo_s 1.5", "A5"),
-    ("--chaos kill=1@8", "A5"),
-    ("--fleet_controller", "A5"),
-    ("--recover_requests", "A5"),
-    ("--scale_up_backlog_s 2", "A5"),
-    ("--scale_down_backlog_s 1", "A5"),
-    ("--scale_patience 5", "A5"),
-    ("--trace_dir traces", "A5"),
-    ("--cost_registry", "A5"),
-    ("--chip_spec v5e", "A5"),
-    ("--perf_sentinel_ksigma 6", "A5"),
-    ("--perf_sentinel_window 32", "A5"),
-    ("--perf_sentinel_patience 4", "A5"),
-    ("--record_dir records", "A5"),
-    ("--flight_recorder_size 128", "A5"),
 ])
 def test_later_slice_flags_raise_by_item(flags, item):
     dest = flags.split()[0][2:].replace("no-", "")
     with pytest.raises(ValueError, match=rf"--{dest} .*ROADMAP\.md {item}"):
         rtgs.main(["--load", "no_such_dir", *flags.split()], device="cpu")
+
+
+FLEET = ["--router_replicas", "2"]
+SENTINEL = ["--perf_sentinel_ksigma", "6"]
+
+
+def _replica_engines(target):
+    return [r.engine for r in target.replicas]
+
+
+# each fleet and telemetry flag of the JAX launcher and what it sets on
+# the engines or the router the launcher builds (these raised by name
+# before the fleet slice was ported)
+FLAG_CHECKS = [
+    (FLEET, lambda t, d: [e.replica_id for e in _replica_engines(t)]
+     == [0, 1] and t.affinity),
+    (FLEET + ["--no-affinity_routing"], lambda t, d: not t.affinity),
+    (FLEET + ["--prefill_replicas", "1"],
+     lambda t, d: t.disagg and (t._prefill_ids, t._decode_ids)
+     == ([0], [1])),
+    (FLEET + ["--ttft_slo_s", "1.5"], lambda t, d: t.ttft_slo_s == 1.5),
+    (FLEET + ["--chaos", "kill=1@8"],
+     lambda t, d: all(r.chaos.kill_replica == 1
+                      and r.chaos.kill_after_submits == 8
+                      and r.engine._fault_hook is not None
+                      for r in t.replicas)),
+    (FLEET + ["--fleet_controller"],
+     lambda t, d: t._controller is not None and t.recover_requests),
+    (FLEET + ["--recover_requests"],
+     lambda t, d: t.recover_requests and t._controller is None),
+    (FLEET + ["--fleet_controller", "--scale_up_backlog_s", "2"],
+     lambda t, d: t._controller.scale_up_backlog_s == 2),
+    (FLEET + ["--fleet_controller", "--scale_down_backlog_s", "1"],
+     lambda t, d: t._controller.scale_down_backlog_s == 1),
+    (FLEET + ["--fleet_controller", "--scale_patience", "5"],
+     lambda t, d: t._controller.scale_patience == 5),
+    (["--trace_dir", "{d}"],
+     lambda t, d: t.trace_dir == d and t.tracer.enabled
+     and t.record_dir == "."),
+    (["--cost_registry"], lambda t, d: t.costs is not None and t.chip is None),
+    (["--cost_registry", "--chip_spec", "h100"],
+     lambda t, d: t.chip.label() == "h100:override"),
+    (SENTINEL, lambda t, d: t._sentinel.k_sigma == 6),
+    (SENTINEL + ["--perf_sentinel_window", "32"],
+     lambda t, d: t._sentinel._stat._window.maxlen == 32),
+    (SENTINEL + ["--perf_sentinel_patience", "4"],
+     lambda t, d: t._sentinel.patience == 4),
+    (["--record_dir", "{d}"], lambda t, d: t.record_dir == d),
+    (["--flight_recorder_size", "128"],
+     lambda t, d: t.recorder.capacity == 128),
+]
+
+
+@pytest.mark.parametrize("flags,check", FLAG_CHECKS,
+                         ids=[" ".join(f) for f, _ in FLAG_CHECKS])
+def test_fleet_and_telemetry_flags_reach_the_serving_target(
+        tmp_path, flags, check):
+    """What `main` serves from (`build_serving`) on the tiny model: each
+    flag lands on the engine, every replica's engine or the router."""
+    _, _, tm, tp = tiny_pair()
+    d = str(tmp_path)
+    args = rtgs.build_parser().parse_args(
+        ["--load", "unused", *TOKENIZER, *ENGINE_FLAGS,
+         *(f.format(d=d) for f in flags)])
+    tok = build_tokenizer("NullTokenizer", null_vocab_size=255)
+    target = rtgs.build_serving(args, tm, tp, tok)
+    try:
+        assert check(target, d)
+        if "--router_replicas" in flags:
+            assert isinstance(target, ReplicaRouter)
+        else:
+            assert isinstance(target, DecodeEngine)
+    finally:
+        if getattr(target, "_controller", None) is not None:
+            target._controller.stop()
 
 
 def test_main_on_its_default_device_needs_a_card():

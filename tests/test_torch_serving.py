@@ -8,6 +8,7 @@ streams equal the buffered answer, validation answers match the JAX
 server given an engine, and /metrics keys are the JAX engine's."""
 
 import json
+import time
 from http.client import HTTPConnection
 
 import numpy as np
@@ -20,9 +21,17 @@ from megatron_llm_tpu.inference.server import (
 )
 from megatron_llm_tpu.tokenizer.tokenizer import _NullTokenizer as JaxNull
 from megatron_llm_tpu_torch.inference.engine import DecodeEngine
+from megatron_llm_tpu_torch.inference.router import (
+    EngineReplica,
+    ReplicaRouter,
+)
 from megatron_llm_tpu_torch.inference.server import (
     MegatronGenerate,
     MegatronServer,
+)
+from megatron_llm_tpu_torch.telemetry import (
+    histograms_from_prometheus,
+    parse_prometheus,
 )
 from megatron_llm_tpu_torch.tokenizer import build_tokenizer
 from test_server import VALIDATION_CASES, _NoModel
@@ -107,18 +116,34 @@ def test_same_status_over_http(servers, method, path, payload):
         assert json.loads(pbody) == json.loads(jbody)
 
 
-def test_unported_surfaces_name_their_slice(servers):
-    _, pt_port = servers
-    for path in ("/", "/memory"):
-        status, body = _request(pt_port, "GET", path)
-        assert status == 404 and "observability slice" in body
+@pytest.mark.parametrize("path", ["/", "/memory"])
+def test_page_and_memory_surfaces_match_jax(servers, path):
+    """GET / (the generation page: the JAX server's bytes) and GET
+    /memory (a device list in the JAX schema's shape: each entry names
+    its device and platform; this CPU has no allocator statistics)."""
+    jax_port, pt_port = servers
+    js, jbody = _request(jax_port, "GET", path)
+    ps, pbody = _request(pt_port, "GET", path)
+    assert js == ps == 200
+    if path == "/":
+        assert pbody == jbody
+        return
+    ref, got = json.loads(jbody), json.loads(pbody)
+    assert got.keys() == ref.keys() == {"devices"}
+    assert [d["platform"] for d in got["devices"]] == ["cpu"]
+    assert all({"device", "platform"} <= d.keys()
+               for d in got["devices"] + ref["devices"])
 
 
 def test_engine_is_refused():
-    """Only the port's DecodeEngine (or None) serves; an engine-shaped
-    object such as a replica router is refused by name."""
-    with pytest.raises(TypeError, match="fleet slice"):
+    """The port's DecodeEngine or ReplicaRouter (or None) serves, as the
+    JAX server takes its router; any other object is refused by name."""
+    with pytest.raises(TypeError, match="ReplicaRouter"):
         MegatronServer(None, None, None, engine=object())
+    _, _, tm, tp = tiny_pair()
+    router = ReplicaRouter([EngineReplica(DecodeEngine(
+        tm, tp, replica_id=i, **ENGINE_KW)) for i in range(2)])
+    assert MegatronServer(tm, tp, _tok(), engine=router).engine is router
 
 
 def test_sampled_request_is_seed_stable(servers):
@@ -207,7 +232,7 @@ def test_stream_equals_the_buffered_answer(engine_server):
     assert len(ids) == len(events)
 
 
-def test_engine_surfaces(engine_server):
+def test_engine_surfaces(engine_server, tmp_path):
     port = _port_of(engine_server)
     status, body = _request(port, "GET", "/health")
     assert status == 200 and json.loads(body)["engine"]["alive"]
@@ -216,12 +241,28 @@ def test_engine_surfaces(engine_server):
     jm, jp, _, _ = tiny_pair()
     jax_keys = set(JaxEngine(jm, jp, **ENGINE_KW).counters())
     assert set(json.loads(body)) <= jax_keys
-    for method, path in (("GET", "/metrics?format=prometheus"),
-                         ("GET", "/flight_record"), ("POST", "/profile")):
-        status, body = _request(port, method, path, {} if method == "POST"
-                                else None)
-        assert 400 <= status < 500, path
-        assert "observability slice" in json.loads(body)["message"], path
+    # the surfaces that answered 4xx before the telemetry slice
+    status, body = _request(port, "GET", "/metrics?format=prometheus")
+    assert status == 200
+    parsed = parse_prometheus(body)
+    assert parsed["serve_admitted"][""] == engine_server.engine.counters()[
+        "serve_admitted"]
+    assert {h.name for h in histograms_from_prometheus(body)} == {
+        "serve_ttft_ms", "serve_decode_round_ms", "serve_queue_wait_ms"}
+    status, body = _request(port, "GET", "/flight_record")
+    assert status == 200
+    assert {e["kind"] for e in json.loads(body)["events"]} >= {
+        "submit", "admit", "retire"}
+    status, body = _request(port, "POST", "/profile",
+                            {"rounds": 1, "trace_dir": str(tmp_path)})
+    assert status == 200 and json.loads(body)["ok"]
+    assert _request(port, "PUT", "/api", {"prompts": ["3 4"],
+                                          "tokens_to_generate": 2})[0] == 200
+    # the trace is written after the round that answered the PUT
+    deadline = time.monotonic() + 30
+    while not list(tmp_path.glob("profile_engine_*.json")):
+        assert time.monotonic() < deadline, "no profiler trace written"
+        time.sleep(0.05)
 
 
 def test_engine_validation_matches_jax_server_with_engine():
