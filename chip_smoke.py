@@ -225,16 +225,26 @@ Phases, one output line each (a failure raises and exits non-zero):
    4096, 4 microbatches, bf16 on fp32
    AdamW, full recompute, blend 0.7/0.3, eval every 3 steps: R trains 6
    steps with an async save at 3 and the final save at 6
-   (keep_latest_n 1); K is
-   R with --exit_signal_handler and a SIGTERM after step 3, so it makes
-   its emergency save at 3 and returns; C loads K and trains steps 4-6.
+   (keep_latest_n 1), with the recipe's `--tensorboard_dir
+   --log_timers_to_tensorboard` and `--trace_dir`,
+   `--device_cost_registry`, `--perf_sentinel_ksigma 8`,
+   `--log_memory_to_tensorboard` and a profile window over step 5; K is
+   R without them, with --exit_signal_handler, `--flight_record_dir` and
+   a SIGTERM after step 3, so it makes its emergency save at 3, dumps its
+   flight record and returns; C loads K and trains steps 4-6.
    The counters are set to 0 before each run and read after it: K4, K5
    and K6 run exactly the launches the code implies (eval forwards
    included), K1, K2, K3 and K7 never. C resumes at iteration 3 with 12
    samples consumed, its losses equal R's bit for bit and its final
-   checkpoint R's leaf by leaf; the g++ sample indices equal their
-   numpy version and the first batches are the samples the sampler
-   names. Printed with the card's name and power limit: ms per step
+   checkpoint R's leaf by leaf (telemetry on trains the bits telemetry
+   off does); R's event file, read back by the port's reader with its
+   CRCs, holds lm-loss at steps 1-6 equal to R's losses, its span trace
+   a train-step span a step, its profile window K4-K6 by kernel name;
+   K's SIGTERM dump loads with its goodput snapshot; the g++ sample
+   indices equal their numpy version and the first batches are the
+   samples the sampler names. Printed with the card's name and power
+   limit: the registry's train.step FLOPs beside the analytic count, the
+   telemetry's ms a step (R's steps against K's and C's), ms per step
    (median of R's steps 2-6) beside the train phase's, model TFLOP/s,
    the loader's host ms a step, preprocess s, each save's blocked ms
    and commit s, bytes on disk and the load's s. The checkpoints live
@@ -265,8 +275,9 @@ Phases, one output line each (a failure raises and exits non-zero):
    dp 2 with sequence parallelism and ZeRO-1 over gloo, every rank on
    cuda:0 and every collective staged through host memory, on the
    recipe's flags and phase 18's corpora: 2 steps (PAR_STEPS) and a
-   save, then the same ranks resume it for step 3, and world size 1
-   resumes it too.
+   save (run P, with `--tensorboard_dir` and `--trace_dir`: rank 0's is
+   the one event file, every rank writes its trace), then the same ranks
+   resume it for step 3, and world size 1 resumes it too.
    Losses and grad norms within 2e-2 / 5e-2 of (a)'s world-size-1 run
    (the same weights and global batches); every rank reports the same;
    K4-K6 8 launches a rank a step; the save is per-rank files (each
@@ -4485,6 +4496,13 @@ def zero_counts():
         pa.ragged_paged_attention.variant_launches, 0)
 
 
+def step_events(trainer):
+    """The trainer's flight recorder's `step` events: per step its
+    iteration, loss, ms and goodput bucket."""
+    return [e for e in trainer.recorder.snapshot()["events"]
+            if e["kind"] == "step"]
+
+
 def train_slice(kernels):
     """8 steps of 4 microbatches through Trainer.setup()/train() on one
     fixed global batch (memorisation): AdamW as in the Llama 2 paper
@@ -4530,7 +4548,7 @@ def train_slice(kernels):
                 "rmsnorm_fwd": (2 * L + 1 + 2 * L) * M * S,
                 "rmsnorm_bwd": (2 * L + 1) * M * S,
                 "decode_attention": 0, "ragged_paged_attention": 0}
-    losses = [r["loss"] for r in trainer.step_log]
+    losses = [r["loss"] for r in step_events(trainer)]
     skipped = [int(x["skipped"]) for x in stats_log]
     gnorms = [float(x["grad_norm"]) for x in stats_log]
     say("train", config="llama2-7b widths", layers=L,
@@ -4628,7 +4646,7 @@ def throughput_train(trainer, state, text):
     first calls), tokens/s, model TFLOP/s (6 N a token, the trainer's own
     formula) against 989, peak memory; then one more step under
     torch.profiler for the kernels' device time and the busy share."""
-    ms = [r["ms"] for r in trainer.step_log[1:]]
+    ms = [r["ms"] for r in step_events(trainer)[1:]]
     med = float(np.median(ms))
     tokens = TRAIN_MICRO * trainer.cfg.seq_length
     tok_s, tflops = trainer.throughput(TRAIN_MICRO, med / 1e3)
@@ -4774,9 +4792,9 @@ def train_remat(kernels, cfg, text):
         runs[label] = {
             "policy": policy, "recompute_method": rcfg.recompute_method,
             "remat_layers": n_remat,
-            "step_ms": [r["ms"] for r in trainer.step_log],
+            "step_ms": [r["ms"] for r in step_events(trainer)],
             "step_ms_median": float(np.median(
-                [r["ms"] for r in trainer.step_log[1:]])),
+                [r["ms"] for r in step_events(trainer)[1:]])),
             "peak_memory_gb": peak, **act,
             "step1_loss": stats_log[0][0],
             "step1_grad_norm": stats_log[0][1],
@@ -4906,7 +4924,23 @@ def finetune_run(argv, sigterm_after=None, on_state=None):
     def train(inner):
         def run(self, state):
             out = inner(self, state)
-            rec["steps"] = [dict(r) for r in self.step_log]
+            # the loader's ms of a step: its batch-generator span
+            # (under --trace_dir)
+            loader = {e["args"].get("step"): e["dur"] / 1e3
+                      for e in self.tracer.events()
+                      if e["name"] == "batch-generator"}
+            rec["steps"] = [dict(r, data_ms=loader.get(r["step"]))
+                            for r in step_events(self)]
+            rec["costs"] = None if self.costs is None \
+                else self.costs.rows()
+            rec["telemetry"] = {
+                "profile_path": self.profile_path,
+                "trace_path": self.trace_path,
+                "gauges": {k: v for k, v in self.timers.gauges().items()
+                           if isinstance(v, (int, float, str))},
+                "dumps": self.recorder.dumps,
+                "dump_path": self.recorder.last_dump_path,
+                "goodput": self.ledger.snapshot()}
             rec["n_params"] = self._n_params
             rec["groups_in_backward"] = [
                 f.groups_in_backward() for f in self._train_steps.values()]
@@ -5079,12 +5113,115 @@ def check_finetune_data(rec):
     return n
 
 
+def telemetry_argv(tel):
+    """Run R's telemetry flags: the recipe's tensorboard flags
+    (examples/finetune.sh:77), the span tracer, the cost registry, the
+    armed perf sentinel, the memory gauges, and the profile window over
+    step 5, all under `tel`."""
+    return ["--tensorboard_dir", str(tel / "tb"),
+            "--log_timers_to_tensorboard", "--trace_dir",
+            str(tel / "trace"), "--device_cost_registry",
+            "--perf_sentinel_ksigma", "8", "--log_memory_to_tensorboard",
+            "--profile", "--profile_step_start", "4",
+            "--profile_step_end", "5", "--profile_dir",
+            str(tel / "profile")]
+
+
+def check_finetune_telemetry(R, K, C, tel):
+    """Run R's event file read back by the port's own reader (both CRCs
+    of every record): lm-loss at steps 1-6 equal to R's logged losses
+    (float32), the recipe's iteration-time and the card's memory gauges;
+    R's span trace: one train-step span a step; its profile window
+    (step 5): K4, K5 and K6 by kernel name; K's sigterm dump: loads, with
+    the goodput snapshot; the registry's train.step FLOPs beside the
+    analytic count. Also the telemetry's cost a step: R's steps 2, 3 and
+    6 (telemetry on, outside the profile window) against K's 2 and 3 and
+    C's 5 and 6 (telemetry off), the same batches."""
+    from megatron_llm_tpu_torch.telemetry.chipspec import (
+        train_flops_per_token,
+    )
+    from megatron_llm_tpu_torch.training.tensorboard import read_events
+
+    files = sorted((tel / "tb").glob("events.out.tfevents.*"))
+    check(len(files) == 1, f"R's event files {files}")
+    scalars = {}
+    for ev in read_events(str(files[0])):
+        for v in ev.get("values", []):
+            if "simple_value" in v:
+                scalars.setdefault(v["tag"], {})[ev["step"]] = \
+                    v["simple_value"]
+    losses = {s["step"]: s["loss"] for s in R["steps"]}
+    check(scalars.get("lm-loss") == {
+        k: float(np.float32(v)) for k, v in losses.items()}
+        and sorted(losses) == list(range(1, 7)),
+        f"lm-loss events {scalars.get('lm-loss')} != R's {losses}")
+    for tag, steps in (("iteration-time", range(1, 7)),
+                       ("mem-bytes-in-use", range(1, 7)),
+                       ("max-memory-allocated-bytes", [0])):
+        check(sorted(scalars.get(tag, {})) == list(steps),
+              f"event tag {tag}: steps {sorted(scalars.get(tag, {}))}")
+    trace_path = R["telemetry"]["trace_path"]
+    with open(trace_path) as f:
+        spans = [e for e in json.load(f)["traceEvents"]
+                 if e["name"] == "train-step"]
+    check([e["args"]["step"] for e in spans] == list(range(1, 7)),
+          f"train-step spans {[e['args'] for e in spans]}")
+    with open(R["telemetry"]["profile_path"]) as f:
+        window = [e for e in json.load(f)["traceEvents"]
+                  if e.get("cat") == "kernel"]
+    named = {k: sum(f"{k}_kernel" in e["name"] for e in window)
+             for k in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")}
+    # step 5 of full recompute: K4 twice a layer and microbatch, K5 and
+    # K6 once
+    want = {"flash_fwd": 2 * FT_ENTRY_LAYERS * FT_MICRO,
+            "flash_bwd_dq": FT_ENTRY_LAYERS * FT_MICRO,
+            "flash_bwd_dkv": FT_ENTRY_LAYERS * FT_MICRO}
+    check(named == want, f"profile window kernels {named} != {want}")
+    dumps = sorted((tel / "K_records").glob("flight_record_sigterm_*"))
+    check(len(dumps) == 1, f"K's sigterm dumps {dumps}")
+    with open(dumps[0]) as f:
+        dump = json.load(f)
+    check(dump["extra"]["step"] == 3
+          and dump["extra"]["goodput"]["productive_steps"] == 2,
+          f"K's sigterm dump {dump['extra']}")
+    rec = next(r for r in R["costs"] if r["contract"] == "train.step")
+    analytic = train_flops_per_token(
+        R["n_params"], FT_ENTRY_LAYERS, 4096, FT_SEQ) * FT_MICRO * FT_SEQ
+    on = [R["steps"][i]["ms"] for i in (1, 2, 5)]
+    off = [K["steps"][1]["ms"], K["steps"][2]["ms"], C["steps"][1]["ms"],
+           C["steps"][2]["ms"]]
+    gauges = R["telemetry"]["gauges"]
+    return {"event_tags": sorted(scalars), "lm_loss_events": scalars[
+                "lm-loss"], "train_step_spans": len(spans),
+            "profile_window_kernels": named,
+            "profile_window_kernel_events": len(window),
+            "sigterm_dump": str(dumps[0].name),
+            "registry_train_step_flops": rec["flops"],
+            "registry_train_step_bytes": rec["bytes_accessed"],
+            "analytic_train_step_flops": analytic,
+            "registry_over_analytic": rec["flops"] / analytic,
+            "train_mfu": gauges.get("train_mfu"),
+            "train_mfu_source": gauges.get("train_mfu_source"),
+            "chip_spec": gauges.get("chip_spec"),
+            "train_step_hbm_frac": gauges.get("train_step_hbm_frac"),
+            "goodput_R": R["telemetry"]["goodput"],
+            "step_ms_telemetry_on_R_2_3_6": on,
+            "step_ms_telemetry_off_K_2_3_C_5_6": off,
+            "telemetry_ms_per_step_median_diff":
+                float(np.median(on) - np.median(off)),
+            "profiled_step_ms_R_5": R["steps"][4]["ms"],
+            "registry_step_ms_R_1": R["steps"][0]["ms"],
+            "first_step_ms_K_1": K["steps"][0]["ms"]}
+
+
 def finetune_phase(kernels, train_step_ms):
     """The training entry path: two seeded JSONL corpora through
     preprocess_data, then `finetune.main` three times: R uninterrupted
-    (interval save at 3, final at 6), K the same with SIGTERM after step
-    3 (emergency save at 3), C resuming K to 6. C's losses and final
-    checkpoint must equal R's bit for bit."""
+    (interval save at 3, final at 6) with every telemetry flag of the
+    recipe and more (`telemetry_argv`), K the same with SIGTERM after
+    step 3 (emergency save at 3, its flight record dumped), C resuming K
+    to 6. C's losses and final checkpoint must equal R's bit for bit:
+    the telemetry changes nothing the trainer computes."""
     from megatron_llm_tpu_torch.tools import preprocess_data
 
     shutil.rmtree(FT_DIR, ignore_errors=True)
@@ -5106,9 +5243,13 @@ def finetune_phase(kernels, train_step_ms):
         disk_free_gb_before_saves=free_gb)
 
     r_dir, k_dir = str(FT_DIR / "R"), str(FT_DIR / "K")
-    runs = {"R": finetune_run(finetune_argv(data, r_dir))}
+    tel = FT_DIR / "telemetry"
+    runs = {"R": finetune_run(finetune_argv(
+        data, r_dir, *telemetry_argv(tel)))}
     runs["K"] = finetune_run(finetune_argv(data, k_dir,
-                                           "--exit_signal_handler"),
+                                           "--exit_signal_handler",
+                                           "--flight_record_dir",
+                                           str(tel / "K_records")),
                              sigterm_after=3)
     runs["C"] = finetune_run(finetune_argv(data, k_dir, "--load", k_dir))
     R, K, C = runs["R"], runs["K"], runs["C"]
@@ -5139,6 +5280,7 @@ def finetune_phase(kernels, train_step_ms):
     check(step == 4 and np.array_equal(first.reshape(FT_MICRO, -1), want),
           "C's first batch is not samples 12-15")
     samples = check_finetune_data(R)
+    telemetry = check_finetune_telemetry(R, K, C, tel)
     r_final = os.path.join(r_dir, "iter_0000006")
     c_final = os.path.join(k_dir, "iter_0000006")
     ckpt_bytes = dir_bytes(r_final)
@@ -5172,6 +5314,7 @@ def finetune_phase(kernels, train_step_ms):
         load_s=C["loads"], checkpoint_bytes=ckpt_bytes,
         checkpoint_leaves_equal=leaves, sample_idx_rows_checked=samples,
         run_wall_s={n: r["wall_s"] for n, r in runs.items()},
+        telemetry=telemetry,
         launches=launches, expected_launches={
             k: sum(expected_finetune_launches(*se)[k]
                    for se in ((6, 2), (3, 1), (3, 1)))
@@ -5218,7 +5361,7 @@ RECIPE_LEFT_OUT = {
     "--context_parallel_size": "1 in (a); 2 in the context_parallel "
     "phase",
     "--tensorboard_dir, --log_timers_to_tensorboard":
-        "the trainer's telemetry hooks, ROADMAP.md A3.8",
+        "run R of the finetune phase (and run P of finetune_parallel)",
     "--save, --load, --use_checkpoint_args, --save_interval":
         "no saves here (phase 18 holds the checkpoints)",
     "--eval_interval 50 --eval_iters 10": "no evaluation in a short run",
@@ -5417,7 +5560,7 @@ def finetune_rank(out_dir, argvs_file):
         keep = ("stats", "steps", "launches", "fp16", "by_causal", "wall_s",
                 "saves", "save_rss", "groups_in_backward",
                 "commits", "loads", "iteration", "consumed", "resumed",
-                "parallel", "n_params", "clock_s")
+                "parallel", "n_params", "clock_s", "telemetry")
         out = {k: rec[k] for k in keep if k in rec}
         out.update(peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                    fingerprints={k: str(v) for k, v in fps.items()})
@@ -5541,6 +5684,37 @@ def check_parallel_checkpoint(ck_dir, rank_fps, ctxs=None, zero1=True,
     return checked, meta["iteration"]
 
 
+def check_parallel_telemetry(tel, first):
+    """Run P's telemetry: one event file, rank 0's (only rank 0 writes
+    tensorboard), with lm-loss at every step equal to rank 0's losses;
+    one span trace a rank, the rank in its name, a train-step span a
+    step."""
+    from megatron_llm_tpu_torch.training.tensorboard import read_events
+
+    files = sorted((tel / "tb").glob("events.out.tfevents.*"))
+    check(len(files) == 1, f"run P's event files {files}")
+    lm = {ev["step"]: v["simple_value"]
+          for ev in read_events(str(files[0]))
+          for v in ev.get("values", []) if v["tag"] == "lm-loss"}
+    want = {s["step"]: float(np.float32(s["loss"]))
+            for s in first[0]["steps"]}
+    check(lm == want and len(want) == PAR_STEPS,
+          f"run P lm-loss events {lm} != rank 0's {want}")
+    traces = {}
+    for r, run in enumerate(first):
+        path = run["telemetry"]["trace_path"]
+        check(path is not None and Path(path).name.startswith(
+            f"trace_train_rank{r}_"), f"rank {r}'s trace {path}")
+        with open(path) as f:
+            traces[r] = sum(e["name"] == "train-step"
+                            for e in json.load(f)["traceEvents"])
+    check(set(traces.values()) == {PAR_STEPS}
+          and len(list((tel / "trace").iterdir())) == PAR_RANKS,
+          f"run P's traces {traces}")
+    return {"event_files": [f.name for f in files], "lm_loss_events": lm,
+            "train_step_spans_per_rank": traces}
+
+
 def finetune_parallel(kernels, data, one):
     """`torchrun --nproc_per_node 4 ... finetune.main` at tp 2 x dp 2
     with sequence parallelism and ZeRO-1 over gloo, the four ranks on
@@ -5554,17 +5728,22 @@ def finetune_parallel(kernels, data, one):
     K4-K6 launches per rank as the layout implies; per-rank peak
     memory."""
     ck = FT_DIR / "parallel_ck"
+    tel = FT_DIR / "parallel_telemetry"
     base = mode_argv(data, *RECIPE, "--bf16", "--train_iters", "4")
     t0 = time.perf_counter()
     n, after = str(PAR_STEPS), ["--exit_interval", str(PAR_STEPS + 1)]
+    # run P: the recipe's tensorboard flag and the span tracer
     ranks, log = run_ranks(
         [base + PAR_FLAGS + ["--exit_interval", n, "--save_interval", n,
-                             "--save", str(ck)],
+                             "--save", str(ck), "--tensorboard_dir",
+                             str(tel / "tb"), "--trace_dir",
+                             str(tel / "trace")],
          base + PAR_FLAGS + ["--load", str(ck)] + after], nproc=PAR_RANKS)
     ranks_s = time.perf_counter() - t0
     first = [r[0] for r in ranks]
     resumed = [r[1] for r in ranks]
     ref = one["stats"]
+    p_telemetry = check_parallel_telemetry(tel, first)
     for r, run in enumerate(first):
         check(run["parallel"] == {"backend": "gloo", "staged": True,
                                   "world": 4, "dp": PAR_DP, "pp": 1,
@@ -5624,7 +5803,7 @@ def finetune_parallel(kernels, data, one):
         peak_gb_per_rank=peak, peak_gb_sum=sum(peak),
         launches_per_rank=[run["launches"] for run in first],
         expected_launches_per_rank=parallel_expected_launches(PAR_STEPS),
-        steps_before_save=PAR_STEPS,
+        steps_before_save=PAR_STEPS, telemetry_run_P=p_telemetry,
         checkpoint_leaves_checked=leaves, checkpoint_bytes=ckpt_bytes,
         checkpoint_form="per-rank pieces (model/, optim/, done/ a rank)",
         saves_blocked_ms=first[0]["saves"], commits_s=first[0]["commits"],

@@ -9,18 +9,21 @@ the port's `ModelConfig` (torch dtypes), `ParallelConfig` and
 
 A flag that selects a part of the system the port does not run yet
 raises ValueError naming its slice of ROADMAP.md, never silently
-ignored: the telemetry flags (A3.8), and the BERT and T5 families and
-post-LN layers (A6). GPT,
+ignored: the BERT and T5 families and post-LN layers (A6). GPT,
 Llama, CodeLlama and Falcon (with its parallel attention and parallel
 layernorm) build, with every single-card training mode (the recompute
 policies and block recompute, fp16 with its loss scaler, hidden,
 attention and LIMA dropout) and tensor, sequence, data, pipeline (with
 `--pipeline_remat` and `--async_pipeline_dispatch`) and context
 parallelism with the ZeRO-1 optimizer and its overlap schedulers
-(`--overlap_grad_reduce`, `--overlap_param_gather`) under torchrun.
+(`--overlap_grad_reduce`, `--overlap_param_gather`) under torchrun, and
+every telemetry flag of the trainer (tensorboard, WandB, the profile
+window, span traces, flight records, the cost registry, the perf
+sentinel). Two divergences (ROADMAP.md C, accepted divergences):
 `--distributed_backend {nccl,gloo}` is the reference's flag, which the
 JAX package descopes (XLA has no backend choice): torch needs one, so
-the port takes it (ROADMAP.md C, accepted divergences).
+the port takes it; `--chip_spec` chooses from the port's chip table,
+which holds the H100 (the JAX table holds TPU generations).
 """
 
 from __future__ import annotations
@@ -206,25 +209,11 @@ ENTRY_SCRIPT_FLAGS = {
                                "tools/build_retrieval_index.py"),
 }
 
-_A3_8 = "the trainer's telemetry hooks (ROADMAP.md A3.8)"
 _A6 = "the remaining model families (ROADMAP.md A6)"
 
 # flags of later slices (parser dest -> the slice): a value other than
 # the parser's default raises
-LATER_FLAGS = {
-    **dict.fromkeys((
-        "tensorboard_dir", "tensorboard_log_interval",
-        "tensorboard_queue_size", "log_timers_to_tensorboard",
-        "log_validation_ppl_to_tensorboard", "log_memory_to_tensorboard",
-        "log_world_size_to_tensorboard", "wandb_logger", "wandb_project",
-        "wandb_entity", "wandb_id", "wandb_resume", "wandb_api_key",
-        "profile", "profile_step_start", "profile_step_end", "profile_dir",
-        "profile_step_range", "trace_dir", "flight_record_dir",
-        "flight_recorder_size", "device_cost_registry", "chip_spec",
-        "perf_sentinel_ksigma", "perf_sentinel_window",
-        "perf_sentinel_patience"), _A3_8),
-    "use_post_ln": _A6,
-}
+LATER_FLAGS = {"use_post_ln": _A6}
 
 
 def build_base_parser() -> argparse.ArgumentParser:
@@ -428,8 +417,9 @@ def build_base_parser() -> argparse.ArgumentParser:
     g.add_argument("--flight_record_dir", type=str, default=None)
     g.add_argument("--flight_recorder_size", type=int, default=4096)
     g.add_argument("--device_cost_registry", action="store_true")
+    # the port's chip table holds the H100's row (telemetry/chipspec.py)
     g.add_argument("--chip_spec", type=str, default=None,
-                   choices=["v5e", "v5p", "v4"])
+                   choices=["h100"])
     g.add_argument("--perf_sentinel_ksigma", type=float, default=0.0)
     g.add_argument("--perf_sentinel_window", type=int, default=64)
     g.add_argument("--perf_sentinel_patience", type=int, default=8)
@@ -472,6 +462,12 @@ def args_to_configs(args, padded_vocab_size: int,
 
     if args.recompute_activations and args.recompute_granularity is None:
         args.recompute_granularity = "selective"
+    if args.profile_step_range is not None:
+        start, end = args.profile_step_range
+        if start < 0 or end <= start:
+            raise SystemExit(
+                f"--profile_step_range {start} {end}: requires "
+                f"0 <= START < END (the capture window is [START, END))")
     if args.data_path and (args.train_data_path or args.valid_data_path
                            or args.test_data_path):
         raise SystemExit("--data_path and --train_data_path/"
@@ -630,6 +626,37 @@ def args_to_configs(args, padded_vocab_size: int,
         timing_log_option=args.timing_log_option,
         log_params_norm=args.log_params_norm,
         log_num_zeros_in_grad=args.log_num_zeros_in_grad,
+        tensorboard_dir=args.tensorboard_dir,
+        tensorboard_log_interval=args.tensorboard_log_interval,
+        tensorboard_queue_size=args.tensorboard_queue_size,
+        log_timers_to_tensorboard=args.log_timers_to_tensorboard,
+        log_validation_ppl_to_tensorboard=(
+            args.log_validation_ppl_to_tensorboard),
+        log_memory_to_tensorboard=args.log_memory_to_tensorboard,
+        log_world_size_to_tensorboard=args.log_world_size_to_tensorboard,
+        wandb_logger=args.wandb_logger,
+        wandb_project=args.wandb_project,
+        wandb_entity=args.wandb_entity,
+        wandb_id=args.wandb_id,
+        wandb_resume=args.wandb_resume,
+        wandb_api_key=args.wandb_api_key,
+        # --profile_step_range START END is --profile over [START, END)
+        profile=args.profile or args.profile_step_range is not None,
+        profile_step_start=(args.profile_step_range[0]
+                            if args.profile_step_range is not None
+                            else args.profile_step_start),
+        profile_step_end=(args.profile_step_range[1]
+                          if args.profile_step_range is not None
+                          else args.profile_step_end),
+        profile_dir=args.profile_dir,
+        trace_dir=args.trace_dir,
+        flight_record_dir=args.flight_record_dir,
+        flight_recorder_size=args.flight_recorder_size,
+        device_cost_registry=args.device_cost_registry,
+        chip_spec=args.chip_spec,
+        perf_sentinel_ksigma=args.perf_sentinel_ksigma,
+        perf_sentinel_window=args.perf_sentinel_window,
+        perf_sentinel_patience=args.perf_sentinel_patience,
         seed=args.seed,
     )
     dargs = DataArgs(

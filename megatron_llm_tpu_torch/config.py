@@ -515,15 +515,39 @@ class TrainConfig:
     log_params_norm: bool = False
     log_num_zeros_in_grad: bool = False
 
-    # The trainer's telemetry hooks (a later slice): each raises in
-    # Trainer while set.
-    flight_record_dir: Optional[str] = None
+    # The trainer's telemetry (training/trainer.py): tensorboard event
+    # files (training/tensorboard.py) on their own cadence, WandB
+    # (training/wandb_logger.py), a torch.profiler window over steps
+    # [profile_step_start, profile_step_end), the span tracer under
+    # trace_dir, the always-on flight recorder (dumps into
+    # flight_record_dir, default `save`), the device-cost registry, the
+    # chip spec of the MFU and roofline gauges, and the step-latency perf
+    # sentinel (armed by perf_sentinel_ksigma > 0).
     tensorboard_dir: Optional[str] = None
+    tensorboard_log_interval: int = 1
+    tensorboard_queue_size: int = 1000
+    log_timers_to_tensorboard: bool = False
+    log_validation_ppl_to_tensorboard: bool = False
+    log_memory_to_tensorboard: bool = False
+    log_world_size_to_tensorboard: bool = False
     wandb_logger: bool = False
+    wandb_project: Optional[str] = None
+    wandb_entity: Optional[str] = None
+    wandb_id: Optional[str] = None
+    wandb_resume: bool = False
+    wandb_api_key: Optional[str] = None
     profile: bool = False
+    profile_step_start: int = 10
+    profile_step_end: int = 12
+    profile_dir: Optional[str] = None
     trace_dir: Optional[str] = None
+    flight_record_dir: Optional[str] = None
+    flight_recorder_size: int = 4096
     device_cost_registry: bool = False
+    chip_spec: Optional[str] = None
     perf_sentinel_ksigma: float = 0.0
+    perf_sentinel_window: int = 64
+    perf_sentinel_patience: int = 8
 
     seed: int = 1234
 

@@ -11,8 +11,9 @@ run of a new key (a CPU engine, an uncaptured round, the whole-prompt
 prefill of a new bucket), and the page copy, export and import once at
 construction. Per run:
 
-- FLOPs: `torch.utils.flop_counter.FlopCounterMode` over the run (its
-  formulas: matmuls, convolutions, attention library calls);
+- FLOPs: `torch.utils.flop_counter`'s formulas (matmuls,
+  convolutions, attention library calls) for every aten op of the run,
+  each op run as it was called (`_count_mode`);
 - bytes: for every aten op of the run, the bytes of the distinct tensors
   it reads and writes (view and allocation ops move nothing and count
   nothing);
@@ -26,6 +27,14 @@ construction. Per run:
 - temp bytes: the engine's CUDA graph pool's reserved bytes after the
   capture (the pool is shared by all of an engine's rounds), None on
   the CPU; arg bytes: the bytes the run binds (weights, pools, inputs).
+
+The trainer captures `train.step` (and `train.pipeline_step` at pp > 1),
+keyed by the microbatch count, on the first real step of each count,
+while that step runs: no extra step is taken, so the parameters and the
+optimizer move exactly as with the registry off. A training step's
+backward runs on autograd's device threads, so that capture opens its
+tally for every thread (`all_threads=True`): the dispatch modes follow
+autograd there, and K4-K6's wrappers report their launches from there.
 
 These counts differ from XLA's by definition: XLA counts every fused
 elementwise operation and its own HBM traffic after fusion; here FLOPs
@@ -52,44 +61,70 @@ def _key_str(key: Any) -> str:
 # the open capture of this thread: [flops, bytes, launches] the kernel
 # wrappers add to (`note_launch`)
 _tally = threading.local()
+# the open capture of every thread without one of its own (a capture with
+# all_threads=True: the trainer's step, whose backward runs on autograd's
+# threads); a list so that it is rebound, never mutated, across threads
+_shared = [None]
 
 
 def note_launch(flops: float, nbytes: float) -> None:
     """A kernel wrapper's own count for one launch of its kernel. A
-    no-op unless a capture is open on this thread."""
+    no-op unless a capture is open on this thread (or one for all
+    threads)."""
     t = getattr(_tally, "open", None)
+    if t is None:
+        t = _shared[0]
     if t is not None:
         t[0] += flops
         t[1] += nbytes
         t[2] += 1
 
 
-def _byte_mode():
-    """A dispatch mode adding, for every aten op, the bytes of the
-    distinct tensors it reads and writes (built on first use: the
-    dispatch-mode machinery is torch's, imported only when counting)."""
+def _count_mode():
+    """A dispatch mode counting, for every aten op it sees, its FLOPs by
+    `torch.utils.flop_counter`'s formulas (products, convolutions,
+    attention library calls) and the bytes of the distinct tensors it
+    reads and writes (view and allocation ops move nothing and count
+    nothing). It runs each op as it was called: torch's
+    `FlopCounterMode` decomposes ops its table lacks into other ops,
+    which can change a run's rounding, so it is not used. Built on first
+    use: the dispatch-mode machinery is torch's, imported only when
+    counting."""
     import torch
     from torch.utils._python_dispatch import TorchDispatchMode
     from torch.utils._pytree import tree_leaves
+    from torch.utils.flop_counter import flop_registry
 
-    class _Bytes(TorchDispatchMode):
+    class _Count(TorchDispatchMode):
         def __init__(self):
             super().__init__()
+            self.flops = 0
             self.nbytes = 0
 
         def __torch_dispatch__(self, func, types, args=(), kwargs=None):
-            out = func(*args, **(kwargs or {}))
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            leaves = tree_leaves((args, kwargs, out))
+            if func.namespace == "megatron_llm_tpu_torch" and any(
+                    isinstance(x, torch.Tensor) and x.is_cuda
+                    for x in leaves):
+                # the port's own op (the flash forward) launched its
+                # kernel, whose wrapper reported it (`note_launch`)
+                return out
+            formula = flop_registry.get(func._overloadpacket)
+            if formula is not None:
+                self.flops += formula(*args, **kwargs, out_val=out)
             name = func.__name__
             if getattr(func, "is_view", False) or "empty" in name:
                 return out
             seen = set()
-            for x in tree_leaves((args, kwargs, out)):
+            for x in leaves:
                 if isinstance(x, torch.Tensor) and id(x) not in seen:
                     seen.add(id(x))
                     self.nbytes += x.numel() * x.element_size()
             return out
 
-    return _Bytes()
+    return _Count()
 
 
 @dataclass
@@ -157,31 +192,34 @@ class CostRegistry:
         return (name, _key_str(key)) in self._records
 
     def capture(self, name: str, key: Any, run: Callable[[], Any],
-                arg_bytes: Optional[int] = None):
+                arg_bytes: Optional[int] = None, all_threads: bool = False):
         """Run `run()` once under the counting modes and store its
         record; returns what `run()` returned. A failure of the counting
         itself is swallowed into `capture_errors` (the run's own errors
-        propagate: it is real work)."""
+        propagate: it is real work). `all_threads`: kernel launches on
+        other threads count too (module doc)."""
         try:
-            from torch.utils.flop_counter import FlopCounterMode
-
-            flop_mode = FlopCounterMode(display=False)
-            byte_mode = _byte_mode()
+            mode = _count_mode()
         except Exception:  # noqa: BLE001: counting must never block a mint
             with self._lock:
                 self.capture_errors += 1
             return run()
         tally = [0.0, 0.0, 0]
         prev = getattr(_tally, "open", None)
+        prev_shared = _shared[0]
         _tally.open = tally
+        if all_threads:
+            _shared[0] = tally
         try:
-            with flop_mode, byte_mode:
+            with mode:
                 out = run()
         finally:
             _tally.open = prev
+            if all_threads:
+                _shared[0] = prev_shared
         rec = CostRecord(contract=name, key=_key_str(key),
-                         flops=float(flop_mode.get_total_flops()) + tally[0],
-                         bytes_accessed=float(byte_mode.nbytes) + tally[1],
+                         flops=float(mode.flops) + tally[0],
+                         bytes_accessed=float(mode.nbytes) + tally[1],
                          arg_bytes=arg_bytes, launches=tally[2])
         self._store(rec)
         return out

@@ -362,13 +362,17 @@ class CheckpointManager:
     same work runs before `save()` returns. `last_blocked_ms` is how
     long the last `save()` held its caller, `last_commit_s` how long the
     last save took from its call to COMPLETE. Call
-    `wait_until_finished()` before the process exits."""
+    `wait_until_finished()` before the process exits. With a flight
+    recorder (telemetry/recorder.py) the save lifecycle is in its ring:
+    `ckpt_dispatched` (async) or `ckpt_certified` (sync) with the blocked
+    ms, then `ckpt_certified` or `ckpt_failed` from the writer thread."""
 
     def __init__(self, save_dir: str, keep_latest_n: Optional[int] = None,
-                 async_save: bool = True):
+                 async_save: bool = True, recorder=None):
         self.save_dir = os.path.abspath(save_dir)
         self.keep_latest_n = keep_latest_n
         self.async_save = async_save
+        self.recorder = recorder
         self._writer: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
         self._protected: set = set()
@@ -400,16 +404,32 @@ class CheckpointManager:
                            protect=self._protected | {path})
         self.last_commit_s = time.perf_counter() - t0
 
-    def _commit_in_thread(self, commit, *args) -> None:
+    def _commit_in_thread(self, commit, iteration, *args) -> None:
         try:
             commit(*args)
         except Exception as e:  # noqa: BLE001 - raised by the next wait
             self._error = e
+            self._record("ckpt_failed", step=iteration, error=repr(e))
+        else:
+            self._record("ckpt_certified", step=iteration)
+
+    def _record(self, kind: str, **fields) -> None:
+        if self.recorder is not None:
+            self.recorder.record(kind, **fields)
+
+    def _dispatched(self, iteration: int, t0: float) -> None:
+        """The end of a `save()`: how long it held its caller."""
+        self.last_blocked_ms = (time.perf_counter() - t0) * 1e3
+        self.saves += 1
+        self._record("ckpt_dispatched" if self.async_save
+                     else "ckpt_certified", step=iteration,
+                     blocked_ms=round(self.last_blocked_ms, 3))
 
     def _start(self, commit, iteration, args) -> None:
         if self.async_save:
             self._writer = threading.Thread(
-                target=self._commit_in_thread, args=(commit,) + args,
+                target=self._commit_in_thread,
+                args=(commit, iteration) + args,
                 name=f"ckpt-write-{iteration}")
             self._writer.start()
         else:
@@ -470,8 +490,7 @@ class CheckpointManager:
         self._start(self._commit_pieces, iteration,
                     (path, iteration, rank, world, host_m, host_o, index,
                      meta, t0))
-        self.last_blocked_ms = (time.perf_counter() - t0) * 1e3
-        self.saves += 1
+        self._dispatched(iteration, t0)
         return path
 
     def save(self, iteration: int, params: dict,
@@ -494,8 +513,7 @@ class CheckpointManager:
                            consumed_train_samples, rng_key, extra_meta)
         self._start(self._commit, iteration,
                     (path, iteration, model, optim, meta, t0))
-        self.last_blocked_ms = (time.perf_counter() - t0) * 1e3
-        self.saves += 1
+        self._dispatched(iteration, t0)
         return path
 
 

@@ -5,8 +5,9 @@ Same interface shape: `timers('name', log_level).start()/.stop()`,
 `timers.log(names)`, `timers.write(names, writer, iteration)`. Device
 work is asynchronous: a timer that should include device time must be
 stopped after a host sync (the trainer reads the loss, which serves as
-that barrier). The JAX package's timers also emit trace spans; that
-belongs to the telemetry slice and is not carried over.
+that barrier). With a tracer (telemetry/trace.SpanTracer) every
+start/stop interval of a named timer is also a span on its timeline, as
+in the JAX package.
 """
 
 from __future__ import annotations
@@ -16,8 +17,10 @@ from typing import List, Optional
 
 
 class _Timer:
-    def __init__(self, name: str):
+    def __init__(self, name: str, tracer=None):
         self.name = name
+        # the span tracer: each start/stop interval lands on its timeline
+        self._tracer = tracer
         self._elapsed = 0.0
         self._started = False
         self._start_time = 0.0
@@ -29,8 +32,11 @@ class _Timer:
 
     def stop(self):
         assert self._started, f"timer {self.name} not started"
-        self._elapsed += time.perf_counter() - self._start_time
+        now = time.perf_counter()
+        self._elapsed += now - self._start_time
         self._started = False
+        if self._tracer is not None:
+            self._tracer.complete(self.name, self._start_time, now)
 
     def reset(self):
         self._elapsed = 0.0
@@ -39,12 +45,16 @@ class _Timer:
     def elapsed(self, reset: bool = True) -> float:
         started = self._started
         if started:
+            # the internal stop/start pair is bookkeeping, not an
+            # interval: it emits no span
+            tracer, self._tracer = self._tracer, None
             self.stop()
         total = self._elapsed
         if reset:
             self.reset()
         if started:
             self.start()
+            self._tracer = tracer
         return total
 
 
@@ -52,9 +62,12 @@ class Timers:
     """ref: Timers (timers.py:120-307); log_option max/minmax/all collapse
     to the single-process value in the single-controller runtime."""
 
-    def __init__(self, log_level: int = 0, log_option: str = "minmax"):
+    def __init__(self, log_level: int = 0, log_option: str = "minmax",
+                 tracer=None):
         self._log_level = log_level
         self._log_option = log_option
+        # timer intervals double as the tracer's spans (None: no spans)
+        self._tracer = tracer
         self._timers: dict = {}
         self._log_levels: dict = {}
         # one-shot run facts (remat policy, compiled temp/args bytes, ...)
@@ -77,7 +90,7 @@ class Timers:
 
     def __call__(self, name: str, log_level: Optional[int] = None) -> _Timer:
         if name not in self._timers:
-            self._timers[name] = _Timer(name)
+            self._timers[name] = _Timer(name, tracer=self._tracer)
             self._log_levels[name] = log_level if log_level is not None else 0
         return self._timers[name]
 

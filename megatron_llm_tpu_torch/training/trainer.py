@@ -17,9 +17,47 @@ of the SIGTERM, duration and autoresume exits and of the end of
 `pretrain`, the loss watchdog's rollback to the last complete
 checkpoint), and `pretrain`. The loop reads one value back from the card
 per step, the loss, as the JAX loop does (:1044); the log reads the
-gradient norm and skip flag at its interval. Each step appends its host
-facts to `step_log` (step, loss, ms, the loader's ms), the part of the
-JAX flight recorder's step trail this slice keeps.
+gradient norm and skip flag at its interval.
+
+The telemetry (JAX :144-191, :255-291, :395-560, :725-870, :873-980,
+:1000-1200), all host bookkeeping outside the step, so a run with every
+flag on computes the same bits as one with every flag off:
+- the always-on flight recorder (`recorder`, `--flight_recorder_size`):
+  a `step` event per step (step, loss, ms, goodput bucket), the
+  watchdog's verdicts, the checkpoint lifecycle and the perf sentinel's;
+  dumped into `--flight_record_dir` (default `--save`) on a watchdog
+  rollback, the SIGTERM emergency save and a perf-sentinel trip, each
+  dump carrying the goodput snapshot;
+- the span tracer under `--trace_dir` (the named timers are its spans),
+  exported at the end of `train()` as `trace_train_<pid>.json`
+  (`trace_train_rank<r>_<pid>.json` across ranks);
+- the always-on goodput ledger (`ledger`): each step's wall in one
+  bucket (productive; "compile" for the first step of a microbatch
+  count; "watchdog" for a skipped step), save stalls, rollbacks and the
+  loader's wait; eval and logging land in the derived idle bucket, as
+  in JAX;
+- the `train_step_ms` histogram, and the perf sentinel on it
+  (`--perf_sentinel_ksigma > 0`, productive steps only);
+- the device-cost registry (`--device_cost_registry`): `train.step`
+  (`train.pipeline_step` at pp > 1) keyed by the microbatch count,
+  counted during the first real step of each count
+  (telemetry/costs.py); with a chip spec (`--chip_spec` or a detected
+  H100) the log's gauges `train_mfu`, `train_mfu_effective`,
+  `train_mfu_source`, `chip_spec`, `train_step_achieved_gbps` and
+  `train_step_hbm_frac`;
+- tensorboard (training/tensorboard.py: the port writes its own event
+  files, with or without the `tensorboard` package) and WandB
+  (training/wandb_logger.py) on `--tensorboard_log_interval`, with the
+  JAX tags, written by rank 0 only; the run facts once at step 0 (on a
+  card under `--log_memory_to_tensorboard`, the first step's
+  `torch.cuda.max_memory_allocated()` and peak reserved bytes, where
+  JAX logs the compiled step's temp and argument bytes);
+- the profile window (`--profile`, steps [profile_step_start,
+  profile_step_end)): `torch.profiler` with CUDA activity on a card and
+  CPU activity on the CPU, started and stopped where JAX starts and
+  stops `jax.profiler`, written as Chrome trace JSON
+  (`profile_train_<pid>.json`, the rank in the name across ranks) into
+  `--profile_dir`, `--tensorboard_dir` or ./profile.
 
 A save of an iteration this trainer has already saved (the emergency
 save after an interval save of the same step, the final save after an
@@ -56,14 +94,11 @@ waited for before an eval, a save, a rollback and the loop's end. At
 pp > 1 `evaluate`
 runs the pipelined loss forward (JAX :607-690), which refuses a batch
 with `--reset_attention_mask`'s masks (JAX :533-540).
-
-Later slices, each raising ValueError while set: tensorboard and WandB,
-profiling and span traces, the flight-record dumps, the device-cost
-registry and the perf sentinel (the trainer's telemetry hooks, A3.8).
 """
 
 from __future__ import annotations
 
+import os
 import signal as _signal
 import time
 from dataclasses import dataclass
@@ -88,7 +123,9 @@ from megatron_llm_tpu_torch.optimizer.optimizer import (
     tree_map,
 )
 from megatron_llm_tpu_torch.optimizer.zero1 import (
+    build_overlap_plan,
     build_state_plan,
+    build_zero1_plan,
     map_indexed,
 )
 from megatron_llm_tpu_torch.parallel.mesh import gather_rows, get_context
@@ -105,6 +142,17 @@ from megatron_llm_tpu_torch.parallel.sharding import (
     spec_leaves,
     stage_axis,
 )
+from megatron_llm_tpu_torch.telemetry import (
+    NULL_TRACER,
+    CostRegistry,
+    FlightRecorder,
+    GoodputLedger,
+    Histogram,
+    PerfSentinel,
+    SpanTracer,
+    detect_chip,
+)
+from megatron_llm_tpu_torch.telemetry.chipspec import train_flops_per_token
 from megatron_llm_tpu_torch.training.checkpointing import (
     CheckpointManager,
     flatten,
@@ -115,10 +163,15 @@ from megatron_llm_tpu_torch.training.checkpointing import (
 from megatron_llm_tpu_torch.training.microbatches import (
     build_num_microbatches_calculator,
 )
+from megatron_llm_tpu_torch.training.tensorboard import SummaryWriter
 from megatron_llm_tpu_torch.training.timers import Timers
 from megatron_llm_tpu_torch.training.train_step import (
     make_eval_step,
     make_train_step,
+)
+from megatron_llm_tpu_torch.training.wandb_logger import (
+    WandBConfig,
+    WandbTBShim,
 )
 from megatron_llm_tpu_torch.training.watchdog import LossWatchdog
 from megatron_llm_tpu_torch.utils.masks import (
@@ -126,11 +179,12 @@ from megatron_llm_tpu_torch.utils.masks import (
     get_ltor_masks_and_position_ids,
 )
 
-# TrainConfig fields of later slices: (field, the slice that ports it)
-_LATER = tuple(
-    (name, "the trainer's telemetry hooks, ROADMAP.md A3.8") for name in (
-        "tensorboard_dir", "wandb_logger", "profile", "trace_dir",
-        "flight_record_dir", "device_cost_registry", "perf_sentinel_ksigma"))
+
+def _tensor_bytes(*trees) -> int:
+    """The bytes of every tensor in `trees` (dicts, lists, tuples, named
+    tuples; other leaves count nothing)."""
+    return sum(x.numel() * x.element_size() for x in tree_leaves(trees)
+               if isinstance(x, torch.Tensor))
 
 
 class SignalHandler:
@@ -340,10 +394,6 @@ class Trainer:
                  reset_position_ids: bool = False,
                  reset_attention_mask: bool = False,
                  eod_mask_loss: bool = False, batch_builder=None):
-        for name, slice_name in _LATER:
-            if getattr(tcfg, name):
-                raise ValueError(f"TrainConfig.{name} is not ported yet "
-                                 f"({slice_name})")
         cfg: ModelConfig = model.cfg
         self.model = model
         self.cfg = cfg
@@ -357,10 +407,39 @@ class Trainer:
         self.reset_position_ids = reset_position_ids
         self.reset_attention_mask = reset_attention_mask
         self.eod_mask_loss = eod_mask_loss
-        self.timers = Timers(tcfg.timing_log_level, tcfg.timing_log_option)
+        ctx = get_context()
+        # the parallel context across ranks; None on one card
+        self.ctx = ctx if ctx is not None and ctx.world_size > 1 else None
+        self._rank0 = self.ctx is None or self.ctx.rank == 0
+        # telemetry (module doc): every rank keeps its own tracer,
+        # recorder, ledger, histogram and sentinel
+        self.tracer = (SpanTracer(enabled=True) if tcfg.trace_dir
+                       else NULL_TRACER)
+        self.recorder = FlightRecorder(tcfg.flight_recorder_size)
+        self._step_ms_hist = Histogram(
+            "train_step_ms", help_text="wall ms per optimizer step "
+            "(dispatch + loss fetch)")
+        self.ledger = GoodputLedger()
+        self.chip = detect_chip(devices=[self.device],
+                                override=tcfg.chip_spec)
+        self.costs = (CostRegistry(chip=self.chip)
+                      if tcfg.device_cost_registry else None)
+        self.sentinel = PerfSentinel(
+            k_sigma=tcfg.perf_sentinel_ksigma,
+            window=max(tcfg.perf_sentinel_window, 4),
+            patience=max(tcfg.perf_sentinel_patience, 1),
+            recorder=self.recorder, name="train_step_ms")
+        self._last_step_minted = False
+        self._last_num_micro: Optional[int] = None
+        self.timers = Timers(tcfg.timing_log_level, tcfg.timing_log_option,
+                             tracer=self.tracer)
         self._n_params = 0  # set in setup(); enables the TFLOP/s log field
         self._eval_step_fn = None
-        self.step_log: list = []  # per step: step, loss, ms, data_ms, bad
+        self._run_facts_logged = False
+        self._profiler = None  # the open torch.profiler window
+        self.profile_path: Optional[str] = None  # its last trace file
+        self.trace_path: Optional[str] = None  # the exported span trace
+        self._tb_writer = self._make_writer() if self._rank0 else None
         self.num_microbatches_calc = build_num_microbatches_calculator(
             tcfg.global_batch_size, tcfg.micro_batch_size,
             pcfg.data_parallel_size, tcfg.rampup_batch_size)
@@ -391,7 +470,8 @@ class Trainer:
         self.watchdog = LossWatchdog(
             k_sigma=tcfg.loss_watchdog_ksigma,
             window=max(tcfg.loss_watchdog_window, 4),
-            patience=tcfg.spike_rollback_patience)
+            patience=tcfg.spike_rollback_patience,
+            recorder=self.recorder)
         self.signal_handler = (SignalHandler() if tcfg.exit_signal_handler
                                else None)
         # the checkpoint writer is made at the first save
@@ -402,14 +482,30 @@ class Trainer:
                                        tcfg.autoresume_interval)
                             if tcfg.autoresume_file else None)
         self._train_steps: dict = {}  # num_microbatches -> step function
-        ctx = get_context()
-        # the parallel context across ranks; None on one card
-        self.ctx = ctx if ctx is not None and ctx.world_size > 1 else None
         self.layout: Optional[StateLayout] = None
-        self._rank0 = self.ctx is None or self.ctx.rank == 0
         # the dropout base stream (models/dropout.py), set by train() or
         # restored from a checkpoint; None without dropout
         self._dropout_seed: Optional[int] = None
+
+    def _make_writer(self):
+        """Rank 0's scalar sink (JAX :261-290): the event writer under
+        --tensorboard_dir, wrapped by the WandB shim under
+        --wandb_logger; None without either. `world-size` at step 0
+        under --log_world_size_to_tensorboard."""
+        tcfg = self.tcfg
+        writer = None
+        if tcfg.tensorboard_dir:
+            writer = SummaryWriter(tcfg.tensorboard_dir,
+                                   max_queue=tcfg.tensorboard_queue_size)
+        if tcfg.wandb_logger:
+            writer = WandbTBShim(writer, WandBConfig(
+                project=tcfg.wandb_project or "megatron_llm_tpu",
+                entity=tcfg.wandb_entity, id=tcfg.wandb_id,
+                resume=tcfg.wandb_resume, api_key=tcfg.wandb_api_key))
+        if writer is not None and tcfg.log_world_size_to_tensorboard:
+            writer.add_scalar("world-size", 1 if self.ctx is None
+                              else self.ctx.world_size, 0)
+        return writer
 
     # ------------------------------------------------------------------
     def setup(self, params: Optional[dict] = None) -> TrainState:
@@ -514,13 +610,34 @@ class Trainer:
                           packed_doc_starts=cp > 1, device=self.device)
         batch = context_shard(batch, self.ctx)
         lr, wd = self.scheduler.get_lr(), self.scheduler.get_wd()
+        # the first step of a microbatch count is the goodput ledger's
+        # "compile" step and, with the registry on, the one it counts
+        minted = num_micro not in self._train_steps
+        self._last_step_minted = minted
+        self._last_num_micro = num_micro
         step_fn = self._get_step_fn(num_micro)
+        first_step = state.iteration == 0 and not self._run_facts_logged
         # the watchdog's in-step skip gate: +inf until its window has
         # history (NaN/inf losses still skip)
-        params, opt_state, stats = step_fn(
-            state.params, state.opt_state, batch, lr, wd, dropout_rng,
-            self.watchdog.threshold())
+        thr = self.watchdog.threshold()
+
+        def run():
+            return step_fn(state.params, state.opt_state, batch, lr, wd,
+                           dropout_rng, thr)
+
+        if minted and self.costs is not None:
+            # counted while it runs (telemetry/costs.py): no extra step
+            params, opt_state, stats = self.costs.capture(
+                "train.pipeline_step"
+                if self.pcfg.pipeline_parallel_size > 1 else "train.step",
+                num_micro, run, all_threads=True,
+                arg_bytes=_tensor_bytes(state.params, state.opt_state,
+                                        batch))
+        else:
+            params, opt_state, stats = run()
         state.params, state.opt_state = params, opt_state
+        if first_step:
+            self._log_run_facts(params, opt_state)
         state.iteration += 1
         mbs_dp = batch["tokens"].shape[1] * self.pcfg.data_parallel_size
         self.scheduler.step(num_micro * mbs_dp if self._samples_mode else 1)
@@ -583,10 +700,152 @@ class Trainer:
             tok_s, tflops = self.throughput(stats["batch_size"], elapsed)
             line += (f" | tokens/sec: {tok_s:.1f} | "
                      f"model TFLOP/s: {tflops:.2f}")
+        # the goodput partition re-set each log (its seconds move every
+        # step) and the MFU and roofline gauges with a known chip
+        for name, val in self.ledger.counters().items():
+            self.timers.gauge(name, val)
+        self._device_cost_gauges(elapsed, stats["batch_size"])
         self._print(line)
         if self._rank0:
             self.timers.log(["batch-generator", "train-step"],
                             normalizer=self.tcfg.log_interval)
+
+    def _log_run_facts(self, params, opt_state):
+        """Once, after the first step (JAX :397-515): the recompute
+        policy, at pp > 1 the pipeline's, under ZeRO-1 this rank's
+        moment bytes and the plan's gradient wire bytes and buckets, and
+        on a card under --log_memory_to_tensorboard the step's peak
+        allocated and reserved bytes; printed as the run facts line and
+        written at step 0 (strings as text)."""
+        self._run_facts_logged = True
+        facts = {"remat-policy": self.cfg.resolved_remat_policy}
+        if self.pcfg.pipeline_parallel_size > 1:
+            facts["pipeline-remat"] = self.pcfg.resolved_pipeline_remat
+        if self.pcfg.use_distributed_optimizer and self.layout is not None \
+                and self.layout.plan is not None:
+            facts["zero1-path"] = "explicit-rs"
+            quantized = self.pcfg.quantized_grad_reduce
+            if quantized:
+                facts["zero1-quantized-reduce"] = True
+            overlap_on = [n for n, f in (
+                ("grads", self.pcfg.overlap_grad_reduce),
+                ("gather", self.pcfg.overlap_param_gather)) if f]
+            if overlap_on:
+                facts["zero1-overlap"] = "+".join(overlap_on)
+            facts["opt-state-bytes-device"] = _tensor_bytes(opt_state.m,
+                                                            opt_state.v)
+            # the plan the step reduces by: one reduction a step, then
+            # the parameters' all-gather (JAX reduces every microbatch)
+            if self.pcfg.overlap_grad_reduce:
+                step_plan = build_overlap_plan(
+                    self.cfg, params, self.ctx.dp,
+                    bucket_mb=self.pcfg.grad_rs_bucket_mb)
+            else:
+                step_plan = build_zero1_plan(
+                    self.cfg, params, self.ctx.dp,
+                    bucket_mb=self.pcfg.grad_rs_bucket_mb,
+                    pp=self.pcfg.pipeline_parallel_size)
+            facts["grad-comm-bytes-step"] = (
+                step_plan.comm_bytes_per_reduce(quantized)
+                + _tensor_bytes(params))
+            bucket_bytes = step_plan.bucket_comm_bytes(quantized)
+            facts["grad-rs-buckets"] = len(bucket_bytes)
+            facts["grad-rs-bucket-bytes"] = list(bucket_bytes)
+        if self.tcfg.log_memory_to_tensorboard \
+                and self._tb_writer is not None \
+                and self.device.type == "cuda":
+            facts["max-memory-allocated-bytes"] = \
+                torch.cuda.max_memory_allocated(self.device)
+            facts["max-memory-reserved-bytes"] = int(
+                torch.cuda.memory_stats(self.device).get(
+                    "reserved_bytes.all.peak", 0))
+        for k, v in facts.items():
+            self.timers.gauge(k, v)
+        if self._rank0:
+            self.timers.log([])  # the run facts line, now
+        if self._tb_writer is not None:
+            self.timers.write([], self._tb_writer, 0)
+            if hasattr(self._tb_writer, "log_run_metadata"):
+                self._tb_writer.log_run_metadata(facts)
+
+    def _device_cost_gauges(self, elapsed: float, batch_size: int):
+        """The live MFU and roofline gauges (JAX :746-805), absent
+        without a chip spec. `train_mfu` is the logged step's FLOPs over
+        its wall and the peak; `train_mfu_effective` debits every
+        non-productive second of the ledger. The FLOPs are the
+        registry's record of the microbatch count the step ran
+        (`train_mfu_source` "registry": this rank's step against one
+        card's peak) or the analytic 6 N + attention model ("analytic":
+        the whole step against every rank's card)."""
+        if self.chip is None or not self._n_params or elapsed <= 0:
+            return
+        key = self._last_num_micro
+        rec = (self.costs.record("train.step", key)
+               or self.costs.record("train.pipeline_step", key)) \
+            if self.costs is not None and key is not None else None
+        peak = self.chip.peak_flops_for(str(self.cfg.compute_dtype))
+        if rec is not None and rec.flops:
+            step_flops, source = rec.flops, "registry"
+        else:
+            step_flops = train_flops_per_token(
+                self._n_params, self.cfg.num_layers, self.cfg.hidden_size,
+                self.cfg.seq_length) * batch_size * self.cfg.seq_length
+            source = "analytic"
+            peak *= 1 if self.ctx is None else self.ctx.world_size
+        self.timers.gauge("train_mfu", round(step_flops / elapsed / peak, 6))
+        snap = self.ledger.snapshot()
+        if snap["wall_s"] > 0 and snap["productive_steps"]:
+            self.timers.gauge(
+                "train_mfu_effective",
+                round(step_flops * snap["productive_steps"]
+                      / snap["wall_s"] / peak, 6))
+        self.timers.gauge("train_mfu_source", source)
+        self.timers.gauge("chip_spec", self.chip.label())
+        if rec is not None and rec.bytes_accessed:
+            gbps = rec.bytes_accessed / elapsed / 1e9
+            self.timers.gauge("train_step_achieved_gbps", round(gbps, 1))
+            self.timers.gauge("train_step_hbm_frac",
+                              round(gbps * 1e9 / self.chip.hbm_bytes_s, 4))
+
+    def _tb_log(self, state: TrainState, stats: dict, elapsed: float):
+        """Tensorboard and WandB scalars on --tensorboard_log_interval
+        (JAX :807-861), with its tags; rank 0 only (the others hold no
+        writer)."""
+        w = self._tb_writer
+        if w is None or (state.iteration
+                         % max(self.tcfg.tensorboard_log_interval, 1)):
+            return
+        it = state.iteration
+        w.add_scalar("lm-loss", float(stats["loss"]), it)
+        w.add_scalar("learning-rate", stats["lr"], it)
+        w.add_scalar("grad-norm", float(stats["grad_norm"]), it)
+        w.add_scalar("batch-size", stats["batch_size"], it)
+        if "loss_scale" in stats:
+            w.add_scalar("loss-scale", float(stats["loss_scale"]), it)
+        if "params_norm" in stats:
+            w.add_scalar("params-norm", float(stats["params_norm"]), it)
+        if "num_zeros" in stats:
+            w.add_scalar("num-zeros", int(stats["num_zeros"]), it)
+        if self.tcfg.log_timers_to_tensorboard:
+            w.add_scalar("iteration-time", elapsed, it)
+        w.add_scalar("loss-watchdog-skipped", self.watchdog.skipped, it)
+        w.add_scalar("loss-watchdog-rollbacks", self.watchdog.rollbacks, it)
+        snap = self.ledger.snapshot()
+        w.add_scalar("goodput-fraction", snap["goodput_fraction"], it)
+        for b, v in snap["buckets"].items():
+            w.add_scalar(f"goodput-{b}-seconds", v, it)
+        if self.sentinel.enabled:
+            w.add_scalar("perf-sentinel-trips", self.sentinel.trips, it)
+        if self._ckpt_manager is not None and self._ckpt_manager.saves:
+            w.add_scalar("ckpt-blocked-ms",
+                         self._ckpt_manager.last_blocked_ms, it)
+        if self.tcfg.log_memory_to_tensorboard \
+                and self.device.type == "cuda":
+            # the allocator's live bytes (JAX: the device's bytes_in_use);
+            # no gauge on the CPU
+            w.add_scalar("mem-bytes-in-use",
+                         torch.cuda.memory_allocated(self.device), it)
+        w.flush()
 
     def throughput(self, batch_size: int, elapsed: float):
         """(tokens/s, model TFLOP/s) of one step: 6 N FLOPs per token, the
@@ -599,7 +858,7 @@ class Trainer:
         if self._ckpt_manager is None:
             self._ckpt_manager = CheckpointManager(
                 self.tcfg.save, keep_latest_n=self.tcfg.keep_latest_n,
-                async_save=self.tcfg.async_save)
+                async_save=self.tcfg.async_save, recorder=self.recorder)
             self._ckpt_manager.protect(self._loaded_ckpt_path)
         return self._ckpt_manager
 
@@ -610,10 +869,12 @@ class Trainer:
         if not self.tcfg.save:
             return
         mgr = self._get_ckpt_manager()
+        t_save = time.perf_counter()
         if self._saved_iteration == state.iteration:
             # this state is saved already, or its save is in flight
             if blocking:
                 self._wait_for_commit()
+                self._note_stall("checkpoint", t_save)
             return
         self.timers("save-checkpoint").start()
         self.drain_param_gathers()
@@ -635,11 +896,27 @@ class Trainer:
         self.timers("save-checkpoint").stop()
         self._saved_iteration = state.iteration
         self.timers.gauge("ckpt_blocked_ms", round(mgr.last_blocked_ms, 2))
+        self.tracer.instant("ckpt_blocked",
+                            blocked_ms=round(mgr.last_blocked_ms, 3))
         if blocking:
             self._wait_for_commit()
+        # the loop's whole save stall: the host copies, the previous
+        # save's tail and (blocking) the commit
+        self._note_stall("checkpoint", t_save)
         self._print(f"saved checkpoint at iteration {state.iteration} to "
                     f"{self.tcfg.save}"
                     f"{' (committed)' if blocking else ' (async)'}")
+
+    def _note_stall(self, bucket: str, t0: float) -> None:
+        """The goodput ledger's `bucket` gets the seconds since `t0`,
+        once the loop has started its clock."""
+        if self.ledger.started:
+            self.ledger.note(bucket, time.perf_counter() - t0)
+
+    def _flight_record_dir(self) -> Optional[str]:
+        """Where the flight-record dumps land: --flight_record_dir, else
+        the --save dir; None keeps them in memory and in the log."""
+        return self.tcfg.flight_record_dir or self.tcfg.save
 
     def drain_param_gathers(self) -> None:
         """Wait for the parameter all-gathers in flight
@@ -707,6 +984,7 @@ class Trainer:
                         "--save dir is configured; continuing in skip-only "
                         "mode")
             return False
+        t_roll = time.perf_counter()
         # the save in flight is the newest: it must land first
         self.drain_param_gathers()
         self._get_ckpt_manager()
@@ -733,12 +1011,57 @@ class Trainer:
         if meta.get("scheduler"):
             self.scheduler.load_state_dict(meta["scheduler"])
         self._get_ckpt_manager().protect(meta.get("loaded_path"))
-        self.watchdog.note_rollback()
+        self.watchdog.note_rollback(step=iteration + poison,
+                                    restored_step=iteration)
+        self.tracer.instant("watchdog_rollback", restored_step=iteration,
+                            poison_window=poison)
+        # the reload's stall is the watchdog's; the dump (before training
+        # resumes) names the failing step range
+        self._note_stall("watchdog", t_roll)
+        self.recorder.dump(
+            self._flight_record_dir(), "watchdog-rollback",
+            extra={"restored_step": iteration, "poison_window": poison,
+                   "rollback": self.watchdog.rollbacks,
+                   "goodput": self.ledger.snapshot()})
         self._print(f"LOSS WATCHDOG ROLLBACK: reloaded iteration "
                     f"{iteration} from {self.tcfg.save}; data iterator "
                     f"fast-forwarded past the {poison}-iteration poison "
                     f"window (rollback #{self.watchdog.rollbacks})")
         return True
+
+    def _rank_tag(self) -> str:
+        """`_rank<r>` across ranks, empty on one card: a per-rank file's
+        name part."""
+        return "" if self.ctx is None else f"_rank{self.ctx.rank}"
+
+    def _start_profile(self) -> None:
+        """Open the torch.profiler window: CUDA activity on a card, the
+        host's ops on the CPU."""
+        from torch.profiler import ProfilerActivity, profile
+
+        act = (ProfilerActivity.CUDA if self.device.type == "cuda"
+               else ProfilerActivity.CPU)
+        self._profiler = profile(activities=[act])
+        self._profiler.start()
+        self.recorder.record("profile_start")
+
+    def _stop_profile(self) -> None:
+        """Close the window and write its raw kineto events as Chrome
+        trace JSON (the parsed event list of a long window takes the
+        host minutes) into --profile_dir, else --tensorboard_dir, else
+        ./profile."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        prof, self._profiler = self._profiler, None
+        prof.stop()
+        d = self.tcfg.profile_dir or self.tcfg.tensorboard_dir or "./profile"
+        os.makedirs(d, exist_ok=True)
+        path = os.path.join(d, f"profile_train{self._rank_tag()}_"
+                               f"{os.getpid()}.json")
+        prof.profiler.kineto_results.save(path)
+        self.profile_path = path
+        self.recorder.record("profile_done", path=path)
+        self._print(f"profile window written to {path}")
 
     def train(self, state: TrainState) -> TrainState:
         """The loop (JAX :985-1199, the paths this slice ports)."""
@@ -756,7 +1079,12 @@ class Trainer:
             return tcfg.train_iters is None or \
                 state.iteration < tcfg.train_iters
 
+        # the goodput clock starts with the loop: every second from here
+        # lands in exactly one bucket
+        self.ledger.start()
         while keep_going():
+            # every span of this iteration carries the step it belongs to
+            self.tracer.set_context(step=state.iteration + 1)
             self.timers("batch-generator").start()
             t_fetch = time.perf_counter()
             try:
@@ -766,9 +1094,14 @@ class Trainer:
                 break
             finally:
                 self.timers("batch-generator").stop()
-            data_ms = (time.perf_counter() - t_fetch) * 1e3
+                self.ledger.note("data_wait", time.perf_counter() - t_fetch)
             step_rng = None if self._dropout_seed is None \
                 else fold_in(self._dropout_seed, state.iteration)
+            # the profile window (JAX :1029-1037)
+            if (tcfg.profile and self._profiler is None
+                    and tcfg.profile_step_start <= state.iteration
+                    < tcfg.profile_step_end):
+                self._start_profile()
             t0 = time.time()
             self.timers("train-step").start()
             stats = self.train_step(state, text, step_rng)
@@ -779,24 +1112,59 @@ class Trainer:
             # a bad step (NaN/inf or a spike) was already skipped on the
             # card by the threshold gate; the host counts the streak and
             # rolls back after `spike_rollback_patience` in a row
-            bad = self.watchdog.observe(loss_val)
-            self.step_log.append({"step": state.iteration, "loss": loss_val,
-                                  "ms": elapsed * 1e3, "data_ms": data_ms,
-                                  "bad": bad})
+            bad = self.watchdog.observe(loss_val, step=state.iteration)
+            # the step's wall in one bucket: the first step of a
+            # microbatch count, a skipped step, or productive
+            bucket = ("compile" if self._last_step_minted
+                      else "watchdog" if bad else "productive")
+            self.ledger.note(bucket, elapsed)
+            self._step_ms_hist.observe(elapsed * 1e3)
+            self.recorder.record("step", step=state.iteration, loss=loss_val,
+                                 ms=round(elapsed * 1e3, 3), bucket=bucket)
+            if self._profiler is not None \
+                    and state.iteration >= tcfg.profile_step_end:
+                self._stop_profile()
             if bad:
+                self.tracer.instant("watchdog_bad", loss=loss_val,
+                                    streak=self.watchdog.consecutive_bad)
                 self._print(f"loss watchdog: bad step at iteration "
                             f"{state.iteration} (loss {loss_val:.6E}, "
                             f"streak {self.watchdog.consecutive_bad})")
                 if self.watchdog.should_rollback():
                     self._rollback(state)
+            elif bucket == "productive" and self.sentinel.enabled \
+                    and self.sentinel.observe(elapsed * 1e3,
+                                              step=state.iteration):
+                # productive steps only: a first step would poison the
+                # latency baseline as a spike poisons the loss window
+                self.timers.gauge("perf_sentinel_trips", self.sentinel.trips)
+                self.tracer.instant("perf_regression",
+                                    step_ms=round(elapsed * 1e3, 3))
+                self.recorder.dump(
+                    self._flight_record_dir(), "perf-regression",
+                    extra={"step": state.iteration,
+                           "trip": self.sentinel.trips,
+                           "step_ms": round(elapsed * 1e3, 3),
+                           "threshold_ms": round(
+                               self.sentinel.last_threshold, 3),
+                           "goodput": self.ledger.snapshot()})
             if state.iteration % tcfg.log_interval == 0:
                 self._training_log(state, stats, elapsed)
+            self._tb_log(state, stats, elapsed)
             if (tcfg.eval_interval and self.valid_data_iterator is not None
                     and state.iteration % tcfg.eval_interval == 0):
                 val = self.evaluate(state)
+                ppl = float(np.exp(min(20.0, val)))
                 self._print(f"validation loss at iteration "
                             f"{state.iteration}: {val:.6E} | ppl: "
-                            f"{float(np.exp(min(20.0, val))):.4f}")
+                            f"{ppl:.4f}")
+                if self._tb_writer is not None \
+                        and tcfg.log_validation_ppl_to_tensorboard:
+                    self._tb_writer.add_scalar("lm-loss-validation", val,
+                                               state.iteration)
+                    self._tb_writer.add_scalar("lm-loss-validation-ppl",
+                                               ppl, state.iteration)
+                    self._tb_writer.flush()
             if tcfg.save_interval and state.iteration % tcfg.save_interval \
                     == 0:
                 self._save(state)
@@ -806,7 +1174,17 @@ class Trainer:
                     self.signal_handler.signals_received()):
                 self._print("exiting on termination signal - emergency "
                             "save")
+                self.recorder.record("sigterm", step=state.iteration)
                 self._save(state, blocking=True)
+                # the killed run's last steps, after the committed save
+                self.recorder.dump(
+                    self._flight_record_dir(), "sigterm",
+                    extra={"step": state.iteration,
+                           "consumed_train_samples":
+                               state.consumed_train_samples,
+                           "goodput": self.ledger.snapshot(),
+                           **({"costs": self.costs.snapshot()}
+                              if self.costs is not None else {})})
                 host_barrier("emergency-save-done")
                 break
             if tcfg.exit_duration_in_mins is not None and all_hosts_any(
@@ -826,11 +1204,23 @@ class Trainer:
                     == 0:
                 self._print(f"exiting at iteration {state.iteration}")
                 break
+        if self._profiler is not None:
+            # an exit inside the window: its trace is written all the same
+            self._stop_profile()
         # the parameter gathers and an interval save in flight land
         # before the loop returns
         self.drain_param_gathers()
         if self._ckpt_manager is not None or self.layout is not None:
             self._wait_for_commit()
+        if self._tb_writer is not None:
+            self._tb_writer.flush()
+        if tcfg.trace_dir:
+            self.trace_path = self.tracer.export(os.path.join(
+                tcfg.trace_dir, f"trace_train{self._rank_tag()}_"
+                f"{os.getpid()}.json"))
+            if self.trace_path:
+                print(f"span trace exported to {self.trace_path} "
+                      f"(Perfetto / chrome://tracing)", flush=True)
         return state
 
 

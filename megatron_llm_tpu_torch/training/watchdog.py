@@ -22,13 +22,12 @@ restart-and-skip around spikes). This module makes that loop automatic:
   (training/trainer.py `_rollback`).
 
 Counters (`skipped`, `rollbacks`) are exported through the timers-gauge
-path (`loss_watchdog_skipped` / `loss_watchdog_rollbacks`).
+path and tensorboard (`loss_watchdog_skipped` / `loss_watchdog_rollbacks`);
+with a flight recorder every bad verdict and rollback is an event of its
+ring, keyed by step.
 
 Port of training/watchdog.py, host only; its `RobustWindow` is the
-perf sentinel's (telemetry/sentinel.py), one definition for both. The
-rollback itself needs checkpoints (a later slice); the ported trainer
-runs the skip gate and counts. The JAX copy's
-flight-recorder events belong to the telemetry slice and are left out.
+perf sentinel's (telemetry/sentinel.py), one definition for both.
 """
 
 from __future__ import annotations
@@ -46,10 +45,13 @@ class LossWatchdog:
     `patience <= 0` disables rollback escalation (skip-only mode)."""
 
     def __init__(self, k_sigma: float = 0.0, window: int = 64,
-                 patience: int = 0, min_history: int = 8):
+                 patience: int = 0, min_history: int = 8,
+                 recorder=None):
         assert window >= 4 and min_history >= 2
         self.k_sigma = k_sigma
         self.patience = patience
+        # telemetry.FlightRecorder or None: the verdict trail of a dump
+        self.recorder = recorder
         # median + MAD over a sliding window with the min_history arming
         # clamp
         self._stat = RobustWindow(window=window, min_history=min_history)
@@ -72,15 +74,21 @@ class LossWatchdog:
 
     # -- per-step protocol -------------------------------------------------
 
-    def observe(self, loss: float) -> bool:
+    def observe(self, loss: float, step: int = -1) -> bool:
         """Feed one step's loss; returns True when the step was BAD
         (non-finite or spiking) — the trainer's in-step threshold already
         skipped the update for exactly these steps, so the watchdog and
-        the device agree by construction (same threshold value)."""
-        bad = (not math.isfinite(loss)) or loss > self.threshold()
+        the device agree by construction (same threshold value).
+        `step` keys the recorder's verdict event."""
+        thr = self.threshold()
+        bad = (not math.isfinite(loss)) or loss > thr
         if bad:
             self.consecutive_bad += 1
             self.skipped += 1
+            if self.recorder is not None:
+                self.recorder.record(
+                    "watchdog_bad", step=step, loss=loss,
+                    threshold=thr, streak=self.consecutive_bad)
         else:
             self.consecutive_bad = 0
             self._stat.push(loss)
@@ -89,13 +97,18 @@ class LossWatchdog:
     def should_rollback(self) -> bool:
         return self.patience > 0 and self.consecutive_bad >= self.patience
 
-    def note_rollback(self) -> None:
+    def note_rollback(self, step: int = -1,
+                      restored_step: int = -1) -> None:
         """Reset after the trainer reloaded a checkpoint: the window is
         cleared (it described the diverged trajectory, not the restored
         one) and the bad-streak ends."""
         self.rollbacks += 1
         self.consecutive_bad = 0
         self._stat.clear()
+        if self.recorder is not None:
+            self.recorder.record("watchdog_rollback", step=step,
+                                 restored_step=restored_step,
+                                 rollback=self.rollbacks)
 
     def counters(self) -> dict:
         return {"loss_watchdog_skipped": self.skipped,

@@ -296,7 +296,8 @@ def _run(tm, tp, tcfg, batches, iteration=0):
     state = trainer.setup(params=tp)
     assert state.iteration == iteration
     trainer.train(state)
-    return [r["loss"] for r in trainer.step_log], trainer
+    return [e["loss"] for e in trainer.recorder.snapshot()["events"]
+            if e["kind"] == "step"], trainer
 
 
 @pytest.mark.parametrize("no_load_rng", [False, True])

@@ -5,7 +5,8 @@
 - the same argv gives equal configs, field by field, for llama2,
   codellama and gpt, and for each single-card training mode's flags
   (fp16 and its loss scalers, dropout and LIMA, the recompute policies
-  and block recompute); flags of later slices raise, naming the slice;
+  and block recompute), and the trainer's telemetry flags; flags of
+  later slices raise, naming the slice;
 - entry parity: the JAX `finetune.main` trains a tiny Llama 0 -> 3 on a
   blend of two corpora and saves; that save, restored with the JAX
   loader and written through `checkpoint_from_jax`, resumes the port's
@@ -91,9 +92,12 @@ def _actions(parser):
             for a in parser._actions if a.option_strings}
 
 
-# the port's one divergence from the JAX flag surface: torch needs a
-# collective backend, which the JAX package accepts and ignores
+# the port's divergences from the JAX flag surface: torch needs a
+# collective backend, which the JAX package accepts and ignores; and
+# --chip_spec names a row of each package's own chip table (the H100's
+# in the port, TPU generations in JAX)
 PORT_ONLY = ("--distributed_backend",)
+OWN_CHOICES = {"--chip_spec": ("h100",)}
 
 
 def test_parsers_carry_the_same_options():
@@ -104,6 +108,10 @@ def test_parsers_carry_the_same_options():
         if opts[0] in PORT_ONLY:
             assert p[opts][0] == opts[0].lstrip("-")
             assert p[opts][4] == ("nccl", "gloo")
+            continue
+        if opts[0] in OWN_CHOICES:
+            assert p[opts][4] == OWN_CHOICES[opts[0]]
+            assert p[opts][:4] + p[opts][5:] == j[opts][:4] + j[opts][5:]
             continue
         assert j[opts] == p[opts], opts
     assert len(p) > 150
@@ -206,8 +214,59 @@ def test_later_slice_flags_raise_by_name(flags, slice_name):
         else:
             arguments.args_to_configs(args, 32000)
         return
+    if slice_name == "A3.8":
+        # the trainer's telemetry is ported: its flags build the JAX
+        # package's TrainConfig fields
+        argv += ["--data_parallel_size", "1"]
+        args = arguments.build_base_parser().parse_args(argv)
+        jargs = jax_args.build_base_parser().parse_args(argv)
+        _same_fields(arguments.args_to_configs(args, 32000)[2],
+                     jax_args.args_to_configs(jargs, 32000)[2],
+                     TrainConfig, JaxTrainConfig)
+        return
     with pytest.raises(ValueError, match=slice_name.replace(".", r"\.")):
         arguments.args_to_configs(args, 32000)
+
+
+TELEMETRY = ("--tensorboard_dir /tmp/tb --tensorboard_log_interval 2 "
+             "--tensorboard_queue_size 7 --log_timers_to_tensorboard "
+             "--log_validation_ppl_to_tensorboard "
+             "--log_memory_to_tensorboard --log_world_size_to_tensorboard "
+             "--wandb_logger --wandb_project p --wandb_entity e "
+             "--wandb_id i --wandb_resume --wandb_api_key k "
+             "--trace_dir /tmp/tr --flight_record_dir /tmp/fr "
+             "--flight_recorder_size 64 --device_cost_registry "
+             "--perf_sentinel_ksigma 3 --perf_sentinel_window 16 "
+             "--perf_sentinel_patience 2")
+
+
+@pytest.mark.parametrize("profile", [
+    "--profile --profile_step_start 4 --profile_step_end 5 "
+    "--profile_dir /tmp/p",
+    "--profile_step_range 3 7",
+], ids=["window", "range"])
+def test_telemetry_flags_build_the_jax_configs(profile):
+    """Every telemetry flag of the trainer reaches the same TrainConfig
+    field as in the JAX package (--chip_spec chooses from each package's
+    own table: h100 in the port); a profile range that is not a window
+    is refused by both."""
+    argv = (f"--model_name llama2 --num_layers 2 --data_parallel_size 1 "
+            f"{TELEMETRY} "
+            f"{profile}").split()
+    jargs = jax_args.build_base_parser().parse_args(argv)
+    pargs = arguments.build_base_parser().parse_args(argv)
+    pt = arguments.args_to_configs(pargs, 32000)[2]
+    jt = jax_args.args_to_configs(jargs, 32000)[2]
+    names = _same_fields(pt, jt, TrainConfig, JaxTrainConfig)
+    assert {"tensorboard_dir", "wandb_api_key", "profile_step_end",
+            "perf_sentinel_patience", "flight_recorder_size"} <= names
+    assert pt.profile and pt.profile_step_start < pt.profile_step_end
+    pargs = arguments.build_base_parser().parse_args(
+        argv + ["--chip_spec", "h100", "--profile_step_range", "5", "5"])
+    with pytest.raises(SystemExit, match="profile_step_range"):
+        arguments.args_to_configs(pargs, 32000)
+    pargs.profile_step_range = None
+    assert arguments.args_to_configs(pargs, 32000)[2].chip_spec == "h100"
 
 
 @pytest.mark.parametrize("flags", [
@@ -527,9 +586,13 @@ def test_watchdog_rollback_end_to_end(tmp_path):
     assert state.consumed_train_samples == 20 * 2
     for leaf in tree_leaves(state.params):
         assert torch.isfinite(leaf).all()
-    steps = [r["step"] for r in trainer.step_log]
+    events = trainer.recorder.snapshot()["events"]
+    steps = [e["step"] for e in events if e["kind"] == "step"]
     assert steps[:12] == list(range(1, 13)) and steps[12] == 11
-    assert [r["bad"] for r in trainer.step_log].count(True) == 2
+    assert [e["step"] for e in events if e["kind"] == "watchdog_bad"] \
+        == [11, 12]
+    assert [e["restored_step"] for e in events
+            if e["kind"] == "watchdog_rollback"] == [10]
     assert "ckpt_blocked_ms" in trainer.timers.gauges()
 
 

@@ -1,6 +1,7 @@
 """PyTorch port isolation: the port and chip_smoke.py never import JAX or
-the JAX package (nor, at module level, `safetensors`, `transformers` or
-`ml_dtypes`, which the card's machine lacks), their model, kernel,
+the JAX package (nor, at module level, `safetensors`, `transformers`,
+`ml_dtypes`, `tensorboard` or `wandb`, which the card's machine lacks),
+their model, kernel,
 training and serving entry points default to the card, and the weight
 converters touch no device."""
 
@@ -63,7 +64,7 @@ def test_every_module_imports_without_jax():
     script = textwrap.dedent(f"""
         import importlib, sys
         for name in ("jax", "jaxlib", "megatron_llm_tpu", "safetensors",
-                     "transformers", "ml_dtypes"):
+                     "transformers", "ml_dtypes", "tensorboard", "wandb"):
             sys.modules[name] = None
         for m in {_modules()!r}:
             importlib.import_module(m)
@@ -101,7 +102,8 @@ def test_no_jax_import_in_source(path):
                 if isinstance(node, ast.Import) else [node.module or ""]
             for name in names:
                 assert name.split(".")[0] not in (
-                    "safetensors", "transformers", "ml_dtypes"), (path, name)
+                    "safetensors", "transformers", "ml_dtypes",
+                    "tensorboard", "wandb"), (path, name)
 
 
 @pytest.mark.parametrize("fn,arg", [

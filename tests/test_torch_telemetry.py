@@ -270,7 +270,7 @@ def test_cost_records_export_equal_jax():
 
 
 def test_torch_counting_of_a_run():
-    """FLOPs from FlopCounterMode, bytes of each op's distinct tensors,
+    """FLOPs from flop_counter's formulas, bytes of each op's distinct tensors,
     and a wrapper's own report (`note_launch`) added only inside a
     capture; the run's result comes back unchanged."""
     reg = pt_costs.CostRegistry()

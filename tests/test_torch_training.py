@@ -325,19 +325,23 @@ def test_training_after_serving_in_one_process():
     assert params["layers"]["attention"]["wqkv"].grad is not None
 
 
-def test_remat_policies_of_later_slices_raise():
-    """What stays refused: the trainer's telemetry hooks, the pipeline's
-    async dispatch (pipeline parallelism trains since, its parity in
+def test_remat_policies_of_later_slices_raise(tmp_path):
+    """What stays refused: the pipeline's async dispatch without a
+    pipeline (pipeline parallelism trains since, its parity in
     tests/test_torch_pipeline.py), and a data-parallel layout with no
-    ranks to run it.
+    ranks to run it. The trainer's telemetry is no longer refused: a
+    tensorboard directory gets an event file (its parity in
+    tests/test_torch_trainer_telemetry.py).
     Selective remat, dropout and fp16 train; their parity with the JAX
     package is in tests/test_torch_{remat,dropout,grad_scaler}.py, and
     data and tensor parallelism's in tests/test_torch_{zero1,
     tensor_parallel,parallel_finetune}.py."""
     tm = LlamaModel(torch_cfg(remat_policy="selective"), device="cpu")
-    with pytest.raises(ValueError, match="telemetry"):
-        Trainer(tm, TrainConfig(tensorboard_dir="/nonexistent"),
-                ParallelConfig())
+    trainer = Trainer(tm, TrainConfig(tensorboard_dir=str(tmp_path)),
+                      ParallelConfig())
+    assert [p.name.startswith("events.out.tfevents.")
+            for p in tmp_path.iterdir()] == [True]
+    trainer._tb_writer.close()
     with pytest.raises(ValueError, match="pipeline"):
         ParallelConfig(async_pipeline_dispatch=True)
     from megatron_llm_tpu_torch.training.train_step import make_train_step
@@ -426,7 +430,8 @@ def test_trainer_matches_jax_trainer(jax_run):
     for (l, g), (rl, rg) in zip(log, jax_run["log"]):
         assert l == pytest.approx(rl, rel=1e-5)
         assert g == pytest.approx(rg, rel=1e-5)
-    assert [r["loss"] for r in trainer.step_log] == [l for l, _ in log]
+    assert [e["loss"] for e in trainer.recorder.snapshot()["events"]
+            if e["kind"] == "step"] == [l for l, _ in log]
     _close_tree(state.params, jax_run["params"], 1e-5, "params")
 
 
