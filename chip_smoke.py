@@ -83,7 +83,7 @@ Phases, one output line each (a failure raises and exits non-zero):
    the device ms of one 8-slot paged decode step beside the weight
    floor, the device ms of one mixed round's paged forward and K7's part
    of it (torch.profiler), peak memory;
-10b. graph_capture (at 16 of 32 layers, CAPTURE_LAYERS): 8 of the
+10b. graph_capture (at 4 of 32 layers, CAPTURE_LAYERS): 8 of the
    engine's greedy requests queued and drained
    by the bf16 engine with every round a replayed graph, and the same
    queue's first rounds (every mixed round and 4 decode rounds) with
@@ -110,14 +110,14 @@ Phases, one output line each (a failure raises and exits non-zero):
    step and of a mixed round's forward (and K7's part), with K7's tc
    design and, in the same call, with every launch forced to the present
    design;
-12. serving_engine_window: the 7B's first 8 of 32 layers (WINDOW_LAYERS)
+12. serving_engine_window: the 7B's first 4 of 32 layers (WINDOW_LAYERS)
    with `attention_window_size=1024`, max_context 4096, 12 requests (8
    reaching 1564-3128 positions) queued and drained in a pool of 8 x 21
    pages that their reach overflows: the streams bitwise those of the
    mask-only engine, pages reclaimed, no slot above 21 pages, every page
    back, a kernels-off windowed re-score within 5e-2, every K7 launch
    the window variant;
-13. serving_engine_spec_whole_prompt (at 16 of 32 layers, SPEC_LAYERS):
+13. serving_engine_spec_whole_prompt (at 4 of 32 layers, SPEC_LAYERS):
    8 requests (4 with repeating prompts) over HTTP through the chunked
    engine, with `spec_decode_k=4` and with whole-prompt admission:
    acceptance, tokens/s and TTFT of each, and log-probs within 5e-2 of
@@ -129,7 +129,10 @@ Phases, one output line each (a failure raises and exits non-zero):
 14b. serving_engine_fp32: Llama-2-7B widths at 2 of 32 layers in fp32
    (weights, compute, pools) behind the same server, 4 requests: every K7
    launch the present design (fp32 pools); log-probs re-scored on a
-   kernels-off fp32 engine within 1e-3;
+   kernels-off fp32 engine within 1e-3. Also, after the kernel checks,
+   kernel_time_paged_fp32: K7's present design at this engine's own
+   shape (fp32 q and pools, its decode and mixed rounds) against its
+   plain version (1e-3), beside SDPA in fp32 and the bound;
 14c. launcher_llama (the serving entry path, after the 7B of phase 4 is
    written out and freed): its first 4 of 32 layers
    (LLAMA_LAUNCH_LAYERS) written as an HF Llama directory
@@ -185,9 +188,9 @@ Phases, one output line each (a failure raises and exits non-zero):
    kernel_time_serving_tp2: K7 (tc, bf16 and int8 pools, decode and
    mixed rounds) and K1 ("gtd" and the ring's "tgd") at a tp 2 rank's
    16 groups against their plain versions, beside SDPA and the bound;
-14e. launcher_falcon: Falcon-7B at full width, 4 of its 32 layers
+14e. launcher_falcon: Falcon-7B at full width, 2 of its 32 layers
    (FALCON_LAYERS; 16 before the serving_tp phase, 8 before the
-   overlap_dropout phase), random bf16
+   overlap_dropout phase, 4 before the bert phase), random bf16
    weights from a seed written as a release by `save_checkpoint(
    release=True)`; native2hf then hf2native through the CLI at full
    width and 2 layers, bit-exact; the launcher (`--model falcon`) in a
@@ -274,10 +277,11 @@ Phases, one output line each (a failure raises and exits non-zero):
    in four ranks (this script's rank mode, `--finetune-rank`) at tp 2 x
    dp 2 with sequence parallelism and ZeRO-1 over gloo, every rank on
    cuda:0 and every collective staged through host memory, on the
-   recipe's flags and phase 18's corpora: 2 steps (PAR_STEPS) and a
-   save (run P, with `--tensorboard_dir` and `--trace_dir`: rank 0's is
-   the one event file, every rank writes its trace), then the same ranks
-   resume it for step 3, and world size 1 resumes it too.
+   recipe's flags and phase 18's corpora: 1 step (PAR_STEPS; 2 before
+   the bert phase) and a save (run P, with `--tensorboard_dir` and
+   `--trace_dir`: rank 0's is the one event file, every rank writes its
+   trace), then the same ranks resume it for step 2, and world size 1
+   resumes it too.
    Losses and grad norms within 2e-2 / 5e-2 of (a)'s world-size-1 run
    (the same weights and global batches); every rank reports the same;
    K4-K6 8 launches a rank a step; the save is per-rank files (each
@@ -344,7 +348,28 @@ Phases, one output line each (a failure raises and exits non-zero):
    kernel_time_flash_cp_hops: K4-K6 at the ring's hop shapes (s = t =
    2048 and 8192, causal and full) beside SDPA and the bound, o, lse,
    dq, dk and dv within 2e-2 of their plain versions (run a few KV
-   groups at a time) at each.
+   groups at a time) at each;
+23. bert (the encoder family, last): a synthetic WordPiece vocabulary
+   of 30522 entries (the specials, words and ## pieces; padded to
+   30592) and a synthetic corpus of 200 documents through the port's
+   `preprocess_data --split_sentences --tokenizer_type
+   BertWordPieceLowerCase`, then `pretrain_bert.main` at
+   examples/pretrain_bert.sh's BERT-large widths and flags (24 layers,
+   hidden 1024, 16 heads, seq 512, micro batch 4, global batch 8, bf16;
+   6 steps, an eval at step 3, the final save without the optimizer
+   state): every loss finite, the first step's loss recomputed on its
+   batch with its dropout masks equal to it in bf16 and within 2e-2 in
+   fp32; then `tasks.main --task MNLI` and `--task RACE` from that
+   checkpoint on synthetic files in the readers' layouts (1 epoch each):
+   every encoder leaf loaded equal to the checkpoint's bit for bit,
+   every loss finite, the validation accuracy printed. The counters are
+   set to 0 before each of the three runs and must stay 0: the padding
+   mask sends attention to the grouped path and LayerNorm has no kernel,
+   so the encoder path launches none of K1-K7. Printed with the card's
+   name and power limit: ms a step after the first, tokens/s, model
+   TFLOP/s (6 N a token plus attention) and its share of 989, peak
+   memory; and one more step on the first batch under torch.profiler:
+   its busy and idle share, GEMM ms and the ten largest kernels.
 
 Then a line of each phase's seconds, a line of the processes the run
 still had to stop, one JSON line of the kernels, the nvidia-smi line,
@@ -961,15 +986,15 @@ PAGED_BATCHES = {
 }
 
 
-def paged_inputs(batch, g, qpk, d, gen):
-    """bf16 inputs of one paged launch with the chunks' K/V already
-    scattered; table entries past each slot's reach are the null page."""
+def paged_inputs(batch, g, qpk, d, gen, dtype=torch.bfloat16):
+    """Inputs of one paged launch (bf16 unless `dtype`) with the chunks'
+    K/V already scattered; table entries past each slot's reach are the
+    null page."""
     C, spans = PAGED_BATCHES[batch]
     nc = len(spans)
 
     def rnd(*shape):
-        return torch.randn(shape, generator=gen, device="cuda").to(
-            torch.bfloat16)
+        return torch.randn(shape, generator=gen, device="cuda").to(dtype)
 
     P = 1 + nc * SLOT_PAGES
     k_pages, v_pages = rnd(P, PAGE, g, d), rnd(P, PAGE, g, d)
@@ -1007,20 +1032,21 @@ def plant_nans(batch, k_pages, v_pages, pt):
                 v_pages[pg, lo:] = float("nan")
 
 
-def paged_bound_ms(batch, g, qpk, d):
+def paged_bound_ms(batch, g, qpk, d, elt=2, peak=BF16_FLOPS):
     """The least time for one launch: the larger of the bytes it must
     move (each needed K/V position of each chunk, the valid q rows, the
-    whole output) over 3.35 TB/s and its operations (4 per q row, key
-    and head dimension over the causal span) over the bf16 peak."""
+    whole output; `elt` bytes an element) over 3.35 TB/s and its
+    operations (4 per q row, key and head dimension over the causal
+    span) over `peak` (bf16's by default)."""
     C, spans = PAGED_BATCHES[batch]
     kv_pos = sum(start + ln for start, ln in spans if ln)
     q_rows = sum(ln for _, ln in spans)
-    nbytes = 2 * (2 * kv_pos * g * d + q_rows * g * qpk * d
-                  + len(spans) * C * g * qpk * d)
+    nbytes = elt * (2 * kv_pos * g * d + q_rows * g * qpk * d
+                    + len(spans) * C * g * qpk * d)
     flops = 4 * sum(start + t + 1 for start, ln in spans
                     for t in range(ln)) * qpk * g * d
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS * 1e3
+    t_ops = flops / peak * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -1141,6 +1167,49 @@ def check_paged_kernel():
                         shape=shapes[other]),
             "launches_by_path": {}, "launches": 0})
     return rows
+
+
+def time_paged_fp32(kernels):
+    """K7's present design at the fp32-pool engine's own shape (Llama-2-7B
+    widths, fp32 q and pools, page 64, the engine's decode and mixed
+    rounds): against its plain version (1e-3, the fp32 engine's log-prob
+    bar), beside SDPA in fp32 on the gathered dense view and the bound
+    (4-byte elements, fp32's peak: the design computes on CUDA cores)."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 67)
+    g, qpk, d, f32 = 32, 1, 128, torch.float32
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+    out = {}
+    for batch in PAGED_BATCHES:
+        sets = [(paged_inputs(batch, g, qpk, d, gen, f32), dict(
+            k_scales=None, v_scales=None, window=None, doc_starts=None))
+            for _ in range(4)]
+        design = pa.paged_design(f32, f32, PAGE)
+        check(design == "present", f"K7 at fp32 pools: {design}")
+        got = _launch(pa.paged_attention, sets[0])
+        ref = _launch(pa._xla_paged_reference, sets[0])
+        torch.cuda.synchronize()
+        err = (got - ref).abs().max().item()
+        check(err <= FP32_LP_TOL, f"K7 fp32 {batch}: {err}")
+        del got, ref
+        pick = rotating(lambda i: sets[i], 4)
+        lib = rotating(lambda i: banded_sdpa_inputs(*sets[i]), 4)
+        bound, by = paged_bound_ms(batch, g, qpk, d, elt=4, peak=FP32_FLOPS)
+        out[batch] = {
+            "design": design, "max_abs_err": err,
+            "ms": device_ms(lambda: _launch(pa.paged_attention, pick())),
+            "plain_ms": device_ms(
+                lambda: _launch(pa._xla_paged_reference, pick()),
+                per_graph=10, replays=5),
+            "library_ms": device_ms(lambda: _sdpa(sdpa, lib())),
+            "bound_ms": bound, "bound_by": by}
+        del sets, pick, lib
+        torch.cuda.empty_cache()
+    say("kernel_time_paged_fp32", card=nvidia_smi(),
+        shape=f"g{g} qpk{qpk} d{d} page{PAGE} fp32 q and pools (the fp32 "
+              f"engine's rounds)", **out)
+    for row in kernels:
+        if row["name"] == "ragged_paged_attention":
+            row["fp32_engine_shape"] = out
 
 
 def _sdpa(sdpa, args):
@@ -2177,9 +2246,9 @@ def serve_engine(kernels, cfg, model, params, weight_bytes):
 # ---------------------------------------------------------------------------
 
 CAPTURE_REQUESTS = 8
-# the phase's depth: 16 of Llama-2-7B's 32 layers, which keeps the whole
-# smoke, fleet runs included, within its time on a slow host
-CAPTURE_LAYERS = 16
+# the phase's depth: 4 of Llama-2-7B's 32 layers (16 before the bert
+# phase), which keeps the whole smoke within its time on a slow host
+CAPTURE_LAYERS = 4
 
 
 def _engine_device_ms(eng, horizon=8, length=1000):
@@ -2473,9 +2542,9 @@ def serve_engine_int8(kernels, cfg, model, params, bf16):
 
 
 WINDOW_SERVE = 1024
-# the window phase's depth: 8 of Llama-2-7B's 32 layers, which keeps the
-# whole smoke, fleet runs included, within its time
-WINDOW_LAYERS = 8
+# the window phase's depth: 4 of Llama-2-7B's 32 layers (8 before the
+# bert phase), which keeps the whole smoke within its time
+WINDOW_LAYERS = 4
 
 
 def window_traffic():
@@ -2615,9 +2684,9 @@ def spec_traffic():
     return out
 
 
-# the spec and whole-prompt phase's depth: 16 of Llama-2-7B's 32 layers,
-# which keeps the whole smoke, fleet runs included, within its time
-SPEC_LAYERS = 16
+# the spec and whole-prompt phase's depth: 4 of Llama-2-7B's 32 layers
+# (16 before the bert phase), which keeps the whole smoke within its time
+SPEC_LAYERS = 4
 
 
 def serve_engine_spec_and_whole_prompt(kernels, cfg, model, params):
@@ -3897,9 +3966,10 @@ def falcon_kernel_ms(model, eng):
 # Falcon-7B's launcher phase runs half its depth: the whole smoke must fit
 # its time limit beside the parallel phase, and a cut of depth
 # leaves every width, kernel shape and route as it was
-# Falcon-7B's depth on the serving entry path: 8 of 32 layers since the
-# serving_tp phase (16 before), to keep the whole smoke within 950 s
-FALCON_LAYERS = 4
+# Falcon-7B's depth on the serving entry path: 2 of 32 layers since the
+# bert phase (4 before, 8 before the overlap_dropout phase, 16 before
+# the serving_tp phase), to keep the whole smoke within 950 s
+FALCON_LAYERS = 2
 
 
 def launcher_falcon(kernels, init_std):
@@ -5505,8 +5575,9 @@ def finetune_modes(kernels, data):
 PAR_FLAGS = ["--tensor_model_parallel_size", "2", "--sequence_parallel",
              "--use_distributed_optimizer", "--distributed_backend", "gloo"]
 PAR_RANKS, PAR_TP, PAR_DP = 4, 2, 2
-# steps before the save (a gloo step takes 10-23 s on the card)
-PAR_STEPS = 2
+# steps before the save (a gloo step takes 8-23 s on the card; 2 before
+# the bert phase)
+PAR_STEPS = 1
 RANK_TIMEOUT_S = 600
 # a positional checksum: any changed bit of a leaf changes it
 _FP_CHUNK, _FP_MOD = 1 << 24, 65521
@@ -6861,6 +6932,329 @@ def time_flash_cp_hops(kernels):
                 "dkv": ("dk", "dv")}[which]}} for h in rows]
 
 
+# ---------------------------------------------------------------------------
+# phase 23: the encoder family, BERT-large widths
+# ---------------------------------------------------------------------------
+
+BERT_DIR = Path(__file__).resolve().parent / "build" / "bert_smoke"
+BERT_VOCAB = 30522  # bert-large-uncased's WordPiece entries
+BERT_PADDED = 30592  # + [BOS]/[EOS], padded to a multiple of 128
+BERT_STEPS = 6
+BERT_SEQ, BERT_MICRO, BERT_GLOBAL = 512, 4, 8
+BERT_LAYERS, BERT_HIDDEN = 24, 1024
+# examples/pretrain_bert.sh's flags (its train_iters, save_interval,
+# eval_interval and eval_iters cut to the smoke's few steps)
+BERT_RECIPE = ("--num_layers 24 --hidden_size 1024 --num_attention_heads 16 "
+               "--micro_batch_size 4 --global_batch_size 8 --seq_length 512 "
+               "--max_position_embeddings 512 --lr_decay_iters 990000 "
+               "--tokenizer_type BertWordPieceLowerCase --split 949,50,1 "
+               "--lr 0.0001 --min_lr 1.0e-5 --lr_decay_style linear "
+               "--lr_warmup_fraction .01 --weight_decay 1e-2 --clip_grad 1.0 "
+               "--mask_prob 0.15 --bf16")
+BERT_LOSS_TOL = 2e-2
+BERT_WORDS = 20000
+
+
+def bert_words(rs):
+    """BERT_WORDS distinct lowercase words, then ## pieces to fill the
+    vocabulary to BERT_VOCAB entries with the five specials."""
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+
+    def draw(n, lo, hi, seen):
+        out = []
+        while len(out) < n:
+            w = "".join(rs.choice(letters, rs.randint(lo, hi + 1)))
+            if w not in seen:
+                seen.add(w)
+                out.append(w)
+        return out
+
+    words = draw(BERT_WORDS, 3, 9, set())
+    pieces = draw(BERT_VOCAB - 5 - BERT_WORDS, 2, 5, set())
+    return words, pieces
+
+
+def bert_text(rs, words, pieces, n_words):
+    """One sentence: vocabulary words and words that WordPiece splits
+    into a word and a ## piece, capitalised, ended by a period."""
+    out = []
+    for _ in range(n_words):
+        w = words[rs.randint(len(words))]
+        if rs.rand() < 0.2:
+            w += pieces[rs.randint(len(pieces))]
+        out.append(w)
+    out[0] = out[0].capitalize()
+    return " ".join(out) + "."
+
+
+def write_bert_data(rs):
+    """The vocabulary file and a JSONL corpus of 200 documents of 20-60
+    sentences (about 130k words), and the MNLI and RACE files in the
+    readers' layouts: (vocab path, corpus path, tasks' paths)."""
+    words, pieces = bert_words(rs)
+    vocab = BERT_DIR / "vocab.txt"
+    vocab.write_text("\n".join(["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"]
+                               + words + ["##" + p for p in pieces]) + "\n")
+    corpus = BERT_DIR / "corpus.jsonl"
+    with open(corpus, "w") as f:
+        for _ in range(200):
+            sents = [bert_text(rs, words, pieces, rs.randint(8, 25))
+                     for _ in range(rs.randint(20, 61))]
+            f.write(json.dumps({"text": " ".join(sents)}) + "\n")
+    labels = ["contradiction", "entailment", "neutral"]
+    tasks = {}
+    for name, n in (("mnli_train", 64), ("mnli_dev", 32)):
+        rows = ["\t".join(["index", "promptID", "pairID", "genre",
+                           "sentence1_binary_parse",
+                           "sentence2_binary_parse", "sentence1_parse",
+                           "sentence2_parse", "sentence1", "sentence2",
+                           "label1", "gold_label"])]
+        for i in range(n):
+            label = labels[rs.randint(3)]
+            rows.append("\t".join([str(i)] + ["-"] * 7 + [
+                bert_text(rs, words, pieces, rs.randint(10, 40)),
+                bert_text(rs, words, pieces, rs.randint(5, 20)),
+                label, label]))
+        tasks[name] = BERT_DIR / f"{name}.tsv"
+        tasks[name].write_text("\n".join(rows) + "\n")
+    for name, n_files in (("race_train", 8), ("race_dev", 4)):
+        d = BERT_DIR / name
+        d.mkdir()
+        for i in range(n_files):
+            (d / f"{i}.txt").write_text(json.dumps({
+                "article": " ".join(bert_text(rs, words, pieces,
+                                              rs.randint(10, 25))
+                                    for _ in range(20)),
+                "questions": [bert_text(rs, words, pieces, 8)
+                              for _ in range(2)],
+                "options": [[bert_text(rs, words, pieces, 4)
+                             for _ in range(4)] for _ in range(2)],
+                "answers": [str("ABCD"[rs.randint(4)]) for _ in range(2)]}))
+        tasks[name] = d
+    return vocab, corpus, tasks
+
+
+def bert_flops_per_step(n_params: int) -> float:
+    """The model FLOPs of one step: 6 N a token plus attention's 12 L h s
+    a token (QK and PV, forward and backward), over the step's tokens."""
+    tokens = BERT_GLOBAL * BERT_SEQ
+    return (6 * n_params + 12 * BERT_LAYERS * BERT_HIDDEN * BERT_SEQ) \
+        * tokens
+
+
+def assert_no_launches(what):
+    counts = kernel_counts()
+    check(not any(counts.values()),
+          f"{what} launched a kernel: {counts} (the encoder path has none)")
+
+
+def bert_pretrain(vocab, data, save):
+    """`pretrain_bert.main` for BERT_STEPS steps and its save, with the
+    counters set to 0 just before it; returns the trainer, the final
+    state, the first global batch and each step's loss and ms."""
+    from megatron_llm_tpu_torch import pretrain_bert
+
+    seen = {}
+
+    def setup(orig):
+        def wrapped(self, *a, **kw):
+            seen["trainer"] = self
+            return orig(self, *a, **kw)
+        return wrapped
+
+    def train_step(orig):
+        def wrapped(self, state, text, *a, **kw):
+            seen.setdefault("first", text)
+            return orig(self, state, text, *a, **kw)
+        return wrapped
+
+    argv = BERT_RECIPE.split() + [
+        "--vocab_file", str(vocab), "--data_path", data,
+        "--train_iters", str(BERT_STEPS), "--eval_interval", "3",
+        "--eval_iters", "1", "--log_interval", "1", "--seed", str(SEED),
+        "--save", str(save), "--no_save_optim"]
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    with patched(Trainer, "setup", setup), \
+            patched(Trainer, "train_step", train_step):
+        state = pretrain_bert.main(argv)
+    wall = time.perf_counter() - t0
+    assert_no_launches("pretrain_bert")
+    trainer = seen["trainer"]
+    steps = step_events(trainer)
+    return dict(trainer=trainer, state=state, first=seen["first"],
+                losses=[e["loss"] for e in steps],
+                ms=[e["ms"] for e in steps], wall_s=wall,
+                peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                profile=bert_step_profile(trainer, state, seen["first"]))
+
+
+def bert_step_profile(trainer, state, text):
+    """One more step (after the save) on the first batch with the next
+    iteration's dropout masks, under torch.profiler (CUDA activity
+    only): its wall ms, the card's busy ms and idle share, GEMM ms and
+    the ten largest kernels."""
+    from megatron_llm_tpu_torch.models.dropout import fold_in
+
+    rng = fold_in(trainer.tcfg.seed + 1, state.iteration)
+
+    def step():
+        float(trainer.train_step(state, text, rng)["loss"])
+
+    _, wall, events = cuda_trace(step)
+    kernels = kernel_totals(events)
+    busy = busy_ms(events)
+    gemm = sum(ms for n, ms in kernels.items()
+               if any(g in n.lower() for g in GEMM_NAMES))
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:10]
+    return {"wall_ms": wall * 1e3, "busy_ms": busy,
+            "idle_share": 1 - busy / (wall * 1e3),
+            "device_ms": sum(kernels.values()), "gemm_ms": gemm,
+            "top10_kernels_ms": [[n[:120], round(ms, 3)] for n, ms in top]}
+
+
+@torch.no_grad()
+def bert_first_step_fp32(run):
+    """The first step's loss recomputed from the initial weights on its
+    batch with its dropout masks, in bf16 (as trained) and in fp32."""
+    from megatron_llm_tpu_torch.models import BertModel
+    from megatron_llm_tpu_torch.models.dropout import at, fold_in
+
+    trainer = run["trainer"]
+    batch = trainer._built(run["first"])
+    rng = fold_in(trainer.tcfg.seed + 1, 0)
+    out = {}
+    for name, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+        model = BertModel(dataclasses.replace(trainer.cfg,
+                                              compute_dtype=dt),
+                          device=trainer.device)
+        params = model.init(seed=trainer.tcfg.seed)
+        n = next(iter(batch.values())).shape[0]
+        loss = torch.zeros((), dtype=torch.float32, device=trainer.device)
+        for i in range(n):
+            micro = {k: v[i] for k, v in batch.items()}
+            b = micro["tokens"].shape[0]
+            loss = loss + model.loss(params, dropout_rng=at(rng, i * b, 0),
+                                     deterministic=False, **micro)
+        out[name] = float(loss / n)
+        del params
+    return out
+
+
+def bert_task(argv, ck):
+    """`tasks.main` with the counters set to 0 just before it; the
+    encoder leaves it loaded (copied as loaded) held to the
+    checkpoint's bit for bit."""
+    from megatron_llm_tpu_torch.tasks import main as tasks_main
+
+    got = {}
+
+    def spy(orig):
+        def wrapped(*a, **kw):
+            out = orig(*a, **kw)
+            got.update({k: v.detach().cpu().clone()
+                        for k, v in ckpt.flatten(out).items()})
+            return out
+        return wrapped
+
+    losses = []
+    zero_counts()
+    t0 = time.perf_counter()
+    with patched(tasks_main, "load_pretrained_encoder", spy):
+        params, best, final = tasks_main.main(argv, losses=losses)
+    wall = time.perf_counter() - t0
+    assert_no_launches(argv[argv.index("--task") + 1])
+    saved = ckpt.read_leaves(ckpt.tracked_checkpoint(str(ck))[0])
+    encoder = [k for k in saved if k.split(".")[0] in
+               ("embedding", "layers", "final_norm", "pooler")]
+    check(sorted(got) == sorted(saved), "the load read other leaves")
+    check(all(torch.equal(got[k], saved[k]) for k in encoder),
+          "an encoder leaf was not loaded bit for bit")
+    check(losses and all(np.isfinite(losses)), f"task losses {losses}")
+    del params
+    return dict(losses=losses, best_accuracy=best, final_accuracy=final,
+                encoder_leaves_equal=len(encoder), wall_s=wall)
+
+
+def bert_phase(kernels):
+    """BERT pretraining at the recipe's BERT-large widths, then MNLI and
+    RACE finetuning from its checkpoint, on a synthetic WordPiece
+    vocabulary of 30522 entries and synthetic text (no real corpus or
+    task data in the repository)."""
+    from megatron_llm_tpu_torch.tools import preprocess_data
+
+    shutil.rmtree(BERT_DIR, ignore_errors=True)
+    BERT_DIR.mkdir(parents=True)
+    vocab, corpus, tasks = write_bert_data(np.random.RandomState(SEED + 41))
+    t0 = time.perf_counter()
+    preprocess_data.main([
+        "--input", str(corpus), "--output_prefix", str(BERT_DIR / "corpus"),
+        "--tokenizer_type", "BertWordPieceLowerCase", "--vocab_file",
+        str(vocab), "--split_sentences", "--workers", "1"])
+    pre_s = time.perf_counter() - t0
+    data = str(BERT_DIR / "corpus_text_document")
+    ck = BERT_DIR / "ck"
+    run = bert_pretrain(vocab, data, ck)
+    losses = run["losses"]
+    check(len(losses) == BERT_STEPS and all(np.isfinite(losses)),
+          f"pretraining losses {losses}")
+    cfg = run["trainer"].cfg
+    check((cfg.num_layers, cfg.hidden_size, cfg.num_attention_heads,
+           cfg.seq_length, cfg.padded_vocab_size, cfg.compute_dtype) == (
+        BERT_LAYERS, BERT_HIDDEN, 16, BERT_SEQ, BERT_PADDED, torch.bfloat16),
+        f"BERT config {cfg}")
+    first = bert_first_step_fp32(run)
+    check(abs(first["bf16"] - losses[0]) <= 1e-3,
+          f"the recomputed bf16 step 1 {first['bf16']} != {losses[0]}")
+    check(abs(first["fp32"] - losses[0]) <= BERT_LOSS_TOL,
+          f"step 1 bf16 {losses[0]} vs fp32 {first['fp32']}")
+    med = float(np.median(run["ms"][1:]))
+    n_params = run["trainer"]._n_params
+    flops = bert_flops_per_step(n_params)
+    tok_s = BERT_GLOBAL * BERT_SEQ / (med / 1e3)
+    run.pop("trainer"), run.pop("state"), run.pop("first")
+    free_cuda()
+    common = BERT_RECIPE.split()[:6] + [
+        "--max_position_embeddings", "512", "--seq_length", "512",
+        "--tokenizer_type", "BertWordPieceLowerCase", "--vocab_file",
+        str(vocab), "--pretrained_checkpoint", str(ck), "--bf16",
+        "--epochs", "1", "--log_interval", "4", "--seed", str(SEED)]
+    # the task flags of the reference's GLUE and RACE finetuning recipes
+    # (MNLI 5 epochs and RACE 3, cut to 1)
+    mnli = bert_task(common + [
+        "--task", "MNLI", "--train_data", str(tasks["mnli_train"]),
+        "--valid_data", str(tasks["mnli_dev"]), "--micro_batch_size", "8",
+        "--lr", "5.0e-5", "--lr_warmup_fraction", "0.065",
+        "--weight_decay", "1.0e-1"], ck)
+    free_cuda()
+    race = bert_task(common + [
+        "--task", "RACE", "--train_data", str(tasks["race_train"]),
+        "--valid_data", str(tasks["race_dev"]), "--micro_batch_size", "4",
+        "--lr", "1.0e-5", "--lr_warmup_fraction", "0.06",
+        "--weight_decay", "1.0e-1", "--clip_grad", "1.0"], ck)
+    free_cuda()
+    say("bert", card=nvidia_smi(),
+        config="BERT-large widths (examples/pretrain_bert.sh) via "
+               "pretrain_bert.main, synthetic WordPiece vocab and text",
+        layers=BERT_LAYERS, hidden=BERT_HIDDEN, heads=16, seq=BERT_SEQ,
+        micro_batch=BERT_MICRO, global_batch=BERT_GLOBAL,
+        padded_vocab=BERT_PADDED, params=n_params, preprocess_s=pre_s,
+        losses=losses, step1_bf16=losses[0],
+        step1_bf16_recomputed=first["bf16"], step1_fp32=first["fp32"],
+        step1_abs_diff=abs(first["fp32"] - losses[0]),
+        step_ms=run["ms"], step_ms_median_2_on=med, tokens_per_s=tok_s,
+        model_flops_per_step=flops,
+        model_tflops=flops / (med / 1e3) / 1e12,
+        share_of_989=flops / (med / 1e3) / 989e12,
+        peak_memory_gb=run["peak_gb"], pretrain_wall_s=run["wall_s"],
+        profiled_step=run["profile"],
+        mnli=mnli, race=race, kernel_launches=0)
+    for row in kernels:
+        row.setdefault("launches_by_path", {})["bert"] = 0
+    shutil.rmtree(BERT_DIR)
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -6920,6 +7314,7 @@ def smoke(args) -> int:
     timed("kernel_time_flash_tp2", time_flash_tp2, kernels)
     timed("kernel_time_decode_ring", time_decode_ring, kernels)
     timed("kernel_time_serving_tp2", time_serving_tp2, kernels)
+    timed("kernel_time_paged_fp32", time_paged_fp32, kernels)
     timed("kernel_time_flash_cp_hops", time_flash_cp_hops, kernels)
     torch.cuda.empty_cache()
     model = timed("model", build_model, args.init_std)
@@ -6974,6 +7369,7 @@ def smoke(args) -> int:
           cp_ranks)
     timed("overlap_dropout", overlap_dropout_phase, kernels, data, overlap)
     shutil.rmtree(FT_DIR)
+    timed("bert", bert_phase, kernels)
     say("phase_seconds", card=smi, **seconds,
         total_s=round(time.perf_counter() - t_start, 1))
     say("processes_stopped", left_running=stop_children())

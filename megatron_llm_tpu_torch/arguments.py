@@ -9,13 +9,14 @@ the port's `ModelConfig` (torch dtypes), `ParallelConfig` and
 
 A flag that selects a part of the system the port does not run yet
 raises ValueError naming its slice of ROADMAP.md, never silently
-ignored: the BERT and T5 families and post-LN layers (A6). GPT,
-Llama, CodeLlama and Falcon (with its parallel attention and parallel
-layernorm) build, with every single-card training mode (the recompute
-policies and block recompute, fp16 with its loss scaler, hidden,
-attention and LIMA dropout) and tensor, sequence, data, pipeline (with
-`--pipeline_remat` and `--async_pipeline_dispatch`) and context
-parallelism with the ZeRO-1 optimizer and its overlap schedulers
+ignored: the T5 family (A6). GPT, Llama, CodeLlama, Falcon (with its
+parallel attention and parallel layernorm) and BERT (with post-LN
+layers, `--use_post_ln`) build, with every single-card training mode
+(the recompute policies and block recompute, fp16 with its loss
+scaler, hidden, attention and LIMA dropout) and tensor, sequence,
+data, pipeline (with `--pipeline_remat` and `--async_pipeline_dispatch`)
+and context parallelism with the ZeRO-1 optimizer and its overlap
+schedulers
 (`--overlap_grad_reduce`, `--overlap_param_gather`) under torchrun, and
 every telemetry flag of the trainer (tensorboard, WandB, the profile
 window, span traces, flight records, the cost registry, the perf
@@ -39,6 +40,7 @@ import torch
 from megatron_llm_tpu_torch.config import (
     ParallelConfig,
     TrainConfig,
+    bert_config,
     codellama_config,
     falcon_config,
     gpt_config,
@@ -212,8 +214,8 @@ ENTRY_SCRIPT_FLAGS = {
 _A6 = "the remaining model families (ROADMAP.md A6)"
 
 # flags of later slices (parser dest -> the slice): a value other than
-# the parser's default raises
-LATER_FLAGS = {"use_post_ln": _A6}
+# the parser's default raises; every flag is wired since --use_post_ln
+LATER_FLAGS: dict = {}
 
 
 def build_base_parser() -> argparse.ArgumentParser:
@@ -484,7 +486,8 @@ def args_to_configs(args, padded_vocab_size: int,
             "lima_dropout", "use_flash_attn", "recompute_granularity",
             "remat_policy",
             "recompute_method", "recompute_num_layers", "use_bias",
-            "use_rms_norm", "parallel_attn", "parallel_layernorm"):
+            "use_rms_norm", "use_post_ln", "parallel_attn",
+            "parallel_layernorm"):
         v = getattr(args, name)
         if v is not None:
             overrides[name] = v
@@ -525,6 +528,13 @@ def args_to_configs(args, padded_vocab_size: int,
     elif name == "falcon":
         mcfg = falcon_config(args.model_size, seq_length=args.seq_length,
                              tp=tp, **overrides)
+    elif name == "bert":
+        # JAX :608-615
+        mcfg = bert_config(
+            num_layers=overrides.pop("num_layers", 12),
+            hidden_size=overrides.pop("hidden_size", 768),
+            num_attention_heads=overrides.pop("num_attention_heads", 12),
+            seq_length=args.seq_length, tp=tp, **overrides)
     elif name == "gpt":
         mcfg = gpt_config(
             num_layers=overrides.pop("num_layers", 12),

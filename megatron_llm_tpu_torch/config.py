@@ -48,6 +48,9 @@ class ModelConfig:
 
     layernorm_epsilon: float = 1e-5
     use_rms_norm: bool = False
+    # post-LN (BERT-style) layers instead of the default pre-LN (JAX :71;
+    # models/transformer.py)
+    use_post_ln: bool = False
     use_bias: bool = True
     glu_activation: Optional[str] = None
     hidden_act: str = "gelu"
@@ -100,6 +103,11 @@ class ModelConfig:
     remat_policy: Optional[str] = None  # None | one of REMAT_POLICIES
     recompute_method: str = "uniform"  # uniform | block
     recompute_num_layers: int = 1
+
+    # the encoder family (JAX :141-144): segment (tokentype) embeddings
+    # and BERT's binary (sentence-order) head
+    num_tokentypes: int = 0
+    add_binary_head: bool = False
 
     def __post_init__(self):
         if self.kv_channels is None:
@@ -288,6 +296,35 @@ def gpt_config(num_layers: int = 12, hidden_size: int = 768,
         position_embedding_type="absolute",
         hidden_act="gelu",
         tie_embed_logits=True,
+    )
+    cfg.update(overrides)
+    mc = ModelConfig(**cfg)
+    if mc.padded_vocab_size == 0:
+        mc = dataclasses.replace(
+            mc, padded_vocab_size=mc.pad_vocab_size(vocab_size, tp))
+    return mc
+
+
+def bert_config(num_layers: int = 12, hidden_size: int = 768,
+                num_attention_heads: int = 12, seq_length: int = 512,
+                vocab_size: int = 30522, tp: int = 1,
+                **overrides) -> ModelConfig:
+    """BERT preset (JAX: config.py bert_config): learned positions, two
+    tokentypes, gelu, biases, LayerNorm, the binary (SOP) head, the LM
+    head tied to the word embeddings."""
+    cfg = dict(
+        num_layers=num_layers,
+        hidden_size=hidden_size,
+        num_attention_heads=num_attention_heads,
+        seq_length=seq_length,
+        max_position_embeddings=seq_length,
+        position_embedding_type="absolute",
+        hidden_act="gelu",
+        use_rms_norm=False,
+        use_bias=True,
+        tie_embed_logits=True,
+        num_tokentypes=2,
+        add_binary_head=True,
     )
     cfg.update(overrides)
     mc = ModelConfig(**cfg)

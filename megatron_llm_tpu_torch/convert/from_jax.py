@@ -15,7 +15,15 @@ the port keeps the JAX package's layouts, which are:
   axis; the JAX converter reorders it into this layout);
 - `lm_head` (h, V): the untied head of Llama, applied as x @ lm_head;
 - RoPE rotates interleaved pairs (x[2i], x[2i+1]) (Meta's convention), so
-  q/k columns need no half-split permutation.
+  q/k columns need no half-split permutation;
+- the encoder family's leaves (models/bert.py, models/classification.py)
+  in the JAX layouts too: `embedding.tokentype_embeddings` (T, h),
+  `lm_head.{dense_w (h, h), dense_b, norm.{scale,bias}, bias (V,)}`,
+  `pooler.{w (h, h), b}`, `binary_head.{w (h, 2), b}` and
+  `classification_head.{w (h, classes), b}`.
+
+Every leaf of the tree is carried as it is, so a BERT or classification
+tree (and a checkpoint of one, `checkpoint_from_jax`) comes across whole.
 
 The JAX package's reference-checkpoint converter states the same facts in
 its module docstring (megatron_llm_tpu/convert/megatron_torch.py:12-19).

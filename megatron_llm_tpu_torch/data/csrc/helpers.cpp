@@ -1,12 +1,44 @@
-// Index builders of the GPT dataset (port of the JAX package's
-// data/csrc/helpers.cpp, its GPT entry points): the sample index that
-// stitches documents into seq_length + 1 token samples, and the blend
-// index of weighted datasets. A plain C ABI bound with ctypes; the
-// Python wrappers in data/helpers.py allocate the numpy outputs, pass
-// raw pointers, and build this file with g++ into build/ at first use.
+// Dataset index builders (port of the JAX package's
+// data/csrc/helpers.cpp): the GPT sample index that stitches documents
+// into seq_length + 1 token samples, the blend index of weighted
+// datasets, and BERT's sentence-pair map. A plain C ABI bound with
+// ctypes; the Python wrappers in data/helpers.py allocate the numpy
+// outputs, pass raw pointers, and build this file with g++ into build/
+// at first use.
 
 #include <algorithm>
+#include <cmath>
 #include <cstdint>
+#include <random>
+
+namespace {
+
+constexpr int32_t kLongSentenceLen = 512;  // ref helpers.cpp LONG_SENTENCE_LEN
+
+// ref helpers.cpp:171-185 get_target_sample_len
+int32_t target_sample_len(int32_t short_seq_ratio, int32_t max_length,
+                          std::mt19937& gen) {
+  if (short_seq_ratio == 0) return max_length;
+  const uint32_t random_number = gen();
+  if ((random_number % short_seq_ratio) == 0) {
+    return 2 + random_number % (max_length - 1);
+  }
+  return max_length;
+}
+
+// ref helpers.cpp:393-404: 64-bit Fisher-Yates with seed + 1
+void shuffle_rows(int64_t* maps, int64_t num_samples, int32_t row,
+                  int32_t seed) {
+  std::mt19937_64 gen(seed + 1);
+  for (int64_t i = num_samples - 1; i > 0; --i) {
+    const int64_t j = static_cast<int64_t>(gen() % (i + 1));
+    for (int32_t c = 0; c < row; ++c) {
+      std::swap(maps[row * i + c], maps[row * j + c]);
+    }
+  }
+}
+
+}  // namespace
 
 extern "C" {
 
@@ -78,6 +110,72 @@ void build_blending_indices(uint8_t* dataset_index,
     ++current[best];
   }
   delete[] current;
+}
+
+// Sentence-pair sample map for BERT-style datasets: rows of
+// (start_sentence, end_sentence, target_seq_length). Two-phase: with
+// maps == nullptr only counts; with maps != nullptr fills and applies the
+// seed+1 Fisher-Yates shuffle. RNG sequences use std::mt19937 exactly as
+// the reference so the produced maps are bit-identical.
+// Parity: ref helpers.cpp build_mapping_impl (:187-410).
+int64_t build_mapping(const int64_t* docs, int64_t n_doc_bounds,
+                      const int32_t* sizes, int32_t num_epochs,
+                      uint64_t max_num_samples, int32_t max_seq_length,
+                      double short_seq_prob, int32_t seed,
+                      int32_t min_num_sent, int64_t* maps) {
+  int32_t short_seq_ratio = 0;
+  if (short_seq_prob > 0) {
+    short_seq_ratio =
+        static_cast<int32_t>(std::lround(1.0 / short_seq_prob));
+  }
+  const bool fill = maps != nullptr;
+  std::mt19937 gen(seed);
+  uint64_t map_index = 0;
+  for (int32_t epoch = 0; epoch < num_epochs; ++epoch) {
+    if (map_index >= max_num_samples) break;
+    for (int64_t doc = 0; doc < n_doc_bounds - 1; ++doc) {
+      const int64_t sent_first = docs[doc];
+      const int64_t sent_last = docs[doc + 1];
+      int64_t prev_start = sent_first;
+      int64_t num_remain = sent_last - sent_first;
+
+      bool has_long = false;
+      if (num_remain > 1) {
+        for (int64_t s = sent_first; s < sent_last; ++s) {
+          if (sizes[s] > kLongSentenceLen) {
+            has_long = true;
+            break;
+          }
+        }
+      }
+      if (num_remain < min_num_sent || has_long) continue;
+
+      int32_t seq_len = 0;
+      int32_t num_sent = 0;
+      int32_t target = target_sample_len(short_seq_ratio, max_seq_length, gen);
+      for (int64_t s = sent_first; s < sent_last; ++s) {
+        seq_len += sizes[s];
+        ++num_sent;
+        --num_remain;
+        if (((seq_len >= target) && (num_remain > 1) &&
+             (num_sent >= min_num_sent)) ||
+            (num_remain == 0)) {
+          if (fill) {
+            maps[3 * map_index] = prev_start;
+            maps[3 * map_index + 1] = s + 1;
+            maps[3 * map_index + 2] = target;
+          }
+          ++map_index;
+          prev_start = s + 1;
+          target = target_sample_len(short_seq_ratio, max_seq_length, gen);
+          seq_len = 0;
+          num_sent = 0;
+        }
+      }
+    }
+  }
+  if (fill) shuffle_rows(maps, static_cast<int64_t>(map_index), 3, seed);
+  return static_cast<int64_t>(map_index);
 }
 
 }  // extern "C"

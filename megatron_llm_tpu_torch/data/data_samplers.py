@@ -3,8 +3,10 @@
 A sampler yields global microbatches of mbs * dp sample indices, in the
 reference's order of ranks, and resumes from `consumed_samples`. The
 loader stacks the samples' tokens into (num_microbatches, mbs * dp,
-seq + 1) int32 arrays, asking the microbatch calculator for the count at
-every step so that a batch-size rampup reaches it. With a `row_range`
+seq + 1) int32 arrays, or with `keys` (the encoder family's many-field
+samples, JAX :166-176) a dict of such stacks, one a key, asking the
+microbatch calculator for the count at every step so that a batch-size
+rampup reaches it. With a `row_range`
 [lo, hi) (parallel/multihost.process_row_range) it reads and stacks only
 those rows of every global microbatch: a dp rank loads its own rows and
 nothing else (JAX :115-143, :175-202).
@@ -90,7 +92,9 @@ class MegatronPretrainingRandomSampler:
 
 
 class PretrainingDataLoader:
-    """Yields (num_microbatches, mbs * dp, seq + 1) int32 'text' arrays.
+    """Yields (num_microbatches, mbs * dp, seq + 1) int32 'text' arrays,
+    or given `keys` dicts of (num_microbatches, mbs * dp, ...) int32
+    arrays of those sample fields.
 
     `num_microbatches` is an int or a zero-argument callable read at every
     step (the trainer's microbatch calculator, so that a batch-size
@@ -98,11 +102,12 @@ class PretrainingDataLoader:
     loop reads on the host as it goes, with no worker processes."""
 
     def __init__(self, dataset, sampler, num_microbatches=1,
-                 row_range=None):
+                 row_range=None, keys=None):
         self.dataset = dataset
         self.sampler = sampler
         self.num_microbatches = num_microbatches
         self.row_range = row_range
+        self.keys = keys
 
     def __iter__(self):
         it = iter(self.sampler)
@@ -115,12 +120,22 @@ class PretrainingDataLoader:
                     idxs = next(it)
                     if self.row_range is not None:
                         idxs = idxs[self.row_range[0]:self.row_range[1]]
-                    micros.append(np.stack(
-                        [self.dataset[i]["text"] for i in idxs]
-                    ).astype(np.int32))
+                    if self.keys is None:
+                        micros.append(np.stack(
+                            [self.dataset[i]["text"] for i in idxs]
+                        ).astype(np.int32))
+                    else:
+                        samples = [self.dataset[i] for i in idxs]
+                        micros.append({k: np.stack(
+                            [s[k] for s in samples]).astype(np.int32)
+                            for k in self.keys})
             except StopIteration:
                 return
-            yield np.stack(micros)
+            if self.keys is None:
+                yield np.stack(micros)
+            else:
+                yield {k: np.stack([m[k] for m in micros])
+                       for k in self.keys}
 
 
 def build_pretraining_data_loader(dataset, consumed_samples: int,
@@ -128,11 +143,13 @@ def build_pretraining_data_loader(dataset, consumed_samples: int,
                                   data_parallel_size: int,
                                   num_microbatches=1,
                                   dataloader_type: str = "single",
-                                  drop_last: bool = True, row_range=None):
+                                  drop_last: bool = True, row_range=None,
+                                  keys=None):
     """The loader over `dataset` from sample `consumed_samples`, or None
     for no dataset. `dataloader_type` "single" reads in order, "cyclic"
     reshuffles every epoch; `row_range` keeps rows [lo, hi) of each
-    global microbatch."""
+    global microbatch; `keys` makes it yield dicts of those sample
+    fields."""
     if dataset is None:
         return None
     if dataloader_type == "single":
@@ -148,4 +165,4 @@ def build_pretraining_data_loader(dataset, consumed_samples: int,
     else:
         raise ValueError(f"unknown dataloader type {dataloader_type}")
     return PretrainingDataLoader(dataset, sampler, num_microbatches,
-                                 row_range)
+                                 row_range, keys)

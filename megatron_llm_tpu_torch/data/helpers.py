@@ -1,4 +1,6 @@
-"""The GPT dataset's index builders (port of data/helpers.py).
+"""The datasets' index builders (port of data/helpers.py): the GPT
+sample index and blend index, and BERT's sentence-pair map
+(`build_mapping`).
 
 `data/csrc/helpers.cpp` is compiled by g++ at first use into
 `build/libhelpers-<hash>.so` at the repository root, the hash covering
@@ -67,6 +69,12 @@ def load() -> ctypes.CDLL:
                 ctypes.POINTER(ctypes.c_double), ctypes.c_int32,
                 ctypes.c_int64]
             lib.build_blending_indices.restype = None
+            lib.build_mapping.argtypes = [
+                ctypes.POINTER(ctypes.c_int64), ctypes.c_int64, i32p,
+                ctypes.c_int32, ctypes.c_uint64, ctypes.c_int32,
+                ctypes.c_double, ctypes.c_int32, ctypes.c_int32,
+                ctypes.POINTER(ctypes.c_int64)]
+            lib.build_mapping.restype = ctypes.c_int64
             _lib = lib
         return _lib
 
@@ -144,3 +152,25 @@ def build_blending_indices_np(weights, size: int
         dataset_sample_index[i] = current[best]
         current[best] += 1
     return dataset_index, dataset_sample_index
+
+
+def build_mapping(docs: np.ndarray, sizes: np.ndarray, num_epochs: int,
+                  max_num_samples: int, max_seq_length: int,
+                  short_seq_prob: float, seed: int,
+                  min_num_sent: int = 2) -> np.ndarray:
+    """(num_samples, 3) int64 rows of (start sentence, end sentence,
+    target length) for BERT's sentence-pair samples, shuffled: `docs` the
+    (n_docs + 1,) sentence offsets of the documents, `sizes` the
+    sentences' token counts. Two calls into the library: count, then
+    fill and shuffle. Its draws are std::mt19937's, so the map is the
+    JAX package's (and the reference's) bit for bit."""
+    docs = np.ascontiguousarray(docs, np.int64)
+    sizes = np.ascontiguousarray(sizes, np.int32)
+    lib = load()
+    args = (_ptr(docs, ctypes.c_int64), len(docs),
+            _ptr(sizes, ctypes.c_int32), num_epochs, max_num_samples,
+            max_seq_length, short_seq_prob, seed, min_num_sent)
+    n = lib.build_mapping(*args, None)
+    out = np.zeros((n, 3), np.int64)
+    lib.build_mapping(*args, _ptr(out, ctypes.c_int64))
+    return out

@@ -1,5 +1,11 @@
+from megatron_llm_tpu_torch.models.bert import BertModel
+from megatron_llm_tpu_torch.models.classification import (
+    Classification,
+    MultipleChoice,
+)
 from megatron_llm_tpu_torch.models.falcon import FalconModel
 from megatron_llm_tpu_torch.models.gpt import GPTModel
 from megatron_llm_tpu_torch.models.llama import LlamaModel
 
-__all__ = ["FalconModel", "GPTModel", "LlamaModel"]
+__all__ = ["BertModel", "Classification", "FalconModel", "GPTModel",
+           "LlamaModel", "MultipleChoice"]

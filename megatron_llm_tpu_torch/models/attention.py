@@ -79,6 +79,18 @@ def split_qkv(mixed: torch.Tensor, cfg):
     return qkv[:, :, :, :qpk], qkv[:, :, :, qpk], qkv[:, :, :, qpk + 1]
 
 
+def padding_mask_2d(q_keep: torch.Tensor,
+                    k_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Keep-masks (b, s_q) [and (b, s_k)] of {0, 1} -> the (b, 1, s_q,
+    s_k) bool mask, True = masked, their outer product (JAX :204-215):
+    the encoder's bidirectional padding mask. It sends the no-cache
+    forward to the grouped path, as any dense mask does."""
+    if k_keep is None:
+        k_keep = q_keep
+    keep = q_keep.float()[:, :, None] * k_keep.float()[:, None, :]
+    return (keep < 0.5)[:, None]
+
+
 def causal_mask(s: int, t: Optional[int] = None, offset: int = 0,
                 device="cuda") -> torch.Tensor:
     """(s, t) bool mask, True = masked out."""

@@ -61,6 +61,11 @@ def init_language_model_params(cfg, generator: torch.Generator,
         params["embedding"]["position_embeddings"] = normal(
             (cfg.max_position_embeddings, cfg.hidden_size), std, dt,
             generator, device)
+    if cfg.num_tokentypes > 0:
+        # segment (tokentype) embeddings, (num_tokentypes, h) (JAX :48-56)
+        params["embedding"]["tokentype_embeddings"] = normal(
+            (cfg.num_tokentypes, cfg.hidden_size), std, dt, generator,
+            device)
     if not cfg.tie_embed_logits:
         # untied head, (h, V)
         params["lm_head"] = normal((cfg.hidden_size, cfg.padded_vocab_size),
@@ -70,10 +75,13 @@ def init_language_model_params(cfg, generator: torch.Generator,
 
 def embed_tokens(params: dict, cfg, tokens: torch.Tensor,
                  position_ids: Optional[torch.Tensor] = None,
-                 dropout_seed=None) -> torch.Tensor:
-    """(b, s) int -> (b, s, h) in the compute dtype, with hidden dropout
-    under a dropout stream (JAX :69-88); under sequence parallelism the
-    rank's (b, s / tp, h) shard."""
+                 dropout_seed=None,
+                 tokentype_ids: Optional[torch.Tensor] = None,
+                 ) -> torch.Tensor:
+    """(b, s) int -> (b, s, h) in the compute dtype: word, learned
+    position and (given `tokentype_ids`) tokentype embeddings summed,
+    then hidden dropout under a dropout stream (JAX :69-88); under
+    sequence parallelism the rank's (b, s / tp, h) shard."""
     emb = params["embedding"]["word_embeddings"]
     ctx = get_context()
     if ctx is None or ctx.tp == 1:
@@ -93,6 +101,10 @@ def embed_tokens(params: dict, cfg, tokens: torch.Tensor,
                                         device=tokens.device)[None]
         pos = params["embedding"]["position_embeddings"]
         hidden = hidden + pos[sequence_shard(position_ids)].to(
+            cfg.compute_dtype)
+    if tokentype_ids is not None:
+        tt = params["embedding"]["tokentype_embeddings"]
+        hidden = hidden + tt[sequence_shard(tokentype_ids)].to(
             cfg.compute_dtype)
     return dropout(hidden, cfg.hidden_dropout,
                    hidden_site(dropout_seed, hidden.shape[1]))

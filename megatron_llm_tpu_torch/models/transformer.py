@@ -1,5 +1,5 @@
-"""Pre-LN decoder layers, sequential or Falcon's parallel attention
-(port of models/transformer.py).
+"""Decoder layers, pre-LN or post-LN, sequential or Falcon's parallel
+attention (port of models/transformer.py).
 
 Weights are stacked along a leading layer axis, as in the JAX package, so
 the parameter trees match leaf for leaf. The layer loop is a Python loop
@@ -193,7 +193,10 @@ def transformer_layer(layer_params: dict, cfg, hidden: torch.Tensor,
                       kv_cache: Optional[dict] = None, dropout_seed=None,
                       hidden_dropout_rate: Optional[float] = None,
                       ) -> Tuple[torch.Tensor, Optional[dict]]:
-    """One pre-LN decoder layer. Under `parallel_attn` (Falcon, JAX
+    """One decoder layer, pre-LN, or under `use_post_ln` the JAX
+    package's post-LN form (JAX :212-219: the attention still reads the
+    input norm; the post-attention norm of the residual sum feeds the MLP
+    and is its residual). Under `parallel_attn` (Falcon, JAX
     :205-211) the MLP reads the attention's normed input (or its own
     `mlp_norm` of the layer input under `parallel_layernorm`) and both
     outputs join the residual once. With a dropout stream (None when
@@ -219,6 +222,10 @@ def transformer_layer(layer_params: dict, cfg, hidden: torch.Tensor,
     x = hidden + dropout(attn_out, rate, h1_s)
     normed2 = apply_norm(x, layer_params["post_attention_norm"], cfg)
     mlp_out = mlp_block(layer_params["mlp"], cfg, normed2)
+    if cfg.use_post_ln:
+        # post-LN (JAX :212-219): the MLP's residual starts from the
+        # normed sum, not from the sum itself
+        x = normed2
     return x + dropout(mlp_out, rate, h2_s), new_cache
 
 

@@ -50,8 +50,10 @@ clipping and AdamW. Under `--overlap_param_gather` the updated blocks'
 all-gathers are issued after AdamW in forward order and each is waited
 for just before the next forward first reads its leaves;
 `train_step.drain()` waits for all of them (the trainer calls it before
-an eval, a save and the end of training). A `batch_builder` belongs to
-a later slice and raises.
+an eval, a save and the end of training). With a `batch_builder` (the
+encoder family) each microbatch's dict is the model's loss keywords, at
+world size 1; the overlap and quantized-reduce flags are refused with
+it, as the JAX step refuses them.
 """
 
 from __future__ import annotations
@@ -118,16 +120,31 @@ def make_train_step(model, tcfg: TrainConfig, pcfg: ParallelConfig,
     `params` is the fp32 parameter tree (this rank's slices), its leaves
     requiring grad; `batch` a dict of (num_microbatches, batch, seq)
     tensors (this rank's rows): tokens, labels, loss_mask, position_ids
-    and optionally attention_mask. `spike_threshold` (a float, the loss
-    watchdog's median + k sigma): a step whose mean loss is non-finite
-    or above it is skipped on the card, params and state untouched.
+    and optionally attention_mask, or with a `batch_builder` whatever
+    keywords the model's loss takes (BERT: tokentype_ids, sop_labels).
+    `spike_threshold` (a float, the loss watchdog's median + k sigma): a
+    step whose mean loss is non-finite or above it is skipped on the
+    card, params and state untouched.
     Params and state are updated in place and returned. Under ZeRO-1
     `opt_state`'s moments hold this rank's blocks (the trainer's
     `StateLayout` makes them)."""
-    if batch_builder is not None:
-        raise ValueError("a batch_builder (BERT/T5 batches) is not ported "
-                         "yet: those models are ROADMAP.md A6")
     ctx = check_layout(model, pcfg)
+    if batch_builder is not None:
+        # the builder's batch is the model's own loss keywords, not the
+        # loss_terms surface the reductions across ranks split (JAX
+        # :157-180 refuses the explicit ZeRO-1 flags by the same rule)
+        flags = [f for f in ("quantized_grad_reduce", "overlap_grad_reduce",
+                             "overlap_param_gather") if getattr(pcfg, f)]
+        if flags:
+            raise ValueError(
+                f"{', '.join(flags)} require(s) the explicit ZeRO-1 path, "
+                "which this run cannot take: a batch_builder is installed "
+                "(its batch is not the loss_terms surface)")
+        if ctx is not None:
+            raise ValueError(
+                "a batch_builder (the encoder family's batches) trains at "
+                "world size 1 only: the encoder's parallel layouts are "
+                "ROADMAP.md A6")
     num_micro = pcfg.num_microbatches
     scaler = get_grad_scaler(tcfg)
     dp = 1 if ctx is None else ctx.dp

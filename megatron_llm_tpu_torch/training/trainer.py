@@ -11,7 +11,10 @@ the config's compute dtype.
 
 Ported: `TrainState`, `get_batch`, `SignalHandler`, `Trainer` with
 `setup` (fresh or from a checkpoint), `train_step`, the `train` loop,
-`evaluate` on the plain path, `_training_log` with tokens/s and model
+`evaluate` on the plain path, a `batch_builder` (the encoder family's
+dict batches: the builder's loss keywords go to `model.loss`, the eval
+averages the model's loss over the microbatches, JAX :517-530,
+:628-648), `_training_log` with tokens/s and model
 TFLOP/s, the checkpoint paths (async interval saves, the blocking saves
 of the SIGTERM, duration and autoresume exits and of the end of
 `pretrain`, the loss watchdog's rollback to the last complete
@@ -600,15 +603,21 @@ class Trainer:
 
     def train_step(self, state: TrainState, text, dropout_rng=None) -> dict:
         """One optimizer step over a global batch 'text' (num_micro,
-        mbs*dp, seq+1) (JAX :517-598). The stats stay on the card."""
-        num_micro = text.shape[0]
-        cp = 1 if self.ctx is None else self.ctx.cp
-        # under cp the dense mask would need the whole sequence: the O(s)
-        # doc-start form rides the ring (JAX :529-531)
-        batch = get_batch(text, self.eod_token, self.reset_position_ids,
-                          self.reset_attention_mask, self.eod_mask_loss,
-                          packed_doc_starts=cp > 1, device=self.device)
-        batch = context_shard(batch, self.ctx)
+        mbs*dp, seq+1), or with a `batch_builder` the loader's dict of
+        such arrays, which the builder turns into the model's loss
+        keywords (JAX :517-598). The stats stay on the card."""
+        if self.batch_builder is not None:
+            batch = self._built(text)
+            num_micro = next(iter(batch.values())).shape[0]
+        else:
+            num_micro = text.shape[0]
+            cp = 1 if self.ctx is None else self.ctx.cp
+            # under cp the dense mask would need the whole sequence: the
+            # O(s) doc-start form rides the ring (JAX :529-531)
+            batch = get_batch(text, self.eod_token, self.reset_position_ids,
+                              self.reset_attention_mask, self.eod_mask_loss,
+                              packed_doc_starts=cp > 1, device=self.device)
+            batch = context_shard(batch, self.ctx)
         lr, wd = self.scheduler.get_lr(), self.scheduler.get_wd()
         # the first step of a microbatch count is the goodput ledger's
         # "compile" step and, with the registry on, the one it counts
@@ -639,7 +648,8 @@ class Trainer:
         if first_step:
             self._log_run_facts(params, opt_state)
         state.iteration += 1
-        mbs_dp = batch["tokens"].shape[1] * self.pcfg.data_parallel_size
+        mbs_dp = next(iter(batch.values())).shape[1] \
+            * self.pcfg.data_parallel_size
         self.scheduler.step(num_micro * mbs_dp if self._samples_mode else 1)
         state.consumed_train_samples += num_micro * mbs_dp
         self.num_microbatches_calc.update(state.consumed_train_samples)
@@ -647,14 +657,34 @@ class Trainer:
         stats["batch_size"] = num_micro * mbs_dp
         return stats
 
+    def _built(self, raw) -> dict:
+        """The batch builder's loss keywords of a loader dict, as tensors
+        on the trainer's device, each (num_micro, rows, ...)."""
+        return {k: torch.as_tensor(np.asarray(v), device=self.device)
+                for k, v in self.batch_builder(raw).items()}
+
     def evaluate(self, state: TrainState,
                  max_iters: Optional[int] = None) -> float:
         """Mean eval loss over `eval_iters` batches (JAX :600-695): the
         plain path, or at pp > 1 the pipelined loss of each (num_micro,
-        rows, seq) batch; under cp each rank its sequence shard."""
+        rows, seq) batch; under cp each rank its sequence shard. With a
+        batch builder, the model's own loss of each microbatch's
+        keywords, averaged over the microbatches (JAX :628-648)."""
         if self.valid_data_iterator is None:
             return float("nan")
         self.drain_param_gathers()
+        if self._eval_step_fn is None and self.batch_builder is not None:
+            model = self.model
+
+            @torch.no_grad()
+            def generic_eval(params, batch):
+                n = next(iter(batch.values())).shape[0]
+                losses = [model.loss(params, deterministic=True,
+                                     **{k: v[i] for k, v in batch.items()})
+                          for i in range(n)]
+                return sum(losses) / len(losses)
+
+            self._eval_step_fn = generic_eval
         if self._eval_step_fn is None:
             self._eval_step_fn = make_eval_step(self.model)
         total, count = 0.0, 0
@@ -665,6 +695,11 @@ class Trainer:
                 text = next(it)
             except StopIteration:
                 break
+            if self.batch_builder is not None:
+                total += float(self._eval_step_fn(state.params,
+                                                  self._built(text)))
+                count += 1
+                continue
             raw = context_shard(get_batch(text, self.eod_token,
                                           device=self.device), self.ctx)
             batch = raw if self.pcfg.pipeline_parallel_size > 1 else {

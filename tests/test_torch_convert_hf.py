@@ -358,8 +358,14 @@ def test_cli_hf2native_equals_the_jax_tool(tmp_path, family, variant):
              hf_dir, "--output", ours])
     jt = _jax_tool()
     jax_dir = str(tmp_path / "jax")
+    # the JAX save writes meta.json into the release directory while
+    # orbax's asynchronous save may not have made that directory yet
+    # (megatron_llm_tpu/training/checkpointing.py:228-234): made first,
+    # the tool's save runs to its commit, which the sentinel certifies
+    os.makedirs(os.path.join(jax_dir, "release"))
     jt.hf2native(argparse.Namespace(model=family, input=hf_dir,
                                     output=jax_dir, dtype="float32"))
+    assert os.path.isfile(os.path.join(jax_dir, "release", "COMPLETE"))
     from transformers import AutoConfig
 
     jcfg = jt._model_cfg_from_hf(family, AutoConfig.from_pretrained(hf_dir),

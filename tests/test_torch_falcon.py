@@ -13,7 +13,7 @@ layernorm):
   gives the JAX engine's greedy streams and exactly its page accounting;
 - `finetune --model_name falcon`: the same argv gives equal configs,
   and 3 steps resumed from the JAX package's checkpoint give the JAX
-  trainer's losses within 1e-5; `--use_post_ln` still raises.
+  trainer's losses within 1e-5; `--use_post_ln` builds the JAX config.
 """
 
 import dataclasses
@@ -176,10 +176,20 @@ def test_same_argv_same_falcon_config(extra):
 
 
 def test_post_ln_still_raises():
-    args = arguments.build_base_parser().parse_args(
-        (ARGV + " --use_post_ln").split())
-    with pytest.raises(ValueError, match="A6"):
-        arguments.args_to_configs(args, 256)
+    """Post-LN layers are ported (the encoder family's slice): the flag
+    no longer raises and builds the JAX package's config field for field
+    (a parallel-attention layer has no post-LN branch in either
+    package)."""
+    argv = (ARGV + " --use_post_ln").split()
+    jm = jax_args.args_to_configs(
+        jax_args.build_base_parser().parse_args(argv), 256)[0]
+    pm = arguments.args_to_configs(
+        arguments.build_base_parser().parse_args(argv), 256)[0]
+    jd, pd = dataclasses.asdict(jm), dataclasses.asdict(pm)
+    shared = sorted(set(jd) & set(pd) - {"params_dtype", "compute_dtype"})
+    assert "use_post_ln" in shared
+    assert {k: pd[k] for k in shared} == {k: jd[k] for k in shared}
+    assert pm.use_post_ln and pm.parallel_attn
 
 
 @pytest.fixture(autouse=True)

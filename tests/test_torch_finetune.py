@@ -224,6 +224,18 @@ def test_later_slice_flags_raise_by_name(flags, slice_name):
                      jax_args.args_to_configs(jargs, 32000)[2],
                      TrainConfig, JaxTrainConfig)
         return
+    if slice_name == "A6":
+        # post-LN layers are ported: the flag builds the JAX package's
+        # ModelConfig field for field
+        argv += ["--data_parallel_size", "1"]
+        args = arguments.build_base_parser().parse_args(argv)
+        jargs = jax_args.build_base_parser().parse_args(argv)
+        pm = arguments.args_to_configs(args, 32000)[0]
+        jm = jax_args.args_to_configs(jargs, 32000)[0]
+        assert "use_post_ln" in _same_fields(pm, jm, ModelConfig,
+                                             JaxModelConfig)
+        assert pm.use_post_ln and jm.use_post_ln
+        return
     with pytest.raises(ValueError, match=slice_name.replace(".", r"\.")):
         arguments.args_to_configs(args, 32000)
 
@@ -313,12 +325,37 @@ def test_training_mode_flags_build_the_jax_configs(flags):
                                 else torch.bfloat16)
 
 
+BERT_FLAGS = ("--hidden_size 1024 --num_attention_heads 16 --seq_length 512 "
+              "--max_position_embeddings 512 --use_post_ln "
+              "--hidden_dropout 0.1 --attention_dropout 0.1 "
+              "--init_method_std 0.02 --layernorm_epsilon 1e-12 "
+              "--micro_batch_size 4 --global_batch_size 8 --bf16 "
+              "--data_parallel_size 1")
+
+
 @pytest.mark.parametrize("name", ["bert", "t5"])
 def test_model_families_of_later_slices_raise(name):
-    args = arguments.build_base_parser().parse_args(
-        ["--model_name", name, "--num_layers", "2"])
-    with pytest.raises(ValueError, match="A6"):
-        arguments.args_to_configs(args, 32000)
+    """T5 is a later slice and raises naming it; BERT is ported: its
+    flags build the JAX package's configs field for field."""
+    argv = ["--model_name", name, "--num_layers", "2"]
+    if name == "t5":
+        args = arguments.build_base_parser().parse_args(argv)
+        with pytest.raises(ValueError, match="A6"):
+            arguments.args_to_configs(args, 32000)
+        return
+    argv += BERT_FLAGS.split()
+    pa = arguments.build_base_parser().parse_args(argv)
+    ja = jax_args.build_base_parser().parse_args(argv)
+    pm, pp, pt, pd = arguments.args_to_configs(pa, 30524)
+    jm, jp, jt, jd = jax_args.args_to_configs(ja, 30524)
+    shared = _same_fields(pm, jm, ModelConfig, JaxModelConfig)
+    assert {"num_tokentypes", "add_binary_head", "use_post_ln",
+            "position_embedding_type", "padded_vocab_size"} <= shared
+    assert (pm.num_tokentypes, pm.add_binary_head, pm.use_post_ln,
+            pm.padded_vocab_size) == (2, True, True, 30592)
+    _same_fields(pt, jt, TrainConfig, JaxTrainConfig)
+    assert (pp.num_microbatches, pp.data_parallel_size) == (
+        jp.num_microbatches, jp.data_parallel_size)
 
 
 def test_descoped_flag_exits_with_reason():

@@ -17,7 +17,7 @@ from pathlib import Path
 import pytest
 
 import megatron_llm_tpu_torch
-from megatron_llm_tpu_torch import finetune
+from megatron_llm_tpu_torch import finetune, pretrain_bert
 from megatron_llm_tpu_torch.config import tiny_config
 from megatron_llm_tpu_torch.convert.from_jax import (
     params_from_jax,
@@ -33,6 +33,7 @@ from megatron_llm_tpu_torch.models.transformer import init_layer_params
 from megatron_llm_tpu_torch.ops import flash_attention as fa
 from megatron_llm_tpu_torch.ops import rmsnorm as rms
 from megatron_llm_tpu_torch.parallel import pipeline, ring_attention
+from megatron_llm_tpu_torch.tasks import main as tasks_main
 from megatron_llm_tpu_torch.parallel.mesh import (
     ParallelContext,
     initialize_parallel,
@@ -121,6 +122,8 @@ def test_no_jax_import_in_source(path):
     (run_text_generation_server.main, "device"),
     (initialize_parallel, "device"),
     (serving_context, "device"),
+    (pretrain_bert.main, "device"),
+    (tasks_main.main, "device"),
 ])
 def test_entry_points_default_to_cuda(fn, arg):
     fn = getattr(fn, "__wrapped__", fn)

@@ -75,6 +75,10 @@ def test_release_layout_equals_jax(tmp_path):
     save_dir, path, tm, tp = _tiny_release(tmp_path)
     jm, jp, _, _ = tiny_pair()
     jdir = str(tmp_path / "jax")
+    # made first: the JAX save writes meta.json there while orbax's
+    # asynchronous save may not have made it yet (JAX
+    # training/checkpointing.py:228-234)
+    os.makedirs(jax_ckpt.checkpoint_dir(jdir, 0, release=True))
     jpath = jax_ckpt.save_checkpoint(jdir, 0, jp, release=True)
     assert os.path.basename(path) == os.path.basename(jpath) == "release"
     for d in (save_dir, jdir):
