@@ -8,7 +8,9 @@ Phases, one output line each (a failure raises and exits non-zero):
 1. device: the card's name and power limit from nvidia-smi;
 2. build: the hand-written kernels built from this checkout's sources
    (one nvcc per CUDA C++ source, started together; Triton's compiler for
-   the RMSNorm), each timed; then ptxas's report of decode_attention.cu,
+   the RMSNorm), each timed; phase 3's checks of K1, K2, K3 and K4-K6
+   run while paged_attention.cu, the slowest, still compiles, and K7's
+   after it; then ptxas's report of decode_attention.cu,
    flash_attention.cu and paged_attention_tc.cu (`-Xptxas -v`:
    registers, stack and spills of each kernel instance) beside K4's, K5's,
    K6's and K7-tc's dynamic shared memory, the latter with bf16 and with
@@ -83,7 +85,7 @@ Phases, one output line each (a failure raises and exits non-zero):
    the device ms of one 8-slot paged decode step beside the weight
    floor, the device ms of one mixed round's paged forward and K7's part
    of it (torch.profiler), peak memory;
-10b. graph_capture (at 4 of 32 layers, CAPTURE_LAYERS): 8 of the
+10b. graph_capture (at 2 of 32 layers, CAPTURE_LAYERS): 8 of the
    engine's greedy requests queued and drained
    by the bf16 engine with every round a replayed graph, and the same
    queue's first rounds (every mixed round and 4 decode rounds) with
@@ -110,14 +112,14 @@ Phases, one output line each (a failure raises and exits non-zero):
    step and of a mixed round's forward (and K7's part), with K7's tc
    design and, in the same call, with every launch forced to the present
    design;
-12. serving_engine_window: the 7B's first 4 of 32 layers (WINDOW_LAYERS)
+12. serving_engine_window: the 7B's first 2 of 32 layers (WINDOW_LAYERS)
    with `attention_window_size=1024`, max_context 4096, 12 requests (8
    reaching 1564-3128 positions) queued and drained in a pool of 8 x 21
    pages that their reach overflows: the streams bitwise those of the
    mask-only engine, pages reclaimed, no slot above 21 pages, every page
    back, a kernels-off windowed re-score within 5e-2, every K7 launch
    the window variant;
-13. serving_engine_spec_whole_prompt (at 4 of 32 layers, SPEC_LAYERS):
+13. serving_engine_spec_whole_prompt (at 2 of 32 layers, SPEC_LAYERS):
    8 requests (4 with repeating prompts) over HTTP through the chunked
    engine, with `spec_decode_k=4` and with whole-prompt admission:
    acceptance, tokens/s and TTFT of each, and log-probs within 5e-2 of
@@ -192,8 +194,8 @@ Phases, one output line each (a failure raises and exits non-zero):
    (FALCON_LAYERS; 16 before the serving_tp phase, 8 before the
    overlap_dropout phase, 4 before the bert phase), random bf16
    weights from a seed written as a release by `save_checkpoint(
-   release=True)`; native2hf then hf2native through the CLI at full
-   width and 2 layers, bit-exact; the launcher (`--model falcon`) in a
+   release=True)`; native2hf then hf2native through the CLI's `main`
+   (in this process) at full width and 2 layers, bit-exact; the launcher (`--model falcon`) in a
    thread: 8 engine requests, a beam-2 and a score-only request, K7 (tc,
    qpk 71) and K1 (tensor_cores, qpk 71) counted as in 14c, K4 never
    (Falcon runs no flash); the greedy streams teacher-forced through the
@@ -222,7 +224,8 @@ Phases, one output line each (a failure raises and exits non-zero):
 18. finetune_data and finetune (the training entry path, after the
    train phase's model is freed): two JSONL corpora of seeded token ids
    (about 1.5 M tokens each, documents of 64-8192) through the port's
-   `preprocess_data` (NullTokenizer, 2 workers), then
+   `preprocess_data` (NullTokenizer; 2 spawned workers for the first,
+   1 for the second), then
    `finetune.main(argv)` three times at Llama-2-7B widths with 1 of 32
    layers (FT_ENTRY_LAYERS; 2 before the overlap_dropout phase), seq
    4096, 4 microbatches, bf16 on fp32
@@ -253,7 +256,7 @@ Phases, one output line each (a failure raises and exits non-zero):
    and commit s, bytes on disk and the load's s. The checkpoints live
    under build/finetune_smoke/ and are deleted after their checks;
 17b. train_remat (between 17 and 18): phase 15's trainer from its initial
-   weights and batch, 3 steps under each recompute policy ("full",
+   weights and batch, 2 steps under each recompute policy ("full",
    "selective", "save_dots", "offload", and "full" on the first 4 layers
    by `recompute_method` block): ms a step, peak memory, GEMM and flash
    device ms of a profiled step, launches a step checked against the
@@ -267,7 +270,9 @@ Phases, one output line each (a failure raises and exits non-zero):
    1 --sequence_parallel --use_distributed_optimizer`) under `torchrun
    --nproc_per_node 1`, an NCCL group of world size 1: launches equal,
    losses and grad norms within 2e-2 / 5e-2 (bit for bit printed), ms a
-   step within 3%; (b) fp16 with the dynamic scaler
+   step within 3% of the recipe's without those flags, both timed in
+   that process in the order A4, plain, plain, A4; (b) fp16 with the
+   dynamic scaler
    from 2^32 for 16 steps (the scale and skip sequence follows the
    scaler's rule, at least 3 steps taken, K4-K6 in fp16 only), (c)
    hidden, attention and LIMA dropout under full recompute (no flash
@@ -353,7 +358,9 @@ Phases, one output line each (a failure raises and exits non-zero):
    of 30522 entries (the specials, words and ## pieces; padded to
    30592) and a synthetic corpus of 200 documents through the port's
    `preprocess_data --split_sentences --tokenizer_type
-   BertWordPieceLowerCase`, then `pretrain_bert.main` at
+   BertWordPieceLowerCase` (and a title a document, the document's
+   first words, without `--split_sentences`, for phase 25; the three
+   phases share both), then `pretrain_bert.main` at
    examples/pretrain_bert.sh's BERT-large widths and flags (24 layers,
    hidden 1024, 16 heads, seq 512, micro batch 4, global batch 8, bf16;
    6 steps, an eval at step 3, the final save without the optimizer
@@ -370,6 +377,23 @@ Phases, one output line each (a failure raises and exits non-zero):
    TFLOP/s (6 N a token plus attention) and its share of 989, peak
    memory; and one more step on the first batch under torch.profiler:
    its busy and idle share, GEMM ms and the ten largest kernels.
+24. t5: `pretrain_t5.main` at examples/pretrain_t5.sh's T5-base widths
+   and flags (12 layers a side, hidden 768, 12 heads, kv_channels 64,
+   ffn 3072, encoder seq 512, decoder seq 128, micro and global batch
+   16, `--vocab_extra_ids 100`: vocabulary 30720, bf16; 6 steps, an
+   eval at step 3, the final save without the optimizer state) on phase
+   23's corpus, with the checks and prints of phase 23's pretraining:
+   no kernel launch (every attention carries a dense mask, the norms
+   are LayerNorm), every loss finite, step 1 recomputed in bf16 equal
+   and in fp32 within 2e-2; tokens/s counts encoder and decoder tokens,
+   model TFLOP/s 6 N a token of each side (the tied head on the
+   decoder's) plus attention (encoder self, decoder self and cross);
+25. ict: `pretrain_ict.main` at examples/pretrain_ict.sh's BERT-base
+   widths (12 layers, hidden 768, 12 heads, seq 256; separate towers,
+   projection 0, micro and global batch 32: each query's softmax over
+   the batch's 32 blocks; bf16; 6 steps and the final save) on phase
+   23's corpus and its titles, with phase 24's checks and prints (step
+   1's loss beside ln 32); tokens/s counts query and context tokens.
 
 Then a line of each phase's seconds, a line of the processes the run
 still had to stop, one JSON line of the kernels, the nvidia-smi line,
@@ -385,6 +409,7 @@ Without a CUDA card it exits 2 and prints no result.
 """
 
 import argparse
+import collections
 import contextlib
 import dataclasses
 import gc
@@ -692,10 +717,18 @@ CUDA_SOURCES = ("decode_attention.cu", "paged_attention.cu",
                 "paged_attention_tc.cu", "flash_attention.cu")
 
 
-def build_kernels():
+# each source's library, loaded once its build has ended
+LIBRARIES = {"decode_attention.cu": lambda: dec._library(),
+             "paged_attention.cu": lambda: pa._library(),
+             "paged_attention_tc.cu": lambda: pa._library("tc"),
+             "flash_attention.cu": lambda: fa._library("fwd")}
+
+
+def start_builds():
     """One nvcc per CUDA C++ source, all started together, while Triton
-    compiles the RMSNorm kernel; each build's seconds from the common
-    start to its end."""
+    compiles the RMSNorm kernels; returns the builds for `await_builds`
+    (the smoke checks the kernels of the sources that end first while
+    the others compile)."""
     t0 = time.perf_counter()
     builds = {src: _build.start_build(src) for src in CUDA_SOURCES}
     x = torch.randn(4, 4096, device="cuda", dtype=torch.bfloat16)
@@ -708,21 +741,36 @@ def build_kernels():
     rms.rms_norm_bwd(x, w, rstd, x)  # K2 with rstd and K3, at first launch
     torch.cuda.synchronize()
     seconds["rmsnorm_bwd_triton_s"] = round(time.perf_counter() - t1, 2)
-    pending = dict(builds)
-    while pending:
-        for src, (proc, lib) in list(pending.items()):
+    return {"t0": t0, "all": builds, "pending": dict(builds),
+            "seconds": seconds}
+
+
+def build_kernels():
+    """Every kernel built and loaded (for a script that drives phases on
+    their own)."""
+    await_builds(start_builds(), *CUDA_SOURCES)
+
+
+def await_builds(builds, *sources):
+    """Wait for the builds of `sources` and load their libraries, each
+    build's seconds from the common start to when this wait saw it end
+    (a build that ended while earlier checks ran reads as their end);
+    when the last has ended, print them and the ptxas reports."""
+    pending, seconds = builds["pending"], builds["seconds"]
+    while any(src in pending for src in sources):
+        for src in [src for src in sources if src in pending]:
+            proc, lib = pending[src]
             if proc is None or proc.poll() is not None:
                 _build.finish_build(proc, lib)
                 key = src.replace(".", "_") + "_s"
-                seconds[key] = round(time.perf_counter() - t0, 2)
+                seconds[key] = round(time.perf_counter() - builds["t0"], 2)
                 del pending[src]
+                LIBRARIES[src]()
         time.sleep(0.05)
-    dec._library()
-    pa._library()
-    pa._library("tc")
-    fa._library("fwd")
+    if pending:
+        return
     say("build", **seconds,
-        libraries=[lib.name for _, lib in builds.values()])
+        libraries=[lib.name for _, lib in builds["all"].values()])
     say("ptxas_decode", **ptxas_of("decode_attention.cu", 0))
     say("ptxas_flash", **ptxas_flash())
     say("ptxas_paged_tc", **ptxas_paged_tc())
@@ -2246,9 +2294,10 @@ def serve_engine(kernels, cfg, model, params, weight_bytes):
 # ---------------------------------------------------------------------------
 
 CAPTURE_REQUESTS = 8
-# the phase's depth: 4 of Llama-2-7B's 32 layers (16 before the bert
-# phase), which keeps the whole smoke within its time on a slow host
-CAPTURE_LAYERS = 4
+# the phase's depth: 2 of Llama-2-7B's 32 layers (16 before the bert
+# phase, 4 before the t5 and ict phases), which keeps the whole smoke
+# within its time on a slow host
+CAPTURE_LAYERS = 2
 
 
 def _engine_device_ms(eng, horizon=8, length=1000):
@@ -2542,9 +2591,10 @@ def serve_engine_int8(kernels, cfg, model, params, bf16):
 
 
 WINDOW_SERVE = 1024
-# the window phase's depth: 4 of Llama-2-7B's 32 layers (8 before the
-# bert phase), which keeps the whole smoke within its time
-WINDOW_LAYERS = 4
+# the window phase's depth: 2 of Llama-2-7B's 32 layers (8 before the
+# bert phase, 4 before the t5 and ict phases), which keeps the whole
+# smoke within its time
+WINDOW_LAYERS = 2
 
 
 def window_traffic():
@@ -2684,9 +2734,10 @@ def spec_traffic():
     return out
 
 
-# the spec and whole-prompt phase's depth: 4 of Llama-2-7B's 32 layers
-# (16 before the bert phase), which keeps the whole smoke within its time
-SPEC_LAYERS = 4
+# the spec and whole-prompt phase's depth: 2 of Llama-2-7B's 32 layers
+# (16 before the bert phase, 4 before the t5 and ict phases), which
+# keeps the whole smoke within its time
+SPEC_LAYERS = 2
 
 
 def serve_engine_spec_and_whole_prompt(kernels, cfg, model, params):
@@ -2886,6 +2937,17 @@ def convert(*argv):
     check(out.returncode == 0, f"convert_weights {argv}: rc "
                                f"{out.returncode}\n{out.stdout[-2000:]}\n"
                                f"{out.stderr[-4000:]}")
+    return time.perf_counter() - t0
+
+
+def convert_here(*argv):
+    """`convert_weights.main(argv)` in this process: the CLI's own
+    parsing and conversion without a fresh interpreter's start (about 8
+    s on the H100's host); returns its seconds."""
+    from megatron_llm_tpu_torch.tools import convert_weights
+
+    t0 = time.perf_counter()
+    convert_weights.main([str(a) for a in argv])
     return time.perf_counter() - t0
 
 
@@ -3349,11 +3411,13 @@ def hold_streams(plain, params, prompts, streams, refs):
     return agree / max(total, 1), err, gap
 
 
-def fleet_launches(kernels, path, engines, counts, variants, warm=0):
+def fleet_launches(kernels, path, engines, counts, variants, warm=0,
+                   calls=None):
     """K7 launched once a layer and paged forward of every replica's
     rounds (plus `warm`, the launches a replacement's warm-up made),
     every launch tc, on each replica; K1, K2 and K4 never. Notes the
-    path on the kernels line; returns K7 launches by replica."""
+    path on the kernels line; returns K7 launches by replica. `calls`
+    (`dispatch_logger`'s) are named in a failure."""
     L = engines[0].cfg.num_layers
     by = {}
     for eng in engines:
@@ -3362,7 +3426,8 @@ def fleet_launches(kernels, path, engines, counts, variants, warm=0):
     k7 = counts["ragged_paged_attention"]
     check(k7 == sum(by.values()) + warm and variants["tc"] == k7,
           f"{path}: K7 launches {k7} (designs {variants}) != {L} x the "
-          f"replicas' paged forwards {by} + {warm} warm-up")
+          f"replicas' paged forwards {by} + {warm} warm-up; the engines' "
+          f"device calls {dispatch_forwards(calls or [], L)}")
     check(all(v > 0 for v in by.values()) and len(by) == FLEET_REPLICAS,
           f"{path}: K7 did not run on every replica: {by}")
     check(counts["decode_attention"] == counts["flash_fwd"]
@@ -3370,6 +3435,41 @@ def fleet_launches(kernels, path, engines, counts, variants, warm=0):
     note_launcher_launches(kernels, path, {
         "launches": counts, "variants": variants})
     return by
+
+
+def dispatch_logger(calls):
+    """A `DecodeEngine._run` wrapper (for `patched`) that appends each
+    device call but the idle "noop" to `calls` as (replica, kind, key,
+    captured here): every forward an engine ran, whether or not a round
+    log holds it."""
+    runners = {"step": "_step_fns", "mixed": "_mixed_fns",
+               "spec": "_spec_fns"}
+
+    def make(orig):
+        def run(self, kind, key, args):
+            if kind != "noop":
+                fns = getattr(self, runners.get(kind, ""), None)
+                calls.append((self.replica_id, kind, tuple(key),
+                              fns is not None and tuple(key) not in fns))
+            return orig(self, kind, key, args)
+        return run
+    return make
+
+
+def dispatch_forwards(calls, layers):
+    """K7 launches the logged device calls imply, by replica: a decode
+    runner of horizon h h forwards a call, a mixed or verify runner and a
+    whole-prompt prefill one, a runner captured by the call WARMUP_RUNS
+    more (its eager runs before the capture); and the calls by kind."""
+    by, kinds = {}, collections.Counter()
+    for rid, kind, key, new in calls:
+        kinds[f"r{rid}:{kind}{list(key) if kind != 'prefill' else ''}"
+              f"{':captured' if new else ''}"] += 1
+        fw = key[0] if kind == "step" else int(kind in ("mixed", "spec",
+                                                        "prefill"))
+        by[rid] = by.get(rid, 0) + layers * fw * (
+            1 + (gcap.WARMUP_RUNS if new else 0))
+    return by, dict(kinds)
 
 
 def warmup_launches(eng, warmups):
@@ -3559,19 +3659,21 @@ def fleet_recover(kernels, tp1, plain, wparams):
     free_cuda()
     reserved_before = torch.cuda.memory_reserved()
     _, prompts = fleet_traffic()
-    zero_counts()
-    t0 = time.perf_counter()
-    # the first request alone registers the system prefix on replica 0,
-    # so the rest follow it there by affinity (and arm the kill)
-    results = concurrent_greedy(srv.port, prompts[:1])
-    results += concurrent_greedy(srv.port, prompts[1:])
-    wall = time.perf_counter() - t0
-    deadline = time.monotonic() + 300
-    while router.router_stats().get("serve_fleet_replaced", 0) < 1:
-        check(time.monotonic() < deadline, "no replacement")
-        time.sleep(0.05)
-    counts, variants = kernel_counts(), dict(
-        pa.ragged_paged_attention.variant_launches)
+    calls = []
+    with patched(DecodeEngine, "_run", dispatch_logger(calls)):
+        zero_counts()
+        t0 = time.perf_counter()
+        # the first request alone registers the system prefix on replica
+        # 0, so the rest follow it there by affinity (and arm the kill)
+        results = concurrent_greedy(srv.port, prompts[:1])
+        results += concurrent_greedy(srv.port, prompts[1:])
+        wall = time.perf_counter() - t0
+        deadline = time.monotonic() + 300
+        while router.router_stats().get("serve_fleet_replaced", 0) < 1:
+            check(time.monotonic() < deadline, "no replacement")
+            time.sleep(0.05)
+        counts, variants = kernel_counts(), dict(
+            pa.ragged_paged_attention.variant_launches)
     failed = [r for r in results if r[0] != 200]
     check(not failed, f"fleet (b) failed requests: {failed}")
     streams = [out for _, out in results]
@@ -3580,7 +3682,7 @@ def fleet_recover(kernels, tp1, plain, wparams):
           "replica 0 was not replaced")
     by = fleet_launches(kernels, "launcher_fleet_recover",
                         engines + [new], counts, variants,
-                        warm=warmup_launches(new, 2))
+                        warm=warmup_launches(new, 2), calls=calls)
     stats = router.router_stats()
     record = router.flight_record()
     replace = [e for e in record.get("fleet", []) if e["kind"] == "replace"]
@@ -3614,6 +3716,8 @@ def fleet_recover(kernels, tp1, plain, wparams):
         replacement_s=replace[0].get("recovery_s"),
         replace_event={k: v for k, v in replace[0].items() if k != "t"},
         flight_record_dumps=dumps, k7_launches_by_replica=by,
+        k7_launches_by_device_calls=dispatch_forwards(
+            calls, tp1["layers"]),
         launches=counts,
         reserved_gb_before_kill=reserved_before / 1e9,
         reserved_gb_after_replacement=reserved_after / 1e9,
@@ -3963,12 +4067,11 @@ def falcon_kernel_ms(model, eng):
                 beam_top, ("decode_mma_kernel", "decode_split_kernel")) / L}
 
 
-# Falcon-7B's launcher phase runs half its depth: the whole smoke must fit
-# its time limit beside the parallel phase, and a cut of depth
-# leaves every width, kernel shape and route as it was
-# Falcon-7B's depth on the serving entry path: 2 of 32 layers since the
+# a cut of depth leaves every width, kernel shape and route as it was:
+# Falcon-7B's depth on the serving entry path is 2 of 32 layers since the
 # bert phase (4 before, 8 before the overlap_dropout phase, 16 before
-# the serving_tp phase), to keep the whole smoke within 950 s
+# the serving_tp phase), to keep the whole smoke within 950 s; the
+# phase's round trip converts its first 2 layers
 FALCON_LAYERS = 2
 
 
@@ -3979,7 +4082,7 @@ def launcher_falcon(kernels, init_std):
     weights from a seed written as a release by `save_checkpoint(
     release=True)` (the layout hf2native writes); the converters checked
     at full width and 2 layers (native2hf then hf2native through the
-    CLI, bit-exact); then the launcher (`--model falcon`) in a thread: 8
+    CLI's `main` in this process, bit-exact); then the launcher (`--model falcon`) in a thread: 8
     engine requests, a beam-2 and a score-only request. K7 (tc, qpk 71)
     and K1 (tensor_cores, qpk 71) on the path; the greedy streams
     teacher-forced through the kernels-off forward within 5e-2."""
@@ -4006,10 +4109,11 @@ def launcher_falcon(kernels, init_std):
         {k: v[:2] for k, v in ckpt.flatten(params["layers"]).items()}))
     ckpt.save_checkpoint(str(small), 0, params2, model_cfg=cfg2,
                          release=True)
-    trip_s = convert("--model", "falcon", "--direction", "native2hf",
-                     "--input", small, "--output", hf2)
-    trip_s += convert("--model", "falcon", "--direction", "hf2native",
-                      "--dtype", "bfloat16", "--input", hf2, "--output", back)
+    trip_s = convert_here("--model", "falcon", "--direction", "native2hf",
+                          "--input", small, "--output", hf2)
+    trip_s += convert_here("--model", "falcon", "--direction", "hf2native",
+                           "--dtype", "bfloat16", "--input", hf2,
+                           "--output", back)
     trip_leaves = release_leaves_equal(back, params2)
     for d in (small, hf2, back):
         shutil.rmtree(d)
@@ -4757,7 +4861,9 @@ def add_launches(kernels, path, launches, fp16=None):
         row["launches"] = sum(paths.values())
 
 
-REMAT_STEPS = 3
+# 2 steps a policy since the t5 and ict phases (3 before): the step ms
+# is the second's
+REMAT_STEPS = 2
 
 
 def activation_gb(model, params, text):
@@ -5297,14 +5403,17 @@ def finetune_phase(kernels, train_step_ms):
     shutil.rmtree(FT_DIR, ignore_errors=True)
     FT_DIR.mkdir(parents=True)
     data, tokens, t_pre = [], 0, 0.0
-    for name, seed in (("A", SEED + 31), ("B", SEED + 37)):
+    # A through 2 spawned workers, B in this process (since the t5 and
+    # ict phases; a spawned pool's start costs seconds in this process)
+    for name, seed, workers in (("A", SEED + 31, "2"),
+                                ("B", SEED + 37, "1")):
         jsonl = FT_DIR / f"{name}.jsonl"
         tokens += write_corpus(jsonl, seed)
         t0 = time.perf_counter()
         preprocess_data.main([
             "--input", str(jsonl), "--output_prefix", str(FT_DIR / name),
             "--tokenizer_type", "NullTokenizer", "--null_vocab_size",
-            "31999", "--append_eod", "--workers", "2"])
+            "31999", "--append_eod", "--workers", workers])
         t_pre += time.perf_counter() - t0
         data.append(str(FT_DIR / f"{name}_text_document"))
     free_gb = shutil.disk_usage(FT_DIR).free / 1e9
@@ -5464,8 +5573,9 @@ def finetune_modes(kernels, data):
     run: (a) the fine-tuning recipe's training flags (flash, selective
     recompute, bf16, its AdamW): K4 once a layer and microbatch, and
     again under torchrun with the recipe's parallel flags at world size
-    1 (its record is returned, for
-    finetune_parallel); (b) the
+    1, whose step costs at most 3% more than the recipe's without them,
+    both timed in that torchrun process (the record of (a) is returned,
+    for finetune_parallel); (b) the
     same in fp16 with the default dynamic scaler from 2^32: the scale and
     skip sequence follows the scaler's rule, the scale comes down and at
     least three steps are taken, K4-K6 run their fp16 instantiations;
@@ -5478,9 +5588,14 @@ def finetune_modes(kernels, data):
     recipe = mode_argv(data, *RECIPE, "--bf16", "--train_iters", "4")
     # (a), and again under torchrun with the recipe's parallel flags: an
     # NCCL group of world size 1, where every mapping is the identity
-    # and ZeRO-1 at dp 1 the replicated AdamW
+    # and ZeRO-1 at dp 1 the replicated AdamW. The flags' step-time cost
+    # is read in that fresh process alone, from runs with and without
+    # them in the order A4, plain, plain, A4 (this long-lived process
+    # steps up to 7% slower on some hosts)
     a = finetune_run(recipe)
-    a_a4 = run_ranks([recipe + RECIPE_A4_FLAGS], nproc=1)[0][0][0]
+    a4 = recipe + RECIPE_A4_FLAGS
+    timing = run_ranks([a4, recipe, recipe, a4], nproc=1)[0][0]
+    a_a4 = timing[0]
     b = finetune_run(mode_argv(data, *RECIPE, "--fp16", "--train_iters",
                                str(FP16_STEPS)))
     drop = ["--hidden_dropout", "0.1", "--attention_dropout", "0.1",
@@ -5546,15 +5661,31 @@ def finetune_modes(kernels, data):
             "wall_s": run["wall_s"]}
     out["b_fp16"].update(loss_scales=scales, skipped=skipped,
                          clean_steps=skipped.count(0))
-    ms_ratio = out["a_recipe_a4_flags"]["step_ms_median"] \
-        / out["a_recipe"]["step_ms_median"]
+    check(all(run["launches"] == a["launches"] for run in timing),
+          f"finetune_modes (a) timing runs launched "
+          f"{[run['launches'] for run in timing]} != {a['launches']}")
+    # steps 2-4 of each run, pooled by flags
+    with_a4, plain = ([ms for run in runs for ms in
+                       [st["ms"] for st in run["steps"]][1:]]
+                      for runs in ((timing[0], timing[3]),
+                                   (timing[1], timing[2])))
+    ms_ratio = float(np.median(with_a4)) / float(np.median(plain))
     out["a_recipe_a4_flags"].update(
         argv_extra=" ".join(RECIPE_A4_FLAGS), launcher="torchrun "
         "--nproc_per_node 1 (NCCL, world size 1)",
         bitwise_equal_by_step=a4_equal,
-        step_ms_ratio_to_a_recipe=ms_ratio)
+        step_ms_ratio_to_a_recipe=out["a_recipe_a4_flags"]["step_ms_median"]
+        / out["a_recipe"]["step_ms_median"])
+    out["a4_cost_fresh_process"] = {
+        "order": "A4, plain, plain, A4 in one torchrun process",
+        "step_ms_by_run": [[st["ms"] for st in run["steps"]]
+                           for run in timing],
+        "a4_steps_2_4_median": float(np.median(with_a4)),
+        "plain_steps_2_4_median": float(np.median(plain)),
+        "step_ms_ratio": ms_ratio}
     check(abs(ms_ratio - 1.0) <= 0.03,
-          f"finetune_modes (a): the A4 flags cost {ms_ratio:.4f}x a step")
+          f"finetune_modes (a): the A4 flags cost {ms_ratio:.4f}x a step "
+          f"(in one fresh process: {out['a4_cost_fresh_process']})")
     say("finetune_modes", card=nvidia_smi(), layers=FT_LAYERS, seq=FT_SEQ,
         micro_batches=FT_MICRO, recipe_flags=" ".join(RECIPE),
         recipe_left_out=RECIPE_LEFT_OUT, runs=out,
@@ -6933,7 +7064,8 @@ def time_flash_cp_hops(kernels):
 
 
 # ---------------------------------------------------------------------------
-# phase 23: the encoder family, BERT-large widths
+# phase 23: the encoder family, BERT-large widths (and the inputs of
+# phases 24 and 25)
 # ---------------------------------------------------------------------------
 
 BERT_DIR = Path(__file__).resolve().parent / "build" / "bert_smoke"
@@ -7048,12 +7180,12 @@ def assert_no_launches(what):
           f"{what} launched a kernel: {counts} (the encoder path has none)")
 
 
-def bert_pretrain(vocab, data, save):
-    """`pretrain_bert.main` for BERT_STEPS steps and its save, with the
-    counters set to 0 just before it; returns the trainer, the final
-    state, the first global batch and each step's loss and ms."""
-    from megatron_llm_tpu_torch import pretrain_bert
-
+def pretrain_run(entry, argv):
+    """`entry.main(argv)` (pretrain_bert, pretrain_t5 or pretrain_ict)
+    with the counters set to 0 just before it, which must stay 0;
+    returns the trainer, the final state, the first global batch, every
+    trained batch, each step's loss and ms, the wall, the peak memory and
+    one more step's profile."""
     seen = {}
 
     def setup(orig):
@@ -7065,29 +7197,36 @@ def bert_pretrain(vocab, data, save):
     def train_step(orig):
         def wrapped(self, state, text, *a, **kw):
             seen.setdefault("first", text)
+            seen.setdefault("batches", []).append(text)
             return orig(self, state, text, *a, **kw)
         return wrapped
 
-    argv = BERT_RECIPE.split() + [
-        "--vocab_file", str(vocab), "--data_path", data,
-        "--train_iters", str(BERT_STEPS), "--eval_interval", "3",
-        "--eval_iters", "1", "--log_interval", "1", "--seed", str(SEED),
-        "--save", str(save), "--no_save_optim"]
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     t0 = time.perf_counter()
     with patched(Trainer, "setup", setup), \
             patched(Trainer, "train_step", train_step):
-        state = pretrain_bert.main(argv)
+        state = entry.main(argv)
     wall = time.perf_counter() - t0
-    assert_no_launches("pretrain_bert")
+    assert_no_launches(entry.__name__.rsplit(".", 1)[-1])
     trainer = seen["trainer"]
     steps = step_events(trainer)
     return dict(trainer=trainer, state=state, first=seen["first"],
-                losses=[e["loss"] for e in steps],
+                batches=seen["batches"], losses=[e["loss"] for e in steps],
                 ms=[e["ms"] for e in steps], wall_s=wall,
                 peak_gb=torch.cuda.max_memory_allocated() / 1e9,
                 profile=bert_step_profile(trainer, state, seen["first"]))
+
+
+def bert_pretrain(vocab, data, save):
+    """`pretrain_bert.main` for BERT_STEPS steps and its save."""
+    from megatron_llm_tpu_torch import pretrain_bert
+
+    return pretrain_run(pretrain_bert, BERT_RECIPE.split() + [
+        "--vocab_file", str(vocab), "--data_path", data,
+        "--train_iters", str(BERT_STEPS), "--eval_interval", "3",
+        "--eval_iters", "1", "--log_interval", "1", "--seed", str(SEED),
+        "--save", str(save), "--no_save_optim"])
 
 
 def bert_step_profile(trainer, state, text):
@@ -7115,10 +7254,10 @@ def bert_step_profile(trainer, state, text):
 
 
 @torch.no_grad()
-def bert_first_step_fp32(run):
+def first_step_losses(run, make_model):
     """The first step's loss recomputed from the initial weights on its
-    batch with its dropout masks, in bf16 (as trained) and in fp32."""
-    from megatron_llm_tpu_torch.models import BertModel
+    batch with its dropout masks, in bf16 (as trained) and in fp32;
+    `make_model(cfg)` builds the run's model class at a config."""
     from megatron_llm_tpu_torch.models.dropout import at, fold_in
 
     trainer = run["trainer"]
@@ -7126,20 +7265,57 @@ def bert_first_step_fp32(run):
     rng = fold_in(trainer.tcfg.seed + 1, 0)
     out = {}
     for name, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
-        model = BertModel(dataclasses.replace(trainer.cfg,
-                                              compute_dtype=dt),
-                          device=trainer.device)
+        model = make_model(dataclasses.replace(trainer.cfg,
+                                               compute_dtype=dt))
         params = model.init(seed=trainer.tcfg.seed)
         n = next(iter(batch.values())).shape[0]
         loss = torch.zeros((), dtype=torch.float32, device=trainer.device)
         for i in range(n):
             micro = {k: v[i] for k, v in batch.items()}
-            b = micro["tokens"].shape[0]
+            b = next(iter(micro.values())).shape[0]
             loss = loss + model.loss(params, dropout_rng=at(rng, i * b, 0),
                                      deterministic=False, **micro)
         out[name] = float(loss / n)
         del params
     return out
+
+
+def check_pretraining(what, run, first, steps):
+    """Phase 23's checks of a pretraining run: `steps` finite losses, the
+    recomputed bf16 step 1 equal to the trained one, fp32 within
+    BERT_LOSS_TOL of it."""
+    losses = run["losses"]
+    check(len(losses) == steps and all(np.isfinite(losses)),
+          f"{what} losses {losses}")
+    check(abs(first["bf16"] - losses[0]) <= 1e-3,
+          f"{what}: the recomputed bf16 step 1 {first['bf16']} != "
+          f"{losses[0]}")
+    check(abs(first["fp32"] - losses[0]) <= BERT_LOSS_TOL,
+          f"{what}: step 1 bf16 {losses[0]} vs fp32 {first['fp32']}")
+
+
+def pretraining_summary(run, flops, tokens_per_step, keep_keys):
+    """The printed numbers of a pretraining run: step ms (median of steps
+    2 on), tokens/s with padding and without it (the trained batches'
+    mean count of kept positions, the 1s of their `keep_keys` masks),
+    model TFLOP/s and share of 989, peak memory."""
+    med = float(np.median(run["ms"][1:]))
+    kept = float(np.mean([sum(float(torch.as_tensor(b[k]).sum())
+                              for k in keep_keys) for b in run["batches"]]))
+    return dict(losses=run["losses"], step_ms=run["ms"],
+                step_ms_median_2_on=med,
+                tokens_per_s_padded=tokens_per_step / (med / 1e3),
+                tokens_per_s_nonpad=kept / (med / 1e3),
+                nonpad_share=kept / tokens_per_step,
+                model_flops_per_step=flops,
+                model_tflops=flops / (med / 1e3) / 1e12,
+                share_of_989=flops / (med / 1e3) / 989e12,
+                peak_memory_gb=run["peak_gb"], pretrain_wall_s=run["wall_s"],
+                profiled_step=run["profile"], kernel_launches=0)
+
+
+def numel(tree) -> int:
+    return sum(x.numel() for x in _leaves(tree))
 
 
 def bert_task(argv, ck):
@@ -7177,43 +7353,67 @@ def bert_task(argv, ck):
                 encoder_leaves_equal=len(encoder), wall_s=wall)
 
 
-def bert_phase(kernels):
-    """BERT pretraining at the recipe's BERT-large widths, then MNLI and
-    RACE finetuning from its checkpoint, on a synthetic WordPiece
-    vocabulary of 30522 entries and synthetic text (no real corpus or
-    task data in the repository)."""
+def write_titles(corpus, rs):
+    """A title a document of the JSONL corpus, in its order: the
+    document's first 2-8 words (the ICT titles corpus)."""
+    titles = BERT_DIR / "titles.jsonl"
+    with open(corpus) as src, open(titles, "w") as f:
+        for line in src:
+            words = json.loads(line)["text"].split()
+            f.write(json.dumps(
+                {"text": " ".join(words[:rs.randint(2, 9)])}) + "\n")
+    return titles
+
+
+def encoder_data():
+    """The encoder phases' shared inputs (no real corpus or task data in
+    the repository): a synthetic WordPiece vocabulary of 30522 entries,
+    a synthetic corpus of 200 documents preprocessed sentence by
+    sentence, their titles preprocessed whole, and the MNLI and RACE
+    files."""
     from megatron_llm_tpu_torch.tools import preprocess_data
 
     shutil.rmtree(BERT_DIR, ignore_errors=True)
     BERT_DIR.mkdir(parents=True)
     vocab, corpus, tasks = write_bert_data(np.random.RandomState(SEED + 41))
+    titles = write_titles(corpus, np.random.RandomState(SEED + 43))
+    common = ["--tokenizer_type", "BertWordPieceLowerCase", "--vocab_file",
+              str(vocab), "--workers", "1"]
     t0 = time.perf_counter()
-    preprocess_data.main([
-        "--input", str(corpus), "--output_prefix", str(BERT_DIR / "corpus"),
-        "--tokenizer_type", "BertWordPieceLowerCase", "--vocab_file",
-        str(vocab), "--split_sentences", "--workers", "1"])
+    preprocess_data.main(["--input", str(corpus), "--output_prefix",
+                          str(BERT_DIR / "corpus"), "--split_sentences",
+                          *common])
     pre_s = time.perf_counter() - t0
-    data = str(BERT_DIR / "corpus_text_document")
+    t0 = time.perf_counter()
+    preprocess_data.main(["--input", str(titles), "--output_prefix",
+                          str(BERT_DIR / "titles"), *common])
+    return dict(vocab=vocab, data=str(BERT_DIR / "corpus_text_document"),
+                titles=str(BERT_DIR / "titles_text_document"), tasks=tasks,
+                preprocess_s=pre_s,
+                titles_preprocess_s=time.perf_counter() - t0)
+
+
+def bert_phase(kernels, enc):
+    """BERT pretraining at the recipe's BERT-large widths, then MNLI and
+    RACE finetuning from its checkpoint, on `encoder_data()`'s
+    vocabulary, corpus and task files."""
+    from megatron_llm_tpu_torch.models import BertModel
+
+    vocab, tasks = enc["vocab"], enc["tasks"]
     ck = BERT_DIR / "ck"
-    run = bert_pretrain(vocab, data, ck)
+    run = bert_pretrain(vocab, enc["data"], ck)
     losses = run["losses"]
-    check(len(losses) == BERT_STEPS and all(np.isfinite(losses)),
-          f"pretraining losses {losses}")
     cfg = run["trainer"].cfg
     check((cfg.num_layers, cfg.hidden_size, cfg.num_attention_heads,
            cfg.seq_length, cfg.padded_vocab_size, cfg.compute_dtype) == (
         BERT_LAYERS, BERT_HIDDEN, 16, BERT_SEQ, BERT_PADDED, torch.bfloat16),
         f"BERT config {cfg}")
-    first = bert_first_step_fp32(run)
-    check(abs(first["bf16"] - losses[0]) <= 1e-3,
-          f"the recomputed bf16 step 1 {first['bf16']} != {losses[0]}")
-    check(abs(first["fp32"] - losses[0]) <= BERT_LOSS_TOL,
-          f"step 1 bf16 {losses[0]} vs fp32 {first['fp32']}")
-    med = float(np.median(run["ms"][1:]))
+    first = first_step_losses(run, lambda c: BertModel(c))
+    check_pretraining("pretrain_bert", run, first, BERT_STEPS)
     n_params = run["trainer"]._n_params
-    flops = bert_flops_per_step(n_params)
-    tok_s = BERT_GLOBAL * BERT_SEQ / (med / 1e3)
-    run.pop("trainer"), run.pop("state"), run.pop("first")
+    summary = pretraining_summary(run, bert_flops_per_step(n_params),
+                                  BERT_GLOBAL * BERT_SEQ, ["padding_mask"])
+    run.clear()
     free_cuda()
     common = BERT_RECIPE.split()[:6] + [
         "--max_position_embeddings", "512", "--seq_length", "512",
@@ -7239,20 +7439,184 @@ def bert_phase(kernels):
                "pretrain_bert.main, synthetic WordPiece vocab and text",
         layers=BERT_LAYERS, hidden=BERT_HIDDEN, heads=16, seq=BERT_SEQ,
         micro_batch=BERT_MICRO, global_batch=BERT_GLOBAL,
-        padded_vocab=BERT_PADDED, params=n_params, preprocess_s=pre_s,
-        losses=losses, step1_bf16=losses[0],
+        padded_vocab=BERT_PADDED, params=n_params,
+        preprocess_s=enc["preprocess_s"], step1_bf16=losses[0],
         step1_bf16_recomputed=first["bf16"], step1_fp32=first["fp32"],
         step1_abs_diff=abs(first["fp32"] - losses[0]),
-        step_ms=run["ms"], step_ms_median_2_on=med, tokens_per_s=tok_s,
-        model_flops_per_step=flops,
-        model_tflops=flops / (med / 1e3) / 1e12,
-        share_of_989=flops / (med / 1e3) / 989e12,
-        peak_memory_gb=run["peak_gb"], pretrain_wall_s=run["wall_s"],
-        profiled_step=run["profile"],
-        mnli=mnli, race=race, kernel_launches=0)
+        mnli=mnli, race=race, **summary)
     for row in kernels:
         row.setdefault("launches_by_path", {})["bert"] = 0
-    shutil.rmtree(BERT_DIR)
+    shutil.rmtree(ck)
+
+
+# ---------------------------------------------------------------------------
+# phases 24 and 25: T5 span corruption and ICT, at T5-base and BERT-base
+# widths
+# ---------------------------------------------------------------------------
+
+T5_STEPS = 6
+T5_LAYERS, T5_HIDDEN, T5_HEADS, T5_FFN = 12, 768, 12, 3072
+T5_SEQ, T5_DEC_SEQ, T5_BATCH = 512, 128, 16
+# 30522 + [BOS] + [EOS] + 100 sentinels = 30624, padded to a multiple of
+# 128
+T5_PADDED = 30720
+# examples/pretrain_t5.sh's flags (its train_iters, save_interval,
+# eval_interval and eval_iters cut to the smoke's few steps)
+T5_RECIPE = ("--num_layers 12 --hidden_size 768 --num_attention_heads 12 "
+             "--kv_channels 64 --ffn_hidden_size 3072 "
+             "--encoder_seq_length 512 --decoder_seq_length 128 "
+             "--micro_batch_size 16 --global_batch_size 16 "
+             "--max_position_embeddings 512 --lr_decay_iters 1000000 "
+             "--vocab_extra_ids 100 --split 949,50,1 --lr 0.0001 "
+             "--min_lr 1.0e-5 --lr_decay_style linear "
+             "--lr_warmup_fraction .01 --weight_decay 1e-2 --clip_grad 1.0 "
+             "--mask_prob 0.15 --tokenizer_type BertWordPieceLowerCase "
+             "--bf16")
+ICT_STEPS = 6
+ICT_LAYERS, ICT_HIDDEN, ICT_HEADS, ICT_SEQ, ICT_BATCH = 12, 768, 12, 256, 32
+# examples/pretrain_ict.sh's widths and optimizer flags at batch 32,
+# separate towers without the projection head, bf16
+ICT_RECIPE = ("--num_layers 12 --hidden_size 768 --num_attention_heads 12 "
+              "--seq_length 256 --max_position_embeddings 256 "
+              "--micro_batch_size 32 --global_batch_size 32 --lr 0.0001 "
+              "--lr_decay_style linear --lr_warmup_fraction .01 "
+              "--weight_decay 1e-2 --clip_grad 1.0 "
+              "--query_in_block_prob 0.1 --biencoder_projection_dim 0 "
+              "--tokenizer_type BertWordPieceLowerCase --bf16")
+
+
+def t5_flops_per_step(params, cfg) -> float:
+    """The model FLOPs of one step: 6 N a token of what runs over each
+    token (the encoder's layers and final norm, and the decoder's
+    cross-attention K/V projection wkv + bkv, over encoder tokens; the
+    rest of the decoder's layers, its final norm and the tied head,
+    h x V, over decoder tokens) plus attention's 12 L h t a token for
+    each t it attends over (encoder self s_e; decoder self s_d and
+    cross s_e)."""
+    cross = params["decoder_layers"]["cross_attention"]
+    n_kv = sum(cross[k].numel() for k in ("wkv", "bkv") if k in cross)
+    n_enc = numel(params["layers"]) + numel(params["final_norm"]) + n_kv
+    n_dec = numel(params["decoder_layers"]) - n_kv \
+        + numel(params["decoder_final_norm"]) \
+        + cfg.hidden_size * cfg.padded_vocab_size
+    t_enc, t_dec = T5_BATCH * T5_SEQ, T5_BATCH * T5_DEC_SEQ
+    attn = 12 * cfg.num_layers * cfg.hidden_size
+    return 6 * (n_enc * t_enc + n_dec * t_dec) \
+        + attn * (T5_SEQ * t_enc + (T5_DEC_SEQ + T5_SEQ) * t_dec)
+
+
+def ict_flops_per_step(params, cfg) -> float:
+    """The model FLOPs of one step: each tower's 6 N a token (its layers
+    and final norm) plus attention's 12 L h s a token, over the batch's
+    query or context tokens, and the (b, b) score product."""
+    tokens = ICT_BATCH * ICT_SEQ
+    attn = 12 * cfg.num_layers * cfg.hidden_size * ICT_SEQ
+    towers = [params["query"], params["context"]]
+    return sum((6 * (numel(t["layers"]) + numel(t["final_norm"])) + attn)
+               * tokens for t in towers) \
+        + 6 * ICT_BATCH * ICT_BATCH * cfg.hidden_size
+
+
+def t5_phase(kernels, enc):
+    """T5 span-corruption pretraining at examples/pretrain_t5.sh's
+    T5-base widths on `encoder_data()`'s corpus."""
+    from megatron_llm_tpu_torch import pretrain_t5
+    from megatron_llm_tpu_torch.models import T5Model
+
+    ck = BERT_DIR / "t5_ck"
+    run = pretrain_run(pretrain_t5, T5_RECIPE.split() + [
+        "--vocab_file", str(enc["vocab"]), "--data_path", enc["data"],
+        "--train_iters", str(T5_STEPS), "--eval_interval", "3",
+        "--eval_iters", "1", "--log_interval", "1", "--seed", str(SEED),
+        "--save", str(ck), "--no_save_optim"])
+    cfg = run["trainer"].cfg
+    check((cfg.num_layers, cfg.hidden_size, cfg.num_attention_heads,
+           cfg.kv_channels, cfg.ffn_hidden_size, cfg.seq_length,
+           cfg.max_position_embeddings, cfg.padded_vocab_size,
+           cfg.compute_dtype) == (
+        T5_LAYERS, T5_HIDDEN, T5_HEADS, 64, T5_FFN, T5_SEQ, T5_SEQ,
+        T5_PADDED, torch.bfloat16), f"T5 config {cfg}")
+    first = first_step_losses(run, lambda c: T5Model(c))
+    check_pretraining("pretrain_t5", run, first, T5_STEPS)
+    batch = run["trainer"]._built(run["first"])
+    check(tuple(batch["encoder_input_ids"].shape) == (1, T5_BATCH, T5_SEQ)
+          and tuple(batch["decoder_input_ids"].shape)
+          == (1, T5_BATCH, T5_DEC_SEQ), "T5 batch shapes")
+    params = run["state"].params
+    flops = t5_flops_per_step(params, cfg)
+    n_params = numel(params)
+    summary = pretraining_summary(run, flops,
+                                  T5_BATCH * (T5_SEQ + T5_DEC_SEQ),
+                                  ["enc_mask", "dec_mask"])
+    del params, batch
+    run.clear()
+    free_cuda()
+    say("t5", card=nvidia_smi(),
+        config="T5-base widths (examples/pretrain_t5.sh) via "
+               "pretrain_t5.main, synthetic WordPiece vocab and text",
+        layers_a_side=T5_LAYERS, hidden=T5_HIDDEN, heads=T5_HEADS,
+        kv_channels=64, ffn=T5_FFN, seq_encoder=T5_SEQ,
+        seq_decoder=T5_DEC_SEQ, micro_batch=T5_BATCH,
+        global_batch=T5_BATCH, padded_vocab=T5_PADDED, params=n_params,
+        step1_bf16_recomputed=first["bf16"], step1_fp32=first["fp32"],
+        step1_abs_diff=abs(first["fp32"] - summary["losses"][0]),
+        tokens_counted="encoder + decoder positions a step, padded "
+                       "and kept (enc_mask, dec_mask)",
+        flops_counted="6 (N_enc + N_wkv) t_enc + 6 (N_dec - N_wkv + h V) "
+                      "t_dec + 12 L h (s_e t_enc + (s_d + s_e) t_dec)",
+        **summary)
+    for row in kernels:
+        row.setdefault("launches_by_path", {})["t5"] = 0
+    shutil.rmtree(ck)
+
+
+def ict_phase(kernels, enc):
+    """ICT biencoder pretraining at BERT-base widths on `encoder_data()`'s
+    corpus and titles."""
+    from megatron_llm_tpu_torch import pretrain_ict
+    from megatron_llm_tpu_torch.models.biencoder import BiEncoderModel
+
+    ck = BERT_DIR / "ict_ck"
+    run = pretrain_run(pretrain_ict, ICT_RECIPE.split() + [
+        "--vocab_file", str(enc["vocab"]), "--data_path", enc["data"],
+        "--titles_data_path", enc["titles"],
+        "--train_iters", str(ICT_STEPS), "--log_interval", "1",
+        "--seed", str(SEED), "--save", str(ck), "--no_save_optim"])
+    cfg = run["trainer"].cfg
+    model = run["trainer"].model
+    check((cfg.num_layers, cfg.hidden_size, cfg.num_attention_heads,
+           cfg.seq_length, cfg.padded_vocab_size, cfg.compute_dtype,
+           cfg.add_binary_head, model.shared, model.projection_dim) == (
+        ICT_LAYERS, ICT_HIDDEN, ICT_HEADS, ICT_SEQ, BERT_PADDED,
+        torch.bfloat16, False, False, 0), f"ICT config {cfg}")
+    first = first_step_losses(run, lambda c: BiEncoderModel(c))
+    check_pretraining("pretrain_ict", run, first, ICT_STEPS)
+    params = run["state"].params
+    flops = ict_flops_per_step(params, cfg)
+    n_params = numel(params)
+    summary = pretraining_summary(run, flops, 2 * ICT_BATCH * ICT_SEQ,
+                                  ["query_pad_mask", "context_pad_mask"])
+    del params, model
+    run.clear()
+    free_cuda()
+    say("ict", card=nvidia_smi(),
+        config="BERT-base towers (examples/pretrain_ict.sh's widths) via "
+               "pretrain_ict.main, separate towers, projection 0, "
+               "synthetic WordPiece vocab, text and titles",
+        layers=ICT_LAYERS, hidden=ICT_HIDDEN, heads=ICT_HEADS, seq=ICT_SEQ,
+        micro_batch=ICT_BATCH, global_batch=ICT_BATCH,
+        padded_vocab=BERT_PADDED, params=n_params,
+        titles_preprocess_s=enc["titles_preprocess_s"],
+        step1_bf16_recomputed=first["bf16"], step1_fp32=first["fp32"],
+        step1_abs_diff=abs(first["fp32"] - summary["losses"][0]),
+        step1_minus_ln_batch=summary["losses"][0] - float(np.log(ICT_BATCH)),
+        tokens_counted="query + context positions a step, padded and "
+                       "kept (the pad masks)",
+        flops_counted="sum over towers (6 N_tower + 12 L h s) b s "
+                      "+ 6 b b h", **summary)
+    for row in kernels:
+        row.setdefault("launches_by_path", {})["ict"] = 0
+    shutil.rmtree(ck)
 
 
 def _leaves(tree):
@@ -7302,20 +7666,34 @@ def smoke(args) -> int:
         else sys.pycache_prefix)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    timed("build", build_kernels)
+    # the kernels of the sources nvcc ends first are checked while
+    # paged_attention.cu compiles (about 50 s longer on the H100)
+    builds = timed("build_start", start_builds)
+    timed("build_wait_decode_flash", await_builds, builds,
+          "decode_attention.cu", "flash_attention.cu")
     t0 = time.perf_counter()
-    kernels = [check_decode_kernel(), check_rmsnorm_kernel(),
-               *check_paged_kernel()]
-    check_paged_variants(kernels[2])
-    kernels.append(check_rmsnorm_bwd_kernel(kernels[1]))
-    kernels += check_flash_kernels()
-    seconds["kernel_checks"] = round(time.perf_counter() - t0, 1)
-    kernels += timed("kernel_checks_fp16", check_flash_fp16)
+    decode, norm = check_decode_kernel(), check_rmsnorm_kernel()
+    norm_bwd = check_rmsnorm_bwd_kernel(norm)
+    flash = check_flash_kernels()
+    seconds["kernel_checks_decode_rmsnorm_flash"] = round(
+        time.perf_counter() - t0, 1)
+    flash += timed("kernel_checks_fp16", check_flash_fp16)
+    kernels = [decode, norm, norm_bwd, *flash]
     timed("kernel_time_flash_tp2", time_flash_tp2, kernels)
     timed("kernel_time_decode_ring", time_decode_ring, kernels)
+    timed("kernel_time_flash_cp_hops", time_flash_cp_hops, kernels)
+    timed("build_wait_paged", await_builds, builds, "paged_attention.cu",
+          "paged_attention_tc.cu")
+    seconds["build"] = max(v for k, v in builds["seconds"].items()
+                           if k.endswith("_cu_s"))
+    t0 = time.perf_counter()
+    paged = check_paged_kernel()
+    check_paged_variants(paged[0])
+    seconds["kernel_checks_paged"] = round(time.perf_counter() - t0, 1)
+    # the kernels line's order: K1, K2, K7, K3, K4-K6, K4-K6 fp16
+    kernels = [decode, norm, *paged, norm_bwd, *flash]
     timed("kernel_time_serving_tp2", time_serving_tp2, kernels)
     timed("kernel_time_paged_fp32", time_paged_fp32, kernels)
-    timed("kernel_time_flash_cp_hops", time_flash_cp_hops, kernels)
     torch.cuda.empty_cache()
     model = timed("model", build_model, args.init_std)
     whole_batch = timed("serving", serve_whole_batch, kernels, *model)
@@ -7369,7 +7747,11 @@ def smoke(args) -> int:
           cp_ranks)
     timed("overlap_dropout", overlap_dropout_phase, kernels, data, overlap)
     shutil.rmtree(FT_DIR)
-    timed("bert", bert_phase, kernels)
+    enc = timed("encoder_data", encoder_data)
+    timed("bert", bert_phase, kernels, enc)
+    timed("t5", t5_phase, kernels, enc)
+    timed("ict", ict_phase, kernels, enc)
+    shutil.rmtree(BERT_DIR)
     say("phase_seconds", card=smi, **seconds,
         total_s=round(time.perf_counter() - t_start, 1))
     say("processes_stopped", left_running=stop_children())

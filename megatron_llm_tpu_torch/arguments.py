@@ -7,11 +7,9 @@ or DESCOPED: rejected with the reason). `args_to_configs` maps them onto
 the port's `ModelConfig` (torch dtypes), `ParallelConfig` and
 `TrainConfig`, plus the `DataArgs`.
 
-A flag that selects a part of the system the port does not run yet
-raises ValueError naming its slice of ROADMAP.md, never silently
-ignored: the T5 family (A6). GPT, Llama, CodeLlama, Falcon (with its
-parallel attention and parallel layernorm) and BERT (with post-LN
-layers, `--use_post_ln`) build, with every single-card training mode
+Every `--model_name` builds: GPT, Llama, CodeLlama, Falcon (with its
+parallel attention and parallel layernorm), BERT (with post-LN layers,
+`--use_post_ln`) and T5, with every single-card training mode
 (the recompute policies and block recompute, fp16 with its loss
 scaler, hidden, attention and LIMA dropout) and tensor, sequence,
 data, pipeline (with `--pipeline_remat` and `--async_pipeline_dispatch`)
@@ -45,6 +43,7 @@ from megatron_llm_tpu_torch.config import (
     falcon_config,
     gpt_config,
     llama_config,
+    t5_config,
 )
 
 
@@ -210,8 +209,6 @@ ENTRY_SCRIPT_FLAGS = {
     "--retriever_seq_length": ("tasks/main.py",
                                "tools/build_retrieval_index.py"),
 }
-
-_A6 = "the remaining model families (ROADMAP.md A6)"
 
 # flags of later slices (parser dest -> the slice): a value other than
 # the parser's default raises; every flag is wired since --use_post_ln
@@ -528,21 +525,15 @@ def args_to_configs(args, padded_vocab_size: int,
     elif name == "falcon":
         mcfg = falcon_config(args.model_size, seq_length=args.seq_length,
                              tp=tp, **overrides)
-    elif name == "bert":
-        # JAX :608-615
-        mcfg = bert_config(
-            num_layers=overrides.pop("num_layers", 12),
-            hidden_size=overrides.pop("hidden_size", 768),
-            num_attention_heads=overrides.pop("num_attention_heads", 12),
-            seq_length=args.seq_length, tp=tp, **overrides)
-    elif name == "gpt":
-        mcfg = gpt_config(
-            num_layers=overrides.pop("num_layers", 12),
-            hidden_size=overrides.pop("hidden_size", 768),
-            num_attention_heads=overrides.pop("num_attention_heads", 12),
-            seq_length=args.seq_length, tp=tp, **overrides)
     else:
-        raise ValueError(f"--model_name {name} is not ported yet ({_A6})")
+        # JAX :608-625: the encoder presets, else GPT's
+        preset = {"bert": bert_config, "t5": t5_config}.get(name,
+                                                            gpt_config)
+        mcfg = preset(
+            num_layers=overrides.pop("num_layers", 12),
+            hidden_size=overrides.pop("hidden_size", 768),
+            num_attention_heads=overrides.pop("num_attention_heads", 12),
+            seq_length=args.seq_length, tp=tp, **overrides)
     if padded_vocab_size:
         mcfg = dataclasses.replace(
             mcfg, padded_vocab_size=mcfg.pad_vocab_size(padded_vocab_size,

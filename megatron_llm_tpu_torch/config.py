@@ -334,6 +334,34 @@ def bert_config(num_layers: int = 12, hidden_size: int = 768,
     return mc
 
 
+def t5_config(num_layers: int = 12, hidden_size: int = 768,
+              num_attention_heads: int = 12, seq_length: int = 512,
+              decoder_seq_length: int = 128, vocab_size: int = 30522,
+              tp: int = 1, **overrides) -> ModelConfig:
+    """T5 preset (JAX: config.py t5_config): learned positions on both
+    sides (as many as the longer of the encoder's `seq_length` and the
+    decoder's length), gelu, biases, LayerNorm, the logits tied to the
+    shared word embeddings. `num_layers` is each side's depth."""
+    cfg = dict(
+        num_layers=num_layers,
+        hidden_size=hidden_size,
+        num_attention_heads=num_attention_heads,
+        seq_length=seq_length,
+        max_position_embeddings=max(seq_length, decoder_seq_length),
+        position_embedding_type="absolute",
+        hidden_act="gelu",
+        use_rms_norm=False,
+        use_bias=True,
+        tie_embed_logits=True,
+    )
+    cfg.update(overrides)
+    mc = ModelConfig(**cfg)
+    if mc.padded_vocab_size == 0:
+        mc = dataclasses.replace(
+            mc, padded_vocab_size=mc.pad_vocab_size(vocab_size, tp))
+    return mc
+
+
 def tiny_config(**overrides) -> ModelConfig:
     """Small config for tests (JAX: config.py tiny_config)."""
     cfg = dict(

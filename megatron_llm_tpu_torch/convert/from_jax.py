@@ -22,8 +22,19 @@ the port keeps the JAX package's layouts, which are:
   `pooler.{w (h, h), b}`, `binary_head.{w (h, 2), b}` and
   `classification_head.{w (h, classes), b}`.
 
-Every leaf of the tree is carried as it is, so a BERT or classification
-tree (and a checkpoint of one, `checkpoint_from_jax`) comes across whole.
+- T5's leaves (models/t5.py): `decoder_layers` (the layer leaves plus
+  `cross_attention.{wq (L, h, heads * d), wkv (L, h, g * 2 * d) with k
+  at [..., 0, :] and v at [..., 1, :] of its (g, 2, d) view, wo, bq,
+  bkv, bo}` and `post_cross_norm`), `decoder_final_norm` and
+  `lm_head_bias` (V,);
+- the biencoder's (models/biencoder.py): headless BERT towers under
+  `query` and `context`, or one under `shared`, each with an optional
+  `projection_enc.{w (h, p), b}`.
+
+Every leaf of the tree is carried as it is, so a BERT, classification,
+T5 or biencoder tree (and a checkpoint of one, `checkpoint_from_jax`)
+comes across whole; every layer stack's wqkv width is checked against
+the config.
 
 The JAX package's reference-checkpoint converter states the same facts in
 its module docstring (megatron_llm_tpu/convert/megatron_torch.py:12-19).
@@ -57,13 +68,28 @@ def _to_tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(a).to(device)
 
 
+def _layer_stacks(tree: dict):
+    """The stacked layer subtrees of a model tree: `layers` and T5's
+    `decoder_layers`, at the top or in each biencoder tower."""
+    for name, sub in tree.items():
+        if name in ("layers", "decoder_layers"):
+            yield sub
+        elif isinstance(sub, dict) and "layers" in sub:
+            yield from _layer_stacks(sub)
+
+
 def params_from_jax(tree: dict, cfg, device="cuda") -> dict:
     """The port's parameter tree from the JAX tree of numpy arrays."""
     expected = cfg.qkv_projection_size
-    got = np.asarray(tree["layers"]["attention"]["wqkv"]).shape[-1]
-    if got != expected:
-        raise ValueError(f"wqkv width {got} does not match the config's "
-                         f"grouped qkv width {expected}")
+    stacks = list(_layer_stacks(tree))
+    if not stacks:
+        raise ValueError("no layer stack in the tree: expected 'layers' "
+                         "at its top or in each tower")
+    for stack in stacks:
+        got = np.asarray(stack["attention"]["wqkv"]).shape[-1]
+        if got != expected:
+            raise ValueError(f"wqkv width {got} does not match the "
+                             f"config's grouped qkv width {expected}")
 
     def conv(t):
         return {k: conv(v) if isinstance(v, dict) else _to_tensor(v, device)

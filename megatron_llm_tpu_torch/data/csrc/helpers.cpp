@@ -1,10 +1,10 @@
 // Dataset index builders (port of the JAX package's
 // data/csrc/helpers.cpp): the GPT sample index that stitches documents
 // into seq_length + 1 token samples, the blend index of weighted
-// datasets, and BERT's sentence-pair map. A plain C ABI bound with
-// ctypes; the Python wrappers in data/helpers.py allocate the numpy
-// outputs, pass raw pointers, and build this file with g++ into build/
-// at first use.
+// datasets, BERT's sentence-pair map and ICT's sentence-block map. A
+// plain C ABI bound with ctypes; the Python wrappers in data/helpers.py
+// allocate the numpy outputs, pass raw pointers, and build this file
+// with g++ into build/ at first use.
 
 #include <algorithm>
 #include <cmath>
@@ -175,6 +175,70 @@ int64_t build_mapping(const int64_t* docs, int64_t n_doc_bounds,
     }
   }
   if (fill) shuffle_rows(maps, static_cast<int64_t>(map_index), 3, seed);
+  return static_cast<int64_t>(map_index);
+}
+
+// Sentence-block sample map for ICT/REALM-style datasets: rows of
+// (start_sentence, end_sentence, doc_index, block_id), a block closing
+// once it reaches max_seq_length less the document's title. The same
+// two phases and seed+1 shuffle as build_mapping; no draw decides a
+// block, so only the shuffle uses the seed.
+// Parity: ref helpers.cpp build_blocks_mapping_impl (:453-656).
+int64_t build_blocks_mapping(const int64_t* docs, int64_t n_doc_bounds,
+                             const int32_t* sizes,
+                             const int32_t* titles_sizes, int32_t num_epochs,
+                             uint64_t max_num_samples, int32_t max_seq_length,
+                             int32_t seed, int32_t use_one_sent_blocks,
+                             int64_t* maps) {
+  const int32_t min_num_sent = use_one_sent_blocks ? 1 : 2;
+  const bool fill = maps != nullptr;
+  uint64_t map_index = 0;
+  for (int32_t epoch = 0; epoch < num_epochs; ++epoch) {
+    int32_t block_id = 0;
+    if (map_index >= max_num_samples) break;
+    for (int64_t doc = 0; doc < n_doc_bounds - 1; ++doc) {
+      const int64_t sent_first = docs[doc];
+      const int64_t sent_last = docs[doc + 1];
+      const int32_t target = max_seq_length - titles_sizes[doc];
+      int64_t prev_start = sent_first;
+      int64_t num_remain = sent_last - sent_first;
+
+      bool has_long = false;
+      if (num_remain >= min_num_sent) {
+        for (int64_t s = sent_first; s < sent_last; ++s) {
+          if (sizes[s] > kLongSentenceLen) {
+            has_long = true;
+            break;
+          }
+        }
+      }
+      if (num_remain < min_num_sent || has_long) continue;
+
+      int32_t seq_len = 0;
+      int32_t num_sent = 0;
+      for (int64_t s = sent_first; s < sent_last; ++s) {
+        seq_len += sizes[s];
+        ++num_sent;
+        --num_remain;
+        if (((seq_len >= target) && (num_remain >= min_num_sent) &&
+             (num_sent >= min_num_sent)) ||
+            (num_remain == 0)) {
+          if (fill) {
+            maps[4 * map_index] = prev_start;
+            maps[4 * map_index + 1] = s + 1;
+            maps[4 * map_index + 2] = doc;
+            maps[4 * map_index + 3] = block_id;
+          }
+          ++map_index;
+          ++block_id;
+          prev_start = s + 1;
+          seq_len = 0;
+          num_sent = 0;
+        }
+      }
+    }
+  }
+  if (fill) shuffle_rows(maps, static_cast<int64_t>(map_index), 4, seed);
   return static_cast<int64_t>(map_index);
 }
 

@@ -1,10 +1,10 @@
 """Train/valid/test datasets of a sentence-split corpus for the encoder
-family (port of data/dataset_utils.py, its BERT side).
+family (port of data/dataset_utils.py).
 
 One sentence-level indexed corpus is split by document ranges (ref
 megatron/data/dataset_utils.py:421-594); each split's sample map covers
-only its range, through a read-only view of the corpus. T5's dataset is
-a later slice and raises by name.
+only its range, through a read-only view of the corpus, in BertDatasets
+or, for `dataset_type="t5"`, T5Datasets.
 """
 
 from __future__ import annotations
@@ -16,6 +16,7 @@ from megatron_llm_tpu_torch.data.gpt_dataset import (
     get_train_valid_test_split_,
 )
 from megatron_llm_tpu_torch.data.indexed_dataset import make_dataset
+from megatron_llm_tpu_torch.data.t5_dataset import T5Dataset
 
 
 class DocRangeView:
@@ -49,11 +50,9 @@ def build_train_valid_test_datasets(data_prefix, splits_string: str,
                                     binary_head: bool = True,
                                     max_seq_length_dec=None,
                                     data_impl: str = "mmap"):
-    """(train, valid, test) BertDatasets over one corpus, None for a
-    split with no documents or no samples asked of it (JAX :44-97)."""
-    if dataset_type == "t5":
-        raise ValueError("the T5 dataset is not ported yet (the remaining "
-                         "model families, ROADMAP.md A6)")
+    """(train, valid, test) BertDatasets, or T5Datasets whose decoder
+    side is `max_seq_length_dec` long, over one corpus; None for a split
+    with no documents or no samples asked of it (JAX :44-97)."""
     if not isinstance(data_prefix, str):
         if len(data_prefix) != 1:
             raise ValueError("encoder corpora blend one prefix per call")
@@ -70,13 +69,15 @@ def build_train_valid_test_datasets(data_prefix, splits_string: str,
         if not train_valid_test_num_samples[index]:
             return None
         view = DocRangeView(indexed, splits[index], splits[index + 1])
-        return BertDataset(
+        kwargs = dict(
             name=name, indexed_dataset=view, data_prefix=data_prefix,
             num_epochs=None,
             max_num_samples=train_valid_test_num_samples[index],
             masked_lm_prob=masked_lm_prob, max_seq_length=max_seq_length,
-            short_seq_prob=short_seq_prob, seed=seed, tokenizer=tokenizer,
-            binary_head=binary_head)
+            short_seq_prob=short_seq_prob, seed=seed, tokenizer=tokenizer)
+        if dataset_type == "t5":
+            return T5Dataset(max_seq_length_dec=max_seq_length_dec, **kwargs)
+        return BertDataset(binary_head=binary_head, **kwargs)
 
     return (build_split(0, "train"), build_split(1, "valid"),
             build_split(2, "test"))

@@ -1,6 +1,6 @@
 """The datasets' index builders (port of data/helpers.py): the GPT
-sample index and blend index, and BERT's sentence-pair map
-(`build_mapping`).
+sample index and blend index, BERT's sentence-pair map
+(`build_mapping`) and ICT's sentence-block map (`build_blocks_mapping`).
 
 `data/csrc/helpers.cpp` is compiled by g++ at first use into
 `build/libhelpers-<hash>.so` at the repository root, the hash covering
@@ -75,6 +75,12 @@ def load() -> ctypes.CDLL:
                 ctypes.c_double, ctypes.c_int32, ctypes.c_int32,
                 ctypes.POINTER(ctypes.c_int64)]
             lib.build_mapping.restype = ctypes.c_int64
+            lib.build_blocks_mapping.argtypes = [
+                ctypes.POINTER(ctypes.c_int64), ctypes.c_int64, i32p, i32p,
+                ctypes.c_int32, ctypes.c_uint64, ctypes.c_int32,
+                ctypes.c_int32, ctypes.c_int32,
+                ctypes.POINTER(ctypes.c_int64)]
+            lib.build_blocks_mapping.restype = ctypes.c_int64
             _lib = lib
         return _lib
 
@@ -173,4 +179,29 @@ def build_mapping(docs: np.ndarray, sizes: np.ndarray, num_epochs: int,
     n = lib.build_mapping(*args, None)
     out = np.zeros((n, 3), np.int64)
     lib.build_mapping(*args, _ptr(out, ctypes.c_int64))
+    return out
+
+
+def build_blocks_mapping(docs: np.ndarray, sizes: np.ndarray,
+                         titles_sizes: np.ndarray, num_epochs: int,
+                         max_num_samples: int, max_seq_length: int,
+                         seed: int, use_one_sent_blocks: bool = False
+                         ) -> np.ndarray:
+    """(num_samples, 4) int64 rows of (start sentence, end sentence,
+    document, block id) for ICT's evidence blocks, shuffled: `docs` and
+    `sizes` as for `build_mapping`, `titles_sizes` the (n_docs,) token
+    counts of the documents' titles. A block needs two sentences, or
+    one under `use_one_sent_blocks`. Two calls into the library: count,
+    then fill and shuffle; the map is the JAX package's bit for bit."""
+    docs = np.ascontiguousarray(docs, np.int64)
+    sizes = np.ascontiguousarray(sizes, np.int32)
+    titles_sizes = np.ascontiguousarray(titles_sizes, np.int32)
+    lib = load()
+    args = (_ptr(docs, ctypes.c_int64), len(docs),
+            _ptr(sizes, ctypes.c_int32), _ptr(titles_sizes, ctypes.c_int32),
+            num_epochs, max_num_samples, max_seq_length, seed,
+            int(use_one_sent_blocks))
+    n = lib.build_blocks_mapping(*args, None)
+    out = np.zeros((n, 4), np.int64)
+    lib.build_blocks_mapping(*args, _ptr(out, ctypes.c_int64))
     return out

@@ -6,6 +6,7 @@ from megatron_llm_tpu_torch.models.classification import (
 from megatron_llm_tpu_torch.models.falcon import FalconModel
 from megatron_llm_tpu_torch.models.gpt import GPTModel
 from megatron_llm_tpu_torch.models.llama import LlamaModel
+from megatron_llm_tpu_torch.models.t5 import T5Model
 
 __all__ = ["BertModel", "Classification", "FalconModel", "GPTModel",
-           "LlamaModel", "MultipleChoice"]
+           "LlamaModel", "MultipleChoice", "T5Model"]

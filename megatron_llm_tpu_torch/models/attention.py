@@ -40,7 +40,9 @@ one-rank route on every cp rank, whose parameters are whole.
 The save points of models/remat.py are the JAX package's: the fused
 QKV projection "qkv_proj", the attention context "attn_ctx" (the
 grouped path's PV product; the flash forward tags its o and lse itself)
-and the output projection "attn_dense".
+and the output projection "attn_dense". T5's encoder-decoder attention
+(`cross_attention_block`) carries the same names and always takes the
+grouped path: its mask is dense, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -83,8 +85,10 @@ def padding_mask_2d(q_keep: torch.Tensor,
                     k_keep: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Keep-masks (b, s_q) [and (b, s_k)] of {0, 1} -> the (b, 1, s_q,
     s_k) bool mask, True = masked, their outer product (JAX :204-215):
-    the encoder's bidirectional padding mask. It sends the no-cache
-    forward to the grouped path, as any dense mask does."""
+    with one keep-mask the encoder's bidirectional padding mask, with
+    two T5's cross mask of decoder rows against encoder columns. It
+    sends the no-cache forward to the grouped path, as any dense mask
+    does."""
     if k_keep is None:
         k_keep = q_keep
     keep = q_keep.float()[:, :, None] * k_keep.float()[:, None, :]
@@ -120,6 +124,39 @@ def grouped_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     with tag("attn_ctx"):
         ctx = torch.einsum("bgqst,btgd->bsgqd", probs, v)
     return ctx.reshape(b, s, g * qpk * d)
+
+
+def cross_attention_block(attn_params: dict, cfg, hidden: torch.Tensor,
+                          encoder_output: torch.Tensor,
+                          mask: Optional[torch.Tensor],
+                          dropout_seed=None) -> torch.Tensor:
+    """Encoder-decoder attention (JAX :165-201): q from the decoder's
+    (b, s, h) hidden states through wq (h, g*qpk*d), k and v from the
+    encoder's (b, t, h) output through the fused wkv (h, g*2*d), viewed
+    (b, t, g, 2, d); biases bq, bkv, bo where the tree has them. `mask`
+    is the (b, 1, s, t) bool mask, True = masked, so the core is the
+    grouped path, with attention dropout under a dropout stream. Both
+    projections are the save point "qkv_proj", as self-attention's
+    fused one is."""
+    b, s, _ = hidden.shape
+    t = encoder_output.shape[1]
+    dt = cfg.compute_dtype
+    g, qpk, d = cfg.num_query_groups, cfg.q_per_kv, cfg.head_dim
+    with tag("qkv_proj"):
+        q = hidden @ attn_params["wq"].to(dt)
+        kv = encoder_output @ attn_params["wkv"].to(dt)
+    if "bq" in attn_params:
+        q = q + attn_params["bq"].to(dt)
+    if "bkv" in attn_params:
+        kv = kv + attn_params["bkv"].to(dt)
+    kv = kv.reshape(b, t, g, 2, d)
+    ctx = grouped_attention(q.reshape(b, s, g, qpk, d), kv[:, :, :, 0],
+                            kv[:, :, :, 1], mask, cfg, dropout_seed)
+    with tag("attn_dense"):
+        out = ctx @ attn_params["wo"].to(dt)
+    if "bo" in attn_params:
+        out = out + attn_params["bo"].to(dt)
+    return out
 
 
 def attention_block(attn_params: dict, cfg, hidden: torch.Tensor,

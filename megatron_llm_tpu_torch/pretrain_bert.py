@@ -70,27 +70,20 @@ def check_single_card(pcfg, what: str) -> None:
             f"layouts, ROADMAP.md A6)")
 
 
-def main(argv=None, device="cuda"):
-    """Parse `argv` (sys.argv when None), build the tokenizer, configs,
-    model and datasets, train and, with --save, save; returns the final
-    `TrainState`."""
-    from megatron_llm_tpu_torch.data.data_samplers import (
-        build_pretraining_data_loader,
-    )
-    from megatron_llm_tpu_torch.data.dataset_utils import (
-        build_train_valid_test_datasets,
-    )
-    from megatron_llm_tpu_torch.training.trainer import Trainer
-
+def entry_configs(entry, what, argv, device, model_name, add_args,
+                  fix=None, extra_ids=False):
+    """The start the encoder family's entries share (this one,
+    pretrain_t5, pretrain_ict): refuse a missing card, parse `argv` with
+    the base flags and `add_args(parser)`'s, refuse the GPT-family data
+    paths, build the tokenizer (with --vocab_extra_ids when `extra_ids`)
+    and the `model_name` configs, apply `fix(args, mcfg) -> mcfg`, read
+    --use_checkpoint_args and refuse what `check_single_card` refuses.
+    Returns (args, tokenizer, mcfg, pcfg, tcfg, dargs)."""
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("pretrain_bert: no CUDA device (call "
-                           "main(argv, device='cpu') to train on the CPU)")
+        raise RuntimeError(f"{entry}: no CUDA device (call "
+                           f"main(argv, device='cpu') to train on the CPU)")
     p = build_base_parser()
-    # --mask_prob is the reference spelling
-    p.add_argument("--masked_lm_prob", "--mask_prob", type=float,
-                   default=0.15)
-    p.add_argument("--short_seq_prob", type=float, default=0.1)
-    p.add_argument("--no_binary_head", action="store_true")
+    add_args(p)
     args = p.parse_args(argv)
     if args.train_data_path or args.valid_data_path or args.test_data_path:
         raise SystemExit(
@@ -100,18 +93,67 @@ def main(argv=None, device="cuda"):
         args.tokenizer_type or "BertWordPieceLowerCase",
         vocab_file=args.vocab_file,
         make_vocab_size_divisible_by=args.make_vocab_size_divisible_by,
-        tensor_parallel_size=args.tensor_model_parallel_size)
-    args.model_name = "bert"
+        tensor_parallel_size=args.tensor_model_parallel_size,
+        vocab_extra_ids=args.vocab_extra_ids if extra_ids else 0)
+    args.model_name = model_name
     mcfg, pcfg, tcfg, dargs = args_to_configs(args, tokenizer.vocab_size)
-    binary_head = not args.no_binary_head
-    mcfg = dataclasses.replace(mcfg, add_binary_head=binary_head)
+    if fix is not None:
+        mcfg = fix(args, mcfg)
     if args.use_checkpoint_args and args.load:
         from megatron_llm_tpu_torch.training.checkpointing import (
             load_model_config_from_checkpoint,
         )
 
         mcfg = load_model_config_from_checkpoint(args.load, mcfg)
-    check_single_card(pcfg, "BERT pretraining")
+    check_single_card(pcfg, what)
+    return args, tokenizer, mcfg, pcfg, tcfg, dargs
+
+
+def train_entry(model, tcfg, pcfg, batch_builder, keys, train_ds,
+                valid_ds=None):
+    """Train `model` on dict batches of `keys` from `train_ds` (and
+    `valid_ds` for evaluation when given), save under --save and return
+    the final `TrainState`."""
+    from megatron_llm_tpu_torch.data.data_samplers import (
+        build_pretraining_data_loader,
+    )
+    from megatron_llm_tpu_torch.training.trainer import Trainer
+
+    trainer = Trainer(model, tcfg, pcfg, batch_builder=batch_builder)
+    state = trainer.setup()
+    trainer.train_data_iterator = build_pretraining_data_loader(
+        train_ds, state.consumed_train_samples, tcfg.micro_batch_size,
+        pcfg.data_parallel_size, trainer.num_microbatches_calc.get,
+        keys=keys)
+    if valid_ds is not None:
+        trainer.valid_data_iterator = build_pretraining_data_loader(
+            valid_ds, 0, tcfg.micro_batch_size, pcfg.data_parallel_size, 1,
+            keys=keys)
+    state = trainer.train(state)
+    if tcfg.save:
+        trainer._save(state, blocking=True)
+    return state
+
+
+def main(argv=None, device="cuda"):
+    """Parse `argv` (sys.argv when None), build the tokenizer, configs,
+    model and datasets, train and, with --save, save; returns the final
+    `TrainState`."""
+    from megatron_llm_tpu_torch.data.dataset_utils import (
+        build_train_valid_test_datasets,
+    )
+
+    def add_args(p):
+        # --mask_prob is the reference spelling
+        p.add_argument("--masked_lm_prob", "--mask_prob", type=float,
+                       default=0.15)
+        p.add_argument("--short_seq_prob", type=float, default=0.1)
+        p.add_argument("--no_binary_head", action="store_true")
+
+    args, tokenizer, mcfg, pcfg, tcfg, dargs = entry_configs(
+        "pretrain_bert", "BERT pretraining", argv, device, "bert", add_args,
+        fix=lambda args, mcfg: dataclasses.replace(
+            mcfg, add_binary_head=not args.no_binary_head))
     model = BertModel(mcfg, device=device)
 
     num_samples = (tcfg.train_iters or 0) * tcfg.global_batch_size
@@ -120,20 +162,9 @@ def main(argv=None, device="cuda"):
         [num_samples, tcfg.eval_iters * tcfg.global_batch_size, 0],
         mcfg.seq_length, args.masked_lm_prob, args.short_seq_prob,
         tcfg.seed, tokenizer, dataset_type="standard_bert",
-        binary_head=binary_head)
-    trainer = Trainer(model, tcfg, pcfg, batch_builder=get_batch)
-    state = trainer.setup()
-    trainer.train_data_iterator = build_pretraining_data_loader(
-        train_ds, state.consumed_train_samples, tcfg.micro_batch_size,
-        pcfg.data_parallel_size, trainer.num_microbatches_calc.get,
-        keys=BERT_KEYS)
-    trainer.valid_data_iterator = build_pretraining_data_loader(
-        valid_ds, 0, tcfg.micro_batch_size, pcfg.data_parallel_size, 1,
-        keys=BERT_KEYS)
-    state = trainer.train(state)
-    if tcfg.save:
-        trainer._save(state, blocking=True)
-    return state
+        binary_head=not args.no_binary_head)
+    return train_entry(model, tcfg, pcfg, get_batch, BERT_KEYS, train_ds,
+                       valid_ds)
 
 
 if __name__ == "__main__":

@@ -225,7 +225,10 @@ def make_train_step(model, tcfg: TrainConfig, pcfg: ParallelConfig,
         with torch.enable_grad(), overlap.param_gate(layout.get("gather")):
             for i in range(num_micro):
                 micro = {k: v[i] for k, v in batch.items()}
-                b, s = micro["tokens"].shape[:2]
+                # a batch builder's keywords need not hold "tokens"
+                # (T5, ICT): any (rows, seq) leaf gives the row count
+                b, s = micro.get("tokens",
+                                 next(iter(micro.values()))).shape[:2]
                 # the rows' global offsets: sample, position
                 mrng = None if rng is None else at(
                     rng, (i * dp + (ctx.dp_rank if ctx else 0)) * b,

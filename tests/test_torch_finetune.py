@@ -333,26 +333,36 @@ BERT_FLAGS = ("--hidden_size 1024 --num_attention_heads 16 --seq_length 512 "
               "--data_parallel_size 1")
 
 
+T5_FLAGS = ("--hidden_size 768 --num_attention_heads 12 --kv_channels 64 "
+            "--ffn_hidden_size 3072 --encoder_seq_length 512 "
+            "--max_position_embeddings 512 --hidden_dropout 0.1 "
+            "--attention_dropout 0.1 --micro_batch_size 16 "
+            "--global_batch_size 16 --bf16 --data_parallel_size 1")
+
+
 @pytest.mark.parametrize("name", ["bert", "t5"])
 def test_model_families_of_later_slices_raise(name):
-    """T5 is a later slice and raises naming it; BERT is ported: its
-    flags build the JAX package's configs field for field."""
-    argv = ["--model_name", name, "--num_layers", "2"]
-    if name == "t5":
-        args = arguments.build_base_parser().parse_args(argv)
-        with pytest.raises(ValueError, match="A6"):
-            arguments.args_to_configs(args, 32000)
-        return
-    argv += BERT_FLAGS.split()
+    """The encoder families, once later slices that raised by name, are
+    ported: BERT's and T5's flags build the JAX package's configs field
+    for field."""
+    argv = ["--model_name", name, "--num_layers", "2"] + (
+        BERT_FLAGS if name == "bert" else T5_FLAGS).split()
+    vocab = 30524 if name == "bert" else 30624  # T5: + 100 sentinels
     pa = arguments.build_base_parser().parse_args(argv)
     ja = jax_args.build_base_parser().parse_args(argv)
-    pm, pp, pt, pd = arguments.args_to_configs(pa, 30524)
-    jm, jp, jt, jd = jax_args.args_to_configs(ja, 30524)
+    pm, pp, pt, pd = arguments.args_to_configs(pa, vocab)
+    jm, jp, jt, jd = jax_args.args_to_configs(ja, vocab)
     shared = _same_fields(pm, jm, ModelConfig, JaxModelConfig)
     assert {"num_tokentypes", "add_binary_head", "use_post_ln",
             "position_embedding_type", "padded_vocab_size"} <= shared
-    assert (pm.num_tokentypes, pm.add_binary_head, pm.use_post_ln,
-            pm.padded_vocab_size) == (2, True, True, 30592)
+    if name == "bert":
+        assert (pm.num_tokentypes, pm.add_binary_head, pm.use_post_ln,
+                pm.padded_vocab_size) == (2, True, True, 30592)
+    else:
+        assert (pm.num_tokentypes, pm.add_binary_head, pm.use_rms_norm,
+                pm.use_bias, pm.tie_embed_logits, pm.padded_vocab_size,
+                pm.max_position_embeddings) == (
+            0, False, False, True, True, 30720, 512)
     _same_fields(pt, jt, TrainConfig, JaxTrainConfig)
     assert (pp.num_microbatches, pp.data_parallel_size) == (
         jp.num_microbatches, jp.data_parallel_size)

@@ -17,14 +17,25 @@ from pathlib import Path
 import pytest
 
 import megatron_llm_tpu_torch
-from megatron_llm_tpu_torch import finetune, pretrain_bert
+from megatron_llm_tpu_torch import (
+    finetune,
+    pretrain_bert,
+    pretrain_ict,
+    pretrain_t5,
+)
 from megatron_llm_tpu_torch.config import tiny_config
 from megatron_llm_tpu_torch.convert.from_jax import (
     params_from_jax,
     rank_params_from_jax,
 )
 from megatron_llm_tpu_torch.inference.engine import DecodeEngine
-from megatron_llm_tpu_torch.models import FalconModel, GPTModel, LlamaModel
+from megatron_llm_tpu_torch.models import (
+    FalconModel,
+    GPTModel,
+    LlamaModel,
+    T5Model,
+)
+from megatron_llm_tpu_torch.models.biencoder import BiEncoderModel
 from megatron_llm_tpu_torch.models.language_model import (
     init_language_model_params,
 )
@@ -124,6 +135,10 @@ def test_no_jax_import_in_source(path):
     (serving_context, "device"),
     (pretrain_bert.main, "device"),
     (tasks_main.main, "device"),
+    (pretrain_t5.main, "device"),
+    (pretrain_ict.main, "device"),
+    (T5Model.__init__, "device"),
+    (BiEncoderModel.__init__, "device"),
 ])
 def test_entry_points_default_to_cuda(fn, arg):
     fn = getattr(fn, "__wrapped__", fn)
@@ -138,6 +153,14 @@ def test_finetune_main_without_a_card_raises():
     assert not torch.cuda.is_available()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         finetune.main(["--model_name", "llama2", "--num_layers", "2"])
+
+
+@pytest.mark.parametrize("entry", [pretrain_t5, pretrain_ict])
+def test_encoder_decoder_and_ict_entries_without_a_card_raise(entry):
+    """`pretrain_t5.main` and `pretrain_ict.main` on their default device
+    need a card: here they raise before they parse anything."""
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        entry.main(["--num_layers", "2"])
 
 
 def test_pipeline_functions_take_the_contexts_device():
