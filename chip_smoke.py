@@ -8,9 +8,9 @@ Phases, one output line each (a failure raises and exits non-zero):
 1. device: the card's name and power limit from nvidia-smi;
 2. build: the hand-written kernels built from this checkout's sources
    (one nvcc per CUDA C++ source, started together; Triton's compiler for
-   the RMSNorm), each timed; phase 3's checks of K1, K2, K3 and K4-K6
-   run while paged_attention.cu, the slowest, still compiles, and K7's
-   after it; then ptxas's report of decode_attention.cu,
+   the RMSNorm), each timed; phase 3's checks of K1, K2, K3 and K4-K6,
+   then phases 27 and 28 (K4's and K1's downstream paths), run while
+   paged_attention.cu, the slowest, still compiles, and K7's after it; then ptxas's report of decode_attention.cu,
    flash_attention.cu and paged_attention_tc.cu (`-Xptxas -v`:
    registers, stack and spills of each kernel instance) beside K4's, K5's,
    K6's and K7-tc's dynamic shared memory, the latter with bf16 and with
@@ -139,9 +139,9 @@ Phases, one output line each (a failure raises and exits non-zero):
    written out and freed): its first 4 of 32 layers
    (LLAMA_LAUNCH_LAYERS) written as an HF Llama directory
    (config.json, bf16 safetensors in 2 GB shards with an index) by the
-   port's converter and writer, converted by `python -m
-   megatron_llm_tpu_torch.tools.convert_weights --direction hf2native
-   --dtype bfloat16` into a release whose every leaf equals the smoke's
+   port's converter and writer, converted by the CLI's
+   `convert_weights.main([--direction hf2native --dtype bfloat16 ...])`
+   in this process into a release whose every leaf equals the smoke's
    bit for bit; then the launcher's `main([--load <release>
    --warmup_compile ...])` in a thread, at its engine defaults, serving
    over HTTP from concurrent clients the first 8 greedy requests of
@@ -305,12 +305,12 @@ Phases, one output line each (a failure raises and exits non-zero):
    --async_pipeline_dispatch`: each tick's next receive posted before
    it computes, the recipe's flags, 2 of 32 layers, 1 a stage) over
    gloo, both stages on
-   cuda:0: 3 steps and a save with the optimizer state, then the same
-   ranks resume it (optimizer state included) for step 4 and serve it
-   through the API (a pipelined score, four greedy requests through the
-   stage ring), and world size 1 runs the same 4 steps, resumes the
-   save for step 4 and serves it whole-batch. Losses and grad norms
-   within 2e-2 / 5e-2 of world size 1, step 4 at pp 2 and pp 1 within
+   cuda:0: 2 steps (PP_STEPS) and a save with the optimizer state, then
+   the same ranks resume it (optimizer state included) for step 3 and
+   serve it through the API (a pipelined score, four greedy requests
+   through the stage ring), and world size 1 resumes the save for step 3
+   and serves it whole-batch. Losses and grad norms within 2e-2 / 5e-2
+   of world size 1 (phase 19's (a)), step 3 at pp 2 and pp 1 within
    1e-4, every leaf of the checkpoint (Adam moments included) cut into
    each stage's pieces equal to what the stage held, the scorer's
    log-probs within 5e-2 of the whole-batch route's and the ring's over
@@ -337,15 +337,16 @@ Phases, one output line each (a failure raises and exits non-zero):
 22. context_parallel: `torchrun --nproc_per_node 2` runs `finetune.main`
    at cp 2 (`--context_parallel_size 2`, the recipe's flags, 2 of 32
    layers, seq 4096: 2048 positions a rank; attention the ring of
-   parallel/ring_attention.py) over gloo, both ranks on cuda:0: 3 steps
-   and a save with the optimizer state, then the same ranks resume it
-   for step 4 and run ring attention at the recipe's CodeLlama-7B preset
+   parallel/ring_attention.py) over gloo, both ranks on cuda:0: 2 steps
+   (CP_STEPS) and a save with the optimizer state, then the same ranks
+   resume it for step 3 and run ring attention at the recipe's
+   CodeLlama-7B preset
    (seq 16384, 8192 a rank, g 32, d 128) against the one-rank K4-K6 on
    the whole sequence on the card (o within 5e-3, o, dq, dk, dv
    cosines >= 0.98) and one layer under each recompute policy (K4 twice a visible
    hop under full, once under the others), and world size 1 resumes
-   the save for step 4. Losses and grad
-   norms within 2e-2 / 5e-2 of world size 1 ((a)), step 4 at cp 2,
+   the save for step 3. Losses and grad
+   norms within 2e-2 / 5e-2 of world size 1 ((a)), step 3 at cp 2,
    world size 1 and uninterrupted within 2e-2, every leaf of the
    checkpoint equal to what each rank held; per rank K4, K5 and K6 by
    mask: cp rank 0 8 causal a step, rank 1 8 causal and 8 full (its
@@ -393,7 +394,37 @@ Phases, one output line each (a failure raises and exits non-zero):
    projection 0, micro and global batch 32: each query's softmax over
    the batch's 32 blocks; bf16; 6 steps and the final save) on phase
    23's corpus and its titles, with phase 24's checks and prints (step
-   1's loss beside ln 32); tokens/s counts query and context tokens.
+   1's loss beside ln 32); tokens/s counts query and context tokens;
+26. retrieval (ORQA over phase 25's towers, no kernel launch): the
+   port's `tools/build_retrieval_index` embeds 4096 100-word passages of
+   phase 23's corpus with the context tower into an `.npz` store (s and
+   passages/s); `tasks.main --task RETRIEVER-EVAL` from that store and
+   `--task ICT-ZEROSHOT-NQ` embedding the evidence itself, at one batch
+   shape, retrieve equal top-100 ids for 256 NQ-format questions (their
+   hit rates printed); the exact MIPS search (`data/realm_index.
+   MIPSIndex`, TF32 off) over 2^21 random fp32 rows of width 768 on the
+   card (6.44 GB; DPR's Wikipedia index holds 21M), 1024 queries,
+   top-100: ms beside the bound (2 Q d N fp32 operations at 67 TFLOP/s,
+   49.2 ms) and its products' and top-k's ms, and on a 64k-row subset in
+   chunks of 16k the ids equal one top-k over the same products; then
+   `--task RET-FINETUNE-NQ` from the checkpoint, 4 steps of 32 DPR
+   samples with hard negatives: losses finite, step 1 recomputed in bf16
+   equal and in fp32 within 2e-2 of the loss;
+27. zeroshot (run in phase 2's window): `tasks.main --task WIKITEXT103`
+   (8 windows of 4096 at `--overlapping_eval 2048`) and `--task
+   LAMBADA` (16 cloze passages) at Llama-2-7B widths and 4 of 32 layers
+   (LLAMA_LAUNCH_LAYERS), random weights at the init std, in bf16 with
+   `--use_flash_attn`: K4 once a layer a forward, counted; the same
+   model in fp32 with plain attention: the mean loss within 5e-2, and
+   the cloze answers are that fp32 model's own greedy next tokens, so
+   its accuracy is 1.0; printed: the bf16 verdicts that differ and how
+   many of those sit inside the bf16 error of the fp32 top-two margin;
+28. msdp (run in phase 2's window): `tasks.main --task MSDP-PROMPT`,
+   knowledge then response prompts, 4 test dialogs, 32 greedy tokens,
+   at phase 27's widths on a seeded byte-level BPE of 32000 entries,
+   through the whole-batch API: K1 once a layer a decode step, counted;
+   each stream teacher-forced through the fp32 plain model within 5e-2;
+   then `--task MSDP-EVAL-F1` on the knowledge output.
 
 Then a line of each phase's seconds, a line of the processes the run
 still had to stop, one JSON line of the kernels, the nvidia-smi line,
@@ -1663,19 +1694,18 @@ def replay_ms(fn, n=20):
 
 
 def whole_batch_timing(model, params, toks, lens, kw, eager=False):
-    """A warm `generate_tokens` call (captured, or `_eager`), timed: wall
-    ms, the prefill forward's ms alone, the call's capture seconds (its
-    warm-up steps included; 0 eager), decode steps and ms per step (wall
-    less prefill and capture); then the same call again under
-    torch.profiler: its wall, the card's busy ms in it, the idle share
-    1 - busy/wall of that traced window and, beside it, over the timed
-    call's wall (the trace slows the host's side: the lower bound).
-    Returns (record, output)."""
+    """A `generate_tokens` call (captured, or `_eager`) at shapes the
+    caller has run already (phase 5's requests, or the eager call before
+    the captured one), timed: wall ms, the prefill forward's ms alone,
+    the call's capture seconds (its warm-up steps included; 0 eager),
+    decode steps and ms per step (wall less prefill and capture); then
+    the same call again under torch.profiler: its wall, the card's busy
+    ms in it, the idle share 1 - busy/wall of that traced window and,
+    beside it, over the timed call's wall (the trace slows the host's
+    side: the lower bound). Returns (record, output)."""
     def call():
         return generate_tokens(model, params, toks, lens, _eager=eager,
                                **kw)
-    if not eager:  # an eager call has nothing to warm: phase 5 ran it
-        call()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out = call()
@@ -1803,11 +1833,11 @@ def serve_whole_batch(kernels, cfg, model, params, weight_bytes):
             launches=launches, greedy_request_s=round(t_req, 3))
     finally:
         server.stop()
-    kernels[0]["launches"] = launches["decode_attention"]
-    kernels[1]["launches_by_path"] = {"whole_batch": launches["rmsnorm_fwd"]}
     for row in kernels:
-        if row["name"] == "flash_fwd":
-            row["launches_by_path"] = {"whole_batch": launches["flash_fwd"]}
+        if row["name"] in launches:
+            by = row.setdefault("launches_by_path", {})
+            by["whole_batch"] = launches[row["name"]]
+            row["launches"] = sum(by.values())
 
     # phase 6: the greedy output teacher-forced back through the same
     # cached decode path (same prefill bucket, same GEMM shapes) with both
@@ -2538,9 +2568,9 @@ def serve_engine_int8(kernels, cfg, model, params, bf16):
     advance = ms_per_advance(run["rounds"])
     # device ms of a decode step and of a mixed round's forward with K7's
     # tc design (the one the path ran), then, in this call, with every
-    # launch forced to the present design, then tc again
+    # launch forced to the present design
     device = {}
-    for design in ("tc", "present", "tc"):
+    for design in ("tc", "present"):
         with forced_paged_design(design):
             step = decode_step_device_ms(model, eng)
             mixed, mixed_k7 = mixed_round_device_ms(model, eng)
@@ -2557,6 +2587,9 @@ def serve_engine_int8(kernels, cfg, model, params, bf16):
                                            use_decode_attn=False))
     off = DecodeEngine(plain, params, **engine_kwargs(
         tok, kv_dtype="int8", quantize_weights=True, prefix_cache=False))
+    # the reference's rounds run uncaptured (the private `_eager`, as in
+    # graph_capture): a one-time re-score pays no capture
+    off._eager = True
     forced = rescore(off, scored)
     off = None
     free_cuda()
@@ -2925,21 +2958,6 @@ def need_disk(gb):
     return free
 
 
-def convert(*argv):
-    """`python -m megatron_llm_tpu_torch.tools.convert_weights argv` from
-    the checkout's root, as a user runs it (a fresh process: no CUDA
-    context of this one reaches it); returns its seconds."""
-    t0 = time.perf_counter()
-    out = subprocess.run(
-        [sys.executable, "-m", "megatron_llm_tpu_torch.tools.convert_weights",
-         *map(str, argv)], cwd=REPO_DIR, capture_output=True, text=True,
-        timeout=LAUNCH_TIMEOUT_S)
-    check(out.returncode == 0, f"convert_weights {argv}: rc "
-                               f"{out.returncode}\n{out.stdout[-2000:]}\n"
-                               f"{out.stderr[-4000:]}")
-    return time.perf_counter() - t0
-
-
 def convert_here(*argv):
     """`convert_weights.main(argv)` in this process: the CLI's own
     parsing and conversion without a fresh interpreter's start (about 8
@@ -3103,8 +3121,6 @@ def note_launcher_launches(kernels, path, run):
     note_launches(kernels, path, run)
     for row in kernels:
         if row["name"] in ("decode_attention", "flash_fwd"):
-            if "launches_by_path" not in row:  # K1: the whole-batch count
-                row["launches_by_path"] = {"whole_batch": row["launches"]}
             by = row["launches_by_path"]
             by[path] = run["launches"][row["name"]]
             row["launches"] = sum(by.values())
@@ -3188,8 +3204,9 @@ def convert_llama(cfg, params):
     """The smoke's Llama-2-7B weights (phase 4) at LLAMA_LAUNCH_LAYERS of
     its 32 layers written as an HF Llama directory (config.json, sharded
     bf16 safetensors with an index) through the port's converter and
-    writer, then converted by the CLI's hf2native into a bf16 release,
-    whose every leaf must equal the smoke's bit for bit. Runs while the
+    writer, then converted by the CLI's hf2native (`convert_weights.main`
+    in this process) into a bf16 release, whose every leaf must equal the
+    smoke's bit for bit. Runs while the
     weights are on the card; returns the conversion's facts and the
     weights it converted."""
     cfg, params = first_layers(cfg, params, LLAMA_LAUNCH_LAYERS)
@@ -3208,9 +3225,9 @@ def convert_llama(cfg, params):
     free_cuda()
     hf_write_s = time.perf_counter() - t0
     shards = len(list(hf_dir.glob("*.safetensors")))
-    convert_s = convert("--model", "llama", "--direction", "hf2native",
-                        "--dtype", "bfloat16", "--input", hf_dir,
-                        "--output", rel_dir)
+    convert_s = convert_here("--model", "llama", "--direction", "hf2native",
+                             "--dtype", "bfloat16", "--input", hf_dir,
+                             "--output", rel_dir)
     leaves = release_leaves_equal(rel_dir, params)
     shutil.rmtree(hf_dir)
     return {"disk_free_gb": free_gb, "hf_write_s": hf_write_s,
@@ -6249,8 +6266,10 @@ PP_FLAGS = ["--pipeline_model_parallel_size", "2", "--pipeline_remat",
             "tick", "--async_pipeline_dispatch", "--distributed_backend",
             "gloo"]
 PP_RANKS = 2
+# steps before the save (3 before the retrieval, zeroshot and msdp phases)
+PP_STEPS = 2
 PP_GEN = 32  # tokens each served request generates
-PP_STEP4_TOL = 1e-4
+PP_RESUME_TOL = 1e-4
 
 
 def pp_prompts():
@@ -6391,13 +6410,14 @@ def pipeline_phase(kernels, data, one):
     """`torchrun --nproc_per_node 2 ... finetune.main` at pp 2 with the
     recipe's flags and `--pipeline_remat tick` over gloo, both stages on
     cuda:0, at Llama-2-7B widths (FT_LAYERS of 32 layers, half a stage,
-    seq 4096, global batch 4: 4 microbatches of 1): 3 steps and a save
-    with the optimizer state, then the same ranks resume it for step 4 and serve
+    seq 4096, global batch 4: 4 microbatches of 1): PP_STEPS steps and a
+    save with the optimizer state, then the same ranks resume it for one
+    more step and serve
     it through the API (a pipelined score and greedy requests through
     the stage ring), and world size 1 resumes it too and serves it
     whole-batch. Held to `one` (finetune_modes' run (a): world size 1,
     the same flags, weights and batches): losses within 2e-2, grad norms
-    within 5e-2; step 4 at pp 2 and at pp 1 within 1e-4; every leaf of
+    within 5e-2; that step at pp 2 and at pp 1 within 1e-4; every leaf of
     the checkpoint, Adam moments included, cut into each stage's pieces
     equal to what the stage held; the scorer's log-probs within 5e-2 of
     the whole-batch score; the ring's streams those of the one-rank
@@ -6414,15 +6434,16 @@ def pipeline_phase(kernels, data, one):
     base = mode_argv(data, *RECIPE, "--bf16", "--train_iters", "4")
     pp = base + PP_FLAGS
     prompts = pp_prompts()
+    n, after = str(PP_STEPS), ["--exit_interval", str(PP_STEPS + 1)]
     t0 = time.perf_counter()
     # the context_parallel phase's runs and the overlap_dropout phase's
     # dp 2 run ride these two ranks last (world size 2 too): one start of
     # the two processes, and of their first step's lazy imports
     later = cp_rank_argvs(data) + [overlap_argv(data)]
     ranks, log = run_ranks(
-        [pp + ["--exit_interval", "3", "--save_interval", "3", "--save",
+        [pp + ["--exit_interval", n, "--save_interval", n, "--save",
                str(ck)],
-         pp + ["--load", str(ck)],
+         pp + ["--load", str(ck)] + after,
          {"argv": pp, "ck": str(ck), "prompts": prompts}] + later,
         nproc=PP_RANKS)
     ranks_s = time.perf_counter() - t0
@@ -6440,10 +6461,11 @@ def pipeline_phase(kernels, data, one):
         check(run["stats"] == first[0]["stats"]
               and resumed[r]["stats"] == resumed[0]["stats"],
               f"rank {r} reports another loss or grad norm")
-        check(run["launches"] == pp_expected_launches(3),
+        check(run["launches"] == pp_expected_launches(PP_STEPS),
               f"rank {r} launches {run['launches']} != "
-              f"{pp_expected_launches(3)}")
-        check(resumed[r]["resumed"] == [3, 12] and resumed[r]["launches"]
+              f"{pp_expected_launches(PP_STEPS)}")
+        check(resumed[r]["resumed"] == [PP_STEPS, FT_MICRO * PP_STEPS]
+              and resumed[r]["launches"]
               == pp_expected_launches(1),
               f"rank {r} resumed {resumed[r].get('resumed')} with "
               f"{resumed[r]['launches']}")
@@ -6451,7 +6473,7 @@ def pipeline_phase(kernels, data, one):
                 zip(first[0]["stats"], ref)]
     gnorm_err = [abs(x["grad_norm"] - y["grad_norm"]) / y["grad_norm"]
                  for x, y in zip(first[0]["stats"], ref)]
-    check(len(loss_err) == 3 and max(loss_err) <= BF16_TOL
+    check(len(loss_err) == PP_STEPS and max(loss_err) <= BF16_TOL
           and max(gnorm_err) <= PATH_LP_TOL,
           f"pp 2 against world size 1: loss err {loss_err}, grad norm "
           f"rel err {gnorm_err}")
@@ -6459,18 +6481,18 @@ def pipeline_phase(kernels, data, one):
                             pp_rank=r) for r in range(PP_RANKS)]
     leaves, iteration = check_parallel_checkpoint(
         ck, [run["fingerprints"] for run in first], ctxs, zero1=False)
-    check(iteration == 3, f"the save is at iteration {iteration}")
+    check(iteration == PP_STEPS, f"the save is at iteration {iteration}")
     t0 = time.perf_counter()
-    ws1 = finetune_run(base + ["--load", str(ck)])
+    ws1 = finetune_run(base + ["--load", str(ck)] + after)
     ws1_s = time.perf_counter() - t0
     step4 = {"pp2_resumed": resumed[0]["stats"][0]["loss"],
              "pp1_resumed": ws1["stats"][0]["loss"],
-             "pp1_uninterrupted": ref[3]["loss"]}
-    check(ws1["resumed"] == (3, 12)
+             "pp1_uninterrupted": ref[PP_STEPS]["loss"]}
+    check(ws1["resumed"] == (PP_STEPS, FT_MICRO * PP_STEPS)
           and abs(step4["pp2_resumed"] - step4["pp1_resumed"])
-          <= PP_STEP4_TOL
+          <= PP_RESUME_TOL
           and abs(step4["pp1_resumed"] - step4["pp1_uninterrupted"])
-          <= BF16_TOL, f"step 4 after the resume: {step4}")
+          <= BF16_TOL, f"step {PP_STEPS + 1} after the resume: {step4}")
     # the one-rank whole-batch answers of the same checkpoint
     t0 = time.perf_counter()
     tok, model, params = pp_serving_model(base, ck, None)
@@ -6506,7 +6528,7 @@ def pipeline_phase(kernels, data, one):
                             pp_stream_errs(prompts, whole["greedy"], got)))
              for name, got in (("ring", served[0]["greedy"]),
                                ("route_on_ring_rows", grouped))}
-    ckpt_bytes = dir_bytes(os.path.join(ck, "iter_0000003"))
+    ckpt_bytes = dir_bytes(os.path.join(ck, f"iter_{PP_STEPS:07d}"))
     shutil.rmtree(ck)
     ms = [st["ms"] for st in first[0]["steps"]]
     peak = [run["peak_gb"] for run in first]
@@ -6520,19 +6542,20 @@ def pipeline_phase(kernels, data, one):
         layers=FT_LAYERS, seq=FT_SEQ, global_batch=FT_MICRO,
         microbatches=FT_MICRO,
         losses=[x["loss"] for x in first[0]["stats"]],
-        losses_world1=[y["loss"] for y in ref[:3]],
+        losses_world1=[y["loss"] for y in ref[:PP_STEPS]],
         grad_norms=[x["grad_norm"] for x in first[0]["stats"]],
-        grad_norms_world1=[y["grad_norm"] for y in ref[:3]],
+        grad_norms_world1=[y["grad_norm"] for y in ref[:PP_STEPS]],
         loss_abs_err=loss_err, grad_norm_rel_err=gnorm_err,
         tol={"loss": BF16_TOL, "grad_norm_rel": PATH_LP_TOL,
-             "step4_pp2_vs_pp1": PP_STEP4_TOL, "serving": PATH_LP_TOL},
+             "resumed_step_pp2_vs_pp1": PP_RESUME_TOL, "serving": PATH_LP_TOL},
         step_ms=ms, step_ms_label="gloo through the host, one card shared "
         "by 2 stages (not comparable with a one-rank step)",
         step_ms_world1=[st["ms"] for st in one["steps"]],
         peak_gb_per_rank=peak, serve_peak_gb_per_rank=[
             rank["peak_gb"] for rank in served],
         launches_per_rank=[run["launches"] for run in first],
-        expected_launches_per_rank=pp_expected_launches(3),
+        expected_launches_per_rank=pp_expected_launches(PP_STEPS),
+        steps_before_save=PP_STEPS,
         checkpoint_leaves_checked=leaves, checkpoint_bytes=ckpt_bytes,
         checkpoint_form="per-rank pieces (model/, optim/, done/ a rank)",
         saves_blocked_ms=first[0]["saves"], commits_s=first[0]["commits"],
@@ -6542,7 +6565,7 @@ def pipeline_phase(kernels, data, one):
         save_s_rank0=first[0]["clock_s"].get("saves"),
         commit_wait_s_rank0=first[0]["clock_s"].get("commit_wait"),
         load_s_per_rank=[run["loads"] for run in resumed],
-        load_s_world1=ws1["loads"], step4_losses=step4,
+        load_s_world1=ws1["loads"], resumed_step_losses=step4,
         ring=plan, ring_k1_tgd_launches_per_rank=ring_k1,
         score_max_abs_err=score_err, ring_max_abs_logprob_err=ring_err,
         ring_greedy_token_agreement=agree,
@@ -6635,6 +6658,8 @@ def time_decode_ring(kernels):
 # 60), two ranks on cuda:0 through gloo
 CP_FLAGS = ["--context_parallel_size", "2", "--distributed_backend", "gloo"]
 CP_RANKS = 2
+# steps before the save (3 before the retrieval, zeroshot and msdp phases)
+CP_STEPS = 2
 # the recipe's CodeLlama-7B preset (examples/finetune.sh:39-40): seq
 # 16384, 32 heads of 128, no GQA
 CP_RING_SEQ = 16384
@@ -6797,14 +6822,16 @@ def cp_remat(policies):
 
 
 def cp_rank_argvs(data):
-    """The context_parallel phase's rank-mode entries: 3 steps and a
-    save at cp 2, the resume, the 16k ring, the recompute policies."""
+    """The context_parallel phase's rank-mode entries: CP_STEPS steps and
+    a save at cp 2, the resume for one more, the 16k ring, the recompute
+    policies."""
     ck = FT_DIR / "cp_ck"
     cp = mode_argv(data, *RECIPE, "--bf16", "--train_iters", "4") \
         + CP_FLAGS
-    return [cp + ["--exit_interval", "3", "--save_interval", "3", "--save",
+    n = str(CP_STEPS)
+    return [cp + ["--exit_interval", n, "--save_interval", n, "--save",
                   str(ck)],
-            cp + ["--load", str(ck)],
+            cp + ["--load", str(ck), "--exit_interval", str(CP_STEPS + 1)],
             {"ring_seq": CP_RING_SEQ}, {"policies": list(REMAT_POLICIES)}]
 
 
@@ -6812,14 +6839,15 @@ def context_parallel_phase(kernels, data, one, ranks=None):
     """`torchrun --nproc_per_node 2 ... finetune.main` at cp 2 with the
     recipe's flags over gloo, both ranks on cuda:0, at Llama-2-7B widths
     (FT_LAYERS of 32 layers, seq 4096: 2048 positions a rank, global
-    batch 4: 4 microbatches of 1): 3 steps and a save with the optimizer
-    state, then the same ranks resume it for step 4, run ring attention
+    batch 4: 4 microbatches of 1): CP_STEPS steps and a save with the
+    optimizer state, then the same ranks resume it for one more step, run
+    ring attention
     at the recipe's CodeLlama-7B preset (seq 16384, 8192 a rank) against
     the one-rank K4-K6 on the whole sequence, and count K4-K6 launches
     by mask for one layer under each recompute policy; world size 1
     resumes the checkpoint too. Held to `one` (finetune_modes' run (a):
     world size 1, the same flags, weights and batches): losses within
-    2e-2, grad norms within 5e-2; step 4 at cp 2, at world size 1 and
+    2e-2, grad norms within 5e-2; that step at cp 2, at world size 1 and
     uninterrupted within 2e-2; every leaf of the checkpoint, Adam
     moments included, equal to what each rank held, bit for bit; the
     16k ring's o within 5e-3 and its o, dq, dk, dv cosines >= 0.98; K4-K6
@@ -6851,14 +6879,14 @@ def context_parallel_phase(kernels, data, one, ranks=None):
         check(run["stats"] == first[0]["stats"]
               and resumed[r]["stats"] == resumed[0]["stats"],
               f"rank {r} reports another loss or grad norm")
-        for name, runs, steps in (("steps 1-3", run, 3),
-                                  ("step 4", resumed[r], 1)):
+        for name, runs, steps in (("the first steps", run, CP_STEPS),
+                                  ("the resumed step", resumed[r], 1)):
             want = cp_expected_launches(r, steps)
             check(runs["by_causal"] == want
                   and all(runs["launches"][k] == 0 for k in others),
                   f"rank {r} {name}: launches {runs['by_causal']} "
                   f"{runs['launches']} != {want}")
-        check(resumed[r]["resumed"] == [3, 12],
+        check(resumed[r]["resumed"] == [CP_STEPS, FT_MICRO * CP_STEPS],
               f"rank {r} resumed {resumed[r].get('resumed')}")
         want = {name: {"causal": 1, "full": r} for name in FLASH_WRAPPERS}
         check(ring[r]["launches_by_causal"] == want,
@@ -6879,7 +6907,7 @@ def context_parallel_phase(kernels, data, one, ranks=None):
                 zip(first[0]["stats"], ref)]
     gnorm_err = [abs(x["grad_norm"] - y["grad_norm"]) / y["grad_norm"]
                  for x, y in zip(first[0]["stats"], ref)]
-    check(len(loss_err) == 3 and max(loss_err) <= BF16_TOL
+    check(len(loss_err) == CP_STEPS and max(loss_err) <= BF16_TOL
           and max(gnorm_err) <= PATH_LP_TOL,
           f"cp 2 against world size 1: loss err {loss_err}, grad norm rel "
           f"err {gnorm_err}")
@@ -6888,21 +6916,22 @@ def context_parallel_phase(kernels, data, one, ranks=None):
             for r in range(CP_RANKS)]
     leaves, iteration = check_parallel_checkpoint(
         ck, [run["fingerprints"] for run in first], ctxs, zero1=False)
-    check(iteration == 3 and any(k.startswith("m.") for k in
+    check(iteration == CP_STEPS and any(k.startswith("m.") for k in
                                  first[0]["fingerprints"]),
           f"the save is at iteration {iteration}, with the moments")
     t0 = time.perf_counter()
-    ws1 = finetune_run(base + ["--load", str(ck)])
+    ws1 = finetune_run(base + ["--load", str(ck), "--exit_interval",
+                               str(CP_STEPS + 1)])
     ws1_s = time.perf_counter() - t0
     step4 = {"cp2_resumed": resumed[0]["stats"][0]["loss"],
              "world1_resumed": ws1["stats"][0]["loss"],
-             "world1_uninterrupted": ref[3]["loss"]}
-    check(ws1["resumed"] == (3, 12)
+             "world1_uninterrupted": ref[CP_STEPS]["loss"]}
+    check(ws1["resumed"] == (CP_STEPS, FT_MICRO * CP_STEPS)
           and abs(step4["cp2_resumed"] - step4["world1_resumed"])
           <= BF16_TOL
           and abs(step4["world1_resumed"] - step4["world1_uninterrupted"])
-          <= BF16_TOL, f"step 4 after the resume: {step4}")
-    ckpt_bytes = dir_bytes(os.path.join(ck, "iter_0000003"))
+          <= BF16_TOL, f"step {CP_STEPS + 1} after the resume: {step4}")
+    ckpt_bytes = dir_bytes(os.path.join(ck, f"iter_{CP_STEPS:07d}"))
     shutil.rmtree(ck)
     ms = [st["ms"] for st in first[0]["steps"]]
     peak = [run["peak_gb"] for run in first]
@@ -6915,19 +6944,20 @@ def context_parallel_phase(kernels, data, one, ranks=None):
         collectives_staged_through_host=first[0]["parallel"]["staged"],
         layers=FT_LAYERS, seq=FT_SEQ, global_batch=FT_MICRO,
         losses=[x["loss"] for x in first[0]["stats"]],
-        losses_world1=[y["loss"] for y in ref[:3]],
+        losses_world1=[y["loss"] for y in ref[:CP_STEPS]],
         grad_norms=[x["grad_norm"] for x in first[0]["stats"]],
-        grad_norms_world1=[y["grad_norm"] for y in ref[:3]],
+        grad_norms_world1=[y["grad_norm"] for y in ref[:CP_STEPS]],
         loss_abs_err=loss_err, grad_norm_rel_err=gnorm_err,
         tol={"loss": BF16_TOL, "grad_norm_rel": PATH_LP_TOL,
-             "step4": BF16_TOL, "ring_o": CP_RING_O_TOL,
+             "resumed_step": BF16_TOL, "ring_o": CP_RING_O_TOL,
              "ring_grad_cosine": CP_RING_COS},
         step_ms=ms, step_ms_label="gloo through the host, one card shared "
         "by 2 ranks (not comparable with a one-rank step)",
         step_ms_world1=[st["ms"] for st in one["steps"]],
         peak_gb_per_rank=peak,
         launches_by_causal_per_rank=[run["by_causal"] for run in first],
-        expected_by_causal_per_rank=[cp_expected_launches(r, 3)
+        steps_before_save=CP_STEPS,
+        expected_by_causal_per_rank=[cp_expected_launches(r, CP_STEPS)
                                      for r in range(CP_RANKS)],
         checkpoint_leaves_checked=leaves, checkpoint_bytes=ckpt_bytes,
         checkpoint_form="per-rank pieces (model/, optim/, done/ a rank)",
@@ -6938,7 +6968,7 @@ def context_parallel_phase(kernels, data, one, ranks=None):
         save_s_rank0=first[0]["clock_s"].get("saves"),
         commit_wait_s_rank0=first[0]["clock_s"].get("commit_wait"),
         load_s_per_rank=[run["loads"] for run in resumed],
-        load_s_world1=ws1["loads"], step4_losses=step4,
+        load_s_world1=ws1["loads"], resumed_step_losses=step4,
         ring_16k=ring, ring_16k_shape=f"b1 s{CP_RING_SEQ} g32 qpk1 d128 "
         f"causal bf16 (CodeLlama-7B), {CP_RING_SEQ // CP_RANKS} a rank",
         remat_policies_per_rank=remat,
@@ -7387,7 +7417,8 @@ def encoder_data():
     t0 = time.perf_counter()
     preprocess_data.main(["--input", str(titles), "--output_prefix",
                           str(BERT_DIR / "titles"), *common])
-    return dict(vocab=vocab, data=str(BERT_DIR / "corpus_text_document"),
+    return dict(vocab=vocab, corpus=str(corpus),
+                data=str(BERT_DIR / "corpus_text_document"),
                 titles=str(BERT_DIR / "titles_text_document"), tasks=tasks,
                 preprocess_s=pre_s,
                 titles_preprocess_s=time.perf_counter() - t0)
@@ -7572,7 +7603,8 @@ def t5_phase(kernels, enc):
 
 def ict_phase(kernels, enc):
     """ICT biencoder pretraining at BERT-base widths on `encoder_data()`'s
-    corpus and titles."""
+    corpus and titles; returns its checkpoint's directory (the retrieval
+    phase's towers)."""
     from megatron_llm_tpu_torch import pretrain_ict
     from megatron_llm_tpu_torch.models.biencoder import BiEncoderModel
 
@@ -7616,7 +7648,598 @@ def ict_phase(kernels, enc):
                       "+ 6 b b h", **summary)
     for row in kernels:
         row.setdefault("launches_by_path", {})["ict"] = 0
-    shutil.rmtree(ck)
+    return ck
+
+
+# ---------------------------------------------------------------------------
+# phases 26-28: the downstream tasks. ORQA retrieval over the ict phase's
+# towers; zero-shot WIKITEXT103 and LAMBADA, and MSDP, at Llama-2-7B widths
+# ---------------------------------------------------------------------------
+
+# DPR's evidence is 100-word passages; the corpus's 130k words give this
+# many at a stride of 24 words
+RET_PASSAGES, RET_PASSAGE_WORDS, RET_STRIDE = 4096, 100, 24
+RET_QUESTIONS, RET_BATCH, RET_TOPK = 256, 128, 100
+RET_FT_SAMPLES, RET_FT_BATCH = 128, 32
+# the ict phase's towers at examples/pretrain_ict.sh's widths
+RET_RECIPE = ("--num_layers 12 --hidden_size 768 --num_attention_heads 12 "
+              "--seq_length 256 --max_position_embeddings 256 "
+              "--retriever_seq_length 256 --data_parallel_size 1 "
+              "--tokenizer_type BertWordPieceLowerCase")
+# the search at a size retrieval users hold: DPR's Wikipedia index is 21M
+# passages of width 768, cut to 2^21 fp32 rows (6.44 GB on the card)
+SEARCH_ROWS, SEARCH_DIM, SEARCH_QUERIES = 1 << 21, 768, 1024
+SEARCH_CHECK_ROWS, SEARCH_CHECK_CHUNK = 1 << 16, 1 << 14
+
+
+def write_retrieval_data(corpus, rs):
+    """From `encoder_data()`'s corpus: RET_PASSAGES evidence passages of
+    RET_PASSAGE_WORDS words at a stride of RET_STRIDE, titled by their
+    document's first words; RET_QUESTIONS NQ questions (8 words of a
+    passage, one of them the answer) and RET_FT_SAMPLES DPR training
+    samples (a question, its passage, two other passages as hard
+    negatives): (evidence, nq, dpr) paths."""
+    passages = []
+    with open(corpus) as f:
+        for line in f:
+            words = json.loads(line)["text"].split()
+            for lo in range(0, len(words) - RET_PASSAGE_WORDS + 1,
+                            RET_STRIDE):
+                passages.append((" ".join(words[:3]), " ".join(
+                    words[lo:lo + RET_PASSAGE_WORDS])))
+    check(len(passages) >= RET_PASSAGES, f"{len(passages)} passages")
+    passages = passages[:RET_PASSAGES]
+    evidence = BERT_DIR / "evidence.tsv"
+    evidence.write_text("id\ttext\ttitle\n" + "".join(
+        f"{i + 1}\t{text}\t{title}\n" for i, (title, text)
+        in enumerate(passages)))
+
+    def question(i):
+        words = [w.lower().strip(".") for w in passages[i][1].split()]
+        lo = rs.randint(len(words) - 8)
+        return " ".join(words[lo:lo + 8]), words[lo + rs.randint(8)]
+
+    nq = BERT_DIR / "nq_dev.tsv"
+    nq.write_text("".join(
+        "{}\t{}\n".format(*(lambda qa: (qa[0], json.dumps([qa[1]])))(
+            question(i)))
+        for i in rs.choice(RET_PASSAGES, RET_QUESTIONS, replace=False)))
+    samples = []
+    for i in rs.choice(RET_PASSAGES, RET_FT_SAMPLES, replace=False):
+        q, a = question(i)
+        negs = [passages[j] for j in rs.choice(RET_PASSAGES, 2)]
+        samples.append({
+            "question": q, "answers": [a],
+            "positive_ctxs": [{"title": passages[i][0],
+                               "text": passages[i][1]}],
+            "hard_negative_ctxs": [{"title": t, "text": x}
+                                   for t, x in negs]})
+    dpr = BERT_DIR / "nq_train.json"
+    dpr.write_text(json.dumps(samples))
+    return str(evidence), str(nq), str(dpr)
+
+
+def search_numbers(index, queries):
+    """The search over `index` timed (host clock around each call, which
+    ends in the results' copy to the host; the median of 5 after one
+    warm-up), its two parts on CUDA events (the chunks' products, one
+    chunk's top-k), and its bound."""
+    from megatron_llm_tpu_torch.data.realm_index import fp32_products
+
+    index.search_mips_index(queries, RET_TOPK)
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index.search_mips_index(queries, RET_TOPK)
+        times.append((time.perf_counter() - t0) * 1e3)
+    q = torch.from_numpy(queries).cuda()
+    chunk = index.embeds[:index.chunk_rows]
+    with fp32_products():
+        gemm = time_ms(lambda: q @ chunk.T, iters=5, warmup=1)
+        scores = q @ chunk.T
+        topk = time_ms(lambda: torch.topk(scores, RET_TOPK, dim=1), iters=5,
+                       warmup=1)
+    del scores
+    n, d, qn = index.embeds.shape[0], SEARCH_DIM, SEARCH_QUERIES
+    ops_ms = 2 * qn * d * n / FP32_FLOPS * 1e3
+    bytes_ms = ((n + qn) * d * 4 + qn * RET_TOPK * 12) / HBM_BYTES_PER_S * 1e3
+    chunks = -(-n // index.chunk_rows)
+    return dict(chunk_rows=index.chunk_rows,
+                search_ms=float(np.median(times)), search_ms_all=times,
+                gemm_ms=gemm * chunks, topk_ms=topk * chunks,
+                bound_ms=max(ops_ms, bytes_ms),
+                bound_by="operations" if ops_ms >= bytes_ms else "bytes",
+                ops_bound_ms=ops_ms, bytes_bound_ms=bytes_ms,
+                over_bound=float(np.median(times)) / max(ops_ms, bytes_ms))
+
+
+def retrieval_phase(kernels, enc, ck):
+    """ORQA retrieval over the ict phase's towers (`ck`): the index built
+    by `build_retrieval_index` over passages of `encoder_data()`'s
+    corpus, RETRIEVER-EVAL through `tasks.main` from that store against
+    ICT-ZEROSHOT-NQ's on-the-fly index, the search timed at 2^21 rows,
+    and a few RET-FINETUNE-NQ steps from the checkpoint."""
+    from megatron_llm_tpu_torch.data.realm_index import (
+        MIPSIndex,
+        fp32_products,
+    )
+    from megatron_llm_tpu_torch.models.biencoder import BiEncoderModel
+    from megatron_llm_tpu_torch.tasks import main as tasks_main
+    from megatron_llm_tpu_torch.tasks.orqa import supervised
+    from megatron_llm_tpu_torch.tools import build_retrieval_index
+
+    vocab = str(enc["vocab"])
+    evidence, nq, dpr = write_retrieval_data(
+        enc["corpus"], np.random.RandomState(SEED + 47))
+    store = BERT_DIR / "evidence_embeds.npz"
+    zero_counts()
+    t0 = time.perf_counter()
+    build_retrieval_index.main([
+        "--evidence_data_path", evidence, "--embedding_path", str(store),
+        "--load", str(ck), "--tokenizer_type", "BertWordPieceLowerCase",
+        "--vocab_file", vocab, "--num_layers", str(ICT_LAYERS),
+        "--hidden_size", str(ICT_HIDDEN), "--num_attention_heads",
+        str(ICT_HEADS), "--retriever_seq_length", str(ICT_SEQ),
+        "--indexer_batch_size", str(RET_BATCH)])
+    build_s = time.perf_counter() - t0
+
+    argv = RET_RECIPE.split() + [
+        "--vocab_file", vocab, "--load", str(ck), "--evidence_data_path",
+        evidence, "--qa_data_dev", nq, "--micro_batch_size", str(RET_BATCH),
+        "--retriever_topk", str(RET_TOPK), "--seed", str(SEED)]
+    t0 = time.perf_counter()
+    prebuilt, res_pre = tasks_main.main(
+        argv + ["--task", "RETRIEVER-EVAL", "--embedding_path", str(store)])
+    eval_prebuilt_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    fly, res_fly = tasks_main.main(argv + ["--task", "ICT-ZEROSHOT-NQ"])
+    eval_fly_s = time.perf_counter() - t0
+    questions = [ln.split("\t")[0] for ln in open(nq)]
+    ids_pre = [ids for ids, _ in prebuilt.retrieve(questions, RET_TOPK)]
+    ids_fly = [ids for ids, _ in fly.retrieve(questions, RET_TOPK)]
+    check(ids_pre == ids_fly, "the prebuilt store's top-k ids differ from "
+          "the on-the-fly index's")
+    rates = res_pre["DEV"][0]
+    check(rates == res_fly["DEV"][0] and len(rates) == RET_TOPK,
+          f"hit rates {rates[:5]} vs {res_fly['DEV'][0][:5]}")
+    emb_diff = float(np.abs(prebuilt.evidence_emb - fly.evidence_emb).max())
+    assert_no_launches("retrieval")
+    del prebuilt, fly
+    free_cuda()
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 53)
+    index = MIPSIndex(SEARCH_DIM)
+    index.add_rows(np.arange(SEARCH_ROWS), torch.randn(
+        SEARCH_ROWS, SEARCH_DIM, device="cuda", generator=gen))
+    queries = torch.randn(SEARCH_QUERIES, SEARCH_DIM, device="cuda",
+                          generator=gen).cpu().numpy()
+    search = search_numbers(index, queries)
+    # the chunked merge against one top-k over the same scores (the same
+    # chunks' products, concatenated) on a 64k-row subset
+    sub = MIPSIndex(SEARCH_DIM, chunk_rows=SEARCH_CHECK_CHUNK)
+    sub.add_rows(np.arange(SEARCH_CHECK_ROWS),
+                 index.embeds[:SEARCH_CHECK_ROWS])
+    sub_s, sub_ids = sub.search_mips_index(queries, RET_TOPK)
+    q = torch.from_numpy(queries).cuda()
+    with fp32_products():
+        scores = torch.cat([q @ sub.embeds[lo:lo + SEARCH_CHECK_CHUNK].T
+                            for lo in range(0, SEARCH_CHECK_ROWS,
+                                            SEARCH_CHECK_CHUNK)], dim=1)
+        ref_s, ref_ids = torch.topk(scores, RET_TOPK, dim=1)
+        _, whole_ids = torch.topk(q @ sub.embeds.T, RET_TOPK, dim=1)
+    check(np.array_equal(sub_ids, ref_ids.cpu().numpy())
+          and np.array_equal(sub_s, ref_s.cpu().numpy()),
+          "the chunked search's top-k differs from one top-k over the "
+          "same scores")
+    whole_agree = float((whole_ids.cpu().numpy() == sub_ids).mean())
+    del index, sub, scores, q
+    free_cuda()
+
+    seen = {}
+
+    def capture(orig):
+        def wrapped(model, params, train_ds, *a, **kw):
+            seen.update(model=model, params=params)
+            return orig(model, params, train_ds, *a, **kw)
+        return wrapped
+
+    def first_batch(orig):
+        def wrapped(ds, idxs):
+            out = orig(ds, idxs)
+            seen.setdefault("batch", out)
+            return out
+        return wrapped
+
+    losses = []
+    zero_counts()
+    t0 = time.perf_counter()
+    with patched(supervised, "finetune_retriever", capture), \
+            patched(supervised, "host_batch", first_batch):
+        tasks_main.main(RET_RECIPE.split() + [
+            "--task", "RET-FINETUNE-NQ", "--vocab_file", vocab,
+            "--pretrained_checkpoint", str(ck), "--train_data", dpr,
+            "--micro_batch_size", str(RET_FT_BATCH), "--epochs", "1",
+            "--lr", "1e-5", "--use_hard_negatives", "--log_interval", "1",
+            "--seed", str(SEED)], losses=losses)
+    ft_s = time.perf_counter() - t0
+    assert_no_launches("RET-FINETUNE-NQ")
+    check(len(losses) == RET_FT_SAMPLES // RET_FT_BATCH
+          and all(np.isfinite(x) for x, _ in losses),
+          f"RET-FINETUNE-NQ losses {losses}")
+    model, params = seen["model"], seen["params"]
+    batch = supervised.to_device(seen["batch"], model.device)
+    step1, scores = {}, {}
+    with torch.no_grad():
+        for name, dt in (("bf16", torch.bfloat16), ("fp32", torch.float32)):
+            m = BiEncoderModel(dataclasses.replace(model.cfg, compute_dtype=dt),
+                               projection_dim=model.projection_dim,
+                               shared_query_context_model=model.shared)
+            step1[name] = float(supervised.make_loss_fn(m, True)(
+                params, batch)[0])
+            q = m.embed_text(params["query"], batch["query"],
+                             batch["query_mask"]).float()
+            c = torch.cat([m.embed_text(params["context"], batch[k],
+                                        batch[k + "_mask"]).float()
+                           for k in ("context", "neg_context")])
+            scores[name] = q @ c.T
+    score_err = float((scores["bf16"] - scores["fp32"]).abs().max())
+    score_max = float(scores["fp32"].abs().max())
+    check(abs(step1["bf16"] - losses[0][0]) <= 1e-3,
+          f"RET-FINETUNE-NQ: the recomputed bf16 step 1 {step1['bf16']} != "
+          f"{losses[0][0]}")
+    # the ict phase's 2e-2, of the loss: the trained towers' in-batch
+    # scores run to hundreds, and a logsumexp over scores whose bf16
+    # error is a few tenths moves by a few hundredths
+    check(abs(step1["fp32"] - losses[0][0])
+          <= BERT_LOSS_TOL * max(1.0, abs(step1["fp32"])),
+          f"RET-FINETUNE-NQ: step 1 bf16 {losses[0][0]} vs fp32 "
+          f"{step1['fp32']}")
+    seen.clear()
+    free_cuda()
+    say("retrieval", card=nvidia_smi(),
+        config="the ict phase's BERT-base towers (examples/pretrain_ict.sh "
+               "widths, seq 256, separate towers) via "
+               "tools/build_retrieval_index and tasks.main",
+        passages=RET_PASSAGES, passage_words=RET_PASSAGE_WORDS,
+        index_build_s=build_s,
+        passages_per_s_with_load=RET_PASSAGES / build_s,
+        store_mb=store.stat().st_size / 1e6,
+        eval_prebuilt_s=eval_prebuilt_s, eval_on_the_fly_s=eval_fly_s,
+        questions=RET_QUESTIONS, ids_equal_prebuilt_on_the_fly=True,
+        evidence_embeddings_max_abs_diff=emb_diff,
+        top_k_accuracy={k: rates[k - 1] for k in (1, 5, 20, 100)
+                        if k <= len(rates)},
+        search=dict(rows=SEARCH_ROWS, dim=SEARCH_DIM,
+                    queries=SEARCH_QUERIES, top_k=RET_TOPK,
+                    store_gb=SEARCH_ROWS * SEARCH_DIM * 4 / 1e9,
+                    reduced="2^21 rows of DPR's 21M-passage Wikipedia "
+                            "index", **search),
+        subset_check=dict(rows=SEARCH_CHECK_ROWS,
+                          chunk_rows=SEARCH_CHECK_CHUNK, ids_equal=True,
+                          agreement_with_one_whole_product=whole_agree),
+        finetune=dict(samples=RET_FT_SAMPLES, batch=RET_FT_BATCH,
+                      hard_negatives=True, losses=losses, wall_s=ft_s,
+                      step1_bf16_recomputed=step1["bf16"],
+                      step1_fp32=step1["fp32"],
+                      step1_abs_diff=abs(step1["fp32"] - losses[0][0]),
+                      step1_scores_fp32_max_abs=score_max,
+                      step1_scores_bf16_max_abs_err=score_err),
+        kernel_launches=0)
+    for row in kernels:
+        row.setdefault("launches_by_path", {})["retrieval"] = 0
+
+
+ZS_DIR = Path(__file__).resolve().parent / "build" / "downstream_smoke"
+ZS_SEQ, ZS_MICRO = 4096, 4
+# 8 windows of 4096 at --overlapping_eval 2048, and 16 cloze passages
+ZS_OVERLAP, ZS_WIKI_TOKENS, ZS_LAMBADA = 2048, 8 * 2048 + 1, 16
+
+
+def llama_task_argv(init_std, *extra):
+    """tasks.main's model flags of the zeroshot and msdp phases: Llama-2-7B
+    widths at LLAMA_LAUNCH_LAYERS of 32 layers, seq 4096, random weights
+    at the smoke's init std from SEED."""
+    return (f"--model_name llama2 --model_size 7 --num_layers "
+            f"{LLAMA_LAUNCH_LAYERS} --seq_length {ZS_SEQ} "
+            f"--max_position_embeddings {ZS_SEQ} --data_parallel_size 1 "
+            f"--init_method_std {init_std} --seed {SEED} "
+            f"--log_interval 100").split() + list(extra)
+
+
+def fp32_plain(orig):
+    """args_to_configs building fp32 compute with plain attention."""
+    def wrapped(args, vocab, *a, **kw):
+        m, p, tc, d = orig(args, vocab, *a, **kw)
+        return dataclasses.replace(m, compute_dtype=torch.float32,
+                                   use_flash_attn=False,
+                                   use_decode_attn=False), p, tc, d
+    return wrapped
+
+
+def task_model(argv, fp32=False):
+    """The model and initial weights tasks.main builds for `argv`."""
+    from megatron_llm_tpu_torch import arguments, finetune
+
+    args = arguments.build_base_parser().parse_args(argv)
+    tok = build_tokenizer("NullTokenizer", null_vocab_size=31999)
+    to_configs = fp32_plain(arguments.args_to_configs) if fp32 \
+        else arguments.args_to_configs
+    model = finetune.model_provider(args, to_configs(args, tok.vocab_size)[0])
+    return model, model.init(seed=SEED)
+
+
+@torch.no_grad()
+def scored_logits(model, params, data):
+    """Each sample's fp32 logits at its one scored position, the batches
+    as `tasks.zeroshot.evaluate` forms them."""
+    out = []
+    for lo in range(0, len(data), ZS_MICRO):
+        toks = np.zeros((ZS_MICRO, ZS_SEQ + 1), np.int32)
+        chunk = data.tokens[lo:lo + ZS_MICRO]
+        toks[:len(chunk)] = chunk
+        logits, _ = model.forward(params, torch.from_numpy(
+            toks[:, :-1]).cuda())
+        for i in range(len(chunk)):
+            (pos,) = np.nonzero(data.pad_mask[lo + i])
+            out.append(logits[i, int(pos[0])].float())
+    return torch.stack(out)
+
+
+def zeroshot_phase(kernels, init_std):
+    """WIKITEXT103 and LAMBADA through `tasks.main` in bf16 with
+    `--use_flash_attn` (K4) against the same model in fp32 with plain
+    attention; the cloze answers are the fp32 model's own greedy next
+    tokens."""
+    from megatron_llm_tpu_torch import arguments
+    from megatron_llm_tpu_torch.tasks import main as tasks_main
+    from megatron_llm_tpu_torch.tasks.zeroshot.datasets import build_dataset
+
+    shutil.rmtree(ZS_DIR, ignore_errors=True)
+    ZS_DIR.mkdir(parents=True)
+    rs = np.random.RandomState(SEED + 59)
+    tok = build_tokenizer("NullTokenizer", null_vocab_size=31999)
+    wiki = ZS_DIR / "wiki.test.tokens"
+    wiki.write_text(" ".join(map(str, rs.randint(0, 31999, ZS_WIKI_TOKENS))))
+    contexts = [rs.randint(0, 31999, n) for n in
+                rs.randint(64, ZS_SEQ - 96, ZS_LAMBADA)]
+    lambada = ZS_DIR / "lambada.jsonl"
+    # the rows the evaluation forms, an answer yet to be chosen (the
+    # causal forward's logits before it do not read it)
+    lambada.write_text("".join(json.dumps({"text": " ".join(
+        map(str, list(c) + [0]))}) + "\n" for c in contexts))
+    data = build_dataset("LAMBADA", str(lambada), tok, ZS_SEQ)
+    flash = llama_task_argv(init_std, "--use_flash_attn")
+    plain = llama_task_argv(init_std)
+    t0 = time.perf_counter()
+    model, params = task_model(plain, fp32=True)
+    ref = scored_logits(model, params, data)
+    del model, params
+    free_cuda()
+    top2 = torch.topk(ref, 2, dim=1).values
+    answers = ref.argmax(1).cpu().numpy()
+    lambada.write_text("".join(json.dumps({"text": " ".join(
+        map(str, list(c) + [int(a)]))}) + "\n"
+        for c, a in zip(contexts, answers)))
+    targets_s = time.perf_counter() - t0
+
+    runs, launches = {}, 0
+    for task, path, extra in (
+            ("WIKITEXT103", wiki, ["--overlapping_eval", str(ZS_OVERLAP)]),
+            ("LAMBADA", lambada, [])):
+        common = ["--task", task, "--valid_data", str(path),
+                  "--tokenizer_type", "NullTokenizer", "--null_vocab_size",
+                  "31999", "--micro_batch_size", str(ZS_MICRO), *extra]
+        zero_counts()
+        t0 = time.perf_counter()
+        bf16 = tasks_main.main(flash + common)
+        bf16_s = time.perf_counter() - t0
+        counts = kernel_counts()
+        n = -(-(ZS_WIKI_TOKENS - 1 - ZS_OVERLAP) // ZS_OVERLAP) + 1 \
+            if task == "WIKITEXT103" else ZS_LAMBADA
+        forwards = -(-n // ZS_MICRO)
+        check(counts["flash_fwd"] == LLAMA_LAUNCH_LAYERS * forwards
+              and sum(counts.values()) == counts["flash_fwd"],
+              f"{task}: launches {counts}, expected K4 "
+              f"{LLAMA_LAUNCH_LAYERS} x {forwards} forwards")
+        launches += counts["flash_fwd"]
+        free_cuda()
+        zero_counts()
+        t0 = time.perf_counter()
+        with patched(arguments, "args_to_configs", fp32_plain):
+            fp32 = tasks_main.main(plain + common)
+        fp32_s = time.perf_counter() - t0
+        assert_no_launches(f"{task} in fp32")
+        free_cuda()
+        runs[task] = dict(bf16=bf16, fp32=fp32, bf16_s=bf16_s, fp32_s=fp32_s,
+                          windows_or_samples=n, k4_launches=counts["flash_fwd"])
+    wk = runs["WIKITEXT103"]
+    check(abs(wk["bf16"]["avg_loss"] - wk["fp32"]["avg_loss"]) <= PATH_LP_TOL,
+          f"WIKITEXT103 mean loss bf16 {wk['bf16']['avg_loss']} vs fp32 "
+          f"{wk['fp32']['avg_loss']}")
+    lb = runs["LAMBADA"]
+    check(lb["fp32"]["num_correct"] == ZS_LAMBADA,
+          f"LAMBADA fp32 correct {lb['fp32']['num_correct']} of "
+          f"{ZS_LAMBADA}: the targets are its own greedy tokens")
+    # each bf16 verdict against the fp32 one: a flip counts as inside the
+    # bf16 error where the fp32 top-two margin is at most twice the
+    # largest |bf16 - fp32| logit at that position
+    model, params = task_model(flash)
+    got = scored_logits(model, params, build_dataset(
+        "LAMBADA", str(lambada), tok, ZS_SEQ))
+    del model, params
+    free_cuda()
+    err = (got - ref).abs().max(1).values
+    margin = top2[:, 0] - top2[:, 1]
+    flipped = (got.argmax(1).cpu().numpy() != answers)
+    inside = flipped & (margin <= 2 * err).cpu().numpy()
+    check(int(flipped.sum()) == ZS_LAMBADA - lb["bf16"]["num_correct"],
+          f"LAMBADA bf16: {int(flipped.sum())} flips in the smoke's "
+          f"forward, {ZS_LAMBADA - lb['bf16']['num_correct']} in tasks.main")
+    add_launches(kernels, "zeroshot", {"flash_fwd": launches})
+    say("zeroshot", card=nvidia_smi(),
+        config="Llama-2-7B widths (hidden 4096, 32 heads, ffn 11008, seq "
+               "4096) at 4 of 32 layers via tasks.main, random weights",
+        layers=LLAMA_LAUNCH_LAYERS, init_std=init_std, micro_batch=ZS_MICRO,
+        wikitext=dict(tokens=ZS_WIKI_TOKENS, overlapping_eval=ZS_OVERLAP,
+                      **wk,
+                      avg_loss_abs_diff=abs(wk["bf16"]["avg_loss"]
+                                            - wk["fp32"]["avg_loss"])),
+        lambada=dict(samples=ZS_LAMBADA, targets_s=targets_s,
+                     **lb,
+                     verdicts_differing=int(flipped.sum()),
+                     differing_inside_bf16_error=int(inside.sum()),
+                     top2_margin_fp32_min=float(margin.min()),
+                     top2_margin_fp32_median=float(margin.median()),
+                     logit_err_bf16_max=float(err.max())),
+        k4_launches=launches)
+
+
+MSDP_GEN, MSDP_SAMPLES, MSDP_PROMPTS = 32, 4, 8
+MSDP_VOCAB = 32000  # Llama-2's vocabulary size
+
+
+def write_bpe(rs):
+    """A byte-level GPT-2 BPE tokenizer of MSDP_VOCAB entries made from
+    the seed: the 256 bytes, pair merges (printable pairs first, in a
+    seeded order) and <|endoftext|> last: (vocab.json, merges.txt)."""
+    from megatron_llm_tpu_torch.tokenizer.gpt2_bpe import bytes_to_unicode
+
+    chars = [bytes_to_unicode()[b] for b in range(256)]
+    printable = [bytes_to_unicode()[b] for b in range(32, 127)]
+    first = [(a, b) for a in printable for b in printable]
+    first = [first[i] for i in rs.permutation(len(first))]
+    seen = set(first)
+    rest = [(a, b) for a in chars for b in chars if (a, b) not in seen]
+    rest = [rest[i] for i in rs.permutation(len(rest))]
+    pairs = (first + rest)[:MSDP_VOCAB - 257]
+    vocab = {c: i for i, c in enumerate(chars)}
+    for a, b in pairs:
+        vocab[a + b] = len(vocab)
+    vocab["<|endoftext|>"] = len(vocab)
+    check(len(vocab) == MSDP_VOCAB, f"BPE vocabulary {len(vocab)}")
+    vf, mf = ZS_DIR / "vocab.json", ZS_DIR / "merges.txt"
+    vf.write_text(json.dumps(vocab))
+    mf.write_text("#version: 0.2\n" + "".join(f"{a} {b}\n"
+                                             for a, b in pairs))
+    return str(vf), str(mf)
+
+
+def write_msdp_data(rs):
+    """MSDP's files in preprocessing.py's layouts, from seeded words:
+    the test file, its knowledge reference, knowledge prompts (8
+    instances a test key) and response prompts."""
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    words = ["".join(rs.choice(letters, rs.randint(2, 9)))
+             for _ in range(400)]
+
+    def sent(lo, hi):
+        return " ".join(rs.choice(words, rs.randint(lo, hi)))
+
+    topics = [sent(1, 3).title() for _ in range(MSDP_SAMPLES)]
+    rows = [(t, f"{sent(4, 12)}. [SEP] {sent(4, 12)}.", f"{t} {sent(6, 16)}",
+             sent(6, 14) + ".") for t in topics]
+    test, ref = ZS_DIR / "msdp_test.txt", ZS_DIR / "msdp_knowledge_ref.txt"
+    test.write_text("".join("\t".join(r) + "\n" for r in rows))
+    ref.write_text("".join(r[2] + "\n" for r in rows))
+    knwl = ZS_DIR / "msdp_knowledge_prompts.jsonl"
+    knwl.write_text("".join(json.dumps({
+        f"{t} {ctx.split(' [SEP] ')[-1]}": [
+            f"( {sent(4, 12)}. ) {t} => {t} {sent(6, 16)}"
+            for _ in range(MSDP_PROMPTS)]}) + "\n"
+        for t, ctx, _, _ in rows))
+    resp = ZS_DIR / "msdp_response_prompts.txt"
+    resp.write_text("".join(
+        f"Topic: {sent(1, 3)}. User says: {sent(4, 12)} . We know that: "
+        f"{sent(6, 16)} . System replies: {sent(6, 14)} .\n"
+        for _ in range(2 * MSDP_PROMPTS)))
+    return test, ref, knwl, resp
+
+
+def msdp_phase(kernels, init_std):
+    """MSDP-PROMPT (knowledge, then response) and MSDP-EVAL-F1 through
+    `tasks.main` at Llama-2-7B widths: K1 counted on the whole-batch
+    decode, each greedy stream teacher-forced through the fp32 plain
+    model."""
+    from megatron_llm_tpu_torch.inference import api
+    from megatron_llm_tpu_torch.tasks import main as tasks_main
+
+    ZS_DIR.mkdir(parents=True, exist_ok=True)
+    rs = np.random.RandomState(SEED + 61)
+    vf, mf = write_bpe(rs)
+    test, ref, knwl, resp = write_msdp_data(rs)
+    argv = llama_task_argv(init_std, "--tokenizer_type", "GPT2BPETokenizer",
+                           "--vocab_file", vf, "--merges_file", mf,
+                           "--micro_batch_size", "1", "--out_seq_length",
+                           str(MSDP_GEN), "--num_prompt_examples",
+                           str(2 * MSDP_PROMPTS))
+    out, k1 = {}, 0
+    for kind, prompts in (("knowledge", knwl), ("response", resp)):
+        seen = []
+
+        def record(orig):
+            def wrapped(model, params, tokenizer, prompts, **kw):
+                texts, segs, lp, toks = orig(
+                    model, params, tokenizer, prompts,
+                    **dict(kw, return_output_log_probs=True))
+                seen.append((model, params, tokenizer.eod,
+                             tokenizer.tokenize(prompts[0]), toks[0], lp[0]))
+                return texts, segs, lp, toks
+            return wrapped
+
+        guess = ZS_DIR / f"msdp_{kind}_out.txt"
+        zero_counts()
+        decode_log.clear()
+        t0 = time.perf_counter()
+        with patched(api, "generate_and_post_process", record):
+            tasks_main.main(argv + [
+                "--task", "MSDP-PROMPT", "--sample_input_file", str(test),
+                "--sample_output_file", str(guess), "--prompt_file",
+                str(prompts), "--prompt_type", kind])
+        wall = time.perf_counter() - t0
+        steps = sum(r["steps"] + r["warmup_steps"] for r in decode_log)
+        launches = dec.decode_attention.launches
+        check(len(seen) == MSDP_SAMPLES and steps > 0
+              and launches == LLAMA_LAUNCH_LAYERS * steps,
+              f"MSDP {kind}: K1 {launches} != {LLAMA_LAUNCH_LAYERS} x "
+              f"{steps} decode steps over {len(seen)} requests")
+        k1 += launches
+        model, params = seen[0][:2]
+        plain = LlamaModel(dataclasses.replace(
+            model.cfg, compute_dtype=torch.float32, use_decode_attn=False,
+            use_flash_attn=False, use_fused_rmsnorm=False))
+        greedy = []
+        for _, _, eod, prompt, toks, lp in seen:
+            gen = list(toks[len(prompt):len(prompt) + MSDP_GEN])
+            n = len(prompt) + (gen.index(eod) + 1 if eod in gen else MSDP_GEN)
+            greedy.append((None, prompt, [int(t) for t in toks[:n]],
+                           lp[:n - 1]))
+        err, match = teacher_forced(plain, params, greedy)
+        check(err <= PATH_LP_TOL, f"MSDP {kind}: the greedy streams' "
+              f"log-probs {err} from the fp32 plain model's")
+        # one line a sample (a completion may hold other line breaks,
+        # which str.splitlines would count)
+        lines = guess.read_bytes().split(b"\n")
+        check(len(lines) == MSDP_SAMPLES + 1 and not lines[-1],
+              f"MSDP {kind} output {lines}")
+        out[kind] = dict(wall_s=wall, k1_launches=launches,
+                         decode_steps=steps, prompt_tokens=[
+                             len(g[1]) for g in greedy],
+                         generated=[len(g[2]) - len(g[1]) for g in greedy],
+                         logprob_max_abs_err_fp32=err,
+                         greedy_match_fp32=match)
+        del seen, greedy, model, params, plain
+        free_cuda()
+    p, r, f1 = tasks_main.main(["--task", "MSDP-EVAL-F1", "--guess_file",
+                                str(ZS_DIR / "msdp_knowledge_out.txt"),
+                                "--answer_file", str(ref)])
+    add_launches(kernels, "msdp", {"decode_attention": k1})
+    say("msdp", card=nvidia_smi(),
+        config="Llama-2-7B widths at 4 of 32 layers via tasks.main, random "
+               "weights, a seeded byte-level BPE of 32000 entries",
+        init_std=init_std, samples=MSDP_SAMPLES, out_seq_length=MSDP_GEN,
+        **out, eval_f1=dict(precision=p, recall=r, f1=f1), k1_launches=k1)
+    shutil.rmtree(ZS_DIR)
 
 
 def _leaves(tree):
@@ -7682,6 +8305,10 @@ def smoke(args) -> int:
     timed("kernel_time_flash_tp2", time_flash_tp2, kernels)
     timed("kernel_time_decode_ring", time_decode_ring, kernels)
     timed("kernel_time_flash_cp_hops", time_flash_cp_hops, kernels)
+    # K4's and K1's downstream paths, while paged_attention.cu compiles
+    timed("zeroshot", zeroshot_phase, kernels, args.init_std)
+    timed("msdp", msdp_phase, kernels, args.init_std)
+    free_cuda()
     timed("build_wait_paged", await_builds, builds, "paged_attention.cu",
           "paged_attention_tc.cu")
     seconds["build"] = max(v for k, v in builds["seconds"].items()
@@ -7750,7 +8377,8 @@ def smoke(args) -> int:
     enc = timed("encoder_data", encoder_data)
     timed("bert", bert_phase, kernels, enc)
     timed("t5", t5_phase, kernels, enc)
-    timed("ict", ict_phase, kernels, enc)
+    ict_ck = timed("ict", ict_phase, kernels, enc)
+    timed("retrieval", retrieval_phase, kernels, enc, ict_ck)
     shutil.rmtree(BERT_DIR)
     say("phase_seconds", card=smi, **seconds,
         total_s=round(time.perf_counter() - t_start, 1))

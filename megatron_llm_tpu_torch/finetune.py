@@ -9,7 +9,9 @@ finetune.py).
 
 The same flags as the JAX package's entry point (`arguments.py`). It
 runs on the first CUDA card; `main(argv, device="cpu")` runs on the CPU
-(the tests do). BERT and T5 raise, naming their slice.
+(the tests do). `--model_name bert` or `t5` exits, naming the entries
+that pretrain them (`pretrain_bert`, `pretrain_t5`) and finetune BERT
+(`tasks.main`).
 
 Under torchrun it trains with tensor, sequence, data, pipeline and
 context parallelism and the ZeRO-1 optimizer (the fine-tuning recipe's
@@ -52,10 +54,16 @@ def model_provider(args, mcfg, device="cuda"):
         return LlamaModel(mcfg, device=device)
     if args.model_name == "falcon":
         return FalconModel(mcfg, device=device)
-    if args.model_name == "gpt":
-        return GPTModel(mcfg, device=device)
-    raise ValueError(f"--model_name {args.model_name} is not ported yet "
-                     f"(the remaining model families, ROADMAP.md A6)")
+    if args.model_name in ("bert", "t5"):
+        # this entry's trainer feeds GPT batches from GPT token streams;
+        # the encoder family has entries of its own (JAX :30-39)
+        raise SystemExit(
+            f"--model_name {args.model_name}: to PRETRAIN use "
+            f"megatron_llm_tpu_torch.pretrain_{args.model_name} "
+            "(masked-LM/span-corruption data + matching batch builder); to "
+            "FINETUNE a pretrained encoder on GLUE/RACE use "
+            "megatron_llm_tpu_torch.tasks.main")
+    return GPTModel(mcfg, device=device)
 
 
 def main(argv=None, device="cuda"):

@@ -1,6 +1,20 @@
-"""Downstream-task entry point (port of tasks/main.py): classification
-finetuning of the BERT encoder with a task head, an epoch loop with
-validation accuracy after every epoch.
+"""Downstream-task entry point (port of tasks/main.py), the JAX entry's
+ten tasks:
+
+- MNLI, QQP and RACE: classification finetuning of the BERT encoder
+  with a task head, an epoch loop with validation accuracy after every
+  epoch;
+- WIKITEXT103 and LAMBADA: zero-shot perplexity and cloze accuracy of
+  a GPT-family model (`--model_name`), its forward unmasked, so flash
+  attention (K4) under `--use_flash_attn`;
+- MSDP-PROMPT: greedy knowledge or response generation through the
+  whole-batch API (its decode attention K1); MSDP-EVAL-F1: F1 of a
+  guess file against an answer file, no model;
+- RETRIEVER-EVAL and ICT-ZEROSHOT-NQ: a biencoder's top-k retrieval
+  accuracy on NQ over an evidence TSV, embedded on the fly or read from
+  a prebuilt store (`--embedding_path`,
+  tools/build_retrieval_index.py); RET-FINETUNE-NQ: supervised
+  biencoder finetuning on DPR-format json.
 
     python -m megatron_llm_tpu_torch.tasks.main --task MNLI \\
         --train_data train.tsv --valid_data dev_matched.tsv \\
@@ -9,17 +23,18 @@ validation accuracy after every epoch.
         --hidden_size 1024 --num_attention_heads 16 --seq_length 512 \\
         --micro_batch_size 4 --epochs 3 --lr 5e-5 --bf16
 
-(QQP and RACE likewise). The parser is the JAX entry's: the base flags
-and `get_tasks_args`. It runs on the first CUDA card; `main(argv,
-device="cpu")` runs on the CPU (the tests do). The encoder's weights
-come from a BERT pretraining checkpoint (`--pretrained_checkpoint`, or
-`--load`), the subtrees both trees hold merged in, the task head fresh
-(JAX :127-158); without one the model starts from its random init.
+    python -m megatron_llm_tpu_torch.tasks.main --task WIKITEXT103 \\
+        --valid_data wiki.test.tokens --model_name llama2 --load ckpt \\
+        --tokenizer_type GPT2BPETokenizer --vocab_file vocab.json \\
+        --merges_file merges.txt --use_flash_attn --bf16
 
-The tasks of later slices raise by name: WIKITEXT103, LAMBADA and the
-MSDP tasks (the zero-shot and MSDP tasks) and RETRIEVER-EVAL,
-ICT-ZEROSHOT-NQ and RET-FINETUNE-NQ (the ICT/retrieval stack), both in
-ROADMAP.md A6. So does the encoder at tp, SP or dp above 1.
+The parser is the JAX entry's: the base flags and `get_tasks_args`. It
+runs on the first CUDA card; `main(argv, device="cpu")` runs on the CPU
+(the tests do). Every task runs on one card: the encoder at tp, SP or dp
+above 1 raises by name (ROADMAP.md A6.4), and so does a GPT-family task
+at world size above 1. A task refuses an argv where the JAX entry does,
+naming the same missing flag. Without `--load` (or
+`--pretrained_checkpoint`) the model starts from its random init.
 """
 
 from __future__ import annotations
@@ -27,19 +42,6 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-
-LATER_TASKS = {
-    "WIKITEXT103": "the zero-shot and MSDP tasks (ROADMAP.md A6)",
-    "LAMBADA": "the zero-shot and MSDP tasks (ROADMAP.md A6)",
-    "MSDP-PROMPT": "the zero-shot and MSDP tasks (ROADMAP.md A6)",
-    "MSDP-EVAL-F1": "the zero-shot and MSDP tasks (ROADMAP.md A6)",
-    "RETRIEVER-EVAL": "the ICT/biencoder/ORQA retrieval stack "
-                      "(ROADMAP.md A6)",
-    "ICT-ZEROSHOT-NQ": "the ICT/biencoder/ORQA retrieval stack "
-                       "(ROADMAP.md A6)",
-    "RET-FINETUNE-NQ": "the ICT/biencoder/ORQA retrieval stack "
-                       "(ROADMAP.md A6)",
-}
 
 
 def get_tasks_args(parser):
@@ -81,6 +83,17 @@ def get_tasks_args(parser):
     return parser
 
 
+def _tokenizer(args, default_type):
+    from megatron_llm_tpu_torch.tokenizer import build_tokenizer
+
+    return build_tokenizer(
+        args.tokenizer_type or default_type, vocab_file=args.vocab_file,
+        merges_file=args.merges_file, tokenizer_model=args.tokenizer_model,
+        make_vocab_size_divisible_by=args.make_vocab_size_divisible_by,
+        tensor_parallel_size=args.tensor_model_parallel_size,
+        null_vocab_size=args.null_vocab_size)
+
+
 def load_pretrained_encoder(path: str, mcfg, device) -> dict:
     """The parameter tree of the newest complete checkpoint in `path`, a
     BERT pretraining save with or without its binary head (the files
@@ -113,13 +126,8 @@ def finetune_main(args, device, losses=None):
         accuracy,
         finetune,
     )
-    from megatron_llm_tpu_torch.tokenizer import build_tokenizer
 
-    tokenizer = build_tokenizer(
-        args.tokenizer_type or "BertWordPieceLowerCase",
-        vocab_file=args.vocab_file,
-        make_vocab_size_divisible_by=args.make_vocab_size_divisible_by,
-        tensor_parallel_size=args.tensor_model_parallel_size)
+    tokenizer = _tokenizer(args, "BertWordPieceLowerCase")
     args.model_name = "bert"
     mcfg, pcfg, tcfg, _ = args_to_configs(args, tokenizer.vocab_size)
     mcfg = dataclasses.replace(mcfg, add_binary_head=False)
@@ -177,20 +185,201 @@ def finetune_main(args, device, losses=None):
     return params, best, final
 
 
+def _biencoder(args, device, what, checkpoint):
+    """(model, params, tokenizer, tcfg) of the retrieval tasks: BERT
+    towers from the base flags, the weights of `checkpoint`'s newest
+    save, or the random init without one."""
+    from megatron_llm_tpu_torch.arguments import args_to_configs
+    from megatron_llm_tpu_torch.models.biencoder import BiEncoderModel
+    from megatron_llm_tpu_torch.pretrain_bert import check_single_card
+
+    tokenizer = _tokenizer(args, "BertWordPieceLowerCase")
+    args.model_name = "bert"
+    mcfg, pcfg, tcfg, _ = args_to_configs(args, tokenizer.vocab_size)
+    mcfg = dataclasses.replace(mcfg, add_binary_head=False)
+    check_single_card(pcfg, what)
+    model = BiEncoderModel(
+        mcfg, projection_dim=args.biencoder_projection_dim,
+        shared_query_context_model=args.biencoder_shared_query_context_model,
+        device=device)
+    if not checkpoint:
+        return model, model.init(seed=tcfg.seed), tokenizer, tcfg
+    from megatron_llm_tpu_torch.training.checkpointing import (
+        load_checkpoint,
+    )
+
+    restored = load_checkpoint(checkpoint, model.abstract_params(), None,
+                               None, finetune=True, no_load_optim=True,
+                               device=device)
+    if restored is None:
+        raise FileNotFoundError(f"no checkpoint found in {checkpoint}")
+    return model, restored[0], tokenizer, tcfg
+
+
+def retriever_eval_main(args, device):
+    """RETRIEVER-EVAL and ICT-ZEROSHOT-NQ (JAX :186-250): the evidence
+    embedded by the context tower (or read from `--embedding_path`), the
+    questions by the query tower, the top-k hit rates printed. Returns
+    (the evaluator, {split: (rates, stats)})."""
+    from megatron_llm_tpu_torch.tasks.orqa.evaluate import (
+        ORQAEvaluator,
+        read_evidence_tsv,
+    )
+
+    if not args.evidence_data_path:
+        raise SystemExit("--evidence_data_path is required")
+    if not (args.qa_data_dev or args.qa_data_test):
+        raise SystemExit("--qa_data_dev and/or --qa_data_test is required")
+    model, params, tokenizer, _ = _biencoder(args, device, args.task,
+                                             args.load)
+    evaluator = ORQAEvaluator(model, params, tokenizer,
+                              seq_length=args.retriever_seq_length,
+                              batch_size=args.micro_batch_size)
+    docs = read_evidence_tsv(args.evidence_data_path)
+    if args.embedding_path:
+        print(f" > loading prebuilt index {args.embedding_path} ...",
+              flush=True)
+        evaluator.load_index(docs, args.embedding_path)
+    else:
+        print(f" > embedding {len(docs)} evidence blocks ...", flush=True)
+        evaluator.build_index(docs)
+    results = {}
+    for split, path in (("DEV", args.qa_data_dev),
+                        ("TEST", args.qa_data_test)):
+        if path:
+            results[split] = evaluator.evaluate(
+                path, split, topk=args.retriever_topk,
+                match_type=args.match)
+    return evaluator, results
+
+
+def retriever_finetune_main(args, device, losses=None):
+    """RET-FINETUNE-NQ (JAX :252-317): supervised biencoder finetuning
+    from a biencoder checkpoint (`--pretrained_checkpoint`, or `--load`);
+    returns the trained params."""
+    from megatron_llm_tpu_torch.tasks.orqa.supervised import (
+        OpenRetrievalDataset,
+        finetune_retriever,
+    )
+
+    if not args.train_data:
+        raise SystemExit("--train_data (DPR-format json) is required")
+    # --load is the generic flag: an alias of --pretrained_checkpoint
+    model, params, tokenizer, tcfg = _biencoder(
+        args, device, args.task, args.pretrained_checkpoint or args.load)
+    train_ds = OpenRetrievalDataset(
+        args.train_data[0], tokenizer,
+        max_seq_length=args.retriever_seq_length,
+        use_hard_negatives=args.use_hard_negatives, seed=tcfg.seed)
+    valid_ds = (OpenRetrievalDataset(
+        args.valid_data[0], tokenizer,
+        max_seq_length=args.retriever_seq_length, seed=tcfg.seed)
+        if args.valid_data else None)
+    params = finetune_retriever(
+        model, params, train_ds, valid_ds, epochs=args.epochs,
+        batch_size=args.micro_batch_size, lr=tcfg.lr,
+        use_hard_negatives=args.use_hard_negatives, seed=tcfg.seed,
+        log_interval=args.log_interval, losses=losses)
+    if args.save:
+        from megatron_llm_tpu_torch.training.checkpointing import (
+            save_checkpoint,
+        )
+
+        save_checkpoint(args.save, 0, params, None, model.cfg)
+        print(f"saved finetuned retriever to {args.save}", flush=True)
+    return params
+
+
+def lm_main(args, device):
+    """WIKITEXT103, LAMBADA and MSDP-PROMPT (JAX :346-410) on the model of
+    `--model_name`: its tokenizer (NullTokenizer by default), its random
+    init or `--load`. Returns the zero-shot metrics dict, or the
+    MSDP-PROMPT output file."""
+    from megatron_llm_tpu_torch.arguments import args_to_configs
+    from megatron_llm_tpu_torch.finetune import model_provider
+    from megatron_llm_tpu_torch.training.checkpointing import (
+        load_checkpoint,
+    )
+
+    if args.task == "MSDP-PROMPT":
+        if not (args.sample_input_file and args.sample_output_file
+                and args.prompt_file and args.prompt_type):
+            raise SystemExit(
+                "MSDP-PROMPT needs --sample_input_file, "
+                "--sample_output_file, --prompt_file, --prompt_type")
+    elif not (args.valid_data and len(args.valid_data) == 1):
+        raise SystemExit("--valid_data takes exactly one path")
+    tokenizer = _tokenizer(args, "NullTokenizer")
+    mcfg, pcfg, tcfg, _ = args_to_configs(args, tokenizer.vocab_size)
+    if pcfg.world_size != 1:
+        raise ValueError(f"--task {args.task} at world size "
+                         f"{pcfg.world_size}: this port runs it on one "
+                         f"card")
+    model = model_provider(args, mcfg, device=device)
+    if args.load:
+        restored = load_checkpoint(args.load, model.abstract_params(), None,
+                                   mcfg, no_load_optim=True, device=device)
+        if restored is None:
+            raise FileNotFoundError(f"no checkpoint found in {args.load}")
+        params = restored[0]
+    else:
+        params = model.init(seed=tcfg.seed)
+
+    if args.task == "MSDP-PROMPT":
+        from megatron_llm_tpu_torch.tasks.msdp.prompt import (
+            main as msdp_prompt_main,
+        )
+
+        return msdp_prompt_main(args, model=model, params=params,
+                                tokenizer=tokenizer)
+
+    from megatron_llm_tpu_torch.tasks.zeroshot.datasets import build_dataset
+    from megatron_llm_tpu_torch.tasks.zeroshot.evaluate import (
+        evaluate_and_print_results,
+    )
+
+    data = build_dataset(
+        args.task, args.valid_data[0], tokenizer, mcfg.seq_length,
+        overlapping_eval=args.overlapping_eval,
+        strict_lambada=args.strict_lambada)
+    print(f" > found {len(data)} samples.")
+    return evaluate_and_print_results(
+        args.task, model, params, data,
+        micro_batch_size=args.eval_micro_batch_size or args.micro_batch_size,
+        log_interval=args.log_interval)
+
+
 def main(argv=None, device="cuda", losses=None):
     """Parse `argv` (sys.argv when None) and run the task; returns what
-    `finetune_main` returns. `losses`, a list, receives each finetuning
-    step's loss."""
+    the task's function returns (`finetune_main`, `retriever_eval_main`,
+    `retriever_finetune_main`, `lm_main`; MSDP-EVAL-F1 its (precision,
+    recall, f1)). `losses`, a list, receives each finetuning step's
+    loss (RET-FINETUNE-NQ: its (loss, in-batch top-1))."""
     from megatron_llm_tpu_torch.arguments import build_base_parser
 
     if torch.device(device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError("tasks.main: no CUDA device (call "
                            "main(argv, device='cpu') to run on the CPU)")
     args = get_tasks_args(build_base_parser()).parse_args(argv)
-    if args.task in LATER_TASKS:
-        raise ValueError(f"--task {args.task} is not ported yet "
-                         f"({LATER_TASKS[args.task]})")
-    out = finetune_main(args, torch.device(device), losses)
+    device = torch.device(device)
+    if args.task in ("MNLI", "QQP", "RACE"):
+        out = finetune_main(args, device, losses)
+    elif args.task == "MSDP-EVAL-F1":
+        # a file-against-file metric, no model
+        if not (args.guess_file and args.answer_file):
+            raise SystemExit(
+                "MSDP-EVAL-F1 needs --guess_file and --answer_file")
+        from megatron_llm_tpu_torch.tasks.msdp.evaluate import (
+            main as msdp_eval_main,
+        )
+
+        out = msdp_eval_main(args)
+    elif args.task in ("RETRIEVER-EVAL", "ICT-ZEROSHOT-NQ"):
+        out = retriever_eval_main(args, device)
+    elif args.task == "RET-FINETUNE-NQ":
+        out = retriever_finetune_main(args, device, losses)
+    else:
+        out = lm_main(args, device)
     print("done :-)")
     return out
 

@@ -39,6 +39,16 @@ from megatron_llm_tpu_torch.data.dataset_utils import (
 from megatron_llm_tpu_torch.pretrain_bert import BERT_KEYS
 from megatron_llm_tpu_torch.tokenizer import build_tokenizer
 
+from torch_parity import jax_native_helpers
+
+
+@pytest.fixture(autouse=True)
+def _jax_helpers_loaded():
+    """The JAX native helpers loaded in this worker, where a concurrent
+    rebuild of a stale library left a failed load behind
+    (torch_parity.jax_native_helpers)."""
+    jax_native_helpers()
+
 
 def sentence_corpus(seed, n_docs=120, long_every=0):
     rs = np.random.RandomState(seed)

@@ -240,6 +240,22 @@ def test_later_slice_flags_raise_by_name(flags, slice_name):
         arguments.args_to_configs(args, 32000)
 
 
+@pytest.mark.parametrize("name", ["bert", "t5"])
+def test_encoder_model_names_exit_naming_their_entries(name):
+    """`--model_name bert` / `t5` exit as the JAX entry does, naming the
+    port's pretraining entry and tasks.main."""
+    argv = f"--model_name {name} --num_layers 2".split()
+    with pytest.raises(SystemExit, match=rf"pretrain_{name}\.py.*"
+                                         r"tasks/main\.py"):
+        _jax_finetune().model_provider(
+            jax_args.build_base_parser().parse_args(argv), None)
+    args = arguments.build_base_parser().parse_args(argv)
+    with pytest.raises(SystemExit,
+                       match=rf"megatron_llm_tpu_torch\.pretrain_{name} .*"
+                             r"megatron_llm_tpu_torch\.tasks\.main"):
+        finetune.model_provider(args, None, device="cpu")
+
+
 TELEMETRY = ("--tensorboard_dir /tmp/tb --tensorboard_log_interval 2 "
              "--tensorboard_queue_size 7 --log_timers_to_tensorboard "
              "--log_validation_ppl_to_tensorboard "

@@ -35,6 +35,7 @@ from megatron_llm_tpu_torch.models import (
     LlamaModel,
     T5Model,
 )
+from megatron_llm_tpu_torch.data.realm_index import MIPSIndex
 from megatron_llm_tpu_torch.models.biencoder import BiEncoderModel
 from megatron_llm_tpu_torch.models.language_model import (
     init_language_model_params,
@@ -51,6 +52,7 @@ from megatron_llm_tpu_torch.parallel.mesh import (
     serving_context,
 )
 from megatron_llm_tpu_torch.tools import (
+    build_retrieval_index,
     pipeline_memory_table,
     run_text_generation_server,
 )
@@ -139,6 +141,8 @@ def test_no_jax_import_in_source(path):
     (pretrain_ict.main, "device"),
     (T5Model.__init__, "device"),
     (BiEncoderModel.__init__, "device"),
+    (MIPSIndex.__init__, "device"),
+    (build_retrieval_index.main, "device"),
 ])
 def test_entry_points_default_to_cuda(fn, arg):
     fn = getattr(fn, "__wrapped__", fn)
@@ -153,6 +157,21 @@ def test_finetune_main_without_a_card_raises():
     assert not torch.cuda.is_available()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         finetune.main(["--model_name", "llama2", "--num_layers", "2"])
+
+
+@pytest.mark.parametrize("argv", [
+    ["--task", "WIKITEXT103", "--valid_data", "wiki.test.tokens"],
+    ["--task", "MSDP-EVAL-F1", "--guess_file", "g", "--answer_file", "a"],
+    ["--task", "RETRIEVER-EVAL", "--evidence_data_path", "e.tsv"],
+])
+def test_downstream_entries_without_a_card_raise(argv):
+    """`tasks.main` and the index builder on their default device need
+    a card: here they raise before they read anything."""
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        tasks_main.main(argv)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_retrieval_index.main(["--evidence_data_path", "e.tsv",
+                                    "--embedding_path", "x.npz"])
 
 
 @pytest.mark.parametrize("entry", [pretrain_t5, pretrain_ict])

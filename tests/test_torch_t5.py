@@ -65,7 +65,7 @@ from megatron_llm_tpu_torch.training.checkpointing import (
 )
 from megatron_llm_tpu_torch.training.trainer import Trainer
 
-from torch_parity import close, t
+from torch_parity import close, jax_native_helpers, t
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -75,6 +75,14 @@ TINY = dict(num_layers=2, hidden_size=64, num_attention_heads=4,
             hidden_dropout=0.0, attention_dropout=0.0)
 B, SE, SD = 3, 24, 12
 POLICIES = ("none", "full", "selective", "save_dots", "offload")
+
+
+@pytest.fixture(autouse=True)
+def _jax_helpers_loaded():
+    """The JAX native helpers loaded in this worker, where a concurrent
+    rebuild of a stale library left a failed load behind
+    (torch_parity.jax_native_helpers)."""
+    jax_native_helpers()
 
 
 def cfgs(**kw):

@@ -3,6 +3,7 @@ the tiny GQA Llama of the serving drive, built once per process in both
 packages on the same weights (JAX init -> numpy -> the port's bridge)."""
 
 import functools
+import time
 
 import jax
 import jax.numpy as jnp
@@ -59,3 +60,23 @@ def close(a, b, tol, msg=""):
                                np.asarray(b, np.float64),
                                rtol=0, atol=tol, err_msg=msg)
 
+
+
+def jax_native_helpers():
+    """The JAX package's native dataset helpers, loaded in this process.
+    Its loader rebuilds a `_helpers.so` older than its source in place
+    with g++ and remembers a failed load for the process: a worker that
+    reads the file while another worker's g++ is writing it (every
+    worker of a fresh checkout finds it stale) gets None, and each later
+    `build_mapping` or `build_blocks_mapping` in that worker asserts. Load
+    it again until the writers are done."""
+    from megatron_llm_tpu.data import helpers
+
+    deadline = time.monotonic() + 300
+    while helpers._load() is None:
+        if time.monotonic() > deadline:
+            raise RuntimeError("the JAX package's native helpers did not "
+                               "load within 300 s")
+        time.sleep(0.5)
+        helpers._TRIED = False
+    return helpers._LIB
