@@ -55,9 +55,9 @@ Phases, one output line each (a failure raises and exits non-zero):
    score-only request's no-cache forward);
 6. path check: the greedy output teacher-forced back through the same
    cached decode path with the kernels off (plain RMSNorm, plain decode
-   attention) on the card; log-probs within 5e-2 max-abs. Greedy tokens
-   are not required to match (a random-init 7B has near-flat logits, so
-   argmax flips on bf16 rounding): their match fraction is printed;
+   attention) on the card; log-probs within 5e-2 max-abs (greedy tokens
+   need not match: a random-init 7B has near-flat logits, so argmax
+   flips on bf16 rounding);
 7. throughput of the greedy batch: prefill ms, the call's capture
    seconds, decode ms per step, the card's ms per decode forward beside
    the weight-streaming floor, tokens/s, and, from the same call run
@@ -109,9 +109,8 @@ Phases, one output line each (a failure raises and exits non-zero):
    design; the outputs re-scored teacher-forced on a kernels-off int8
    engine within 5e-2; printed: drift against the bf16 engine, pool bytes
    per token, tokens/s, ms per decode advance, the device ms of a decode
-   step and of a mixed round's forward (and K7's part), with K7's tc
-   design and, in the same call, with every launch forced to the present
-   design;
+   step and of a mixed round's forward (and K7's part) with K7's tc
+   design, the one the path runs;
 12. serving_engine_window: the 7B's first 2 of 32 layers (WINDOW_LAYERS)
    with `attention_window_size=1024`, max_context 4096, 12 requests (8
    reaching 1564-3128 positions) queued and drained in a pool of 8 x 21
@@ -237,13 +236,14 @@ Phases, one output line each (a failure raises and exits non-zero):
    `--log_memory_to_tensorboard` and a profile window over step 5; K is
    R without them, with --exit_signal_handler, `--flight_record_dir` and
    a SIGTERM after step 3, so it makes its emergency save at 3, dumps its
-   flight record and returns; C loads K and trains steps 4-6.
+   flight record and returns; C loads K and trains steps 4-6, with no
+   save.
    The counters are set to 0 before each run and read after it: K4, K5
    and K6 run exactly the launches the code implies (eval forwards
    included), K1, K2, K3 and K7 never. C resumes at iteration 3 with 12
-   samples consumed, its losses equal R's bit for bit and its final
-   checkpoint R's leaf by leaf (telemetry on trains the bits telemetry
-   off does); R's event file, read back by the port's reader with its
+   samples consumed, its losses equal R's bit for bit and its final state
+   R's final checkpoint leaf by leaf (telemetry on trains the bits
+   telemetry off does); R's event file, read back by the port's reader with its
    CRCs, holds lm-loss at steps 1-6 equal to R's losses, its span trace
    a train-step span a step, its profile window K4-K6 by kernel name;
    K's SIGTERM dump loads with its goodput snapshot; the g++ sample
@@ -297,9 +297,21 @@ Phases, one output line each (a failure raises and exits non-zero):
    Printed: per-rank peak memory and their sum, the backend and the
    staging, ms a step labelled as gloo through the host on one shared
    card, each rank's save and commit seconds and rank 0's host RSS
-   before the save and its peak after the commit. Also, after the kernel
+   before the save and its peak after the commit. Then the same four
+   ranks run encoder_parallel's entries (phase 20b). Also, after the kernel
    checks, kernel_time_flash_tp2: K4-K6 at a tp 2 rank's attention
    shape (g 16) beside SDPA and their plain versions, within 2e-2;
+20b. encoder_parallel: phase 20's four ranks then run
+   `pretrain_bert.main` (BERT-large widths), `pretrain_t5.main`
+   (T5-base) and `pretrain_ict.main` (BERT-base towers, separate) at
+   2 layers (a side), 1 step each, at tp 2 x dp 2 with sequence
+   parallelism and ZeRO-1, dropout on, bf16, on phase 23's vocabulary
+   and corpus (written before phase 20); this process runs each at world
+   size 1 with the same depth, weights, global batch (one microbatch)
+   and seed: losses within 2e-2 and grad norms within 5e-2, every rank
+   the same, K1-K7 launched on no rank. Printed with the card's name and
+   power limit: ms a step on each rank (gloo through the host, one card
+   shared), per-rank peak memory, ICT's loss beside ln 32;
 21. pipeline: `torchrun --nproc_per_node 2` runs `finetune.main` at pp 2
    (`--pipeline_model_parallel_size 2 --pipeline_remat tick
    --async_pipeline_dispatch`: each tick's next receive posted before
@@ -355,7 +367,8 @@ Phases, one output line each (a failure raises and exits non-zero):
    2048 and 8192, causal and full) beside SDPA and the bound, o, lse,
    dq, dk and dv within 2e-2 of their plain versions (run a few KV
    groups at a time) at each;
-23. bert (the encoder family, last): a synthetic WordPiece vocabulary
+23. bert (the encoder family, last; its inputs made before phase 20):
+   a synthetic WordPiece vocabulary
    of 30522 entries (the specials, words and ## pieces; padded to
    30592) and a synthetic corpus of 200 documents through the port's
    `preprocess_data --split_sentences --tokenizer_type
@@ -1856,20 +1869,13 @@ def serve_whole_batch(kernels, cfg, model, params, weight_bytes):
     forced = forced.log_probs.cpu().numpy()
     err = max(np.abs(forced[i, :n - 1] - lp[i, :n - 1]).max()
               for i, n in enumerate(n_out))
-    # greedy tokens of the kernels-off path from the same prompts
     toks0, lens0 = tokenize_prompts(tok, prompts, 64)
-    off = generate_tokens(plain, params, toks0, lens0, **kw).tokens
-    off = off.cpu().numpy()
-    match = sum(int((off[i, n:m] == buf[i, n:m]).sum())
-                for i, (n, m) in enumerate(zip(lens, n_out)))
     # for information: the no-cache full forward (other GEMM shapes, so
     # other bf16 rounding) against the served log-probs
     full = score_tokens(plain, params, buf[:, :max(n_out)]).cpu().numpy()
     full_err = max(np.abs(full[i, :n - 1] - lp[i, :n - 1]).max()
                    for i, n in enumerate(n_out))
     say("path_check", max_abs_logprob_err=float(err), tol=PATH_LP_TOL,
-        greedy_token_match_fraction=match / sum(m - n for n, m in
-                                                zip(lens, n_out)),
         full_forward_max_abs_logprob_err=float(full_err))
     check(err <= PATH_LP_TOL, f"re-scored logprobs {err}")
 
@@ -2081,19 +2087,6 @@ def check_outputs(traffic, run, tok):
                   f"{name}: logprobs")
             scored.append((name, prompt, out, lp))
     return generated, scored
-
-
-@contextlib.contextmanager
-def forced_paged_design(design):
-    """Every K7 launch inside runs `design`: a measurement of the other
-    design on the same path in the same call, made after the path's own
-    run and launch check, never in them."""
-    rule = pa.paged_design
-    pa.paged_design = lambda *shape: design
-    try:
-        yield
-    finally:
-        pa.paged_design = rule
 
 
 def check_paged_launches(cfg, run, label, variant=None, tc=True):
@@ -2567,18 +2560,14 @@ def serve_engine_int8(kernels, cfg, model, params, bf16):
     note_launches(kernels, "engine_int8", run)
     advance = ms_per_advance(run["rounds"])
     # device ms of a decode step and of a mixed round's forward with K7's
-    # tc design (the one the path ran), then, in this call, with every
-    # launch forced to the present design
-    device = {}
-    for design in ("tc", "present"):
-        with forced_paged_design(design):
-            step = decode_step_device_ms(model, eng)
-            mixed, mixed_k7 = mixed_round_device_ms(model, eng)
-        for key, x in (("decode_step_device_ms", step),
-                       ("mixed_forward_device_ms", mixed),
-                       ("mixed_forward_k7_device_ms", mixed_k7)):
-            device.setdefault(design, {}).setdefault(key, []).append(x)
-    step_ms = min(device["tc"]["decode_step_device_ms"])
+    # tc design, the one the path ran (kernel_time_paged_variants times
+    # the present design's int8 rows)
+    step = decode_step_device_ms(model, eng)
+    mixed, mixed_k7 = mixed_round_device_ms(model, eng)
+    device = {"tc": {"decode_step_device_ms": [step],
+                     "mixed_forward_device_ms": [mixed],
+                     "mixed_forward_k7_device_ms": [mixed_k7]}}
+    step_ms = step
     bytes_per_token = eng.kv_bytes_per_token()
     eng = None
     free_cuda()
@@ -5044,7 +5033,8 @@ def finetune_argv(data, save, *extra):
     """`python -m megatron_llm_tpu_torch.finetune`'s flags: Llama-2-7B
     widths at FT_ENTRY_LAYERS of 32 layers, seq 4096, 4 microbatches of
     1, bf16 on fp32 AdamW as in the train phase (lr 3e-4 held constant),
-    full recompute; eval every 3 steps, an interval save every 3."""
+    full recompute; eval every 3 steps, an interval save every 3 into
+    `save` (no save for None)."""
     flags = (f"--model_name llama2 --model_size 7 --num_layers "
              f"{FT_ENTRY_LAYERS} "
              f"--seq_length {FT_SEQ} --micro_batch_size 1 "
@@ -5057,7 +5047,7 @@ def finetune_argv(data, save, *extra):
              f"--eval_iters 1 --log_interval 1 --seed {SEED} "
              f"--save_interval 3 --keep_latest_n 1").split()
     return flags + ["--data_path", "0.7", data[0], "0.3", data[1],
-                    "--save", save, *extra]
+                    *(["--save", save] if save else []), *extra]
 
 
 def host_rss_gb():
@@ -5259,18 +5249,18 @@ def expected_finetune_launches(steps, evals):
             "ragged_paged_attention": 0}
 
 
-def checkpoint_leaves_equal(a_dir, b_dir):
-    """Leaf by leaf, bit for bit, the model and optim files of two
-    checkpoint directories (mmap'd, compared on the card)."""
+def checkpoint_leaves_equal(ckpt_dir, state):
+    """Leaf by leaf, bit for bit, the model and optim files of a
+    checkpoint directory (mmap'd, compared on the card) against a run's
+    final state, as a save of it writes them."""
     n = 0
-    for name in ("model", "optim"):
-        a = torch.load(os.path.join(a_dir, name), mmap=True,
+    for name, flat in (("model", ckpt.flatten(state.params)),
+                       ("optim", ckpt.optim_flat(state.opt_state))):
+        a = torch.load(os.path.join(ckpt_dir, name), mmap=True,
                        weights_only=True)
-        b = torch.load(os.path.join(b_dir, name), mmap=True,
-                       weights_only=True)
-        check(set(a) == set(b), f"{name} leaves differ")
+        check(set(a) == set(flat), f"{name} leaves differ")
         for k in a:
-            check(torch.equal(a[k].cuda(), b[k].cuda()),
+            check(torch.equal(a[k].cuda(), flat[k].detach().cuda()),
                   f"{name} leaf {k} differs between the runs")
             n += 1
     return n
@@ -5413,8 +5403,9 @@ def finetune_phase(kernels, train_step_ms):
     (interval save at 3, final at 6) with every telemetry flag of the
     recipe and more (`telemetry_argv`), K the same with SIGTERM after
     step 3 (emergency save at 3, its flight record dumped), C resuming K
-    to 6. C's losses and final checkpoint must equal R's bit for bit:
-    the telemetry changes nothing the trainer computes."""
+    to 6 without a save. C's losses and final state must equal R's final
+    checkpoint bit for bit: the telemetry changes nothing the trainer
+    computes."""
     from megatron_llm_tpu_torch.tools import preprocess_data
 
     shutil.rmtree(FT_DIR, ignore_errors=True)
@@ -5447,7 +5438,9 @@ def finetune_phase(kernels, train_step_ms):
                                            "--flight_record_dir",
                                            str(tel / "K_records")),
                              sigterm_after=3)
-    runs["C"] = finetune_run(finetune_argv(data, k_dir, "--load", k_dir))
+    c_state = []
+    runs["C"] = finetune_run(finetune_argv(data, None, "--load", k_dir),
+                             on_state=c_state.append)
     R, K, C = runs["R"], runs["K"], runs["C"]
     for name, (steps, evals) in {"R": (6, 2), "K": (3, 1),
                                  "C": (3, 1)}.items():
@@ -5478,9 +5471,8 @@ def finetune_phase(kernels, train_step_ms):
     samples = check_finetune_data(R)
     telemetry = check_finetune_telemetry(R, K, C, tel)
     r_final = os.path.join(r_dir, "iter_0000006")
-    c_final = os.path.join(k_dir, "iter_0000006")
     ckpt_bytes = dir_bytes(r_final)
-    leaves = checkpoint_leaves_equal(r_final, c_final)
+    leaves = checkpoint_leaves_equal(r_final, c_state.pop())
     check(not os.path.exists(os.path.join(r_dir, "iter_0000003")),
           "keep_latest_n 1 left iteration 3 in R")
     # the corpora stay for finetune_modes
@@ -5770,6 +5762,7 @@ def finetune_rank(out_dir, argvs_file):
         if isinstance(argv, dict):  # a phase's entry other than finetune
             runs.append(cp_ring(**argv) if "ring_seq" in argv
                         else cp_remat(**argv) if "policies" in argv
+                        else encoder_run(**argv) if "encoder" in argv
                         else pp_serve(**argv))
             continue
         fps = {}
@@ -5934,7 +5927,7 @@ def check_parallel_telemetry(tel, first):
             "train_step_spans_per_rank": traces}
 
 
-def finetune_parallel(kernels, data, one):
+def finetune_parallel(kernels, data, one, enc):
     """`torchrun --nproc_per_node 4 ... finetune.main` at tp 2 x dp 2
     with sequence parallelism and ZeRO-1 over gloo, the four ranks on
     cuda:0, on the recipe's flags at Llama-2-7B widths (FT_LAYERS of 32,
@@ -5945,20 +5938,26 @@ def finetune_parallel(kernels, data, one):
     same weights and batches): losses within 2e-2, grad norms within
     5e-2; the checkpoint cut back into each rank's pieces bit for bit;
     K4-K6 launches per rank as the layout implies; per-rank peak
-    memory."""
+    memory. The same four ranks then run the encoder_parallel phase's
+    entries (`encoder_argvs(enc)`): returns their records, one list a
+    rank, which that phase checks."""
     ck = FT_DIR / "parallel_ck"
     tel = FT_DIR / "parallel_telemetry"
     base = mode_argv(data, *RECIPE, "--bf16", "--train_iters", "4")
     t0 = time.perf_counter()
     n, after = str(PAR_STEPS), ["--exit_interval", str(PAR_STEPS + 1)]
-    # run P: the recipe's tensorboard flag and the span tracer
+    # run P: the recipe's tensorboard flag and the span tracer; then the
+    # encoder entries in the same ranks
     ranks, log = run_ranks(
         [base + PAR_FLAGS + ["--exit_interval", n, "--save_interval", n,
                              "--save", str(ck), "--tensorboard_dir",
                              str(tel / "tb"), "--trace_dir",
                              str(tel / "trace")],
-         base + PAR_FLAGS + ["--load", str(ck)] + after], nproc=PAR_RANKS)
+         base + PAR_FLAGS + ["--load", str(ck)] + after]
+        + [{"encoder": m, "argv": par} for m, par, _ in encoder_argvs(enc)],
+        nproc=PAR_RANKS)
     ranks_s = time.perf_counter() - t0
+    encoder_recs = [r[2:] for r in ranks]
     first = [r[0] for r in ranks]
     resumed = [r[1] for r in ranks]
     ref = one["stats"]
@@ -6034,6 +6033,7 @@ def finetune_parallel(kernels, data, one):
         load_s_per_rank=[run["loads"] for run in resumed],
         load_s_world1=ws1["loads"], resumed_step_losses=step4,
         ranks_wall_s=ranks_s, world1_resume_wall_s=ws1_s,
+        encoder_rank_wall_s_rank0=[r["wall_s"] for r in encoder_recs[0]],
         rank0_run_wall_s=[first[0]["wall_s"], resumed[0]["wall_s"]],
         rank0_clock_s=[first[0]["clock_s"], resumed[0]["clock_s"]],
         quantized_grad_reduce="not run on the card (CPU tests only)",
@@ -6047,6 +6047,169 @@ def finetune_parallel(kernels, data, one):
             row.setdefault("launches_per_rank", {})[
                 "finetune_parallel"] = per
             row["launches"] = sum(row["launches_by_path"].values())
+    return encoder_recs
+
+
+# ---------------------------------------------------------------------------
+# the encoder family at tp 2 x dp 2 + SP + ZeRO-1: finetune_parallel's four
+# ranks run the entries, world size 1 runs them here
+# ---------------------------------------------------------------------------
+
+ENC_PAR_LAYERS = 2
+
+
+def _set_flags(argv, **values):
+    """`argv` with each --name's value replaced."""
+    argv = list(argv)
+    for name, value in values.items():
+        argv[argv.index(f"--{name}") + 1] = str(value)
+    return argv
+
+
+def encoder_argvs(enc):
+    """(entry module, the ranks' argv, world size 1's argv) of
+    pretrain_bert, pretrain_t5 and pretrain_ict at the bert, t5 and ict
+    phases' recipes cut to ENC_PAR_LAYERS layers (a side), one step,
+    dropout on as in the recipes, bf16. Both runs take the same global
+    batch (world size 1 as one microbatch, a dp rank its half) and the
+    same padded vocabulary (tp 2 pads to 2 x 128, world size 1 to 256),
+    so the same seed draws the same weights."""
+    common = ["--vocab_file", str(enc["vocab"]), "--data_path", enc["data"],
+              "--train_iters", "1", "--log_interval", "1",
+              "--seed", str(SEED)]
+    out = []
+    for module, recipe, batch, extra in (
+            ("pretrain_bert", BERT_RECIPE, BERT_GLOBAL, []),
+            ("pretrain_t5", T5_RECIPE, T5_BATCH, []),
+            ("pretrain_ict", ICT_RECIPE, ICT_BATCH,
+             ["--titles_data_path", enc["titles"]])):
+        flags = _set_flags(recipe.split(), num_layers=ENC_PAR_LAYERS,
+                           micro_batch_size=batch) + common + extra
+        par = _set_flags(flags, micro_batch_size=batch // PAR_DP) \
+            + PAR_FLAGS + ["--make_vocab_size_divisible_by", "128"]
+        out.append((module, par,
+                    flags + ["--make_vocab_size_divisible_by", "256"]))
+    return out
+
+
+def encoder_run(encoder, argv):
+    """`<encoder>.main(argv)` (pretrain_bert, pretrain_t5 or
+    pretrain_ict, in the smoke's process or in a rank) with the launch
+    counters set to 0 just before it: each step's loss, grad norm and
+    ms, the K1-K7 launches, the wall, the peak memory and the layout."""
+    import importlib
+
+    from megatron_llm_tpu_torch.parallel.mesh import get_context
+
+    entry = importlib.import_module(f"megatron_llm_tpu_torch.{encoder}")
+    stats, seen = [], {}
+
+    def train_step(orig):
+        def wrapped(self, state, text, *a, **kw):
+            out = orig(self, state, text, *a, **kw)
+            seen["trainer"] = self
+            stats.append({"loss": float(out["loss"]),
+                          "grad_norm": float(out["grad_norm"])})
+            return out
+        return wrapped
+
+    def setup(orig):
+        def wrapped(self, *a, **kw):
+            ctx = get_context()
+            seen["layout"] = None if ctx is None or ctx.world_size == 1 \
+                else {"world": ctx.world_size, "dp": ctx.dp, "tp": ctx.tp,
+                      "rank": ctx.rank,
+                      "sequence_parallel": ctx.sequence_parallel,
+                      "backend": ctx.backend, "staged": ctx.staged,
+                      "zero1": self.pcfg.use_distributed_optimizer}
+            return orig(self, *a, **kw)
+        return wrapped
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    with patched(Trainer, "train_step", train_step), \
+            patched(Trainer, "setup", setup):
+        state = entry.main(argv)
+    wall = time.perf_counter() - t0
+    for s, e in zip(stats, step_events(seen["trainer"])):
+        s["ms"] = e["ms"]
+    rec = {"encoder": encoder, "stats": stats, "launches": kernel_counts(),
+           "wall_s": wall, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "parallel": seen["layout"], "iteration": state.iteration}
+    del state, seen
+    free_cuda()
+    return rec
+
+
+def encoder_parallel(kernels, enc, recs):
+    """pretrain_bert (BERT-large widths), pretrain_t5 (T5-base) and
+    pretrain_ict (BERT-base towers) at ENC_PAR_LAYERS layers, one step
+    each at tp 2 x dp 2 with sequence parallelism and ZeRO-1 (gloo, the
+    four ranks on cuda:0; `recs`, finetune_parallel's records a rank),
+    held to world size 1 run here at the same depth, weights, global
+    batch, seed and dropout masks: losses within 2e-2, grad norms within
+    5e-2, every rank the same loss and grad norm, K1-K7 launched on no
+    rank. ICT's step 1 loss is printed beside ln 32: each query's
+    softmax runs over the global batch's 32 contexts, not a rank's 16."""
+    out = {}
+    for i, (module, _, ws1_argv) in enumerate(encoder_argvs(enc)):
+        ranks = [r[i] for r in recs]
+        ws1 = encoder_run(module, ws1_argv)
+        check(ws1["parallel"] is None and not any(ws1["launches"].values()),
+              f"{module} at world size 1: {ws1['parallel']}, launches "
+              f"{ws1['launches']}")
+        for r, rec in enumerate(ranks):
+            check(rec["encoder"] == module and rec["iteration"] == 1,
+                  f"rank {r}: {rec['encoder']} at {rec['iteration']}")
+            check(rec["parallel"] == {
+                "world": PAR_RANKS, "dp": PAR_DP, "tp": PAR_TP, "rank": r,
+                "sequence_parallel": True, "backend": "gloo",
+                "staged": True, "zero1": True},
+                f"rank {r} {module} layout {rec['parallel']}")
+            check(not any(rec["launches"].values()),
+                  f"rank {r} {module} launched {rec['launches']}")
+            check([(s["loss"], s["grad_norm"]) for s in rec["stats"]]
+                  == [(s["loss"], s["grad_norm"])
+                      for s in ranks[0]["stats"]],
+                  f"rank {r} reports another {module} loss or grad norm")
+        par, one = ranks[0]["stats"][0], ws1["stats"][0]
+        loss_err = abs(par["loss"] - one["loss"])
+        gnorm_err = abs(par["grad_norm"] - one["grad_norm"]) \
+            / one["grad_norm"]
+        check(np.isfinite(par["loss"]) and loss_err <= BF16_TOL
+              and gnorm_err <= PATH_LP_TOL,
+              f"{module} tp2 x dp2 against world size 1: loss "
+              f"{par['loss']} vs {one['loss']}, grad norm "
+              f"{par['grad_norm']} vs {one['grad_norm']}")
+        out[module] = dict(
+            loss=par["loss"], loss_world1=one["loss"],
+            loss_abs_err=loss_err, grad_norm=par["grad_norm"],
+            grad_norm_world1=one["grad_norm"], grad_norm_rel_err=gnorm_err,
+            step_ms_per_rank=[r["stats"][0]["ms"] for r in ranks],
+            step_ms_world1=one["ms"],
+            peak_gb_per_rank=[r["peak_gb"] for r in ranks],
+            peak_gb_world1=ws1["peak_gb"],
+            wall_s_per_rank=[r["wall_s"] for r in ranks],
+            wall_s_world1=ws1["wall_s"])
+    ict = out["pretrain_ict"]
+    ict.update(ln_global_batch=float(np.log(ICT_BATCH)),
+               ln_rank_batch=float(np.log(ICT_BATCH // PAR_DP)),
+               loss_minus_ln_global_batch=ict["loss"]
+               - float(np.log(ICT_BATCH)))
+    say("encoder_parallel", card=nvidia_smi(),
+        launcher=f"torchrun --nproc_per_node {PAR_RANKS} chip_smoke.py "
+        "--finetune-rank (the entries after finetune_parallel's runs)",
+        flags=" ".join(PAR_FLAGS), layout="tp 2 x dp 2, sequence parallel, "
+        "ZeRO-1, every rank on cuda:0", backend="gloo",
+        step_ms_label="gloo through the host, one card shared by 4 ranks "
+        "(not comparable with a one-rank step)",
+        layers=ENC_PAR_LAYERS, steps=1, dropout="on (the recipes')",
+        dtype="bf16", global_batch={"bert": BERT_GLOBAL, "t5": T5_BATCH,
+                                    "ict": ICT_BATCH},
+        tol={"loss": BF16_TOL, "grad_norm_rel": PATH_LP_TOL}, **out)
+    for row in kernels:
+        row.setdefault("launches_by_path", {})["encoder_parallel"] = 0
 
 
 # dp 2 with ZeRO-1 under both overlap schedulers, hidden dropout live,
@@ -8364,7 +8527,12 @@ def smoke(args) -> int:
     timed("train_remat", train_remat, kernels, train_cfg, text)
     data = timed("finetune", finetune_phase, kernels, train_ms)
     one = timed("finetune_modes", finetune_modes, kernels, data)
-    timed("finetune_parallel", finetune_parallel, kernels, data, one)
+    # the encoder phases' vocabulary and corpus first: the ranks after
+    # finetune_parallel's runs train the encoder entries on them
+    enc = timed("encoder_data", encoder_data)
+    enc_ranks = timed("finetune_parallel", finetune_parallel, kernels, data,
+                      one, enc)
+    timed("encoder_parallel", encoder_parallel, kernels, enc, enc_ranks)
     # the pipeline phase's two ranks run the context_parallel phase's and
     # the overlap_dropout phase's rank work last: pipeline's seconds
     # include theirs, the later phases' only their checks
@@ -8374,7 +8542,6 @@ def smoke(args) -> int:
           cp_ranks)
     timed("overlap_dropout", overlap_dropout_phase, kernels, data, overlap)
     shutil.rmtree(FT_DIR)
-    enc = timed("encoder_data", encoder_data)
     timed("bert", bert_phase, kernels, enc)
     timed("t5", t5_phase, kernels, enc)
     ict_ck = timed("ict", ict_phase, kernels, enc)

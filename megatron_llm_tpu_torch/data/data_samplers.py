@@ -9,7 +9,10 @@ microbatch calculator for the count at every step so that a batch-size
 rampup reaches it. With a `row_range`
 [lo, hi) (parallel/multihost.process_row_range) it reads and stacks only
 those rows of every global microbatch: a dp rank loads its own rows and
-nothing else (JAX :115-143, :175-202).
+nothing else (JAX :115-143, :175-202). A dataset whose draws depend on
+the order samples are read (`reads_in_order`, the ICT dataset) is read
+whole, every row of every global microbatch in order, and the rank
+keeps its rows: every layout sees world size 1's samples.
 """
 
 from __future__ import annotations
@@ -118,17 +121,20 @@ class PretrainingDataLoader:
             try:
                 for _ in range(n):
                     idxs = next(it)
-                    if self.row_range is not None:
-                        idxs = idxs[self.row_range[0]:self.row_range[1]]
+                    lo, hi = self.row_range or (0, len(idxs))
                     if self.keys is None:
                         micros.append(np.stack(
-                            [self.dataset[i]["text"] for i in idxs]
+                            [self.dataset[i]["text"] for i in idxs[lo:hi]]
                         ).astype(np.int32))
+                        continue
+                    if getattr(self.dataset, "reads_in_order", False):
+                        # every sample is read, in order, for the draws
+                        samples = [self.dataset[i] for i in idxs][lo:hi]
                     else:
-                        samples = [self.dataset[i] for i in idxs]
-                        micros.append({k: np.stack(
-                            [s[k] for s in samples]).astype(np.int32)
-                            for k in self.keys})
+                        samples = [self.dataset[i] for i in idxs[lo:hi]]
+                    micros.append({k: np.stack(
+                        [s[k] for s in samples]).astype(np.int32)
+                        for k in self.keys})
             except StopIteration:
                 return
             if self.keys is None:

@@ -71,6 +71,10 @@ def get_block_samples_mapping(block_dataset, title_dataset, data_prefix,
 class ICTDataset:
     """ref: ICTDataset ict_dataset.py:50-158."""
 
+    # a sample depends on the samples read before it: a data-parallel
+    # rank reads every row of a global microbatch (data/data_samplers.py)
+    reads_in_order = True
+
     def __init__(self, name, block_dataset, title_dataset, data_prefix,
                  num_epochs, max_num_samples, max_seq_length,
                  query_in_block_prob, seed, tokenizer, use_titles=True,

@@ -137,14 +137,21 @@ def cross_attention_block(attn_params: dict, cfg, hidden: torch.Tensor,
     is the (b, 1, s, t) bool mask, True = masked, so the core is the
     grouped path, with attention dropout under a dropout stream. Both
     projections are the save point "qkv_proj", as self-attention's
-    fused one is."""
+    fused one is. Under tensor parallelism wq and wkv are column-parallel
+    (a rank's KV groups) and wo row-parallel: `hidden` is the decoder's
+    input as the self-attention block reads it (`tp_input`), the
+    `encoder_output` the caller's whole gathered encoder output, and the
+    output is summed over the tp group (`tp_output`)."""
+    hidden = tp_input(hidden)
     b, s, _ = hidden.shape
     t = encoder_output.shape[1]
     dt = cfg.compute_dtype
-    g, qpk, d = cfg.num_query_groups, cfg.q_per_kv, cfg.head_dim
+    qpk, d = cfg.q_per_kv, cfg.head_dim
     with tag("qkv_proj"):
         q = hidden @ attn_params["wq"].to(dt)
         kv = encoder_output @ attn_params["wkv"].to(dt)
+    # a tp rank's wq and wkv columns hold its g / tp whole KV groups
+    g = q.shape[-1] // (qpk * d)
     if "bq" in attn_params:
         q = q + attn_params["bq"].to(dt)
     if "bkv" in attn_params:
@@ -153,7 +160,7 @@ def cross_attention_block(attn_params: dict, cfg, hidden: torch.Tensor,
     ctx = grouped_attention(q.reshape(b, s, g, qpk, d), kv[:, :, :, 0],
                             kv[:, :, :, 1], mask, cfg, dropout_seed)
     with tag("attn_dense"):
-        out = ctx @ attn_params["wo"].to(dt)
+        out = tp_output(ctx @ attn_params["wo"].to(dt))
     if "bo" in attn_params:
         out = out + attn_params["bo"].to(dt)
     return out

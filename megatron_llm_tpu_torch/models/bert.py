@@ -17,9 +17,21 @@ grouped (plain) path and never the flash kernels, as in the JAX package
 (its `flash_ok` requires no mask), and BERT's norms are LayerNorm, which
 has no kernel: this model launches none of K1-K7.
 
-The model runs on one card: the entry points (pretrain_bert.py,
-tasks/main.py) refuse tensor, sequence, data, pipeline and context
-parallelism for the encoder family.
+Under tensor parallelism (parallel/mesh.py) the encoder is the shared
+stack's column/row-parallel attention and MLP, every attention reading
+the whole (b, 1, s, s) padding mask on the gathered sequence; under
+sequence parallelism the embedding's sum (tokentypes and positions
+too), the norms, dropout and the LM head's dense and norm run on the
+rank's sequence shard. The LM head's logits are the rank's vocabulary
+shard, the gathered hidden states against its word-embedding rows plus
+its `bias` shard, and go to the vocab-parallel cross entropy; the
+pooler and binary head read position 0 (`from_first_position`: tp rank
+0's shard under sequence parallelism). `loss_terms` splits the loss
+into the sums a data-parallel rank holds: the masked-LM token sum over
+its `loss_mask` count and the sentence-order sample sum over its sample
+count, so that the ranks rebuild the global batch's two means (JAX's
+GSPMD loss is over the global batch). Pipeline and context parallelism
+are refused for the encoder family, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -46,6 +58,11 @@ from megatron_llm_tpu_torch.parallel.cross_entropy import (
     cross_entropy,
     vocab_parallel_cross_entropy,
 )
+from megatron_llm_tpu_torch.parallel.mappings import (
+    from_first_position,
+    gather_from_tp_last,
+    tp_input,
+)
 
 
 def dense(x: torch.Tensor, p: dict, dt) -> torch.Tensor:
@@ -53,10 +70,9 @@ def dense(x: torch.Tensor, p: dict, dt) -> torch.Tensor:
     return x @ p["w"].to(dt) + p["b"].to(dt)
 
 
-def pool(params: dict, cfg, hidden: torch.Tensor) -> torch.Tensor:
-    """The pooler: tanh(dense(hidden[:, 0])), (b, h)."""
-    return torch.tanh(dense(hidden[:, 0], params["pooler"],
-                            cfg.compute_dtype))
+def pool(params: dict, cfg, cls: torch.Tensor) -> torch.Tensor:
+    """The pooler of the (b, h) position-0 states: tanh(dense(cls))."""
+    return torch.tanh(dense(cls, params["pooler"], cfg.compute_dtype))
 
 
 class BertModel(nn.Module):
@@ -126,29 +142,65 @@ class BertModel(nn.Module):
                                       mask, None, None, stack_s)
         return apply_norm(hidden, params["final_norm"], cfg)
 
-    def forward(self, params: dict, tokens: torch.Tensor,
-                attention_mask: Optional[torch.Tensor] = None,
-                tokentype_ids: Optional[torch.Tensor] = None,
-                dropout_rng=None, deterministic: bool = True,
-                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
-        """(LM logits (b, s, V), binary logits (b, 2) or None), in the
-        compute dtype (JAX :98-140)."""
+    def heads(self, params: dict, hidden: torch.Tensor
+              ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """The encoder output's (LM logits, binary logits or None): the
+        logits this rank's vocabulary shard (the whole vocabulary at
+        tp = 1), the binary logits (b, 2) on every rank."""
         cfg = self.cfg
         dt = cfg.compute_dtype
-        hidden = self.encode(params, tokens, attention_mask, tokentype_ids,
-                             dropout_rng, deterministic)
         lh = params["lm_head"]
         x = hidden @ lh["dense_w"].to(dt) + lh["dense_b"].to(dt)
         x = ACTIVATIONS["gelu"](x)
         x = layer_norm(x, lh["norm"]["scale"], lh["norm"]["bias"],
                        cfg.layernorm_epsilon)
         emb = params["embedding"]["word_embeddings"].to(dt)
-        logits = x @ emb.T + lh["bias"].to(dt)
+        logits = tp_input(x) @ emb.T + lh["bias"].to(dt)
         binary_logits = None
         if cfg.add_binary_head:
-            binary_logits = dense(pool(params, cfg, hidden),
-                                  params["binary_head"], dt)
+            binary_logits = from_first_position(hidden, lambda cls: dense(
+                pool(params, cfg, cls), params["binary_head"], dt))
         return logits, binary_logits
+
+    def forward(self, params: dict, tokens: torch.Tensor,
+                attention_mask: Optional[torch.Tensor] = None,
+                tokentype_ids: Optional[torch.Tensor] = None,
+                dropout_rng=None, deterministic: bool = True,
+                ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+        """(LM logits (b, s, V), binary logits (b, 2) or None), in the
+        compute dtype (JAX :98-140); under tensor parallelism the logits
+        gathered to the whole padded vocabulary."""
+        hidden = self.encode(params, tokens, attention_mask, tokentype_ids,
+                             dropout_rng, deterministic)
+        logits, binary_logits = self.heads(params, hidden)
+        return gather_from_tp_last(logits), binary_logits
+
+    def loss_terms(self, params: dict, tokens: torch.Tensor,
+                   labels: torch.Tensor,
+                   loss_mask: Optional[torch.Tensor] = None,
+                   attention_mask: Optional[torch.Tensor] = None,
+                   tokentype_ids: Optional[torch.Tensor] = None,
+                   sop_labels: Optional[torch.Tensor] = None,
+                   dropout_rng=None, deterministic: bool = True):
+        """`loss` as (numerators, denominators), 1-d fp32 tensors of
+        sums over this rank's rows: [masked-LM CE sum, sentence-order CE
+        sum] over [loss_mask count, sample count] (the second term only
+        with the binary head and `sop_labels`). The loss is
+        sum(num / den) with each den summed over the data-parallel
+        ranks (JAX :142-168 over the global batch)."""
+        hidden = self.encode(params, tokens, attention_mask, tokentype_ids,
+                             dropout_rng, deterministic)
+        logits, binary_logits = self.heads(params, hidden)
+        losses = vocab_parallel_cross_entropy(logits, labels)
+        lm = torch.ones_like(losses) if loss_mask is None \
+            else loss_mask.float()
+        nums, dens = [(losses * lm).sum()], [lm.sum()]
+        if binary_logits is not None and sop_labels is not None:
+            nums.append(cross_entropy(binary_logits.float(),
+                                      sop_labels).sum())
+            dens.append(torch.tensor(float(sop_labels.shape[0]),
+                                     device=losses.device))
+        return torch.stack(nums), torch.stack(dens)
 
     def loss(self, params: dict, tokens: torch.Tensor,
              labels: torch.Tensor,
@@ -161,16 +213,7 @@ class BertModel(nn.Module):
         """The masked mean of the LM cross entropy plus, with the binary
         head and `sop_labels`, the mean sentence-order cross entropy: a
         0-d fp32 tensor (JAX :142-168)."""
-        logits, binary_logits = self.forward(
-            params, tokens, attention_mask, tokentype_ids, dropout_rng,
-            deterministic)
-        losses = vocab_parallel_cross_entropy(logits, labels)
-        if loss_mask is None:
-            lm_loss = losses.mean()
-        else:
-            lm = loss_mask.float()
-            lm_loss = (losses * lm).sum() / lm.sum().clamp(min=1.0)
-        if binary_logits is not None and sop_labels is not None:
-            return lm_loss + cross_entropy(binary_logits.float(),
-                                           sop_labels).mean()
-        return lm_loss
+        num, den = self.loss_terms(params, tokens, labels, loss_mask,
+                                   attention_mask, tokentype_ids,
+                                   sop_labels, dropout_rng, deterministic)
+        return (num / den.clamp(min=1.0)).sum()

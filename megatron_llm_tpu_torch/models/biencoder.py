@@ -10,7 +10,17 @@ sides, with the JAX leaf names. The loss is the cross entropy of each
 query against every context of the batch, fp32 scores q @ c^T, its own
 context the target (JAX :106-116).
 
-A tower is BERT's encoder: it launches none of K1-K7 (models/bert.py).
+A tower is BERT's encoder: it launches none of K1-K7 (models/bert.py),
+and under tensor and sequence parallelism it is BERT's parallel encoder,
+its CLS row and projection taken by `from_first_position`. Under data
+parallelism the in-batch softmax sees the global batch's contexts, as
+JAX's GSPMD loss over the whole batch does: each rank's context
+embeddings are all-gathered over the dp group before q @ c^T
+(`gather_from_data_parallel`, whose backward sums every rank's
+gradient of a context back onto its rank), each query's target is its
+own context's global row (its rank's row start plus its row), and
+`loss_terms` gives the rank's query sum and count, so that the loss is
+the mean over the global batch's queries.
 """
 
 from __future__ import annotations
@@ -25,6 +35,11 @@ from megatron_llm_tpu_torch.models.bert import BertModel, dense
 from megatron_llm_tpu_torch.models.dropout import split
 from megatron_llm_tpu_torch.models.transformer import normal
 from megatron_llm_tpu_torch.parallel.cross_entropy import cross_entropy
+from megatron_llm_tpu_torch.parallel.mappings import (
+    from_first_position,
+    gather_from_data_parallel,
+)
+from megatron_llm_tpu_torch.parallel.mesh import get_context
 
 
 class BiEncoderModel(nn.Module):
@@ -75,11 +90,14 @@ class BiEncoderModel(nn.Module):
         projected (JAX :61-78)."""
         hidden = self.bert.encode(tower_params, tokens, attention_mask,
                                   tokentype_ids, dropout_rng, deterministic)
-        pooled = hidden[:, 0]
-        if self.projection_dim > 0:
-            pooled = dense(pooled, tower_params["projection_enc"],
-                           self.cfg.compute_dtype)
-        return pooled
+
+        def project(cls):
+            if self.projection_dim > 0:
+                return dense(cls, tower_params["projection_enc"],
+                             self.cfg.compute_dtype)
+            return cls
+
+        return from_first_position(hidden, project)
 
     def forward(self, params: dict, query_tokens: torch.Tensor,
                 query_attention_mask: Optional[torch.Tensor],
@@ -103,16 +121,34 @@ class BiEncoderModel(nn.Module):
                             context_types, rc, deterministic)
         return q, c
 
+    def loss_terms(self, params: dict, query_tokens: torch.Tensor,
+                   query_mask: Optional[torch.Tensor],
+                   context_tokens: torch.Tensor,
+                   context_mask: Optional[torch.Tensor], dropout_rng=None,
+                   deterministic: bool = True):
+        """`loss` as (numerator, denominator): the sum of this rank's
+        queries' cross entropies against the global batch's contexts,
+        and its query count."""
+        q, c = self.forward(params, query_tokens, query_mask, None,
+                            context_tokens, context_mask, None, dropout_rng,
+                            deterministic)
+        ctx = get_context()
+        row0 = ctx.dp_rank * q.shape[0] if ctx is not None else 0
+        scores = q.float() @ gather_from_data_parallel(c.float()).T
+        targets = row0 + torch.arange(q.shape[0], device=scores.device)
+        return cross_entropy(scores, targets).sum(), torch.tensor(
+            float(q.shape[0]), device=scores.device)
+
     def loss(self, params: dict, query_tokens: torch.Tensor,
              query_mask: Optional[torch.Tensor],
              context_tokens: torch.Tensor,
              context_mask: Optional[torch.Tensor], dropout_rng=None,
              deterministic: bool = True) -> torch.Tensor:
         """The in-batch retrieval cross entropy, a 0-d fp32 tensor: row i
-        of q @ c^T (fp32) against target i (JAX :106-116)."""
-        q, c = self.forward(params, query_tokens, query_mask, None,
-                            context_tokens, context_mask, None, dropout_rng,
-                            deterministic)
-        scores = q.float() @ c.float().T
-        targets = torch.arange(scores.shape[0], device=scores.device)
-        return cross_entropy(scores, targets).mean()
+        of q @ c^T (fp32) against target i (JAX :106-116); under data
+        parallelism this rank's queries' mean against the global batch's
+        contexts."""
+        num, den = self.loss_terms(params, query_tokens, query_mask,
+                                   context_tokens, context_mask,
+                                   dropout_rng, deterministic)
+        return num / den

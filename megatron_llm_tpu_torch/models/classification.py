@@ -5,7 +5,11 @@ models/classification.py).
 num_classes linear head. `MultipleChoice`: the same with one logit, over
 (b * choices, s) flattened inputs, reshaped back to (b, choices). Both
 reuse `BertModel.encode` and its pooler; tasks/ (GLUE and RACE) trains
-them.
+them. Under tensor and sequence parallelism the encoder is BERT's
+parallel one and the pooled head reads position 0 through
+`from_first_position` (tp rank 0's shard under sequence parallelism);
+`loss_terms` gives a data-parallel rank its rows' cross-entropy sum and
+count.
 """
 
 from __future__ import annotations
@@ -15,9 +19,21 @@ from torch import nn
 
 from megatron_llm_tpu_torch.config import ModelConfig
 from megatron_llm_tpu_torch.models.bert import BertModel, dense, pool
-from megatron_llm_tpu_torch.models.dropout import dropout, fold_in
+from megatron_llm_tpu_torch.models.dropout import (
+    at,
+    dropout,
+    fold_in,
+    offsets_of,
+)
 from megatron_llm_tpu_torch.models.transformer import normal
 from megatron_llm_tpu_torch.parallel.cross_entropy import cross_entropy
+from megatron_llm_tpu_torch.parallel.mappings import from_first_position
+
+
+def _ce_terms(logits: torch.Tensor, labels: torch.Tensor):
+    """(the rows' fp32 cross-entropy sum, their count)."""
+    return cross_entropy(logits.float(), labels).sum(), torch.tensor(
+        float(labels.shape[0]), device=logits.device)
 
 
 class Classification(nn.Module):
@@ -56,20 +72,32 @@ class Classification(nn.Module):
         cfg = self.cfg
         hidden = self.bert.encode(params, tokens, attention_mask,
                                   tokentype_ids, dropout_rng, deterministic)
-        pooled = pool(params, cfg, hidden)
-        if not deterministic and dropout_rng is not None:
-            pooled = dropout(pooled, cfg.hidden_dropout,
-                             fold_in(dropout_rng, 7))
-        return dense(pooled, params["classification_head"],
-                     cfg.compute_dtype)
+        def head(cls):
+            pooled = pool(params, cfg, cls)
+            if not deterministic and dropout_rng is not None:
+                pooled = dropout(pooled, cfg.hidden_dropout,
+                                 fold_in(dropout_rng, 7))
+            return dense(pooled, params["classification_head"],
+                         cfg.compute_dtype)
+
+        return from_first_position(hidden, head)
+
+    def loss_terms(self, params: dict, tokens: torch.Tensor,
+                   labels: torch.Tensor, attention_mask=None,
+                   tokentype_ids=None, dropout_rng=None,
+                   deterministic: bool = True):
+        """`loss` as (the rows' cross-entropy sum, their count)."""
+        return _ce_terms(self.forward(params, tokens, attention_mask,
+                                      tokentype_ids, dropout_rng,
+                                      deterministic), labels)
 
     def loss(self, params: dict, tokens: torch.Tensor, labels: torch.Tensor,
              attention_mask=None, tokentype_ids=None, dropout_rng=None,
              deterministic: bool = True) -> torch.Tensor:
         """The mean cross entropy over the classes, 0-d fp32."""
-        logits = self.forward(params, tokens, attention_mask, tokentype_ids,
-                              dropout_rng, deterministic)
-        return cross_entropy(logits.float(), labels).mean()
+        num, den = self.loss_terms(params, tokens, labels, attention_mask,
+                                   tokentype_ids, dropout_rng, deterministic)
+        return num / den
 
 
 class MultipleChoice(nn.Module):
@@ -96,14 +124,28 @@ class MultipleChoice(nn.Module):
         def flat(x):
             return None if x is None else x.reshape(b * c, *x.shape[2:])
 
+        offs = offsets_of(dropout_rng) if dropout_rng is not None else ()
+        if offs:
+            # the stream places rows by question: the flattened rows of
+            # question i start at row i * choices
+            dropout_rng = at(dropout_rng, offs[0] * c, *offs[1:])
         logits = self._cls.forward(params, tokens.reshape(b * c, s),
                                    flat(attention_mask), flat(tokentype_ids),
                                    dropout_rng, deterministic)
         return logits.reshape(b, c)
 
+    def loss_terms(self, params: dict, tokens: torch.Tensor,
+                   labels: torch.Tensor, attention_mask=None,
+                   tokentype_ids=None, dropout_rng=None,
+                   deterministic: bool = True):
+        """`loss` as (the questions' cross-entropy sum, their count)."""
+        return _ce_terms(self.forward(params, tokens, attention_mask,
+                                      tokentype_ids, dropout_rng,
+                                      deterministic), labels)
+
     def loss(self, params: dict, tokens: torch.Tensor, labels: torch.Tensor,
              attention_mask=None, tokentype_ids=None, dropout_rng=None,
              deterministic: bool = True) -> torch.Tensor:
-        logits = self.forward(params, tokens, attention_mask, tokentype_ids,
-                              dropout_rng, deterministic)
-        return cross_entropy(logits.float(), labels).mean()
+        num, den = self.loss_terms(params, tokens, labels, attention_mask,
+                                   tokentype_ids, dropout_rng, deterministic)
+        return num / den

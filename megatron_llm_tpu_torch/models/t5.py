@@ -33,8 +33,17 @@ layer runs under the recompute policy (models/remat.py), whatever
 `recompute_method` says, as the JAX scan does (JAX :113-119); a
 recomputed layer derives the same seeds and redraws the same masks.
 
-The model runs on one card: pretrain_t5.py refuses tensor, sequence,
-data, pipeline and context parallelism.
+Under tensor and sequence parallelism both stacks are BERT's
+(models/bert.py): column/row-parallel attention and MLP, the norms and
+dropout on each side's own sequence shard. The cross-attention's wq and
+wkv are column-parallel and wo row-parallel; every decoder layer reads
+the whole encoder output, gathered once over the tp group (`tp_input`:
+an all-gather of the encoder's sequence shards under sequence
+parallelism, whose backward reduce-scatters the layers' summed
+gradient). The logits are the rank's vocabulary shard plus its
+`lm_head_bias` shard, into the vocab-parallel cross entropy;
+`loss_terms` gives a data-parallel rank its masked decoder-token sum
+and count. Pipeline and context parallelism are refused, as in JAX.
 """
 
 from __future__ import annotations
@@ -68,6 +77,10 @@ from megatron_llm_tpu_torch.models.transformer import (
 )
 from megatron_llm_tpu_torch.parallel.cross_entropy import (
     vocab_parallel_cross_entropy,
+)
+from megatron_llm_tpu_torch.parallel.mappings import (
+    gather_from_tp_last,
+    tp_input,
 )
 
 
@@ -166,9 +179,21 @@ class T5Model(nn.Module):
                 enc_hidden_states: Optional[torch.Tensor] = None,
                 ) -> Tuple[torch.Tensor, torch.Tensor]:
         """(LM logits (b, s_d, V), encoder output (b, s_e, h)), in the
-        compute dtype (JAX :148-207). The masks are (b, s) keep vectors,
-        all ones when None; `enc_hidden_states` stands in for the
-        encoder's output (the encoder does not run)."""
+        compute dtype (JAX :148-207); under tensor parallelism the logits
+        gathered to the whole padded vocabulary, and under sequence
+        parallelism the encoder output the rank's sequence shard. The
+        masks are (b, s) keep vectors, all ones when None;
+        `enc_hidden_states` stands in for the encoder's output (the
+        encoder does not run)."""
+        logits, enc_out = self._logits(
+            params, encoder_input_ids, decoder_input_ids, encoder_attn_mask,
+            decoder_attn_mask, dropout_rng, deterministic, enc_hidden_states)
+        return gather_from_tp_last(logits), enc_out
+
+    def _logits(self, params, encoder_input_ids, decoder_input_ids,
+                encoder_attn_mask, decoder_attn_mask, dropout_rng,
+                deterministic, enc_hidden_states=None):
+        """`forward` with the logits this rank's vocabulary shard."""
         cfg = self.cfg
         b, s_e = encoder_input_ids.shape
         s_d = decoder_input_ids.shape[1]
@@ -203,13 +228,34 @@ class T5Model(nn.Module):
         cross_mask = padding_mask_2d(decoder_attn_mask, encoder_attn_mask)
 
         dec_h = embed_tokens(params, cfg, decoder_input_ids, None, r_dec_e)
-        dec_h = decoder_stack(params["decoder_layers"], cfg, dec_h, enc_out,
-                              self_mask, cross_mask, r_dec)
+        # the cross-attention's K/V read the whole encoder output
+        dec_h = decoder_stack(params["decoder_layers"], cfg, dec_h,
+                              tp_input(enc_out), self_mask, cross_mask,
+                              r_dec)
         dec_h = apply_norm(dec_h, params["decoder_final_norm"], cfg)
         dt = cfg.compute_dtype
         emb = params["embedding"]["word_embeddings"].to(dt)
-        logits = dec_h @ emb.T + params["lm_head_bias"].to(dt)
+        logits = tp_input(dec_h) @ emb.T + params["lm_head_bias"].to(dt)
         return logits, enc_out
+
+    def loss_terms(self, params: dict, encoder_input_ids: torch.Tensor,
+                   decoder_input_ids: torch.Tensor, lm_labels: torch.Tensor,
+                   loss_mask: Optional[torch.Tensor] = None,
+                   encoder_attn_mask: Optional[torch.Tensor] = None,
+                   decoder_attn_mask: Optional[torch.Tensor] = None,
+                   dropout_rng=None, deterministic: bool = True):
+        """`loss` as (numerator, denominator), the masked sum of the
+        decoder tokens' cross entropy over this rank's rows and their
+        mask count, so that the data-parallel ranks rebuild the global
+        batch's token mean."""
+        logits, _ = self._logits(params, encoder_input_ids,
+                                 decoder_input_ids, encoder_attn_mask,
+                                 decoder_attn_mask, dropout_rng,
+                                 deterministic)
+        losses = vocab_parallel_cross_entropy(logits, lm_labels)
+        lm = torch.ones_like(losses) if loss_mask is None \
+            else loss_mask.float()
+        return (losses * lm).sum(), lm.sum()
 
     def loss(self, params: dict, encoder_input_ids: torch.Tensor,
              decoder_input_ids: torch.Tensor, lm_labels: torch.Tensor,
@@ -219,12 +265,8 @@ class T5Model(nn.Module):
              dropout_rng=None, deterministic: bool = True) -> torch.Tensor:
         """The masked mean of the cross entropy over decoder positions, a
         0-d fp32 tensor (JAX :209-231)."""
-        logits, _ = self.forward(params, encoder_input_ids,
-                                 decoder_input_ids, encoder_attn_mask,
-                                 decoder_attn_mask, dropout_rng,
-                                 deterministic)
-        losses = vocab_parallel_cross_entropy(logits, lm_labels)
-        if loss_mask is None:
-            return losses.mean()
-        lm = loss_mask.float()
-        return (losses * lm).sum() / lm.sum().clamp(min=1.0)
+        num, den = self.loss_terms(params, encoder_input_ids,
+                                   decoder_input_ids, lm_labels, loss_mask,
+                                   encoder_attn_mask, decoder_attn_mask,
+                                   dropout_rng, deterministic)
+        return num / den.clamp(min=1.0)

@@ -205,7 +205,7 @@ class OverlapPlan:
 def split_aux_layers(params: dict):
     """(the non-layer subtree, the stacked-layer subtree)."""
     return {k: v for k, v in params.items() if k != "layers"}, \
-        params["layers"]
+        params.get("layers", {})
 
 
 def build_overlap_plan(cfg, params_tmpl, dp: int,

@@ -11,10 +11,12 @@ JAX package gets the same collectives from GSPMD at its
 | `gather_from_sequence` | all-gather along the sequence | reduce-scatter |
 | `reduce_scatter_to_sequence` | reduce-scatter along the sequence | all-gather |
 | `gather_from_tp_last` | all-gather along the last axis | this rank's slice |
+| `from_first_position` | `fn(x[:, 0])`, under SP summed from tp rank 0 | tp rank 0's gradient |
+| `gather_from_data_parallel` | all-gather of the dp group's rows | reduce-scatter |
 
-The sequence axis is axis 1 of (b, s, ...) activations. Every function
-is the identity, and issues no collective, without a context or at
-tp = 1. `tp_input` and `tp_output` are what a column-parallel matmul
+The sequence axis is axis 1 of (b, s, ...) activations. Every tp
+function is the identity, and issues no collective, without a context
+or at tp = 1; `gather_from_data_parallel` likewise at dp = 1. `tp_input` and `tp_output` are what a column-parallel matmul
 reads and a row-parallel one writes: the replicated activation (copy /
 all-reduce), or under sequence parallelism its sequence shard (gather /
 reduce-scatter).
@@ -129,6 +131,32 @@ class _GatherLast(torch.autograd.Function):
         return g[..., c.ctx.tp_rank * n:(c.ctx.tp_rank + 1) * n], None
 
 
+class _GatherDp(torch.autograd.Function):
+    @staticmethod
+    def forward(c, x, ctx):
+        c.ctx = ctx
+        return all_gather_rows(x.contiguous(), ctx.dp_group, ctx)
+
+    @staticmethod
+    def backward(c, g):
+        # every rank's loss reads every rank's rows: the gradient of this
+        # rank's rows is the sum of all ranks' gradients of them
+        return reduce_scatter_rows(g.contiguous(), c.ctx.dp_group,
+                                   c.ctx), None
+
+
+def gather_from_data_parallel(x: torch.Tensor) -> torch.Tensor:
+    """The rows of every rank of the dp group, in dp order (the
+    reference's AllgatherFromDataParallelRegion): forward an all-gather
+    of axis 0, backward the reduce-scatter that sums each rank's
+    gradient of the gathered rows back onto the rank that owns them.
+    `x` itself without a context or at dp = 1."""
+    ctx = get_context()
+    if ctx is None or ctx.dp == 1:
+        return x
+    return _GatherDp.apply(x, ctx)
+
+
 def _mapping(fn):
     def apply(x):
         ctx = _tp()
@@ -163,6 +191,26 @@ def tp_output(x: torch.Tensor) -> torch.Tensor:
     if sequence_parallel():
         return reduce_scatter_to_sequence(x)
     return reduce_from_tp(x)
+
+
+def from_first_position(hidden: torch.Tensor, fn) -> torch.Tensor:
+    """`fn(hidden[:, 0])` on every rank of the tp group (the pooler, a
+    biencoder tower's CLS embedding), `fn` reading replicated leaves
+    only. Under sequence parallelism position 0 lies in tp rank 0's
+    shard: rank 0's result is summed over the group with the others'
+    zeros (`reduce_from_tp`, whose backward is the identity), so `fn`'s
+    gradient, to its leaves and to the position, is taken once, on rank
+    0, and the train step's sum of the replicated leaves' gradients over
+    the tp group counts it once."""
+    out = fn(hidden[:, 0])
+    if not sequence_parallel():
+        return out
+    if _tp().tp_rank != 0:
+        # zeros that stay in the graph (the loss needs one on every
+        # rank), with a zero gradient whatever `out` holds
+        out = out.masked_fill(torch.ones((), dtype=torch.bool,
+                                         device=out.device), 0.0)
+    return reduce_from_tp(out)
 
 
 def sequence_shard(x: torch.Tensor) -> torch.Tensor:

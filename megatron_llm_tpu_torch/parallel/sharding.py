@@ -11,8 +11,14 @@ axis, and each rank holds its slice of the leaf in `shard_params`:
 - row-parallel (wo, w2): the input axis over "model";
 - word embeddings on the vocabulary axis, an untied `lm_head` (h, V) on
   its vocabulary axis;
-- norms, position embeddings and the biases of row-parallel outputs:
-  replicated.
+- norms, position and tokentype embeddings and the biases of
+  row-parallel outputs: replicated;
+- the encoder family (JAX :58-99): BERT's LM head {dense, norm, bias}
+  with only the vocabulary `bias` on "model", T5's `lm_head_bias` on
+  "model" and its decoder's `cross_attention` (wq, wkv column-parallel,
+  wo row-parallel), the pooler, binary head and projections
+  replicated; the biencoder's {query, context, shared} towers each by
+  the tower rules.
 
 Under pipeline parallelism `pipeline_param_specs` puts "stage" on the
 layer axis that leads every stacked leaf (a stage holds num_layers / pp
@@ -52,7 +58,9 @@ def _replicated(tree):
 
 
 def param_specs(cfg, params: dict) -> dict:
-    """The spec tree of a GPT/Llama/Falcon parameter tree (JAX :31-102);
+    """The spec tree of a parameter tree (JAX :31-102): GPT/Llama/Falcon,
+    BERT with its heads, T5 with its decoder, and the biencoder's
+    {query, context, shared} towers, each tower by the same rules;
     unknown leaves are replicated. `cfg` may be None: a GLU w1 is known
     by its four axes."""
     def layer_specs(layers: dict) -> dict:
@@ -71,16 +79,39 @@ def param_specs(cfg, params: dict) -> dict:
         if "b1" in layers["mlp"]:
             out["mlp"]["b1"] = (None, None, MODEL_AXIS) if glu \
                 else (None, MODEL_AXIS)
+        if "cross_attention" in layers:
+            # T5's decoder: wq and the fused wkv column-parallel by KV
+            # group, wo row-parallel, bo replicated
+            cross = out["cross_attention"]
+            cross.update(wq=(None, None, MODEL_AXIS),
+                         wkv=(None, None, MODEL_AXIS),
+                         wo=(None, MODEL_AXIS, None))
+            for name in ("bq", "bkv"):
+                if name in layers["cross_attention"]:
+                    cross[name] = (None, MODEL_AXIS)
         return out
 
-    specs = _replicated(params)
-    if "layers" in params:
-        specs["layers"] = layer_specs(params["layers"])
-    if "embedding" in params:
-        specs["embedding"]["word_embeddings"] = (MODEL_AXIS, None)
-    if "lm_head" in params and not isinstance(params["lm_head"], dict):
-        specs["lm_head"] = (None, MODEL_AXIS)
-    return specs
+    def tower_specs(tree: dict) -> dict:
+        specs = _replicated(tree)
+        for key in ("layers", "decoder_layers"):
+            if key in tree:
+                specs[key] = layer_specs(tree[key])
+        if "embedding" in tree:
+            specs["embedding"]["word_embeddings"] = (MODEL_AXIS, None)
+        head = tree.get("lm_head")
+        if isinstance(head, dict):
+            # BERT's LM head: the dense and its norm replicated, the
+            # vocabulary bias on the vocabulary shards
+            specs["lm_head"]["bias"] = (MODEL_AXIS,)
+        elif head is not None:
+            specs["lm_head"] = (None, MODEL_AXIS)
+        if "lm_head_bias" in tree:
+            specs["lm_head_bias"] = (MODEL_AXIS,)
+        return specs
+
+    if params and set(params) <= {"query", "context", "shared"}:
+        return {k: tower_specs(v) for k, v in params.items()}
+    return tower_specs(params)
 
 
 def pipeline_param_specs(cfg, params: dict) -> dict:
@@ -178,12 +209,15 @@ def batch_specs() -> tuple:
 
 def check_tp(cfg, tp: int) -> None:
     """The divisibility tensor parallelism needs: whole KV groups per
-    rank (so Falcon-7B's single group cannot split), heads, the ffn and
-    the padded vocabulary."""
+    rank (so Falcon-7B's single group cannot split), the attention heads
+    (with `kv_channels`, the width each rank's heads span), the ffn and
+    the padded vocabulary (build_tokenizer pads it to a multiple of
+    tp x make_vocab_size_divisible_by)."""
     if tp == 1:
         return
     for name, n in (("query groups (num_attention_heads_kv)",
                      cfg.num_query_groups),
+                    ("attention heads", cfg.num_attention_heads),
                     ("ffn_hidden_size", cfg.ffn_hidden_size),
                     ("padded_vocab_size", cfg.padded_vocab_size)):
         if n % tp:

@@ -21,16 +21,23 @@ entry), loaded as dict batches (`keys=ICT_KEYS`) and turned into
 preset without the binary head. It runs on the first CUDA card;
 `main(argv, device="cpu")` runs on the CPU (the tests do).
 
-The biencoder trains on one card: pipeline and context parallelism are
-refused as the JAX entry refuses them, and tensor, sequence or data
-parallelism raise naming ROADMAP.md A6 (`pretrain_bert.entry_configs`).
+Under torchrun it trains at tensor, sequence and data parallelism with
+ZeRO-1, as pretrain_bert does (`pretrain_bert.entry_configs`, JAX
+:89-92): under dp each query's softmax runs over the global batch's
+contexts (models/biencoder.py). The dataset's draws depend on the order
+samples are read, so every rank reads each whole global microbatch and
+keeps its rows (data/data_samplers.py). Pipeline and context
+parallelism are refused with the JAX entry's messages.
 """
 
 from __future__ import annotations
 
 import dataclasses
 
+import torch.distributed as dist
+
 from megatron_llm_tpu_torch.models.biencoder import BiEncoderModel
+from megatron_llm_tpu_torch.parallel.mesh import destroy_parallel
 from megatron_llm_tpu_torch.pretrain_bert import entry_configs, train_entry
 
 ICT_KEYS = ["query_tokens", "query_pad_mask", "context_tokens",
@@ -64,27 +71,35 @@ def main(argv=None, device="cuda"):
                        action="store_true")
 
     # BERT towers without the binary head
-    args, tokenizer, mcfg, pcfg, tcfg, dargs = entry_configs(
-        "pretrain_ict", "ICT pretraining", argv, device, "bert", add_args,
+    args, tokenizer, mcfg, pcfg, tcfg, dargs, device = entry_configs(
+        "pretrain_ict", argv, device, "bert", add_args,
         fix=lambda args, mcfg: dataclasses.replace(mcfg,
                                                    add_binary_head=False))
-    model = BiEncoderModel(
-        mcfg, projection_dim=args.biencoder_projection_dim,
-        shared_query_context_model=args.biencoder_shared_query_context_model,
-        device=device)
-
-    data_prefix = dargs.data_path if isinstance(dargs.data_path, str) \
-        else dargs.data_path[0]
-    train_ds = ICTDataset(
-        name="train", block_dataset=make_dataset(data_prefix, "mmap"),
-        title_dataset=make_dataset(args.titles_data_path, "mmap"),
-        data_prefix=data_prefix, num_epochs=None,
-        max_num_samples=(tcfg.train_iters or 0) * tcfg.global_batch_size,
-        max_seq_length=mcfg.seq_length,
-        query_in_block_prob=args.query_in_block_prob, seed=tcfg.seed,
-        tokenizer=tokenizer, use_one_sent_docs=args.use_one_sent_docs)
-    return train_entry(model, tcfg, pcfg, get_batch, ICT_KEYS, train_ds)
+    try:
+        model = BiEncoderModel(
+            mcfg, projection_dim=args.biencoder_projection_dim,
+            shared_query_context_model=(
+                args.biencoder_shared_query_context_model),
+            device=device)
+        data_prefix = dargs.data_path if isinstance(dargs.data_path, str) \
+            else dargs.data_path[0]
+        train_ds = ICTDataset(
+            name="train", block_dataset=make_dataset(data_prefix, "mmap"),
+            title_dataset=make_dataset(args.titles_data_path, "mmap"),
+            data_prefix=data_prefix, num_epochs=None,
+            max_num_samples=(tcfg.train_iters or 0)
+            * tcfg.global_batch_size,
+            max_seq_length=mcfg.seq_length,
+            query_in_block_prob=args.query_in_block_prob, seed=tcfg.seed,
+            tokenizer=tokenizer, use_one_sent_docs=args.use_one_sent_docs)
+        return train_entry(model, tcfg, pcfg, get_batch, ICT_KEYS, train_ds)
+    finally:
+        destroy_parallel()
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

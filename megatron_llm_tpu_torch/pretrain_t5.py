@@ -18,9 +18,10 @@ document ranges into T5Datasets, loaded as dict batches
 It runs on the first CUDA card; `main(argv, device="cpu")` runs on the
 CPU (the tests do).
 
-T5 trains on one card: pipeline and context parallelism are refused as
-the JAX entry refuses them, and tensor, sequence or data parallelism
-raise naming ROADMAP.md A6 (`pretrain_bert.entry_configs`).
+Under torchrun it trains at tensor, sequence and data parallelism with
+ZeRO-1, as pretrain_bert does (`pretrain_bert.entry_configs`, JAX
+:101-104); pipeline and context parallelism are refused with the JAX
+entry's messages.
 """
 
 from __future__ import annotations
@@ -28,8 +29,10 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch.distributed as dist
 
 from megatron_llm_tpu_torch.models import T5Model
+from megatron_llm_tpu_torch.parallel.mesh import destroy_parallel
 from megatron_llm_tpu_torch.pretrain_bert import entry_configs, train_entry
 
 T5_KEYS = ["text_enc", "text_dec", "labels", "loss_mask", "enc_mask",
@@ -66,24 +69,31 @@ def main(argv=None, device="cuda"):
         # span corruption needs sentinel tokens
         p.set_defaults(vocab_extra_ids=100)
 
-    args, tokenizer, mcfg, pcfg, tcfg, dargs = entry_configs(
-        "pretrain_t5", "T5 pretraining", argv, device, "t5", add_args,
+    args, tokenizer, mcfg, pcfg, tcfg, dargs, device = entry_configs(
+        "pretrain_t5", argv, device, "t5", add_args,
         fix=lambda args, mcfg: dataclasses.replace(
             mcfg, max_position_embeddings=max(mcfg.seq_length,
                                               args.decoder_seq_length)),
-        extra_ids=True)
-    model = T5Model(mcfg, device=device)
-
-    num_samples = (tcfg.train_iters or 0) * tcfg.global_batch_size
-    train_ds, valid_ds, _ = build_train_valid_test_datasets(
-        dargs.data_path, dargs.split,
-        [num_samples, tcfg.eval_iters * tcfg.global_batch_size, 0],
-        mcfg.seq_length, args.masked_lm_prob, args.short_seq_prob,
-        tcfg.seed, tokenizer, dataset_type="t5",
-        max_seq_length_dec=args.decoder_seq_length)
-    return train_entry(model, tcfg, pcfg, get_batch, T5_KEYS, train_ds,
-                       valid_ds)
+        extra_ids=True, family="encoder-decoder",
+        what="encoder-decoder pretraining doesn't support cp")
+    try:
+        model = T5Model(mcfg, device=device)
+        num_samples = (tcfg.train_iters or 0) * tcfg.global_batch_size
+        train_ds, valid_ds, _ = build_train_valid_test_datasets(
+            dargs.data_path, dargs.split,
+            [num_samples, tcfg.eval_iters * tcfg.global_batch_size, 0],
+            mcfg.seq_length, args.masked_lm_prob, args.short_seq_prob,
+            tcfg.seed, tokenizer, dataset_type="t5",
+            max_seq_length_dec=args.decoder_seq_length)
+        return train_entry(model, tcfg, pcfg, get_batch, T5_KEYS, train_ds,
+                           valid_ds)
+    finally:
+        destroy_parallel()
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

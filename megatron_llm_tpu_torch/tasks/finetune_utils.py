@@ -7,7 +7,18 @@ port's `OptimizerParamScheduler`, AdamW through the port's
 `optimizer_step` on the fp32 params in place, validation accuracy after
 every epoch, and the best epoch's params kept (ref
 tasks/finetune_utils.py:141-337). The host stacks numpy batches; each
-step is one forward and backward on the model's device.
+step is the trainer's train step (training/train_step.py) with one
+microbatch: a forward and backward on the model's device, then AdamW.
+
+Across ranks (a parallel context, JAX :117-139) the batch size is the
+global batch and must divide by dp: each rank computes its batch / dp
+rows, the loss is the global batch's mean (the model's `loss_terms`)
+and the gradients are reduced once a step, each hidden-dropout mask its
+rows' slice of world size 1's. Under tensor (and sequence) parallelism
+each rank holds its slices of the leaves (`init_rank_state`), where the
+JAX loop keeps every leaf replicated (P(), :132-134): the same numbers,
+another layout (ROADMAP's accepted divergences). Validation runs the
+whole set on every rank.
 """
 
 from __future__ import annotations
@@ -18,15 +29,9 @@ import numpy as np
 import torch
 
 from megatron_llm_tpu_torch.models.dropout import fold_in
-from megatron_llm_tpu_torch.optimizer import (
-    OptimizerParamScheduler,
-    init_optimizer_state,
-)
-from megatron_llm_tpu_torch.optimizer.optimizer import (
-    optimizer_step,
-    tree_leaves,
-    tree_map,
-)
+from megatron_llm_tpu_torch.optimizer import OptimizerParamScheduler
+from megatron_llm_tpu_torch.optimizer.optimizer import tree_leaves, tree_map
+from megatron_llm_tpu_torch.parallel.mesh import get_context
 
 
 def _stack_batch(samples, device) -> dict:
@@ -77,16 +82,35 @@ def accuracy(model, params, dataset, batch_size: int) -> float:
 def finetune(model, params, train_ds, valid_ds, *, epochs: int,
              batch_size: int, lr: float, weight_decay: float = 0.01,
              warmup_fraction: float = 0.065, seed: int = 1234,
-             tcfg=None, log_interval: int = 50, losses=None):
-    """Run the loop; returns (the best epoch's params, the last epoch's
-    without a validation set, and the best validation accuracy). Each
-    step's loss, a float, is appended to `losses` when given."""
-    from megatron_llm_tpu_torch.config import TrainConfig
+             tcfg=None, pcfg=None, log_interval: int = 50, losses=None):
+    """Run the loop from the whole tree `params`; returns (the best
+    epoch's params, the last epoch's without a validation set, and the
+    best validation accuracy), this rank's slices across ranks. Each
+    step's loss, a float (the global batch's), is appended to `losses`
+    when given. `pcfg` is the run's ParallelConfig (world size 1 by
+    default)."""
+    import dataclasses
+
+    from megatron_llm_tpu_torch.config import ParallelConfig, TrainConfig
+    from megatron_llm_tpu_torch.training.train_step import make_train_step
+    from megatron_llm_tpu_torch.training.trainer import init_rank_state
 
     tcfg = tcfg or TrainConfig(micro_batch_size=batch_size,
                                global_batch_size=batch_size, lr=lr,
                                weight_decay=weight_decay)
-    opt_state = init_optimizer_state(params, tcfg)
+    pcfg = dataclasses.replace(pcfg or ParallelConfig(), num_microbatches=1)
+    ctx = get_context()
+    ctx = ctx if ctx is not None and ctx.world_size > 1 else None
+    dp, dp_rank = (ctx.dp, ctx.dp_rank) if ctx is not None else (1, 0)
+    if batch_size % dp:
+        raise ValueError(f"batch size {batch_size} must divide dp={dp}")
+    rows = slice(dp_rank * batch_size // dp,
+                 (dp_rank + 1) * batch_size // dp)
+    dev = _device(params)
+    _, params, opt_state = init_rank_state(ctx, model.cfg, params, tcfg,
+                                           pcfg, dev)
+    # the builder's keywords are `_stack_batch`'s
+    step = make_train_step(model, tcfg, pcfg, batch_builder=_stack_batch)
     steps_per_epoch = len(train_ds) // batch_size
     total_steps = max(1, epochs * steps_per_epoch)
     sched = OptimizerParamScheduler(
@@ -95,53 +119,41 @@ def finetune(model, params, train_ds, valid_ds, *, epochs: int,
         lr_decay_steps=total_steps, lr_decay_style="linear",
         start_wd=weight_decay, end_wd=weight_decay,
         wd_incr_steps=total_steps, wd_incr_style="constant")
-    leaves = tree_leaves(params)
-    for p in leaves:
+    for p in tree_leaves(params):
         p.requires_grad_(True)
-    dev = _device(params)
     rng = np.random.RandomState(seed)
     dropout_base = seed + 1
     best_acc, best_params, it = 0.0, None, 0
     for epoch in range(epochs):
         t0 = time.time()
         for samples in _batches(train_ds, batch_size, rng=rng):
-            b = _stack_batch(samples, dev)
+            batch = {k: v[None] for k, v in
+                     _stack_batch(samples[rows], dev).items()}
             # advance first, so step 1 trains at max_lr / warmup_steps
             sched.step()
-            for p in leaves:
-                p.grad = None
-            with torch.enable_grad():
-                loss = model.loss(
-                    params, b["tokens"], b["labels"],
-                    attention_mask=b["attention_mask"],
-                    tokentype_ids=b["tokentype_ids"],
-                    dropout_rng=fold_in(dropout_base, it),
-                    deterministic=False)
-                loss.backward()
-            grads = [torch.zeros_like(p) if p.grad is None else p.grad
-                     for p in leaves]
-            _, opt_state, _ = optimizer_step(
-                params, grads, opt_state, tcfg, sched.get_lr(),
-                weight_decay=weight_decay)
-            for p in leaves:
-                p.grad = None
+            params, opt_state, stats = step(
+                params, opt_state, batch, sched.get_lr(), weight_decay,
+                rng=fold_in(dropout_base, it))
             it += 1
             if losses is not None or it % log_interval == 0:
-                loss_val = float(loss.detach())
+                loss_val = float(stats["loss"])
                 if losses is not None:
                     losses.append(loss_val)
-                if it % log_interval == 0:
+                if it % log_interval == 0 and (ctx is None
+                                               or ctx.rank == 0):
                     print(f"epoch {epoch} iter {it}/{total_steps} | "
                           f"loss {loss_val:.4f} | lr {sched.get_lr():.3E}",
                           flush=True)
+        step.drain()
         if valid_ds is not None and len(valid_ds):
             acc = accuracy(model, params, valid_ds, batch_size)
             if acc >= best_acc:
                 # the params change in place: keep a copy of the best
                 best_acc = acc
                 best_params = tree_map(lambda p: p.detach().clone(), params)
-            print(f"epoch {epoch} done in {time.time() - t0:.1f}s | "
-                  f"validation accuracy: {acc:.4f}", flush=True)
+            if ctx is None or ctx.rank == 0:
+                print(f"epoch {epoch} done in {time.time() - t0:.1f}s | "
+                      f"validation accuracy: {acc:.4f}", flush=True)
     if best_params is None:
         return params, best_acc
     for p in tree_leaves(best_params):

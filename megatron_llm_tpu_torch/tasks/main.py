@@ -30,10 +30,17 @@ ten tasks:
 
 The parser is the JAX entry's: the base flags and `get_tasks_args`. It
 runs on the first CUDA card; `main(argv, device="cpu")` runs on the CPU
-(the tests do). Every task runs on one card: the encoder at tp, SP or dp
-above 1 raises by name (ROADMAP.md A6.4), and so does a GPT-family task
-at world size above 1. A task refuses an argv where the JAX entry does,
-naming the same missing flag. Without `--load` (or
+(the tests do). Under torchrun the encoder tasks (MNLI, QQP, RACE and
+the retrieval tasks) run at tensor, sequence and data parallelism, as
+the JAX entry's `initialize_parallel(dp, pp=1, tp, ...)` does, one
+process per rank: the finetuning batch is the global batch, each rank
+computing its batch / dp rows (tasks/finetune_utils.py,
+tasks/orqa/supervised.py), and RETRIEVER-EVAL and ICT-ZEROSHOT-NQ embed
+each rank's share of the evidence into the store's per-rank shards and
+merge them. Pipeline and context parallelism are refused with the JAX
+entry's message; a GPT-family task at world size above 1 raises by name
+(ROADMAP.md). A task refuses an argv where the JAX entry does, naming
+the same missing flag. Without `--load` (or
 `--pretrained_checkpoint`) the model starts from its random init.
 """
 
@@ -42,6 +49,14 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
+
+from megatron_llm_tpu_torch.parallel.mesh import (
+    destroy_parallel,
+    get_context,
+    maybe_initialize_distributed,
+    rank_device,
+)
 
 
 def get_tasks_args(parser):
@@ -116,12 +131,47 @@ def load_pretrained_encoder(path: str, mcfg, device) -> dict:
     return restored[0]
 
 
+def encoder_layout(args, mcfg, pcfg, device):
+    """Refuse pp and cp with the JAX entry's message (:101-104) and
+    install the dp x tp layout on this rank's `device`. `main` destroys
+    the layout."""
+    from megatron_llm_tpu_torch.pretrain_bert import (
+        check_encoder_layout,
+        initialize_encoder_parallel,
+    )
+
+    check_encoder_layout(pcfg, "encoder",
+                         "encoder finetuning tasks don't support cp")
+    initialize_encoder_parallel(args, mcfg, pcfg, device)
+
+
+def whole_params(params: dict, cfg) -> dict:
+    """The whole tree of this rank's slices (a collective every rank
+    enters); `params` itself at world size 1."""
+    from megatron_llm_tpu_torch.parallel.sharding import gather_params
+
+    ctx = get_context()
+    if ctx is None or ctx.world_size == 1:
+        return params
+    return gather_params(params, ctx, cfg)
+
+
+def save_whole(path: str, params: dict, cfg) -> None:
+    """Rank 0 saves the whole tree as iteration 0, weights only."""
+    from megatron_llm_tpu_torch.training.checkpointing import (
+        save_checkpoint,
+    )
+
+    ctx = get_context()
+    if ctx is None or ctx.rank == 0:
+        save_checkpoint(path, 0, params, None, cfg)
+
+
 def finetune_main(args, device, losses=None):
     """Classification finetuning (JAX :77-183); returns (params, best
     validation accuracy, final validation accuracy or None)."""
     from megatron_llm_tpu_torch.arguments import args_to_configs
     from megatron_llm_tpu_torch.models import Classification, MultipleChoice
-    from megatron_llm_tpu_torch.pretrain_bert import check_single_card
     from megatron_llm_tpu_torch.tasks.finetune_utils import (
         accuracy,
         finetune,
@@ -131,7 +181,7 @@ def finetune_main(args, device, losses=None):
     args.model_name = "bert"
     mcfg, pcfg, tcfg, _ = args_to_configs(args, tokenizer.vocab_size)
     mcfg = dataclasses.replace(mcfg, add_binary_head=False)
-    check_single_card(pcfg, f"{args.task} finetuning")
+    encoder_layout(args, mcfg, pcfg, device)
     if args.task == "MNLI":
         from megatron_llm_tpu_torch.tasks.glue.mnli import MNLIDataset as DS
 
@@ -169,51 +219,52 @@ def finetune_main(args, device, losses=None):
         weight_decay=tcfg.weight_decay, seed=tcfg.seed,
         warmup_fraction=(args.lr_warmup_fraction
                          if args.lr_warmup_fraction is not None else 0.065),
-        tcfg=tcfg, log_interval=args.log_interval, losses=losses)
+        tcfg=tcfg, pcfg=pcfg, log_interval=args.log_interval,
+        losses=losses)
     final = None
     if valid_ds is not None:
         final = accuracy(model, params, valid_ds, args.micro_batch_size)
         print(f"final validation accuracy: {final:.4f} (best {best:.4f})",
               flush=True)
+    params = whole_params(params, model.cfg)
     if args.save:
-        from megatron_llm_tpu_torch.training.checkpointing import (
-            save_checkpoint,
-        )
-
-        save_checkpoint(args.save, 0, params, None, mcfg)
+        save_whole(args.save, params, mcfg)
         print(f"saved finetuned weights to {args.save}", flush=True)
     return params, best, final
 
 
-def _biencoder(args, device, what, checkpoint):
-    """(model, params, tokenizer, tcfg) of the retrieval tasks: BERT
-    towers from the base flags, the weights of `checkpoint`'s newest
-    save, or the random init without one."""
+def _biencoder(args, device, checkpoint):
+    """(model, params, tokenizer, tcfg) of the retrieval tasks:
+    BERT towers from the base flags, the weights of `checkpoint`'s
+    newest save, or the random init without one; across ranks this
+    rank's slices of them."""
     from megatron_llm_tpu_torch.arguments import args_to_configs
     from megatron_llm_tpu_torch.models.biencoder import BiEncoderModel
-    from megatron_llm_tpu_torch.pretrain_bert import check_single_card
 
     tokenizer = _tokenizer(args, "BertWordPieceLowerCase")
     args.model_name = "bert"
     mcfg, pcfg, tcfg, _ = args_to_configs(args, tokenizer.vocab_size)
     mcfg = dataclasses.replace(mcfg, add_binary_head=False)
-    check_single_card(pcfg, what)
+    encoder_layout(args, mcfg, pcfg, device)
     model = BiEncoderModel(
         mcfg, projection_dim=args.biencoder_projection_dim,
         shared_query_context_model=args.biencoder_shared_query_context_model,
         device=device)
-    if not checkpoint:
-        return model, model.init(seed=tcfg.seed), tokenizer, tcfg
+    from megatron_llm_tpu_torch.parallel.sharding import shard_params
     from megatron_llm_tpu_torch.training.checkpointing import (
         load_checkpoint,
     )
 
-    restored = load_checkpoint(checkpoint, model.abstract_params(), None,
-                               None, finetune=True, no_load_optim=True,
-                               device=device)
-    if restored is None:
-        raise FileNotFoundError(f"no checkpoint found in {checkpoint}")
-    return model, restored[0], tokenizer, tcfg
+    if checkpoint:
+        restored = load_checkpoint(checkpoint, model.abstract_params(),
+                                   None, None, finetune=True,
+                                   no_load_optim=True, device=device)
+        if restored is None:
+            raise FileNotFoundError(f"no checkpoint found in {checkpoint}")
+        params = restored[0]
+    else:
+        params = model.init(seed=tcfg.seed)
+    return model, shard_params(params, get_context(), mcfg), tokenizer, tcfg
 
 
 def retriever_eval_main(args, device):
@@ -230,8 +281,7 @@ def retriever_eval_main(args, device):
         raise SystemExit("--evidence_data_path is required")
     if not (args.qa_data_dev or args.qa_data_test):
         raise SystemExit("--qa_data_dev and/or --qa_data_test is required")
-    model, params, tokenizer, _ = _biencoder(args, device, args.task,
-                                             args.load)
+    model, params, tokenizer, _ = _biencoder(args, device, args.load)
     evaluator = ORQAEvaluator(model, params, tokenizer,
                               seq_length=args.retriever_seq_length,
                               batch_size=args.micro_batch_size)
@@ -266,7 +316,7 @@ def retriever_finetune_main(args, device, losses=None):
         raise SystemExit("--train_data (DPR-format json) is required")
     # --load is the generic flag: an alias of --pretrained_checkpoint
     model, params, tokenizer, tcfg = _biencoder(
-        args, device, args.task, args.pretrained_checkpoint or args.load)
+        args, device, args.pretrained_checkpoint or args.load)
     train_ds = OpenRetrievalDataset(
         args.train_data[0], tokenizer,
         max_seq_length=args.retriever_seq_length,
@@ -280,12 +330,9 @@ def retriever_finetune_main(args, device, losses=None):
         batch_size=args.micro_batch_size, lr=tcfg.lr,
         use_hard_negatives=args.use_hard_negatives, seed=tcfg.seed,
         log_interval=args.log_interval, losses=losses)
+    params = whole_params(params, model.cfg)
     if args.save:
-        from megatron_llm_tpu_torch.training.checkpointing import (
-            save_checkpoint,
-        )
-
-        save_checkpoint(args.save, 0, params, None, model.cfg)
+        save_whole(args.save, params, model.cfg)
         print(f"saved finetuned retriever to {args.save}", flush=True)
     return params
 
@@ -361,7 +408,19 @@ def main(argv=None, device="cuda", losses=None):
         raise RuntimeError("tasks.main: no CUDA device (call "
                            "main(argv, device='cpu') to run on the CPU)")
     args = get_tasks_args(build_base_parser()).parse_args(argv)
-    device = torch.device(device)
+    # torchrun's group first (a rank's device): dp defaults to the ranks
+    # over tp
+    device = rank_device(device)
+    maybe_initialize_distributed(args.distributed_backend, device)
+    try:
+        out = _run(args, device, losses)
+    finally:
+        destroy_parallel()
+    print("done :-)")
+    return out
+
+
+def _run(args, device, losses):
     if args.task in ("MNLI", "QQP", "RACE"):
         out = finetune_main(args, device, losses)
     elif args.task == "MSDP-EVAL-F1":
@@ -380,9 +439,12 @@ def main(argv=None, device="cuda", losses=None):
         out = retriever_finetune_main(args, device, losses)
     else:
         out = lm_main(args, device)
-    print("done :-)")
     return out
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()

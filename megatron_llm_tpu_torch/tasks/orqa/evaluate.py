@@ -7,11 +7,21 @@ hit rates.
 Texts are embedded a fixed batch shape at a time: the last batch is
 padded with empty strings, as in the JAX package, so that every row
 sees the same batch shape.
+
+Under data parallelism (tasks/main.py under torchrun) each dp rank
+embeds its contiguous share of the evidence, its tp rank 0 writes the
+share to the store's per-rank shard (data/realm_index.py, the JAX
+store's own layout), rank 0 merges the shards once all are written, and
+every rank searches the merged store; the store's row ids are evidence
+positions.
 """
 
 from __future__ import annotations
 
 import csv
+import os
+import shutil
+import tempfile
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -93,9 +103,50 @@ class ORQAEvaluator:
 
     def build_index(self, docs: List[Tuple[object, str, str]]):
         """Embed the evidence texts with the CONTEXT tower; `docs` =
-        [(doc_id, text, title)]."""
-        return self._set_evidence(
-            docs, self._embed_texts([d[1] for d in docs], "context"))
+        [(doc_id, text, title)]. Under data parallelism each dp rank
+        embeds its share into the store's shards (module doc)."""
+        from megatron_llm_tpu_torch.parallel.mesh import get_context
+
+        ctx = get_context()
+        if ctx is None or ctx.dp == 1:
+            return self._set_evidence(
+                docs, self._embed_texts([d[1] for d in docs], "context"))
+        return self._set_evidence(docs, self._sharded_embeddings(docs, ctx))
+
+    def _sharded_embeddings(self, docs, ctx) -> np.ndarray:
+        """Every doc's context embedding in `docs` order, each dp rank
+        embedding rows [r n / dp, (r + 1) n / dp) into its store shard,
+        merged by rank 0 in a directory rank 0 made."""
+        import torch.distributed as dist
+
+        from megatron_llm_tpu_torch.data.realm_index import (
+            OpenRetrievalDataStore,
+        )
+        from megatron_llm_tpu_torch.parallel.mesh import barrier
+
+        where = [tempfile.mkdtemp(prefix="evidence_store_")
+                 if ctx.rank == 0 else None]
+        dist.broadcast_object_list(where, src=0, group=ctx.world_group)
+        path = os.path.join(where[0], "evidence")
+        n, r = len(docs), ctx.dp_rank
+        lo, hi = r * n // ctx.dp, (r + 1) * n // ctx.dp
+        emb = self._embed_texts([d[1] for d in docs[lo:hi]], "context") \
+            if hi > lo else None
+        if ctx.tp_rank == 0 and emb is not None:
+            store = OpenRetrievalDataStore(path, load_from_path=False,
+                                           rank=r)
+            store.add_block_data(np.arange(lo, hi), emb)
+            store.save_shard()
+        barrier(ctx)
+        if ctx.rank == 0:
+            OpenRetrievalDataStore(path, load_from_path=False,
+                                   rank=0).merge_shards_and_save()
+        barrier(ctx)
+        merged = OpenRetrievalDataStore(path, rank=r).embed_data
+        barrier(ctx)
+        if ctx.rank == 0:
+            shutil.rmtree(where[0])
+        return np.stack([merged[i] for i in range(n)]).astype(np.float32)
 
     def load_index(self, docs: List[Tuple[object, str, str]],
                    embedding_path: str):

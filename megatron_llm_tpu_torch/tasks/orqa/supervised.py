@@ -9,6 +9,17 @@ The optimizer is the JAX package's `optax.adamw(lr)` at its defaults:
 b1 0.9, b2 0.999, eps 1e-8, bias-corrected moments, decoupled weight
 decay 1e-4 on every leaf (not the trainer's AdamW with its decay
 masks); `adamw_step` computes that rule leaf by leaf in fp32.
+
+Across ranks (tasks/main.py under torchrun) the batch size is the
+global batch and must divide by dp: every rank reads the whole batch
+(the hard negatives are drawn in read order) and computes its batch / dp
+queries; each query's softmax runs over the global batch's positive and
+hard-negative contexts (all-gathered over dp, `gather_from_data_
+parallel`, as the JAX loss sees the whole batch), the loss is the
+global batch's mean and the gradients are summed over dp once a step.
+Under tensor (and sequence) parallelism the towers are BERT's parallel
+encoder on this rank's slices; the AdamW rule is elementwise, so each
+rank updates its slices.
 """
 
 from __future__ import annotations
@@ -21,6 +32,10 @@ import torch
 
 from megatron_llm_tpu_torch.optimizer.optimizer import tree_leaves, tree_map
 from megatron_llm_tpu_torch.parallel.cross_entropy import cross_entropy
+from megatron_llm_tpu_torch.parallel.mappings import (
+    gather_from_data_parallel,
+)
+from megatron_llm_tpu_torch.parallel.mesh import all_reduce, get_context
 
 NEG_INF = -1e30
 ADAMW_B1, ADAMW_B2, ADAMW_EPS, ADAMW_DECAY = 0.9, 0.999, 1e-8, 1e-4
@@ -109,33 +124,47 @@ def _embed(model, tower, params, tokens, mask):
 
 def make_loss_fn(model, use_hard_negatives: bool):
     """loss_fn(params, batch of tensors) -> (mean in-batch retrieval CE,
-    in-batch top-1), both 0-d fp32; hard negatives append b context
-    columns, pad rows masked out by `neg_valid` (JAX :126-160)."""
+    in-batch top-1), both 0-d fp32; hard negatives append B context
+    columns, pad rows masked out by `neg_valid` (JAX :126-160). Under
+    data parallelism `batch` holds this rank's queries, the contexts
+    are the global batch's and the loss this rank's share of the global
+    mean: its queries' sum over the global count (the ranks' losses sum
+    to the mean, and so do their gradients)."""
 
     def loss_fn(params, batch):
         q = _embed(model, "query", params, batch["query"],
                    batch["query_mask"])
-        c = _embed(model, "context", params, batch["context"],
-                   batch["context_mask"])
+        c = gather_from_data_parallel(_embed(
+            model, "context", params, batch["context"],
+            batch["context_mask"]).float())
+        total = c.shape[0]  # the global batch's queries
+        ctx = get_context()
+        row0 = ctx.dp_rank * q.shape[0] if ctx is not None else 0
         col_mask = None
         if use_hard_negatives and "neg_context" in batch:
-            n = _embed(model, "context", params, batch["neg_context"],
-                       batch["neg_context_mask"])
-            c = torch.cat([c, n], dim=0)  # (2b, d)
+            n = gather_from_data_parallel(_embed(
+                model, "context", params, batch["neg_context"],
+                batch["neg_context_mask"]).float())
+            c = torch.cat([c, n], dim=0)  # (2B, d)
             col_mask = torch.cat([
-                torch.ones((q.shape[0],), dtype=torch.float32,
+                torch.ones((n.shape[0],), dtype=torch.float32,
                            device=q.device),
-                batch["neg_valid"].float()])
-        scores = q.float() @ c.float().T
+                gather_from_data_parallel(batch["neg_valid"].float())])
+        scores = q.float() @ c.T
         if col_mask is not None:
             scores = torch.where(col_mask[None, :] > 0, scores,
                                  torch.full_like(scores, NEG_INF))
-        targets = torch.arange(q.shape[0], device=q.device)
+        targets = row0 + torch.arange(q.shape[0], device=q.device)
         losses = cross_entropy(scores, targets)
-        top1 = (torch.argmax(scores, dim=-1) == targets).float().mean()
-        return losses.mean(), top1
+        top1 = (torch.argmax(scores, dim=-1) == targets).float().sum()
+        return losses.sum() / total, top1 / total
 
     return loss_fn
+
+
+def _rank_ctx():
+    ctx = get_context()
+    return ctx if ctx is not None and ctx.world_size > 1 else None
 
 
 def to_device(batch: dict, device) -> dict:
@@ -195,11 +224,29 @@ def finetune_retriever(model, params, train_ds, valid_ds=None,
                        losses: Optional[list] = None):
     """The epoch loop (JAX :191-235): each epoch a RandomState(seed)
     permutation of the training samples, whole batches only, validation
-    after each epoch. Returns the trained params; `losses`, a list,
-    receives each step's (loss, in-batch top-1)."""
+    after each epoch. Returns the trained params (this rank's slices
+    across ranks); `losses`, a list, receives each step's (loss,
+    in-batch top-1), the global batch's."""
+    from megatron_llm_tpu_torch.parallel.sharding import (
+        model_axis,
+        param_specs,
+        spec_leaves,
+    )
+    from megatron_llm_tpu_torch.training.train_step import (
+        sequence_parallel_grads,
+    )
+
+    ctx = _rank_ctx()
+    dp, dp_rank = (ctx.dp, ctx.dp_rank) if ctx is not None else (1, 0)
+    if batch_size % dp:
+        raise ValueError(f"batch size {batch_size} must divide dp={dp}")
+    rows = slice(dp_rank * batch_size // dp,
+                 (dp_rank + 1) * batch_size // dp)
     loss_fn = make_loss_fn(model, use_hard_negatives)
     params = tree_map(lambda p: p.detach().clone().float()
                       .requires_grad_(True), params)
+    tp_sharded = [model_axis(sp) is not None
+                  for sp in spec_leaves(param_specs(model.cfg, params))]
     state = {"count": 0,
              "mu": tree_map(torch.zeros_like, params),
              "nu": tree_map(torch.zeros_like, params)}
@@ -209,18 +256,32 @@ def finetune_retriever(model, params, train_ds, valid_ds=None,
     for epoch in range(epochs):
         order = rng.permutation(len(train_ds))
         for lo in range(0, len(train_ds) - batch_size + 1, batch_size):
-            batch = to_device(host_batch(train_ds, order[lo:lo + batch_size]),
+            # every rank reads the whole batch: the draws follow reads
+            whole = host_batch(train_ds, order[lo:lo + batch_size])
+            batch = to_device({k: v[rows] for k, v in whole.items()},
                               model.device)
             for p in tree_leaves(params):
                 p.grad = None
             loss, top1 = loss_fn(params, batch)
             loss.backward()
+            if ctx is not None:
+                for p in tree_leaves(params):
+                    if p.grad is None:
+                        p.grad = torch.zeros_like(p)
+                grads = sequence_parallel_grads(
+                    [p.grad for p in tree_leaves(params)], tp_sharded, ctx)
+                for g in grads:
+                    all_reduce(g, ctx.dp_group, ctx=ctx)
+                stats = all_reduce(torch.stack([loss.detach(),
+                                                top1.detach()]),
+                                   ctx.dp_group, ctx=ctx)
+                loss, top1 = stats[0], stats[1]
             adamw_step(params, state, lr)
             it += 1
             loss, top1 = float(loss.detach()), float(top1)
             if losses is not None:
                 losses.append((loss, top1))
-            if it % log_interval == 0:
+            if it % log_interval == 0 and (ctx is None or ctx.rank == 0):
                 print(f"epoch {epoch} iter {it}: loss {loss:.4f} in-batch "
                       f"top1 {top1:.3f}", flush=True)
         if valid_ds is not None:

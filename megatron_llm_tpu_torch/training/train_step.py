@@ -51,9 +51,13 @@ all-gathers are issued after AdamW in forward order and each is waited
 for just before the next forward first reads its leaves;
 `train_step.drain()` waits for all of them (the trainer calls it before
 an eval, a save and the end of training). With a `batch_builder` (the
-encoder family) each microbatch's dict is the model's loss keywords, at
-world size 1; the overlap and quantized-reduce flags are refused with
-it, as the JAX step refuses them.
+encoder family) each microbatch's dict is the model's loss keywords,
+reduced across ranks through the model's `loss_terms` as GPT's batch
+is; the overlap and quantized-reduce flags are refused with it, as the
+JAX step refuses them. `loss_terms` returns (numerator, denominator),
+0-d or 1-d: a loss of several means (BERT's masked-LM token mean and
+sentence-order sample mean) is sum(num / den), each denominator summed
+over the dp and cp groups.
 """
 
 from __future__ import annotations
@@ -128,7 +132,6 @@ def make_train_step(model, tcfg: TrainConfig, pcfg: ParallelConfig,
     Params and state are updated in place and returned. Under ZeRO-1
     `opt_state`'s moments hold this rank's blocks (the trainer's
     `StateLayout` makes them)."""
-    ctx = check_layout(model, pcfg)
     if batch_builder is not None:
         # the builder's batch is the model's own loss keywords, not the
         # loss_terms surface the reductions across ranks split (JAX
@@ -140,11 +143,7 @@ def make_train_step(model, tcfg: TrainConfig, pcfg: ParallelConfig,
                 f"{', '.join(flags)} require(s) the explicit ZeRO-1 path, "
                 "which this run cannot take: a batch_builder is installed "
                 "(its batch is not the loss_terms surface)")
-        if ctx is not None:
-            raise ValueError(
-                "a batch_builder (the encoder family's batches) trains at "
-                "world size 1 only: the encoder's parallel layouts are "
-                "ROADMAP.md A6")
+    ctx = check_layout(model, pcfg)
     num_micro = pcfg.num_microbatches
     scaler = get_grad_scaler(tcfg)
     dp = 1 if ctx is None else ctx.dp
@@ -244,7 +243,7 @@ def make_train_step(model, tcfg: TrainConfig, pcfg: ParallelConfig,
                         num, den = model.loss_terms(params, **kw)
                         den = sum_over_tokens(den.detach().clone(),
                                               ctx).clamp(min=1.0)
-                        l_i = num / den
+                        l_i = (num / den).sum()
                         nums.append(num.detach())
                         dens.append(den)
                     if last is not None:
@@ -259,7 +258,7 @@ def make_train_step(model, tcfg: TrainConfig, pcfg: ParallelConfig,
             # before the division, as the JAX package reduces them
             nums = sum_over_tokens(torch.stack(nums), ctx)
             for num, den in zip(nums, dens):
-                loss = loss + num / den
+                loss = loss + (num / den).sum()
         return loss / num_micro if num_micro > 1 else loss
 
     def train_step(params, opt_state: OptimizerState, batch, lr, wd,

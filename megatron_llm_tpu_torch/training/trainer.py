@@ -131,7 +131,11 @@ from megatron_llm_tpu_torch.optimizer.zero1 import (
     build_zero1_plan,
     map_indexed,
 )
-from megatron_llm_tpu_torch.parallel.mesh import gather_rows, get_context
+from megatron_llm_tpu_torch.parallel.mesh import (
+    gather_rows,
+    get_context,
+    sum_over_tokens,
+)
 from megatron_llm_tpu_torch.parallel.multihost import (
     AutoResume,
     all_hosts_any,
@@ -379,6 +383,25 @@ class StateLayout:
         return map_indexed(zeros, params)[0]
 
 
+def init_rank_state(ctx, cfg, params: dict, tcfg: TrainConfig,
+                    pcfg: ParallelConfig, device):
+    """(StateLayout or None, this rank's params, fresh optimizer state)
+    from the whole tree `params`: at world size 1 (`ctx` None) the tree
+    itself; across ranks its slices (`shard_params`) and zero moments of
+    the rank's shapes (ZeRO-1 blocks under --use_distributed_optimizer)."""
+    if ctx is None:
+        return None, params, init_optimizer_state(params, tcfg)
+    layout = StateLayout(ctx, cfg, params, pcfg.use_distributed_optimizer,
+                         pcfg.grad_rs_bucket_mb, pcfg.overlap_grad_reduce)
+    params = shard_params(params, ctx, cfg)
+    opt_state = init_optimizer_state({}, tcfg, device=device)
+    opt_state = opt_state._replace(
+        m=layout.zero_moments(params, device),
+        v=layout.zero_moments(params, device)
+        if tcfg.optimizer == "adam" else None)
+    return layout, params, opt_state
+
+
 @dataclass
 class TrainState:
     params: Any
@@ -523,20 +546,8 @@ class Trainer:
         if params is None:
             params = self.model.init(seed=self.tcfg.seed)
         self._n_params = sum(p.numel() for p in tree_leaves(params))
-        if self.ctx is None:
-            opt_state = init_optimizer_state(params, self.tcfg)
-        else:
-            self.layout = StateLayout(self.ctx, self.cfg, params,
-                                      self.pcfg.use_distributed_optimizer,
-                                      self.pcfg.grad_rs_bucket_mb,
-                                      self.pcfg.overlap_grad_reduce)
-            params = shard_params(params, self.ctx, self.cfg)
-            opt_state = init_optimizer_state({}, self.tcfg,
-                                             device=self.device)
-            moments = self.layout.zero_moments(params, self.device)
-            opt_state = opt_state._replace(
-                m=moments, v=self.layout.zero_moments(params, self.device)
-                if self.tcfg.optimizer == "adam" else None)
+        self.layout, params, opt_state = init_rank_state(
+            self.ctx, self.cfg, params, self.tcfg, self.pcfg, self.device)
         self.timers("model-and-optimizer-setup").stop()
         state = TrainState(params=params, opt_state=opt_state)
         if self.tcfg.load:
@@ -676,12 +687,24 @@ class Trainer:
         if self._eval_step_fn is None and self.batch_builder is not None:
             model = self.model
 
+            ctx = self.ctx
+            dp_cp = ctx is not None and ctx.dp * ctx.cp > 1
+
             @torch.no_grad()
             def generic_eval(params, batch):
                 n = next(iter(batch.values())).shape[0]
-                losses = [model.loss(params, deterministic=True,
-                                     **{k: v[i] for k, v in batch.items()})
-                          for i in range(n)]
+                losses = []
+                for i in range(n):
+                    kw = {k: v[i] for k, v in batch.items()}
+                    if not dp_cp:
+                        losses.append(model.loss(params, deterministic=True,
+                                                 **kw))
+                        continue
+                    # the global batch's means, as the train step's
+                    num, den = sum_over_tokens(torch.stack(
+                        model.loss_terms(params, deterministic=True, **kw)),
+                        ctx)
+                    losses.append((num / den.clamp(min=1.0)).sum())
                 return sum(losses) / len(losses)
 
             self._eval_step_fn = generic_eval

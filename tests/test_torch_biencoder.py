@@ -48,7 +48,13 @@ from megatron_llm_tpu_torch.training.checkpointing import (
 )
 from megatron_llm_tpu_torch.training.trainer import Trainer
 
-from torch_parity import close, jax_native_helpers, t
+from torch_parity import (
+    close,
+    jax_load_listing,
+    jax_native_helpers,
+    jax_saves_once_committed,
+    t,
+)
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -275,8 +281,9 @@ def test_entry_parity_jax_to_port(tmp_path, monkeypatch, tower_flags):
 
     first = []
     _record(monkeypatch, JaxTrainer, first)
-    jpi.main(base + ["--train_iters", "3", "--save", jdir,
-                     "--save_interval", "3"])
+    # one save, committed before the entry returns
+    jax_saves_once_committed(monkeypatch, JaxTrainer)
+    jpi.main(base + ["--train_iters", "3", "--save", jdir])
     assert [r[0] for r in first] == [1, 2, 3]
 
     from megatron_llm_tpu import arguments as jax_args
@@ -295,8 +302,8 @@ def test_entry_parity_jax_to_port(tmp_path, monkeypatch, tower_flags):
                         shared_query_context_model=shared).init(
         jax.random.key(0))
     opt_tmpl = jax_init_opt(tmpl, JaxTrainConfig())
-    params, opt, meta, it = jax_ckpt.load_checkpoint(jdir, tmpl, opt_tmpl,
-                                                     mcfg)
+    params, opt, meta, it = jax_load_listing(jax_ckpt.load_checkpoint,
+                                             jdir, tmpl, opt_tmpl, mcfg)
     assert it == 3
     checkpoint_from_jax(jax.tree.map(np.asarray, params),
                         jax.tree.map(np.asarray, opt), meta, pdir)
@@ -321,18 +328,22 @@ def test_entry_parity_jax_to_port(tmp_path, monkeypatch, tower_flags):
                                  else {"query", "context"})
 
 
-@pytest.mark.parametrize("flags,match", [
-    ("--tensor_model_parallel_size 2", "A6"),
-    ("--tensor_model_parallel_size 2 --sequence_parallel", "A6"),
-    ("--data_parallel_size 2", "A6"),
-    ("--pipeline_model_parallel_size 2", "pipeline_parallel_size"),
+# tp, SP and dp run under torchrun (tests/test_torch_encoder_parallel.py):
+# one process without a process group refuses their layouts; pp is
+# refused with the JAX entry's message
+@pytest.mark.parametrize("flags,error,match", [
+    ("--tensor_model_parallel_size 2", RuntimeError, "process group"),
+    ("--tensor_model_parallel_size 2 --sequence_parallel", RuntimeError,
+     "process group"),
+    ("--data_parallel_size 2", RuntimeError, "process group"),
+    ("--pipeline_model_parallel_size 2", ValueError, "encoder pretraining: pp>1"),
 ])
-def test_entry_refuses_the_parallel_layouts(tmp_path, flags, match):
+def test_entry_refuses_the_parallel_layouts(tmp_path, flags, error, match):
     vocab, data, titles = ict_corpus(tmp_path, n_docs=8)
     argv = ICT_ARGV.replace("--data_parallel_size 1", "").split() + [
         "--vocab_file", vocab, "--data_path", data, "--titles_data_path",
         titles, "--train_iters", "1", *flags.split()]
-    with pytest.raises(ValueError, match=match):
+    with pytest.raises(error, match=match):
         pretrain_ict.main(argv, device="cpu")
 
 

@@ -7,8 +7,8 @@ against the JAX package's, on the CPU in fp32 at tiny widths:
   field for field, through each package's WordPiece tokenizer;
 - the two `tasks/main.py` parsers carry the same options; a bare
   `--task` of the zero-shot, MSDP and retrieval tasks is refused by both
-  entries, naming the same flag; the encoder at world size > 1 raises by
-  name;
+  entries, naming the same flag; the encoder's multi-rank layouts are
+  refused in one process without a process group;
 - MNLI through `tasks.main` from the same pretraining checkpoint (the
   JAX save beside its `checkpoint_from_jax` copy) and the same heads:
   losses within 1e-5 step for step, the same validation accuracy; and
@@ -297,7 +297,9 @@ def test_encoder_layouts_raise_by_name(tmp_path, flags):
     vocab = write_vocab(tmp_path)
     argv = (TASK_ARGV.replace("--data_parallel_size 1", "") + " " + flags
             + f" --task MNLI --vocab_file {vocab}").split()
-    with pytest.raises(ValueError, match="A6"):
+    # these layouts run under torchrun (tests/test_torch_encoder_
+    # parallel.py); one process without a process group refuses them
+    with pytest.raises(RuntimeError, match="process group"):
         tasks_main.main(argv, device="cpu")
 
 

@@ -57,6 +57,8 @@ from megatron_llm_tpu_torch.training.checkpointing import (
 )
 from megatron_llm_tpu_torch.training.trainer import Trainer
 
+from torch_parity import jax_load_listing
+
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -447,8 +449,7 @@ def test_entry_parity_jax_to_port(tmp_path, monkeypatch):
 
     first = []
     _record(monkeypatch, JaxTrainer, first)
-    jft.main(base + ["--train_iters", "3", "--save", jdir,
-                     "--save_interval", "3"])
+    jft.main(base + ["--train_iters", "3", "--save", jdir])
     assert [r[0] for r in first] == [1, 2, 3]
 
     # the JAX save, restored by the JAX loader, into a port checkpoint
@@ -458,8 +459,8 @@ def test_entry_parity_jax_to_port(tmp_path, monkeypatch):
     model = JaxLlama(mcfg)
     tmpl = model.init(jax.random.key(0))
     opt_tmpl = jax_init_opt(tmpl, JaxTrainConfig())
-    params, opt, meta, it = jax_ckpt.load_checkpoint(jdir, tmpl, opt_tmpl,
-                                                     mcfg)
+    params, opt, meta, it = jax_load_listing(jax_ckpt.load_checkpoint,
+                                             jdir, tmpl, opt_tmpl, mcfg)
     assert it == 3
     checkpoint_from_jax(jax.tree.map(np.asarray, params),
                         jax.tree.map(np.asarray, opt), meta, pdir)

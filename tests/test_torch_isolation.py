@@ -22,6 +22,7 @@ from megatron_llm_tpu_torch import (
     pretrain_bert,
     pretrain_ict,
     pretrain_t5,
+    verify_correctness,
 )
 from megatron_llm_tpu_torch.config import tiny_config
 from megatron_llm_tpu_torch.convert.from_jax import (
@@ -94,6 +95,34 @@ def test_every_module_imports_without_jax():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0 and out.stdout.strip() == "ok", out.stderr
     assert len(_modules()) >= 20
+    # the golden-logit gate and the encoder family's parallel modules
+    assert {"megatron_llm_tpu_torch.verify_correctness",
+            "megatron_llm_tpu_torch.parallel.mappings",
+            "megatron_llm_tpu_torch.tasks.orqa.supervised",
+            "megatron_llm_tpu_torch.tasks.finetune_utils"} <= set(_modules())
+
+
+def test_verify_gate_runs_on_the_card_unless_asked_and_names_transformers():
+    """`verify_correctness` places its model on cuda unless --device says
+    otherwise (here, with no card, it raises before importing anything),
+    and where `transformers` is missing (the card's machine) it raises
+    naming the package; nothing falls back."""
+    assert verify_correctness.parse_args([]).device == "cuda"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        verify_correctness.main([])
+    script = textwrap.dedent("""
+        import sys
+        sys.modules["transformers"] = None
+        from megatron_llm_tpu_torch import verify_correctness
+        try:
+            verify_correctness.main(["--device", "cpu"])
+        except ImportError as e:
+            print("raised:", e)
+    """)
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert "raised:" in out.stdout and "`transformers`" in out.stdout, \
+        out.stdout + out.stderr
 
 
 @pytest.mark.parametrize("path", SOURCES, ids=lambda p: p.name)

@@ -65,7 +65,13 @@ from megatron_llm_tpu_torch.training.checkpointing import (
 )
 from megatron_llm_tpu_torch.training.trainer import Trainer
 
-from torch_parity import close, jax_native_helpers, t
+from torch_parity import (
+    close,
+    jax_load_listing,
+    jax_native_helpers,
+    jax_saves_once_committed,
+    t,
+)
 
 torch.set_num_threads(1)
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -436,8 +442,9 @@ def test_entry_parity_jax_to_port(tmp_path, monkeypatch):
 
     first = []
     _record(monkeypatch, JaxTrainer, first)
-    jpt.main(base + ["--train_iters", "3", "--save", jdir,
-                     "--save_interval", "3"])
+    # one save, committed before the entry returns
+    jax_saves_once_committed(monkeypatch, JaxTrainer)
+    jpt.main(base + ["--train_iters", "3", "--save", jdir])
     assert [r[0] for r in first] == [1, 2, 3]
 
     argv = base + ["--train_iters", "6"]
@@ -449,8 +456,8 @@ def test_entry_parity_jax_to_port(tmp_path, monkeypatch):
     model = JaxT5(mcfg)
     tmpl = model.init(jax.random.key(0))
     opt_tmpl = jax_init_opt(tmpl, JaxTrainConfig())
-    params, opt, meta, it = jax_ckpt.load_checkpoint(jdir, tmpl, opt_tmpl,
-                                                     mcfg)
+    params, opt, meta, it = jax_load_listing(jax_ckpt.load_checkpoint,
+                                             jdir, tmpl, opt_tmpl, mcfg)
     assert it == 3
     checkpoint_from_jax(jax.tree.map(np.asarray, params),
                         jax.tree.map(np.asarray, opt), meta, pdir)
@@ -474,18 +481,22 @@ def test_entry_parity_jax_to_port(tmp_path, monkeypatch):
     assert port_run[0][2]["text_dec"].shape[-1] == 16
 
 
-@pytest.mark.parametrize("flags,match", [
-    ("--tensor_model_parallel_size 2", "A6"),
-    ("--tensor_model_parallel_size 2 --sequence_parallel", "A6"),
-    ("--data_parallel_size 2", "A6"),
-    ("--pipeline_model_parallel_size 2", "pipeline_parallel_size"),
+# tp, SP and dp run under torchrun (tests/test_torch_encoder_parallel.py):
+# one process without a process group refuses their layouts; pp is
+# refused with the JAX entry's message
+@pytest.mark.parametrize("flags,error,match", [
+    ("--tensor_model_parallel_size 2", RuntimeError, "process group"),
+    ("--tensor_model_parallel_size 2 --sequence_parallel", RuntimeError,
+     "process group"),
+    ("--data_parallel_size 2", RuntimeError, "process group"),
+    ("--pipeline_model_parallel_size 2", ValueError, "encoder-decoder pretraining: pp>1"),
 ])
-def test_entry_refuses_the_parallel_layouts(tmp_path, flags, match):
+def test_entry_refuses_the_parallel_layouts(tmp_path, flags, error, match):
     vocab, data = t5_corpus(tmp_path, n_docs=8)
     argv = T5_ARGV.replace("--data_parallel_size 1", "").split() + [
         "--vocab_file", vocab, "--data_path", data, "--train_iters", "1",
         *flags.split()]
-    with pytest.raises(ValueError, match=match):
+    with pytest.raises(error, match=match):
         pretrain_t5.main(argv, device="cpu")
 
 

@@ -80,3 +80,32 @@ def jax_native_helpers():
         time.sleep(0.5)
         helpers._TRIED = False
     return helpers._LIB
+
+
+def jax_saves_once_committed(monkeypatch, trainer_cls):
+    """The JAX entries end with a non-blocking `trainer._save(state)`
+    after `train()` returns, which nothing waits for, so a loader that
+    reads the save next can find its directory mid-write. Every JAX save
+    is made blocking here (timing only, not numbers); with no
+    --save_interval an entry then saves once, at its end, committed
+    before it returns."""
+    inner = trainer_cls._save
+
+    def _save(self, state, blocking=False):
+        return inner(self, state, blocking=True)
+
+    monkeypatch.setattr(trainer_cls, "_save", _save)
+
+
+def jax_load_listing(load_checkpoint, path, *args, **kw):
+    """`load_checkpoint(path, ...)` of the JAX package; a failure names
+    every file under `path` (what the loader found)."""
+    import os
+
+    try:
+        return load_checkpoint(path, *args, **kw)
+    except Exception as e:
+        listing = sorted(os.path.relpath(os.path.join(d, f), path)
+                         for d, _, fs in os.walk(path) for f in fs + [""])
+        raise AssertionError(f"the JAX loader failed on {path}: {e!r}; "
+                             f"it holds {listing}") from e
