@@ -312,17 +312,34 @@ Phases, one output line each (a failure raises and exits non-zero):
    the same, K1-K7 launched on no rank. Printed with the card's name and
    power limit: ms a step on each rank (gloo through the host, one card
    shared), per-rank peak memory, ICT's loss beside ln 32;
+20c. lm_tasks_parallel: phase 20's four ranks last run `tasks.main`
+   for WIKITEXT103 and LAMBADA under `--use_flash_attn` and MSDP-PROMPT
+   (knowledge, then response) at tp 2 x dp 2 with sequence parallelism
+   (gloo), on phases 27 and 28's model (Llama-2-7B widths at 4 of 32
+   layers, the seed's weights) and files, held to those phases' world
+   size 1 runs: the WikiText average loss within 1e-3, at every LAMBADA
+   answer position each rank's top logit of its vocabulary shard within
+   5e-2 of world size 1's, the shard's and the global argmax equal where
+   world size 1's top-2 margin is at least 5e-2, and the verdicts sample
+   by sample (one under that margin counted and printed), each MSDP stream
+   teacher-forced through the fp32 plain model within 5e-2, every rank
+   the same metrics; K4 on every rank once a layer an evaluation batch
+   and K1 once a layer a decode step, each at the rank's 16 KV groups.
+   Printed with the card's name and power limit: the corpora's sizes,
+   ms an evaluation batch and a decode step on each rank (gloo through
+   the host, one card shared);
 21. pipeline: `torchrun --nproc_per_node 2` runs `finetune.main` at pp 2
    (`--pipeline_model_parallel_size 2 --pipeline_remat tick
    --async_pipeline_dispatch`: each tick's next receive posted before
    it computes, the recipe's flags, 2 of 32 layers, 1 a stage) over
    gloo, both stages on
-   cuda:0: 2 steps (PP_STEPS) and a save with the optimizer state, then
-   the same ranks resume it (optimizer state included) for step 3 and
+   cuda:0: 1 step (PP_STEPS; 2 before lm_tasks_parallel) and a save
+   with the optimizer state, then
+   the same ranks resume it (optimizer state included) for step 2 and
    serve it through the API (a pipelined score, four greedy requests
-   through the stage ring), and world size 1 resumes the save for step 3
+   through the stage ring), and world size 1 resumes the save for step 2
    and serves it whole-batch. Losses and grad norms within 2e-2 / 5e-2
-   of world size 1 (phase 19's (a)), step 3 at pp 2 and pp 1 within
+   of world size 1 (phase 19's (a)), step 2 at pp 2 and pp 1 within
    1e-4, every leaf of the checkpoint (Adam moments included) cut into
    each stage's pieces equal to what the stage held, the scorer's
    log-probs within 5e-2 of the whole-batch route's and the ring's over
@@ -349,16 +366,16 @@ Phases, one output line each (a failure raises and exits non-zero):
 22. context_parallel: `torchrun --nproc_per_node 2` runs `finetune.main`
    at cp 2 (`--context_parallel_size 2`, the recipe's flags, 2 of 32
    layers, seq 4096: 2048 positions a rank; attention the ring of
-   parallel/ring_attention.py) over gloo, both ranks on cuda:0: 2 steps
-   (CP_STEPS) and a save with the optimizer state, then the same ranks
-   resume it for step 3 and run ring attention at the recipe's
-   CodeLlama-7B preset
+   parallel/ring_attention.py) over gloo, both ranks on cuda:0: 1 step
+   (CP_STEPS; 2 before lm_tasks_parallel) and a save with the optimizer
+   state, then the same ranks resume it for step 2 and run ring
+   attention at the recipe's CodeLlama-7B preset
    (seq 16384, 8192 a rank, g 32, d 128) against the one-rank K4-K6 on
    the whole sequence on the card (o within 5e-3, o, dq, dk, dv
    cosines >= 0.98) and one layer under each recompute policy (K4 twice a visible
    hop under full, once under the others), and world size 1 resumes
-   the save for step 3. Losses and grad
-   norms within 2e-2 / 5e-2 of world size 1 ((a)), step 3 at cp 2,
+   the save for step 2. Losses and grad
+   norms within 2e-2 / 5e-2 of world size 1 ((a)), step 2 at cp 2,
    world size 1 and uninterrupted within 2e-2, every leaf of the
    checkpoint equal to what each rank held; per rank K4, K5 and K6 by
    mask: cp rank 0 8 causal a step, rank 1 8 causal and 8 full (its
@@ -5763,6 +5780,7 @@ def finetune_rank(out_dir, argvs_file):
             runs.append(cp_ring(**argv) if "ring_seq" in argv
                         else cp_remat(**argv) if "policies" in argv
                         else encoder_run(**argv) if "encoder" in argv
+                        else lm_task_run(**argv) if "lm_task" in argv
                         else pp_serve(**argv))
             continue
         fps = {}
@@ -5927,7 +5945,7 @@ def check_parallel_telemetry(tel, first):
             "train_step_spans_per_rank": traces}
 
 
-def finetune_parallel(kernels, data, one, enc):
+def finetune_parallel(kernels, data, one, enc, lm):
     """`torchrun --nproc_per_node 4 ... finetune.main` at tp 2 x dp 2
     with sequence parallelism and ZeRO-1 over gloo, the four ranks on
     cuda:0, on the recipe's flags at Llama-2-7B widths (FT_LAYERS of 32,
@@ -5939,8 +5957,10 @@ def finetune_parallel(kernels, data, one, enc):
     5e-2; the checkpoint cut back into each rank's pieces bit for bit;
     K4-K6 launches per rank as the layout implies; per-rank peak
     memory. The same four ranks then run the encoder_parallel phase's
-    entries (`encoder_argvs(enc)`): returns their records, one list a
-    rank, which that phase checks."""
+    entries (`encoder_argvs(enc)`) and the lm_tasks_parallel phase's
+    tasks (`lm_task_argvs(*lm)`): returns their records, (encoder
+    records, task records), one list a rank each, which those phases
+    check."""
     ck = FT_DIR / "parallel_ck"
     tel = FT_DIR / "parallel_telemetry"
     base = mode_argv(data, *RECIPE, "--bf16", "--train_iters", "4")
@@ -5954,10 +5974,13 @@ def finetune_parallel(kernels, data, one, enc):
                              str(tel / "tb"), "--trace_dir",
                              str(tel / "trace")],
          base + PAR_FLAGS + ["--load", str(ck)] + after]
-        + [{"encoder": m, "argv": par} for m, par, _ in encoder_argvs(enc)],
+        + [{"encoder": m, "argv": par} for m, par, _ in encoder_argvs(enc)]
+        + [{"lm_task": n, "argv": a} for n, a in lm_task_argvs(*lm)],
         nproc=PAR_RANKS)
     ranks_s = time.perf_counter() - t0
-    encoder_recs = [r[2:] for r in ranks]
+    n_enc = len(encoder_argvs(enc))
+    encoder_recs = [r[2:2 + n_enc] for r in ranks]
+    lm_recs = [r[2 + n_enc:] for r in ranks]
     first = [r[0] for r in ranks]
     resumed = [r[1] for r in ranks]
     ref = one["stats"]
@@ -6034,6 +6057,7 @@ def finetune_parallel(kernels, data, one, enc):
         load_s_world1=ws1["loads"], resumed_step_losses=step4,
         ranks_wall_s=ranks_s, world1_resume_wall_s=ws1_s,
         encoder_rank_wall_s_rank0=[r["wall_s"] for r in encoder_recs[0]],
+        lm_task_rank_wall_s_rank0=[r["wall_s"] for r in lm_recs[0]],
         rank0_run_wall_s=[first[0]["wall_s"], resumed[0]["wall_s"]],
         rank0_clock_s=[first[0]["clock_s"], resumed[0]["clock_s"]],
         quantized_grad_reduce="not run on the card (CPU tests only)",
@@ -6047,7 +6071,7 @@ def finetune_parallel(kernels, data, one, enc):
             row.setdefault("launches_per_rank", {})[
                 "finetune_parallel"] = per
             row["launches"] = sum(row["launches_by_path"].values())
-    return encoder_recs
+    return encoder_recs, lm_recs
 
 
 # ---------------------------------------------------------------------------
@@ -6214,6 +6238,368 @@ def encoder_parallel(kernels, enc, recs):
 
 # dp 2 with ZeRO-1 under both overlap schedulers, hidden dropout live,
 # two ranks sharing the card through gloo
+# ---------------------------------------------------------------------------
+# the GPT-family tasks of tasks.main at tp 2 x dp 2 + SP: finetune_parallel's
+# four ranks run them, held here to the zeroshot and msdp phases' world
+# size 1 runs
+# ---------------------------------------------------------------------------
+
+LM_TP_FLAGS = ["--tensor_model_parallel_size", "2", "--sequence_parallel",
+               "--distributed_backend", "gloo"]
+# the rank's KV groups: Llama-2-7B's 32 over tp 2
+LM_RANK_GROUPS = 32 // PAR_TP
+# LAMBADA samples whose world-size-1 top-2 logit margin is below this may
+# flip under another summation order; they are counted, not held
+LM_MARGIN = 5e-2
+# the WikiText average loss against world size 1's (a reading of 2.5e-5
+# in bf16 at tp 2 x dp 2; the loss departs from ln 32000 by about 5e-2 at
+# the init std), and each rank's top logit of its vocabulary shard at
+# each LAMBADA answer position against world size 1's logits there (the
+# zeroshot phase's bf16 logits depart from fp32 by at most 1.3e-2)
+LM_WIKI_TOL, LM_LOGIT_TOL = 1e-3, 5e-2
+
+
+def lm_task_argvs(zs, ms):
+    """(name, the ranks' argv) of WIKITEXT103 and LAMBADA under
+    `--use_flash_attn` and MSDP-PROMPT knowledge then response: the
+    zeroshot and msdp phases' argvs (their model, seed, corpora and
+    files) at tp 2 x dp 2 + SP."""
+    par = ["--data_parallel_size", str(PAR_DP)] + LM_TP_FLAGS
+    zs_argv = _set_flags(zs["flash_argv"], data_parallel_size=PAR_DP)
+    out = []
+    for task, path, extra in (
+            ("WIKITEXT103", zs["wiki"], ["--overlapping_eval",
+                                         str(ZS_OVERLAP)]),
+            ("LAMBADA", zs["lambada"], [])):
+        out.append((task, zs_argv[:] + LM_TP_FLAGS + [
+            "--task", task, "--valid_data", path, "--tokenizer_type",
+            "NullTokenizer", "--null_vocab_size", "31999",
+            "--micro_batch_size", str(ZS_MICRO), *extra]))
+    for kind in ("knowledge", "response"):
+        out.append((kind, _set_flags(ms["argv"], data_parallel_size=PAR_DP)
+                    + par[2:] + [
+                        "--task", "MSDP-PROMPT", "--sample_input_file",
+                        ms["test"], "--sample_output_file",
+                        str(ZS_DIR / f"msdp_{kind}_tp2dp2.txt"),
+                        "--prompt_file", ms["prompts"][kind],
+                        "--prompt_type", kind]))
+    return out
+
+
+def lm_task_run(lm_task, argv):
+    """`tasks.main.main(argv)` in a rank (rank mode), the counters set to
+    0 just before it: its result, the kernels' launches, the groups each
+    K4 and K1 launch ran at, the ms of each evaluation batch and each
+    decode step, LAMBADA's per-position hits (each batch's rows of this
+    dp rank) and MSDP's greedy streams with their log-probs."""
+    from megatron_llm_tpu_torch.inference import api, generation
+    from megatron_llm_tpu_torch.parallel.mesh import get_context
+    from megatron_llm_tpu_torch.tasks import main as tasks_main
+    from megatron_llm_tpu_torch.tasks.zeroshot import evaluate as zs_eval
+
+    seen = {"k4_bg": [], "k1_g": [], "batch_ms": [], "step_ms": [],
+            "hits": [], "shard_top": [], "argmax": [], "streams": []}
+
+    def note_cost(orig):
+        def wrapped(qf, kf, causal, products, tensors):
+            if products == 2:  # the forward's
+                seen["k4_bg"].append(int(qf.shape[0]))
+            return orig(qf, kf, causal, products, tensors)
+        return wrapped
+
+    def check_k1(orig):
+        def wrapped(q, *a, **kw):
+            seen["k1_g"].append(int(q.shape[2]))
+            return orig(q, *a, **kw)
+        return wrapped
+
+    def eval_step(orig):
+        def make(model, metric):
+            step = orig(model, metric)
+
+            def timed(*a):
+                t0 = time.perf_counter()
+                out = step(*a)  # a float: the batch has ended
+                seen["batch_ms"].append((time.perf_counter() - t0) * 1e3)
+                return out
+            return timed
+        return make
+
+    def argmax(orig):
+        def wrapped(logits):
+            index = orig(logits)
+            top = logits.max(-1)
+            seen["shard_top"].append((top.values.float().cpu().tolist(),
+                                      top.indices.cpu().tolist()))
+            seen["argmax"].append(index.cpu().tolist())
+            return index
+        return wrapped
+
+    def per_position(orig):
+        def wrapped(*a, **kw):
+            vals = orig(*a, **kw)
+            if lm_task == "LAMBADA":
+                seen["hits"].append(vals.cpu().numpy().tolist())
+            return vals
+        return wrapped
+
+    def decode_step(orig):
+        def wrapped(self):
+            t0 = time.perf_counter()
+            orig(self)
+            torch.cuda.synchronize()
+            seen["step_ms"].append((time.perf_counter() - t0) * 1e3)
+        return wrapped
+
+    def generate(orig):
+        def wrapped(model, params, tokenizer, prompts, **kw):
+            texts, segs, lp, toks = orig(
+                model, params, tokenizer, prompts,
+                **dict(kw, return_output_log_probs=True))
+            seen["streams"].append((tokenizer.tokenize(prompts[0]),
+                                    toks[0].tolist(), lp[0].tolist(),
+                                    tokenizer.eod))
+            return texts, segs, lp, toks
+        return wrapped
+
+    def lm_main(orig):
+        def wrapped(args, device):
+            out = orig(args, device)
+            ctx = get_context()
+            seen["layout"] = {"world": ctx.world_size, "dp": ctx.dp,
+                              "tp": ctx.tp, "pp": ctx.pp, "cp": ctx.cp,
+                              "rank": ctx.rank, "dp_rank": ctx.dp_rank,
+                              "sequence_parallel": ctx.sequence_parallel,
+                              "backend": ctx.backend, "staged": ctx.staged}
+            return out
+        return wrapped
+
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    decode_log.clear()
+    t0 = time.perf_counter()
+    with patched(fa, "_note_cost", note_cost), \
+            patched(dec, "_check", check_k1), \
+            patched(zs_eval, "make_eval_step", eval_step), \
+            patched(zs_eval, "_per_position", per_position), \
+            patched(zs_eval, "vocab_parallel_argmax", argmax), \
+            patched(generation._DecodeLoop, "_step", decode_step), \
+            patched(api, "generate_and_post_process", generate), \
+            patched(tasks_main, "lm_main", lm_main):
+        result = tasks_main.main(argv)
+    wall = time.perf_counter() - t0
+    rec = {"lm_task": lm_task, "result": result, "wall_s": wall,
+           "launches": kernel_counts(),
+           "k1_by_layout": dict(dec.decode_attention.launches_by_layout),
+           "decode_calls": [dict(r) for r in decode_log],
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9, **seen}
+    free_cuda()
+    return rec
+
+
+def lm_tasks_parallel(kernels, zs, ms, recs):
+    """WIKITEXT103 and LAMBADA under `--use_flash_attn`, then MSDP-PROMPT
+    (knowledge, response) through `tasks.main` in finetune_parallel's
+    four gloo ranks at tp 2 x dp 2 + SP (`recs`, a list of runs a rank),
+    the zeroshot and msdp phases' model (Llama-2-7B widths at
+    LLAMA_LAUNCH_LAYERS of 32 layers, the seed's weights) and corpora,
+    held to those phases' world size 1 runs in this process: the WikiText
+    average loss within LM_WIKI_TOL; at each LAMBADA answer position each
+    rank's top logit of its vocabulary shard within LM_LOGIT_TOL of world
+    size 1's logits there, the shard's argmax and the global argmax equal
+    where world size 1's top-2 margin is at least LM_MARGIN, and the
+    verdicts sample by sample, one under that margin counted and printed
+    instead; each MSDP stream teacher-forced through the
+    fp32 plain model within 5e-2; every rank the same metrics. K4 on
+    each rank once a layer an evaluation batch, every launch at the
+    rank's 16 groups; K1 once a layer a decode step on every rank, at
+    16 groups. Printed with the card's name and power limit: ms an
+    evaluation batch and a decode step on each rank (gloo through the
+    host, four ranks on one card)."""
+    names = [n for n, _ in lm_task_argvs(zs, ms)]
+    runs = {n: [r[i] for r in recs] for i, n in enumerate(names)}
+    rows = ZS_MICRO // PAR_DP
+    out, k4, k1 = {}, [0] * PAR_RANKS, [0] * PAR_RANKS
+    for task in ("WIKITEXT103", "LAMBADA"):
+        ranks = runs[task]
+        n = len(ranks[0]["hits"]) if task == "LAMBADA" else len(
+            ranks[0]["batch_ms"])
+        for r, run in enumerate(ranks):
+            check(run["layout"] == {"world": PAR_RANKS, "dp": PAR_DP,
+                                    "tp": PAR_TP, "pp": 1, "cp": 1,
+                                    "rank": r, "dp_rank": r // PAR_TP,
+                                    "sequence_parallel": True,
+                                    "backend": "gloo", "staged": True},
+                  f"{task} rank {r}: layout {run.get('layout')}")
+            check(run["result"] == ranks[0]["result"],
+                  f"{task}: rank {r} reports {run['result']}, rank 0 "
+                  f"{ranks[0]['result']}")
+            batches = len(run["batch_ms"])
+            lc = run["launches"]
+            check(lc["flash_fwd"] == LLAMA_LAUNCH_LAYERS * batches
+                  and sum(lc.values()) == lc["flash_fwd"]
+                  and run["k4_bg"] == [rows * LM_RANK_GROUPS]
+                  * lc["flash_fwd"],
+                  f"{task} rank {r}: launches {lc}, K4 b x g "
+                  f"{sorted(set(run['k4_bg']))}, expected K4 "
+                  f"{LLAMA_LAUNCH_LAYERS} x {batches} batches at "
+                  f"{rows} x {LM_RANK_GROUPS}")
+            k4[r] += lc["flash_fwd"]
+        out[task] = {"result": ranks[0]["result"], "batches": n,
+                     "batch_ms_per_rank": [r["batch_ms"] for r in ranks],
+                     "wall_s_per_rank": [r["wall_s"] for r in ranks],
+                     "peak_gb_per_rank": [r["peak_gb"] for r in ranks],
+                     "k4_launches_per_rank": [r["launches"]["flash_fwd"]
+                                              for r in ranks]}
+    wk = runs["WIKITEXT103"][0]["result"]
+    err = abs(wk["avg_loss"] - zs["wiki_avg_loss"])
+    check(err <= LM_WIKI_TOL, f"WIKITEXT103 tp2 x dp2 avg loss "
+          f"{wk['avg_loss']} against world size 1 {zs['wiki_avg_loss']}")
+    out["WIKITEXT103"].update(world1_avg_loss=zs["wiki_avg_loss"],
+                              avg_loss_abs_err=err)
+    # each sample's verdict, argmax and shard top logits from its dp
+    # rank's rows of each batch, against world size 1's logits
+    logits = zs["lambada_logits"]
+    per = logits.shape[1] // PAR_TP
+    top2 = torch.topk(logits, 2, dim=1).values
+    margin = (top2[:, 0] - top2[:, 1]).tolist()
+    verdicts, top_err, shard_held, argmax_held = {}, 0.0, 0, 0
+    for r, run in enumerate(runs["LAMBADA"]):
+        d, t = r // PAR_TP, r % PAR_TP
+        check(len(run["shard_top"]) == len(run["hits"]),
+              f"LAMBADA rank {r}: {len(run['shard_top'])} argmax calls for "
+              f"{len(run['hits'])} batches")
+        for b, vals in enumerate(run["hits"]):
+            for j, row in enumerate(vals):
+                i = b * ZS_MICRO + d * rows + j
+                if i >= ZS_LAMBADA:
+                    continue
+                pos = zs["lambada_answer_pos"][i]
+                v = row[pos] > 0.5
+                check(verdicts.setdefault(i, v) == v,
+                      f"LAMBADA sample {i}: the tp ranks disagree")
+                shard = logits[i, t * per:(t + 1) * per]
+                s2 = torch.topk(shard, 2).values
+                value = run["shard_top"][b][0][j][pos]
+                e = abs(value - float(s2[0]))
+                top_err = max(top_err, e)
+                check(e <= LM_LOGIT_TOL, f"LAMBADA sample {i} rank {r}: "
+                      f"shard top logit {value}, world size 1 {float(s2[0])}")
+                if float(s2[0] - s2[1]) >= LM_MARGIN:
+                    shard_held += 1
+                    check(run["shard_top"][b][1][j][pos]
+                          == int(shard.argmax()),
+                          f"LAMBADA sample {i} rank {r}: shard argmax "
+                          f"{run['shard_top'][b][1][j][pos]}, world size 1 "
+                          f"{int(shard.argmax())}")
+                if margin[i] >= LM_MARGIN:
+                    argmax_held += 1
+                    check(run["argmax"][b][j][pos] == int(logits[i].argmax()),
+                          f"LAMBADA sample {i} rank {r}: argmax "
+                          f"{run['argmax'][b][j][pos]}, world size 1 "
+                          f"{int(logits[i].argmax())}")
+    check(sorted(verdicts) == list(range(ZS_LAMBADA)),
+          f"LAMBADA verdicts of {sorted(verdicts)}")
+    close = [i for i in range(ZS_LAMBADA) if margin[i] < LM_MARGIN]
+    differ = [i for i in range(ZS_LAMBADA)
+              if verdicts[i] != zs["lambada_hits"][i]]
+    check(set(differ) <= set(close), f"LAMBADA verdicts differ from world "
+          f"size 1 at {differ}, margins {[margin[i] for i in differ]}")
+    check(int(sum(verdicts.values()))
+          == runs["LAMBADA"][0]["result"]["num_correct"],
+          "LAMBADA: the verdicts do not sum to the count")
+    out["LAMBADA"].update(world1_correct=zs["lambada_correct"],
+                          verdicts_differing=differ,
+                          samples_under_margin=close,
+                          margins_under=[margin[i] for i in close],
+                          shard_top_logit_max_abs_err=top_err,
+                          shard_argmax_held=shard_held,
+                          argmax_held=argmax_held)
+
+    # MSDP: rank 0's file, every rank's streams against fp32 plain
+    from megatron_llm_tpu_torch import arguments, finetune
+
+    # the base flags of the msdp argv (its task flags parse later)
+    args = arguments.build_base_parser().parse_known_args(ms["argv"])[0]
+    # the BPE's 32000 entries pad as the NullTokenizer's do
+    tok = build_tokenizer("NullTokenizer", null_vocab_size=31999)
+    plain_model = finetune.model_provider(args, fp32_plain(
+        arguments.args_to_configs)(args, tok.vocab_size)[0])
+    params = plain_model.init(seed=SEED)
+    for kind in ("knowledge", "response"):
+        ranks = runs[kind]
+        greedy, per_rank = [], []
+        for r, run in enumerate(ranks):
+            calls = run["decode_calls"]
+            steps = sum(c["steps"] + c["warmup_steps"] for c in calls)
+            lc = run["launches"]
+            check(lc["decode_attention"] == LLAMA_LAUNCH_LAYERS * steps
+                  and steps > 0 and not any(c["captured"] for c in calls)
+                  and set(run["k1_g"]) == {LM_RANK_GROUPS},
+                  f"MSDP {kind} rank {r}: K1 {lc['decode_attention']} at "
+                  f"g {sorted(set(run['k1_g']))}, expected "
+                  f"{LLAMA_LAUNCH_LAYERS} x {steps} steps at "
+                  f"{LM_RANK_GROUPS}")
+            mine = list(range(r // PAR_TP, MSDP_SAMPLES, PAR_DP))
+            check(len(run["streams"]) == len(mine),
+                  f"MSDP {kind} rank {r}: {len(run['streams'])} requests "
+                  f"for samples {mine}")
+            partner = ranks[r ^ 1]["streams"]
+            check([s[1] for s in run["streams"]] == [s[1] for s in partner],
+                  f"MSDP {kind}: tp ranks {r} and {r ^ 1} chose other "
+                  f"tokens")
+            for prompt, toks, lp, eod in run["streams"]:
+                # the stream up to its first end of document, as the
+                # msdp phase cuts it
+                gen = toks[len(prompt):len(prompt) + MSDP_GEN]
+                n = len(prompt) + (gen.index(eod) + 1 if eod in gen
+                                   else MSDP_GEN)
+                greedy.append((None, prompt, toks[:n], lp[:n - 1]))
+            k1[r] += lc["decode_attention"]
+            per_rank.append({"steps": steps,
+                             "k1": lc["decode_attention"],
+                             "step_ms": run["step_ms"],
+                             "wall_s": run["wall_s"]})
+        err, match = teacher_forced(plain_model, params, greedy)
+        check(err <= PATH_LP_TOL, f"MSDP {kind} tp2 x dp2: the streams' "
+              f"log-probs {err} from the fp32 plain model's")
+        lines = Path(ranks[0]["result"]).read_bytes().split(b"\n")
+        check(len(lines) == MSDP_SAMPLES + 1 and not lines[-1],
+              f"MSDP {kind} tp2 x dp2 output {lines}")
+        ws1 = (ZS_DIR / f"msdp_{kind}_out.txt").read_bytes().split(b"\n")
+        out[kind] = {"logprob_max_abs_err_fp32": err,
+                     "greedy_match_fp32": match,
+                     "lines_equal_world1": sum(
+                         a == b for a, b in zip(lines, ws1)) - 1,
+                     "per_rank": per_rank}
+    del plain_model, params
+    free_cuda()
+    shutil.rmtree(ZS_DIR)
+    for name, per in (("flash_fwd", k4), ("decode_attention", k1)):
+        for row in kernels:
+            if row["name"] == name:
+                row["launches_by_path"]["lm_tasks_parallel"] = sum(per)
+                row.setdefault("launches_per_rank", {})[
+                    "lm_tasks_parallel"] = per
+                row["launches"] = sum(row["launches_by_path"].values())
+    say("lm_tasks_parallel", card=nvidia_smi(),
+        launcher=f"torchrun --nproc_per_node {PAR_RANKS} chip_smoke.py "
+        f"--finetune-rank (tasks.main in each rank, after "
+        f"finetune_parallel's runs)",
+        layout="tp 2 x dp 2, sequence parallel, every rank on cuda:0",
+        flags=" ".join(LM_TP_FLAGS), layers=LLAMA_LAUNCH_LAYERS,
+        rank_kv_groups=LM_RANK_GROUPS,
+        sizes={"wiki_tokens": ZS_WIKI_TOKENS, "overlapping_eval": ZS_OVERLAP,
+               "lambada_samples": ZS_LAMBADA, "micro_batch": ZS_MICRO,
+               "msdp_samples": MSDP_SAMPLES, "msdp_gen": MSDP_GEN},
+        ms_label="gloo through the host, four ranks sharing one card "
+        "(not a parallel-efficiency number)", **out,
+        k4_launches_per_rank=k4, k1_launches_per_rank=k1,
+        tol={"wiki_avg_loss": LM_WIKI_TOL, "lambada_margin": LM_MARGIN,
+             "lambada_shard_top_logit": LM_LOGIT_TOL,
+             "msdp_logprob": PATH_LP_TOL})
+
+
 OVERLAP_FLAGS = ["--use_distributed_optimizer", "--overlap_grad_reduce",
                  "--overlap_param_gather", "--distributed_backend", "gloo"]
 OVERLAP_RANKS = 2
@@ -6430,7 +6816,8 @@ PP_FLAGS = ["--pipeline_model_parallel_size", "2", "--pipeline_remat",
             "gloo"]
 PP_RANKS = 2
 # steps before the save (3 before the retrieval, zeroshot and msdp phases)
-PP_STEPS = 2
+# 1 step before the save (2 before lm_tasks_parallel paid for itself)
+PP_STEPS = 1
 PP_GEN = 32  # tokens each served request generates
 PP_RESUME_TOL = 1e-4
 
@@ -6822,7 +7209,8 @@ def time_decode_ring(kernels):
 CP_FLAGS = ["--context_parallel_size", "2", "--distributed_backend", "gloo"]
 CP_RANKS = 2
 # steps before the save (3 before the retrieval, zeroshot and msdp phases)
-CP_STEPS = 2
+# 1 step before the save (2 before lm_tasks_parallel paid for itself)
+CP_STEPS = 1
 # the recipe's CodeLlama-7B preset (examples/finetune.sh:39-40): seq
 # 16384, 32 heads of 128, no GQA
 CP_RING_SEQ = 16384
@@ -8256,6 +8644,14 @@ def zeroshot_phase(kernels, init_std):
                      top2_margin_fp32_median=float(margin.median()),
                      logit_err_bf16_max=float(err.max())),
         k4_launches=launches)
+    return {"flash_argv": flash, "wiki": str(wiki), "lambada": str(lambada),
+            "wiki_avg_loss": wk["bf16"]["avg_loss"],
+            "lambada_correct": lb["bf16"]["num_correct"],
+            "lambada_hits": (got.argmax(1).cpu().numpy()
+                             == answers).tolist(),
+            "lambada_logits": got.cpu(),
+            "lambada_answer_pos": [int(np.nonzero(m)[0][0]) for m in
+                                   data.pad_mask]}
 
 
 MSDP_GEN, MSDP_SAMPLES, MSDP_PROMPTS = 32, 4, 8
@@ -8402,7 +8798,9 @@ def msdp_phase(kernels, init_std):
                "weights, a seeded byte-level BPE of 32000 entries",
         init_std=init_std, samples=MSDP_SAMPLES, out_seq_length=MSDP_GEN,
         **out, eval_f1=dict(precision=p, recall=r, f1=f1), k1_launches=k1)
-    shutil.rmtree(ZS_DIR)
+    # the files stay for lm_tasks_parallel, which deletes ZS_DIR
+    return {"argv": argv, "test": str(test), "prompts": {
+        "knowledge": str(knwl), "response": str(resp)}}
 
 
 def _leaves(tree):
@@ -8469,8 +8867,8 @@ def smoke(args) -> int:
     timed("kernel_time_decode_ring", time_decode_ring, kernels)
     timed("kernel_time_flash_cp_hops", time_flash_cp_hops, kernels)
     # K4's and K1's downstream paths, while paged_attention.cu compiles
-    timed("zeroshot", zeroshot_phase, kernels, args.init_std)
-    timed("msdp", msdp_phase, kernels, args.init_std)
+    lm = (timed("zeroshot", zeroshot_phase, kernels, args.init_std),
+          timed("msdp", msdp_phase, kernels, args.init_std))
     free_cuda()
     timed("build_wait_paged", await_builds, builds, "paged_attention.cu",
           "paged_attention_tc.cu")
@@ -8530,9 +8928,10 @@ def smoke(args) -> int:
     # the encoder phases' vocabulary and corpus first: the ranks after
     # finetune_parallel's runs train the encoder entries on them
     enc = timed("encoder_data", encoder_data)
-    enc_ranks = timed("finetune_parallel", finetune_parallel, kernels, data,
-                      one, enc)
+    enc_ranks, lm_ranks = timed("finetune_parallel", finetune_parallel,
+                                kernels, data, one, enc, lm)
     timed("encoder_parallel", encoder_parallel, kernels, enc, enc_ranks)
+    timed("lm_tasks_parallel", lm_tasks_parallel, kernels, *lm, lm_ranks)
     # the pipeline phase's two ranks run the context_parallel phase's and
     # the overlap_dropout phase's rank work last: pipeline's seconds
     # include theirs, the later phases' only their checks

@@ -23,6 +23,20 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
+from megatron_llm_tpu_torch.analysis.contracts import (
+    CompileContract,
+    register_contract,
+)
+
+# JAX :32-38: the chunk scorer; here `torch.matmul` + `torch.topk`, no
+# executable per shape, so nothing records into it. The search hands its
+# top k to the host as numpy after the last chunk: the one host read the
+# contract allows (the JAX scorer returns device arrays)
+register_contract(CompileContract(
+    "realm.chunk_topk", max_variants=4, collectives={"single": frozenset()},
+    tmp_bytes_budget=1 << 20, allow_host_callbacks=True,
+    notes="the exact MIPS search's chunk scorer"))
+
 
 class OpenRetrievalDataStore:
     """row_id -> embedding store with rank-sharded writes (JAX :68-152)."""

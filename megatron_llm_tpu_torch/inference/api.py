@@ -33,18 +33,30 @@ mesh) and every rank returns the last stage's result, broadcast:
   one returns.
 
 The JAX package memoises its pipelined executables in bounded LRU
-caches and counts them against its compile contracts; nothing here is
-compiled, so there is no cache (ROADMAP.md C, accepted divergences).
+caches and counts them against its compile contracts (`api.pp_score`,
+`api.pp_decode`); nothing here is compiled, so there is no cache: each
+call builds its scorer or ring, records it as a variant under the model
+for the call and releases it as the call returns, so the live count is
+the calls running (ROADMAP.md C, accepted divergences).
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
+import functools
 import os
 from typing import List, Optional
 
 import numpy as np
 import torch
 
+from megatron_llm_tpu_torch.analysis.contracts import (
+    CompileContract,
+    record_variant,
+    register_contract,
+    release_variant,
+)
 from megatron_llm_tpu_torch.inference.generation import (
     _gather_lp,
     beam_search,
@@ -61,6 +73,7 @@ from megatron_llm_tpu_torch.parallel.mesh import (
     all_gather_rows,
     broadcast,
     get_context,
+    use_mesh,
 )
 from megatron_llm_tpu_torch.parallel.pipeline import (
     make_pipelined_decode_fn,
@@ -78,6 +91,43 @@ from megatron_llm_tpu_torch.parallel.sharding import (
 # serves only ring-eligible requests
 PP_DECODE_RESHARD_LIMIT_BYTES = int(os.environ.get(
     "MEGATRON_TPU_PP_RESHARD_LIMIT_BYTES", 2 << 30))
+
+
+def _without_sequence_parallel(fn):
+    """Run `fn` on the installed layout's groups with sequence
+    parallelism off (the module doc)."""
+
+    @functools.wraps(fn)
+    def wrapped(*args, **kwargs):
+        ctx = get_context()
+        scope = contextlib.nullcontext()
+        if ctx is not None and ctx.sequence_parallel:
+            scope = use_mesh(dataclasses.replace(ctx,
+                                                 sequence_parallel=False))
+        with scope:
+            return fn(*args, **kwargs)
+
+    return wrapped
+
+
+# JAX :33-48: the budgets of the JAX LRU caches
+register_contract(CompileContract(
+    "api.pp_decode", max_variants=8,
+    notes="pp > 1 stage-ring decode, a variant while its call runs"))
+register_contract(CompileContract(
+    "api.pp_score", max_variants=4,
+    notes="pp > 1 pipelined scorer, a variant while its call runs"))
+
+
+@contextlib.contextmanager
+def _live_variant(name: str, key, model):
+    """`key` a live variant of `name` under `model` for the block."""
+    fresh = record_variant(name, key, owner=model)
+    try:
+        yield
+    finally:
+        if fresh:
+            release_variant(name, key, owner=model)
 
 
 def _pp_context():
@@ -142,8 +192,9 @@ def _cp_score_tokens(model, ctx, params, tokens) -> np.ndarray:
 def _pp_score(model, ctx, params, tokens, lengths, tokenizer):
     tokens = np.asarray(tokens)
     s = tokens.shape[1]
-    lp = make_pipelined_score_fn(model, None, ctx)(
-        params, torch.as_tensor(_pad_to_cp(tokens, ctx.cp)[None]))[0]
+    with _live_variant("api.pp_score", (ctx.pp, ctx.tp, ctx.cp), model):
+        lp = make_pipelined_score_fn(model, None, ctx)(
+            params, torch.as_tensor(_pad_to_cp(tokens, ctx.cp)[None]))[0]
     texts, segments = detokenize_generations(tokenizer, tokens, lengths,
                                              return_segments=True)
     return texts, segments, lp.cpu().numpy()[:, :s - 1], tokens
@@ -168,13 +219,16 @@ def _pp_ring(model, ctx, params, tokenizer, tokens, lengths,
     if max_len_b > max_len:
         toks_in = np.concatenate([toks_in, np.zeros(
             (toks_in.shape[0], max_len_b - max_len), toks_in.dtype)], axis=1)
-    dec = make_pipelined_decode_fn(
-        model, None, ctx, prefill_len=prefill_len, max_len=max_len_b,
-        greedy=True, vocab_size=tokenizer.vocab_size,
-        termination_id=tokenizer.eod,
-        use_eod_for_early_termination=use_eod_early,
-        return_log_probs=return_log_probs)
-    out_toks, out_lens, out_lps = dec(params, toks_in, lens_in)
+    key = (toks_in.shape[0], prefill_len, max_len_b, use_eod_early,
+           return_log_probs)
+    with _live_variant("api.pp_decode", key, model):
+        dec = make_pipelined_decode_fn(
+            model, None, ctx, prefill_len=prefill_len, max_len=max_len_b,
+            greedy=True, vocab_size=tokenizer.vocab_size,
+            termination_id=tokenizer.eod,
+            use_eod_for_early_termination=use_eod_early,
+            return_log_probs=return_log_probs)
+        out_toks, out_lens, out_lps = dec(params, toks_in, lens_in)
     out_tokens = out_toks.cpu().numpy().astype(np.int32)[:b, :max_len]
     out_lengths = np.minimum(out_lens.cpu().numpy()[:b],
                              lengths + tokens_to_generate)
@@ -185,6 +239,7 @@ def _pp_ring(model, ctx, params, tokenizer, tokens, lengths,
     return texts, segments, lp, out_tokens
 
 
+@_without_sequence_parallel
 def generate_and_post_process(
     model,
     params,
@@ -284,6 +339,7 @@ def generate_and_post_process(
     return texts, segments, lp, out_tokens
 
 
+@_without_sequence_parallel
 def beam_search_and_post_process(
     model,
     params,

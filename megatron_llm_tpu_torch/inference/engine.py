@@ -144,6 +144,11 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from megatron_llm_tpu_torch.analysis.contracts import (
+    CompileContract,
+    record_variant,
+    register_contract,
+)
 from megatron_llm_tpu_torch.inference.generation import bucket_prefill_len
 from megatron_llm_tpu_torch.inference.graph_capture import CapturedFn
 from megatron_llm_tpu_torch.inference.prefix_cache import PrefixCache
@@ -483,11 +488,59 @@ def _page_import(pools, ids: torch.Tensor, rows) -> None:
             pool.index_copy_(0, ids, block)
 
 
-# the cost registry's names of the round kinds (the JAX engine's
-# compile-contract names)
+# the round kinds' compile-contract names (the JAX engine's), under
+# which each captured runner is counted and costed
 _COST_NAMES = {_decode_step: "engine.decode_scan",
                _mixed_step: "engine.mixed_step",
                _spec_step: "engine.spec_verify"}
+
+# The JAX engine's compile contracts (JAX :350-764), their budgets the
+# JAX declarations': a round kind mints one captured runner a bucket and
+# greedy specialisation, under the engine, as the JAX engine mints one
+# program. At tp 2 every round reduces its row-parallel products and
+# gathers its logits over the tp group (`gather_from_tp_last`), so the
+# mixed round issues an all-gather where the JAX one (GSPMD) lowers
+# all-reduce only. The whole-prompt prefill and the page copy, export
+# and import run uncaptured, one function each: the port mints no
+# per-bucket executable for them, and records the page functions once.
+_ROUND_COLLECTIVES = {"single": frozenset(),
+                      "tp2": frozenset({"all-reduce", "all-gather"})}
+_PAGE_COLLECTIVES = {"single": frozenset(), "tp2": frozenset()}
+for _c in (
+        CompileContract(
+            "engine.decode_scan", max_variants=16,
+            collectives=_ROUND_COLLECTIVES, tmp_bytes_budget=1 << 20,
+            notes="pow2 horizons x {greedy, sampled}; the engine passes "
+                  "2 * len(horizon_buckets(step_horizon))"),
+        CompileContract(
+            "engine.mixed_step", max_variants=24,
+            collectives=_ROUND_COLLECTIVES, tmp_bytes_budget=4 << 20,
+            notes="pow2 chunk widths x {greedy, sampled}; the engine passes "
+                  "2 * len(mixed_width_buckets(prefill_chunk_tokens))"),
+        CompileContract(
+            "engine.prefill_bucket", max_variants=8,
+            collectives={"single": frozenset(),
+                         "tp2": frozenset({"all-reduce", "all-gather"})},
+            tmp_bytes_budget=8 << 20,
+            notes="whole-prompt prefill; uncaptured in the port, no "
+                  "per-bucket executable is minted"),
+        CompileContract(
+            "engine.spec_verify", max_variants=2,
+            collectives=_ROUND_COLLECTIVES, tmp_bytes_budget=4 << 20,
+            notes="one width (spec_decode_k + 1) x {greedy, sampled}"),
+        CompileContract(
+            "engine.page_copy", max_variants=1,
+            collectives=_PAGE_COLLECTIVES, tmp_bytes_budget=1 << 20,
+            notes="the prefix cache's copy on write"),
+        CompileContract(
+            "engine.page_export", max_variants=1,
+            collectives=_PAGE_COLLECTIVES, tmp_bytes_budget=1 << 20,
+            notes="the KV hand-off's donor-side page gather"),
+        CompileContract(
+            "engine.page_import", max_variants=1,
+            collectives=_PAGE_COLLECTIVES, tmp_bytes_budget=1 << 20,
+            notes="the KV hand-off's receiver-side page scatter")):
+    register_contract(_c)
 
 
 @dataclass
@@ -834,7 +887,7 @@ class DecodeEngine:
 
             self.chip = detect_chip(devices=[self.device],
                                     override=chip_spec)
-            self.costs = CostRegistry(chip=self.chip)
+            self.costs = CostRegistry(chip=self.chip, owner=self).attach()
         # the per-request cost record's analytic decode FLOPs: 2 N a
         # computed token over the whole decode tree and 4 L h a cached
         # position (telemetry/chipspec.decode_flops_per_token)
@@ -904,6 +957,9 @@ class DecodeEngine:
         self._profile_dir: Optional[str] = None
         self._profiler = None
         self._profile_path: Optional[str] = None
+        for name in ("engine.page_copy", "engine.page_export",
+                     "engine.page_import"):
+            record_variant(name, (), owner=self, budget=1)
         if self.costs is not None:
             # the copy, export and import cost: counted once here, on
             # the dead null page (JAX :1197-1212)
@@ -1488,27 +1544,44 @@ class DecodeEngine:
         model, decode tree, pools and carried logits, captured on the
         engine's stream into its pool with the idle round `null_args` as
         the static buffers' first values (called uncaptured on them under
-        the private `_eager` switch). With the cost registry on, the
-        runner's first eager run (the capture's first warm-up run, or an
+        the private `_eager` switch). Each runner is a variant of the
+        round kind's compile contract under this engine, recorded before
+        it is captured (past the budget `_variant_budget` it raises
+        `ContractViolation`). With the cost registry on, the runner's
+        first eager run (the capture's first warm-up run, or an
         uncaptured runner's first round) is counted under the JAX
         engine's name and key of that program."""
         cost = (_COST_NAMES[step], (static.get("horizon", static.get(
             "width")), static["all_greedy"]))
+        record_variant(*cost, owner=self, budget=self._variant_budget(
+            cost[0]))
         fn = functools.partial(step, self.model, self._dec_params,
                                self._pools, self._last_logits,
                                vocab_size=self.vocab_size, **static)
         probe = None
         if self.costs is not None:
-            self.costs.note_mint(*cost)
             args = sum(np.asarray(v).nbytes for v in null_args.values())
             probe = functools.partial(self._costed, *cost,
                                       arg_bytes=self._bound_bytes() + args)
+        # graft-contract: engine.decode_scan
+        # graft-contract: engine.mixed_step
+        # graft-contract: engine.spec_verify
         runner = CapturedFn(fn, null_args, device=self.device,
                             pool=self._graph_pool, stream=self._graph_stream,
                             capture=not self._eager, probe=probe)
         if probe is not None and runner.captured:
             self.costs.note_temp(*cost, self._graph_pool_bytes())
         return runner
+
+    def _variant_budget(self, name: str) -> int:
+        """The runners a round kind may mint on this engine (JAX
+        :1869-1882, :2422): both greedy specialisations of every bucket
+        its configuration can ask for."""
+        if name == "engine.decode_scan":
+            return 2 * len(horizon_buckets(self.step_horizon))
+        if name == "engine.mixed_step":
+            return 2 * len(mixed_width_buckets(self.prefill_chunk_tokens))
+        return 2
 
     def _costed(self, name: str, key, run, arg_bytes=None):
         """`run()`, counted into the cost registry under (name, key) the

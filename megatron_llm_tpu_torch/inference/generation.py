@@ -44,6 +44,11 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from megatron_llm_tpu_torch.analysis.contracts import (
+    CompileContract,
+    record_variant,
+    register_contract,
+)
 from megatron_llm_tpu_torch.inference.graph_capture import (
     WARMUP_RUNS,
     CapturedFn,
@@ -140,6 +145,17 @@ def score_tokens(model, params: dict, tokens) -> torch.Tensor:
     return _gather_lp(logits, tokens[:, 1:])
 
 
+# JAX :49-62. The whole-batch decode step of one call is one variant
+# under its call's loop (freed with it, so the live count is the calls
+# running); unbounded, as the JAX jit cache is.
+register_contract(CompileContract(
+    "generate.tokens", collectives={"single": frozenset()},
+    tmp_bytes_budget=4 << 20,
+    notes="the whole-batch decode: one captured step a call"))
+register_contract(CompileContract(
+    "generate.beam", notes="beam search rides generate.tokens' forward"))
+
+
 class _DecodeLoop:
     """The whole-batch decode of one call: its state in static device
     buffers and its one step, captured (`CapturedFn`) unless `capture` is
@@ -181,8 +197,11 @@ class _DecodeLoop:
             stream = _streams.get(dev)
             if stream is None:
                 stream = _streams[dev] = torch.cuda.Stream(dev)
+        record_variant("generate.tokens", (b, max_len, settings, captured),
+                       owner=self)
         # the runner holds the loop weakly: no reference cycle keeps the
         # caches and the graph's memory past the call
+        # graft-contract: generate.tokens
         self.step = CapturedFn(
             functools.partial(type(self)._step, weakref.proxy(self)), {},
             device=dev, capture=captured, stream=stream,

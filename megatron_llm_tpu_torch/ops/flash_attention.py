@@ -50,7 +50,17 @@ import math
 
 import torch
 
+from megatron_llm_tpu_torch.analysis.contracts import (
+    CompileContract,
+    register_contract,
+)
 from megatron_llm_tpu_torch.telemetry.costs import note_launch
+
+# JAX :39-46: audited on the plain version (the kernel needs the card)
+register_contract(CompileContract(
+    "ops.flash_attention", collectives={"single": frozenset()},
+    tmp_bytes_budget=2 << 20,
+    notes="per (shape, statics); the audit runs the plain version"))
 
 NEG_INF = -1e30
 LOG2E = 1.4426950408889634

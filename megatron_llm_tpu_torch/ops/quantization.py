@@ -32,6 +32,18 @@ from __future__ import annotations
 
 import torch
 
+from megatron_llm_tpu_torch.analysis.contracts import (
+    CompileContract,
+    record_variant,
+    register_contract,
+)
+
+# JAX :120-126: the one-shot weight quantizer, one builder mint ever
+register_contract(CompileContract(
+    "ops.weight_quant", max_variants=1, collectives={"single": frozenset()},
+    tmp_bytes_budget=8 << 20,
+    notes="fp -> int8 decode weights, once per engine at construction"))
+
 INT8_MAX = 127.0
 
 
@@ -101,6 +113,7 @@ def quantize_decode_layers(layers):
     `prepare_decode_params` layout: per-layer trees, GLU w1 flattened):
     wqkv, wo, w1 and w2 are quantized; biases, norms, embeddings and the
     head stay floating."""
+    record_variant("ops.weight_quant", ())
     out = []
     for layer in layers:
         layer = dict(layer)

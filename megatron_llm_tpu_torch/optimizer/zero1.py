@@ -437,6 +437,10 @@ class GradOverlap:
         self.sharded = [j for j, k in enumerate(plan.layer_axes)
                         if k is not None]
         self.last_from_hooks = 0  # the last step's groups issued early
+        # the last step's overlap gauges (analysis/overlap.py): works
+        # issued while another group's backward had still to run, and
+        # the most works issued and not yet waited for at once
+        self.last_pairs = self.last_max_in_flight = 0
         self.group_of = {}
         for gi, (lo, hi) in enumerate(plan.groups):
             for layer in range(lo, hi):
@@ -449,6 +453,7 @@ class GradOverlap:
         self.pending = []  # (group index or None, handle, entries), order
         self.prev = None
         self.from_hooks = 0  # groups issued inside the backward
+        self.pairs = self.max_in_flight = 0
 
     def begin_last(self, leaves: list) -> None:
         """Before the last microbatch's backward of `leaves` (the
@@ -475,6 +480,10 @@ class GradOverlap:
         self.count[gi] += 1
         lo, hi = self.plan.groups[gi]
         if self.count[gi] == (hi - lo) * len(self.sharded):
+            # a group issued while another still runs its backward has
+            # compute to hide behind
+            self.pairs += any(c >= 0 for g, c in enumerate(self.count)
+                              if g != gi)
             self._issue_group(gi)
             self.from_hooks += 1
 
@@ -497,6 +506,7 @@ class GradOverlap:
             handle = reduce_scatter_rows(cat.reshape(-1), self.ctx.dp_group,
                                          self.ctx, async_op=True)
         self.pending.append((tag, handle, entries))
+        self.max_in_flight = max(self.max_in_flight, len(self.pending))
 
     def _issue_group(self, gi: int, grads: Optional[list] = None) -> None:
         """Pack and issue group gi: from the hooks' per-layer gradients,
@@ -559,6 +569,8 @@ class GradOverlap:
         for j, x in shards.items():
             out[self.layer_idx[j]] = x
         self.last_from_hooks = self.from_hooks
+        self.last_pairs, self.last_max_in_flight = (self.pairs,
+                                                    self.max_in_flight)
         self.reset()
         return out
 

@@ -69,3 +69,23 @@ def vocab_parallel_cross_entropy(logits: torch.Tensor, targets: torch.Tensor,
     if ctx is None or ctx.tp == 1:
         return cross_entropy(logits, targets, label_smoothing)
     return _ce_shard(logits, targets, ctx, label_smoothing)
+
+
+def vocab_parallel_argmax(logits: torch.Tensor) -> torch.Tensor:
+    """The index of the largest logit over the whole (padded) vocabulary
+    of logits whose last axis is this rank's shard, with `jnp.argmax`'s
+    rule: the lowest index wins a tie. Over tp ranks a (max, index)
+    reduction: the max all-reduced, then the lowest global index that
+    holds it; the logits are never gathered. `torch.argmax` without a
+    context or at tp = 1."""
+    ctx = get_context()
+    if ctx is None or ctx.tp == 1:
+        return torch.argmax(logits, dim=-1)
+    per = logits.shape[-1]
+    local = torch.argmax(logits, dim=-1)
+    best = logits.gather(-1, local[..., None])[..., 0].float()
+    top = all_reduce(best.clone(), ctx.tp_group, op=dist.ReduceOp.MAX,
+                     ctx=ctx)
+    index = torch.where(best == top, local + ctx.tp_rank * per,
+                        per * ctx.tp)
+    return all_reduce(index, ctx.tp_group, op=dist.ReduceOp.MIN, ctx=ctx)

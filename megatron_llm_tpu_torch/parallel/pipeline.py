@@ -357,24 +357,37 @@ def make_pipelined_loss_fn(model, pcfg: Optional[ParallelConfig] = None,
 
 
 def make_pipelined_score_fn(model, pcfg: Optional[ParallelConfig] = None,
-                            ctx=None):
-    """score(params, tokens (num_micro, b, s)) -> (num_micro, b, s - 1)
-    fp32 target log-probs, lp[..., i] = log P(tokens[..., i + 1] |
-    tokens[..., :i + 1]), on every stage (JAX :436-601): forward GPipe
-    ticks, no gradient; the last stage's head computes each microbatch's
-    log-probs as the negative vocab-parallel cross entropy (whole or over
-    tp shards). Every rank passes the whole tokens; under cp, s is a
-    multiple of cp and each rank runs its shard."""
+                            ctx=None, head=None):
+    """score(params, tokens (num_micro, b, s), targets=None) -> (num_micro,
+    b, s - 1) fp32 target log-probs, lp[..., i] = log P(tokens[..., i +
+    1] | tokens[..., :i + 1]), on every stage (JAX :436-601): forward
+    GPipe ticks, no gradient; the last stage's head computes each
+    microbatch's log-probs as the negative vocab-parallel cross entropy
+    (whole or over tp shards). Every rank passes the whole tokens; under
+    cp, s is a multiple of cp and each rank runs its shard.
+
+    With `targets` (num_micro, b, s) given, position i is scored against
+    targets[..., i] and all s positions come back. `head(logits,
+    targets)` replaces the log-probs: it maps the last stage's (b, s',
+    V / tp) vocab-parallel logits of a microbatch and their targets to
+    (b, s') fp32 values (the zero-shot tasks' losses and argmax hits)."""
     stage = _Stage(model, ctx)
     cfg = model.cfg
 
+    def log_probs(logits, targets):
+        return -vocab_parallel_cross_entropy(logits, targets)
+
+    head = head or log_probs
+
     @torch.no_grad()
-    def score(params, tokens):
+    def score(params, tokens, targets=None):
         ctx = stage.ctx
         tokens = torch.as_tensor(tokens, device=ctx.device).long()
+        whole = targets is not None
         # the targets of the whole sequence, then this rank's shard of
         # both: a shard's last target is the next shard's first token
-        targets = torch.roll(tokens, -1, dims=-1)
+        targets = torch.roll(tokens, -1, dims=-1) if not whole else \
+            torch.as_tensor(targets, device=ctx.device).long()
         n, b, s = tokens.shape
         if s % ctx.cp:
             raise ValueError(f"cp={ctx.cp} does not divide the scored "
@@ -397,14 +410,15 @@ def make_pipelined_score_fn(model, pcfg: Optional[ParallelConfig] = None,
             if stage.last:
                 h = apply_norm(out, params["final_norm"], cfg)
                 logits = lm_logits(params, cfg, tp_input(h))
-                banked[m] = -vocab_parallel_cross_entropy(logits, targets[m])
+                banked[m] = head(logits, targets[m])
             return out
 
         stage.forward_ticks(n, shape, run)
         p2p_wait(ctx)
         banked = all_gather_rows(banked.movedim(2, 0).contiguous(),
                                  ctx.cp_group, ctx).movedim(0, 2)
-        return stage.from_last(banked.contiguous())[:, :, :-1]
+        banked = stage.from_last(banked.contiguous())
+        return banked if whole else banked[:, :, :-1]
 
     return score
 

@@ -37,10 +37,17 @@ process per rank: the finetuning batch is the global batch, each rank
 computing its batch / dp rows (tasks/finetune_utils.py,
 tasks/orqa/supervised.py), and RETRIEVER-EVAL and ICT-ZEROSHOT-NQ embed
 each rank's share of the evidence into the store's per-rank shards and
-merge them. Pipeline and context parallelism are refused with the JAX
-entry's message; a GPT-family task at world size above 1 raises by name
-(ROADMAP.md). A task refuses an argv where the JAX entry does, naming
-the same missing flag. Without `--load` (or
+merge them; for them pipeline and context parallelism are refused with
+the JAX entry's message. WIKITEXT103, LAMBADA and MSDP-PROMPT run at
+every layout the JAX entry's `initialize_parallel(dp, pp, tp, cp,
+sequence_parallel)` takes (`lm_main`): each rank builds its slices of
+the model (its stage at pp > 1, its tp slices) from the init or reads
+them from `--load`; the zero-shot loop splits each batch's rows over dp
+and sums over the dp group (tasks/zeroshot/evaluate.py), and MSDP-PROMPT
+deals the samples to the dp groups, each tp/pp/cp group calling the
+whole-batch API together, and gathers the completions on rank 0, which
+writes the file (tasks/msdp/prompt.py). A task refuses an argv where the
+JAX entry does, naming the same missing flag. Without `--load` (or
 `--pretrained_checkpoint`) the model starts from its random init.
 """
 
@@ -337,16 +344,55 @@ def retriever_finetune_main(args, device, losses=None):
     return params
 
 
-def lm_main(args, device):
-    """WIKITEXT103, LAMBADA and MSDP-PROMPT (JAX :346-410) on the model of
-    `--model_name`: its tokenizer (NullTokenizer by default), its random
-    init or `--load`. Returns the zero-shot metrics dict, or the
-    MSDP-PROMPT output file."""
-    from megatron_llm_tpu_torch.arguments import args_to_configs
-    from megatron_llm_tpu_torch.finetune import model_provider
+def lm_layout(args, mcfg, pcfg, device):
+    """Install the JAX entry's layout (JAX :374-380: `initialize_parallel(
+    dp, pp, tp, cp, sequence_parallel)`) on this rank's `device` when
+    there is a process group or the layout needs one; returns the
+    context, None for one rank without a group. `main` destroys it."""
+    from megatron_llm_tpu_torch.parallel.mesh import initialize_parallel
+    from megatron_llm_tpu_torch.parallel.sharding import check_tp
+
+    check_tp(mcfg, pcfg.tensor_parallel_size)
+    if not (dist.is_initialized() or pcfg.world_size > 1):
+        return None
+    return initialize_parallel(
+        dp=pcfg.data_parallel_size, pp=pcfg.pipeline_parallel_size,
+        tp=pcfg.tensor_parallel_size, cp=pcfg.context_parallel_size,
+        sequence_parallel=pcfg.sequence_parallel,
+        backend=args.distributed_backend, device=device)
+
+
+def lm_params(args, model, mcfg, tcfg, ctx, device) -> dict:
+    """This rank's parameters: from `--load` (across ranks only the
+    pieces of the rank's slices are read, `StateLayout.region`) or from
+    `model.init(seed)`, cut to the rank's stage and tp slices."""
+    from megatron_llm_tpu_torch.parallel.sharding import shard_params
     from megatron_llm_tpu_torch.training.checkpointing import (
         load_checkpoint,
     )
+    from megatron_llm_tpu_torch.training.trainer import StateLayout
+
+    if not args.load:
+        return shard_params(model.init(seed=tcfg.seed), ctx, mcfg)
+    template = model.abstract_params()
+    region = None
+    if ctx is not None and ctx.world_size > 1:
+        region = StateLayout(ctx, mcfg, template, False, 0.0).region
+    restored = load_checkpoint(args.load, template, None, mcfg,
+                               no_load_optim=True, device=device,
+                               region=region)
+    if restored is None:
+        raise FileNotFoundError(f"no checkpoint found in {args.load}")
+    return restored[0]
+
+
+def lm_main(args, device):
+    """WIKITEXT103, LAMBADA and MSDP-PROMPT (JAX :346-410) on the model of
+    `--model_name`: its tokenizer (NullTokenizer by default), its random
+    init or `--load`, on the layout of the parallelism flags. Returns
+    the zero-shot metrics dict, or the MSDP-PROMPT output file."""
+    from megatron_llm_tpu_torch.arguments import args_to_configs
+    from megatron_llm_tpu_torch.finetune import model_provider
 
     if args.task == "MSDP-PROMPT":
         if not (args.sample_input_file and args.sample_output_file
@@ -358,19 +404,9 @@ def lm_main(args, device):
         raise SystemExit("--valid_data takes exactly one path")
     tokenizer = _tokenizer(args, "NullTokenizer")
     mcfg, pcfg, tcfg, _ = args_to_configs(args, tokenizer.vocab_size)
-    if pcfg.world_size != 1:
-        raise ValueError(f"--task {args.task} at world size "
-                         f"{pcfg.world_size}: this port runs it on one "
-                         f"card")
+    ctx = lm_layout(args, mcfg, pcfg, device)
     model = model_provider(args, mcfg, device=device)
-    if args.load:
-        restored = load_checkpoint(args.load, model.abstract_params(), None,
-                                   mcfg, no_load_optim=True, device=device)
-        if restored is None:
-            raise FileNotFoundError(f"no checkpoint found in {args.load}")
-        params = restored[0]
-    else:
-        params = model.init(seed=tcfg.seed)
+    params = lm_params(args, model, mcfg, tcfg, ctx, device)
 
     if args.task == "MSDP-PROMPT":
         from megatron_llm_tpu_torch.tasks.msdp.prompt import (
@@ -383,13 +419,15 @@ def lm_main(args, device):
     from megatron_llm_tpu_torch.tasks.zeroshot.datasets import build_dataset
     from megatron_llm_tpu_torch.tasks.zeroshot.evaluate import (
         evaluate_and_print_results,
+        is_rank_0,
     )
 
     data = build_dataset(
         args.task, args.valid_data[0], tokenizer, mcfg.seq_length,
         overlapping_eval=args.overlapping_eval,
         strict_lambada=args.strict_lambada)
-    print(f" > found {len(data)} samples.")
+    if is_rank_0():
+        print(f" > found {len(data)} samples.")
     return evaluate_and_print_results(
         args.task, model, params, data,
         micro_batch_size=args.eval_micro_batch_size or args.micro_batch_size,

@@ -12,12 +12,21 @@ Each input is generated greedily (`top_k_sampling=1`) through the
 whole-batch API, `inference/api.generate_and_post_process` (on a card
 its decode attention is K1), and the first line of the completion is
 kept.
+
+Across ranks every rank of a tp (or pp, or cp) group calls the API with
+the same request, on the installed layout's own groups (the SPMD route
+of inference/api.py). At dp > 1 sample i goes to dp group i mod dp;
+global rank 0 gathers the completions and writes the file in the input
+file's order, the file of world size 1.
 """
 
 from __future__ import annotations
 
 import json
 
+import torch.distributed as dist
+
+from megatron_llm_tpu_torch.parallel.mesh import get_context
 from megatron_llm_tpu_torch.tasks.msdp.preprocessing import word_tokenize
 
 
@@ -82,17 +91,29 @@ def generate_samples_from_file(
     with open(sample_input_file) as f:
         test_samples = [ln for ln in f.read().splitlines() if ln.strip()]
 
+    ctx = get_context()
+    if ctx is not None and ctx.world_size == 1:
+        ctx = None
+    dp, dp_rank = (1, 0) if ctx is None else (ctx.dp, ctx.dp_rank)
+    mine = {}
+    for i in range(dp_rank, len(test_samples), dp):
+        inputs = build_input(test_samples[i], prompt_type, prompts)
+        texts, _, _, _ = generate_and_post_process(
+            model, params, tokenizer, [inputs],
+            tokens_to_generate=out_seq_length, top_k_sampling=1,
+        )
+        completion = texts[0][len(inputs):]
+        completion = completion.split("\n")[0].strip()
+        mine[i] = completion.replace("<|endoftext|>", "")
+    if ctx is not None:
+        parts = [None] * ctx.world_size if ctx.rank == 0 else None
+        dist.gather_object(mine, parts, dst=0)
+        if ctx.rank != 0:
+            return sample_output_file
+        mine = {i: c for part in parts for i, c in part.items()}
     with open(sample_output_file, "w") as fout:
-        for sample in test_samples:
-            inputs = build_input(sample, prompt_type, prompts)
-            texts, _, _, _ = generate_and_post_process(
-                model, params, tokenizer, [inputs],
-                tokens_to_generate=out_seq_length, top_k_sampling=1,
-            )
-            completion = texts[0][len(inputs):]
-            completion = completion.split("\n")[0].strip()
-            completion = completion.replace("<|endoftext|>", "")
-            fout.write(completion + "\n")
+        for i in range(len(test_samples)):
+            fout.write(mine[i] + "\n")
     return sample_output_file
 
 

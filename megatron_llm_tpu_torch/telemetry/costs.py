@@ -13,7 +13,10 @@ construction. Per run:
 
 - FLOPs: `torch.utils.flop_counter`'s formulas (matmuls,
   convolutions, attention library calls) for every aten op of the run,
-  each op run as it was called (`_count_mode`);
+  each op run as it was called (`_count_mode`), and the products that
+  reach the count whole on inference tensors, which no autograd key
+  decomposes (`matmul`, `linear`, `einsum`), and the port's flash
+  forward op run plain on the CPU (`_whole_op_flops`);
 - bytes: for every aten op of the run, the bytes of the distinct tensors
   it reads and writes (view and allocation ops move nothing and count
   nothing);
@@ -48,10 +51,11 @@ from __future__ import annotations
 
 import threading
 import time
+import weakref
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional
 
-__all__ = ["CostRecord", "CostRegistry", "note_launch"]
+__all__ = ["CostRecord", "CostRegistry", "Counting", "note_launch"]
 
 
 def _key_str(key: Any) -> str:
@@ -114,6 +118,8 @@ def _count_mode():
             formula = flop_registry.get(func._overloadpacket)
             if formula is not None:
                 self.flops += formula(*args, **kwargs, out_val=out)
+            else:
+                self.flops += _whole_op_flops(func, args, out)
             name = func.__name__
             if getattr(func, "is_view", False) or "empty" in name:
                 return out
@@ -125,6 +131,77 @@ def _count_mode():
             return out
 
     return _Count()
+
+
+def _whole_op_flops(func, args, out) -> float:
+    """The FLOPs of a product that reaches the count whole, 2 a
+    multiply-add: `matmul`, `linear` and `einsum` on inference tensors
+    (no autograd key decomposes them into `mm`, `bmm` and `addmm`, which
+    flop_counter's formulas count), and the port's flash forward op on
+    the CPU, its plain version (S and PV, half of them under the causal
+    mask; on the card its wrapper reports its launch). 0 for any other
+    op."""
+    import torch
+
+    name = func._overloadpacket.__name__
+    if name == "flash_fwd" and func.namespace == "megatron_llm_tpu_torch":
+        # (b, s, g, qpk, d) rows against t positions
+        b, s, g, qpk, d = args[0].shape
+        causal = args[3] if len(args) > 3 else True
+        return 4.0 * b * s * g * qpk * args[1].shape[1] * d * (
+            0.5 if causal else 1.0)
+    if func.namespace != "aten":
+        return 0.0
+    if name in ("matmul", "linear") and isinstance(out, torch.Tensor):
+        return 2.0 * out.numel() * args[0].shape[-1]
+    if name == "einsum":
+        sizes = {}
+        for term, x in zip(args[0].replace(" ", "").split("->")[0]
+                           .split(","), args[1]):
+            sizes.update(zip(term, x.shape))
+        total = 2.0
+        for n in sizes.values():
+            total *= n
+        return total
+    return 0.0
+
+
+class Counting:
+    """The FLOPs and bytes of everything run inside the block
+    (`_count_mode`), plus the launches the kernel wrappers report
+    (`note_launch`) on this thread, or with `all_threads` on every
+    thread without an open count of its own. After the block: `flops`,
+    `nbytes` and `launches`. Building one can fail where torch's
+    dispatch-mode machinery is missing; a caller that must not fail
+    builds it first."""
+
+    def __init__(self, all_threads: bool = False):
+        self._mode = _count_mode()
+        self._all_threads = all_threads
+        self._tally = [0.0, 0.0, 0]
+        self._prev = None
+        self.flops = self.nbytes = 0.0
+        self.launches = 0
+
+    def __enter__(self) -> "Counting":
+        self._prev = (getattr(_tally, "open", None), _shared[0])
+        _tally.open = self._tally
+        if self._all_threads:
+            _shared[0] = self._tally
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        try:
+            self._mode.__exit__(*exc)
+        finally:
+            _tally.open = self._prev[0]
+            if self._all_threads:
+                _shared[0] = self._prev[1]
+        self.flops = float(self._mode.flops) + self._tally[0]
+        self.nbytes = float(self._mode.nbytes) + self._tally[1]
+        self.launches = self._tally[2]
+        return False
 
 
 @dataclass
@@ -169,18 +246,51 @@ class CostRecord:
 
 
 class CostRegistry:
-    """Cost capture keyed by (entry point, specialization). The JAX
-    registry hooks its contract registry's mint listener; the port has
-    none (ROADMAP.md A7), so its engine notes each mint (`note_mint`)
-    and counts the first run itself (`capture`)."""
+    """Cost capture keyed by (entry point, specialization). `attach()`
+    hooks the contract registry's mint listener (analysis/contracts.py),
+    as the JAX registry does: every new variant `record_variant` accepts
+    (for `owner`'s mints only, when one is given) lands in the pending
+    inventory until its first run is counted (`capture`)."""
 
-    def __init__(self, chip=None):
+    def __init__(self, chip=None, owner=None):
         self.chip = chip
+        self._owner_ref = weakref.ref(owner) if owner is not None else None
         self._lock = threading.Lock()
         self._records: Dict[tuple, CostRecord] = {}
         self._pending: Dict[tuple, float] = {}
+        self._listener = None
         self.captures = 0
         self.capture_errors = 0
+
+    def attach(self) -> "CostRegistry":
+        """Install the mint listener (idempotent). The listener holds this
+        registry by weakref only, and removes itself once the registry
+        is gone."""
+        if self._listener is not None:
+            return self
+        from megatron_llm_tpu_torch.analysis import contracts
+
+        ref, owner_ref = weakref.ref(self), self._owner_ref
+
+        def on_mint(name, key, owner):
+            reg = ref()
+            if reg is None:
+                contracts.remove_mint_listener(on_mint)
+                return
+            if owner_ref is not None and owner is not owner_ref():
+                return
+            reg.note_mint(name, key)
+
+        self._listener = on_mint
+        contracts.add_mint_listener(on_mint)
+        return self
+
+    def detach(self) -> None:
+        if self._listener is not None:
+            from megatron_llm_tpu_torch.analysis import contracts
+
+            contracts.remove_mint_listener(self._listener)
+            self._listener = None
 
     def note_mint(self, name: str, key: Any) -> None:
         with self._lock:
@@ -199,28 +309,16 @@ class CostRegistry:
         propagate: it is real work). `all_threads`: kernel launches on
         other threads count too (module doc)."""
         try:
-            mode = _count_mode()
+            count = Counting(all_threads)
         except Exception:  # noqa: BLE001: counting must never block a mint
             with self._lock:
                 self.capture_errors += 1
             return run()
-        tally = [0.0, 0.0, 0]
-        prev = getattr(_tally, "open", None)
-        prev_shared = _shared[0]
-        _tally.open = tally
-        if all_threads:
-            _shared[0] = tally
-        try:
-            with mode:
-                out = run()
-        finally:
-            _tally.open = prev
-            if all_threads:
-                _shared[0] = prev_shared
+        with count:
+            out = run()
         rec = CostRecord(contract=name, key=_key_str(key),
-                         flops=float(mode.flops) + tally[0],
-                         bytes_accessed=float(mode.nbytes) + tally[1],
-                         arg_bytes=arg_bytes, launches=tally[2])
+                         flops=count.flops, bytes_accessed=count.nbytes,
+                         arg_bytes=arg_bytes, launches=count.launches)
         self._store(rec)
         return out
 

@@ -64,6 +64,10 @@ from __future__ import annotations
 
 import torch
 
+from megatron_llm_tpu_torch.analysis.contracts import (
+    CompileContract,
+    register_contract,
+)
 from megatron_llm_tpu_torch.config import ParallelConfig, TrainConfig
 from megatron_llm_tpu_torch.models.dropout import at
 from megatron_llm_tpu_torch.optimizer import zero1
@@ -85,6 +89,51 @@ from megatron_llm_tpu_torch.parallel.sharding import (
     spec_leaves,
     stage_axis,
 )
+
+
+# The JAX package's train-step contracts (JAX :32-120, :335-342): one
+# step function a microbatch count under a trainer, and at most four
+# eval flavours. The port's own collective inventory of one step at the
+# audit's reference config (analysis/audit.py): every reduction over tp
+# and dp is an all-reduce (the tp forward's partial sums and the
+# backward of `copy_to_tp`, the gradient sums, the loss and norm
+# scalars); ZeRO-1 adds the bucket reduce-scatter (quantized: the int8
+# all-to-all) and the parameters' all-gather. JAX's tp rows also list
+# all-gather: GSPMD gathers parameters and logits there, where the
+# port's unsharded-sequence tp step keeps every operand whole or
+# vocab-parallel and gathers nothing. The step allows float64, where the
+# JAX one does not: the gradient norm's per-leaf norms accumulate in
+# fp64 so that the sum does not depend on a device's reduction order
+# (optimizer/optimizer.global_grad_norm, zero1.sum_over_layout).
+_ZERO1 = frozenset({"all-reduce", "all-gather", "reduce-scatter"})
+register_contract(CompileContract(
+    "train.step", max_variants=12,
+    collectives={
+        "single": frozenset(),
+        "tp2": frozenset({"all-reduce"}),
+        "dp2": frozenset({"all-reduce"}),
+        "dp2+telemetry": frozenset({"all-reduce"}),
+        "dp2+costs": frozenset({"all-reduce"}),
+        "dp2+zero1": _ZERO1,
+        "dp2+zero1-quant": frozenset({"all-reduce", "all-gather",
+                                      "all-to-all"}),
+        "dp2+zero1+overlap": _ZERO1,
+        "dp2tp2": frozenset({"all-reduce"}),
+        "dp2tp2+zero1": _ZERO1,
+    },
+    tmp_bytes_budget=4 << 20, allow_f64=True,
+    notes="num_microbatches buckets a trainer; the audit's specialisations "
+          "mint in the global bucket"))
+# JAX parallel/pipeline.py:1071-1078: the pp > 1 train step, one a
+# microbatch count under a trainer (declared here, beside train.step,
+# where the trainer that records it always imports it)
+register_contract(CompileContract(
+    "train.pipeline_step", max_variants=8,
+    notes="the pp > 1 train step; its collectives need a stage-sharded "
+          "model and are held by the pipeline suites"))
+register_contract(CompileContract(
+    "train.eval_step", max_variants=4,
+    notes="one per eval flavour a trainer builds: plain, pp, generic"))
 
 
 def check_layout(model, pcfg: ParallelConfig):
@@ -335,7 +384,17 @@ def make_train_step(model, tcfg: TrainConfig, pcfg: ParallelConfig,
                 if "grad_overlap" in layout else 0,
                 len(layout["gather"].pending) if "gather" in layout else 0)
 
+    def overlap_gauges():
+        """(works issued inside the backward with a later group still
+        to run, the most in flight at once) of the last step's
+        gradient reduction, (0, 0) without --overlap_grad_reduce."""
+        if "grad_overlap" not in layout:
+            return 0, 0
+        g = layout["grad_overlap"]
+        return g.last_pairs, g.last_max_in_flight
+
     train_step.drain = drain
+    train_step.overlap_gauges = overlap_gauges
     train_step.in_flight = in_flight
     train_step.groups_in_backward = groups_in_backward
     return train_step

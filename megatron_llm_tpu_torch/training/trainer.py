@@ -172,6 +172,7 @@ from megatron_llm_tpu_torch.training.microbatches import (
 )
 from megatron_llm_tpu_torch.training.tensorboard import SummaryWriter
 from megatron_llm_tpu_torch.training.timers import Timers
+from megatron_llm_tpu_torch.analysis.contracts import record_variant
 from megatron_llm_tpu_torch.training.train_step import (
     make_eval_step,
     make_train_step,
@@ -448,7 +449,7 @@ class Trainer:
         self.ledger = GoodputLedger()
         self.chip = detect_chip(devices=[self.device],
                                 override=tcfg.chip_spec)
-        self.costs = (CostRegistry(chip=self.chip)
+        self.costs = (CostRegistry(chip=self.chip, owner=self).attach()
                       if tcfg.device_cost_registry else None)
         self.sentinel = PerfSentinel(
             k_sigma=tcfg.perf_sentinel_ksigma,
@@ -608,6 +609,11 @@ class Trainer:
 
             pcfg = dataclasses.replace(self.pcfg,
                                        num_microbatches=num_microbatches)
+            # one step function a microbatch count, under this trainer
+            # (JAX :366-392)
+            record_variant("train.pipeline_step"
+                           if pcfg.pipeline_parallel_size > 1
+                           else "train.step", num_microbatches, owner=self)
             self._train_steps[num_microbatches] = make_train_step(
                 self.model, self.tcfg, pcfg, batch_builder=self.batch_builder)
         return self._train_steps[num_microbatches]
@@ -685,6 +691,7 @@ class Trainer:
             return float("nan")
         self.drain_param_gathers()
         if self._eval_step_fn is None and self.batch_builder is not None:
+            record_variant("train.eval_step", "generic", owner=self)
             model = self.model
 
             ctx = self.ctx
@@ -709,6 +716,9 @@ class Trainer:
 
             self._eval_step_fn = generic_eval
         if self._eval_step_fn is None:
+            record_variant("train.eval_step", "pp" if self.pcfg
+                           .pipeline_parallel_size > 1 else "plain",
+                           owner=self)
             self._eval_step_fn = make_eval_step(self.model)
         total, count = 0.0, 0
         iters = max_iters if max_iters is not None else self.tcfg.eval_iters
@@ -771,10 +781,12 @@ class Trainer:
     def _log_run_facts(self, params, opt_state):
         """Once, after the first step (JAX :397-515): the recompute
         policy, at pp > 1 the pipeline's, under ZeRO-1 this rank's
-        moment bytes and the plan's gradient wire bytes and buckets, and
-        on a card under --log_memory_to_tensorboard the step's peak
-        allocated and reserved bytes; printed as the run facts line and
-        written at step 0 (strings as text)."""
+        moment bytes and the plan's gradient wire bytes and buckets,
+        under --log_memory_to_tensorboard with an overlap flag the step's
+        measured overlap gauges (analysis/overlap.py), and on a card
+        under --log_memory_to_tensorboard the step's peak allocated and
+        reserved bytes; printed as the run facts line and written at
+        step 0 (strings as text)."""
         self._run_facts_logged = True
         facts = {"remat-policy": self.cfg.resolved_remat_policy}
         if self.pcfg.pipeline_parallel_size > 1:
@@ -809,6 +821,19 @@ class Trainer:
             bucket_bytes = step_plan.bucket_comm_bytes(quantized)
             facts["grad-rs-buckets"] = len(bucket_bytes)
             facts["grad-rs-bucket-bytes"] = list(bucket_bytes)
+        if self.tcfg.log_memory_to_tensorboard and (
+                self.pcfg.overlap_grad_reduce
+                or self.pcfg.overlap_param_gather):
+            # the first step's measured overlap (analysis/overlap.py;
+            # JAX :478-503 reads it from the compiled step)
+            from megatron_llm_tpu_torch.analysis.overlap import (
+                grad_overlap_report,
+            )
+
+            rep = grad_overlap_report(
+                self._train_steps.get(self._last_num_micro))
+            facts["grad-comm-overlap-pairs"] = rep.async_pairs
+            facts["grad-comm-overlap-max-in-flight"] = rep.max_in_flight
         if self.tcfg.log_memory_to_tensorboard \
                 and self._tb_writer is not None \
                 and self.device.type == "cuda":

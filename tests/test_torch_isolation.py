@@ -307,6 +307,48 @@ def test_converters_touch_no_device(path):
             assert node.arg != "device", path.name
 
 
+ANALYSIS = sorted((PKG / "analysis").glob("*.py")) + [
+    PKG / "tools" / "graft_check.py"]
+
+
+@pytest.mark.parametrize("path", ANALYSIS, ids=lambda p: p.name)
+def test_analysis_modules_import_no_torch_or_jax_at_module_level(path):
+    """The contract registry, the linter, the overlap gauges, the audit
+    and the gate import neither torch nor JAX nor the JAX package at
+    module level (the audit imports torch when it runs)."""
+    for node in ast.parse(path.read_text()).body:
+        if isinstance(node, ast.Import):
+            names = [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names = [node.module or ""]
+        else:
+            continue
+        for name in names:
+            assert name.split(".")[0] not in ("torch", "jax",
+                                              "megatron_llm_tpu"), \
+                (path.name, name)
+
+
+def test_graft_check_lint_runs_without_torch_or_jax():
+    """In a fresh interpreter where JAX and the JAX package cannot be
+    imported, the gate's lint pass exits 0 on the tree and loads no
+    torch; the registry imports alone."""
+    script = textwrap.dedent("""
+        import sys
+        for name in ("jax", "jaxlib", "megatron_llm_tpu"):
+            sys.modules[name] = None
+        from megatron_llm_tpu_torch.analysis import contracts, lint, overlap
+        from megatron_llm_tpu_torch.tools import graft_check
+        rc = graft_check.main(["lint"])
+        assert "torch" not in sys.modules, "torch imported"
+        print("rc", rc)
+    """)
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", script], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert "rc 0" in out.stdout, out.stdout + out.stderr
+
+
 RANK_PROGRAMS = sorted((REPO / "tests").glob("torch_*ranks.py"))
 
 

@@ -88,8 +88,8 @@ def runs():
     two = spawn_cpu_group(2, R.suite, jobs, timeout_s=600)
     four = spawn_cpu_group(4, R.suite, [
         ("train", (dict(dp=4), params, R.batches(3, 2, 8))),
-        ("train", (dict(dp=4, grads=True, gather=True), params,
-                   R.batches(3, 2, 8)))], timeout_s=600)
+        ("train", (dict(dp=4, grads=True, gather=True, log_memory=True),
+                   params, R.batches(3, 2, 8)))], timeout_s=600)
     out = {name: r for (name, _), r in zip(DP2, two[0])}
     n = len(DP2)
     out["skip_overlap"], out["skip_eager"] = two[0][n], two[0][n + 1]
@@ -310,6 +310,18 @@ def test_dp4_within_1e6_of_eager(runs):
     for key in ("params", "m", "v"):
         for a, b in zip(jax.tree.leaves(o[key]), jax.tree.leaves(e[key])):
             assert np.linalg.norm(a - b) <= 1e-6 * np.linalg.norm(b)
+
+
+def test_trainer_logs_the_measured_overlap_gauges(runs):
+    """Under --log_memory_to_tensorboard with the overlap flags the
+    trainer's run facts carry the first step's measured gauges
+    (analysis/overlap.py): the groups issued inside the backward with a
+    later group still to run (its 2 groups: 1) and the most reductions
+    in flight at once; without the flags, none."""
+    e, o = runs["dp4"]
+    assert o["gauges"]["grad-comm-overlap-pairs"] == 1
+    assert o["gauges"]["grad-comm-overlap-max-in-flight"] >= 2
+    assert e["gauges"] == {}
 
 
 def test_fp16_scaler_semantics(runs):

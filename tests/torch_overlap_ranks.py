@@ -69,7 +69,7 @@ RUN = dict(dp=1, pp=1, cp=1, tp=1, sp=False, zero1=True, grads=False,
            fp16=False, hidden=0.0, attn=0.0, lima=False, optimizer="adam",
            lr=1e-3, clip=1.0, wd=0.1, steps=3, save=None, load=None,
            save_interval=None, masks=False, whole_state=True,
-           pipeline_remat="tick")
+           pipeline_remat="tick", log_memory=False)
 
 
 class _Masks:
@@ -126,7 +126,8 @@ def train(opts, params, data):
             save=o["save"], load=o["load"],
             save_interval=(o["save_interval"] or o["steps"])
             if o["save"] else None,
-            async_save=True, **fp16)
+            async_save=True, log_memory_to_tensorboard=o["log_memory"],
+            **fp16)
         pcfg = ParallelConfig(
             data_parallel_size=o["dp"], pipeline_parallel_size=o["pp"],
             context_parallel_size=o["cp"], tensor_parallel_size=o["tp"],
@@ -160,7 +161,9 @@ def train(opts, params, data):
         out = {"log": log, "start": start, "iteration": state.iteration,
                "masks": masks.drawn, "groups_in_backward": [
                    f.groups_in_backward()
-                   for f in trainer._train_steps.values()]}
+                   for f in trainer._train_steps.values()],
+               "gauges": {k: v for k, v in trainer.timers.gauges().items()
+                          if k.startswith("grad-comm-overlap")}}
         if o["whole_state"]:
             if ctx is None:
                 whole, opt = state.params, state.opt_state
